@@ -1,0 +1,40 @@
+"""Carry parameters and KV pools from the JAX package into the port.
+
+The tests hand both packages the same weights: the JAX params pytree is
+turned into numpy (bf16 as float32, which numpy can hold; bf16 -> f32 ->
+bf16 is exact) and this module builds the port's dict from it.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _to_tensor(name: str, x, device, dtype: torch.dtype) -> torch.Tensor:
+    # Norm weights stay float32, as in the JAX package; every other
+    # array takes the model dtype.
+    keep = name.endswith("norm")
+    t = torch.from_numpy(np.array(x))
+    return t.to(device=device, dtype=torch.float32 if keep else dtype)
+
+
+def params_from_numpy(tree, device=None,
+                      dtype: torch.dtype = torch.bfloat16):
+    """Nested dicts / lists of numpy arrays (the JAX params pytree under
+    `jax.tree.map(np.asarray, ...)`) -> the same structure of tensors."""
+    def walk(node, name):
+        if isinstance(node, dict):
+            return {k: walk(v, k) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [walk(v, name) for v in node]
+        return _to_tensor(name, node, device, dtype)
+    return walk(tree, "")
+
+
+def pools_from_numpy(pools, head_dim: int, device=None,
+                     dtype: torch.dtype = torch.bfloat16) -> list:
+    """JAX KV pools [num_pages, kv_heads, page_size, d_lanes] (head_dim
+    padded to 128 lanes) -> port pools cut back to ``head_dim``."""
+    return [torch.from_numpy(np.array(p[..., :head_dim]))
+            .to(device=device, dtype=dtype) for p in pools]
