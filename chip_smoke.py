@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's paged serving path on one NVIDIA GPU.
+"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU.
 
 Run from the root of a checkout, on a machine with one CUDA card and
 the CUDA toolkit:
@@ -10,30 +10,64 @@ Phases (any failure exits non-zero and prints no result):
 
 1. build every kernel of `metal_flash_attention_tpu_torch/csrc/` with
    nvcc for sm_90a (one nvcc per source, started together);
-2. make Llama-3-8B parameters at full width and depth (dim 4096, 32
-   heads, 8 KV heads, head_dim 128, hidden 14336, vocab 32000, 32
-   layers) in bf16 on the card, from a torch.Generator seeded with 0;
-3. serve 6 requests (prompts of 200 to 1100 tokens, 32 new tokens each)
-   through the port's `ServingEngine` (max_batch 4, page_size 128),
-   with every kernel's launch count set to 0 just before and read just
-   after; each kernel must have been launched;
-4. check what came out: every request got its 32 tokens, all pages came
+2. serve: make Llama-3-8B parameters at full width and depth (dim 4096,
+   32 heads, 8 KV heads, head_dim 128, hidden 14336, vocab 32000, 32
+   layers) in bf16 on the card, from a torch.Generator seeded with 0,
+   and serve 6 requests (prompts of 200 to 1100 tokens, 32 new tokens
+   each) through the port's `ServingEngine` (max_batch 4, page_size
+   128), with the paged kernels' launch counts set to 0 just before and
+   read just after; each must have been launched;
+3. check the serve: every request got its 32 tokens, all pages came
    back, and on a 2-layer cut of the same weights the paged path's
    logits agree with a dense reference (`ops.reference`) within bf16
-   tolerance (relative rms error and max abs error, REF_*);
-5. hold each kernel against its plain PyTorch version at the shapes the
-   engine ran (decode at batch 4 with lengths up to ~1.1k, prefill with
-   q_chunk 128 and the last partial chunk) at the bf16 tier, MIXED_TOL,
-   and time both: device time per call from torch.profiler, wall time
-   per call from CUDA events.
+   tolerance (REF_*);
+4. hold both paged kernels against their plain version at the shapes the
+   engine ran, then free the serve's weights;
+5. train: Llama-3-8B widths cut to 4 layers (at full depth the bf16
+   weights, their float32 shadow and AdamW's two float32 moments come
+   to about 101 GB, more than the card's 80 GB; 4 layers need about
+   30 GB plus activations), one sequence of 8,193 tokens (the model
+   sees 8,192, Llama-3's context), 4 AdamW steps on the same batch
+   through `models.optim.make_train_step` with its defaults (optax's:
+   lr 1e-4, weight decay 1e-4) over `models.llama.loss_fn` (fused
+   cross-entropy) with the flash-attention launch counts set to 0 just
+   before and read just after: each of the three kernels must run 4
+   times a step (once per layer), every loss must be finite and the
+   last below the first.  nvidia-smi samples the card's clock and power
+   during the steps, and one more step runs under torch.profiler
+   (`train_profile:`: device time by kernel family, busy share);
+6. train_reference: on a 2-layer cut of the trained weights at 2,048
+   tokens, the loss and every parameter gradient of `llama.loss_fn`
+   (the kernels) against a loss built here from the port's blocks with
+   the plain attention (`ops.reference.attention_reference`) under
+   torch autograd (TRAIN_*); then the same reading twice more with a
+   fault planted in the kernel path (dK/dV losing one q head of each
+   group; the forward's scale 1/d), each of which the limits must see;
+7. hold the three flash-attention kernels against their plain versions
+   at the training shape (q [1, 32, 8192, 128], k/v [1, 8, 8192, 128],
+   causal; the forward also at q_len 1000 against kv_len 1536 with a
+   window of 512) by the worst relative rms error of any 64-row tile of
+   one head (KERNEL_TILE_REL_RMS), with a planted one-tile fault
+   for each output that the tile limit must see; the plain backward
+   runs one kv head at a time.  Then time each kernel, its plain
+   version and, where one PyTorch call computes the same function, that
+   call (`scaled_dot_product_attention`; a yardstick that the port
+   never calls).
 
-Output: a `serve` line, the card's name and power limit as nvidia-smi
-gives them, a `kernels` JSON line, and as the last line
+Every kernel's `bound_ms` is the least time the card could take for the
+same work: the larger of the bytes it must move (each input read once,
+each output written once) over 3.35 TB/s and the operations this run's
+data needs (visible query-key pairs only) over 989 TFLOP/s in bf16.
+
+Output: `serve`, `reference`, `train`, `train_profile`,
+`train_reference` and `flash_checks` lines, the card's name and power limit as nvidia-smi gives them, a `kernels` JSON
+line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -56,6 +90,41 @@ REFERENCE_PROMPT = 300
 # 0.9% and 0.047.
 REF_REL_RMS = 2e-2
 REF_MAX_ABS = 1e-1
+
+TRAIN_LAYERS = 4
+TRAIN_TOKENS = 8192
+TRAIN_STEPS = 4
+TRAIN_REF_LAYERS = 2
+TRAIN_REF_TOKENS = 2048
+# The forward's second check shape: q_len != kv_len with a window
+# (q_len, kv_len, window).
+WINDOW_CASE = (1000, 1536, 512)
+# The kernel loss against the hand-built plain-attention loss, and the
+# worst relative rms error over every parameter gradient.  The two paths
+# round bf16 activations and gradients at other places (the kernels
+# round P and dS to bf16 before their products); on an H100 they differ
+# by 3.5e-4 in the loss and by 1.6% (worst tensor) in the gradients.
+# Each run also plants two faults in the kernel path (`train_reference`)
+# and fails unless these limits see both: dK/dV losing one q head of
+# each group reads 56% in the worst gradient (the loss, a forward
+# quantity, does not move); the forward's scale at 1/d reads 1.1e-2 in
+# the loss and 358% in a gradient.
+TRAIN_LOSS_ABS = 2e-3
+TRAIN_GRAD_REL_RMS = 4e-2
+# Each kernel's outputs (o; dq, dk, dv) against its plain version, on the
+# reference's own scale (`closeness`): the worst relative rms error of
+# any TILE_ROWS-row tile of one head, which also bounds the error over
+# the whole tensor.  Sound kernels read 0.23-0.29% on an H100 (bf16
+# rounding of P, dS and the outputs); each flash check also plants a
+# one-tile fault in the kernel's output, read at 6.2-9.0%, and fails
+# unless the limit sees it.
+TILE_ROWS = 64
+KERNEL_TILE_REL_RMS = 1.5e-2
+
+# NVIDIA H100 SXM data sheet, dense: bf16 tensor cores and HBM3.
+PEAK_BF16_FLOPS = 989e12
+PEAK_HBM_BYTES_PER_S = 3.35e12
+KV_HEADS, Q_HEADS, HEAD_DIM = 8, 32, 128
 
 
 def fail(msg: str) -> None:
@@ -84,8 +153,7 @@ def timed(fn, iters: int) -> tuple[float, float]:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    device_us = sum(e.device_time_total for e in prof.events()
-                    if e.device_type == torch.autograd.DeviceType.CUDA)
+    device_us = sum(e.device_time_total for e in device_kernels(prof))
     if device_us <= 0:
         fail("the profiler saw no device time")
     start = torch.cuda.Event(enable_timing=True)
@@ -98,9 +166,127 @@ def timed(fn, iters: int) -> tuple[float, float]:
     return device_us / 1e3 / iters, start.elapsed_time(end) / iters
 
 
+class CardSampler:
+    """nvidia-smi sampling the card's SM clock, power draw and
+    temperature every 100 ms, from construction to `stop()`."""
+
+    FIELDS = ("clocks.sm", "power.draw", "temperature.gpu")
+
+    def __init__(self):
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=" + ",".join(self.FIELDS),
+             "--format=csv,noheader,nounits", "-lms", "100"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+
+    def stop(self) -> dict:
+        """{field: [min, median, max]} over the samples taken."""
+        self.proc.terminate()
+        out, _ = self.proc.communicate(timeout=30)
+        rows = []
+        for line in out.splitlines():
+            try:
+                rows.append([float(x) for x in line.split(",")])
+            except ValueError:
+                continue
+        if not rows:
+            return {"samples": 0}
+        cols = np.array(rows)
+        return {"samples": len(rows), **{
+            f: [float(cols[:, i].min()), float(np.median(cols[:, i])),
+                float(cols[:, i].max())]
+            for i, f in enumerate(self.FIELDS)}}
+
+
+def device_kernels(prof) -> list:
+    """The card's kernels in a profile, without the ranges that
+    `record_function` annotations (such as the optimizer's step) also
+    put on the device's timeline."""
+    import torch
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def closeness(got, ref) -> dict:
+    """A kernel's output against its plain version, on the reference's
+    own scale: the relative rms error ||got - ref|| / ||ref|| over the
+    tensor; the worst such ratio over the TILE_ROWS-row tiles of each
+    head (the second axis from the end), so that a fault confined to one
+    tile cannot hide among the rest; and the max abs error."""
+    import torch.nn.functional as F
+
+    ref = ref.float()
+    err = got.float() - ref
+
+    def per_tile(x):
+        x = x.pow(2).sum(dim=-1)
+        x = F.pad(x, (0, -x.shape[-1] % TILE_ROWS))
+        return x.unflatten(-1, (-1, TILE_ROWS)).sum(dim=-1)
+
+    e2, r2 = per_tile(err), per_tile(ref)
+    floor = 1e-12 * float(r2.mean()) + 1e-30
+    return {"rel_rms": float((e2.sum() / r2.sum()).sqrt()),
+            "tile_rel_rms": float((e2 / r2.clamp_min(floor)).sqrt().max()),
+            "max_abs_err": float(err.abs().max())}
+
+
+def within_limits(reading: dict) -> bool:
+    return reading["tile_rel_rms"] <= KERNEL_TILE_REL_RMS
+
+
+@contextlib.contextmanager
+def planted(module, name: str, make):
+    """`module.name` replaced by `make(original)` inside the block: a
+    fault planted in the kernel path, to show that a check sees it."""
+    original = getattr(module, name)
+    setattr(module, name, make(original))
+    try:
+        yield
+    finally:
+        setattr(module, name, original)
+
+
+def lost_group_head(dkv):
+    """flash_bwd_dkv summing 3 of each group's 4 q heads: a group loop
+    that stops one head early."""
+    def run(q, k, v, do, lse, d_term, **kw):
+        g = q.shape[1] // k.shape[1]
+        do, d_term = do.clone(), d_term.clone()
+        do[:, g - 1::g] = 0
+        d_term[:, g - 1::g] = 0
+        return dkv(q, k, v, do, lse, d_term, **kw)
+    return run
+
+
+def unrooted_scale(fwd):
+    """flash_fwd with the softmax scale 1/d instead of 1/sqrt(d); the
+    backward keeps the right one."""
+    def run(q, k, v, *, scale, **kw):
+        return fwd(q, k, v, scale=scale ** 2, **kw)
+    return run
+
+
+def bound(flops: float, nbytes: float) -> tuple[float, str]:
+    """(bound_ms, bound_by): the larger of the two least times."""
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def visible_pairs(q_len: int, kv_len: int, causal: bool,
+                  window) -> int:
+    """Query-key pairs that attention with the port's rule (bottom-right
+    causal, window of the last `window` keys) computes."""
+    qpos = np.arange(q_len, dtype=np.int64) + (kv_len - q_len)
+    hi = np.minimum(kv_len - 1, qpos) if causal else np.full_like(
+        qpos, kv_len - 1)
+    lo = np.maximum(0, qpos - window + 1) if window else np.zeros_like(qpos)
+    return int(np.maximum(0, hi - lo + 1).sum())
+
+
 def serve(params, cfg, prompts, dev):
-    """The main path: the port's engine over every request; returns the
-    engine, request ids, seconds and steps."""
+    """The serving path: the port's engine over every request; returns
+    the engine, request ids, seconds and steps."""
     import torch
     from metal_flash_attention_tpu_torch import ServingEngine
 
@@ -144,17 +330,8 @@ def reference_check(params, cfg, dev) -> tuple[float, float]:
         logits, cache = serving.paged_chunk_step(
             cut, tokens[:, i:i + PAGE], ccfg, cache)
 
-    pos = torch.arange(REFERENCE_PROMPT, device=dev)[None]
-    cos, sin = llama.rope_frequencies(ccfg, pos)
-    x = cut["embed"][tokens].to(ccfg.dtype)
-    for layer in cut["layers"]:
-        q, k, v = serving._layer_qkv(layer, x, ccfg, cos, sin)
-        o = attention_reference(q, k, v, causal=True).to(ccfg.dtype)
-        x = x + (o.transpose(1, 2).reshape(1, REFERENCE_PROMPT, -1)
-                 @ layer["wo"]).to(x.dtype)
-        x = llama.mlp_block(layer, x, ccfg)
-    x = llama.rms_norm(x, cut["final_norm"], ccfg.norm_eps)
-    ref = (x @ cut["lm_head"]).float()[:, -logits.shape[1]:]
+    ref = (plain_hidden(cut, tokens, ccfg) @ cut["lm_head"]).float()
+    ref = ref[:, -logits.shape[1]:]
     if not torch.isfinite(logits).all():
         fail("paged path gave non-finite logits")
     err = logits - ref
@@ -162,8 +339,32 @@ def reference_check(params, cfg, dev) -> tuple[float, float]:
             float(err.abs().max()))
 
 
-def kernel_checks(dev, launches) -> list[dict]:
-    """Each kernel against its plain version at the engine's shapes."""
+def plain_hidden(params, tokens, cfg):
+    """A dense forward built from the port's blocks with the plain
+    attention (`attention_reference`, float32 softmax, differentiable):
+    final-norm hidden states [batch, seq, dim]."""
+    import torch
+    from metal_flash_attention_tpu_torch.models import llama
+    from metal_flash_attention_tpu_torch.ops.reference import (
+        attention_reference,
+    )
+
+    b, s = tokens.shape
+    pos = torch.arange(s, device=tokens.device)[None].expand(b, s)
+    cos, sin = llama.rope_frequencies(cfg, pos)
+    x = params["embed"][tokens].to(cfg.dtype)
+    for layer in params["layers"]:
+        q, k, v = llama.attention_qkv(layer, x, cfg, cos, sin)
+        o = attention_reference(q, k, v, causal=True).to(cfg.dtype)
+        x = x + (o.transpose(1, 2).reshape(b, s, -1)
+                 @ layer["wo"]).to(x.dtype)
+        x = llama.mlp_block(layer, x, cfg)
+    return llama.rms_norm(x, params["final_norm"], cfg.norm_eps)
+
+
+def paged_kernel_checks(dev, launches) -> list[dict]:
+    """Each paged kernel against its plain version at the engine's
+    shapes."""
     import torch
     from metal_flash_attention_tpu_torch.ops import paged_attention as pa
     from metal_flash_attention_tpu_torch.utils.tolerances import (
@@ -172,7 +373,7 @@ def kernel_checks(dev, launches) -> list[dict]:
     )
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
-    kvh, qh, d = 8, 32, 128
+    kvh, qh, d = KV_HEADS, Q_HEADS, HEAD_DIM
 
     def pools(lengths):
         max_pages = -(-max(lengths) // PAGE)
@@ -191,8 +392,19 @@ def kernel_checks(dev, launches) -> list[dict]:
         q4 = q if q.dim() == 4 else q[:, :, None]
         po, plse = pa._paged_attention_plain(q4, cache, scale=d ** -0.5,
                                              window_size=None)
-        return (max_abs_err(o, po.reshape(o.shape)),
+        return (closeness(o, po.reshape(o.shape)),
                 max_abs_err(lse, plse.reshape(lse.shape)))
+
+    def work(q, cache):
+        """(FLOPs, bytes) of one call: K/V of each sequence read once,
+        q read and o (and lse) written once."""
+        q4 = q if q.dim() == 4 else q[:, :, None]
+        chunk = q4.shape[2]
+        lengths = cache.lengths.tolist()
+        pairs = sum(visible_pairs(chunk, n, True, None) for n in lengths)
+        kv_bytes = sum(lengths) * kvh * d * 2 * 2
+        io_bytes = 2 * q4.numel() * 2 + q4[..., 0].numel() * 4
+        return 4 * d * qh * pairs, kv_bytes + io_bytes
 
     results = []
     # Decode: batch 4 at the lengths the engine's longest requests reach.
@@ -217,27 +429,414 @@ def kernel_checks(dev, launches) -> list[dict]:
     }
     for name, (fn, cases, shape) in shapes.items():
         errs = [compare(fn, q, c) for q, c in cases]
-        o_err = max(e[0] for e in errs)
+        o_read = {key: max(e[0][key] for e in errs) for key in errs[0][0]}
         lse_err = max(e[1] for e in errs)
         q, c = cases[0]
         q4 = q if q.dim() == 4 else q[:, :, None]
         ms, wall_ms = timed(lambda: fn(q, c), 50)
         plain_ms, plain_wall_ms = timed(lambda: pa._paged_attention_plain(
             q4, c, scale=d ** -0.5, window_size=None), 20)
-        if o_err > MIXED_TOL.o or lse_err > MIXED_TOL.lse:
-            fail(f"{name} disagrees with its plain version: o {o_err}, "
+        if not within_limits(o_read) or lse_err > MIXED_TOL.lse:
+            fail(f"{name} disagrees with its plain version: o {o_read}, "
                  f"lse {lse_err}")
+        bound_ms, bound_by = bound(*work(q, c))
         results.append({
             "name": name, "route": "cuda",
             "source": "metal_flash_attention_tpu_torch/csrc/"
                       "paged_attention.cu",
             "replaces": "metal_flash_attention_tpu/ops/"
                         "paged_attention.py:183",
-            "launches": launches[name], "max_abs_err": o_err,
-            "lse_max_abs_err": lse_err,
-            "tol": {"o": MIXED_TOL.o, "lse": MIXED_TOL.lse},
-            "ms": ms, "plain_ms": plain_ms, "wall_ms": wall_ms,
+            "launches": launches[name], "max_abs_err": o_read["max_abs_err"],
+            "o": o_read, "lse_max_abs_err": lse_err,
+            "limits": {"tile_rel_rms": KERNEL_TILE_REL_RMS,
+                       "lse_abs": MIXED_TOL.lse},
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None, "wall_ms": wall_ms,
             "plain_wall_ms": plain_wall_ms, "shape": shape})
+    return results
+
+
+def train(dev, card):
+    """The training path at the slice's configuration; returns the
+    trained parameters, the config and the flash launch counts."""
+    import torch
+    from metal_flash_attention_tpu_torch.models import llama, optim
+    from metal_flash_attention_tpu_torch.ops import flash_attention as fa
+    from metal_flash_attention_tpu_torch.ops import flash_attention_bwd as fb
+
+    cfg = llama.LlamaConfig.llama3_8b(n_layers=TRAIN_LAYERS)
+    params = llama.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    rng = np.random.default_rng(SEED + 3)
+    tokens = torch.as_tensor(
+        rng.integers(0, cfg.vocab_size, (1, TRAIN_TOKENS + 1)),
+        device=dev)
+    init_fn, step_fn = optim.make_train_step(
+        lambda p, batch: llama.loss_fn(p, batch, cfg))
+    state = init_fn(params)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    fa.reset_launch_counts()
+    fb.reset_launch_counts()
+    losses, seconds = [], []
+    sampler = CardSampler()
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        params, state, loss = step_fn(params, state, tokens)
+        losses.append(float(loss))
+        torch.cuda.synchronize(dev)
+        seconds.append(time.perf_counter() - t0)
+    clocks = sampler.stop()
+    launches = {**fa.LAUNCH_COUNTS, **fb.LAUNCH_COUNTS}
+    peak = torch.cuda.max_memory_allocated(dev)
+
+    per_step = TRAIN_LAYERS
+    for name, n in launches.items():
+        if n != per_step * TRAIN_STEPS:
+            fail(f"kernel {name} launched {n} times in {TRAIN_STEPS} "
+                 f"steps, expected {per_step} a step")
+    if not all(np.isfinite(losses)):
+        fail(f"non-finite training loss: {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"training loss did not fall: {losses}")
+    steady = seconds[1:]
+    print("train: " + json.dumps({
+        "config": f"llama3_8b widths, {TRAIN_LAYERS} layers, bf16",
+        "tokens_per_step": TRAIN_TOKENS, "steps": TRAIN_STEPS,
+        "losses": losses, "seconds_per_step": seconds,
+        "tokens_per_s": TRAIN_TOKENS * len(steady) / sum(steady),
+        "launches": launches, "max_memory_allocated": peak,
+        "card": card, "card_during_steps": clocks}), flush=True)
+    profile_train_step(step_fn, params, state, tokens, dev)
+    del state
+    return params, cfg, launches
+
+
+def profile_train_step(step_fn, params, state, tokens, dev) -> None:
+    """One more train step under torch.profiler: device time by kernel
+    family and the card's busy share of the step's wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step_fn(params, state, tokens)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+    kernels = device_kernels(prof)
+    families = {"flash_fwd": "flash_fwd_kernel",
+                "flash_bwd_dq": "flash_bwd_dq_kernel",
+                "flash_bwd_dkv": "flash_bwd_dkv_kernel",
+                "optimizer": "multi_tensor"}
+    by_family: dict[str, float] = {}
+    by_name: dict[str, list] = {}
+    for e in kernels:
+        family = next((f for f, key in families.items() if key in e.name),
+                      None)
+        if family is None:
+            family = ("gemm" if any(key in e.name.lower() for key in (
+                "gemm", "xmma", "nvjet", "cutlass", "sm90")) else "other")
+        by_family[family] = by_family.get(family, 0.0) + e.device_time_total
+        slot = by_name.setdefault(e.name[:90], [0, 0.0])
+        slot[0] += 1
+        slot[1] += e.device_time_total
+    busy_us = sum(by_family.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
+    print("train_profile: " + json.dumps({
+        "wall_ms": wall * 1e3, "device_ms": busy_us / 1e3,
+        "busy_share": busy_us / 1e3 / (wall * 1e3),
+        "device_ms_by_family": {k: v / 1e3 for k, v in sorted(
+            by_family.items(), key=lambda kv: -kv[1])},
+        "top_kernels": [{"name": n, "calls": c, "ms": t / 1e3}
+                        for n, (c, t) in top]}), flush=True)
+
+
+def train_reference(params, cfg, dev) -> dict:
+    """The kernel loss and gradients against the plain-attention loss on
+    a 2-layer cut at 2,048 tokens."""
+    import torch
+    from metal_flash_attention_tpu_torch.models import llama
+    from metal_flash_attention_tpu_torch.ops import flash_attention as fa
+    from metal_flash_attention_tpu_torch.ops import flash_attention_bwd as fb
+    from metal_flash_attention_tpu_torch.utils.tree import flatten
+
+    cut = dict(params, layers=params["layers"][:TRAIN_REF_LAYERS])
+    ccfg = dataclasses.replace(cfg, n_layers=TRAIN_REF_LAYERS)
+    rng = np.random.default_rng(SEED + 4)
+    tokens = torch.as_tensor(
+        rng.integers(0, cfg.vocab_size, (1, TRAIN_REF_TOKENS + 1)),
+        device=dev)
+
+    def plain_loss(p):
+        x = plain_hidden(p, tokens[:, :-1], ccfg)
+        logp = torch.log_softmax((x @ p["lm_head"]).float(), dim=-1)
+        return -logp.gather(-1, tokens[:, 1:, None]).mean()
+
+    def value_and_grads(loss_fn):
+        leaves, rebuild = flatten(cut)
+        work = [t.detach().requires_grad_(True) for t in leaves]
+        value = loss_fn(rebuild(work))
+        grads = torch.autograd.grad(value, work)
+        return float(value.detach()), grads
+
+    ref_loss, ref_grads = value_and_grads(plain_loss)
+
+    def reading(loss_fn) -> dict:
+        loss, grads = value_and_grads(loss_fn)
+        rel = []
+        for g, r in zip(grads, ref_grads):
+            if not torch.isfinite(g).all():
+                fail("non-finite gradient on the kernel path")
+            g, r = g.float(), r.float()
+            rel.append(float((g - r).pow(2).mean().sqrt()
+                             / r.pow(2).mean().sqrt().clamp_min(1e-30)))
+        return {"loss": loss, "loss_abs_err": abs(loss - ref_loss),
+                "grad_rel_rms_max": max(rel),
+                "grad_rel_rms_median": float(np.median(rel))}
+
+    def seen(r: dict) -> bool:
+        return (r["loss_abs_err"] > TRAIN_LOSS_ABS
+                or r["grad_rel_rms_max"] > TRAIN_GRAD_REL_RMS)
+
+    def kernel_loss(p):
+        return llama.loss_fn(p, tokens, ccfg)
+
+    out = {"layers": TRAIN_REF_LAYERS, "tokens": TRAIN_REF_TOKENS,
+           "plain_loss": ref_loss, **reading(kernel_loss),
+           "tol": {"loss_abs": TRAIN_LOSS_ABS,
+                   "grad_rel_rms": TRAIN_GRAD_REL_RMS}}
+    # Controls: the same reading with a fault planted in the kernel path.
+    faults = {"dkv_lost_group_head": (fb, "_dkv_cuda", lost_group_head),
+              "fwd_scale_1_over_d": (fa, "_forward_cuda", unrooted_scale)}
+    out["planted_faults"] = {}
+    for name, (module, attr, make) in faults.items():
+        with planted(module, attr, make):
+            out["planted_faults"][name] = reading(kernel_loss)
+    print("train_reference: " + json.dumps(out), flush=True)
+    if seen(out):
+        fail("the kernel path's loss or gradients disagree with the "
+             "plain-attention reference")
+    for name, r in out["planted_faults"].items():
+        if not seen(r):
+            fail(f"the train_reference limits do not see the planted "
+                 f"fault {name}")
+    return out
+
+
+def flash_kernel_checks(dev, launches) -> list[dict]:
+    """The three flash-attention kernels against their plain versions at
+    the training shape (and the forward at the window shape), with their
+    times, bounds and the SDPA yardstick.  Each check also reads a
+    planted one-tile fault, which its tile limit must see."""
+    import torch
+    import torch.nn.functional as F
+    from metal_flash_attention_tpu_torch.ops import flash_attention as fa
+    from metal_flash_attention_tpu_torch.ops import flash_attention_bwd as fb
+    from metal_flash_attention_tpu_torch.ops.reference import (
+        attention_reference,
+        attention_reference_grads,
+    )
+    from metal_flash_attention_tpu_torch.utils.tolerances import (
+        MIXED_TOL,
+        max_abs_err,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    d = HEAD_DIM
+    scale = d ** -0.5
+    group = Q_HEADS // KV_HEADS
+    n = TRAIN_TOKENS
+    # Where the faults go: the last query tile of the last q head, whose
+    # diagonal key tile ends at n - TILE_ROWS; the group of q heads of
+    # the last kv head; a key tile in the middle.
+    last = slice(n - TILE_ROWS, n)
+    h, kvh = Q_HEADS - 1, KV_HEADS - 1
+    grp = slice(kvh * group, (kvh + 1) * group)
+    mid = slice(n // 2, n // 2 + TILE_ROWS)
+    readings, problems = {}, []
+
+    def qkv(rows, cols):
+        def t(heads, length):
+            return torch.randn((1, heads, length, d), generator=gen,
+                               device=dev).to(torch.bfloat16)
+        return (t(Q_HEADS, rows), t(KV_HEADS, cols), t(KV_HEADS, cols),
+                t(Q_HEADS, rows))
+
+    def check(name, got, ref, fault=None):
+        r = closeness(got, ref)
+        if fault is not None:
+            r["planted_fault"] = closeness(fault, ref)
+        readings[name] = r
+        if not within_limits(r):
+            problems.append(f"{name} disagrees with its plain version")
+        if fault is not None and within_limits(r["planted_fault"]):
+            problems.append(f"the {name} check does not see a one-tile "
+                            "fault")
+
+    def by_kv_head(fn, q, k, v, do):
+        """fn (a plain backward) over one kv head and its group of q
+        heads at a time, which keeps its float32 [group, n, n]
+        intermediates near 1 GB each."""
+        out = [torch.empty(t.shape, dtype=torch.float32, device=dev)
+               for t in (q, k, v)]
+        for j in range(KV_HEADS):
+            g = slice(j * group, (j + 1) * group)
+            one = slice(j, j + 1)
+            for o_, part in zip(out, fn(q[:, g], k[:, one], v[:, one],
+                                        do[:, g])):
+                o_[:, g if o_.shape[1] == Q_HEADS else one] = part
+        return out
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    src = "metal_flash_attention_tpu_torch/csrc/"
+    jax_src = "metal_flash_attention_tpu/ops/"
+    results = []
+
+    # flash_fwd at the training shape.  Fault: the last query tile of the
+    # last head without its diagonal key tile (a key loop that stops one
+    # tile early).
+    q, k, v, do = qkv(n, n)
+    o, lse = fa.flash_attention_forward(q, k, v, causal=True)
+    po, plse = fa._forward_plain(q, k, v, causal=True, window_size=None,
+                                 scale=scale, out_dtype=torch.float32)
+    fault = o.clone()
+    fault[:, h:h + 1, last] = attention_reference(
+        q[:, h:h + 1, last], k[:, kvh:kvh + 1, :n - TILE_ROWS],
+        v[:, kvh:kvh + 1, :n - TILE_ROWS], scale=scale).to(o.dtype)
+    check("flash_fwd.o", o, po, fault)
+    lse_errs = [max_abs_err(lse, plse)]
+    del po, plse, fault
+    rows, cols, window = WINDOW_CASE
+    wq, wk, wv, _ = qkv(rows, cols)
+    wo, wlse = fa.flash_attention_forward(wq, wk, wv, causal=True,
+                                          window_size=window)
+    wpo, wplse = fa._forward_plain(wq, wk, wv, causal=True,
+                                   window_size=window, scale=scale,
+                                   out_dtype=torch.float32)
+    check("flash_fwd.o_window", wo, wpo)
+    lse_errs.append(max_abs_err(wlse, wplse))
+    if max(lse_errs) > MIXED_TOL.lse:
+        problems.append(f"flash_fwd's lse disagrees: {lse_errs}")
+    del wq, wk, wv, wo, wlse, wpo, wplse
+    torch.cuda.empty_cache()
+
+    # flash_bwd_dq and flash_bwd_dkv on the same inputs.  Faults: dQ of
+    # the forward's faulty tile; dK/dV of the middle key tile of the last
+    # kv head without the group's last query tile (a query-tile loop
+    # that stops one tile early).
+    dq, dk, dv = fb.flash_attention_backward(q, k, v, do, o, lse,
+                                             causal=True)
+    for name, t in (("dq", dq), ("dk", dk), ("dv", dv)):
+        if not torch.isfinite(t).all():
+            problems.append(f"non-finite {name} from the backward kernels")
+    rdq, rdk, rdv = by_kv_head(
+        lambda *a: attention_reference_grads(*a, causal=True,
+                                             scale=scale)[:3], q, k, v, do)
+    fdq = dq.clone()
+    fdq[:, h:h + 1, last] = attention_reference_grads(
+        q[:, h:h + 1, last], k[:, kvh:kvh + 1, :n - TILE_ROWS],
+        v[:, kvh:kvh + 1, :n - TILE_ROWS], do[:, h:h + 1, last],
+        scale=scale)[0].to(dq.dtype)
+    _, cdk, cdv, *_ = attention_reference_grads(
+        q[:, grp, last], k[:, kvh:kvh + 1], v[:, kvh:kvh + 1],
+        do[:, grp, last], causal=True, scale=scale)
+    fdk, fdv = dk.clone(), dv.clone()
+    fdk[:, kvh, mid] -= cdk[:, 0, mid].to(dk.dtype)
+    fdv[:, kvh, mid] -= cdv[:, 0, mid].to(dv.dtype)
+    check("flash_bwd_dq.dq", dq, rdq, fdq)
+    check("flash_bwd_dkv.dk", dk, rdk, fdk)
+    check("flash_bwd_dkv.dv", dv, rdv, fdv)
+    del rdq, rdk, rdv, fdq, fdk, fdv, cdk, cdv
+    torch.cuda.empty_cache()
+    print("flash_checks: " + json.dumps({
+        "readings": readings, "lse_max_abs_err": lse_errs,
+        "limits": {"tile_rel_rms": KERNEL_TILE_REL_RMS,
+                   "lse_abs": MIXED_TOL.lse}}), flush=True)
+    if problems:
+        fail("; ".join(problems))
+
+    ms, wall_ms = timed(lambda: fa.flash_attention_forward(
+        q, k, v, causal=True), 20)
+    plain_ms, _ = timed(lambda: fa._forward_plain(
+        q, k, v, causal=True, window_size=None, scale=scale,
+        out_dtype=torch.bfloat16), 3)
+    lib_ms, _ = timed(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), 20)
+    pairs = visible_pairs(n, n, True, None) * Q_HEADS
+    bound_ms, bound_by = bound(4 * d * pairs, nbytes(q, k, v, o, lse))
+    limits = {"tile_rel_rms": KERNEL_TILE_REL_RMS}
+    shape = "q [1, 32, 8192, 128], k/v [1, 8, 8192, 128] causal"
+    results.append({
+        "name": "flash_fwd", "route": "cuda",
+        "source": src + "flash_attention.cu",
+        "replaces": jax_src + "flash_attention.py:223 (and :552, the "
+                    "visible-blocks-only variant)",
+        "launches": launches["flash_fwd"],
+        "max_abs_err": max(readings["flash_fwd.o"]["max_abs_err"],
+                           readings["flash_fwd.o_window"]["max_abs_err"]),
+        "o": readings["flash_fwd.o"],
+        "o_window": readings["flash_fwd.o_window"],
+        "lse_max_abs_err": max(lse_errs),
+        "limits": dict(limits, lse_abs=MIXED_TOL.lse),
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": lib_ms, "wall_ms": wall_ms,
+        "library": "F.scaled_dot_product_attention(is_causal=True, "
+                   "enable_gqa=True)",
+        "shape": shape + " (timed); q_len 1000 vs kv_len 1536, "
+                 "window 512"})
+
+    lse_c = lse.contiguous()
+    d_term = (do.float() * o.float()).sum(dim=-1)
+    kw = dict(causal=True, window_size=None, scale=scale)
+    dq_ms, dq_wall = timed(lambda: fb._dq_cuda(q, k, v, do, lse_c, d_term,
+                                               **kw), 10)
+    dkv_ms, dkv_wall = timed(lambda: fb._dkv_cuda(q, k, v, do, lse_c,
+                                                  d_term, **kw), 10)
+    plain_bwd_ms, _ = timed(lambda: by_kv_head(
+        lambda *a: fb._backward_plain(*a, **kw), q, k, v, do), 2)
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    sdpa_o = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                            enable_gqa=True)
+    lib_bwd_ms, _ = timed(lambda: torch.autograd.grad(
+        sdpa_o, leaves, do, retain_graph=True), 10)
+
+    def sdpa_fwd_bwd():
+        out = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                             enable_gqa=True)
+        torch.autograd.grad(out, leaves, do)
+    lib_fwd_bwd_ms, _ = timed(sdpa_fwd_bwd, 10)
+
+    io = nbytes(q, k, v, do, lse_c, d_term)
+    common = {"route": "cuda", "source": src + "flash_attention_bwd.cu",
+              "limits": limits, "plain_ms": plain_bwd_ms,
+              "plain_computes": "dq, dk and dv together, one kv head at "
+                                "a time",
+              "library_ms": lib_bwd_ms,
+              "library": "backward of F.scaled_dot_product_attention("
+                         "is_causal=True, enable_gqa=True): dq, dk, dv",
+              "library_fwd_bwd_ms": lib_fwd_bwd_ms, "shape": shape}
+    bound_ms, bound_by = bound(2 * d * 3 * pairs, io + nbytes(dq))
+    results.append(dict(
+        common, name="flash_bwd_dq",
+        replaces=jax_src + "flash_attention_bwd.py:73",
+        launches=launches["flash_bwd_dq"],
+        max_abs_err=readings["flash_bwd_dq.dq"]["max_abs_err"],
+        dq=readings["flash_bwd_dq.dq"], ms=dq_ms, wall_ms=dq_wall,
+        bound_ms=bound_ms, bound_by=bound_by))
+    bound_ms, bound_by = bound(2 * d * 4 * pairs, io + nbytes(dk, dv))
+    results.append(dict(
+        common, name="flash_bwd_dkv",
+        replaces=jax_src + "flash_attention_bwd.py:226",
+        launches=launches["flash_bwd_dkv"],
+        max_abs_err=max(readings["flash_bwd_dkv.dk"]["max_abs_err"],
+                        readings["flash_bwd_dkv.dv"]["max_abs_err"]),
+        dk=readings["flash_bwd_dkv.dk"], dv=readings["flash_bwd_dkv.dv"],
+        ms=dkv_ms, wall_ms=dkv_wall, bound_ms=bound_ms, bound_by=bound_by))
     return results
 
 
@@ -274,10 +873,10 @@ def main() -> int:
 
     pa.reset_launch_counts()
     eng, rids, secs, steps, num_pages = serve(params, cfg, prompts, dev)
-    launches = dict(pa.LAUNCH_COUNTS)
-    for name, n in launches.items():
+    paged_launches = dict(pa.LAUNCH_COUNTS)
+    for name, n in paged_launches.items():
         if n == 0:
-            fail(f"kernel {name} was not launched on the main path")
+            fail(f"kernel {name} was not launched on the serving path")
     for rid, p in zip(rids, prompts):
         out = eng.result(rid)
         if len(out) != len(p) + MAX_NEW:
@@ -291,7 +890,7 @@ def main() -> int:
     print("serve: " + json.dumps({
         "requests": len(prompts), "prompt_tokens": int(sum(PROMPT_LENS)),
         "new_tokens": tokens, "seconds": secs, "steps": steps,
-        "new_tokens_per_s": tokens / secs, "launches": launches,
+        "new_tokens_per_s": tokens / secs, "launches": paged_launches,
         "card": card}), flush=True)
 
     rel_rms, max_err = reference_check(params, cfg, dev)
@@ -301,8 +900,18 @@ def main() -> int:
           f"{max_err:.5f} (tol {REF_MAX_ABS})", flush=True)
     if not (rel_rms <= REF_REL_RMS and max_err <= REF_MAX_ABS):
         fail("paged path disagrees with the dense reference")
+    kernels = paged_kernel_checks(dev, paged_launches)
 
-    kernels = kernel_checks(dev, launches)
+    # Free the serve's 16 GB of weights before training.
+    del eng, params
+    torch.cuda.empty_cache()
+
+    tparams, tcfg, flash_launches = train(dev, card)
+    train_reference(tparams, tcfg, dev)
+    del tparams
+    torch.cuda.empty_cache()
+    kernels += flash_kernel_checks(dev, flash_launches)
+
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

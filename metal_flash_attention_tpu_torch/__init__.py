@@ -8,18 +8,39 @@ under `csrc/`, built with nvcc at first use (`native/build.py`), never
 at import.  A CPU tensor runs the kernel's plain PyTorch version; a CUDA
 tensor runs the kernel or raises.
 
-Ported so far (slice 1, the paged serving engine): `ops.paged_attention`
-(kernel `csrc/paged_attention.cu`), `ops.reference`, `models.llama`
-(serving blocks), `models.serving` (paged steps), `models.engine`
-(`ServingEngine`), `native.page_allocator`, `utils`.
+Ported so far:
+
+- slice 1, the paged serving engine: `ops.paged_attention` (kernel
+  `csrc/paged_attention.cu`), `models.serving` (paged steps),
+  `models.engine` (`ServingEngine`), `native.page_allocator`;
+- slice 2, the training step: `ops.flash_attention` (kernel
+  `csrc/flash_attention.cu`) and `ops.flash_attention_bwd` (kernels
+  `csrc/flash_attention_bwd.cu`), `descriptors`, `dispatch`,
+  `models.losses` (fused cross-entropy), `models.llama` (forward,
+  loss, SGD demo step) and `models.optim` (AdamW with float32 master
+  weights);
+- shared: `ops.reference`, `native.build`, `utils`.
+
+Constructors (`init_params`, `params_from_numpy`, `init_paged_cache`,
+...) put their tensors on the card unless the caller passes
+``device="cpu"``.
 """
 
 __version__ = "0.1.0"
 
+from metal_flash_attention_tpu_torch.dispatch import attention
 from metal_flash_attention_tpu_torch.models.engine import ServingEngine
 from metal_flash_attention_tpu_torch.models.llama import (
     LlamaConfig,
     init_params,
+)
+from metal_flash_attention_tpu_torch.models.losses import fused_cross_entropy
+from metal_flash_attention_tpu_torch.ops.flash_attention import (
+    flash_attention,
+    flash_attention_forward,
+)
+from metal_flash_attention_tpu_torch.ops.flash_attention_bwd import (
+    flash_attention_backward,
 )
 from metal_flash_attention_tpu_torch.ops.paged_attention import (
     LAUNCH_COUNTS,
@@ -38,7 +59,12 @@ __all__ = [
     "LlamaConfig",
     "PagedKVCache",
     "ServingEngine",
+    "attention",
     "attention_reference",
+    "flash_attention",
+    "flash_attention_backward",
+    "flash_attention_forward",
+    "fused_cross_entropy",
     "init_paged_cache",
     "init_params",
     "paged_append",

@@ -1,0 +1,126 @@
+// Helpers shared by the port's attention kernels (sm_90a): the tensor-core
+// tile product, fragment packing, quad reductions and the visibility rule.
+//
+// Fragment layout of mma.sync m16n8k16 (row.col), for lane
+// (g = lane / 4, t4 = lane % 4):
+//   A 16x16 row-major, 4 registers: A[g][2t4..], A[g+8][2t4..],
+//     A[g][2t4+8..], A[g+8][2t4+8..] (two 16-bit values each);
+//   B 16x8 "col", 2 registers: B[2t4..2t4+1][g], B[2t4+8..2t4+9][g];
+//   C 16x8 fp32, 4 registers: C[g][2t4], C[g][2t4+1], C[g+8][2t4],
+//     C[g+8][2t4+1].
+// So the C tiles of two adjacent 8-column steps are, once packed, the A
+// fragment of one 16-deep step: a score tile feeds the next product
+// without a trip through shared memory.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace mfa {
+
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr unsigned kFull = 0xffffffffu;
+
+// c += a * b on tensor cores, 16-bit inputs, fp32 accumulators.
+template <typename T = __nv_bfloat16>
+__device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4],
+                                          uint32_t b0, uint32_t b1);
+
+template <>
+__device__ __forceinline__ void mma_16816<__nv_bfloat16>(
+    float c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+template <>
+__device__ __forceinline__ void mma_16816<__half>(
+    float c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two floats rounded to T, packed lo | hi << 16 (one fragment register).
+template <typename T = __nv_bfloat16>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi);
+
+template <>
+__device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float lo,
+                                                         float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+template <>
+__device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
+  __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(kFull, x, 1));
+  return fmaxf(x, __shfl_xor_sync(kFull, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(kFull, x, 1);
+  return x + __shfl_xor_sync(kFull, x, 2);
+}
+
+// Whether key `col` is visible to the query at position `qpos` (its row
+// plus offset = kv_len - q_len, the bottom-right diagonal): inside the
+// keys, at or before the query when causal, and within the last
+// `window` positions when window > 0.
+__device__ __forceinline__ bool key_visible(int col, int qpos, int kv_len,
+                                            bool causal, int window) {
+  return col < kv_len && (!causal || col <= qpos) &&
+         (window <= 0 || col > qpos - window);
+}
+
+// A B-fragment register from two rows of a [rows][stride] 16-bit tile in
+// shared memory, same column: B[k][n] = tile[k][n] (the "PV" operand).
+__device__ __forceinline__ uint32_t rows_pair(const uint16_t* tile,
+                                              int stride, int row,
+                                              int col) {
+  return (uint32_t)tile[row * stride + col] |
+         ((uint32_t)tile[(row + 1) * stride + col] << 16);
+}
+
+// A fragment register from one row, two adjacent columns: B[k][n] =
+// tile[n][k] (the "QK^T" operand) or an A-fragment pair.
+__device__ __forceinline__ uint32_t cols_pair(const uint16_t* tile,
+                                              int stride, int row,
+                                              int col) {
+  return *reinterpret_cast<const uint32_t*>(tile + row * stride + col);
+}
+
+// Copy `rows` rows of D 16-bit values (row `first` of a [n][D] matrix at
+// `src`) into a [rows][D + pad] shared tile, 16 bytes a thread; rows at or
+// past `limit` are zero.
+template <int D, int kPad>
+__device__ __forceinline__ void load_rows(uint16_t* tile, const void* src,
+                                          int first, int rows, int limit,
+                                          int tid, int nthreads) {
+  constexpr int kPieces = D / 8;
+  const uint4* s = reinterpret_cast<const uint4*>(src);
+  for (int c = tid; c < rows * kPieces; c += nthreads) {
+    const int j = c / kPieces, part = c % kPieces;
+    const int row = first + j;
+    uint4 x = make_uint4(0, 0, 0, 0);
+    if (row < limit) x = s[(size_t)row * kPieces + part];
+    *reinterpret_cast<uint4*>(tile + j * (D + kPad) + part * 8) = x;
+  }
+}
+
+}  // namespace mfa

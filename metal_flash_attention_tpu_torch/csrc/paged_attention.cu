@@ -28,21 +28,17 @@
 //
 // Every function returns cudaGetLastError() after its launches.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "attention_common.cuh"
 
 namespace {
+
+using namespace mfa;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kTileM = 16 * kWarps;  // query rows per block (16 per warp)
 constexpr int kTileN = 64;           // keys per iteration
 constexpr int kPad = 8;              // bf16 padding per shared-memory row
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
-constexpr unsigned kFull = 0xffffffffu;
 
 struct Params {
   const __nv_bfloat16* q;       // [b, q_heads, q_chunk, D]
@@ -59,30 +55,6 @@ struct Params {
   int window;  // <= 0: none
   int splits;
 };
-
-__device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(kFull, x, 1));
-  return fmaxf(x, __shfl_xor_sync(kFull, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(kFull, x, 1);
-  return x + __shfl_xor_sync(kFull, x, 2);
-}
 
 __device__ __forceinline__ bool visible(int col, int qpos, int window) {
   return col <= qpos && (window <= 0 || col > qpos - window);
@@ -241,10 +213,10 @@ __device__ __forceinline__ void attend(const Params& p, int row_tile,
 #pragma unroll
     for (int kk = 0; kk < kTileN / 16; ++kk) {
       uint32_t a[4];
-      a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+      a[0] = pack2(s[2 * kk][0], s[2 * kk][1]);
+      a[1] = pack2(s[2 * kk][2], s[2 * kk][3]);
+      a[2] = pack2(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      a[3] = pack2(s[2 * kk + 1][2], s[2 * kk + 1][3]);
       const int tok = kk * 16 + 2 * t4;
 #pragma unroll
       for (int dn = 0; dn < D / 8; ++dn) {

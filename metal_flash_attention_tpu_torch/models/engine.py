@@ -38,7 +38,7 @@ from metal_flash_attention_tpu_torch.native.page_allocator import (
     PageAllocator,
     PagerError,
 )
-from metal_flash_attention_tpu_torch.ops.paged_attention import not_ported
+from metal_flash_attention_tpu_torch.utils.errors import not_ported
 
 
 @dataclass

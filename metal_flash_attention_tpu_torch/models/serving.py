@@ -22,9 +22,10 @@ from typing import NamedTuple
 import torch
 
 from metal_flash_attention_tpu_torch.models import llama
+from metal_flash_attention_tpu_torch.utils.device import resolve_device
+from metal_flash_attention_tpu_torch.utils.errors import not_ported
 from metal_flash_attention_tpu_torch.ops.paged_attention import (
     PagedKVCache,
-    not_ported,
     paged_append_chunk,
     paged_decode,
     paged_prefill,
@@ -44,7 +45,9 @@ def init_paged_model_cache(cfg: llama.LlamaConfig, batch: int,
                            max_seq: int, *, page_size: int = 128,
                            dtype=None, device=None) -> PagedModelCache:
     """Contiguously page-assigned pools: sequence i owns pages
-    i * max_pages .. (i + 1) * max_pages - 1."""
+    i * max_pages .. (i + 1) * max_pages - 1.  On the card unless
+    ``device`` says otherwise."""
+    device = resolve_device(device)
     dtype = dtype or cfg.dtype
     max_pages = -(-max_seq // page_size)
     num_pages = batch * max_pages
@@ -58,25 +61,6 @@ def init_paged_model_cache(cfg: llama.LlamaConfig, batch: int,
     return PagedModelCache(k=pools(), v=pools(), page_table=table,
                            lengths=torch.zeros((batch,), dtype=torch.int32,
                                                device=device))
-
-
-def _layer_qkv(layer: dict, x: torch.Tensor, cfg: llama.LlamaConfig,
-               cos, sin):
-    """norm -> QKV projections -> rope.  Returns q [b, qh, s, d] and
-    k/v [b, kvh, s, d]."""
-    b, s, _ = x.shape
-    h = llama.rms_norm(x, layer["attn_norm"], cfg.norm_eps)
-
-    def proj(name):
-        y = h @ layer[name]
-        bias = layer.get("b" + name[1:])   # Qwen2-style q/k/v bias
-        return y if bias is None else y + bias.to(y.dtype)
-    q = proj("wq").reshape(b, s, cfg.n_heads, cfg.head_dim)
-    k = proj("wk").reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-    v = proj("wv").reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-    q = llama.apply_rope(q.transpose(1, 2), cos, sin)
-    k = llama.apply_rope(k.transpose(1, 2), cos, sin)
-    return q, k, v.transpose(1, 2)
 
 
 def _wo_proj(o: torch.Tensor, layer: dict) -> torch.Tensor:
@@ -114,7 +98,7 @@ def paged_chunk_step(params: dict, tokens: torch.Tensor,
     cos, sin = llama.rope_frequencies(cfg, positions)
     x = params["embed"][tokens.long()].to(cfg.dtype)
     for li, layer in enumerate(params["layers"]):
-        q, k, v = _layer_qkv(layer, x, cfg, cos, sin)
+        q, k, v = llama.attention_qkv(layer, x, cfg, cos, sin)
         layer_cache = paged_append_chunk(
             PagedKVCache(cache.k[li], cache.v[li], cache.page_table,
                          cache.lengths), k, v)
@@ -141,7 +125,7 @@ def paged_decode_step(params: dict, token: torch.Tensor,
     cos, sin = llama.rope_frequencies(cfg, positions)
     x = params["embed"][token.long()][:, None, :].to(cfg.dtype)
     for li, layer in enumerate(params["layers"]):
-        q, k, v = _layer_qkv(layer, x, cfg, cos, sin)
+        q, k, v = llama.attention_qkv(layer, x, cfg, cos, sin)
         layer_cache = paged_append_chunk(
             PagedKVCache(cache.k[li], cache.v[li], cache.page_table,
                          cache.lengths), k, v)

@@ -4,7 +4,8 @@ Each `csrc/<name>.cu` compiles at first use, with nvcc for Hopper
 (`-gencode arch=compute_90a,code=sm_90a`), into its own shared library
 `build/lib<name>.so` inside the package, and is bound with ctypes (plain
 C interface, no PyTorch headers: a build takes seconds).  A library is
-rebuilt when its source is newer.  `build_all` starts one nvcc per
+rebuilt when its source, or a header it may include
+(`csrc/*.cuh`), is newer.  `build_all` starts one nvcc per
 source, all together.  The compiler's report (`-Xptxas -v`: registers,
 shared memory, spills) is kept beside each library as `lib<name>.log`.
 """
@@ -46,10 +47,16 @@ def _nvcc() -> str:
 
 
 def _stale(name: str) -> bool:
+    """A library is stale when its source or any shared header under
+    csrc/ is newer than it."""
     lib = library_path(name)
-    src = os.path.join(SRC_DIR, f"{name}.cu")
-    return (not os.path.exists(lib)
-            or os.path.getmtime(src) > os.path.getmtime(lib))
+    if not os.path.exists(lib):
+        return True
+    deps = [os.path.join(SRC_DIR, f"{name}.cu")] + [
+        os.path.join(SRC_DIR, f) for f in os.listdir(SRC_DIR)
+        if f.endswith(".cuh")]
+    built = os.path.getmtime(lib)
+    return any(os.path.getmtime(d) > built for d in deps)
 
 
 def build_all(names=None) -> dict[str, str]:

@@ -34,6 +34,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from metal_flash_attention_tpu_torch.utils.device import resolve_device
+from metal_flash_attention_tpu_torch.utils.errors import not_ported
 from metal_flash_attention_tpu_torch.utils.shapes import cdiv
 
 # Keys tiled per kernel iteration (csrc/paged_attention.cu, TILE_N).
@@ -47,13 +49,6 @@ LAUNCH_COUNTS = {"paged_decode": 0, "paged_prefill": 0}
 def reset_launch_counts() -> None:
     for name in LAUNCH_COUNTS:
         LAUNCH_COUNTS[name] = 0
-
-
-def not_ported(what: str, item: str) -> NotImplementedError:
-    """The error for a JAX feature the port does not have yet; ``item``
-    names its entry in ROADMAP.md's port queue."""
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md, port queue: {item})")
 
 
 class PagedKVCache(NamedTuple):
@@ -73,7 +68,8 @@ def init_paged_cache(*, num_pages: int, kv_heads: int, page_size: int,
                      dtype: torch.dtype = torch.bfloat16,
                      device=None) -> PagedKVCache:
     """Empty pool with a zero-filled page table (every entry on the
-    null page 0)."""
+    null page 0), on the card unless ``device`` says otherwise."""
+    device = resolve_device(device)
     shape = (num_pages, kv_heads, page_size, head_dim)
     return PagedKVCache(
         k_pages=torch.zeros(shape, dtype=dtype, device=device),

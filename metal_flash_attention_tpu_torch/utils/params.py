@@ -10,6 +10,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from metal_flash_attention_tpu_torch.utils.device import resolve_device
+
 
 def _to_tensor(name: str, x, device, dtype: torch.dtype) -> torch.Tensor:
     # Norm weights stay float32, as in the JAX package; every other
@@ -22,7 +24,9 @@ def _to_tensor(name: str, x, device, dtype: torch.dtype) -> torch.Tensor:
 def params_from_numpy(tree, device=None,
                       dtype: torch.dtype = torch.bfloat16):
     """Nested dicts / lists of numpy arrays (the JAX params pytree under
-    `jax.tree.map(np.asarray, ...)`) -> the same structure of tensors."""
+    `jax.tree.map(np.asarray, ...)`) -> the same structure of tensors,
+    on the card unless ``device`` says otherwise."""
+    device = resolve_device(device)
     def walk(node, name):
         if isinstance(node, dict):
             return {k: walk(v, k) for k, v in node.items()}
@@ -35,6 +39,8 @@ def params_from_numpy(tree, device=None,
 def pools_from_numpy(pools, head_dim: int, device=None,
                      dtype: torch.dtype = torch.bfloat16) -> list:
     """JAX KV pools [num_pages, kv_heads, page_size, d_lanes] (head_dim
-    padded to 128 lanes) -> port pools cut back to ``head_dim``."""
+    padded to 128 lanes) -> port pools cut back to ``head_dim``, on the
+    card unless ``device`` says otherwise."""
+    device = resolve_device(device)
     return [torch.from_numpy(np.array(p[..., :head_dim]))
             .to(device=device, dtype=dtype) for p in pools]

@@ -36,7 +36,7 @@ def models():
     tcfg = tl.LlamaConfig.tiny(n_layers=2, dtype=torch.float32)
     jparams = jl.init_params(jax.random.PRNGKey(0), jcfg)
     tparams = params_from_numpy(jax.tree.map(np.asarray, jparams),
-                                dtype=torch.float32)
+                                dtype=torch.float32, device="cpu")
     return jcfg, tcfg, jparams, tparams
 
 

@@ -9,22 +9,38 @@ import shutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
+import torch
+
+from metal_flash_attention_tpu_torch.models import llama, serving
+from metal_flash_attention_tpu_torch.ops import paged_attention
+from metal_flash_attention_tpu_torch.utils import device, params
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 MODULES = [
     "metal_flash_attention_tpu_torch",
+    "metal_flash_attention_tpu_torch.descriptors.attention_descriptor",
+    "metal_flash_attention_tpu_torch.descriptors.precision",
+    "metal_flash_attention_tpu_torch.dispatch",
     "metal_flash_attention_tpu_torch.models.engine",
     "metal_flash_attention_tpu_torch.models.llama",
+    "metal_flash_attention_tpu_torch.models.losses",
+    "metal_flash_attention_tpu_torch.models.optim",
     "metal_flash_attention_tpu_torch.models.serving",
     "metal_flash_attention_tpu_torch.native.build",
     "metal_flash_attention_tpu_torch.native.page_allocator",
+    "metal_flash_attention_tpu_torch.ops.flash_attention",
+    "metal_flash_attention_tpu_torch.ops.flash_attention_bwd",
     "metal_flash_attention_tpu_torch.ops.paged_attention",
     "metal_flash_attention_tpu_torch.ops.reference",
+    "metal_flash_attention_tpu_torch.utils.device",
+    "metal_flash_attention_tpu_torch.utils.errors",
     "metal_flash_attention_tpu_torch.utils.params",
     "metal_flash_attention_tpu_torch.utils.shapes",
     "metal_flash_attention_tpu_torch.utils.tolerances",
+    "metal_flash_attention_tpu_torch.utils.tree",
 ]
 
 
@@ -42,9 +58,13 @@ def test_port_imports_no_jax():
             "m == 'metal_flash_attention_tpu' or "
             "m.startswith('metal_flash_attention_tpu.'))\n"
             "assert not bad, bad\n"
-            "import metal_flash_attention_tpu_torch.ops.paged_attention "
-            "as pa\n"
-            "assert pa._kernel_library.cache_info().currsize == 0\n")
+            "from metal_flash_attention_tpu_torch.ops import "
+            "paged_attention, flash_attention, flash_attention_bwd\n"
+            "for m in (paged_attention, flash_attention, "
+            "flash_attention_bwd):\n"
+            "    assert m._kernel_library.cache_info().currsize == 0\n"
+            "import chip_smoke\n"
+            "assert 'jax' not in sys.modules\n")
     proc = _run(code)
     assert proc.returncode == 0, proc.stderr
 
@@ -107,3 +127,77 @@ def test_chip_smoke_fails_outside_the_repo(tmp_path):
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0
     assert not _ok_line(proc.stdout)
+
+
+def _constructors():
+    """Each constructor of the port, called without ``device``."""
+    cfg = llama.LlamaConfig.tiny(n_layers=1)
+    return {
+        "init_params": lambda: llama.init_params(cfg, None)["lm_head"],
+        "params_from_numpy": lambda: params.params_from_numpy(
+            {"w": np.zeros((2, 2), np.float32)})["w"],
+        "pools_from_numpy": lambda: params.pools_from_numpy(
+            [np.zeros((1, 1, 4, 128), np.float32)], head_dim=32)[0],
+        "init_paged_cache": lambda: paged_attention.init_paged_cache(
+            num_pages=2, kv_heads=1, page_size=4, head_dim=32, batch=1,
+            max_pages=1).k_pages,
+        "init_paged_model_cache": lambda: serving.init_paged_model_cache(
+            cfg, 1, 8, page_size=4).k[0],
+    }
+
+
+def test_default_device_is_the_card(monkeypatch):
+    """``device=None`` resolves to CUDA; without a card it raises and
+    never falls back to CPU tensors."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        device.resolve_device()
+    assert device.resolve_device("cpu") == torch.device("cpu")
+    for name, make in _constructors().items():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert device.resolve_device() == torch.device("cuda")
+
+
+def test_constructors_put_tensors_where_the_default_resolves(monkeypatch):
+    """Every constructor resolves ``device=None`` through the one helper
+    and builds its tensors there (here the helper's answer, CUDA, is
+    recorded and swapped for the meta device: this machine may have no
+    card)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    seen = []
+
+    def spy(dev=None):
+        seen.append(device.resolve_device(dev))
+        return torch.device("meta")
+    for module in (llama, params, paged_attention, serving):
+        monkeypatch.setattr(module, "resolve_device", spy)
+    for name, make in _constructors().items():
+        seen.clear()
+        assert make().device.type == "meta", name
+        assert seen and all(d == torch.device("cuda") for d in seen), name
+
+
+def test_a_library_is_stale_when_a_shared_header_is_newer(tmp_path,
+                                                          monkeypatch):
+    from metal_flash_attention_tpu_torch.native import build
+
+    src, out = tmp_path / "csrc", tmp_path / "build"
+    src.mkdir()
+    out.mkdir()
+    monkeypatch.setattr(build, "SRC_DIR", str(src))
+    monkeypatch.setattr(build, "BUILD_DIR", str(out))
+    (src / "k.cu").write_text("")
+    (src / "common.cuh").write_text("")
+    assert build._stale("k")                  # never built
+    lib = out / "libk.so"
+    lib.write_text("")
+    for f, t in ((src / "k.cu", 100), (src / "common.cuh", 100), (lib, 200)):
+        os.utime(f, (t, t))
+    assert not build._stale("k")
+    os.utime(src / "common.cuh", (300, 300))
+    assert build._stale("k")                  # a header changed
+    os.utime(src / "common.cuh", (100, 100))
+    os.utime(src / "k.cu", (300, 300))
+    assert build._stale("k")                  # the source changed

@@ -28,7 +28,7 @@ def carried():
     jcfg, tcfg = _cfgs()
     jparams = jl.init_params(jax.random.PRNGKey(0), jcfg)
     tparams = params_from_numpy(jax.tree.map(np.asarray, jparams),
-                                dtype=torch.float32)
+                                dtype=torch.float32, device="cpu")
     return jcfg, tcfg, jparams, tparams
 
 
@@ -98,7 +98,7 @@ def test_params_from_numpy_round_trips_exactly():
     jcfg = jl.LlamaConfig.tiny()
     jparams = jl.init_params(jax.random.PRNGKey(1), jcfg)
     tree = jax.tree.map(lambda a: np.asarray(a.astype(jnp.float32)), jparams)
-    tparams = params_from_numpy(tree, dtype=torch.bfloat16)
+    tparams = params_from_numpy(tree, dtype=torch.bfloat16, device="cpu")
     assert tparams["layers"][1]["wq"].dtype == torch.bfloat16
     assert tparams["final_norm"].dtype == torch.float32
     back = jax.tree.map(lambda t: t.float().numpy(), tparams)
@@ -108,15 +108,16 @@ def test_params_from_numpy_round_trips_exactly():
 
 def test_pools_from_numpy_cuts_lane_padding():
     pool = np.arange(2 * 1 * 4 * 128, dtype=np.float32).reshape(2, 1, 4, 128)
-    (t,) = pools_from_numpy([pool], head_dim=32, dtype=torch.float32)
+    (t,) = pools_from_numpy([pool], head_dim=32, dtype=torch.float32,
+                            device="cpu")
     assert t.shape == (2, 1, 4, 32)
     np.testing.assert_array_equal(t.numpy(), pool[..., :32])
 
 
 def test_init_params_shapes_and_seed():
     cfg = tl.LlamaConfig.tiny(n_layers=1)
-    a = tl.init_params(cfg, torch.Generator().manual_seed(0))
-    b = tl.init_params(cfg, torch.Generator().manual_seed(0))
+    a = tl.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    b = tl.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     assert a["layers"][0]["wk"].shape == (cfg.dim,
                                           cfg.n_kv_heads * cfg.head_dim)
     assert a["lm_head"].shape == (cfg.dim, cfg.vocab_size)

@@ -199,7 +199,7 @@ def test_paged_append_chunk_matches_jax(kc):
 def test_unported_options_raise():
     cache = tpa.init_paged_cache(num_pages=4, kv_heads=1, page_size=8,
                                  head_dim=16, batch=1, max_pages=2,
-                                 dtype=torch.float32)
+                                 dtype=torch.float32, device="cpu")
     q = torch.zeros((1, 2, 16))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tpa.paged_decode(q, cache, logit_softcap=30.0)

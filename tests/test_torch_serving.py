@@ -35,7 +35,8 @@ def _setup(dtype):
     jparams = jl.init_params(jax.random.PRNGKey(0), jcfg)
     tree = jax.tree.map(lambda a: np.asarray(a.astype(jnp.float32)),
                         jparams)
-    return jcfg, tcfg, jparams, params_from_numpy(tree, dtype=tdt), tol
+    return jcfg, tcfg, jparams, params_from_numpy(tree, dtype=tdt,
+                                                 device="cpu"), tol
 
 
 def _logits_err(t, j):
@@ -48,7 +49,8 @@ def test_chunk_then_decode_steps_match_jax(dtype):
     rng = np.random.default_rng(0)
     batch, max_seq = 2, 48
     jc = js.init_paged_model_cache(jcfg, batch, max_seq, page_size=PAGE)
-    tc = ts.init_paged_model_cache(tcfg, batch, max_seq, page_size=PAGE)
+    tc = ts.init_paged_model_cache(tcfg, batch, max_seq, page_size=PAGE,
+                                   device="cpu")
     for kc in (12, 7):
         toks = rng.integers(0, jcfg.vocab_size, (batch, kc)).astype(np.int32)
         jlog, jc = js.paged_chunk_step(jparams, jnp.asarray(toks), jcfg, jc)
@@ -65,9 +67,9 @@ def test_chunk_then_decode_steps_match_jax(dtype):
     np.testing.assert_array_equal(tc.lengths.numpy(), np.asarray(jc.lengths))
     if dtype == "float32":
         jk = pools_from_numpy([np.asarray(p) for p in jc.k], jcfg.head_dim,
-                              dtype=torch.float32)
+                              dtype=torch.float32, device="cpu")
         jv = pools_from_numpy([np.asarray(p) for p in jc.v], jcfg.head_dim,
-                              dtype=torch.float32)
+                              dtype=torch.float32, device="cpu")
         for a, b in zip(list(tc.k) + list(tc.v), jk + jv):
             assert float((a - b).abs().max()) < tol
 
@@ -85,7 +87,8 @@ def test_paged_generate_matches_jax_token_for_token():
 
 def test_unported_serving_options_raise():
     _, tcfg, _, tparams, _ = _setup("float32")
-    cache = ts.init_paged_model_cache(tcfg, 1, 32, page_size=PAGE)
+    cache = ts.init_paged_model_cache(tcfg, 1, 32, page_size=PAGE,
+                                      device="cpu")
     tok = torch.zeros((1,), dtype=torch.int32)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         ts.paged_decode_step(tparams, tok, tcfg, cache, mesh=object())
