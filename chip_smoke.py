@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU.
+"""Drive the PyTorch port's paged serving, dense serving and training
+paths on one NVIDIA GPU.
 
 Run from the root of a checkout, on a machine with one CUDA card and
 the CUDA toolkit:
@@ -22,8 +23,39 @@ Phases (any failure exits non-zero and prints no result):
    logits agree with a dense reference (`ops.reference`) within bf16
    tolerance (REF_*);
 4. hold both paged kernels against their plain version at the shapes the
-   engine ran, then free the serve's weights;
-5. train: Llama-3-8B widths cut to 4 layers (at full depth the bf16
+   engine ran, then free the engine;
+5. dense_serve: greedy `models.serving.generate` on the same full-depth
+   weights, a batch of 8 random prompts of 8,160 tokens (seed 0), 32 new
+   tokens each, a cache of 8,192 positions (Llama-3's context): one
+   prefill through the fused forward, then 31 decode steps through
+   `flash_decode`.  The two kernels' launch counts are set to 0 just
+   before and read just after: `flash_fwd` must run 32 times (once per
+   layer) and `flash_decode` 32 x 31 = 992 times; every new token must
+   lie in the vocabulary.  That run is the bare `generate`: its
+   seconds, new tokens per second, peak memory and nvidia-smi's clock
+   and power samples.  A second run of the same call, with CUDA events
+   recorded around `prefill` and each `decode_step` and no synchronise
+   inside, splits the time: the card's milliseconds for the prefill and
+   for each decode step, and the host's milliseconds to enqueue each; one
+   more decode step at the end of the context runs under torch.profiler
+   (`dense_profile:`);
+6. decode_reference: on a 2-layer cut of the same weights, batch 2, a
+   300-token prompt and 4 decode steps: the logits of `prefill` and
+   each `decode_step` against a full recompute through the port's
+   blocks with `ops.reference.attention_reference` (REF_*); then free
+   the weights;
+7. decode_checks: the decode kernel against its plain version at the
+   generate shape (q [8, 32, 128], k/v [8, 8, 8192, 128], ragged
+   lengths DECODE_LENS), each (sequence, head) row a tile of its own
+   (KERNEL_TILE_REL_RMS, lse at MIXED_TOL), with a planted fault (one
+   row run 64 keys short: its last key tile dropped) that the limit
+   must see; and at the sink shape of the JAX package's sink benchmark
+   (window 1024, sink 4, full lengths): both partials of `sink_decode`
+   (the strided slice of the first rows; kv_starts with max_span) and
+   the merged output.  Then time the kernel (ragged and full lengths),
+   `sink_decode`, the plain version and SDPA with a length mask (a
+   yardstick that the port never calls);
+8. train: Llama-3-8B widths cut to 4 layers (at full depth the bf16
    weights, their float32 shadow and AdamW's two float32 moments come
    to about 101 GB, more than the card's 80 GB; 4 layers need about
    30 GB plus activations), one sequence of 8,193 tokens (the model
@@ -36,20 +68,23 @@ Phases (any failure exits non-zero and prints no result):
    last below the first.  nvidia-smi samples the card's clock and power
    during the steps, and one more step runs under torch.profiler
    (`train_profile:`: device time by kernel family, busy share);
-6. train_reference: on a 2-layer cut of the trained weights at 2,048
+9. train_reference: on a 2-layer cut of the trained weights at 2,048
    tokens, the loss and every parameter gradient of `llama.loss_fn`
    (the kernels) against a loss built here from the port's blocks with
    the plain attention (`ops.reference.attention_reference`) under
    torch autograd (TRAIN_*); then the same reading twice more with a
    fault planted in the kernel path (dK/dV losing one q head of each
    group; the forward's scale 1/d), each of which the limits must see;
-7. hold the three flash-attention kernels against their plain versions
+10. hold the three flash-attention kernels against their plain versions
    at the training shape (q [1, 32, 8192, 128], k/v [1, 8, 8192, 128],
-   causal; the forward also at q_len 1000 against kv_len 1536 with a
-   window of 512) by the worst relative rms error of any 64-row tile of
-   one head (KERNEL_TILE_REL_RMS), with a planted one-tile fault
-   for each output that the tile limit must see; the plain backward
-   runs one kv head at a time.  Then time each kernel, its plain
+   causal; the forward also at the dense prefill's shape, q [8, 32,
+   8160, 128] causal, on its first and last sequence, and at q_len 1000
+   against kv_len 1536 with a window of 512) by the worst relative rms
+   error of any 64-row tile of one head (KERNEL_TILE_REL_RMS), with a
+   planted one-tile fault for each output that the tile limit must see
+   (at the prefill shape in the half-full last query tile); the plain
+   versions run one kv head at a time where their float32 scores would
+   not fit otherwise.  Then time each kernel, its plain
    version and, where one PyTorch call computes the same function, that
    call (`scaled_dot_product_attention`; a yardstick that the port
    never calls).
@@ -59,9 +94,11 @@ same work: the larger of the bytes it must move (each input read once,
 each output written once) over 3.35 TB/s and the operations this run's
 data needs (visible query-key pairs only) over 989 TFLOP/s in bf16.
 
-Output: `serve`, `reference`, `train`, `train_profile`,
-`train_reference` and `flash_checks` lines, the card's name and power limit as nvidia-smi gives them, a `kernels` JSON
-line, and as the last line
+Output: `serve`, `reference`, `dense_serve`, `dense_profile`,
+`decode_reference`, `decode_checks`, `train`, `train_profile`,
+`train_reference` and `flash_checks` lines, the card's name and power
+limit as nvidia-smi gives them, a `kernels` JSON line, and as the last
+line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -90,6 +127,21 @@ REFERENCE_PROMPT = 300
 # 0.9% and 0.047.
 REF_REL_RMS = 2e-2
 REF_MAX_ABS = 1e-1
+
+# Dense serving: `serving.generate` at full width and depth, batch 8,
+# prompts of 8,160 tokens, 32 new tokens, a cache of 8,192 positions
+# (Llama-3's context).
+DENSE_BATCH = 8
+DENSE_PROMPT = 8160
+DENSE_NEW = 32
+DENSE_MAX_SEQ = 8192
+DECODE_REF_BATCH = 2
+DECODE_REF_STEPS = 4
+# The decode kernel's check shape: the generate shape with ragged
+# lengths (an empty-ish row, rows off the 64-key tile, full rows), and
+# the sink shape of the JAX package's sink benchmark (window, sink).
+DECODE_LENS = (8192, 8191, 7000, 4097, 2048, 129, 64, 1)
+SINK_WINDOW, SINK = 1024, 4
 
 TRAIN_LAYERS = 4
 TRAIN_TOKENS = 8192
@@ -168,7 +220,9 @@ def timed(fn, iters: int) -> tuple[float, float]:
 
 class CardSampler:
     """nvidia-smi sampling the card's SM clock, power draw and
-    temperature every 100 ms, from construction to `stop()`."""
+    temperature every 100 ms, from construction to `stop()`.  Used as a
+    context manager, so that a phase that fails leaves no nvidia-smi
+    running."""
 
     FIELDS = ("clocks.sm", "power.draw", "temperature.gpu")
 
@@ -177,6 +231,14 @@ class CardSampler:
             ["nvidia-smi", "--query-gpu=" + ",".join(self.FIELDS),
              "--format=csv,noheader,nounits", "-lms", "100"],
             stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.communicate(timeout=30)
 
     def stop(self) -> dict:
         """{field: [min, median, max]} over the samples taken."""
@@ -456,6 +518,316 @@ def paged_kernel_checks(dev, launches) -> list[dict]:
     return results
 
 
+@contextlib.contextmanager
+def event_timed(module, name: str, spans: list):
+    """`module.name` wrapped, inside the block, to record a CUDA event
+    just before and just after each call, and to append (start, end,
+    host seconds the call took to return) to `spans`.  It adds no
+    synchronise: the host runs ahead of the card as in the bare loop."""
+    import torch
+    original = getattr(module, name)
+
+    def run(*args, **kwargs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        out = original(*args, **kwargs)
+        end.record()
+        spans.append((start, end, time.perf_counter() - t0))
+        return out
+    setattr(module, name, run)
+    try:
+        yield
+    finally:
+        setattr(module, name, original)
+
+
+def stats(xs) -> dict:
+    return {"mean": float(np.mean(xs)), "median": float(np.median(xs)),
+            "min": float(min(xs)), "max": float(max(xs)), "n": len(xs)}
+
+
+def dense_serve(params, cfg, dev, card) -> dict:
+    """The dense serving path: greedy `serving.generate` over a batch of
+    DENSE_BATCH random prompts (prefill through the fused forward, then
+    decode steps through `flash_decode`).  The timed run is the bare
+    `generate`, with both kernels' launch counts set to 0 just before
+    and read just after; returns them.  A second, instrumented run of
+    the same call splits its time: CUDA events around `prefill` and each
+    `decode_step` (the card's time from a call's first kernel to its
+    last, idle gaps included) and the host's seconds to enqueue each."""
+    import torch
+    from metal_flash_attention_tpu_torch.models import serving
+    from metal_flash_attention_tpu_torch.ops import flash_attention as fa
+    from metal_flash_attention_tpu_torch.ops import flash_decode as fd
+
+    rng = np.random.default_rng(SEED)
+    prompt = torch.as_tensor(
+        rng.integers(0, cfg.vocab_size, (DENSE_BATCH, DENSE_PROMPT)),
+        dtype=torch.int32, device=dev)
+
+    def generate():
+        return serving.generate(params, prompt, cfg,
+                                max_new_tokens=DENSE_NEW,
+                                max_seq=DENSE_MAX_SEQ)
+    # Warm-up (library load, cuBLAS handles); not counted.
+    serving.generate(params, prompt[:, :64], cfg, max_new_tokens=2)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    with CardSampler() as sampler:
+        fa.reset_launch_counts()
+        fd.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = generate()
+        torch.cuda.synchronize(dev)
+        total = time.perf_counter() - t0
+        launches = {"flash_fwd": fa.LAUNCH_COUNTS["flash_fwd"],
+                    "flash_decode": fd.LAUNCH_COUNTS["flash_decode"]}
+        clocks = sampler.stop()
+    peak = torch.cuda.max_memory_allocated(dev)
+    expected = {"flash_fwd": cfg.n_layers,
+                "flash_decode": cfg.n_layers * (DENSE_NEW - 1)}
+    if launches != expected:
+        fail(f"dense serve launched {launches}, expected {expected}")
+    if tuple(out.shape) != (DENSE_BATCH, DENSE_PROMPT + DENSE_NEW):
+        fail(f"generate returned shape {tuple(out.shape)}")
+    if not torch.equal(out[:, :DENSE_PROMPT], prompt):
+        fail("generate changed the prompt")
+    new = out[:, DENSE_PROMPT:]
+    if not ((new >= 0) & (new < cfg.vocab_size)).all():
+        fail("generate emitted a token outside the vocabulary")
+
+    prefill_spans, step_spans = [], []
+    with event_timed(serving, "prefill", prefill_spans), \
+            event_timed(serving, "decode_step", step_spans):
+        t0 = time.perf_counter()
+        out2 = generate()
+        torch.cuda.synchronize(dev)
+        total2 = time.perf_counter() - t0
+    (p_start, p_end, p_host), = prefill_spans
+    step_ms = [a.elapsed_time(b) for a, b, _ in step_spans]
+    new_tokens = DENSE_BATCH * DENSE_NEW
+    print("dense_serve: " + json.dumps({
+        "config": f"llama3_8b, {cfg.n_layers} layers (full depth), bf16",
+        "batch": DENSE_BATCH, "prompt_tokens": DENSE_PROMPT,
+        "new_tokens_per_sequence": DENSE_NEW, "max_seq": DENSE_MAX_SEQ,
+        "timed_run": {
+            "what": "the bare generate, synchronised before and after",
+            "seconds": total, "new_tokens_per_s": new_tokens / total,
+            "max_memory_allocated": peak, "launches": launches,
+            "card_during_generate": clocks},
+        "instrumented_run": {
+            "what": "the same generate with CUDA events around prefill "
+                    "and each decode step, no synchronise inside",
+            "seconds": total2, "same_tokens": bool(torch.equal(out, out2)),
+            "prefill_ms": p_start.elapsed_time(p_end),
+            "prefill_host_ms": p_host * 1e3,
+            "prefill_tokens_per_s": DENSE_BATCH * DENSE_PROMPT
+            / p_start.elapsed_time(p_end) * 1e3,
+            "decode_step_ms": stats(step_ms),
+            "decode_step_host_ms": stats([h * 1e3 for *_, h in step_spans]),
+            "decode_tokens_per_s": DENSE_BATCH * len(step_ms)
+            / sum(step_ms) * 1e3},
+        "card": card}), flush=True)
+    profile_decode_step(params, cfg, dev)
+    return launches
+
+
+def profile_decode_step(params, cfg, dev) -> None:
+    """One dense decode step at the end of the generate's context under
+    torch.profiler (`dense_profile:`)."""
+    import torch
+    from metal_flash_attention_tpu_torch.models import serving
+
+    cache = serving.init_cache(cfg, DENSE_BATCH, DENSE_MAX_SEQ, device=dev)
+    cache = cache._replace(lengths=torch.full(
+        (DENSE_BATCH,), DENSE_PROMPT + DENSE_NEW - 2, dtype=torch.int32,
+        device=dev))
+    token = torch.zeros((DENSE_BATCH,), dtype=torch.int32, device=dev)
+    with torch.inference_mode():
+        serving.decode_step(params, token, cfg, cache)
+        profile_step("dense_profile",
+                     lambda: serving.decode_step(params, token, cfg, cache),
+                     {"flash_decode": ("flash_decode_", "merge_splits")},
+                     dev)
+
+
+def decode_reference(params, cfg, dev) -> dict:
+    """The dense path's logits (prefill, then DECODE_REF_STEPS decode
+    steps) against a full recompute with `attention_reference`, on a
+    2-layer cut of the weights."""
+    import torch
+    from metal_flash_attention_tpu_torch.models import serving
+
+    cut = dict(params, layers=params["layers"][:REFERENCE_LAYERS])
+    ccfg = dataclasses.replace(cfg, n_layers=REFERENCE_LAYERS)
+    rng = np.random.default_rng(SEED + 6)
+    n = REFERENCE_PROMPT + DECODE_REF_STEPS
+    tokens = torch.as_tensor(
+        rng.integers(0, cfg.vocab_size, (DECODE_REF_BATCH, n)), device=dev)
+    with torch.inference_mode():
+        cache = serving.init_cache(ccfg, DECODE_REF_BATCH, n, device=dev)
+        logits, cache = serving.prefill(cut, tokens[:, :REFERENCE_PROMPT],
+                                        ccfg, cache)
+        got = [logits]
+        for i in range(DECODE_REF_STEPS):
+            logits, cache = serving.decode_step(
+                cut, tokens[:, REFERENCE_PROMPT + i], ccfg, cache)
+            got.append(logits)
+        got = torch.stack(got, dim=1)
+        ref = (plain_hidden(cut, tokens, ccfg) @ cut["lm_head"]).float()
+        ref = ref[:, REFERENCE_PROMPT - 1:]
+    if not torch.isfinite(got).all():
+        fail("dense path gave non-finite logits")
+    err = got - ref
+    out = {"layers": REFERENCE_LAYERS, "batch": DECODE_REF_BATCH,
+           "prompt": REFERENCE_PROMPT, "decode_steps": DECODE_REF_STEPS,
+           "rel_rms_err": float(err.pow(2).mean().sqrt()
+                                / ref.pow(2).mean().sqrt()),
+           "max_abs_err": float(err.abs().max()),
+           "per_position_rel_rms": [
+               float(err[:, i].pow(2).mean().sqrt()
+                     / ref[:, i].pow(2).mean().sqrt())
+               for i in range(err.shape[1])],
+           "tol": {"rel_rms": REF_REL_RMS, "max_abs": REF_MAX_ABS}}
+    print("decode_reference: " + json.dumps(out), flush=True)
+    if not (out["rel_rms_err"] <= REF_REL_RMS
+            and out["max_abs_err"] <= REF_MAX_ABS):
+        fail("dense path disagrees with the attention_reference recompute")
+    return out
+
+
+def decode_kernel_checks(dev, launches) -> dict:
+    """The decode kernel against its plain version at the generate shape
+    with ragged lengths, with a planted fault (one row a 64-key tile
+    short) that the tile limit must see, and at the sink shape (both
+    partials of `sink_decode`: the strided sink slice, and kv_starts
+    with max_span); then its time, its plain version's and SDPA's."""
+    import torch
+    import torch.nn.functional as F
+    from metal_flash_attention_tpu_torch.models import serving
+    from metal_flash_attention_tpu_torch.ops import flash_decode as fd
+    from metal_flash_attention_tpu_torch.utils.tolerances import (
+        MIXED_TOL,
+        max_abs_err,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    b, n, d = DENSE_BATCH, DENSE_MAX_SEQ, HEAD_DIM
+    scale = d ** -0.5
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+    q, k, v = randn(b, Q_HEADS, d), randn(b, KV_HEADS, n, d), \
+        randn(b, KV_HEADS, n, d)
+    lens = torch.tensor(DECODE_LENS, dtype=torch.int32, device=dev)
+    full = torch.full((b,), n, dtype=torch.int32, device=dev)
+    readings, lse_errs, problems = {}, {}, []
+
+    def rows(o):
+        """o [b, q_heads, d] as [b, q_heads, 1, d]: each (sequence,
+        head) row is a tile of its own for `closeness`."""
+        return o[:, :, None]
+
+    def check(name, kernel, plain, fault=None):
+        (o, lse), (po, plse) = kernel, plain
+        r = closeness(rows(o), rows(po))
+        if fault is not None:
+            r["planted_fault"] = closeness(rows(fault), rows(po))
+        readings[name] = r
+        lse_errs[name] = max_abs_err(lse, plse)
+        if not within_limits(r) or lse_errs[name] > MIXED_TOL.lse:
+            problems.append(f"{name} disagrees with its plain version")
+        if fault is not None and within_limits(r["planted_fault"]):
+            problems.append(f"the {name} check does not see a dropped "
+                            "key tile")
+
+    def both(**kw):
+        return (fd.flash_decode(q, k_, v_, return_residuals=True, **kw),
+                fd._flash_decode_plain(q, k_, v_, scale=scale, **{
+                    "kv_starts": None, "max_span": None, **kw}))
+
+    # (a) The generate shape, ragged.  Fault: row 0 (8,192 keys) without
+    # its last 64-key tile.
+    k_, v_ = k, v
+    kernel, plain = both(kv_lens=lens)
+    short = lens.clone()
+    short[0] -= 64
+    fault, _ = fd.flash_decode(q, k, v, kv_lens=short, return_residuals=True)
+    check("flash_decode.o", kernel, plain, fault)
+    # (b) The sink shape at full lengths: the sink partial on the strided
+    # slice of the first SINK rows, the window partial from
+    # max(len - window, sink) with max_span; then the merged output.
+    k_, v_ = k[:, :, :SINK], v[:, :, :SINK]
+    sink_parts = both(kv_lens=full.clamp_max(SINK))
+    check("flash_decode.o_sink_part", *sink_parts)
+    k_, v_ = k, v
+    starts = (full - SINK_WINDOW).clamp_min(SINK)
+    win_parts = both(kv_lens=full, kv_starts=starts, max_span=SINK_WINDOW)
+    check("flash_decode.o_window_part", *win_parts)
+    so = serving.sink_decode(q, k, v, full, window=SINK_WINDOW, sink=SINK)
+    plain_so = serving._merge_partials(
+        sink_parts[1][0].float(), sink_parts[1][1],
+        win_parts[1][0].float(), win_parts[1][1])
+    readings["sink_decode.o"] = closeness(rows(so), rows(plain_so))
+    if not within_limits(readings["sink_decode.o"]):
+        problems.append("sink_decode disagrees with its plain version")
+    print("decode_checks: " + json.dumps({
+        "readings": readings, "lse_max_abs_err": lse_errs,
+        "lengths": list(DECODE_LENS),
+        "sink": {"window": SINK_WINDOW, "sink": SINK, "lengths": n},
+        "limits": {"tile_rel_rms": KERNEL_TILE_REL_RMS,
+                   "lse_abs": MIXED_TOL.lse}}), flush=True)
+    if problems:
+        fail("; ".join(problems))
+
+    ms, wall_ms = timed(lambda: fd.flash_decode(q, k, v, kv_lens=lens), 50)
+    full_ms, _ = timed(lambda: fd.flash_decode(q, k, v, kv_lens=full), 50)
+    sink_ms, _ = timed(lambda: serving.sink_decode(
+        q, k, v, full, window=SINK_WINDOW, sink=SINK), 50)
+    plain_ms, _ = timed(lambda: fd._flash_decode_plain(
+        q, k, v, kv_lens=lens, kv_starts=None, max_span=None, scale=scale),
+        10)
+    mask = (torch.arange(n, device=dev)[None, :]
+            < lens[:, None].long())[:, None, None, :]
+    lib_ms, _ = timed(lambda: F.scaled_dot_product_attention(
+        q[:, :, None], k, v, attn_mask=mask, enable_gqa=True), 20)
+
+    def work(lengths):
+        """(FLOPs, bytes): each live K and V row read once, q read and o
+        and lse written once."""
+        keys = int(sum(lengths))
+        io = 2 * q.numel() * 2 + q[..., 0].numel() * 4
+        return 4 * d * Q_HEADS * keys, keys * KV_HEADS * d * 2 * 2 + io
+    bound_ms, bound_by = bound(*work(DECODE_LENS))
+    full_bound_ms, _ = bound(*work([n] * b))
+    return {
+        "name": "flash_decode", "route": "cuda",
+        "source": "metal_flash_attention_tpu_torch/csrc/flash_decode.cu",
+        "replaces": "metal_flash_attention_tpu/ops/flash_decode.py:82",
+        "launches": launches["flash_decode"],
+        "max_abs_err": max(readings[key]["max_abs_err"]
+                           for key in readings),
+        "o": readings["flash_decode.o"],
+        "o_sink_part": readings["flash_decode.o_sink_part"],
+        "o_window_part": readings["flash_decode.o_window_part"],
+        "sink_decode_o": readings["sink_decode.o"],
+        "lse_max_abs_err": max(lse_errs.values()),
+        "limits": {"tile_rel_rms": KERNEL_TILE_REL_RMS,
+                   "lse_abs": MIXED_TOL.lse},
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": lib_ms, "wall_ms": wall_ms,
+        "library": "F.scaled_dot_product_attention(q[:, :, None], k, v, "
+                   "attn_mask=<length mask>, enable_gqa=True)",
+        "ms_full_lengths": full_ms, "bound_ms_full_lengths": full_bound_ms,
+        "sink_decode_ms": sink_ms,
+        "shape": "q [8, 32, 128], k/v [8, 8, 8192, 128] bf16, lengths "
+                 f"{list(DECODE_LENS)} (timed; also at full lengths); "
+                 f"sink_decode window {SINK_WINDOW}, sink {SINK}"}
+
+
 def train(dev, card):
     """The training path at the slice's configuration; returns the
     trained parameters, the config and the flash launch counts."""
@@ -480,14 +852,14 @@ def train(dev, card):
     fa.reset_launch_counts()
     fb.reset_launch_counts()
     losses, seconds = [], []
-    sampler = CardSampler()
-    for _ in range(TRAIN_STEPS):
-        t0 = time.perf_counter()
-        params, state, loss = step_fn(params, state, tokens)
-        losses.append(float(loss))
-        torch.cuda.synchronize(dev)
-        seconds.append(time.perf_counter() - t0)
-    clocks = sampler.stop()
+    with CardSampler() as sampler:
+        for _ in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            params, state, loss = step_fn(params, state, tokens)
+            losses.append(float(loss))
+            torch.cuda.synchronize(dev)
+            seconds.append(time.perf_counter() - t0)
+        clocks = sampler.stop()
     launches = {**fa.LAUNCH_COUNTS, **fb.LAUNCH_COUNTS}
     peak = torch.cuda.max_memory_allocated(dev)
 
@@ -516,6 +888,19 @@ def train(dev, card):
 def profile_train_step(step_fn, params, state, tokens, dev) -> None:
     """One more train step under torch.profiler: device time by kernel
     family and the card's busy share of the step's wall time."""
+    profile_step("train_profile", lambda: step_fn(params, state, tokens),
+                 {"flash_fwd": "flash_fwd_kernel",
+                  "flash_bwd_dq": "flash_bwd_dq_kernel",
+                  "flash_bwd_dkv": "flash_bwd_dkv_kernel",
+                  "optimizer": "multi_tensor"}, dev)
+
+
+def profile_step(label, run, families, dev) -> dict:
+    """`run()` once under torch.profiler: device time by kernel family
+    (`families`: name -> a substring of the kernel's name, or a tuple of
+    them; cuBLAS products and the rest besides), the card's busy share
+    of the wall time, and the top kernels.  Prints and returns the
+    reading."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -523,35 +908,36 @@ def profile_train_step(step_fn, params, state, tokens, dev) -> None:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step_fn(params, state, tokens)
+        run()
         torch.cuda.synchronize(dev)
         wall = time.perf_counter() - t0
     kernels = device_kernels(prof)
-    families = {"flash_fwd": "flash_fwd_kernel",
-                "flash_bwd_dq": "flash_bwd_dq_kernel",
-                "flash_bwd_dkv": "flash_bwd_dkv_kernel",
-                "optimizer": "multi_tensor"}
     by_family: dict[str, float] = {}
     by_name: dict[str, list] = {}
     for e in kernels:
-        family = next((f for f, key in families.items() if key in e.name),
-                      None)
+        family = next((f for f, keys in families.items() if any(
+            key in e.name for key in (
+                (keys,) if isinstance(keys, str) else keys))), None)
         if family is None:
             family = ("gemm" if any(key in e.name.lower() for key in (
-                "gemm", "xmma", "nvjet", "cutlass", "sm90")) else "other")
+                "gemm", "gemv", "xmma", "nvjet", "cutlass", "sm90"))
+                else "other")
         by_family[family] = by_family.get(family, 0.0) + e.device_time_total
         slot = by_name.setdefault(e.name[:90], [0, 0.0])
         slot[0] += 1
         slot[1] += e.device_time_total
     busy_us = sum(by_family.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
-    print("train_profile: " + json.dumps({
+    reading = {
         "wall_ms": wall * 1e3, "device_ms": busy_us / 1e3,
         "busy_share": busy_us / 1e3 / (wall * 1e3),
+        "kernels_launched": len(kernels),
         "device_ms_by_family": {k: v / 1e3 for k, v in sorted(
             by_family.items(), key=lambda kv: -kv[1])},
         "top_kernels": [{"name": n, "calls": c, "ms": t / 1e3}
-                        for n, (c, t) in top]}), flush=True)
+                        for n, (c, t) in top]}
+    print(f"{label}: " + json.dumps(reading), flush=True)
+    return reading
 
 
 def train_reference(params, cfg, dev) -> dict:
@@ -711,6 +1097,51 @@ def flash_kernel_checks(dev, launches) -> list[dict]:
     check("flash_fwd.o", o, po, fault)
     lse_errs = [max_abs_err(lse, plse)]
     del po, plse, fault
+
+    # flash_fwd at the dense prefill's shape: the whole batch of
+    # DENSE_BATCH x DENSE_PROMPT through the kernel once (the batch
+    # offsets; the half-full last query tile on the causal diagonal,
+    # 8,160 = 127.5 x 64), the first and the last sequence held against
+    # the plain version one kv head at a time.  Fault: the last (partial)
+    # query tile of the last head of the last sequence without its
+    # diagonal key tile.
+    m = DENSE_PROMPT
+    tail = slice((m - 1) // TILE_ROWS * TILE_ROWS, m)
+
+    def dense(heads):
+        return torch.randn((DENSE_BATCH, heads, m, d), generator=gen,
+                           device=dev).to(torch.bfloat16)
+    pq, pk, pv = dense(Q_HEADS), dense(KV_HEADS), dense(KV_HEADS)
+    p_o, p_lse = fa.flash_attention_forward(pq, pk, pv, causal=True)
+    for s in (0, DENSE_BATCH - 1):
+        one = slice(s, s + 1)
+        po = torch.empty((1, Q_HEADS, m, d), dtype=torch.float32,
+                         device=dev)
+        plse = torch.empty((1, Q_HEADS, m), dtype=torch.float32, device=dev)
+        for j in range(KV_HEADS):
+            g = slice(j * group, (j + 1) * group)
+            po[:, g], plse[:, g] = fa._forward_plain(
+                pq[one, g], pk[one, j:j + 1], pv[one, j:j + 1], causal=True,
+                window_size=None, scale=scale, out_dtype=torch.float32)
+        fault = None
+        if s == DENSE_BATCH - 1:
+            fault = p_o[one].clone()
+            fault[:, h:h + 1, tail] = attention_reference(
+                pq[one, h:h + 1, tail], pk[one, kvh:kvh + 1, :tail.start],
+                pv[one, kvh:kvh + 1, :tail.start], scale=scale).to(o.dtype)
+        check(f"flash_fwd.o_prefill_seq{s}", p_o[one], po, fault)
+        lse_errs.append(max_abs_err(p_lse[one], plse))
+        del po, plse, fault
+    prefill_ms, _ = timed(lambda: fa.flash_attention_forward(
+        pq, pk, pv, causal=True), 5)
+    prefill_lib_ms, _ = timed(lambda: F.scaled_dot_product_attention(
+        pq, pk, pv, is_causal=True, enable_gqa=True), 5)
+    prefill_bound = bound(
+        4 * d * DENSE_BATCH * Q_HEADS * visible_pairs(m, m, True, None),
+        nbytes(pq, pk, pv, p_o, p_lse))
+    del pq, pk, pv, p_o, p_lse
+    torch.cuda.empty_cache()
+
     rows, cols, window = WINDOW_CASE
     wq, wk, wv, _ = qkv(rows, cols)
     wo, wlse = fa.flash_attention_forward(wq, wk, wv, causal=True,
@@ -777,18 +1208,23 @@ def flash_kernel_checks(dev, launches) -> list[dict]:
         "replaces": jax_src + "flash_attention.py:223 (and :552, the "
                     "visible-blocks-only variant)",
         "launches": launches["flash_fwd"],
-        "max_abs_err": max(readings["flash_fwd.o"]["max_abs_err"],
-                           readings["flash_fwd.o_window"]["max_abs_err"]),
-        "o": readings["flash_fwd.o"],
-        "o_window": readings["flash_fwd.o_window"],
+        "max_abs_err": max(readings[key]["max_abs_err"] for key in readings
+                           if key.startswith("flash_fwd.")),
+        **{key[len("flash_fwd."):]: r for key, r in readings.items()
+           if key.startswith("flash_fwd.")},
         "lse_max_abs_err": max(lse_errs),
         "limits": dict(limits, lse_abs=MIXED_TOL.lse),
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": lib_ms, "wall_ms": wall_ms,
         "library": "F.scaled_dot_product_attention(is_causal=True, "
                    "enable_gqa=True)",
+        "ms_prefill_shape": prefill_ms,
+        "bound_ms_prefill_shape": prefill_bound[0],
+        "library_ms_prefill_shape": prefill_lib_ms,
         "shape": shape + " (timed); q_len 1000 vs kv_len 1536, "
-                 "window 512"})
+                 f"window 512; the dense prefill's q [{DENSE_BATCH}, 32, "
+                 f"{DENSE_PROMPT}, 128] causal (checked on sequences 0 "
+                 f"and {DENSE_BATCH - 1}, timed as *_prefill_shape)"})
 
     lse_c = lse.contiguous()
     d_term = (do.float() * o.float()).sum(dim=-1)
@@ -902,8 +1338,17 @@ def main() -> int:
         fail("paged path disagrees with the dense reference")
     kernels = paged_kernel_checks(dev, paged_launches)
 
-    # Free the serve's 16 GB of weights before training.
-    del eng, params
+    # The dense path runs on the same full-depth weights; the engine's
+    # pools go first.
+    del eng
+    torch.cuda.empty_cache()
+    dense_launches = dense_serve(params, cfg, dev, card)
+    decode_reference(params, cfg, dev)
+    # Free the 14.5 GB of weights before training (generate's 8.6 GB
+    # cache went with its call).
+    del params
+    torch.cuda.empty_cache()
+    decode_kernel = decode_kernel_checks(dev, dense_launches)
     torch.cuda.empty_cache()
 
     tparams, tcfg, flash_launches = train(dev, card)
@@ -911,6 +1356,12 @@ def main() -> int:
     del tparams
     torch.cuda.empty_cache()
     kernels += flash_kernel_checks(dev, flash_launches)
+    for entry in kernels:
+        if entry["name"] == "flash_fwd":
+            entry["launches_by_path"] = {
+                "train": flash_launches["flash_fwd"],
+                "dense_serve": dense_launches["flash_fwd"]}
+    kernels.append(decode_kernel)
 
     print(card)
     print(json.dumps({"kernels": kernels}))

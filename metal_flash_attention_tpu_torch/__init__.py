@@ -19,10 +19,14 @@ Ported so far:
   `models.losses` (fused cross-entropy), `models.llama` (forward,
   loss, SGD demo step) and `models.optim` (AdamW with float32 master
   weights);
+- slice 3, dense serving: `ops.flash_decode` (kernel
+  `csrc/flash_decode.cu`) and the dense part of `models.serving`
+  (`KVCache`, `init_cache`, `prefill`, `decode_step`, `generate`,
+  `sink_decode`), whose prefill runs slice 2's fused forward;
 - shared: `ops.reference`, `native.build`, `utils`.
 
-Constructors (`init_params`, `params_from_numpy`, `init_paged_cache`,
-...) put their tensors on the card unless the caller passes
+Constructors (`init_params`, `params_from_numpy`, `init_cache`,
+`init_paged_cache`, ...) put their tensors on the card unless the caller passes
 ``device="cpu"``.
 """
 
@@ -42,6 +46,7 @@ from metal_flash_attention_tpu_torch.ops.flash_attention import (
 from metal_flash_attention_tpu_torch.ops.flash_attention_bwd import (
     flash_attention_backward,
 )
+from metal_flash_attention_tpu_torch.ops.flash_decode import flash_decode
 from metal_flash_attention_tpu_torch.ops.paged_attention import (
     LAUNCH_COUNTS,
     PagedKVCache,
@@ -64,6 +69,7 @@ __all__ = [
     "flash_attention",
     "flash_attention_backward",
     "flash_attention_forward",
+    "flash_decode",
     "fused_cross_entropy",
     "init_paged_cache",
     "init_params",

@@ -1,5 +1,6 @@
 // Helpers shared by the port's attention kernels (sm_90a): the tensor-core
-// tile product, fragment packing, quad reductions and the visibility rule.
+// tile product, fragment packing, quad reductions, the visibility rule and
+// the lse merge of split-KV partials.
 //
 // Fragment layout of mma.sync m16n8k16 (row.col), for lane
 // (g = lane / 4, t4 = lane % 4):
@@ -121,6 +122,66 @@ __device__ __forceinline__ void load_rows(uint16_t* tile, const void* src,
     if (row < limit) x = s[(size_t)row * kPieces + part];
     *reinterpret_cast<uint4*>(tile + j * (D + kPad) + part * 8) = x;
   }
+}
+
+// A float rounded to a kernel's storage type.
+template <typename T>
+__device__ __forceinline__ T from_float(float x);
+
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+template <>
+__device__ __forceinline__ __half from_float<__half>(float x) {
+  return __float2half(x);
+}
+
+template <>
+__device__ __forceinline__ float from_float<float>(float x) {
+  return x;
+}
+
+// The second launch of a split-KV decode: merge each row's `splits`
+// normalized float32 partials by their base-2 lse.  Grid (rows, kv_heads,
+// batch), one thread per head-dim column.  part_o is [batch, kv_heads,
+// splits, rows, D] and part_lse [batch, kv_heads, splits, rows]; row r of
+// kv head h is row h * rows + r of o [batch, kv_heads * rows, D] and of lse
+// (natural log).  A split that saw no key (lse = -inf) weighs 0; a row
+// that no split saw gives o = 0 and lse = -inf.
+template <typename T, int D>
+__global__ void __launch_bounds__(D)
+merge_splits_kernel(const float* part_o, const float* part_lse, T* o,
+                    float* lse, int rows, int splits) {
+  const int r = blockIdx.x, d = threadIdx.x;
+  const size_t head = (size_t)blockIdx.z * gridDim.y + blockIdx.y;
+  const size_t base = head * splits;
+  float mx = -INFINITY;
+  for (int s = 0; s < splits; ++s)
+    mx = fmaxf(mx, part_lse[(base + s) * rows + r]);
+  const size_t row = head * rows + r;
+  if (mx == -INFINITY) {
+    o[row * D + d] = from_float<T>(0.f);
+    if (d == 0) lse[row] = -INFINITY;
+    return;
+  }
+  float w_sum = 0.f, acc = 0.f;
+  for (int s = 0; s < splits; ++s) {
+    const float w = exp2f(part_lse[(base + s) * rows + r] - mx);
+    w_sum += w;
+    acc += w * part_o[((base + s) * rows + r) * D + d];
+  }
+  o[row * D + d] = from_float<T>(acc / w_sum);
+  if (d == 0) lse[row] = (mx + log2f(w_sum)) * kLn2;
+}
+
+template <typename T, int D>
+inline void merge_splits(const float* part_o, const float* part_lse, T* o,
+                         float* lse, int rows, int kv_heads, int batch,
+                         int splits, cudaStream_t stream) {
+  merge_splits_kernel<T, D><<<dim3(rows, kv_heads, batch), D, 0, stream>>>(
+      part_o, part_lse, o, lse, rows, splits);
 }
 
 }  // namespace mfa

@@ -1,8 +1,11 @@
-// Tiles of the flash-attention kernels: the query rows and keys one block
-// handles per step.  descriptors/attention_descriptor.py reads these lines
-// for AttentionDescriptor.kernel_config, so the kernels and the descriptor
-// share this one source.  Each is a multiple of 16 (the mma tile); a block
-// has one warp per 16 rows of its block-sized axis.
+// Tiles of the attention kernels: the query rows and keys one block
+// handles per step, and the decode kernel's largest GQA group.  The Python
+// wrappers read these lines (`native.build.tile_defines`):
+// AttentionDescriptor.kernel_config the flash tiles, the decode wrappers
+// their key tiles (the unit the split-KV splits divide) and group limit.
+// So the kernels and their wrappers share this one source.  The flash
+// tiles are multiples of 16 (the mma tile); a flash block has one warp per
+// 16 rows of its block-sized axis.
 
 #pragma once
 
@@ -12,3 +15,6 @@
 #define MFA_DQ_BLOCK_KV 32    // flash_bwd_dq: keys per iteration
 #define MFA_DKV_BLOCK_Q 32    // flash_bwd_dkv: query rows per iteration
 #define MFA_DKV_BLOCK_KV 64   // flash_bwd_dkv: keys per block
+#define MFA_PAGED_BLOCK_KV 64     // paged_decode/_prefill: keys per iteration
+#define MFA_DECODE_BLOCK_KV 64    // flash_decode: keys per tile
+#define MFA_DECODE_MAX_GROUP 16   // flash_decode: q heads per kv head

@@ -29,6 +29,7 @@
 // Every function returns cudaGetLastError() after its launches.
 
 #include "attention_common.cuh"
+#include "flash_tiles.cuh"
 
 namespace {
 
@@ -37,7 +38,7 @@ using namespace mfa;
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kTileM = 16 * kWarps;  // query rows per block (16 per warp)
-constexpr int kTileN = 64;           // keys per iteration
+constexpr int kTileN = MFA_PAGED_BLOCK_KV;  // keys per iteration
 constexpr int kPad = 8;              // bf16 padding per shared-memory row
 
 struct Params {
@@ -292,35 +293,6 @@ paged_decode_split_kernel(Params p) {
   attend<D, true>(p, blockIdx.x / p.splits, blockIdx.x % p.splits);
 }
 
-// Merge the splits of each row by their lse: grid (rows, kv_heads,
-// batch), one thread per head-dim column.
-template <int D>
-__global__ void __launch_bounds__(D)
-paged_combine_kernel(Params p) {
-  const int r = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int d = threadIdx.x;
-  const int group = p.q_heads / p.kv_heads;
-  const int rows = group * p.q_chunk;
-  const size_t base = ((size_t)b * p.kv_heads + h) * p.splits;
-  float mx = -INFINITY;
-  for (int s = 0; s < p.splits; ++s)
-    mx = fmaxf(mx, p.part_lse[(base + s) * rows + r]);
-  const size_t row = (size_t)(b * p.q_heads + h * group) * p.q_chunk + r;
-  if (mx == -INFINITY) {
-    p.o[row * D + d] = __float2bfloat16(0.f);
-    if (d == 0) p.lse[row] = -INFINITY;
-    return;
-  }
-  float w_sum = 0.f, acc = 0.f;
-  for (int s = 0; s < p.splits; ++s) {
-    const float w = exp2f(p.part_lse[(base + s) * rows + r] - mx);
-    w_sum += w;
-    acc += w * p.part_o[((base + s) * rows + r) * D + d];
-  }
-  p.o[row * D + d] = __float2bfloat16(acc / w_sum);
-  if (d == 0) p.lse[row] = (mx + log2f(w_sum)) * kLn2;
-}
-
 Params make_params(const void* q, const void* k_pool, const void* v_pool,
                    const void* table, const void* lengths, void* o,
                    void* lse, int q_heads, int kv_heads, int q_chunk,
@@ -388,14 +360,15 @@ int mfa_paged_decode(const void* q, const void* k_pool, const void* v_pool,
   if (batch == 0 || rows == 0) return 0;
   if (splits < 1) return (int)cudaErrorInvalidValue;
   const dim3 grid(((rows + kTileM - 1) / kTileM) * splits, kv_heads, batch);
-  const dim3 merge(rows, kv_heads, batch);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (head_dim == 64) {
     paged_decode_split_kernel<64><<<grid, kThreads, 0, s>>>(p);
-    paged_combine_kernel<64><<<merge, 64, 0, s>>>(p);
+    merge_splits<__nv_bfloat16, 64>(p.part_o, p.part_lse, p.o, p.lse, rows,
+                                    kv_heads, batch, splits, s);
   } else if (head_dim == 128) {
     paged_decode_split_kernel<128><<<grid, kThreads, 0, s>>>(p);
-    paged_combine_kernel<128><<<merge, 128, 0, s>>>(p);
+    merge_splits<__nv_bfloat16, 128>(p.part_o, p.part_lse, p.o, p.lse, rows,
+                                     kv_heads, batch, splits, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -18,8 +18,6 @@ from __future__ import annotations
 import enum
 import functools
 import math
-import os
-import re
 from dataclasses import dataclass
 from typing import Optional
 
@@ -28,10 +26,10 @@ import torch
 from metal_flash_attention_tpu_torch.descriptors.precision import (
     OperandPrecision,
 )
-
-TILES_HEADER = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc",
-    "flash_tiles.cuh")
+from metal_flash_attention_tpu_torch.native.build import (  # noqa: F401
+    TILES_HEADER,
+    tile_defines,
+)
 
 
 class AttentionKernelType(enum.Enum):
@@ -50,11 +48,8 @@ _TILE_PREFIX = {AttentionKernelType.FORWARD: "FWD",
 def kernel_tiles() -> dict[AttentionKernelType, tuple[int, int]]:
     """(block_q, block_kv) of each CUDA kernel, as `csrc/flash_tiles.cuh`
     defines them for the kernels."""
-    with open(TILES_HEADER) as f:
-        defines = dict(re.findall(r"^#define (MFA_\w+) (\d+)", f.read(),
-                                  re.MULTILINE))
-    return {kind: (int(defines[f"MFA_{p}_BLOCK_Q"]),
-                   int(defines[f"MFA_{p}_BLOCK_KV"]))
+    defines = tile_defines()
+    return {kind: (defines[f"MFA_{p}_BLOCK_Q"], defines[f"MFA_{p}_BLOCK_KV"])
             for kind, p in _TILE_PREFIX.items()}
 
 

@@ -13,7 +13,9 @@ shared memory, spills) is kept beside each library as `lib<name>.log`.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -21,6 +23,7 @@ import threading
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
+TILES_HEADER = os.path.join(SRC_DIR, "flash_tiles.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 NVCC_TIMEOUT_S = 600
@@ -29,6 +32,16 @@ _LOCK = threading.Lock()
 
 def sources() -> list[str]:
     return sorted(f[:-3] for f in os.listdir(SRC_DIR) if f.endswith(".cu"))
+
+
+@functools.cache
+def tile_defines() -> dict[str, int]:
+    """The kernels' tiles: every ``#define MFA_<NAME> <int>`` line of
+    `csrc/flash_tiles.cuh`, which the kernels include.  Reading a text
+    file needs no toolkit, so the wrappers use it on any machine."""
+    with open(TILES_HEADER) as f:
+        return {name: int(value) for name, value in re.findall(
+            r"^#define (MFA_\w+) (\d+)", f.read(), re.MULTILINE)}
 
 
 def library_path(name: str) -> str:

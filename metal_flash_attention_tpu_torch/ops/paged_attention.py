@@ -34,12 +34,11 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from metal_flash_attention_tpu_torch.native.build import tile_defines
 from metal_flash_attention_tpu_torch.utils.device import resolve_device
 from metal_flash_attention_tpu_torch.utils.errors import not_ported
 from metal_flash_attention_tpu_torch.utils.shapes import cdiv
 
-# Keys tiled per kernel iteration (csrc/paged_attention.cu, TILE_N).
-KERNEL_TILE_TOKENS = 64
 KERNEL_HEAD_DIMS = (64, 128)
 
 # One count per kernel, bumped only where its wrapper launches it.
@@ -250,13 +249,14 @@ def _sm_count(device_index: int) -> int:
 
 
 def decode_splits(batch: int, kv_heads: int, max_tokens: int,
-                  sm_count: int) -> int:
-    """KV splits per (sequence, kv head) for the decode kernel: enough
-    blocks for two waves over the SMs, and no more splits than key
-    tiles.  Each block divides its sequence's live tiles evenly among
-    the splits at run time, so no length is read back to the host."""
+                  sm_count: int, tile: int) -> int:
+    """KV splits per (sequence, kv head) for a split-KV decode kernel
+    whose key tile is ``tile``: enough blocks for two waves over the SMs,
+    and no more splits than key tiles.  Each block divides its sequence's
+    live tiles evenly among the splits at run time, so no length is read
+    back to the host."""
     want = cdiv(2 * sm_count, batch * kv_heads)
-    return max(1, min(want, cdiv(max_tokens, KERNEL_TILE_TOKENS)))
+    return max(1, min(want, cdiv(max_tokens, tile)))
 
 
 def _paged_attention_cuda(q, cache, *, scale, window_size, decode):
@@ -302,7 +302,8 @@ def _paged_attention_cuda(q, cache, *, scale, window_size, decode):
     with torch.cuda.device(q.device):
         if decode:
             splits = decode_splits(b, kvh, max_pages * ps,
-                                   _sm_count(q.device.index or 0))
+                                   _sm_count(q.device.index or 0),
+                                   tile_defines()["MFA_PAGED_BLOCK_KV"])
             rows = qh // kvh * qc
             part_o = torch.empty((b, kvh, splits, rows, d),
                                  dtype=torch.float32, device=q.device)

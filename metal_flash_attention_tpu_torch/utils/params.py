@@ -1,8 +1,9 @@
-"""Carry parameters and KV pools from the JAX package into the port.
+"""Carry parameters and KV caches from the JAX package into the port.
 
-The tests hand both packages the same weights: the JAX params pytree is
-turned into numpy (bf16 as float32, which numpy can hold; bf16 -> f32 ->
-bf16 is exact) and this module builds the port's dict from it.
+The tests hand both packages the same weights and caches: the JAX
+pytree is turned into numpy (bf16 as float32, which numpy can hold;
+bf16 -> f32 -> bf16 is exact) and this module builds the port's
+structures from it.
 """
 
 from __future__ import annotations
@@ -44,3 +45,20 @@ def pools_from_numpy(pools, head_dim: int, device=None,
     device = resolve_device(device)
     return [torch.from_numpy(np.array(p[..., :head_dim]))
             .to(device=device, dtype=dtype) for p in pools]
+
+
+def cache_from_numpy(cache, device=None, dtype: torch.dtype = torch.bfloat16):
+    """A JAX dense `KVCache` as numpy (per-layer k and v lists of
+    [batch, kv_heads, max_seq, head_dim] arrays, lengths [batch]) -> the
+    port's `models.serving.KVCache`, on the card unless ``device`` says
+    otherwise."""
+    from metal_flash_attention_tpu_torch.models.serving import KVCache
+
+    device = resolve_device(device)
+
+    def caches(xs):
+        return [torch.from_numpy(np.array(x, np.float32)).to(
+            device=device, dtype=dtype) for x in xs]
+    return KVCache(k=caches(cache.k), v=caches(cache.v),
+                   lengths=torch.from_numpy(np.array(
+                       cache.lengths, np.int32)).to(device))

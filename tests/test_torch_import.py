@@ -33,6 +33,7 @@ MODULES = [
     "metal_flash_attention_tpu_torch.native.page_allocator",
     "metal_flash_attention_tpu_torch.ops.flash_attention",
     "metal_flash_attention_tpu_torch.ops.flash_attention_bwd",
+    "metal_flash_attention_tpu_torch.ops.flash_decode",
     "metal_flash_attention_tpu_torch.ops.paged_attention",
     "metal_flash_attention_tpu_torch.ops.reference",
     "metal_flash_attention_tpu_torch.utils.device",
@@ -59,9 +60,10 @@ def test_port_imports_no_jax():
             "m.startswith('metal_flash_attention_tpu.'))\n"
             "assert not bad, bad\n"
             "from metal_flash_attention_tpu_torch.ops import "
-            "paged_attention, flash_attention, flash_attention_bwd\n"
+            "paged_attention, flash_attention, flash_attention_bwd, "
+            "flash_decode\n"
             "for m in (paged_attention, flash_attention, "
-            "flash_attention_bwd):\n"
+            "flash_attention_bwd, flash_decode):\n"
             "    assert m._kernel_library.cache_info().currsize == 0\n"
             "import chip_smoke\n"
             "assert 'jax' not in sys.modules\n")
@@ -143,6 +145,11 @@ def _constructors():
             max_pages=1).k_pages,
         "init_paged_model_cache": lambda: serving.init_paged_model_cache(
             cfg, 1, 8, page_size=4).k[0],
+        "init_cache": lambda: serving.init_cache(cfg, 1, 8).k[0],
+        "cache_from_numpy": lambda: params.cache_from_numpy(
+            serving.KVCache(k=[np.zeros((1, 1, 4, 32), np.float32)],
+                            v=[np.zeros((1, 1, 4, 32), np.float32)],
+                            lengths=np.zeros((1,), np.int32))).k[0],
     }
 
 
@@ -177,6 +184,39 @@ def test_constructors_put_tensors_where_the_default_resolves(monkeypatch):
         seen.clear()
         assert make().device.type == "meta", name
         assert seen and all(d == torch.device("cuda") for d in seen), name
+
+
+@pytest.mark.parametrize("source,names", [
+    ("flash_attention.cu", ("MFA_FWD_BLOCK_Q", "MFA_FWD_BLOCK_KV")),
+    ("flash_attention_bwd.cu", ("MFA_DQ_BLOCK_KV", "MFA_DKV_BLOCK_Q")),
+    ("paged_attention.cu", ("MFA_PAGED_BLOCK_KV",)),
+    ("flash_decode.cu", ("MFA_DECODE_BLOCK_KV", "MFA_DECODE_MAX_GROUP")),
+])
+def test_kernels_and_wrappers_share_the_tiles_header(source, names):
+    """Each kernel takes its tiles from csrc/flash_tiles.cuh, the header
+    its wrapper reads, and keeps no copy of its own."""
+    from metal_flash_attention_tpu_torch.native import build
+
+    with open(os.path.join(build.SRC_DIR, source)) as f:
+        text = f.read()
+    assert '#include "flash_tiles.cuh"' in text
+    defines = build.tile_defines()
+    for name in names:
+        assert name in text and defines[name] > 0
+
+
+def test_decode_splits_fill_the_card_without_empty_splits():
+    """Two waves of blocks over the SMs, never more splits than key
+    tiles, at least one."""
+    from metal_flash_attention_tpu_torch.native import build
+
+    tile = build.tile_defines()["MFA_DECODE_BLOCK_KV"]
+    # 8 x 8 (sequence, kv head) pairs on 132 SMs: 5 splits of 128 tiles.
+    assert paged_attention.decode_splits(8, 8, 8192, 132, tile) == 5
+    # Few keys cap the splits at the tile count.
+    assert paged_attention.decode_splits(1, 8, tile + 1, 132, tile) == 2
+    # A batch that fills the card takes one split.
+    assert paged_attention.decode_splits(64, 8, 8192, 132, tile) == 1
 
 
 def test_a_library_is_stale_when_a_shared_header_is_newer(tmp_path,
