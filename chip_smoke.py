@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paged serving, dense serving and training
-paths on one NVIDIA GPU.
+paths, and its standalone ops (quantized GEMM, softmax), on one NVIDIA
+GPU.
 
 Run from the root of a checkout, on a machine with one CUDA card and
 the CUDA toolkit:
@@ -42,7 +43,21 @@ Phases (any failure exits non-zero and prints no result):
 6. decode_reference: on a 2-layer cut of the same weights, batch 2, a
    300-token prompt and 4 decode steps: the logits of `prefill` and
    each `decode_step` against a full recompute through the port's
-   blocks with `ops.reference.attention_reference` (REF_*); then free
+   blocks with `ops.reference.attention_reference` (REF_*);
+   quant_gemm: layer 0's MLP weights (w_gate, w_up [4096, 14336],
+   w_down [14336, 4096]) quantized per channel (`quantize_matrix`,
+   contract_axis 0) in INT8, FP8-E4M3, FP8-E5M2 and NF4, and the SwiGLU
+   block run through `gemm` on bf16 activations at 8,192 tokens (a
+   prefill) and at 8 (the dense serve's decode batch), with the `gemm`
+   launch count set to 0 just before and read just after (exactly
+   4 x 3 x 2 = 24); each block's relative error against the unquantized
+   bf16 block (reported, not limited); each product's time, bound and
+   the library time (torch.matmul on the bf16 weight); gemm_checks: the
+   kernel against `_gemm_plain` on every precision at T = 8192 on
+   w_gate, INT8 and NF4 at T = 8 on w_down, and dense bf16 4096^3 with
+   backend="pallas", by the worst relative rms error of any 64 x 128
+   output tile (KERNEL_TILE_REL_RMS), each with a planted fault (one
+   tile without one 32-deep K step) that the limit must see; then free
    the weights;
 7. decode_checks: the decode kernel against its plain version at the
    generate shape (q [8, 32, 128], k/v [8, 8, 8192, 128], ragged
@@ -87,16 +102,28 @@ Phases (any failure exits non-zero and prints no result):
    not fit otherwise.  Then time each kernel, its plain
    version and, where one PyTorch call computes the same function, that
    call (`scaled_dot_product_attention`; a yardstick that the port
-   never calls).
+   never calls);
+11. softmax_checks: `scaled_softmax` (default scale) and
+   `derivative_softmax` (scale 0.5, on P from it and a random dP) on
+   scores [1, 32, 8192, 8192] bf16 (Llama-3-8B's heads at the training
+   path's 8,192 tokens), launch counts set to 0 just before and read
+   just after; each against its plain version one head at a time by the
+   worst relative rms error of any 64-row tile (KERNEL_TILE_REL_RMS),
+   with a planted fault (one tile's rows without their last 64 columns,
+   in the sums as in the output); then their times, bounds, the plain
+   versions' (one head at a time) and the library calls'
+   (`torch.softmax`, `torch._softmax_backward_data`, at scale 1.0).
 
 Every kernel's `bound_ms` is the least time the card could take for the
 same work: the larger of the bytes it must move (each input read once,
-each output written once) over 3.35 TB/s and the operations this run's
-data needs (visible query-key pairs only) over 989 TFLOP/s in bf16.
+each output written once; a quantized weight's payload and scales) over
+3.35 TB/s and the operations this run's data needs (visible query-key
+pairs only) over 989 TFLOP/s in bf16.
 
 Output: `serve`, `reference`, `dense_serve`, `dense_profile`,
-`decode_reference`, `decode_checks`, `train`, `train_profile`,
-`train_reference` and `flash_checks` lines, the card's name and power
+`decode_reference`, `quant_gemm`, `gemm_checks`, `decode_checks`,
+`train`, `train_profile`, `train_reference`, `flash_checks` and
+`softmax_checks` lines, the card's name and power
 limit as nvidia-smi gives them, a `kernels` JSON line, and as the last
 line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -106,6 +133,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import importlib
 import json
 import subprocess
 import sys
@@ -172,6 +200,24 @@ TRAIN_GRAD_REL_RMS = 4e-2
 # unless the limit sees it.
 TILE_ROWS = 64
 KERNEL_TILE_REL_RMS = 1.5e-2
+
+# The standalone ops (slice 4).  A weight-quantized Llama-3-8B MLP at a
+# prefill's 8,192 tokens and at the dense serve's decode batch of 8; each
+# weight of layer 0 quantized per channel in each precision.  The GEMM
+# kernel is held against its plain version by the worst relative rms
+# error of any GEMM_TILE output tile (64 rows x 128 columns, fewer rows
+# where T < 64), the softmax kernels by that of any TILE_ROWS-row tile of
+# one head; the limit is KERNEL_TILE_REL_RMS, with a planted fault in
+# every check (a GEMM tile without one 32-deep K step, about
+# sqrt(32 / K); a softmax tile whose rows lose their last 64 columns,
+# about sqrt(64 / 8192)).
+QUANT_PRECISIONS = ("int8", "fp8_e4m3", "fp8_e5m2", "nf4")
+MLP_TOKENS = (8192, 8)
+MLP_WEIGHTS = ("w_gate", "w_up", "w_down")
+GEMM_TILE = (64, 128)
+GEMM_K_STEP = 32
+DENSE_GEMM = 4096
+SOFTMAX_SCALE_DERIVATIVE = 0.5
 
 # NVIDIA H100 SXM data sheet, dense: bf16 tensor cores and HBM3.
 PEAK_BF16_FLOPS = 989e12
@@ -269,21 +315,25 @@ def device_kernels(prof) -> list:
             and not getattr(e, "is_user_annotation", False)]
 
 
-def closeness(got, ref) -> dict:
+def closeness(got, ref, tile_rows: int = TILE_ROWS,
+              tile_cols=None) -> dict:
     """A kernel's output against its plain version, on the reference's
     own scale: the relative rms error ||got - ref|| / ||ref|| over the
-    tensor; the worst such ratio over the TILE_ROWS-row tiles of each
-    head (the second axis from the end), so that a fault confined to one
-    tile cannot hide among the rest; and the max abs error."""
+    tensor; the worst such ratio over its tiles of `tile_rows` rows (the
+    second axis from the end: one head's rows) by `tile_cols` columns
+    (None: whole rows), so that a fault confined to one tile cannot hide
+    among the rest; and the max abs error."""
     import torch.nn.functional as F
 
     ref = ref.float()
     err = got.float() - ref
 
     def per_tile(x):
-        x = x.pow(2).sum(dim=-1)
-        x = F.pad(x, (0, -x.shape[-1] % TILE_ROWS))
-        return x.unflatten(-1, (-1, TILE_ROWS)).sum(dim=-1)
+        x = x.pow(2)
+        cols = tile_cols or x.shape[-1]
+        x = F.pad(x, (0, -x.shape[-1] % cols, 0, -x.shape[-2] % tile_rows))
+        return x.unflatten(-1, (-1, cols)).unflatten(
+            -3, (-1, tile_rows)).sum(dim=(-1, -3))
 
     e2, r2 = per_tile(err), per_tile(ref)
     floor = 1e-12 * float(r2.mean()) + 1e-30
@@ -328,10 +378,14 @@ def unrooted_scale(fwd):
     return run
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def bound(flops: float, n_bytes: float) -> tuple[float, str]:
     """(bound_ms, bound_by): the larger of the two least times."""
     t_ops = flops / PEAK_BF16_FLOPS * 1e3
-    t_bytes = nbytes / PEAK_HBM_BYTES_PER_S * 1e3
+    t_bytes = n_bytes / PEAK_HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -1076,9 +1130,6 @@ def flash_kernel_checks(dev, launches) -> list[dict]:
                 o_[:, g if o_.shape[1] == Q_HEADS else one] = part
         return out
 
-    def nbytes(*ts):
-        return sum(t.numel() * t.element_size() for t in ts)
-
     src = "metal_flash_attention_tpu_torch/csrc/"
     jax_src = "metal_flash_attention_tpu/ops/"
     results = []
@@ -1276,6 +1327,305 @@ def flash_kernel_checks(dev, launches) -> list[dict]:
     return results
 
 
+def gemm_module():
+    """`ops.gemm` the module (the package's `ops` exports the function
+    `gemm` under the same name)."""
+    return importlib.import_module("metal_flash_attention_tpu_torch.ops.gemm")
+
+
+def swiglu(h, weights, product):
+    """`llama.mlp_block`'s SwiGLU between its norm and its residual, with
+    its three products through `product(x, w)`: silu(h Wg) * (h Wu),
+    rounded to h's type, times Wd."""
+    import torch.nn.functional as F
+    gate = F.silu(product(h, weights["w_gate"]).float())
+    up = product(h, weights["w_up"]).float()
+    return product((gate * up).to(h.dtype), weights["w_down"])
+
+
+def quant_gemm(params, cfg, dev, card):
+    """The weight-quantized MLP of layer 0 at full width: each weight
+    quantized per channel in each precision, the SwiGLU block run at each
+    of MLP_TOKENS through `gemm` with the launch count set to 0 just
+    before and read just after (4 x 3 x 2 = 24 launches); the block's
+    output against the unquantized bf16 block; then each product's time,
+    bound and the library time (torch.matmul on the bf16 weight)."""
+    import torch
+    from metal_flash_attention_tpu_torch.descriptors.precision import (
+        OperandPrecision,
+    )
+    from metal_flash_attention_tpu_torch.models import llama
+    from metal_flash_attention_tpu_torch.ops.quantization import (
+        quantize_matrix,
+    )
+
+    tg = gemm_module()
+    layer = params["layers"][0]
+    t0 = time.perf_counter()
+    qweights = {prec: {name: quantize_matrix(
+        layer[name], OperandPrecision(prec), contract_axis=0,
+        per_channel=True) for name in MLP_WEIGHTS}
+        for prec in QUANT_PRECISIONS}
+    torch.cuda.synchronize(dev)
+    quantize_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED + 8)
+    hs = {}
+    for t in MLP_TOKENS:
+        x = torch.as_tensor(rng.standard_normal((t, cfg.dim),
+                                                dtype=np.float32),
+                            device=dev).to(cfg.dtype)
+        hs[t] = llama.rms_norm(x, layer["mlp_norm"], cfg.norm_eps)
+
+    tg.reset_launch_counts()
+    outs = {(prec, t): swiglu(hs[t], qweights[prec], tg.gemm)
+            for prec in QUANT_PRECISIONS for t in MLP_TOKENS}
+    torch.cuda.synchronize(dev)
+    launches = dict(tg.LAUNCH_COUNTS)
+    expected = len(QUANT_PRECISIONS) * len(MLP_WEIGHTS) * len(MLP_TOKENS)
+    if launches["gemm"] != expected:
+        fail(f"quant_gemm launched gemm {launches['gemm']} times, expected "
+             f"{expected}")
+
+    # The unquantized block and each product's input at each T.
+    inputs, errors = {}, {}
+    for t in MLP_TOKENS:
+        h = hs[t]
+        ref = swiglu(h, layer, torch.matmul).float()
+        gate = torch.nn.functional.silu((h @ layer["w_gate"]).float())
+        mid = (gate * (h @ layer["w_up"]).float()).to(h.dtype)
+        inputs[t] = {"w_gate": h, "w_up": h, "w_down": mid}
+        for prec in QUANT_PRECISIONS:
+            out = outs[(prec, t)]
+            if tuple(out.shape) != (t, cfg.dim) or \
+                    not torch.isfinite(out).all():
+                fail(f"quant_gemm {prec} at T={t} gave shape "
+                     f"{tuple(out.shape)} or non-finite values")
+            err = out.float() - ref
+            errors[f"{prec}_T{t}"] = float(err.pow(2).sum().sqrt()
+                                           / ref.pow(2).sum().sqrt())
+
+    cases = []
+    for t in MLP_TOKENS:
+        iters = 5 if t >= 1024 else 50
+        for name in MLP_WEIGHTS:
+            x = inputs[t][name]
+            w_bf16 = layer[name]
+            lib_ms, _ = timed(lambda: torch.matmul(x, w_bf16), iters)
+            flops = 2 * t * w_bf16.shape[0] * w_bf16.shape[1]
+            out_bytes = t * w_bf16.shape[1] * 2
+            for prec in QUANT_PRECISIONS:
+                w = qweights[prec][name]
+                ms, wall_ms = timed(lambda: tg.gemm(x, w), iters)
+                bound_ms, bound_by = bound(
+                    flops, nbytes(x, w.values, w.scale) + out_bytes)
+                cases.append({
+                    "precision": prec, "tokens": t, "weight": name,
+                    "shape": [t, *w.shape], "ms": ms, "wall_ms": wall_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "library_ms": lib_ms,
+                    "weight_bytes": nbytes(w.values, w.scale)})
+    print("quant_gemm: " + json.dumps({
+        "config": "llama3_8b layer 0 MLP (dim 4096, hidden 14336), weights "
+                  "quantized per channel, bf16 activations",
+        "tokens": list(MLP_TOKENS), "launches": launches,
+        "quantize_seconds": quantize_s,
+        "block_rel_err_vs_bf16": errors, "cases": cases,
+        "library": "torch.matmul(x, the layer's bf16 weight)",
+        "card": card}), flush=True)
+    return qweights, inputs, launches, cases
+
+
+def gemm_kernel_checks(dev, qweights, inputs, launches, cases) -> dict:
+    """The GEMM kernel against `_gemm_plain` on the same inputs: each
+    precision at T = 8192 on w_gate, INT8 and NF4 at T = 8 on w_down, and
+    dense bf16 4096^3 with backend="pallas"; each with a planted fault
+    (one output tile without one 32-deep K step) that the tile limit must
+    see.  Returns the `kernels` entry."""
+    import torch
+    from metal_flash_attention_tpu_torch.ops.quantization import (
+        dequantize_matrix,
+    )
+
+    tg = gemm_module()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    da, db = (torch.randn((DENSE_GEMM, DENSE_GEMM), generator=gen,
+                          device=dev).to(torch.bfloat16) for _ in range(2))
+    big, small = MLP_TOKENS
+    checks = [(f"{prec}_w_gate_T{big}", inputs[big]["w_gate"],
+               qweights[prec]["w_gate"]) for prec in QUANT_PRECISIONS]
+    checks += [(f"{prec}_w_down_T{small}", inputs[small]["w_down"],
+                qweights[prec]["w_down"]) for prec in ("int8", "nf4")]
+    checks.append((f"bf16_dense_{DENSE_GEMM}", da, db))
+    readings, problems = {}, []
+    for name, x, w in checks:
+        kw = {"backend": "pallas"} if isinstance(w, torch.Tensor) else {}
+        got = tg.gemm(x, w, **kw)
+        ref = tg._gemm_plain(x, w, **kw)
+        rows = min(GEMM_TILE[0], x.shape[0])
+        r = closeness(got, ref, rows, GEMM_TILE[1])
+        # Fault: the last full output tile without the K step in the
+        # middle of K.
+        k = x.shape[1]
+        ks = slice(k // 2, k // 2 + GEMM_K_STEP)
+        rs = slice(x.shape[0] - rows, x.shape[0])
+        cs = slice(0, GEMM_TILE[1])
+        wv = (w.float() if isinstance(w, torch.Tensor)
+              else dequantize_matrix(w, contract_axis=0))
+        fault = got.float()
+        fault[rs, cs] -= x[rs, ks].float() @ wv[ks, cs]
+        r["planted_fault"] = closeness(fault, ref, rows, GEMM_TILE[1])
+        readings[name] = r
+        if not within_limits(r):
+            problems.append(f"gemm {name} disagrees with its plain version")
+        if within_limits(r["planted_fault"]):
+            problems.append(f"the gemm {name} check does not see a dropped "
+                            "K step")
+        del got, ref, wv, fault
+    print("gemm_checks: " + json.dumps({
+        "readings": readings, "tile": list(GEMM_TILE),
+        "limits": {"tile_rel_rms": KERNEL_TILE_REL_RMS}}), flush=True)
+    if problems:
+        fail("; ".join(problems))
+
+    dense_ms, dense_wall = timed(
+        lambda: tg.gemm(da, db, backend="pallas"), 10)
+    dense_lib_ms, _ = timed(lambda: torch.matmul(da, db), 10)
+    dense_bound = bound(2 * DENSE_GEMM ** 3, nbytes(da, db, da))
+    x, w = inputs[big]["w_gate"], qweights["int8"]["w_gate"]
+    plain_ms, _ = timed(lambda: tg._gemm_plain(x, w), 3)
+    main = next(c for c in cases if c["precision"] == "int8"
+                and c["tokens"] == big and c["weight"] == "w_gate")
+    return {
+        "name": "gemm", "route": "cuda",
+        "source": "metal_flash_attention_tpu_torch/csrc/gemm.cu",
+        "replaces": "metal_flash_attention_tpu/ops/gemm.py:112",
+        "launches": launches["gemm"],
+        "max_abs_err": max(r["max_abs_err"] for r in readings.values()),
+        "checks": readings,
+        "limits": {"tile_rel_rms": KERNEL_TILE_REL_RMS},
+        "ms": main["ms"], "plain_ms": plain_ms, "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+        "wall_ms": main["wall_ms"],
+        "library": "torch.matmul(x, the bf16 weight)",
+        "shape": f"x [{big}, 4096] bf16 x w_gate [4096, 14336] INT8 per "
+                 "channel (timed; every precision, weight and T in "
+                 "quant_gemm's cases)",
+        "dense_4096_pallas_ms": dense_ms, "dense_4096_wall_ms": dense_wall,
+        "dense_4096_bound_ms": dense_bound[0],
+        "dense_4096_library_ms": dense_lib_ms}
+
+
+def softmax_kernel_checks(dev, card) -> list[dict]:
+    """Both softmax kernels on scores [1, 32, 8192, 8192] bf16 (Llama-3-8B's
+    heads at the training path's 8,192 tokens), launch counts set to 0
+    just before and read just after; each held against its plain version
+    one head at a time, with a planted fault; then their times, bounds,
+    the plain versions' (one head at a time) and the library calls'."""
+    import torch
+    from metal_flash_attention_tpu_torch.ops import softmax as ts
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    shape = (1, Q_HEADS, TRAIN_TOKENS, TRAIN_TOKENS)
+    s = torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16)
+    dp = torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16)
+    scale = TRAIN_TOKENS ** -0.5
+    dscale = SOFTMAX_SCALE_DERIVATIVE
+    ts.reset_launch_counts()
+    p = ts.scaled_softmax(s)
+    ds = ts.derivative_softmax(p, dp, scale=dscale)
+    torch.cuda.synchronize(dev)
+    launches = dict(ts.LAUNCH_COUNTS)
+    if any(n != 1 for n in launches.values()):
+        fail(f"softmax kernels launched {launches}, expected once each")
+    for name, t in (("p", p), ("ds", ds)):
+        if t.shape != s.shape or t.dtype != s.dtype or \
+                not torch.isfinite(t).all():
+            fail(f"softmax output {name} has the wrong shape, type or "
+                 "non-finite values")
+
+    worst = {"scaled_softmax": None, "derivative_softmax": None}
+
+    def keep(name, r):
+        if worst[name] is None or r["tile_rel_rms"] > \
+                worst[name]["tile_rel_rms"]:
+            worst[name] = dict(r)
+    rows = slice(TRAIN_TOKENS // 2, TRAIN_TOKENS // 2 + TILE_ROWS)
+    last = Q_HEADS - 1
+    faults = {}
+    for h in range(Q_HEADS):
+        ref_p = ts._scaled_softmax_plain(s[0, h], scale)
+        ref_ds = ts._derivative_softmax_plain(p[0, h], dp[0, h], dscale)
+        keep("scaled_softmax", closeness(p[0, h], ref_p))
+        keep("derivative_softmax", closeness(ds[0, h], ref_ds))
+        if h == last:
+            # Fault: the tile's rows without their last 64 columns, in
+            # the sums as in the output.
+            fp = p[0, h].float()
+            tile = fp[rows]
+            tile[:, :-64] /= 1.0 - tile[:, -64:].sum(dim=-1, keepdim=True)
+            tile[:, -64:] = 0
+            fp[rows] = tile
+            faults["scaled_softmax"] = closeness(fp, ref_p)
+            pv, dv = p[0, h, rows].float(), dp[0, h, rows].float()
+            d = (pv[:, :-64] * dv[:, :-64]).sum(dim=-1, keepdim=True)
+            fds = ds[0, h].float()
+            fds[rows] = torch.cat([pv[:, :-64] * (dv[:, :-64] - d) * dscale,
+                                   torch.zeros_like(pv[:, -64:])], dim=-1)
+            faults["derivative_softmax"] = closeness(fds, ref_ds)
+        del ref_p, ref_ds
+    problems = []
+    for name in worst:
+        worst[name]["planted_fault"] = faults[name]
+        if not within_limits(worst[name]):
+            problems.append(f"{name} disagrees with its plain version")
+        if within_limits(faults[name]):
+            problems.append(f"the {name} check does not see 64 lost columns")
+    print("softmax_checks: " + json.dumps({
+        "shape": list(shape), "dtype": "bf16", "launches": launches,
+        "readings": worst, "scale": scale, "derivative_scale": dscale,
+        "limits": {"tile_rel_rms": KERNEL_TILE_REL_RMS}, "card": card}),
+        flush=True)
+    if problems:
+        fail("; ".join(problems))
+
+    sm_ms, sm_wall = timed(lambda: ts.scaled_softmax(s), 5)
+    sm_lib, _ = timed(lambda: torch.softmax(s, -1), 5)
+    sm_plain, _ = timed(lambda: [ts._scaled_softmax_plain(s[0, h], scale)
+                                 for h in range(Q_HEADS)], 2)
+    d_ms, d_wall = timed(lambda: ts.derivative_softmax(p, dp, scale=dscale),
+                         5)
+    d_lib, _ = timed(lambda: torch._softmax_backward_data(
+        dp, p, -1, p.dtype), 5)
+    d_plain, _ = timed(lambda: [ts._derivative_softmax_plain(
+        p[0, h], dp[0, h], dscale) for h in range(Q_HEADS)], 2)
+    n = s.numel()
+    src = "metal_flash_attention_tpu_torch/csrc/softmax.cu"
+    common = {"route": "cuda", "source": src,
+              "limits": {"tile_rel_rms": KERNEL_TILE_REL_RMS},
+              "shape": "[1, 32, 8192, 8192] bf16",
+              "plain_computes": "one head at a time, float32"}
+    sm_bound = bound(6 * n, 2 * 2 * n)
+    d_bound = bound(5 * n, 3 * 2 * n)
+    return [
+        dict(common, name="scaled_softmax",
+             replaces="metal_flash_attention_tpu/ops/softmax.py:60",
+             launches=launches["scaled_softmax"],
+             max_abs_err=worst["scaled_softmax"]["max_abs_err"],
+             p=worst["scaled_softmax"], ms=sm_ms, wall_ms=sm_wall,
+             plain_ms=sm_plain, bound_ms=sm_bound[0],
+             bound_by=sm_bound[1], library_ms=sm_lib,
+             library="torch.softmax(s, -1) (scale 1.0, the same work)"),
+        dict(common, name="derivative_softmax",
+             replaces="metal_flash_attention_tpu/ops/softmax.py:115",
+             launches=launches["derivative_softmax"],
+             max_abs_err=worst["derivative_softmax"]["max_abs_err"],
+             ds=worst["derivative_softmax"], ms=d_ms, wall_ms=d_wall,
+             plain_ms=d_plain, bound_ms=d_bound[0], bound_by=d_bound[1],
+             library_ms=d_lib,
+             library="torch._softmax_backward_data(dp, p, -1, bf16) "
+                     "(scale 1.0, the same work)")]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1344,6 +1694,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     dense_launches = dense_serve(params, cfg, dev, card)
     decode_reference(params, cfg, dev)
+    qweights, mlp_inputs, gemm_launches, gemm_cases = quant_gemm(
+        params, cfg, dev, card)
+    gemm_kernel = gemm_kernel_checks(dev, qweights, mlp_inputs,
+                                     gemm_launches, gemm_cases)
+    del qweights, mlp_inputs
     # Free the 14.5 GB of weights before training (generate's 8.6 GB
     # cache went with its call).
     del params
@@ -1356,12 +1711,17 @@ def main() -> int:
     del tparams
     torch.cuda.empty_cache()
     kernels += flash_kernel_checks(dev, flash_launches)
+    torch.cuda.empty_cache()
+    softmax_kernels = softmax_kernel_checks(dev, card)
+    torch.cuda.empty_cache()
     for entry in kernels:
         if entry["name"] == "flash_fwd":
             entry["launches_by_path"] = {
                 "train": flash_launches["flash_fwd"],
                 "dense_serve": dense_launches["flash_fwd"]}
     kernels.append(decode_kernel)
+    kernels.append(gemm_kernel)
+    kernels += softmax_kernels
 
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -23,6 +23,12 @@ Ported so far:
   `csrc/flash_decode.cu`) and the dense part of `models.serving`
   (`KVCache`, `init_cache`, `prefill`, `decode_step`, `generate`,
   `sink_decode`), whose prefill runs slice 2's fused forward;
+- slice 4, the standalone ops: `ops.gemm` (`gemm`, `batched_gemm`,
+  `gemm_chain`; kernel `csrc/gemm.cu`, dequantizing INT8 / FP8 / NF4
+  weights inside it), `ops.quantization` (host side; `__device__`
+  helpers in `csrc/quant_common.cuh`), `ops.softmax` (`scaled_softmax`,
+  `derivative_softmax`; kernels `csrc/softmax.cu`) and
+  `descriptors.gemm_descriptor`;
 - shared: `ops.reference`, `native.build`, `utils`.
 
 Constructors (`init_params`, `params_from_numpy`, `init_cache`,
@@ -47,6 +53,7 @@ from metal_flash_attention_tpu_torch.ops.flash_attention_bwd import (
     flash_attention_backward,
 )
 from metal_flash_attention_tpu_torch.ops.flash_decode import flash_decode
+from metal_flash_attention_tpu_torch.ops.gemm import batched_gemm, gemm
 from metal_flash_attention_tpu_torch.ops.paged_attention import (
     LAUNCH_COUNTS,
     PagedKVCache,
@@ -57,26 +64,38 @@ from metal_flash_attention_tpu_torch.ops.paged_attention import (
     paged_prefill,
     reset_launch_counts,
 )
+from metal_flash_attention_tpu_torch.ops.quantization import (
+    QuantizedMatrix,
+    QuantizedTensor,
+    quantize,
+    quantize_matrix,
+)
 from metal_flash_attention_tpu_torch.ops.reference import attention_reference
 
 __all__ = [
     "LAUNCH_COUNTS",
     "LlamaConfig",
     "PagedKVCache",
+    "QuantizedMatrix",
+    "QuantizedTensor",
     "ServingEngine",
     "attention",
     "attention_reference",
+    "batched_gemm",
     "flash_attention",
     "flash_attention_backward",
     "flash_attention_forward",
     "flash_decode",
     "fused_cross_entropy",
+    "gemm",
     "init_paged_cache",
     "init_params",
     "paged_append",
     "paged_append_chunk",
     "paged_decode",
     "paged_prefill",
+    "quantize",
+    "quantize_matrix",
     "reset_launch_counts",
     "__version__",
 ]

@@ -1,8 +1,9 @@
-// Tiles of the attention kernels: the query rows and keys one block
-// handles per step, and the decode kernel's largest GQA group.  The Python
-// wrappers read these lines (`native.build.tile_defines`):
-// AttentionDescriptor.kernel_config the flash tiles, the decode wrappers
-// their key tiles (the unit the split-KV splits divide) and group limit.
+// Tiles of the kernels: the query rows and keys an attention block
+// handles per step, the decode kernel's largest GQA group, and the GEMM's
+// output tile and K step.  The Python wrappers read these lines
+// (`native.build.tile_defines`): AttentionDescriptor.kernel_config the
+// flash tiles, the decode wrappers their key tiles (the unit the split-KV
+// splits divide) and group limit, GEMMDescriptor.kernel_config the GEMM's.
 // So the kernels and their wrappers share this one source.  The flash
 // tiles are multiples of 16 (the mma tile); a flash block has one warp per
 // 16 rows of its block-sized axis.
@@ -18,3 +19,9 @@
 #define MFA_PAGED_BLOCK_KV 64     // paged_decode/_prefill: keys per iteration
 #define MFA_DECODE_BLOCK_KV 64    // flash_decode: keys per tile
 #define MFA_DECODE_MAX_GROUP 16   // flash_decode: q heads per kv head
+// gemm: the output tile (rows x columns) one block computes and the K
+// step it stages; the K step divides the NF4 half-group of 256, so a step
+// never straddles two nibble planes.
+#define MFA_GEMM_BLOCK_M 128
+#define MFA_GEMM_BLOCK_N 128
+#define MFA_GEMM_BLOCK_K 32

@@ -1,9 +1,9 @@
 """Carry parameters and KV caches from the JAX package into the port.
 
-The tests hand both packages the same weights and caches: the JAX
-pytree is turned into numpy (bf16 as float32, which numpy can hold;
-bf16 -> f32 -> bf16 is exact) and this module builds the port's
-structures from it.
+The tests hand both packages the same weights, caches and quantized
+operands: the JAX pytree is turned into numpy (bf16 as float32, which
+numpy can hold; bf16 -> f32 -> bf16 is exact) and this module builds the
+port's structures from it.
 """
 
 from __future__ import annotations
@@ -62,3 +62,36 @@ def cache_from_numpy(cache, device=None, dtype: torch.dtype = torch.bfloat16):
     return KVCache(k=caches(cache.k), v=caches(cache.v),
                    lengths=torch.from_numpy(np.array(
                        cache.lengths, np.int32)).to(device))
+
+
+def quantized_matrix_from_numpy(values, scale, precision, shape,
+                                device=None):
+    """A JAX `QuantizedMatrix` as numpy (under `jax.tree.map(np.asarray,
+    ...)`) -> the port's `ops.quantization.QuantizedMatrix`, on the card
+    unless ``device`` says otherwise.  ``precision``: an
+    `OperandPrecision` of either package, or its value ("int8", ...).
+
+    The payload keeps its bits: FP8 arrays (ml_dtypes float8) go through
+    uint8 and `Tensor.view` to torch's float8 dtype, never through
+    float32; INT8 stays int8 and NF4 uint8."""
+    from metal_flash_attention_tpu_torch.descriptors.precision import (
+        OperandPrecision,
+    )
+    from metal_flash_attention_tpu_torch.ops.quantization import (
+        QuantizedMatrix,
+    )
+
+    device = resolve_device(device)
+    precision = OperandPrecision(getattr(precision, "value", precision))
+    if not precision.is_quantized:
+        raise ValueError(f"not a quantized precision: {precision}")
+    raw = np.array(values)   # a writable, contiguous copy
+    if raw.dtype.itemsize != 1:
+        raise TypeError(f"a {precision.value} payload has one byte an "
+                        f"element, got {raw.dtype}")
+    payload = torch.from_numpy(raw.view(np.uint8)).view(
+        precision.storage_dtype)
+    return QuantizedMatrix(
+        payload.to(device),
+        torch.from_numpy(np.array(scale, np.float32)).to(device),
+        precision, tuple(int(x) for x in shape))

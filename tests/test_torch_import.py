@@ -22,6 +22,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODULES = [
     "metal_flash_attention_tpu_torch",
     "metal_flash_attention_tpu_torch.descriptors.attention_descriptor",
+    "metal_flash_attention_tpu_torch.descriptors.gemm_descriptor",
     "metal_flash_attention_tpu_torch.descriptors.precision",
     "metal_flash_attention_tpu_torch.dispatch",
     "metal_flash_attention_tpu_torch.models.engine",
@@ -34,8 +35,11 @@ MODULES = [
     "metal_flash_attention_tpu_torch.ops.flash_attention",
     "metal_flash_attention_tpu_torch.ops.flash_attention_bwd",
     "metal_flash_attention_tpu_torch.ops.flash_decode",
+    "metal_flash_attention_tpu_torch.ops.gemm",
     "metal_flash_attention_tpu_torch.ops.paged_attention",
+    "metal_flash_attention_tpu_torch.ops.quantization",
     "metal_flash_attention_tpu_torch.ops.reference",
+    "metal_flash_attention_tpu_torch.ops.softmax",
     "metal_flash_attention_tpu_torch.utils.device",
     "metal_flash_attention_tpu_torch.utils.errors",
     "metal_flash_attention_tpu_torch.utils.params",
@@ -61,9 +65,11 @@ def test_port_imports_no_jax():
             "assert not bad, bad\n"
             "from metal_flash_attention_tpu_torch.ops import "
             "paged_attention, flash_attention, flash_attention_bwd, "
-            "flash_decode\n"
+            "flash_decode, softmax\n"
+            "gemm = importlib.import_module("
+            "'metal_flash_attention_tpu_torch.ops.gemm')\n"
             "for m in (paged_attention, flash_attention, "
-            "flash_attention_bwd, flash_decode):\n"
+            "flash_attention_bwd, flash_decode, gemm, softmax):\n"
             "    assert m._kernel_library.cache_info().currsize == 0\n"
             "import chip_smoke\n"
             "assert 'jax' not in sys.modules\n")
@@ -191,6 +197,7 @@ def test_constructors_put_tensors_where_the_default_resolves(monkeypatch):
     ("flash_attention_bwd.cu", ("MFA_DQ_BLOCK_KV", "MFA_DKV_BLOCK_Q")),
     ("paged_attention.cu", ("MFA_PAGED_BLOCK_KV",)),
     ("flash_decode.cu", ("MFA_DECODE_BLOCK_KV", "MFA_DECODE_MAX_GROUP")),
+    ("gemm.cu", ("MFA_GEMM_BLOCK_M", "MFA_GEMM_BLOCK_N", "MFA_GEMM_BLOCK_K")),
 ])
 def test_kernels_and_wrappers_share_the_tiles_header(source, names):
     """Each kernel takes its tiles from csrc/flash_tiles.cuh, the header
@@ -241,3 +248,36 @@ def test_a_library_is_stale_when_a_shared_header_is_newer(tmp_path,
     os.utime(src / "common.cuh", (100, 100))
     os.utime(src / "k.cu", (300, 300))
     assert build._stale("k")                  # the source changed
+
+
+def test_gemm_descriptor_reads_the_kernel_tiles_from_the_header():
+    """`GEMMDescriptor.kernel_config` returns the tile that gemm.cu takes
+    from csrc/flash_tiles.cuh, whatever the problem."""
+    from metal_flash_attention_tpu_torch.descriptors.gemm_descriptor import (
+        GEMMDescriptor,
+    )
+    from metal_flash_attention_tpu_torch.native import build
+
+    defines = build.tile_defines()
+    for m, n, k in ((8, 14336, 4096), (8192, 4096, 14336), (7, 5, 3)):
+        cfg = GEMMDescriptor(m=m, n=n, k=k).kernel_config()
+        assert (cfg.block_m, cfg.block_n, cfg.block_k) == (
+            defines["MFA_GEMM_BLOCK_M"], defines["MFA_GEMM_BLOCK_N"],
+            defines["MFA_GEMM_BLOCK_K"])
+
+
+def test_quant_helpers_header_is_shared():
+    """The dequantization helpers live once, in csrc/quant_common.cuh,
+    with the same NF4 codebook as ops/quantization.py."""
+    import re
+
+    from metal_flash_attention_tpu_torch.native import build
+    from metal_flash_attention_tpu_torch.ops.quantization import NF4_CODEBOOK
+
+    with open(os.path.join(build.SRC_DIR, "quant_common.cuh")) as f:
+        header = f.read()
+    with open(os.path.join(build.SRC_DIR, "gemm.cu")) as f:
+        assert '#include "quant_common.cuh"' in f.read()
+    table = header[header.index("kNf4Codebook[16]"):]
+    values = [float(v) for v in re.findall(r"(-?\d+\.\d+)f", table)[:16]]
+    assert np.allclose(values, NF4_CODEBOOK, rtol=0, atol=0)
