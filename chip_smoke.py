@@ -50,15 +50,17 @@ Phases (any failure exits non-zero and prints no result):
    block run through `gemm` on bf16 activations at 8,192 tokens (a
    prefill) and at 8 (the dense serve's decode batch), with the `gemm`
    launch count set to 0 just before and read just after (exactly
-   4 x 3 x 2 = 24); each block's relative error against the unquantized
-   bf16 block (reported, not limited); each product's time, bound and
-   the library time (torch.matmul on the bf16 weight); gemm_checks: the
-   kernel against `_gemm_plain` on every precision at T = 8192 on
-   w_gate, INT8 and NF4 at T = 8 on w_down, and dense bf16 4096^3 with
-   backend="pallas", by the worst relative rms error of any 64 x 128
+   4 x 3 x 2 = 24, every one on the sm90 route: `gemm_sm90` also 24);
+   each block's relative error against the unquantized bf16 block
+   (reported, not limited); each product's time (median, min and max of
+   GEMM_REPEATS profiled loops), bound and the library time
+   (torch.matmul on the bf16 weight); gemm_checks: the kernel against
+   `_gemm_plain` on every precision at T = 8192 on w_gate and at T = 8
+   on w_down, and dense bf16 4096^3 with backend="pallas" (each launch
+   on the sm90 route), by the worst relative rms error of any 64 x 128
    output tile (KERNEL_TILE_REL_RMS), each with a planted fault (one
-   tile without one 32-deep K step) that the limit must see; then free
-   the weights;
+   tile without one GEMM_K_STEP-deep K step) that the limit must see;
+   then free the weights;
 7. decode_checks: the decode kernel against its plain version at the
    generate shape (q [8, 32, 128], k/v [8, 8, 8192, 128], ragged
    lengths DECODE_LENS), each (sequence, head) row a tile of its own
@@ -208,14 +210,18 @@ KERNEL_TILE_REL_RMS = 1.5e-2
 # error of any GEMM_TILE output tile (64 rows x 128 columns, fewer rows
 # where T < 64), the softmax kernels by that of any TILE_ROWS-row tile of
 # one head; the limit is KERNEL_TILE_REL_RMS, with a planted fault in
-# every check (a GEMM tile without one 32-deep K step, about
-# sqrt(32 / K); a softmax tile whose rows lose their last 64 columns,
-# about sqrt(64 / 8192)).
+# every check (a GEMM tile without one K step of the sm90 route, 64
+# deep, about sqrt(64 / K); a softmax tile whose rows lose their last 64
+# columns, about sqrt(64 / 8192)).  The GEMM's times are the median and
+# spread of GEMM_REPEATS profiled loops.
 QUANT_PRECISIONS = ("int8", "fp8_e4m3", "fp8_e5m2", "nf4")
 MLP_TOKENS = (8192, 8)
 MLP_WEIGHTS = ("w_gate", "w_up", "w_down")
 GEMM_TILE = (64, 128)
-GEMM_K_STEP = 32
+GEMM_K_STEP = 64
+GEMM_REPEATS = 5
+# Idle time between two of them on the card, which tells them apart.
+LOOP_GAP_S = 0.01
 DENSE_GEMM = 4096
 SOFTMAX_SCALE_DERIVATIVE = 0.5
 
@@ -262,6 +268,49 @@ def timed(fn, iters: int) -> tuple[float, float]:
     end.record()
     torch.cuda.synchronize()
     return device_us / 1e3 / iters, start.elapsed_time(end) / iters
+
+
+def timed_spread(fn, iters: int, repeats: int = GEMM_REPEATS) -> dict:
+    """`timed` over `repeats` loops of `iters` calls in one profiler
+    session (many sessions in one process lose the card's events), the
+    loops kept apart on the card by LOOP_GAP_S of idle time and told
+    apart by it: the median device ms a call and its min and max over
+    the loops, and the wall ms a call over all of them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(repeats):
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(LOOP_GAP_S)
+    kernels = sorted(device_kernels(prof), key=lambda e: e.time_range.start)
+    if not kernels:
+        fail("the profiler saw no device time")
+    loops = [[kernels[0]]]
+    for prev, e in zip(kernels, kernels[1:]):
+        if e.time_range.start - prev.time_range.end > LOOP_GAP_S * 5e5:
+            loops.append([])
+        loops[-1].append(e)
+    if len(loops) != repeats:
+        fail(f"the profiler's kernels fall into {len(loops)} loops, "
+             f"not {repeats}")
+    device = [sum(e.device_time_total for e in loop) / 1e3 / iters
+              for loop in loops]
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters * repeats):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return {"ms": float(np.median(device)), "ms_min": min(device),
+            "ms_max": max(device), "repeats": repeats,
+            "wall_ms": start.elapsed_time(end) / (iters * repeats)}
 
 
 class CardSampler:
@@ -1346,10 +1395,11 @@ def swiglu(h, weights, product):
 def quant_gemm(params, cfg, dev, card):
     """The weight-quantized MLP of layer 0 at full width: each weight
     quantized per channel in each precision, the SwiGLU block run at each
-    of MLP_TOKENS through `gemm` with the launch count set to 0 just
-    before and read just after (4 x 3 x 2 = 24 launches); the block's
-    output against the unquantized bf16 block; then each product's time,
-    bound and the library time (torch.matmul on the bf16 weight)."""
+    of MLP_TOKENS through `gemm` with the launch counts set to 0 just
+    before and read just after (4 x 3 x 2 = 24 launches, all on the sm90
+    route); the block's output against the unquantized bf16 block; then
+    each product's time (median and spread of GEMM_REPEATS loops), bound
+    and the library time (torch.matmul on the bf16 weight)."""
     import torch
     from metal_flash_attention_tpu_torch.descriptors.precision import (
         OperandPrecision,
@@ -1382,9 +1432,10 @@ def quant_gemm(params, cfg, dev, card):
     torch.cuda.synchronize(dev)
     launches = dict(tg.LAUNCH_COUNTS)
     expected = len(QUANT_PRECISIONS) * len(MLP_WEIGHTS) * len(MLP_TOKENS)
-    if launches["gemm"] != expected:
-        fail(f"quant_gemm launched gemm {launches['gemm']} times, expected "
-             f"{expected}")
+    if launches["gemm"] != expected or launches["gemm_sm90"] != expected:
+        fail(f"quant_gemm launched gemm {launches['gemm']} times, "
+             f"{launches['gemm_sm90']} of them on the sm90 route; expected "
+             f"{expected} and {expected}")
 
     # The unquantized block and each product's input at each T.
     inputs, errors = {}, {}
@@ -1410,19 +1461,21 @@ def quant_gemm(params, cfg, dev, card):
         for name in MLP_WEIGHTS:
             x = inputs[t][name]
             w_bf16 = layer[name]
-            lib_ms, _ = timed(lambda: torch.matmul(x, w_bf16), iters)
+            lib = timed_spread(lambda: torch.matmul(x, w_bf16), iters)
             flops = 2 * t * w_bf16.shape[0] * w_bf16.shape[1]
             out_bytes = t * w_bf16.shape[1] * 2
             for prec in QUANT_PRECISIONS:
                 w = qweights[prec][name]
-                ms, wall_ms = timed(lambda: tg.gemm(x, w), iters)
+                spread = timed_spread(lambda: tg.gemm(x, w), iters)
                 bound_ms, bound_by = bound(
                     flops, nbytes(x, w.values, w.scale) + out_bytes)
                 cases.append({
                     "precision": prec, "tokens": t, "weight": name,
-                    "shape": [t, *w.shape], "ms": ms, "wall_ms": wall_ms,
+                    "shape": [t, *w.shape], **spread,
                     "bound_ms": bound_ms, "bound_by": bound_by,
-                    "library_ms": lib_ms,
+                    "library_ms": lib["ms"],
+                    "library_ms_min": lib["ms_min"],
+                    "library_ms_max": lib["ms_max"],
                     "weight_bytes": nbytes(w.values, w.scale)})
     print("quant_gemm: " + json.dumps({
         "config": "llama3_8b layer 0 MLP (dim 4096, hidden 14336), weights "
@@ -1437,10 +1490,10 @@ def quant_gemm(params, cfg, dev, card):
 
 def gemm_kernel_checks(dev, qweights, inputs, launches, cases) -> dict:
     """The GEMM kernel against `_gemm_plain` on the same inputs: each
-    precision at T = 8192 on w_gate, INT8 and NF4 at T = 8 on w_down, and
-    dense bf16 4096^3 with backend="pallas"; each with a planted fault
-    (one output tile without one 32-deep K step) that the tile limit must
-    see.  Returns the `kernels` entry."""
+    precision at T = 8192 on w_gate and at T = 8 on w_down, and dense
+    bf16 4096^3 with backend="pallas", each launch on the sm90 route;
+    each with a planted fault (one output tile without one GEMM_K_STEP
+    K step) that the tile limit must see.  Returns the `kernels` entry."""
     import torch
     from metal_flash_attention_tpu_torch.ops.quantization import (
         dequantize_matrix,
@@ -1454,12 +1507,15 @@ def gemm_kernel_checks(dev, qweights, inputs, launches, cases) -> dict:
     checks = [(f"{prec}_w_gate_T{big}", inputs[big]["w_gate"],
                qweights[prec]["w_gate"]) for prec in QUANT_PRECISIONS]
     checks += [(f"{prec}_w_down_T{small}", inputs[small]["w_down"],
-                qweights[prec]["w_down"]) for prec in ("int8", "nf4")]
+                qweights[prec]["w_down"]) for prec in QUANT_PRECISIONS]
     checks.append((f"bf16_dense_{DENSE_GEMM}", da, db))
     readings, problems = {}, []
     for name, x, w in checks:
         kw = {"backend": "pallas"} if isinstance(w, torch.Tensor) else {}
+        before = tg.LAUNCH_COUNTS["gemm_sm90"]
         got = tg.gemm(x, w, **kw)
+        if tg.LAUNCH_COUNTS["gemm_sm90"] != before + 1:
+            problems.append(f"gemm {name} did not take the sm90 route")
         ref = tg._gemm_plain(x, w, **kw)
         rows = min(GEMM_TILE[0], x.shape[0])
         r = closeness(got, ref, rows, GEMM_TILE[1])
@@ -1487,9 +1543,8 @@ def gemm_kernel_checks(dev, qweights, inputs, launches, cases) -> dict:
     if problems:
         fail("; ".join(problems))
 
-    dense_ms, dense_wall = timed(
-        lambda: tg.gemm(da, db, backend="pallas"), 10)
-    dense_lib_ms, _ = timed(lambda: torch.matmul(da, db), 10)
+    dense = timed_spread(lambda: tg.gemm(da, db, backend="pallas"), 10)
+    dense_lib = timed_spread(lambda: torch.matmul(da, db), 10)
     dense_bound = bound(2 * DENSE_GEMM ** 3, nbytes(da, db, da))
     x, w = inputs[big]["w_gate"], qweights["int8"]["w_gate"]
     plain_ms, _ = timed(lambda: tg._gemm_plain(x, w), 3)
@@ -1498,21 +1553,31 @@ def gemm_kernel_checks(dev, qweights, inputs, launches, cases) -> dict:
     return {
         "name": "gemm", "route": "cuda",
         "source": "metal_flash_attention_tpu_torch/csrc/gemm.cu",
+        "headers": ["metal_flash_attention_tpu_torch/csrc/hopper_common.cuh",
+                    "metal_flash_attention_tpu_torch/csrc/quant_common.cuh"],
         "replaces": "metal_flash_attention_tpu/ops/gemm.py:112",
         "launches": launches["gemm"],
+        "launches_by_route": {
+            "sm90 (gemm90_kernel: TMA ring, wgmma)": launches["gemm_sm90"],
+            "mma (gemm_kernel: mma.sync)":
+                launches["gemm"] - launches["gemm_sm90"]},
         "max_abs_err": max(r["max_abs_err"] for r in readings.values()),
         "checks": readings,
         "limits": {"tile_rel_rms": KERNEL_TILE_REL_RMS},
-        "ms": main["ms"], "plain_ms": plain_ms, "bound_ms": main["bound_ms"],
+        "ms": main["ms"], "ms_min": main["ms_min"], "ms_max": main["ms_max"],
+        "plain_ms": plain_ms, "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"], "library_ms": main["library_ms"],
         "wall_ms": main["wall_ms"],
         "library": "torch.matmul(x, the bf16 weight)",
         "shape": f"x [{big}, 4096] bf16 x w_gate [4096, 14336] INT8 per "
                  "channel (timed; every precision, weight and T in "
                  "quant_gemm's cases)",
-        "dense_4096_pallas_ms": dense_ms, "dense_4096_wall_ms": dense_wall,
+        "dense_4096_pallas_ms": dense["ms"],
+        "dense_4096_pallas_ms_min": dense["ms_min"],
+        "dense_4096_pallas_ms_max": dense["ms_max"],
+        "dense_4096_wall_ms": dense["wall_ms"],
         "dense_4096_bound_ms": dense_bound[0],
-        "dense_4096_library_ms": dense_lib_ms}
+        "dense_4096_library_ms": dense_lib["ms"]}
 
 
 def softmax_kernel_checks(dev, card) -> list[dict]:

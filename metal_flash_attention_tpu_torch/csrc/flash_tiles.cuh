@@ -3,7 +3,8 @@
 // output tile and K step.  The Python wrappers read these lines
 // (`native.build.tile_defines`): AttentionDescriptor.kernel_config the
 // flash tiles, the decode wrappers their key tiles (the unit the split-KV
-// splits divide) and group limit, GEMMDescriptor.kernel_config the GEMM's.
+// splits divide) and group limit, GEMMDescriptor.kernel_config the GEMM's
+// (each route's).
 // So the kernels and their wrappers share this one source.  The flash
 // tiles are multiples of 16 (the mma tile); a flash block has one warp per
 // 16 rows of its block-sized axis.
@@ -25,3 +26,16 @@
 #define MFA_GEMM_BLOCK_M 128
 #define MFA_GEMM_BLOCK_N 128
 #define MFA_GEMM_BLOCK_K 32
+// gemm's sm90 route (TMA ring, wgmma): the output tile for a bf16 B, the
+// taller one for a quantized B (each decoded element feeds 256 rows), the
+// narrow one at a decode batch (M <= MFA_GEMM90_DECODE_M), the K step (one
+// 128-byte swizzled bf16 row of A) and the most stages of the shared-
+// memory ring (each tile takes as many as shared memory holds, up to it).
+#define MFA_GEMM90_BLOCK_M 128
+#define MFA_GEMM90_BLOCK_N 256
+#define MFA_GEMM90_QUANT_BLOCK_M 256
+#define MFA_GEMM90_QUANT_BLOCK_N 128
+#define MFA_GEMM90_BLOCK_N_DECODE 128
+#define MFA_GEMM90_DECODE_M 64
+#define MFA_GEMM90_BLOCK_K 64
+#define MFA_GEMM90_STAGES 6

@@ -11,40 +11,52 @@
 // dense operands C seeds the accumulator instead.
 //
 // Registers are bf16 or float32 (ops/gemm.py's truth table).  bf16
-// registers: each element is dequantized to float, rounded to bf16 (INT8
-// and FP8 exactly; the NF4 codebook as the JAX package rounds it) and fed
-// to mma.sync m16n8k16 with float32 accumulators.  float32 registers: fp32
+// registers: each element is dequantized, rounded to bf16 (INT8 and FP8
+// exactly; the NF4 codebook as the JAX package rounds it) and multiplied
+// on the tensor cores with float32 accumulators.  float32 registers: fp32
 // FMA on CUDA cores, true fp32 as the JAX package's Precision.HIGHEST.
 //
 // What bounds it: operations at a large M (a prefill: 9.6e11 FLOP per
 // Llama-3-8B MLP product at 8,192 tokens), the weight's bytes at a small M
-// (a decode batch of 8 reads a 4096 x 14336 weight for 0.9 GFLOP).  This
-// first kernel is a simple, right one, far from cuBLAS's speed (PERF.md):
-// a 128 x 128 output tile per block of 8 warps, a 32-deep K step staged in
-// shared memory, the next step's raw 16-byte chunks fetched into registers
-// while the tensor cores work on this one, and dequantized when they are
-// stored to shared memory.  When the output tiles cannot fill the card (a
-// decode batch), K is split
-// over blocks, which write float32 partials that a second kernel sums in
-// split order before the epilogue.
+// (a decode batch of 8 reads a 4096 x 14336 weight for 0.9 GFLOP).  When
+// the output tiles cannot fill the card (a decode batch), K is split over
+// blocks, which write float32 partials that a second kernel sums in split
+// order before the epilogue.
+//
+// Two routes, chosen by ops/gemm.py `_route` from the operands' types and
+// layouts before the launch:
+// - sm90 (`mfa_gemm_sm90`, `gemm90_kernel`): bf16 registers, A dense bf16
+//   with K contiguous, B bf16 or quantized as [K, N] with N contiguous,
+//   every base and non-unit stride a 16-byte multiple (what TMA can
+//   describe).  Every call of the quantized MLP and the dense bf16 product
+//   takes it: a TMA ring, B decoded in shared memory, wgmma from shared
+//   memory (the section "The sm90 route" below).  Three fetch classes of
+//   B (bf16, the byte formats, NF4) over three tile shapes: 6 kernels.
+// - mma (`mfa_gemm`, `gemm_kernel`): everything else, that is fp32
+//   registers, a quantized A, quantized x quantized, and strides TMA
+//   cannot describe.  A 128 x 128 output tile per block of 8 warps, a
+//   32-deep K step staged in shared memory, the next step's raw 16-byte
+//   chunks fetched into registers while mma.sync m16n8k16 works on this
+//   one, and dequantized when they are stored to shared memory.
 //
 // The TPU kernel padded every operand on the host to whole blocks, took
 // transposes through dot_general's dimension numbers and read NF4 one
 // whole 512-group a block.  Here each operand is read in place through its
-// batch, row and contraction strides (in payload elements), so all four
-// transpose layouts and ragged M, N and K need no copy: elements outside
-// the problem are zero.  Threads walk the operand's contiguous axis.  A
-// 32-deep K step lies inside one 256-element half of an NF4 group, so it
-// reads one nibble plane (quant_common.cuh has the layout).  The kernel is
-// a template on the register type and on each operand's fetch class
-// (float32, bf16, the three byte formats, NF4): 32 kernels, so that each
-// holds only its own operands' chunks in flight.  Within the byte class
-// the precision is an argument, branched on once a chunk.
+// batch, row and contraction strides (in payload elements), so ragged M, N
+// and K need no copy: elements outside the problem are zero (on the mma
+// route all four transpose layouts too).  A K step (32 or 64 deep) lies
+// inside one 256-element half of an NF4 group, so it reads one nibble
+// plane (quant_common.cuh has the layout).  The mma kernel is a template
+// on the register type and on each operand's fetch class (float32, bf16,
+// the three byte formats, NF4): 32 kernels, so that each holds only its
+// own operands' chunks in flight.  Within the byte class the precision is
+// an argument.
 //
 // Every entry point returns cudaGetLastError() after its launches.
 
 #include "attention_common.cuh"
 #include "flash_tiles.cuh"
+#include "hopper_common.cuh"
 #include "quant_common.cuh"
 
 namespace {
@@ -80,6 +92,7 @@ struct Params {
   long long a_sb, a_sm, a_sk, b_sb, b_sk, b_sn, c_sb, sa_b, sa_m, sb_b, sb_n;
   int m, n, k, batch, splits, k_per_split;
   int prec_a, prec_b, out_type, c_mode;
+  int box_m;              // sm90: rows of A one TMA load brings
   bool vec_a, vec_b;      // 16-byte loads allowed (contiguous, aligned)
 };
 
@@ -307,12 +320,20 @@ __device__ __forceinline__ float c_at(const Params& p, int bt, int row,
   return p.c[bt * p.c_sb + (size_t)row * p.n + col];
 }
 
-// The epilogue of one finished sum: scales, C (quantized operands), cast.
-__device__ __forceinline__ void store_result(const Params& p, int bt, int row,
-                                             int col, float v) {
+// The epilogue's arithmetic on one finished sum: scales, then C
+// (quantized operands).
+__device__ __forceinline__ float epilogue_value(const Params& p, int bt,
+                                                int row, int col, float v) {
   if (p.scale_a) v *= p.scale_a[bt * p.sa_b + row * p.sa_m];
   if (p.scale_b) v *= p.scale_b[bt * p.sb_b + col * p.sb_n];
   if (p.c_mode == kCAfterScale) v += c_at(p, bt, row, col);
+  return v;
+}
+
+// The epilogue of one finished sum: scales, C (quantized operands), cast.
+__device__ __forceinline__ void store_result(const Params& p, int bt, int row,
+                                             int col, float v) {
+  v = epilogue_value(p, bt, row, col, v);
   const size_t o = out_index(p, bt, row, col);
   if (p.out_type == kOutFp32)
     static_cast<float*>(p.out)[o] = v;
@@ -339,6 +360,69 @@ __device__ __forceinline__ float seed(const Params& p, int bt, int row,
   return (p.c_mode == kCSeed && p.splits == 1 && row < p.m && col < p.n)
              ? c_at(p, bt, row, col)
              : 0.f;
+}
+
+// `emit` of eight neighbouring columns from `col` (a multiple of 8), C
+// seeding the sum first where it does: one or two 16-byte stores where
+// all eight lie inside the row and the row length keeps them aligned,
+// else element by element.
+__device__ __forceinline__ void emit8(const Params& p, int bt, int split,
+                                      int row, int col, float (&v)[8]) {
+  if (row >= p.m || col >= p.n) return;
+  const bool whole = col + 8 <= p.n;
+  if (p.c_mode == kCSeed && p.splits == 1) {
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      if (col + e < p.n) v[e] += c_at(p, bt, row, col + e);
+  }
+  if (p.splits > 1 || p.out_type == kOutFp32) {
+    float* dst = p.splits > 1
+                     ? p.partial + ((size_t)split * p.batch + bt) * p.m * p.n +
+                           (size_t)row * p.n + col
+                     : static_cast<float*>(p.out) + out_index(p, bt, row, col);
+    if (p.splits == 1) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        if (col + e < p.n) v[e] = epilogue_value(p, bt, row, col + e, v[e]);
+    }
+    if (whole && p.n % 4 == 0) {
+      reinterpret_cast<float4*>(dst)[0] = make_float4(v[0], v[1], v[2], v[3]);
+      reinterpret_cast<float4*>(dst)[1] = make_float4(v[4], v[5], v[6], v[7]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        if (col + e < p.n) dst[e] = v[e];
+    }
+    return;
+  }
+#pragma unroll
+  for (int e = 0; e < 8; ++e)
+    if (col + e < p.n) v[e] = epilogue_value(p, bt, row, col + e, v[e]);
+  const size_t o = out_index(p, bt, row, col);
+  if (whole && p.n % 8 == 0) {
+    uint32_t w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (p.out_type == kOutBf16) {
+        const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+        w[i] = *reinterpret_cast<const uint32_t*>(&h);
+      } else {
+        const __half2 h = __floats2half2_rn(v[2 * i], v[2 * i + 1]);
+        w[i] = *reinterpret_cast<const uint32_t*>(&h);
+      }
+    }
+    *reinterpret_cast<uint4*>(static_cast<uint16_t*>(p.out) + o) =
+        make_uint4(w[0], w[1], w[2], w[3]);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      if (col + e >= p.n) break;
+      if (p.out_type == kOutBf16)
+        static_cast<__nv_bfloat16*>(p.out)[o + e] = __float2bfloat16_rn(v[e]);
+      else
+        static_cast<__half*>(p.out)[o + e] = __float2half_rn(v[e]);
+    }
+  }
 }
 
 // Grid (N tiles, M tiles, batch x splits), kThreads threads; FA and FB
@@ -484,6 +568,324 @@ __global__ void __launch_bounds__(256) gemm_reduce_kernel(Params p) {
   }
 }
 
+// ---- The sm90 route ------------------------------------------------------
+//
+// One BM x BN output tile a block of three warpgroups (384 threads), in
+// one of three shapes (ops/gemm.py picks it, `kernel_config`):
+// - 128 x 256 for a bf16 B: two consumer warpgroups of 64 rows;
+// - 256 x 128 for a quantized B: two consumer warpgroups of 128 rows
+//   (two m64 tiles each), so each decoded element feeds 256 rows;
+// - 128 x 128 at a decode batch (M <= MFA_GEMM90_DECODE_M), where
+//   narrow tiles give more blocks to stream the weight.
+// Warpgroup 0 gives up its registers (setmaxnreg 40) and one of its
+// threads issues the TMA loads of each 64-deep K step into a ring of
+// stages (as many as shared memory holds, at most MFA_GEMM90_STAGES):
+// A [BM rows][64 k] bf16, K-major and swizzled; a bf16 B as [64 k][BN n],
+// MN-major, in 64-column panels each swizzled; a quantized B as its raw
+// [64 k][BN] bytes (A's box holds only the rows that exist when there is
+// one M tile).  A stage's full barrier completes when its bytes have
+// landed; its empty barrier when all 8 consumer warps are done with it.
+// Warpgroups 1 and 2 (setmaxnreg 232) issue BM / 128 x 4 m64nBNk16
+// wgmmas a step, one group in flight.  For a quantized B they decode
+// stage i + 1's raw bytes (16 a thread at a time) into one of k9Decoded
+// bf16 tiles in the same swizzled panels, zeroing every k >= K (NF4's
+// padding lies inside the payload), while the tensor cores run stage i;
+// three tiles let a warpgroup overwrite one only after both have
+// finished its products.  Tiles are walked in groups of kGroupM M tiles,
+// so a wave of blocks shares its A and B tiles in L2.  The epilogue goes
+// through shared memory (`emit8`).
+
+constexpr int k9BK = MFA_GEMM90_BLOCK_K;
+constexpr int k9Threads = 384;
+constexpr int k9Consumers = 256;
+constexpr int k9Decoded = 3;
+constexpr int kGroupM = 16;
+constexpr int k9Panel = k9BK * 64 * 2;      // 64 columns of bf16 B
+constexpr int k9SmemBudget = 232448 - 2048; // an H100 block, less slack
+static_assert(k9BK == 64, "a K step is one 128-byte swizzled bf16 row");
+static_assert((kNf4Group / 2) % k9BK == 0, "a K step reads one plane");
+
+// Shared memory of one block: the ring, the decoded tiles, the barriers,
+// the NF4 table, and room to align the whole to 1024 bytes.
+template <int FB, int BM, int BN>
+struct Ring90 {
+  static_assert((BM == 128 || BM == 256) && (BN == 128 || BN == 256) &&
+                    BM * BN <= 128 * 256,
+                "128 accumulators a consumer thread at most");
+  static constexpr int kATile = BM * k9BK * 2;   // bf16, swizzled, K-major
+  static constexpr int kBTile = BN * k9BK * 2;   // bf16 B, BN / 64 panels
+  static constexpr int kRaw = BN * k9BK;         // a byte-format B stage
+  static constexpr int kStage = kATile + (FB == kB16 ? kBTile : kRaw);
+  static constexpr int kDecodedBytes = FB == kB16 ? 0 : k9Decoded * kBTile;
+  static constexpr int kFit = (k9SmemBudget - kDecodedBytes) / kStage;
+  static constexpr int kStages =
+      kFit < MFA_GEMM90_STAGES ? kFit : MFA_GEMM90_STAGES;
+  static constexpr int kBarriers = kStages * kStage + kDecodedBytes;
+  static constexpr int kBytes = kBarriers + 2 * kStages * 8 + 32 + 1024;
+  static constexpr int kLd = BN + 8;  // epilogue float rows: no conflicts
+  static_assert(kStages >= 3, "a ring");
+  static_assert(kBytes <= 232448, "an H100 block's shared memory");
+  static_assert(BM * kLd * 4 <= kBarriers,
+                "the epilogue's float tile fits in the ring");
+  static_assert(kRaw / 16 % k9Consumers == 0, "whole decode chunks");
+};
+
+__device__ __forceinline__ uint32_t bf2_bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The top halves of two floats as one bf16 pair: exact where each value
+// has at most 8 significant bits, as a decoded INT8 or FP8 value has.
+__device__ __forceinline__ uint32_t bf16_pair_of(float lo, float hi) {
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
+}
+
+// 16 payload bytes of one K row as 16 bf16 (8 words), without the
+// scale, exactly, with no conversion instructions (an H100 SM converts 16
+// values a clock, an eighth of its float32 rate):
+// - INT8 b: the float with bits 0x4B000000 | (b + 128) is 2^23 + b + 128;
+//   minus 2^23 + 128 it is b.
+// - FP8: the sign, exponent and mantissa fields moved to bf16's places
+//   read as bf16 with bf16's exponent bias; times 2^(127 - bias) (E4M3
+//   2^120, E5M2 2^112) that is the value, subnormals included.  Codes
+//   that are NaN or infinite in FP8 (quantize_matrix writes none) come
+//   out finite.
+// - NF4: the nibble at `shift` through the bf16 codebook `nf4`.
+template <int FB>
+__device__ __forceinline__ void decode16(const uint4& v, int prec, int shift,
+                                         const uint16_t* nf4,
+                                         uint32_t (&h)[8]) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+  if constexpr (FB == kNf4) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const uint32_t x = (w[i] >> shift) & 0x0F0F0F0Fu;
+      h[2 * i] = nf4[x & 0xF] | (uint32_t)nf4[(x >> 8) & 0xF] << 16;
+      h[2 * i + 1] =
+          nf4[(x >> 16) & 0xF] | (uint32_t)nf4[(x >> 24) & 0xF] << 16;
+    }
+  } else if (prec == kPrecInt8) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const uint32_t u = w[i] ^ 0x80808080u;
+      float f[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        f[e] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + e)) -
+               8388736.f;
+      h[2 * i] = bf16_pair_of(f[0], f[1]);
+      h[2 * i + 1] = bf16_pair_of(f[2], f[3]);
+    }
+  } else {
+    const bool e4m3 = prec == kPrecE4M3;
+    const uint32_t bias = e4m3 ? 0x7B807B80u : 0x77807780u;  // 2^120, 2^112
+    const __nv_bfloat162 scale =
+        *reinterpret_cast<const __nv_bfloat162*>(&bias);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      // Bytes 2 (i % 2) and 2 (i % 2) + 1 of word i / 2 at bits 8 and 24.
+      const uint32_t t =
+          __byte_perm(w[i / 2], 0, i % 2 ? 0x3424 : 0x1404);
+      const uint32_t bits =
+          (t & 0x80008000u) |
+          (e4m3 ? (t >> 4) & 0x07F007F0u : (t >> 3) & 0x0FE00FE0u);
+      const __nv_bfloat162 x =
+          __hmul2(*reinterpret_cast<const __nv_bfloat162*>(&bits), scale);
+      h[i] = bf2_bits(x);
+    }
+  }
+}
+
+// A consumer thread's share (`ct` of 256) of decoding one stage: raw
+// [64 k][BN n] bytes into the MN-major swizzled bf16 panels, k >= K zero.
+template <int FB, int BN>
+__device__ __forceinline__ void dequant_stage(const uint8_t* raw,
+                                              uint8_t* tile, int prec,
+                                              int shift, int k0, int k,
+                                              const uint16_t* nf4, int ct) {
+#pragma unroll
+  for (int j = 0; j < BN * k9BK / 16 / k9Consumers; ++j) {
+    const int q = ct + j * k9Consumers;
+    const int kr = q / (BN / 16), nc = q % (BN / 16) * 16;
+    uint32_t h[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+    if (k0 + kr < k)
+      decode16<FB>(*reinterpret_cast<const uint4*>(raw + kr * BN + nc), prec,
+                   shift, nf4, h);
+    uint8_t* panel = tile + (nc / 64) * k9Panel;
+    const int c = nc % 64 / 8;
+    *reinterpret_cast<uint4*>(panel + sm90::swizzle128(kr, c)) =
+        make_uint4(h[0], h[1], h[2], h[3]);
+    *reinterpret_cast<uint4*>(panel + sm90::swizzle128(kr, c + 1)) =
+        make_uint4(h[4], h[5], h[6], h[7]);
+  }
+}
+
+// Grid (tile groups, batch x splits), k9Threads threads,
+// Ring90<FB, BM, BN>::kBytes of dynamic shared memory.  FB: B's fetch
+// class (kB16, kByte, kNf4); map_a over A (k, m, batch), map_b over B's
+// payload (n, k or NF4 byte row, batch).
+template <int FB, int BM, int BN>
+__global__ void __launch_bounds__(k9Threads, 1)
+gemm90_kernel(const __grid_constant__ CUtensorMap map_a,
+              const __grid_constant__ CUtensorMap map_b, Params p) {
+  using namespace sm90;
+  using R = Ring90<FB, BM, BN>;
+  constexpr int kMT = BM / 128;  // m64 tiles a consumer warpgroup
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + (1024 - smem_u32(smem_raw) % 1024) % 1024;
+  uint8_t* decoded = smem + R::kStages * R::kStage;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + R::kBarriers);
+  uint64_t* empty = full + R::kStages;
+  uint16_t* nf4 = reinterpret_cast<uint16_t*>(empty + R::kStages);
+
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int tiles_m = (p.m + BM - 1) / BM;
+  const int tiles_n = (p.n + BN - 1) / BN;
+  const int per_group = kGroupM * tiles_n;
+  const int id = blockIdx.x, first = id / per_group * kGroupM;
+  const int group_rows = min(tiles_m - first, kGroupM);
+  const int m0 = (first + id % per_group % group_rows) * BM;
+  const int n0 = id % per_group / group_rows * BN;
+  const int bt = blockIdx.y / p.splits, split = blockIdx.y % p.splits;
+  const int k_begin = split * p.k_per_split;
+  const int k_end = min(p.k, k_begin + p.k_per_split);
+  const int steps = k_end > k_begin ? (k_end - k_begin + k9BK - 1) / k9BK : 0;
+
+  if (tid == 0) {
+    for (int s = 0; s < R::kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], k9Consumers / 32);
+    }
+    fence_barrier_init();
+  }
+  if (tid < 16) {
+    const __nv_bfloat16 v = __float2bfloat16_rn(kNf4Codebook[tid]);
+    nf4[tid] = *reinterpret_cast<const uint16_t*>(&v);
+  }
+  __syncthreads();
+
+  // The warpgroup, read through a shuffle so that ptxas sees it uniform
+  // across each warp: wgmma in a path it cannot prove uniform is
+  // serialised.
+  const int role = __shfl_sync(0xffffffff, tid / 128, 0);
+  if (role == 0) {
+    // Producer warpgroup.
+    setmaxnreg_dec<40>();
+    if (tid == 0 && steps > 0) {
+      prefetch_tensor_map(&map_a);
+      prefetch_tensor_map(&map_b);
+      for (int i = 0; i < steps; ++i) {
+        const int s = i % R::kStages;
+        if (i >= R::kStages) mbar_wait(&empty[s], (i / R::kStages - 1) & 1);
+        uint8_t* st = smem + s * R::kStage;
+        const int k0 = k_begin + i * k9BK;
+        mbar_arrive_expect_tx(&full[s], R::kStage - (BM - p.box_m) * 128);
+        tma_load_3d(st, &map_a, &full[s], k0, m0, bt);
+        if constexpr (FB == kB16) {
+#pragma unroll
+          for (int c = 0; c < BN / 64; ++c)
+            tma_load_3d(st + R::kATile + c * k9Panel, &map_b, &full[s],
+                        n0 + 64 * c, k0, bt);
+        } else {
+          const int row = FB == kNf4 ? nf4_position(k0).byte : k0;
+          tma_load_3d(st + R::kATile, &map_b, &full[s], n0, row, bt);
+        }
+      }
+    }
+  } else {
+    // Consumer warpgroups: rows BM / 2 wg .. + BM / 2 of the tile.
+    setmaxnreg_inc<232>();
+    const int ct = tid - (k9Threads - k9Consumers), wg = role - 1;
+    // Stage i's raw bytes into decoded tile i % k9Decoded (quantized B).
+    auto decode = [&](int i) {
+      const int s = i % R::kStages, k0 = k_begin + i * k9BK;
+      mbar_wait(&full[s], (i / R::kStages) & 1);
+      dequant_stage<FB, BN>(smem + s * R::kStage + R::kATile,
+                            decoded + i % k9Decoded * R::kBTile, p.prec_b,
+                            nf4_position(k0).shift, k0, p.k, nf4, ct);
+      fence_proxy_async();
+      named_barrier_sync(1, k9Consumers);
+    };
+    float acc[kMT][BN / 2];
+#pragma unroll
+    for (int t = 0; t < kMT; ++t)
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[t][i] = 0.f;
+    if constexpr (FB != kB16) {
+      if (steps > 0) decode(0);
+    }
+    for (int i = 0; i < steps; ++i) {
+      const int s = i % R::kStages;
+      const uint8_t* st = smem + s * R::kStage;
+      const uint8_t* b_tile = st + R::kATile;
+      if constexpr (FB == kB16)
+        mbar_wait(&full[s], (i / R::kStages) & 1);
+      else
+        b_tile = decoded + i % k9Decoded * R::kBTile;
+      // Every warpgroup issues its products, also where its rows lie
+      // past M (their outputs are not stored): a wgmma under a branch is
+      // serialised.
+#pragma unroll
+      for (int t = 0; t < kMT; ++t) fence_operands(acc[t]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < k9BK / 16; ++kk)
+#pragma unroll
+        for (int t = 0; t < kMT; ++t)
+          wgmma_bf16<BN, 1>(
+              acc[t],
+              smem_desc(st + (wg * kMT + t) * 64 * 128 + kk * 32, 16, 1024),
+              smem_desc(b_tile + kk * 2048, k9Panel, 1024));
+      wgmma_commit();
+      wgmma_wait<1>();
+#pragma unroll
+      for (int t = 0; t < kMT; ++t) fence_operands(acc[t]);
+      // One arrival a warp (256 on one barrier would serialise): stage
+      // i - 1's products are done, its raw bytes decoded a step ago.
+      __syncwarp();
+      if (i > 0 && lane == 0) mbar_arrive(&empty[(i - 1) % R::kStages]);
+      if constexpr (FB != kB16) {
+        if (i + 1 < steps) decode(i + 1);
+      }
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int t = 0; t < kMT; ++t) fence_operands(acc[t]);
+    // The epilogue goes through shared memory, so that each warp writes
+    // whole output rows in 16-byte stores: the fragment's own layout
+    // (16 bytes of each of 8 rows a store) runs at a small fraction of
+    // the memory's rate.  The ring is free once both warpgroups are done.
+    named_barrier_sync(1, k9Consumers);
+    const int row0 = m0 + wg * (BM / 2);
+    if (row0 < p.m) {
+      constexpr int kLd = R::kLd;
+      float* tile = reinterpret_cast<float*>(smem) + wg * (BM / 2) * kLd;
+      const int lt = ct % 128, r = lt / 32 * 16 + lane / 4;
+#pragma unroll
+      for (int t = 0; t < kMT; ++t)
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            *reinterpret_cast<float2*>(tile + (t * 64 + r + 8 * h) * kLd +
+                                       8 * j + 2 * (lane % 4)) =
+                make_float2(acc[t][4 * j + 2 * h], acc[t][4 * j + 2 * h + 1]);
+      named_barrier_sync(2 + wg, 128);
+      constexpr int kPerRow = BN / 8;  // threads a row, 8 columns each
+      const int c = lt % kPerRow * 8;
+      for (int rr = lt / kPerRow; rr < BM / 2; rr += 128 / kPerRow) {
+        float v[8];
+        const float4 lo = *reinterpret_cast<const float4*>(tile + rr * kLd + c);
+        const float4 hi =
+            *reinterpret_cast<const float4*>(tile + rr * kLd + c + 4);
+        v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
+        v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
+        emit8(p, bt, split, row0 + rr, n0 + c, v);
+      }
+    }
+  }
+}
+
 // The kernel of the operands' fetch classes (a template each).
 template <typename Reg, int FA>
 void launch_b(int fb, dim3 grid, cudaStream_t s, const Params& p) {
@@ -505,34 +907,12 @@ void launch_a(int fa, int fb, dim3 grid, cudaStream_t s, const Params& p) {
   }
 }
 
-}  // namespace
-
-extern "C" {
-
-// a, b: payloads; c: float32 or null; scale_a, scale_b: float32 or null;
-// out: [batch, m, n]; partial: [splits, batch, m, n] float32 (splits > 1).
-// strides: a (batch, m, k), b (batch, k, n), c batch, scale_a (batch, m),
-// scale_b (batch, n), in elements.  prec_*: 0 fp32, 1 bf16, 2 int8, 3
-// fp8-e4m3, 4 fp8-e5m2, 5 nf4.  out_type: 0 fp32, 1 bf16, 2 fp16.
-// c_mode: 0 none, 1 C seeds the sum, 2 C added after the scales.
-// fp32_registers: 0 bf16 registers on tensor cores, 1 fp32 on CUDA cores.
-// vec_a, vec_b: the operand may be read in 16-byte chunks (its contiguous
-// axis has stride 1; its start and its other strides are 16-byte
-// multiples).
-int mfa_gemm(const void* a, const void* b, const void* c, const void* scale_a,
-             const void* scale_b, void* out, void* partial,
-             const long long* strides, int m, int n, int k, int batch,
-             int splits, int k_per_split, int prec_a, int prec_b,
-             int out_type, int c_mode, int fp32_registers, int vec_a,
-             int vec_b, void* stream) {
-  if (m <= 0 || n <= 0 || batch <= 0) return 0;
-  if (k < 0 || splits < 1 || (splits > 1 && (!partial || k_per_split <= 0 ||
-                                              k_per_split % kBK)) ||
-      prec_a < kPrecFp32 || prec_a > kPrecNf4 || prec_b < kPrecFp32 ||
-      prec_b > kPrecNf4 || out_type < kOutFp32 || out_type > kOutFp16 ||
-      c_mode < kCNone || c_mode > kCAfterScale || (c_mode && !c) ||
-      (long long)batch * splits > 65535)
-    return (int)cudaErrorInvalidValue;
+// The parameters shared by both routes' kernels and the split-K sum.
+Params make_params(const void* a, const void* b, const void* c,
+                   const void* scale_a, const void* scale_b, void* out,
+                   void* partial, const long long* strides, int m, int n,
+                   int k, int batch, int splits, int k_per_split, int prec_a,
+                   int prec_b, int out_type, int c_mode) {
   Params p;
   p.a = a;
   p.b = b;
@@ -562,6 +942,154 @@ int mfa_gemm(const void* a, const void* b, const void* c, const void* scale_a,
   p.prec_b = prec_b;
   p.out_type = out_type;
   p.c_mode = c_mode;
+  p.vec_a = p.vec_b = false;
+  p.box_m = 0;
+  return p;
+}
+
+// Arguments neither route takes; `step` is the route's K step.
+bool bad_args(const void* c, void* partial, int k, int batch, int splits,
+              int k_per_split, int step, int prec_a, int prec_b,
+              int out_type, int c_mode) {
+  return k < 0 || splits < 1 ||
+         (splits > 1 && (!partial || k_per_split <= 0 ||
+                         k_per_split % step)) ||
+         prec_a < kPrecFp32 || prec_a > kPrecNf4 || prec_b < kPrecFp32 ||
+         prec_b > kPrecNf4 || out_type < kOutFp32 || out_type > kOutFp16 ||
+         c_mode < kCNone || c_mode > kCAfterScale || (c_mode && !c) ||
+         (long long)batch * splits > 65535;
+}
+
+// The split-K sum after the main kernel (nothing when K is not split).
+int finish(const Params& p, cudaStream_t s) {
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || p.splits == 1) return (int)e;
+  const size_t total = (size_t)p.batch * p.m * p.n;
+  const int blocks = (int)((total + 255) / 256 < 4096 ? (total + 255) / 256
+                                                       : 4096);
+  gemm_reduce_kernel<<<blocks, 256, 0, s>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// The driver's cuTensorMapEncodeTiled, reached through the runtime (no
+// link against libcuda).
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
+#endif
+    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(f)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A TMA map over a [batch][rows][inner] payload of `esize`-byte elements
+// (strides in elements; the inner stride is 1), read in boxes of
+// box_inner x box_rows; elements outside read as zero bytes.
+bool tensor_map(CUtensorMap* map, const void* base, CUtensorMapDataType type,
+                int esize, long long inner, long long rows, long long batch,
+                long long row_stride, long long batch_stride,
+                uint32_t box_inner, uint32_t box_rows,
+                CUtensorMapSwizzle swizzle) {
+  const EncodeTiled fn = encode_tiled();
+  if (!fn) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)inner, (cuuint64_t)rows,
+                              (cuuint64_t)batch};
+  const cuuint64_t strides[2] = {
+      (cuuint64_t)(row_stride * esize),
+      (cuuint64_t)((batch > 1 ? batch_stride : rows * row_stride) * esize)};
+  const cuuint32_t box[3] = {box_inner, box_rows, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return fn(map, type, 3, const_cast<void*>(base), dims, strides, box, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int FB, int BM, int BN>
+void launch90(dim3 grid, cudaStream_t s, const CUtensorMap& map_a,
+              const CUtensorMap& map_b, const Params& p) {
+  constexpr int bytes = Ring90<FB, BM, BN>::kBytes;
+  if (cudaFuncSetAttribute(gemm90_kernel<FB, BM, BN>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           bytes) != cudaSuccess)
+    return;  // the error stays for cudaGetLastError
+  gemm90_kernel<FB, BM, BN><<<grid, k9Threads, bytes, s>>>(map_a, map_b, p);
+}
+
+// The kernel of B's fetch class and the tile: the tile shapes each class
+// takes (module comment), or false for any other.
+bool launch90_tile(int fb, int bm, int bn, dim3 grid, cudaStream_t s,
+                   const CUtensorMap& map_a, const CUtensorMap& map_b,
+                   const Params& p) {
+  constexpr int kM = MFA_GEMM90_BLOCK_M, kN = MFA_GEMM90_BLOCK_N;
+  constexpr int kQM = MFA_GEMM90_QUANT_BLOCK_M;
+  constexpr int kQN = MFA_GEMM90_QUANT_BLOCK_N;
+  constexpr int kDN = MFA_GEMM90_BLOCK_N_DECODE;
+  const bool quant = fb != kB16;
+  if (bm == kM && bn == kDN) {
+    if (!quant) launch90<kB16, kM, kDN>(grid, s, map_a, map_b, p);
+    else if (fb == kByte) launch90<kByte, kM, kDN>(grid, s, map_a, map_b, p);
+    else launch90<kNf4, kM, kDN>(grid, s, map_a, map_b, p);
+  } else if (!quant && bm == kM && bn == kN) {
+    launch90<kB16, kM, kN>(grid, s, map_a, map_b, p);
+  } else if (quant && bm == kQM && bn == kQN) {
+    if (fb == kByte) launch90<kByte, kQM, kQN>(grid, s, map_a, map_b, p);
+    else launch90<kNf4, kQM, kQN>(grid, s, map_a, map_b, p);
+  } else {
+    return false;
+  }
+  return true;
+}
+
+constexpr int kErrTensorMap = 10000;  // cuTensorMapEncodeTiled refused
+
+bool aligned16(const void* ptr, long long bytes) {
+  return reinterpret_cast<uintptr_t>(ptr) % 16 == 0 && bytes % 16 == 0;
+}
+
+}  // namespace
+
+extern "C" {
+
+// a, b: payloads; c: float32 or null; scale_a, scale_b: float32 or null;
+// out: [batch, m, n]; partial: [splits, batch, m, n] float32 (splits > 1).
+// strides: a (batch, m, k), b (batch, k, n), c batch, scale_a (batch, m),
+// scale_b (batch, n), in elements.  prec_*: 0 fp32, 1 bf16, 2 int8, 3
+// fp8-e4m3, 4 fp8-e5m2, 5 nf4.  out_type: 0 fp32, 1 bf16, 2 fp16.
+// c_mode: 0 none, 1 C seeds the sum, 2 C added after the scales.
+// fp32_registers: 0 bf16 registers on tensor cores, 1 fp32 on CUDA cores.
+// vec_a, vec_b: the operand may be read in 16-byte chunks (its contiguous
+// axis has stride 1; its start and its other strides are 16-byte
+// multiples).
+int mfa_gemm(const void* a, const void* b, const void* c, const void* scale_a,
+             const void* scale_b, void* out, void* partial,
+             const long long* strides, int m, int n, int k, int batch,
+             int splits, int k_per_split, int prec_a, int prec_b,
+             int out_type, int c_mode, int fp32_registers, int vec_a,
+             int vec_b, void* stream) {
+  if (m <= 0 || n <= 0 || batch <= 0) return 0;
+  if (bad_args(c, partial, k, batch, splits, k_per_split, kBK, prec_a, prec_b,
+               out_type, c_mode))
+    return (int)cudaErrorInvalidValue;
+  Params p = make_params(a, b, c, scale_a, scale_b, out, partial, strides, m,
+                         n, k, batch, splits, k_per_split, prec_a, prec_b,
+                         out_type, c_mode);
   p.vec_a = vec_a != 0;
   p.vec_b = vec_b != 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -570,16 +1098,67 @@ int mfa_gemm(const void* a, const void* b, const void* c, const void* scale_a,
     launch_a<float>(class_of(prec_a), class_of(prec_b), grid, s, p);
   else
     launch_a<__nv_bfloat16>(class_of(prec_a), class_of(prec_b), grid, s, p);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess || splits == 1) return (int)e;
-  const size_t total = (size_t)batch * m * n;
-  const int blocks = (int)((total + 255) / 256 < 4096 ? (total + 255) / 256
-                                                       : 4096);
-  gemm_reduce_kernel<<<blocks, 256, 0, s>>>(p);
-  return (int)cudaGetLastError();
+  return finish(p, s);
+}
+
+// The sm90 route: bf16 registers, A dense bf16 (prec_a is bf16) with
+// strides[2] (k) == 1, B bf16 or quantized with strides[5] (n) == 1;
+// every base and every other stride of A and B a 16-byte multiple.
+// b_rows: B's payload extent along k (K, or round_up(K, 512) / 2 packed
+// bytes for NF4).  block_m, block_n: the tile (GEMMDescriptor's
+// kernel_config for the route).  Other arguments as mfa_gemm.  Returns
+// cudaErrorInvalidValue for what the route does not take, kErrTensorMap
+// when the driver refuses a TMA map.
+int mfa_gemm_sm90(const void* a, const void* b, const void* c,
+                  const void* scale_a, const void* scale_b, void* out,
+                  void* partial, const long long* strides, int m, int n,
+                  int k, int batch, int splits, int k_per_split, int prec_b,
+                  int b_rows, int block_m, int block_n, int out_type,
+                  int c_mode, void* stream) {
+  if (m <= 0 || n <= 0 || batch <= 0) return 0;
+  if (bad_args(c, partial, k, batch, splits, k_per_split, k9BK, kPrecBf16,
+               prec_b, out_type, c_mode) ||
+      prec_b < kPrecBf16 || strides[2] != 1 || strides[5] != 1 ||
+      b_rows < (prec_b == kPrecNf4 ? 1 : k) || block_m <= 0 || block_n <= 0)
+    return (int)cudaErrorInvalidValue;
+  const int eb = prec_b == kPrecBf16 ? 2 : 1;
+  if (!aligned16(a, strides[1] * 2) || !aligned16(b, strides[4] * eb) ||
+      (batch > 1 && (strides[0] * 2 % 16 || strides[3] * eb % 16)))
+    return (int)cudaErrorInvalidValue;
+  Params p = make_params(a, b, c, scale_a, scale_b, out, partial, strides, m,
+                         n, k, batch, splits, k_per_split, kPrecBf16, prec_b,
+                         out_type, c_mode);
+  // A single M tile loads only the rows that exist (a decode batch's
+  // few): rows past them stay as they were and give rows of the output
+  // that are not stored.
+  p.box_m = m < block_m ? (m + 7) / 8 * 8 : block_m;
+  CUtensorMap map_a, map_b;
+  const int fb = class_of(prec_b);
+  const bool ok =
+      tensor_map(&map_a, a, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, k, m, batch,
+                 strides[1], strides[0], k9BK, p.box_m,
+                 CU_TENSOR_MAP_SWIZZLE_128B) &&
+      (fb == kB16
+           ? tensor_map(&map_b, b, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, n, k,
+                        batch, strides[4], strides[3], 64, k9BK,
+                        CU_TENSOR_MAP_SWIZZLE_128B)
+           : tensor_map(&map_b, b, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, n,
+                        b_rows, batch, strides[4], strides[3], block_n, k9BK,
+                        CU_TENSOR_MAP_SWIZZLE_NONE));
+  if (!ok) return kErrTensorMap;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long tiles =
+      (long long)((m + block_m - 1) / block_m) * ((n + block_n - 1) / block_n);
+  if (tiles > 0x7FFFFFFF) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)tiles, batch * splits);
+  if (!launch90_tile(fb, block_m, block_n, grid, s, map_a, map_b, p))
+    return (int)cudaErrorInvalidValue;
+  return finish(p, s);
 }
 
 const char* mfa_cuda_error_string(int code) {
+  if (code == kErrTensorMap)
+    return "cuTensorMapEncodeTiled refused a TMA map of the operands";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

@@ -9,8 +9,8 @@ On the TPU `kernel_config` read block sizes from measured parameter
 tables and an autotune cache.  The port's CUDA kernels have one fixed
 tile each, defined in `csrc/flash_tiles.cuh`, which the kernels include
 and `kernel_tiles` reads, so `kernel_config` returns that tile; H100
-tables and autotune wait for the kernels that would use them
-(ROADMAP.md, port queue: gemm, softmax, descriptors and runtime).
+tables and autotune wait for the runtime module (ROADMAP.md, port queue:
+runtime).
 """
 
 from __future__ import annotations

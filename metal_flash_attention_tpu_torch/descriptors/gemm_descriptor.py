@@ -6,9 +6,11 @@ problem (batch, M, N, K, per-operand memory precisions, transposes,
 
 On the TPU `kernel_config` chose block sizes by a VMEM budget, a config
 cache and an autotune sweep on a miss.  The port's CUDA GEMM has one
-fixed tile, defined in `csrc/flash_tiles.cuh` (``MFA_GEMM_*``), which the
-kernel includes and `kernel_config` reads; H100 tables, the cache key and
-autotune wait for the runtime slice (ROADMAP.md, port queue: runtime).
+fixed tile a route (`ops/gemm.py` `_route`), defined in
+`csrc/flash_tiles.cuh` (``MFA_GEMM_*`` for "mma", ``MFA_GEMM90_*`` for
+"sm90"), which the kernels include and `kernel_config` reads; H100
+tables, the cache key and autotune wait for the runtime slice (ROADMAP.md,
+port queue: runtime).
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ from metal_flash_attention_tpu_torch.descriptors.precision import (
     OperandPrecision,
 )
 from metal_flash_attention_tpu_torch.native.build import tile_defines
+
+_TILE_PREFIX = {"mma": "MFA_GEMM", "sm90": "MFA_GEMM90"}
 
 
 @dataclass(frozen=True)
@@ -44,12 +48,23 @@ class GEMMDescriptor:
     batch: int = 1
     load_previous_c: bool = False
 
-    def kernel_config(self) -> GEMMKernelConfig:
-        """The CUDA kernel's tile, as `csrc/flash_tiles.cuh` defines it."""
-        defines = tile_defines()
-        return GEMMKernelConfig(defines["MFA_GEMM_BLOCK_M"],
-                                defines["MFA_GEMM_BLOCK_N"],
-                                defines["MFA_GEMM_BLOCK_K"])
+    def kernel_config(self, route: str = "mma") -> GEMMKernelConfig:
+        """The tile of the CUDA kernel that `route` ("mma" or "sm90")
+        launches, as `csrc/flash_tiles.cuh` defines it.  The sm90 tile is
+        taller for a quantized B (each decoded element feeds more rows)
+        and narrow at a decode batch (M <= MFA_GEMM90_DECODE_M), so that
+        more blocks stream the weight."""
+        if route not in _TILE_PREFIX:
+            raise ValueError(f"route must be 'mma' or 'sm90', got {route!r}")
+        d, prefix = tile_defines(), _TILE_PREFIX[route]
+        block_m, block_n = d[f"{prefix}_BLOCK_M"], d[f"{prefix}_BLOCK_N"]
+        if route == "sm90":
+            if self.m <= d["MFA_GEMM90_DECODE_M"]:
+                block_n = d["MFA_GEMM90_BLOCK_N_DECODE"]
+            elif self.precision_b.is_quantized:
+                block_m = d["MFA_GEMM90_QUANT_BLOCK_M"]
+                block_n = d["MFA_GEMM90_QUANT_BLOCK_N"]
+        return GEMMKernelConfig(block_m, block_n, d[f"{prefix}_BLOCK_K"])
 
     @property
     def flops(self) -> int:

@@ -16,7 +16,23 @@ Routing, as in the JAX package:
   runs the hand-written kernel `csrc/gemm.cu` on a CUDA tensor and its
   plain PyTorch version (`_plain_product`) on a CPU tensor; nothing falls
   back from one to the other.  Each kernel launch adds one to
-  ``LAUNCH_COUNTS["gemm"]``.
+  ``LAUNCH_COUNTS["gemm"]``, and a launch of the sm90 route also to
+  ``LAUNCH_COUNTS["gemm_sm90"]``.
+
+The kernel's two routes (`_route`, decided from types and layouts before
+the launch; a dispatch, not a fallback: a CUDA call sent to a route
+launches that route's kernel or raises):
+
+  registers  A                    B                        route
+  bf16       bf16, K contiguous   bf16 or quantized,       sm90 (TMA ring,
+                                  [K, N] N contiguous      wgmma)
+  bf16       quantized            any                      mma
+  bf16       any                  [N, K] K contiguous      mma
+  fp32       any                  any                      mma (CUDA-core
+                                                           FMA)
+
+and any base address or non-unit stride of A or B that is not a 16-byte
+multiple (TMA cannot describe it) goes to mma.
 
 The register truth table (the JAX package's, on the card as on the TPU):
 
@@ -59,7 +75,7 @@ from metal_flash_attention_tpu_torch.ops.quantization import (
 from metal_flash_attention_tpu_torch.utils.shapes import cdiv, round_up
 
 # One count per kernel, bumped only where its wrapper launches it.
-LAUNCH_COUNTS = {"gemm": 0}
+LAUNCH_COUNTS = {"gemm": 0, "gemm_sm90": 0}
 
 # Memory precision codes of csrc/gemm.cu (quant_common.cuh's enum).
 _PRECISION_CODE = {
@@ -339,6 +355,8 @@ def _kernel_library() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.mfa_gemm.argtypes = [ptr] * 8 + [i32] * 13 + [ptr]
     lib.mfa_gemm.restype = i32
+    lib.mfa_gemm_sm90.argtypes = [ptr] * 8 + [i32] * 12 + [ptr]
+    lib.mfa_gemm_sm90.restype = i32
     lib.mfa_cuda_error_string.argtypes = [i32]
     lib.mfa_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -356,10 +374,42 @@ def _chunks_ok(pay: torch.Tensor, s_batch: int, s_row: int,
             and (pay.shape[0] == 1 or s_batch * size % 16 == 0))
 
 
+def _strides(ops: _Operands) -> tuple:
+    """(a_sb, a_sm, a_sk, b_sb, b_sk, b_sn): each payload's batch, row
+    and contraction strides in its elements, for op(A) [M, K] and op(B)
+    [K, N] whatever the transposes."""
+    a_sb, a_r, a_c = ops.a.stride()
+    b_sb, b_r, b_c = ops.b.stride()
+    a_sm, a_sk = (a_c, a_r) if ops.transpose_a else (a_r, a_c)
+    b_sk, b_sn = (b_c, b_r) if ops.transpose_b else (b_r, b_c)
+    return a_sb, a_sm, a_sk, b_sb, b_sk, b_sn
+
+
+def _route(ops: _Operands, register_dtype) -> str:
+    """"sm90" or "mma": which kernel of `csrc/gemm.cu` a call takes (the
+    module docstring's table).  Pure: reads types, shapes, strides and
+    addresses, builds nothing."""
+    if (register_dtype != torch.bfloat16 or ops.quant_a is not None
+            or ops.a.dtype != torch.bfloat16
+            or (ops.quant_b is None and ops.b.dtype != torch.bfloat16)):
+        return "mma"
+    a_sb, a_sm, a_sk, b_sb, b_sk, b_sn = _strides(ops)
+    eb = ops.b.element_size()
+    n_extent = ops.b.shape[1 if ops.transpose_b else 2]
+    k_extent = ops.a.shape[1 if ops.transpose_a else 2]
+    tma = (a_sk == 1 and b_sn == 1
+           and ops.a.data_ptr() % 16 == 0 and ops.b.data_ptr() % 16 == 0
+           and a_sm >= k_extent and a_sm * 2 % 16 == 0
+           and b_sk >= n_extent and b_sk * eb % 16 == 0
+           and (ops.batch == 1 or (a_sb > 0 and a_sb * 2 % 16 == 0
+                                   and b_sb > 0 and b_sb * eb % 16 == 0)))
+    return "sm90" if tma else "mma"
+
+
 def _gemm_cuda(ops: _Operands, c, register_dtype, out_dtype, any_quant):
-    """Launch the Hopper kernel; raise on anything it does not take.  The
-    payloads are read in place through their strides; scales and C are
-    made float32 and contiguous (C: [batch or 1, M, N])."""
+    """Launch the route's Hopper kernel; raise on anything it does not
+    take.  The payloads are read in place through their strides; scales
+    and C are made float32 and contiguous (C: [batch or 1, M, N])."""
     if out_dtype not in _OUT_CODE:
         raise TypeError(f"the gemm kernel writes fp32, bf16 or fp16, got "
                         f"{out_dtype}")
@@ -372,10 +422,11 @@ def _gemm_cuda(ops: _Operands, c, register_dtype, out_dtype, any_quant):
     device = ops.a.device
     prec_a = ops.quant_a or OperandPrecision.from_dtype(ops.a.dtype)
     prec_b = ops.quant_b or OperandPrecision.from_dtype(ops.b.dtype)
+    route = _route(ops, register_dtype)
     cfg = GEMMDescriptor(
         m=ops.m, n=ops.n, k=ops.k, precision_a=prec_a, precision_b=prec_b,
         transpose_a=ops.transpose_a, transpose_b=ops.transpose_b,
-        batch=ops.batch, load_previous_c=c is not None).kernel_config()
+        batch=ops.batch, load_previous_c=c is not None).kernel_config(route)
     out = torch.empty((ops.batch, ops.m, ops.n), dtype=out_dtype,
                       device=device)
     if out.numel() == 0:
@@ -397,12 +448,7 @@ def _gemm_cuda(ops: _Operands, c, register_dtype, out_dtype, any_quant):
         if c.shape[0] not in (1, ops.batch):
             raise ValueError(f"c's batch {c.shape[0]} is not {ops.batch}")
         c_mode = _C_AFTER_SCALE if any_quant else _C_SEED
-    a_sb, a_r, a_c = ops.a.stride()
-    b_sb, b_r, b_c = ops.b.stride()
-    a_sm, a_sk = (a_c, a_r) if ops.transpose_a else (a_r, a_c)
-    b_sk, b_sn = (b_c, b_r) if ops.transpose_b else (b_r, b_c)
-    vec_a = _chunks_ok(ops.a, a_sb, a_sm, a_sk)
-    vec_b = _chunks_ok(ops.b, b_sb, b_sn, b_sk)
+    a_sb, a_sm, a_sk, b_sb, b_sk, b_sn = _strides(ops)
 
     def scale_strides(s):
         if s is None:
@@ -417,17 +463,28 @@ def _gemm_cuda(ops: _Operands, c, register_dtype, out_dtype, any_quant):
 
     def ptr(t):
         return None if t is None else t.data_ptr()
-    with torch.cuda.device(device):
-        rc = lib.mfa_gemm(
-            ptr(ops.a), ptr(ops.b), ptr(c), ptr(sa), ptr(sb), ptr(out),
+    args = (ptr(ops.a), ptr(ops.b), ptr(c), ptr(sa), ptr(sb), ptr(out),
             ptr(partial), strides, ops.m, ops.n, ops.k, ops.batch, splits,
-            per, _PRECISION_CODE[prec_a], _PRECISION_CODE[prec_b],
-            _OUT_CODE[out_dtype], c_mode,
-            int(register_dtype == torch.float32), int(vec_a), int(vec_b),
-            stream)
+            per)
+    with torch.cuda.device(device):
+        if route == "sm90":
+            b_rows = ops.b.shape[2 if ops.transpose_b else 1]
+            rc = lib.mfa_gemm_sm90(*args, _PRECISION_CODE[prec_b], b_rows,
+                                   cfg.block_m, cfg.block_n,
+                                   _OUT_CODE[out_dtype], c_mode, stream)
+        else:
+            rc = lib.mfa_gemm(
+                *args, _PRECISION_CODE[prec_a], _PRECISION_CODE[prec_b],
+                _OUT_CODE[out_dtype], c_mode,
+                int(register_dtype == torch.float32),
+                int(_chunks_ok(ops.a, a_sb, a_sm, a_sk)),
+                int(_chunks_ok(ops.b, b_sb, b_sn, b_sk)), stream)
     if rc != 0:
-        raise RuntimeError(f"gemm kernel launch failed: CUDA error {rc} "
+        raise RuntimeError(f"gemm kernel ({route}) launch failed: CUDA "
+                           f"error {rc} "
                            f"({lib.mfa_cuda_error_string(rc).decode()})")
     LAUNCH_COUNTS["gemm"] += 1
+    if route == "sm90":
+        LAUNCH_COUNTS["gemm_sm90"] += 1
     return out
 

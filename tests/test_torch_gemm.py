@@ -14,6 +14,7 @@ and fp16 results at MIXED_TOL.o x (max |ref| + 1), one rounding of the
 output apart.
 """
 
+import dataclasses
 import importlib
 
 import jax.numpy as jnp
@@ -319,3 +320,157 @@ def test_chunk_loads_need_a_contiguous_aligned_axis():
     shifted = t.view(-1)[1:1 + 64 * 32].view(1, 64, 32)
     assert not tg._chunks_ok(shifted, *shifted.stride())  # start off by 2
     assert not tg._chunks_ok(t, t.stride(0), 40, 2)      # no unit stride
+
+
+# The kernel's routes (`_route`) and the sm90 tile: decided on the host
+# from types, layouts and addresses, so they are checked here without a
+# card.  Payloads are allocated, not quantized: only their types, shapes
+# and strides matter.
+
+LLAMA_MLP = {"w_gate": (4096, 14336), "w_up": (4096, 14336),
+             "w_down": (14336, 4096)}
+SM90 = GEMMDescriptor(m=8192, n=1, k=1).kernel_config("sm90")
+SM90_DECODE = GEMMDescriptor(m=8, n=1, k=1).kernel_config("sm90")
+
+
+def _weight(k, n, precision):
+    if precision == "bf16":
+        return torch.empty((k, n), dtype=torch.bfloat16)
+    tp = TP(precision)
+    rows = -(-k // 512) * 256 if tp is TP.NF4 else k
+    return QuantizedMatrix(torch.empty((rows, n), dtype=tp.storage_dtype),
+                           torch.ones(n), tp, (k, n))
+
+
+def _route_of(a, b, register_dtype=torch.bfloat16, transpose_a=False,
+              transpose_b=False):
+    a_pay, qa, sa, a_shape = tg._operand_info(a)
+    b_pay, qb, sb, b_shape = tg._operand_info(b)
+    m, k = a_shape[::-1] if transpose_a else a_shape
+    n = b_shape[0] if transpose_b else b_shape[1]
+    ops = tg._Operands(a_pay, qa, sa, b_pay, qb, sb, m, n, k, transpose_a,
+                       transpose_b, False)
+    return tg._route(ops, register_dtype)
+
+
+@pytest.mark.parametrize("precision", ["bf16"] + QUANT)
+@pytest.mark.parametrize("name", sorted(LLAMA_MLP))
+@pytest.mark.parametrize("tokens", [8192, 8])
+def test_route_main_path_goes_to_sm90(precision, name, tokens):
+    """Every product of the quantized MLP (and its bf16 weight) takes
+    the TMA / wgmma kernel."""
+    k, n = LLAMA_MLP[name]
+    x = torch.empty((tokens, k), dtype=torch.bfloat16)
+    assert _route_of(x, _weight(k, n, precision)) == "sm90"
+
+
+def test_route_dense_4096_cube_goes_to_sm90():
+    a = torch.empty((4096, 4096), dtype=torch.bfloat16)
+    assert _route_of(a, torch.empty((4096, 4096),
+                                    dtype=torch.bfloat16)) == "sm90"
+
+
+def test_route_sends_the_rest_to_mma():
+    a = torch.empty((64, 256), dtype=torch.bfloat16)
+    w8 = _weight(256, 128, "int8")
+    assert _route_of(a, w8) == "sm90"
+    # fp32 registers, or an fp32 operand under bf16 registers.
+    assert _route_of(a, w8, register_dtype=torch.float32) == "mma"
+    assert _route_of(a.float(), w8) == "mma"
+    # A quantized A, alone or against a quantized B.
+    qa = QuantizedMatrix(torch.empty((64, 256), dtype=torch.int8),
+                         torch.ones(64), TP.INT8, (64, 256))
+    assert _route_of(qa, torch.empty((256, 128), dtype=torch.bfloat16)) \
+        == "mma"
+    assert _route_of(qa, w8) == "mma"
+    # B stored [N, K] (K contiguous) and A stored [K, M].
+    assert _route_of(a, torch.empty((128, 256), dtype=torch.bfloat16),
+                     transpose_b=True) == "mma"
+    assert _route_of(torch.empty((256, 64), dtype=torch.bfloat16), w8,
+                     transpose_a=True) == "mma"
+    # Rows that are no 16-byte multiple: A's 1,026 bytes, B's 136.
+    assert _route_of(torch.empty((64, 513), dtype=torch.bfloat16),
+                     torch.empty((513, 128), dtype=torch.bfloat16)) == "mma"
+    assert _route_of(a, _weight(256, 136, "int8")) == "mma"
+    # A base off a 16-byte boundary.
+    shifted = torch.empty(64 * 256 + 8, dtype=torch.bfloat16)[1:]
+    assert _route_of(shifted[:64 * 256].view(64, 256), w8) == "mma"
+    # The same rows in padded storage are fine.
+    padded = torch.empty((64, 264), dtype=torch.bfloat16)[:, :250]
+    assert _route_of(padded, _weight(250, 128, "int8")) == "sm90"
+
+
+def test_route_on_a_cpu_tensor_builds_no_library(monkeypatch):
+    """A call that `_route` would send to sm90 on the card runs the plain
+    version on the CPU, without asking for the CUDA library."""
+    def refuse():
+        raise AssertionError("the CPU path asked for the CUDA library")
+    monkeypatch.setattr(tg, "_kernel_library", refuse)
+    rng = np.random.default_rng(15)
+    _, ta = _dense(rng, (8, 64), "bfloat16")
+    _, tb = _quant(rng, (64, 128), "int8", 0, per_channel=True)
+    assert _route_of(ta, tb) == "sm90"
+    before = dict(tg.LAUNCH_COUNTS)
+    assert tg.gemm(ta, tb).shape == (8, 128)
+    assert tg.gemm(ta, ta.T.contiguous(), backend="pallas").shape == (8, 8)
+    assert tg.LAUNCH_COUNTS == before
+
+
+def test_kernel_config_gives_each_routes_tile():
+    tiles = tile_defines()
+    d = GEMMDescriptor(m=8, n=4096, k=14336)
+    assert (SM90.block_m, SM90.block_n, SM90.block_k) == (
+        tiles["MFA_GEMM90_BLOCK_M"], tiles["MFA_GEMM90_BLOCK_N"],
+        tiles["MFA_GEMM90_BLOCK_K"])
+    # A decode batch takes the narrower tile, one M tile more than that
+    # the wide one.
+    assert SM90_DECODE == dataclasses.replace(
+        SM90, block_n=tiles["MFA_GEMM90_BLOCK_N_DECODE"])
+    edge = tiles["MFA_GEMM90_DECODE_M"]
+    assert GEMMDescriptor(m=edge, n=1, k=1).kernel_config("sm90") == \
+        SM90_DECODE
+    assert GEMMDescriptor(m=edge + 1, n=1, k=1).kernel_config("sm90") == \
+        SM90
+    assert d.kernel_config("mma") == d.kernel_config()
+    assert d.kernel_config("sm90") == SM90_DECODE
+    # A quantized B takes the taller tile past a decode batch.
+    for precision in (TP.INT8, TP.FP8_E4M3, TP.NF4):
+        cfg = GEMMDescriptor(m=edge + 1, n=1, k=1, precision_a=TP.BF16,
+                             precision_b=precision).kernel_config("sm90")
+        assert (cfg.block_m, cfg.block_n, cfg.block_k) == (
+            tiles["MFA_GEMM90_QUANT_BLOCK_M"],
+            tiles["MFA_GEMM90_QUANT_BLOCK_N"], SM90.block_k)
+        assert GEMMDescriptor(m=edge, n=1, k=1, precision_b=precision
+                              ).kernel_config("sm90") == SM90_DECODE
+    # A K step inside one NF4 nibble plane; stages for a ring.
+    assert 256 % SM90.block_k == 0 and tiles["MFA_GEMM90_STAGES"] >= 2
+    with pytest.raises(ValueError, match="route"):
+        d.kernel_config("wgmma")
+
+
+@pytest.mark.parametrize("precision", [TP.BF16, TP.INT8])
+@pytest.mark.parametrize("name", sorted(LLAMA_MLP))
+@pytest.mark.parametrize("tokens", [8192, 8, 1])
+def test_k_splits_with_the_sm90_tile(name, tokens, precision):
+    """Every split a whole number of 64-deep K steps, none empty, and a
+    decode batch split until the card has about two blocks an SM."""
+    k, n = LLAMA_MLP[name]
+    cfg = GEMMDescriptor(m=tokens, n=n, k=k, precision_a=TP.BF16,
+                         precision_b=precision).kernel_config("sm90")
+    splits, per = tg.k_splits(tokens, n, k, 1, 132, cfg.block_m,
+                              cfg.block_n, cfg.block_k)
+    assert per % cfg.block_k == 0
+    assert (splits - 1) * per < k <= splits * per
+    tiles = -(-tokens // cfg.block_m) * -(-n // cfg.block_n)
+    if tiles >= 132:
+        assert splits == 1
+    else:
+        assert tiles * splits >= 2 * 132 or per == \
+            tg.MIN_STEPS_PER_SPLIT * cfg.block_k
+
+
+def test_k_splits_w_down_at_a_decode_batch():
+    # 32 output tiles, 224 K steps: 9 splits of 25 steps, 288 blocks.
+    tile = (SM90_DECODE.block_m, SM90_DECODE.block_n, SM90_DECODE.block_k)
+    assert tg.k_splits(8, 4096, 14336, 1, 132, *tile) == (9, 1600)
+    assert tg.k_splits(8, 14336, 4096, 1, 132, *tile) == (3, 1408)

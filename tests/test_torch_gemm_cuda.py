@@ -66,14 +66,33 @@ def _assert_close(got, want, scale, k, out_dtype):
     assert err <= tol, (err, tol)
 
 
-def run_case(a, b, c=None, *, k, batched=False, **kw):
-    before = tg.LAUNCH_COUNTS["gemm"]
+def _padded(x, cols):
+    """x [..., rows, cols] as a view whose rows lie 16-byte multiples
+    apart (the storage padded to `cols` columns)."""
+    buf = torch.zeros((*x.shape[:-1], cols), dtype=x.dtype, device=x.device)
+    buf[..., :x.shape[-1]] = x
+    return buf[..., :x.shape[-1]]
+
+
+def _padded_quant(q, cols):
+    """A QuantizedMatrix whose payload rows lie `cols` bytes apart."""
+    return tq.QuantizedMatrix(_padded(q.values, cols), q.scale, q.precision,
+                              q.shape)
+
+
+def run_case(a, b, c=None, *, k, batched=False, sm90=None, **kw):
+    """One kernel launch against `_gemm_plain`; `sm90` True / False
+    asserts that the launch took / did not take the sm90 route."""
+    before = dict(tg.LAUNCH_COUNTS)
     if batched:
         got = tg.batched_gemm(a, b, c=c, **kw)
     else:
         got = tg.gemm(a, b, c, **kw)
     torch.cuda.synchronize()
-    assert tg.LAUNCH_COUNTS["gemm"] == before + 1
+    assert tg.LAUNCH_COUNTS["gemm"] == before["gemm"] + 1
+    if sm90 is not None:
+        assert tg.LAUNCH_COUNTS["gemm_sm90"] == before["gemm_sm90"] + int(
+            sm90)
     want = tg._gemm_plain(a, b, c, batched=batched, **kw)
     assert got.dtype == want.dtype and got.shape == want.shape
     _assert_close(got, want, float(want.float().abs().max()) + 1.0, k,
@@ -225,6 +244,145 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError):
         tg.gemm(a, tq.QuantizedMatrix(b.values, b.scale.cpu(), b.precision,
                                       b.shape))
+
+
+# The sm90 route (TMA ring, wgmma): every B class, ragged M, N and K.
+
+SM90_B = ["bf16"] + QUANT
+
+
+def _b_operand(seed, k, n, precision, device, per_channel=True):
+    """B [k, n] in `precision` ("bf16" or a quantized one), its payload
+    rows padded to a 16-byte multiple."""
+    if precision == "bf16":
+        return _padded(_dense(seed, (k, n), torch.bfloat16, device),
+                       -(-n // 8) * 8)
+    return _padded_quant(_quant(seed, (k, n), precision, 0, device,
+                                per_channel=per_channel), -(-n // 16) * 16)
+
+
+@pytest.mark.parametrize("precision", SM90_B)
+@pytest.mark.parametrize("m", [1, 8, 65, 300])
+@pytest.mark.parametrize("n", [136, 200])
+def test_sm90_every_b_class_ragged(cuda, precision, m, n):
+    k = 1000                                  # 15 K steps and 40 more
+    a = _dense(70, (m, k), torch.bfloat16, cuda)
+    b = _b_operand(71, k, n, precision, cuda)
+    kw = {"backend": "pallas"} if precision == "bf16" else {}
+    run_case(a, b, k=k, sm90=True, out_dtype=torch.float32, **kw)
+
+
+@pytest.mark.parametrize("m", [8, 192])
+def test_sm90_nf4_three_groups_both_planes(cuda, m):
+    k, n = 1100, 256                          # groups 0, 1 and part of 2
+    a = _padded(_dense(72, (m, k), torch.bfloat16, cuda), 1104)
+    b = _quant(73, (k, n), P.NF4, 0, cuda, per_channel=True)
+    run_case(a, b, k=k, sm90=True, out_dtype=torch.float32)
+
+
+@pytest.mark.parametrize("k", [4096, 14336])
+@pytest.mark.parametrize("precision", ["bf16", P.INT8, P.NF4])
+def test_sm90_split_k_at_a_decode_batch(cuda, k, precision):
+    m, n = 8, 512
+    cfg = tg.GEMMDescriptor(m=m, n=n, k=k).kernel_config("sm90")
+    splits, per = tg.k_splits(m, n, k, 1, torch.cuda.get_device_properties(
+        cuda).multi_processor_count, cfg.block_m, cfg.block_n, cfg.block_k)
+    assert splits > 1 and per % cfg.block_k == 0
+    a = _dense(74, (m, k), torch.bfloat16, cuda)
+    b = _b_operand(75, k, n, precision, cuda)
+    c = _dense(76, (m, n), torch.float32, cuda)
+    kw = {"backend": "pallas"} if precision == "bf16" else {}
+    run_case(a, b, c, k=k, sm90=True, out_dtype=torch.float32, **kw)
+    run_case(a, b, k=k, sm90=True, **kw)
+
+
+def test_sm90_c_seeds_a_dense_sum_and_follows_the_scales(cuda):
+    a = _dense(77, (130, 512), torch.bfloat16, cuda)
+    c = _dense(78, (130, 192), torch.float32, cuda)
+    d = _dense(79, (512, 192), torch.bfloat16, cuda)
+    run_case(a, d, c, k=512, sm90=True, backend="pallas",
+             out_dtype=torch.float32)
+    for per_channel in (False, True):
+        for precision in QUANT:
+            b = _quant(80, (512, 192), precision, 0, cuda,
+                       per_channel=per_channel)
+            run_case(a, b, c, k=512, sm90=True, out_dtype=torch.float32)
+            run_case(a, b, c.to(torch.bfloat16), k=512, sm90=True)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16,
+                                       torch.float16])
+@pytest.mark.parametrize("precision", ["bf16", P.FP8_E4M3])
+def test_sm90_output_types(cuda, out_dtype, precision):
+    a = _dense(81, (200, 384), torch.bfloat16, cuda)
+    b = _b_operand(82, 384, 256, precision, cuda)
+    kw = {"backend": "pallas"} if precision == "bf16" else {}
+    got = run_case(a, b, k=384, sm90=True, out_dtype=out_dtype, **kw)
+    assert got.dtype == out_dtype
+
+
+def test_sm90_batched_gemm_is_one_launch(cuda):
+    a = _dense(83, (3, 100, 200), torch.bfloat16, cuda)
+    b = _dense(84, (3, 200, 96), torch.bfloat16, cuda)
+    run_case(a, b, k=200, batched=True, sm90=True, backend="pallas",
+             out_dtype=torch.float32)
+    for precision in QUANT:
+        qs = [_quant(85 + i, (200, 96), precision, 0, cuda, per_channel=True)
+              for i in range(3)]
+        qb = tq.QuantizedMatrix(torch.stack([q.values for q in qs]),
+                                torch.stack([q.scale for q in qs]),
+                                precision, (200, 96))
+        c = _dense(88, (100, 96), torch.float32, cuda)
+        run_case(a, qb, c, k=200, batched=True, sm90=True,
+                 out_dtype=torch.float32)
+
+
+@pytest.mark.parametrize("precision", QUANT)
+def test_sm90_decodes_every_code_exactly(cuda, precision):
+    """The identity times a payload holding every code (row k holds code
+    k; NF4's 16 in the low plane) reads back each code's value exactly,
+    FP8 subnormals included; FP8's NaN and infinity codes, which
+    quantize_matrix never writes, are left out."""
+    k, n = 256, 16
+    codes = torch.arange(k, dtype=torch.int64)
+    if precision is P.FP8_E4M3:
+        codes[(codes & 0x7F) == 0x7F] = 0
+    elif precision is P.FP8_E5M2:
+        codes[(codes & 0x7C) == 0x7C] = 0
+    elif precision is P.NF4:
+        codes = codes % 16
+    pay = codes.to(torch.uint8).view(precision.storage_dtype)
+    pay = pay[:, None].expand(k, n).contiguous().to(cuda)
+    b = tq.QuantizedMatrix(pay, torch.ones((), device=cuda), precision,
+                           (k, n))
+    eye = torch.eye(k, dtype=torch.bfloat16, device=cuda)
+    before = tg.LAUNCH_COUNTS["gemm_sm90"]
+    got = tg.gemm(eye, b, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert tg.LAUNCH_COUNTS["gemm_sm90"] == before + 1
+    want = tg._gemm_plain(eye, b, out_dtype=torch.float32)
+    assert torch.isfinite(want).all()
+    assert torch.equal(got, want)
+
+
+def test_mma_route_takes_what_sm90_does_not(cuda):
+    """fp32 registers, a quantized A, quantized x quantized, B stored
+    [N, K], and rows TMA cannot describe keep the mma kernel."""
+    a16 = _dense(90, (96, 256), torch.bfloat16, cuda)
+    b8 = _quant(91, (256, 128), P.INT8, 0, cuda)
+    run_case(a16, b8, k=256, sm90=False, register_precision="fp32")
+    qa = _quant(92, (96, 256), P.NF4, 1, cuda)
+    run_case(qa, _dense(93, (256, 128), torch.bfloat16, cuda), k=256,
+             sm90=False, out_dtype=torch.float32)
+    run_case(qa, b8, k=256, sm90=False, out_dtype=torch.float32)
+    bt = _dense(94, (128, 256), torch.bfloat16, cuda)
+    run_case(a16, bt, k=256, sm90=False, transpose_b=True, backend="pallas",
+             out_dtype=torch.float32)
+    odd = _dense(95, (96, 513), torch.bfloat16, cuda)    # 1,026-byte rows
+    run_case(odd, _dense(96, (513, 128), torch.bfloat16, cuda), k=513,
+             sm90=False, backend="pallas", out_dtype=torch.float32)
+    run_case(a16, _quant(97, (256, 136), P.INT8, 0, cuda), k=256,
+             sm90=False, out_dtype=torch.float32)        # 136-byte rows
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,

@@ -198,6 +198,10 @@ def test_constructors_put_tensors_where_the_default_resolves(monkeypatch):
     ("paged_attention.cu", ("MFA_PAGED_BLOCK_KV",)),
     ("flash_decode.cu", ("MFA_DECODE_BLOCK_KV", "MFA_DECODE_MAX_GROUP")),
     ("gemm.cu", ("MFA_GEMM_BLOCK_M", "MFA_GEMM_BLOCK_N", "MFA_GEMM_BLOCK_K")),
+    ("gemm.cu", ("MFA_GEMM90_BLOCK_M", "MFA_GEMM90_BLOCK_N",
+                 "MFA_GEMM90_QUANT_BLOCK_M", "MFA_GEMM90_QUANT_BLOCK_N",
+                 "MFA_GEMM90_BLOCK_N_DECODE", "MFA_GEMM90_BLOCK_K",
+                 "MFA_GEMM90_STAGES")),
 ])
 def test_kernels_and_wrappers_share_the_tiles_header(source, names):
     """Each kernel takes its tiles from csrc/flash_tiles.cuh, the header
