@@ -31,7 +31,8 @@ Phases (any failure exits non-zero and prints no result):
    prefill through the fused forward, then 31 decode steps through
    `flash_decode`.  The two kernels' launch counts are set to 0 just
    before and read just after: `flash_fwd` must run 32 times (once per
-   layer) and `flash_decode` 32 x 31 = 992 times; every new token must
+   layer), every one on the sm90 kernel (`flash_fwd_sm90` 32 too), and
+   `flash_decode` 32 x 31 = 992 times; every new token must
    lie in the vocabulary.  That run is the bare `generate`: its
    seconds, new tokens per second, peak memory and nvidia-smi's clock
    and power samples.  A second run of the same call, with CUDA events
@@ -81,7 +82,8 @@ Phases (any failure exits non-zero and prints no result):
    lr 1e-4, weight decay 1e-4) over `models.llama.loss_fn` (fused
    cross-entropy) with the flash-attention launch counts set to 0 just
    before and read just after: each of the three kernels must run 4
-   times a step (once per layer), every loss must be finite and the
+   times a step (once per layer), the forward every time on the sm90
+   kernel (`flash_fwd_sm90`), every loss must be finite and the
    last below the first.  nvidia-smi samples the card's clock and power
    during the steps, and one more step runs under torch.profiler
    (`train_profile:`: device time by kernel family, busy share);
@@ -104,7 +106,9 @@ Phases (any failure exits non-zero and prints no result):
    not fit otherwise.  Then time each kernel, its plain
    version and, where one PyTorch call computes the same function, that
    call (`scaled_dot_product_attention`; a yardstick that the port
-   never calls);
+   never calls); the forward and SDPA at the training and the prefill
+   shapes as the median and min-max of GEMM_REPEATS profiled loops, with
+   nvidia-smi's clock and power samples around the forward's loops;
 11. softmax_checks: `scaled_softmax` (default scale) and
    `derivative_softmax` (scale 0.5, on P from it and a random dP) on
    scores [1, 32, 8192, 8192] bf16 (Llama-3-8B's heads at the training
@@ -686,10 +690,11 @@ def dense_serve(params, cfg, dev, card) -> dict:
         torch.cuda.synchronize(dev)
         total = time.perf_counter() - t0
         launches = {"flash_fwd": fa.LAUNCH_COUNTS["flash_fwd"],
+                    "flash_fwd_sm90": fa.LAUNCH_COUNTS["flash_fwd_sm90"],
                     "flash_decode": fd.LAUNCH_COUNTS["flash_decode"]}
         clocks = sampler.stop()
     peak = torch.cuda.max_memory_allocated(dev)
-    expected = {"flash_fwd": cfg.n_layers,
+    expected = {"flash_fwd": cfg.n_layers, "flash_fwd_sm90": cfg.n_layers,
                 "flash_decode": cfg.n_layers * (DENSE_NEW - 1)}
     if launches != expected:
         fail(f"dense serve launched {launches}, expected {expected}")
@@ -992,7 +997,7 @@ def profile_train_step(step_fn, params, state, tokens, dev) -> None:
     """One more train step under torch.profiler: device time by kernel
     family and the card's busy share of the step's wall time."""
     profile_step("train_profile", lambda: step_fn(params, state, tokens),
-                 {"flash_fwd": "flash_fwd_kernel",
+                 {"flash_fwd": "flash_fwd90_kernel",
                   "flash_bwd_dq": "flash_bwd_dq_kernel",
                   "flash_bwd_dkv": "flash_bwd_dkv_kernel",
                   "optimizer": "multi_tensor"}, dev)
@@ -1232,9 +1237,11 @@ def flash_kernel_checks(dev, launches) -> list[dict]:
         check(f"flash_fwd.o_prefill_seq{s}", p_o[one], po, fault)
         lse_errs.append(max_abs_err(p_lse[one], plse))
         del po, plse, fault
-    prefill_ms, _ = timed(lambda: fa.flash_attention_forward(
-        pq, pk, pv, causal=True), 5)
-    prefill_lib_ms, _ = timed(lambda: F.scaled_dot_product_attention(
+    with CardSampler() as sampler:
+        prefill = timed_spread(lambda: fa.flash_attention_forward(
+            pq, pk, pv, causal=True), 5)
+        prefill_card = sampler.stop()
+    prefill_lib = timed_spread(lambda: F.scaled_dot_product_attention(
         pq, pk, pv, is_causal=True, enable_gqa=True), 5)
     prefill_bound = bound(
         4 * d * DENSE_BATCH * Q_HEADS * visible_pairs(m, m, True, None),
@@ -1291,12 +1298,14 @@ def flash_kernel_checks(dev, launches) -> list[dict]:
     if problems:
         fail("; ".join(problems))
 
-    ms, wall_ms = timed(lambda: fa.flash_attention_forward(
-        q, k, v, causal=True), 20)
+    with CardSampler() as sampler:
+        fwd = timed_spread(lambda: fa.flash_attention_forward(
+            q, k, v, causal=True), 20)
+        fwd_card = sampler.stop()
     plain_ms, _ = timed(lambda: fa._forward_plain(
         q, k, v, causal=True, window_size=None, scale=scale,
         out_dtype=torch.bfloat16), 3)
-    lib_ms, _ = timed(lambda: F.scaled_dot_product_attention(
+    lib = timed_spread(lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=True, enable_gqa=True), 20)
     pairs = visible_pairs(n, n, True, None) * Q_HEADS
     bound_ms, bound_by = bound(4 * d * pairs, nbytes(q, k, v, o, lse))
@@ -1308,19 +1317,25 @@ def flash_kernel_checks(dev, launches) -> list[dict]:
         "replaces": jax_src + "flash_attention.py:223 (and :552, the "
                     "visible-blocks-only variant)",
         "launches": launches["flash_fwd"],
+        "launches_sm90": launches["flash_fwd_sm90"],
         "max_abs_err": max(readings[key]["max_abs_err"] for key in readings
                            if key.startswith("flash_fwd.")),
         **{key[len("flash_fwd."):]: r for key, r in readings.items()
            if key.startswith("flash_fwd.")},
         "lse_max_abs_err": max(lse_errs),
         "limits": dict(limits, lse_abs=MIXED_TOL.lse),
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": lib_ms, "wall_ms": wall_ms,
+        "ms": fwd["ms"], "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": lib["ms"],
+        "wall_ms": fwd["wall_ms"], "spread": fwd, "library_spread": lib,
         "library": "F.scaled_dot_product_attention(is_causal=True, "
                    "enable_gqa=True)",
-        "ms_prefill_shape": prefill_ms,
+        "card_during_loops": fwd_card,
+        "ms_prefill_shape": prefill["ms"],
         "bound_ms_prefill_shape": prefill_bound[0],
-        "library_ms_prefill_shape": prefill_lib_ms,
+        "library_ms_prefill_shape": prefill_lib["ms"],
+        "spread_prefill_shape": prefill,
+        "library_spread_prefill_shape": prefill_lib,
+        "card_during_loops_prefill_shape": prefill_card,
         "shape": shape + " (timed); q_len 1000 vs kv_len 1536, "
                  f"window 512; the dense prefill's q [{DENSE_BATCH}, 32, "
                  f"{DENSE_PROMPT}, 128] causal (checked on sequences 0 "
@@ -1784,6 +1799,9 @@ def main() -> int:
             entry["launches_by_path"] = {
                 "train": flash_launches["flash_fwd"],
                 "dense_serve": dense_launches["flash_fwd"]}
+            entry["launches_sm90_by_path"] = {
+                "train": flash_launches["flash_fwd_sm90"],
+                "dense_serve": dense_launches["flash_fwd_sm90"]}
     kernels.append(decode_kernel)
     kernels.append(gemm_kernel)
     kernels += softmax_kernels

@@ -971,56 +971,6 @@ int finish(const Params& p, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
-// The driver's cuTensorMapEncodeTiled, reached through the runtime (no
-// link against libcuda).
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
-#endif
-    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(f)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// A TMA map over a [batch][rows][inner] payload of `esize`-byte elements
-// (strides in elements; the inner stride is 1), read in boxes of
-// box_inner x box_rows; elements outside read as zero bytes.
-bool tensor_map(CUtensorMap* map, const void* base, CUtensorMapDataType type,
-                int esize, long long inner, long long rows, long long batch,
-                long long row_stride, long long batch_stride,
-                uint32_t box_inner, uint32_t box_rows,
-                CUtensorMapSwizzle swizzle) {
-  const EncodeTiled fn = encode_tiled();
-  if (!fn) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)inner, (cuuint64_t)rows,
-                              (cuuint64_t)batch};
-  const cuuint64_t strides[2] = {
-      (cuuint64_t)(row_stride * esize),
-      (cuuint64_t)((batch > 1 ? batch_stride : rows * row_stride) * esize)};
-  const cuuint32_t box[3] = {box_inner, box_rows, 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  return fn(map, type, 3, const_cast<void*>(base), dims, strides, box, unit,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int FB, int BM, int BN>
 void launch90(dim3 grid, cudaStream_t s, const CUtensorMap& map_a,
               const CUtensorMap& map_b, const Params& p) {
@@ -1135,16 +1085,16 @@ int mfa_gemm_sm90(const void* a, const void* b, const void* c,
   CUtensorMap map_a, map_b;
   const int fb = class_of(prec_b);
   const bool ok =
-      tensor_map(&map_a, a, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, k, m, batch,
-                 strides[1], strides[0], k9BK, p.box_m,
-                 CU_TENSOR_MAP_SWIZZLE_128B) &&
+      sm90::tensor_map(&map_a, a, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, k, m,
+                       batch, strides[1], strides[0], k9BK, p.box_m,
+                       CU_TENSOR_MAP_SWIZZLE_128B) &&
       (fb == kB16
-           ? tensor_map(&map_b, b, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, n, k,
-                        batch, strides[4], strides[3], 64, k9BK,
-                        CU_TENSOR_MAP_SWIZZLE_128B)
-           : tensor_map(&map_b, b, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, n,
-                        b_rows, batch, strides[4], strides[3], block_n, k9BK,
-                        CU_TENSOR_MAP_SWIZZLE_NONE));
+           ? sm90::tensor_map(&map_b, b, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                              n, k, batch, strides[4], strides[3], 64, k9BK,
+                              CU_TENSOR_MAP_SWIZZLE_128B)
+           : sm90::tensor_map(&map_b, b, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, n,
+                              b_rows, batch, strides[4], strides[3], block_n,
+                              k9BK, CU_TENSOR_MAP_SWIZZLE_NONE));
   if (!ok) return kErrTensorMap;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long tiles =

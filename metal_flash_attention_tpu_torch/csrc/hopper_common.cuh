@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks in inline PTX, shared by the port's
-// TMA- and wgmma-fed kernels: mbarriers, TMA tensor loads, wgmma
-// shared-memory descriptors for the 128-byte swizzle, the wgmma
-// fence / commit / wait and the m64n128k16 and m64n256k16 products,
-// named barriers and setmaxnreg.  Raw PTX rather than CuTe keeps the
-// build short.
+// TMA- and wgmma-fed kernels: mbarriers, TMA tensor loads and stores,
+// wgmma shared-memory descriptors for the 128-byte swizzle, the wgmma
+// fence / commit / wait and the products (SS m64n64k16, m64n128k16 and
+// m64n256k16, RS m64n64k16 and m64n128k16, in bf16 and fp16), named barriers and
+// setmaxnreg; and on the host, the TMA map encoder.  Raw PTX rather than
+// CuTe keeps the build short.
 //
 // Conventions:
 // - A shared-memory tile that TMA writes with CU_TENSOR_MAP_SWIZZLE_128B,
@@ -24,6 +25,7 @@
 #pragma once
 
 #include <cuda.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace mfa {
@@ -120,6 +122,28 @@ __device__ __forceinline__ void prefetch_tensor_map(const CUtensorMap* map) {
                : "memory");
 }
 
+// Copy shared memory at `src` into the box at (c0, c1, c2) of the tensor
+// map; elements outside the tensor are not written.  One thread issues
+// it, after the writes to `src` are fenced (fence_proxy_async) and
+// barrier-synchronised; tma_store_wait before `src` is reused or the
+// block exits.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, "
+      "%4}], [%1];" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// Commit the thread's TMA stores and wait until they have read shared
+// memory.
+__device__ __forceinline__ void tma_store_wait() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+
 // Generic-proxy writes to shared memory (threads' stores) made visible to
 // the async proxy (wgmma, TMA) that reads them after a barrier.
 __device__ __forceinline__ void fence_proxy_async() {
@@ -171,107 +195,133 @@ __device__ __forceinline__ void fence_operands(float (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// D[64 x 128] (+)= A[64 x 16] B[16 x 128], bf16 operands from shared
-// memory, float32 accumulators: a warpgroup's 128 threads each hold 64,
-// thread t of warp w: d[4j + e] is row 16w + t/4 + 8 (e / 2), column
-// 8j + 2 (t % 4) + e % 2.  A is K-major; B is MN-major when TransB (its
-// N axis contiguous), K-major otherwise.  scale_d 0 overwrites D.
+// Operand lists of the wgmma statements below: the accumulators d[0..R)
+// as "+f" operands, and their register names in the instruction.
+#define MFA_ACC4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define MFA_ACC16(i) MFA_ACC4(i), MFA_ACC4(i + 4), MFA_ACC4(i + 8), MFA_ACC4(i + 12)
+#define MFA_ACC32(i) MFA_ACC16(i), MFA_ACC16(i + 16)
+#define MFA_ACC64(i) MFA_ACC32(i), MFA_ACC32(i + 32)
+#define MFA_ACC128 MFA_ACC64(0), MFA_ACC64(64)
+#define MFA_REGS32 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, " \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, " \
+  "%28, %29, %30, %31}"
+#define MFA_REGS64 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, " \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, " \
+  "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, " \
+  "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, " \
+  "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+#define MFA_REGS128 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, " \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, " \
+  "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, " \
+  "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, " \
+  "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, " \
+  "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, " \
+  "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, " \
+  "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, " \
+  "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, " \
+  "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, " \
+  "%127}"
+
+// SS: A and B from shared memory.  N: "64", "128" or "256"; TY: "bf16" or
+// "f16"; REGS, ACC: the accumulators; IA..IT: the numbers of the
+// operands after them (IA the A registers' list in the RS form).
+#define MFA_WGMMA_SS(N, TY, REGS, ACC, IA, IB, IS, IT)                      \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" IS ", 0;\n"            \
+               "wgmma.mma_async.sync.aligned.m64n" N "k16.f32." TY "." TY  \
+               " " REGS ", %" IA ", %" IB ", p, 1, 1, 0, %" IT ";\n}\n"    \
+               : ACC                                                        \
+               : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TransB))
+
+// RS: A from four registers a thread, B from shared memory.
+#define MFA_WGMMA_RS(N, TY, REGS, ACC, IA, IB, IS, IT)                      \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" IS ", 0;\n"            \
+               "wgmma.mma_async.sync.aligned.m64n" N "k16.f32." TY "." TY  \
+               " " REGS ", " IA ", %" IB ", p, 1, 1, %" IT ";\n}\n"        \
+               : ACC                                                        \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),   \
+                 "r"(scale_d), "n"(TransB))
+
+// D[64 x N] (+)= A[64 x 16] B[16 x N], N = 64, 128 or 256, 16-bit operands
+// from shared memory (bf16, or fp16 when Fp16), float32 accumulators: a
+// warpgroup's 128 threads each hold N / 2, thread t of warp w: d[4j + e]
+// is row 16w + t/4 + 8 (e / 2), column 8j + 2 (t % 4) + e % 2.  A is
+// K-major; B is MN-major when TransB (its N axis contiguous), K-major
+// otherwise.  scale_d 0 overwrites D.
+template <int N, int TransB, bool Fp16 = false>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a,
+                                         uint64_t desc_b, int scale_d = 1) {
+  static_assert(N == 64 || N == 128 || N == 256, "m64n{64,128,256}k16");
+  if constexpr (N == 64 && Fp16)
+    MFA_WGMMA_SS("64", "f16", MFA_REGS32, MFA_ACC32(0), "32", "33", "34",
+                 "35");
+  else if constexpr (N == 64)
+    MFA_WGMMA_SS("64", "bf16", MFA_REGS32, MFA_ACC32(0), "32", "33", "34",
+                 "35");
+  else if constexpr (N == 128 && Fp16)
+    MFA_WGMMA_SS("128", "f16", MFA_REGS64, MFA_ACC64(0), "64", "65", "66",
+                 "67");
+  else if constexpr (N == 128)
+    MFA_WGMMA_SS("128", "bf16", MFA_REGS64, MFA_ACC64(0), "64", "65", "66",
+                 "67");
+  else if constexpr (Fp16)
+    MFA_WGMMA_SS("256", "f16", MFA_REGS128, MFA_ACC128, "128", "129", "130",
+                 "131");
+  else
+    MFA_WGMMA_SS("256", "bf16", MFA_REGS128, MFA_ACC128, "128", "129", "130",
+                 "131");
+}
+
+// D[64 x N] (+)= A[64 x 16] B[16 x N], N = 64 or 128, A from registers:
+// thread t of warp w holds a[0] = A[16w + t/4][2 (t % 4) + {0, 1}], a[1]
+// the same columns 8 rows down, a[2] and a[3] the same 8 columns on (two
+// 16-bit values a register, the lower column in the low half).  That is
+// the accumulator layout of a k16 column slice packed in pairs, so a
+// product's result feeds the next product without shared memory.  B and
+// the rest as wgmma_ss.
+template <int N, int TransB, bool Fp16 = false>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc_b, int scale_d = 1) {
+  static_assert(N == 64 || N == 128, "m64n64k16 or m64n128k16");
+  if constexpr (N == 64 && Fp16)
+    MFA_WGMMA_RS("64", "f16", MFA_REGS32, MFA_ACC32(0),
+                 "{%32, %33, %34, %35}", "36", "37", "38");
+  else if constexpr (N == 64)
+    MFA_WGMMA_RS("64", "bf16", MFA_REGS32, MFA_ACC32(0),
+                 "{%32, %33, %34, %35}", "36", "37", "38");
+  else if constexpr (Fp16)
+    MFA_WGMMA_RS("128", "f16", MFA_REGS64, MFA_ACC64(0),
+                 "{%64, %65, %66, %67}", "68", "69", "70");
+  else
+    MFA_WGMMA_RS("128", "bf16", MFA_REGS64, MFA_ACC64(0),
+                 "{%64, %65, %66, %67}", "68", "69", "70");
+}
+
+// The bf16 SS products under their earlier names.
 template <int TransB>
 __device__ __forceinline__ void wgmma_m64n128k16_bf16(float (&d)[64],
                                                       uint64_t desc_a,
                                                       uint64_t desc_b,
                                                       int scale_d = 1) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
-      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
-      "%57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, %67;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TransB));
+  wgmma_ss<128, TransB>(d, desc_a, desc_b, scale_d);
 }
 
-// As wgmma_m64n128k16_bf16 for D[64 x 256]: 128 accumulators a thread,
-// d[4j + e] at row 16w + t/4 + 8 (e / 2), column 8j + 2 (t % 4) + e % 2.
 template <int TransB>
 __device__ __forceinline__ void wgmma_m64n256k16_bf16(float (&d)[128],
                                                       uint64_t desc_a,
                                                       uint64_t desc_b,
                                                       int scale_d = 1) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
-      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
-      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
-      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
-      "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "
-      "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
-      "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "
-      "%127"
-      "}, %128, %129, p, 1, 1, 0, %131;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
-        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
-        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
-        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
-        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
-        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
-        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
-        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
-        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
-        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
-        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
-        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TransB));
+  wgmma_ss<256, TransB>(d, desc_a, desc_b, scale_d);
 }
 
 // D[64 x N] (+)= A B for N = 128 or 256 (the two instructions above).
 template <int N, int TransB>
 __device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2], uint64_t desc_a,
                                            uint64_t desc_b) {
-  static_assert(N == 128 || N == 256, "m64n128k16 or m64n256k16");
-  if constexpr (N == 128)
-    wgmma_m64n128k16_bf16<TransB>(d, desc_a, desc_b);
-  else
-    wgmma_m64n256k16_bf16<TransB>(d, desc_a, desc_b);
+  wgmma_ss<N, TransB>(d, desc_a, desc_b);
 }
 
 // ---- warp specialisation ---------------------------------------------
@@ -280,6 +330,13 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2], uint64_t desc_a,
 // multiple of 32.
 __device__ __forceinline__ void named_barrier_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+
+// Arrive at barrier `id` without waiting: with a named_barrier_sync of
+// the same id and count elsewhere, a signal from one group of warps to
+// another.
+__device__ __forceinline__ void named_barrier_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(count) : "memory");
 }
 
 // A warpgroup's per-thread register budget, lowered (a producer's) or
@@ -293,6 +350,58 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 template <int R>
 __device__ __forceinline__ void setmaxnreg_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(R));
+}
+
+// ---- TMA maps (host) ------------------------------------------------
+
+// cuTensorMapEncodeTiled, a libcuda entry point reached through the
+// runtime (no link against libcuda).
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
+#endif
+    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(f)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A TMA map over a [batch][rows][inner] payload of `esize`-byte elements
+// (strides in elements; the inner stride is 1), read in boxes of
+// box_inner x box_rows; elements outside read as zero bytes.
+inline bool tensor_map(CUtensorMap* map, const void* base,
+                       CUtensorMapDataType type, int esize, long long inner,
+                       long long rows, long long batch, long long row_stride,
+                       long long batch_stride, uint32_t box_inner,
+                       uint32_t box_rows, CUtensorMapSwizzle swizzle) {
+  const EncodeTiled fn = encode_tiled();
+  if (!fn) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)inner, (cuuint64_t)rows,
+                              (cuuint64_t)batch};
+  const cuuint64_t strides[2] = {
+      (cuuint64_t)(row_stride * esize),
+      (cuuint64_t)((batch > 1 ? batch_stride : rows * row_stride) * esize)};
+  const cuuint32_t box[3] = {box_inner, box_rows, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return fn(map, type, 3, const_cast<void*>(base), dims, strides, box, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace sm90

@@ -39,7 +39,7 @@ class AttentionKernelType(enum.Enum):
     BACKWARD_KEY_VALUE = "backward_key_value"  # computes dK, dV; needs L, D
 
 
-_TILE_PREFIX = {AttentionKernelType.FORWARD: "FWD",
+_TILE_PREFIX = {AttentionKernelType.FORWARD: "FWD90",
                 AttentionKernelType.BACKWARD_QUERY: "DQ",
                 AttentionKernelType.BACKWARD_KEY_VALUE: "DKV"}
 

@@ -18,10 +18,13 @@ returns (o, lse) without a graph.
 
 Dispatch: a CPU tensor takes the plain PyTorch version
 (`_forward_plain`: materialised float32 scores); a CUDA tensor takes the
-hand-written kernel in `csrc/flash_attention.cu`, or raises.  The kernel
-takes bf16 and fp16 (computed natively on fp16 tensor cores, where the
-JAX package computes fp16 in bf16) at head dims 64 and 128.  Each launch
-adds one to ``LAUNCH_COUNTS["flash_fwd"]``.
+hand-written kernel in `csrc/flash_attention.cu` (TMA-fed, wgmma, for
+sm_90a), or raises.  The kernel takes bf16 and fp16 (computed natively
+on fp16 tensor cores, where the JAX package computes fp16 in bf16) at
+head dims 64 and 128, with or without causal masking and a window, any
+q_len and kv_len, and a bf16/fp16 or float32 O.  Each launch adds one to
+``LAUNCH_COUNTS["flash_fwd"]`` (the op) and to
+``LAUNCH_COUNTS["flash_fwd_sm90"]`` (the kernel that ran).
 
 Not ported yet, and refused on every device: mask / bias / mask2,
 segment ids, logit_softcap, low_precision_intermediates and quantized
@@ -45,7 +48,7 @@ KERNEL_HEAD_DIMS = (64, 128)
 KERNEL_DTYPES = (torch.bfloat16, torch.float16)
 
 # One count per kernel, bumped only where its wrapper launches it.
-LAUNCH_COUNTS = {"flash_fwd": 0}
+LAUNCH_COUNTS = {"flash_fwd": 0, "flash_fwd_sm90": 0}
 
 OPTIONS_ITEM = "flash-attention options"
 KERNEL_ITEM = "flash-kernel coverage"
@@ -239,4 +242,5 @@ def _forward_cuda(q, k, v, *, causal, window_size, scale, out_dtype):
             int(out_dtype == torch.float32), stream)
     raise_on_launch_error(lib, rc, "flash_fwd")
     LAUNCH_COUNTS["flash_fwd"] += 1
+    LAUNCH_COUNTS["flash_fwd_sm90"] += 1
     return o, lse

@@ -187,7 +187,7 @@ def test_descriptor_resolves_the_kernel_tiles():
         input_precision=OperandPrecision.BF16, causal=True)
     with open(TILES_HEADER) as f:
         header = f.read()
-    for kind, prefix in ((AttentionKernelType.FORWARD, "FWD"),
+    for kind, prefix in ((AttentionKernelType.FORWARD, "FWD90"),
                          (AttentionKernelType.BACKWARD_QUERY, "DQ"),
                          (AttentionKernelType.BACKWARD_KEY_VALUE, "DKV")):
         cfg = desc.kernel_config(kind)

@@ -59,23 +59,57 @@ CASES = [
     (1, 32, 8, 1000, 1536, 128, True, 512),    # the smoke's window shape
 ]
 
+# The forward kernel's tile edges (128 group-major rows a block, two
+# warpgroups of 64; 128 keys a tile).
+EDGE_CASES = [
+    (2, 8, 2, 93, 93, 128, True, None),     # row tiles cross q heads
+    (1, 8, 2, 93, 200, 64, False, None),    # the same, not causal
+    (1, 4, 2, 256, 300, 128, False, None),  # kv_len not a tile multiple
+    (1, 4, 2, 64, 40, 128, False, None),    # kv_len under one tile
+    (1, 4, 4, 40, 40, 64, True, None),      # ... causal
+    (1, 2, 2, 50, 180, 128, True, None),    # second warpgroup: no rows
+    (1, 3, 1, 64, 64, 64, False, None),     # ... in the second of 2 tiles
+    (1, 4, 2, 512, 512, 128, True, 200),    # window edge inside a tile
+    (1, 4, 4, 300, 700, 64, False, 130),    # ... without causal
+    (1, 4, 2, 2048, 2048, 128, True, None),  # masked and unmasked tiles
+]
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("b,qh,kvh,n,m,d,causal,window", CASES)
-def test_forward_kernel_matches_plain(cuda, dtype, b, qh, kvh, n, m, d,
-                                      causal, window):
-    q, k, v, _ = _qkv(0, b, qh, kvh, n, m, d, dtype, cuda)
-    before = fa.LAUNCH_COUNTS["flash_fwd"]
+
+def _forward_checked(q, k, v, d, causal, window, out_dtype=None):
+    """One forward through the kernel, held against the plain version;
+    the launch counted on the op and on the sm90 kernel."""
+    before = dict(fa.LAUNCH_COUNTS)
     o, lse = fa.flash_attention_forward(q, k, v, causal=causal,
-                                        window_size=window)
+                                        window_size=window,
+                                        out_dtype=out_dtype)
     torch.cuda.synchronize()
-    assert fa.LAUNCH_COUNTS["flash_fwd"] == before + 1
+    assert fa.LAUNCH_COUNTS["flash_fwd"] == before["flash_fwd"] + 1
+    assert fa.LAUNCH_COUNTS["flash_fwd_sm90"] == \
+        before["flash_fwd_sm90"] + 1
     po, plse = fa._forward_plain(q, k, v, causal=causal, window_size=window,
                                  scale=d ** -0.5, out_dtype=torch.float32)
-    assert o.dtype == dtype and lse.dtype == torch.float32
+    assert o.dtype == (out_dtype or q.dtype) and lse.dtype == torch.float32
     assert max_abs_err(o, po) <= MIXED_TOL.o
     assert max_abs_err(lse, plse) <= MIXED_TOL.lse
     assert torch.equal(torch.isinf(lse), torch.isinf(plse))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("b,qh,kvh,n,m,d,causal,window",
+                         CASES + EDGE_CASES)
+def test_forward_kernel_matches_plain(cuda, dtype, b, qh, kvh, n, m, d,
+                                      causal, window):
+    q, k, v, _ = _qkv(0, b, qh, kvh, n, m, d, dtype, cuda)
+    _forward_checked(q, k, v, d, causal, window)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [64, 128])
+def test_forward_kernel_float32_out(cuda, dtype, d):
+    """out_dtype=float32: O stored from the fragments, rows past the head
+    (q_len 93, group 4: the last tile's second warpgroup) not written."""
+    q, k, v, _ = _qkv(6, 1, 8, 2, 93, 150, d, dtype, cuda)
+    _forward_checked(q, k, v, d, True, None, out_dtype=torch.float32)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
@@ -189,10 +223,10 @@ def test_remat_runs_the_forward_kernel_twice(cuda):
         torch.cuda.synchronize()
         counts.append({**fa.LAUNCH_COUNTS, **fb.LAUNCH_COUNTS})
     n = cfg.n_layers
-    assert counts[0] == {"flash_fwd": n, "flash_bwd_dq": n,
-                         "flash_bwd_dkv": n}
-    assert counts[1] == {"flash_fwd": 2 * n, "flash_bwd_dq": n,
-                         "flash_bwd_dkv": n}
+    assert counts[0] == {"flash_fwd": n, "flash_fwd_sm90": n,
+                         "flash_bwd_dq": n, "flash_bwd_dkv": n}
+    assert counts[1] == {"flash_fwd": 2 * n, "flash_fwd_sm90": 2 * n,
+                         "flash_bwd_dq": n, "flash_bwd_dkv": n}
     (l0, g0), (l1, g1) = results
     assert float(l0) == float(l1)
     for a, b in zip(g0, g1):

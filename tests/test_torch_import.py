@@ -193,7 +193,8 @@ def test_constructors_put_tensors_where_the_default_resolves(monkeypatch):
 
 
 @pytest.mark.parametrize("source,names", [
-    ("flash_attention.cu", ("MFA_FWD_BLOCK_Q", "MFA_FWD_BLOCK_KV")),
+    ("flash_attention.cu", ("MFA_FWD90_BLOCK_Q", "MFA_FWD90_BLOCK_KV",
+                            "MFA_FWD90_STAGES")),
     ("flash_attention_bwd.cu", ("MFA_DQ_BLOCK_KV", "MFA_DKV_BLOCK_Q")),
     ("paged_attention.cu", ("MFA_PAGED_BLOCK_KV",)),
     ("flash_decode.cu", ("MFA_DECODE_BLOCK_KV", "MFA_DECODE_MAX_GROUP")),
