@@ -82,8 +82,9 @@ Phases (any failure exits non-zero and prints no result):
    lr 1e-4, weight decay 1e-4) over `models.llama.loss_fn` (fused
    cross-entropy) with the flash-attention launch counts set to 0 just
    before and read just after: each of the three kernels must run 4
-   times a step (once per layer), the forward every time on the sm90
-   kernel (`flash_fwd_sm90`), every loss must be finite and the
+   times a step (once per layer), every one on the sm90 kernels
+   (`flash_fwd_sm90`, `flash_bwd_dq_sm90`, `flash_bwd_dkv_sm90` 4 times
+   a step too), every loss must be finite and the
    last below the first.  nvidia-smi samples the card's clock and power
    during the steps, and one more step runs under torch.profiler
    (`train_profile:`: device time by kernel family, busy share);
@@ -107,8 +108,9 @@ Phases (any failure exits non-zero and prints no result):
    version and, where one PyTorch call computes the same function, that
    call (`scaled_dot_product_attention`; a yardstick that the port
    never calls); the forward and SDPA at the training and the prefill
-   shapes as the median and min-max of GEMM_REPEATS profiled loops, with
-   nvidia-smi's clock and power samples around the forward's loops;
+   shapes, the backward pair and SDPA's backward at the training shape,
+   as the median and min-max of GEMM_REPEATS profiled loops, with
+   nvidia-smi's clock and power samples around the kernels' loops;
 11. softmax_checks: `scaled_softmax` (default scale) and
    `derivative_softmax` (scale 0.5, on P from it and a random dP) on
    scores [1, 32, 8192, 8192] bf16 (Llama-3-8B's heads at the training
@@ -224,8 +226,10 @@ MLP_WEIGHTS = ("w_gate", "w_up", "w_down")
 GEMM_TILE = (64, 128)
 GEMM_K_STEP = 64
 GEMM_REPEATS = 5
-# Idle time between two of them on the card, which tells them apart.
+# Idle time between two of them on the card, and the kernel that marks
+# each one's end (`torch.cuda._sleep`'s, a few hundred nanoseconds).
 LOOP_GAP_S = 0.01
+LOOP_MARK, LOOP_MARK_CYCLES = "spin_kernel", 1000
 DENSE_GEMM = 4096
 SOFTMAX_SCALE_DERIVATIVE = 0.5
 
@@ -278,8 +282,10 @@ def timed_spread(fn, iters: int, repeats: int = GEMM_REPEATS) -> dict:
     """`timed` over `repeats` loops of `iters` calls in one profiler
     session (many sessions in one process lose the card's events), the
     loops kept apart on the card by LOOP_GAP_S of idle time and told
-    apart by it: the median device ms a call and its min and max over
-    the loops, and the wall ms a call over all of them."""
+    apart by a marker kernel launched after each (a gap in time also
+    opens where the host stalls, and the profiler may drop a kernel's
+    event): the median device ms a call and its min and max over the
+    loops, and the wall ms a call over all of them."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -290,19 +296,19 @@ def timed_spread(fn, iters: int, repeats: int = GEMM_REPEATS) -> dict:
         for _ in range(repeats):
             for _ in range(iters):
                 fn()
+            torch.cuda._sleep(LOOP_MARK_CYCLES)
             torch.cuda.synchronize()
             time.sleep(LOOP_GAP_S)
-    kernels = sorted(device_kernels(prof), key=lambda e: e.time_range.start)
-    if not kernels:
-        fail("the profiler saw no device time")
-    loops = [[kernels[0]]]
-    for prev, e in zip(kernels, kernels[1:]):
-        if e.time_range.start - prev.time_range.end > LOOP_GAP_S * 5e5:
-            loops.append([])
-        loops[-1].append(e)
-    if len(loops) != repeats:
-        fail(f"the profiler's kernels fall into {len(loops)} loops, "
-             f"not {repeats}")
+    loops, loop = [], []
+    for e in sorted(device_kernels(prof), key=lambda e: e.time_range.start):
+        if LOOP_MARK in e.name:
+            loops.append(loop)
+            loop = []
+        else:
+            loop.append(e)
+    if len(loops) != repeats or loop or not all(loops):
+        fail(f"the profiler's kernels fall into {len(loops)} marked loops "
+             f"(some empty, or kernels after the last), not {repeats}")
     device = [sum(e.device_time_total for e in loop) / 1e3 / iters
               for loop in loops]
     start = torch.cuda.Event(enable_timing=True)
@@ -998,8 +1004,8 @@ def profile_train_step(step_fn, params, state, tokens, dev) -> None:
     family and the card's busy share of the step's wall time."""
     profile_step("train_profile", lambda: step_fn(params, state, tokens),
                  {"flash_fwd": "flash_fwd90_kernel",
-                  "flash_bwd_dq": "flash_bwd_dq_kernel",
-                  "flash_bwd_dkv": "flash_bwd_dkv_kernel",
+                  "flash_bwd_dq": "flash_bwd_dq90_kernel",
+                  "flash_bwd_dkv": "flash_bwd_dkv90_kernel",
                   "optimizer": "multi_tensor"}, dev)
 
 
@@ -1344,16 +1350,18 @@ def flash_kernel_checks(dev, launches) -> list[dict]:
     lse_c = lse.contiguous()
     d_term = (do.float() * o.float()).sum(dim=-1)
     kw = dict(causal=True, window_size=None, scale=scale)
-    dq_ms, dq_wall = timed(lambda: fb._dq_cuda(q, k, v, do, lse_c, d_term,
-                                               **kw), 10)
-    dkv_ms, dkv_wall = timed(lambda: fb._dkv_cuda(q, k, v, do, lse_c,
-                                                  d_term, **kw), 10)
+    with CardSampler() as sampler:
+        dq_t = timed_spread(lambda: fb._dq_cuda(
+            q, k, v, do, lse_c, d_term, **kw), 10)
+        dkv_t = timed_spread(lambda: fb._dkv_cuda(
+            q, k, v, do, lse_c, d_term, **kw), 10)
+        bwd_card = sampler.stop()
     plain_bwd_ms, _ = timed(lambda: by_kv_head(
         lambda *a: fb._backward_plain(*a, **kw), q, k, v, do), 2)
     leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
     sdpa_o = F.scaled_dot_product_attention(*leaves, is_causal=True,
                                             enable_gqa=True)
-    lib_bwd_ms, _ = timed(lambda: torch.autograd.grad(
+    lib_bwd = timed_spread(lambda: torch.autograd.grad(
         sdpa_o, leaves, do, retain_graph=True), 10)
 
     def sdpa_fwd_bwd():
@@ -1363,31 +1371,40 @@ def flash_kernel_checks(dev, launches) -> list[dict]:
     lib_fwd_bwd_ms, _ = timed(sdpa_fwd_bwd, 10)
 
     io = nbytes(q, k, v, do, lse_c, d_term)
+    pair_ms = dq_t["ms"] + dkv_t["ms"]
     common = {"route": "cuda", "source": src + "flash_attention_bwd.cu",
               "limits": limits, "plain_ms": plain_bwd_ms,
               "plain_computes": "dq, dk and dv together, one kv head at "
                                 "a time",
-              "library_ms": lib_bwd_ms,
+              "library_ms": lib_bwd["ms"], "library_spread": lib_bwd,
               "library": "backward of F.scaled_dot_product_attention("
                          "is_causal=True, enable_gqa=True): dq, dk, dv",
-              "library_fwd_bwd_ms": lib_fwd_bwd_ms, "shape": shape}
+              "library_fwd_bwd_ms": lib_fwd_bwd_ms,
+              "pair_ms": pair_ms, "pair_over_library": pair_ms
+              / lib_bwd["ms"],
+              "card_during_loops": bwd_card, "shape": shape}
     bound_ms, bound_by = bound(2 * d * 3 * pairs, io + nbytes(dq))
     results.append(dict(
         common, name="flash_bwd_dq",
         replaces=jax_src + "flash_attention_bwd.py:73",
         launches=launches["flash_bwd_dq"],
+        launches_sm90=launches["flash_bwd_dq_sm90"],
         max_abs_err=readings["flash_bwd_dq.dq"]["max_abs_err"],
-        dq=readings["flash_bwd_dq.dq"], ms=dq_ms, wall_ms=dq_wall,
-        bound_ms=bound_ms, bound_by=bound_by))
+        dq=readings["flash_bwd_dq.dq"], ms=dq_t["ms"],
+        wall_ms=dq_t["wall_ms"], spread=dq_t, bound_ms=bound_ms,
+        bound_by=bound_by, share_of_bound=bound_ms / dq_t["ms"]))
     bound_ms, bound_by = bound(2 * d * 4 * pairs, io + nbytes(dk, dv))
     results.append(dict(
         common, name="flash_bwd_dkv",
         replaces=jax_src + "flash_attention_bwd.py:226",
         launches=launches["flash_bwd_dkv"],
+        launches_sm90=launches["flash_bwd_dkv_sm90"],
         max_abs_err=max(readings["flash_bwd_dkv.dk"]["max_abs_err"],
                         readings["flash_bwd_dkv.dv"]["max_abs_err"]),
         dk=readings["flash_bwd_dkv.dk"], dv=readings["flash_bwd_dkv.dv"],
-        ms=dkv_ms, wall_ms=dkv_wall, bound_ms=bound_ms, bound_by=bound_by))
+        ms=dkv_t["ms"], wall_ms=dkv_t["wall_ms"], spread=dkv_t,
+        bound_ms=bound_ms, bound_by=bound_by,
+        share_of_bound=bound_ms / dkv_t["ms"]))
     return results
 
 

@@ -1,6 +1,6 @@
 // Helpers shared by the port's attention kernels (sm_90a): the tensor-core
-// tile product, fragment packing, quad reductions, the visibility rule and
-// the lse merge of split-KV partials.
+// tile product, fragment packing, exp2, quad reductions and the lse merge
+// of split-KV partials.
 //
 // Fragment layout of mma.sync m16n8k16 (row.col), for lane
 // (g = lane / 4, t4 = lane % 4):
@@ -69,6 +69,28 @@ __device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// 2^x on the special-function unit (flushes subnormals; 2^-inf = 0).
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Accumulator values of a wgmma (x: a thread's N / 2 of a 64 x N tile)
+// rounded to T and packed as the A operand of an RS wgmma that contracts
+// over those N columns: slice kk holds columns 16 kk .. 16 kk + 15, a[0]
+// the thread's first row, a[1] the row 8 down, a[2] and a[3] their next 8
+// columns.
+template <typename T, int N>
+__device__ __forceinline__ void pack_rs(uint32_t (&a)[N / 16][4],
+                                        const float (&x)[N / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      a[kk][r] = pack2<T>(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1]);
+}
+
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(kFull, x, 1));
   return fmaxf(x, __shfl_xor_sync(kFull, x, 2));
@@ -77,16 +99,6 @@ __device__ __forceinline__ float quad_max(float x) {
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(kFull, x, 1);
   return x + __shfl_xor_sync(kFull, x, 2);
-}
-
-// Whether key `col` is visible to the query at position `qpos` (its row
-// plus offset = kv_len - q_len, the bottom-right diagonal): inside the
-// keys, at or before the query when causal, and within the last
-// `window` positions when window > 0.
-__device__ __forceinline__ bool key_visible(int col, int qpos, int kv_len,
-                                            bool causal, int window) {
-  return col < kv_len && (!causal || col <= qpos) &&
-         (window <= 0 || col > qpos - window);
 }
 
 // A B-fragment register from two rows of a [rows][stride] 16-bit tile in
@@ -104,24 +116,6 @@ __device__ __forceinline__ uint32_t cols_pair(const uint16_t* tile,
                                               int stride, int row,
                                               int col) {
   return *reinterpret_cast<const uint32_t*>(tile + row * stride + col);
-}
-
-// Copy `rows` rows of D 16-bit values (row `first` of a [n][D] matrix at
-// `src`) into a [rows][D + pad] shared tile, 16 bytes a thread; rows at or
-// past `limit` are zero.
-template <int D, int kPad>
-__device__ __forceinline__ void load_rows(uint16_t* tile, const void* src,
-                                          int first, int rows, int limit,
-                                          int tid, int nthreads) {
-  constexpr int kPieces = D / 8;
-  const uint4* s = reinterpret_cast<const uint4*>(src);
-  for (int c = tid; c < rows * kPieces; c += nthreads) {
-    const int j = c / kPieces, part = c % kPieces;
-    const int row = first + j;
-    uint4 x = make_uint4(0, 0, 0, 0);
-    if (row < limit) x = s[(size_t)row * kPieces + part];
-    *reinterpret_cast<uint4*>(tile + j * (D + kPad) + part * 8) = x;
-  }
 }
 
 // A float rounded to a kernel's storage type.

@@ -102,12 +102,6 @@ struct Smem {
   static_assert(kBytes <= 232448, "an H100 block's shared memory");
 };
 
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // The row tile that block x of a row of `tiles` takes.  Causal work grows
 // with a row's position t, so the heaviest tiles go first: when the tiles
 // align with the q heads, by descending t across the group's heads;
@@ -193,19 +187,6 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[kBKV / 2],
     sc[e] = exp2_approx(sc[e] - base[e % 4 / 2]);
     l[e % 4 / 2] += sc[e];
   }
-}
-
-// P packed as the RS operand: slice kk holds columns 16 kk .. 16 kk + 15,
-// a[0] the first row, a[1] the row 8 down, a[2] and a[3] their next 8
-// columns.
-template <typename T>
-__device__ __forceinline__ void pack_p(uint32_t (&pa)[kBKV / 16][4],
-                                       const float (&sc)[kBKV / 2]) {
-#pragma unroll
-  for (int kk = 0; kk < kBKV / 16; ++kk)
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-      pa[kk][r] = pack2<T>(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
 }
 
 // Grid (row tiles, kv_heads, batch), kThreads threads, Smem<D>::kBytes of
@@ -356,7 +337,7 @@ flash_fwd90_kernel(const __grid_constant__ CUtensorMap map_q,
           hi);
 #pragma unroll
       for (int e = 0; e < D / 2; ++e) o[e] *= alpha[e % 4 / 2];
-      pack_p<T>(pa, sc);
+      pack_rs<T, kBKV>(pa, sc);
       mbar_wait(&v_full[s], phase);
       issue_pv<D, kFp16>(o, pa, smem + L::kV + s * L::kTile);
       wgmma_wait<0>();

@@ -6,18 +6,19 @@
 // splits divide) and group limit, GEMMDescriptor.kernel_config the GEMM's
 // (each route's).
 // So the kernels and their wrappers share this one source.  The flash
-// tiles are multiples of 16 (the mma tile); a backward block has one warp
-// per 16 rows of its block-sized axis.
+// kernels' blocks are two warpgroups of 64 rows (query rows, or keys for
+// dK/dV); their tiles are the N of a wgmma (64, 128 or 256).
 
 #pragma once
 
 #define MFA_FWD90_BLOCK_Q 128   // flash_fwd: query rows per block (2 x 64)
 #define MFA_FWD90_BLOCK_KV 128  // flash_fwd: keys per tile of the ring
 #define MFA_FWD90_STAGES 2      // flash_fwd: K/V stages of the ring
-#define MFA_DQ_BLOCK_Q 64     // flash_bwd_dq: query rows per block
-#define MFA_DQ_BLOCK_KV 32    // flash_bwd_dq: keys per iteration
-#define MFA_DKV_BLOCK_Q 32    // flash_bwd_dkv: query rows per iteration
-#define MFA_DKV_BLOCK_KV 64   // flash_bwd_dkv: keys per block
+#define MFA_BWD90_DQ_BLOCK_Q 128   // flash_bwd_dq: query rows per block
+#define MFA_BWD90_DQ_BLOCK_KV 128  // flash_bwd_dq: keys per tile of the ring
+#define MFA_BWD90_DKV_BLOCK_Q 64   // flash_bwd_dkv: query rows per step
+#define MFA_BWD90_DKV_BLOCK_KV 128  // flash_bwd_dkv: keys per block
+#define MFA_BWD90_STAGES 2         // both: stages of the ring
 #define MFA_PAGED_BLOCK_KV 64     // paged_decode/_prefill: keys per iteration
 #define MFA_DECODE_BLOCK_KV 64    // flash_decode: keys per tile
 #define MFA_DECODE_MAX_GROUP 16   // flash_decode: q heads per kv head

@@ -195,6 +195,16 @@ __device__ __forceinline__ void fence_operands(float (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+// The same for 16-bit A operands in registers (an RS wgmma's), which the
+// product reads until it has been waited for.
+template <int K>
+__device__ __forceinline__ void fence_operands(uint32_t (&a)[K][4]) {
+#pragma unroll
+  for (int i = 0; i < K; ++i)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) asm volatile("" : "+r"(a[i][r])::"memory");
+}
+
 // Operand lists of the wgmma statements below: the accumulators d[0..R)
 // as "+f" operands, and their register names in the instruction.
 #define MFA_ACC4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])

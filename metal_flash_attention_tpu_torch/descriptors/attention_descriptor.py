@@ -40,8 +40,8 @@ class AttentionKernelType(enum.Enum):
 
 
 _TILE_PREFIX = {AttentionKernelType.FORWARD: "FWD90",
-                AttentionKernelType.BACKWARD_QUERY: "DQ",
-                AttentionKernelType.BACKWARD_KEY_VALUE: "DKV"}
+                AttentionKernelType.BACKWARD_QUERY: "BWD90_DQ",
+                AttentionKernelType.BACKWARD_KEY_VALUE: "BWD90_DKV"}
 
 
 @functools.cache

@@ -22,8 +22,11 @@ saves q, k, v, o and lse, and its backward runs both kernels.
 
 Dispatch: a CPU tensor takes the plain version (`_backward_plain`, the
 analytic gradients of `ops.reference.attention_reference_grads`); a CUDA
-tensor launches `csrc/flash_attention_bwd.cu`, or raises.  Each launch
-adds one to ``LAUNCH_COUNTS["flash_bwd_dq"]`` or ``["flash_bwd_dkv"]``.
+tensor launches the Hopper kernels of `csrc/flash_attention_bwd.cu`
+(TMA-fed, wgmma, for sm_90a), or raises.  Each launch adds one to
+``LAUNCH_COUNTS["flash_bwd_dq"]`` or ``["flash_bwd_dkv"]`` (the op) and
+to ``["flash_bwd_dq_sm90"]`` or ``["flash_bwd_dkv_sm90"]`` (the kernel
+that ran).
 """
 
 from __future__ import annotations
@@ -46,7 +49,10 @@ from metal_flash_attention_tpu_torch.ops.reference import (
     attention_reference_grads,
 )
 
-LAUNCH_COUNTS = {"flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+# One count per op and per kernel, bumped only where the wrapper launches
+# it.
+LAUNCH_COUNTS = {"flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+                 "flash_bwd_dq_sm90": 0, "flash_bwd_dkv_sm90": 0}
 
 
 def reset_launch_counts() -> None:
@@ -146,7 +152,11 @@ def _kernel_library() -> ctypes.CDLL:
     """Build (if stale) and bind csrc/flash_attention_bwd.cu."""
     from metal_flash_attention_tpu_torch.native.build import load_library
 
-    lib = load_library("flash_attention_bwd")
+    return bind_library(load_library("flash_attention_bwd"))
+
+
+def bind_library(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a build of csrc/flash_attention_bwd.cu."""
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     shape = [i32] * 6 + [f32] + [i32] * 3 + [ptr]
     lib.mfa_flash_bwd_dq.argtypes = [ptr] * 7 + shape
@@ -180,6 +190,7 @@ def _launch(name, outputs, q, k, v, do, lse, d_term, *, causal,
             int(q.dtype == torch.float16), stream)
     raise_on_launch_error(lib, rc, name)
     LAUNCH_COUNTS[name] += 1
+    LAUNCH_COUNTS[f"{name}_sm90"] += 1
 
 
 def _dq_cuda(q, k, v, do, lse, d_term, **kw):

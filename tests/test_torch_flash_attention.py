@@ -188,8 +188,9 @@ def test_descriptor_resolves_the_kernel_tiles():
     with open(TILES_HEADER) as f:
         header = f.read()
     for kind, prefix in ((AttentionKernelType.FORWARD, "FWD90"),
-                         (AttentionKernelType.BACKWARD_QUERY, "DQ"),
-                         (AttentionKernelType.BACKWARD_KEY_VALUE, "DKV")):
+                         (AttentionKernelType.BACKWARD_QUERY, "BWD90_DQ"),
+                         (AttentionKernelType.BACKWARD_KEY_VALUE,
+                          "BWD90_DKV")):
         cfg = desc.kernel_config(kind)
         assert f"#define MFA_{prefix}_BLOCK_Q {cfg.block_q} " in header
         assert f"#define MFA_{prefix}_BLOCK_KV {cfg.block_kv} " in header

@@ -74,6 +74,20 @@ EDGE_CASES = [
     (1, 4, 2, 2048, 2048, 128, True, None),  # masked and unmasked tiles
 ]
 
+# The backward kernels' tile edges: dQ takes 128 group-major rows a block
+# (two warpgroups of 64) and 64 keys a tile, dK/dV 128 keys a block (two
+# warpgroups of 64) and 64 query rows a step.  The forward's edges above
+# cover rows that cross q heads (q_len 93, group 4), kv_len off and under
+# one tile, a dQ block whose second warpgroup has no rows, a window edge
+# inside a tile with and without causal, and masked and whole tiles at
+# 2,048; these add the dK/dV blocks'.
+BWD_EDGE_CASES = EDGE_CASES + [
+    (1, 4, 2, 180, 50, 128, True, None),    # second warpgroup: no keys
+    (1, 4, 1, 150, 130, 64, True, None),    # a block of 2 keys
+    (1, 2, 1, 64, 400, 64, False, 40),      # keys that no query sees
+    (2, 8, 2, 130, 260, 128, False, 100),   # window, ragged query tiles
+]
+
 
 def _forward_checked(q, k, v, d, causal, window, out_dtype=None):
     """One forward through the kernel, held against the plain version;
@@ -113,7 +127,8 @@ def test_forward_kernel_float32_out(cuda, dtype, d):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("b,qh,kvh,n,m,d,causal,window", CASES)
+@pytest.mark.parametrize("b,qh,kvh,n,m,d,causal,window",
+                         CASES + BWD_EDGE_CASES)
 def test_backward_kernels_match_plain(cuda, dtype, b, qh, kvh, n, m, d,
                                       causal, window):
     q, k, v, do = _qkv(1, b, qh, kvh, n, m, d, dtype, cuda)
@@ -124,8 +139,7 @@ def test_backward_kernels_match_plain(cuda, dtype, b, qh, kvh, n, m, d,
                                              causal=causal,
                                              window_size=window)
     torch.cuda.synchronize()
-    assert fb.LAUNCH_COUNTS["flash_bwd_dq"] == before["flash_bwd_dq"] + 1
-    assert fb.LAUNCH_COUNTS["flash_bwd_dkv"] == before["flash_bwd_dkv"] + 1
+    assert fb.LAUNCH_COUNTS == {name: c + 1 for name, c in before.items()}
     assert (dq.dtype, dk.dtype, dv.dtype) == (dtype,) * 3
     ref = fb._backward_plain(q.float(), k.float(), v.float(), do.float(),
                              causal=causal, window_size=window,
@@ -223,10 +237,10 @@ def test_remat_runs_the_forward_kernel_twice(cuda):
         torch.cuda.synchronize()
         counts.append({**fa.LAUNCH_COUNTS, **fb.LAUNCH_COUNTS})
     n = cfg.n_layers
-    assert counts[0] == {"flash_fwd": n, "flash_fwd_sm90": n,
-                         "flash_bwd_dq": n, "flash_bwd_dkv": n}
-    assert counts[1] == {"flash_fwd": 2 * n, "flash_fwd_sm90": 2 * n,
-                         "flash_bwd_dq": n, "flash_bwd_dkv": n}
+    bwd = {"flash_bwd_dq": n, "flash_bwd_dkv": n, "flash_bwd_dq_sm90": n,
+           "flash_bwd_dkv_sm90": n}
+    assert counts[0] == {"flash_fwd": n, "flash_fwd_sm90": n, **bwd}
+    assert counts[1] == {"flash_fwd": 2 * n, "flash_fwd_sm90": 2 * n, **bwd}
     (l0, g0), (l1, g1) = results
     assert float(l0) == float(l1)
     for a, b in zip(g0, g1):

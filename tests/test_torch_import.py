@@ -195,7 +195,11 @@ def test_constructors_put_tensors_where_the_default_resolves(monkeypatch):
 @pytest.mark.parametrize("source,names", [
     ("flash_attention.cu", ("MFA_FWD90_BLOCK_Q", "MFA_FWD90_BLOCK_KV",
                             "MFA_FWD90_STAGES")),
-    ("flash_attention_bwd.cu", ("MFA_DQ_BLOCK_KV", "MFA_DKV_BLOCK_Q")),
+    ("flash_attention_bwd.cu", ("MFA_BWD90_DQ_BLOCK_Q",
+                                "MFA_BWD90_DQ_BLOCK_KV",
+                                "MFA_BWD90_DKV_BLOCK_Q",
+                                "MFA_BWD90_DKV_BLOCK_KV",
+                                "MFA_BWD90_STAGES")),
     ("paged_attention.cu", ("MFA_PAGED_BLOCK_KV",)),
     ("flash_decode.cu", ("MFA_DECODE_BLOCK_KV", "MFA_DECODE_MAX_GROUP")),
     ("gemm.cu", ("MFA_GEMM_BLOCK_M", "MFA_GEMM_BLOCK_N", "MFA_GEMM_BLOCK_K")),

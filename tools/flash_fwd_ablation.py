@@ -90,7 +90,7 @@ FA3_LOOP = """\
       else
         softmax_tile<false>(sc, m, l, alpha, p.scale_log2e,
                             (n_hi - 1) * kBKV + 2 * t4, lo, hi);
-      pack_p<T>(pa, sc);
+      pack_rs<T, kBKV>(pa, sc);
       for (int i = 1; i < n_tiles; ++i) {
         const int s = i % kS, sp = (i - 1) % kS;
         mbar_wait(&k_full[s], (i / kS) & 1);
@@ -113,7 +113,7 @@ FA3_LOOP = """\
         wgmma_wait<0>();
         fence_operands(o);
         release(v_empty, i - 1);
-        pack_p<T>(pa, sc);
+        pack_rs<T, kBKV>(pa, sc);
       }
       const int last = (n_tiles - 1) % kS;
 #pragma unroll
