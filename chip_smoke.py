@@ -18,13 +18,23 @@ Phases (any failure exits non-zero and prints no result):
    and serve 6 requests (prompts of 200 to 1100 tokens, 32 new tokens
    each) through the port's `ServingEngine` (max_batch 4, page_size
    128), with the paged kernels' launch counts set to 0 just before and
-   read just after; each must have been launched;
+   read just after; each must have been launched, every launch on its
+   Hopper kernel (`paged_decode_sm90`, `paged_prefill_sm90` equal to
+   `paged_decode`, `paged_prefill`);
 3. check the serve: every request got its 32 tokens, all pages came
    back, and on a 2-layer cut of the same weights the paged path's
    logits agree with a dense reference (`ops.reference`) within bf16
    tolerance (REF_*);
 4. hold both paged kernels against their plain version at the shapes the
-   engine ran, then free the engine;
+   engine ran (by the worst relative rms error of any 64-row tile,
+   KERNEL_TILE_REL_RMS; lse at MIXED_TOL), each with a planted fault that
+   the limit must see (decode: one sequence without its last 64-key
+   tile; prefill: the last 64 queries of the last head without their
+   diagonal key tile); time each (median and min-max of GEMM_REPEATS
+   profiled loops) cold, over a rotation of distinct pools whose reads
+   add up to PAGED_COLD_L2_MULTIPLE times the 50 MB L2 (a serve's 32
+   layers each have their own pools), and warm, on one pool; then free
+   the engine;
 5. dense_serve: greedy `models.serving.generate` on the same full-depth
    weights, a batch of 8 random prompts of 8,160 tokens (seed 0), 32 new
    tokens each, a cache of 8,192 positions (Llama-3's context): one
@@ -32,7 +42,8 @@ Phases (any failure exits non-zero and prints no result):
    `flash_decode`.  The two kernels' launch counts are set to 0 just
    before and read just after: `flash_fwd` must run 32 times (once per
    layer), every one on the sm90 kernel (`flash_fwd_sm90` 32 too), and
-   `flash_decode` 32 x 31 = 992 times; every new token must
+   `flash_decode` 32 x 31 = 992 times, every one on the Hopper kernel
+   (`flash_decode_sm90` 992 too); every new token must
    lie in the vocabulary.  That run is the bare `generate`: its
    seconds, new tokens per second, peak memory and nvidia-smi's clock
    and power samples.  A second run of the same call, with CUDA events
@@ -70,9 +81,10 @@ Phases (any failure exits non-zero and prints no result):
    must see; and at the sink shape of the JAX package's sink benchmark
    (window 1024, sink 4, full lengths): both partials of `sink_decode`
    (the strided slice of the first rows; kv_starts with max_span) and
-   the merged output.  Then time the kernel (ragged and full lengths),
-   `sink_decode`, the plain version and SDPA with a length mask (a
-   yardstick that the port never calls);
+   the merged output.  Then time the kernel and SDPA with a length mask
+   (a yardstick that the port never calls) at ragged and full lengths
+   (median and min-max of GEMM_REPEATS profiled loops), `sink_decode`
+   and the plain version;
 8. train: Llama-3-8B widths cut to 4 layers (at full depth the bf16
    weights, their float32 shadow and AdamW's two float32 moments come
    to about 101 GB, more than the card's 80 GB; 4 layers need about
@@ -142,6 +154,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import importlib
+import itertools
 import json
 import subprocess
 import sys
@@ -232,6 +245,12 @@ LOOP_GAP_S = 0.01
 LOOP_MARK, LOOP_MARK_CYCLES = "spin_kernel", 1000
 DENSE_GEMM = 4096
 SOFTMAX_SCALE_DERIVATIVE = 0.5
+# The paged kernels are timed cold, as a serve finds them (each of its 32
+# layers has its own pools, together far more than the L2): over a
+# rotation of distinct pools whose reads add up to this many times the
+# H100's 50 MB L2.
+L2_BYTES = 50 * 2**20
+PAGED_COLD_L2_MULTIPLE = 2
 
 # NVIDIA H100 SXM data sheet, dense: bf16 tensor cores and HBM3.
 PEAK_BF16_FLOPS = 989e12
@@ -280,11 +299,13 @@ def timed(fn, iters: int) -> tuple[float, float]:
 
 def timed_spread(fn, iters: int, repeats: int = GEMM_REPEATS) -> dict:
     """`timed` over `repeats` loops of `iters` calls in one profiler
-    session (many sessions in one process lose the card's events), the
-    loops kept apart on the card by LOOP_GAP_S of idle time and told
-    apart by a marker kernel launched after each (a gap in time also
-    opens where the host stalls, and the profiler may drop a kernel's
-    event): the median device ms a call and its min and max over the
+    session (many sessions in one process lose the card's events), after
+    one lead-in loop that is not counted (a session may lose its first
+    events), the loops kept apart on the card by LOOP_GAP_S of idle time
+    and told apart by a marker kernel launched after each (a gap in time
+    also opens where the host stalls, and the profiler may drop a
+    kernel's event), or, where the profiler dropped a marker's event, by
+    those gaps: the median device ms a call and its min and max over the
     loops, and the wall ms a call over all of them."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -293,22 +314,57 @@ def timed_spread(fn, iters: int, repeats: int = GEMM_REPEATS) -> dict:
         fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(repeats):
+        for _ in range(repeats + 1):
             for _ in range(iters):
                 fn()
             torch.cuda._sleep(LOOP_MARK_CYCLES)
             torch.cuda.synchronize()
             time.sleep(LOOP_GAP_S)
+    events = sorted(device_kernels(prof), key=lambda e: e.time_range.start)
+
+    def last_loops(loops, trailing):
+        """The last `repeats` loops, or None unless the split found them
+        all (the lead-in may be lost), nothing after the last, and no two
+        loops run together (each holds about as many kernels as the
+        others)."""
+        if loops and not loops[0]:
+            loops = loops[1:]
+        if trailing or len(loops) not in (repeats, repeats + 1):
+            return None
+        loops = loops[-repeats:]
+        median = float(np.median([len(x) for x in loops]))
+        if not all(0.5 * median < len(x) < 1.5 * median for x in loops):
+            return None
+        return loops
+
     loops, loop = [], []
-    for e in sorted(device_kernels(prof), key=lambda e: e.time_range.start):
+    for e in events:
         if LOOP_MARK in e.name:
             loops.append(loop)
             loop = []
         else:
             loop.append(e)
-    if len(loops) != repeats or loop or not all(loops):
-        fail(f"the profiler's kernels fall into {len(loops)} marked loops "
-             f"(some empty, or kernels after the last), not {repeats}")
+    marked = len(loops)
+    loops = last_loops(loops, loop)
+    if loops is None:
+        # The profiler dropped a marker's event: split by the idle gaps
+        # between the loops instead.
+        loops, loop, last_end = [], [], None
+        for e in events:
+            if LOOP_MARK in e.name:
+                continue
+            if last_end is not None and \
+                    e.time_range.start - last_end > LOOP_GAP_S * 1e6 / 2:
+                loops.append(loop)
+                loop = []
+            loop.append(e)
+            last_end = e.time_range.end
+        loops.append(loop)
+        gaps = len(loops)
+        loops = last_loops(loops, [])
+        if loops is None:
+            fail(f"the profiler's kernels fall into {marked} marked loops "
+                 f"and {gaps} loops by their gaps, not {repeats} (+ 1)")
     device = [sum(e.device_time_total for e in loop) / 1e3 / iters
               for loop in loops]
     start = torch.cuda.Event(enable_timing=True)
@@ -539,9 +595,15 @@ def plain_hidden(params, tokens, cfg):
 
 def paged_kernel_checks(dev, launches) -> list[dict]:
     """Each paged kernel against its plain version at the engine's
-    shapes."""
+    shapes, with a planted fault for each mode that the tile limit must
+    see; then each kernel's time, cold (over a rotation of distinct pools
+    that together exceed the L2, as a serve's 32 layers of pools do) and
+    warm (one pool), its plain version's, and its bound."""
     import torch
     from metal_flash_attention_tpu_torch.ops import paged_attention as pa
+    from metal_flash_attention_tpu_torch.ops.reference import (
+        attention_reference,
+    )
     from metal_flash_attention_tpu_torch.utils.tolerances import (
         MIXED_TOL,
         max_abs_err,
@@ -549,6 +611,7 @@ def paged_kernel_checks(dev, launches) -> list[dict]:
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
     kvh, qh, d = KV_HEADS, Q_HEADS, HEAD_DIM
+    scale = d ** -0.5
 
     def pools(lengths):
         max_pages = -(-max(lengths) // PAGE)
@@ -562,18 +625,18 @@ def paged_kernel_checks(dev, launches) -> list[dict]:
         lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
         return pa.PagedKVCache(k, v, table, lens)
 
-    def compare(fn, q, cache):
-        o, lse = fn(q, cache, return_residuals=True)
-        q4 = q if q.dim() == 4 else q[:, :, None]
-        po, plse = pa._paged_attention_plain(q4, cache, scale=d ** -0.5,
+    def as4(q):
+        return q if q.dim() == 4 else q[:, :, None]
+
+    def plain(q, cache):
+        po, plse = pa._paged_attention_plain(as4(q), cache, scale=scale,
                                              window_size=None)
-        return (closeness(o, po.reshape(o.shape)),
-                max_abs_err(lse, plse.reshape(lse.shape)))
+        return po.reshape(q.shape), plse.reshape(q.shape[:-1])
 
     def work(q, cache):
         """(FLOPs, bytes) of one call: K/V of each sequence read once,
         q read and o (and lse) written once."""
-        q4 = q if q.dim() == 4 else q[:, :, None]
+        q4 = as4(q)
         chunk = q4.shape[2]
         lengths = cache.lengths.tolist()
         pairs = sum(visible_pairs(chunk, n, True, None) for n in lengths)
@@ -581,9 +644,20 @@ def paged_kernel_checks(dev, launches) -> list[dict]:
         io_bytes = 2 * q4.numel() * 2 + q4[..., 0].numel() * 4
         return 4 * d * qh * pairs, kv_bytes + io_bytes
 
-    results = []
+    def rotation(lengths, first):
+        """`first` and more pools of the same lengths, until the bytes the
+        calls read exceed PAGED_COLD_L2_MULTIPLE times the L2."""
+        per_call = sum(lengths) * kvh * d * 2 * 2
+        count = -(-PAGED_COLD_L2_MULTIPLE * L2_BYTES // per_call)
+        return [first] + [pools(lengths) for _ in range(count - 1)]
+
+    def cycling(fn, q, caches):
+        turn = itertools.cycle(caches)
+        return lambda: fn(q, next(turn))
+
     # Decode: batch 4 at the lengths the engine's longest requests reach.
-    dec = pools([n + MAX_NEW for n in PROMPT_LENS[:MAX_BATCH]])
+    dec_lens = [n + MAX_NEW for n in PROMPT_LENS[:MAX_BATCH]]
+    dec = pools(dec_lens)
     qd = torch.randn((MAX_BATCH, qh, d), generator=gen,
                      device=dev).to(torch.bfloat16)
     # Prefill: one sequence, a full 128-token chunk at 1024 tokens and
@@ -594,40 +668,81 @@ def paged_kernel_checks(dev, launches) -> list[dict]:
     pre_tail = pools([1100])
     qt = torch.randn((1, qh, 1100 - 1024, d), generator=gen,
                      device=dev).to(torch.bfloat16)
-    shapes = {
-        "paged_decode": (pa.paged_decode, [(qd, dec)],
-                         "q [4, 32, 128], lengths %s" % (
-                             dec.lengths.tolist(),)),
+
+    # Planted faults.  Decode: sequence 0 without its last 64-key tile (a
+    # chunk that stops one tile early), through the kernel.  Prefill: the
+    # last 64 queries of the last q head without their diagonal key tile
+    # (keys 960 .. 1023).
+    short = dec.lengths.clone()
+    short[0] -= 64
+    dec_fault = pa.paged_decode(qd, dec._replace(lengths=short))
+    o_pre = pa.paged_prefill(qp, pre)
+    pre_fault = o_pre.clone()
+    k_seq, v_seq = (x[pre.page_table[0].long()].transpose(0, 1).reshape(
+        1, kvh, -1, d) for x in (pre.k_pages, pre.v_pages))
+    pre_fault[:, qh - 1:, PAGE - 64:] = attention_reference(
+        qp[:, qh - 1:, PAGE - 64:], k_seq[:, kvh - 1:, :1024 - 64],
+        v_seq[:, kvh - 1:, :1024 - 64], scale=scale).to(o_pre.dtype)
+    del k_seq, v_seq
+
+    results = []
+    cases = {
+        "paged_decode": (pa.paged_decode, [(qd, dec)], dec_fault,
+                         "q [4, 32, 128], lengths %s" % dec_lens),
         "paged_prefill": (pa.paged_prefill, [(qp, pre), (qt, pre_tail)],
-                          "q [1, 32, 128, 128] at length 1024; "
-                          "q [1, 32, 76, 128] at length 1100"),
+                          pre_fault, "q [1, 32, 128, 128] at length 1024 "
+                          "(timed); q [1, 32, 76, 128] at length 1100"),
     }
-    for name, (fn, cases, shape) in shapes.items():
-        errs = [compare(fn, q, c) for q, c in cases]
-        o_read = {key: max(e[0][key] for e in errs) for key in errs[0][0]}
-        lse_err = max(e[1] for e in errs)
-        q, c = cases[0]
-        q4 = q if q.dim() == 4 else q[:, :, None]
-        ms, wall_ms = timed(lambda: fn(q, c), 50)
-        plain_ms, plain_wall_ms = timed(lambda: pa._paged_attention_plain(
-            q4, c, scale=d ** -0.5, window_size=None), 20)
+    for name, (fn, calls, fault, shape) in cases.items():
+        o_read, lse_err = None, 0.0
+        for q, c in calls:
+            o, lse = fn(q, c, return_residuals=True)
+            po, plse = plain(q, c)
+            r = closeness(o, po)
+            if o_read is None:
+                r["planted_fault"] = closeness(fault, po)
+                o_read = r
+            else:
+                o_read[f"at_length_{int(c.lengths[0])}"] = r
+                for key in ("rel_rms", "tile_rel_rms", "max_abs_err"):
+                    o_read[key] = max(o_read[key], r[key])
+            lse_err = max(lse_err, max_abs_err(lse, plse))
         if not within_limits(o_read) or lse_err > MIXED_TOL.lse:
             fail(f"{name} disagrees with its plain version: o {o_read}, "
                  f"lse {lse_err}")
+        if within_limits(o_read["planted_fault"]):
+            fail(f"the {name} check does not see a dropped key tile")
+        q, c = calls[0]
+        lengths = c.lengths.tolist()
+        caches = rotation(lengths, c)
+        cold = timed_spread(cycling(fn, q, caches), 4 * len(caches))
+        warm = timed_spread(lambda: fn(q, c), 50)
+        plain_ms, plain_wall_ms = timed(lambda: plain(q, c), 20)
         bound_ms, bound_by = bound(*work(q, c))
         results.append({
             "name": name, "route": "cuda",
             "source": "metal_flash_attention_tpu_torch/csrc/"
                       "paged_attention.cu",
+            "core": "metal_flash_attention_tpu_torch/csrc/"
+                    "decode_common.cuh",
             "replaces": "metal_flash_attention_tpu/ops/"
                         "paged_attention.py:183",
-            "launches": launches[name], "max_abs_err": o_read["max_abs_err"],
+            "launches": launches[name],
+            "launches_sm90": launches[f"{name}_sm90"],
+            "max_abs_err": o_read["max_abs_err"],
             "o": o_read, "lse_max_abs_err": lse_err,
             "limits": {"tile_rel_rms": KERNEL_TILE_REL_RMS,
                        "lse_abs": MIXED_TOL.lse},
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None, "wall_ms": wall_ms,
+            "ms": cold["ms"], "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None,
+            "share_of_bound": bound_ms / cold["ms"],
+            "wall_ms": cold["wall_ms"], "spread": cold,
+            "cold": {"pools": len(caches),
+                     "bytes_read": len(caches) * work(q, c)[1],
+                     "l2_bytes": L2_BYTES},
+            "ms_warm": warm["ms"], "spread_warm": warm,
             "plain_wall_ms": plain_wall_ms, "shape": shape})
+        del caches
     return results
 
 
@@ -697,11 +812,14 @@ def dense_serve(params, cfg, dev, card) -> dict:
         total = time.perf_counter() - t0
         launches = {"flash_fwd": fa.LAUNCH_COUNTS["flash_fwd"],
                     "flash_fwd_sm90": fa.LAUNCH_COUNTS["flash_fwd_sm90"],
-                    "flash_decode": fd.LAUNCH_COUNTS["flash_decode"]}
+                    "flash_decode": fd.LAUNCH_COUNTS["flash_decode"],
+                    "flash_decode_sm90":
+                        fd.LAUNCH_COUNTS["flash_decode_sm90"]}
         clocks = sampler.stop()
     peak = torch.cuda.max_memory_allocated(dev)
     expected = {"flash_fwd": cfg.n_layers, "flash_fwd_sm90": cfg.n_layers,
-                "flash_decode": cfg.n_layers * (DENSE_NEW - 1)}
+                "flash_decode": cfg.n_layers * (DENSE_NEW - 1),
+                "flash_decode_sm90": cfg.n_layers * (DENSE_NEW - 1)}
     if launches != expected:
         fail(f"dense serve launched {launches}, expected {expected}")
     if tuple(out.shape) != (DENSE_BATCH, DENSE_PROMPT + DENSE_NEW):
@@ -763,7 +881,8 @@ def profile_decode_step(params, cfg, dev) -> None:
         serving.decode_step(params, token, cfg, cache)
         profile_step("dense_profile",
                      lambda: serving.decode_step(params, token, cfg, cache),
-                     {"flash_decode": ("flash_decode_", "merge_splits")},
+                     {"flash_decode": ("flash_decode90_kernel",
+                                       "merge_splits")},
                      dev)
 
 
@@ -897,8 +1016,10 @@ def decode_kernel_checks(dev, launches) -> dict:
     if problems:
         fail("; ".join(problems))
 
-    ms, wall_ms = timed(lambda: fd.flash_decode(q, k, v, kv_lens=lens), 50)
-    full_ms, _ = timed(lambda: fd.flash_decode(q, k, v, kv_lens=full), 50)
+    ragged = timed_spread(lambda: fd.flash_decode(q, k, v, kv_lens=lens),
+                          50)
+    full_t = timed_spread(lambda: fd.flash_decode(q, k, v, kv_lens=full),
+                          50)
     sink_ms, _ = timed(lambda: serving.sink_decode(
         q, k, v, full, window=SINK_WINDOW, sink=SINK), 50)
     plain_ms, _ = timed(lambda: fd._flash_decode_plain(
@@ -906,8 +1027,11 @@ def decode_kernel_checks(dev, launches) -> dict:
         10)
     mask = (torch.arange(n, device=dev)[None, :]
             < lens[:, None].long())[:, None, None, :]
-    lib_ms, _ = timed(lambda: F.scaled_dot_product_attention(
+    lib = timed_spread(lambda: F.scaled_dot_product_attention(
         q[:, :, None], k, v, attn_mask=mask, enable_gqa=True), 20)
+    full_mask = torch.ones_like(mask)
+    lib_full = timed_spread(lambda: F.scaled_dot_product_attention(
+        q[:, :, None], k, v, attn_mask=full_mask, enable_gqa=True), 20)
 
     def work(lengths):
         """(FLOPs, bytes): each live K and V row read once, q read and o
@@ -920,8 +1044,10 @@ def decode_kernel_checks(dev, launches) -> dict:
     return {
         "name": "flash_decode", "route": "cuda",
         "source": "metal_flash_attention_tpu_torch/csrc/flash_decode.cu",
+        "core": "metal_flash_attention_tpu_torch/csrc/decode_common.cuh",
         "replaces": "metal_flash_attention_tpu/ops/flash_decode.py:82",
         "launches": launches["flash_decode"],
+        "launches_sm90": launches["flash_decode_sm90"],
         "max_abs_err": max(readings[key]["max_abs_err"]
                            for key in readings),
         "o": readings["flash_decode.o"],
@@ -931,11 +1057,18 @@ def decode_kernel_checks(dev, launches) -> dict:
         "lse_max_abs_err": max(lse_errs.values()),
         "limits": {"tile_rel_rms": KERNEL_TILE_REL_RMS,
                    "lse_abs": MIXED_TOL.lse},
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": lib_ms, "wall_ms": wall_ms,
+        "ms": ragged["ms"], "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": lib["ms"],
+        "share_of_bound": bound_ms / ragged["ms"],
+        "wall_ms": ragged["wall_ms"], "spread": ragged,
+        "library_spread": lib,
         "library": "F.scaled_dot_product_attention(q[:, :, None], k, v, "
                    "attn_mask=<length mask>, enable_gqa=True)",
-        "ms_full_lengths": full_ms, "bound_ms_full_lengths": full_bound_ms,
+        "ms_full_lengths": full_t["ms"], "spread_full_lengths": full_t,
+        "bound_ms_full_lengths": full_bound_ms,
+        "share_of_bound_full_lengths": full_bound_ms / full_t["ms"],
+        "library_ms_full_lengths": lib_full["ms"],
+        "library_spread_full_lengths": lib_full,
         "sink_decode_ms": sink_ms,
         "shape": "q [8, 32, 128], k/v [8, 8, 8192, 128] bf16, lengths "
                  f"{list(DECODE_LENS)} (timed; also at full lengths); "
@@ -1760,6 +1893,10 @@ def main() -> int:
     for name, n in paged_launches.items():
         if n == 0:
             fail(f"kernel {name} was not launched on the serving path")
+    for name in ("paged_decode", "paged_prefill"):
+        if paged_launches[f"{name}_sm90"] != paged_launches[name]:
+            fail(f"{name} launched {paged_launches[name]} times, its "
+                 f"Hopper kernel {paged_launches[f'{name}_sm90']}")
     for rid, p in zip(rids, prompts):
         out = eng.result(rid)
         if len(out) != len(p) + MAX_NEW:

@@ -21,6 +21,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace mfa {
 
 constexpr float kLog2e = 1.4426950408889634f;
@@ -137,45 +139,81 @@ __device__ __forceinline__ float from_float<float>(float x) {
   return x;
 }
 
-// The second launch of a split-KV decode: merge each row's `splits`
-// normalized float32 partials by their base-2 lse.  Grid (rows, kv_heads,
-// batch), one thread per head-dim column.  part_o is [batch, kv_heads,
-// splits, rows, D] and part_lse [batch, kv_heads, splits, rows]; row r of
-// kv head h is row h * rows + r of o [batch, kv_heads * rows, D] and of lse
-// (natural log).  A split that saw no key (lse = -inf) weighs 0; a row
-// that no split saw gives o = 0 and lse = -inf.
+// The second launch of a split-KV kernel: merge each row's `splits`
+// normalized float32 partials by their base-2 lse.  part_o is [batch,
+// kv_heads, splits, rows, D] and part_lse [batch, kv_heads, splits, rows];
+// row r of kv head h is row h * rows + r of o [batch, kv_heads * rows, D]
+// and of lse (natural log).  A split that saw no key writes lse = -inf and
+// a zero part_o, and weighs 0; a row that no split saw gives o = 0 and
+// lse = -inf.
+//
+// One warp a row, kMergeRows rows a block, grid (cdiv(rows, kMergeRows),
+// kv_heads, batch); each lane owns D / 32 columns.  The kernel is a chain
+// of memory round trips, so it keeps them few: it reads eight splits'
+// lse and partials at once and folds them into a running (max, sum, acc),
+// so a row of up to eight splits is one round trip.
+constexpr int kMergeRows = 4;
+constexpr int kMergeSplits = 8;
+
 template <typename T, int D>
-__global__ void __launch_bounds__(D)
+__global__ void __launch_bounds__(32 * kMergeRows)
 merge_splits_kernel(const float* part_o, const float* part_lse, T* o,
                     float* lse, int rows, int splits) {
-  const int r = blockIdx.x, d = threadIdx.x;
+  constexpr int kCols = D / 32;  // a lane's columns
+  static_assert(kCols == 2 || kCols == 4, "D 64 or 128");
+  using Vec = typename std::conditional<kCols == 4, float4, float2>::type;
+  const int lane = threadIdx.x % 32;
+  const int r = blockIdx.x * kMergeRows + threadIdx.x / 32;
+  if (r >= rows) return;
   const size_t head = (size_t)blockIdx.z * gridDim.y + blockIdx.y;
   const size_t base = head * splits;
-  float mx = -INFINITY;
-  for (int s = 0; s < splits; ++s)
-    mx = fmaxf(mx, part_lse[(base + s) * rows + r]);
+  float mx = -INFINITY, sum = 0.f, acc[kCols] = {};
+  for (int s0 = 0; s0 < splits; s0 += kMergeSplits) {
+    float l[kMergeSplits];
+    Vec x[kMergeSplits];
+#pragma unroll
+    for (int j = 0; j < kMergeSplits; ++j) {
+      const size_t pr = (base + s0 + j) * rows + r;
+      const bool in = s0 + j < splits;
+      l[j] = in ? part_lse[pr] : -INFINITY;
+      x[j] = in ? *reinterpret_cast<const Vec*>(part_o + pr * D +
+                                                lane * kCols)
+                : Vec{};
+    }
+    float m = mx;
+#pragma unroll
+    for (int j = 0; j < kMergeSplits; ++j) m = fmaxf(m, l[j]);
+    if (m == -INFINITY) continue;
+    const float alpha = exp2f(mx - m);
+    mx = m;
+    sum *= alpha;
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) acc[c] *= alpha;
+#pragma unroll
+    for (int j = 0; j < kMergeSplits; ++j) {
+      const float w = exp2f(l[j] - m);
+      const float* xj = reinterpret_cast<const float*>(&x[j]);
+      sum += w;
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) acc[c] += w * xj[c];
+    }
+  }
   const size_t row = head * rows + r;
-  if (mx == -INFINITY) {
-    o[row * D + d] = from_float<T>(0.f);
-    if (d == 0) lse[row] = -INFINITY;
-    return;
-  }
-  float w_sum = 0.f, acc = 0.f;
-  for (int s = 0; s < splits; ++s) {
-    const float w = exp2f(part_lse[(base + s) * rows + r] - mx);
-    w_sum += w;
-    acc += w * part_o[((base + s) * rows + r) * D + d];
-  }
-  o[row * D + d] = from_float<T>(acc / w_sum);
-  if (d == 0) lse[row] = (mx + log2f(w_sum)) * kLn2;
+  const float inv = sum > 0.f ? 1.f / sum : 0.f;
+  T* out = o + row * D + lane * kCols;
+#pragma unroll
+  for (int c = 0; c < kCols; ++c) out[c] = from_float<T>(acc[c] * inv);
+  if (lane == 0) lse[row] = sum > 0.f ? (mx + log2f(sum)) * kLn2 : -INFINITY;
 }
 
 template <typename T, int D>
 inline void merge_splits(const float* part_o, const float* part_lse, T* o,
                          float* lse, int rows, int kv_heads, int batch,
                          int splits, cudaStream_t stream) {
-  merge_splits_kernel<T, D><<<dim3(rows, kv_heads, batch), D, 0, stream>>>(
-      part_o, part_lse, o, lse, rows, splits);
+  merge_splits_kernel<T, D>
+      <<<dim3((rows + kMergeRows - 1) / kMergeRows, kv_heads, batch),
+         32 * kMergeRows, 0, stream>>>(part_o, part_lse, o, lse, rows,
+                                       splits);
 }
 
 }  // namespace mfa

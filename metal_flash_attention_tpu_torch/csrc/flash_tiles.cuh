@@ -2,9 +2,9 @@
 // handles per step, the decode kernel's largest GQA group, and the GEMM's
 // output tile and K step.  The Python wrappers read these lines
 // (`native.build.tile_defines`): AttentionDescriptor.kernel_config the
-// flash tiles, the decode wrappers their key tiles (the unit the split-KV
-// splits divide) and group limit, GEMMDescriptor.kernel_config the GEMM's
-// (each route's).
+// flash tiles, the decode wrappers their key tiles and chunks (the units
+// of the split-KV splits) and group limit, GEMMDescriptor.kernel_config
+// the GEMM's (each route's).
 // So the kernels and their wrappers share this one source.  The flash
 // kernels' blocks are two warpgroups of 64 rows (query rows, or keys for
 // dK/dV); their tiles are the N of a wgmma (64, 128 or 256).
@@ -19,9 +19,36 @@
 #define MFA_BWD90_DKV_BLOCK_Q 64   // flash_bwd_dkv: query rows per step
 #define MFA_BWD90_DKV_BLOCK_KV 128  // flash_bwd_dkv: keys per block
 #define MFA_BWD90_STAGES 2         // both: stages of the ring
-#define MFA_PAGED_BLOCK_KV 64     // paged_decode/_prefill: keys per iteration
-#define MFA_DECODE_BLOCK_KV 64    // flash_decode: keys per tile
-#define MFA_DECODE_MAX_GROUP 16   // flash_decode: q heads per kv head
+// The decode family (flash_decode and paged_decode share one kernel,
+// paged_prefill has its own on the same ring): keys per tile of the
+// cp.async ring, the ring's stages (flash_decode's; the paged kernels'),
+// the most keys one split-KV block takes (the wrappers pick each call's
+// chunk, a multiple of the tile, up to it), the largest GQA group, and
+// whether 16-bit inputs run on tensor cores (1) or on CUDA cores (0, for
+// the ablation).  Each may be set with -D when a variant is built.
+#ifndef MFA_DECODE_BLOCK_KV
+#define MFA_DECODE_BLOCK_KV 64
+#endif
+#ifndef MFA_DECODE_STAGES
+#define MFA_DECODE_STAGES 2
+#endif
+#ifndef MFA_DECODE_CHUNK
+#define MFA_DECODE_CHUNK 1024
+#endif
+#ifndef MFA_DECODE_MMA
+#define MFA_DECODE_MMA 1
+#endif
+#define MFA_DECODE_MAX_GROUP 16
+#define MFA_PAGED_BLOCK_Q 64      // paged_prefill: query rows per block
+#ifndef MFA_PAGED_BLOCK_KV
+#define MFA_PAGED_BLOCK_KV 64
+#endif
+#ifndef MFA_PAGED_STAGES
+#define MFA_PAGED_STAGES 3
+#endif
+#ifndef MFA_PAGED_PREFILL_CHUNK
+#define MFA_PAGED_PREFILL_CHUNK 512
+#endif
 // gemm: the output tile (rows x columns) one block computes and the K
 // step it stages; the K step divides the NF4 half-group of 256, so a step
 // never straddles two nibble planes.

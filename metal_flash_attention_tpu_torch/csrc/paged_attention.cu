@@ -5,231 +5,213 @@
 // (pallas_call at ops/paged_attention.py:730), in its two modes:
 //
 //  * decode: one query token per sequence; the rows of a block are the
-//    GQA group of one kv head.  Decode is bound by HBM bytes: every live
-//    page of K and V is read once and each key feeds only `group` rows.
-//    At small batch there are few (sequence, kv head) pairs for 132 SMs,
-//    so the key range is split across blocks (split-KV) and a second
-//    kernel merges the partials by their log-sum-exp;
+//    GQA group of one kv head.  This is `flash_decode90_kernel` of
+//    decode_common.cuh with the paged address policy: blocks (chunk, kv
+//    head, sequence) each take a fixed chunk of keys from the row's first
+//    live tile (the last `window` keys with a window) through a cp.async
+//    ring gathered through the page table, QK^T and PV on tensor cores;
+//    `merge_splits` merges the chunks' partials;
 //  * chunked prefill: q_chunk query tokens per sequence, laid out
 //    group-major (row g * q_chunk + t is query t of group member g) and
-//    causal at position len - q_chunk + t.  Each key feeds up to
-//    group * q_chunk rows, so this mode is closer to compute; the block's
-//    key loop stops at its last visible key.
+//    causal at position len - q_chunk + t.  `paged_prefill90_kernel`
+//    below: 64 rows a block (16 a warp), the same ring and gather, and
+//    split-KV over the block's visible keys, so that one engine chunk
+//    fills the card; the partials merge through `merge_splits`, whose row
+//    layout is the group-major one.
 //
-// The TPU kernel issued its successor program's first page DMAs across
-// grid steps, which relies on a sequential grid.  Blocks on the GPU run
-// in parallel, so each block here gathers its own pages: a tile of
-// kTileN keys is copied row by row through the page table into shared
-// memory, then QK^T and PV run on tensor cores (mma.sync m16n8k16, bf16
-// in, fp32 accumulate) with the online softmax (m, l, acc) in fp32 in
-// the exp2 domain.  Table entries are read only for positions below the
-// sequence's length.  A row that sees no key gives o = 0, lse = -inf.
-// The lse is natural-log at the interface.
+// What bounds them: decode reads every live page of K and V once (HBM
+// bytes); each prefill key feeds up to group * q_chunk rows, so that mode
+// is closer to compute.  The TPU kernel issued its successor program's
+// first page DMAs across grid steps, which relies on a sequential grid.
+// Blocks on the GPU run in parallel, so each block gathers its own pages:
+// it reads its page-table entries once into shared memory, then keeps
+// MFA_*_STAGES tiles of 16-byte cp.async copies in flight while it
+// computes.  Without a window a block reads its chunk's entries while the
+// sequence's length loads (entries past the live pages are read, never
+// used); pages are copied from only for positions below the length.  A
+// row that sees no key gives o = 0, lse = -inf.  The lse is natural-log
+// at the interface.
 //
 // Every function returns cudaGetLastError() after its launches.
 
-#include "attention_common.cuh"
+#include <climits>
+
+#include "decode_common.cuh"
 #include "flash_tiles.cuh"
 
 namespace {
 
 using namespace mfa;
+using bf16 = __nv_bfloat16;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kTileM = 16 * kWarps;  // query rows per block (16 per warp)
-constexpr int kTileN = MFA_PAGED_BLOCK_KV;  // keys per iteration
-constexpr int kPad = 8;              // bf16 padding per shared-memory row
+constexpr int kTileM = MFA_PAGED_BLOCK_Q;   // query rows per block
+constexpr int kTileN = MFA_PAGED_BLOCK_KV;  // keys per ring tile
+static_assert(kTileM == 16 * kWarps, "16 rows a warp");
+static_assert(kTileN % 16 == 0, "whole 16-key mma steps");
 
-struct Params {
-  const __nv_bfloat16* q;       // [b, q_heads, q_chunk, D]
-  const __nv_bfloat16* k_pool;  // [pages, kv_heads, page_size, D]
-  const __nv_bfloat16* v_pool;
-  const int* table;             // [b, max_pages]
-  const int* lengths;           // [b]
-  __nv_bfloat16* o;             // like q
-  float* lse;                   // [b, q_heads, q_chunk], natural log
-  float* part_o;                // [b, kv_heads, splits, rows, D]
-  float* part_lse;              // [b, kv_heads, splits, rows], base 2
-  int q_heads, kv_heads, q_chunk, page_size, max_pages;
+struct PrefillParams {
+  const bf16* q;    // [b, q_heads, q_chunk, D]
+  bf16* o;          // like q
+  float* lse;       // [b, q_heads, q_chunk], natural log
+  float* part_o;    // [b, kv_heads, splits, group * q_chunk, D]
+  float* part_lse;  // [b, kv_heads, splits, group * q_chunk], base 2
+  PagedKV kv;
+  int q_heads, q_chunk, chunk, splits;
   float scale_log2e;
-  int window;  // <= 0: none
-  int splits;
 };
+
+template <int D>
+using PrefillRing = Ring<bf16, D, kTileN, MFA_PAGED_STAGES>;
 
 __device__ __forceinline__ bool visible(int col, int qpos, int window) {
   return col <= qpos && (window <= 0 || col > qpos - window);
 }
 
-// One block: kTileM rows of one (sequence, kv head) against the key
-// tiles [tile_begin, tile_end) of its visible range (a share of them
-// when kSplit).  Warp w owns rows 16w .. 16w + 15 of the tile; lane
-// (g = lane / 4, t4 = lane % 4) holds rows g and g + 8 in the mma
-// fragment layout.
-template <int D, bool kSplit>
-__device__ __forceinline__ void attend(const Params& p, int row_tile,
-                                       int split) {
-  __shared__ __align__(16) uint16_t ks[kTileN][D + kPad];
-  __shared__ __align__(16) uint16_t vs[kTileN][D + kPad];
-
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int group = p.q_heads / p.kv_heads;
-  const int rows = group * p.q_chunk;
-  const int kv_len = p.lengths[b];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+// The rows [r0, r0 + 64) of (b, h) against the key tiles [t0, t1): writes
+// o and lse when the call has one split, else this split's normalized
+// float32 partial and base-2 lse.  Warp w owns rows r0 + 16w .. + 15; lane
+// (g = lane / 4, t4 = lane % 4) holds rows g and g + 8 in the mma fragment
+// layout.
+template <int D>
+__device__ __forceinline__ void attend(const PrefillParams& p, bf16* ring,
+                                       int* pages, bool prefetched, int b,
+                                       int h, int r0, int rows, int q0,
+                                       int col_lo, int col_hi, int t0,
+                                       int t1, size_t row_base,
+                                       size_t p_row) {
+  using R = PrefillRing<D>;
+  constexpr int kStride = R::kStride;
+  const int qc = p.q_chunk, window = p.kv.window;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t4 = lane % 4;
-
-  // Key range any row of this tile can see.
-  const int r0 = row_tile * kTileM;
-  const int r_last = min(r0 + kTileM, rows) - 1;
-  int t_min = 0, t_max = p.q_chunk - 1;
-  if (r0 / p.q_chunk == r_last / p.q_chunk) {
-    t_min = r0 % p.q_chunk;
-    t_max = r_last % p.q_chunk;
-  }
-  const int q0 = kv_len - p.q_chunk;  // position of query t = 0
-  const int col_hi = q0 + t_max;
-  const int col_lo = p.window > 0 ? max(0, q0 + t_min - p.window + 1) : 0;
-  int tile_begin = col_lo / kTileN;
-  int tile_end = col_hi >= col_lo ? col_hi / kTileN + 1 : tile_begin;
-  if (kSplit) {
-    const int per = (tile_end - tile_begin + p.splits - 1) / p.splits;
-    const int first = tile_begin + split * per;
-    tile_end = min(tile_end, first + per);
-    tile_begin = min(first, tile_end);
-  }
+  const int k_lo = max(col_lo, t0 * kTileN);
+  const int k_hi = min(col_hi + 1, t1 * kTileN);
+  const auto kv_rows = p.kv.rows(b, h, pages, k_lo, k_hi, prefetched);
 
   // This lane's two rows, their query positions, and Q as A fragments.
-  const int row_base = (b * p.q_heads + h * group) * p.q_chunk;
   const int wr = r0 + 16 * warp;
   const bool warp_live = wr < rows;
   const int ra = wr + g, rb = wr + g + 8;
-  const int qpos_a = q0 + ra % p.q_chunk, qpos_b = q0 + rb % p.q_chunk;
+  const int qpos_a = q0 + ra % qc, qpos_b = q0 + rb % qc;
   uint32_t qf[D / 16][4];
   {
-    const uint32_t* qa = reinterpret_cast<const uint32_t*>(
-        p.q + (size_t)(row_base + ra) * D);
-    const uint32_t* qb = reinterpret_cast<const uint32_t*>(
-        p.q + (size_t)(row_base + rb) * D);
+    const bf16* qa = p.q + (row_base + ra) * D;
+    const bf16* qb = p.q + (row_base + rb) * D;
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
-      const int c = kk * 8 + t4;  // 32-bit word of column kk*16 + 2*t4
-      qf[kk][0] = ra < rows ? qa[c] : 0u;
-      qf[kk][1] = rb < rows ? qb[c] : 0u;
-      qf[kk][2] = ra < rows ? qa[c + 4] : 0u;
-      qf[kk][3] = rb < rows ? qb[c + 4] : 0u;
+      const int c = kk * 16 + 2 * t4;
+      qf[kk][0] = ra < rows ? ld_u32(qa + c) : 0u;
+      qf[kk][1] = rb < rows ? ld_u32(qb + c) : 0u;
+      qf[kk][2] = ra < rows ? ld_u32(qa + c + 8) : 0u;
+      qf[kk][3] = rb < rows ? ld_u32(qb + c + 8) : 0u;
     }
   }
+  // The warp's nearest and farthest query positions: a tile past the
+  // farthest (or, with a window, before the nearest's window) is skipped;
+  // only tiles that cross one of its rows' edges are masked.
+  const int q_near = __reduce_min_sync(
+      kFull, min(ra < rows ? qpos_a : INT_MAX, rb < rows ? qpos_b : INT_MAX));
+  const int q_far = __reduce_max_sync(
+      kFull, max(ra < rows ? qpos_a : INT_MIN, rb < rows ? qpos_b : INT_MIN));
 
   float acc[D / 8][4];
 #pragma unroll
   for (int dn = 0; dn < D / 8; ++dn)
     acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
   float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
+  const float scale = p.scale_log2e;
+  // ldmatrix rows: K as [key][dim] (two key octets of one 16-dim step), V
+  // transposed (both key octets of a 16-key step, one 16-column pair).
+  const int mi = lane >> 3, r8 = lane & 7;
+  const int k_off = ((mi >> 1) * 8 + r8) * kStride + (mi & 1) * 8;
+  const int v_off = ((mi & 1) * 8 + r8) * kStride + (mi >> 1) * 8;
 
-  for (int tile = tile_begin; tile < tile_end; ++tile) {
-    const int j0 = tile * kTileN;
-    __syncthreads();  // the previous tile is consumed
-    // Gather kTileN key rows through the page table, 16 bytes a thread;
-    // rows past the sequence's length are zero and never looked up.
-    constexpr int kPieces = D / 8;
-    for (int c = threadIdx.x; c < kTileN * kPieces; c += kThreads) {
-      const int j = c / kPieces, part = c % kPieces;
-      const int pos = j0 + j;
-      uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
-      if (pos < kv_len) {
-        const int page = p.table[b * p.max_pages + pos / p.page_size];
-        const size_t off =
-            (((size_t)page * p.kv_heads + h) * p.page_size +
-             pos % p.page_size) * D + part * 8;
-        kv = *reinterpret_cast<const uint4*>(p.k_pool + off);
-        vv = *reinterpret_cast<const uint4*>(p.v_pool + off);
-      }
-      *reinterpret_cast<uint4*>(&ks[j][part * 8]) = kv;
-      *reinterpret_cast<uint4*>(&vs[j][part * 8]) = vv;
-    }
-    __syncthreads();
-    if (!warp_live) continue;
+  __syncthreads();  // the page entries are in
+  ring_loop<bf16, D, kTileN, R::kStages, kThreads>(
+      ring, kv_rows, t0, t1, k_lo, k_hi,
+      [&](int j0, const bf16* ks, const bf16* vs) {
+        if (!warp_live || j0 > q_far ||
+            (window > 0 && j0 + kTileN - 1 <= q_near - window))
+          return;
+        const bool edge = j0 + kTileN - 1 > q_near ||
+                          (window > 0 && j0 <= q_far - window);
 
-    // S = Q K^T for this warp's 16 rows x kTileN keys.
-    float s[kTileN / 8][4];
+        // S = Q K^T for this warp's 16 rows x kTileN keys.
+        float s[kTileN / 8][4];
 #pragma unroll
-    for (int nt = 0; nt < kTileN / 8; ++nt)
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+        for (int nt = 0; nt < kTileN / 8; ++nt)
+          s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+        for (int kk = 0; kk < D / 16; ++kk)
 #pragma unroll
-      for (int nt = 0; nt < kTileN / 8; ++nt) {
-        const uint16_t* kr = &ks[nt * 8 + g][kk * 16 + 2 * t4];
-        mma_16816(s[nt], qf[kk], *reinterpret_cast<const uint32_t*>(kr),
-                  *reinterpret_cast<const uint32_t*>(kr + 8));
-      }
-    }
+          for (int np = 0; np < kTileN / 16; ++np) {
+            uint32_t kb[4];
+            ldsm_x4(kb, ks + k_off + np * 16 * kStride + kk * 16);
+            mma_16816(s[2 * np], qf[kk], kb[0], kb[1]);
+            mma_16816(s[2 * np + 1], qf[kk], kb[2], kb[3]);
+          }
 
-    // Mask, scale into the exp2 domain, online softmax update.
-    float mx_a = -INFINITY, mx_b = -INFINITY;
+        // Mask (edge tiles only), scale into the exp2 domain, online
+        // softmax update.
+        float mx_a = -INFINITY, mx_b = -INFINITY;
 #pragma unroll
-    for (int nt = 0; nt < kTileN / 8; ++nt) {
+        for (int nt = 0; nt < kTileN / 8; ++nt)
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = j0 + nt * 8 + 2 * t4 + e;
-        s[nt][e] = visible(col, qpos_a, p.window)
-                       ? s[nt][e] * p.scale_log2e : -INFINITY;
-        s[nt][2 + e] = visible(col, qpos_b, p.window)
-                           ? s[nt][2 + e] * p.scale_log2e : -INFINITY;
-        mx_a = fmaxf(mx_a, s[nt][e]);
-        mx_b = fmaxf(mx_b, s[nt][2 + e]);
-      }
-    }
-    const float mn_a = fmaxf(m_a, quad_max(mx_a));
-    const float mn_b = fmaxf(m_b, quad_max(mx_b));
-    const float base_a = mn_a == -INFINITY ? 0.f : mn_a;
-    const float base_b = mn_b == -INFINITY ? 0.f : mn_b;
-    const float alpha_a = exp2f(m_a - base_a);
-    const float alpha_b = exp2f(m_b - base_b);
-    m_a = mn_a;
-    m_b = mn_b;
-    l_a *= alpha_a;
-    l_b *= alpha_b;
+          for (int e = 0; e < 2; ++e) {
+            const int col = j0 + nt * 8 + 2 * t4 + e;
+            s[nt][e] = !edge || visible(col, qpos_a, window)
+                           ? s[nt][e] * scale : -INFINITY;
+            s[nt][2 + e] = !edge || visible(col, qpos_b, window)
+                               ? s[nt][2 + e] * scale : -INFINITY;
+            mx_a = fmaxf(mx_a, s[nt][e]);
+            mx_b = fmaxf(mx_b, s[nt][2 + e]);
+          }
+        const float mn_a = fmaxf(m_a, quad_max(mx_a));
+        const float mn_b = fmaxf(m_b, quad_max(mx_b));
+        const float base_a = mn_a == -INFINITY ? 0.f : mn_a;
+        const float base_b = mn_b == -INFINITY ? 0.f : mn_b;
+        const float alpha_a = exp2f(m_a - base_a);
+        const float alpha_b = exp2f(m_b - base_b);
+        m_a = mn_a;
+        m_b = mn_b;
+        l_a *= alpha_a;
+        l_b *= alpha_b;
 #pragma unroll
-    for (int nt = 0; nt < kTileN / 8; ++nt) {
+        for (int nt = 0; nt < kTileN / 8; ++nt)
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        s[nt][e] = exp2f(s[nt][e] - base_a);
-        s[nt][2 + e] = exp2f(s[nt][2 + e] - base_b);
-        l_a += s[nt][e];
-        l_b += s[nt][2 + e];
-      }
-    }
+          for (int e = 0; e < 2; ++e) {
+            s[nt][e] = exp2f(s[nt][e] - base_a);
+            s[nt][2 + e] = exp2f(s[nt][2 + e] - base_b);
+            l_a += s[nt][e];
+            l_b += s[nt][2 + e];
+          }
 #pragma unroll
-    for (int dn = 0; dn < D / 8; ++dn) {
-      acc[dn][0] *= alpha_a;
-      acc[dn][1] *= alpha_a;
-      acc[dn][2] *= alpha_b;
-      acc[dn][3] *= alpha_b;
-    }
+        for (int dn = 0; dn < D / 8; ++dn) {
+          acc[dn][0] *= alpha_a;
+          acc[dn][1] *= alpha_a;
+          acc[dn][2] *= alpha_b;
+          acc[dn][3] *= alpha_b;
+        }
 
-    // acc += P V: the S accumulators of two adjacent key octets are the
-    // A fragment of one 16-key step; V's B fragment pairs two key rows.
+        // acc += P V: the S accumulators of two adjacent key octets are
+        // the A fragment of one 16-key step.
 #pragma unroll
-    for (int kk = 0; kk < kTileN / 16; ++kk) {
-      uint32_t a[4];
-      a[0] = pack2(s[2 * kk][0], s[2 * kk][1]);
-      a[1] = pack2(s[2 * kk][2], s[2 * kk][3]);
-      a[2] = pack2(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      a[3] = pack2(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      const int tok = kk * 16 + 2 * t4;
+        for (int kk = 0; kk < kTileN / 16; ++kk) {
+          const uint32_t a[4] = {pack2(s[2 * kk][0], s[2 * kk][1]),
+                                 pack2(s[2 * kk][2], s[2 * kk][3]),
+                                 pack2(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                                 pack2(s[2 * kk + 1][2], s[2 * kk + 1][3])};
 #pragma unroll
-      for (int dn = 0; dn < D / 8; ++dn) {
-        const int col = dn * 8 + g;
-        const uint32_t b0 = (uint32_t)vs[tok][col] |
-                            ((uint32_t)vs[tok + 1][col] << 16);
-        const uint32_t b1 = (uint32_t)vs[tok + 8][col] |
-                            ((uint32_t)vs[tok + 9][col] << 16);
-        mma_16816(acc[dn], a, b0, b1);
-      }
-    }
-  }
+          for (int dp = 0; dp < D / 16; ++dp) {
+            uint32_t vb[4];
+            ldsm_x4_trans(vb, vs + v_off + kk * 16 * kStride + dp * 16);
+            mma_16816(acc[2 * dp], a, vb[0], vb[1]);
+            mma_16816(acc[2 * dp + 1], a, vb[2], vb[3]);
+          }
+        }
+      });
 
   if (!warp_live) return;
   l_a = quad_sum(l_a);
@@ -238,110 +220,161 @@ __device__ __forceinline__ void attend(const Params& p, int row_tile,
   const float inv_b = l_b > 0.f ? 1.f / l_b : 0.f;
   const float lse2_a = l_a > 0.f ? m_a + log2f(l_a) : -INFINITY;
   const float lse2_b = l_b > 0.f ? m_b + log2f(l_b) : -INFINITY;
-
-  if (!kSplit) {
-    if (ra < rows) {
-      __nv_bfloat16* orow = p.o + (size_t)(row_base + ra) * D;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = half ? rb : ra;
+    if (r >= rows) continue;
+    const float inv = half ? inv_b : inv_a;
+    const float lse2 = half ? lse2_b : lse2_a;
+    if (p.splits == 1) {
+      bf16* orow = p.o + (row_base + r) * D;
 #pragma unroll
       for (int dn = 0; dn < D / 8; ++dn)
         *reinterpret_cast<__nv_bfloat162*>(orow + dn * 8 + 2 * t4) =
-            __floats2bfloat162_rn(acc[dn][0] * inv_a, acc[dn][1] * inv_a);
-      if (t4 == 0) p.lse[row_base + ra] = lse2_a * kLn2;
-    }
-    if (rb < rows) {
-      __nv_bfloat16* orow = p.o + (size_t)(row_base + rb) * D;
-#pragma unroll
-      for (int dn = 0; dn < D / 8; ++dn)
-        *reinterpret_cast<__nv_bfloat162*>(orow + dn * 8 + 2 * t4) =
-            __floats2bfloat162_rn(acc[dn][2] * inv_b, acc[dn][3] * inv_b);
-      if (t4 == 0) p.lse[row_base + rb] = lse2_b * kLn2;
-    }
-  } else {
-    const size_t prow =
-        (((size_t)b * p.kv_heads + h) * p.splits + split) * rows;
-    if (ra < rows) {
-      float* po = p.part_o + (prow + ra) * D;
+            __floats2bfloat162_rn(acc[dn][2 * half] * inv,
+                                  acc[dn][2 * half + 1] * inv);
+      if (t4 == 0) p.lse[row_base + r] = lse2 * kLn2;
+    } else {
+      float* po = p.part_o + (p_row + r) * D;
 #pragma unroll
       for (int dn = 0; dn < D / 8; ++dn)
         *reinterpret_cast<float2*>(po + dn * 8 + 2 * t4) =
-            make_float2(acc[dn][0] * inv_a, acc[dn][1] * inv_a);
-      if (t4 == 0) p.part_lse[prow + ra] = lse2_a;
-    }
-    if (rb < rows) {
-      float* po = p.part_o + (prow + rb) * D;
-#pragma unroll
-      for (int dn = 0; dn < D / 8; ++dn)
-        *reinterpret_cast<float2*>(po + dn * 8 + 2 * t4) =
-            make_float2(acc[dn][2] * inv_b, acc[dn][3] * inv_b);
-      if (t4 == 0) p.part_lse[prow + rb] = lse2_b;
+            make_float2(acc[dn][2 * half] * inv,
+                        acc[dn][2 * half + 1] * inv);
+      if (t4 == 0) p.part_lse[p_row + r] = lse2;
     }
   }
 }
 
-// Chunked prefill: grid (row tiles, kv_heads, batch); writes o and lse.
+// One block: rows [64 r, 64 r + 64) of one (sequence, kv head) against the
+// key tiles of split s of their visible range, for blockIdx.x = r * splits
+// + s.
 template <int D>
 __global__ void __launch_bounds__(kThreads)
-paged_prefill_kernel(Params p) {
-  attend<D, false>(p, blockIdx.x, 0);
+paged_prefill90_kernel(PrefillParams p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* ring = reinterpret_cast<bf16*>(smem);
+  int* pages = reinterpret_cast<int*>(smem + PrefillRing<D>::kBytes);
+
+  const int row_tile = blockIdx.x / p.splits, split = blockIdx.x % p.splits;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int qc = p.q_chunk, kvh = p.kv.kv_heads;
+  const int group = p.q_heads / kvh, rows = group * qc;
+  const int window = p.kv.window;
+  const bool prefetched = p.kv.prefetch(b, split * p.chunk,
+                                        (split + 1) * p.chunk, pages);
+  const int kv_len = p.kv.lengths[b];
+  const int tid = threadIdx.x;
+
+  // Key range any row of this block can see.
+  const int r0 = row_tile * kTileM;
+  const int r_last = min(r0 + kTileM, rows) - 1;
+  int t_min = 0, t_max = qc - 1;
+  if (r0 / qc == r_last / qc) {
+    t_min = r0 % qc;
+    t_max = r_last % qc;
+  }
+  const int q0 = kv_len - qc;  // position of query t = 0
+  const int col_hi = q0 + t_max;
+  const int col_lo = window > 0 ? max(0, q0 + t_min - window + 1) : 0;
+  const int first = col_lo / kTileN;
+  const int last = col_hi >= col_lo ? col_hi / kTileN + 1 : first;
+  const int t0 = first + split * (p.chunk / kTileN);
+  const int t1 = min(last, t0 + p.chunk / kTileN);
+
+  const size_t row_base = ((size_t)b * p.q_heads + (size_t)h * group) * qc;
+  const size_t p_row = (((size_t)b * kvh + h) * p.splits + split) * rows;
+  if (t0 >= t1) {  // no visible key in this split
+    for (int r = r0 + tid; r <= r_last; r += kThreads) {
+      if (p.splits > 1) {
+        for (int d = 0; d < D; ++d) p.part_o[(p_row + r) * D + d] = 0.f;
+        p.part_lse[p_row + r] = -INFINITY;
+      } else {
+        for (int d = 0; d < D; ++d)
+          p.o[(row_base + r) * D + d] = __float2bfloat16(0.f);
+        p.lse[row_base + r] = -INFINITY;
+      }
+    }
+  } else {
+    attend<D>(p, ring, pages, prefetched, b, h, r0, rows, q0, col_lo,
+              col_hi, t0, t1, row_base, p_row);
+  }
 }
 
-// Split-KV decode: grid (row tiles * splits, kv_heads, batch); writes
-// one normalized partial and its base-2 lse per split.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-paged_decode_split_kernel(Params p) {
-  attend<D, true>(p, blockIdx.x / p.splits, blockIdx.x % p.splits);
+int launch_prefill(const PrefillParams& p, int batch, cudaStream_t stream) {
+  const int rows = p.q_heads / p.kv.kv_heads * p.q_chunk;
+  const size_t smem =
+      PrefillRing<D>::kBytes +
+      sizeof(int) * pages_capacity(p.chunk, p.kv.page_size);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        paged_prefill90_kernel<D>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const dim3 grid(((rows + kTileM - 1) / kTileM) * p.splits, p.kv.kv_heads,
+                  batch);
+  paged_prefill90_kernel<D><<<grid, kThreads, smem, stream>>>(p);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || p.splits == 1) return (int)e;
+  merge_splits<bf16, D>(p.part_o, p.part_lse, p.o, p.lse, rows,
+                        p.kv.kv_heads, batch, p.splits, stream);
+  return (int)cudaGetLastError();
 }
 
-Params make_params(const void* q, const void* k_pool, const void* v_pool,
-                   const void* table, const void* lengths, void* o,
-                   void* lse, int q_heads, int kv_heads, int q_chunk,
-                   int page_size, int max_pages, float scale, int window) {
-  Params p;
-  p.q = static_cast<const __nv_bfloat16*>(q);
-  p.k_pool = static_cast<const __nv_bfloat16*>(k_pool);
-  p.v_pool = static_cast<const __nv_bfloat16*>(v_pool);
-  p.table = static_cast<const int*>(table);
-  p.lengths = static_cast<const int*>(lengths);
-  p.o = static_cast<__nv_bfloat16*>(o);
-  p.lse = static_cast<float*>(lse);
-  p.part_o = nullptr;
-  p.part_lse = nullptr;
-  p.q_heads = q_heads;
-  p.kv_heads = kv_heads;
-  p.q_chunk = q_chunk;
-  p.page_size = page_size;
-  p.max_pages = max_pages;
-  p.scale_log2e = scale * kLog2e;
-  p.window = window;
-  p.splits = 1;
-  return p;
+PagedKV make_kv(const void* k_pool, const void* v_pool, const void* table,
+                const void* lengths, int kv_heads, int head_dim,
+                int page_size, int max_pages, int window) {
+  PagedKV kv;
+  kv.k = static_cast<const bf16*>(k_pool);
+  kv.v = static_cast<const bf16*>(v_pool);
+  kv.table = static_cast<const int*>(table);
+  kv.lengths = static_cast<const int*>(lengths);
+  kv.kv_heads = kv_heads;
+  kv.head_dim = head_dim;
+  kv.page_size = page_size;
+  kv.max_pages = max_pages;
+  kv.window = window;
+  return kv;
 }
 
 }  // namespace
 
 extern "C" {
 
+// Both modes: `splits` blocks a (row tile,) kv head and sequence, each
+// taking `chunk` keys (a multiple of the mode's tile: MFA_DECODE_BLOCK_KV,
+// MFA_PAGED_BLOCK_KV) of its rows' visible range; part_o [b, kv_heads,
+// splits, rows, D] and part_lse [..., rows] float32 hold their partials
+// (unused when splits is 1), which `merge_splits` merges.
 int mfa_paged_prefill(const void* q, const void* k_pool, const void* v_pool,
                       const void* table, const void* lengths, void* o,
                       void* lse, int batch, int q_heads, int kv_heads,
                       int q_chunk, int head_dim, int page_size,
-                      int max_pages, float scale, int window,
-                      void* stream) {
-  const Params p = make_params(q, k_pool, v_pool, table, lengths, o, lse,
-                               q_heads, kv_heads, q_chunk, page_size,
-                               max_pages, scale, window);
-  const int rows = q_heads / kv_heads * q_chunk;
-  if (batch == 0 || rows == 0) return 0;
-  const dim3 grid((rows + kTileM - 1) / kTileM, kv_heads, batch);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (head_dim == 64)
-    paged_prefill_kernel<64><<<grid, kThreads, 0, s>>>(p);
-  else if (head_dim == 128)
-    paged_prefill_kernel<128><<<grid, kThreads, 0, s>>>(p);
-  else
+                      int max_pages, float scale, int window, void* part_o,
+                      void* part_lse, int splits, int chunk, void* stream) {
+  if (batch == 0 || q_chunk == 0) return 0;
+  if (kv_heads <= 0 || q_heads % kv_heads || page_size <= 0 || splits < 1 ||
+      chunk <= 0 || chunk % kTileN)
     return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  PrefillParams p;
+  p.q = static_cast<const bf16*>(q);
+  p.o = static_cast<bf16*>(o);
+  p.lse = static_cast<float*>(lse);
+  p.part_o = static_cast<float*>(part_o);
+  p.part_lse = static_cast<float*>(part_lse);
+  p.kv = make_kv(k_pool, v_pool, table, lengths, kv_heads, head_dim,
+                 page_size, max_pages, window);
+  p.q_heads = q_heads;
+  p.q_chunk = q_chunk;
+  p.chunk = chunk;
+  p.splits = splits;
+  p.scale_log2e = scale * kLog2e;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (head_dim == 64) return launch_prefill<64>(p, batch, s);
+  if (head_dim == 128) return launch_prefill<128>(p, batch, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 int mfa_paged_decode(const void* q, const void* k_pool, const void* v_pool,
@@ -349,30 +382,31 @@ int mfa_paged_decode(const void* q, const void* k_pool, const void* v_pool,
                      void* lse, int batch, int q_heads, int kv_heads,
                      int q_chunk, int head_dim, int page_size, int max_pages,
                      float scale, int window, void* part_o, void* part_lse,
-                     int splits, void* stream) {
-  Params p = make_params(q, k_pool, v_pool, table, lengths, o, lse, q_heads,
-                         kv_heads, q_chunk, page_size, max_pages, scale,
-                         window);
-  p.part_o = static_cast<float*>(part_o);
-  p.part_lse = static_cast<float*>(part_lse);
-  p.splits = splits;
-  const int rows = q_heads / kv_heads * q_chunk;
-  if (batch == 0 || rows == 0) return 0;
-  if (splits < 1) return (int)cudaErrorInvalidValue;
-  const dim3 grid(((rows + kTileM - 1) / kTileM) * splits, kv_heads, batch);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (head_dim == 64) {
-    paged_decode_split_kernel<64><<<grid, kThreads, 0, s>>>(p);
-    merge_splits<__nv_bfloat16, 64>(p.part_o, p.part_lse, p.o, p.lse, rows,
-                                    kv_heads, batch, splits, s);
-  } else if (head_dim == 128) {
-    paged_decode_split_kernel<128><<<grid, kThreads, 0, s>>>(p);
-    merge_splits<__nv_bfloat16, 128>(p.part_o, p.part_lse, p.o, p.lse, rows,
-                                     kv_heads, batch, splits, s);
-  } else {
+                     int splits, int chunk, void* stream) {
+  if (batch == 0) return 0;
+  if (q_chunk != 1 || kv_heads <= 0 || q_heads % kv_heads ||
+      q_heads / kv_heads > kDecodeMaxGroup || page_size <= 0 ||
+      splits < 1 || chunk <= 0 || chunk % kDecodeTile)
     return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  DecodeIO<bf16> io;
+  io.q = static_cast<const bf16*>(q);
+  io.o = static_cast<bf16*>(o);
+  io.lse = static_cast<float*>(lse);
+  io.part_o = static_cast<float*>(part_o);
+  io.part_lse = static_cast<float*>(part_lse);
+  io.q_heads = q_heads;
+  io.kv_heads = kv_heads;
+  io.chunk = chunk;
+  io.splits = splits;
+  io.scale_log2e = scale * kLog2e;
+  const PagedKV kv = make_kv(k_pool, v_pool, table, lengths, kv_heads,
+                             head_dim, page_size, max_pages, window);
+  const int cap = pages_capacity(chunk, page_size);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (head_dim == 64) return launch_decode<bf16, 64>(io, kv, batch, cap, s);
+  if (head_dim == 128)
+    return launch_decode<bf16, 128>(io, kv, batch, cap, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 const char* mfa_cuda_error_string(int code) {

@@ -23,10 +23,13 @@ valid call (span <= max_span).
 
 Dispatch: a CPU tensor takes the plain PyTorch version
 (`_flash_decode_plain`: float32 scores and softmax); a CUDA tensor takes
-the hand-written split-KV kernel in `csrc/flash_decode.cu` (bf16, fp16
-and true fp32, head dims 64 and 128), or raises.  There is no fallback
-from one to the other.  Each kernel launch adds one to
-``LAUNCH_COUNTS["flash_decode"]``.
+the hand-written kernel in `csrc/flash_decode.cu` (bf16, fp16 and true
+fp32, head dims 64 and 128), or raises.  There is no fallback from one
+to the other.  The kernel is the decode core of `csrc/decode_common.cuh`
+(a cp.async K/V ring, tensor cores for 16-bit inputs) split over the
+keys in fixed chunks (`paged_attention.decode_splits`).  Each kernel
+launch adds one to ``LAUNCH_COUNTS["flash_decode"]`` and to
+``LAUNCH_COUNTS["flash_decode_sm90"]``.
 
 Not ported yet, and refused on every device: quantized K/V
 (`QuantizedTensor`) and ``logit_softcap``.
@@ -44,15 +47,19 @@ import torch
 from metal_flash_attention_tpu_torch.native.build import tile_defines
 from metal_flash_attention_tpu_torch.ops.paged_attention import (
     _sm_count,
+    data_ptr,
     decode_splits,
+    split_scratch,
 )
 from metal_flash_attention_tpu_torch.utils.errors import not_ported
 
 KERNEL_HEAD_DIMS = (64, 128)
 KERNEL_DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 
-# One count per kernel, bumped only where its wrapper launches it.
-LAUNCH_COUNTS = {"flash_decode": 0}
+# One count per kernel, bumped only where its wrapper launches it; the
+# `_sm90` count names the Hopper kernel (`flash_decode90_kernel`) that every
+# launch now runs.
+LAUNCH_COUNTS = {"flash_decode": 0, "flash_decode_sm90": 0}
 
 KERNEL_ITEM = "flash-kernel coverage"
 
@@ -186,10 +193,14 @@ def _kernel_library() -> ctypes.CDLL:
     """Build (if stale) and bind csrc/flash_decode.cu."""
     from metal_flash_attention_tpu_torch.native.build import load_library
 
-    lib = load_library("flash_decode")
+    return bind_library(load_library("flash_decode"))
+
+
+def bind_library(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a build of csrc/flash_decode.cu."""
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.mfa_flash_decode.argtypes = ([ptr] * 9 + [i32] * 5 + [ptr, i32,
-                                     ctypes.c_float, i32, i32, ptr])
+    lib.mfa_flash_decode.argtypes = ([ptr] * 9 + [i32] * 5 + [
+        ptr, i32, ctypes.c_float, i32, i32, i32, ptr])
     lib.mfa_flash_decode.restype = i32
     lib.mfa_cuda_error_string.argtypes = [i32]
     lib.mfa_cuda_error_string.restype = ctypes.c_char_p
@@ -211,8 +222,8 @@ def _flash_decode_cuda(q, k, v, *, kv_lens, kv_starts, max_span, scale):
     if d not in KERNEL_HEAD_DIMS:
         raise not_ported(f"head_dim {d} in the decode kernel (it takes "
                          f"{KERNEL_HEAD_DIMS})", KERNEL_ITEM)
-    # The key tile and the largest group one block holds, as the kernel
-    # reads them from csrc/flash_tiles.cuh.
+    # The key tile, the largest chunk and the largest group one block
+    # holds, as the kernel reads them from csrc/flash_tiles.cuh.
     tiles = tile_defines()
     tile = tiles["MFA_DECODE_BLOCK_KV"]
     max_group = tiles["MFA_DECODE_MAX_GROUP"]
@@ -241,27 +252,24 @@ def _flash_decode_cuda(q, k, v, *, kv_lens, kv_starts, max_span, scale):
     lib = _kernel_library()
     # A span that starts mid-tile touches one tile more than it fills.
     max_tokens = n if max_span is None else min(n, max_span + tile)
-    splits = decode_splits(b, kvh, max_tokens,
-                           _sm_count(q.device.index or 0), tile)
-    group = qh // kvh
+    chunk, splits = decode_splits(b * kvh, max_tokens,
+                                  _sm_count(q.device.index or 0), tile,
+                                  tiles["MFA_DECODE_CHUNK"])
     o = torch.empty_like(q)
     lse = torch.empty((b, qh), dtype=torch.float32, device=q.device)
-    part_o = torch.empty((b, kvh, splits, group, d), dtype=torch.float32,
-                         device=q.device)
-    part_lse = torch.empty((b, kvh, splits, group), dtype=torch.float32,
-                           device=q.device)
+    part_o, part_lse = split_scratch(b, kvh, splits, qh // kvh, d, q.device)
     strides = (ctypes.c_longlong * 6)(*k.stride()[:3], *v.stride()[:3])
     stream = ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream)
     with torch.cuda.device(q.device):
         rc = lib.mfa_flash_decode(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            None if lens is None else lens.data_ptr(),
-            None if starts is None else starts.data_ptr(),
-            o.data_ptr(), lse.data_ptr(), part_o.data_ptr(),
-            part_lse.data_ptr(), b, qh, kvh, n, d, strides, max_span or 0,
-            ctypes.c_float(scale), splits, KERNEL_DTYPES[q.dtype], stream)
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), data_ptr(lens),
+            data_ptr(starts), o.data_ptr(), lse.data_ptr(),
+            data_ptr(part_o), data_ptr(part_lse), b, qh, kvh, n, d, strides,
+            max_span or 0, ctypes.c_float(scale), splits, chunk,
+            KERNEL_DTYPES[q.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"flash_decode kernel launch failed: CUDA error "
                            f"{rc} ({lib.mfa_cuda_error_string(rc).decode()})")
     LAUNCH_COUNTS["flash_decode"] += 1
+    LAUNCH_COUNTS["flash_decode_sm90"] += 1
     return o, lse

@@ -12,7 +12,8 @@ Layout (the JAX package's, at every public function):
 - pools: [num_pages, kv_heads, page_size, head_dim].  Unlike the JAX
   package, head_dim is NOT padded to 128 lanes: that was a TPU DMA rule;
 - page_table: [batch, max_pages] int32.  Entries past a sequence's live
-  pages, cdiv(length, page_size), are never read;
+  pages, cdiv(length, page_size), are never used (the kernels may read
+  them while the lengths load, and ignore them);
 - lengths: [batch] int32, live tokens per sequence, at most
   max_pages * page_size.
 
@@ -20,9 +21,14 @@ The appends update the pools IN PLACE (the JAX package donates them to
 the jit instead) and return a cache whose lengths moved on.
 
 Dispatch: a CPU tensor takes the plain PyTorch version
-(`_paged_attention_plain`); a CUDA tensor takes the hand-written kernel
-in `csrc/paged_attention.cu`, or raises.  There is no fallback from
-one to the other.  Each kernel launch adds one to `LAUNCH_COUNTS`.
+(`_paged_attention_plain`); a CUDA tensor takes the hand-written kernels
+in `csrc/paged_attention.cu` (bf16 pools, head dims 64 and 128), or
+raises.  There is no fallback from one to the other.  Both modes gather
+their pages through the cp.async ring of `csrc/decode_common.cuh` and
+split the keys in fixed chunks (`decode_splits`); decode runs the decode
+core that `flash_decode` runs.  Each kernel launch adds one to its
+`LAUNCH_COUNTS` entry and to the entry of its Hopper kernel
+(`paged_decode_sm90`, `paged_prefill_sm90`).
 """
 
 from __future__ import annotations
@@ -42,7 +48,10 @@ from metal_flash_attention_tpu_torch.utils.shapes import cdiv
 KERNEL_HEAD_DIMS = (64, 128)
 
 # One count per kernel, bumped only where its wrapper launches it.
-LAUNCH_COUNTS = {"paged_decode": 0, "paged_prefill": 0}
+LAUNCH_COUNTS = {"paged_decode": 0, "paged_prefill": 0,
+                 "paged_decode_sm90": 0, "paged_prefill_sm90": 0}
+
+KERNEL_ITEM = "flash-kernel coverage"
 
 
 def reset_launch_counts() -> None:
@@ -230,13 +239,17 @@ def _kernel_library() -> ctypes.CDLL:
     """Build (if stale) and bind csrc/paged_attention.cu."""
     from metal_flash_attention_tpu_torch.native.build import load_library
 
-    lib = load_library("paged_attention")
+    return bind_library(load_library("paged_attention"))
+
+
+def bind_library(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a build of csrc/paged_attention.cu."""
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    common = [ptr] * 7 + [i32] * 7 + [ctypes.c_float, i32]
-    lib.mfa_paged_prefill.argtypes = common + [ptr]
-    lib.mfa_paged_prefill.restype = i32
-    lib.mfa_paged_decode.argtypes = common + [ptr, ptr, i32, ptr]
-    lib.mfa_paged_decode.restype = i32
+    args = [ptr] * 7 + [i32] * 7 + [ctypes.c_float, i32, ptr, ptr, i32,
+                                    i32, ptr]
+    for fn in (lib.mfa_paged_prefill, lib.mfa_paged_decode):
+        fn.argtypes = args
+        fn.restype = i32
     lib.mfa_cuda_error_string.argtypes = [i32]
     lib.mfa_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -248,15 +261,48 @@ def _sm_count(device_index: int) -> int:
         device_index).multi_processor_count
 
 
-def decode_splits(batch: int, kv_heads: int, max_tokens: int,
-                  sm_count: int, tile: int) -> int:
-    """KV splits per (sequence, kv head) for a split-KV decode kernel
-    whose key tile is ``tile``: enough blocks for two waves over the SMs,
-    and no more splits than key tiles.  Each block divides its sequence's
-    live tiles evenly among the splits at run time, so no length is read
-    back to the host."""
-    want = cdiv(2 * sm_count, batch * kv_heads)
-    return max(1, min(want, cdiv(max_tokens, tile)))
+def decode_splits(pairs: int, max_tokens: int, sm_count: int, tile: int,
+                  max_chunk: int, *, at_most: bool = False
+                  ) -> tuple[int, int]:
+    """(chunk, splits) of a split-KV kernel whose key tile is ``tile``:
+    each of the ``pairs`` (rows, kv head) units of a call is split into
+    blocks of ``chunk`` keys, counted at run time from its rows' first live
+    tile, and ``splits`` such blocks cover ``max_tokens`` keys.  The chunk
+    is a whole number of tiles, at most ``max_chunk`` keys, and sized for
+    two waves of blocks over the SMs when every unit is ``max_tokens``
+    long: at least two for the decode modes (short, memory-bound blocks:
+    a partial last wave costs less than longer blocks), at most two with
+    ``at_most`` for the prefill (long, latency-bound blocks, two to an
+    SM: a third wave would cost a whole block's time).  It depends on
+    shapes only, so no length is read back to the host; a block past its
+    rows' live keys leaves at once."""
+    tiles = cdiv(max_tokens, tile)
+    blocks = 2 * sm_count
+    if at_most:
+        chunk_tiles = cdiv(tiles, max(1, blocks // pairs))
+    else:
+        chunk_tiles = tiles // cdiv(blocks, pairs)
+    chunk_tiles = max(1, min(max_chunk // tile, chunk_tiles))
+    return chunk_tiles * tile, max(1, cdiv(tiles, chunk_tiles))
+
+
+def split_scratch(batch: int, kv_heads: int, splits: int, rows: int,
+                  d: int, device):
+    """The float32 partials of a split-KV launch: part_o [batch,
+    kv_heads, splits, rows, d] and part_lse [..., rows], or (None, None)
+    when there is one split (the kernel then writes o and lse itself)."""
+    if splits == 1:
+        return None, None
+    part_o = torch.empty((batch, kv_heads, splits, rows, d),
+                         dtype=torch.float32, device=device)
+    part_lse = torch.empty((batch, kv_heads, splits, rows),
+                           dtype=torch.float32, device=device)
+    return part_o, part_lse
+
+
+def data_ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    """A tensor's address as a kernel argument; None (null) for None."""
+    return None if t is None else t.data_ptr()
 
 
 def _paged_attention_cuda(q, cache, *, scale, window_size, decode):
@@ -272,16 +318,12 @@ def _paged_attention_cuda(q, cache, *, scale, window_size, decode):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte "
                              "aligned")
-    if q.dtype != torch.bfloat16 or k_pages.dtype != torch.bfloat16 or \
-            v_pages.dtype != torch.bfloat16:
-        raise TypeError("the paged kernel takes bf16 q and pools, got "
+    if k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
+        raise TypeError("q and the pools must share a dtype, got "
                         f"{q.dtype}, {k_pages.dtype}, {v_pages.dtype}")
     if table.dtype != torch.int32 or lengths.dtype != torch.int32:
         raise TypeError("page_table and lengths must be int32")
-    if d not in KERNEL_HEAD_DIMS or d_kv != d:
-        raise ValueError(f"head_dim must be one of {KERNEL_HEAD_DIMS} and "
-                         f"match the pools; got q {d}, pools {d_kv}")
-    if v_pages.shape != k_pages.shape or qh % kvh or \
+    if d_kv != d or v_pages.shape != k_pages.shape or qh % kvh or \
             table.dim() != 2 or table.shape[0] != b or \
             lengths.shape != (b,):
         raise ValueError("shape mismatch: q %s, pools %s/%s, table %s, "
@@ -290,33 +332,50 @@ def _paged_attention_cuda(q, cache, *, scale, window_size, decode):
                                          tuple(v_pages.shape),
                                          tuple(table.shape),
                                          tuple(lengths.shape)))
+    if q.dtype != torch.bfloat16:
+        raise not_ported(f"{q.dtype} pools in the paged kernel (it takes "
+                         "bf16)", KERNEL_ITEM)
+    if d not in KERNEL_HEAD_DIMS:
+        raise not_ported(f"head_dim {d} in the paged kernel (it takes "
+                         f"{KERNEL_HEAD_DIMS})", KERNEL_ITEM)
+    tiles = tile_defines()
+    group = qh // kvh
+    if decode and group > tiles["MFA_DECODE_MAX_GROUP"]:
+        raise not_ported(f"GQA groups above {tiles['MFA_DECODE_MAX_GROUP']} "
+                         "in the paged decode kernel", KERNEL_ITEM)
     lib = _kernel_library()
     max_pages = table.shape[1]
+    max_tokens = max_pages * ps
+    sm_count = _sm_count(q.device.index or 0)
+    if decode:
+        tile = tiles["MFA_DECODE_BLOCK_KV"]
+        if window_size is not None:
+            # The last `window` keys start mid-tile at worst.
+            max_tokens = min(max_tokens, window_size + tile)
+        chunk, splits = decode_splits(b * kvh, max_tokens, sm_count, tile,
+                                      tiles["MFA_DECODE_CHUNK"])
+        rows, name = group, "paged_decode"
+    else:
+        row_tiles = cdiv(group * qc, tiles["MFA_PAGED_BLOCK_Q"])
+        chunk, splits = decode_splits(row_tiles * kvh * b, max_tokens,
+                                      sm_count, tiles["MFA_PAGED_BLOCK_KV"],
+                                      tiles["MFA_PAGED_PREFILL_CHUNK"],
+                                      at_most=True)
+        rows, name = group * qc, "paged_prefill"
     o = torch.empty_like(q)
     lse = torch.empty((b, qh, qc), dtype=torch.float32, device=q.device)
+    part_o, part_lse = split_scratch(b, kvh, splits, rows, d, q.device)
     stream = ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream)
-    args = [q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+    with torch.cuda.device(q.device):
+        rc = getattr(lib, f"mfa_{name}")(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             table.data_ptr(), lengths.data_ptr(), o.data_ptr(),
             lse.data_ptr(), b, qh, kvh, qc, d, ps, max_pages,
-            ctypes.c_float(scale), window_size or 0]
-    with torch.cuda.device(q.device):
-        if decode:
-            splits = decode_splits(b, kvh, max_pages * ps,
-                                   _sm_count(q.device.index or 0),
-                                   tile_defines()["MFA_PAGED_BLOCK_KV"])
-            rows = qh // kvh * qc
-            part_o = torch.empty((b, kvh, splits, rows, d),
-                                 dtype=torch.float32, device=q.device)
-            part_lse = torch.empty((b, kvh, splits, rows),
-                                   dtype=torch.float32, device=q.device)
-            rc = lib.mfa_paged_decode(*args, part_o.data_ptr(),
-                                      part_lse.data_ptr(), splits, stream)
-            name = "paged_decode"
-        else:
-            rc = lib.mfa_paged_prefill(*args, stream)
-            name = "paged_prefill"
+            ctypes.c_float(scale), window_size or 0, data_ptr(part_o),
+            data_ptr(part_lse), splits, chunk, stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc} "
                            f"({lib.mfa_cuda_error_string(rc).decode()})")
     LAUNCH_COUNTS[name] += 1
+    LAUNCH_COUNTS[f"{name}_sm90"] += 1
     return o, lse

@@ -8,14 +8,15 @@ only PyTorch:
 
     python -m pytest --noconftest -q tests/test_torch_decode_cuda.py
 
-The kernel computes in float32 on CUDA cores whatever the input type,
-so it is held against the plain version run on the same values in
-float32: they differ by the order of float32 sums and by the rounding of
-o to the input type.  fp32 o and every lse: the dtype's tier
-(`tolerances_for`).  bf16 and fp16 o: the relative rms error of each
-(sequence, head) row, `ROW_REL_RMS`, since a max abs limit of 5e-2
-would pass almost any output where |o| is about 0.03 (a row of 1,000
-keys with N(0, 1) values).
+The kernel computes fp32 inputs in float32 on CUDA cores, and bf16 and
+fp16 inputs on tensor cores with float32 sums and P rounded to the input
+type before PV; it is held against the plain version run on the same
+values in float32: they differ by the order of float32 sums and by the
+rounding of P and of o to the input type.  fp32 o and every lse: the
+dtype's tier (`tolerances_for`).  bf16 and fp16 o: the relative rms
+error of each (sequence, head) row, `ROW_REL_RMS`, since a max abs limit
+of 5e-2 would pass almost any output where |o| is about 0.03 (a row of
+1,000 keys with N(0, 1) values).
 """
 
 import numpy as np
@@ -88,6 +89,13 @@ CASES = [
     (64, 4, 128, 256, [256, 255], None, None, None),            # group 16
     (8, 8, 64, 64, [64, 63], None, None, 128),
     (32, 8, 128, 96, None, None, None, None),                   # full cache
+    # Batch 1 at 8,192 keys: many chunks.
+    (32, 8, 128, 8192, [8192], None, None, None),
+    # Starts and spans in the middle of chunks.
+    (32, 8, 128, 8192, [8192, 6000, 7777], [1000, 4100, 7000], 3000, None),
+    # A row whose live keys are the cache's last few, beside a full row
+    # and a one-key row.
+    (16, 4, 64, 4096, [4096, 4096, 1], [4090, 0, 0], None, None),
 ]
 
 
@@ -100,11 +108,12 @@ def test_decode_kernel_matches_plain(cuda, dtype, qh, kvh, d, n, lens,
                    kv_heads=kvh, d=d, max_seq=n, dtype=dtype, device=cuda,
                    cache_seq=cache_seq)
     lens_t, starts_t = _ints(lens, cuda), _ints(starts, cuda)
-    before = fd.LAUNCH_COUNTS["flash_decode"]
+    before = dict(fd.LAUNCH_COUNTS)
     o, lse = fd.flash_decode(q, k, v, kv_lens=lens_t, kv_starts=starts_t,
                              max_span=span, return_residuals=True)
     torch.cuda.synchronize()
-    assert fd.LAUNCH_COUNTS["flash_decode"] == before + 1
+    for name in ("flash_decode", "flash_decode_sm90"):
+        assert fd.LAUNCH_COUNTS[name] == before[name] + 1
     po, plse = fd._flash_decode_plain(q.float(), k.float(), v.float(),
                                       kv_lens=lens_t, kv_starts=starts_t,
                                       max_span=span, scale=d ** -0.5)
@@ -123,10 +132,11 @@ def test_sink_decode_on_the_card_matches_the_cpu(cuda):
     q, k, v = _qkv(1, batch=3, q_heads=32, kv_heads=8, d=128,
                    max_seq=2048, dtype=torch.bfloat16, device=cuda)
     lens = torch.tensor([2048, 3, 700], dtype=torch.int32, device=cuda)
-    before = fd.LAUNCH_COUNTS["flash_decode"]
+    before = dict(fd.LAUNCH_COUNTS)
     o = serving.sink_decode(q, k, v, lens, window=256, sink=4)
     torch.cuda.synchronize()
-    assert fd.LAUNCH_COUNTS["flash_decode"] == before + 2
+    for name in ("flash_decode", "flash_decode_sm90"):
+        assert fd.LAUNCH_COUNTS[name] == before[name] + 2
     ref = serving.sink_decode(q.cpu().float(), k.cpu().float(),
                               v.cpu().float(), lens.cpu(), window=256,
                               sink=4)
@@ -150,6 +160,7 @@ def test_generate_launches_each_kernel_per_layer_and_step(cuda):
     torch.cuda.synchronize()
     assert fa.LAUNCH_COUNTS["flash_fwd"] == cfg.n_layers
     assert fd.LAUNCH_COUNTS["flash_decode"] == cfg.n_layers * 4
+    assert fd.LAUNCH_COUNTS["flash_decode_sm90"] == cfg.n_layers * 4
     assert out.shape == (2, 45)
     assert ((out >= 0) & (out < cfg.vocab_size)).all()
 

@@ -4,6 +4,8 @@ through numpy.  Both must emit the same streams token for token (greedy
 float32: the logits agree to ~1e-5, far inside any argmax margin of
 these random weights)."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -86,6 +88,46 @@ def test_engine_streams_match_jax(models, jax_streams):
     st = teng.stats
     assert st["emitted_tokens"] == sum(MAX_NEW)
     assert st["active_slots"] == 0 and st["queue_depth"] == 0
+
+
+# Settings whose requests cross page boundaries, many times each: 8-token
+# pages against prompts of 5-50 tokens with 9-20 new ones, alone, with
+# two admissions a step, and with a 16-token sliding window in both
+# packages' configs; and a 12-page pool of 16-token pages.
+# (engine arguments, sliding window)
+PAGE_CASES = {
+    "page8": (dict(page_size=8), None),
+    "page8_two_admissions": (dict(page_size=8, admissions_per_step=2), None),
+    "page8_window16": (dict(page_size=8), 16),
+    "pool12_page16": (dict(page_size=16, num_pages=12), None),
+}
+LONG_PROMPT_LENS = (5, 50, 23, 37)
+LONG_MAX_NEW = (20, 9, 14, 11)
+
+
+@pytest.mark.parametrize("case", list(PAGE_CASES))
+def test_engine_streams_match_jax_across_pages(models, case):
+    engine_kw, window = PAGE_CASES[case]
+    jcfg, tcfg, jparams, tparams = models
+    if window is not None:
+        jcfg = dataclasses.replace(jcfg, sliding_window=window)
+        tcfg = dataclasses.replace(tcfg, sliding_window=window)
+    args = dict(dict(max_batch=2, num_pages=NUM_PAGES, max_seq=256),
+                **engine_kw)
+    jeng = JEngine(jparams, jcfg, **args)
+    teng = TEngine(tparams, tcfg, **args)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, 256, (n,)).astype(np.int32)
+               for n in LONG_PROMPT_LENS]
+    results = []
+    for eng in (jeng, teng):
+        rids = [eng.submit(p, m) for p, m in zip(prompts, LONG_MAX_NEW)]
+        _drain(eng)
+        results.append([eng.result(r).tolist() for r in rids])
+    assert results[1] == results[0]
+    for out, p, m in zip(results[1], prompts, LONG_MAX_NEW):
+        assert len(out) == len(p) + m
+    assert teng.alloc.free_pages == args["num_pages"] - 1
 
 
 def test_stop_token_ends_request_like_jax(models, jax_streams):

@@ -200,8 +200,11 @@ def test_constructors_put_tensors_where_the_default_resolves(monkeypatch):
                                 "MFA_BWD90_DKV_BLOCK_Q",
                                 "MFA_BWD90_DKV_BLOCK_KV",
                                 "MFA_BWD90_STAGES")),
-    ("paged_attention.cu", ("MFA_PAGED_BLOCK_KV",)),
-    ("flash_decode.cu", ("MFA_DECODE_BLOCK_KV", "MFA_DECODE_MAX_GROUP")),
+    ("paged_attention.cu", ("MFA_PAGED_BLOCK_Q", "MFA_PAGED_BLOCK_KV",
+                            "MFA_PAGED_STAGES", "MFA_DECODE_BLOCK_KV",
+                            "MFA_DECODE_STAGES")),
+    ("flash_decode.cu", ("MFA_DECODE_BLOCK_KV", "MFA_DECODE_MAX_GROUP",
+                         "MFA_DECODE_STAGES", "MFA_DECODE_MMA")),
     ("gemm.cu", ("MFA_GEMM_BLOCK_M", "MFA_GEMM_BLOCK_N", "MFA_GEMM_BLOCK_K")),
     ("gemm.cu", ("MFA_GEMM90_BLOCK_M", "MFA_GEMM90_BLOCK_N",
                  "MFA_GEMM90_QUANT_BLOCK_M", "MFA_GEMM90_QUANT_BLOCK_N",
@@ -210,11 +213,23 @@ def test_constructors_put_tensors_where_the_default_resolves(monkeypatch):
 ])
 def test_kernels_and_wrappers_share_the_tiles_header(source, names):
     """Each kernel takes its tiles from csrc/flash_tiles.cuh, the header
-    its wrapper reads, and keeps no copy of its own."""
+    its wrapper reads (directly, or through a shared header of csrc/ that
+    it includes), and keeps no copy of its own."""
+    import re
+
     from metal_flash_attention_tpu_torch.native import build
 
-    with open(os.path.join(build.SRC_DIR, source)) as f:
-        text = f.read()
+    text, todo, seen = "", [source], set()
+    while todo:
+        name = todo.pop()
+        if name in seen:
+            continue
+        seen.add(name)
+        with open(os.path.join(build.SRC_DIR, name)) as f:
+            body = f.read()
+        text += body
+        todo += [h for h in re.findall(r'#include "(\w+\.cuh)"', body)
+                 if os.path.exists(os.path.join(build.SRC_DIR, h))]
     assert '#include "flash_tiles.cuh"' in text
     defines = build.tile_defines()
     for name in names:
@@ -222,17 +237,35 @@ def test_kernels_and_wrappers_share_the_tiles_header(source, names):
 
 
 def test_decode_splits_fill_the_card_without_empty_splits():
-    """Two waves of blocks over the SMs, never more splits than key
-    tiles, at least one."""
+    """Fixed chunks of whole tiles, up to the largest chunk, small enough
+    for two waves of blocks over the SMs when every row is full; as many
+    splits as cover the longest row, and none that a full row leaves
+    empty."""
     from metal_flash_attention_tpu_torch.native import build
 
-    tile = build.tile_defines()["MFA_DECODE_BLOCK_KV"]
-    # 8 x 8 (sequence, kv head) pairs on 132 SMs: 5 splits of 128 tiles.
-    assert paged_attention.decode_splits(8, 8, 8192, 132, tile) == 5
-    # Few keys cap the splits at the tile count.
-    assert paged_attention.decode_splits(1, 8, tile + 1, 132, tile) == 2
-    # A batch that fills the card takes one split.
-    assert paged_attention.decode_splits(64, 8, 8192, 132, tile) == 1
+    tiles = build.tile_defines()
+    tile, most = tiles["MFA_DECODE_BLOCK_KV"], tiles["MFA_DECODE_CHUNK"]
+    # The dense generate shape: 8 x 8 (sequence, kv head) pairs on 132
+    # SMs take chunks of the largest size, 8 of them over 8,192 keys.
+    assert paged_attention.decode_splits(64, 8192, 132, tile, most) == (
+        most, 8192 // most)
+    # One sequence: small chunks, many of them, at least two waves.
+    chunk, splits = paged_attention.decode_splits(8, 8192, 132, tile, most)
+    assert chunk % tile == 0 and 8 * splits >= 2 * 132
+    assert (splits - 1) * chunk < 8192 <= splits * chunk
+    # Few keys: one tile a chunk, no split without a key.
+    assert paged_attention.decode_splits(8, tile + 1, 132, tile, most) == (
+        tile, 2)
+    assert paged_attention.decode_splits(8, 0, 132, tile, most) == (tile, 1)
+    # A batch that fills the card still takes chunks of at most `most`.
+    assert paged_attention.decode_splits(512, 8192, 132, tile, most) == (
+        most, 8192 // most)
+    # The prefill's rule, at most two waves: the engine's chunk (8 row
+    # tiles x 8 kv heads) against 1,024 keys takes 4 splits of 256 keys.
+    assert paged_attention.decode_splits(64, 1024, 132, 64, 512,
+                                         at_most=True) == (256, 4)
+    assert paged_attention.decode_splits(512, 1024, 132, 64, 512,
+                                         at_most=True) == (512, 2)
 
 
 def test_a_library_is_stale_when_a_shared_header_is_newer(tmp_path,

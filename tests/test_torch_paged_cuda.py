@@ -67,17 +67,24 @@ def _plain(q, cache, window, decode):
     (8, 4, 128, 128, [1100, 200, 645, 930], None),
     (32, 8, 128, 128, [1, 129, 1024, 257], None),
     (16, 4, 64, 32, [500, 77, 3], 40),
+    # 8-token pages (eight a tile), a zero-length row beside full ones.
+    (32, 8, 128, 8, [1000, 0, 77, 2048], None),
+    # 256-token pages, a window that crosses pages.
+    (16, 4, 128, 256, [300, 1100, 513], 300),
+    # Many chunks of one long row beside short ones.
+    (32, 8, 128, 64, [8192, 5, 700], None),
 ])
 def test_decode_kernel_matches_plain(cuda, q_heads, kv_heads, d, page_size,
                                      lengths, window):
     q, cache = _case(0, batch=len(lengths), q_heads=q_heads,
                      kv_heads=kv_heads, d=d, page_size=page_size,
                      lengths=lengths, q_chunk=None, device=cuda)
-    before = pa.LAUNCH_COUNTS["paged_decode"]
+    before = dict(pa.LAUNCH_COUNTS)
     o, lse = pa.paged_decode(q, cache, window_size=window,
                              return_residuals=True)
     torch.cuda.synchronize()
-    assert pa.LAUNCH_COUNTS["paged_decode"] == before + 1
+    for name in ("paged_decode", "paged_decode_sm90"):
+        assert pa.LAUNCH_COUNTS[name] == before[name] + 1
     ro, rlse = _plain(q, cache, window, decode=True)
     assert max_abs_err(o, ro) < MIXED_TOL.o
     assert max_abs_err(lse, rlse) < MIXED_TOL.lse
@@ -91,17 +98,24 @@ def test_decode_kernel_matches_plain(cuda, q_heads, kv_heads, d, page_size,
     (32, 8, 128, 128, 72, [200, 1100], None),
     (8, 8, 128, 64, 33, [33, 500], 50),
     (6, 2, 64, 32, 5, [5, 61], None),
+    # q_chunk larger than the page.
+    (32, 8, 128, 8, 40, [40, 1100], None),
+    # 256-token pages, a window that crosses pages.
+    (8, 2, 64, 256, 100, [100, 900], 200),
+    # A short row beside a long one: its late splits see no key.
+    (32, 8, 128, 16, 64, [64, 2000], None),
 ])
 def test_prefill_kernel_matches_plain(cuda, q_heads, kv_heads, d, page_size,
                                       q_chunk, lengths, window):
     q, cache = _case(1, batch=len(lengths), q_heads=q_heads,
                      kv_heads=kv_heads, d=d, page_size=page_size,
                      lengths=lengths, q_chunk=q_chunk, device=cuda)
-    before = pa.LAUNCH_COUNTS["paged_prefill"]
+    before = dict(pa.LAUNCH_COUNTS)
     o, lse = pa.paged_prefill(q, cache, window_size=window,
                               return_residuals=True)
     torch.cuda.synchronize()
-    assert pa.LAUNCH_COUNTS["paged_prefill"] == before + 1
+    for name in ("paged_prefill", "paged_prefill_sm90"):
+        assert pa.LAUNCH_COUNTS[name] == before[name] + 1
     ro, rlse = _plain(q, cache, window, decode=False)
     assert max_abs_err(o, ro) < MIXED_TOL.o
     assert max_abs_err(lse, rlse) < MIXED_TOL.lse
@@ -110,9 +124,11 @@ def test_prefill_kernel_matches_plain(cuda, q_heads, kv_heads, d, page_size,
 def test_kernel_refuses_what_it_does_not_take(cuda):
     q, cache = _case(2, batch=1, q_heads=4, kv_heads=2, d=64, page_size=16,
                      lengths=[20], q_chunk=None, device=cuda)
-    with pytest.raises(TypeError):
+    with pytest.raises(NotImplementedError):        # an fp32 pool
         pa.paged_decode(q.float(), cache._replace(
             k_pages=cache.k_pages.float(), v_pages=cache.v_pages.float()))
+    with pytest.raises(TypeError):                  # q and pools differ
+        pa.paged_decode(q.float(), cache)
     with pytest.raises(ValueError):
         pa.paged_decode(q[..., :32].contiguous(), cache)
     with pytest.raises(NotImplementedError):
