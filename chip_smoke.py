@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's paged serving, dense serving and training
-paths, and its standalone ops (quantized GEMM, softmax), on one NVIDIA
-GPU.
+"""Drive the PyTorch port's paged serving (bf16 and quantized KV), dense
+serving and training paths, and its standalone ops (quantized GEMM,
+softmax), on one NVIDIA GPU.
 
 Run from the root of a checkout, on a machine with one CUDA card and
 the CUDA toolkit:
@@ -35,6 +35,20 @@ Phases (any failure exits non-zero and prints no result):
    add up to PAGED_COLD_L2_MULTIPLE times the 50 MB L2 (a serve's 32
    layers each have their own pools), and warm, on one pool; then free
    the engine;
+4b. quant_serve: the same 6 requests through the engine with INT8 pools
+   (`kv_precision`, QUANT_SERVE_PRECISION) at full width and depth, every
+   paged, decode and forward launch count set to 0 just before and read
+   just after and held to exact counts, all on the Hopper kernels: per
+   layer, a chunk step is one wide paged decode over the quantized prefix
+   (the chunk folded into the heads, more rows than one decode fragment:
+   the prefill kernel with q_chunk 1) and one `flash_fwd`, a decode step
+   one quantized paged decode and one bf16 tail `flash_decode`; its new
+   tokens/s, peak memory and pool bytes beside the bf16 serve's, from
+   this run; quant_reference: on a 2-layer cut, the quantized chunk and
+   decode steps' logits in INT8, FP8-E4M3 and NF4 (a page flushed while
+   decoding) against plain float32 attention over the dequantized pages
+   and the tail (QUANT_REF_LIMITS, between the sound readings and those
+   of a planted fault: each row's first page lost);
 5. dense_serve: greedy `models.serving.generate` on the same full-depth
    weights, a batch of 8 random prompts of 8,160 tokens (seed 0), 32 new
    tokens each, a cache of 8,192 positions (Llama-3's context): one
@@ -84,7 +98,17 @@ Phases (any failure exits non-zero and prints no result):
    the merged output.  Then time the kernel and SDPA with a length mask
    (a yardstick that the port never calls) at ragged and full lengths
    (median and min-max of GEMM_REPEATS profiled loops), `sink_decode`
-   and the plain version;
+   and the plain version; quant_kernel_checks: every quantized kernel
+   variant (the paged decode at the serve's decode shape, the wide decode
+   of a folded 128-token chunk against 1,024 tokens, the paged prefill at
+   q [1, 32, 128, 128], each at page 128 and page 8, and `flash_decode`
+   at the generate shape) in INT8, FP8-E4M3, FP8-E5M2 and NF4 against
+   its plain version by the worst tile, with planted faults the limit
+   must see (one page's K scale replaced by its neighbour's, one (sequence,
+   head)'s for the dense cache; for NF4, K's nibble planes swapped); each
+   variant timed (median and min-max of 5 loops, the paged ones cold),
+   beside its bytes bound (payload, scales, q, o and lse) and the bf16
+   kernel's time at the same shape;
 8. train: Llama-3-8B widths cut to 4 layers (at full depth the bf16
    weights, their float32 shadow and AdamW's two float32 moments come
    to about 101 GB, more than the card's 80 GB; 4 layers need about
@@ -140,10 +164,11 @@ each output written once; a quantized weight's payload and scales) over
 3.35 TB/s and the operations this run's data needs (visible query-key
 pairs only) over 989 TFLOP/s in bf16.
 
-Output: `serve`, `reference`, `dense_serve`, `dense_profile`,
-`decode_reference`, `quant_gemm`, `gemm_checks`, `decode_checks`,
-`train`, `train_profile`, `train_reference`, `flash_checks` and
-`softmax_checks` lines, the card's name and power
+Output: `serve`, `reference`, `quant_serve`, `quant_reference`,
+`dense_serve`, `dense_profile`, `decode_reference`, `quant_gemm`,
+`gemm_checks`, `decode_checks`, `quant_kernel_checks`, `train`,
+`train_profile`, `train_reference`, `flash_checks` and `softmax_checks`
+lines, a `phases` line (each phase's seconds), the card's name and power
 limit as nvidia-smi gives them, a `kernels` JSON line, and as the last
 line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -251,6 +276,23 @@ SOFTMAX_SCALE_DERIVATIVE = 0.5
 # H100's 50 MB L2.
 L2_BYTES = 50 * 2**20
 PAGED_COLD_L2_MULTIPLE = 2
+
+# Quantized-KV serving (slice 9).  quant_serve: the paged serve's
+# requests through the engine with QUANT_SERVE_PRECISION pools, full width
+# and depth.  quant_reference: a 2-layer cut, QUANT_REF_BATCH sequences of
+# QUANT_REF_PROMPT tokens in page-sized chunks (the second leaves a tail
+# two tokens short of a page) and QUANT_REF_STEPS decode steps (the tail
+# fills and flushes), logits against plain float32 attention over the
+# dequantized pages and the tail, with a limit per precision between the
+# sound readings and a planted fault's (each row's first page lost);
+# quant_kernel_checks: every quantized kernel variant in every precision.
+QUANT_SERVE_PRECISION = "int8"
+QUANT_REF_PRECISIONS = ("int8", "fp8_e4m3", "nf4")
+QUANT_REF_BATCH = 2
+QUANT_REF_PROMPT = 254
+QUANT_REF_STEPS = 4
+QUANT_REF_LIMITS = {p: {"rel_rms": REF_REL_RMS, "max_abs": REF_MAX_ABS}
+                    for p in QUANT_REF_PRECISIONS}
 
 # NVIDIA H100 SXM data sheet, dense: bf16 tensor cores and HBM3.
 PEAK_BF16_FLOPS = 989e12
@@ -515,9 +557,10 @@ def visible_pairs(q_len: int, kv_len: int, causal: bool,
     return int(np.maximum(0, hi - lo + 1).sum())
 
 
-def serve(params, cfg, prompts, dev):
-    """The serving path: the port's engine over every request; returns
-    the engine, request ids, seconds and steps."""
+def serve(params, cfg, prompts, dev, kv_precision=None):
+    """The serving path: the port's engine over every request (with
+    ``kv_precision``, over quantized pools); returns the engine, request
+    ids, seconds, steps and pages."""
     import torch
     from metal_flash_attention_tpu_torch import ServingEngine
 
@@ -525,7 +568,7 @@ def serve(params, cfg, prompts, dev):
     num_pages = MAX_BATCH * -(-max_seq // PAGE) + 1
     eng = ServingEngine(params, cfg, max_batch=MAX_BATCH,
                         num_pages=num_pages, page_size=PAGE,
-                        max_seq=max_seq)
+                        max_seq=max_seq, kv_precision=kv_precision)
     rids = [eng.submit(p, MAX_NEW) for p in prompts]
     torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
@@ -743,6 +786,508 @@ def paged_kernel_checks(dev, launches) -> list[dict]:
             "ms_warm": warm["ms"], "spread_warm": warm,
             "plain_wall_ms": plain_wall_ms, "shape": shape})
         del caches
+    return results
+
+
+def pool_bytes(*groups) -> int:
+    return sum(nbytes(*g) for g in groups)
+
+
+@contextlib.contextmanager
+def counted_calls(module, names, counts: dict):
+    """`module.<name>` for each name wrapped, inside the block, to append
+    its first tokens argument's width (a chunk's positions; 1 for a
+    decode step's [batch] tokens) to counts[name]."""
+    originals = {n: getattr(module, n) for n in names}
+
+    def wrap(name, fn):
+        def run(params, tokens, *args, **kwargs):
+            counts[name].append(tokens.shape[1] if tokens.dim() == 2 else 1)
+            return fn(params, tokens, *args, **kwargs)
+        return run
+    for n in names:
+        counts[n] = []
+        setattr(module, n, wrap(n, originals[n]))
+    try:
+        yield
+    finally:
+        for n, fn in originals.items():
+            setattr(module, n, fn)
+
+
+def quant_serve(params, cfg, prompts, dev, card, bf16) -> dict:
+    """The quantized-KV serving path: the paged serve's requests through
+    the engine with QUANT_SERVE_PRECISION pools (full width and depth),
+    every launch count of the paged, decode and forward kernels set to 0
+    just before and read just after, and held to exact counts: a layer's
+    chunk step is one wide paged decode over the quantized prefix (the
+    chunk folded into the heads) and one `flash_fwd`, a layer's decode
+    step one quantized paged decode and one bf16 tail `flash_decode`.
+    Returns the launch counts."""
+    import torch
+    from metal_flash_attention_tpu_torch.models import serving
+    from metal_flash_attention_tpu_torch.native.build import tile_defines
+    from metal_flash_attention_tpu_torch.ops import flash_attention as fa
+    from metal_flash_attention_tpu_torch.ops import flash_decode as fd
+    from metal_flash_attention_tpu_torch.ops import paged_attention as pa
+
+    prec = QUANT_SERVE_PRECISION
+    # Warm-up request (library load, cuBLAS handles); not counted.
+    serve(params, cfg, [prompts[1][:64]], dev, kv_precision=prec)
+    calls: dict = {}
+    torch.cuda.reset_peak_memory_stats(dev)
+    with counted_calls(serving, ("paged_chunk_step_q",
+                                 "paged_decode_step_q"), calls):
+        for m in (pa, fd, fa):
+            m.reset_launch_counts()
+        eng, rids, secs, steps, num_pages = serve(params, cfg, prompts, dev,
+                                                  kv_precision=prec)
+        launches = {**pa.LAUNCH_COUNTS, **fd.LAUNCH_COUNTS,
+                    **fa.LAUNCH_COUNTS}
+    peak = torch.cuda.max_memory_allocated(dev)
+    layers, group = cfg.n_layers, cfg.n_heads // cfg.n_kv_heads
+    chunks = calls["paged_chunk_step_q"]
+    wide = sum(group * kc > tile_defines()["MFA_DECODE_MAX_GROUP"]
+               for kc in chunks)
+    decode = layers * (len(calls["paged_decode_step_q"]) + len(chunks)
+                       - wide)
+    expected = {f"paged_decode{s}": decode for s in ("", "_sm90",
+                                                     f"_{prec}")}
+    expected.update({f"paged_decode_wide{s}": layers * wide
+                     for s in ("", "_sm90", f"_{prec}")})
+    expected.update({"flash_decode": layers * len(
+        calls["paged_decode_step_q"]), "flash_fwd": layers * len(chunks)})
+    expected["flash_decode_sm90"] = expected["flash_decode"]
+    expected["flash_fwd_sm90"] = expected["flash_fwd"]
+    wrong = {k: (n, expected.get(k, 0)) for k, n in launches.items()
+             if n != expected.get(k, 0)}
+    if wrong or not decode or not wide:
+        fail(f"quant_serve launched (count, expected) {wrong}")
+    for rid, p in zip(rids, prompts):
+        out = eng.result(rid)
+        if len(out) != len(p) + MAX_NEW:
+            fail(f"quantized request {rid} returned {len(out)} tokens")
+        if not ((out >= 0) & (out < cfg.vocab_size)).all():
+            fail(f"quantized request {rid} emitted a token outside the "
+                 "vocabulary")
+    if eng.alloc.free_pages != num_pages - 1:
+        fail(f"quantized serve leaked pages: {eng.alloc.free_pages} of "
+             f"{num_pages - 1} free")
+    qbytes = pool_bytes(eng._qk, eng._qv, eng._ks, eng._vs)
+    tbytes = pool_bytes(eng._tail_k, eng._tail_v)
+    tokens = MAX_NEW * len(prompts)
+    print("quant_serve: " + json.dumps({
+        "config": f"llama3_8b, {cfg.n_layers} layers (full depth), bf16, "
+                  f"kv_precision {prec}",
+        "requests": len(prompts), "prompt_tokens": int(sum(PROMPT_LENS)),
+        "new_tokens": tokens, "seconds": secs, "steps": steps,
+        "new_tokens_per_s": tokens / secs, "max_memory_allocated": peak,
+        "pool_bytes": qbytes, "tail_bytes": tbytes,
+        "chunk_steps": len(chunks), "wide_chunk_steps": wide,
+        "decode_steps": len(calls["paged_decode_step_q"]),
+        "launches": {k: n for k, n in launches.items() if n},
+        "bf16_serve": bf16, "pool_bytes_over_bf16":
+            (qbytes + tbytes) / bf16["pool_bytes"],
+        "card": card}), flush=True)
+    return launches
+
+
+def quant_reference_step(params, tokens, cfg, cache):
+    """The logits of one quantized serving step (tokens [batch, k], k
+    positions at each row's length) with plain float32 attention over
+    the row's quantized pages dequantized, then its tail, then the new
+    tokens, causal at the end: what `paged_chunk_step_q` /
+    `paged_decode_step_q` compute, without the merge of partials and
+    without touching the cache."""
+    import torch
+    from metal_flash_attention_tpu_torch.models import llama
+    from metal_flash_attention_tpu_torch.ops import paged_attention as pa
+    from metal_flash_attention_tpu_torch.ops.reference import (
+        attention_reference,
+    )
+
+    b, kc = tokens.shape
+    page = cache.page_size
+    full, tail = cache.full_len.tolist(), cache.tail_len.tolist()
+    pos = cache.lengths.long()[:, None] + torch.arange(
+        kc, device=tokens.device)[None, :]
+    cos, sin = llama.rope_frequencies(cfg, pos)
+    x = params["embed"][tokens.long()].to(cfg.dtype)
+    for li, layer in enumerate(params["layers"]):
+        q, k, v = llama.attention_qkv(layer, x, cfg, cos, sin)
+        rows = []
+        for i in range(b):
+            pages = cache.page_table[i, :full[i] // page].long()
+
+            def seq(pool, scales, tails, new):
+                deq = pa.dequantize_pages(pool[pages], scales[pages],
+                                          cache.precision, cfg.dtype)
+                deq = deq.permute(1, 0, 2, 3).reshape(
+                    deq.shape[1], -1, deq.shape[-1])
+                return torch.cat([deq, tails[i, :, :tail[i]].float(),
+                                  new[i].float()], dim=1)[None]
+            rows.append(attention_reference(
+                q[i:i + 1].float(),
+                seq(cache.qk[li], cache.k_scales[li], cache.tail_k[li], k),
+                seq(cache.qv[li], cache.v_scales[li], cache.tail_v[li], v),
+                causal=True))
+        o = torch.cat(rows).to(cfg.dtype).transpose(1, 2).reshape(b, kc, -1)
+        x = x + (o @ layer["wo"]).to(x.dtype)
+        x = llama.mlp_block(layer, x, cfg)
+    x = llama.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return (x @ params["lm_head"]).float()
+
+
+def lost_first_page(cache):
+    """A copy of a quantized paged cache whose rows' first pages are
+    lost: payload the code of 0.0, scales 1 (as a flush that wrote its
+    page elsewhere leaves them)."""
+    import torch
+    first = cache.page_table[:, 0].long()
+    zero = 0x77 if cache.precision.value == "nf4" else 0
+
+    def lose(tensors, fill, as_bytes):
+        out = []
+        for t in tensors:
+            t = t.clone()
+            (t.view(torch.uint8) if as_bytes else t)[first] = fill
+            out.append(t)
+        return tuple(out)
+    return cache._replace(
+        qk=lose(cache.qk, zero, True), qv=lose(cache.qv, zero, True),
+        k_scales=lose(cache.k_scales, 1.0, False),
+        v_scales=lose(cache.v_scales, 1.0, False),
+        tail_k=tuple(t.clone() for t in cache.tail_k),
+        tail_v=tuple(t.clone() for t in cache.tail_v))
+
+
+def quant_reference(params, cfg, dev) -> dict:
+    """On a 2-layer cut of the weights, the quantized serving steps'
+    logits (QUANT_REF_PROMPT tokens in page-sized chunks, then
+    QUANT_REF_STEPS decode steps whose tail fills and flushes a page)
+    against `quant_reference_step`, in each of QUANT_REF_PRECISIONS; and
+    one more decode step with each row's first page lost, a planted
+    fault that the limits must see."""
+    import torch
+    from metal_flash_attention_tpu_torch.models import serving
+
+    cut = dict(params, layers=params["layers"][:REFERENCE_LAYERS])
+    ccfg = dataclasses.replace(cfg, n_layers=REFERENCE_LAYERS)
+    rng = np.random.default_rng(SEED + 8)
+    n = QUANT_REF_PROMPT + QUANT_REF_STEPS + 1
+    tokens = torch.as_tensor(
+        rng.integers(0, cfg.vocab_size, (QUANT_REF_BATCH, n)), device=dev)
+    out, problems = {}, []
+    with torch.inference_mode():
+        for prec in QUANT_REF_PRECISIONS:
+            cache = serving.init_quantized_paged_model_cache(
+                ccfg, QUANT_REF_BATCH, n, precision=prec, page_size=PAGE,
+                device=dev)
+            got, ref = [], []
+            for i in range(0, QUANT_REF_PROMPT, PAGE):
+                chunk = tokens[:, i:min(i + PAGE, QUANT_REF_PROMPT)]
+                ref.append(quant_reference_step(cut, chunk, ccfg,
+                                                cache)[:, -1])
+                logits, cache = serving.paged_chunk_step_q(cut, chunk, ccfg,
+                                                           cache)
+                got.append(logits[:, -1])
+            full_before = cache.full_len.clone()
+            for s in range(QUANT_REF_STEPS):
+                tok = tokens[:, QUANT_REF_PROMPT + s]
+                ref.append(quant_reference_step(cut, tok[:, None], ccfg,
+                                                cache)[:, 0])
+                logits, cache = serving.paged_decode_step_q(cut, tok, ccfg,
+                                                            cache)
+                got.append(logits)
+            if torch.equal(cache.full_len, full_before):
+                fail("quant_reference's decode steps flushed no page")
+            tok = tokens[:, -1]
+            fault_ref = quant_reference_step(cut, tok[:, None], ccfg,
+                                             cache)[:, 0]
+            fault, _ = serving.paged_decode_step_q(cut, tok, ccfg,
+                                                   lost_first_page(cache))
+            got, ref = torch.stack(got, 1), torch.stack(ref, 1)
+            if not torch.isfinite(got).all():
+                fail(f"quantized path ({prec}) gave non-finite logits")
+
+            def reading(a, r):
+                e = a - r
+                return {"rel_rms_err": float(e.pow(2).mean().sqrt()
+                                             / r.pow(2).mean().sqrt()),
+                        "max_abs_err": float(e.abs().max())}
+            limit = QUANT_REF_LIMITS[prec]
+            r = reading(got, ref)
+            r["planted_fault"] = reading(fault, fault_ref)
+            r["limits"] = limit
+            out[prec] = r
+
+            def within(x):
+                return (x["rel_rms_err"] <= limit["rel_rms"]
+                        and x["max_abs_err"] <= limit["max_abs"])
+            if not within(r):
+                problems.append(f"{prec} logits disagree with the plain "
+                                "attention over the dequantized pools")
+            if within(r["planted_fault"]):
+                problems.append(f"the {prec} limits do not see a lost page")
+    print("quant_reference: " + json.dumps({
+        "layers": REFERENCE_LAYERS, "batch": QUANT_REF_BATCH,
+        "prompt": QUANT_REF_PROMPT, "decode_steps": QUANT_REF_STEPS,
+        "page": PAGE, "readings": out}), flush=True)
+    if problems:
+        fail("; ".join(problems))
+    return out
+
+
+def quant_kernel_checks(dev, launches) -> list[dict]:
+    """Each quantized kernel variant against its plain version, in every
+    precision of QUANT_PRECISIONS, by the worst tile (KERNEL_TILE_REL_RMS;
+    lse at MIXED_TOL): the paged decode at the serve's decode shape, a
+    serving chunk's prefix folded into the heads (the wide decode), the
+    paged prefill at the serve's chunk, each at page 128 and page 8 (a
+    64-key tile then spans eight pages' scales), and `flash_decode` at the
+    generate shape.  K and V carry a magnitude per (page or sequence, kv
+    head), so that their scales differ.  Planted faults, each of which
+    the limit must see: one page's K scale replaced by its neighbour's
+    (the dense cache: one (sequence, head)'s by its neighbour's); for
+    NF4, K's two nibble planes swapped.  Then each variant's time (median
+    and min-max of GEMM_REPEATS loops; the paged ones cold, over a
+    rotation of pools whose reads exceed PAGED_COLD_L2_MULTIPLE times the
+    L2), its bytes bound, its plain version's time and the bf16 kernel's
+    at the same shape, in the same call."""
+    import torch
+    from metal_flash_attention_tpu_torch.descriptors.precision import (
+        OperandPrecision,
+    )
+    from metal_flash_attention_tpu_torch.ops import flash_decode as fd
+    from metal_flash_attention_tpu_torch.ops import paged_attention as pa
+    from metal_flash_attention_tpu_torch.ops.quantization import quantize
+    from metal_flash_attention_tpu_torch.utils.tolerances import (
+        MIXED_TOL,
+        max_abs_err,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    kvh, qh, d = KV_HEADS, Q_HEADS, HEAD_DIM
+    scale = d ** -0.5
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def pools(lengths, page):
+        """bf16 pools with a magnitude per (page, kv head), a shuffled
+        table."""
+        max_pages = -(-max(lengths) // page)
+        num_pages = len(lengths) * max_pages + 1
+        mag = torch.exp(2 * torch.rand((num_pages, kvh, 1, 1),
+                                       generator=gen, device=dev) - 1)
+        k = (randn(num_pages, kvh, page, d) * mag).to(torch.bfloat16)
+        v = (randn(num_pages, kvh, page, d) * mag).to(torch.bfloat16)
+        perm = torch.randperm(num_pages - 1, generator=gen,
+                              device=dev).to(torch.int32) + 1
+        return pa.PagedKVCache(k, v, perm.reshape(len(lengths), max_pages),
+                               torch.tensor(lengths, dtype=torch.int32,
+                                            device=dev))
+
+    def as4(q):
+        return q if q.dim() == 4 else q[:, :, None]
+
+    def paged_plain(q, cache):
+        po, plse = pa._paged_attention_plain(as4(q), cache, scale=scale,
+                                             window_size=None)
+        return po.reshape(q.shape), plse.reshape(q.shape[:-1])
+
+    def rows_of(o):
+        """Decode outputs [b, heads, d]: each (sequence, head) a tile."""
+        return o[:, :, None] if o.dim() == 3 else o
+
+    def scale_fault(cache):
+        """One of sequence 0's pages takes its neighbour's K scales: the
+        adjacent pair whose scales differ most."""
+        ks = cache.k_scales.clone()
+        live = -(-int(cache.lengths[0]) // cache.page_size)
+        table = cache.page_table[0, :live].long()
+        ratio = (ks[table[1:]].log() - ks[table[:-1]].log()).abs()
+        j = int(ratio.amax(dim=1).argmax())
+        ks[table[j]] = ks[table[j + 1]]
+        return cache._replace(k_scales=ks)
+
+    def swap_planes(payload):
+        x = payload.view(torch.uint8)
+        return ((x << 4) | (x >> 4)).view(payload.dtype)
+
+    dec_lens = [n + MAX_NEW for n in PROMPT_LENS[:MAX_BATCH]]
+    qd = randn(MAX_BATCH, qh, d).to(torch.bfloat16)
+    qw = randn(1, qh * PAGE, d).to(torch.bfloat16)
+    qp = randn(1, qh, PAGE, d).to(torch.bfloat16)
+    # (name, fn, q, lengths): the paged variants.
+    paged_cases = [("paged_decode", pa.paged_decode, qd, dec_lens),
+                   ("paged_decode_wide", pa.paged_decode, qw, [1024]),
+                   ("paged_prefill", pa.paged_prefill, qp, [1024])]
+    bf16 = {(name, page): pools(lens, page)
+            for name, _, _, lens in paged_cases for page in (PAGE, 8)}
+    b, n = DENSE_BATCH, DENSE_MAX_SEQ
+    mag = torch.exp(2 * torch.rand((b, kvh, 1, 1), generator=gen,
+                                   device=dev) - 1)
+    kd = (randn(b, kvh, n, d) * mag).to(torch.bfloat16)
+    vd = (randn(b, kvh, n, d) * mag).to(torch.bfloat16)
+    qg = randn(b, qh, d).to(torch.bfloat16)
+    dlens = torch.tensor(DECODE_LENS, dtype=torch.int32, device=dev)
+
+    readings, results, problems = {}, [], []
+
+    def check(key, o, lse, po, plse, faults):
+        r = closeness(rows_of(o), rows_of(po))
+        r["lse_max_abs_err"] = max_abs_err(lse, plse)
+        for fname, fo in faults.items():
+            r[fname] = closeness(rows_of(fo), rows_of(po))
+            if within_limits(r[fname]):
+                problems.append(f"the {key} check does not see {fname}")
+        if not within_limits(r) or r["lse_max_abs_err"] > MIXED_TOL.lse:
+            problems.append(f"{key} disagrees with its plain version")
+        readings[key] = r
+        return r
+
+    def rotation(make, first, bytes_read):
+        count = -(-PAGED_COLD_L2_MULTIPLE * L2_BYTES // max(bytes_read, 1))
+        return [first] + [make() for _ in range(count - 1)]
+
+    def cycling(fn, q, caches):
+        turn = itertools.cycle(caches)
+        return lambda: fn(q, next(turn))
+
+    def paged_work(q, cache, value_bytes):
+        """(FLOPs, bytes): each live K and V value and each touched
+        page's two scales read once, q read, o and lse written."""
+        q4 = as4(q)
+        lengths = cache.lengths.tolist()
+        page = cache.page_size
+        pairs = sum(visible_pairs(q4.shape[2], x, True, None)
+                    for x in lengths)
+        kv = int(sum(lengths) * kvh * d * 2 * value_bytes)
+        scales = 0 if value_bytes == 2 else \
+            sum(-(-x // page) for x in lengths) * kvh * 2 * 4
+        return (4 * d * q4.shape[1] * pairs,
+                kv + scales + 2 * q4.numel() * 2 + q4[..., 0].numel() * 4)
+
+    bf16_ms = {}
+    for name, fn, q, lens in paged_cases:
+        c = bf16[(name, PAGE)]
+        caches = rotation(lambda: pools(lens, PAGE), c,
+                          paged_work(q, c, 2)[1])
+        bf16_ms[name] = timed_spread(cycling(fn, q, caches),
+                                     4 * len(caches))
+        del caches
+    bf16_ms["flash_decode"] = timed_spread(
+        lambda: fd.flash_decode(qg, kd, vd, kv_lens=dlens), 50)
+
+    for prec in QUANT_PRECISIONS:
+        p = OperandPrecision(prec)
+        nf4 = p is OperandPrecision.NF4
+        value_bytes = 0.5 if nf4 else 1
+        for name, fn, q, lens in paged_cases:
+            key = f"{name}_{prec}"
+            page_readings = {}
+            for page in (PAGE, 8):
+                c = pa.quantize_paged(bf16[(name, page)], p)
+                o, lse = fn(q, c, return_residuals=True)
+                po, plse = paged_plain(q, c)
+                faults = {"k_scale_of_neighbour_page":
+                          fn(q, scale_fault(c))}
+                if nf4:
+                    faults["nibble_planes_swapped"] = fn(
+                        q, c._replace(k_pages=swap_planes(c.k_pages)))
+                page_readings[page] = check(f"{key}.page{page}", o, lse, po,
+                                            plse, faults)
+            c = pa.quantize_paged(bf16[(name, PAGE)], p)
+            work = paged_work(q, c, value_bytes)
+            caches = rotation(
+                lambda: pa.quantize_paged(pools(lens, PAGE), p), c, work[1])
+            cold = timed_spread(cycling(fn, q, caches), 4 * len(caches))
+            del caches
+            plain_ms, _ = timed(lambda: paged_plain(q, c), 10)
+            bound_ms, bound_by = bound(*work)
+            results.append({
+                "name": key, "route": "cuda",
+                "source": "metal_flash_attention_tpu_torch/csrc/"
+                          "paged_attention.cu",
+                "core": "metal_flash_attention_tpu_torch/csrc/"
+                        "decode_common.cuh",
+                "replaces": "metal_flash_attention_tpu/ops/"
+                            "paged_attention.py:183 (kv_precision "
+                            f"{prec})",
+                "kernel": "paged_prefill90_kernel" if name != "paged_decode"
+                          else "flash_decode90_kernel (paged)",
+                "launches": launches.get(key, 0),
+                "max_abs_err": max(r["max_abs_err"]
+                                   for r in page_readings.values()),
+                "o": page_readings[PAGE], "o_page8": page_readings[8],
+                "limits": {"tile_rel_rms": KERNEL_TILE_REL_RMS,
+                           "lse_abs": MIXED_TOL.lse},
+                "ms": cold["ms"], "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": None,
+                "library": "none: no one PyTorch call dequantizes pages "
+                           "and attends",
+                "share_of_bound": bound_ms / cold["ms"],
+                "spread": cold, "bf16_ms": bf16_ms[name]["ms"],
+                "bf16_spread": bf16_ms[name],
+                "cold": {"pools": -(-PAGED_COLD_L2_MULTIPLE * L2_BYTES
+                                    // work[1])},
+                "shape": f"q {list(q.shape)}, lengths {lens}, page "
+                         f"{PAGE} (timed) and 8"})
+        key = f"flash_decode_{prec}"
+        kq, vq = quantize(kd, p), quantize(vd, p)
+        o, lse = fd.flash_decode(qg, kq, vq, kv_lens=dlens,
+                                 return_residuals=True)
+        po, plse = fd._flash_decode_plain(qg, kq, vq, kv_lens=dlens,
+                                          kv_starts=None, max_span=None,
+                                          scale=scale)
+        ks = kq.scales.clone()
+        j = int((ks[0, 1:].log() - ks[0, :-1].log()).abs().argmax())
+        ks[0, j] = ks[0, j + 1]
+        faults = {"k_scale_of_neighbour_head": fd.flash_decode(
+            qg, kq._replace(scales=ks), vq, kv_lens=dlens)}
+        if nf4:
+            faults["nibble_planes_swapped"] = fd.flash_decode(
+                qg, kq._replace(values=swap_planes(kq.values)), vq,
+                kv_lens=dlens)
+        r = check(key, o, lse, po, plse, faults)
+        t = timed_spread(lambda: fd.flash_decode(qg, kq, vq, kv_lens=dlens),
+                         50)
+        plain_ms, _ = timed(lambda: fd._flash_decode_plain(
+            qg, kq, vq, kv_lens=dlens, kv_starts=None, max_span=None,
+            scale=scale), 5)
+        keys = int(sum(DECODE_LENS))
+        io = 2 * qg.numel() * 2 + qg[..., 0].numel() * 4
+        bound_ms, bound_by = bound(
+            4 * d * qh * keys,
+            int(keys * kvh * d * 2 * value_bytes)
+            + 2 * kq.scales.numel() * 4 + io)
+        results.append({
+            "name": key, "route": "cuda",
+            "source": "metal_flash_attention_tpu_torch/csrc/flash_decode.cu",
+            "core": "metal_flash_attention_tpu_torch/csrc/decode_common.cuh",
+            "replaces": "metal_flash_attention_tpu/ops/flash_decode.py:82 "
+                        f"(QuantizedTensor K/V, {prec})",
+            "launches": launches.get(key, 0),
+            "max_abs_err": r["max_abs_err"], "o": r,
+            "limits": {"tile_rel_rms": KERNEL_TILE_REL_RMS,
+                       "lse_abs": MIXED_TOL.lse},
+            "ms": t["ms"], "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None,
+            "library": "none: a dequantize then SDPA is two calls",
+            "share_of_bound": bound_ms / t["ms"], "spread": t,
+            "bf16_ms": bf16_ms["flash_decode"]["ms"],
+            "bf16_spread": bf16_ms["flash_decode"],
+            "shape": "q [8, 32, 128], k/v [8, 8, 8192, 128], lengths "
+                     f"{list(DECODE_LENS)}"})
+        del kq, vq
+    print("quant_kernel_checks: " + json.dumps({
+        "readings": readings,
+        "limits": {"tile_rel_rms": KERNEL_TILE_REL_RMS,
+                   "lse_abs": MIXED_TOL.lse}}), flush=True)
+    if problems:
+        fail("; ".join(problems))
     return results
 
 
@@ -1867,8 +2412,17 @@ def main() -> int:
     from metal_flash_attention_tpu_torch.ops import paged_attention as pa
 
     dev = torch.device("cuda", 0)
+    phases = {}
+
+    def phase(name, fn, *args):
+        """fn(*args), its wall seconds kept under `name`."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phases[name] = time.perf_counter() - t0
+        return out
+
     t0 = time.perf_counter()
-    libs = build_all()
+    libs = phase("build", build_all)
     print(f"build: {sorted(libs)} in {time.perf_counter() - t0:.2f} s",
           flush=True)
 
@@ -1888,12 +2442,14 @@ def main() -> int:
     serve(params, cfg, [prompts[1][:64]], dev)
 
     pa.reset_launch_counts()
-    eng, rids, secs, steps, num_pages = serve(params, cfg, prompts, dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    eng, rids, secs, steps, num_pages = phase("serve", serve, params, cfg,
+                                              prompts, dev)
     paged_launches = dict(pa.LAUNCH_COUNTS)
-    for name, n in paged_launches.items():
-        if n == 0:
-            fail(f"kernel {name} was not launched on the serving path")
+    peak = torch.cuda.max_memory_allocated(dev)
     for name in ("paged_decode", "paged_prefill"):
+        if paged_launches[name] == 0:
+            fail(f"kernel {name} was not launched on the serving path")
         if paged_launches[f"{name}_sm90"] != paged_launches[name]:
             fail(f"{name} launched {paged_launches[name]} times, its "
                  f"Hopper kernel {paged_launches[f'{name}_sm90']}")
@@ -1907,59 +2463,83 @@ def main() -> int:
         fail(f"pages leaked: {eng.alloc.free_pages} of {num_pages - 1} free")
     card = card_line()
     tokens = MAX_NEW * len(prompts)
+    bf16_serve = {"seconds": secs, "new_tokens_per_s": tokens / secs,
+                  "max_memory_allocated": peak,
+                  "pool_bytes": pool_bytes(eng._k, eng._v)}
     print("serve: " + json.dumps({
         "requests": len(prompts), "prompt_tokens": int(sum(PROMPT_LENS)),
         "new_tokens": tokens, "seconds": secs, "steps": steps,
-        "new_tokens_per_s": tokens / secs, "launches": paged_launches,
+        "new_tokens_per_s": tokens / secs, "max_memory_allocated": peak,
+        "pool_bytes": bf16_serve["pool_bytes"], "launches": {
+            k: n for k, n in paged_launches.items() if n},
         "card": card}), flush=True)
 
-    rel_rms, max_err = reference_check(params, cfg, dev)
+    rel_rms, max_err = phase("reference", reference_check, params, cfg, dev)
     print(f"reference: {REFERENCE_LAYERS}-layer cut, {REFERENCE_PROMPT}-token "
           f"prompt, paged logits vs dense attention_reference: relative "
           f"rms err {rel_rms:.5f} (tol {REF_REL_RMS}), max abs err "
           f"{max_err:.5f} (tol {REF_MAX_ABS})", flush=True)
     if not (rel_rms <= REF_REL_RMS and max_err <= REF_MAX_ABS):
         fail("paged path disagrees with the dense reference")
-    kernels = paged_kernel_checks(dev, paged_launches)
+    kernels = phase("paged_checks", paged_kernel_checks, dev,
+                    paged_launches)
 
-    # The dense path runs on the same full-depth weights; the engine's
-    # pools go first.
+    # The quantized serve and the dense path run on the same full-depth
+    # weights; the engine's pools go first.
     del eng
     torch.cuda.empty_cache()
-    dense_launches = dense_serve(params, cfg, dev, card)
-    decode_reference(params, cfg, dev)
-    qweights, mlp_inputs, gemm_launches, gemm_cases = quant_gemm(
-        params, cfg, dev, card)
-    gemm_kernel = gemm_kernel_checks(dev, qweights, mlp_inputs,
-                                     gemm_launches, gemm_cases)
+    quant_launches = phase("quant_serve", quant_serve, params, cfg, prompts,
+                           dev, card, bf16_serve)
+    torch.cuda.empty_cache()
+    phase("quant_reference", quant_reference, params, cfg, dev)
+    dense_launches = phase("dense_serve", dense_serve, params, cfg, dev,
+                           card)
+    phase("decode_reference", decode_reference, params, cfg, dev)
+    qweights, mlp_inputs, gemm_launches, gemm_cases = phase(
+        "quant_gemm", quant_gemm, params, cfg, dev, card)
+    gemm_kernel = phase("gemm_checks", gemm_kernel_checks, dev, qweights,
+                        mlp_inputs, gemm_launches, gemm_cases)
     del qweights, mlp_inputs
     # Free the 14.5 GB of weights before training (generate's 8.6 GB
     # cache went with its call).
     del params
     torch.cuda.empty_cache()
-    decode_kernel = decode_kernel_checks(dev, dense_launches)
+    decode_kernel = phase("decode_checks", decode_kernel_checks, dev,
+                          dense_launches)
+    torch.cuda.empty_cache()
+    quant_kernels = phase("quant_kernel_checks", quant_kernel_checks, dev,
+                          quant_launches)
     torch.cuda.empty_cache()
 
-    tparams, tcfg, flash_launches = train(dev, card)
-    train_reference(tparams, tcfg, dev)
+    tparams, tcfg, flash_launches = phase("train", train, dev, card)
+    phase("train_reference", train_reference, tparams, tcfg, dev)
     del tparams
     torch.cuda.empty_cache()
-    kernels += flash_kernel_checks(dev, flash_launches)
+    kernels += phase("flash_checks", flash_kernel_checks, dev,
+                     flash_launches)
     torch.cuda.empty_cache()
-    softmax_kernels = softmax_kernel_checks(dev, card)
+    softmax_kernels = phase("softmax_checks", softmax_kernel_checks, dev,
+                            card)
     torch.cuda.empty_cache()
     for entry in kernels:
         if entry["name"] == "flash_fwd":
             entry["launches_by_path"] = {
                 "train": flash_launches["flash_fwd"],
-                "dense_serve": dense_launches["flash_fwd"]}
+                "dense_serve": dense_launches["flash_fwd"],
+                "quant_serve": quant_launches["flash_fwd"]}
             entry["launches_sm90_by_path"] = {
                 "train": flash_launches["flash_fwd_sm90"],
-                "dense_serve": dense_launches["flash_fwd_sm90"]}
+                "dense_serve": dense_launches["flash_fwd_sm90"],
+                "quant_serve": quant_launches["flash_fwd_sm90"]}
+    decode_kernel["launches_by_path"] = {
+        "dense_serve": dense_launches["flash_decode"],
+        "quant_serve": quant_launches["flash_decode"]}
     kernels.append(decode_kernel)
     kernels.append(gemm_kernel)
     kernels += softmax_kernels
+    kernels += quant_kernels
 
+    print("phases: " + json.dumps(phases))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

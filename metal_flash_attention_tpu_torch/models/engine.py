@@ -18,10 +18,17 @@ host loop a production deployment runs around the paged kernels:
   along in the batched decode against the allocator's null page 0,
   which no request owns, so their writes can never land in live pages.
 
+``kv_precision`` (INT8 / FP8-E4M3 / FP8-E5M2 / NF4): quantized-KV
+serving.  Full pages live in quantized pools with one scale per (page,
+kv head) and each slot keeps one tail page in the model's dtype; the
+steps are `serving.paged_chunk_step_q` and `serving.paged_decode_step_q`,
+and a page is quantized when its tail fills.  The host mirrors each
+slot's full and tail lengths, so no length is read back.
+
 The pools live on the parameters' device and are updated in place.
 Greedy decoding only: the sampling, logprobs, logit-bias, LoRA,
-prefix-cache, quantized-KV, speculative, tensor-parallel and burst
-features of the JAX engine raise NotImplementedError (ROADMAP.md).
+prefix-cache, speculative, tensor-parallel and burst features of the JAX
+engine raise NotImplementedError (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -37,6 +44,9 @@ from metal_flash_attention_tpu_torch.models import llama, serving
 from metal_flash_attention_tpu_torch.native.page_allocator import (
     PageAllocator,
     PagerError,
+)
+from metal_flash_attention_tpu_torch.ops.paged_attention import (
+    as_kv_precision,
 )
 from metal_flash_attention_tpu_torch.utils.errors import not_ported
 
@@ -75,14 +85,22 @@ class ServingEngine:
                  max_seq: int = 4096, admissions_per_step: int = 1,
                  prefix_cache: bool = False, kv_sharding=None,
                  draft_fn=None, kv_precision=None, lora=None):
+        # The combinations the JAX engine refuses, refused as it does.
+        if lora is not None and (draft_fn is not None
+                                 or kv_precision is not None):
+            raise ValueError(
+                "lora rides on the default llama paged steps only "
+                "(not speculative or quantized steps)")
+        if kv_precision is not None and (draft_fn is not None
+                                         or kv_sharding is not None):
+            raise ValueError("kv_precision is incompatible with draft_fn / "
+                             "kv_sharding")
         for value, what, item in (
                 (prefix_cache, "prefix caching", "prefix cache"),
                 (kv_sharding, "tensor-parallel pools (kv_sharding)",
                  "tensor-parallel serving"),
                 (draft_fn, "speculative decoding (draft_fn)",
                  "speculative decoding"),
-                (kv_precision, "quantized KV pools (kv_precision)",
-                 "quantized KV"),
                 (lora, "multi-adapter LoRA", "LoRA")):
             if value:
                 raise not_ported(what, item)
@@ -96,17 +114,35 @@ class ServingEngine:
         self.admissions_per_step = admissions_per_step
         self.alloc = PageAllocator(num_pages=num_pages, page_size=page_size)
         self.device = params["embed"].device
-        pool_shape = (num_pages, cfg.n_kv_heads, page_size, cfg.head_dim)
+        self._kv_precision = (None if kv_precision is None
+                              else as_kv_precision(kv_precision))
+        if self._kv_precision is None:
+            pool_shape = (num_pages, cfg.n_kv_heads, page_size,
+                          cfg.head_dim)
 
-        def pools():
-            return [torch.zeros(pool_shape, dtype=cfg.dtype,
-                                device=self.device)
-                    for _ in range(cfg.n_layers)]
-        self._k = pools()
-        self._v = pools()
-        # Inactive slots ride along in the batched decode and write
-        # their (garbage) token KV at lengths = 0 through table rows
-        # that point at the null page.
+            def pools():
+                return [torch.zeros(pool_shape, dtype=cfg.dtype,
+                                    device=self.device)
+                        for _ in range(cfg.n_layers)]
+            self._k = pools()
+            self._v = pools()
+        else:
+            # Quantized pools (scales 1) and one tail page a slot; the
+            # host mirrors each slot's tokens in full pages and in its
+            # tail, as `_flush_full_pages` moves them.
+            q = serving.init_quantized_paged_model_cache(
+                cfg, max_batch, page_size, precision=self._kv_precision,
+                page_size=page_size, num_pages=num_pages,
+                device=self.device)
+            self._qk, self._qv = q.qk, q.qv
+            self._ks, self._vs = q.k_scales, q.v_scales
+            self._tail_k, self._tail_v = q.tail_k, q.tail_v
+            self._full = np.zeros((max_batch,), np.int32)
+            self._tlen = np.zeros((max_batch,), np.int32)
+        # Inactive slots ride along in the batched decode: with bf16
+        # pools they write their (garbage) token KV at lengths = 0
+        # through table rows that point at the null page; with quantized
+        # pools they are frozen (`active`).
         self._table = np.zeros((max_batch, self.max_pages), np.int32)
         self._lengths = np.zeros((max_batch,), np.int32)
         self._slots: list[Optional[_Request]] = [None] * max_batch
@@ -264,6 +300,20 @@ class ServingEngine:
             page_table=torch.as_tensor(table, device=self.device),
             lengths=torch.as_tensor(lengths, device=self.device))
 
+    def _q_cache(self, table: np.ndarray, full: np.ndarray,
+                 tlen: np.ndarray, slots=slice(None)
+                 ) -> serving.QuantizedPagedModelCache:
+        """The shared quantized pools with the tails of ``slots`` (views:
+        the steps write them in place)."""
+        return serving.QuantizedPagedModelCache(
+            qk=self._qk, qv=self._qv, k_scales=self._ks, v_scales=self._vs,
+            tail_k=tuple(t[slots] for t in self._tail_k),
+            tail_v=tuple(t[slots] for t in self._tail_v),
+            page_table=torch.as_tensor(table, device=self.device),
+            full_len=torch.as_tensor(full, device=self.device),
+            tail_len=torch.as_tensor(tlen, device=self.device),
+            precision=self._kv_precision)
+
     def _prefill_step(self, emitted) -> None:
         """Advance every mid-prefill request by one page-sized chunk.  On
         the final chunk the slot goes live: its table row is installed
@@ -276,14 +326,28 @@ class ServingEngine:
             chunk = torch.as_tensor(
                 req.prompt[None, pos:pos + self.page_size],
                 device=self.device)
-            logits, _ = serving.paged_chunk_step(
-                self.params, chunk, self.cfg,
-                self._cache(req.pages[None, :],
-                            np.full((1,), pos, np.int32)))
+            if self._kv_precision is None:
+                logits, _ = serving.paged_chunk_step(
+                    self.params, chunk, self.cfg,
+                    self._cache(req.pages[None, :],
+                                np.full((1,), pos, np.int32)))
+            else:
+                # A 1-row view: the shared pools and this slot's tail.
+                # Chunks start page-aligned, so the tail enters empty.
+                zero = np.zeros((1,), np.int32)
+                logits, _ = serving.paged_chunk_step_q(
+                    self.params, chunk, self.cfg,
+                    self._q_cache(req.pages[None, :],
+                                  np.full((1,), pos, np.int32), zero,
+                                  slice(i, i + 1)))
             req.prefill_pos = pos + chunk.shape[1]
             if req.prefill_pos >= len(req.prompt):
                 self._table[i] = req.pages
                 self._lengths[i] = len(req.prompt)
+                if self._kv_precision is not None:
+                    n = len(req.prompt)
+                    self._full[i] = n - n % self.page_size
+                    self._tlen[i] = n % self.page_size
                 tok = int(logits[0, -1].argmax())
                 req.next_token = tok
                 req.first_token_step = self.n_steps
@@ -295,12 +359,28 @@ class ServingEngine:
         """One batched greedy decode step over every slot; the live ones
         emit their next token."""
         tokens = np.zeros((len(self._slots),), np.int32)
+        active = np.zeros((len(self._slots),), bool)
         for i, r in enumerate(self._slots):
             if r is not None and r.next_token is not None:
                 tokens[i] = r.next_token
-        logits, _ = serving.paged_decode_step(
-            self.params, torch.as_tensor(tokens, device=self.device),
-            self.cfg, self._cache(self._table, self._lengths))
+                active[i] = True
+        token_t = torch.as_tensor(tokens, device=self.device)
+        if self._kv_precision is None:
+            logits, _ = serving.paged_decode_step(
+                self.params, token_t, self.cfg,
+                self._cache(self._table, self._lengths))
+        else:
+            logits, _ = serving.paged_decode_step_q(
+                self.params, token_t, self.cfg,
+                self._q_cache(self._table, self._full, self._tlen),
+                torch.as_tensor(active, device=self.device))
+            # The flush's arithmetic on the host: active rows advance by
+            # one; a tail that reaches the page rolls into full pages.
+            new_tail = self._tlen + active.astype(np.int32)
+            flush = new_tail >= self.page_size
+            self._full = np.where(flush, self._full + self.page_size,
+                                  self._full).astype(np.int32)
+            self._tlen = np.where(flush, 0, new_tail).astype(np.int32)
         toks = logits.argmax(dim=-1).to(torch.int32).cpu().numpy()
         for i, r in enumerate(self._slots):
             if r is None or r.next_token is None:
@@ -325,5 +405,8 @@ class ServingEngine:
         r.done_step = self.n_steps
         self._table[i] = 0
         self._lengths[i] = 0
+        if self._kv_precision is not None:
+            self._full[i] = 0
+            self._tlen[i] = 0
         self._done[r.rid] = r
         self._slots[i] = None

@@ -13,7 +13,12 @@ layer):
   sequence's length, attention by `ops.flash_decode.flash_decode`;
 - `generate`: the greedy loop over the two;
 - `sink_decode`: attention-sink decode, two `flash_decode` partials
-  merged by `_merge_partials`.
+  merged by `_merge_partials`;
+- quantized (`QuantizedKVCache`, `quantize_cache`,
+  `decode_step_quantized`): the prefilled cache quantized once (INT8 /
+  FP8 / NF4, one scale per sequence and kv head), new tokens in a
+  full-precision tail; each step merges a `flash_decode` partial over
+  each by lse.
 
 Paged (a page pool shared by the sequences):
 
@@ -22,15 +27,20 @@ Paged (a page pool shared by the sequences):
   logits; attention is `ops.paged_attention.paged_prefill`;
 - `paged_decode_step`: one token per sequence -> its K/V appended and
   the next-token logits; attention is `paged_decode`;
-- `paged_generate`: greedy generation over the two.
+- `paged_generate`: greedy generation over the two;
+- quantized (`QuantizedPagedModelCache`, `paged_chunk_step_q`,
+  `paged_decode_step_q`, `paged_generate_quantized`): full pages live in
+  INT8 / FP8 / NF4 pools with one scale per (page, kv head), each
+  sequence's page in progress in a bf16 tail; attention merges a
+  `paged_decode` partial over the quantized pages with one over the tail
+  (`flash_decode`, or in a chunk the causal `dispatch.attention`), and a
+  tail that fills is quantized into its page (`_flush_full_pages`).
 
 Caches and pools are updated IN PLACE (the JAX package donates them
 instead); each step returns a cache whose lengths moved on and whose
 tensors are the same.  Large products stay `torch.matmul`, as the JAX
 package leaves them to XLA; only attention is a hand-written kernel on
-the card.  Not ported yet: the quantized dense cache
-(`quantize_cache`, `decode_step_quantized`) and sampling
-(`generate_sampled`).
+the card.  Not ported yet: sampling (`generate_sampled`).
 """
 
 from __future__ import annotations
@@ -39,6 +49,10 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from metal_flash_attention_tpu_torch import dispatch
+from metal_flash_attention_tpu_torch.descriptors.precision import (
+    OperandPrecision,
+)
 from metal_flash_attention_tpu_torch.models import llama
 from metal_flash_attention_tpu_torch.utils.device import resolve_device
 from metal_flash_attention_tpu_torch.utils.errors import not_ported
@@ -48,10 +62,14 @@ from metal_flash_attention_tpu_torch.ops.flash_decode import (
 )
 from metal_flash_attention_tpu_torch.ops.paged_attention import (
     PagedKVCache,
+    QuantizedPagedKVCache,
+    as_kv_precision,
     paged_append_chunk,
     paged_decode,
     paged_prefill,
+    quantize_page_block,
 )
+from metal_flash_attention_tpu_torch.ops.quantization import quantize
 
 
 class KVCache(NamedTuple):
@@ -148,13 +166,67 @@ def generate(params: dict, prompt: torch.Tensor, cfg: llama.LlamaConfig, *,
     return torch.cat(tokens, dim=1)
 
 
-def quantize_cache(cache: KVCache, precision, tail_capacity: int = 128):
-    raise not_ported("quantize_cache (quantized dense KV)", "quantized KV")
+class QuantizedKVCache(NamedTuple):
+    """A prefilled cache quantized once, plus a full-precision tail for
+    the tokens decoded since; attention over the two merges by lse."""
+    k_q: list                 # [layers] x QuantizedTensor [b, kvh, S, d]
+    v_q: list
+    k_tail: list              # [layers] x [b, kvh, tail_capacity, d]
+    v_tail: list
+    prefix_len: torch.Tensor  # int32 [batch]
+    tail_len: torch.Tensor    # int32 [batch]
 
 
-def decode_step_quantized(params: dict, token: torch.Tensor, cfg, cache):
-    raise not_ported("decode_step_quantized (quantized dense KV)",
-                     "quantized KV")
+def quantize_cache(cache: KVCache, precision,
+                   tail_capacity: int = 128) -> QuantizedKVCache:
+    """A prefilled `KVCache` in the quantized-prefix layout: each layer's
+    K and V quantized whole (`ops.quantization.quantize`, one scale per
+    sequence and kv head) and an empty tail of ``tail_capacity``
+    positions in the cache's dtype, on the cache's device."""
+    precision = as_kv_precision(precision)
+    b, kvh, _, d = cache.k[0].shape
+
+    def tails(xs):
+        return [torch.zeros((b, kvh, tail_capacity, d), dtype=x.dtype,
+                            device=x.device) for x in xs]
+    return QuantizedKVCache(
+        k_q=[quantize(k.float(), precision) for k in cache.k],
+        v_q=[quantize(v.float(), precision) for v in cache.v],
+        k_tail=tails(cache.k), v_tail=tails(cache.v),
+        prefix_len=cache.lengths,
+        tail_len=torch.zeros_like(cache.lengths))
+
+
+def decode_step_quantized(params: dict, token: torch.Tensor,
+                          cfg: llama.LlamaConfig, cache: QuantizedKVCache
+                          ) -> tuple[torch.Tensor, QuantizedKVCache]:
+    """One decode step over (quantized prefix) + (tail): the token's K/V
+    written into the tail at tail_len (in place), one `flash_decode`
+    partial over each segment merged by lse; returns float32 logits
+    [batch, vocab] and the cache with tail_len + 1."""
+    b = token.shape[0]
+    positions = (cache.prefix_len + cache.tail_len).long()[:, None]
+    cos, sin = llama.rope_frequencies(cfg, positions)
+    x = params["embed"][token.long()][:, None, :].to(cfg.dtype)
+    for li, layer in enumerate(params["layers"]):
+        q, k, v = llama.attention_qkv(layer, x, cfg, cos, sin)
+        write_rows(cache.k_tail[li], k[:, :, 0], cache.tail_len)
+        write_rows(cache.v_tail[li], v[:, :, 0], cache.tail_len)
+        qv = q[:, :, 0].to(cfg.dtype)
+        o_pre, lse_pre = flash_decode(qv, cache.k_q[li], cache.v_q[li],
+                                      kv_lens=cache.prefix_len,
+                                      return_residuals=True)
+        o_tail, lse_tail = flash_decode(qv, cache.k_tail[li],
+                                        cache.v_tail[li],
+                                        kv_lens=cache.tail_len + 1,
+                                        return_residuals=True)
+        o = _merge_partials(o_pre.float(), lse_pre, o_tail.float(),
+                            lse_tail)
+        x = x + _wo_proj(o.to(x.dtype).reshape(b, 1, -1), layer).to(x.dtype)
+        x = _ffn_block(layer, x, cfg)
+    x = llama.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = (x[:, 0] @ params["lm_head"]).float()
+    return logits, cache._replace(tail_len=cache.tail_len + 1)
 
 
 def _merge_partials(o1: torch.Tensor, lse1: torch.Tensor, o2: torch.Tensor,
@@ -319,5 +391,238 @@ def paged_generate(params: dict, prompt: torch.Tensor,
         tokens.append(token[:, None])
         if i + 1 < max_new_tokens:
             logits, cache = paged_decode_step(params, token, cfg, cache)
+            token = logits.argmax(dim=-1).to(torch.int32)
+    return torch.cat(tokens, dim=1)
+
+
+class QuantizedPagedModelCache(NamedTuple):
+    """Paged model cache whose full pages live quantized (INT8 / FP8 /
+    NF4, one scale per (page, kv head)) while each sequence's page in
+    progress stays in a tail of the model's dtype.  A page is quantized
+    once, when its tail fills (`_flush_full_pages`); per-page scales keep
+    pages shareable across sequences."""
+    qk: tuple                 # [layers] x [pages, kvh, page (NF4 /2), d]
+    qv: tuple
+    k_scales: tuple           # [layers] x [pages, kvh] float32
+    v_scales: tuple
+    tail_k: tuple             # [layers] x [batch, kvh, page, d]
+    tail_v: tuple
+    page_table: torch.Tensor  # [batch, max_pages] int32
+    full_len: torch.Tensor    # [batch] tokens in quantized pages
+    tail_len: torch.Tensor    # [batch] tokens in the tail (< page)
+    precision: OperandPrecision
+
+    @property
+    def lengths(self) -> torch.Tensor:
+        return self.full_len + self.tail_len
+
+    @property
+    def page_size(self) -> int:
+        return self.tail_k[0].shape[2]
+
+
+def init_quantized_paged_model_cache(
+        cfg: llama.LlamaConfig, batch: int, max_seq: int, *, precision,
+        page_size: int = 128, num_pages: Optional[int] = None,
+        device=None) -> QuantizedPagedModelCache:
+    """Zeroed quantized pools (scales 1) and tails, pages assigned
+    contiguously (sequence i owns pages i * max_pages ..), on the card
+    unless ``device`` says otherwise.  The pools keep head_dim as it is
+    (the JAX package pads it to 128 lanes)."""
+    precision = as_kv_precision(precision)
+    device = resolve_device(device)
+    max_pages = -(-max_seq // page_size)
+    num_pages = num_pages or batch * max_pages
+    rows = page_size // 2 if precision is OperandPrecision.NF4 \
+        else page_size
+    pool = (num_pages, cfg.n_kv_heads, rows, cfg.head_dim)
+    tail = (batch, cfg.n_kv_heads, page_size, cfg.head_dim)
+    n = cfg.n_layers
+
+    def zeros(shape, dtype):
+        return tuple(torch.zeros(shape, dtype=dtype, device=device)
+                     for _ in range(n))
+
+    def ones(shape):
+        return tuple(torch.ones(shape, dtype=torch.float32, device=device)
+                     for _ in range(n))
+    return QuantizedPagedModelCache(
+        qk=zeros(pool, precision.storage_dtype),
+        qv=zeros(pool, precision.storage_dtype),
+        k_scales=ones(pool[:2]), v_scales=ones(pool[:2]),
+        tail_k=zeros(tail, cfg.dtype), tail_v=zeros(tail, cfg.dtype),
+        page_table=torch.arange(batch * max_pages, dtype=torch.int32,
+                                device=device).reshape(batch, max_pages),
+        full_len=torch.zeros((batch,), dtype=torch.int32, device=device),
+        tail_len=torch.zeros((batch,), dtype=torch.int32, device=device),
+        precision=precision)
+
+
+def _q_layer_cache(cache: QuantizedPagedModelCache,
+                   li: int) -> QuantizedPagedKVCache:
+    """Layer li's quantized pages, their lengths the full pages'."""
+    return QuantizedPagedKVCache(
+        cache.qk[li], cache.qv[li], cache.k_scales[li], cache.v_scales[li],
+        cache.page_table, cache.full_len, cache.precision)
+
+
+def _write_tail(tail: torch.Tensor, new: torch.Tensor, start: torch.Tensor,
+                active: Optional[torch.Tensor] = None) -> None:
+    """tail [batch, kvh, page, d] <- new [batch, kvh, k, d] at positions
+    start .. start + k - 1 of each row, IN PLACE; a row whose ``active``
+    is False keeps what it held."""
+    b, _, kc, _ = new.shape
+    pos = start.long()[:, None] + torch.arange(kc, device=new.device)
+    rows = torch.arange(b, device=new.device)[:, None].expand(b, kc)
+    view = tail.permute(0, 2, 1, 3)             # [b, page, kvh, d]
+    vals = new.permute(0, 2, 1, 3).to(tail.dtype)
+    if active is not None:
+        vals = torch.where(active[:, None, None, None], vals,
+                           view[rows, pos])
+    view.index_put_((rows, pos), vals)
+
+
+def _flush_full_pages(cache: QuantizedPagedModelCache, added: torch.Tensor
+                      ) -> QuantizedPagedModelCache:
+    """Rows whose tail fills after ``added`` more tokens quantize it into
+    the pool page `table[row, full_len // page]` (pools and scales IN
+    PLACE) and roll (full_len += page, tail_len = 0).  Only those rows
+    scatter, each into its own page; a row that adds nothing (a frozen
+    ride-along, whose table row is the null page) never flushes.  Which
+    rows flush is read back to the host once a step: a flush is rare (once
+    a page of tokens a row), and quantizing every row's tail every step,
+    as the JAX package's fixed-shape jit does, would add 2 x layers
+    quantizations to each step's launches."""
+    page = cache.page_size
+    new_tail = cache.tail_len + added
+    flush = new_tail >= page
+    rows = torch.nonzero(flush).flatten()
+    if rows.numel():
+        table = cache.page_table[rows].long()
+        idx = (cache.full_len[rows].long() // page).clamp_max(
+            table.shape[1] - 1)
+        page_ids = table.gather(1, idx[:, None])[:, 0]
+        for li in range(len(cache.qk)):
+            for pool, scales, tail in (
+                    (cache.qk[li], cache.k_scales[li], cache.tail_k[li]),
+                    (cache.qv[li], cache.v_scales[li], cache.tail_v[li])):
+                payload, scale = quantize_page_block(tail[rows],
+                                                     cache.precision)
+                # As bytes: PyTorch copies no FP8 by index.
+                pool.view(torch.uint8).index_copy_(
+                    0, page_ids, payload.view(torch.uint8))
+                scales.index_copy_(0, page_ids, scale)
+    return cache._replace(
+        full_len=torch.where(flush, cache.full_len + page, cache.full_len),
+        tail_len=torch.where(flush, torch.zeros_like(new_tail), new_tail))
+
+
+def paged_chunk_step_q(params: dict, tokens: torch.Tensor,
+                       cfg: llama.LlamaConfig,
+                       cache: QuantizedPagedModelCache
+                       ) -> tuple[torch.Tensor, QuantizedPagedModelCache]:
+    """Chunk prefill over the quantized paged cache.  The chunk (at most
+    a page, entering with an empty tail: the engine's page-aligned chunks
+    give both) writes its K/V into the tail; attention merges by lse
+    - the quantized prefix's partial: the chunk's positions folded into
+      the head axis of ONE `paged_decode` call ([b, heads * k, d], a GQA
+      group of group * k rows; every query attends the whole prefix,
+      which ends before the chunk starts), and
+    - the causal in-chunk partial (`dispatch.attention`).
+    A chunk that fills the page then flushes it.  Returns float32 logits
+    [batch, k, vocab] and the advanced cache."""
+    b, kc = tokens.shape
+    positions = cache.lengths.long()[:, None] + torch.arange(
+        kc, device=tokens.device)[None, :]
+    cos, sin = llama.rope_frequencies(cfg, positions)
+    x = params["embed"][tokens.long()].to(cfg.dtype)
+    heads, d = cfg.n_heads, cfg.head_dim
+    for li, layer in enumerate(params["layers"]):
+        q, k, v = llama.attention_qkv(layer, x, cfg, cos, sin)
+        _write_tail(cache.tail_k[li], k, cache.tail_len)
+        _write_tail(cache.tail_v[li], v, cache.tail_len)
+        qd = q.to(cfg.dtype)
+        # [b, H, k, d] -> [b, H * k, d] keeps (kv head, group, position)
+        # row order, so each folded row maps to its kv head.
+        o_pre, lse_pre = paged_decode(qd.reshape(b, heads * kc, d),
+                                      _q_layer_cache(cache, li),
+                                      return_residuals=True)
+        o_ch, lse_ch = dispatch.attention(
+            qd, k.to(cfg.dtype), v.to(cfg.dtype), causal=True,
+            return_residuals=True)
+        o = _merge_partials(o_pre.reshape(b, heads, kc, d).float(),
+                            lse_pre.reshape(b, heads, kc), o_ch.float(),
+                            lse_ch)
+        o = o.to(x.dtype).transpose(1, 2).reshape(b, kc, -1)
+        x = x + _wo_proj(o, layer).to(x.dtype)
+        x = _ffn_block(layer, x, cfg)
+    x = llama.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = (x @ params["lm_head"]).float()
+    return logits, _flush_full_pages(
+        cache, torch.full_like(cache.tail_len, kc))
+
+
+def paged_decode_step_q(params: dict, token: torch.Tensor,
+                        cfg: llama.LlamaConfig,
+                        cache: QuantizedPagedModelCache,
+                        active: Optional[torch.Tensor] = None
+                        ) -> tuple[torch.Tensor, QuantizedPagedModelCache]:
+    """One decode step over the quantized paged cache: the token's K/V
+    into the tail (in place), a `paged_decode` partial over the quantized
+    pages merged by lse with a `flash_decode` one over the tail, and the
+    tail's page flushed when it fills.  ``active`` (bool [batch]): rows
+    marked False are frozen (no tail write, no length advance, no
+    flush): the engine's ride-along rows, whose per-slot tails have no
+    null page to absorb a write.  Returns float32 logits [batch, vocab]
+    and the advanced cache."""
+    b = token.shape[0]
+    positions = cache.lengths.long()[:, None]
+    cos, sin = llama.rope_frequencies(cfg, positions)
+    x = params["embed"][token.long()][:, None, :].to(cfg.dtype)
+    for li, layer in enumerate(params["layers"]):
+        q, k, v = llama.attention_qkv(layer, x, cfg, cos, sin)
+        _write_tail(cache.tail_k[li], k, cache.tail_len, active)
+        _write_tail(cache.tail_v[li], v, cache.tail_len, active)
+        qv = q[:, :, 0].to(cfg.dtype)
+        o_pre, lse_pre = paged_decode(qv, _q_layer_cache(cache, li),
+                                      return_residuals=True)
+        o_tail, lse_tail = flash_decode(qv, cache.tail_k[li],
+                                        cache.tail_v[li],
+                                        kv_lens=cache.tail_len + 1,
+                                        return_residuals=True)
+        o = _merge_partials(o_pre.float(), lse_pre, o_tail.float(),
+                            lse_tail)
+        x = x + _wo_proj(o.to(x.dtype).reshape(b, 1, -1), layer).to(x.dtype)
+        x = _ffn_block(layer, x, cfg)
+    x = llama.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = (x[:, 0] @ params["lm_head"]).float()
+    added = (torch.ones_like(cache.tail_len) if active is None
+             else active.to(cache.tail_len.dtype))
+    return logits, _flush_full_pages(cache, added)
+
+
+@torch.inference_mode()
+def paged_generate_quantized(params: dict, prompt: torch.Tensor,
+                             cfg: llama.LlamaConfig, *,
+                             max_new_tokens: int, precision,
+                             page_size: int = 128) -> torch.Tensor:
+    """Greedy generation entirely over the quantized paged cache: chunked
+    prefill, then streaming decode with page flushes.  prompt: [batch, s]
+    -> [batch, s + max_new_tokens] int32."""
+    b, s = prompt.shape
+    cache = init_quantized_paged_model_cache(
+        cfg, b, s + max_new_tokens + 1, precision=precision,
+        page_size=page_size, device=prompt.device)
+    for i in range(0, s, page_size):
+        logits, cache = paged_chunk_step_q(
+            params, prompt[:, i:i + page_size], cfg, cache)
+    live = torch.ones((b,), dtype=torch.bool, device=prompt.device)
+    tokens = [prompt.to(torch.int32)]
+    token = logits[:, -1].argmax(dim=-1).to(torch.int32)
+    for i in range(max_new_tokens):
+        tokens.append(token[:, None])
+        if i + 1 < max_new_tokens:
+            logits, cache = paged_decode_step_q(params, token, cfg, cache,
+                                                live)
             token = logits.argmax(dim=-1).to(torch.int32)
     return torch.cat(tokens, dim=1)

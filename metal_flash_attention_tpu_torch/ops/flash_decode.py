@@ -21,18 +21,26 @@ tail of a row whose span is longer; the port clamps each row's end to
 ``kv_start + max_span`` instead, which is JAX's result exactly on every
 valid call (span <= max_span).
 
-Dispatch: a CPU tensor takes the plain PyTorch version
-(`_flash_decode_plain`: float32 scores and softmax); a CUDA tensor takes
-the hand-written kernel in `csrc/flash_decode.cu` (bf16, fp16 and true
-fp32, head dims 64 and 128), or raises.  There is no fallback from one
-to the other.  The kernel is the decode core of `csrc/decode_common.cuh`
-(a cp.async K/V ring, tensor cores for 16-bit inputs) split over the
-keys in fixed chunks (`paged_attention.decode_splits`).  Each kernel
-launch adds one to ``LAUNCH_COUNTS["flash_decode"]`` and to
-``LAUNCH_COUNTS["flash_decode_sm90"]``.
+k and v may be `QuantizedTensor`s (INT8 / FP8-E4M3 / FP8-E5M2 payloads
+[batch, kv_heads, max_seq, head_dim], NF4 [..., head_dim / 2] packed
+split-half along D; one scale per (batch, kv head)): the JAX kernel's
+quantized cache, dequantized inside the kernel.
 
-Not ported yet, and refused on every device: quantized K/V
-(`QuantizedTensor`) and ``logit_softcap``.
+Dispatch: a CPU tensor takes the plain PyTorch version
+(`_flash_decode_plain`: float32 scores and softmax, a quantized cache
+dequantized in float32 first, NF4's codebook rounded to the queries'
+type as the kernels round it); a CUDA tensor takes the hand-written
+kernel in `csrc/flash_decode.cu` (bf16, fp16 and true fp32, head dims 64
+and 128; quantized K/V with bf16 queries), or raises.  There is no
+fallback from one to the other.  The kernel is the decode core of
+`csrc/decode_common.cuh` (a cp.async K/V ring, tensor cores for 16-bit
+inputs) split over the keys in fixed chunks
+(`paged_attention.decode_splits`).  Each kernel launch adds one to
+``LAUNCH_COUNTS["flash_decode"]`` and to
+``LAUNCH_COUNTS["flash_decode_sm90"]``, and over a quantized cache to
+``LAUNCH_COUNTS["flash_decode_<precision>"]`` too.
+
+Not ported yet, and refused on every device: ``logit_softcap``.
 """
 
 from __future__ import annotations
@@ -44,12 +52,21 @@ from typing import Optional
 
 import torch
 
+from metal_flash_attention_tpu_torch.descriptors.precision import (
+    OperandPrecision,
+)
 from metal_flash_attention_tpu_torch.native.build import tile_defines
 from metal_flash_attention_tpu_torch.ops.paged_attention import (
+    KV_PRECISIONS,
     _sm_count,
     data_ptr,
     decode_splits,
     split_scratch,
+)
+from metal_flash_attention_tpu_torch.ops.quantization import (
+    PRECISION_CODE,
+    QuantizedTensor,
+    dequantize,
 )
 from metal_flash_attention_tpu_torch.utils.errors import not_ported
 
@@ -58,8 +75,10 @@ KERNEL_DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 
 # One count per kernel, bumped only where its wrapper launches it; the
 # `_sm90` count names the Hopper kernel (`flash_decode90_kernel`) that every
-# launch now runs.
-LAUNCH_COUNTS = {"flash_decode": 0, "flash_decode_sm90": 0}
+# launch now runs, and `flash_decode_<precision>` counts its launches over
+# a quantized cache.
+LAUNCH_COUNTS = {"flash_decode": 0, "flash_decode_sm90": 0,
+                 **{f"flash_decode_{p.value}": 0 for p in KV_PRECISIONS}}
 
 KERNEL_ITEM = "flash-kernel coverage"
 
@@ -81,7 +100,8 @@ def flash_decode(q: torch.Tensor, k, v, *,
 
     q: [batch, q_heads, head_dim]; k, v: [batch, kv_heads, max_seq,
     head_dim] (on the card, any batch, head and sequence strides with a
-    contiguous last axis, so a slice along the sequence needs no copy).
+    contiguous last axis, so a slice along the sequence needs no copy),
+    or both `QuantizedTensor`s of one precision.
     ``kv_lens``, ``kv_starts``: int [batch].  The query token itself must
     already be in the cache (at position kv_lens - 1).  ``scale``
     defaults to 1/sqrt(head_dim).  ``block_kv`` is the TPU kernel's
@@ -92,8 +112,14 @@ def flash_decode(q: torch.Tensor, k, v, *,
     ``return_residuals`` also lse [batch, q_heads] (float32, natural
     log)."""
     del block_kv
-    if not isinstance(k, torch.Tensor) or not isinstance(v, torch.Tensor):
-        raise not_ported("quantized K/V (QuantizedTensor)", "quantized KV")
+    quantized = isinstance(k, QuantizedTensor)
+    kinds = (QuantizedTensor if quantized else torch.Tensor,)
+    if not (isinstance(k, kinds) and isinstance(v, kinds)) or (
+            quantized and k.precision is not v.precision):
+        raise TypeError("k and v must both be tensors or both "
+                        "QuantizedTensors of one precision")
+    if quantized and k.precision not in KV_PRECISIONS:
+        raise ValueError(f"not a KV precision: {k.precision}")
     if logit_softcap is not None:
         raise not_ported("logit_softcap in flash_decode", "decode softcap")
     if max_span is not None:
@@ -101,13 +127,15 @@ def flash_decode(q: torch.Tensor, k, v, *,
             raise ValueError("max_span requires kv_starts and kv_lens")
         if max_span <= 0:
             raise ValueError(f"max_span must be positive, got {max_span}")
-    if q.dim() != 3 or k.dim() != 4 or v.shape != k.shape or \
-            q.shape[0] != k.shape[0] or q.shape[2] != k.shape[3] or \
-            k.shape[1] == 0 or q.shape[1] % k.shape[1]:
+    kv_shape = _logical_shape(k)
+    if q.dim() != 3 or len(kv_shape) != 4 or \
+            _logical_shape(v) != kv_shape or q.shape[0] != kv_shape[0] or \
+            q.shape[2] != kv_shape[3] or kv_shape[1] == 0 or \
+            q.shape[1] % kv_shape[1]:
         raise ValueError("expected q [b, q_heads, d] and k/v [b, kv_heads, "
                          "max_seq, d] with kv_heads dividing q_heads; got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}")
+                         f"{tuple(q.shape)}, {kv_shape}, "
+                         f"{_logical_shape(v)}")
     for name, t in (("kv_lens", kv_lens), ("kv_starts", kv_starts)):
         if t is not None and tuple(t.shape) != (q.shape[0],):
             raise ValueError(f"{name} must be [batch], got {tuple(t.shape)}")
@@ -127,11 +155,25 @@ def flash_decode(q: torch.Tensor, k, v, *,
     return (o, lse) if return_residuals else o
 
 
+def _logical_shape(x) -> tuple:
+    """[batch, kv_heads, max_seq, head_dim] of a cache or a quantized one
+    (NF4 payloads hold head_dim / 2 bytes a row)."""
+    if not isinstance(x, QuantizedTensor):
+        return tuple(x.shape)
+    shape = tuple(x.values.shape)
+    if x.precision is OperandPrecision.NF4:
+        shape = shape[:-1] + (2 * shape[-1],)
+    return shape
+
+
 def _flash_decode_plain(q, k, v, *, kv_lens, kv_starts, max_span, scale):
     """The plain PyTorch version: float32 scores of each group against
-    its kv head, a mask from the rows' [lo, hi), and a float32 softmax.
-    It is what a CPU tensor runs and what the kernel is held against on
-    the card."""
+    its kv head, a mask from the rows' [lo, hi), and a float32 softmax
+    (a quantized cache dequantized in float32 first, NF4's codebook
+    rounded to q's type as the kernels round it).  It is what a CPU
+    tensor runs and what the kernel is held against on the card."""
+    if isinstance(k, QuantizedTensor):
+        k, v = dequantize(k, q.dtype), dequantize(v, q.dtype)
     b, qh, d = q.shape
     _, kvh, n, _ = k.shape
     group = qh // kvh
@@ -199,8 +241,8 @@ def _kernel_library() -> ctypes.CDLL:
 def bind_library(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C interface of a build of csrc/flash_decode.cu."""
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.mfa_flash_decode.argtypes = ([ptr] * 9 + [i32] * 5 + [
-        ptr, i32, ctypes.c_float, i32, i32, i32, ptr])
+    lib.mfa_flash_decode.argtypes = ([ptr] * 11 + [i32] * 5 + [
+        ptr, i32, ctypes.c_float, i32, i32, i32, i32, ptr])
     lib.mfa_flash_decode.restype = i32
     lib.mfa_cuda_error_string.argtypes = [i32]
     lib.mfa_cuda_error_string.restype = ctypes.c_char_p
@@ -212,13 +254,34 @@ def _flash_decode_cuda(q, k, v, *, kv_lens, kv_starts, max_span, scale):
     is made contiguous (a [batch, q_heads, d] copy at most); K and V are
     read in place through their strides."""
     b, qh, d = q.shape
-    _, kvh, n, _ = k.shape
+    _, kvh, n, _ = _logical_shape(k)
+    precision = k.precision if isinstance(k, QuantizedTensor) else None
     if q.dtype not in KERNEL_DTYPES:
         raise TypeError(f"the decode kernel takes bf16, fp16 or fp32, got "
                         f"{q.dtype}")
-    if k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"q, k and v must share a dtype, got {q.dtype}, "
-                        f"{k.dtype}, {v.dtype}")
+    if precision is None:
+        if k.dtype != q.dtype or v.dtype != q.dtype:
+            raise TypeError(f"q, k and v must share a dtype, got "
+                            f"{q.dtype}, {k.dtype}, {v.dtype}")
+        scales = (None, None)
+    else:
+        if q.dtype != torch.bfloat16:
+            raise not_ported(f"{q.dtype} queries over a quantized cache in "
+                             "the decode kernel (it takes bf16)",
+                             KERNEL_ITEM)
+        for name, t in (("k", k), ("v", v)):
+            if t.values.dtype != precision.storage_dtype:
+                raise TypeError(f"{name} holds {t.values.dtype}, not "
+                                f"{precision.value}'s "
+                                f"{precision.storage_dtype}")
+            if t.scales.dtype != torch.float32 or \
+                    tuple(t.scales.shape) != (b, kvh) or \
+                    not t.scales.is_contiguous() or \
+                    t.scales.device != q.device:
+                raise ValueError(f"{name}'s scales must be float32 [batch, "
+                                 f"kv_heads] on {q.device}, contiguous")
+        scales = (k.scales, v.scales)
+        k, v = k.values, v.values
     if d not in KERNEL_HEAD_DIMS:
         raise not_ported(f"head_dim {d} in the decode kernel (it takes "
                          f"{KERNEL_HEAD_DIMS})", KERNEL_ITEM)
@@ -231,12 +294,11 @@ def _flash_decode_cuda(q, k, v, *, kv_lens, kv_starts, max_span, scale):
         raise not_ported(f"GQA groups above {max_group} in the decode "
                          "kernel", KERNEL_ITEM)
     q = q.contiguous()
-    size = q.element_size()
     for name, t in (("k", k), ("v", v)):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if t.stride(-1) != 1 or t.data_ptr() % 16 or \
-                any(s * size % 16 for s in t.stride()[:3]):
+                any(s * t.element_size() % 16 for s in t.stride()[:3]):
             raise ValueError(f"{name} needs a contiguous last axis, 16-byte "
                              f"aligned rows and start; strides "
                              f"{t.stride()}")
@@ -262,14 +324,18 @@ def _flash_decode_cuda(q, k, v, *, kv_lens, kv_starts, max_span, scale):
     stream = ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream)
     with torch.cuda.device(q.device):
         rc = lib.mfa_flash_decode(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), data_ptr(lens),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            *(data_ptr(t) for t in scales), data_ptr(lens),
             data_ptr(starts), o.data_ptr(), lse.data_ptr(),
             data_ptr(part_o), data_ptr(part_lse), b, qh, kvh, n, d, strides,
             max_span or 0, ctypes.c_float(scale), splits, chunk,
-            KERNEL_DTYPES[q.dtype], stream)
+            KERNEL_DTYPES[q.dtype],
+            0 if precision is None else PRECISION_CODE[precision], stream)
     if rc != 0:
         raise RuntimeError(f"flash_decode kernel launch failed: CUDA error "
                            f"{rc} ({lib.mfa_cuda_error_string(rc).decode()})")
     LAUNCH_COUNTS["flash_decode"] += 1
     LAUNCH_COUNTS["flash_decode_sm90"] += 1
+    if precision is not None:
+        LAUNCH_COUNTS[f"flash_decode_{precision.value}"] += 1
     return o, lse

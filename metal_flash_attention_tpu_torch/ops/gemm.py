@@ -69,6 +69,7 @@ from metal_flash_attention_tpu_torch.descriptors.precision import (
 from metal_flash_attention_tpu_torch.ops.paged_attention import _sm_count
 from metal_flash_attention_tpu_torch.ops.quantization import (
     NF4_GEMM_GROUP,
+    PRECISION_CODE,
     QuantizedMatrix,
     nf4_unpack_groups,
 )
@@ -77,12 +78,6 @@ from metal_flash_attention_tpu_torch.utils.shapes import cdiv, round_up
 # One count per kernel, bumped only where its wrapper launches it.
 LAUNCH_COUNTS = {"gemm": 0, "gemm_sm90": 0}
 
-# Memory precision codes of csrc/gemm.cu (quant_common.cuh's enum).
-_PRECISION_CODE = {
-    OperandPrecision.FP32: 0, OperandPrecision.BF16: 1,
-    OperandPrecision.INT8: 2, OperandPrecision.FP8_E4M3: 3,
-    OperandPrecision.FP8_E5M2: 4, OperandPrecision.NF4: 5,
-}
 _OUT_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _C_NONE, _C_SEED, _C_AFTER_SCALE = 0, 1, 2
 # A split of K keeps at least this many K steps.
@@ -469,12 +464,12 @@ def _gemm_cuda(ops: _Operands, c, register_dtype, out_dtype, any_quant):
     with torch.cuda.device(device):
         if route == "sm90":
             b_rows = ops.b.shape[2 if ops.transpose_b else 1]
-            rc = lib.mfa_gemm_sm90(*args, _PRECISION_CODE[prec_b], b_rows,
+            rc = lib.mfa_gemm_sm90(*args, PRECISION_CODE[prec_b], b_rows,
                                    cfg.block_m, cfg.block_n,
                                    _OUT_CODE[out_dtype], c_mode, stream)
         else:
             rc = lib.mfa_gemm(
-                *args, _PRECISION_CODE[prec_a], _PRECISION_CODE[prec_b],
+                *args, PRECISION_CODE[prec_a], PRECISION_CODE[prec_b],
                 _OUT_CODE[out_dtype], c_mode,
                 int(register_dtype == torch.float32),
                 int(_chunks_ok(ops.a, a_sb, a_sm, a_sk)),

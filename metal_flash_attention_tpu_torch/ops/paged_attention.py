@@ -20,15 +20,30 @@ Layout (the JAX package's, at every public function):
 The appends update the pools IN PLACE (the JAX package donates them to
 the jit instead) and return a cache whose lengths moved on.
 
+Quantized pools (`QuantizedPagedKVCache`, made by `quantize_paged`):
+INT8 / FP8-E4M3 / FP8-E5M2 pages [num_pages, kv_heads, page_size,
+head_dim], or NF4 [num_pages, kv_heads, page_size / 2, head_dim] (byte
+(r, c) holds column c of tokens r, low nibble, and r + page_size / 2,
+high nibble), each page quantized on its own with one float32 scale per
+(page, kv head), so pages stay shareable.  Both modes take them; the
+kernel decodes each tile in shared memory.
+
 Dispatch: a CPU tensor takes the plain PyTorch version
-(`_paged_attention_plain`); a CUDA tensor takes the hand-written kernels
-in `csrc/paged_attention.cu` (bf16 pools, head dims 64 and 128), or
-raises.  There is no fallback from one to the other.  Both modes gather
-their pages through the cp.async ring of `csrc/decode_common.cuh` and
-split the keys in fixed chunks (`decode_splits`); decode runs the decode
-core that `flash_decode` runs.  Each kernel launch adds one to its
-`LAUNCH_COUNTS` entry and to the entry of its Hopper kernel
-(`paged_decode_sm90`, `paged_prefill_sm90`).
+(`_paged_attention_plain`, which dequantizes the gathered pages in
+float32); a CUDA tensor takes the hand-written kernels in
+`csrc/paged_attention.cu` (bf16 q; bf16 or quantized pools; head dims 64
+and 128), or raises.  There is no fallback from one to the other.  Both
+modes gather their pages through the cp.async ring of
+`csrc/decode_common.cuh` and split the keys in fixed chunks
+(`decode_splits`); decode runs the decode core that `flash_decode` runs.
+A decode whose GQA group is wider than the decode kernel's
+(MFA_DECODE_MAX_GROUP: a serving chunk's positions folded into the head
+axis) runs on the prefill kernel with q_chunk = 1, where every row sits
+at position lengths - 1, and counts as `paged_decode_wide`.  Each kernel
+launch adds one to its `LAUNCH_COUNTS` entry (`paged_decode`,
+`paged_decode_wide`, `paged_prefill`), to the entry of its Hopper kernel
+(`<name>_sm90`) and, over quantized pools, to `<name>_<precision>`
+(`paged_decode_int8`, ...).
 """
 
 from __future__ import annotations
@@ -40,18 +55,44 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from metal_flash_attention_tpu_torch.descriptors.precision import (
+    OperandPrecision,
+)
 from metal_flash_attention_tpu_torch.native.build import tile_defines
+from metal_flash_attention_tpu_torch.ops.quantization import (
+    FP8_MAX,
+    PRECISION_CODE,
+    nf4_nearest_indices,
+    nf4_unpack,
+)
 from metal_flash_attention_tpu_torch.utils.device import resolve_device
 from metal_flash_attention_tpu_torch.utils.errors import not_ported
 from metal_flash_attention_tpu_torch.utils.shapes import cdiv
 
 KERNEL_HEAD_DIMS = (64, 128)
+KV_PRECISIONS = (OperandPrecision.INT8, OperandPrecision.FP8_E4M3,
+                 OperandPrecision.FP8_E5M2, OperandPrecision.NF4)
+MODES = ("paged_decode", "paged_decode_wide", "paged_prefill")
 
-# One count per kernel, bumped only where its wrapper launches it.
-LAUNCH_COUNTS = {"paged_decode": 0, "paged_prefill": 0,
-                 "paged_decode_sm90": 0, "paged_prefill_sm90": 0}
+# One count per kernel, bumped only where its wrapper launches it: each
+# mode, its Hopper kernel, and its launches over quantized pools by
+# precision.
+LAUNCH_COUNTS = {f"{mode}{suffix}": 0 for mode in MODES for suffix in
+                 ("", "_sm90", *(f"_{p.value}" for p in KV_PRECISIONS))}
 
 KERNEL_ITEM = "flash-kernel coverage"
+
+
+def as_kv_precision(value) -> OperandPrecision:
+    """An INT8 / FP8-E4M3 / FP8-E5M2 / NF4 KV storage precision, from an
+    `OperandPrecision` of either package or its value ("int8", ...)."""
+    try:
+        precision = OperandPrecision(getattr(value, "value", value))
+    except ValueError:
+        precision = None
+    if precision not in KV_PRECISIONS:
+        raise ValueError(f"unsupported streaming KV precision: {value!r}")
+    return precision
 
 
 def reset_launch_counts() -> None:
@@ -69,6 +110,77 @@ class PagedKVCache(NamedTuple):
     @property
     def page_size(self) -> int:
         return self.k_pages.shape[2]
+
+
+class QuantizedPagedKVCache(NamedTuple):
+    """A paged pool of INT8 / FP8 / NF4 pages with one scale per (page,
+    kv head)."""
+    k_pages: torch.Tensor     # [num_pages, kv_heads, page_size, d] storage
+    v_pages: torch.Tensor     # (NF4: [num_pages, kv_heads, page/2, d] uint8)
+    k_scales: torch.Tensor    # [num_pages, kv_heads] float32
+    v_scales: torch.Tensor
+    page_table: torch.Tensor  # [batch, max_pages] int32
+    lengths: torch.Tensor     # [batch] int32
+    precision: OperandPrecision
+
+    @property
+    def page_size(self) -> int:
+        rows = self.k_pages.shape[2]
+        return 2 * rows if self.precision is OperandPrecision.NF4 else rows
+
+
+def quantize_page_block(x: torch.Tensor, precision: OperandPrecision
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Quantize pages [..., page_size, d] each on its own: (payload
+    [..., page_size, d] in the storage dtype, NF4 [..., page_size / 2, d]
+    uint8 two tokens a byte; scale [...] float32, the page's absmax over
+    the format's largest value).  Bit for bit the JAX package's
+    `quantize_paged` and `models.serving._quantize_page_block`."""
+    xf = x.float()
+    absmax = xf.abs().amax(dim=(-1, -2)).clamp_min(1e-12)
+    if precision is OperandPrecision.INT8:
+        scale = absmax / 127.0
+        q = torch.round(xf / scale[..., None, None]).clamp(-127, 127)
+        return q.to(torch.int8), scale
+    if precision in FP8_MAX:
+        scale = absmax / FP8_MAX[precision]
+        return (xf / scale[..., None, None]).to(precision.storage_dtype), \
+            scale
+    if precision is OperandPrecision.NF4:
+        ps = x.shape[-2]
+        if ps % 2:
+            raise ValueError(f"NF4 pages need an even page_size, got {ps}")
+        idx = nf4_nearest_indices(xf / absmax[..., None, None])
+        packed = idx[..., :ps // 2, :] | (idx[..., ps // 2:, :] << 4)
+        return packed.to(torch.uint8), absmax
+    raise ValueError(f"unsupported paged KV precision: {precision}")
+
+
+def dequantize_pages(pages: torch.Tensor, scales: torch.Tensor,
+                     precision: OperandPrecision,
+                     dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Stored pages [..., rows, d] and their scales [...] -> float32
+    [..., page_size, d] (NF4: low nibbles are the page's first half of
+    tokens, high nibbles its second; its codebook values rounded to
+    ``dtype``, the queries' type, as the kernels of both packages round
+    them)."""
+    if precision is OperandPrecision.NF4:
+        vals = nf4_unpack(pages, dim=-2, dtype=dtype)
+    else:
+        vals = pages.float()
+    return vals * scales[..., None, None]
+
+
+def quantize_paged(cache: PagedKVCache, precision: OperandPrecision
+                   ) -> QuantizedPagedKVCache:
+    """Quantize a paged pool page by page (one absmax scale per page and
+    kv head), for decoding against it; new tokens then go to a bf16 tail
+    merged by lse (`models.serving`)."""
+    precision = as_kv_precision(precision)
+    kq, ks = quantize_page_block(cache.k_pages, precision)
+    vq, vs = quantize_page_block(cache.v_pages, precision)
+    return QuantizedPagedKVCache(kq, vq, ks, vs, cache.page_table,
+                                 cache.lengths, precision)
 
 
 def init_paged_cache(*, num_pages: int, kv_heads: int, page_size: int,
@@ -133,8 +245,10 @@ def paged_decode(q: torch.Tensor, cache: PagedKVCache, *,
     q: [batch, q_heads, head_dim]; returns o of q's shape and, with
     ``return_residuals``, the natural-log lse [batch, q_heads].  The
     query sits at position lengths - 1; ``window_size`` w keeps the last
-    w positions.  On a CUDA tensor this launches the split-KV decode
-    kernel."""
+    w positions.  ``cache`` is a `PagedKVCache` or a
+    `QuantizedPagedKVCache`.  On a CUDA tensor this launches the split-KV
+    decode kernel (the prefill kernel for groups above
+    MFA_DECODE_MAX_GROUP)."""
     o, lse = _paged_attention(
         q[:, :, None, :], cache, kv_starts=kv_starts, scale=scale,
         logit_softcap=logit_softcap, window_size=window_size, decode=True)
@@ -165,11 +279,13 @@ def _paged_attention(q, cache, *, kv_starts, scale, logit_softcap,
                      window_size, decode):
     """Shared driver: q [batch, q_heads, q_tokens, head_dim] ->
     (o like q, lse [batch, q_heads, q_tokens] float32)."""
-    if getattr(cache, "precision", None) is not None or \
-            cache.k_pages.dtype not in (torch.bfloat16, torch.float16,
-                                        torch.float32):
-        raise not_ported("quantized paged pools (INT8/FP8/NF4)",
-                         "quantized KV")
+    precision = getattr(cache, "precision", None)
+    if precision is None and cache.k_pages.dtype not in (
+            torch.bfloat16, torch.float16, torch.float32):
+        raise TypeError(f"{cache.k_pages.dtype} pools: quantized pools "
+                        "come as a QuantizedPagedKVCache (quantize_paged)")
+    if precision is not None and precision not in KV_PRECISIONS:
+        raise ValueError(f"unsupported paged KV precision: {precision}")
     if kv_starts is not None:
         raise not_ported("kv_starts (per-sequence first position)",
                          "paged-kernel options for Gemma and sinks")
@@ -193,11 +309,13 @@ def _paged_attention(q, cache, *, kv_starts, scale, logit_softcap,
 def _paged_attention_plain(q, cache, *, scale, window_size):
     """The plain PyTorch version: gather every sequence's pages into a
     dense [batch, kv_heads, max_pages * page_size, d] K/V, mask, and
-    take the softmax in float32.  It is what a CPU tensor runs and what
-    the kernel is held against on the card."""
-    k_pages, v_pages, table, lengths = cache
+    take the softmax in float32 (quantized pages dequantized, each by its
+    own scale).  It is what a CPU tensor runs and what the kernel is held
+    against on the card."""
+    k_pages, v_pages, table, lengths = (cache.k_pages, cache.v_pages,
+                                        cache.page_table, cache.lengths)
     b, qh, qc, d = q.shape
-    _, kvh, ps, _ = k_pages.shape
+    kvh, ps = k_pages.shape[1], cache.page_size
     group = qh // kvh
     max_pages = table.shape[1]
     n = max_pages * ps
@@ -208,11 +326,15 @@ def _paged_attention_plain(q, cache, *, scale, window_size):
         (lengths[:, None] + ps - 1) // ps
     idx = torch.where(live_pages, table.long(), 0)
 
-    def gather(pages):
+    def gather(pages, scales):
         x = pages[idx]                          # [b, max_pages, kvh, ps, d]
-        return x.permute(0, 2, 1, 3, 4).reshape(b, kvh, n, d).float()
+        x = (x.float() if scales is None else
+             dequantize_pages(x, scales[idx], cache.precision, q.dtype))
+        return x.permute(0, 2, 1, 3, 4).reshape(b, kvh, n, d)
 
-    k, v = gather(k_pages), gather(v_pages)
+    quantized = getattr(cache, "precision", None) is not None
+    k = gather(k_pages, cache.k_scales if quantized else None)
+    v = gather(v_pages, cache.v_scales if quantized else None)
     qg = q.reshape(b, kvh, group, qc, d).float()
     s = torch.einsum("bhgtd,bhnd->bhgtn", qg, k) * scale
     cols = torch.arange(n, device=q.device)[None, None, :]
@@ -245,8 +367,8 @@ def _kernel_library() -> ctypes.CDLL:
 def bind_library(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C interface of a build of csrc/paged_attention.cu."""
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    args = [ptr] * 7 + [i32] * 7 + [ctypes.c_float, i32, ptr, ptr, i32,
-                                    i32, ptr]
+    args = [ptr] * 9 + [i32] * 7 + [ctypes.c_float, i32, ptr, ptr, i32,
+                                    i32, i32, ptr]
     for fn in (lib.mfa_paged_prefill, lib.mfa_paged_decode):
         fn.argtypes = args
         fn.restype = i32
@@ -307,20 +429,34 @@ def data_ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 
 def _paged_attention_cuda(q, cache, *, scale, window_size, decode):
     """Launch the Hopper kernel; raise on anything it does not take."""
-    k_pages, v_pages, table, lengths = cache
+    precision = getattr(cache, "precision", None)
+    k_pages, v_pages, table, lengths = (cache.k_pages, cache.v_pages,
+                                        cache.page_table, cache.lengths)
     b, qh, qc, d = q.shape
-    _, kvh, ps, d_kv = k_pages.shape
+    _, kvh, _, d_kv = k_pages.shape
+    ps = cache.page_size
     tensors = dict(q=q, k_pages=k_pages, v_pages=v_pages,
                    page_table=table, lengths=lengths)
+    if precision is not None:
+        tensors.update(k_scales=cache.k_scales, v_scales=cache.v_scales)
     for name, t in tensors.items():
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte "
                              "aligned")
-    if k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
-        raise TypeError("q and the pools must share a dtype, got "
-                        f"{q.dtype}, {k_pages.dtype}, {v_pages.dtype}")
+    store = q.dtype if precision is None else precision.storage_dtype
+    if k_pages.dtype != store or v_pages.dtype != store:
+        raise TypeError(f"the pools must be {store}, got {k_pages.dtype}, "
+                        f"{v_pages.dtype}")
+    if precision is not None:
+        for name in ("k_scales", "v_scales"):
+            t = tensors[name]
+            if t.dtype != torch.float32 or \
+                    tuple(t.shape) != tuple(k_pages.shape[:2]):
+                raise ValueError(f"{name} must be float32 [num_pages, "
+                                 f"kv_heads], got {t.dtype} "
+                                 f"{tuple(t.shape)}")
     if table.dtype != torch.int32 or lengths.dtype != torch.int32:
         raise TypeError("page_table and lengths must be int32")
     if d_kv != d or v_pages.shape != k_pages.shape or qh % kvh or \
@@ -333,49 +469,56 @@ def _paged_attention_cuda(q, cache, *, scale, window_size, decode):
                                          tuple(table.shape),
                                          tuple(lengths.shape)))
     if q.dtype != torch.bfloat16:
-        raise not_ported(f"{q.dtype} pools in the paged kernel (it takes "
+        raise not_ported(f"{q.dtype} queries in the paged kernel (it takes "
                          "bf16)", KERNEL_ITEM)
     if d not in KERNEL_HEAD_DIMS:
         raise not_ported(f"head_dim {d} in the paged kernel (it takes "
                          f"{KERNEL_HEAD_DIMS})", KERNEL_ITEM)
     tiles = tile_defines()
     group = qh // kvh
-    if decode and group > tiles["MFA_DECODE_MAX_GROUP"]:
-        raise not_ported(f"GQA groups above {tiles['MFA_DECODE_MAX_GROUP']} "
-                         "in the paged decode kernel", KERNEL_ITEM)
     lib = _kernel_library()
     max_pages = table.shape[1]
     max_tokens = max_pages * ps
     sm_count = _sm_count(q.device.index or 0)
-    if decode:
+    if decode and group <= tiles["MFA_DECODE_MAX_GROUP"]:
         tile = tiles["MFA_DECODE_BLOCK_KV"]
         if window_size is not None:
-            # The last `window` keys start mid-tile at worst.
-            max_tokens = min(max_tokens, window_size + tile)
+            # The last `window` keys start mid-tile at worst; an NF4
+            # tile's keys lie in halves of whole pages.
+            reach = (window_size + 2 * ps + 2 * tile
+                     if precision is OperandPrecision.NF4
+                     else window_size + tile)
+            max_tokens = min(max_tokens, reach)
         chunk, splits = decode_splits(b * kvh, max_tokens, sm_count, tile,
                                       tiles["MFA_DECODE_CHUNK"])
-        rows, name = group, "paged_decode"
+        rows, name, entry = group, "paged_decode", lib.mfa_paged_decode
     else:
         row_tiles = cdiv(group * qc, tiles["MFA_PAGED_BLOCK_Q"])
         chunk, splits = decode_splits(row_tiles * kvh * b, max_tokens,
                                       sm_count, tiles["MFA_PAGED_BLOCK_KV"],
                                       tiles["MFA_PAGED_PREFILL_CHUNK"],
                                       at_most=True)
-        rows, name = group * qc, "paged_prefill"
+        rows, entry = group * qc, lib.mfa_paged_prefill
+        name = "paged_decode_wide" if decode else "paged_prefill"
     o = torch.empty_like(q)
     lse = torch.empty((b, qh, qc), dtype=torch.float32, device=q.device)
     part_o, part_lse = split_scratch(b, kvh, splits, rows, d, q.device)
+    code = PRECISION_CODE[precision or OperandPrecision.BF16]
+    scales = ((None, None) if precision is None
+              else (cache.k_scales.data_ptr(), cache.v_scales.data_ptr()))
     stream = ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream)
     with torch.cuda.device(q.device):
-        rc = getattr(lib, f"mfa_{name}")(
-            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        rc = entry(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), *scales,
             table.data_ptr(), lengths.data_ptr(), o.data_ptr(),
             lse.data_ptr(), b, qh, kvh, qc, d, ps, max_pages,
             ctypes.c_float(scale), window_size or 0, data_ptr(part_o),
-            data_ptr(part_lse), splits, chunk, stream)
+            data_ptr(part_lse), splits, chunk, code, stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc} "
                            f"({lib.mfa_cuda_error_string(rc).decode()})")
     LAUNCH_COUNTS[name] += 1
     LAUNCH_COUNTS[f"{name}_sm90"] += 1
+    if precision is not None:
+        LAUNCH_COUNTS[f"{name}_{precision.value}"] += 1
     return o, lse

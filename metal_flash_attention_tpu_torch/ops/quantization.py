@@ -9,8 +9,8 @@ nibble-packed two per byte.
 - KV half (`QuantizedTensor`, `quantize`, `dequantize`, `nf4_unpack`):
   [batch, heads, seq, head_dim] with one scale per (batch, head); NF4
   packs head_dim split-half (byte j holds elements j and j + D/2).
-  Nothing on a ported kernel path takes a `QuantizedTensor` yet
-  (ROADMAP.md, port queue: quantized KV).
+  `ops.flash_decode` decodes these payloads inside its CUDA kernel; the
+  paged pools' per-page quantizer is `ops.paged_attention.quantize_paged`.
 - GEMM half (`QuantizedMatrix`, `quantize_matrix`, `dequantize_matrix`):
   a 2-D operand with a per-tensor or per-channel scale; NF4 packs the
   contraction axis split-half within 512-element groups (byte g * 256 +
@@ -52,6 +52,14 @@ FP8_MAX = {OperandPrecision.FP8_E4M3: 448.0,
 # NF4 GEMM payloads pack the contraction axis split-half within groups of
 # this many elements.
 NF4_GEMM_GROUP = 512
+
+# Memory precision codes at the kernels' C interfaces (the Precision enum
+# of csrc/quant_common.cuh).
+PRECISION_CODE = {
+    OperandPrecision.FP32: 0, OperandPrecision.BF16: 1,
+    OperandPrecision.INT8: 2, OperandPrecision.FP8_E4M3: 3,
+    OperandPrecision.FP8_E5M2: 4, OperandPrecision.NF4: 5,
+}
 
 
 class QuantizedTensor(NamedTuple):
@@ -138,18 +146,26 @@ def quantize(x: torch.Tensor, precision: OperandPrecision) -> QuantizedTensor:
     raise ValueError(f"not a quantized precision: {precision}")
 
 
-def nf4_unpack(packed: torch.Tensor) -> torch.Tensor:
-    """Split-half NF4 along the last axis -> float32 codebook values."""
+def nf4_unpack(packed: torch.Tensor, dim: int = -1,
+               dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Split-half NF4 -> float32 codebook values: the low nibbles, then
+    the high ones, along ``dim`` (the last axis for the dense cache,
+    head_dim; the rows for a paged pool's pages, whose first and second
+    halves of tokens share a byte row), each value rounded to ``dtype``
+    (the kernels round the codebook to their bf16 inputs)."""
     lo, hi = _nibbles(packed)
-    return torch.cat([nf4_codebook_lookup(lo), nf4_codebook_lookup(hi)],
-                     dim=-1)
+    vals = torch.cat([nf4_codebook_lookup(lo), nf4_codebook_lookup(hi)],
+                     dim=dim)
+    return vals if dtype == torch.float32 else vals.to(dtype).float()
 
 
-def dequantize(t: QuantizedTensor) -> torch.Tensor:
-    """Host dequantization of a KV operand (float32)."""
+def dequantize(t: QuantizedTensor,
+               dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Host dequantization of a KV operand (float32; NF4's codebook
+    values rounded to ``dtype`` first)."""
     s = t.scales[:, :, None, None]
     if t.precision is OperandPrecision.NF4:
-        return nf4_unpack(t.values) * s
+        return nf4_unpack(t.values, dtype=dtype) * s
     return t.values.float() * s
 
 

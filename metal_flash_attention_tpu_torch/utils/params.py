@@ -1,4 +1,5 @@
-"""Carry parameters and KV caches from the JAX package into the port.
+"""Carry parameters, KV caches (quantized ones too) and quantized
+operands from the JAX package into the port.
 
 The tests hand both packages the same weights, caches and quantized
 operands: the JAX pytree is turned into numpy (bf16 as float32, which
@@ -70,10 +71,7 @@ def quantized_matrix_from_numpy(values, scale, precision, shape,
     ...)`) -> the port's `ops.quantization.QuantizedMatrix`, on the card
     unless ``device`` says otherwise.  ``precision``: an
     `OperandPrecision` of either package, or its value ("int8", ...).
-
-    The payload keeps its bits: FP8 arrays (ml_dtypes float8) go through
-    uint8 and `Tensor.view` to torch's float8 dtype, never through
-    float32; INT8 stays int8 and NF4 uint8."""
+    The payload keeps its bits (`_payload`)."""
     from metal_flash_attention_tpu_torch.descriptors.precision import (
         OperandPrecision,
     )
@@ -83,15 +81,105 @@ def quantized_matrix_from_numpy(values, scale, precision, shape,
 
     device = resolve_device(device)
     precision = OperandPrecision(getattr(precision, "value", precision))
+    return QuantizedMatrix(
+        _payload(values, precision, device), _floats(scale, device),
+        precision, tuple(int(x) for x in shape))
+
+
+def _payload(values, precision, device) -> torch.Tensor:
+    """A quantized payload with its bits kept: FP8 arrays (ml_dtypes
+    float8) go through uint8 and `Tensor.view` to torch's float8 dtype,
+    never through float32; INT8 stays int8 and NF4 uint8."""
     if not precision.is_quantized:
         raise ValueError(f"not a quantized precision: {precision}")
     raw = np.array(values)   # a writable, contiguous copy
     if raw.dtype.itemsize != 1:
         raise TypeError(f"a {precision.value} payload has one byte an "
                         f"element, got {raw.dtype}")
-    payload = torch.from_numpy(raw.view(np.uint8)).view(
-        precision.storage_dtype)
-    return QuantizedMatrix(
-        payload.to(device),
-        torch.from_numpy(np.array(scale, np.float32)).to(device),
-        precision, tuple(int(x) for x in shape))
+    return torch.from_numpy(raw.view(np.uint8)).view(
+        precision.storage_dtype).to(device)
+
+
+def _floats(x, device, dtype=torch.float32) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, np.float32)).to(device=device,
+                                                        dtype=dtype)
+
+
+def _ints(x, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, np.int32)).to(device)
+
+
+def quantized_kv_cache_from_numpy(cache, device=None,
+                                  dtype: torch.dtype = torch.bfloat16):
+    """A JAX `models.serving.QuantizedKVCache` as numpy (under
+    `jax.tree.map(np.asarray, ...)`; a tail in bf16 as float32) -> the
+    port's, payload bits kept, tails in ``dtype``, on the card unless
+    ``device`` says otherwise."""
+    from metal_flash_attention_tpu_torch.descriptors.precision import (
+        OperandPrecision,
+    )
+    from metal_flash_attention_tpu_torch.models.serving import (
+        QuantizedKVCache,
+    )
+    from metal_flash_attention_tpu_torch.ops.quantization import (
+        QuantizedTensor,
+    )
+
+    device = resolve_device(device)
+
+    def tensors(xs):
+        out = []
+        for x in xs:
+            precision = OperandPrecision(x.precision.value)
+            out.append(QuantizedTensor(
+                _payload(x.values, precision, device),
+                _floats(x.scales, device), precision))
+        return out
+    return QuantizedKVCache(
+        k_q=tensors(cache.k_q), v_q=tensors(cache.v_q),
+        k_tail=[_floats(x, device, dtype) for x in cache.k_tail],
+        v_tail=[_floats(x, device, dtype) for x in cache.v_tail],
+        prefix_len=_ints(cache.prefix_len, device),
+        tail_len=_ints(cache.tail_len, device))
+
+
+def quantized_paged_cache_from_numpy(cache, head_dim: int, device=None,
+                                     dtype: torch.dtype = torch.bfloat16):
+    """A JAX `models.serving.QuantizedPagedModelCache` as numpy -> the
+    port's, on the card unless ``device`` says otherwise.  The JAX pools
+    pad head_dim to 128 lanes; the port's do not, so the lanes past
+    ``head_dim`` are cut, after checking that each holds the code of 0.0
+    (the JAX quantizer pads with zeros), so that no payload bit is lost;
+    the kept payload keeps its bits.  Tails come in ``dtype``."""
+    from metal_flash_attention_tpu_torch.descriptors.precision import (
+        OperandPrecision,
+    )
+    from metal_flash_attention_tpu_torch.models.serving import (
+        QuantizedPagedModelCache,
+    )
+
+    device = resolve_device(device)
+    precision = OperandPrecision(cache.precision.value)
+    # A page never written holds zero bytes; a written one the code of
+    # 0.0 in its padding (NF4: codebook index 7, in both nibbles).
+    padding = (0, 0x77 if precision is OperandPrecision.NF4 else 0)
+
+    def pools(xs):
+        out = []
+        for x in xs:
+            raw = np.array(x)
+            pad = raw[..., head_dim:].view(np.uint8)
+            if pad.size and not np.all(np.isin(pad, padding)):
+                raise ValueError("a pool's lanes past head_dim hold "
+                                 "payload, not padding")
+            out.append(_payload(raw[..., :head_dim], precision, device))
+        return tuple(out)
+    return QuantizedPagedModelCache(
+        qk=pools(cache.qk), qv=pools(cache.qv),
+        k_scales=tuple(_floats(x, device) for x in cache.k_scales),
+        v_scales=tuple(_floats(x, device) for x in cache.v_scales),
+        tail_k=tuple(_floats(x, device, dtype) for x in cache.tail_k),
+        tail_v=tuple(_floats(x, device, dtype) for x in cache.tail_v),
+        page_table=_ints(cache.page_table, device),
+        full_len=_ints(cache.full_len, device),
+        tail_len=_ints(cache.tail_len, device), precision=precision)

@@ -16,7 +16,10 @@ rounding of P and of o to the input type.  fp32 o and every lse: the
 dtype's tier (`tolerances_for`).  bf16 and fp16 o: the relative rms
 error of each (sequence, head) row, `ROW_REL_RMS`, since a max abs limit
 of 5e-2 would pass almost any output where |o| is about 0.03 (a row of
-1,000 keys with N(0, 1) values).
+1,000 keys with N(0, 1) values).  Over a quantized cache (INT8 / FP8 /
+NF4 `QuantizedTensor`s, bf16 queries) the plain version dequantizes in
+float32 (NF4's codebook rounded to bf16, as the kernel rounds it): o at
+the bf16 row limit, lse at the bf16 tier.
 """
 
 import numpy as np
@@ -26,6 +29,10 @@ import torch
 from metal_flash_attention_tpu_torch.models import llama, serving
 from metal_flash_attention_tpu_torch.ops import flash_attention as fa
 from metal_flash_attention_tpu_torch.ops import flash_decode as fd
+from metal_flash_attention_tpu_torch.descriptors.precision import (
+    OperandPrecision,
+)
+from metal_flash_attention_tpu_torch.ops.quantization import quantize
 from metal_flash_attention_tpu_torch.utils.tolerances import (
     max_abs_err,
     tolerances_for,
@@ -128,6 +135,62 @@ def test_decode_kernel_matches_plain(cuda, dtype, qh, kvh, d, n, lens,
     assert (o[torch.isinf(lse)] == 0).all()
 
 
+@pytest.mark.parametrize("precision", ["int8", "fp8_e4m3", "fp8_e5m2",
+                                       "nf4"])
+@pytest.mark.parametrize("qh,kvh,d,n,lens,starts,span", [
+    # The generate shape, ragged, a one-key row.
+    (32, 8, 128, 8192, [8192, 8191, 7000, 4097, 2048, 129, 64, 1], None,
+     None),
+    (8, 2, 64, 300, [300, 0, 77], None, None),                # empty row
+    (16, 4, 128, 600, [600, 300], [88, 0], 512),              # windows
+])
+def test_quantized_decode_kernel_matches_plain(cuda, precision, qh, kvh, d,
+                                               n, lens, starts, span):
+    q, k, v = _qkv(4, batch=len(lens), q_heads=qh, kv_heads=kvh, d=d,
+                   max_seq=n, dtype=torch.bfloat16, device=cuda)
+    prec = OperandPrecision(precision)
+    kq, vq = quantize(k, prec), quantize(v, prec)
+    lens_t, starts_t = _ints(lens, cuda), _ints(starts, cuda)
+    before = dict(fd.LAUNCH_COUNTS)
+    o, lse = fd.flash_decode(q, kq, vq, kv_lens=lens_t, kv_starts=starts_t,
+                             max_span=span, return_residuals=True)
+    torch.cuda.synchronize()
+    for name in ("flash_decode", "flash_decode_sm90",
+                 f"flash_decode_{precision}"):
+        assert fd.LAUNCH_COUNTS[name] == before[name] + 1
+    po, plse = fd._flash_decode_plain(q, kq, vq, kv_lens=lens_t,
+                                      kv_starts=starts_t, max_span=span,
+                                      scale=d ** -0.5)
+    assert worst_row_rel_rms(o, po) <= ROW_REL_RMS[torch.bfloat16]
+    assert max_abs_err(lse, plse) <= tolerances_for(torch.bfloat16).lse
+    assert torch.equal(torch.isinf(lse), torch.isinf(plse))
+
+
+def test_decode_step_quantized_launches_two_decodes_a_layer(cuda):
+    """A tiny bf16 model: the quantized prefix and the bf16 tail, one
+    decode kernel each a layer and step."""
+    cfg = llama.LlamaConfig.tiny(n_layers=2, dim=256, n_heads=4,
+                                 n_kv_heads=2)
+    params = llama.init_params(cfg, torch.Generator(device=cuda)
+                               .manual_seed(0), device=cuda)
+    prompt = torch.randint(0, cfg.vocab_size, (2, 40), device=cuda,
+                           generator=torch.Generator(device=cuda)
+                           .manual_seed(1))
+    cache = serving.init_cache(cfg, 2, 64, device=cuda)
+    logits, cache = serving.prefill(params, prompt, cfg, cache)
+    qcache = serving.quantize_cache(cache, "nf4", tail_capacity=8)
+    fd.reset_launch_counts()
+    token = logits.argmax(-1).to(torch.int32)
+    for _ in range(3):
+        logits, qcache = serving.decode_step_quantized(params, token, cfg,
+                                                       qcache)
+        token = logits.argmax(-1).to(torch.int32)
+    torch.cuda.synchronize()
+    assert fd.LAUNCH_COUNTS["flash_decode"] == 2 * 3 * cfg.n_layers
+    assert fd.LAUNCH_COUNTS["flash_decode_nf4"] == 3 * cfg.n_layers
+    assert torch.isfinite(logits).all()
+
+
 def test_sink_decode_on_the_card_matches_the_cpu(cuda):
     q, k, v = _qkv(1, batch=3, q_heads=32, kv_heads=8, d=128,
                    max_seq=2048, dtype=torch.bfloat16, device=cuda)
@@ -183,6 +246,14 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
     big = torch.zeros((1, 68, 64), dtype=torch.bfloat16, device=cuda)
     with pytest.raises(NotImplementedError):       # group 34
         fd.flash_decode(big, k, v)
+    int8, nf4 = OperandPrecision.INT8, OperandPrecision.NF4
+    kq, vq = quantize(k, int8), quantize(v, int8)
+    fd.flash_decode(q, kq, vq)                     # INT8 K/V: taken
+    with pytest.raises(NotImplementedError):       # fp16 queries
+        fd.flash_decode(q.half(), kq, vq)
+    with pytest.raises(NotImplementedError):       # head_dim 32
+        fd.flash_decode(q[..., :32], quantize(k[..., :32], nf4),
+                        quantize(v[..., :32], nf4))
 
 
 def test_a_cpu_tensor_never_builds_the_kernel(monkeypatch):

@@ -125,11 +125,25 @@ def test_merge_partials_matches_jax():
 def test_unported_dense_serving_raises():
     _, tcfg, _, tparams, _ = _setup("float32")
     cache = ts.init_cache(tcfg, 1, 16, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ts.quantize_cache(cache, None)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ts.decode_step_quantized(tparams, torch.zeros(1, dtype=torch.int32),
-                                 tcfg, cache)
     moe = dict(tparams, layers=[dict(tparams["layers"][0], moe={})])
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         ts.decode_step(moe, torch.zeros(1, dtype=torch.int32), tcfg, cache)
+
+
+@pytest.mark.parametrize("precision", ["int8", "nf4"])
+def test_quantized_dense_serving_runs(precision):
+    """`quantize_cache` and `decode_step_quantized` run on a prefilled
+    cache (they are held against JAX in test_torch_quantized_serving.py);
+    a precision that is no KV storage format is refused."""
+    _, tcfg, _, tparams, _ = _setup("float32")
+    cache = ts.init_cache(tcfg, 1, 16, device="cpu")
+    _, cache = ts.prefill(tparams, torch.arange(5)[None], tcfg, cache)
+    qcache = ts.quantize_cache(cache, precision, tail_capacity=4)
+    logits, qcache = ts.decode_step_quantized(
+        tparams, torch.zeros(1, dtype=torch.int32), tcfg, qcache)
+    assert logits.shape == (1, tcfg.vocab_size)
+    assert torch.isfinite(logits).all()
+    assert qcache.prefix_len.tolist() == [5]
+    assert qcache.tail_len.tolist() == [1]
+    with pytest.raises(ValueError, match="streaming KV precision"):
+        ts.quantize_cache(cache, None)

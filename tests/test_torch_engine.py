@@ -184,7 +184,7 @@ def test_abort_frees_slot_and_pages(models):
 
 def test_unported_engine_features_raise(models):
     _, tcfg, _, tparams = models
-    for kw in (dict(prefix_cache=True), dict(kv_precision="int8"),
+    for kw in (dict(prefix_cache=True),
                dict(draft_fn=lambda *a: None), dict(lora={"layers": []}),
                dict(kv_sharding=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):

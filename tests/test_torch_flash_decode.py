@@ -190,7 +190,7 @@ def test_unported_and_invalid_options_raise():
         6, q_heads=4, kv_heads=2, d=64, max_seq=32, batch=1,
         dtype=jnp.float32))
     lens = torch.tensor([20], dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(TypeError, match="QuantizedTensors"):
         tfd.flash_decode(q, object(), object())
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tfd.flash_decode(q, k, v, logit_softcap=30.0)

@@ -205,10 +205,6 @@ def test_unported_options_raise():
         tpa.paged_decode(q, cache, logit_softcap=30.0)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tpa.paged_decode(q, cache, kv_starts=torch.zeros(1, dtype=torch.int32))
-    quantized = cache._replace(k_pages=cache.k_pages.to(torch.int8),
-                               v_pages=cache.v_pages.to(torch.int8))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tpa.paged_decode(q, quantized)
 
 
 def test_shape_helpers_match_jax():
