@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's paged serving (bf16 and quantized KV), dense
-serving and training paths, and its standalone ops (quantized GEMM,
-softmax), on one NVIDIA GPU.
+"""Drive the PyTorch port's paged serving (bf16 and quantized KV, by
+step and by burst, greedy and sampled), dense serving and training
+paths, and its standalone ops (quantized GEMM, softmax), on one NVIDIA
+GPU.
 
 Run from the root of a checkout, on a machine with one CUDA card and
 the CUDA toolkit:
@@ -49,6 +50,26 @@ Phases (any failure exits non-zero and prints no result):
    decoding) against plain float32 attention over the dequantized pages
    and the tail (QUANT_REF_LIMITS, between the sound readings and those
    of a planted fault: each row's first page lost);
+4c. burst_serve: the same 6 requests drained by the engine's `step()` and
+   by `step_burst(BURST_K)` (16 decode steps between two host reads),
+   over bf16 and then INT8 pools, at full width and depth, greedy; every
+   launch count set to 0 just before each run and read just after, and
+   held exact (each burst step a decode step: per layer one
+   `paged_decode`, or one quantized `paged_decode` and one tail
+   `flash_decode`, all on the Hopper kernels; the steps that fell back to
+   `step()` as before); each burst's device steps (16, or the largest
+   budget left if fewer) under `torch.cuda.set_sync_debug_mode("error")`,
+   so any synchronising call inside fails the run (the burst's uploads
+   at entry and its one read after lie outside); the runs go step, burst,
+   burst, step, and the burst streams must equal the step streams.
+   Then a sampled serve (temperature 0.8, top_k 50, top_p 0.95, engine
+   seed SAMPLE_SEED) through both, streams equal, the first request's
+   stream the same when it runs alone, at least one stream unlike the
+   greedy one, every token in the vocabulary.  Printed: each run's new
+   tokens/s, bursts and steps that fell back, the card's ms (CUDA events)
+   against the host's enqueue ms per burst, and each `step()` decode
+   step's wall ms (its read of the tokens included) against the host's
+   ms to enqueue it;
 5. dense_serve: greedy `models.serving.generate` on the same full-depth
    weights, a batch of 8 random prompts of 8,160 tokens (seed 0), 32 new
    tokens each, a cache of 8,192 positions (Llama-3's context): one
@@ -164,7 +185,8 @@ each output written once; a quantized weight's payload and scales) over
 3.35 TB/s and the operations this run's data needs (visible query-key
 pairs only) over 989 TFLOP/s in bf16.
 
-Output: `serve`, `reference`, `quant_serve`, `quant_reference`,
+Output: `serve`, `reference`, `quant_serve`, `burst_serve`,
+`quant_reference`,
 `dense_serve`, `dense_profile`, `decode_reference`, `quant_gemm`,
 `gemm_checks`, `decode_checks`, `quant_kernel_checks`, `train`,
 `train_profile`, `train_reference`, `flash_checks` and `softmax_checks`
@@ -268,6 +290,9 @@ GEMM_REPEATS = 5
 # each one's end (`torch.cuda._sleep`'s, a few hundred nanoseconds).
 LOOP_GAP_S = 0.01
 LOOP_MARK, LOOP_MARK_CYCLES = "spin_kernel", 1000
+# Profiler sessions `timed` runs before it gives up on one that recorded
+# no kernel (a session can lose its events).
+PROFILE_ATTEMPTS = 3
 DENSE_GEMM = 4096
 SOFTMAX_SCALE_DERIVATIVE = 0.5
 # The paged kernels are timed cold, as a serve finds them (each of its 32
@@ -294,6 +319,14 @@ QUANT_REF_STEPS = 4
 QUANT_REF_LIMITS = {p: {"rel_rms": REF_REL_RMS, "max_abs": REF_MAX_ABS}
                     for p in QUANT_REF_PRECISIONS}
 
+# Burst serving (slice 10).  burst_serve: the paged serve's requests
+# drained by `step()` and by `step_burst(BURST_K)` over bf16 and
+# QUANT_SERVE_PRECISION pools, then sampled with SAMPLING (the engine
+# seeded with SAMPLE_SEED).
+BURST_K = 16
+SAMPLING = {"temperature": 0.8, "top_k": 50, "top_p": 0.95}
+SAMPLE_SEED = 0
+
 # NVIDIA H100 SXM data sheet, dense: bf16 tensor cores and HBM3.
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES_PER_S = 3.35e12
@@ -315,20 +348,26 @@ def card_line() -> str:
 def timed(fn, iters: int) -> tuple[float, float]:
     """(device ms, wall ms) per call.  Device time is the sum of the
     card's kernel durations under torch.profiler; wall time is CUDA
-    events around back-to-back calls, launch gaps included."""
+    events around back-to-back calls, launch gaps included.  A profiler
+    session can lose all of its events: one that records no kernel is
+    run again, PROFILE_ATTEMPTS sessions at most."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    device_us = sum(e.device_time_total for e in device_kernels(prof))
-    if device_us <= 0:
-        fail("the profiler saw no device time")
+    for _ in range(PROFILE_ATTEMPTS):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        device_us = sum(e.device_time_total for e in device_kernels(prof))
+        if device_us > 0:
+            break
+    else:
+        fail(f"the profiler saw no device time in {PROFILE_ATTEMPTS} "
+             "sessions")
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -557,10 +596,14 @@ def visible_pairs(q_len: int, kv_len: int, causal: bool,
     return int(np.maximum(0, hi - lo + 1).sum())
 
 
-def serve(params, cfg, prompts, dev, kv_precision=None):
+def serve(params, cfg, prompts, dev, kv_precision=None, burst=0,
+          sampling=None):
     """The serving path: the port's engine over every request (with
-    ``kv_precision``, over quantized pools); returns the engine, request
-    ids, seconds, steps and pages."""
+    ``kv_precision``, over quantized pools; ``sampling``: the requests'
+    submit keywords, the engine seeded with SAMPLE_SEED), drained by
+    `step()` or, with ``burst`` k, by `step_burst(k)`; returns the
+    engine, request ids, seconds, steps (calls of step or step_burst)
+    and pages."""
     import torch
     from metal_flash_attention_tpu_torch import ServingEngine
 
@@ -568,13 +611,14 @@ def serve(params, cfg, prompts, dev, kv_precision=None):
     num_pages = MAX_BATCH * -(-max_seq // PAGE) + 1
     eng = ServingEngine(params, cfg, max_batch=MAX_BATCH,
                         num_pages=num_pages, page_size=PAGE,
-                        max_seq=max_seq, kv_precision=kv_precision)
-    rids = [eng.submit(p, MAX_NEW) for p in prompts]
+                        max_seq=max_seq, kv_precision=kv_precision,
+                        seed=SAMPLE_SEED)
+    rids = [eng.submit(p, MAX_NEW, **(sampling or {})) for p in prompts]
     torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
     steps = 0
     while not eng.idle:
-        eng.step()
+        eng.step_burst(burst) if burst else eng.step()
         steps += 1
         if steps > 10_000:
             fail("engine did not drain")
@@ -815,37 +859,27 @@ def counted_calls(module, names, counts: dict):
             setattr(module, n, fn)
 
 
-def quant_serve(params, cfg, prompts, dev, card, bf16) -> dict:
-    """The quantized-KV serving path: the paged serve's requests through
-    the engine with QUANT_SERVE_PRECISION pools (full width and depth),
-    every launch count of the paged, decode and forward kernels set to 0
-    just before and read just after, and held to exact counts: a layer's
-    chunk step is one wide paged decode over the quantized prefix (the
-    chunk folded into the heads) and one `flash_fwd`, a layer's decode
-    step one quantized paged decode and one bf16 tail `flash_decode`.
-    Returns the launch counts."""
-    import torch
-    from metal_flash_attention_tpu_torch.models import serving
-    from metal_flash_attention_tpu_torch.native.build import tile_defines
-    from metal_flash_attention_tpu_torch.ops import flash_attention as fa
-    from metal_flash_attention_tpu_torch.ops import flash_decode as fd
-    from metal_flash_attention_tpu_torch.ops import paged_attention as pa
+SERVE_STEPS = ("paged_chunk_step", "paged_decode_step",
+               "paged_chunk_step_q", "paged_decode_step_q")
 
-    prec = QUANT_SERVE_PRECISION
-    # Warm-up request (library load, cuBLAS handles); not counted.
-    serve(params, cfg, [prompts[1][:64]], dev, kv_precision=prec)
-    calls: dict = {}
-    torch.cuda.reset_peak_memory_stats(dev)
-    with counted_calls(serving, ("paged_chunk_step_q",
-                                 "paged_decode_step_q"), calls):
-        for m in (pa, fd, fa):
-            m.reset_launch_counts()
-        eng, rids, secs, steps, num_pages = serve(params, cfg, prompts, dev,
-                                                  kv_precision=prec)
-        launches = {**pa.LAUNCH_COUNTS, **fd.LAUNCH_COUNTS,
-                    **fa.LAUNCH_COUNTS}
-    peak = torch.cuda.max_memory_allocated(dev)
+
+def expected_serve_launches(cfg, calls, prec) -> dict:
+    """A serve's exact launch counts from its step calls (``calls``, as
+    `counted_calls` keeps them), all on the Hopper kernels.  bf16 pools:
+    a layer's chunk step is one `paged_prefill`, its decode step one
+    `paged_decode`.  Quantized pools (``prec``): a layer's chunk step is
+    one paged decode over the quantized prefix (`paged_decode_wide` when
+    the chunk folded into the heads has more rows than one decode
+    fragment) and one `flash_fwd`, its decode step one quantized
+    `paged_decode` and one bf16 tail `flash_decode`."""
+    from metal_flash_attention_tpu_torch.native.build import tile_defines
+
     layers, group = cfg.n_layers, cfg.n_heads // cfg.n_kv_heads
+    if prec is None:
+        return {f"{kernel}{s}": layers * len(calls[step])
+                for kernel, step in (("paged_prefill", "paged_chunk_step"),
+                                     ("paged_decode", "paged_decode_step"))
+                for s in ("", "_sm90")}
     chunks = calls["paged_chunk_step_q"]
     wide = sum(group * kc > tile_defines()["MFA_DECODE_MAX_GROUP"]
                for kc in chunks)
@@ -859,10 +893,47 @@ def quant_serve(params, cfg, prompts, dev, card, bf16) -> dict:
         calls["paged_decode_step_q"]), "flash_fwd": layers * len(chunks)})
     expected["flash_decode_sm90"] = expected["flash_decode"]
     expected["flash_fwd_sm90"] = expected["flash_fwd"]
-    wrong = {k: (n, expected.get(k, 0)) for k, n in launches.items()
-             if n != expected.get(k, 0)}
-    if wrong or not decode or not wide:
+    return expected
+
+
+def launch_errors(launches, expected) -> dict:
+    """{kernel: (count, expected)} for every count that is not exact."""
+    return {k: (n, expected.get(k, 0)) for k, n in launches.items()
+            if n != expected.get(k, 0)}
+
+
+def quant_serve(params, cfg, prompts, dev, card, bf16) -> dict:
+    """The quantized-KV serving path: the paged serve's requests through
+    the engine with QUANT_SERVE_PRECISION pools (full width and depth),
+    every launch count of the paged, decode and forward kernels set to 0
+    just before and read just after, and held to exact counts
+    (`expected_serve_launches`).  Returns the launch counts."""
+    import torch
+    from metal_flash_attention_tpu_torch.models import serving
+    from metal_flash_attention_tpu_torch.ops import flash_attention as fa
+    from metal_flash_attention_tpu_torch.ops import flash_decode as fd
+    from metal_flash_attention_tpu_torch.ops import paged_attention as pa
+
+    prec = QUANT_SERVE_PRECISION
+    # Warm-up request (library load, cuBLAS handles); not counted.
+    serve(params, cfg, [prompts[1][:64]], dev, kv_precision=prec)
+    calls: dict = {}
+    torch.cuda.reset_peak_memory_stats(dev)
+    with counted_calls(serving, SERVE_STEPS, calls):
+        for m in (pa, fd, fa):
+            m.reset_launch_counts()
+        eng, rids, secs, steps, num_pages = serve(params, cfg, prompts, dev,
+                                                  kv_precision=prec)
+        launches = {**pa.LAUNCH_COUNTS, **fd.LAUNCH_COUNTS,
+                    **fa.LAUNCH_COUNTS}
+    peak = torch.cuda.max_memory_allocated(dev)
+    chunks = calls["paged_chunk_step_q"]
+    expected = expected_serve_launches(cfg, calls, prec)
+    wrong = launch_errors(launches, expected)
+    if wrong or not expected["paged_decode"] or \
+            not expected["paged_decode_wide"]:
         fail(f"quant_serve launched (count, expected) {wrong}")
+    wide = expected["paged_decode_wide"] // cfg.n_layers
     for rid, p in zip(rids, prompts):
         out = eng.result(rid)
         if len(out) != len(p) + MAX_NEW:
@@ -890,6 +961,219 @@ def quant_serve(params, cfg, prompts, dev, card, bf16) -> dict:
             (qbytes + tbytes) / bf16["pool_bytes"],
         "card": card}), flush=True)
     return launches
+
+
+@contextlib.contextmanager
+def watched_serve(serving, calls: dict, bursts: list, steps: list):
+    """Inside the block, the engine's decode is watched:
+
+    - each burst (`serving.paged_decode_burst` / `_q`) runs its device
+      steps under `torch.cuda.set_sync_debug_mode("error")` (a
+      synchronising call inside raises; the engine's uploads at entry and
+      its one read after lie outside), between two CUDA events, with the
+      host's seconds to enqueue them; ``bursts`` gets a dict a burst:
+      n_steps, the decode step calls it made (from ``calls``, as
+      `counted_calls` keeps them), the events, the host seconds, and the
+      wall seconds of its `step_burst` call (uploads and read included);
+    - each decode step of `step()` (`ServingEngine._decode_active`):
+      ``steps`` gets its wall seconds (its read of the tokens included)
+      and the host's seconds to enqueue its model step."""
+    import torch
+    from metal_flash_attention_tpu_torch.models import engine
+
+    cls = engine.ServingEngine
+    patched = {(serving, n): getattr(serving, n)
+               for n in ("paged_decode_burst", "paged_decode_burst_q",
+                         "paged_decode_step", "paged_decode_step_q")}
+    patched.update({(cls, n): getattr(cls, n)
+                    for n in ("step_burst", "_decode_active")})
+    enqueue = []
+
+    def decode_calls():
+        return sum(len(calls.get(n, ())) for n in ("paged_decode_step",
+                                                    "paged_decode_step_q"))
+
+    def burst(fn):
+        def run(*args, **kwargs):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            before = decode_calls()
+            start.record()
+            t0 = time.perf_counter()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = fn(*args, **kwargs)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            host_s = time.perf_counter() - t0
+            end.record()
+            bursts.append({"n_steps": kwargs["n_steps"],
+                           "decode_calls": decode_calls() - before,
+                           "events": (start, end), "host_s": host_s})
+            return out
+        return run
+
+    def step_burst(fn):
+        def run(self, k):
+            n, t0 = len(bursts), time.perf_counter()
+            out = fn(self, k)
+            if len(bursts) > n:
+                bursts[-1]["wall_s"] = time.perf_counter() - t0
+            return out
+        return run
+
+    def model_step(fn):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            enqueue.append(time.perf_counter() - t0)
+            return out
+        return run
+
+    def decode_active(fn):
+        def run(self, emitted):
+            enqueue.clear()
+            t0 = time.perf_counter()
+            fn(self, emitted)
+            steps.append({"wall_s": time.perf_counter() - t0,
+                          "enqueue_s": sum(enqueue)})
+        return run
+
+    wrappers = {"paged_decode_burst": burst, "paged_decode_burst_q": burst,
+                "paged_decode_step": model_step,
+                "paged_decode_step_q": model_step,
+                "step_burst": step_burst, "_decode_active": decode_active}
+    for (owner, n), fn in patched.items():
+        setattr(owner, n, wrappers[n](fn))
+    try:
+        yield
+    finally:
+        for (owner, n), fn in patched.items():
+            setattr(owner, n, fn)
+
+
+def burst_serve(params, cfg, prompts, dev, card) -> dict:
+    """The engine's `step_burst`: the paged serve's requests drained by
+    `step()` and by `step_burst(BURST_K)` in the order step, burst,
+    burst, step (the host's speed drifts within a call), over bf16 and
+    then QUANT_SERVE_PRECISION pools, at full width and depth, greedy
+    streams required equal; every launch count set to 0 just before each
+    run and read just after, held exact (`expected_serve_launches`: each
+    burst step is a decode step), every burst at most BURST_K steps, all
+    of them run, with no synchronising call inside (`watched_serve`).
+    Then a sampled serve (SAMPLING) through both: streams equal, the
+    first request's stream the same alone, every token in the
+    vocabulary.  Returns the launch counts of the greedy burst runs by
+    pool."""
+    import torch
+    from metal_flash_attention_tpu_torch.models import serving
+    from metal_flash_attention_tpu_torch.ops import flash_attention as fa
+    from metal_flash_attention_tpu_torch.ops import flash_decode as fd
+    from metal_flash_attention_tpu_torch.ops import paged_attention as pa
+
+    # Warm-up (the sampler's and the burst's first calls); not counted.
+    for prec in (None, QUANT_SERVE_PRECISION):
+        serve(params, cfg, [prompts[1][:64]], dev, kv_precision=prec,
+              burst=BURST_K, sampling=SAMPLING)
+
+    def run(prompts, prec=None, burst=0, sampling=None, name=None):
+        calls, bursts, steps = {}, [], []
+        with counted_calls(serving, SERVE_STEPS, calls), \
+                watched_serve(serving, calls, bursts, steps):
+            for m in (pa, fd, fa):
+                m.reset_launch_counts()
+            eng, rids, secs, n_calls, num_pages = serve(
+                params, cfg, prompts, dev, kv_precision=prec, burst=burst,
+                sampling=sampling)
+            launches = {**pa.LAUNCH_COUNTS, **fd.LAUNCH_COUNTS,
+                        **fa.LAUNCH_COUNTS}
+        wrong = launch_errors(launches,
+                              expected_serve_launches(cfg, calls, prec))
+        if wrong:
+            fail(f"burst_serve {name} launched (count, expected) {wrong}")
+        short = [{k: b[k] for k in ("n_steps", "decode_calls")}
+                 for b in bursts if b["decode_calls"] != b["n_steps"]
+                 or not 0 < b["n_steps"] <= burst]
+        if short or bool(bursts) != bool(burst):
+            fail(f"burst_serve {name}: bursts that did not run their "
+                 f"steps, or ran more than {burst}: {short}")
+        streams = [eng.result(r).tolist() for r in rids]
+        for out, p in zip(streams, prompts):
+            if len(out) != len(p) + MAX_NEW or not all(
+                    0 <= t < cfg.vocab_size for t in out):
+                fail(f"burst_serve {name}: a request returned {len(out)} "
+                     "tokens or a token outside the vocabulary")
+        if eng.alloc.free_pages != num_pages - 1:
+            fail(f"burst_serve {name} leaked pages")
+        new = MAX_NEW * len(prompts)
+        reading = {
+            "seconds": secs, "new_tokens_per_s": new / secs,
+            "calls": n_calls, "bursts": len(bursts),
+            "fallback_steps": n_calls - len(bursts),
+            "decode_steps": len(calls["paged_decode_step"])
+            + len(calls["paged_decode_step_q"]),
+            "chunk_steps": len(calls["paged_chunk_step"])
+            + len(calls["paged_chunk_step_q"]),
+            "launches": {k: n for k, n in launches.items() if n}}
+        if steps:
+            reading["step_decode_wall_ms"] = stats(
+                [1e3 * s["wall_s"] for s in steps])
+            reading["step_decode_enqueue_ms"] = stats(
+                [1e3 * s["enqueue_s"] for s in steps])
+        if bursts:
+            card_ms = [b["events"][0].elapsed_time(b["events"][1])
+                       for b in bursts]
+            host_ms = [1e3 * b["host_s"] for b in bursts]
+            reading.update({
+                "burst_steps": [b["n_steps"] for b in bursts],
+                "burst_card_ms": stats(card_ms),
+                "burst_host_enqueue_ms": stats(host_ms),
+                "burst_wall_ms": stats([1e3 * b["wall_s"] for b in bursts]),
+                "burst_step_enqueue_ms": stats(
+                    [h / b["n_steps"] for h, b in zip(host_ms, bursts)]),
+                "card_over_host": sum(card_ms) / sum(host_ms)})
+        del eng
+        torch.cuda.empty_cache()
+        return streams, reading, launches
+
+    runs, burst_launches, greedy, ratio = {}, {}, {}, {}
+    for prec in (None, QUANT_SERVE_PRECISION):
+        pool = prec or "bf16"
+        tps = {0: [], BURST_K: []}
+        for i, burst in enumerate((0, BURST_K, BURST_K, 0)):
+            name = f"{pool}_{'burst' if burst else 'step'}_{i}"
+            streams, runs[name], launches = run(prompts, prec, burst,
+                                                name=name)
+            greedy.setdefault(pool, streams)
+            if streams != greedy[pool]:
+                fail(f"burst_serve: {name} streams differ from step()'s")
+            tps[burst].append(runs[name]["new_tokens_per_s"])
+            if burst:
+                burst_launches[pool] = launches
+        ratio[pool] = float(np.mean(tps[BURST_K]) / np.mean(tps[0]))
+    sampled = {}
+    for burst in (0, BURST_K):
+        name = f"sampled_{'burst' if burst else 'step'}"
+        sampled[burst], runs[name], _ = run(prompts, None, burst, SAMPLING,
+                                            name)
+    alone, runs["sampled_alone"], _ = run(prompts[:1], None, 0, SAMPLING,
+                                          "sampled_alone")
+    if sampled[0] != sampled[BURST_K]:
+        fail("burst_serve: sampled step_burst streams differ from step()'s")
+    if alone[0] != sampled[0][0]:
+        fail("burst_serve: a sampled stream changed with the batch")
+    differ = sum(a != b for a, b in zip(sampled[0], greedy["bf16"]))
+    if not differ:
+        fail("burst_serve: every sampled stream is the greedy one")
+    print("burst_serve: " + json.dumps({
+        "config": f"llama3_8b, {cfg.n_layers} layers (full depth), bf16",
+        "burst_k": BURST_K, "requests": len(prompts),
+        "new_tokens": MAX_NEW * len(prompts), "sampling": SAMPLING,
+        "seed": SAMPLE_SEED, "runs": runs,
+        "burst_over_step_new_tokens_per_s": ratio,
+        "sampled_streams_unlike_greedy": differ, "card": card}),
+        flush=True)
+    return burst_launches
 
 
 def quant_reference_step(params, tokens, cfg, cache):
@@ -2491,6 +2775,9 @@ def main() -> int:
     quant_launches = phase("quant_serve", quant_serve, params, cfg, prompts,
                            dev, card, bf16_serve)
     torch.cuda.empty_cache()
+    burst_launches = phase("burst_serve", burst_serve, params, cfg, prompts,
+                           dev, card)
+    torch.cuda.empty_cache()
     phase("quant_reference", quant_reference, params, cfg, dev)
     dense_launches = phase("dense_serve", dense_serve, params, cfg, dev,
                            card)
@@ -2523,17 +2810,30 @@ def main() -> int:
     torch.cuda.empty_cache()
     for entry in kernels:
         if entry["name"] == "flash_fwd":
+            burst = burst_launches[QUANT_SERVE_PRECISION]
             entry["launches_by_path"] = {
                 "train": flash_launches["flash_fwd"],
                 "dense_serve": dense_launches["flash_fwd"],
-                "quant_serve": quant_launches["flash_fwd"]}
+                "quant_serve": quant_launches["flash_fwd"],
+                "burst_serve": burst["flash_fwd"]}
             entry["launches_sm90_by_path"] = {
                 "train": flash_launches["flash_fwd_sm90"],
                 "dense_serve": dense_launches["flash_fwd_sm90"],
-                "quant_serve": quant_launches["flash_fwd_sm90"]}
+                "quant_serve": quant_launches["flash_fwd_sm90"],
+                "burst_serve": burst["flash_fwd_sm90"]}
+        if entry["name"] in ("paged_decode", "paged_prefill"):
+            entry["launches_by_path"] = {
+                "serve": entry["launches"],
+                "burst_serve": burst_launches["bf16"][entry["name"]]}
     decode_kernel["launches_by_path"] = {
         "dense_serve": dense_launches["flash_decode"],
-        "quant_serve": quant_launches["flash_decode"]}
+        "quant_serve": quant_launches["flash_decode"],
+        "burst_serve": burst_launches[QUANT_SERVE_PRECISION]["flash_decode"]}
+    for entry in quant_kernels:
+        entry["launches_by_path"] = {
+            "quant_serve": entry["launches"],
+            "burst_serve": burst_launches[QUANT_SERVE_PRECISION].get(
+                entry["name"], 0)}
     kernels.append(decode_kernel)
     kernels.append(gemm_kernel)
     kernels += softmax_kernels

@@ -29,6 +29,18 @@ Ported so far:
   helpers in `csrc/quant_common.cuh`), `ops.softmax` (`scaled_softmax`,
   `derivative_softmax`; kernels `csrc/softmax.cu`) and
   `descriptors.gemm_descriptor`;
+- slices 5 to 8 redesigned the kernels for Hopper (GEMM, fused forward,
+  backward pair, decode family);
+- slice 9, quantized KV serving: INT8 / FP8 / NF4 pages in
+  `ops.paged_attention` (`QuantizedPagedKVCache`, `quantize_paged`) and
+  `QuantizedTensor` caches in `ops.flash_decode`, decoded inside the
+  kernels; the quantized steps of `models.serving` and the engine's
+  ``kv_precision``;
+- slice 10, the engine's sampling and bursts: `models.serving`
+  (`sample_token`, `sample_token_per_row`, `generate_sampled`,
+  `paged_decode_burst`, `paged_decode_burst_q`) and the engine's
+  temperature / top_k / top_p, ``logprobs``, ``logit_bias``, ``seed``
+  and `step_burst`;
 - shared: `ops.reference`, `native.build`, `utils`.
 
 Constructors (`init_params`, `params_from_numpy`, `init_cache`,

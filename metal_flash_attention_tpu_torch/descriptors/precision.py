@@ -3,9 +3,9 @@
 The port of the JAX package's `descriptors/precision.py`: the same
 seven members with the same names and values.  FP32, FP16 and BF16 are
 full-precision operands; FP8-E4M3, FP8-E5M2, INT8 and NF4 are quantized
-storage with a per-head scale.  The quantized members exist so that
-descriptors keep the JAX package's identity, but nothing on the port's
-ported paths takes them yet (ROADMAP.md, port queue: quantized KV).
+storage with a per-head scale: the GEMM's weights, the paged pools and
+dense caches of quantized-KV serving (the paged and dense decode paths
+and the engine's ``kv_precision``) take them.
 """
 
 from __future__ import annotations

@@ -13,22 +13,36 @@ host loop a production deployment runs around the paged kernels:
   the shared pools), so a long prompt never stalls the decode cadence
   of the requests already streaming;
 - one `step()` = admissions + one prefill chunk per prefilling slot +
-  one batched greedy `serving.paged_decode_step` for every active slot;
+  one batched `serving.paged_decode_step` for every active slot;
+- `step_burst(k)`: k decode steps for every active slot with the tokens
+  fed back on the device (`serving.paged_decode_burst`): its inputs go
+  up in one copy, and its tokens, valid flags and logprobs come back in
+  one read; it falls back to `step()` while a slot prefills, a queued
+  request could be admitted, or nothing is active;
 - slots without an emitted token (free, or still prefilling) ride
   along in the batched decode against the allocator's null page 0,
   which no request owns, so their writes can never land in live pages.
+
+Sampling: a request's temperature, top_k and top_p, per row
+(`serving.sample_token_per_row`), with randomness addressed by (engine
+seed, request id, token index), so a sampled stream is the same whatever
+shares the batch and under `step()` or `step_burst(k)`; ``logit_bias``
+rows live on the device and change only at admission and retirement;
+``logprobs`` records log P(token) under the unfiltered, unbiased
+distribution.
 
 ``kv_precision`` (INT8 / FP8-E4M3 / FP8-E5M2 / NF4): quantized-KV
 serving.  Full pages live in quantized pools with one scale per (page,
 kv head) and each slot keeps one tail page in the model's dtype; the
 steps are `serving.paged_chunk_step_q` and `serving.paged_decode_step_q`,
 and a page is quantized when its tail fills.  The host mirrors each
-slot's full and tail lengths, so no length is read back.
+slot's full and tail lengths, so no length is read back, and knows from
+them which rows may fill a page at each step (`serving.flush_schedule`).
 
-The pools live on the parameters' device and are updated in place.
-Greedy decoding only: the sampling, logprobs, logit-bias, LoRA,
-prefix-cache, speculative, tensor-parallel and burst features of the JAX
-engine raise NotImplementedError (ROADMAP.md).
+The pools live on the parameters' device and are updated in place.  The
+LoRA, prefix-cache, speculative, tensor-parallel and Gemma-family
+(``chunk_step`` / ``decode_step``) features of the JAX engine raise
+NotImplementedError (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -51,17 +65,48 @@ from metal_flash_attention_tpu_torch.ops.paged_attention import (
 from metal_flash_attention_tpu_torch.utils.errors import not_ported
 
 
+def _sample_rows(logits, seed, rids, idxs, temp, top_k, top_p):
+    """Per-row sampling with request-addressed randomness: the row key is
+    a hash of (seed, rid, token index), keyed by the REQUEST, not the
+    slot, so a sampled stream does not depend on what else runs."""
+    return serving.sample_token_per_row(
+        logits, serving._row_keys(seed, rids, idxs), temp, top_k, top_p)
+
+
+def _sampling_rows(reqs, idxs):
+    """Host arrays of each row's (request id, token index, temperature,
+    top_k, top_p) for `_sample_rows`; a row without a request (None) is
+    greedy."""
+    n = len(reqs)
+    rids = np.zeros((n,), np.int32)
+    idx = np.zeros((n,), np.int32)
+    temp = np.zeros((n,), np.float32)
+    top_k = np.zeros((n,), np.int32)
+    top_p = np.ones((n,), np.float32)
+    for j, r in enumerate(reqs):
+        if r is not None:
+            rids[j], idx[j] = r.rid, idxs[j]
+            temp[j], top_k[j], top_p[j] = r.temperature, r.top_k, r.top_p
+    return rids, idx, temp, top_k, top_p
+
+
 @dataclass
 class _Request:
     rid: int
     prompt: np.ndarray            # [prompt_len] int32
     max_new_tokens: int
+    temperature: float = 0.0      # 0 = greedy
+    top_k: int = 0                # 0 = off
+    top_p: float = 1.0            # 1 = off
     stop: frozenset = frozenset()  # token ids that end the request
     finished: bool = False         # hit a stop token
+    want_logprobs: bool = False
     out: list = field(default_factory=list)
+    logprobs: list = field(default_factory=list)   # aligned with out
     next_token: Optional[int] = None
     pages: Optional[np.ndarray] = None   # reserved page ids
     prefill_pos: int = 0                 # tokens prefilled so far
+    logit_bias: Optional[np.ndarray] = None   # [vocab] float32
     priority: int = 0                    # higher admits sooner
     submitted_step: int = -1             # engine step counters
     admitted_step: int = -1
@@ -70,7 +115,7 @@ class _Request:
 
 
 class ServingEngine:
-    """Greedy continuous-batching engine for the Llama family.
+    """Continuous-batching engine for the Llama family.
 
     >>> eng = ServingEngine(params, cfg, max_batch=4, num_pages=256)
     >>> rid = eng.submit(prompt_tokens, max_new_tokens=64)
@@ -82,20 +127,27 @@ class ServingEngine:
 
     def __init__(self, params: dict, cfg: llama.LlamaConfig, *,
                  max_batch: int, num_pages: int, page_size: int = 128,
-                 max_seq: int = 4096, admissions_per_step: int = 1,
+                 max_seq: int = 4096, chunk_step=None, decode_step=None,
+                 admissions_per_step: int = 1, seed: int = 0,
                  prefix_cache: bool = False, kv_sharding=None,
-                 draft_fn=None, kv_precision=None, lora=None):
+                 draft_fn=None, draft_len: int = 0,
+                 draft_history: int = 16, kv_precision=None, lora=None):
         # The combinations the JAX engine refuses, refused as it does.
+        custom = chunk_step is not None or decode_step is not None
         if lora is not None and (draft_fn is not None
-                                 or kv_precision is not None):
+                                 or kv_precision is not None or custom):
             raise ValueError(
                 "lora rides on the default llama paged steps only "
-                "(not speculative or quantized steps)")
+                "(not speculative/quantized/custom-family steps)")
         if kv_precision is not None and (draft_fn is not None
-                                         or kv_sharding is not None):
+                                         or kv_sharding is not None
+                                         or custom):
             raise ValueError("kv_precision is incompatible with draft_fn / "
-                             "kv_sharding")
+                             "kv_sharding / custom step overrides")
+        # draft_len and draft_history only matter with draft_fn.
         for value, what, item in (
+                (custom, "family step overrides (chunk_step / "
+                 "decode_step)", "paged-kernel options for Gemma and sinks"),
                 (prefix_cache, "prefix caching", "prefix cache"),
                 (kv_sharding, "tensor-parallel pools (kv_sharding)",
                  "tensor-parallel serving"),
@@ -149,6 +201,11 @@ class ServingEngine:
         self._queue: deque[_Request] = deque()
         self._done: dict[int, _Request] = {}
         self._next_rid = 0
+        self.seed = int(seed)
+        # Per-slot logit-bias rows live on the device and change only at
+        # admission and retirement (no upload a step).
+        self._bias_dev: Optional[torch.Tensor] = None
+        self._bias_count = 0
         # Observability counters (see .stats / .request_stats).
         self.n_steps = 0
         self.n_emitted = 0
@@ -161,25 +218,36 @@ class ServingEngine:
                top_p: float = 1.0, stop_tokens=(),
                logprobs: bool = False, lora_id: int = 0,
                logit_bias=None, priority: int = 0) -> int:
-        """Queue a request for greedy decoding; returns its id.
+        """Queue a request; returns its id.  temperature 0 (the default)
+        decodes greedily; temperature > 0 samples with the optional
+        top-k / nucleus filters.  Sampled streams are a pure function of
+        (engine seed, request id, token index).
 
         ``stop_tokens``: token ids (e.g. EOS) that end the request; the
-        stop token is part of the output.  ``priority``: higher admits
-        sooner, FIFO within a priority."""
-        if temperature > 0 or top_k or top_p < 1.0:
-            raise not_ported("sampled decoding (temperature/top_k/top_p)",
-                             "engine sampling")
-        if logprobs:
-            raise not_ported("logprobs", "engine sampling")
-        if logit_bias is not None:
-            raise not_ported("logit_bias", "engine sampling")
+        stop token is part of the output.  ``logprobs``: record log
+        P(token | context) under the model's unfiltered distribution for
+        every generated token (:meth:`result_logprobs`).  ``logit_bias``:
+        a {token: bias} dict or a [vocab] array added to the logits
+        before choosing.  ``priority``: higher admits sooner, FIFO
+        within a priority."""
         if lora_id:
             raise not_ported("multi-adapter LoRA", "LoRA")
+        bias_vec = None
+        if logit_bias is not None:
+            bias_vec = np.zeros((self.cfg.vocab_size,), np.float32)
+            if isinstance(logit_bias, dict):
+                for t, v in logit_bias.items():
+                    bias_vec[int(t)] = float(v)
+            else:
+                bias_vec[:] = np.asarray(logit_bias, np.float32)
         rid = self._next_rid
         self._next_rid += 1
         self._queue.append(_Request(
             rid, np.asarray(prompt, np.int32), int(max_new_tokens),
+            temperature=float(temperature), top_k=int(top_k),
+            top_p=float(top_p),
             stop=frozenset(int(t) for t in stop_tokens),
+            want_logprobs=bool(logprobs), logit_bias=bias_vec,
             priority=int(priority), submitted_step=self.n_steps))
         return rid
 
@@ -226,6 +294,17 @@ class ServingEngine:
             "generated": len(req.out),
         }
 
+    def result_logprobs(self, rid: int) -> np.ndarray:
+        """Per-generated-token log-probabilities (aligned with the
+        generated suffix of :meth:`result`) of a done request submitted
+        with ``logprobs=True``."""
+        req = self._done[rid]
+        if not req.want_logprobs:
+            raise ValueError(
+                f"request {rid} was not submitted with logprobs=True")
+        return np.asarray(req.logprobs, np.float32)
+
+    @torch.inference_mode()
     def abort(self, rid: int) -> bool:
         """Cancel a request: a queued one is dropped, a running one frees
         its slot and pages at once.  Its partial output stays readable
@@ -244,9 +323,127 @@ class ServingEngine:
                 return True
         return False
 
-    def step_burst(self, k: int):
-        raise not_ported("step_burst (k decode steps per dispatch)",
-                         "engine step_burst")
+    @torch.inference_mode()
+    def step_burst(self, k: int) -> list[tuple[int, int]]:
+        """Emit up to ``k`` tokens per active slot from k decode steps
+        between two host reads (`serving.paged_decode_burst`, or
+        `paged_decode_burst_q` over quantized pools): tokens feed back on
+        the device, and per-row sampling, stop ids and budgets are
+        handled there; the burst runs at most as many steps as the
+        largest budget left.  Its inputs go up in one copy at entry, and
+        its tokens, valid flags and logprobs come back in one read; the
+        host mirrors the lengths from the valid flags.  Falls back to a
+        normal :meth:`step` whenever bursting cannot run: a slot is
+        mid-prefill, a queued request could be admitted, or nothing is
+        active.  Streams equal those of k successive :meth:`step`
+        calls."""
+        if k < 1:
+            raise ValueError(f"step_burst needs k >= 1, got {k}")
+        can = (not any(r is not None and r.next_token is None
+                       for r in self._slots)
+               and any(r is not None for r in self._slots)
+               and not (self._queue
+                        and any(r is None for r in self._slots)))
+        if not can:
+            return self.step()
+        self.n_steps += 1
+        n = len(self._slots)
+        tokens = np.zeros((n,), np.int32)
+        active = np.zeros((n,), bool)
+        remaining = np.zeros((n,), np.int32)
+        n_stops = max([len(r.stop) for r in self._slots
+                       if r is not None] + [1])
+        stops = np.full((n, n_stops), -1, np.int32)
+        for i, r in enumerate(self._slots):
+            if r is None:
+                continue
+            tokens[i] = r.next_token
+            active[i] = True
+            remaining[i] = r.max_new_tokens - len(r.out)
+            # The host's length mirror below assumes every active row
+            # emits at least once this burst (emit == alive); `_retire`
+            # keeps exhausted rows out.
+            assert remaining[i] >= 1, (
+                f"slot {i} entered burst with remaining={remaining[i]}")
+            stops[i, :len(r.stop)] = sorted(r.stop)
+        rids, idx0, temp, top_k, top_p = _sampling_rows(
+            self._slots, [0 if r is None else len(r.out)
+                          for r in self._slots])
+        # No row can emit past its budget, which the host knows: steps
+        # beyond the largest one would only run frozen rows.
+        k = min(int(k), int(remaining.max()))
+        quantized = self._kv_precision is not None
+        if quantized:
+            lengths = (self._full, self._tlen)
+            schedule = serving.flush_schedule(self._tlen, active,
+                                              self.page_size, k)
+            rows = np.concatenate(schedule).astype(np.int32)
+        else:
+            lengths = (self._lengths,)
+            rows = np.zeros((0,), np.int32)
+        (tok_t, table_t, *len_t, active_t, rem_t, stops_t, rids_t, idx0_t,
+         temp_t, top_k_t, top_p_t, rows_t) = self._upload(
+            tokens, self._table, *lengths, active, remaining, stops, rids,
+            idx0, temp, top_k, top_p, rows)
+        common = dict(
+            n_steps=k, active=active_t, remaining=rem_t,
+            stop_ids=stops_t, seed=self.seed, rids=rids_t, idx0=idx0_t,
+            temp=temp_t, top_k=top_k_t, top_p=top_p_t,
+            want_logprobs=any(r is not None and r.want_logprobs
+                              for r in self._slots),
+            # When no row samples, each step's choice is one argmax.
+            sampled=any(r is not None and r.temperature > 0.0
+                        for r in self._slots),
+            logit_bias=self._bias_dev if self._bias_count else None)
+        if quantized:
+            cache = serving.QuantizedPagedModelCache(
+                qk=self._qk, qv=self._qv, k_scales=self._ks,
+                v_scales=self._vs, tail_k=self._tail_k,
+                tail_v=self._tail_v, page_table=table_t, full_len=len_t[0],
+                tail_len=len_t[1], precision=self._kv_precision)
+            flush_rows = torch.split(rows_t.long(),
+                                     [len(r) for r in schedule])
+            toks, valid, lps, _, _ = serving.paged_decode_burst_q(
+                self.params, tok_t, self.cfg, cache, flush_rows=flush_rows,
+                **common)
+        else:
+            cache = serving.PagedModelCache(
+                k=tuple(self._k), v=tuple(self._v), page_table=table_t,
+                lengths=len_t[0])
+            toks, valid, lps, _, _ = serving.paged_decode_burst(
+                self.params, tok_t, self.cfg, cache, **common)
+        # ONE device-to-host read for all three outputs.
+        out = torch.stack([toks, valid.to(torch.int32),
+                           lps.view(torch.int32)]).cpu().numpy()
+        toks, valid, lps = out[0], out[1].astype(bool), \
+            out[2].view(np.float32)
+        # A row's cache advanced once per emitted token (a burst row is
+        # alive exactly for its emitting steps): mirror that instead of
+        # reading lengths back, flushing each whole page of tail.
+        adv = valid.sum(axis=1).astype(np.int32)
+        if quantized:
+            total = self._tlen + adv
+            self._full = (self._full + self.page_size
+                          * (total // self.page_size)).astype(np.int32)
+            self._tlen = (total % self.page_size).astype(np.int32)
+        self._lengths = (self._lengths + adv).astype(np.int32)
+        emitted: list[tuple[int, int]] = []
+        for i, r in enumerate(self._slots):
+            if r is None:
+                continue
+            for j in range(k):
+                if not valid[i, j]:
+                    break
+                t = int(toks[i, j])
+                r.out.append(t)
+                r.finished = t in r.stop
+                if r.want_logprobs:
+                    r.logprobs.append(float(lps[i, j]))
+                emitted.append((r.rid, t))
+                r.next_token = t
+        self._retire()
+        self.n_emitted += len(emitted)
+        return emitted
 
     @torch.inference_mode()
     def step(self) -> list[tuple[int, int]]:
@@ -290,8 +487,66 @@ class ServingEngine:
         req.pages = np.zeros((self.max_pages,), np.int32)
         req.pages[:len(pages)] = pages
         req.prefill_pos = 0
+        if req.logit_bias is not None:
+            if self._bias_dev is None:
+                self._bias_dev = torch.zeros(
+                    (len(self._slots), self.cfg.vocab_size),
+                    dtype=torch.float32, device=self.device)
+            self._bias_dev[free] = torch.from_numpy(req.logit_bias)
+            self._bias_count += 1
         self._slots[free] = req
         return True
+
+    def _upload(self, *arrays: np.ndarray) -> list:
+        """Host arrays (int32, float32 or bool) to the device in ONE
+        copy: packed as int32 words into one buffer, each starting 16-byte
+        aligned (as the kernels want their table and lengths), and handed
+        back as views in their own dtypes and shapes."""
+        words, offsets, off = [], [], 0
+        for a in arrays:
+            if a.dtype not in (np.int32, np.float32, np.bool_):
+                raise TypeError(f"cannot upload {a.dtype}")
+            w = np.ascontiguousarray(a, np.int32 if a.dtype == np.bool_
+                                     else a.dtype).view(np.int32).ravel()
+            words += [w, np.zeros((-w.size % 4,), np.int32)]
+            offsets.append(off)
+            off += w.size + words[-1].size
+        buf = torch.from_numpy(np.concatenate(words)).to(self.device)
+        out = []
+        for a, o in zip(arrays, offsets):
+            t = buf[o:o + a.size].view(a.shape)
+            if a.dtype == np.float32:
+                t = t.view(torch.float32)
+            elif a.dtype == np.bool_:
+                t = t.bool()
+            out.append(t)
+        return out
+
+    def _rows(self, rows: np.ndarray) -> torch.Tensor:
+        """Row indices as int64 on the device (no copy when there are
+        none)."""
+        if not rows.size:
+            return torch.empty((0,), dtype=torch.long, device=self.device)
+        return torch.as_tensor(rows, dtype=torch.long, device=self.device)
+
+    def _pick(self, logits, bias, reqs, idxs):
+        """The next token of each row of float32 logits [n, vocab] (its
+        request in ``reqs``, None for a ride-along row; ``idxs`` the index
+        of the token it emits; ``bias`` the rows' logit bias or None),
+        and their logprobs when a request asks for them: host arrays from
+        one read."""
+        biased = logits if bias is None else logits + bias
+        live = [r for r in reqs if r is not None]
+        if any(r.temperature > 0.0 for r in live):
+            toks = _sample_rows(biased, self.seed, *self._upload(
+                *_sampling_rows(reqs, idxs)))
+        else:
+            toks = serving._greedy(biased)
+        if not any(r.want_logprobs for r in live):
+            return toks.cpu().numpy(), None
+        lps = serving._logprob_rows(logits, toks)
+        out = torch.stack([toks, lps.view(torch.int32)]).cpu().numpy()
+        return out[0], out[1].view(np.float32)
 
     def _cache(self, table: np.ndarray,
                lengths: np.ndarray) -> serving.PagedModelCache:
@@ -333,13 +588,16 @@ class ServingEngine:
                                 np.full((1,), pos, np.int32)))
             else:
                 # A 1-row view: the shared pools and this slot's tail.
-                # Chunks start page-aligned, so the tail enters empty.
+                # Chunks start page-aligned, so the tail enters empty and
+                # fills exactly when the chunk is a whole page.
                 zero = np.zeros((1,), np.int32)
+                fills = chunk.shape[1] == self.page_size
                 logits, _ = serving.paged_chunk_step_q(
                     self.params, chunk, self.cfg,
                     self._q_cache(req.pages[None, :],
                                   np.full((1,), pos, np.int32), zero,
-                                  slice(i, i + 1)))
+                                  slice(i, i + 1)),
+                    self._rows(np.arange(int(fills))))
             req.prefill_pos = pos + chunk.shape[1]
             if req.prefill_pos >= len(req.prompt):
                 self._table[i] = req.pages
@@ -348,16 +606,21 @@ class ServingEngine:
                     n = len(req.prompt)
                     self._full[i] = n - n % self.page_size
                     self._tlen[i] = n % self.page_size
-                tok = int(logits[0, -1].argmax())
+                toks, lps = self._pick(
+                    logits[:, -1], None if req.logit_bias is None
+                    else self._bias_dev[i:i + 1], [req], [0])
+                tok = int(toks[0])
                 req.next_token = tok
                 req.first_token_step = self.n_steps
                 req.out.append(tok)
                 req.finished = tok in req.stop
+                if req.want_logprobs:
+                    req.logprobs.append(float(lps[0]))
                 emitted.append((req.rid, tok))
 
     def _decode_active(self, emitted) -> None:
-        """One batched greedy decode step over every slot; the live ones
-        emit their next token."""
+        """One batched decode step over every slot; the live ones emit
+        their next token."""
         tokens = np.zeros((len(self._slots),), np.int32)
         active = np.zeros((len(self._slots),), bool)
         for i, r in enumerate(self._slots):
@@ -370,10 +633,13 @@ class ServingEngine:
                 self.params, token_t, self.cfg,
                 self._cache(self._table, self._lengths))
         else:
+            rows = serving.flush_schedule(self._tlen, active,
+                                          self.page_size, 1)[0]
             logits, _ = serving.paged_decode_step_q(
                 self.params, token_t, self.cfg,
                 self._q_cache(self._table, self._full, self._tlen),
-                torch.as_tensor(active, device=self.device))
+                torch.as_tensor(active, device=self.device),
+                self._rows(rows))
             # The flush's arithmetic on the host: active rows advance by
             # one; a tail that reaches the page rolls into full pages.
             new_tail = self._tlen + active.astype(np.int32)
@@ -381,15 +647,20 @@ class ServingEngine:
             self._full = np.where(flush, self._full + self.page_size,
                                   self._full).astype(np.int32)
             self._tlen = np.where(flush, 0, new_tail).astype(np.int32)
-        toks = logits.argmax(dim=-1).to(torch.int32).cpu().numpy()
-        for i, r in enumerate(self._slots):
-            if r is None or r.next_token is None:
+        reqs = [r if active[i] else None for i, r in enumerate(self._slots)]
+        toks, lps = self._pick(
+            logits, self._bias_dev if self._bias_count else None, reqs,
+            [0 if r is None else len(r.out) for r in reqs])
+        for i, r in enumerate(reqs):
+            if r is None:
                 continue   # inactive rows: lengths stay pinned
             self._lengths[i] += 1
             if len(r.out) < r.max_new_tokens and not r.finished:
                 r.next_token = int(toks[i])
                 r.out.append(r.next_token)
                 r.finished = r.next_token in r.stop
+                if r.want_logprobs:
+                    r.logprobs.append(float(lps[i]))
                 emitted.append((r.rid, r.next_token))
 
     def _retire(self) -> None:
@@ -403,6 +674,9 @@ class ServingEngine:
         r = self._slots[i]
         self.alloc.release(i)
         r.done_step = self.n_steps
+        if r.logit_bias is not None:
+            self._bias_dev[i] = 0.0
+            self._bias_count -= 1
         self._table[i] = 0
         self._lengths[i] = 0
         if self._kv_precision is not None:

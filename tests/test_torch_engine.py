@@ -183,19 +183,32 @@ def test_abort_frees_slot_and_pages(models):
 
 
 def test_unported_engine_features_raise(models):
+    """What the port does not have raises, naming its ROADMAP item; the
+    JAX engine's keywords are all accepted, and its ValueError
+    combinations stay ValueErrors.  (Sampling, logprobs, logit_bias and
+    step_burst are held in tests/test_torch_engine_burst.py.)"""
     _, tcfg, _, tparams = models
-    for kw in (dict(prefix_cache=True),
-               dict(draft_fn=lambda *a: None), dict(lora={"layers": []}),
-               dict(kv_sharding=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    for kw, item in ((dict(prefix_cache=True), "prefix cache"),
+                     (dict(draft_fn=lambda *a: None, draft_len=2),
+                      "speculative decoding"),
+                     (dict(lora={"layers": []}), "LoRA"),
+                     (dict(kv_sharding=object()), "tensor-parallel serving"),
+                     (dict(chunk_step=lambda *a: None),
+                      "paged-kernel options for Gemma and sinks"),
+                     (dict(decode_step=lambda *a: None),
+                      "paged-kernel options for Gemma and sinks")):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{item}"):
             TEngine(tparams, tcfg, max_batch=1, num_pages=8, **kw)
-    eng = TEngine(tparams, tcfg, max_batch=1, num_pages=8)
-    for kw in (dict(temperature=0.7), dict(logprobs=True),
-               dict(logit_bias={1: 2.0}), dict(lora_id=1)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            eng.submit(np.zeros(4, np.int32), 2, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        eng.step_burst(4)
+    for kw in (dict(kv_precision="int8", decode_step=lambda *a: None),
+               dict(lora={"layers": []}, chunk_step=lambda *a: None)):
+        with pytest.raises(ValueError):
+            TEngine(tparams, tcfg, max_batch=1, num_pages=8, **kw)
+    eng = TEngine(tparams, tcfg, max_batch=1, num_pages=8, seed=0,
+                  draft_len=0, draft_history=16)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md.*LoRA"):
+        eng.submit(np.zeros(4, np.int32), 2, lora_id=1)
+    with pytest.raises(ValueError):
+        eng.step_burst(0)
 
 
 def test_page_allocator_matches_jax():

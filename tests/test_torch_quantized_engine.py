@@ -96,7 +96,8 @@ def test_engine_is_batch_composition_invariant(models):
 def test_engine_kv_precision_arguments(models):
     """Members of either package's enum and their values are taken; what
     is not a KV storage precision, or a combination the JAX engine
-    refuses, raises; features still to port raise their own item."""
+    refuses, raises; features still to port raise their own item;
+    sampling and step_burst are taken."""
     _, tcfg, _, tparams = models
     kw = dict(max_batch=1, num_pages=8, page_size=PAGE, max_seq=64)
     for value in (TP.INT8, JP.FP8_E5M2, "nf4", "fp8_e4m3"):
@@ -113,11 +114,16 @@ def test_engine_kv_precision_arguments(models):
                 **kw)
     with pytest.raises(NotImplementedError, match="prefix cache"):
         TEngine(tparams, tcfg, kv_precision="int8", prefix_cache=True, **kw)
-    eng = TEngine(tparams, tcfg, kv_precision="int8", **kw)
-    with pytest.raises(NotImplementedError, match="engine sampling"):
-        eng.submit(np.zeros(4, np.int32), 2, temperature=0.5)
-    with pytest.raises(NotImplementedError, match="engine step_burst"):
+    with pytest.raises(ValueError, match="incompatible"):
+        TEngine(tparams, tcfg, kv_precision="int8",
+                decode_step=lambda *a: None, **kw)
+    eng = TEngine(tparams, tcfg, kv_precision="int8", seed=3, **kw)
+    rid = eng.submit(np.zeros(4, np.int32), 2, temperature=0.5,
+                     logprobs=True)
+    while not eng.idle:
         eng.step_burst(2)
+    assert len(eng.result(rid)) == 6
+    assert eng.result_logprobs(rid).shape == (2,)
 
 
 def test_abort_resets_the_slot_and_leaves_the_others(models):
