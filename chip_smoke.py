@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paged serving (bf16 and quantized KV, by
-step and by burst, greedy and sampled), dense serving and training
-paths, and its standalone ops (quantized GEMM, softmax), on one NVIDIA
-GPU.
+step and by burst, greedy and sampled, with and without the prefix
+cache), dense serving and training paths, the fused forward over
+quantized K/V, and its standalone ops (quantized GEMM, softmax), on one
+NVIDIA GPU.
 
 Run from the root of a checkout, on a machine with one CUDA card and
 the CUDA toolkit:
@@ -70,6 +71,21 @@ Phases (any failure exits non-zero and prints no result):
    against the host's enqueue ms per burst, and each `step()` decode
    step's wall ms (its read of the tokens included) against the host's
    ms to enqueue it;
+4d. prefix_serve: the engine with ``prefix_cache=True`` (its allocator
+   the C++ one, `NativePageAllocator`) over bf16 and then INT8 pools, at
+   full width and depth, page 128: (a) the time to first token of a
+   2,048-token prompt cold (the cache flushed) and warm (15 of its 16
+   pages borrowed), best of 2 each, after the JAX package's
+   bench.py:283-330; (b) request 0 alone (a 1,536-token shared prefix, 12
+   pages, and its own suffix), then 5 more of the same prefix and a
+   distinct 200-600-token suffix, 32 new tokens each, max_batch 4, on an
+   engine with the cache and on one without: every launch count set to 0
+   just before each run and read just after and held exact (the chunk
+   steps those of each prompt's unshared part: the paged prefill from a
+   nonzero start over borrowed pages), greedy streams equal token for
+   token, 5 x 1,536 = 7,680 hit tokens, every page back after the cache's
+   flush; new tokens/s and each request's time to first token, both
+   engines;
 5. dense_serve: greedy `models.serving.generate` on the same full-depth
    weights, a batch of 8 random prompts of 8,160 tokens (seed 0), 32 new
    tokens each, a cache of 8,192 positions (Llama-3's context): one
@@ -129,7 +145,17 @@ Phases (any failure exits non-zero and prints no result):
    head)'s for the dense cache; for NF4, K's nibble planes swapped); each
    variant timed (median and min-max of 5 loops, the paged ones cold),
    beside its bytes bound (payload, scales, q, o and lse) and the bf16
-   kernel's time at the same shape;
+   kernel's time at the same shape; quant_fwd_checks: K/V quantized per
+   (batch, kv head) in INT8, FP8-E4M3, FP8-E5M2 and NF4 through
+   `dispatch.attention` at q [1, 32, 8192, 128] causal and at q [1, 32,
+   1000, 128] causal from the bottom right, both against 8,192 keys, the
+   forward's launch counts set to 0 just before and read just after
+   (each call one `flash_fwd`, `flash_fwd_sm90` and
+   `flash_fwd_<precision>`); each output against its plain version by the
+   worst 64-row tile, with a planted fault (one kv head's K scale taken
+   from its neighbour) the limit must see; each timed (median and min-max
+   of 5 loops) beside its bound, its plain version, the bf16 kernel at the
+   same shape and, as a note, dequantize-then-SDPA;
 8. train: Llama-3-8B widths cut to 4 layers (at full depth the bf16
    weights, their float32 shadow and AdamW's two float32 moments come
    to about 101 GB, more than the card's 80 GB; 4 layers need about
@@ -186,9 +212,10 @@ each output written once; a quantized weight's payload and scales) over
 pairs only) over 989 TFLOP/s in bf16.
 
 Output: `serve`, `reference`, `quant_serve`, `burst_serve`,
-`quant_reference`,
+`prefix_serve`, `quant_reference`,
 `dense_serve`, `dense_profile`, `decode_reference`, `quant_gemm`,
-`gemm_checks`, `decode_checks`, `quant_kernel_checks`, `train`,
+`gemm_checks`, `decode_checks`, `quant_kernel_checks`,
+`quant_fwd_checks`, `train`,
 `train_profile`, `train_reference`, `flash_checks` and `softmax_checks`
 lines, a `phases` line (each phase's seconds), the card's name and power
 limit as nvidia-smi gives them, a `kernels` JSON line, and as the last
@@ -327,6 +354,29 @@ BURST_K = 16
 SAMPLING = {"temperature": 0.8, "top_k": 50, "top_p": 0.95}
 SAMPLE_SEED = 0
 
+# The forward over quantized K/V (slice 11).  quant_fwd_checks: K/V in
+# every precision of QUANT_PRECISIONS through `dispatch.attention` at the
+# training shape (q [1, 32, 8192, 128] causal against 8,192 keys) and at a
+# chunk over a long quantized prefix (QUANT_FWD_CHUNK queries causal from
+# the bottom right against 8,192 keys: ragged tiles).
+QUANT_FWD_CHUNK = 1000
+QUANT_FWD_KEYS = 8192
+
+# Prefix caching (slice 11).  prefix_serve, over bf16 then
+# QUANT_SERVE_PRECISION pools, full width and depth, page PAGE: (a) the
+# time to first token of a PREFIX_TTFT_PROMPT-token prompt cold (the cache
+# flushed) and warm (all its complete pages but the last token's
+# borrowed), best of 2 each, after the JAX package's bench.py:283-330;
+# (b) request 0 alone, PREFIX_SHARED shared tokens plus its own suffix,
+# then PREFIX_FOLLOWERS more requests of the same prefix and a distinct
+# suffix of PREFIX_SUFFIXES tokens, MAX_NEW new tokens each, max_batch
+# MAX_BATCH, on an engine with the cache and on one without.
+PREFIX_TTFT_PROMPT = 2048
+PREFIX_TTFT_NEW = 4
+PREFIX_SHARED = 1536
+PREFIX_SUFFIXES = (300, 200, 600, 417, 350, 512)
+PREFIX_FOLLOWERS = 5
+
 # NVIDIA H100 SXM data sheet, dense: bf16 tensor cores and HBM3.
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES_PER_S = 3.35e12
@@ -387,21 +437,15 @@ def timed_spread(fn, iters: int, repeats: int = GEMM_REPEATS) -> dict:
     also opens where the host stalls, and the profiler may drop a
     kernel's event), or, where the profiler dropped a marker's event, by
     those gaps: the median device ms a call and its min and max over the
-    loops, and the wall ms a call over all of them."""
+    loops, and the wall ms a call over all of them.  A session whose
+    loops neither split finds is run again, PROFILE_ATTEMPTS sessions at
+    most."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(repeats + 1):
-            for _ in range(iters):
-                fn()
-            torch.cuda._sleep(LOOP_MARK_CYCLES)
-            torch.cuda.synchronize()
-            time.sleep(LOOP_GAP_S)
-    events = sorted(device_kernels(prof), key=lambda e: e.time_range.start)
 
     def last_loops(loops, trailing):
         """The last `repeats` loops, or None unless the split found them
@@ -418,16 +462,29 @@ def timed_spread(fn, iters: int, repeats: int = GEMM_REPEATS) -> dict:
             return None
         return loops
 
-    loops, loop = [], []
-    for e in events:
-        if LOOP_MARK in e.name:
-            loops.append(loop)
-            loop = []
-        else:
-            loop.append(e)
-    marked = len(loops)
-    loops = last_loops(loops, loop)
-    if loops is None:
+    def session():
+        """One profiled session: its loops, or None, and what each split
+        found."""
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(repeats + 1):
+                for _ in range(iters):
+                    fn()
+                torch.cuda._sleep(LOOP_MARK_CYCLES)
+                torch.cuda.synchronize()
+                time.sleep(LOOP_GAP_S)
+        events = sorted(device_kernels(prof),
+                        key=lambda e: e.time_range.start)
+        loops, loop = [], []
+        for e in events:
+            if LOOP_MARK in e.name:
+                loops.append(loop)
+                loop = []
+            else:
+                loop.append(e)
+        marked = len(loops)
+        found = last_loops(loops, loop)
+        if found is not None:
+            return found, marked, None
         # The profiler dropped a marker's event: split by the idle gaps
         # between the loops instead.
         loops, loop, last_end = [], [], None
@@ -441,11 +498,16 @@ def timed_spread(fn, iters: int, repeats: int = GEMM_REPEATS) -> dict:
             loop.append(e)
             last_end = e.time_range.end
         loops.append(loop)
-        gaps = len(loops)
-        loops = last_loops(loops, [])
-        if loops is None:
-            fail(f"the profiler's kernels fall into {marked} marked loops "
-                 f"and {gaps} loops by their gaps, not {repeats} (+ 1)")
+        return last_loops(loops, []), marked, len(loops)
+
+    for _ in range(PROFILE_ATTEMPTS):
+        loops, marked, gaps = session()
+        if loops is not None:
+            break
+    else:
+        fail(f"the profiler's kernels fall into {marked} marked loops and "
+             f"{gaps} loops by their gaps, not {repeats} (+ 1), in "
+             f"{PROFILE_ATTEMPTS} sessions")
     device = [sum(e.device_time_total for e in loop) / 1e3 / iters
               for loop in loops]
     start = torch.cuda.Event(enable_timing=True)
@@ -1176,6 +1238,173 @@ def burst_serve(params, cfg, prompts, dev, card) -> dict:
     return burst_launches
 
 
+def prefix_serve(params, cfg, dev, card) -> dict:
+    """The prefix-cache serving path, over bf16 then QUANT_SERVE_PRECISION
+    pools, at full width and depth: (a) the time to first token of a
+    PREFIX_TTFT_PROMPT-token prompt cold (cache flushed) and warm (its
+    pages borrowed), best of 2 each; (b) the shared-prefix serve (request
+    0 alone, then PREFIX_FOLLOWERS more of the same prefix) on an engine
+    with the cache and on one without, every launch count of the paged,
+    decode and forward kernels set to 0 just before each run and read just
+    after, held exact (`expected_serve_launches`, and the chunk steps to
+    what each prompt's unshared part needs); the greedy streams of both
+    engines equal, the hit tokens PREFIX_FOLLOWERS x PREFIX_SHARED, every
+    page back after a flush, and the allocator the C++ one.  Returns each
+    pool type's launch counts of the cached run."""
+    import torch
+    from metal_flash_attention_tpu_torch import ServingEngine
+    from metal_flash_attention_tpu_torch.models import serving
+    from metal_flash_attention_tpu_torch.native.page_allocator import (
+        NativePageAllocator,
+    )
+    from metal_flash_attention_tpu_torch.ops import flash_attention as fa
+    from metal_flash_attention_tpu_torch.ops import flash_decode as fd
+    from metal_flash_attention_tpu_torch.ops import paged_attention as pa
+
+    rng = np.random.default_rng(SEED + 12)
+    vocab = cfg.vocab_size
+    shared = rng.integers(0, vocab, (PREFIX_SHARED,))
+    prompts = [np.concatenate([shared, rng.integers(0, vocab, (n,))])
+               .astype(np.int32) for n in PREFIX_SUFFIXES]
+    ttft_prompt = rng.integers(1, vocab, (PREFIX_TTFT_PROMPT,)).astype(
+        np.int32)
+    max_seq = PREFIX_SHARED + max(PREFIX_SUFFIXES) + MAX_NEW + 1
+    seq_pages = -(-max_seq // PAGE)
+    # Room for every slot's span and every request's cached pages.
+    num_pages = (MAX_BATCH + len(prompts)) * seq_pages + 1
+
+    def first_token_s(eng, prompt):
+        """Wall seconds from submit to the request's first token (its
+        token read back to the host), then drained."""
+        rid = eng.submit(prompt, PREFIX_TTFT_NEW)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        while not any(r == rid for r, _ in eng.step()):
+            pass
+        dt = time.perf_counter() - t0
+        while not eng.idle:
+            eng.step()
+        return dt
+
+    def drive(eng, batches):
+        """Each batch submitted at once and drained: the requests' new
+        tokens, seconds to first token, wall seconds and engine steps."""
+        streams, ttft, steps, secs = {}, {}, 0, 0.0
+        for batch in batches:
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            for p in batch:
+                eng.submit(p, MAX_NEW)
+            while not eng.idle:
+                for rid, tok in eng.step():
+                    if rid not in streams:
+                        ttft[rid] = time.perf_counter() - t0
+                    streams.setdefault(rid, []).append(tok)
+                steps += 1
+                if steps > 10_000:
+                    fail("prefix serve did not drain")
+            torch.cuda.synchronize(dev)
+            secs += time.perf_counter() - t0
+        return ([streams[r] for r in sorted(streams)],
+                [ttft[r] for r in sorted(ttft)], secs, steps)
+
+    report, launches_by_pool = {}, {}
+    for prec in (None, QUANT_SERVE_PRECISION):
+        label = prec or "bf16"
+        eng = ServingEngine(params, cfg, max_batch=1, num_pages=64,
+                            page_size=PAGE, max_seq=2 * PREFIX_TTFT_PROMPT,
+                            prefix_cache=True, kv_precision=prec)
+        first_token_s(eng, ttft_prompt)     # libraries and handles
+        first_token_s(eng, ttft_prompt)
+        eng.prefix_cache.flush()
+        cold = first_token_s(eng, ttft_prompt)
+        eng.prefix_cache.flush()
+        cold = min(cold, first_token_s(eng, ttft_prompt))
+        warm = min(first_token_s(eng, ttft_prompt),
+                   first_token_s(eng, ttft_prompt))
+        hit = (PREFIX_TTFT_PROMPT - 1) // PAGE * PAGE
+        if eng.prefix_cache.hit_tokens != 3 * hit:
+            fail(f"prefix TTFT ({label}) hit "
+                 f"{eng.prefix_cache.hit_tokens} tokens, not {3 * hit}")
+        del eng
+        torch.cuda.empty_cache()
+
+        runs = {}
+        for cached in (True, False):
+            eng = ServingEngine(params, cfg, max_batch=MAX_BATCH,
+                                num_pages=num_pages, page_size=PAGE,
+                                max_seq=max_seq, prefix_cache=cached,
+                                kv_precision=prec)
+            if type(eng.alloc) is not NativePageAllocator:
+                fail(f"the engine's allocator is {type(eng.alloc)}")
+            calls: dict = {}
+            with counted_calls(serving, SERVE_STEPS, calls):
+                for mod in (pa, fd, fa):
+                    mod.reset_launch_counts()
+                streams, ttft, secs, steps = drive(
+                    eng, [prompts[:1], prompts[1:]])
+                launches = {**pa.LAUNCH_COUNTS, **fd.LAUNCH_COUNTS,
+                            **fa.LAUNCH_COUNTS}
+            wrong = launch_errors(launches,
+                                  expected_serve_launches(cfg, calls, prec))
+            hits = [0] + [PREFIX_SHARED * cached] * PREFIX_FOLLOWERS
+            chunks = sum(-(-(len(p) - h) // PAGE)
+                         for p, h in zip(prompts, hits))
+            step_name = "paged_chunk_step" if prec is None else \
+                "paged_chunk_step_q"
+            if wrong or len(calls[step_name]) != chunks:
+                fail(f"prefix serve ({label}, cache {cached}) launched "
+                     f"(count, expected) {wrong}, "
+                     f"{len(calls[step_name])} chunk steps for {chunks}")
+            stats = eng.stats
+            if cached:
+                if stats["prefix_hit_tokens"] != sum(hits):
+                    fail(f"prefix serve ({label}) hit "
+                         f"{stats['prefix_hit_tokens']} tokens, not "
+                         f"{sum(hits)}")
+                eng.prefix_cache.flush()
+            if eng.alloc.free_pages != num_pages - 1:
+                fail(f"prefix serve ({label}, cache {cached}) left "
+                     f"{eng.alloc.free_pages} of {num_pages - 1} pages free")
+            if any(len(s) != MAX_NEW or not all(0 <= t < vocab for t in s)
+                   for s in streams):
+                fail(f"prefix serve ({label}) emitted a short stream or a "
+                     "token outside the vocabulary")
+            tokens = MAX_NEW * len(prompts)
+            runs[cached] = {
+                "streams": streams, "seconds": secs, "steps": steps,
+                "new_tokens_per_s": tokens / secs, "ttft_s": ttft,
+                "chunk_steps": len(calls[step_name]),
+                "decode_steps": len(calls[step_name.replace("chunk",
+                                                            "decode")]),
+                "prefix_hit_tokens": stats.get("prefix_hit_tokens"),
+                "prefix_cached_pages": stats.get("prefix_cached_pages"),
+                "launches": {k: n for k, n in launches.items() if n}}
+            if cached:
+                launches_by_pool[label] = launches
+            del eng
+            torch.cuda.empty_cache()
+        if runs[True]["streams"] != runs[False]["streams"]:
+            fail(f"prefix serve ({label}): the cached engine's greedy "
+                 "streams differ from the uncached engine's")
+        report[label] = {
+            "ttft": {"prompt_tokens": PREFIX_TTFT_PROMPT,
+                     "borrowed_tokens": hit, "cold_s": cold,
+                     "warm_s": warm, "cold_over_warm": cold / warm},
+            "serve": {("cached" if c else "uncached"): {
+                k: v for k, v in r.items() if k != "streams"}
+                for c, r in runs.items()},
+            "streams_equal": True}
+    print("prefix_serve: " + json.dumps({
+        "config": f"llama3_8b, {cfg.n_layers} layers (full depth), bf16, "
+                  f"page {PAGE}, max_batch {MAX_BATCH}",
+        "requests": len(prompts), "shared_tokens": PREFIX_SHARED,
+        "suffix_tokens": list(PREFIX_SUFFIXES), "new_tokens": MAX_NEW,
+        "allocator": "NativePageAllocator", **report, "card": card}),
+        flush=True)
+    return launches_by_pool
+
+
 def quant_reference_step(params, tokens, cfg, cache):
     """The logits of one quantized serving step (tokens [batch, k], k
     positions at each row's length) with plain float32 attention over
@@ -1575,6 +1804,161 @@ def quant_kernel_checks(dev, launches) -> list[dict]:
     return results
 
 
+def quant_fwd_checks(dev) -> list[dict]:
+    """The forward over quantized K/V: K/V in every precision of
+    QUANT_PRECISIONS (quantized per (batch, kv head) from bf16 heads of
+    magnitudes apart, so that their scales differ) through
+    `dispatch.attention` at the training shape and at a chunk over a long
+    prefix.  Every launch count of the forward is set to 0 just before
+    those calls and read just after: each is one `flash_fwd`, one
+    `flash_fwd_sm90` and one `flash_fwd_<precision>`.  Then each output is
+    held against the plain version by the worst 64-row tile
+    (KERNEL_TILE_REL_RMS; lse at MIXED_TOL), with a planted fault that the
+    limit must see (one kv head's K scale replaced by its neighbour's),
+    and each is timed (median and min-max of GEMM_REPEATS loops) beside
+    its bound (visible pairs' operations; payload, scales, q, o and lse
+    bytes), its plain version and the bf16 kernel at the same shape;
+    dequantize-then-SDPA (two calls) is timed as a note."""
+    import torch
+    import torch.nn.functional as F
+    from metal_flash_attention_tpu_torch import dispatch
+    from metal_flash_attention_tpu_torch.descriptors.precision import (
+        OperandPrecision,
+    )
+    from metal_flash_attention_tpu_torch.ops import flash_attention as fa
+    from metal_flash_attention_tpu_torch.ops.quantization import (
+        dequantize,
+        quantize,
+    )
+    from metal_flash_attention_tpu_torch.utils.tolerances import (
+        MIXED_TOL,
+        max_abs_err,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    d, m = HEAD_DIM, QUANT_FWD_KEYS
+    scale = d ** -0.5
+    mag = torch.exp(2 * torch.rand((1, KV_HEADS, 1, 1), generator=gen,
+                                   device=dev) - 1)
+    k16, v16 = ((torch.randn((1, KV_HEADS, m, d), generator=gen, device=dev)
+                 * mag).to(torch.bfloat16) for _ in range(2))
+    shapes = {"train": TRAIN_TOKENS, "chunk": QUANT_FWD_CHUNK}
+    qs = {name: torch.randn((1, Q_HEADS, n, d), generator=gen,
+                            device=dev).to(torch.bfloat16)
+          for name, n in shapes.items()}
+    kv = {prec: tuple(quantize(t, OperandPrecision(prec))
+                      for t in (k16, v16)) for prec in QUANT_PRECISIONS}
+
+    def run(q, k, v):
+        return dispatch.attention(q, k, v, causal=True,
+                                  return_residuals=True)
+
+    # The main path: every launch counted.
+    fa.reset_launch_counts()
+    outs = {(prec, name): run(qs[name], *kv[prec])
+            for prec in QUANT_PRECISIONS for name in shapes}
+    torch.cuda.synchronize(dev)
+    launches = dict(fa.LAUNCH_COUNTS)
+    calls = len(outs)
+    expected = {"flash_fwd": calls, "flash_fwd_sm90": calls, **{
+        f"flash_fwd_{prec}": len(shapes) for prec in QUANT_PRECISIONS}}
+    wrong = launch_errors(launches, expected)
+    if wrong:
+        fail(f"quant_fwd_checks launched (count, expected) {wrong}")
+
+    # The K scale fault: the kv head whose scale differs most from its
+    # neighbour's takes the neighbour's.
+    def scale_fault(k):
+        ks = k.scales.clone()
+        j = int((ks[0, 1:].log() - ks[0, :-1].log()).abs().argmax())
+        ks[0, j] = ks[0, j + 1]
+        return k._replace(scales=ks)
+
+    readings, results, problems = {}, [], []
+    bf16_ms = {name: timed_spread(lambda q=q: fa.flash_attention_forward(
+        q, k16, v16, causal=True), 20 if name == "train" else 50)
+        for name, q in qs.items()}
+    for prec in QUANT_PRECISIONS:
+        k, v = kv[prec]
+        r_prec = {}
+        for name, q in qs.items():
+            key = f"{prec}.{name}"
+            o, lse = outs[(prec, name)]
+            po, plse = fa._forward_plain_quantized(
+                q, k, v, causal=True, window_size=None, scale=scale,
+                out_dtype=torch.float32)
+            r = closeness(o, po)
+            r["lse_max_abs_err"] = max_abs_err(lse, plse)
+            r["k_scale_of_neighbour_head"] = closeness(
+                run(q, scale_fault(k), v)[0], po)
+            if not within_limits(r) or r["lse_max_abs_err"] > MIXED_TOL.lse:
+                problems.append(f"flash_fwd_{key} disagrees with its plain "
+                                "version")
+            if within_limits(r["k_scale_of_neighbour_head"]):
+                problems.append(f"the flash_fwd_{key} check does not see a "
+                                "K scale taken from the neighbouring head")
+            readings[key] = r_prec[name] = r
+            del po, plse
+        timings = {}
+        for name, q in qs.items():
+            n = shapes[name]
+            t = timed_spread(lambda q=q: dispatch.attention(
+                q, k, v, causal=True), 20 if name == "train" else 50)
+            plain_ms, _ = timed(lambda q=q: fa._forward_plain_quantized(
+                q, k, v, causal=True, window_size=None, scale=scale,
+                out_dtype=torch.bfloat16), 3)
+            # SDPA's causal mask is aligned top-left: the note is taken
+            # where q_len = kv_len only.
+            note_ms = None if n != m else timed(
+                lambda q=q: F.scaled_dot_product_attention(
+                    q, dequantize(k, q.dtype).to(q.dtype),
+                    dequantize(v, q.dtype).to(q.dtype), is_causal=True,
+                    enable_gqa=True), 3)[0]
+            o, lse = outs[(prec, name)]
+            bound_ms, bound_by = bound(
+                4 * d * Q_HEADS * visible_pairs(n, m, True, None),
+                nbytes(k.values, v.values, k.scales, v.scales, q, o, lse))
+            timings[name] = {
+                "ms": t["ms"], "spread": t, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "share_of_bound": bound_ms / t["ms"],
+                "bf16_ms": bf16_ms[name]["ms"],
+                "bf16_spread": bf16_ms[name],
+                "dequantize_then_sdpa_ms": note_ms}
+        train = timings["train"]
+        results.append({
+            "name": f"flash_fwd_{prec}", "route": "cuda",
+            "source": "metal_flash_attention_tpu_torch/csrc/"
+                      "flash_attention.cu",
+            "replaces": "metal_flash_attention_tpu/ops/flash_attention.py:"
+                        f"223 and :552 (QuantizedTensor K/V, {prec})",
+            "kernel": f"flash_fwd90_kernel<bf16, 128, {prec}>",
+            "launches": launches[f"flash_fwd_{prec}"],
+            "max_abs_err": max(r["max_abs_err"] for r in r_prec.values()),
+            "o": r_prec,
+            "limits": {"tile_rel_rms": KERNEL_TILE_REL_RMS,
+                       "lse_abs": MIXED_TOL.lse},
+            "ms": train["ms"], "plain_ms": train["plain_ms"],
+            "bound_ms": train["bound_ms"], "bound_by": train["bound_by"],
+            "library_ms": None,
+            "library": "none: dequantize then SDPA is two calls "
+                       "(dequantize_then_sdpa_ms, a note)",
+            "share_of_bound": train["share_of_bound"],
+            "spread": train["spread"], "bf16_ms": train["bf16_ms"],
+            "timings": timings,
+            "shape": f"q [1, 32, {TRAIN_TOKENS}, 128] (timed) and [1, 32, "
+                     f"{QUANT_FWD_CHUNK}, 128], causal from the bottom "
+                     f"right, k/v [1, 8, {m}, 128] {prec}"})
+    print("quant_fwd_checks: " + json.dumps({
+        "readings": readings, "launches": {
+            k_: n_ for k_, n_ in launches.items() if n_},
+        "limits": {"tile_rel_rms": KERNEL_TILE_REL_RMS,
+                   "lse_abs": MIXED_TOL.lse}}), flush=True)
+    if problems:
+        fail("; ".join(problems))
+    return results
+
+
 @contextlib.contextmanager
 def event_timed(module, name: str, spans: list):
     """`module.name` wrapped, inside the block, to record a CUDA event
@@ -1939,8 +2323,11 @@ def train(dev, card):
     launches = {**fa.LAUNCH_COUNTS, **fb.LAUNCH_COUNTS}
     peak = torch.cuda.max_memory_allocated(dev)
 
-    per_step = TRAIN_LAYERS
+    # The forward's quantized variants (`flash_fwd_<precision>`) take no
+    # part in training.
+    quantized = {f"flash_fwd_{p}" for p in QUANT_PRECISIONS}
     for name, n in launches.items():
+        per_step = 0 if name in quantized else TRAIN_LAYERS
         if n != per_step * TRAIN_STEPS:
             fail(f"kernel {name} launched {n} times in {TRAIN_STEPS} "
                  f"steps, expected {per_step} a step")
@@ -2778,6 +3165,9 @@ def main() -> int:
     burst_launches = phase("burst_serve", burst_serve, params, cfg, prompts,
                            dev, card)
     torch.cuda.empty_cache()
+    prefix_launches = phase("prefix_serve", prefix_serve, params, cfg, dev,
+                            card)
+    torch.cuda.empty_cache()
     phase("quant_reference", quant_reference, params, cfg, dev)
     dense_launches = phase("dense_serve", dense_serve, params, cfg, dev,
                            card)
@@ -2797,6 +3187,8 @@ def main() -> int:
     quant_kernels = phase("quant_kernel_checks", quant_kernel_checks, dev,
                           quant_launches)
     torch.cuda.empty_cache()
+    quant_fwd = phase("quant_fwd_checks", quant_fwd_checks, dev)
+    torch.cuda.empty_cache()
 
     tparams, tcfg, flash_launches = phase("train", train, dev, card)
     phase("train_reference", train_reference, tparams, tcfg, dev)
@@ -2811,33 +3203,44 @@ def main() -> int:
     for entry in kernels:
         if entry["name"] == "flash_fwd":
             burst = burst_launches[QUANT_SERVE_PRECISION]
+            prefix = prefix_launches[QUANT_SERVE_PRECISION]
             entry["launches_by_path"] = {
                 "train": flash_launches["flash_fwd"],
                 "dense_serve": dense_launches["flash_fwd"],
                 "quant_serve": quant_launches["flash_fwd"],
-                "burst_serve": burst["flash_fwd"]}
+                "burst_serve": burst["flash_fwd"],
+                "prefix_serve": prefix["flash_fwd"]}
             entry["launches_sm90_by_path"] = {
                 "train": flash_launches["flash_fwd_sm90"],
                 "dense_serve": dense_launches["flash_fwd_sm90"],
                 "quant_serve": quant_launches["flash_fwd_sm90"],
-                "burst_serve": burst["flash_fwd_sm90"]}
+                "burst_serve": burst["flash_fwd_sm90"],
+                "prefix_serve": prefix["flash_fwd_sm90"]}
         if entry["name"] in ("paged_decode", "paged_prefill"):
             entry["launches_by_path"] = {
                 "serve": entry["launches"],
-                "burst_serve": burst_launches["bf16"][entry["name"]]}
+                "burst_serve": burst_launches["bf16"][entry["name"]],
+                "prefix_serve": prefix_launches["bf16"][entry["name"]]}
     decode_kernel["launches_by_path"] = {
         "dense_serve": dense_launches["flash_decode"],
         "quant_serve": quant_launches["flash_decode"],
-        "burst_serve": burst_launches[QUANT_SERVE_PRECISION]["flash_decode"]}
+        "burst_serve": burst_launches[QUANT_SERVE_PRECISION]["flash_decode"],
+        "prefix_serve": prefix_launches[QUANT_SERVE_PRECISION][
+            "flash_decode"]}
     for entry in quant_kernels:
         entry["launches_by_path"] = {
             "quant_serve": entry["launches"],
             "burst_serve": burst_launches[QUANT_SERVE_PRECISION].get(
+                entry["name"], 0),
+            "prefix_serve": prefix_launches[QUANT_SERVE_PRECISION].get(
                 entry["name"], 0)}
+    for entry in quant_fwd:
+        entry["launches_by_path"] = {"quant_fwd_checks": entry["launches"]}
     kernels.append(decode_kernel)
     kernels.append(gemm_kernel)
     kernels += softmax_kernels
     kernels += quant_kernels
+    kernels += quant_fwd
 
     print("phases: " + json.dumps(phases))
     print(card)

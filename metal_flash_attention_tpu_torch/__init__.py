@@ -41,6 +41,14 @@ Ported so far:
   `paged_decode_burst`, `paged_decode_burst_q`) and the engine's
   temperature / top_k / top_p, ``logprobs``, ``logit_bias``, ``seed``
   and `step_burst`;
+- slice 11, prefix caching and the forward over quantized K/V:
+  `models.prefix_cache` (`PrefixCache`) and the engine's
+  ``prefix_cache=True`` over bf16 and quantized pools; the refcounted
+  page allocators of `native.page_allocator` (`NativePageAllocator`, the
+  port's C++ allocator under `native/src/`, built with g++ at first use;
+  `PythonPageAllocator`; `make_page_allocator`); `QuantizedTensor` K/V in
+  `ops.flash_attention` and `dispatch.attention`, decoded inside the
+  forward kernel;
 - shared: `ops.reference`, `native.build`, `utils`.
 
 Constructors (`init_params`, `params_from_numpy`, `init_cache`,

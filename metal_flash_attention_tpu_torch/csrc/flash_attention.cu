@@ -53,6 +53,22 @@
 //   maps' row extent is the head's); a float32 O is stored from the
 //   fragments.
 //
+// - Quantized K/V (INT8, FP8-E4M3, FP8-E5M2, NF4 split-half along D; one
+//   scale per (batch, kv head), ops/quantization.py's layout) replaces the
+//   TPU kernels' in-kernel `dequant_block` (:272-273, :309-326 and
+//   :617-618, :680-686 of the JAX file).  The producer's TMA loads each
+//   tile in its storage type ([b * kv_heads][kv_len][D or D / 2] bytes)
+//   into a ring of raw stages; its warpgroup (all 128 threads) decodes a
+//   stage into the bf16 K and V ring slots, in the swizzled panels the SS
+//   and RS wgmma read, and one thread arrives on the slot's full barrier
+//   after a named barrier of the warpgroup.  Every INT8 and FP8 value is
+//   a bf16, so no scale enters the tiles: the block's K scale joins the
+//   softmax scale (lse is that of the scaled logits) and its V scale
+//   multiplies O in the epilogue.  NF4's codebook is rounded to bf16 (a
+//   256-entry byte table in shared memory).  The kernel is templated on
+//   the precision (a branch around wgmma would serialise it); queries are
+//   bf16.
+//
 // Every function returns cudaGetLastError() after its launch.
 
 #include <type_traits>
@@ -60,6 +76,7 @@
 #include "attention_common.cuh"
 #include "flash_tiles.cuh"
 #include "hopper_common.cuh"
+#include "quant_common.cuh"
 
 namespace {
 
@@ -77,28 +94,41 @@ static_assert(kBKV == 64 || kBKV == 128 || kBKV == 256,
 struct FwdParams {
   float* o32;   // O when it is float32 (stored from the fragments)
   float* lse;   // [b, q_heads, q_len], natural log
+  const float* k_scales;  // [b * kv_heads] (quantized K/V only)
+  const float* v_scales;
   int rows;     // group * q_len: the rows of one kv head
   int q_len, kv_len;
   float scale_log2e;
   int causal, window;
 };
 
-// Shared memory of a block at head dim D: Q, the K and V stages, the
-// barriers, and room to align the whole to 1024 bytes.  Each operand is
-// D / 64 panels of 64 columns (128-byte rows), 128-byte swizzled.
-template <int D>
+// Shared memory of a block at head dim D and K/V storage precision P: Q,
+// the K and V stages, for quantized K/V the raw stages (K then V a stage,
+// D or D / 2 bytes a key) and NF4's byte table, the barriers, and room to
+// align the whole to 1024 bytes.  Each 16-bit operand is D / 64 panels of
+// 64 columns (128-byte rows), 128-byte swizzled.
+template <int D, int P = kUnquantized>
 struct Smem {
+  static constexpr bool kQuant = P != kUnquantized;
   static constexpr int kPanels = D / 64;
   static constexpr int kQPanel = kBQ * 128;
   static constexpr int kKVPanel = kBKV * 128;
   static constexpr int kQ = kPanels * kQPanel;
   static constexpr int kTile = kPanels * kKVPanel;  // one K or V tile
   static constexpr int kStages = MFA_FWD90_STAGES;
+  static constexpr int kRawRow = P == kPrecNf4 ? D / 2 : D;  // bytes a key
+  static constexpr int kRawTile = kQuant ? kBKV * kRawRow : 0;
+  static constexpr int kRawStages = kQuant ? MFA_FWD90_RAW_STAGES : 0;
   static constexpr int kK = kQ;
   static constexpr int kV = kK + kStages * kTile;
-  static constexpr int kBar = kV + kStages * kTile;
-  static constexpr int kBytes = kBar + (1 + 4 * kStages) * 8 + 1024;
+  static constexpr int kRaw = kV + kStages * kTile;
+  static constexpr int kTable = kRaw + kRawStages * 2 * kRawTile;
+  static constexpr int kBar = kTable + (P == kPrecNf4 ? 256 * 4 : 0);
+  static constexpr int kBytes =
+      kBar + (1 + 4 * kStages + kRawStages) * 8 + 1024;
   static_assert(kStages >= 2, "a ring");
+  static_assert(!kQuant || kRawStages >= 2, "a raw ring");
+  static_assert(kRawRow % 16 == 0, "16-byte pieces of a stored key");
   static_assert(kBytes <= 232448, "an H100 block's shared memory");
 };
 
@@ -189,20 +219,70 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[kBKV / 2],
   }
 }
 
-// Grid (row tiles, kv_heads, batch), kThreads threads, Smem<D>::kBytes of
-// dynamic shared memory.  The maps are over [b * kv_heads][rows][D] (q,
+// One stored K or V tile (kBKV keys of L::kRawRow bytes) decoded into a
+// bf16 ring slot in the swizzled panels the wgmma read, by thread `pt` of
+// the producer warpgroup's 128: each 16 stored bytes of key r are 16
+// values of columns [c, c + 16) (INT8, FP8), or NF4's low nibbles there
+// and its high nibbles D / 2 columns on.
+template <int D, int P>
+__device__ __forceinline__ void decode_tile(const uint8_t* raw, uint8_t* tile,
+                                            const uint32_t* table, int pt) {
+  using L = Smem<D, P>;
+  constexpr int kPerRow = L::kRawRow / 16;
+  constexpr int kPieces = kBKV * kPerRow;
+  static_assert(kPieces % 128 == 0, "whole pieces a producer thread");
+  auto put = [&](int r, int col, const uint4 (&x)[2]) {
+    uint8_t* panel = tile + col / 64 * L::kKVPanel;
+    const int c = col % 64 / 8;
+    *reinterpret_cast<uint4*>(panel + sm90::swizzle128(r, c)) = x[0];
+    *reinterpret_cast<uint4*>(panel + sm90::swizzle128(r, c + 1)) = x[1];
+  };
+#pragma unroll 4
+  for (int i = 0; i < kPieces / 128; ++i) {
+    const int piece = pt + 128 * i;
+    const int r = piece / kPerRow, col = piece % kPerRow * 16;
+    const uint4 x =
+        *reinterpret_cast<const uint4*>(raw + r * L::kRawRow + col);
+    if constexpr (P == kPrecNf4) {
+      uint4 lo[2], hi[2];
+      nf4_to_bf16(x, table, lo, hi);
+      put(r, col, lo);
+      put(r, col + D / 2, hi);
+    } else {
+      uint4 out[2];
+      bytes_to_bf16<P>(x, out);
+      put(r, col, out);
+    }
+  }
+}
+
+// Grid (row tiles, kv_heads, batch), kThreads threads, Smem<D, P>::kBytes
+// of dynamic shared memory.  The maps are over [b * kv_heads][rows][D] (q,
 // o) and [b * kv_heads][kv_len][D] (k, v), 16-bit elements, boxes of 64
-// columns by kBQ rows (q), kBKV rows (k, v) and 64 rows (o).
-template <typename T, int D>
+// columns by kBQ rows (q), kBKV rows (k, v) and 64 rows (o); for
+// quantized K/V (P a Precision, T bf16) k and v are bytes, [b * kv_heads]
+// [kv_len][L::kRawRow] in boxes of whole keys by kBKV.
+template <typename T, int D, int P = kUnquantized>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd90_kernel(const __grid_constant__ CUtensorMap map_q,
                    const __grid_constant__ CUtensorMap map_k,
                    const __grid_constant__ CUtensorMap map_v,
                    const __grid_constant__ CUtensorMap map_o, FwdParams p) {
   using namespace sm90;
-  using L = Smem<D>;
+  using L = Smem<D, P>;
   constexpr bool kFp16 = std::is_same<T, __half>::value;
+  constexpr bool kQuant = L::kQuant;
+  static_assert(!kQuant || !kFp16, "quantized K/V under bf16 queries");
   constexpr int kS = L::kStages;
+  constexpr int kR = L::kRawStages;
+  // Registers a thread after setmaxnreg: the block holds 168 a thread
+  // (ptxas's budget at three warpgroups), so the producer's and the two
+  // consumer warpgroups' budgets add up to at most 3 x 168.  A quantized
+  // producer decodes tiles, and keeps more.
+  constexpr int kProducerRegs = kQuant ? 120 : 24;
+  constexpr int kConsumerRegs = kQuant ? 192 : 240;
+  static_assert(kProducerRegs + 2 * kConsumerRegs <= 3 * 168,
+                "setmaxnreg within the block's registers");
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + (1024 - smem_u32(smem_raw) % 1024) % 1024;
   uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::kBar);
@@ -210,6 +290,7 @@ flash_fwd90_kernel(const __grid_constant__ CUtensorMap map_q,
   uint64_t* v_full = k_full + kS;
   uint64_t* k_empty = v_full + kS;
   uint64_t* v_empty = k_empty + kS;
+  uint64_t* raw_full = v_empty + kS;  // quantized K/V: a raw stage landed
 
   const int tid = threadIdx.x, lane = tid % 32;
   const int bh = blockIdx.z * gridDim.y + blockIdx.y;
@@ -250,6 +331,7 @@ flash_fwd90_kernel(const __grid_constant__ CUtensorMap map_q,
       mbar_init(&k_empty[s], kConsumers / 32);
       mbar_init(&v_empty[s], kConsumers / 32);
     }
+    for (int s = 0; s < kR; ++s) mbar_init(&raw_full[s], 1);
     fence_barrier_init();
   }
   __syncthreads();
@@ -261,37 +343,84 @@ flash_fwd90_kernel(const __grid_constant__ CUtensorMap map_q,
   if (role == 0) {
     // Producer: Q, then K and V of loop step i (tile n_hi - 1 - i) into
     // stage i % kS; K of step i beside V of step i - 1, since a K slot
-    // frees a step's softmax and PV before its V slot does.
-    setmaxnreg_dec<24>();
-    if (tid == 0 && n_tiles > 0) {
-      prefetch_tensor_map(&map_q);
-      prefetch_tensor_map(&map_k);
-      prefetch_tensor_map(&map_v);
-      mbar_arrive_expect_tx(q_full, L::kQ);
+    // frees a step's softmax and PV before its V slot does.  Quantized
+    // K/V: the stored tiles of step i land in raw stage i % kR, and the
+    // whole warpgroup decodes them into the bf16 slots.
+    setmaxnreg_dec<kProducerRegs>();
+    if constexpr (!kQuant) {
+      if (tid == 0 && n_tiles > 0) {
+        prefetch_tensor_map(&map_q);
+        prefetch_tensor_map(&map_k);
+        prefetch_tensor_map(&map_v);
+        mbar_arrive_expect_tx(q_full, L::kQ);
 #pragma unroll
-      for (int c = 0; c < L::kPanels; ++c)
-        tma_load_3d(smem + c * L::kQPanel, &map_q, q_full, 64 * c, r0, bh);
-      for (int i = 0; i <= n_tiles; ++i)
+        for (int c = 0; c < L::kPanels; ++c)
+          tma_load_3d(smem + c * L::kQPanel, &map_q, q_full, 64 * c, r0, bh);
+        for (int i = 0; i <= n_tiles; ++i)
 #pragma unroll
-        for (int kv = 0; kv < 2; ++kv) {  // K of step i, V of step i - 1
-          const int t = i - kv;
-          if (t < 0 || t >= n_tiles) continue;
-          const int s = t % kS, j0 = (n_hi - 1 - t) * kBKV;
-          uint64_t* full = (kv ? v_full : k_full) + s;
+          for (int kv = 0; kv < 2; ++kv) {  // K of step i, V of step i - 1
+            const int t = i - kv;
+            if (t < 0 || t >= n_tiles) continue;
+            const int s = t % kS, j0 = (n_hi - 1 - t) * kBKV;
+            uint64_t* full = (kv ? v_full : k_full) + s;
+            if (t >= kS) mbar_wait((kv ? v_empty : k_empty) + s,
+                                   (t / kS - 1) & 1);
+            uint8_t* dst = smem + (kv ? L::kV : L::kK) + s * L::kTile;
+            mbar_arrive_expect_tx(full, L::kTile);
+#pragma unroll
+            for (int c = 0; c < L::kPanels; ++c)
+              tma_load_3d(dst + c * L::kKVPanel, kv ? &map_v : &map_k, full,
+                          64 * c, j0, bh);
+          }
+      }
+    } else {
+      uint8_t* raw = smem + L::kRaw;
+      uint32_t* table = reinterpret_cast<uint32_t*>(smem + L::kTable);
+      if constexpr (P == kPrecNf4) fill_nf4_pairs(table, tid, 128);
+      // The stored K and V tiles of step t into raw stage t % kR.
+      auto load_raw = [&](int t) {
+        const int rs = t % kR, j0 = (n_hi - 1 - t) * kBKV;
+        uint8_t* dst = raw + rs * 2 * L::kRawTile;
+        mbar_arrive_expect_tx(&raw_full[rs], 2 * L::kRawTile);
+        tma_load_3d(dst, &map_k, &raw_full[rs], 0, j0, bh);
+        tma_load_3d(dst + L::kRawTile, &map_v, &raw_full[rs], 0, j0, bh);
+      };
+      if (tid == 0 && n_tiles > 0) {
+        prefetch_tensor_map(&map_q);
+        prefetch_tensor_map(&map_k);
+        prefetch_tensor_map(&map_v);
+        mbar_arrive_expect_tx(q_full, L::kQ);
+#pragma unroll
+        for (int c = 0; c < L::kPanels; ++c)
+          tma_load_3d(smem + c * L::kQPanel, &map_q, q_full, 64 * c, r0, bh);
+        for (int t = 0; t < kR && t < n_tiles; ++t) load_raw(t);
+      }
+      named_barrier_sync(3, 128);  // the NF4 table is in
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % kS, rs = t % kR;
+        const uint8_t* stage = raw + rs * 2 * L::kRawTile;
+        mbar_wait(&raw_full[rs], (t / kR) & 1);
+#pragma unroll
+        for (int kv = 0; kv < 2; ++kv) {
           if (t >= kS) mbar_wait((kv ? v_empty : k_empty) + s,
                                  (t / kS - 1) & 1);
-          uint8_t* dst = smem + (kv ? L::kV : L::kK) + s * L::kTile;
-          mbar_arrive_expect_tx(full, L::kTile);
-#pragma unroll
-          for (int c = 0; c < L::kPanels; ++c)
-            tma_load_3d(dst + c * L::kKVPanel, kv ? &map_v : &map_k, full,
-                        64 * c, j0, bh);
+          decode_tile<D, P>(stage + kv * L::kRawTile,
+                            smem + (kv ? L::kV : L::kK) + s * L::kTile,
+                            table, tid);
+          // Each thread's writes reach the async proxy (wgmma) before
+          // the slot is marked full.
+          fence_proxy_async();
+          named_barrier_sync(3, 128);
+          if (tid == 0) mbar_arrive((kv ? v_full : k_full) + s);
         }
+        // Every thread is done with the raw stage: refill it.
+        if (tid == 0 && t + kR < n_tiles) load_raw(t + kR);
+      }
     }
   } else {
     // Consumers: warpgroup wg takes rows 64 wg .. 64 wg + 63 of the tile;
     // this thread rows ra and ra + 8 of them (the accumulator layout).
-    setmaxnreg_inc<240>();
+    setmaxnreg_inc<kConsumerRegs>();
     const int wg = role - 1, warp = tid / 32 % 4, t4 = lane % 4;
     const int ra = r0 + 64 * wg + 16 * warp + lane / 4;
     const int row[2] = {ra, ra + 8};
@@ -304,6 +433,13 @@ flash_fwd90_kernel(const __grid_constant__ CUtensorMap map_q,
       lo[h] = p.window > 0 ? qpos - p.window + 1 : 0;
     }
     const uint8_t* q_wg = smem + wg * 64 * 128;
+    // Quantized K/V: the block's K scale joins the softmax scale, its V
+    // scale the normalisation of O.
+    float scale_log2e = p.scale_log2e, o_scale = 1.f;
+    if constexpr (kQuant) {
+      scale_log2e *= p.k_scales[bh];
+      o_scale = p.v_scales[bh];
+    }
 
     float o[D / 2], sc[kBKV / 2];
 #pragma unroll
@@ -333,7 +469,7 @@ flash_fwd90_kernel(const __grid_constant__ CUtensorMap map_q,
       fence_operands(sc);
       release(k_empty, i);
       softmax_tile<decltype(masked)::value>(
-          sc, m, l, alpha, p.scale_log2e, (n_hi - 1 - i) * kBKV + 2 * t4, lo,
+          sc, m, l, alpha, scale_log2e, (n_hi - 1 - i) * kBKV + 2 * t4, lo,
           hi);
 #pragma unroll
       for (int e = 0; e < D / 2; ++e) o[e] *= alpha[e % 4 / 2];
@@ -356,7 +492,7 @@ flash_fwd90_kernel(const __grid_constant__ CUtensorMap map_q,
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       l[h] = quad_sum(l[h]);
-      inv[h] = l[h] > 0.f ? 1.f / l[h] : 0.f;
+      inv[h] = l[h] > 0.f ? o_scale / l[h] : 0.f;
       if (t4 == 0 && row[h] < p.rows)
         p.lse[(size_t)bh * p.rows + row[h]] =
             l[h] > 0.f ? (m[h] + log2f(l[h])) * kLn2 : -INFINITY;
@@ -399,10 +535,10 @@ flash_fwd90_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, int P>
 int launch(const void* q, const void* k, const void* v, void* o,
            const FwdParams& p, int batch, int kv_heads, cudaStream_t s) {
-  using L = Smem<D>;
+  using L = Smem<D, P>;
   const long long heads = (long long)batch * kv_heads;
   const auto u16 = CU_TENSOR_MAP_DATA_TYPE_UINT16;
   const auto sw = CU_TENSOR_MAP_SWIZZLE_128B;
@@ -412,33 +548,41 @@ int launch(const void* q, const void* k, const void* v, void* o,
   const void* kb = p.kv_len > 0 ? k : q;
   const void* vb = p.kv_len > 0 ? v : q;
   CUtensorMap mq, mk, mv, mo;
-  const bool ok =
-      sm90::tensor_map(&mq, q, u16, 2, D, p.rows, heads, D,
-                       (long long)p.rows * D, 64, kBQ, sw) &&
-      sm90::tensor_map(&mk, kb, u16, 2, D, kv_rows, heads, D,
-                       (long long)kv_rows * D, 64, kBKV, sw) &&
-      sm90::tensor_map(&mv, vb, u16, 2, D, kv_rows, heads, D,
-                       (long long)kv_rows * D, 64, kBKV, sw) &&
-      sm90::tensor_map(&mo, p.o32 ? q : o, u16, 2, D, p.rows, heads, D,
-                       (long long)p.rows * D, 64, 64, sw);
+  bool ok = sm90::tensor_map(&mq, q, u16, 2, D, p.rows, heads, D,
+                             (long long)p.rows * D, 64, kBQ, sw) &&
+            sm90::tensor_map(&mo, p.o32 ? q : o, u16, 2, D, p.rows, heads, D,
+                             (long long)p.rows * D, 64, 64, sw);
+  for (int kv = 0; kv < 2 && ok; ++kv) {
+    const void* base = kv ? vb : kb;
+    ok = L::kQuant
+             ? sm90::tensor_map(kv ? &mv : &mk, base,
+                                CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, L::kRawRow,
+                                kv_rows, heads, L::kRawRow,
+                                (long long)kv_rows * L::kRawRow, L::kRawRow,
+                                kBKV, CU_TENSOR_MAP_SWIZZLE_NONE)
+             : sm90::tensor_map(kv ? &mv : &mk, base, u16, 2, D, kv_rows,
+                                heads, D, (long long)kv_rows * D, 64, kBKV,
+                                sw);
+  }
   if (!ok) return kErrTensorMap;
-  if (cudaFuncSetAttribute(flash_fwd90_kernel<T, D>,
+  if (cudaFuncSetAttribute(flash_fwd90_kernel<T, D, P>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            L::kBytes) != cudaSuccess)
     return (int)cudaGetLastError();
   const dim3 grid((p.rows + kBQ - 1) / kBQ, kv_heads, batch);
-  flash_fwd90_kernel<T, D><<<grid, kThreads, L::kBytes, s>>>(mq, mk, mv, mo,
-                                                             p);
+  flash_fwd90_kernel<T, D, P><<<grid, kThreads, L::kBytes, s>>>(mq, mk, mv,
+                                                                mo, p);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, int P = kUnquantized>
 int launch_d(const void* q, const void* k, const void* v, void* o,
              const FwdParams& p, int batch, int kv_heads, int head_dim,
              cudaStream_t s) {
-  if (head_dim == 64) return launch<T, 64>(q, k, v, o, p, batch, kv_heads, s);
+  if (head_dim == 64)
+    return launch<T, 64, P>(q, k, v, o, p, batch, kv_heads, s);
   if (head_dim == 128)
-    return launch<T, 128>(q, k, v, o, p, batch, kv_heads, s);
+    return launch<T, 128, P>(q, k, v, o, p, batch, kv_heads, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -448,18 +592,27 @@ extern "C" {
 
 // q, k, v contiguous, 16-byte aligned.  o: q's dtype, or float32 when
 // o_f32; lse: float32.  is_fp16 selects fp16 inputs (else bf16).
-// window <= 0: none.  Returns kErrTensorMap when cuTensorMapEncodeTiled
-// refuses a TMA map.
-int mfa_flash_fwd(const void* q, const void* k, const void* v, void* o,
+// window <= 0: none.  kv_precision 0: k and v in q's type; else a
+// Precision of quant_common.cuh (INT8, FP8-E4M3, FP8-E5M2, NF4) with bf16
+// queries: k, v [b, kv_heads, kv_len, D] bytes (NF4 [.., D / 2]) and
+// k_scales, v_scales float32 [b, kv_heads].  Returns kErrTensorMap when
+// cuTensorMapEncodeTiled refuses a TMA map.
+int mfa_flash_fwd(const void* q, const void* k, const void* v,
+                  const void* k_scales, const void* v_scales, void* o,
                   void* lse, int batch, int q_heads, int kv_heads, int q_len,
                   int kv_len, int head_dim, float scale, int causal,
-                  int window, int is_fp16, int o_f32, void* stream) {
+                  int window, int is_fp16, int o_f32, int kv_precision,
+                  void* stream) {
   if (batch == 0 || q_len == 0) return 0;
   if (kv_heads <= 0 || q_heads % kv_heads || kv_len < 0)
+    return (int)cudaErrorInvalidValue;
+  if (kv_precision && (is_fp16 || !k_scales || !v_scales))
     return (int)cudaErrorInvalidValue;
   FwdParams p;
   p.o32 = o_f32 ? static_cast<float*>(o) : nullptr;
   p.lse = static_cast<float*>(lse);
+  p.k_scales = static_cast<const float*>(k_scales);
+  p.v_scales = static_cast<const float*>(v_scales);
   p.rows = q_heads / kv_heads * q_len;
   p.q_len = q_len;
   p.kv_len = kv_len;
@@ -467,10 +620,22 @@ int mfa_flash_fwd(const void* q, const void* k, const void* v, void* o,
   p.causal = causal;
   p.window = window;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_fp16
-             ? launch_d<__half>(q, k, v, o, p, batch, kv_heads, head_dim, s)
-             : launch_d<__nv_bfloat16>(q, k, v, o, p, batch, kv_heads,
-                                       head_dim, s);
+  using bf16 = __nv_bfloat16;
+  const int hd = head_dim;
+  switch (kv_precision) {
+    case 0:
+      return is_fp16 ? launch_d<__half>(q, k, v, o, p, batch, kv_heads, hd, s)
+                     : launch_d<bf16>(q, k, v, o, p, batch, kv_heads, hd, s);
+    case kPrecInt8:
+      return launch_d<bf16, kPrecInt8>(q, k, v, o, p, batch, kv_heads, hd, s);
+    case kPrecE4M3:
+      return launch_d<bf16, kPrecE4M3>(q, k, v, o, p, batch, kv_heads, hd, s);
+    case kPrecE5M2:
+      return launch_d<bf16, kPrecE5M2>(q, k, v, o, p, batch, kv_heads, hd, s);
+    case kPrecNf4:
+      return launch_d<bf16, kPrecNf4>(q, k, v, o, p, batch, kv_heads, hd, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 const char* mfa_cuda_error_string(int code) {

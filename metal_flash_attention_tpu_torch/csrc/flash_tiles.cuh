@@ -14,6 +14,7 @@
 #define MFA_FWD90_BLOCK_Q 128   // flash_fwd: query rows per block (2 x 64)
 #define MFA_FWD90_BLOCK_KV 128  // flash_fwd: keys per tile of the ring
 #define MFA_FWD90_STAGES 2      // flash_fwd: K/V stages of the ring
+#define MFA_FWD90_RAW_STAGES 2  // flash_fwd: stored quantized K/V stages
 #define MFA_BWD90_DQ_BLOCK_Q 128   // flash_bwd_dq: query rows per block
 #define MFA_BWD90_DQ_BLOCK_KV 128  // flash_bwd_dq: keys per tile of the ring
 #define MFA_BWD90_DKV_BLOCK_Q 64   // flash_bwd_dkv: query rows per step

@@ -1,6 +1,8 @@
 // Dequantization helpers shared by the port's kernels (sm_90a): INT8, IEEE
-// FP8 (E4M3, E5M2) and NF4 payloads to float, without the scale (each
-// kernel applies the scale where it commutes: the GEMM on its output).
+// FP8 (E4M3, E5M2) and NF4 payloads to float, and 16 stored bytes at a
+// time to bf16 (the attention kernels' tile decoders), without the scale
+// (each kernel applies the scale where it commutes: the GEMM on its
+// output, attention on the scores and on O).
 //
 // They replace the TPU vector-unit code of
 //   metal_flash_attention_tpu/ops/quantization.py
@@ -21,6 +23,8 @@
 #include <cuda_fp16.h>
 #include <stdint.h>
 
+#include "attention_common.cuh"
+
 namespace mfa {
 
 // Operand memory precisions at the C interface (ops/gemm.py's table).
@@ -34,6 +38,9 @@ enum Precision : int {
 };
 
 constexpr int kNf4Group = 512;
+
+// The storage precision of K/V tiles that are in the queries' own type.
+constexpr int kUnquantized = -1;
 
 // The NF4 codebook as float32 (ops/quantization.py NF4_CODEBOOK).
 __device__ __constant__ float kNf4Codebook[16] = {
@@ -73,6 +80,75 @@ __device__ __forceinline__ Nf4Position nf4_position(int k) {
 __device__ __forceinline__ float nf4_value(uint8_t byte, int shift,
                                            const float* table) {
   return table[(byte >> shift) & 0x0F];
+}
+
+// The NF4 byte table: entry b holds the codebook values of b's low and
+// high nibbles as bf16, low | high << 16.  Threads `thread` of `threads`
+// fill their share.
+__device__ __forceinline__ void fill_nf4_pairs(uint32_t* table, int thread,
+                                               int threads) {
+  for (int i = thread; i < 256; i += threads)
+    table[i] = pack2<__nv_bfloat16>(kNf4Codebook[i & 15],
+                                    kNf4Codebook[i >> 4]);
+}
+
+// 16 stored values of a 1-byte format as 16 bf16 (exact: every INT8 and
+// finite FP8 value is a bf16).  INT8 x becomes the float 2^23 + (x + 128)
+// by a byte permute (its biased byte as the low mantissa byte), less
+// 2^23 + 128: two full-rate operations, where an integer-to-float
+// conversion runs at a quarter of the rate and made INT8 tiles slower to
+// decode than FP8's.
+template <int P>
+__device__ __forceinline__ void bytes_to_bf16(const uint4& x,
+                                              uint4 (&out)[2]) {
+  const uint32_t w[4] = {x.x, x.y, x.z, x.w};
+  uint32_t r[8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const uint32_t two = (w[i] >> (16 * h)) & 0xffffu;
+      float a, b;
+      if constexpr (P == kPrecInt8) {
+        const uint32_t biased = w[i] ^ 0x80808080u;
+        a = __uint_as_float(__byte_perm(biased, 0x4B000000u,
+                                        0x7650u + 2 * h)) - 8388736.f;
+        b = __uint_as_float(__byte_perm(biased, 0x4B000000u,
+                                        0x7651u + 2 * h)) - 8388736.f;
+      } else {
+        const __half2_raw hr = __nv_cvt_fp8x2_to_halfraw2(
+            (__nv_fp8x2_storage_t)two, P == kPrecE4M3 ? __NV_E4M3 : __NV_E5M2);
+        const float2 f = __half22float2(__half2(hr));
+        a = f.x;
+        b = f.y;
+      }
+      r[2 * i + h] = pack2<__nv_bfloat16>(a, b);
+    }
+  out[0] = make_uint4(r[0], r[1], r[2], r[3]);
+  out[1] = make_uint4(r[4], r[5], r[6], r[7]);
+}
+
+// 16 NF4 bytes as the 16 low-nibble values (lo) and the 16 high-nibble
+// values (hi), bf16.
+__device__ __forceinline__ void nf4_to_bf16(const uint4& x,
+                                            const uint32_t* table,
+                                            uint4 (&lo)[2], uint4 (&hi)[2]) {
+  const uint32_t w[4] = {x.x, x.y, x.z, x.w};
+  uint32_t l[8], h[8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    uint32_t p[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) p[k] = table[(w[i] >> (8 * k)) & 0xffu];
+    l[2 * i] = __byte_perm(p[0], p[1], 0x5410);
+    l[2 * i + 1] = __byte_perm(p[2], p[3], 0x5410);
+    h[2 * i] = __byte_perm(p[0], p[1], 0x7632);
+    h[2 * i + 1] = __byte_perm(p[2], p[3], 0x7632);
+  }
+  lo[0] = make_uint4(l[0], l[1], l[2], l[3]);
+  lo[1] = make_uint4(l[4], l[5], l[6], l[7]);
+  hi[0] = make_uint4(h[0], h[1], h[2], h[3]);
+  hi[1] = make_uint4(h[4], h[5], h[6], h[7]);
 }
 
 }  // namespace mfa

@@ -9,7 +9,9 @@ decode loop whose kv_len grows each step reuses one entry.  The JAX
 package's second cache level, `jax.jit`'s executables, has no
 counterpart: PyTorch runs eagerly and the kernels are built once per
 process (`native/build.py`).  `ops.flash_attention` checks the operands
-and refuses what the port does not compute yet.
+and refuses what the port does not compute yet.  K and V may be
+`QuantizedTensor`s (a quantized cache): the descriptor then carries
+their ``kv_precision``, and the call is the forward, with no graph.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from metal_flash_attention_tpu_torch.descriptors.precision import (
 from metal_flash_attention_tpu_torch.ops.flash_attention import (
     flash_attention,
 )
+from metal_flash_attention_tpu_torch.ops.quantization import QuantizedTensor
 
 _DISPATCH_CACHE: dict[AttentionDescriptor, Callable] = {}
 
@@ -70,10 +73,13 @@ def attention(q, k, v, mask=None, bias=None, mask2=None,
     """Descriptor-routed attention: the one resolution point the model
     paths use."""
     batch, q_heads, q_len, head_dim = q.shape
+    quantized = isinstance(k, QuantizedTensor)
+    kv_heads, kv_len = (k.values if quantized else k).shape[1:3]
     desc = AttentionDescriptor(
-        batch=batch, q_heads=q_heads, kv_heads=k.shape[1], q_len=q_len,
-        kv_len=k.shape[2], head_dim=head_dim,
-        input_precision=OperandPrecision.from_dtype(q.dtype), causal=causal,
+        batch=batch, q_heads=q_heads, kv_heads=kv_heads, q_len=q_len,
+        kv_len=kv_len, head_dim=head_dim,
+        input_precision=OperandPrecision.from_dtype(q.dtype),
+        kv_precision=k.precision if quantized else None, causal=causal,
         has_mask=mask is not None, has_mask2=mask2 is not None,
         has_bias=bias is not None, has_segments=q_segment_ids is not None,
         window_size=window_size, scale=scale, logit_softcap=logit_softcap,

@@ -12,6 +12,15 @@ host loop a production deployment runs around the paged kernels:
   (`serving.paged_chunk_step` on the request's own table row against
   the shared pools), so a long prompt never stalls the decode cadence
   of the requests already streaming;
+- ``prefix_cache=True``: automatic prefix caching
+  (`models.prefix_cache.PrefixCache`): a retired request's complete
+  prompt pages stay cached, pinned by a reference in the page allocator
+  (`native.page_allocator.make_page_allocator`: the C++ allocator where
+  it builds); an admission borrows the longest cached page chain of its
+  prompt (one more reference a page, for the request's lifetime),
+  reserves pages only for the rest, and prefills from the page-aligned
+  hit; under pool pressure it evicts cold chains, leaves first, and
+  retries once;
 - one `step()` = admissions + one prefill chunk per prefilling slot +
   one batched `serving.paged_decode_step` for every active slot;
 - `step_burst(k)`: k decode steps for every active slot with the tokens
@@ -40,9 +49,9 @@ slot's full and tail lengths, so no length is read back, and knows from
 them which rows may fill a page at each step (`serving.flush_schedule`).
 
 The pools live on the parameters' device and are updated in place.  The
-LoRA, prefix-cache, speculative, tensor-parallel and Gemma-family
-(``chunk_step`` / ``decode_step``) features of the JAX engine raise
-NotImplementedError (ROADMAP.md).
+LoRA, speculative, tensor-parallel and Gemma-family (``chunk_step`` /
+``decode_step``) features of the JAX engine raise NotImplementedError
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -55,9 +64,10 @@ import numpy as np
 import torch
 
 from metal_flash_attention_tpu_torch.models import llama, serving
+from metal_flash_attention_tpu_torch.models.prefix_cache import PrefixCache
 from metal_flash_attention_tpu_torch.native.page_allocator import (
-    PageAllocator,
     PagerError,
+    make_page_allocator,
 )
 from metal_flash_attention_tpu_torch.ops.paged_attention import (
     as_kv_precision,
@@ -104,7 +114,8 @@ class _Request:
     out: list = field(default_factory=list)
     logprobs: list = field(default_factory=list)   # aligned with out
     next_token: Optional[int] = None
-    pages: Optional[np.ndarray] = None   # reserved page ids
+    pages: Optional[np.ndarray] = None   # borrowed + reserved page ids
+    borrowed: list = field(default_factory=list)  # shared prefix pages
     prefill_pos: int = 0                 # tokens prefilled so far
     logit_bias: Optional[np.ndarray] = None   # [vocab] float32
     priority: int = 0                    # higher admits sooner
@@ -148,7 +159,6 @@ class ServingEngine:
         for value, what, item in (
                 (custom, "family step overrides (chunk_step / "
                  "decode_step)", "paged-kernel options for Gemma and sinks"),
-                (prefix_cache, "prefix caching", "prefix cache"),
                 (kv_sharding, "tensor-parallel pools (kv_sharding)",
                  "tensor-parallel serving"),
                 (draft_fn, "speculative decoding (draft_fn)",
@@ -164,7 +174,9 @@ class ServingEngine:
         self.page_size = page_size
         self.max_pages = -(-max_seq // page_size)
         self.admissions_per_step = admissions_per_step
-        self.alloc = PageAllocator(num_pages=num_pages, page_size=page_size)
+        self.alloc = make_page_allocator(num_pages=num_pages,
+                                         page_size=page_size)
+        self.prefix_cache = PrefixCache(self.alloc) if prefix_cache else None
         self.device = params["embed"].device
         self._kv_precision = (None if kv_precision is None
                               else as_kv_precision(kv_precision))
@@ -269,8 +281,9 @@ class ServingEngine:
     @property
     def stats(self) -> dict:
         """Engine counters: steps run, tokens emitted, prefill chunks,
-        queue and slot occupancy, free pool pages."""
-        return {
+        queue and slot occupancy, free pool pages, and the prefix cache's
+        hit tokens and cached pages when it is on."""
+        d = {
             "steps": self.n_steps,
             "emitted_tokens": self.n_emitted,
             "prefill_chunks": self.n_prefill_chunks,
@@ -278,6 +291,10 @@ class ServingEngine:
             "active_slots": sum(r is not None for r in self._slots),
             "free_pages": self.alloc.free_pages,
         }
+        if self.prefix_cache is not None:
+            d["prefix_hit_tokens"] = self.prefix_cache.hit_tokens
+            d["prefix_cached_pages"] = len(self.prefix_cache)
+        return d
 
     def request_stats(self, rid: int) -> dict:
         """Per-request lifecycle in engine steps: queue wait,
@@ -307,9 +324,10 @@ class ServingEngine:
     @torch.inference_mode()
     def abort(self, rid: int) -> bool:
         """Cancel a request: a queued one is dropped, a running one frees
-        its slot and pages at once.  Its partial output stays readable
-        with :meth:`result`.  Returns False if ``rid`` is unknown or
-        already done."""
+        its slot, its pages and its borrowed prefix pages at once (its
+        prompt is not cached).  Its partial output stays readable with
+        :meth:`result`.  Returns False if ``rid`` is unknown or already
+        done."""
         for j, q in enumerate(self._queue):
             if q.rid == rid:
                 del self._queue[j]
@@ -465,9 +483,11 @@ class ServingEngine:
     # -- internals --------------------------------------------------------
 
     def _admit(self) -> bool:
-        """Admit one queued request into a free slot: reserve its page
-        span and queue it for chunked prefill.  The slot's decode-visible
-        table row stays on the null page until its prefill completes."""
+        """Admit one queued request into a free slot: borrow its cached
+        prefix pages (with the prefix cache), reserve the rest of its page
+        span and queue it for chunked prefill from the hit.  The slot's
+        decode-visible table row stays on the null page until its prefill
+        completes."""
         free = next((i for i, r in enumerate(self._slots) if r is None),
                     None)
         if free is None or not self._queue:
@@ -478,15 +498,43 @@ class ServingEngine:
         budget = len(req.prompt) + req.max_new_tokens + 1
         if budget > self.max_pages * self.page_size:
             raise ValueError(f"request {req.rid} exceeds max_seq")
+        # A hit is page-aligned, so every KV write of this request (its
+        # prefill from `hit`, its decode past the prompt) lands in its own
+        # pages: the borrowed ones stay read-only.
+        borrowed: list[int] = []
+        hit = 0
+        if self.prefix_cache is not None:
+            borrowed, hit = self.prefix_cache.lookup(req.prompt)
         try:
-            pages = self.alloc.reserve(seq=free, num_tokens=budget)
+            pages = self.alloc.reserve(seq=free, num_tokens=budget - hit)
         except PagerError:
-            return False    # retry after a retirement
+            # Pool exhausted: shed cold cached chains and retry once.
+            if self.prefix_cache is not None:
+                need = -(-(budget - hit) // self.page_size)
+                self.prefix_cache.evict(need - self.alloc.free_pages)
+            try:
+                pages = self.alloc.reserve(seq=free,
+                                           num_tokens=budget - hit)
+            except PagerError:
+                if borrowed:
+                    self.alloc.release_pages(borrowed)
+                return False    # retry after a retirement
         del self._queue[qi]
+        if self.prefix_cache is not None:
+            # Counted once an admission succeeds, not at each lookup.
+            self.prefix_cache.hit_tokens += hit
+            self.prefix_cache.miss_tokens += len(req.prompt) - hit
         req.admitted_step = self.n_steps
+        req.borrowed = borrowed
         req.pages = np.zeros((self.max_pages,), np.int32)
-        req.pages[:len(pages)] = pages
-        req.prefill_pos = 0
+        req.pages[:len(borrowed)] = borrowed
+        req.pages[len(borrowed):len(borrowed) + len(pages)] = pages
+        req.prefill_pos = hit
+        if self._kv_precision is not None:
+            # The host mirrors: the hit's pages are full and quantized, the
+            # tail is empty (no length is read back from the card).
+            self._full[free] = hit
+            self._tlen[free] = 0
         if req.logit_bias is not None:
             if self._bias_dev is None:
                 self._bias_dev = torch.zeros(
@@ -667,12 +715,19 @@ class ServingEngine:
         for i, r in enumerate(self._slots):
             if r is not None and (r.finished
                                   or len(r.out) >= r.max_new_tokens):
+                if self.prefix_cache is not None:
+                    # Pin the prompt's complete pages for later requests
+                    # before the request's refs drop.
+                    self.prefix_cache.register(r.prompt, r.pages)
                 self._free_slot(i)
 
     def _free_slot(self, i: int) -> None:
-        """Release slot i's pages and move its request to done."""
+        """Release slot i's pages and borrowed prefix pages and move its
+        request to done."""
         r = self._slots[i]
         self.alloc.release(i)
+        if r.borrowed:
+            self.alloc.release_pages(r.borrowed)
         r.done_step = self.n_steps
         if r.logit_bias is not None:
             self._bias_dev[i] = 0.0

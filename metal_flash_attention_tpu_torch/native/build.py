@@ -1,4 +1,4 @@
-"""Build driver for the port's CUDA kernels.
+"""Build driver for the port's CUDA kernels and its native host library.
 
 Each `csrc/<name>.cu` compiles at first use, with nvcc for Hopper
 (`-gencode arch=compute_90a,code=sm_90a`), into its own shared library
@@ -8,6 +8,12 @@ rebuilt when its source, or a header it may include
 (`csrc/*.cuh`), is newer.  `build_all` starts one nvcc per
 source, all together.  The compiler's report (`-Xptxas -v`: registers,
 shared memory, spills) is kept beside each library as `lib<name>.log`.
+
+The host library `build/libmfa_native.so` (the C++ page allocator,
+`native/src/*.cpp`) builds with g++ at first use, on any machine with a
+C++ compiler (`build_native`).  Every build writes to a file named for
+its process and moves it into place with `os.replace`, so processes that
+build at once (test workers) never load a half-written library.
 """
 
 from __future__ import annotations
@@ -24,6 +30,11 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 TILES_HEADER = os.path.join(SRC_DIR, "flash_tiles.cuh")
+NATIVE_SRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "src")
+NATIVE_LIB = os.path.join(BUILD_DIR, "libmfa_native.so")
+GXX_FLAGS = ["-O2", "-std=c++17", "-shared", "-fPIC", "-Wall", "-Wextra"]
+GXX_TIMEOUT_S = 120
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 NVCC_TIMEOUT_S = 600
@@ -111,3 +122,32 @@ def build_all(names=None) -> dict[str, str]:
 def load_library(name: str) -> ctypes.CDLL:
     """Build csrc/<name>.cu if stale and load it."""
     return ctypes.CDLL(build_all([name])[name])
+
+
+def build_native() -> str:
+    """Build `build/libmfa_native.so` from `native/src/` with g++ when it
+    is missing or older than a source or header; returns its path.
+    Raises RuntimeError when there is no compiler or the build fails."""
+    sources = sorted(os.path.join(NATIVE_SRC_DIR, f)
+                     for f in os.listdir(NATIVE_SRC_DIR)
+                     if f.endswith(".cpp"))
+    deps = sources + [os.path.join(NATIVE_SRC_DIR, f)
+                      for f in os.listdir(NATIVE_SRC_DIR)
+                      if f.endswith(".hpp")]
+    with _LOCK:
+        if os.path.exists(NATIVE_LIB) and all(
+                os.path.getmtime(d) <= os.path.getmtime(NATIVE_LIB)
+                for d in deps):
+            return NATIVE_LIB
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{NATIVE_LIB}.{os.getpid()}.tmp"
+        try:
+            proc = subprocess.run(["g++", *GXX_FLAGS, "-o", tmp, *sources],
+                                  capture_output=True, text=True,
+                                  timeout=GXX_TIMEOUT_S)
+        except (OSError, subprocess.TimeoutExpired) as e:
+            raise RuntimeError(f"native build unavailable: {e}") from e
+        if proc.returncode != 0:
+            raise RuntimeError(f"native build failed:\n{proc.stderr}")
+        os.replace(tmp, NATIVE_LIB)
+    return NATIVE_LIB

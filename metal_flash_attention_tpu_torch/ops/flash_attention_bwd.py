@@ -75,7 +75,11 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
     do and o are [batch, q_heads, q_len, head_dim]; lse is the forward's
     float32 natural-log logsumexp [batch, q_heads, q_len].  dk and dv are
     [batch, kv_heads, kv_len, head_dim], summed over each kv head's
-    group."""
+    group.  Quantized K/V is not differentiated (a TypeError), as in
+    the JAX package."""
+    if not isinstance(k, torch.Tensor) or not isinstance(v, torch.Tensor):
+        raise TypeError("the backward takes k and v as tensors: quantized "
+                        "K/V is not differentiated")
     check_options(k, mask=mask, bias=bias, mask2=mask2,
                   q_segment_ids=q_segment_ids,
                   kv_segment_ids=kv_segment_ids,

@@ -52,21 +52,19 @@ from typing import Optional
 
 import torch
 
-from metal_flash_attention_tpu_torch.descriptors.precision import (
-    OperandPrecision,
-)
 from metal_flash_attention_tpu_torch.native.build import tile_defines
 from metal_flash_attention_tpu_torch.ops.paged_attention import (
-    KV_PRECISIONS,
     _sm_count,
     data_ptr,
     decode_splits,
     split_scratch,
 )
 from metal_flash_attention_tpu_torch.ops.quantization import (
+    KV_PRECISIONS,
     PRECISION_CODE,
     QuantizedTensor,
     dequantize,
+    logical_shape,
 )
 from metal_flash_attention_tpu_torch.utils.errors import not_ported
 
@@ -127,15 +125,15 @@ def flash_decode(q: torch.Tensor, k, v, *,
             raise ValueError("max_span requires kv_starts and kv_lens")
         if max_span <= 0:
             raise ValueError(f"max_span must be positive, got {max_span}")
-    kv_shape = _logical_shape(k)
+    kv_shape = logical_shape(k)
     if q.dim() != 3 or len(kv_shape) != 4 or \
-            _logical_shape(v) != kv_shape or q.shape[0] != kv_shape[0] or \
+            logical_shape(v) != kv_shape or q.shape[0] != kv_shape[0] or \
             q.shape[2] != kv_shape[3] or kv_shape[1] == 0 or \
             q.shape[1] % kv_shape[1]:
         raise ValueError("expected q [b, q_heads, d] and k/v [b, kv_heads, "
                          "max_seq, d] with kv_heads dividing q_heads; got "
                          f"{tuple(q.shape)}, {kv_shape}, "
-                         f"{_logical_shape(v)}")
+                         f"{logical_shape(v)}")
     for name, t in (("kv_lens", kv_lens), ("kv_starts", kv_starts)):
         if t is not None and tuple(t.shape) != (q.shape[0],):
             raise ValueError(f"{name} must be [batch], got {tuple(t.shape)}")
@@ -153,17 +151,6 @@ def flash_decode(q: torch.Tensor, k, v, *,
         raise ValueError(f"flash_decode runs on cpu or cuda tensors, got "
                          f"{q.device}")
     return (o, lse) if return_residuals else o
-
-
-def _logical_shape(x) -> tuple:
-    """[batch, kv_heads, max_seq, head_dim] of a cache or a quantized one
-    (NF4 payloads hold head_dim / 2 bytes a row)."""
-    if not isinstance(x, QuantizedTensor):
-        return tuple(x.shape)
-    shape = tuple(x.values.shape)
-    if x.precision is OperandPrecision.NF4:
-        shape = shape[:-1] + (2 * shape[-1],)
-    return shape
 
 
 def _flash_decode_plain(q, k, v, *, kv_lens, kv_starts, max_span, scale):
@@ -254,7 +241,7 @@ def _flash_decode_cuda(q, k, v, *, kv_lens, kv_starts, max_span, scale):
     is made contiguous (a [batch, q_heads, d] copy at most); K and V are
     read in place through their strides."""
     b, qh, d = q.shape
-    _, kvh, n, _ = _logical_shape(k)
+    _, kvh, n, _ = logical_shape(k)
     precision = k.precision if isinstance(k, QuantizedTensor) else None
     if q.dtype not in KERNEL_DTYPES:
         raise TypeError(f"the decode kernel takes bf16, fp16 or fp32, got "

@@ -61,6 +61,7 @@ from metal_flash_attention_tpu_torch.descriptors.precision import (
 from metal_flash_attention_tpu_torch.native.build import tile_defines
 from metal_flash_attention_tpu_torch.ops.quantization import (
     FP8_MAX,
+    KV_PRECISIONS,
     PRECISION_CODE,
     nf4_nearest_indices,
     nf4_unpack,
@@ -70,8 +71,6 @@ from metal_flash_attention_tpu_torch.utils.errors import not_ported
 from metal_flash_attention_tpu_torch.utils.shapes import cdiv
 
 KERNEL_HEAD_DIMS = (64, 128)
-KV_PRECISIONS = (OperandPrecision.INT8, OperandPrecision.FP8_E4M3,
-                 OperandPrecision.FP8_E5M2, OperandPrecision.NF4)
 MODES = ("paged_decode", "paged_decode_wide", "paged_prefill")
 
 # One count per kernel, bumped only where its wrapper launches it: each

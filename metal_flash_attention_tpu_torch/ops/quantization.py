@@ -61,6 +61,10 @@ PRECISION_CODE = {
     OperandPrecision.FP8_E5M2: 4, OperandPrecision.NF4: 5,
 }
 
+# The storage precisions of a quantized KV cache.
+KV_PRECISIONS = (OperandPrecision.INT8, OperandPrecision.FP8_E4M3,
+                 OperandPrecision.FP8_E5M2, OperandPrecision.NF4)
+
 
 class QuantizedTensor(NamedTuple):
     """A quantized KV operand: payload + per-(batch, head) scale.
@@ -144,6 +148,17 @@ def quantize(x: torch.Tensor, precision: OperandPrecision) -> QuantizedTensor:
         packed = idx[..., :half] | (idx[..., half:] << 4)
         return QuantizedTensor(packed.to(torch.uint8), scale, precision)
     raise ValueError(f"not a quantized precision: {precision}")
+
+
+def logical_shape(x) -> tuple:
+    """[batch, heads, seq, head_dim] of a KV tensor or a `QuantizedTensor`
+    (NF4 payloads hold head_dim / 2 bytes a row)."""
+    if not isinstance(x, QuantizedTensor):
+        return tuple(x.shape)
+    shape = tuple(x.values.shape)
+    if x.precision is OperandPrecision.NF4:
+        shape = shape[:-1] + (2 * shape[-1],)
+    return shape
 
 
 def nf4_unpack(packed: torch.Tensor, dim: int = -1,

@@ -109,32 +109,37 @@ def _ints(x, device) -> torch.Tensor:
     return torch.from_numpy(np.array(x, np.int32)).to(device)
 
 
-def quantized_kv_cache_from_numpy(cache, device=None,
-                                  dtype: torch.dtype = torch.bfloat16):
-    """A JAX `models.serving.QuantizedKVCache` as numpy (under
-    `jax.tree.map(np.asarray, ...)`; a tail in bf16 as float32) -> the
-    port's, payload bits kept, tails in ``dtype``, on the card unless
+def quantized_tensor_from_numpy(x, device=None):
+    """A JAX `ops.quantization.QuantizedTensor` (its arrays as JAX or
+    numpy arrays) -> the port's, payload bits kept, on the card unless
     ``device`` says otherwise."""
     from metal_flash_attention_tpu_torch.descriptors.precision import (
         OperandPrecision,
-    )
-    from metal_flash_attention_tpu_torch.models.serving import (
-        QuantizedKVCache,
     )
     from metal_flash_attention_tpu_torch.ops.quantization import (
         QuantizedTensor,
     )
 
     device = resolve_device(device)
+    precision = OperandPrecision(x.precision.value)
+    return QuantizedTensor(_payload(x.values, precision, device),
+                           _floats(x.scales, device), precision)
+
+
+def quantized_kv_cache_from_numpy(cache, device=None,
+                                  dtype: torch.dtype = torch.bfloat16):
+    """A JAX `models.serving.QuantizedKVCache` as numpy (under
+    `jax.tree.map(np.asarray, ...)`; a tail in bf16 as float32) -> the
+    port's, payload bits kept, tails in ``dtype``, on the card unless
+    ``device`` says otherwise."""
+    from metal_flash_attention_tpu_torch.models.serving import (
+        QuantizedKVCache,
+    )
+
+    device = resolve_device(device)
 
     def tensors(xs):
-        out = []
-        for x in xs:
-            precision = OperandPrecision(x.precision.value)
-            out.append(QuantizedTensor(
-                _payload(x.values, precision, device),
-                _floats(x.scales, device), precision))
-        return out
+        return [quantized_tensor_from_numpy(x, device) for x in xs]
     return QuantizedKVCache(
         k_q=tensors(cache.k_q), v_q=tensors(cache.v_q),
         k_tail=[_floats(x, device, dtype) for x in cache.k_tail],

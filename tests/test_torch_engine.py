@@ -186,10 +186,14 @@ def test_unported_engine_features_raise(models):
     """What the port does not have raises, naming its ROADMAP item; the
     JAX engine's keywords are all accepted, and its ValueError
     combinations stay ValueErrors.  (Sampling, logprobs, logit_bias and
-    step_burst are held in tests/test_torch_engine_burst.py.)"""
+    step_burst are held in tests/test_torch_engine_burst.py, the prefix
+    cache in tests/test_torch_prefix_cache.py.)"""
     _, tcfg, _, tparams = models
-    for kw, item in ((dict(prefix_cache=True), "prefix cache"),
-                     (dict(draft_fn=lambda *a: None, draft_len=2),
+    eng = TEngine(tparams, tcfg, max_batch=1, num_pages=8,
+                  prefix_cache=True)
+    assert eng.prefix_cache is not None and len(eng.prefix_cache) == 0
+    assert eng.stats["prefix_hit_tokens"] == 0
+    for kw, item in ((dict(draft_fn=lambda *a: None, draft_len=2),
                       "speculative decoding"),
                      (dict(lora={"layers": []}), "LoRA"),
                      (dict(kv_sharding=object()), "tensor-parallel serving"),

@@ -15,6 +15,11 @@ package, so it also runs on a machine that has only PyTorch:
   bf16 and INT8 pools: equal streams, greedy and sampled, every burst's
   steps free of synchronising calls (`torch.cuda.set_sync_debug_mode`),
   and the decode kernels launched once a layer for every burst step.
+- The same engine with ``prefix_cache=True`` against one without, over
+  bf16 and INT8 pools: requests that share a 3-page prefix stream the
+  same tokens, borrow the prefix, and launch the paged kernels exactly
+  as many times as the prompts' unshared chunks and the decode steps
+  need, all on the Hopper kernels.
 """
 
 import contextlib
@@ -138,3 +143,59 @@ def test_burst_matches_step(cuda, precision):
         if precision is not None:
             assert dense["flash_decode"] == dense["flash_decode_sm90"] > 0
     assert ref_stop[2][-1] == stop[0] and len(ref_stop[2]) < len(ref[2])
+
+
+@pytest.mark.parametrize("precision", [None, "int8"])
+def test_prefix_cache_streams_match_the_uncached_engine(cuda, precision):
+    from metal_flash_attention_tpu_torch.native.page_allocator import (
+        NativePageAllocator,
+    )
+    from metal_flash_attention_tpu_torch.ops import flash_attention as fa
+
+    cfg = llama.LlamaConfig.tiny(n_layers=2, dim=512, n_heads=8,
+                                 n_kv_heads=1)
+    params = llama.init_params(cfg, torch.Generator(device=cuda)
+                               .manual_seed(0), device=cuda)
+    gen = np.random.default_rng(8)
+    page, shared = 16, 48
+    prefix = gen.integers(0, cfg.vocab_size, (shared,))
+    prompts = [np.concatenate([prefix, gen.integers(0, cfg.vocab_size, (n,))])
+               .astype(np.int32) for n in (20, 9, 33, 17)]
+
+    def run(cached):
+        eng = ServingEngine(params, cfg, max_batch=2, num_pages=40,
+                            page_size=page, max_seq=128,
+                            prefix_cache=cached, kv_precision=precision)
+        assert type(eng.alloc) is NativePageAllocator
+        for m in (pa, fd, fa):
+            m.reset_launch_counts()
+        rids = [eng.submit(prompts[0], 10)]
+        while not eng.idle:
+            eng.step()
+        rids += [eng.submit(p, 10) for p in prompts[1:]]
+        while not eng.idle:
+            eng.step()
+        torch.cuda.synchronize()
+        launches = {**pa.LAUNCH_COUNTS, **fd.LAUNCH_COUNTS,
+                    **fa.LAUNCH_COUNTS}
+        if cached:
+            assert eng.stats["prefix_hit_tokens"] == 3 * shared
+            eng.prefix_cache.flush()
+        assert eng.alloc.free_pages == 39
+        hits = [0] + [shared * cached] * 3
+        chunks = sum(-(-(len(p) - h) // page) for p, h in zip(prompts, hits))
+        return [eng.result(r).tolist() for r in rids], launches, chunks
+
+    (want, _, _), (got, launches, chunks) = run(False), run(True)
+    assert got == want
+    layers = cfg.n_layers
+    if precision is None:
+        assert launches["paged_prefill"] == layers * chunks
+        assert launches["paged_prefill_sm90"] == layers * chunks
+    else:
+        folded = launches["paged_decode_wide"] + launches["paged_decode"] \
+            - launches["flash_decode"]
+        assert folded == layers * chunks == launches["flash_fwd"]
+        assert launches["flash_fwd_sm90"] == launches["flash_fwd"]
+    assert launches["paged_decode_sm90"] == launches["paged_decode"] > 0
+

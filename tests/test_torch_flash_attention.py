@@ -213,7 +213,8 @@ def test_precision_members_match_jax():
 
 
 class _Quantized:
-    """Stands in for a QuantizedTensor: K/V that are not plain tensors."""
+    """Stands in for a QuantizedTensor: K/V that are neither tensors nor
+    QuantizedTensors."""
     precision = OperandPrecision.INT8
 
 
@@ -237,9 +238,20 @@ def test_unported_options_raise_on_every_device(option):
 
 
 def test_quantized_kv_raises():
-    with pytest.raises(NotImplementedError, match="quantized KV"):
-        tfa.flash_attention(torch.zeros(1, 2, 8, 32), _Quantized(),
-                            _Quantized())
+    """Quantized K/V is ported: a QuantizedTensor pair runs the forward
+    (held against JAX in tests/test_torch_flash_attention_quantized.py);
+    what still raises is K/V that are not a tensor pair or a
+    QuantizedTensor pair, and the backward over quantized K/V."""
+    from metal_flash_attention_tpu_torch.ops.quantization import quantize
+
+    q = torch.randn(1, 2, 8, 32)
+    k = quantize(torch.randn(1, 1, 8, 32), OperandPrecision.INT8)
+    o = tfa.flash_attention(q, k, k, causal=True)
+    assert o.shape == q.shape and torch.isfinite(o).all()
+    with pytest.raises(TypeError, match="both"):
+        tfa.flash_attention(q, _Quantized(), _Quantized())
+    with pytest.raises(TypeError, match="not differentiated"):
+        tfb.flash_attention_backward(q, k, k, q, q, q[..., 0])
 
 
 def test_cpu_tensors_never_build_a_kernel():

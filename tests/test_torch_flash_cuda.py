@@ -195,6 +195,78 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         fa.flash_attention_forward(q, k, v, logit_softcap=30.0)
 
 
+# The forward over quantized K/V (bf16 queries): each precision at both
+# head dims, causal and not, windows, GQA, ragged and short key ranges.
+QUANT_CASES = [
+    # b, qh, kvh, n, m, d, causal, window
+    (2, 4, 2, 128, 128, 64, True, None),
+    (1, 8, 2, 93, 77, 128, True, None),        # rows cross q heads
+    (1, 4, 2, 100, 300, 128, True, None),      # q_len < kv_len
+    (2, 8, 2, 300, 300, 128, True, 77),        # window
+    (1, 4, 4, 200, 333, 64, False, 50),        # window without causal
+    (1, 4, 2, 256, 300, 128, False, None),     # kv_len not a tile multiple
+    (1, 4, 1, 64, 40, 64, False, None),        # kv_len under one tile
+    (1, 32, 8, 1000, 1536, 128, True, None),   # a chunk over a prefix
+]
+KV_PRECISIONS = ["int8", "fp8_e4m3", "fp8_e5m2", "nf4"]
+
+
+def _quantized_kv(seed, b, kvh, m, d, precision, device):
+    """K and V quantized per (batch, kv head), heads of magnitudes apart
+    so that their scales differ."""
+    from metal_flash_attention_tpu_torch.descriptors.precision import (
+        OperandPrecision,
+    )
+    from metal_flash_attention_tpu_torch.ops import quantization as tq
+
+    rng = np.random.default_rng(seed)
+    mag = np.exp(rng.uniform(-1.0, 1.0, (b, kvh, 1, 1)))
+    return tuple(tq.quantize(torch.as_tensor(
+        (rng.standard_normal((b, kvh, m, d)) * mag).astype(np.float32),
+        device=device), OperandPrecision(precision)) for _ in range(2))
+
+
+@pytest.mark.parametrize("precision", KV_PRECISIONS)
+@pytest.mark.parametrize("b,qh,kvh,n,m,d,causal,window", QUANT_CASES)
+def test_quantized_forward_kernel_matches_plain(cuda, precision, b, qh, kvh,
+                                                n, m, d, causal, window):
+    q = _qkv(6, b, qh, kvh, n, m, d, torch.bfloat16, cuda)[0]
+    k, v = _quantized_kv(7, b, kvh, m, d, precision, cuda)
+    name = f"flash_fwd_{precision}"
+    before = dict(fa.LAUNCH_COUNTS)
+    o, lse = fa.flash_attention_forward(q, k, v, causal=causal,
+                                        window_size=window)
+    torch.cuda.synchronize()
+    for key in ("flash_fwd", "flash_fwd_sm90", name):
+        assert fa.LAUNCH_COUNTS[key] == before[key] + 1, key
+    po, plse = fa._forward_plain_quantized(
+        q, k, v, causal=causal, window_size=window, scale=d ** -0.5,
+        out_dtype=torch.float32)
+    assert o.dtype == torch.bfloat16
+    assert max_abs_err(o, po) <= MIXED_TOL.o
+    assert max_abs_err(lse, plse) <= MIXED_TOL.lse
+    assert torch.equal(torch.isinf(lse), torch.isinf(plse))
+
+
+@pytest.mark.parametrize("precision", KV_PRECISIONS)
+@pytest.mark.parametrize("d", [64, 128])
+def test_quantized_forward_float32_out_and_refusals(cuda, precision, d):
+    """A float32 O from the fragments; fp16 queries over quantized K/V
+    are refused on the card (the plain version takes them)."""
+    q = _qkv(8, 1, 8, 2, 200, 260, d, torch.bfloat16, cuda)[0]
+    k, v = _quantized_kv(9, 1, 2, 260, d, precision, cuda)
+    o, lse = fa.flash_attention_forward(q, k, v, causal=True,
+                                        out_dtype=torch.float32)
+    po, plse = fa._forward_plain_quantized(
+        q, k, v, causal=True, window_size=None, scale=d ** -0.5,
+        out_dtype=torch.float32)
+    assert o.dtype == torch.float32
+    assert max_abs_err(o, po) <= MIXED_TOL.o
+    assert max_abs_err(lse, plse) <= MIXED_TOL.lse
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        fa.flash_attention_forward(q.half(), k, v)
+
+
 def _tiny_train_setup(device):
     """A 2-layer Llama at head dim 64 (a width the kernels take) in bf16,
     with the same weights and tokens on ``device``."""
@@ -238,7 +310,8 @@ def test_remat_runs_the_forward_kernel_twice(cuda):
         counts.append({**fa.LAUNCH_COUNTS, **fb.LAUNCH_COUNTS})
     n = cfg.n_layers
     bwd = {"flash_bwd_dq": n, "flash_bwd_dkv": n, "flash_bwd_dq_sm90": n,
-           "flash_bwd_dkv_sm90": n}
+           "flash_bwd_dkv_sm90": n,
+           **{f"flash_fwd_{p.value}": 0 for p in fa.KV_PRECISIONS}}
     assert counts[0] == {"flash_fwd": n, "flash_fwd_sm90": n, **bwd}
     assert counts[1] == {"flash_fwd": 2 * n, "flash_fwd_sm90": 2 * n, **bwd}
     (l0, g0), (l1, g1) = results

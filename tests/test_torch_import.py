@@ -29,6 +29,7 @@ MODULES = [
     "metal_flash_attention_tpu_torch.models.llama",
     "metal_flash_attention_tpu_torch.models.losses",
     "metal_flash_attention_tpu_torch.models.optim",
+    "metal_flash_attention_tpu_torch.models.prefix_cache",
     "metal_flash_attention_tpu_torch.models.serving",
     "metal_flash_attention_tpu_torch.native.build",
     "metal_flash_attention_tpu_torch.native.page_allocator",
@@ -75,6 +76,34 @@ def test_port_imports_no_jax():
             "assert 'jax' not in sys.modules\n")
     proc = _run(code)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_page_allocator_library_is_the_ports_own():
+    """The C++ allocator builds from the port's own sources into the
+    port's `build/`, under the port's library name, never at the JAX
+    package's `libmfa_tpu.so`, and loads without the JAX package."""
+    jax_lib = os.path.join(REPO, "metal_flash_attention_tpu", "native",
+                           "libmfa_tpu.so")
+    code = ("import sys\n"
+            "from metal_flash_attention_tpu_torch.native.page_allocator "
+            "import NativePageAllocator, make_page_allocator\n"
+            "a = make_page_allocator(4, 2)\n"
+            "assert type(a) is NativePageAllocator, type(a)\n"
+            "print(a._lib._name)\n"
+            "assert not any(m.startswith('metal_flash_attention_tpu.') "
+            "for m in sys.modules)\n")
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    from metal_flash_attention_tpu_torch.native import build
+    path = proc.stdout.strip()
+    assert path == build.NATIVE_LIB and os.path.exists(path)
+    assert os.path.dirname(path) == build.BUILD_DIR
+    assert os.path.basename(path) == "libmfa_native.so"
+    assert os.path.realpath(path) != os.path.realpath(jax_lib)
+    assert build.NATIVE_SRC_DIR == os.path.join(
+        REPO, "metal_flash_attention_tpu_torch", "native", "src")
+    assert sorted(os.listdir(build.NATIVE_SRC_DIR)) == [
+        "mfa_error.hpp", "mfa_hash.hpp", "page_allocator.cpp"]
 
 
 def test_build_without_nvcc_raises():
@@ -194,7 +223,7 @@ def test_constructors_put_tensors_where_the_default_resolves(monkeypatch):
 
 @pytest.mark.parametrize("source,names", [
     ("flash_attention.cu", ("MFA_FWD90_BLOCK_Q", "MFA_FWD90_BLOCK_KV",
-                            "MFA_FWD90_STAGES")),
+                            "MFA_FWD90_STAGES", "MFA_FWD90_RAW_STAGES")),
     ("flash_attention_bwd.cu", ("MFA_BWD90_DQ_BLOCK_Q",
                                 "MFA_BWD90_DQ_BLOCK_KV",
                                 "MFA_BWD90_DKV_BLOCK_Q",
@@ -318,8 +347,9 @@ def test_quant_helpers_header_is_shared():
 
     with open(os.path.join(build.SRC_DIR, "quant_common.cuh")) as f:
         header = f.read()
-    with open(os.path.join(build.SRC_DIR, "gemm.cu")) as f:
-        assert '#include "quant_common.cuh"' in f.read()
+    for source in ("gemm.cu", "flash_attention.cu", "decode_common.cuh"):
+        with open(os.path.join(build.SRC_DIR, source)) as f:
+            assert '#include "quant_common.cuh"' in f.read(), source
     table = header[header.index("kNf4Codebook[16]"):]
     values = [float(v) for v in re.findall(r"(-?\d+\.\d+)f", table)[:16]]
     assert np.allclose(values, NF4_CODEBOOK, rtol=0, atol=0)

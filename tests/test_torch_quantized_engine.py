@@ -96,8 +96,8 @@ def test_engine_is_batch_composition_invariant(models):
 def test_engine_kv_precision_arguments(models):
     """Members of either package's enum and their values are taken; what
     is not a KV storage precision, or a combination the JAX engine
-    refuses, raises; features still to port raise their own item;
-    sampling and step_burst are taken."""
+    refuses, raises; sampling, step_burst and the prefix cache are
+    taken."""
     _, tcfg, _, tparams = models
     kw = dict(max_batch=1, num_pages=8, page_size=PAGE, max_seq=64)
     for value in (TP.INT8, JP.FP8_E5M2, "nf4", "fp8_e4m3"):
@@ -112,8 +112,15 @@ def test_engine_kv_precision_arguments(models):
     with pytest.raises(ValueError, match="lora"):
         TEngine(tparams, tcfg, kv_precision="int8", lora={"layers": []},
                 **kw)
-    with pytest.raises(NotImplementedError, match="prefix cache"):
-        TEngine(tparams, tcfg, kv_precision="int8", prefix_cache=True, **kw)
+    eng = TEngine(tparams, tcfg, kv_precision="int8", prefix_cache=True,
+                  **kw)
+    prompt = np.arange(20, dtype=np.int32)
+    for _ in range(2):
+        rid = eng.submit(prompt, 3)
+        _drain(eng)
+        assert len(eng.result(rid)) == 23
+    assert eng.stats["prefix_hit_tokens"] == PAGE
+    assert eng.stats["prefix_cached_pages"] == 1
     with pytest.raises(ValueError, match="incompatible"):
         TEngine(tparams, tcfg, kv_precision="int8",
                 decode_step=lambda *a: None, **kw)

@@ -214,6 +214,9 @@ def ptxas_summary(log: str) -> dict:
 def build_variants() -> dict:
     """{variant: ctypes library}, one nvcc each, all started together."""
     from metal_flash_attention_tpu_torch.native import build as nb
+    from metal_flash_attention_tpu_torch.ops.flash_attention import (
+        bind_library,
+    )
 
     with open(os.path.join(nb.SRC_DIR, "flash_attention.cu")) as f:
         source = f.read()
@@ -235,15 +238,8 @@ def build_variants() -> dict:
         if proc.returncode != 0:
             raise RuntimeError(f"variant {name} did not build:\n{log}")
         PTXAS[name] = ptxas_summary(log)
-        lib = ctypes.CDLL(os.path.join(nb.BUILD_DIR, "ablation_fwd", name,
-                                       "libflash_attention.so"))
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.mfa_flash_fwd.argtypes = ([ptr] * 5 + [i32] * 6
-                                      + [ctypes.c_float] + [i32] * 4 + [ptr])
-        lib.mfa_flash_fwd.restype = i32
-        lib.mfa_cuda_error_string.argtypes = [i32]
-        lib.mfa_cuda_error_string.restype = ctypes.c_char_p
-        libs[name] = lib
+        libs[name] = bind_library(ctypes.CDLL(os.path.join(
+            nb.BUILD_DIR, "ablation_fwd", name, "libflash_attention.so")))
     return libs
 
 
