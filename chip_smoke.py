@@ -2,8 +2,9 @@
 """Drive the PyTorch port's paged serving (bf16 and quantized KV, by
 step and by burst, greedy and sampled, with and without the prefix
 cache), dense serving and training paths, the fused forward over
-quantized K/V, and its standalone ops (quantized GEMM, softmax), on one
-NVIDIA GPU.
+quantized K/V, its standalone ops (quantized GEMM, softmax), and Gemma-2
+serving (paged and dense, the soft cap and head_dim 256 in the kernels),
+on one NVIDIA GPU.
 
 Run from the root of a checkout, on a machine with one CUDA card and
 the CUDA toolkit:
@@ -203,7 +204,40 @@ Phases (any failure exits non-zero and prints no result):
    with a planted fault (one tile's rows without their last 64 columns,
    in the sums as in the output); then their times, bounds, the plain
    versions' (one head at a time) and the library calls'
-   (`torch.softmax`, `torch._softmax_backward_data`, at scale 1.0).
+   (`torch.softmax`, `torch._softmax_backward_data`, at scale 1.0);
+12. Gemma-2 at `gemma2_2b` width and depth (26 layers, dim 2304, 8 heads,
+   4 KV heads, head_dim 256, hidden 9216, vocab 256128; a 4,096-token
+   window on the even layers; attention softcap 50, final softcap 30),
+   bf16, seeded random weights (the Llama weights freed first):
+   gemma_serve: the engine with the Gemma hooks
+   (``chunk_step=serving.gemma_paged_chunk_step``,
+   ``decode_step=serving.gemma_paged_decode_step``), max_batch 4, page
+   128, max_seq 8,192, 6 greedy requests of GEMMA_PROMPT_LENS tokens (two
+   longer than the window, so the local layers cut) and 32 new tokens
+   each, by `step()` and then by `step_burst(16)` (streams equal), then a
+   shared 1,536-token prefix and 6 suffixes on an engine with the prefix
+   cache and one without (streams equal, 7,680 hit tokens); every run's
+   attention launch counts set to 0 just before and read just after and
+   held exact (a layer's chunk step one `paged_prefill`, its decode step
+   one `paged_decode`, each also counted on its `_sm90`, `_softcap` and
+   `_d256` entries, and nothing else launched), every request's tokens,
+   every page back; new tokens/s and each request's time to first token;
+   gemma_dense: `serving.gemma_generate` on 4 prompts of 5,000 tokens, 32
+   new tokens (26 `flash_fwd` and 26 x 31 `flash_decode`, all on the
+   capped D 256 kernels, a local layer's window as kv_starts);
+   gemma_reference: on a 2-layer cut (one local layer, one global) with a
+   5,000-token prompt, the paged (chunks, 2 decode steps) and dense
+   (prefill, 2 decode steps) logits against `gemma.forward_hidden` over
+   `attention_reference` (REF_*); gemma_kernel_checks: the paged decode,
+   the paged prefill, `flash_decode` and `flash_fwd` at the shapes those
+   phases ran, against their plain versions by the worst tile at the
+   model's cap and at a saturating one (GEMMA_SAT_CAP over queries scaled
+   by GEMMA_SAT_GAIN), on a local and a global layer, with two planted
+   faults the limit must see (the kernel without its cap; a local layer's
+   window dropped); each timed (median, min-max of 5 loops) beside its
+   plain version, its bound and, for the dense kernels, `flex_attention`
+   with a tanh score_mod and a causal block mask where it compiles (a
+   yardstick the port never calls).
 
 Every kernel's `bound_ms` is the least time the card could take for the
 same work: the larger of the bytes it must move (each input read once,
@@ -216,10 +250,11 @@ Output: `serve`, `reference`, `quant_serve`, `burst_serve`,
 `dense_serve`, `dense_profile`, `decode_reference`, `quant_gemm`,
 `gemm_checks`, `decode_checks`, `quant_kernel_checks`,
 `quant_fwd_checks`, `train`,
-`train_profile`, `train_reference`, `flash_checks` and `softmax_checks`
-lines, a `phases` line (each phase's seconds), the card's name and power
-limit as nvidia-smi gives them, a `kernels` JSON line, and as the last
-line
+`train_profile`, `train_reference`, `flash_checks`, `softmax_checks`,
+`gemma_params`, `gemma_serve`, `gemma_dense`, `gemma_reference` and
+`gemma_checks` lines, a `phases` line (each phase's seconds), the card's
+name and power limit as nvidia-smi gives them, a `kernels` JSON line, and
+as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -317,6 +352,10 @@ GEMM_REPEATS = 5
 # each one's end (`torch.cuda._sleep`'s, a few hundred nanoseconds).
 LOOP_GAP_S = 0.01
 LOOP_MARK, LOOP_MARK_CYCLES = "spin_kernel", 1000
+# Loops run before the counted ones in a profiled session, whose first
+# events the profiler may lose (on the H100, as many as a loop and a half
+# of 5 quantized products at 8,192 tokens).
+LEAD_IN_LOOPS = 3
 # Profiler sessions `timed` runs before it gives up on one that recorded
 # no kernel (a session can lose its events).
 PROFILE_ATTEMPTS = 3
@@ -380,6 +419,24 @@ PREFIX_FOLLOWERS = 5
 # NVIDIA H100 SXM data sheet, dense: bf16 tensor cores and HBM3.
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES_PER_S = 3.35e12
+# Gemma-2 (gemma2_2b, the JAX package's `GemmaConfig()`: 26 layers, dim
+# 2304, 8 heads, 4 KV heads, head_dim 256, hidden 9216, vocab 256128,
+# window 4096 on even layers, attention softcap 50, final softcap 30):
+# the engine's requests (two longer than the window), its context, the
+# shared prefix and its followers' suffixes, the dense batch, the
+# reference cut, and the saturating cap the kernel checks add to the
+# model's (over queries scaled up, since |s * scale| of seeded random
+# weights stays far below 50).
+GEMMA_PROMPT_LENS = (200, 450, 700, 1100, 5000, 6000)
+GEMMA_MAX_SEQ = 8192
+GEMMA_SHARED = 1536
+GEMMA_SUFFIXES_LENS = (300, 200, 600, 417, 350, 512)
+GEMMA_DENSE_BATCH = 4
+GEMMA_DENSE_PROMPT = 5000
+GEMMA_REF_LAYERS = 2
+GEMMA_REF_PROMPT = 5000
+GEMMA_SAT_CAP = 2.0
+GEMMA_SAT_GAIN = 4.0
 KV_HEADS, Q_HEADS, HEAD_DIM = 8, 32, 128
 
 
@@ -431,15 +488,16 @@ def timed(fn, iters: int) -> tuple[float, float]:
 def timed_spread(fn, iters: int, repeats: int = GEMM_REPEATS) -> dict:
     """`timed` over `repeats` loops of `iters` calls in one profiler
     session (many sessions in one process lose the card's events), after
-    one lead-in loop that is not counted (a session may lose its first
-    events), the loops kept apart on the card by LOOP_GAP_S of idle time
-    and told apart by a marker kernel launched after each (a gap in time
-    also opens where the host stalls, and the profiler may drop a
-    kernel's event), or, where the profiler dropped a marker's event, by
-    those gaps: the median device ms a call and its min and max over the
-    loops, and the wall ms a call over all of them.  A session whose
-    loops neither split finds is run again, PROFILE_ATTEMPTS sessions at
-    most."""
+    LEAD_IN_LOOPS lead-in loops that are not counted (a session may lose
+    its first events), the loops kept apart on the card by LOOP_GAP_S of
+    idle time and told apart by a marker kernel launched after each (a
+    gap in time also opens where the host stalls, and the profiler may
+    drop a kernel's event), or, where the profiler dropped a marker's
+    event, by those gaps, or by either (a dropped marker beside a gap the
+    profiler's clock lost): the median device ms a call and its min and
+    max over the loops, and the wall ms a call over all of them.  A
+    session whose loops no split finds is run again, PROFILE_ATTEMPTS
+    sessions at most."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -449,12 +507,10 @@ def timed_spread(fn, iters: int, repeats: int = GEMM_REPEATS) -> dict:
 
     def last_loops(loops, trailing):
         """The last `repeats` loops, or None unless the split found them
-        all (the lead-in may be lost), nothing after the last, and no two
-        loops run together (each holds about as many kernels as the
-        others)."""
-        if loops and not loops[0]:
-            loops = loops[1:]
-        if trailing or len(loops) not in (repeats, repeats + 1):
+        all (the lead-in loops may be lost, whole or in part), nothing
+        after the last, and no two loops run together (each holds about
+        as many kernels as the others)."""
+        if trailing or not repeats <= len(loops) <= repeats + LEAD_IN_LOOPS:
             return None
         loops = loops[-repeats:]
         median = float(np.median([len(x) for x in loops]))
@@ -466,7 +522,7 @@ def timed_spread(fn, iters: int, repeats: int = GEMM_REPEATS) -> dict:
         """One profiled session: its loops, or None, and what each split
         found."""
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(repeats + 1):
+            for _ in range(repeats + LEAD_IN_LOOPS):
                 for _ in range(iters):
                     fn()
                 torch.cuda._sleep(LOOP_MARK_CYCLES)
@@ -486,19 +542,25 @@ def timed_spread(fn, iters: int, repeats: int = GEMM_REPEATS) -> dict:
         if found is not None:
             return found, marked, None
         # The profiler dropped a marker's event: split by the idle gaps
-        # between the loops instead.
-        loops, loop, last_end = [], [], None
-        for e in events:
-            if LOOP_MARK in e.name:
-                continue
-            if last_end is not None and \
-                    e.time_range.start - last_end > LOOP_GAP_S * 1e6 / 2:
-                loops.append(loop)
-                loop = []
-            loop.append(e)
-            last_end = e.time_range.end
-        loops.append(loop)
-        return last_loops(loops, []), marked, len(loops)
+        # between the loops instead, then by markers and gaps both.
+        def split(at_marks):
+            loops, loop, last_end = [], [], None
+            for e in events:
+                if LOOP_MARK in e.name:
+                    if at_marks and loop:
+                        loops.append(loop)
+                        loop = []
+                    continue
+                if loop and last_end is not None and \
+                        e.time_range.start - last_end > LOOP_GAP_S * 1e6 / 2:
+                    loops.append(loop)
+                    loop = []
+                loop.append(e)
+                last_end = e.time_range.end
+            return loops + [loop] if loop else loops
+        gapped = split(False)
+        found = last_loops(gapped, []) or last_loops(split(True), [])
+        return found, marked, [len(x) for x in gapped]
 
     for _ in range(PROFILE_ATTEMPTS):
         loops, marked, gaps = session()
@@ -506,8 +568,9 @@ def timed_spread(fn, iters: int, repeats: int = GEMM_REPEATS) -> dict:
             break
     else:
         fail(f"the profiler's kernels fall into {marked} marked loops and "
-             f"{gaps} loops by their gaps, not {repeats} (+ 1), in "
-             f"{PROFILE_ATTEMPTS} sessions")
+             f"{len(gaps)} loops by their gaps (of {gaps} kernels), not "
+             f"{repeats} (+ {LEAD_IN_LOOPS}) alike, in {PROFILE_ATTEMPTS} "
+             "sessions")
     device = [sum(e.device_time_total for e in loop) / 1e3 / iters
               for loop in loops]
     start = torch.cuda.Event(enable_timing=True)
@@ -2323,11 +2386,12 @@ def train(dev, card):
     launches = {**fa.LAUNCH_COUNTS, **fb.LAUNCH_COUNTS}
     peak = torch.cuda.max_memory_allocated(dev)
 
-    # The forward's quantized variants (`flash_fwd_<precision>`) take no
-    # part in training.
-    quantized = {f"flash_fwd_{p}" for p in QUANT_PRECISIONS}
+    # The forward's quantized, capped and D 256 variants take no part in
+    # Llama training.
+    unused = {f"flash_fwd_{p}" for p in (*QUANT_PRECISIONS, "softcap",
+                                          "d256")}
     for name, n in launches.items():
-        per_step = 0 if name in quantized else TRAIN_LAYERS
+        per_step = 0 if name in unused else TRAIN_LAYERS
         if n != per_step * TRAIN_STEPS:
             fail(f"kernel {name} launched {n} times in {TRAIN_STEPS} "
                  f"steps, expected {per_step} a step")
@@ -3072,6 +3136,557 @@ def softmax_kernel_checks(dev, card) -> list[dict]:
                      "(scale 1.0, the same work)")]
 
 
+# ---------------------------------------------------------------------------
+# Gemma-2 (gemma2_2b at full width and depth): serving by the engine's
+# family hooks, dense generate, a reference cut and the kernels at D 256
+# with the soft cap
+# ---------------------------------------------------------------------------
+
+GEMMA_STEPS = ("gemma_paged_chunk_step", "gemma_paged_decode_step")
+GEMMA_KERNEL_SUFFIXES = ("", "_sm90", "_softcap", "_d256")
+
+
+def gemma_engine(params, cfg, prefix_cache=False):
+    """The engine with the Gemma hooks (looked up now, so that a
+    `counted_calls` block around the construction counts them), max_batch
+    MAX_BATCH, page PAGE, max_seq GEMMA_MAX_SEQ, every slot's worst case
+    in the pool."""
+    from metal_flash_attention_tpu_torch import ServingEngine
+    from metal_flash_attention_tpu_torch.models import serving
+
+    return ServingEngine(
+        params, cfg, max_batch=MAX_BATCH,
+        num_pages=MAX_BATCH * -(-GEMMA_MAX_SEQ // PAGE) + 1,
+        page_size=PAGE, max_seq=GEMMA_MAX_SEQ,
+        chunk_step=serving.gemma_paged_chunk_step,
+        decode_step=serving.gemma_paged_decode_step,
+        prefix_cache=prefix_cache, seed=SAMPLE_SEED)
+
+
+def gemma_drain(eng, prompts, dev, burst=0) -> dict:
+    """Submit ``prompts`` (MAX_NEW new tokens each) and drain by `step()`
+    or `step_burst(burst)`: the streams, seconds, engine calls and each
+    request's time to first token (host clock, the token read back)."""
+    import torch
+
+    rids = [eng.submit(p, MAX_NEW) for p in prompts]
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    first, calls = {}, 0
+    while not eng.idle:
+        out = eng.step_burst(burst) if burst else eng.step()
+        now = time.perf_counter() - t0
+        for rid, _ in out:
+            first.setdefault(rid, now)
+        calls += 1
+        if calls > 10_000:
+            fail("the Gemma engine did not drain")
+    torch.cuda.synchronize(dev)
+    return {"streams": [eng.result(r).tolist() for r in rids],
+            "seconds": time.perf_counter() - t0, "calls": calls,
+            "ttft_s": [first[r] for r in rids]}
+
+
+def gemma_launches() -> dict:
+    from metal_flash_attention_tpu_torch.ops import flash_attention as fa
+    from metal_flash_attention_tpu_torch.ops import flash_decode as fd
+    from metal_flash_attention_tpu_torch.ops import paged_attention as pa
+    return {**pa.LAUNCH_COUNTS, **fd.LAUNCH_COUNTS, **fa.LAUNCH_COUNTS}
+
+
+def reset_attention_counts() -> None:
+    from metal_flash_attention_tpu_torch.ops import flash_attention as fa
+    from metal_flash_attention_tpu_torch.ops import flash_decode as fd
+    from metal_flash_attention_tpu_torch.ops import paged_attention as pa
+    for m in (pa, fd, fa):
+        m.reset_launch_counts()
+
+
+def gemma_counted_drain(params, cfg, stages, dev, burst=0,
+                        prefix_cache=False) -> tuple[dict, dict]:
+    """One Gemma serve (``stages``: lists of prompts drained in turn on
+    one engine) with every attention launch count set to 0 just before
+    and read just after, held exact: a layer's chunk step is one
+    `paged_prefill`, its decode step one `paged_decode` (Gemma's GQA
+    group of 2 fits one decode fragment), every one on the Hopper kernels
+    with the soft cap at head_dim 256 (`_sm90`, `_softcap`, `_d256`), and
+    nothing else.  Returns (run, launches)."""
+    from metal_flash_attention_tpu_torch.models import serving
+
+    calls: dict = {}
+    with counted_calls(serving, GEMMA_STEPS, calls):
+        reset_attention_counts()
+        eng = gemma_engine(params, cfg, prefix_cache=prefix_cache)
+        runs = [gemma_drain(eng, s, dev, burst) for s in stages]
+        run = {"streams": sum((r["streams"] for r in runs), []),
+               "seconds": sum(r["seconds"] for r in runs),
+               "calls": sum(r["calls"] for r in runs),
+               "ttft_s": sum((r["ttft_s"] for r in runs), [])}
+        if prefix_cache:
+            run["hit_tokens"] = eng.prefix_cache.hit_tokens
+        prompts = sum(stages, [])
+        launches = gemma_launches()
+    expected = {f"{kernel}{s}": cfg.n_layers * len(calls[step])
+                for kernel, step in (("paged_prefill", GEMMA_STEPS[0]),
+                                     ("paged_decode", GEMMA_STEPS[1]))
+                for s in GEMMA_KERNEL_SUFFIXES}
+    wrong = launch_errors(launches, expected)
+    if wrong or not expected["paged_prefill"] or \
+            not expected["paged_decode"]:
+        fail(f"gemma serve launched (count, expected) {wrong}")
+    for stream, p in zip(run["streams"], prompts):
+        out = np.asarray(stream)
+        if len(out) != len(p) + MAX_NEW:
+            fail(f"a Gemma request returned {len(out)} tokens")
+        if not ((out >= 0) & (out < cfg.vocab_size)).all():
+            fail("a Gemma request emitted a token outside the vocabulary")
+    if prefix_cache:
+        eng.prefix_cache.flush()
+    if eng.alloc.free_pages != eng.alloc.num_pages - 1:
+        fail(f"the Gemma serve leaked pages: {eng.alloc.free_pages} of "
+             f"{eng.alloc.num_pages - 1} free")
+    run.update(chunk_steps=len(calls[GEMMA_STEPS[0]]),
+               decode_steps=len(calls[GEMMA_STEPS[1]]))
+    return run, launches
+
+
+def gemma_serve(params, cfg, dev, card) -> dict:
+    """gemma_serve: GEMMA_PROMPT_LENS (two beyond the 4,096-token window,
+    so the local layers cut) by `step()`, then by `step_burst(BURST_K)`
+    (streams equal), then a shared GEMMA_SHARED-token prefix on an engine
+    with the prefix cache and one without (streams equal, the hits
+    counted).  Returns the `step()` run's launch counts."""
+    import torch
+
+    rng = np.random.default_rng(SEED + 20)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)).astype(np.int32)
+               for n in GEMMA_PROMPT_LENS]
+    # Warm-up request (library load, cuBLAS handles); not counted.
+    gemma_drain(gemma_engine(params, cfg), [prompts[0][:64]], dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    step, launches = gemma_counted_drain(params, cfg, [prompts], dev)
+    peak = torch.cuda.max_memory_allocated(dev)
+    burst, burst_launches = gemma_counted_drain(params, cfg, [prompts], dev,
+                                                burst=BURST_K)
+    if burst["streams"] != step["streams"]:
+        fail("the Gemma engine's step_burst streams differ from step()'s")
+    shared = rng.integers(0, cfg.vocab_size,
+                          (GEMMA_SHARED,)).astype(np.int32)
+    tails = [rng.integers(0, cfg.vocab_size, (n,)).astype(np.int32)
+             for n in GEMMA_SUFFIXES_LENS]
+    reqs = [np.concatenate([shared, t]) for t in tails]
+    stages = [reqs[:1], reqs[1:]]
+    cached, cached_launches = gemma_counted_drain(
+        params, cfg, stages, dev, prefix_cache=True)
+    uncached, _ = gemma_counted_drain(params, cfg, stages, dev)
+    if cached["streams"] != uncached["streams"]:
+        fail("the cached Gemma engine's streams differ from the uncached "
+             "one's")
+    hits = (len(reqs) - 1) * (GEMMA_SHARED // PAGE * PAGE)
+    if cached["hit_tokens"] != hits:
+        fail(f"the Gemma prefix serve hit {cached['hit_tokens']} tokens, "
+             f"not {hits}")
+
+    def summary(run):
+        tokens = MAX_NEW * len(run["streams"])
+        return {"seconds": run["seconds"], "calls": run["calls"],
+                "chunk_steps": run["chunk_steps"],
+                "decode_steps": run["decode_steps"],
+                "new_tokens_per_s": tokens / run["seconds"],
+                "ttft_s": run["ttft_s"]}
+    print("gemma_serve: " + json.dumps({
+        "config": f"gemma2_2b, {cfg.n_layers} layers (full depth), bf16, "
+                  f"head_dim {cfg.head_dim}, softcap "
+                  f"{cfg.attn_logit_softcap}, window {cfg.sliding_window}",
+        "requests": len(prompts),
+        "prompt_tokens": int(sum(GEMMA_PROMPT_LENS)),
+        "step": summary(step), "burst": dict(summary(burst), k=BURST_K),
+        "streams_equal": True, "max_memory_allocated": peak,
+        "launches": {k: n for k, n in launches.items() if n},
+        "burst_launches": {k: n for k, n in burst_launches.items() if n},
+        "prefix": {"shared_tokens": GEMMA_SHARED,
+                   "suffixes": list(GEMMA_SUFFIXES_LENS),
+                   "hit_tokens": cached["hit_tokens"],
+                   "cached": summary(cached),
+                   "uncached": summary(uncached),
+                   "cached_launches": {k: n for k, n in
+                                       cached_launches.items() if n},
+                   "streams_equal": True},
+        "card": card}), flush=True)
+    return launches
+
+
+def gemma_dense(params, cfg, dev, card) -> dict:
+    """gemma_dense: greedy `serving.gemma_generate` on GEMMA_DENSE_BATCH
+    prompts of GEMMA_DENSE_PROMPT tokens, MAX_NEW new tokens, the counts
+    set to 0 just before and read just after and held exact: a layer's
+    prefill one `flash_fwd`, a decode step one `flash_decode` (a local
+    layer's window as kv_starts), every one on the Hopper kernels with
+    the soft cap at head_dim 256.  Returns the launch counts."""
+    import torch
+    from metal_flash_attention_tpu_torch.models import serving
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    prompt = torch.randint(0, cfg.vocab_size,
+                           (GEMMA_DENSE_BATCH, GEMMA_DENSE_PROMPT),
+                           generator=gen, device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize(dev)
+    reset_attention_counts()
+    t0 = time.perf_counter()
+    out = serving.gemma_generate(params, prompt, cfg,
+                                 max_new_tokens=MAX_NEW)
+    torch.cuda.synchronize(dev)
+    secs = time.perf_counter() - t0
+    launches = gemma_launches()
+    decodes = cfg.n_layers * (MAX_NEW - 1)
+    expected = {**{f"flash_fwd{s}": cfg.n_layers
+                   for s in GEMMA_KERNEL_SUFFIXES},
+                **{f"flash_decode{s}": decodes for s in GEMMA_KERNEL_SUFFIXES}}
+    wrong = launch_errors(launches, expected)
+    if wrong:
+        fail(f"gemma_dense launched (count, expected) {wrong}")
+    new = out[:, GEMMA_DENSE_PROMPT:]
+    if out.shape != (GEMMA_DENSE_BATCH, GEMMA_DENSE_PROMPT + MAX_NEW) or \
+            not ((new >= 0) & (new < cfg.vocab_size)).all():
+        fail(f"gemma_generate returned {tuple(out.shape)} or a token "
+             "outside the vocabulary")
+    tokens = GEMMA_DENSE_BATCH * MAX_NEW
+    print("gemma_dense: " + json.dumps({
+        "config": f"gemma2_2b, {cfg.n_layers} layers (full depth), bf16",
+        "batch": GEMMA_DENSE_BATCH, "prompt": GEMMA_DENSE_PROMPT,
+        "new_tokens": tokens, "seconds": secs,
+        "new_tokens_per_s": tokens / secs,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+        "launches": {k: n for k, n in launches.items() if n},
+        "card": card}), flush=True)
+    return launches
+
+
+def gemma_reference(params, cfg, dev) -> dict:
+    """gemma_reference: on a GEMMA_REF_LAYERS-layer cut (one local layer,
+    one global) with a GEMMA_REF_PROMPT-token prompt, the logits of the
+    paged path (chunk steps, then 2 decode steps) and of the dense path
+    (`gemma_prefill`, then 2 `gemma_decode_step`s) against
+    `gemma.forward_hidden` with `dispatch.attention` replaced by
+    `attention_reference` (float32 softmax, the same soft cap and
+    window), at REF_REL_RMS and REF_MAX_ABS."""
+    import torch
+    from metal_flash_attention_tpu_torch import dispatch
+    from metal_flash_attention_tpu_torch.models import gemma, serving
+    from metal_flash_attention_tpu_torch.ops.reference import (
+        attention_reference,
+    )
+
+    cut = dict(params, layers=params["layers"][:GEMMA_REF_LAYERS])
+    ccfg = dataclasses.replace(cfg, n_layers=GEMMA_REF_LAYERS)
+    n, steps = GEMMA_REF_PROMPT, 2
+    gen = torch.Generator(device=dev).manual_seed(SEED + 22)
+    tokens = torch.randint(0, cfg.vocab_size, (1, n), generator=gen,
+                           device=dev)
+    # Paged: the prompt in PAGE-token chunks, then decode steps.
+    cache = serving.init_paged_model_cache(ccfg, 1, n + steps,
+                                           page_size=PAGE, device=dev)
+    for i in range(0, n, PAGE):
+        chunk_logits, cache = serving.gemma_paged_chunk_step(
+            cut, tokens[:, i:i + PAGE], ccfg, cache)
+    paged = [chunk_logits[0]]
+    tok = chunk_logits[:, -1].argmax(-1).to(torch.int32)
+    fed = [tok]
+    for _ in range(steps):
+        logits, cache = serving.gemma_paged_decode_step(cut, tok, ccfg,
+                                                        cache)
+        paged.append(logits)
+        tok = logits.argmax(-1).to(torch.int32)
+        fed.append(tok)
+    # Dense: prefill, then the same tokens fed.
+    dcache = serving.init_cache(ccfg, 1, n + steps, device=dev)
+    logits, dcache = serving.gemma_prefill(cut, tokens, ccfg, dcache)
+    dense = [logits]
+    for t in fed[:steps]:
+        logits, dcache = serving.gemma_decode_step(cut, t, ccfg, dcache)
+        dense.append(logits)
+
+    def reference_attention(q, k, v, *, causal, window_size, scale,
+                            logit_softcap, **_):
+        return attention_reference(q, k, v, causal=causal,
+                                   window_size=window_size, scale=scale,
+                                   logit_softcap=logit_softcap).to(q.dtype)
+    everything = torch.cat([tokens, torch.stack(fed[:steps], dim=1)], dim=1)
+    with planted(dispatch, "attention", lambda _: reference_attention):
+        hidden, _ = gemma.forward_hidden(cut, everything, ccfg)
+    chunk = chunk_logits.shape[1]
+    ref = gemma.lm_head(cut, hidden[0, n - chunk:], ccfg)
+    readings = {}
+    for name, got, want in (
+            ("paged_chunk", paged[0], ref[:chunk]),
+            ("paged_decode", torch.stack(paged[1:])[:, 0], ref[chunk:]),
+            ("dense_prefill", dense[0][0], ref[chunk - 1]),
+            ("dense_decode", torch.stack(dense[1:])[:, 0], ref[chunk:])):
+        if not torch.isfinite(got).all():
+            fail(f"gemma_reference: {name} gave non-finite logits")
+        err = got.float() - want.float()
+        readings[name] = {
+            "rel_rms": float(err.pow(2).mean().sqrt()
+                             / want.float().pow(2).mean().sqrt()),
+            "max_abs_err": float(err.abs().max())}
+    bad = {k: r for k, r in readings.items()
+           if r["rel_rms"] > REF_REL_RMS or r["max_abs_err"] > REF_MAX_ABS}
+    print("gemma_reference: " + json.dumps({
+        "cut": f"{GEMMA_REF_LAYERS} layers (local, global), {n}-token "
+               f"prompt, {steps} decode steps", "readings": readings,
+        "limits": {"rel_rms": REF_REL_RMS, "max_abs": REF_MAX_ABS}}),
+        flush=True)
+    if bad:
+        fail(f"the Gemma paths disagree with the reference: {bad}")
+    return readings
+
+
+def flex_yardstick(q, k, v, *, window, cap, scale):
+    """`flex_attention` with a tanh score_mod and a causal (and window)
+    mask_mod, compiled: one PyTorch call computing the kernels' function,
+    timed as a yardstick and never called by the port.  Returns (fn,
+    None) or (None, the reason it is not timed)."""
+    import torch
+
+    try:
+        from torch.nn.attention.flex_attention import (
+            create_block_mask,
+            flex_attention,
+        )
+        offset = k.shape[-2] - q.shape[-2]
+
+        def score_mod(s, b, h, qi, ki):
+            return cap * torch.tanh(s / cap)
+
+        def mask_mod(b, h, qi, ki):
+            live = ki <= qi + offset
+            if window is not None:
+                live = live & (ki > qi + offset - window)
+            return live
+        mask = create_block_mask(mask_mod, None, None, q.shape[-2],
+                                 k.shape[-2], device=q.device)
+        flex = torch.compile(flex_attention, dynamic=False)
+        fn = lambda: flex(q, k, v, score_mod=score_mod,  # noqa: E731
+                          block_mask=mask, scale=scale, enable_gqa=True)
+        fn()
+        torch.cuda.synchronize()
+        return fn, None
+    except Exception as e:  # a yardstick only: its failure is reported
+        return None, (f"flex_attention did not run here: "
+                      f"{type(e).__name__}: {str(e)[:300]}")
+
+
+def gemma_kernel_checks(cfg, dev, card, serve_launches, dense_launches
+                        ) -> list[dict]:
+    """gemma_kernel_checks: each kernel at the Gemma shapes the phases
+    ran (the serve's decode and last chunk, the dense prefill and decode)
+    against its plain version by the worst tile (KERNEL_TILE_REL_RMS; a
+    decode row, or TILE_ROWS query rows of a head), lse at MIXED_TOL, at
+    the model's cap (50) and at a saturating one (GEMMA_SAT_CAP over
+    queries scaled by GEMMA_SAT_GAIN), on a local layer (the 4,096
+    window) and a global one; two planted faults the limit must see (the
+    kernel without its cap against the capped plain version at the
+    saturating cap; a local layer's window dropped).  Then each kernel's
+    time (median, min-max of GEMM_REPEATS profiled loops) on a global
+    layer at the model's cap, its plain version's, its bound, and
+    `flex_attention`'s where it compiles."""
+    import torch
+    from metal_flash_attention_tpu_torch.ops import flash_attention as fa
+    from metal_flash_attention_tpu_torch.ops import flash_decode as fd
+    from metal_flash_attention_tpu_torch.ops import paged_attention as pa
+    from metal_flash_attention_tpu_torch.utils.tolerances import (
+        MIXED_TOL,
+        max_abs_err,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+    kvh, qh, d = cfg.n_kv_heads, cfg.n_heads, cfg.head_dim
+    scale, cap, window = (cfg.attn_scale, cfg.attn_logit_softcap,
+                          cfg.sliding_window)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    def paged_pools(lengths):
+        max_pages = -(-max(lengths) // PAGE)
+        num_pages = len(lengths) * max_pages + 1
+        perm = torch.randperm(num_pages - 1, generator=gen,
+                              device=dev).to(torch.int32) + 1
+        return pa.PagedKVCache(
+            randn(num_pages, kvh, PAGE, d), randn(num_pages, kvh, PAGE, d),
+            perm.reshape(len(lengths), max_pages),
+            torch.tensor(lengths, dtype=torch.int32, device=dev))
+
+    dec_lens = [n + MAX_NEW for n in GEMMA_PROMPT_LENS[-MAX_BATCH:]]
+    dec_cache = paged_pools(dec_lens)
+    qd = randn(MAX_BATCH, qh, d)
+    pre_cache = paged_pools([GEMMA_PROMPT_LENS[-1]])
+    qp = randn(1, qh, PAGE, d)
+    dense_k = randn(GEMMA_DENSE_BATCH, kvh, GEMMA_DENSE_PROMPT + MAX_NEW, d)
+    dense_v = randn(GEMMA_DENSE_BATCH, kvh, GEMMA_DENSE_PROMPT + MAX_NEW, d)
+    dense_lens = torch.full((GEMMA_DENSE_BATCH,), GEMMA_DENSE_PROMPT + 1,
+                            dtype=torch.int32, device=dev)
+    qdd = randn(GEMMA_DENSE_BATCH, qh, d)
+    qf = randn(GEMMA_DENSE_BATCH, qh, GEMMA_DENSE_PROMPT, d)
+    kf, vf = (x[:, :, :GEMMA_DENSE_PROMPT].contiguous()
+              for x in (dense_k, dense_v))
+
+    def starts_for(lens, win):
+        return None if win is None else (lens - win).clamp_min(0)
+
+    # Each kernel: (kernel call, plain call), both (q, cap, window) ->
+    # (o, lse), and how a tile of its output is cut.
+    def paged_dec(q, c, w, kernel_cap=None, plain=False):
+        if plain:
+            o, lse = pa._paged_attention_plain(
+                q[:, :, None], dec_cache, scale=scale, window_size=w,
+                softcap=c)
+            return o[:, :, 0], lse[:, :, 0]
+        return pa.paged_decode(q, dec_cache, scale=scale, window_size=w,
+                               logit_softcap=c, return_residuals=True)
+
+    def paged_pre(q, c, w, plain=False):
+        if plain:
+            return pa._paged_attention_plain(q, pre_cache, scale=scale,
+                                             window_size=w, softcap=c)
+        return pa.paged_prefill(q, pre_cache, scale=scale, window_size=w,
+                                logit_softcap=c, return_residuals=True)
+
+    def dense_dec(q, c, w, plain=False):
+        starts = starts_for(dense_lens, w)
+        if plain:
+            return fd._flash_decode_plain(
+                q, dense_k, dense_v, kv_lens=dense_lens, kv_starts=starts,
+                max_span=None, scale=scale, softcap=c)
+        return fd.flash_decode(q, dense_k, dense_v, kv_lens=dense_lens,
+                               kv_starts=starts, scale=scale,
+                               logit_softcap=c, return_residuals=True)
+
+    def fwd(q, c, w, plain=False):
+        if plain:
+            outs = [fa._forward_plain(q[b:b + 1], kf[b:b + 1], vf[b:b + 1],
+                                      causal=True, window_size=w,
+                                      scale=scale, out_dtype=torch.float32,
+                                      softcap=c) for b in range(q.shape[0])]
+            return (torch.cat([o for o, _ in outs]),
+                    torch.cat([lse for _, lse in outs]))
+        return fa.flash_attention_forward(q, kf, vf, causal=True,
+                                          window_size=w, scale=scale,
+                                          logit_softcap=c)
+
+    cases = {
+        "paged_decode": (paged_dec, qd, 1, "csrc/paged_attention.cu",
+                         "metal_flash_attention_tpu/ops/paged_attention.py:"
+                         "183", serve_launches,
+                         f"q [{MAX_BATCH}, {qh}, {d}], lengths {dec_lens}"),
+        "paged_prefill": (paged_pre, qp, TILE_ROWS,
+                          "csrc/paged_attention.cu",
+                          "metal_flash_attention_tpu/ops/"
+                          "paged_attention.py:183", serve_launches,
+                          f"q [1, {qh}, {PAGE}, {d}] at length "
+                          f"{GEMMA_PROMPT_LENS[-1]}"),
+        "flash_decode": (dense_dec, qdd, 1, "csrc/flash_decode.cu",
+                         "metal_flash_attention_tpu/ops/flash_decode.py:82",
+                         dense_launches,
+                         f"q [{GEMMA_DENSE_BATCH}, {qh}, {d}], K/V "
+                         f"[{GEMMA_DENSE_BATCH}, {kvh}, "
+                         f"{GEMMA_DENSE_PROMPT + MAX_NEW}, {d}] at "
+                         f"length {GEMMA_DENSE_PROMPT + 1}"),
+        "flash_fwd": (fwd, qf, TILE_ROWS, "csrc/flash_attention.cu",
+                      "metal_flash_attention_tpu/ops/flash_attention.py:223",
+                      dense_launches,
+                      f"q [{GEMMA_DENSE_BATCH}, {qh}, {GEMMA_DENSE_PROMPT}, "
+                      f"{d}] causal"),
+    }
+    results = []
+    for name, (fn, q, rows, source, replaces, launches, shape) in \
+            cases.items():
+        readings, lse_err = {}, 0.0
+        sat_q = (q.float() * GEMMA_SAT_GAIN).to(q.dtype)
+        for label, qq, c, w in (
+                ("global_cap50", q, cap, None),
+                ("local_cap50", q, cap, window),
+                ("global_saturating", sat_q, GEMMA_SAT_CAP, None),
+                ("local_saturating", sat_q, GEMMA_SAT_CAP, window)):
+            o, lse = fn(qq, c, w)
+            po, plse = fn(qq, c, w, plain=True)
+            readings[label] = closeness(o, po, tile_rows=rows)
+            lse_err = max(lse_err, max_abs_err(lse, plse))
+            del o, po
+        # Planted faults: the kernel without its cap at the saturating
+        # cap; a local layer's window dropped.
+        po, _ = fn(sat_q, GEMMA_SAT_CAP, None, plain=True)
+        faults = {"no_softcap": closeness(fn(sat_q, None, None)[0], po,
+                                          tile_rows=rows)}
+        po, _ = fn(q, cap, window, plain=True)
+        faults["no_window"] = closeness(fn(q, cap, None)[0], po,
+                                        tile_rows=rows)
+        del po
+        worst = max(r["tile_rel_rms"] for r in readings.values())
+        if worst > KERNEL_TILE_REL_RMS or lse_err > MIXED_TOL.lse:
+            fail(f"gemma {name} disagrees with its plain version: "
+                 f"{readings}, lse {lse_err}")
+        seen = [k for k, r in faults.items() if within_limits(r)]
+        if seen:
+            fail(f"the gemma {name} check does not see {seen}")
+        spread = timed_spread(lambda: fn(q, cap, None), 20)
+        plain_ms, _ = timed(lambda: fn(q, cap, None, plain=True), 3)
+        if name == "flash_fwd":
+            pairs = GEMMA_DENSE_BATCH * visible_pairs(
+                GEMMA_DENSE_PROMPT, GEMMA_DENSE_PROMPT, True, None)
+            kv_bytes = nbytes(kf, vf)
+            io = 2 * nbytes(q) + q[..., 0].numel() * 4
+        elif name == "flash_decode":
+            pairs = int(dense_lens.sum())
+            kv_bytes = pairs * kvh * d * 2 * 2
+            io = 2 * nbytes(q) + q[..., 0].numel() * 4
+        else:
+            c = dec_cache if name == "paged_decode" else pre_cache
+            chunk = 1 if q.dim() == 3 else q.shape[2]
+            lengths = c.lengths.tolist()
+            pairs = sum(visible_pairs(chunk, m, True, None)
+                        for m in lengths)
+            kv_bytes = sum(lengths) * kvh * d * 2 * 2
+            io = 2 * nbytes(q) + q[..., 0].numel() * 4
+        bound_ms, bound_by = bound(4 * d * qh * pairs, kv_bytes + io)
+        library_ms, library_note = None, None
+        if name in ("flash_fwd", "flash_decode"):
+            q4 = q if q.dim() == 4 else q[:, :, None]
+            k4, v4 = (kf, vf) if name == "flash_fwd" else (
+                dense_k[:, :, :GEMMA_DENSE_PROMPT + 1],
+                dense_v[:, :, :GEMMA_DENSE_PROMPT + 1])
+            flex, library_note = flex_yardstick(q4, k4, v4, window=None,
+                                                cap=cap, scale=scale)
+            if flex is not None:
+                library_ms = timed_spread(flex, 20)["ms"]
+        else:
+            library_note = "none: no one PyTorch call gathers pages and " \
+                           "attends"
+        results.append({
+            "name": f"{name}_gemma", "route": "cuda",
+            "source": f"metal_flash_attention_tpu_torch/{source}",
+            "replaces": replaces,
+            "launches": launches[name],
+            "launches_softcap_d256": launches[f"{name}_d256"],
+            "max_abs_err": max(r["max_abs_err"] for r in readings.values()),
+            "o": readings, "planted_faults": faults,
+            "lse_max_abs_err": lse_err,
+            "limits": {"tile_rel_rms": KERNEL_TILE_REL_RMS,
+                       "lse_abs": MIXED_TOL.lse},
+            "ms": spread["ms"], "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms,
+            "library": library_note or "flex_attention (tanh score_mod, "
+                                       "causal block mask), compiled",
+            "share_of_bound": bound_ms / spread["ms"], "spread": spread,
+            "timed": f"global layer, cap {cap}", "shape": shape,
+            "card": card})
+        print(f"gemma_checks: {name}: " + json.dumps(results[-1]),
+              flush=True)
+    return results
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3236,11 +3851,37 @@ def main() -> int:
                 entry["name"], 0)}
     for entry in quant_fwd:
         entry["launches_by_path"] = {"quant_fwd_checks": entry["launches"]}
+
+    # Gemma-2 at gemma2_2b width and depth, seeded random weights.
+    from metal_flash_attention_tpu_torch.models import gemma
+    gcfg = gemma.GemmaConfig.gemma2_2b()
+    t0 = time.perf_counter()
+    gparams = gemma.init_params(
+        gcfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    torch.cuda.synchronize(dev)
+    print(f"gemma_params: gemma2_2b, {gcfg.n_layers} layers (full depth), "
+          f"bf16, {torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    gemma_serve_launches = phase("gemma_serve", gemma_serve, gparams, gcfg,
+                                 dev, card)
+    torch.cuda.empty_cache()
+    gemma_dense_launches = phase("gemma_dense", gemma_dense, gparams, gcfg,
+                                 dev, card)
+    torch.cuda.empty_cache()
+    phase("gemma_reference", gemma_reference, gparams, gcfg, dev)
+    del gparams
+    torch.cuda.empty_cache()
+    gemma_kernels = phase("gemma_kernel_checks", gemma_kernel_checks, gcfg,
+                          dev, card, gemma_serve_launches,
+                          gemma_dense_launches)
+    torch.cuda.empty_cache()
+
     kernels.append(decode_kernel)
     kernels.append(gemm_kernel)
     kernels += softmax_kernels
     kernels += quant_kernels
     kernels += quant_fwd
+    kernels += gemma_kernels
 
     print("phases: " + json.dumps(phases))
     print(card)

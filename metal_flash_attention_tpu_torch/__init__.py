@@ -49,6 +49,13 @@ Ported so far:
   `PythonPageAllocator`; `make_page_allocator`); `QuantizedTensor` K/V in
   `ops.flash_attention` and `dispatch.attention`, decoded inside the
   forward kernel;
+- slice 12, Gemma-2 serving: `models.gemma` (`GemmaConfig`, the forward);
+  the Gemma steps of `models.serving` (`gemma_prefill`,
+  `gemma_decode_step`, `gemma_generate`, `gemma_paged_chunk_step`,
+  `gemma_paged_decode_step`) and the engine's ``chunk_step`` /
+  ``decode_step`` hooks; the logit soft cap and head_dim 256 in the
+  paged, decode and forward kernels, and the paged kernel's
+  ``kv_starts``;
 - shared: `ops.reference`, `native.build`, `utils`.
 
 Constructors (`init_params`, `params_from_numpy`, `init_cache`,
@@ -60,6 +67,7 @@ __version__ = "0.1.0"
 
 from metal_flash_attention_tpu_torch.dispatch import attention
 from metal_flash_attention_tpu_torch.models.engine import ServingEngine
+from metal_flash_attention_tpu_torch.models.gemma import GemmaConfig
 from metal_flash_attention_tpu_torch.models.llama import (
     LlamaConfig,
     init_params,
@@ -93,6 +101,7 @@ from metal_flash_attention_tpu_torch.ops.quantization import (
 from metal_flash_attention_tpu_torch.ops.reference import attention_reference
 
 __all__ = [
+    "GemmaConfig",
     "LAUNCH_COUNTS",
     "LlamaConfig",
     "PagedKVCache",

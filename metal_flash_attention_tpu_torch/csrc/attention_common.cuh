@@ -1,6 +1,6 @@
 // Helpers shared by the port's attention kernels (sm_90a): the tensor-core
-// tile product, fragment packing, exp2, quad reductions and the lse merge
-// of split-KV partials.
+// tile product, fragment packing, exp2, the logit soft cap, quad reductions
+// and the lse merge of split-KV partials.
 //
 // Fragment layout of mma.sync m16n8k16 (row.col), for lane
 // (g = lane / 4, t4 = lane % 4):
@@ -76,6 +76,17 @@ __device__ __forceinline__ float exp2_approx(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
+}
+
+// Gemma-2's logit soft cap on a logit already in the exp2 domain: cap *
+// tanh(x / cap), cap = softcap * log2(e) (the same curve as softcap *
+// tanh(s / softcap) on natural-unit logits), inv_cap = 1 / cap.  Applied
+// to the fully scaled logit and before any mask: tanh(-inf) is -1, so a
+// key masked first would keep the weight e^-softcap.  tanhf is the
+// accurate one (2 ulp): tanh.approx.f32's ~2^-11 relative error moves
+// exp2 of a saturated logit by percents.
+__device__ __forceinline__ float softcap(float x, float cap, float inv_cap) {
+  return cap * tanhf(x * inv_cap);
 }
 
 // Accumulator values of a wgmma (x: a thread's N / 2 of a 64 x N tile)
@@ -160,8 +171,9 @@ __global__ void __launch_bounds__(32 * kMergeRows)
 merge_splits_kernel(const float* part_o, const float* part_lse, T* o,
                     float* lse, int rows, int splits) {
   constexpr int kCols = D / 32;  // a lane's columns
-  static_assert(kCols == 2 || kCols == 4, "D 64 or 128");
-  using Vec = typename std::conditional<kCols == 4, float4, float2>::type;
+  static_assert(kCols == 2 || kCols == 4 || kCols == 8, "D 64, 128 or 256");
+  using Vec = typename std::conditional<kCols == 2, float2, float4>::type;
+  constexpr int kVecs = kCols == 2 ? 1 : kCols / 4;  // 16-byte loads a lane
   const int lane = threadIdx.x % 32;
   const int r = blockIdx.x * kMergeRows + threadIdx.x / 32;
   if (r >= rows) return;
@@ -170,15 +182,17 @@ merge_splits_kernel(const float* part_o, const float* part_lse, T* o,
   float mx = -INFINITY, sum = 0.f, acc[kCols] = {};
   for (int s0 = 0; s0 < splits; s0 += kMergeSplits) {
     float l[kMergeSplits];
-    Vec x[kMergeSplits];
+    Vec x[kMergeSplits][kVecs];
 #pragma unroll
     for (int j = 0; j < kMergeSplits; ++j) {
       const size_t pr = (base + s0 + j) * rows + r;
       const bool in = s0 + j < splits;
       l[j] = in ? part_lse[pr] : -INFINITY;
-      x[j] = in ? *reinterpret_cast<const Vec*>(part_o + pr * D +
-                                                lane * kCols)
-                : Vec{};
+#pragma unroll
+      for (int u = 0; u < kVecs; ++u)
+        x[j][u] = in ? reinterpret_cast<const Vec*>(part_o + pr * D +
+                                                    lane * kCols)[u]
+                     : Vec{};
     }
     float m = mx;
 #pragma unroll
@@ -192,7 +206,7 @@ merge_splits_kernel(const float* part_o, const float* part_lse, T* o,
 #pragma unroll
     for (int j = 0; j < kMergeSplits; ++j) {
       const float w = exp2f(l[j] - m);
-      const float* xj = reinterpret_cast<const float*>(&x[j]);
+      const float* xj = reinterpret_cast<const float*>(&x[j][0]);
       sum += w;
 #pragma unroll
       for (int c = 0; c < kCols; ++c) acc[c] += w * xj[c];

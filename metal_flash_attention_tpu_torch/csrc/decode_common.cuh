@@ -29,9 +29,13 @@
 // fragment, each of the block's 4 warps takes 16 keys of every tile and
 // keeps its own online softmax (m, l, acc) in the exp2 domain; K and V
 // fragments come from the ring by ldmatrix (.trans for V); P is rounded to
-// the input type before PV.  fp32 inputs run in true fp32 on CUDA cores in
-// the same ring (never TF32).  The warps combine once, at the end, through
-// shared memory.
+// the input type before PV.  Q's fragments stay in registers up to D 128;
+// at D 256 (Gemma-2) the accumulator alone is 128 floats a thread, so Q
+// sits in shared memory and each 16-deep step reads its fragment by
+// ldmatrix.  kCap (a template flag, so the uncapped kernels are unchanged)
+// soft-caps each fully scaled logit before the mask (`softcap`).  fp32
+// inputs run in true fp32 on CUDA cores in the same ring (never TF32).
+// The warps combine once, at the end, through shared memory.
 //
 // Quantized K/V (bf16 queries; the TPU kernels' `kv_precision`): tiles land
 // in the ring in their storage type, 1 byte a value for INT8 / FP8-E4M3 /
@@ -507,8 +511,9 @@ struct DenseKV {
 };
 
 // A paged pool [pages, kv_heads, page_rows, row] through the page table
-// [b, max_pages]; row b's keys are 0 .. lengths[b] - 1, and a decode row
-// sees the last `window` of them (window <= 0: all).  page_rows is the
+// [b, max_pages]; row b's keys are 0 .. lengths[b] - 1, from starts[b]
+// when there are starts, and a decode row sees the last `window` of them
+// (window <= 0: all).  page_rows is the
 // page size, or half of it for an NF4 pool (kSplit: token r of a page in
 // the low nibble of stored row r, token r + page/2 in the high one);
 // head_dim is a stored row's elements (D; bytes for a quantized pool).  A
@@ -524,6 +529,7 @@ struct PagedKV {
   const float* v_scales;
   const int* table;
   const int* lengths;
+  const int* starts;  // [b] each row's first position, or null (0)
   int kv_heads, head_dim, page_size, page_rows, max_pages, window;
 
   struct Rows {
@@ -555,6 +561,7 @@ struct PagedKV {
   __device__ void range(int b, int& lo, int& hi) const {
     hi = lengths[b];
     lo = window > 0 ? max(0, hi - window) : 0;
+    if (starts) lo = max(lo, starts[b]);
   }
 
   // The table entries of keys [lo, hi) into `pages` (at most (hi - lo -
@@ -566,12 +573,12 @@ struct PagedKV {
       pages[i] = table[(size_t)b * max_pages + first + i];
   }
 
-  // Without a window a block's keys start where its chunk does, whatever
-  // the sequence's length: fetch the chunk's entries [lo, hi) while the
-  // length loads (entries past the live pages are read, never used).
-  // True when it did.
+  // Without a window or starts a block's keys start where its chunk does,
+  // whatever the sequence's length: fetch the chunk's entries [lo, hi)
+  // while the length loads (entries past the live pages are read, never
+  // used).  True when it did.
   __device__ bool prefetch(int b, int lo, int hi, int* pages) const {
-    if (window > 0) return false;
+    if (window > 0 || starts) return false;
     fetch(b, lo, hi, pages);
     return true;
   }
@@ -616,6 +623,7 @@ struct DecodeIO {
   float* part_lse;  // [b, kv_heads, splits, group], base 2
   int q_heads, kv_heads, chunk, splits;
   float scale_log2e;
+  float cap2, inv_cap2;  // the soft cap in the exp2 domain (kCap kernels)
 };
 
 // P: the K/V storage precision (kUnquantized: K/V in T; else a Precision of
@@ -627,8 +635,10 @@ struct DecodeSmem {
   using QR = QRing<P, KV::kSplitRows, D, kDecodeTile, KV::kStages>;
   static_assert(!kQuant || std::is_same<T, __nv_bfloat16>::value,
                 "quantized K/V take bf16 queries");
+  // MFA_DECODE_MMA 0 (an ablation) moves 16-bit K/V in the queries' type
+  // to CUDA cores; quantized K/V stay on tensor cores.
   static constexpr bool kMma =
-      !std::is_same<T, float>::value && MFA_DECODE_MMA != 0;
+      !std::is_same<T, float>::value && (MFA_DECODE_MMA != 0 || kQuant);
   static_assert(!kQuant || kMma, "quantized K/V run on tensor cores");
   static constexpr int kStages = kQuant ? QR::kStages : R::kStages;
   static constexpr int kStride = R::kStride;
@@ -639,10 +649,14 @@ struct DecodeSmem {
   static constexpr int kCombStride = D + 8;
   static constexpr size_t kCombBytes =
       sizeof(float) * kDecodeWarps * kDecodeMaxGroup * (2 + kCombStride);
-  // CUDA-core path: q in float32, and each warp's P [16 rows][16 keys]
-  // with the tile's rescale of each row.
+  // Q in shared memory: on tensor cores at D 256, the group's rows
+  // (zero-padded to 16) in T, padded as the ring's rows; on CUDA cores in
+  // float32.  The CUDA-core path also keeps each warp's P [16 rows][16
+  // keys] with the tile's rescale of each row.
+  static constexpr bool kQSmem = kMma && D > 128;
   static constexpr size_t kQBytes =
-      kMma ? 0 : sizeof(float) * kDecodeMaxGroup * D;
+      kMma ? (kQSmem ? sizeof(T) * kDecodeMaxGroup * kStride : 0)
+           : sizeof(float) * kDecodeMaxGroup * D;
   static constexpr int kScratch = kDecodeMaxGroup * (kWarpKeys + 1);
   static constexpr size_t kScratchBytes =
       kMma ? 0 : sizeof(float) * kDecodeWarps * kScratch;
@@ -658,7 +672,9 @@ struct DecodeSmem {
 // One block: the group's rows of (sequence b, kv head h) against the
 // chunk of key tiles of split blockIdx.x.  Writes o and lse when the call
 // has one split, else its normalized float32 partial and base-2 lse.
-template <typename T, int D, class KV, int P = kUnquantized>
+// kCap: soft-cap the logits (io.cap2).
+template <typename T, int D, class KV, int P = kUnquantized,
+          bool kCap = false>
 __global__ void __launch_bounds__(kDecodeThreads)
 flash_decode90_kernel(DecodeIO<T> io, KV kv) {
   using S = DecodeSmem<T, D, KV, P>;
@@ -721,16 +737,26 @@ flash_decode90_kernel(DecodeIO<T> io, KV kv) {
 
   if constexpr (S::kMma) {
     // Lane (g, t4) holds rows g and g + 8 of the fragments; rows past the
-    // group are zero.
+    // group are zero.  At D 256 the rows go to shared memory instead (the
+    // ring loop's first barrier publishes them).
     const int g = lane / 4, t4 = lane % 4;
-    uint32_t qf[D / 16][4];
+    uint32_t qf[S::kQSmem ? 1 : D / 16][4];
+    T* qsm = reinterpret_cast<T*>(smem + S::kRingBytes);
+    if constexpr (S::kQSmem) {
+      for (int i = tid; i < kDecodeMaxGroup * (D / 2); i += kDecodeThreads) {
+        const int r = i / (D / 2), c = 2 * (i % (D / 2));
+        *reinterpret_cast<uint32_t*>(qsm + r * kStride + c) =
+            r < group ? ld_u32(q + r * D + c) : 0u;
+      }
+    } else {
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const int c = kk * 16 + 2 * t4;
-      qf[kk][0] = g < group ? ld_u32(q + g * D + c) : 0u;
-      qf[kk][1] = g + 8 < group ? ld_u32(q + (g + 8) * D + c) : 0u;
-      qf[kk][2] = g < group ? ld_u32(q + g * D + c + 8) : 0u;
-      qf[kk][3] = g + 8 < group ? ld_u32(q + (g + 8) * D + c + 8) : 0u;
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int c = kk * 16 + 2 * t4;
+        qf[kk][0] = g < group ? ld_u32(q + g * D + c) : 0u;
+        qf[kk][1] = g + 8 < group ? ld_u32(q + (g + 8) * D + c) : 0u;
+        qf[kk][2] = g < group ? ld_u32(q + g * D + c + 8) : 0u;
+        qf[kk][3] = g + 8 < group ? ld_u32(q + (g + 8) * D + c + 8) : 0u;
+      }
     }
     if (KV::kPaged) __syncthreads();  // the page entries are in
     float acc[D / 8][4];
@@ -743,6 +769,9 @@ flash_decode90_kernel(DecodeIO<T> io, KV kv) {
     const int mi = lane >> 3, r8 = lane & 7;
     const int k_off = (key0 + (mi >> 1) * 8 + r8) * kStride + (mi & 1) * 8;
     const int v_off = (key0 + (mi & 1) * 8 + r8) * kStride + (mi >> 1) * 8;
+    // Q from shared memory: matrix mi is rows (mi & 1) * 8 .., columns
+    // (mi >> 1) * 8 .. of a 16-deep step, the A fragment's order.
+    const int q_off = ((mi & 1) * 8 + r8) * kStride + (mi >> 1) * 8;
 
     // One tile: ks / vs the bf16 (or T) tiles, ksc / vsc the paged
     // quantized pool's per-key scales (slot order).
@@ -753,8 +782,15 @@ flash_decode90_kernel(DecodeIO<T> io, KV kv) {
       for (int kk = 0; kk < D / 16; ++kk) {
         uint32_t kb[4];
         ldsm_x4(kb, ks + k_off + kk * 16);
-        mma_16816<T>(s[0], qf[kk], kb[0], kb[1]);
-        mma_16816<T>(s[1], qf[kk], kb[2], kb[3]);
+        if constexpr (S::kQSmem) {
+          uint32_t qa[4];
+          ldsm_x4(qa, qsm + q_off + kk * 16);
+          mma_16816<T>(s[0], qa, kb[0], kb[1]);
+          mma_16816<T>(s[1], qa, kb[2], kb[3]);
+        } else {
+          mma_16816<T>(s[0], qf[kk], kb[0], kb[1]);
+          mma_16816<T>(s[1], qf[kk], kb[2], kb[3]);
+        }
       }
       int pmin, pmax;
       tile_span<kTile>(rows, t, pmin, pmax);
@@ -767,6 +803,7 @@ flash_decode90_kernel(DecodeIO<T> io, KV kv) {
           const int col = slot_pos<kTile>(rows, t, o);
           float x = s[nt][e] * scale;
           if constexpr (KV::Rows::kSlotScales) x *= ksc[o];
+          if constexpr (kCap) x = softcap(x, io.cap2, io.inv_cap2);
           s[nt][e] = !edge || (col >= lo && col < hi) ? x : -INFINITY;
         }
       float alpha[2];
@@ -901,7 +938,9 @@ flash_decode90_kernel(DecodeIO<T> io, KV kv) {
 #pragma unroll
           for (int i = 0; i < kRowsL; ++i) {
             if (i >= rows_l) break;
-            const float x = live ? s[i] * scale : -INFINITY;
+            float x = s[i] * scale;
+            if constexpr (kCap) x = softcap(x, io.cap2, io.inv_cap2);
+            x = live ? x : -INFINITY;
             float mx = x;
 #pragma unroll
             for (int off = 8; off > 0; off >>= 1)
@@ -1005,17 +1044,18 @@ flash_decode90_kernel(DecodeIO<T> io, KV kv) {
 
 // Launch the decode kernel on grid (splits, kv_heads, batch), then, when
 // there is more than one split, the merge.  Returns cudaGetLastError().
-template <typename T, int D, class KV, int P = kUnquantized>
+template <typename T, int D, class KV, int P = kUnquantized,
+          bool kCap = false>
 int launch_decode(const DecodeIO<T>& io, const KV& kv, int batch,
                   int pages_cap, cudaStream_t stream) {
   const size_t smem = DecodeSmem<T, D, KV, P>::bytes(pages_cap);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_decode90_kernel<T, D, KV, P>,
+        flash_decode90_kernel<T, D, KV, P, kCap>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  flash_decode90_kernel<T, D, KV, P>
+  flash_decode90_kernel<T, D, KV, P, kCap>
       <<<dim3(io.splits, io.kv_heads, batch), kDecodeThreads, smem,
          stream>>>(io, kv);
   const cudaError_t e = cudaGetLastError();

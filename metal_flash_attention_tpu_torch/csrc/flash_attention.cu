@@ -12,9 +12,10 @@
 //
 // O = softmax(Q K^T * scale) V and the natural-log row logsumexp, for
 // q [b, q_heads, q_len, D] and k/v [b, kv_heads, kv_len, D] (GQA: q head
-// h reads kv head h / group), D = 64 or 128, bf16 or fp16.  Causal masking
-// is aligned bottom-right (offset = kv_len - q_len); a window w keeps keys
-// > qpos - w.  A row that sees no key gives o = 0 and lse = -inf.
+// h reads kv head h / group), D = 64, 128 or 256, bf16 or fp16.  Causal
+// masking is aligned bottom-right (offset = kv_len - q_len); a window w
+// keeps keys > qpos - w.  A row that sees no key gives o = 0 and lse =
+// -inf.
 //
 // Bound: at the training shapes (causal, q_len = kv_len = 8192, D = 128)
 // the work is 4 * D FLOPs per visible (row, key) pair against ~170 MB of
@@ -69,6 +70,21 @@
 //   the precision (a branch around wgmma would serialise it); queries are
 //   bf16.
 //
+// - Gemma-2 (the TPU kernels' `logit_softcap`, :243, :250, :339-340 and
+//   :567, :601, :746-747, and head_dim 256).  softcap > 0 soft-caps each
+//   scaled logit in the exp2 domain before the mask (`softcap` in
+//   attention_common.cuh); the running max, P and lse are the capped
+//   logits'.  The cap is a template flag (kCap), so the uncapped kernels
+//   are unchanged.  At D 256 a consumer's O is 128 floats a thread: with
+//   S and P of a 128-key tile it would not fit the 168 registers ptxas
+//   gives a thread of a three-warpgroup block, and two consumer
+//   warpgroups with 64-key tiles still come to ~176 plus addresses.  So
+//   D 256 has its own tiles (FwdTiles<256>): one consumer warpgroup of 64
+//   rows beside the producer (256 threads, up to 255 registers a thread,
+//   no setmaxnreg), 64-key tiles (N of the SS wgmma), O += P V as an RS
+//   m64n256k16; Q (32 KB) and two stages of K and V (128 KB) fit the
+//   block's shared memory.  Quantized K/V stay at D 64 and 128.
+//
 // Every function returns cudaGetLastError() after its launch.
 
 #include <type_traits>
@@ -82,14 +98,29 @@ namespace {
 
 using namespace mfa;
 
-constexpr int kBQ = MFA_FWD90_BLOCK_Q;    // query rows per block
-constexpr int kBKV = MFA_FWD90_BLOCK_KV;  // keys per tile
-constexpr int kThreads = 384;
-constexpr int kConsumers = 256;
 constexpr int kErrTensorMap = 10000;  // cuTensorMapEncodeTiled refused
-static_assert(kBQ == 2 * 64, "two consumer warpgroups of 64 rows");
-static_assert(kBKV == 64 || kBKV == 128 || kBKV == 256,
-              "the N of an SS wgmma");
+
+// The tiles at head dim D: query rows a block (64 a consumer warpgroup),
+// keys a ring tile, and the block's threads (a producer warpgroup and the
+// consumers).
+template <int D>
+struct FwdTiles {
+  static constexpr bool kWide = D > 128;
+  static constexpr int kBQ = kWide ? MFA_FWD90_D256_BLOCK_Q
+                                   : MFA_FWD90_BLOCK_Q;
+  static constexpr int kBKV = kWide ? MFA_FWD90_D256_BLOCK_KV
+                                    : MFA_FWD90_BLOCK_KV;
+  static constexpr int kStages = kWide ? MFA_FWD90_D256_STAGES
+                                       : MFA_FWD90_STAGES;
+  static constexpr int kConsumerGroups = kBQ / 64;
+  static constexpr int kConsumers = 128 * kConsumerGroups;
+  static constexpr int kThreads = 128 + kConsumers;
+  static_assert(kBQ % 64 == 0 && kConsumerGroups <= 2,
+                "one or two consumer warpgroups of 64 rows");
+  static_assert(kBKV == 64 || kBKV == 128 || kBKV == 256,
+                "the N of an SS wgmma");
+  static_assert(D == 64 || D == 128 || D == 256, "D 64, 128 or 256");
+};
 
 struct FwdParams {
   float* o32;   // O when it is float32 (stored from the fragments)
@@ -99,6 +130,7 @@ struct FwdParams {
   int rows;     // group * q_len: the rows of one kv head
   int q_len, kv_len;
   float scale_log2e;
+  float cap2, inv_cap2;  // the soft cap in the exp2 domain (kCap kernels)
   int causal, window;
 };
 
@@ -109,13 +141,15 @@ struct FwdParams {
 // 64 columns (128-byte rows), 128-byte swizzled.
 template <int D, int P = kUnquantized>
 struct Smem {
+  static constexpr int kBQ = FwdTiles<D>::kBQ;
+  static constexpr int kBKV = FwdTiles<D>::kBKV;
   static constexpr bool kQuant = P != kUnquantized;
   static constexpr int kPanels = D / 64;
   static constexpr int kQPanel = kBQ * 128;
   static constexpr int kKVPanel = kBKV * 128;
   static constexpr int kQ = kPanels * kQPanel;
   static constexpr int kTile = kPanels * kKVPanel;  // one K or V tile
-  static constexpr int kStages = MFA_FWD90_STAGES;
+  static constexpr int kStages = FwdTiles<D>::kStages;
   static constexpr int kRawRow = P == kPrecNf4 ? D / 2 : D;  // bytes a key
   static constexpr int kRawTile = kQuant ? kBKV * kRawRow : 0;
   static constexpr int kRawStages = kQuant ? MFA_FWD90_RAW_STAGES : 0;
@@ -132,10 +166,11 @@ struct Smem {
   static_assert(kBytes <= 232448, "an H100 block's shared memory");
 };
 
-// The row tile that block x of a row of `tiles` takes.  Causal work grows
-// with a row's position t, so the heaviest tiles go first: when the tiles
-// align with the q heads, by descending t across the group's heads;
-// otherwise in reverse order.
+// The row tile that block x of a row of `tiles` (of kBQ rows) takes.
+// Causal work grows with a row's position t, so the heaviest tiles go
+// first: when the tiles align with the q heads, by descending t across the
+// group's heads; otherwise in reverse order.
+template <int kBQ>
 __device__ __forceinline__ int row_tile(const FwdParams& p, int x,
                                         int tiles) {
   if (!p.causal) return x;
@@ -147,14 +182,14 @@ __device__ __forceinline__ int row_tile(const FwdParams& p, int x,
 // S = Q K^T over one key tile, issued and committed: 64 rows of Q (this
 // warpgroup's) and the tile's keys, both K-major.
 template <int D, bool kFp16>
-__device__ __forceinline__ void issue_qk(float (&sc)[kBKV / 2],
+__device__ __forceinline__ void issue_qk(float (&sc)[FwdTiles<D>::kBKV / 2],
                                          const uint8_t* q, const uint8_t* k) {
   using namespace sm90;
   fence_operands(sc);
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk)
-    wgmma_ss<kBKV, 0, kFp16>(
+    wgmma_ss<FwdTiles<D>::kBKV, 0, kFp16>(
         sc, smem_desc(q + kk / 4 * Smem<D>::kQPanel + kk % 4 * 32, 16, 1024),
         smem_desc(k + kk / 4 * Smem<D>::kKVPanel + kk % 4 * 32, 16, 1024),
         kk > 0);
@@ -164,30 +199,32 @@ __device__ __forceinline__ void issue_qk(float (&sc)[kBKV / 2],
 // O += P V over one key tile, issued and committed: P from registers, V
 // as an MN-major B (its D axis contiguous).
 template <int D, bool kFp16>
-__device__ __forceinline__ void issue_pv(float (&o)[D / 2],
-                                         const uint32_t (&pa)[kBKV / 16][4],
-                                         const uint8_t* v) {
+__device__ __forceinline__ void issue_pv(
+    float (&o)[D / 2], const uint32_t (&pa)[FwdTiles<D>::kBKV / 16][4],
+    const uint8_t* v) {
   using namespace sm90;
   fence_operands(o);
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < kBKV / 16; ++kk)
+  for (int kk = 0; kk < FwdTiles<D>::kBKV / 16; ++kk)
     wgmma_rs<D, 1, kFp16>(o, pa[kk],
                           smem_desc(v + kk * 2048, Smem<D>::kKVPanel, 1024));
   wgmma_commit();
 }
 
 // One key tile's online softmax for a thread's two rows: the scores sc
-// scaled into the exp2 domain (keys outside [lo, hi] to -inf when kMask;
-// this thread's columns are col0 + 8 j + {0, 1}), the running max m, the
-// factor alpha by which the sums so far shrink, and P = exp2(s - m) in
-// place of sc, summed into l.  A row that has seen no key keeps m = -inf
-// and P = 0.
-template <bool kMask>
+// scaled into the exp2 domain (soft-capped when kCap: cap2 = softcap *
+// log2(e), inv_cap2 its inverse; keys outside [lo, hi] to -inf when kMask,
+// after the cap; this thread's columns are col0 + 8 j + {0, 1}), the
+// running max m, the factor alpha by which the sums so far shrink, and P =
+// exp2(s - m) in place of sc, summed into l.  A row that has seen no key
+// keeps m = -inf and P = 0.
+template <bool kMask, bool kCap, int kBKV>
 __device__ __forceinline__ void softmax_tile(float (&sc)[kBKV / 2],
                                              float (&m)[2], float (&l)[2],
                                              float (&alpha)[2],
-                                             float scale_log2e, int col0,
+                                             float scale_log2e, float cap2,
+                                             float inv_cap2, int col0,
                                              const int (&lo)[2],
                                              const int (&hi)[2]) {
   float mx[2] = {-INFINITY, -INFINITY};
@@ -196,6 +233,7 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[kBKV / 2],
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       float x = sc[4 * j + e] * scale_log2e;
+      if constexpr (kCap) x = softcap(x, cap2, inv_cap2);
       if constexpr (kMask) {
         const int col = col0 + 8 * j + e % 2;
         if (col < lo[e / 2] || col > hi[e / 2]) x = -INFINITY;
@@ -229,7 +267,7 @@ __device__ __forceinline__ void decode_tile(const uint8_t* raw, uint8_t* tile,
                                             const uint32_t* table, int pt) {
   using L = Smem<D, P>;
   constexpr int kPerRow = L::kRawRow / 16;
-  constexpr int kPieces = kBKV * kPerRow;
+  constexpr int kPieces = L::kBKV * kPerRow;
   static_assert(kPieces % 128 == 0, "whole pieces a producer thread");
   auto put = [&](int r, int col, const uint4 (&x)[2]) {
     uint8_t* panel = tile + col / 64 * L::kKVPanel;
@@ -256,29 +294,35 @@ __device__ __forceinline__ void decode_tile(const uint8_t* raw, uint8_t* tile,
   }
 }
 
-// Grid (row tiles, kv_heads, batch), kThreads threads, Smem<D, P>::kBytes
-// of dynamic shared memory.  The maps are over [b * kv_heads][rows][D] (q,
-// o) and [b * kv_heads][kv_len][D] (k, v), 16-bit elements, boxes of 64
-// columns by kBQ rows (q), kBKV rows (k, v) and 64 rows (o); for
-// quantized K/V (P a Precision, T bf16) k and v are bytes, [b * kv_heads]
-// [kv_len][L::kRawRow] in boxes of whole keys by kBKV.
-template <typename T, int D, int P = kUnquantized>
-__global__ void __launch_bounds__(kThreads, 1)
+// Grid (row tiles, kv_heads, batch), FwdTiles<D>::kThreads threads,
+// Smem<D, P>::kBytes of dynamic shared memory.  The maps are over
+// [b * kv_heads][rows][D] (q, o) and [b * kv_heads][kv_len][D] (k, v),
+// 16-bit elements, boxes of 64 columns by kBQ rows (q), kBKV rows (k, v)
+// and 64 rows (o); for quantized K/V (P a Precision, T bf16) k and v are
+// bytes, [b * kv_heads][kv_len][L::kRawRow] in boxes of whole keys by
+// kBKV.  kCap: soft-cap the logits (p.cap2).
+template <typename T, int D, int P = kUnquantized, bool kCap = false>
+__global__ void __launch_bounds__(FwdTiles<D>::kThreads, 1)
 flash_fwd90_kernel(const __grid_constant__ CUtensorMap map_q,
                    const __grid_constant__ CUtensorMap map_k,
                    const __grid_constant__ CUtensorMap map_v,
                    const __grid_constant__ CUtensorMap map_o, FwdParams p) {
   using namespace sm90;
   using L = Smem<D, P>;
+  constexpr int kBQ = L::kBQ, kBKV = L::kBKV;
+  constexpr int kConsumers = FwdTiles<D>::kConsumers;
   constexpr bool kFp16 = std::is_same<T, __half>::value;
   constexpr bool kQuant = L::kQuant;
   static_assert(!kQuant || !kFp16, "quantized K/V under bf16 queries");
+  static_assert(!kQuant || D <= 128, "quantized K/V at D 64 and 128");
   constexpr int kS = L::kStages;
   constexpr int kR = L::kRawStages;
-  // Registers a thread after setmaxnreg: the block holds 168 a thread
-  // (ptxas's budget at three warpgroups), so the producer's and the two
-  // consumer warpgroups' budgets add up to at most 3 x 168.  A quantized
-  // producer decodes tiles, and keeps more.
+  // Registers a thread after setmaxnreg: a block of three warpgroups holds
+  // 168 a thread (ptxas's budget), so the producer's and the two consumer
+  // warpgroups' budgets add up to at most 3 x 168.  A quantized producer
+  // decodes tiles, and keeps more.  A block of two warpgroups (D 256) has
+  // 255 a thread and moves none.
+  constexpr bool kMoveRegs = FwdTiles<D>::kConsumerGroups == 2;
   constexpr int kProducerRegs = kQuant ? 120 : 24;
   constexpr int kConsumerRegs = kQuant ? 192 : 240;
   static_assert(kProducerRegs + 2 * kConsumerRegs <= 3 * 168,
@@ -294,7 +338,7 @@ flash_fwd90_kernel(const __grid_constant__ CUtensorMap map_q,
 
   const int tid = threadIdx.x, lane = tid % 32;
   const int bh = blockIdx.z * gridDim.y + blockIdx.y;
-  const int r0 = row_tile(p, blockIdx.x, gridDim.x) * kBQ;
+  const int r0 = row_tile<kBQ>(p, blockIdx.x, gridDim.x) * kBQ;
   const int offset = p.kv_len - p.q_len;
   const bool causal = p.causal != 0;
 
@@ -346,7 +390,7 @@ flash_fwd90_kernel(const __grid_constant__ CUtensorMap map_q,
     // frees a step's softmax and PV before its V slot does.  Quantized
     // K/V: the stored tiles of step i land in raw stage i % kR, and the
     // whole warpgroup decodes them into the bf16 slots.
-    setmaxnreg_dec<kProducerRegs>();
+    if constexpr (kMoveRegs) setmaxnreg_dec<kProducerRegs>();
     if constexpr (!kQuant) {
       if (tid == 0 && n_tiles > 0) {
         prefetch_tensor_map(&map_q);
@@ -420,7 +464,7 @@ flash_fwd90_kernel(const __grid_constant__ CUtensorMap map_q,
   } else {
     // Consumers: warpgroup wg takes rows 64 wg .. 64 wg + 63 of the tile;
     // this thread rows ra and ra + 8 of them (the accumulator layout).
-    setmaxnreg_inc<kConsumerRegs>();
+    if constexpr (kMoveRegs) setmaxnreg_inc<kConsumerRegs>();
     const int wg = role - 1, warp = tid / 32 % 4, t4 = lane % 4;
     const int ra = r0 + 64 * wg + 16 * warp + lane / 4;
     const int row[2] = {ra, ra + 8};
@@ -468,9 +512,9 @@ flash_fwd90_kernel(const __grid_constant__ CUtensorMap map_q,
       wgmma_wait<0>();
       fence_operands(sc);
       release(k_empty, i);
-      softmax_tile<decltype(masked)::value>(
-          sc, m, l, alpha, scale_log2e, (n_hi - 1 - i) * kBKV + 2 * t4, lo,
-          hi);
+      softmax_tile<decltype(masked)::value, kCap, kBKV>(
+          sc, m, l, alpha, scale_log2e, p.cap2, p.inv_cap2,
+          (n_hi - 1 - i) * kBKV + 2 * t4, lo, hi);
 #pragma unroll
       for (int e = 0; e < D / 2; ++e) o[e] *= alpha[e % 4 / 2];
       pack_rs<T, kBKV>(pa, sc);
@@ -535,10 +579,11 @@ flash_fwd90_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
-template <typename T, int D, int P>
+template <typename T, int D, int P, bool kCap>
 int launch(const void* q, const void* k, const void* v, void* o,
            const FwdParams& p, int batch, int kv_heads, cudaStream_t s) {
   using L = Smem<D, P>;
+  constexpr int kBQ = L::kBQ, kBKV = L::kBKV;
   const long long heads = (long long)batch * kv_heads;
   const auto u16 = CU_TENSOR_MAP_DATA_TYPE_UINT16;
   const auto sw = CU_TENSOR_MAP_SWIZZLE_128B;
@@ -565,24 +610,45 @@ int launch(const void* q, const void* k, const void* v, void* o,
                                 sw);
   }
   if (!ok) return kErrTensorMap;
-  if (cudaFuncSetAttribute(flash_fwd90_kernel<T, D, P>,
+  if (cudaFuncSetAttribute(flash_fwd90_kernel<T, D, P, kCap>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            L::kBytes) != cudaSuccess)
     return (int)cudaGetLastError();
   const dim3 grid((p.rows + kBQ - 1) / kBQ, kv_heads, batch);
-  flash_fwd90_kernel<T, D, P><<<grid, kThreads, L::kBytes, s>>>(mq, mk, mv,
-                                                                mo, p);
+  flash_fwd90_kernel<T, D, P, kCap>
+      <<<grid, FwdTiles<D>::kThreads, L::kBytes, s>>>(mq, mk, mv, mo, p);
   return (int)cudaGetLastError();
 }
 
+// Quantized K/V: D 64 and 128, no cap.  K/V in q's type: D 64, 128 and
+// 256, with or without the cap.
 template <typename T, int P = kUnquantized>
 int launch_d(const void* q, const void* k, const void* v, void* o,
              const FwdParams& p, int batch, int kv_heads, int head_dim,
-             cudaStream_t s) {
-  if (head_dim == 64)
-    return launch<T, 64, P>(q, k, v, o, p, batch, kv_heads, s);
-  if (head_dim == 128)
-    return launch<T, 128, P>(q, k, v, o, p, batch, kv_heads, s);
+             bool capped, cudaStream_t s) {
+  if constexpr (P != kUnquantized) {
+    if (capped) return (int)cudaErrorInvalidValue;
+    if (head_dim == 64)
+      return launch<T, 64, P, false>(q, k, v, o, p, batch, kv_heads, s);
+    if (head_dim == 128)
+      return launch<T, 128, P, false>(q, k, v, o, p, batch, kv_heads, s);
+  } else {
+    if (head_dim == 64)
+      return capped
+                 ? launch<T, 64, P, true>(q, k, v, o, p, batch, kv_heads, s)
+                 : launch<T, 64, P, false>(q, k, v, o, p, batch, kv_heads,
+                                           s);
+    if (head_dim == 128)
+      return capped
+                 ? launch<T, 128, P, true>(q, k, v, o, p, batch, kv_heads, s)
+                 : launch<T, 128, P, false>(q, k, v, o, p, batch, kv_heads,
+                                            s);
+    if (head_dim == 256)
+      return capped
+                 ? launch<T, 256, P, true>(q, k, v, o, p, batch, kv_heads, s)
+                 : launch<T, 256, P, false>(q, k, v, o, p, batch, kv_heads,
+                                            s);
+  }
   return (int)cudaErrorInvalidValue;
 }
 
@@ -592,6 +658,8 @@ extern "C" {
 
 // q, k, v contiguous, 16-byte aligned.  o: q's dtype, or float32 when
 // o_f32; lse: float32.  is_fp16 selects fp16 inputs (else bf16).
+// head_dim 64, 128 or 256 (256 with K/V in q's type).  softcap > 0
+// soft-caps the scaled logits (K/V in q's type); 0: none.
 // window <= 0: none.  kv_precision 0: k and v in q's type; else a
 // Precision of quant_common.cuh (INT8, FP8-E4M3, FP8-E5M2, NF4) with bf16
 // queries: k, v [b, kv_heads, kv_len, D] bytes (NF4 [.., D / 2]) and
@@ -600,11 +668,11 @@ extern "C" {
 int mfa_flash_fwd(const void* q, const void* k, const void* v,
                   const void* k_scales, const void* v_scales, void* o,
                   void* lse, int batch, int q_heads, int kv_heads, int q_len,
-                  int kv_len, int head_dim, float scale, int causal,
-                  int window, int is_fp16, int o_f32, int kv_precision,
-                  void* stream) {
+                  int kv_len, int head_dim, float scale, float softcap,
+                  int causal, int window, int is_fp16, int o_f32,
+                  int kv_precision, void* stream) {
   if (batch == 0 || q_len == 0) return 0;
-  if (kv_heads <= 0 || q_heads % kv_heads || kv_len < 0)
+  if (kv_heads <= 0 || q_heads % kv_heads || kv_len < 0 || softcap < 0.f)
     return (int)cudaErrorInvalidValue;
   if (kv_precision && (is_fp16 || !k_scales || !v_scales))
     return (int)cudaErrorInvalidValue;
@@ -617,23 +685,31 @@ int mfa_flash_fwd(const void* q, const void* k, const void* v,
   p.q_len = q_len;
   p.kv_len = kv_len;
   p.scale_log2e = scale * kLog2e;
+  p.cap2 = softcap * kLog2e;
+  p.inv_cap2 = softcap > 0.f ? 1.f / p.cap2 : 0.f;
   p.causal = causal;
   p.window = window;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   using bf16 = __nv_bfloat16;
   const int hd = head_dim;
+  const bool cap = softcap > 0.f;
   switch (kv_precision) {
     case 0:
-      return is_fp16 ? launch_d<__half>(q, k, v, o, p, batch, kv_heads, hd, s)
-                     : launch_d<bf16>(q, k, v, o, p, batch, kv_heads, hd, s);
+      return is_fp16
+                 ? launch_d<__half>(q, k, v, o, p, batch, kv_heads, hd, cap, s)
+                 : launch_d<bf16>(q, k, v, o, p, batch, kv_heads, hd, cap, s);
     case kPrecInt8:
-      return launch_d<bf16, kPrecInt8>(q, k, v, o, p, batch, kv_heads, hd, s);
+      return launch_d<bf16, kPrecInt8>(q, k, v, o, p, batch, kv_heads, hd,
+                                       cap, s);
     case kPrecE4M3:
-      return launch_d<bf16, kPrecE4M3>(q, k, v, o, p, batch, kv_heads, hd, s);
+      return launch_d<bf16, kPrecE4M3>(q, k, v, o, p, batch, kv_heads, hd,
+                                       cap, s);
     case kPrecE5M2:
-      return launch_d<bf16, kPrecE5M2>(q, k, v, o, p, batch, kv_heads, hd, s);
+      return launch_d<bf16, kPrecE5M2>(q, k, v, o, p, batch, kv_heads, hd,
+                                       cap, s);
     case kPrecNf4:
-      return launch_d<bf16, kPrecNf4>(q, k, v, o, p, batch, kv_heads, hd, s);
+      return launch_d<bf16, kPrecNf4>(q, k, v, o, p, batch, kv_heads, hd,
+                                      cap, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -32,6 +32,13 @@
 // rule of the TPU; here every precision runs in this kernel at D 64 and
 // 128.
 //
+// Gemma-2 (the TPU kernel's `logit_softcap` and head_dim 256): softcap > 0
+// soft-caps every scaled logit before the mask (`softcap` in
+// attention_common.cuh), in kernels instantiated with the cap (kCap), so
+// the uncapped ones are unchanged; bf16, fp16 and fp32 at D 64 and 128,
+// bf16 and fp16 at D 256 (Q's fragments from shared memory there), K/V
+// in the queries' type.  A quantized cache takes no cap.
+//
 // K and V are addressed through their batch, head and sequence strides
 // (in elements of their storage: bytes for a quantized cache), so a slice
 // of a cache along the sequence axis needs no copy; only the last axis
@@ -51,8 +58,15 @@ struct Args {
   void *o, *lse, *part_o, *part_lse;
   int batch, q_heads, kv_heads, seq, head_dim, max_span, splits, chunk;
   const long long* strides;
-  float scale;
+  float scale, softcap;
 };
+
+template <typename T, int D, class KV, int P>
+int launch_capped(const DecodeIO<T>& io, const KV& kv, int batch,
+                  bool capped, cudaStream_t stream) {
+  return capped ? launch_decode<T, D, KV, P, true>(io, kv, batch, 0, stream)
+                : launch_decode<T, D, KV, P>(io, kv, batch, 0, stream);
+}
 
 // T: the queries' (and o's) type; S: K/V's storage (T, or the bytes of a
 // quantized cache of precision P).
@@ -69,6 +83,8 @@ int dispatch(const Args& a, cudaStream_t stream) {
   io.chunk = a.chunk;
   io.splits = a.splits;
   io.scale_log2e = a.scale * kLog2e;
+  io.cap2 = a.softcap * kLog2e;
+  io.inv_cap2 = a.softcap > 0.f ? 1.f / io.cap2 : 0.f;
   DenseKV<S> kv;
   kv.k = static_cast<const S*>(a.k);
   kv.v = static_cast<const S*>(a.v);
@@ -84,10 +100,27 @@ int dispatch(const Args& a, cudaStream_t stream) {
   kv.v_ss = a.strides[5];
   kv.seq = a.seq;
   kv.max_span = a.max_span;
-  if (a.head_dim == 64)
-    return launch_decode<T, 64, DenseKV<S>, P>(io, kv, a.batch, 0, stream);
-  if (a.head_dim == 128)
-    return launch_decode<T, 128, DenseKV<S>, P>(io, kv, a.batch, 0, stream);
+  const bool capped = a.softcap > 0.f;
+  if constexpr (P != kUnquantized) {
+    if (capped) return (int)cudaErrorInvalidValue;
+    if (a.head_dim == 64)
+      return launch_decode<T, 64, DenseKV<S>, P>(io, kv, a.batch, 0, stream);
+    if (a.head_dim == 128)
+      return launch_decode<T, 128, DenseKV<S>, P>(io, kv, a.batch, 0,
+                                                  stream);
+  } else {
+    if (a.head_dim == 64)
+      return launch_capped<T, 64, DenseKV<S>, P>(io, kv, a.batch, capped,
+                                                 stream);
+    if (a.head_dim == 128)
+      return launch_capped<T, 128, DenseKV<S>, P>(io, kv, a.batch, capped,
+                                                  stream);
+    if constexpr (!std::is_same<T, float>::value) {
+      if (a.head_dim == 256)
+        return launch_capped<T, 256, DenseKV<S>, P>(io, kv, a.batch, capped,
+                                                    stream);
+    }
+  }
   return (int)cudaErrorInvalidValue;
 }
 
@@ -96,6 +129,9 @@ int dispatch(const Args& a, cudaStream_t stream) {
 extern "C" {
 
 // dtype: 0 bf16, 1 fp16, 2 fp32 (q and o; K and V too unless quantized).
+// head_dim: 64 or 128, and 256 for bf16 and fp16 over K/V in that type.
+// softcap > 0: soft-cap the scaled logits (not over a quantized cache);
+// 0: none.
 // kv_precision: 0 for K and V in q's dtype, else the Precision of their
 // payload (quant_common.cuh: kPrecInt8, kPrecE4M3, kPrecE5M2, kPrecNf4;
 // dtype 0), with k_scales and v_scales [batch, kv_heads] float32 (null
@@ -112,17 +148,18 @@ int mfa_flash_decode(const void* q, const void* k, const void* v,
                      void* lse, void* part_o, void* part_lse, int batch,
                      int q_heads, int kv_heads, int seq, int head_dim,
                      const long long* strides, int max_span, float scale,
-                     int splits, int chunk, int dtype, int kv_precision,
-                     void* stream) {
+                     float softcap, int splits, int chunk, int dtype,
+                     int kv_precision, void* stream) {
   if (batch == 0) return 0;
   if (kv_heads <= 0 || q_heads % kv_heads ||
       q_heads / kv_heads > kDecodeMaxGroup || splits < 1 || chunk <= 0 ||
       chunk % kDecodeTile ||
-      (kv_precision != 0 && (dtype != 0 || !k_scales || !v_scales)))
+      (kv_precision != 0 && (dtype != 0 || !k_scales || !v_scales)) ||
+      softcap < 0.f)
     return (int)cudaErrorInvalidValue;
   const Args a{q, k, v, k_scales, v_scales, lens, starts, o, lse, part_o,
                part_lse, batch, q_heads, kv_heads, seq, head_dim, max_span,
-               splits, chunk, strides, scale};
+               splits, chunk, strides, scale, softcap};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   using bf16 = __nv_bfloat16;
   switch (kv_precision) {

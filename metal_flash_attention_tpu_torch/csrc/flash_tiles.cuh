@@ -13,6 +13,11 @@
 
 #define MFA_FWD90_BLOCK_Q 128   // flash_fwd: query rows per block (2 x 64)
 #define MFA_FWD90_BLOCK_KV 128  // flash_fwd: keys per tile of the ring
+// flash_fwd at head_dim 256 (Gemma-2): one consumer warpgroup, so that its
+// 128 floats of O a thread fit the registers, and 64-key tiles.
+#define MFA_FWD90_D256_BLOCK_Q 64
+#define MFA_FWD90_D256_BLOCK_KV 64
+#define MFA_FWD90_D256_STAGES 2
 #define MFA_FWD90_STAGES 2      // flash_fwd: K/V stages of the ring
 #define MFA_FWD90_RAW_STAGES 2  // flash_fwd: stored quantized K/V stages
 #define MFA_BWD90_DQ_BLOCK_Q 128   // flash_bwd_dq: query rows per block

@@ -284,7 +284,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a,
                  "131");
 }
 
-// D[64 x N] (+)= A[64 x 16] B[16 x N], N = 64 or 128, A from registers:
+// D[64 x N] (+)= A[64 x 16] B[16 x N], N = 64, 128 or 256, A from registers:
 // thread t of warp w holds a[0] = A[16w + t/4][2 (t % 4) + {0, 1}], a[1]
 // the same columns 8 rows down, a[2] and a[3] the same 8 columns on (two
 // 16-bit values a register, the lower column in the low half).  That is
@@ -295,19 +295,25 @@ template <int N, int TransB, bool Fp16 = false>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4],
                                          uint64_t desc_b, int scale_d = 1) {
-  static_assert(N == 64 || N == 128, "m64n64k16 or m64n128k16");
+  static_assert(N == 64 || N == 128 || N == 256, "m64n{64,128,256}k16");
   if constexpr (N == 64 && Fp16)
     MFA_WGMMA_RS("64", "f16", MFA_REGS32, MFA_ACC32(0),
                  "{%32, %33, %34, %35}", "36", "37", "38");
   else if constexpr (N == 64)
     MFA_WGMMA_RS("64", "bf16", MFA_REGS32, MFA_ACC32(0),
                  "{%32, %33, %34, %35}", "36", "37", "38");
-  else if constexpr (Fp16)
+  else if constexpr (N == 128 && Fp16)
     MFA_WGMMA_RS("128", "f16", MFA_REGS64, MFA_ACC64(0),
                  "{%64, %65, %66, %67}", "68", "69", "70");
-  else
+  else if constexpr (N == 128)
     MFA_WGMMA_RS("128", "bf16", MFA_REGS64, MFA_ACC64(0),
                  "{%64, %65, %66, %67}", "68", "69", "70");
+  else if constexpr (Fp16)
+    MFA_WGMMA_RS("256", "f16", MFA_REGS128, MFA_ACC128,
+                 "{%128, %129, %130, %131}", "132", "133", "134");
+  else
+    MFA_WGMMA_RS("256", "bf16", MFA_REGS128, MFA_ACC128,
+                 "{%128, %129, %130, %131}", "132", "133", "134");
 }
 
 // The bf16 SS products under their earlier names.

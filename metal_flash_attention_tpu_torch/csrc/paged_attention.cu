@@ -43,6 +43,16 @@
 // folded into the head axis) runs as a prefill with q_chunk = 1: every row
 // then sits at position len - 1, decode's semantics for any group.
 //
+// Gemma-2 (the TPU kernel's `logit_softcap`, `kv_starts` and head_dim
+// 256): softcap > 0 soft-caps every fully scaled logit, after a quantized
+// page's K scale and before the mask (`softcap` in attention_common.cuh),
+// in kernels instantiated with the cap (kCap) for every pool precision, so
+// the uncapped kernels are unchanged; `starts` [b] (null: none) is each
+// sequence's first attended position in both modes; bf16 pools also take
+// D 256, where a prefill warp's accumulator is 128 floats a thread, so Q's
+// 64 rows sit in shared memory and each 16-deep step reads its fragment
+// by ldmatrix (in registers it would take 64 more a thread and spill).
+//
 // Every function returns cudaGetLastError() after its launches.
 
 #include <climits>
@@ -72,41 +82,51 @@ struct PrefillParams {
   KV kv;
   int q_heads, q_chunk, chunk, splits;
   float scale_log2e;
+  float cap2, inv_cap2;  // the soft cap in the exp2 domain (kCap kernels)
 };
 
 template <int D>
 using PrefillRing = Ring<bf16, D, kTileN, MFA_PAGED_STAGES>;
 
 // The prefill's ring: bf16 tiles, or (P a quantized Precision) stored tiles
-// and the bf16 tile pair they decode into.
+// and the bf16 tile pair they decode into; then, at D 256, the block's 64
+// rows of Q (padded as the ring's rows); then the page-table entries.
 template <int D, class KV, int P>
 struct PrefillSmem {
   static constexpr bool kQuant = P != kUnquantized;
   using QR = QRing<P, KV::kSplitRows, D, kTileN, MFA_PAGED_STAGES>;
   static constexpr size_t kRingBytes =
       kQuant ? QR::kBytes : PrefillRing<D>::kBytes;
+  static constexpr bool kQSmem = D > 128;
+  static constexpr size_t kQBytes =
+      kQSmem ? sizeof(bf16) * kTileM * PrefillRing<D>::kStride : 0;
+  static constexpr size_t kPagesOffset = kRingBytes + kQBytes;
   static_assert(!kQuant || QR::kStride == PrefillRing<D>::kStride,
                 "one bf16 tile layout");
 };
 
-__device__ __forceinline__ bool visible(int col, int qpos, int window) {
-  return col <= qpos && (window <= 0 || col > qpos - window);
+__device__ __forceinline__ bool visible(int col, int qpos, int window,
+                                        int start) {
+  return col >= start && col <= qpos && (window <= 0 || col > qpos - window);
 }
 
 // The rows [r0, r0 + 64) of (b, h) against the key tiles [t0, t1): writes
 // o and lse when the call has one split, else this split's normalized
 // float32 partial and base-2 lse.  Warp w owns rows r0 + 16w .. + 15; lane
 // (g = lane / 4, t4 = lane % 4) holds rows g and g + 8 in the mma fragment
-// layout.
-template <int D, class KV, int P>
+// layout.  Keys before kv_start (the sequence's first attended position)
+// are masked.
+template <int D, class KV, int P, bool kCap>
 __device__ __forceinline__ void attend(const PrefillParams<KV>& p,
                                        unsigned char* smem, int* pages,
                                        bool prefetched, int b, int h, int r0,
-                                       int rows, int q0, int col_lo,
-                                       int col_hi, int t0, int t1,
-                                       size_t row_base, size_t p_row) {
+                                       int rows, int q0, int kv_start,
+                                       int col_lo, int col_hi, int t0,
+                                       int t1, size_t row_base,
+                                       size_t p_row) {
   using R = PrefillRing<D>;
-  using QR = typename PrefillSmem<D, KV, P>::QR;
+  using L = PrefillSmem<D, KV, P>;
+  using QR = typename L::QR;
   using Rows = typename KV::Rows;
   constexpr int kStride = R::kStride;
   const int qc = p.q_chunk, window = p.kv.window;
@@ -119,13 +139,22 @@ __device__ __forceinline__ void attend(const PrefillParams<KV>& p,
       reinterpret_cast<uint32_t*>(smem + QR::kRingBytes + QR::kWorkBytes);
   fill_nf4_table<QR>(table);
 
-  // This lane's two rows, their query positions, and Q as A fragments.
+  // This lane's two rows, their query positions, and Q as A fragments
+  // (at D 256 the block's rows go to shared memory instead, zero past the
+  // last row; the barrier before the key loop publishes them).
   const int wr = r0 + 16 * warp;
   const bool warp_live = wr < rows;
   const int ra = wr + g, rb = wr + g + 8;
   const int qpos_a = q0 + ra % qc, qpos_b = q0 + rb % qc;
-  uint32_t qf[D / 16][4];
-  {
+  uint32_t qf[L::kQSmem ? 1 : D / 16][4];
+  bf16* qsm = reinterpret_cast<bf16*>(smem + L::kRingBytes);
+  if constexpr (L::kQSmem) {
+    for (int i = tid; i < kTileM * (D / 2); i += kThreads) {
+      const int r = i / (D / 2), c = 2 * (i % (D / 2));
+      *reinterpret_cast<uint32_t*>(qsm + r * kStride + c) =
+          r0 + r < rows ? ld_u32(p.q + (row_base + r0 + r) * D + c) : 0u;
+    }
+  } else {
     const bf16* qa = p.q + (row_base + ra) * D;
     const bf16* qb = p.q + (row_base + rb) * D;
 #pragma unroll
@@ -156,6 +185,10 @@ __device__ __forceinline__ void attend(const PrefillParams<KV>& p,
   const int mi = lane >> 3, r8 = lane & 7;
   const int k_off = ((mi >> 1) * 8 + r8) * kStride + (mi & 1) * 8;
   const int v_off = ((mi & 1) * 8 + r8) * kStride + (mi >> 1) * 8;
+  // Q from shared memory: the warp's rows, matrix mi rows (mi & 1) * 8 ..
+  // and columns (mi >> 1) * 8 .. of a 16-deep step.
+  const int q_off =
+      (16 * warp + (mi & 1) * 8 + r8) * kStride + (mi >> 1) * 8;
 
   __syncthreads();  // the page entries (and the NF4 table) are in
   // One tile: ks / vs the bf16 tiles, ksc / vsc a quantized pool's per-key
@@ -164,10 +197,10 @@ __device__ __forceinline__ void attend(const PrefillParams<KV>& p,
                   const float* vsc) {
     int pmin, pmax;  // the tile's least and greatest key position
     tile_span<kTileN>(kv_rows, t, pmin, pmax);
-    if (!warp_live || pmin > q_far ||
+    if (!warp_live || pmin > q_far || pmax < kv_start ||
         (window > 0 && pmax <= q_near - window))
       return;
-    const bool edge = pmax > q_near ||
+    const bool edge = pmax > q_near || pmin < kv_start ||
                       (window > 0 && pmin <= q_far - window);
 
     // S = Q K^T for this warp's 16 rows x kTileN keys.
@@ -176,14 +209,22 @@ __device__ __forceinline__ void attend(const PrefillParams<KV>& p,
     for (int nt = 0; nt < kTileN / 8; ++nt)
       s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t qa[4];
+      if constexpr (L::kQSmem) {
+        ldsm_x4(qa, qsm + q_off + kk * 16);
+      } else {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) qa[r] = qf[kk][r];
+      }
 #pragma unroll
       for (int np = 0; np < kTileN / 16; ++np) {
         uint32_t kb[4];
         ldsm_x4(kb, ks + k_off + np * 16 * kStride + kk * 16);
-        mma_16816(s[2 * np], qf[kk], kb[0], kb[1]);
-        mma_16816(s[2 * np + 1], qf[kk], kb[2], kb[3]);
+        mma_16816(s[2 * np], qa, kb[0], kb[1]);
+        mma_16816(s[2 * np + 1], qa, kb[2], kb[3]);
       }
+    }
 
     // Mask (edge tiles only), scale into the exp2 domain, online
     // softmax update.
@@ -199,9 +240,13 @@ __device__ __forceinline__ void attend(const PrefillParams<KV>& p,
           sa *= ksc[o];
           sb *= ksc[o];
         }
-        s[nt][e] = !edge || visible(col, qpos_a, window) ? sa
-                                                         : -INFINITY;
-        s[nt][2 + e] = !edge || visible(col, qpos_b, window)
+        if constexpr (kCap) {
+          sa = softcap(sa, p.cap2, p.inv_cap2);
+          sb = softcap(sb, p.cap2, p.inv_cap2);
+        }
+        s[nt][e] = !edge || visible(col, qpos_a, window, kv_start)
+                       ? sa : -INFINITY;
+        s[nt][2 + e] = !edge || visible(col, qpos_b, window, kv_start)
                            ? sb : -INFINITY;
         mx_a = fmaxf(mx_a, s[nt][e]);
         mx_b = fmaxf(mx_b, s[nt][2 + e]);
@@ -261,7 +306,7 @@ __device__ __forceinline__ void attend(const PrefillParams<KV>& p,
       }
     }
   };
-  if constexpr (PrefillSmem<D, KV, P>::kQuant) {
+  if constexpr (L::kQuant) {
     qring_loop<QR, kThreads>(smem, table, kv_rows, t0, t1, col_lo,
                              col_hi + 1, step);
   } else {
@@ -307,13 +352,13 @@ __device__ __forceinline__ void attend(const PrefillParams<KV>& p,
 
 // One block: rows [64 r, 64 r + 64) of one (sequence, kv head) against the
 // key tiles of split s of their visible range, for blockIdx.x = r * splits
-// + s.
-template <int D, class KV, int P>
+// + s.  kCap: soft-cap the logits (p.cap2).
+template <int D, class KV, int P, bool kCap>
 __global__ void __launch_bounds__(kThreads)
 paged_prefill90_kernel(PrefillParams<KV> p) {
   extern __shared__ __align__(128) unsigned char smem[];
   int* pages =
-      reinterpret_cast<int*>(smem + PrefillSmem<D, KV, P>::kRingBytes);
+      reinterpret_cast<int*>(smem + PrefillSmem<D, KV, P>::kPagesOffset);
 
   const int row_tile = blockIdx.x / p.splits, split = blockIdx.x % p.splits;
   const int h = blockIdx.y, b = blockIdx.z;
@@ -334,8 +379,10 @@ paged_prefill90_kernel(PrefillParams<KV> p) {
     t_max = r_last % qc;
   }
   const int q0 = kv_len - qc;  // position of query t = 0
+  const int kv_start = p.kv.starts ? max(p.kv.starts[b], 0) : 0;
   const int col_hi = q0 + t_max;
-  const int col_lo = window > 0 ? max(0, q0 + t_min - window + 1) : 0;
+  const int col_lo =
+      max(kv_start, window > 0 ? max(0, q0 + t_min - window + 1) : 0);
   int first, last;
   tile_range<kTileN>(p.kv, col_lo, col_hi + 1, first, last);
   const int t0 = first + split * (p.chunk / kTileN);
@@ -355,27 +402,29 @@ paged_prefill90_kernel(PrefillParams<KV> p) {
       }
     }
   } else {
-    attend<D, KV, P>(p, smem, pages, prefetched, b, h, r0, rows, q0,
-                     col_lo, col_hi, t0, t1, row_base, p_row);
+    attend<D, KV, P, kCap>(p, smem, pages, prefetched, b, h, r0, rows, q0,
+                           kv_start, col_lo, col_hi, t0, t1, row_base,
+                           p_row);
   }
 }
 
-template <int D, class KV, int P>
+template <int D, class KV, int P, bool kCap>
 int launch_prefill(const PrefillParams<KV>& p, int batch,
                    cudaStream_t stream) {
   const int rows = p.q_heads / p.kv.kv_heads * p.q_chunk;
   const size_t smem =
-      PrefillSmem<D, KV, P>::kRingBytes +
+      PrefillSmem<D, KV, P>::kPagesOffset +
       sizeof(int) * pages_capacity(p.chunk, p.kv.page_size);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        paged_prefill90_kernel<D, KV, P>,
+        paged_prefill90_kernel<D, KV, P, kCap>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const dim3 grid(((rows + kTileM - 1) / kTileM) * p.splits, p.kv.kv_heads,
                   batch);
-  paged_prefill90_kernel<D, KV, P><<<grid, kThreads, smem, stream>>>(p);
+  paged_prefill90_kernel<D, KV, P, kCap>
+      <<<grid, kThreads, smem, stream>>>(p);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || p.splits == 1) return (int)e;
   merge_splits<bf16, D>(p.part_o, p.part_lse, p.o, p.lse, rows,
@@ -385,10 +434,11 @@ int launch_prefill(const PrefillParams<KV>& p, int batch,
 
 // The interface's pointers and sizes, untyped.
 struct Args {
-  const void *q, *k_pool, *v_pool, *k_scales, *v_scales, *table, *lengths;
+  const void *q, *k_pool, *v_pool, *k_scales, *v_scales, *table, *lengths,
+      *starts;
   void *o, *lse, *part_o, *part_lse;
   int batch, q_heads, kv_heads, q_chunk, head_dim, page_size, max_pages;
-  float scale;
+  float scale, softcap;
   int window, splits, chunk;
 };
 
@@ -403,6 +453,7 @@ PagedKV<S, kSplit> make_kv(const Args& a) {
   kv.v_scales = static_cast<const float*>(a.v_scales);
   kv.table = static_cast<const int*>(a.table);
   kv.lengths = static_cast<const int*>(a.lengths);
+  kv.starts = static_cast<const int*>(a.starts);
   kv.kv_heads = a.kv_heads;
   kv.head_dim = a.head_dim;
   kv.page_size = a.page_size;
@@ -412,8 +463,8 @@ PagedKV<S, kSplit> make_kv(const Args& a) {
   return kv;
 }
 
-// The two modes, each at one head dim, storage and precision.
-template <int D, typename S, bool kSplit, int P>
+// The two modes, each at one head dim, storage, precision and cap.
+template <int D, typename S, bool kSplit, int P, bool kCap>
 struct Prefill {
   static int run(const Args& a, cudaStream_t stream) {
     PrefillParams<PagedKV<S, kSplit>> p;
@@ -428,11 +479,14 @@ struct Prefill {
     p.chunk = a.chunk;
     p.splits = a.splits;
     p.scale_log2e = a.scale * kLog2e;
-    return launch_prefill<D, PagedKV<S, kSplit>, P>(p, a.batch, stream);
+    p.cap2 = a.softcap * kLog2e;
+    p.inv_cap2 = kCap ? 1.f / p.cap2 : 0.f;
+    return launch_prefill<D, PagedKV<S, kSplit>, P, kCap>(p, a.batch,
+                                                          stream);
   }
 };
 
-template <int D, typename S, bool kSplit, int P>
+template <int D, typename S, bool kSplit, int P, bool kCap>
 struct Decode {
   static int run(const Args& a, cudaStream_t stream) {
     DecodeIO<bf16> io;
@@ -446,38 +500,51 @@ struct Decode {
     io.chunk = a.chunk;
     io.splits = a.splits;
     io.scale_log2e = a.scale * kLog2e;
-    return launch_decode<bf16, D, PagedKV<S, kSplit>, P>(
+    io.cap2 = a.softcap * kLog2e;
+    io.inv_cap2 = kCap ? 1.f / io.cap2 : 0.f;
+    return launch_decode<bf16, D, PagedKV<S, kSplit>, P, kCap>(
         io, make_kv<S, kSplit>(a), a.batch,
         pages_capacity(a.chunk, a.page_size), stream);
   }
 };
 
-// One mode at the pools' precision and head dim.
-template <template <int, typename, bool, int> class Mode>
-int dispatch(const Args& a, int precision, cudaStream_t s) {
+// One mode at the pools' precision, head dim and cap.  D 256 takes bf16
+// pools.
+template <template <int, typename, bool, int, bool> class Mode, bool kCap>
+int dispatch_cap(const Args& a, int precision, cudaStream_t s) {
+  if (a.head_dim == 256)
+    return precision == kPrecBf16
+               ? Mode<256, bf16, false, kUnquantized, kCap>::run(a, s)
+               : (int)cudaErrorInvalidValue;
   if (a.head_dim != 64 && a.head_dim != 128)
     return (int)cudaErrorInvalidValue;
   const bool d64 = a.head_dim == 64;
   switch (precision) {
     case kPrecBf16:
-      return d64 ? Mode<64, bf16, false, kUnquantized>::run(a, s)
-                 : Mode<128, bf16, false, kUnquantized>::run(a, s);
+      return d64 ? Mode<64, bf16, false, kUnquantized, kCap>::run(a, s)
+                 : Mode<128, bf16, false, kUnquantized, kCap>::run(a, s);
     case kPrecInt8:
-      return d64 ? Mode<64, uint8_t, false, kPrecInt8>::run(a, s)
-                 : Mode<128, uint8_t, false, kPrecInt8>::run(a, s);
+      return d64 ? Mode<64, uint8_t, false, kPrecInt8, kCap>::run(a, s)
+                 : Mode<128, uint8_t, false, kPrecInt8, kCap>::run(a, s);
     case kPrecE4M3:
-      return d64 ? Mode<64, uint8_t, false, kPrecE4M3>::run(a, s)
-                 : Mode<128, uint8_t, false, kPrecE4M3>::run(a, s);
+      return d64 ? Mode<64, uint8_t, false, kPrecE4M3, kCap>::run(a, s)
+                 : Mode<128, uint8_t, false, kPrecE4M3, kCap>::run(a, s);
     case kPrecE5M2:
-      return d64 ? Mode<64, uint8_t, false, kPrecE5M2>::run(a, s)
-                 : Mode<128, uint8_t, false, kPrecE5M2>::run(a, s);
+      return d64 ? Mode<64, uint8_t, false, kPrecE5M2, kCap>::run(a, s)
+                 : Mode<128, uint8_t, false, kPrecE5M2, kCap>::run(a, s);
     case kPrecNf4:
       if (a.page_size % 2) return (int)cudaErrorInvalidValue;
-      return d64 ? Mode<64, uint8_t, true, kPrecNf4>::run(a, s)
-                 : Mode<128, uint8_t, true, kPrecNf4>::run(a, s);
+      return d64 ? Mode<64, uint8_t, true, kPrecNf4, kCap>::run(a, s)
+                 : Mode<128, uint8_t, true, kPrecNf4, kCap>::run(a, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+template <template <int, typename, bool, int, bool> class Mode>
+int dispatch(const Args& a, int precision, cudaStream_t s) {
+  return a.softcap > 0.f ? dispatch_cap<Mode, true>(a, precision, s)
+                         : dispatch_cap<Mode, false>(a, precision, s);
 }
 
 }  // namespace
@@ -491,42 +558,49 @@ extern "C" {
 // (unused when splits is 1), which `merge_splits` merges.  precision: the
 // pools' Precision (quant_common.cuh): kPrecBf16, or kPrecInt8 / kPrecE4M3
 // / kPrecE5M2 / kPrecNf4 with k_scales and v_scales [pages, kv_heads]
-// float32 (null for bf16 pools); q and o are bf16 either way.
+// float32 (null for bf16 pools); q and o are bf16 either way.  head_dim 64
+// or 128, and 256 over bf16 pools.  starts: int [b] each sequence's first
+// attended position, or null; softcap > 0 soft-caps the logits, 0 none.
 int mfa_paged_prefill(const void* q, const void* k_pool, const void* v_pool,
                       const void* k_scales, const void* v_scales,
-                      const void* table, const void* lengths, void* o,
-                      void* lse, int batch, int q_heads, int kv_heads,
-                      int q_chunk, int head_dim, int page_size,
-                      int max_pages, float scale, int window, void* part_o,
+                      const void* table, const void* lengths,
+                      const void* starts, void* o, void* lse, int batch,
+                      int q_heads, int kv_heads, int q_chunk, int head_dim,
+                      int page_size, int max_pages, float scale,
+                      float softcap, int window, void* part_o,
                       void* part_lse, int splits, int chunk, int precision,
                       void* stream) {
   if (batch == 0 || q_chunk == 0) return 0;
   if (kv_heads <= 0 || q_heads % kv_heads || page_size <= 0 || splits < 1 ||
-      chunk <= 0 || chunk % kTileN ||
+      chunk <= 0 || chunk % kTileN || softcap < 0.f ||
       (precision != kPrecBf16 && (!k_scales || !v_scales)))
     return (int)cudaErrorInvalidValue;
   const Args a{q, k_pool, v_pool, k_scales, v_scales, table, lengths,
-               o, lse, part_o, part_lse, batch, q_heads, kv_heads, q_chunk,
-               head_dim, page_size, max_pages, scale, window, splits, chunk};
+               starts, o, lse, part_o, part_lse, batch, q_heads, kv_heads,
+               q_chunk, head_dim, page_size, max_pages, scale, softcap,
+               window, splits, chunk};
   return dispatch<Prefill>(a, precision, static_cast<cudaStream_t>(stream));
 }
 
 int mfa_paged_decode(const void* q, const void* k_pool, const void* v_pool,
                      const void* k_scales, const void* v_scales,
-                     const void* table, const void* lengths, void* o,
-                     void* lse, int batch, int q_heads, int kv_heads,
-                     int q_chunk, int head_dim, int page_size, int max_pages,
-                     float scale, int window, void* part_o, void* part_lse,
-                     int splits, int chunk, int precision, void* stream) {
+                     const void* table, const void* lengths,
+                     const void* starts, void* o, void* lse, int batch,
+                     int q_heads, int kv_heads, int q_chunk, int head_dim,
+                     int page_size, int max_pages, float scale,
+                     float softcap, int window, void* part_o,
+                     void* part_lse, int splits, int chunk, int precision,
+                     void* stream) {
   if (batch == 0) return 0;
   if (q_chunk != 1 || kv_heads <= 0 || q_heads % kv_heads ||
       q_heads / kv_heads > kDecodeMaxGroup || page_size <= 0 ||
-      splits < 1 || chunk <= 0 || chunk % kDecodeTile ||
+      splits < 1 || chunk <= 0 || chunk % kDecodeTile || softcap < 0.f ||
       (precision != kPrecBf16 && (!k_scales || !v_scales)))
     return (int)cudaErrorInvalidValue;
   const Args a{q, k_pool, v_pool, k_scales, v_scales, table, lengths,
-               o, lse, part_o, part_lse, batch, q_heads, kv_heads, q_chunk,
-               head_dim, page_size, max_pages, scale, window, splits, chunk};
+               starts, o, lse, part_o, part_lse, batch, q_heads, kv_heads,
+               q_chunk, head_dim, page_size, max_pages, scale, softcap,
+               window, splits, chunk};
   return dispatch<Decode>(a, precision, static_cast<cudaStream_t>(stream));
 }
 

@@ -45,12 +45,20 @@ _TILE_PREFIX = {AttentionKernelType.FORWARD: "FWD90",
 
 
 @functools.cache
-def kernel_tiles() -> dict[AttentionKernelType, tuple[int, int]]:
-    """(block_q, block_kv) of each CUDA kernel, as `csrc/flash_tiles.cuh`
-    defines them for the kernels."""
+def kernel_tiles(head_dim: int = 128
+                 ) -> dict[AttentionKernelType, tuple[int, int]]:
+    """(block_q, block_kv) of each CUDA kernel at ``head_dim``, as
+    `csrc/flash_tiles.cuh` defines them for the kernels (the forward has
+    its own at head_dim 256)."""
     defines = tile_defines()
-    return {kind: (defines[f"MFA_{p}_BLOCK_Q"], defines[f"MFA_{p}_BLOCK_KV"])
-            for kind, p in _TILE_PREFIX.items()}
+
+    def prefix(kind):
+        p = _TILE_PREFIX[kind]
+        wide = kind is AttentionKernelType.FORWARD and head_dim > 128
+        return f"MFA_{p}_D256" if wide else f"MFA_{p}"
+    return {kind: (defines[f"{prefix(kind)}_BLOCK_Q"],
+                   defines[f"{prefix(kind)}_BLOCK_KV"])
+            for kind in _TILE_PREFIX}
 
 
 @dataclass(frozen=True)
@@ -99,7 +107,7 @@ class AttentionDescriptor:
 
     def kernel_config(self, kernel_type: AttentionKernelType) -> KernelConfig:
         """The fixed tile of ``kernel_type``'s CUDA kernel."""
-        block_q, block_kv = kernel_tiles()[kernel_type]
+        block_q, block_kv = kernel_tiles(self.head_dim)[kernel_type]
         return KernelConfig(kernel_type=kernel_type, block_q=block_q,
                             block_kv=block_kv, head_dim=self.head_dim,
                             compute_dtype=self.input_precision.compute_dtype)

@@ -1,3 +1,3 @@
-"""Model layer of the port: the Llama family's building blocks
-(`llama`), the paged serving steps (`serving`) and the
+"""Model layer of the port: the Llama and Gemma-2 families' building
+blocks (`llama`, `gemma`), the serving steps (`serving`) and the
 continuous-batching engine (`engine`)."""

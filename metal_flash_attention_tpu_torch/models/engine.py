@@ -23,6 +23,11 @@ host loop a production deployment runs around the paged kernels:
   retries once;
 - one `step()` = admissions + one prefill chunk per prefilling slot +
   one batched `serving.paged_decode_step` for every active slot;
+- family hooks: ``chunk_step=`` and ``decode_step=`` replace the Llama
+  steps (`serving.gemma_paged_chunk_step` and
+  `serving.gemma_paged_decode_step` serve Gemma-2); the decode hook is
+  also each burst step of `step_burst`, and both compose with sampling,
+  logprobs, logit bias and the prefix cache;
 - `step_burst(k)`: k decode steps for every active slot with the tokens
   fed back on the device (`serving.paged_decode_burst`): its inputs go
   up in one copy, and its tokens, valid flags and logprobs come back in
@@ -49,9 +54,8 @@ slot's full and tail lengths, so no length is read back, and knows from
 them which rows may fill a page at each step (`serving.flush_schedule`).
 
 The pools live on the parameters' device and are updated in place.  The
-LoRA, speculative, tensor-parallel and Gemma-family (``chunk_step`` /
-``decode_step``) features of the JAX engine raise NotImplementedError
-(ROADMAP.md).
+LoRA, speculative and tensor-parallel features of the JAX engine raise
+NotImplementedError (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -126,7 +130,8 @@ class _Request:
 
 
 class ServingEngine:
-    """Continuous-batching engine for the Llama family.
+    """Continuous-batching engine for the Llama family, and for another
+    family through its ``chunk_step`` / ``decode_step`` hooks.
 
     >>> eng = ServingEngine(params, cfg, max_batch=4, num_pages=256)
     >>> rid = eng.submit(prompt_tokens, max_new_tokens=64)
@@ -157,8 +162,6 @@ class ServingEngine:
                              "kv_sharding / custom step overrides")
         # draft_len and draft_history only matter with draft_fn.
         for value, what, item in (
-                (custom, "family step overrides (chunk_step / "
-                 "decode_step)", "paged-kernel options for Gemma and sinks"),
                 (kv_sharding, "tensor-parallel pools (kv_sharding)",
                  "tensor-parallel serving"),
                 (draft_fn, "speculative decoding (draft_fn)",
@@ -171,6 +174,9 @@ class ServingEngine:
                              f"{admissions_per_step}")
         self.params = params
         self.cfg = cfg
+        # Family hooks (None: the Llama steps, looked up at each call).
+        self._chunk_step = chunk_step
+        self._decode_step = decode_step
         self.page_size = page_size
         self.max_pages = -(-max_seq // page_size)
         self.admissions_per_step = admissions_per_step
@@ -429,7 +435,8 @@ class ServingEngine:
                 k=tuple(self._k), v=tuple(self._v), page_table=table_t,
                 lengths=len_t[0])
             toks, valid, lps, _, _ = serving.paged_decode_burst(
-                self.params, tok_t, self.cfg, cache, **common)
+                self.params, tok_t, self.cfg, cache,
+                step_fn=self._decode_step, **common)
         # ONE device-to-host read for all three outputs.
         out = torch.stack([toks, valid.to(torch.int32),
                            lps.view(torch.int32)]).cpu().numpy()
@@ -630,7 +637,7 @@ class ServingEngine:
                 req.prompt[None, pos:pos + self.page_size],
                 device=self.device)
             if self._kv_precision is None:
-                logits, _ = serving.paged_chunk_step(
+                logits, _ = (self._chunk_step or serving.paged_chunk_step)(
                     self.params, chunk, self.cfg,
                     self._cache(req.pages[None, :],
                                 np.full((1,), pos, np.int32)))
@@ -677,7 +684,7 @@ class ServingEngine:
                 active[i] = True
         token_t = torch.as_tensor(tokens, device=self.device)
         if self._kv_precision is None:
-            logits, _ = serving.paged_decode_step(
+            logits, _ = (self._decode_step or serving.paged_decode_step)(
                 self.params, token_t, self.cfg,
                 self._cache(self._table, self._lengths))
         else:

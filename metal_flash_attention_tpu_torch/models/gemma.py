@@ -1,0 +1,265 @@
+"""Gemma-2 transformer in PyTorch.
+
+The port of the JAX package's `models/gemma.py`, the second model family
+and the one that runs the kernel options Llama does not:
+
+- alternating local and global attention: even layers attend through a
+  sliding window (``sliding_window``), odd layers causally over
+  everything;
+- logit soft-capping: cap * tanh(s / cap) on the attention logits (in
+  the kernels, ``attn_logit_softcap``) and on the final logits
+  (``final_logit_softcap``);
+- head_dim 256 with 8 query and 4 KV heads at `gemma2_2b`;
+- Gemma's conventions: RMSNorm with a (1 + w) gain, norms before and
+  after both attention and the MLP, a GeGLU MLP (tanh GELU), the
+  embedding scaled by sqrt(dim), and the embedding tied to the LM head.
+
+Attention goes through `dispatch.attention` (the fused forward, which
+takes the soft cap and head_dim 256), as in the JAX package.  Parameters
+are a plain dict of tensors with the JAX package's names and layouts
+(projections [in, out]; norm gains float32).  Large products stay
+`torch.matmul`.  Not ported yet: sharded attention (``mesh=``,
+`param_shardings`) and training (`loss_fn`, `train_step`: the backward
+kernels take neither the soft cap nor head_dim 256).
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from metal_flash_attention_tpu_torch import dispatch
+from metal_flash_attention_tpu_torch.models.llama import (
+    apply_rope,
+    rope_frequencies,
+)
+from metal_flash_attention_tpu_torch.utils.device import resolve_device
+from metal_flash_attention_tpu_torch.utils.errors import not_ported
+
+TRAINING_ITEM = "Gemma training"
+TP_ITEM = "tensor-parallel serving"
+
+
+@dataclass(frozen=True)
+class GemmaConfig:
+    vocab_size: int = 256128
+    dim: int = 2304
+    n_layers: int = 26
+    n_heads: int = 8
+    n_kv_heads: int = 4
+    head_dim: int = 256
+    hidden_dim: int = 9216
+    rope_theta: float = 10000.0
+    norm_eps: float = 1e-6
+    sliding_window: int = 4096
+    attn_logit_softcap: Optional[float] = 50.0
+    final_logit_softcap: Optional[float] = 30.0
+    # Gemma-2 27B scales queries by 1/sqrt(query_pre_attn_scalar), not
+    # 1/sqrt(head_dim).
+    query_pre_attn_scalar: Optional[float] = None
+    dtype: torch.dtype = torch.bfloat16
+
+    @property
+    def attn_scale(self) -> float:
+        s = self.query_pre_attn_scalar or self.head_dim
+        return 1.0 / math.sqrt(s)
+
+    @staticmethod
+    def tiny(**kw) -> "GemmaConfig":
+        """Test-scale config (a window below the tests' prompts)."""
+        defaults = dict(vocab_size=256, dim=128, n_layers=2, n_heads=4,
+                        n_kv_heads=2, head_dim=32, hidden_dim=256,
+                        sliding_window=64)
+        defaults.update(kw)
+        return GemmaConfig(**defaults)
+
+    @staticmethod
+    def gemma2_2b(**kw) -> "GemmaConfig":
+        return GemmaConfig(**kw)
+
+
+def is_local_layer(i: int) -> bool:
+    """Gemma-2's alternation: even layers sliding-window, odd global."""
+    return i % 2 == 0
+
+
+def layer_window(cfg: GemmaConfig, i: int) -> Optional[int]:
+    """Layer i's attention window: the sliding window on a local layer,
+    None on a global one."""
+    return cfg.sliding_window if is_local_layer(i) else None
+
+
+def init_params(cfg: GemmaConfig, generator: torch.Generator,
+                device=None) -> dict:
+    """Random parameters: normal / sqrt(fan_in) in float32, cast to
+    ``cfg.dtype``; norm gains are zeros (a gain of 1 + 0), in float32.
+    ``device=None`` means the card; ``generator`` must live on the same
+    device."""
+    device = resolve_device(device)
+
+    def dense(shape):
+        w = torch.randn(shape, generator=generator, dtype=torch.float32,
+                        device=device)
+        return (w / math.sqrt(shape[0])).to(cfg.dtype)
+
+    def gain():
+        return torch.zeros((cfg.dim,), dtype=torch.float32, device=device)
+
+    qkv = cfg.n_heads * cfg.head_dim
+    kv = cfg.n_kv_heads * cfg.head_dim
+    layers = [{
+        "wq": dense((cfg.dim, qkv)),
+        "wk": dense((cfg.dim, kv)),
+        "wv": dense((cfg.dim, kv)),
+        "wo": dense((qkv, cfg.dim)),
+        "w_gate": dense((cfg.dim, cfg.hidden_dim)),
+        "w_up": dense((cfg.dim, cfg.hidden_dim)),
+        "w_down": dense((cfg.hidden_dim, cfg.dim)),
+        "pre_attn_norm": gain(),
+        "post_attn_norm": gain(),
+        "pre_mlp_norm": gain(),
+        "post_mlp_norm": gain(),
+    } for _ in range(cfg.n_layers)]
+    return {
+        # Tied embedding and LM head.
+        "embed": dense((cfg.vocab_size, cfg.dim)),
+        "layers": layers,
+        "final_norm": gain(),
+    }
+
+
+def param_shardings(cfg: GemmaConfig, mesh) -> dict:
+    raise not_ported("Gemma parameter shardings (mesh=)", TP_ITEM)
+
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    """Gemma RMSNorm in float32, the gain applied as (1 + w), cast back to
+    x's dtype."""
+    x32 = x.float()
+    var = (x32 * x32).mean(dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps) * (1.0 + w)).to(x.dtype)
+
+
+def embed(params: dict, tokens: torch.Tensor,
+          cfg: GemmaConfig) -> torch.Tensor:
+    """Token embeddings in the model dtype, scaled by sqrt(dim) rounded
+    to that dtype (Gemma's scaling)."""
+    x = params["embed"][tokens.long()].to(cfg.dtype)
+    return x * torch.tensor(math.sqrt(cfg.dim), dtype=cfg.dtype,
+                            device=x.device)
+
+
+def final_softcap(logits: torch.Tensor, cfg: GemmaConfig) -> torch.Tensor:
+    """cap * tanh(logits / cap) with the final-logit cap, if any."""
+    cap = cfg.final_logit_softcap
+    return logits if cap is None else cap * torch.tanh(logits / cap)
+
+
+def lm_head(params: dict, x: torch.Tensor, cfg: GemmaConfig) -> torch.Tensor:
+    """Final-norm hidden states -> soft-capped float32 logits (the tied
+    head)."""
+    return final_softcap((x @ params["embed"].T).float(), cfg)
+
+
+def attention_qkv(layer: dict, x: torch.Tensor, cfg: GemmaConfig, cos, sin):
+    """pre_attn_norm -> QKV projections -> rope.  Returns q [b, q_heads,
+    s, d] and k/v [b, kv_heads, s, d]."""
+    b, s, _ = x.shape
+    h = rms_norm(x, layer["pre_attn_norm"], cfg.norm_eps)
+    q = (h @ layer["wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
+    k = (h @ layer["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    v = (h @ layer["wv"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    q = apply_rope(q.transpose(1, 2), cos, sin)
+    k = apply_rope(k.transpose(1, 2), cos, sin)
+    return q, k, v.transpose(1, 2)
+
+
+def attention_out(layer: dict, o: torch.Tensor, x: torch.Tensor,
+                  cfg: GemmaConfig) -> torch.Tensor:
+    """Attention's output o [b, s, q_heads * d] through wo and
+    post_attn_norm, added to the residual x."""
+    o = (o @ layer["wo"]).to(x.dtype)
+    return x + rms_norm(o, layer["post_attn_norm"], cfg.norm_eps)
+
+
+def attention_block(layer: dict, x: torch.Tensor, cfg: GemmaConfig, cos,
+                    sin, *, window: Optional[int],
+                    kv_cache: Optional[tuple] = None, mesh=None):
+    """x [batch, seq, dim] -> (x + attention, (k, v)); causal, within
+    ``window`` when given, the logits soft-capped.  With ``kv_cache =
+    (k_prefix, v_prefix)`` the new K/V are appended to the prefix."""
+    if mesh is not None:
+        raise not_ported("sharded attention (mesh=)", TP_ITEM)
+    b, s, _ = x.shape
+    q, k, v = attention_qkv(layer, x, cfg, cos, sin)
+    if kv_cache is not None:
+        k = torch.cat([kv_cache[0], k], dim=2)
+        v = torch.cat([kv_cache[1], v], dim=2)
+    o = dispatch.attention(q, k, v, causal=True, window_size=window,
+                           scale=cfg.attn_scale,
+                           logit_softcap=cfg.attn_logit_softcap)
+    return attention_out(layer, o.transpose(1, 2).reshape(b, s, -1), x,
+                         cfg), (k, v)
+
+
+def mlp_block(layer: dict, x: torch.Tensor, cfg: GemmaConfig) -> torch.Tensor:
+    """Residual GeGLU MLP: the tanh GELU and the gate product in float32,
+    the down projection in the model dtype, then post_mlp_norm."""
+    h = rms_norm(x, layer["pre_mlp_norm"], cfg.norm_eps)
+    gate = F.gelu((h @ layer["w_gate"]).float(), approximate="tanh")
+    up = (h @ layer["w_up"]).float()
+    o = ((gate * up).to(x.dtype) @ layer["w_down"]).to(x.dtype)
+    return x + rms_norm(o, layer["post_mlp_norm"], cfg.norm_eps)
+
+
+def forward_hidden(params: dict, tokens: torch.Tensor, cfg: GemmaConfig, *,
+                   positions: Optional[torch.Tensor] = None,
+                   kv_caches: Optional[list] = None, mesh=None,
+                   remat: bool = False):
+    """tokens [batch, seq] -> (final-norm hidden states [batch, seq,
+    dim], per-layer (k, v)): everything before the tied head.
+    ``remat=True`` checkpoints each layer (`torch.utils.checkpoint`)."""
+    b, s = tokens.shape
+    if positions is None:
+        positions = torch.arange(s, device=tokens.device).expand(b, s)
+    cos, sin = rope_frequencies(cfg, positions)
+    x = embed(params, tokens, cfg)
+
+    def one_layer(layer, x, cache, window):
+        x, kv = attention_block(layer, x, cfg, cos, sin, window=window,
+                                kv_cache=cache, mesh=mesh)
+        return mlp_block(layer, x, cfg), kv
+
+    new_caches = []
+    for i, layer in enumerate(params["layers"]):
+        cache = kv_caches[i] if kv_caches is not None else None
+        window = layer_window(cfg, i)
+        if remat:
+            x, kv = checkpoint(one_layer, layer, x, cache, window,
+                               use_reentrant=False)
+        else:
+            x, kv = one_layer(layer, x, cache, window)
+        new_caches.append(kv)
+    return rms_norm(x, params["final_norm"], cfg.norm_eps), new_caches
+
+
+def forward(params: dict, tokens: torch.Tensor, cfg: GemmaConfig, **kw):
+    """tokens [batch, seq] -> (soft-capped float32 logits [batch, seq,
+    vocab], per-layer (k, v))."""
+    x, new_caches = forward_hidden(params, tokens, cfg, **kw)
+    return lm_head(params, x, cfg), new_caches
+
+
+def loss_fn(params: dict, tokens: torch.Tensor, cfg: GemmaConfig, **kw):
+    raise not_ported("the Gemma loss (its backward needs the soft cap and "
+                     "head_dim 256 in the backward kernels)", TRAINING_ITEM)
+
+
+def train_step(params: dict, tokens: torch.Tensor, cfg: GemmaConfig,
+               lr: float = 1e-4, **kw):
+    raise not_ported("the Gemma training step", TRAINING_ITEM)

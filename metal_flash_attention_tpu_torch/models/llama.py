@@ -123,8 +123,10 @@ def rope_frequencies(cfg: LlamaConfig, positions: torch.Tensor):
     freqs = cfg.rope_theta ** (
         -torch.arange(0, half, dtype=torch.float32,
                       device=positions.device) / half)
-    if cfg.rope_scaling_factor is not None:
-        factor = float(cfg.rope_scaling_factor)
+    # Configs without the field (Gemma's) take no scaling.
+    scaling = getattr(cfg, "rope_scaling_factor", None)
+    if scaling is not None:
+        factor = float(scaling)
         lo_f = float(cfg.rope_low_freq_factor)
         hi_f = float(cfg.rope_high_freq_factor)
         orig = float(cfg.rope_original_max_position)

@@ -40,7 +40,17 @@ Paged (a page pool shared by the sequences):
 - bursts (`paged_decode_burst`, `paged_decode_burst_q`): k decode steps
   with each row's token fed back on the device, per-row sampling
   (`sample_token_per_row`), stop ids and budgets, and no host read or
-  upload inside the k steps.
+  upload inside the k steps; ``step_fn=`` runs a family's decode step.
+
+Gemma-2 (`models.gemma`): `gemma_prefill`, `gemma_decode_step` and
+`gemma_generate` over the dense cache, `gemma_paged_chunk_step` and
+`gemma_paged_decode_step` over the paged one (the engine's family hooks).
+Local layers attend through the sliding window (a `kv_starts` window in
+the dense decode, ``window_size`` elsewhere), every attention soft-caps
+its logits in the kernel, and the tied head's logits are soft-capped.
+The JAX module's `_gemma_layer_qkv` and `_gemma_final_softcap` are
+`gemma.attention_qkv` and `gemma.final_softcap` here, beside the model's
+other blocks.
 
 Sampled streams are a pure function of (seed, request id, token index):
 `_row_keys` hashes the three into a 32-bit key a row, and
@@ -180,19 +190,21 @@ def generate(params: dict, prompt: torch.Tensor, cfg: llama.LlamaConfig, *,
 
 
 def _generate(params, prompt, cfg, pick, max_new_tokens, max_seq,
-              cache_dtype) -> torch.Tensor:
+              cache_dtype, prefill_fn=None, decode_fn=None) -> torch.Tensor:
     """The dense loop: each new token is pick(float32 logits [batch,
-    vocab])."""
+    vocab]); the family's steps are ``prefill_fn`` and ``decode_fn``
+    (default `prefill` and `decode_step`)."""
     b, s = prompt.shape
     cache = init_cache(cfg, b, max_seq or (s + max_new_tokens),
                        dtype=cache_dtype, device=prompt.device)
-    logits, cache = prefill(params, prompt, cfg, cache)
+    logits, cache = (prefill_fn or prefill)(params, prompt, cfg, cache)
     tokens = [prompt.to(torch.int32)]
     token = pick(logits)
     for i in range(max_new_tokens):
         tokens.append(token[:, None])
         if i + 1 < max_new_tokens:
-            logits, cache = decode_step(params, token, cfg, cache)
+            logits, cache = (decode_fn or decode_step)(params, token, cfg,
+                                                       cache)
             token = pick(logits)
     return torch.cat(tokens, dim=1)
 
@@ -562,6 +574,139 @@ def paged_generate(params: dict, prompt: torch.Tensor,
     return torch.cat(tokens, dim=1)
 
 
+# ---------------------------------------------------------------------------
+# Gemma-2: alternating local and global layers, soft-capped logits
+# ---------------------------------------------------------------------------
+
+def gemma_prefill(params: dict, tokens: torch.Tensor, cfg,
+                  cache: KVCache) -> tuple[torch.Tensor, KVCache]:
+    """Prefill for `models.gemma`: local layers attend through the sliding
+    window, global layers causally over everything, every logit
+    soft-capped (the fused forward, through `dispatch.attention`).  Each
+    layer's K/V are written into the cache (in place) as it finishes;
+    returns the soft-capped float32 logits of the last position [batch,
+    vocab] and the cache with lengths s."""
+    from metal_flash_attention_tpu_torch.models import gemma
+
+    b, s = tokens.shape
+    positions = torch.arange(s, device=tokens.device).expand(b, s)
+    cos, sin = llama.rope_frequencies(cfg, positions)
+    x = gemma.embed(params, tokens, cfg)
+    for li, layer in enumerate(params["layers"]):
+        x, (k, v) = gemma.attention_block(layer, x, cfg, cos, sin,
+                                          window=gemma.layer_window(cfg, li))
+        cache.k[li][:, :, :s] = k
+        cache.v[li][:, :, :s] = v
+        del k, v
+        x = gemma.mlp_block(layer, x, cfg)
+    x = gemma.rms_norm(x[:, -1], params["final_norm"], cfg.norm_eps)
+    return gemma.lm_head(params, x, cfg), cache._replace(
+        lengths=torch.full_like(cache.lengths, s))
+
+
+def gemma_decode_step(params: dict, token: torch.Tensor, cfg,
+                      cache: KVCache) -> tuple[torch.Tensor, KVCache]:
+    """One Gemma decode step: token [batch] -> its K/V written at each
+    sequence's length (in place), soft-capped float32 logits [batch,
+    vocab] and the cache with lengths + 1.  Attention is `flash_decode`
+    with the soft cap; a local layer attends its last sliding_window
+    positions through ``kv_starts``."""
+    from metal_flash_attention_tpu_torch.models import gemma
+
+    b = token.shape[0]
+    positions = cache.lengths.long()[:, None]
+    cos, sin = llama.rope_frequencies(cfg, positions)
+    x = gemma.embed(params, token[:, None], cfg)
+    lens = cache.lengths + 1
+    local_starts = (lens - cfg.sliding_window).clamp_min(0)
+    for li, layer in enumerate(params["layers"]):
+        q, k, v = gemma.attention_qkv(layer, x, cfg, cos, sin)
+        write_rows(cache.k[li], k[:, :, 0], cache.lengths)
+        write_rows(cache.v[li], v[:, :, 0], cache.lengths)
+        o = flash_decode(
+            q[:, :, 0].to(cfg.dtype), cache.k[li], cache.v[li], kv_lens=lens,
+            kv_starts=local_starts if gemma.is_local_layer(li) else None,
+            scale=cfg.attn_scale, logit_softcap=cfg.attn_logit_softcap)
+        x = gemma.attention_out(layer, o.reshape(b, 1, -1), x, cfg)
+        x = gemma.mlp_block(layer, x, cfg)
+    x = gemma.rms_norm(x[:, 0], params["final_norm"], cfg.norm_eps)
+    return gemma.lm_head(params, x, cfg), cache._replace(lengths=lens)
+
+
+@torch.inference_mode()
+def gemma_generate(params: dict, prompt: torch.Tensor, cfg, *,
+                   max_new_tokens: int, max_seq: Optional[int] = None,
+                   cache_dtype=None) -> torch.Tensor:
+    """Greedy generation for the Gemma family: `gemma_prefill`, then
+    max_new_tokens - 1 `gemma_decode_step`s.  prompt: int [batch, s] ->
+    int32 [batch, s + max_new_tokens]."""
+    return _generate(params, prompt, cfg, _greedy, max_new_tokens, max_seq,
+                     cache_dtype, gemma_prefill, gemma_decode_step)
+
+
+def gemma_paged_chunk_step(params: dict, tokens: torch.Tensor, cfg,
+                           cache: PagedModelCache, mesh=None
+                           ) -> tuple[torch.Tensor, PagedModelCache]:
+    """The Gemma chunk step over the paged cache: tokens [batch, k] at
+    positions lengths .. lengths + k - 1, their K/V appended (in place),
+    soft-capped float32 logits [batch, k, vocab].  Attention is
+    `paged_prefill` with the soft cap, each local layer within its
+    sliding window.  The engine's ``chunk_step`` for the Gemma family."""
+    from metal_flash_attention_tpu_torch.models import gemma
+
+    _check_unported(mesh, None)
+    b, kc = tokens.shape
+    positions = cache.lengths.long()[:, None] + torch.arange(
+        kc, device=tokens.device)[None, :]
+    cos, sin = llama.rope_frequencies(cfg, positions)
+    x = gemma.embed(params, tokens, cfg)
+    for li, layer in enumerate(params["layers"]):
+        q, k, v = gemma.attention_qkv(layer, x, cfg, cos, sin)
+        layer_cache = paged_append_chunk(
+            PagedKVCache(cache.k[li], cache.v[li], cache.page_table,
+                         cache.lengths), k, v)
+        o = paged_prefill(q.to(cfg.dtype), layer_cache, scale=cfg.attn_scale,
+                          logit_softcap=cfg.attn_logit_softcap,
+                          window_size=gemma.layer_window(cfg, li))
+        x = gemma.attention_out(layer, o.transpose(1, 2).reshape(b, kc, -1),
+                                x, cfg)
+        x = gemma.mlp_block(layer, x, cfg)
+    x = gemma.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return gemma.lm_head(params, x, cfg), cache._replace(
+        lengths=cache.lengths + kc)
+
+
+def gemma_paged_decode_step(params: dict, token: torch.Tensor, cfg,
+                            cache: PagedModelCache, mesh=None
+                            ) -> tuple[torch.Tensor, PagedModelCache]:
+    """One Gemma decode step over the paged cache: token [batch] -> its
+    K/V appended at lengths (in place), soft-capped float32 logits
+    [batch, vocab] via `paged_decode` with the soft cap (each local layer
+    within its sliding window), and the cache with lengths + 1.  The
+    engine's ``decode_step`` for the Gemma family."""
+    from metal_flash_attention_tpu_torch.models import gemma
+
+    _check_unported(mesh, None)
+    b = token.shape[0]
+    positions = cache.lengths.long()[:, None]
+    cos, sin = llama.rope_frequencies(cfg, positions)
+    x = gemma.embed(params, token[:, None], cfg)
+    for li, layer in enumerate(params["layers"]):
+        q, k, v = gemma.attention_qkv(layer, x, cfg, cos, sin)
+        layer_cache = paged_append_chunk(
+            PagedKVCache(cache.k[li], cache.v[li], cache.page_table,
+                         cache.lengths), k, v)
+        o = paged_decode(q[:, :, 0].to(cfg.dtype), layer_cache,
+                         scale=cfg.attn_scale,
+                         logit_softcap=cfg.attn_logit_softcap,
+                         window_size=gemma.layer_window(cfg, li))
+        x = gemma.attention_out(layer, o.reshape(b, 1, -1), x, cfg)
+        x = gemma.mlp_block(layer, x, cfg)
+    x = gemma.rms_norm(x[:, 0], params["final_norm"], cfg.norm_eps)
+    return gemma.lm_head(params, x, cfg), cache._replace(
+        lengths=cache.lengths + 1)
+
+
 class QuantizedPagedModelCache(NamedTuple):
     """Paged model cache whose full pages live quantized (INT8 / FP8 /
     NF4, one scale per (page, kv head)) while each sequence's page in
@@ -889,7 +1034,7 @@ def paged_decode_burst(params: dict, token: torch.Tensor,
                        seed: int, rids: torch.Tensor, idx0: torch.Tensor,
                        temp: torch.Tensor, top_k: torch.Tensor,
                        top_p: torch.Tensor, want_logprobs: bool = False,
-                       lora=None, lora_ids=None,
+                       lora=None, lora_ids=None, step_fn=None,
                        logit_bias: Optional[torch.Tensor] = None,
                        sampled: bool = True):
     """``n_steps`` paged decode steps with each row's token fed back on
@@ -902,15 +1047,21 @@ def paged_decode_burst(params: dict, token: torch.Tensor,
     - ``stop_ids`` int32 [b, S]: each row's stop ids, -1 padded;
     - sampling as in `sample_token_per_row` (temp 0: greedy), the row
       keys `_row_keys(seed, rids, idx0 + step)`;
-    - ``logit_bias`` float32 [b, vocab] or None.
+    - ``logit_bias`` float32 [b, vocab] or None;
+    - ``step_fn``: a family's decode step, step_fn(params, token, cfg,
+      cache) -> (logits, cache) (`gemma_paged_decode_step`), in place of
+      `paged_decode_step`; LoRA rides only on the default step.
 
     A frozen row's length stops advancing; its write lands at its frozen
     length, which nothing reads.  Returns (tokens [b, n_steps] int32, -1
     where not emitted; valid [b, n_steps] bool; logprobs [b, n_steps]
     float32; the cache; alive [b])."""
     def step(tok, before, alive, i):
-        logits, after = paged_decode_step(params, tok, cfg, before,
-                                          lora=lora, lora_ids=lora_ids)
+        if step_fn is not None:
+            logits, after = step_fn(params, tok, cfg, before)
+        else:
+            logits, after = paged_decode_step(params, tok, cfg, before,
+                                              lora=lora, lora_ids=lora_ids)
         return logits, after._replace(lengths=torch.where(
             alive, after.lengths, before.lengths))
 

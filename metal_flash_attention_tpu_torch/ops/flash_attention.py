@@ -9,12 +9,16 @@ softmax(Q K^T * scale) V and the natural-log row logsumexp lse, for
 
 Causal masking is aligned bottom-right: with offset = kv_len - q_len,
 row r sees keys c <= r + offset; ``window_size`` w keeps keys
-c > r + offset - w (with or without causal).  A row that sees no key
-gives o = 0 and lse = -inf.
+c > r + offset - w (with or without causal).  ``logit_softcap`` c
+(Gemma-2) soft-caps each scaled logit s to c * tanh(s / c) before the
+mask.  A row that sees no key gives o = 0 and lse = -inf.
 
 `flash_attention` is differentiable (the backward is
 `ops.flash_attention_bwd`, two more kernels); `flash_attention_forward`
-returns (o, lse) without a graph.
+returns (o, lse) without a graph.  The backward does not take the soft
+cap or head dim 256 yet (Gemma training): `flash_attention` with either
+returns the forward when no input needs a gradient, and raises when one
+does.
 
 k and v may both be `QuantizedTensor`s of one precision (INT8,
 FP8-E4M3, FP8-E5M2, NF4; `ops.quantization`'s layout: payload [batch,
@@ -28,18 +32,21 @@ Dispatch: a CPU tensor takes the plain PyTorch version
 hand-written kernel in `csrc/flash_attention.cu` (TMA-fed, wgmma, for
 sm_90a), or raises.  The kernel takes bf16 and fp16 (computed natively
 on fp16 tensor cores, where the JAX package computes fp16 in bf16) at
-head dims 64 and 128, with or without causal masking and a window, any
-q_len and kv_len, and a bf16/fp16 or float32 O; over quantized K/V it
-decodes each tile in shared memory and takes bf16 queries (fp16 ones
-raise NotImplementedError on the card; the plain version takes them).
+head dims 64, 128 and 256, with or without causal masking, a window and
+the soft cap, any q_len and kv_len, and a bf16/fp16 or float32 O; over
+quantized K/V (head dims 64 and 128, no cap) it decodes each tile in
+shared memory and takes bf16 queries (fp16 ones raise
+NotImplementedError on the card; the plain version takes them).
 The plain version dequantizes in float32 first, NF4's codebook rounded
 to the queries' type as the kernel rounds it.  Each launch adds one to
 ``LAUNCH_COUNTS["flash_fwd"]`` (the op) and to
-``LAUNCH_COUNTS["flash_fwd_sm90"]`` (the kernel that ran), and over
-quantized K/V to ``LAUNCH_COUNTS["flash_fwd_<precision>"]`` too.
+``LAUNCH_COUNTS["flash_fwd_sm90"]`` (the kernel that ran), over
+quantized K/V to ``LAUNCH_COUNTS["flash_fwd_<precision>"]``, with the
+soft cap to ``["flash_fwd_softcap"]`` and at head_dim 256 to
+``["flash_fwd_d256"]`` too.
 
 Not ported yet, and refused on every device: mask / bias / mask2,
-segment ids, logit_softcap and low_precision_intermediates.  The TPU
+segment ids and low_precision_intermediates.  The TPU
 block sizes (``block_q``, ``block_kv``) have no meaning
 here: the kernels' tiles are fixed (`descriptors.attention_descriptor`).
 """
@@ -60,18 +67,28 @@ from metal_flash_attention_tpu_torch.ops.quantization import (
     dequantize,
     logical_shape,
 )
-from metal_flash_attention_tpu_torch.ops.reference import attention_reference
+from metal_flash_attention_tpu_torch.ops.reference import (
+    attention_reference,
+    softcap_value,
+)
 from metal_flash_attention_tpu_torch.utils.errors import not_ported
 
+# Head dims of every attention kernel; the forward over K/V in q's type
+# also takes Gemma-2's 256.
 KERNEL_HEAD_DIMS = (64, 128)
+FORWARD_HEAD_DIMS = (64, 128, 256)
+# What the backward does not take yet, on any device.
+FORWARD_ONLY_HEAD_DIM = 256
 KERNEL_DTYPES = (torch.bfloat16, torch.float16)
 
 # One count per kernel, bumped only where its wrapper launches it.
 LAUNCH_COUNTS = {"flash_fwd": 0, "flash_fwd_sm90": 0,
-                 **{f"flash_fwd_{p.value}": 0 for p in KV_PRECISIONS}}
+                 **{f"flash_fwd_{p.value}": 0 for p in KV_PRECISIONS},
+                 "flash_fwd_softcap": 0, "flash_fwd_d256": 0}
 
 OPTIONS_ITEM = "flash-attention options"
 KERNEL_ITEM = "flash-kernel coverage"
+TRAINING_ITEM = "Gemma training"
 
 
 def reset_launch_counts() -> None:
@@ -88,12 +105,21 @@ def check_options(k, *, mask=None, bias=None, mask2=None,
         raise not_ported("mask, bias and mask2 operands", OPTIONS_ITEM)
     if q_segment_ids is not None or kv_segment_ids is not None:
         raise not_ported("segment ids", OPTIONS_ITEM)
-    if logit_softcap is not None:
-        raise not_ported("logit_softcap", OPTIONS_ITEM)
     if low_precision_intermediates:
         raise not_ported("low_precision_intermediates", OPTIONS_ITEM)
     if window_size is not None and window_size <= 0:
         raise ValueError(f"window_size must be positive, got {window_size}")
+
+
+def check_differentiable(head_dim: int, logit_softcap) -> None:
+    """Refuse, on every device, what the backward does not compute yet:
+    the soft cap and head dim 256 (it would differentiate attention
+    without them)."""
+    if softcap_value(logit_softcap) is not None:
+        raise not_ported("logit_softcap in the backward", TRAINING_ITEM)
+    if head_dim == FORWARD_ONLY_HEAD_DIM:
+        raise not_ported(f"head_dim {head_dim} in the backward",
+                         TRAINING_ITEM)
 
 
 def check_shapes(q, k, v) -> None:
@@ -114,10 +140,11 @@ def check_shapes(q, k, v) -> None:
 
 
 def check_kernel_operands(tensors: dict, dtype: torch.dtype,
-                          device: torch.device) -> None:
+                          device: torch.device,
+                          head_dims=KERNEL_HEAD_DIMS) -> None:
     """What every attention kernel of the port takes: tensors on one card,
-    contiguous and 16-byte aligned, 16-bit inputs at head dim 64 or
-    128."""
+    contiguous and 16-byte aligned, 16-bit inputs at one of the kernel's
+    ``head_dims``."""
     if dtype == torch.float32:
         raise not_ported("float32 attention on CUDA (true fp32, no TF32)",
                          KERNEL_ITEM)
@@ -131,9 +158,9 @@ def check_kernel_operands(tensors: dict, dtype: torch.dtype,
             raise ValueError(f"{name} must be contiguous and 16-byte "
                              "aligned")
     d = tensors["q"].shape[-1]
-    if d not in KERNEL_HEAD_DIMS:
-        raise not_ported(f"head_dim {d} in the CUDA kernels (they take "
-                         f"{KERNEL_HEAD_DIMS})", KERNEL_ITEM)
+    if d not in head_dims:
+        raise not_ported(f"head_dim {d} in this CUDA kernel (it takes "
+                         f"{head_dims})", KERNEL_ITEM)
 
 
 def raise_on_launch_error(lib, rc: int, name: str) -> None:
@@ -165,12 +192,14 @@ def flash_attention_forward(q: torch.Tensor, k: torch.Tensor,
                   window_size=window_size)
     check_shapes(q, k, v)
     return _forward(q, k, v, causal=causal, window_size=window_size,
-                    scale=scale, out_dtype=out_dtype)
+                    scale=scale, out_dtype=out_dtype,
+                    softcap=softcap_value(logit_softcap))
 
 
-def _forward(q, k, v, *, causal, window_size, scale, out_dtype):
+def _forward(q, k, v, *, causal, window_size, scale, out_dtype,
+             softcap=None):
     """The forward on checked operands: the kernel for a CUDA tensor,
-    the plain version for a CPU tensor."""
+    the plain version for a CPU tensor.  ``softcap``: the cap, or None."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     out_dtype = out_dtype or q.dtype
@@ -181,13 +210,13 @@ def _forward(q, k, v, *, causal, window_size, scale, out_dtype):
                 k, v = k.contiguous(), v.contiguous()
             return _forward_cuda(q.contiguous(), k, v, causal=causal,
                                  window_size=window_size, scale=scale,
-                                 out_dtype=out_dtype)
+                                 out_dtype=out_dtype, softcap=softcap)
         if q.device.type != "cpu":
             raise ValueError(f"flash attention runs on cpu or cuda "
                              f"tensors, got {q.device}")
         plain = _forward_plain_quantized if quantized else _forward_plain
         return plain(q, k, v, causal=causal, window_size=window_size,
-                     scale=scale, out_dtype=out_dtype)
+                     scale=scale, out_dtype=out_dtype, softcap=softcap)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -203,7 +232,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``return_residuals``.  Gradients reach q, k and v through the
     atomic-free backward (`ops.flash_attention_bwd`); lse carries
     none, as in the JAX package.  Over quantized K/V it is the forward,
-    with no graph.  See `flash_attention_forward` for the arguments."""
+    with no graph; with the soft cap or at head dim 256 too, unless an
+    input needs a gradient, which raises (Gemma training).  See
+    `flash_attention_forward` for the arguments."""
     from metal_flash_attention_tpu_torch.ops.flash_attention_bwd import (
         FlashAttentionFunction,
     )
@@ -215,9 +246,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   low_precision_intermediates=low_precision_intermediates,
                   window_size=window_size)
     check_shapes(q, k, v)
-    if isinstance(k, QuantizedTensor):
+    softcap = softcap_value(logit_softcap)
+    forward_only = (softcap is not None
+                    or q.shape[-1] == FORWARD_ONLY_HEAD_DIM)
+    if isinstance(k, QuantizedTensor) or forward_only:
+        if forward_only and torch.is_grad_enabled() and any(
+                isinstance(t, torch.Tensor) and t.requires_grad
+                for t in (q, k, v)):
+            check_differentiable(q.shape[-1], softcap)
         o, lse = _forward(q, k, v, causal=causal, window_size=window_size,
-                          scale=scale, out_dtype=out_dtype)
+                          scale=scale, out_dtype=out_dtype, softcap=softcap)
         return (o, lse) if return_residuals else o
     o, lse = FlashAttentionFunction.apply(
         q.contiguous(), k.contiguous(), v.contiguous(), causal,
@@ -225,25 +263,27 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (o, lse) if return_residuals else o
 
 
-def _forward_plain(q, k, v, *, causal, window_size, scale, out_dtype):
+def _forward_plain(q, k, v, *, causal, window_size, scale, out_dtype,
+                   softcap=None):
     """The plain PyTorch version: materialised float32 scores and
     softmax (`ops.reference`).  It is what a CPU tensor runs and what the
     kernel is held against on the card."""
     o, lse = attention_reference(q, k, v, causal=causal,
                                  window_size=window_size, scale=scale,
+                                 logit_softcap=softcap,
                                  return_residuals=True)
     return o.to(out_dtype), lse
 
 
 def _forward_plain_quantized(q, k, v, *, causal, window_size, scale,
-                             out_dtype):
+                             out_dtype, softcap=None):
     """The plain version over quantized K/V: each dequantized in float32
     (NF4's codebook rounded to q's type, as the kernel rounds it), then
     `_forward_plain`.  What a CPU tensor runs, and what the kernel is
     held against on the card."""
     return _forward_plain(q, dequantize(k, q.dtype), dequantize(v, q.dtype),
                           causal=causal, window_size=window_size,
-                          scale=scale, out_dtype=out_dtype)
+                          scale=scale, out_dtype=out_dtype, softcap=softcap)
 
 
 @functools.cache
@@ -258,7 +298,7 @@ def bind_library(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C interface of a build of csrc/flash_attention.cu."""
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.mfa_flash_fwd.argtypes = ([ptr] * 7 + [i32] * 6
-                                  + [ctypes.c_float] + [i32] * 5 + [ptr])
+                                  + [ctypes.c_float] * 2 + [i32] * 5 + [ptr])
     lib.mfa_flash_fwd.restype = i32
     lib.mfa_cuda_error_string.argtypes = [i32]
     lib.mfa_cuda_error_string.restype = ctypes.c_char_p
@@ -286,15 +326,22 @@ def _quantized_operands(q, k, v):
             k.scales.contiguous(), v.scales.contiguous(), precision)
 
 
-def _forward_cuda(q, k, v, *, causal, window_size, scale, out_dtype):
+def _forward_cuda(q, k, v, *, causal, window_size, scale, out_dtype,
+                  softcap=None):
     """Launch the Hopper kernel; raise on anything it does not take."""
     precision, scales = None, (None, None)
+    head_dims = FORWARD_HEAD_DIMS
     if isinstance(k, QuantizedTensor):
+        if softcap is not None:
+            raise not_ported("logit_softcap over quantized K/V in the "
+                             "forward kernel", KERNEL_ITEM)
         k, v, *scales, precision = _quantized_operands(q, k, v)
+        head_dims = KERNEL_HEAD_DIMS
     elif k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k and v must share a dtype, got {q.dtype}, "
                         f"{k.dtype}, {v.dtype}")
-    check_kernel_operands(dict(q=q, k=k, v=v), q.dtype, q.device)
+    check_kernel_operands(dict(q=q, k=k, v=v), q.dtype, q.device,
+                          head_dims)
     if out_dtype not in (q.dtype, torch.float32):
         raise TypeError(f"out_dtype must be q's dtype or float32, got "
                         f"{out_dtype}")
@@ -309,7 +356,8 @@ def _forward_cuda(q, k, v, *, causal, window_size, scale, out_dtype):
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             *(None if s is None else s.data_ptr() for s in scales),
             o.data_ptr(), lse.data_ptr(), b, qh, kvh, n, m, d,
-            ctypes.c_float(scale), int(causal), window_size or 0,
+            ctypes.c_float(scale), ctypes.c_float(softcap or 0.0),
+            int(causal), window_size or 0,
             int(q.dtype == torch.float16), int(out_dtype == torch.float32),
             0 if precision is None else PRECISION_CODE[precision], stream)
     raise_on_launch_error(lib, rc, "flash_fwd")
@@ -317,4 +365,8 @@ def _forward_cuda(q, k, v, *, causal, window_size, scale, out_dtype):
     LAUNCH_COUNTS["flash_fwd_sm90"] += 1
     if precision is not None:
         LAUNCH_COUNTS[f"flash_fwd_{precision.value}"] += 1
+    if softcap is not None:
+        LAUNCH_COUNTS["flash_fwd_softcap"] += 1
+    if d == 256:
+        LAUNCH_COUNTS["flash_fwd_d256"] += 1
     return o, lse

@@ -23,7 +23,10 @@ saves q, k, v, o and lse, and its backward runs both kernels.
 Dispatch: a CPU tensor takes the plain version (`_backward_plain`, the
 analytic gradients of `ops.reference.attention_reference_grads`); a CUDA
 tensor launches the Hopper kernels of `csrc/flash_attention_bwd.cu`
-(TMA-fed, wgmma, for sm_90a), or raises.  Each launch adds one to
+(TMA-fed, wgmma, for sm_90a), or raises.  Neither path takes
+``logit_softcap`` or head dim 256 yet (ROADMAP, Gemma training): both
+raise on every device, as does `FlashAttentionFunction`, so no call
+differentiates attention without its cap.  Each launch adds one to
 ``LAUNCH_COUNTS["flash_bwd_dq"]`` or ``["flash_bwd_dkv"]`` (the op) and
 to ``["flash_bwd_dq_sm90"]`` or ``["flash_bwd_dkv_sm90"]`` (the kernel
 that ran).
@@ -40,6 +43,7 @@ import torch
 
 from metal_flash_attention_tpu_torch.ops.flash_attention import (
     _forward as _flash_forward,
+    check_differentiable,
     check_kernel_operands,
     check_options,
     check_shapes,
@@ -87,6 +91,7 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
                   low_precision_intermediates=low_precision_intermediates,
                   window_size=window_size)
     check_shapes(q, k, v)
+    check_differentiable(q.shape[-1], logit_softcap)
     if do.shape != q.shape or o.shape != q.shape or \
             lse.shape != q.shape[:3]:
         raise ValueError(f"do/o must be shaped like q {tuple(q.shape)} and "
@@ -121,10 +126,12 @@ def _backward(q, k, v, do, o, lse, *, causal, window_size, scale):
 
 class FlashAttentionFunction(torch.autograd.Function):
     """(q, k, v, causal, window_size, scale, out_dtype) -> (o, lse); lse
-    is not differentiable (its cotangent is dropped, as in JAX)."""
+    is not differentiable (its cotangent is dropped, as in JAX).  Head dim
+    256 raises: the backward does not take it yet."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window_size, scale, out_dtype):
+        check_differentiable(q.shape[-1], None)
         o, lse = _flash_forward(q, k, v, causal=causal,
                                 window_size=window_size, scale=scale,
                                 out_dtype=out_dtype)

@@ -15,6 +15,9 @@ Row b attends the positions ``kv_starts[b] <= col < kv_lens[b]``
 (``kv_lens=None``: the whole cache; ``kv_starts=None``: from 0).  A row
 that sees no key gives o = 0 and lse = -inf.
 
+``logit_softcap`` c (Gemma-2) soft-caps each scaled logit s to
+c * tanh(s / c) before the mask.
+
 ``max_span`` (it needs ``kv_starts`` and ``kv_lens``) bounds each row's
 span.  The JAX kernel uses it to shorten its grid and silently drops the
 tail of a row whose span is longer; the port clamps each row's end to
@@ -31,16 +34,18 @@ Dispatch: a CPU tensor takes the plain PyTorch version
 dequantized in float32 first, NF4's codebook rounded to the queries'
 type as the kernels round it); a CUDA tensor takes the hand-written
 kernel in `csrc/flash_decode.cu` (bf16, fp16 and true fp32, head dims 64
-and 128; quantized K/V with bf16 queries), or raises.  There is no
+and 128, and bf16 and fp16 at 256; the soft cap over K/V in the queries'
+type; quantized K/V with bf16 queries at 64 and 128, uncapped), or
+raises.  There is no
 fallback from one to the other.  The kernel is the decode core of
 `csrc/decode_common.cuh` (a cp.async K/V ring, tensor cores for 16-bit
 inputs) split over the keys in fixed chunks
 (`paged_attention.decode_splits`).  Each kernel launch adds one to
 ``LAUNCH_COUNTS["flash_decode"]`` and to
-``LAUNCH_COUNTS["flash_decode_sm90"]``, and over a quantized cache to
-``LAUNCH_COUNTS["flash_decode_<precision>"]`` too.
-
-Not ported yet, and refused on every device: ``logit_softcap``.
+``LAUNCH_COUNTS["flash_decode_sm90"]``, over a quantized cache to
+``LAUNCH_COUNTS["flash_decode_<precision>"]``, with the soft cap to
+``["flash_decode_softcap"]`` and at head_dim 256 to
+``["flash_decode_d256"]`` too.
 """
 
 from __future__ import annotations
@@ -66,17 +71,22 @@ from metal_flash_attention_tpu_torch.ops.quantization import (
     dequantize,
     logical_shape,
 )
+from metal_flash_attention_tpu_torch.ops.reference import softcap_value
 from metal_flash_attention_tpu_torch.utils.errors import not_ported
 
 KERNEL_HEAD_DIMS = (64, 128)
+# Head dims of 16-bit queries over K/V in their type (Gemma-2's 256).
+WIDE_HEAD_DIMS = (64, 128, 256)
 KERNEL_DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 
 # One count per kernel, bumped only where its wrapper launches it; the
 # `_sm90` count names the Hopper kernel (`flash_decode90_kernel`) that every
 # launch now runs, and `flash_decode_<precision>` counts its launches over
-# a quantized cache.
+# a quantized cache (and `_softcap`, `_d256` its capped and head_dim 256
+# launches).
 LAUNCH_COUNTS = {"flash_decode": 0, "flash_decode_sm90": 0,
-                 **{f"flash_decode_{p.value}": 0 for p in KV_PRECISIONS}}
+                 **{f"flash_decode_{p.value}": 0 for p in KV_PRECISIONS},
+                 "flash_decode_softcap": 0, "flash_decode_d256": 0}
 
 KERNEL_ITEM = "flash-kernel coverage"
 
@@ -102,7 +112,8 @@ def flash_decode(q: torch.Tensor, k, v, *,
     or both `QuantizedTensor`s of one precision.
     ``kv_lens``, ``kv_starts``: int [batch].  The query token itself must
     already be in the cache (at position kv_lens - 1).  ``scale``
-    defaults to 1/sqrt(head_dim).  ``block_kv`` is the TPU kernel's
+    defaults to 1/sqrt(head_dim); ``logit_softcap`` c soft-caps each
+    scaled logit to c * tanh(s / c).  ``block_kv`` is the TPU kernel's
     key-block size: accepted and ignored on both devices (the CUDA
     kernel's tile is fixed).
 
@@ -118,8 +129,7 @@ def flash_decode(q: torch.Tensor, k, v, *,
                         "QuantizedTensors of one precision")
     if quantized and k.precision not in KV_PRECISIONS:
         raise ValueError(f"not a KV precision: {k.precision}")
-    if logit_softcap is not None:
-        raise not_ported("logit_softcap in flash_decode", "decode softcap")
+    softcap = softcap_value(logit_softcap)
     if max_span is not None:
         if kv_starts is None or kv_lens is None:
             raise ValueError("max_span requires kv_starts and kv_lens")
@@ -139,23 +149,23 @@ def flash_decode(q: torch.Tensor, k, v, *,
             raise ValueError(f"{name} must be [batch], got {tuple(t.shape)}")
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
+    kw = dict(kv_lens=kv_lens, kv_starts=kv_starts, max_span=max_span,
+              scale=scale, softcap=softcap)
     if q.is_cuda:
-        o, lse = _flash_decode_cuda(q, k, v, kv_lens=kv_lens,
-                                    kv_starts=kv_starts, max_span=max_span,
-                                    scale=scale)
+        o, lse = _flash_decode_cuda(q, k, v, **kw)
     elif q.device.type == "cpu":
-        o, lse = _flash_decode_plain(q, k, v, kv_lens=kv_lens,
-                                     kv_starts=kv_starts, max_span=max_span,
-                                     scale=scale)
+        o, lse = _flash_decode_plain(q, k, v, **kw)
     else:
         raise ValueError(f"flash_decode runs on cpu or cuda tensors, got "
                          f"{q.device}")
     return (o, lse) if return_residuals else o
 
 
-def _flash_decode_plain(q, k, v, *, kv_lens, kv_starts, max_span, scale):
+def _flash_decode_plain(q, k, v, *, kv_lens, kv_starts, max_span, scale,
+                        softcap=None):
     """The plain PyTorch version: float32 scores of each group against
-    its kv head, a mask from the rows' [lo, hi), and a float32 softmax
+    its kv head (soft-capped by ``softcap``), a mask from the rows'
+    [lo, hi), and a float32 softmax
     (a quantized cache dequantized in float32 first, NF4's codebook
     rounded to q's type as the kernels round it).  It is what a CPU
     tensor runs and what the kernel is held against on the card."""
@@ -174,6 +184,8 @@ def _flash_decode_plain(q, k, v, *, kv_lens, kv_starts, max_span, scale):
         hi = torch.minimum(hi, lo + max_span)
     qg = q.reshape(b, kvh, group, d).float()
     s = torch.einsum("bhgd,bhnd->bhgn", qg, k.float()) * scale
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
     cols = torch.arange(n, device=q.device)[None, :]
     live = (cols >= lo[:, None]) & (cols < hi[:, None])         # [b, n]
     s = s.masked_fill(~live[:, None, None], float("-inf"))
@@ -229,14 +241,15 @@ def bind_library(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C interface of a build of csrc/flash_decode.cu."""
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.mfa_flash_decode.argtypes = ([ptr] * 11 + [i32] * 5 + [
-        ptr, i32, ctypes.c_float, i32, i32, i32, i32, ptr])
+        ptr, i32, ctypes.c_float, ctypes.c_float, i32, i32, i32, i32, ptr])
     lib.mfa_flash_decode.restype = i32
     lib.mfa_cuda_error_string.argtypes = [i32]
     lib.mfa_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _flash_decode_cuda(q, k, v, *, kv_lens, kv_starts, max_span, scale):
+def _flash_decode_cuda(q, k, v, *, kv_lens, kv_starts, max_span, scale,
+                       softcap):
     """Launch the Hopper kernel; raise on anything it does not take.  q
     is made contiguous (a [batch, q_heads, d] copy at most); K and V are
     read in place through their strides."""
@@ -251,7 +264,13 @@ def _flash_decode_cuda(q, k, v, *, kv_lens, kv_starts, max_span, scale):
             raise TypeError(f"q, k and v must share a dtype, got "
                             f"{q.dtype}, {k.dtype}, {v.dtype}")
         scales = (None, None)
+        head_dims = (KERNEL_HEAD_DIMS if q.dtype == torch.float32
+                     else WIDE_HEAD_DIMS)
     else:
+        if softcap is not None:
+            raise not_ported("logit_softcap over a quantized cache in the "
+                             "decode kernel", KERNEL_ITEM)
+        head_dims = KERNEL_HEAD_DIMS
         if q.dtype != torch.bfloat16:
             raise not_ported(f"{q.dtype} queries over a quantized cache in "
                              "the decode kernel (it takes bf16)",
@@ -269,9 +288,9 @@ def _flash_decode_cuda(q, k, v, *, kv_lens, kv_starts, max_span, scale):
                                  f"kv_heads] on {q.device}, contiguous")
         scales = (k.scales, v.scales)
         k, v = k.values, v.values
-    if d not in KERNEL_HEAD_DIMS:
+    if d not in head_dims:
         raise not_ported(f"head_dim {d} in the decode kernel (it takes "
-                         f"{KERNEL_HEAD_DIMS})", KERNEL_ITEM)
+                         f"{head_dims} here)", KERNEL_ITEM)
     # The key tile, the largest chunk and the largest group one block
     # holds, as the kernel reads them from csrc/flash_tiles.cuh.
     tiles = tile_defines()
@@ -315,7 +334,8 @@ def _flash_decode_cuda(q, k, v, *, kv_lens, kv_starts, max_span, scale):
             *(data_ptr(t) for t in scales), data_ptr(lens),
             data_ptr(starts), o.data_ptr(), lse.data_ptr(),
             data_ptr(part_o), data_ptr(part_lse), b, qh, kvh, n, d, strides,
-            max_span or 0, ctypes.c_float(scale), splits, chunk,
+            max_span or 0, ctypes.c_float(scale),
+            ctypes.c_float(softcap or 0.0), splits, chunk,
             KERNEL_DTYPES[q.dtype],
             0 if precision is None else PRECISION_CODE[precision], stream)
     if rc != 0:
@@ -325,4 +345,8 @@ def _flash_decode_cuda(q, k, v, *, kv_lens, kv_starts, max_span, scale):
     LAUNCH_COUNTS["flash_decode_sm90"] += 1
     if precision is not None:
         LAUNCH_COUNTS[f"flash_decode_{precision.value}"] += 1
+    if softcap is not None:
+        LAUNCH_COUNTS["flash_decode_softcap"] += 1
+    if d == 256:
+        LAUNCH_COUNTS["flash_decode_d256"] += 1
     return o, lse

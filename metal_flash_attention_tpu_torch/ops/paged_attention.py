@@ -28,11 +28,17 @@ high nibble), each page quantized on its own with one float32 scale per
 (page, kv head), so pages stay shareable.  Both modes take them; the
 kernel decodes each tile in shared memory.
 
+Gemma-2's options, in both modes: ``kv_starts`` int [batch], each
+sequence's first attended position (a sliding window as a start), and
+``logit_softcap`` c, which soft-caps each scaled logit s (after a
+quantized page's K scale) to c * tanh(s / c) before the mask.
+
 Dispatch: a CPU tensor takes the plain PyTorch version
 (`_paged_attention_plain`, which dequantizes the gathered pages in
 float32); a CUDA tensor takes the hand-written kernels in
-`csrc/paged_attention.cu` (bf16 q; bf16 or quantized pools; head dims 64
-and 128), or raises.  There is no fallback from one to the other.  Both
+`csrc/paged_attention.cu` (bf16 q; bf16 or quantized pools at head dims
+64 and 128, bf16 pools at 256; the soft cap and starts over every pool),
+or raises.  There is no fallback from one to the other.  Both
 modes gather their pages through the cp.async ring of
 `csrc/decode_common.cuh` and split the keys in fixed chunks
 (`decode_splits`); decode runs the decode core that `flash_decode` runs.
@@ -42,8 +48,9 @@ axis) runs on the prefill kernel with q_chunk = 1, where every row sits
 at position lengths - 1, and counts as `paged_decode_wide`.  Each kernel
 launch adds one to its `LAUNCH_COUNTS` entry (`paged_decode`,
 `paged_decode_wide`, `paged_prefill`), to the entry of its Hopper kernel
-(`<name>_sm90`) and, over quantized pools, to `<name>_<precision>`
-(`paged_decode_int8`, ...).
+(`<name>_sm90`), over quantized pools to `<name>_<precision>`
+(`paged_decode_int8`, ...), with the soft cap to `<name>_softcap` and at
+head_dim 256 to `<name>_d256`.
 """
 
 from __future__ import annotations
@@ -66,18 +73,22 @@ from metal_flash_attention_tpu_torch.ops.quantization import (
     nf4_nearest_indices,
     nf4_unpack,
 )
+from metal_flash_attention_tpu_torch.ops.reference import softcap_value
 from metal_flash_attention_tpu_torch.utils.device import resolve_device
 from metal_flash_attention_tpu_torch.utils.errors import not_ported
 from metal_flash_attention_tpu_torch.utils.shapes import cdiv
 
 KERNEL_HEAD_DIMS = (64, 128)
+# Head dims over bf16 pools (Gemma-2's 256).
+BF16_HEAD_DIMS = (64, 128, 256)
 MODES = ("paged_decode", "paged_decode_wide", "paged_prefill")
 
 # One count per kernel, bumped only where its wrapper launches it: each
-# mode, its Hopper kernel, and its launches over quantized pools by
-# precision.
+# mode, its Hopper kernel, its launches over quantized pools by precision,
+# with the soft cap, and at head_dim 256.
 LAUNCH_COUNTS = {f"{mode}{suffix}": 0 for mode in MODES for suffix in
-                 ("", "_sm90", *(f"_{p.value}" for p in KV_PRECISIONS))}
+                 ("", "_sm90", *(f"_{p.value}" for p in KV_PRECISIONS),
+                  "_softcap", "_d256")}
 
 KERNEL_ITEM = "flash-kernel coverage"
 
@@ -244,10 +255,11 @@ def paged_decode(q: torch.Tensor, cache: PagedKVCache, *,
     q: [batch, q_heads, head_dim]; returns o of q's shape and, with
     ``return_residuals``, the natural-log lse [batch, q_heads].  The
     query sits at position lengths - 1; ``window_size`` w keeps the last
-    w positions.  ``cache`` is a `PagedKVCache` or a
-    `QuantizedPagedKVCache`.  On a CUDA tensor this launches the split-KV
-    decode kernel (the prefill kernel for groups above
-    MFA_DECODE_MAX_GROUP)."""
+    w positions, ``kv_starts`` int [batch] the positions from each
+    sequence's start; ``logit_softcap`` c soft-caps the logits.
+    ``cache`` is a `PagedKVCache` or a `QuantizedPagedKVCache`.  On a
+    CUDA tensor this launches the split-KV decode kernel (the prefill
+    kernel for groups above MFA_DECODE_MAX_GROUP)."""
     o, lse = _paged_attention(
         q[:, :, None, :], cache, kv_starts=kv_starts, scale=scale,
         logit_softcap=logit_softcap, window_size=window_size, decode=True)
@@ -265,9 +277,10 @@ def paged_prefill(q: torch.Tensor, cache: PagedKVCache, *,
 
     q: [batch, q_heads, q_chunk, head_dim], the last q_chunk tokens of
     each sequence, whose K/V are already in the pool.  Query t sits at
-    position lengths - q_chunk + t and attends causally (and within
-    ``window_size`` when given).  Returns o of q's shape and, with
-    ``return_residuals``, lse [batch, q_heads, q_chunk]."""
+    position lengths - q_chunk + t and attends causally (within
+    ``window_size`` when given, and from ``kv_starts`` when given).
+    Returns o of q's shape and, with ``return_residuals``, lse [batch,
+    q_heads, q_chunk]."""
     o, lse = _paged_attention(
         q, cache, kv_starts=kv_starts, scale=scale,
         logit_softcap=logit_softcap, window_size=window_size, decode=False)
@@ -285,32 +298,30 @@ def _paged_attention(q, cache, *, kv_starts, scale, logit_softcap,
                         "come as a QuantizedPagedKVCache (quantize_paged)")
     if precision is not None and precision not in KV_PRECISIONS:
         raise ValueError(f"unsupported paged KV precision: {precision}")
-    if kv_starts is not None:
-        raise not_ported("kv_starts (per-sequence first position)",
-                         "paged-kernel options for Gemma and sinks")
-    if logit_softcap is not None:
-        raise not_ported("logit_softcap",
-                         "paged-kernel options for Gemma and sinks")
     if window_size is not None and window_size <= 0:
         raise ValueError(f"window_size must be positive, got {window_size}")
+    if kv_starts is not None and tuple(kv_starts.shape) != (q.shape[0],):
+        raise ValueError(f"kv_starts must be [batch], got "
+                         f"{tuple(kv_starts.shape)}")
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
+    kw = dict(kv_starts=kv_starts, scale=scale,
+              softcap=softcap_value(logit_softcap), window_size=window_size)
     if q.is_cuda:
-        return _paged_attention_cuda(q, cache, scale=scale,
-                                     window_size=window_size, decode=decode)
+        return _paged_attention_cuda(q, cache, decode=decode, **kw)
     if q.device.type != "cpu":
         raise ValueError(f"paged attention runs on cpu or cuda tensors, "
                          f"got {q.device}")
-    return _paged_attention_plain(q, cache, scale=scale,
-                                  window_size=window_size)
+    return _paged_attention_plain(q, cache, **kw)
 
 
-def _paged_attention_plain(q, cache, *, scale, window_size):
+def _paged_attention_plain(q, cache, *, scale, window_size, kv_starts=None,
+                           softcap=None):
     """The plain PyTorch version: gather every sequence's pages into a
-    dense [batch, kv_heads, max_pages * page_size, d] K/V, mask, and
-    take the softmax in float32 (quantized pages dequantized, each by its
-    own scale).  It is what a CPU tensor runs and what the kernel is held
-    against on the card."""
+    dense [batch, kv_heads, max_pages * page_size, d] K/V, soft-cap the
+    scaled logits, mask, and take the softmax in float32 (quantized pages
+    dequantized, each by its own scale).  It is what a CPU tensor runs
+    and what the kernel is held against on the card."""
     k_pages, v_pages, table, lengths = (cache.k_pages, cache.v_pages,
                                         cache.page_table, cache.lengths)
     b, qh, qc, d = q.shape
@@ -336,12 +347,16 @@ def _paged_attention_plain(q, cache, *, scale, window_size):
     v = gather(v_pages, cache.v_scales if quantized else None)
     qg = q.reshape(b, kvh, group, qc, d).float()
     s = torch.einsum("bhgtd,bhnd->bhgtn", qg, k) * scale
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
     cols = torch.arange(n, device=q.device)[None, None, :]
     qpos = (lengths[:, None] - qc
             + torch.arange(qc, device=q.device)[None, :])[:, :, None]
     live = cols <= qpos                            # [b, qc, n]
     if window_size is not None:
         live &= cols > qpos - window_size
+    if kv_starts is not None:
+        live &= cols >= kv_starts.long()[:, None, None]
     s = s.masked_fill(~live[:, None, None], float("-inf"))
     m = s.amax(dim=-1, keepdim=True)
     m = torch.where(torch.isinf(m), torch.zeros_like(m), m)
@@ -366,8 +381,9 @@ def _kernel_library() -> ctypes.CDLL:
 def bind_library(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C interface of a build of csrc/paged_attention.cu."""
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    args = [ptr] * 9 + [i32] * 7 + [ctypes.c_float, i32, ptr, ptr, i32,
-                                    i32, i32, ptr]
+    f32 = ctypes.c_float
+    args = [ptr] * 10 + [i32] * 7 + [f32, f32, i32, ptr, ptr, i32, i32, i32,
+                                     ptr]
     for fn in (lib.mfa_paged_prefill, lib.mfa_paged_decode):
         fn.argtypes = args
         fn.restype = i32
@@ -426,7 +442,8 @@ def data_ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
-def _paged_attention_cuda(q, cache, *, scale, window_size, decode):
+def _paged_attention_cuda(q, cache, *, scale, window_size, decode,
+                          kv_starts=None, softcap=None):
     """Launch the Hopper kernel; raise on anything it does not take."""
     precision = getattr(cache, "precision", None)
     k_pages, v_pages, table, lengths = (cache.k_pages, cache.v_pages,
@@ -436,6 +453,12 @@ def _paged_attention_cuda(q, cache, *, scale, window_size, decode):
     ps = cache.page_size
     tensors = dict(q=q, k_pages=k_pages, v_pages=v_pages,
                    page_table=table, lengths=lengths)
+    if kv_starts is not None:
+        if kv_starts.device != q.device:
+            raise ValueError(f"kv_starts is on {kv_starts.device}, q on "
+                             f"{q.device}")
+        tensors["kv_starts"] = kv_starts = kv_starts.to(
+            torch.int32).contiguous()
     if precision is not None:
         tensors.update(k_scales=cache.k_scales, v_scales=cache.v_scales)
     for name, t in tensors.items():
@@ -470,9 +493,10 @@ def _paged_attention_cuda(q, cache, *, scale, window_size, decode):
     if q.dtype != torch.bfloat16:
         raise not_ported(f"{q.dtype} queries in the paged kernel (it takes "
                          "bf16)", KERNEL_ITEM)
-    if d not in KERNEL_HEAD_DIMS:
+    head_dims = BF16_HEAD_DIMS if precision is None else KERNEL_HEAD_DIMS
+    if d not in head_dims:
         raise not_ported(f"head_dim {d} in the paged kernel (it takes "
-                         f"{KERNEL_HEAD_DIMS})", KERNEL_ITEM)
+                         f"{head_dims} over these pools)", KERNEL_ITEM)
     tiles = tile_defines()
     group = qh // kvh
     lib = _kernel_library()
@@ -509,9 +533,10 @@ def _paged_attention_cuda(q, cache, *, scale, window_size, decode):
     with torch.cuda.device(q.device):
         rc = entry(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), *scales,
-            table.data_ptr(), lengths.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), b, qh, kvh, qc, d, ps, max_pages,
-            ctypes.c_float(scale), window_size or 0, data_ptr(part_o),
+            table.data_ptr(), lengths.data_ptr(), data_ptr(kv_starts),
+            o.data_ptr(), lse.data_ptr(), b, qh, kvh, qc, d, ps, max_pages,
+            ctypes.c_float(scale), ctypes.c_float(softcap or 0.0),
+            window_size or 0, data_ptr(part_o),
             data_ptr(part_lse), splits, chunk, code, stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc} "
@@ -520,4 +545,8 @@ def _paged_attention_cuda(q, cache, *, scale, window_size, decode):
     LAUNCH_COUNTS[f"{name}_sm90"] += 1
     if precision is not None:
         LAUNCH_COUNTS[f"{name}_{precision.value}"] += 1
+    if softcap is not None:
+        LAUNCH_COUNTS[f"{name}_softcap"] += 1
+    if d == 256:
+        LAUNCH_COUNTS[f"{name}_d256"] += 1
     return o, lse

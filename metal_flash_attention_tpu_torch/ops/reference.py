@@ -12,6 +12,8 @@ Conventions shared with the kernels:
 - Causal masking is aligned bottom-right: row r sees columns
   c <= r + (C - R), so a short query block sits at the end of its keys.
 - ``window_size`` w keeps columns c > r + (C - R) - w.
+- ``logit_softcap`` c (Gemma-2) replaces each scaled logit s by
+  c * tanh(s / c), after the scale and before the mask.
 - The returned lse is the natural-log row log-sum-exp of the scaled
   logits.  A row with every column masked gives o = 0 and lse = -inf.
 - `attention_reference_grads` is the analytic backward under the loss
@@ -26,12 +28,22 @@ from typing import Optional
 import torch
 
 
-def _probabilities(q, k, *, causal, window_size, scale):
-    """Float32 softmax of the masked, scaled logits of q [..., R, D]
-    against k [..., C, D] (k already repeated to q's heads).  Returns
-    (p, lse); a row that sees no key has p = 0 and lse = -inf."""
+def softcap_value(logit_softcap) -> Optional[float]:
+    """The cap the kernels apply for a ``logit_softcap`` argument: None
+    for None or 0 (the JAX kernels test it for truth), else its absolute
+    value (c * tanh(s / c) is the same curve for c and -c)."""
+    return abs(float(logit_softcap)) if logit_softcap else None
+
+
+def _probabilities(q, k, *, causal, window_size, scale, logit_softcap=None):
+    """Float32 softmax of the masked, scaled (and soft-capped) logits of
+    q [..., R, D] against k [..., C, D] (k already repeated to q's
+    heads).  Returns (p, lse); a row that sees no key has p = 0 and
+    lse = -inf."""
     r, c = q.shape[-2], k.shape[-2]
     s = (q.float() @ k.float().transpose(-1, -2)) * scale
+    if logit_softcap is not None:
+        s = logit_softcap * torch.tanh(s / logit_softcap)
     if causal or window_size is not None:
         rows = torch.arange(r, device=q.device)[:, None]
         cols = torch.arange(c, device=q.device)[None, :]
@@ -63,6 +75,7 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = False,
                         window_size: Optional[int] = None,
                         scale: Optional[float] = None,
+                        logit_softcap: Optional[float] = None,
                         return_residuals: bool = False):
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
@@ -71,7 +84,7 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         k = k.repeat_interleave(group, dim=-3)
         v = v.repeat_interleave(group, dim=-3)
     p, lse = _probabilities(q, k, causal=causal, window_size=window_size,
-                            scale=scale)
+                            scale=scale, logit_softcap=logit_softcap)
     o = p @ v.float()
     return (o, lse) if return_residuals else o
 

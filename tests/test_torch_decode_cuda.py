@@ -19,7 +19,9 @@ of 5e-2 would pass almost any output where |o| is about 0.03 (a row of
 1,000 keys with N(0, 1) values).  Over a quantized cache (INT8 / FP8 /
 NF4 `QuantizedTensor`s, bf16 queries) the plain version dequantizes in
 float32 (NF4's codebook rounded to bf16, as the kernel rounds it): o at
-the bf16 row limit, lse at the bf16 tier.
+the bf16 row limit, lse at the bf16 tier.  Gemma-2's cases (head_dim
+256, the soft cap, a window as kv_starts) are held at the same limits,
+beside a planted fault (the cap left out) that the row limit must see.
 """
 
 import numpy as np
@@ -228,6 +230,72 @@ def test_generate_launches_each_kernel_per_layer_and_step(cuda):
     assert ((out >= 0) & (out < cfg.vocab_size)).all()
 
 
+# Gemma-2's dense decode: head_dim 256 (and 128) with the soft cap (50,
+# the model's; 2 over queries scaled by 4, where the tanh saturates), its
+# local layers' window as kv_starts.
+GEMMA_CASES = [
+    # (q_heads, kv_heads, d, max_seq, lens, starts, q_gain, cap)
+    (8, 4, 256, 5000, [5000, 4097, 1], [904, 1, 0], 1.0, 50.0),
+    (8, 4, 256, 5000, [5000, 4097, 1], [904, 1, 0], 4.0, 2.0),
+    (8, 4, 256, 700, [700, 13], None, 1.0, None),
+    (32, 8, 128, 1100, [1100, 64], [100, 0], 4.0, 2.0),
+]
+
+
+def _gemma_decode(cuda, dtype, qh, kvh, d, n, lens, starts, gain, cap,
+                  kernel_cap):
+    """The kernel with ``kernel_cap`` and the plain version with ``cap``
+    on the same inputs: (o, lse, plain o, plain lse)."""
+    q, k, v = _qkv(5, batch=len(lens), q_heads=qh, kv_heads=kvh, d=d,
+                   max_seq=n, dtype=dtype, device=cuda)
+    q = (q.float() * gain).to(dtype)
+    lens_t, starts_t = _ints(lens, cuda), _ints(starts, cuda)
+    before = dict(fd.LAUNCH_COUNTS)
+    o, lse = fd.flash_decode(q, k, v, kv_lens=lens_t, kv_starts=starts_t,
+                             logit_softcap=kernel_cap, return_residuals=True)
+    torch.cuda.synchronize()
+    for name in ("flash_decode", "flash_decode_sm90"):
+        assert fd.LAUNCH_COUNTS[name] == before[name] + 1
+    assert fd.LAUNCH_COUNTS["flash_decode_softcap"] == \
+        before["flash_decode_softcap"] + (kernel_cap is not None)
+    assert fd.LAUNCH_COUNTS["flash_decode_d256"] == \
+        before["flash_decode_d256"] + (d == 256)
+    po, plse = fd._flash_decode_plain(q.float(), k.float(), v.float(),
+                                      kv_lens=lens_t, kv_starts=starts_t,
+                                      max_span=None, scale=d ** -0.5,
+                                      softcap=cap)
+    return o, lse, po, plse
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("qh,kvh,d,n,lens,starts,gain,cap", GEMMA_CASES)
+def test_decode_kernel_gemma_matches_plain(cuda, dtype, qh, kvh, d, n, lens,
+                                           starts, gain, cap):
+    o, lse, po, plse = _gemma_decode(cuda, dtype, qh, kvh, d, n, lens,
+                                     starts, gain, cap, cap)
+    assert o.dtype == dtype
+    assert worst_row_rel_rms(o, po) <= ROW_REL_RMS[dtype]
+    assert max_abs_err(lse, plse) <= tolerances_for(dtype).lse
+    assert torch.equal(torch.isinf(lse), torch.isinf(plse))
+
+
+def test_decode_kernel_float32_takes_the_cap(cuda):
+    """fp32 on CUDA cores, with the accurate tanh, at the fp32 tier."""
+    o, lse, po, plse = _gemma_decode(cuda, torch.float32, 32, 8, 128, 1100,
+                                     [1100, 64], [100, 0], 4.0, 2.0, 2.0)
+    assert max_abs_err(o, po) <= tolerances_for(torch.float32).o
+    assert max_abs_err(lse, plse) <= tolerances_for(torch.float32).lse
+
+
+def test_decode_kernel_without_its_cap_is_seen(cuda):
+    """A planted fault: the kernel run without its cap, against the capped
+    plain version at a saturating cap, is far outside the row limit."""
+    o, _, po, _ = _gemma_decode(cuda, torch.bfloat16, 8, 4, 256, 5000,
+                                [5000, 4097, 1], [904, 1, 0], 4.0, 2.0,
+                                None)
+    assert worst_row_rel_rms(o, po) > 10 * ROW_REL_RMS[torch.bfloat16]
+
+
 def test_kernel_refuses_what_it_does_not_take(cuda):
     q, k, v = _qkv(2, batch=1, q_heads=4, kv_heads=2, d=64, max_seq=32,
                    dtype=torch.bfloat16, device=cuda)
@@ -254,6 +322,12 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(NotImplementedError):       # head_dim 32
         fd.flash_decode(q[..., :32], quantize(k[..., :32], nf4),
                         quantize(v[..., :32], nf4))
+    with pytest.raises(NotImplementedError):       # a cap over INT8 K/V
+        fd.flash_decode(q, kq, vq, logit_softcap=50.0)
+    q256, k256, v256 = _qkv(2, batch=1, q_heads=4, kv_heads=2, d=256,
+                            max_seq=32, dtype=torch.float32, device=cuda)
+    with pytest.raises(NotImplementedError):       # fp32 at head_dim 256
+        fd.flash_decode(q256, k256, v256)
 
 
 def test_a_cpu_tensor_never_builds_the_kernel(monkeypatch):

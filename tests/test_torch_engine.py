@@ -187,7 +187,9 @@ def test_unported_engine_features_raise(models):
     JAX engine's keywords are all accepted, and its ValueError
     combinations stay ValueErrors.  (Sampling, logprobs, logit_bias and
     step_burst are held in tests/test_torch_engine_burst.py, the prefix
-    cache in tests/test_torch_prefix_cache.py.)"""
+    cache in tests/test_torch_prefix_cache.py, the family hooks
+    (chunk_step / decode_step, taken since Gemma-2) in
+    tests/test_torch_gemma_engine.py.)"""
     _, tcfg, _, tparams = models
     eng = TEngine(tparams, tcfg, max_batch=1, num_pages=8,
                   prefix_cache=True)
@@ -196,13 +198,13 @@ def test_unported_engine_features_raise(models):
     for kw, item in ((dict(draft_fn=lambda *a: None, draft_len=2),
                       "speculative decoding"),
                      (dict(lora={"layers": []}), "LoRA"),
-                     (dict(kv_sharding=object()), "tensor-parallel serving"),
-                     (dict(chunk_step=lambda *a: None),
-                      "paged-kernel options for Gemma and sinks"),
-                     (dict(decode_step=lambda *a: None),
-                      "paged-kernel options for Gemma and sinks")):
+                     (dict(kv_sharding=object()),
+                      "tensor-parallel serving")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{item}"):
             TEngine(tparams, tcfg, max_batch=1, num_pages=8, **kw)
+    for kw in (dict(chunk_step=lambda *a: None),
+               dict(decode_step=lambda *a: None)):
+        TEngine(tparams, tcfg, max_batch=1, num_pages=8, **kw)
     for kw in (dict(kv_precision="int8", decode_step=lambda *a: None),
                dict(lora={"layers": []}, chunk_step=lambda *a: None)):
         with pytest.raises(ValueError):

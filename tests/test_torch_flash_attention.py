@@ -175,8 +175,12 @@ def test_dispatch_matches_jax_and_caches():
     jo = jdispatch.attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                              causal=True)
     assert max_abs_err(to, jo) <= FP32_TOL.o
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tdispatch.attention(tq, tk, tv, logit_softcap=30.0)
+    # The soft cap (ported with Gemma-2) is an option of its own.
+    tc = tdispatch.attention(tq, tk, tv, causal=True, logit_softcap=3.0)
+    assert tdispatch.cache_info()["dispatch_entries"] == 3
+    jc = jdispatch.attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             causal=True, logit_softcap=3.0)
+    assert max_abs_err(tc, jc) <= FP32_TOL.o
 
 
 def test_descriptor_resolves_the_kernel_tiles():
@@ -227,14 +231,107 @@ class _Quantized:
     dict(low_precision_intermediates=True),
 ])
 def test_unported_options_raise_on_every_device(option):
-    q = torch.zeros(1, 2, 8, 32)
+    """What no path computes yet raises on every device.  The soft cap
+    (ported with Gemma-2) is computed by the forward, and raises in the
+    backward and wherever a gradient is asked for (Gemma training)."""
+    q = torch.zeros(1, 2, 8, 32, requires_grad=True)
     k = torch.zeros(1, 1, 8, 32)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tfa.flash_attention(q, k, k, **option)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tfa.flash_attention_forward(q, k, k, **option)
+    if "logit_softcap" in option:
+        o, _ = tfa.flash_attention_forward(q, k, k, **option)
+        assert torch.isfinite(o).all()
+    else:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            tfa.flash_attention_forward(q, k, k, **option)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tfb.flash_attention_backward(q, k, k, q, q, q[..., 0], **option)
+
+
+# Gemma-2's forward options: the soft cap (the model's 50; 2 over queries
+# scaled by 4, where the tanh saturates) at head dims 64 and 256, causal,
+# with and without its local layers' window.
+SOFTCAP_CASES = [
+    # (b, qh, kvh, r, c, d, window, q_gain, cap)
+    (1, 4, 2, 128, 128, 64, None, 1.0, 50.0),
+    (1, 4, 2, 93, 160, 64, 40, 4.0, 2.0),
+    (1, 4, 2, 130, 130, 256, None, 4.0, 2.0),
+    (1, 2, 1, 100, 140, 256, 64, 1.0, 50.0),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", SOFTCAP_CASES)
+def test_softcap_forward_matches_jax(case, dtype):
+    """The capped forward against the JAX kernel (interpret mode) at the
+    dtype's tier; at a saturating cap the capped output differs from the
+    uncapped one by far more than the tier.  In bf16 the lse is held
+    against the port's float32 forward on the same inputs (the JAX
+    kernel's bf16 rounding of q * scale * log2(e) moves it by about 1e-2
+    at head_dim 256 with queries scaled by 4)."""
+    b, qh, kvh, r, c, d, window, gain, cap = case
+    jdt, tdt, tol = DTYPES[dtype]
+    q, k, v, _ = _inputs(7, b, qh, kvh, r, c, d, jdt)
+    q = np.array(jnp.asarray(q * gain, jdt).astype(jnp.float32))
+    kw = dict(causal=True, window_size=window, logit_softcap=cap)
+    jo, jlse = jfa.flash_attention_forward(
+        *(jnp.asarray(x, jdt) for x in (q, k, v)), **kw)
+    tq, tk, tv = (torch.as_tensor(x).to(tdt) for x in (q, k, v))
+    to, tlse = tfa.flash_attention_forward(tq, tk, tv, **kw)
+    assert to.dtype == tdt
+    assert max_abs_err(to, jo) <= tol.o
+    if tdt == torch.float32:
+        assert max_abs_err(tlse, jlse) <= tol.lse
+    else:
+        _, flse = tfa.flash_attention_forward(tq.float(), tk.float(),
+                                              tv.float(), **kw)
+        assert max_abs_err(tlse, flse) <= tol.lse
+    # Without a graph to build, flash_attention is the same forward.
+    assert torch.equal(tfa.flash_attention(tq, tk, tv, **kw), to)
+    if cap < 10:
+        uo, _ = tfa.flash_attention_forward(tq, tk, tv, causal=True,
+                                            window_size=window)
+        assert max_abs_err(uo, to) > 10 * tol.o
+
+
+def test_softcap_dynamic_traversal_matches_jax(force_dynamic):
+    """Row 3's JAX kernel with the soft cap at head_dim 256."""
+    q, k, v, _ = _inputs(8, 1, 2, 1, 256, 256, 256, jnp.float32)
+    q = q * 4.0
+    jo, jlse = jfa.flash_attention_forward(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True,
+        window_size=100, logit_softcap=2.0, block_q=128, block_kv=128)
+    to, tlse = tfa.flash_attention_forward(
+        torch.as_tensor(q), torch.as_tensor(k), torch.as_tensor(v),
+        causal=True, window_size=100, logit_softcap=2.0)
+    assert max_abs_err(to, jo) <= FP32_TOL.o
+    assert max_abs_err(tlse, jlse) <= FP32_TOL.lse
+
+
+def test_backward_refuses_the_cap_and_head_dim_256():
+    """Gemma training is not ported: on every device the backward, the
+    autograd function and flash_attention with an input that needs a
+    gradient raise for the soft cap and head_dim 256."""
+    q256 = torch.zeros(1, 2, 8, 256)
+    k256 = torch.zeros(1, 1, 8, 256)
+    q, k = torch.zeros(1, 2, 8, 64), torch.zeros(1, 1, 8, 64)
+    with pytest.raises(NotImplementedError, match="Gemma training"):
+        tfb.flash_attention_backward(q256, k256, k256, q256, q256,
+                                     q256[..., 0])
+    with pytest.raises(NotImplementedError, match="Gemma training"):
+        tfb.flash_attention_backward(q, k, k, q, q, q[..., 0],
+                                     logit_softcap=50.0)
+    with pytest.raises(NotImplementedError, match="Gemma training"):
+        tfb.FlashAttentionFunction.apply(q256, k256, k256, True, None,
+                                         None, None)
+    for qq, kk, kw in ((q256, k256, {}), (q, k, dict(logit_softcap=50.0))):
+        with pytest.raises(NotImplementedError, match="Gemma training"):
+            tfa.flash_attention(qq.clone().requires_grad_(True), kk, kk,
+                                causal=True, **kw)
+        with torch.no_grad():
+            assert tfa.flash_attention(qq.clone().requires_grad_(True), kk,
+                                       kk, causal=True, **kw).shape == \
+                qq.shape
 
 
 def test_quantized_kv_raises():

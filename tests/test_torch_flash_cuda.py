@@ -11,7 +11,10 @@ Tolerance: the bf16 tier, MIXED_TOL (o 5e-2, lse 7e-3, grads 5e-2).  The
 kernels round P and dS to the input type before the products that
 consume them; the plain versions stay in float32.  Gradients are held
 relative to their own size where it exceeds 1: err <= tol * max(1,
-max |ref|).
+max |ref|).  Gemma-2's forward cases (head_dim 256, the soft cap) are held
+at the same tier; a planted fault (the cap left out) is read by the
+worst 64-row tile's relative rms error, which must exceed 10 x
+TILE_REL_RMS.
 """
 
 import numpy as np
@@ -89,19 +92,26 @@ BWD_EDGE_CASES = EDGE_CASES + [
 ]
 
 
-def _forward_checked(q, k, v, d, causal, window, out_dtype=None):
+def _forward_checked(q, k, v, d, causal, window, out_dtype=None,
+                     cap=None):
     """One forward through the kernel, held against the plain version;
     the launch counted on the op and on the sm90 kernel."""
     before = dict(fa.LAUNCH_COUNTS)
     o, lse = fa.flash_attention_forward(q, k, v, causal=causal,
                                         window_size=window,
-                                        out_dtype=out_dtype)
+                                        out_dtype=out_dtype,
+                                        logit_softcap=cap)
     torch.cuda.synchronize()
     assert fa.LAUNCH_COUNTS["flash_fwd"] == before["flash_fwd"] + 1
     assert fa.LAUNCH_COUNTS["flash_fwd_sm90"] == \
         before["flash_fwd_sm90"] + 1
+    assert fa.LAUNCH_COUNTS["flash_fwd_softcap"] == \
+        before["flash_fwd_softcap"] + (cap is not None)
+    assert fa.LAUNCH_COUNTS["flash_fwd_d256"] == \
+        before["flash_fwd_d256"] + (d == 256)
     po, plse = fa._forward_plain(q, k, v, causal=causal, window_size=window,
-                                 scale=d ** -0.5, out_dtype=torch.float32)
+                                 scale=d ** -0.5, out_dtype=torch.float32,
+                                 softcap=cap)
     assert o.dtype == (out_dtype or q.dtype) and lse.dtype == torch.float32
     assert max_abs_err(o, po) <= MIXED_TOL.o
     assert max_abs_err(lse, plse) <= MIXED_TOL.lse
@@ -191,8 +201,95 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         fa.flash_attention_forward(q96, k96, v96)
     with pytest.raises(TypeError):
         fa.flash_attention_forward(q, k.half(), v)
-    with pytest.raises(NotImplementedError):
-        fa.flash_attention_forward(q, k, v, logit_softcap=30.0)
+    kq, vq = _quantized_kv(9, 1, 2, 64, 64, "int8", cuda)
+    with pytest.raises(NotImplementedError):       # a cap over INT8 K/V
+        fa.flash_attention_forward(q, kq, vq, logit_softcap=30.0)
+
+
+# Gemma-2's forward: head_dim 256 (one consumer warpgroup of 64 rows,
+# 64-key tiles) and 128, with the soft cap (50, the model's; 2 over
+# queries scaled by 4, where the tanh saturates) and its local layers'
+# window.
+GEMMA_CASES = [
+    # b, qh, kvh, n, m, d, causal, window, q_gain, cap
+    (1, 8, 4, 1000, 1000, 256, True, None, 1.0, 50.0),
+    (1, 8, 4, 1000, 1000, 256, True, None, 4.0, 2.0),
+    (2, 8, 4, 600, 600, 256, True, 256, 4.0, 2.0),
+    (1, 8, 4, 93, 200, 256, False, None, 1.0, None),   # ragged tiles
+    (1, 4, 4, 40, 40, 256, True, None, 1.0, None),     # under one tile
+    (1, 2, 2, 300, 700, 256, False, 130, 4.0, 2.0),
+    (1, 32, 8, 1000, 1536, 128, True, 512, 4.0, 2.0),
+]
+
+TILE_REL_RMS = 1.5e-2
+
+
+def worst_tile_rel_rms(got, ref, rows=64):
+    """The largest relative rms error of any `rows`-row tile of a head."""
+    got, ref = got.float(), ref.float()
+    n = got.shape[-2]
+    worst = 0.0
+    for r in range(0, n, rows):
+        g, w = got[..., r:r + rows, :], ref[..., r:r + rows, :]
+        err = (g - w).pow(2).sum((-1, -2))
+        norm = w.pow(2).sum((-1, -2)).clamp_min(1e-30)
+        worst = max(worst, float((err / norm).sqrt().max()))
+    return worst
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("b,qh,kvh,n,m,d,causal,window,gain,cap",
+                         GEMMA_CASES)
+def test_forward_kernel_gemma_matches_plain(cuda, dtype, b, qh, kvh, n, m,
+                                            d, causal, window, gain, cap):
+    q, k, v, _ = _qkv(10, b, qh, kvh, n, m, d, dtype, cuda)
+    q = (q.float() * gain).to(dtype)
+    _forward_checked(q, k, v, d, causal, window, cap=cap)
+
+
+def test_forward_kernel_d256_float32_out(cuda):
+    q, k, v, _ = _qkv(11, 1, 8, 4, 93, 150, 256, torch.bfloat16, cuda)
+    _forward_checked(q, k, v, 256, True, None, out_dtype=torch.float32,
+                     cap=50.0)
+
+
+def test_forward_kernel_without_its_cap_is_seen(cuda):
+    """A planted fault: the kernel at D 256 without its cap, against the
+    capped plain version at a saturating cap."""
+    q, k, v, _ = _qkv(10, 1, 8, 4, 1000, 1000, 256, torch.bfloat16, cuda)
+    q = (q.float() * 4.0).to(torch.bfloat16)
+    o, _ = fa.flash_attention_forward(q, k, v, causal=True)
+    po, _ = fa._forward_plain(q, k, v, causal=True, window_size=None,
+                              scale=256 ** -0.5, out_dtype=torch.float32,
+                              softcap=2.0)
+    capped, _ = fa.flash_attention_forward(q, k, v, causal=True,
+                                           logit_softcap=2.0)
+    assert worst_tile_rel_rms(capped, po) <= TILE_REL_RMS
+    assert worst_tile_rel_rms(o, po) > 10 * TILE_REL_RMS
+
+
+def test_backward_refuses_the_cap_and_head_dim_256(cuda):
+    """Gemma training is not ported: the backward raises for the soft cap
+    and head dim 256, and so does flash_attention when an input needs a
+    gradient; without one it is the forward."""
+    q, k, v, do = _qkv(12, 1, 4, 2, 64, 64, 256, torch.bfloat16, cuda)
+    o, lse = fa.flash_attention_forward(q, k, v, causal=True)
+    with pytest.raises(NotImplementedError, match="Gemma training"):
+        fb.flash_attention_backward(q, k, v, do, o, lse, causal=True)
+    q1, k1, v1, do1 = _qkv(12, 1, 4, 2, 64, 64, 128, torch.bfloat16, cuda)
+    o1, lse1 = fa.flash_attention_forward(q1, k1, v1, causal=True)
+    with pytest.raises(NotImplementedError, match="Gemma training"):
+        fb.flash_attention_backward(q1, k1, v1, do1, o1, lse1, causal=True,
+                                    logit_softcap=50.0)
+    before = dict(fb.LAUNCH_COUNTS)
+    for args, kw in (((q, k, v), {}), ((q1, k1, v1),
+                                       dict(logit_softcap=50.0))):
+        with pytest.raises(NotImplementedError, match="Gemma training"):
+            fa.flash_attention(args[0].clone().requires_grad_(True),
+                               *args[1:], causal=True, **kw)
+        assert fa.flash_attention(*args, causal=True, **kw).shape == \
+            args[0].shape
+    assert fb.LAUNCH_COUNTS == before
 
 
 # The forward over quantized K/V (bf16 queries): each precision at both
@@ -311,7 +408,8 @@ def test_remat_runs_the_forward_kernel_twice(cuda):
     n = cfg.n_layers
     bwd = {"flash_bwd_dq": n, "flash_bwd_dkv": n, "flash_bwd_dq_sm90": n,
            "flash_bwd_dkv_sm90": n,
-           **{f"flash_fwd_{p.value}": 0 for p in fa.KV_PRECISIONS}}
+           **{f"flash_fwd_{p.value}": 0 for p in fa.KV_PRECISIONS},
+           "flash_fwd_softcap": 0, "flash_fwd_d256": 0}
     assert counts[0] == {"flash_fwd": n, "flash_fwd_sm90": n, **bwd}
     assert counts[1] == {"flash_fwd": 2 * n, "flash_fwd_sm90": 2 * n, **bwd}
     (l0, g0), (l1, g1) = results

@@ -52,21 +52,22 @@ def _ints(x):
     return None if x is None else np.asarray(x, np.int32)
 
 
-def _jax(q, k, v, lens, starts, max_span, jdt):
+def _jax(q, k, v, lens, starts, max_span, jdt, cap=None):
     o, lse = jax_flash_decode(
         jnp.asarray(q, jdt), jnp.asarray(k, jdt), jnp.asarray(v, jdt),
         kv_lens=None if lens is None else jnp.asarray(lens),
         kv_starts=None if starts is None else jnp.asarray(starts),
-        max_span=max_span, return_residuals=True)
+        max_span=max_span, logit_softcap=cap, return_residuals=True)
     return np.asarray(o.astype(jnp.float32)), np.asarray(lse)
 
 
-def _torch(q, k, v, lens, starts, max_span, tdt):
+def _torch(q, k, v, lens, starts, max_span, tdt, cap=None):
     def t(x, dtype=tdt):
         return None if x is None else torch.as_tensor(x).to(dtype)
     return tfd.flash_decode(t(q), t(k), t(v), kv_lens=t(lens, torch.int32),
                             kv_starts=t(starts, torch.int32),
-                            max_span=max_span, return_residuals=True)
+                            max_span=max_span, logit_softcap=cap,
+                            return_residuals=True)
 
 
 def _golden(q, k, v, lo, hi):
@@ -131,6 +132,54 @@ def test_flash_decode_matches_jax(case, dtype):
         assert np.all(np.isneginf(tl.numpy()[empty]))
 
 
+# Gemma-2's soft cap: head dims 64 and 256, the model's cap (50) and a
+# saturating one (2, over queries scaled by 4), a window as kv_starts.
+SOFTCAP_CASES = [
+    # (q_heads, kv_heads, d, max_seq, lens, starts, q_gain, cap)
+    (4, 2, 64, 160, [160, 77], [30, 0], 1.0, 50.0),
+    (4, 2, 64, 160, [160, 77], [30, 0], 4.0, 2.0),
+    (8, 4, 256, 200, [200, 65, 1], [100, 0, 0], 4.0, 2.0),
+    (8, 4, 256, 130, [130, 64], None, 1.0, 50.0),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", SOFTCAP_CASES)
+def test_flash_decode_softcap_matches_jax(case, dtype):
+    """The capped decode against the JAX kernel (interpret mode) and the
+    capped reference, at the dtype's tier (FP32_TOL / MIXED_TOL); at a
+    saturating cap the capped output must differ from the uncapped one
+    by far more than that tier.  In bf16 the lse is held against the
+    capped float32 reference only: the JAX kernel rounds q * scale *
+    log2(e) to bf16, which at head_dim 256 with queries scaled by 4
+    moves a one-key row's lse by about 1e-2 on its own."""
+    qh, kvh, d, n, lens, starts, gain, cap = case
+    jdt, tdt = DTYPES[dtype]
+    q, k, v = _case(7, q_heads=qh, kv_heads=kvh, d=d, max_seq=n,
+                    batch=len(lens), dtype=jdt)
+    q = _round(q * gain, jdt)
+    lens, starts = _ints(lens), _ints(starts)
+    jo, jl = _jax(q, k, v, lens, starts, None, jdt, cap)
+    to, tl = _torch(q, k, v, lens, starts, None, tdt, cap)
+    tol = tolerances_for(tdt)
+    assert max_abs_err(to, jo) < tol.o
+    if tdt == torch.float32:
+        assert max_abs_err(tl, jl) < tol.lse
+    lo, hi = _bounds(len(lens), n, lens, starts)
+    for b in range(len(lens)):
+        if hi[b] > lo[b]:
+            go, gl = attention_reference(
+                torch.as_tensor(q[b][:, None]),
+                torch.as_tensor(k[b, :, lo[b]:hi[b]]),
+                torch.as_tensor(v[b, :, lo[b]:hi[b]]), logit_softcap=cap,
+                return_residuals=True)
+            assert max_abs_err(to[b], go[:, 0]) < tol.o
+            assert max_abs_err(tl[b], gl[:, 0]) < tol.lse
+    if cap < 10:
+        uo, _ = _torch(q, k, v, lens, starts, None, tdt)
+        assert max_abs_err(uo, to) > 10 * tol.o
+
+
 def test_over_long_span_is_clamped_to_the_window():
     """A row whose live span exceeds max_span attends
     [start, start + max_span): the JAX kernel drops a data-dependent
@@ -192,8 +241,12 @@ def test_unported_and_invalid_options_raise():
     lens = torch.tensor([20], dtype=torch.int32)
     with pytest.raises(TypeError, match="QuantizedTensors"):
         tfd.flash_decode(q, object(), object())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tfd.flash_decode(q, k, v, logit_softcap=30.0)
+    # logit_softcap is ported: a cap of 0 is no cap, as the JAX kernel
+    # reads it, and a cap's sign does not matter (c tanh(s / c) is even).
+    assert torch.equal(tfd.flash_decode(q, k, v, logit_softcap=0.0),
+                       tfd.flash_decode(q, k, v))
+    assert torch.equal(tfd.flash_decode(q, k, v, logit_softcap=-30.0),
+                       tfd.flash_decode(q, k, v, logit_softcap=30.0))
     with pytest.raises(ValueError, match="max_span"):
         tfd.flash_decode(q, k, v, kv_lens=lens, max_span=8)
     with pytest.raises(ValueError):

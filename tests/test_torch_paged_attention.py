@@ -57,30 +57,32 @@ def _case(seed, *, q_heads, kv_heads, d, page_size, lengths, q_chunk,
     return q, k, v, table, np.asarray(lengths, np.int32)
 
 
-def _jax(q, k, v, table, lengths, *, q_chunk, window, jdt):
+def _jax(q, k, v, table, lengths, *, q_chunk, window, jdt, starts=None,
+         cap=None):
     cache = jpa.PagedKVCache(jnp.asarray(k, jdt), jnp.asarray(v, jdt),
                              jnp.asarray(table), jnp.asarray(lengths))
+    kw = dict(window_size=window, return_residuals=True, logit_softcap=cap,
+              kv_starts=None if starts is None else jnp.asarray(starts))
     if q_chunk is None:
-        o, lse = jpa.paged_decode(jnp.asarray(q[:, :, 0], jdt), cache,
-                                  window_size=window, return_residuals=True)
+        o, lse = jpa.paged_decode(jnp.asarray(q[:, :, 0], jdt), cache, **kw)
         o, lse = o[:, :, None], lse[:, :, None]
     else:
-        o, lse = jpa.paged_prefill(jnp.asarray(q, jdt), cache,
-                                   window_size=window, return_residuals=True)
+        o, lse = jpa.paged_prefill(jnp.asarray(q, jdt), cache, **kw)
     return np.asarray(o.astype(jnp.float32)), np.asarray(lse)
 
 
-def _torch(q, k, v, table, lengths, *, q_chunk, window, tdt):
+def _torch(q, k, v, table, lengths, *, q_chunk, window, tdt, starts=None,
+           cap=None):
     def t(x, dtype=tdt):
-        return torch.as_tensor(x).to(dtype)
+        return None if x is None else torch.as_tensor(x).to(dtype)
     cache = tpa.PagedKVCache(t(k), t(v), t(table, torch.int32),
                              t(lengths, torch.int32))
+    kw = dict(window_size=window, return_residuals=True, logit_softcap=cap,
+              kv_starts=t(starts, torch.int32))
     if q_chunk is None:
-        o, lse = tpa.paged_decode(t(q[:, :, 0]), cache, window_size=window,
-                                  return_residuals=True)
+        o, lse = tpa.paged_decode(t(q[:, :, 0]), cache, **kw)
         return o[:, :, None], lse[:, :, None]
-    return tpa.paged_prefill(t(q), cache, window_size=window,
-                             return_residuals=True)
+    return tpa.paged_prefill(t(q), cache, **kw)
 
 
 def _golden(q, k, v, table, lengths, *, window):
@@ -197,14 +199,82 @@ def test_paged_append_chunk_matches_jax(kc):
 
 
 def test_unported_options_raise():
+    """The Gemma options are ported (the soft cap, kv_starts); what is
+    malformed still raises."""
     cache = tpa.init_paged_cache(num_pages=4, kv_heads=1, page_size=8,
                                  head_dim=16, batch=1, max_pages=2,
                                  dtype=torch.float32, device="cpu")
-    q = torch.zeros((1, 2, 16))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tpa.paged_decode(q, cache, logit_softcap=30.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tpa.paged_decode(q, cache, kv_starts=torch.zeros(1, dtype=torch.int32))
+    cache = cache._replace(page_table=torch.tensor([[1, 2]],
+                                                   dtype=torch.int32),
+                           lengths=torch.tensor([9], dtype=torch.int32))
+    q = torch.ones((1, 2, 16))
+    assert torch.isfinite(tpa.paged_decode(q, cache,
+                                           logit_softcap=30.0)).all()
+    assert torch.isfinite(tpa.paged_decode(
+        q, cache, kv_starts=torch.zeros(1, dtype=torch.int32))).all()
+    with pytest.raises(ValueError, match="kv_starts"):
+        tpa.paged_decode(q, cache, kv_starts=torch.zeros(2, dtype=torch.int32))
+    with pytest.raises(ValueError, match="window_size"):
+        tpa.paged_decode(q, cache, window_size=0)
+
+
+# Gemma-2's options in both modes: the soft cap (the model's 50; 2 over
+# queries scaled by 4, where the tanh saturates) at head dims 64 and 256,
+# kv_starts (a sliding window as each sequence's first position), with
+# and without a window.  Every start is at most its chunk's first query
+# position: a query that sees no key is where the two packages differ by
+# design (the JAX kernel returns its masked average, the port o = 0 and
+# lse = -inf).
+GEMMA_CASES = [
+    # (q_heads, kv_heads, d, page, lengths, q_chunk, window, starts, gain,
+    #  cap)
+    (4, 2, 64, 16, [57, 20], None, None, [30, 0], 4.0, 2.0),
+    (4, 2, 64, 16, [57, 40], 8, 24, [10, 30], 1.0, 50.0),
+    (8, 4, 256, 16, [70, 33], None, 32, None, 4.0, 2.0),
+    (8, 4, 256, 16, [70, 40], 16, None, [50, 0], 4.0, 2.0),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", GEMMA_CASES)
+def test_gemma_options_match_jax(case, dtype):
+    """Both modes with the soft cap and kv_starts against the JAX kernel
+    (interpret mode), at the dtype's tier (FP32_TOL / MIXED_TOL); o also
+    against the capped reference on each row's visible keys; at a
+    saturating cap the capped output differs from the uncapped one by
+    far more than the tier.  In bf16 the lse is held against the float32
+    reference only (the JAX kernel's bf16 rounding of q * scale * log2(e)
+    moves short rows' lse by about 1e-2 at head_dim 256, queries x4)."""
+    qh, kvh, d, ps, lengths, qc, window, starts, gain, cap = case
+    jdt, tdt = DTYPES[dtype]
+    q, k, v, table, lens = _case(9, q_heads=qh, kv_heads=kvh, d=d,
+                                 page_size=ps, lengths=lengths, q_chunk=qc,
+                                 dtype=jdt)
+    q = _round(q * gain, jdt)
+    starts = None if starts is None else np.asarray(starts, np.int32)
+    kw = dict(q_chunk=qc, window=window, starts=starts, cap=cap)
+    jo, jl = _jax(q, k, v, table, lens, jdt=jdt, **kw)
+    to, tl = _torch(q, k, v, table, lens, tdt=tdt, **kw)
+    tol = tolerances_for(tdt)
+    assert max_abs_err(to, jo) < tol.o
+    if tdt == torch.float32:
+        assert max_abs_err(tl, jl) < tol.lse
+    # The reference: row t of sequence b at position n - qc + t sees the
+    # keys in [start, position], within the window.
+    for b, n in enumerate(lens):
+        kd = k[table[b]].transpose(1, 0, 2, 3).reshape(kvh, -1, d)[:, :n]
+        vd = v[table[b]].transpose(1, 0, 2, 3).reshape(kvh, -1, d)[:, :n]
+        lo = 0 if starts is None else int(starts[b])
+        go, gl = attention_reference(
+            torch.as_tensor(q[b]), torch.as_tensor(kd[:, lo:]),
+            torch.as_tensor(vd[:, lo:]), causal=True, window_size=window,
+            logit_softcap=cap, return_residuals=True)
+        assert max_abs_err(to[b], go) < tol.o
+        assert max_abs_err(tl[b], gl) < tol.lse
+    if cap < 10:
+        uo, _ = _torch(q, k, v, table, lens, tdt=tdt, q_chunk=qc,
+                       window=window, starts=starts)
+        assert max_abs_err(uo, to) > 10 * tol.o
 
 
 def test_shape_helpers_match_jax():

@@ -12,7 +12,10 @@ rounds P to bf16 before PV, the plain version keeps it in float32.  Over
 quantized pools (INT8 / FP8 / NF4) o is held by the relative rms error of
 each (sequence, head, query) row, ROW_REL_RMS: the kernel also rounds
 P * (V's scale) to bf16, where the plain version dequantizes in float32
-(both round NF4's codebook to bf16).
+(both round NF4's codebook to bf16).  Gemma-2's cases (head_dim 256 over
+bf16 pools, the soft cap over every pool, windows and kv_starts) are held
+at the row limit too, beside a planted fault (the cap left out) that the
+limit must see.
 """
 
 import numpy as np
@@ -68,10 +71,11 @@ def _case(seed, *, batch, q_heads, kv_heads, d, page_size, lengths,
     return t(q), cache
 
 
-def _plain(q, cache, window, decode):
+def _plain(q, cache, window, decode, starts=None, cap=None):
     q4 = q[:, :, None] if decode else q
     o, lse = pa._paged_attention_plain(q4, cache, scale=q.shape[-1] ** -0.5,
-                                       window_size=window)
+                                       window_size=window, kv_starts=starts,
+                                       softcap=cap)
     return (o[:, :, 0], lse[:, :, 0]) if decode else (o, lse)
 
 
@@ -144,8 +148,9 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
         pa.paged_decode(q.float(), cache)
     with pytest.raises(ValueError):
         pa.paged_decode(q[..., :32].contiguous(), cache)
-    with pytest.raises(NotImplementedError):
-        pa.paged_decode(q, cache, logit_softcap=30.0)
+    with pytest.raises(ValueError):                 # kv_starts' shape
+        pa.paged_decode(q, cache, kv_starts=torch.zeros(
+            2, dtype=torch.int32, device=cuda))
 
 
 def worst_row_rel_rms(got, ref):
@@ -303,3 +308,86 @@ def test_quantized_pools_refuse_what_the_kernel_does_not_take(cuda):
         pa.paged_decode(q32, pa.quantize_paged(c32, "nf4"))
     with pytest.raises(ValueError):                  # scales' shape
         pa.paged_decode(q, qcache._replace(k_scales=qcache.k_scales[:1]))
+    q256, c256 = _case(7, batch=1, q_heads=4, kv_heads=2, d=256,
+                       page_size=16, lengths=[20], q_chunk=None,
+                       device=cuda)
+    with pytest.raises(NotImplementedError):         # head_dim 256, INT8
+        pa.paged_decode(q256, pa.quantize_paged(c256, "int8"))
+
+
+# Gemma-2: head_dim 256 over bf16 pools, its local layers' window of
+# 4,096 and kv_starts, with the soft cap (50, the model's; 2 over queries
+# scaled by 4, where the tanh saturates); and D 128 with them.
+GEMMA_CASES = [
+    # (q_heads, kv_heads, d, page, lengths, window, starts, q_gain, cap)
+    (8, 4, 256, 128, [5000, 700, 1], 4096, None, 1.0, 50.0),
+    (8, 4, 256, 128, [5000, 700, 1], 4096, None, 4.0, 2.0),
+    (8, 4, 256, 128, [1100, 200], None, [100, 0], 4.0, 2.0),
+    (8, 4, 256, 16, [300, 45], None, None, 1.0, None),
+    (32, 8, 128, 128, [1100, 200], 300, [700, 3], 4.0, 2.0),
+]
+
+
+def _gemma_paged(cuda, mode, q_heads, kv_heads, d, page, lengths, window,
+                 starts, gain, cap, kernel_cap, precision=None):
+    """One launch of ``mode`` with ``kernel_cap`` beside the plain version
+    with ``cap``: (o, lse, plain o, plain lse), the launch counted."""
+    decode = mode == "paged_decode"
+    q, cache = _case(8, batch=len(lengths), q_heads=q_heads,
+                     kv_heads=kv_heads, d=d, page_size=page,
+                     lengths=lengths, q_chunk=None if decode else 64,
+                     device=cuda)
+    q = (q.float() * gain).to(torch.bfloat16)
+    if precision is not None:
+        cache = pa.quantize_paged(cache, precision)
+    starts_t = None if starts is None else torch.tensor(
+        starts, dtype=torch.int32, device=cuda)
+    fn = pa.paged_decode if decode else pa.paged_prefill
+    before = dict(pa.LAUNCH_COUNTS)
+    o, lse = fn(q, cache, window_size=window, kv_starts=starts_t,
+                logit_softcap=kernel_cap, return_residuals=True)
+    torch.cuda.synchronize()
+    names = [mode, f"{mode}_sm90"]
+    if precision is not None:
+        names.append(f"{mode}_{precision}")
+    if kernel_cap is not None:
+        names.append(f"{mode}_softcap")
+    if d == 256:
+        names.append(f"{mode}_d256")
+    for key, n in pa.LAUNCH_COUNTS.items():
+        assert n == before[key] + (key in names), key
+    ro, rlse = _plain(q, cache, window, decode, starts_t, cap)
+    return o, lse, ro, rlse
+
+
+@pytest.mark.parametrize("mode", ["paged_decode", "paged_prefill"])
+@pytest.mark.parametrize("q_heads,kv_heads,d,page,lengths,window,starts,"
+                         "gain,cap", GEMMA_CASES)
+def test_gemma_kernels_match_plain(cuda, mode, q_heads, kv_heads, d, page,
+                                   lengths, window, starts, gain, cap):
+    if mode == "paged_prefill":
+        lengths = [max(n, 64) for n in lengths]
+    o, lse, ro, rlse = _gemma_paged(cuda, mode, q_heads, kv_heads, d, page,
+                                    lengths, window, starts, gain, cap, cap)
+    assert worst_row_rel_rms(o, ro) <= ROW_REL_RMS
+    assert max_abs_err(lse, rlse) < MIXED_TOL.lse
+    assert torch.equal(torch.isinf(lse), torch.isinf(rlse))
+
+
+@pytest.mark.parametrize("mode", ["paged_decode", "paged_prefill"])
+@pytest.mark.parametrize("precision", PRECISIONS)
+def test_quantized_kernels_take_the_cap(cuda, mode, precision):
+    o, lse, ro, rlse = _gemma_paged(cuda, mode, 32, 8, 128, 128,
+                                    [1100, 200], 300, [700, 3], 4.0, 2.0,
+                                    2.0, precision)
+    assert worst_row_rel_rms(o, ro) <= ROW_REL_RMS
+    assert max_abs_err(lse, rlse) < MIXED_TOL.lse
+
+
+@pytest.mark.parametrize("mode", ["paged_decode", "paged_prefill"])
+def test_kernels_without_their_cap_are_seen(cuda, mode):
+    """A planted fault: each kernel at D 256 run without its cap, against
+    the capped plain version at a saturating cap."""
+    o, _, ro, _ = _gemma_paged(cuda, mode, 8, 4, 256, 128, [5000, 700, 64],
+                               4096, None, 4.0, 2.0, None)
+    assert worst_row_rel_rms(o, ro) > 10 * ROW_REL_RMS

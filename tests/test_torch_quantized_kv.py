@@ -269,5 +269,7 @@ def test_quantized_inputs_are_checked():
     k = tq.quantize(torch.randn(1, 1, 8, 16), TP.INT8)
     with pytest.raises(TypeError, match="both"):
         tfd.flash_decode(q, k, torch.zeros(1, 1, 8, 16))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tfd.flash_decode(q, k, k, logit_softcap=30.0)
+    # The soft cap over a quantized cache is computed by the plain
+    # version since Gemma-2 (the decode kernel raises for it on the card:
+    # flash-kernel coverage).
+    assert tfd.flash_decode(q, k, k, logit_softcap=30.0).shape == q.shape

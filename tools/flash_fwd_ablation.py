@@ -85,11 +85,13 @@ FA3_LOOP = """\
       fence_operands(sc);
       release(k_empty, 0);
       if (open_begin > 0 || open_end <= 0)
-        softmax_tile<true>(sc, m, l, alpha, p.scale_log2e,
-                           (n_hi - 1) * kBKV + 2 * t4, lo, hi);
+        softmax_tile<true, kCap, kBKV>(sc, m, l, alpha, p.scale_log2e,
+                                       p.cap2, p.inv_cap2,
+                                       (n_hi - 1) * kBKV + 2 * t4, lo, hi);
       else
-        softmax_tile<false>(sc, m, l, alpha, p.scale_log2e,
-                            (n_hi - 1) * kBKV + 2 * t4, lo, hi);
+        softmax_tile<false, kCap, kBKV>(sc, m, l, alpha, p.scale_log2e,
+                                        p.cap2, p.inv_cap2,
+                                        (n_hi - 1) * kBKV + 2 * t4, lo, hi);
       pack_rs<T, kBKV>(pa, sc);
       for (int i = 1; i < n_tiles; ++i) {
         const int s = i % kS, sp = (i - 1) % kS;
@@ -105,11 +107,13 @@ FA3_LOOP = """\
         fence_operands(sc);
         release(k_empty, i);
         if (i < open_begin || i >= open_end)
-          softmax_tile<true>(sc, m, l, alpha, p.scale_log2e,
-                             (n_hi - 1 - i) * kBKV + 2 * t4, lo, hi);
+          softmax_tile<true, kCap, kBKV>(
+              sc, m, l, alpha, p.scale_log2e, p.cap2, p.inv_cap2,
+              (n_hi - 1 - i) * kBKV + 2 * t4, lo, hi);
         else
-          softmax_tile<false>(sc, m, l, alpha, p.scale_log2e,
-                              (n_hi - 1 - i) * kBKV + 2 * t4, lo, hi);
+          softmax_tile<false, kCap, kBKV>(
+              sc, m, l, alpha, p.scale_log2e, p.cap2, p.inv_cap2,
+              (n_hi - 1 - i) * kBKV + 2 * t4, lo, hi);
         wgmma_wait<0>();
         fence_operands(o);
         release(v_empty, i - 1);
@@ -131,12 +135,16 @@ NO_PINGPONG = [
     ("named_barrier_sync(3 + wg, kConsumers);", ""),
     ("named_barrier_arrive(4 - wg, kConsumers);", "(void)0;"),
     ("if (wg == 0) named_barrier_arrive(3, kConsumers);", "")]
-BKV64 = [("constexpr int kBKV = MFA_FWD90_BLOCK_KV;",
-          "constexpr int kBKV = 64;")]
+BKV64 = [('#include "flash_tiles.cuh"',
+          '#include "flash_tiles.cuh"\n#undef MFA_FWD90_BLOCK_KV\n'
+          '#define MFA_FWD90_BLOCK_KV 64')]
 VARIANTS = {
     "sm90": [],
-    "stages3": [("  static constexpr int kStages = MFA_FWD90_STAGES;",
-                 "  static constexpr int kStages = 3;")],
+    # Three stages where they fit: the quantized kernels' raw stages and
+    # D 256's wide tiles keep two.
+    "stages3": [("  static constexpr int kStages = FwdTiles<D>::kStages;",
+                 "  static constexpr int kStages =\n"
+                 "      kQuant || D > 128 ? FwdTiles<D>::kStages : 3;")],
     "bkv64": BKV64,
     "fa3": FA3,
     "fa3_no_pingpong": FA3 + NO_PINGPONG,
@@ -188,8 +196,11 @@ PTXAS: dict = {}
 
 
 def kernel_label(mangled: str) -> str:
-    return (("fp16" if "6__half" in mangled else "bf16")
-            + (" D128" if "Li128E" in mangled else " D64"))
+    dims = {"Li64E": " D64", "Li128E": " D128", "Li256E": " D256"}
+    d = next(v for k, v in dims.items() if k in mangled)
+    # The kernel's last template argument, kCap, mangles as Lb1E / Lb0E.
+    return (("fp16" if "6__half" in mangled else "bf16") + d
+            + (" softcap" if "Lb1EEEv" in mangled else ""))
 
 
 def ptxas_summary(log: str) -> dict:
