@@ -3,8 +3,8 @@
 step and by burst, greedy and sampled, with and without the prefix
 cache), dense serving and training paths, the fused forward over
 quantized K/V, its standalone ops (quantized GEMM, softmax), and Gemma-2
-serving (paged and dense, the soft cap and head_dim 256 in the kernels),
-on one NVIDIA GPU.
+serving (paged and dense) and training (the soft cap and head_dim 256 in
+the kernels, forward and backward), on one NVIDIA GPU.
 
 Run from the root of a checkout, on a machine with one CUDA card and
 the CUDA toolkit:
@@ -237,7 +237,34 @@ Phases (any failure exits non-zero and prints no result):
    window dropped); each timed (median, min-max of 5 loops) beside its
    plain version, its bound and, for the dense kernels, `flex_attention`
    with a tanh score_mod and a causal block mask where it compiles (a
-   yardstick the port never calls).
+   yardstick the port never calls);
+13. gemma_train: GEMMA_TRAIN_STEPS `gemma.train_step`s (plain SGD at
+   GEMMA_TRAIN_LR over `gemma.loss_fn`: the fused chunked cross-entropy
+   over the tied head with the final cap) of `gemma2_2b` at full width
+   and depth, bf16, seeded random weights of its own, on one sequence of
+   8,193 tokens (8,192 is Gemma-2's context: the local layers' 4,096
+   window cuts), no remat (the saved activations, 51 GB, fit beside the
+   parameters, gradients and new parameters); the flash launch counts
+   set to 0 just before and read just after and held exact (a layer's
+   forward one `flash_fwd`, its backward one `flash_bwd_dq` and one
+   `flash_bwd_dkv`, each also on `_sm90`, `_softcap` and `_d256`); the
+   loss finite and falling; tokens/s over steps 2 on, each step's
+   seconds, peak memory, nvidia-smi's samples, and one more step under
+   torch.profiler (`gemma_train_profile:`, the fused cross-entropy a
+   family of its own); gemma_train_reference: on a 2-layer cut (local,
+   global) of the trained weights at 5,000 tokens, the loss and every
+   gradient against `loss_fn(fused_ce=False)` over `attention_reference`
+   under autograd (TRAIN_*), at the model's cap and at the saturating
+   one, with two faults planted in the kernel path that the limits must
+   see (dQ without the cap's 1 - t^2, at the saturating cap; dK/dV
+   without the local layer's window); gemma_bwd_checks: rows 4g and 5g,
+   `flash_bwd_dq` and `flash_bwd_dkv` at q [1, 8, 8192, 256], k/v [1, 4,
+   8192, 256] causal, a global and a local layer at cap 50 and a global
+   one at the saturating cap, against `_backward_plain` by the worst
+   64-row tile (KERNEL_TILE_REL_RMS), with a planted fault each (the
+   same two); then each kernel's time on both layers beside its bound,
+   its plain version's and `flex_attention`'s backward (tanh score_mod,
+   block mask, compiled; a yardstick the port never calls).
 
 Every kernel's `bound_ms` is the least time the card could take for the
 same work: the larger of the bytes it must move (each input read once,
@@ -251,10 +278,11 @@ Output: `serve`, `reference`, `quant_serve`, `burst_serve`,
 `gemm_checks`, `decode_checks`, `quant_kernel_checks`,
 `quant_fwd_checks`, `train`,
 `train_profile`, `train_reference`, `flash_checks`, `softmax_checks`,
-`gemma_params`, `gemma_serve`, `gemma_dense`, `gemma_reference` and
-`gemma_checks` lines, a `phases` line (each phase's seconds), the card's
-name and power limit as nvidia-smi gives them, a `kernels` JSON line, and
-as the last line
+`gemma_params`, `gemma_serve`, `gemma_dense`, `gemma_reference`,
+`gemma_checks`, `gemma_train`, `gemma_train_profile`,
+`gemma_train_reference` and `gemma_bwd_checks` lines, a `phases` line
+(each phase's seconds), the card's name and power limit as nvidia-smi
+gives them, a `kernels` JSON line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -437,6 +465,18 @@ GEMMA_REF_LAYERS = 2
 GEMMA_REF_PROMPT = 5000
 GEMMA_SAT_CAP = 2.0
 GEMMA_SAT_GAIN = 4.0
+# Gemma-2 training (slice 13): gemma_train's SGD steps of gemma2_2b at
+# full width and depth on one sequence of GEMMA_TRAIN_TOKENS + 1 tokens
+# (8,192 is Gemma-2's context, twice the local layers' window), also the
+# rows 4g / 5g checks' length.  SGD rounds each update to the bf16
+# parameter: at 8,192 tokens the gradients' rms are 1e-5 to 5e-5
+# (measured at full width on the CPU at 512 and 2,048 tokens, falling as
+# 1 / sqrt(T)), below half a bf16 ulp of every weight at the JAX
+# package's default lr 1e-4; at GEMMA_TRAIN_LR the tied embedding
+# (entries ~2e-3, ulp ~1.5e-5) moves, and the loss falls.
+GEMMA_TRAIN_TOKENS = 8192
+GEMMA_TRAIN_STEPS = 4
+GEMMA_TRAIN_LR = 1.0
 KV_HEADS, Q_HEADS, HEAD_DIM = 8, 32, 128
 
 
@@ -2386,10 +2426,12 @@ def train(dev, card):
     launches = {**fa.LAUNCH_COUNTS, **fb.LAUNCH_COUNTS}
     peak = torch.cuda.max_memory_allocated(dev)
 
-    # The forward's quantized, capped and D 256 variants take no part in
-    # Llama training.
+    # The forward's quantized, capped and D 256 variants, and the
+    # backward's capped and D 256 ones, take no part in Llama training.
     unused = {f"flash_fwd_{p}" for p in (*QUANT_PRECISIONS, "softcap",
-                                          "d256")}
+                                          "d256")} | {
+        f"flash_bwd_{op}_{p}" for op in ("dq", "dkv")
+        for p in ("softcap", "d256")}
     for name, n in launches.items():
         per_step = 0 if name in unused else TRAIN_LAYERS
         if n != per_step * TRAIN_STEPS:
@@ -2422,12 +2464,13 @@ def profile_train_step(step_fn, params, state, tokens, dev) -> None:
                   "optimizer": "multi_tensor"}, dev)
 
 
-def profile_step(label, run, families, dev) -> dict:
+def profile_step(label, run, families, dev, spans=()) -> dict:
     """`run()` once under torch.profiler: device time by kernel family
-    (`families`: name -> a substring of the kernel's name, or a tuple of
-    them; cuBLAS products and the rest besides), the card's busy share
-    of the wall time, and the top kernels.  Prints and returns the
-    reading."""
+    (`spans`: `record_function` names whose ranges on the card's timeline
+    make a family of the kernels inside them; then `families`: name -> a
+    substring of the kernel's name, or a tuple of them; cuBLAS products
+    and the rest besides), the card's busy share of the wall time, and
+    the top kernels.  Prints and returns the reading."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2439,10 +2482,18 @@ def profile_step(label, run, families, dev) -> dict:
         torch.cuda.synchronize(dev)
         wall = time.perf_counter() - t0
     kernels = device_kernels(prof)
+    ranges = [(e.name, e.time_range.start, e.time_range.end)
+              for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and getattr(e, "is_user_annotation", False)
+              and e.name in spans]
     by_family: dict[str, float] = {}
     by_name: dict[str, list] = {}
     for e in kernels:
-        family = next((f for f, keys in families.items() if any(
+        family = next((name for name, lo, hi in ranges
+                       if lo <= e.time_range.start
+                       and e.time_range.end <= hi), None)
+        family = family or next((f for f, keys in families.items() if any(
             key in e.name for key in (
                 (keys,) if isinstance(keys, str) else keys))), None)
         if family is None:
@@ -2459,6 +2510,8 @@ def profile_step(label, run, families, dev) -> dict:
         "wall_ms": wall * 1e3, "device_ms": busy_us / 1e3,
         "busy_share": busy_us / 1e3 / (wall * 1e3),
         "kernels_launched": len(kernels),
+        **({"span_ranges": {n: sum(r[0] == n for r in ranges)
+                            for n in spans}} if spans else {}),
         "device_ms_by_family": {k: v / 1e3 for k, v in sorted(
             by_family.items(), key=lambda kv: -kv[1])},
         "top_kernels": [{"name": n, "calls": c, "ms": t / 1e3}
@@ -3442,10 +3495,12 @@ def gemma_reference(params, cfg, dev) -> dict:
     return readings
 
 
-def flex_yardstick(q, k, v, *, window, cap, scale):
+def flex_yardstick(q, k, v, *, window, cap, scale, do=None):
     """`flex_attention` with a tanh score_mod and a causal (and window)
     mask_mod, compiled: one PyTorch call computing the kernels' function,
-    timed as a yardstick and never called by the port.  Returns (fn,
+    timed as a yardstick and never called by the port; with ``do``, its
+    backward instead (`torch.autograd.grad` of one graph, kept, against
+    ``do``: dq, dk, dv; the forward outside the timed call).  Returns (fn,
     None) or (None, the reason it is not timed)."""
     import torch
 
@@ -3467,8 +3522,15 @@ def flex_yardstick(q, k, v, *, window, cap, scale):
         mask = create_block_mask(mask_mod, None, None, q.shape[-2],
                                  k.shape[-2], device=q.device)
         flex = torch.compile(flex_attention, dynamic=False)
-        fn = lambda: flex(q, k, v, score_mod=score_mod,  # noqa: E731
-                          block_mask=mask, scale=scale, enable_gqa=True)
+        if do is None:
+            fn = lambda: flex(q, k, v, score_mod=score_mod,  # noqa: E731
+                              block_mask=mask, scale=scale, enable_gqa=True)
+        else:
+            leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            out = flex(*leaves, score_mod=score_mod, block_mask=mask,
+                       scale=scale, enable_gqa=True)
+            fn = lambda: torch.autograd.grad(  # noqa: E731
+                out, leaves, do, retain_graph=True)
         fn()
         torch.cuda.synchronize()
         return fn, None
@@ -3687,6 +3749,394 @@ def gemma_kernel_checks(cfg, dev, card, serve_launches, dense_launches
     return results
 
 
+GEMMA_TRAIN_FAMILIES = {"flash_fwd": "flash_fwd90_kernel",
+                        "flash_bwd_dq": "flash_bwd_dq90_kernel",
+                        "flash_bwd_dkv": "flash_bwd_dkv90_kernel"}
+
+
+@contextlib.contextmanager
+def fused_ce_annotated():
+    """The fused cross-entropy's forward and backward each inside a
+    `record_function("fused_ce")` range, so that `profile_step` can count
+    the card's kernels of the loss as a family of their own."""
+    from torch.profiler import record_function
+    from metal_flash_attention_tpu_torch.models import losses
+
+    def annotated(fn):
+        def run(*args):
+            with record_function("fused_ce"):
+                return fn(*args)
+        return run
+    ce = losses._FusedCrossEntropy
+    with planted(ce, "forward", annotated), \
+            planted(ce, "backward", annotated):
+        yield
+
+
+def gemma_train(dev, card):
+    """gemma_train: GEMMA_TRAIN_STEPS `gemma.train_step`s (SGD at
+    GEMMA_TRAIN_LR over `gemma.loss_fn`, the fused cross-entropy with the
+    final cap) of gemma2_2b at full width and depth, bf16, on one sequence
+    of GEMMA_TRAIN_TOKENS + 1 tokens, no remat (the activations fit: 240
+    KB a token a layer, 51 GB), the flash launch counts set to 0 just
+    before and read just after and held exact (a layer's forward one
+    `flash_fwd`, its backward one `flash_bwd_dq` and one `flash_bwd_dkv`,
+    every one also on `_sm90`, `_softcap` and `_d256`); the loss finite
+    and falling.  Then one more step under torch.profiler.  Returns (the
+    trained parameters, the config, the launch counts)."""
+    import torch
+    from metal_flash_attention_tpu_torch.models import gemma
+    from metal_flash_attention_tpu_torch.ops import flash_attention as fa
+    from metal_flash_attention_tpu_torch.ops import flash_attention_bwd as fb
+
+    cfg = gemma.GemmaConfig.gemma2_2b()
+    params = gemma.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 24)
+    tokens = torch.randint(0, cfg.vocab_size, (1, GEMMA_TRAIN_TOKENS + 1),
+                           generator=gen, device=dev)
+    torch.cuda.synchronize(dev)
+    param_bytes = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    fa.reset_launch_counts()
+    fb.reset_launch_counts()
+    losses, seconds = [], []
+    with CardSampler() as sampler:
+        for _ in range(GEMMA_TRAIN_STEPS):
+            t0 = time.perf_counter()
+            params, loss = gemma.train_step(params, tokens, cfg,
+                                            lr=GEMMA_TRAIN_LR)
+            losses.append(float(loss))
+            torch.cuda.synchronize(dev)
+            seconds.append(time.perf_counter() - t0)
+        clocks = sampler.stop()
+    launches = {**fa.LAUNCH_COUNTS, **fb.LAUNCH_COUNTS}
+    peak = torch.cuda.max_memory_allocated(dev)
+    expected = {f"{kernel}{s}": cfg.n_layers * GEMMA_TRAIN_STEPS
+                for kernel in GEMMA_TRAIN_FAMILIES
+                for s in GEMMA_KERNEL_SUFFIXES}
+    wrong = launch_errors(launches, expected)
+    if wrong:
+        fail(f"gemma_train launched (count, expected) {wrong}")
+    if not all(np.isfinite(losses)):
+        fail(f"non-finite Gemma training loss: {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"the Gemma training loss did not fall: {losses}")
+    steady = seconds[1:]
+    print("gemma_train: " + json.dumps({
+        "config": f"gemma2_2b, {cfg.n_layers} layers (full depth), bf16, "
+                  f"SGD lr {GEMMA_TRAIN_LR}, no remat",
+        "tokens_per_step": GEMMA_TRAIN_TOKENS, "steps": GEMMA_TRAIN_STEPS,
+        "losses": losses, "seconds_per_step": seconds,
+        "tokens_per_s": GEMMA_TRAIN_TOKENS * len(steady) / sum(steady),
+        "launches": {k: n for k, n in launches.items() if n},
+        "param_bytes": param_bytes, "max_memory_allocated": peak,
+        "card": card, "card_during_steps": clocks}), flush=True)
+    with fused_ce_annotated():
+        profile_step("gemma_train_profile", lambda: gemma.train_step(
+            params, tokens, cfg, lr=GEMMA_TRAIN_LR), GEMMA_TRAIN_FAMILIES,
+            dev, spans=("fused_ce",))
+    return params, cfg, launches
+
+
+def dq_without_cap_factor(dq):
+    """flash_bwd_dq with dS missing the cap's chain factor 1 - t^2 (a
+    plain float32 dQ, one kv head at a time, in the kernel's place) where
+    a cap is given."""
+    import torch
+    from metal_flash_attention_tpu_torch.ops.reference import _probabilities
+
+    def run(q, k, v, do, lse, d_term, *, causal, window_size, scale,
+            softcap=None):
+        if softcap is None:
+            return dq(q, k, v, do, lse, d_term, causal=causal,
+                      window_size=window_size, scale=scale, softcap=None)
+        out = torch.empty_like(q)
+        group = q.shape[1] // k.shape[1]
+        for j in range(k.shape[1]):
+            g = slice(j * group, (j + 1) * group)
+            kj, vj = k[:, j:j + 1].float(), v[:, j:j + 1].float()
+            p, _ = _probabilities(q[:, g], kj, causal=causal,
+                                  window_size=window_size, scale=scale,
+                                  logit_softcap=softcap)
+            dp = do[:, g].float() @ vj.transpose(-1, -2)
+            ds = p * (dp - d_term[:, g, :, None]) * scale
+            out[:, g] = (ds @ kj).to(q.dtype)
+        return out
+    return run
+
+
+def window_dropped(dkv):
+    """flash_bwd_dkv without the local layers' window (the forward and
+    dQ keep it)."""
+    def run(q, k, v, do, lse, d_term, *, window_size, **kw):
+        return dkv(q, k, v, do, lse, d_term, window_size=None, **kw)
+    return run
+
+
+def saturating(params, cfg):
+    """The cut with queries GEMMA_SAT_GAIN times larger (wq scaled) and
+    the attention cap at GEMMA_SAT_CAP, where the tanh saturates and
+    1 - t^2 is far from 1."""
+    layers = [dict(layer, wq=(layer["wq"].float() * GEMMA_SAT_GAIN).to(
+        layer["wq"].dtype)) for layer in params["layers"]]
+    return (dict(params, layers=layers),
+            dataclasses.replace(cfg, attn_logit_softcap=GEMMA_SAT_CAP))
+
+
+def gemma_train_reference(params, cfg, dev) -> dict:
+    """gemma_train_reference: on a GEMMA_REF_LAYERS-layer cut of the
+    trained weights (layer 0 local, layer 1 global) at GEMMA_REF_PROMPT
+    tokens, the loss and every gradient of `gemma.loss_fn` (the kernels,
+    the fused cross-entropy) against `gemma.loss_fn(fused_ce=False)` with
+    `dispatch.attention` replaced by `attention_reference` (float32, the
+    same cap and window) under autograd, at the model's cap and at a
+    saturating one (GEMMA_SAT_CAP over queries x GEMMA_SAT_GAIN), within
+    TRAIN_LOSS_ABS and TRAIN_GRAD_REL_RMS; and two faults planted in the
+    kernel path, each of which the limits must see: dQ without the cap's
+    1 - t^2 (read at both caps; at 50 the factor is near 1 for seeded
+    weights, so only the saturating reading must see it) and dK/dV
+    without the local layer's window."""
+    import torch
+    from metal_flash_attention_tpu_torch import dispatch
+    from metal_flash_attention_tpu_torch.models import gemma
+    from metal_flash_attention_tpu_torch.ops import flash_attention_bwd as fb
+    from metal_flash_attention_tpu_torch.ops.reference import (
+        attention_reference,
+    )
+    from metal_flash_attention_tpu_torch.utils.tree import flatten
+
+    cut = dict(params, layers=params["layers"][:GEMMA_REF_LAYERS])
+    ccfg = dataclasses.replace(cfg, n_layers=GEMMA_REF_LAYERS)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 25)
+    tokens = torch.randint(0, cfg.vocab_size, (1, GEMMA_REF_PROMPT + 1),
+                           generator=gen, device=dev)
+
+    def reference_attention(q, k, v, *, causal, window_size, scale,
+                            logit_softcap, **_):
+        return attention_reference(q, k, v, causal=causal,
+                                   window_size=window_size, scale=scale,
+                                   logit_softcap=logit_softcap).to(q.dtype)
+
+    def value_and_grads(p, c, plain=False):
+        leaves, rebuild = flatten(p)
+        work = [t.detach().requires_grad_(True) for t in leaves]
+        if plain:
+            with planted(dispatch, "attention",
+                         lambda _: reference_attention):
+                value = gemma.loss_fn(rebuild(work), tokens, c,
+                                      fused_ce=False)
+        else:
+            value = gemma.loss_fn(rebuild(work), tokens, c)
+        grads = torch.autograd.grad(value, work)
+        return float(value.detach()), grads
+
+    def reading(p, c, ref) -> dict:
+        ref_loss, ref_grads = ref
+        loss, grads = value_and_grads(p, c)
+        rel = []
+        for g, r in zip(grads, ref_grads):
+            if not torch.isfinite(g).all():
+                fail("non-finite gradient on the Gemma kernel path")
+            g, r = g.float(), r.float()
+            rel.append(float((g - r).pow(2).mean().sqrt()
+                             / r.pow(2).mean().sqrt().clamp_min(1e-30)))
+        return {"loss": loss, "loss_abs_err": abs(loss - ref_loss),
+                "grad_rel_rms_max": max(rel),
+                "grad_rel_rms_median": float(np.median(rel))}
+
+    def seen(r: dict) -> bool:
+        return (r["loss_abs_err"] > TRAIN_LOSS_ABS
+                or r["grad_rel_rms_max"] > TRAIN_GRAD_REL_RMS)
+
+    sat = saturating(cut, ccfg)
+    out = {"cut": f"{GEMMA_REF_LAYERS} layers (local, global), "
+                  f"{GEMMA_REF_PROMPT} tokens",
+           "tol": {"loss_abs": TRAIN_LOSS_ABS,
+                   "grad_rel_rms": TRAIN_GRAD_REL_RMS},
+           "readings": {}, "planted_faults": {}}
+    for label, (p, c) in (("cap50", (cut, ccfg)), ("saturating", sat)):
+        ref = value_and_grads(p, c, plain=True)
+        out["readings"][label] = dict(plain_loss=ref[0],
+                                      **reading(p, c, ref))
+        faults = [("dq_without_cap_factor", "_dq_cuda",
+                   dq_without_cap_factor)]
+        if label == "cap50":
+            faults.append(("dkv_window_dropped", "_dkv_cuda",
+                           window_dropped))
+        for name, attr, make in faults:
+            with planted(fb, attr, make):
+                out["planted_faults"][f"{name}.{label}"] = reading(p, c, ref)
+        del ref
+        torch.cuda.empty_cache()
+    print("gemma_train_reference: " + json.dumps(out), flush=True)
+    bad = [k for k, r in out["readings"].items() if seen(r)]
+    if bad:
+        fail(f"the Gemma kernel path's loss or gradients disagree with the "
+             f"plain-attention reference: {bad}")
+    must_see = ("dq_without_cap_factor.saturating",
+                "dkv_window_dropped.cap50")
+    unseen = [k for k in must_see if not seen(out["planted_faults"][k])]
+    if unseen:
+        fail(f"the gemma_train_reference limits do not see the planted "
+             f"faults {unseen}")
+    return out
+
+
+def gemma_bwd_checks(cfg, dev, card, train_launches) -> list[dict]:
+    """Rows 4g and 5g: flash_bwd_dq and flash_bwd_dkv at the training
+    shape (q [1, 8, GEMMA_TRAIN_TOKENS, 256], k/v [1, 4, .., 256],
+    causal) against `_backward_plain` (one kv head at a time) by the worst
+    TILE_ROWS-row tile (KERNEL_TILE_REL_RMS): a global layer and a local
+    one (the 4,096 window) at the model's cap, and a global one at the
+    saturating cap (GEMMA_SAT_CAP over queries x GEMMA_SAT_GAIN); a
+    planted fault each that the limit must see (dQ without 1 - t^2 at the
+    saturating cap; dK/dV without the window on the local layer).  Then
+    each kernel's time on both layers at the model's cap (median, min-max
+    of GEMM_REPEATS profiled loops), its bound, its plain version's time
+    and `flex_attention`'s backward with the same tanh score_mod and
+    block mask, compiled, where it runs."""
+    import torch
+    from metal_flash_attention_tpu_torch.ops import flash_attention as fa
+    from metal_flash_attention_tpu_torch.ops import flash_attention_bwd as fb
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 26)
+    qh, kvh, d, n = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, \
+        GEMMA_TRAIN_TOKENS
+    scale, cap, window = (cfg.attn_scale, cfg.attn_logit_softcap,
+                          cfg.sliding_window)
+    group = qh // kvh
+
+    def randn(heads):
+        return torch.randn((1, heads, n, d), generator=gen,
+                           device=dev).to(torch.bfloat16)
+    q, k, v, do = randn(qh), randn(kvh), randn(kvh), randn(qh)
+    sat_q = (q.float() * GEMMA_SAT_GAIN).to(q.dtype)
+
+    def operands(qq, c, w):
+        o, lse = fa.flash_attention_forward(qq, k, v, causal=True,
+                                            window_size=w, scale=scale,
+                                            logit_softcap=c)
+        return lse, (do.float() * o.float()).sum(dim=-1)
+
+    def plain(qq, c, w):
+        outs = [torch.empty(t.shape, dtype=torch.float32, device=dev)
+                for t in (qq, k, v)]
+        for j in range(kvh):
+            g = slice(j * group, (j + 1) * group)
+            parts = fb._backward_plain(
+                qq[:, g], k[:, j:j + 1], v[:, j:j + 1], do[:, g],
+                causal=True, window_size=w, scale=scale, softcap=c)
+            outs[0][:, g] = parts[0]
+            outs[1][:, j:j + 1], outs[2][:, j:j + 1] = parts[1:]
+        return outs
+
+    readings = {"flash_bwd_dq": {}, "flash_bwd_dkv": {}}
+    faults = {}
+    cases = (("global_cap50", q, cap, None), ("local_cap50", q, cap, window),
+             ("global_saturating", sat_q, GEMMA_SAT_CAP, None))
+    for label, qq, c, w in cases:
+        lse, d_term = operands(qq, c, w)
+        kw = dict(causal=True, window_size=w, scale=scale, softcap=c)
+        dq = fb._dq_cuda(qq, k, v, do, lse, d_term, **kw)
+        dk, dv = fb._dkv_cuda(qq, k, v, do, lse, d_term, **kw)
+        rdq, rdk, rdv = plain(qq, c, w)
+        readings["flash_bwd_dq"][label] = {"dq": closeness(dq, rdq)}
+        readings["flash_bwd_dkv"][label] = {"dk": closeness(dk, rdk),
+                                            "dv": closeness(dv, rdv)}
+        if label == "global_saturating":
+            faults["flash_bwd_dq"] = {"dq_without_cap_factor": closeness(
+                dq_without_cap_factor(fb._dq_cuda)(
+                    qq, k, v, do, lse, d_term, **kw), rdq)}
+        if label == "local_cap50":
+            fdk, fdv = window_dropped(fb._dkv_cuda)(qq, k, v, do, lse,
+                                                    d_term, **kw)
+            faults["flash_bwd_dkv"] = {"window_dropped": {
+                "dk": closeness(fdk, rdk), "dv": closeness(fdv, rdv)}}
+        del dq, dk, dv, rdq, rdk, rdv
+        torch.cuda.empty_cache()
+    problems = []
+    for name, per_case in readings.items():
+        for label, outs in per_case.items():
+            for out, r in outs.items():
+                if not within_limits(r):
+                    problems.append(f"{name}.{out} ({label})")
+    if within_limits(faults["flash_bwd_dq"]["dq_without_cap_factor"]):
+        problems.append("unseen fault: dQ without 1 - t^2")
+    if all(within_limits(r) for r in
+           faults["flash_bwd_dkv"]["window_dropped"].values()):
+        problems.append("unseen fault: dK/dV without the window")
+    print("gemma_bwd_checks: " + json.dumps({
+        "readings": readings, "planted_faults": faults,
+        "limits": {"tile_rel_rms": KERNEL_TILE_REL_RMS}}), flush=True)
+    if problems:
+        fail(f"gemma backward checks: {problems}")
+
+    timings = {}
+    for label, w in (("global", None), ("local", window)):
+        lse, d_term = operands(q, cap, w)
+        kw = dict(causal=True, window_size=w, scale=scale, softcap=cap)
+        row = {
+            "dq": timed_spread(lambda: fb._dq_cuda(
+                q, k, v, do, lse, d_term, **kw), 10),
+            "dkv": timed_spread(lambda: fb._dkv_cuda(
+                q, k, v, do, lse, d_term, **kw), 10),
+            "plain_ms": timed(lambda: plain(q, cap, w), 2)[0]}
+        flex, note = flex_yardstick(q, k, v, window=w, cap=cap, scale=scale,
+                                    do=do)
+        row["library_ms"] = (timed_spread(flex, 10)["ms"]
+                             if flex is not None else None)
+        row["library_note"] = note
+        pairs = qh * visible_pairs(n, n, True, w)
+        io = nbytes(q, k, v, do, lse, d_term)
+        row["dq_bound"] = bound(2 * d * 3 * pairs, io + nbytes(q))
+        row["dkv_bound"] = bound(2 * d * 4 * pairs, io + nbytes(k, v))
+        timings[label] = row
+        del lse, d_term
+    results = []
+    src = "metal_flash_attention_tpu_torch/csrc/flash_attention_bwd.cu"
+    jax_src = "metal_flash_attention_tpu/ops/flash_attention_bwd.py"
+    for name, line, cap_lines in (
+            ("flash_bwd_dq", 73, ":79, :156-159, :194-196"),
+            ("flash_bwd_dkv", 226, ":232, :310-313, :359-360")):
+        key = name[len("flash_bwd_"):]
+        glob = timings["global"]
+        bound_ms, bound_by = glob[f"{key}_bound"]
+        results.append({
+            "name": f"{name}_gemma", "route": "cuda", "source": src,
+            "replaces": f"{jax_src}:{line} (logit_softcap {cap_lines}; "
+                        "head_dim 256, :433)",
+            "launches": train_launches[name],
+            "launches_softcap_d256": train_launches[f"{name}_d256"],
+            "max_abs_err": max(r["max_abs_err"]
+                               for outs in readings[name].values()
+                               for r in outs.values()),
+            "readings": readings[name], "planted_faults": faults[name],
+            "limits": {"tile_rel_rms": KERNEL_TILE_REL_RMS},
+            "ms": glob[key]["ms"], "spread": glob[key],
+            "plain_ms": glob["plain_ms"],
+            "plain_computes": "dq, dk and dv together, one kv head at a "
+                              "time",
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "share_of_bound": bound_ms / glob[key]["ms"],
+            "library_ms": glob["library_ms"],
+            "library": glob["library_note"] or
+            "backward of flex_attention (tanh score_mod, causal block "
+            "mask), compiled: dq, dk, dv",
+            "local": {"ms": timings["local"][key]["ms"],
+                      "spread": timings["local"][key],
+                      "bound_ms": timings["local"][f"{key}_bound"][0],
+                      "plain_ms": timings["local"]["plain_ms"],
+                      "library_ms": timings["local"]["library_ms"]},
+            "shape": f"q [1, {qh}, {n}, {d}], k/v [1, {kvh}, {n}, {d}] "
+                     f"causal, cap {cap} (timed); local: window {window}",
+            "card": card})
+        print(f"gemma_bwd_checks: {name}: " + json.dumps(results[-1]),
+              flush=True)
+    return results
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3874,6 +4324,16 @@ def main() -> int:
     gemma_kernels = phase("gemma_kernel_checks", gemma_kernel_checks, gcfg,
                           dev, card, gemma_serve_launches,
                           gemma_dense_launches)
+    torch.cuda.empty_cache()
+    # Gemma-2 training at full width and depth, its own seeded weights.
+    gtparams, gtcfg, gemma_train_launches = phase("gemma_train", gemma_train,
+                                                  dev, card)
+    phase("gemma_train_reference", gemma_train_reference, gtparams, gtcfg,
+          dev)
+    del gtparams
+    torch.cuda.empty_cache()
+    gemma_kernels += phase("gemma_bwd_checks", gemma_bwd_checks, gtcfg, dev,
+                           card, gemma_train_launches)
     torch.cuda.empty_cache()
 
     kernels.append(decode_kernel)

@@ -19,6 +19,18 @@
 // P and dS are rounded to the input type before the products that
 // consume them.
 //
+// Gemma-2 (the TPU kernels' `logit_softcap`, :79, :156-159, :194-196 and
+// :232, :310-313, :359-360).  With the soft cap c the fully scaled score
+// goes through t = tanh(s / c2) and s = c2 t (c2 = c log2(e), the exp2
+// domain) before the mask, so P is the capped logits' (the forward's
+// lse is too), and dS, chained through c tanh(s / c), takes the factor
+// 1 - t^2 before the dQ (or dK) product; dV = P^T dO takes none.  tanhf,
+// not tanh.approx (whose ~2^-11 error moves a saturated logit's exp2 by
+// percents).  The cap is a template flag (kCap), so the uncapped kernels
+// are unchanged code.  dQ needs P only inside dS and keeps P (1 - t^2) in
+// place of P; dK/dV packs P as dV's operand as it goes and keeps
+// P (1 - t^2) for dS, so t never takes registers of its own.
+//
 // Bound: 3 (dQ) and 4 (dK/dV) products of 2 * D FLOPs per visible (row,
 // key) pair against a few hundred MB of traffic at the training shapes:
 // the tensor cores bound both.  The design:
@@ -55,6 +67,19 @@
 // - The epilogues stage the outputs in the warpgroup's own rows of a
 //   buffer it no longer reads (Q's, or K's and V's) and write them with
 //   TMA stores, clipped to the head's rows by the maps.
+// - Head dim 256 (BwdTiles<256>, MFA_BWD90_D256_* tiles): two 128-row
+//   kept operands and two stages of 128-key (or 64-row) operands would
+//   take 384 KB (dQ) and 256 KB (dK/dV) of the 227 KB a block has, and a
+//   warpgroup owning 64 keys would hold 256 float32 of dK and dV a
+//   thread.  dQ takes one warpgroup of 64 rows (128 threads) and 64-key
+//   tiles: 192 KB, and 128 float32 of dQ a thread.  dK/dV takes 64 keys a
+//   block, which both warpgroups share: each computes the tile's S^T and
+//   dP^T over all of D (the products over D are repeated: 1.5x the
+//   tensor-core work of one pass) and owns columns 128 wg .. 128 wg + 127
+//   of dK and dV, 128 float32 a thread, as at D 128; K, V and two stages
+//   of Q and dO take 192 KB.  A barrier of both warpgroups precedes the
+//   epilogue, which stages each warpgroup's columns in K's and V's
+//   buffers.
 //
 // Every function returns cudaGetLastError() after its launch.
 
@@ -68,26 +93,49 @@ namespace {
 
 using namespace mfa;
 
-constexpr int kThreads = 256;  // two consumer warpgroups
-constexpr int kWarps = kThreads / 32;
-constexpr int kStages = MFA_BWD90_STAGES;
-constexpr int kDqRows = MFA_BWD90_DQ_BLOCK_Q;     // dQ: query rows a block
-constexpr int kDqKeys = MFA_BWD90_DQ_BLOCK_KV;    // dQ: keys a tile
-constexpr int kDkvKeys = MFA_BWD90_DKV_BLOCK_KV;  // dK/dV: keys a block
-constexpr int kDkvRows = MFA_BWD90_DKV_BLOCK_Q;   // dK/dV: query rows a step
 constexpr int kErrTensorMap = 10000;  // cuTensorMapEncodeTiled refused
-static_assert(kStages >= 2, "a ring");
-static_assert(kDqRows == 2 * 64 && kDkvKeys == 2 * 64,
-              "two warpgroups of 64 rows");
-static_assert((kDqKeys == 64 || kDqKeys == 128) &&
-                  (kDkvRows == 64 || kDkvRows == 128),
-              "the N of an SS wgmma, the K of an RS one");
+
+// The tiles at head dim D (flash_tiles.cuh): dQ's query rows a block (64
+// a warpgroup) and keys a tile; dK/dV's keys a block and query rows a
+// step; the ring's stages.  dK/dV's two warpgroups own 64 keys each
+// (128 a block), or share a block of 64 keys and split dK's and dV's
+// columns (kDkvSplit, each owning kDkvCols).
+template <int D>
+struct BwdTiles {
+  static constexpr bool kWide = D > 128;
+  static constexpr int kDqRows =
+      kWide ? MFA_BWD90_D256_DQ_BLOCK_Q : MFA_BWD90_DQ_BLOCK_Q;
+  static constexpr int kDqKeys =
+      kWide ? MFA_BWD90_D256_DQ_BLOCK_KV : MFA_BWD90_DQ_BLOCK_KV;
+  static constexpr int kDkvKeys =
+      kWide ? MFA_BWD90_D256_DKV_BLOCK_KV : MFA_BWD90_DKV_BLOCK_KV;
+  static constexpr int kDkvRows =
+      kWide ? MFA_BWD90_D256_DKV_BLOCK_Q : MFA_BWD90_DKV_BLOCK_Q;
+  static constexpr int kStages =
+      kWide ? MFA_BWD90_D256_STAGES : MFA_BWD90_STAGES;
+  static constexpr int kDqThreads = 128 * (kDqRows / 64);
+  static constexpr int kDkvThreads = 256;  // two warpgroups
+  static constexpr bool kDkvSplit = kDkvKeys == 64;
+  static constexpr int kDkvCols = kDkvSplit ? D / 2 : D;
+  static_assert(D == 64 || D == 128 || D == 256, "D 64, 128 or 256");
+  static_assert(kStages >= 2, "a ring");
+  static_assert(kDqRows == 64 || kDqRows == 128,
+                "one or two warpgroups of 64 rows");
+  static_assert(kDkvKeys == 64 || kDkvKeys == 128,
+                "two warpgroups over 64 keys, or 64 each");
+  static_assert((kDqKeys == 64 || kDqKeys == 128) &&
+                    (kDkvRows == 64 || kDkvRows == 128),
+                "the N of an SS wgmma, the K of an RS one");
+  static_assert(kDkvCols % 64 == 0 && kDkvCols <= 256,
+                "the N of an RS wgmma");
+};
 
 struct BwdParams {
   const float* lse;    // [b, q_heads, q_len], natural log
   const float* dterm;  // [b, q_heads, q_len], rowsum(dO * O)
   int group, q_len, kv_len;
   float scale, scale_log2e;
+  float cap2, inv_cap2;  // the soft cap in the exp2 domain (kCap kernels)
   int causal, window;
 };
 
@@ -104,10 +152,10 @@ struct Operand {
 };
 
 // Shared memory of a block: the operands it keeps (A, B), then the ring's
-// stages of two streamed operands each, the barriers (the kept operands'
-// full, each stage's full and empty), and room to align the whole to
-// 1024 bytes.
-template <int D, int kKeptRows, int kStreamRows>
+// kStages stages of two streamed operands each, the barriers (the kept
+// operands' full, each stage's full and empty), and room to align the
+// whole to 1024 bytes.
+template <int D, int kKeptRows, int kStreamRows, int kStages>
 struct Smem {
   using Kept = Operand<D, kKeptRows>;
   using Stream = Operand<D, kStreamRows>;
@@ -120,9 +168,11 @@ struct Smem {
   static_assert(kBytes <= 232448, "an H100 block's shared memory");
 };
 template <int D>
-using DqSmem = Smem<D, kDqRows, kDqKeys>;  // Q, dO; K and V
+using DqSmem = Smem<D, BwdTiles<D>::kDqRows, BwdTiles<D>::kDqKeys,
+                    BwdTiles<D>::kStages>;  // Q, dO; K and V
 template <int D>
-using DkvSmem = Smem<D, kDkvKeys, kDkvRows>;  // K, V; Q and dO
+using DkvSmem = Smem<D, BwdTiles<D>::kDkvKeys, BwdTiles<D>::kDkvRows,
+                     BwdTiles<D>::kStages>;  // K, V; Q and dO
 
 // acc = A B^T over D, issued: A the warpgroup's 64 rows at `a`, B the N
 // rows at `b`, both K-major in panels a_panel and b_panel bytes apart.
@@ -138,16 +188,26 @@ __device__ __forceinline__ void ss_product(float (&acc)[N / 2],
         kk > 0);
 }
 
-// acc += A B over K rows, issued: A from registers, B the [K][D] rows at
-// `b` (panels b_panel bytes apart) as an MN-major operand.
-template <int K, int D, bool kFp16>
-__device__ __forceinline__ void rs_product(float (&acc)[D / 2],
+// acc += A B over K rows, issued: A from registers, B the N columns of
+// the [K][*] rows at `b` (panels b_panel bytes apart, `b` at the first
+// column's) as an MN-major operand.
+template <int K, int N, bool kFp16>
+__device__ __forceinline__ void rs_product(float (&acc)[N / 2],
                                            const uint32_t (&a)[K / 16][4],
                                            const uint8_t* b, int b_panel) {
 #pragma unroll
   for (int kk = 0; kk < K / 16; ++kk)
-    sm90::wgmma_rs<D, 1, kFp16>(acc, a[kk],
+    sm90::wgmma_rs<N, 1, kFp16>(acc, a[kk],
                                 sm90::smem_desc(b + kk * 2048, b_panel, 1024));
+}
+
+// One recomputed score soft-capped in the exp2 domain: x = S * scale *
+// log2(e), then c2 tanh(x / c2); f = 1 - tanh^2, the factor dS takes.
+__device__ __forceinline__ float capped_score(float s, const BwdParams& p,
+                                              float& f) {
+  const float t = tanhf(s * p.scale_log2e * p.inv_cap2);
+  f = fmaf(-t, t, 1.f);
+  return p.cap2 * t;
 }
 
 // Loads of the D / 64 panels of one operand's box at row `row` of head
@@ -181,10 +241,11 @@ __device__ __forceinline__ void stage_rows(uint8_t* dst, int panel,
           pack2<T>(acc[4 * j + 2 * h] * mul, acc[4 * j + 2 * h + 1] * mul);
 }
 
-// The row tile that block x of a row of `tiles` takes (the forward's
-// order).  Causal work grows with a row's position t, so the heaviest
-// tiles go first: when the tiles align with the q heads, by descending t
-// across the group's heads; otherwise in reverse order.
+// The row tile (of kDqRows rows) that block x of a row of `tiles` takes
+// (the forward's order).  Causal work grows with a row's position t, so
+// the heaviest tiles go first: when the tiles align with the q heads, by
+// descending t across the group's heads; otherwise in reverse order.
+template <int kDqRows>
 __device__ __forceinline__ int dq_row_tile(const BwdParams& p, int x,
                                            int tiles) {
   if (!p.causal) return x;
@@ -193,13 +254,13 @@ __device__ __forceinline__ int dq_row_tile(const BwdParams& p, int x,
   return x % p.group * per + per - 1 - x / p.group;
 }
 
-// Grid (row tiles, kv_heads, batch), kThreads threads, DqSmem<D>::kBytes of
-// dynamic shared memory.  The maps are over [b * kv_heads][rows][D] (q,
-// do, dq) and [b * kv_heads][kv_len][D] (k, v), 16-bit elements, boxes of
-// 64 columns by kDqRows rows (q, do), kDqKeys rows (k, v) and 64 rows
-// (dq).
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, 1)
+// Grid (row tiles, kv_heads, batch), BwdTiles<D>::kDqThreads threads,
+// DqSmem<D>::kBytes of dynamic shared memory.  The maps are over
+// [b * kv_heads][rows][D] (q, do, dq) and [b * kv_heads][kv_len][D] (k,
+// v), 16-bit elements, boxes of 64 columns by kDqRows rows (q, do),
+// kDqKeys rows (k, v) and 64 rows (dq).  kCap: soft-capped logits.
+template <typename T, int D, bool kCap>
+__global__ void __launch_bounds__(BwdTiles<D>::kDqThreads, 1)
 flash_bwd_dq90_kernel(const __grid_constant__ CUtensorMap map_q,
                       const __grid_constant__ CUtensorMap map_do,
                       const __grid_constant__ CUtensorMap map_k,
@@ -211,7 +272,10 @@ flash_bwd_dq90_kernel(const __grid_constant__ CUtensorMap map_q,
   using Rows = typename L::Kept;
   using Keys = typename L::Stream;
   constexpr bool kFp16 = std::is_same<T, __half>::value;
-  constexpr int kS = kStages;
+  constexpr int kS = BwdTiles<D>::kStages;
+  constexpr int kDqRows = BwdTiles<D>::kDqRows;
+  constexpr int kDqKeys = BwdTiles<D>::kDqKeys;
+  constexpr int kWarps = BwdTiles<D>::kDqThreads / 32;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + (1024 - smem_u32(smem_raw) % 1024) % 1024;
   uint64_t* rows_full = reinterpret_cast<uint64_t*>(smem + L::kBar);
@@ -221,7 +285,7 @@ flash_bwd_dq90_kernel(const __grid_constant__ CUtensorMap map_q,
   const int tid = threadIdx.x, lane = tid % 32;
   const int bh = blockIdx.z * gridDim.y + blockIdx.y;
   const int rows = p.group * p.q_len;
-  const int r0 = dq_row_tile(p, blockIdx.x, gridDim.x) * kDqRows;
+  const int r0 = dq_row_tile<kDqRows>(p, blockIdx.x, gridDim.x) * kDqRows;
   const int offset = p.kv_len - p.q_len;
   const bool causal = p.causal != 0;
 
@@ -330,22 +394,29 @@ flash_bwd_dq90_kernel(const __grid_constant__ CUtensorMap map_q,
     wgmma_commit();
     wgmma_wait<1>();
     fence_operands(sc);
-    // P in place of S; this thread's columns are col0 + 8 j + {0, 1}.
+    // P in place of S (with the cap, P (1 - t^2), all dS needs of P);
+    // this thread's columns are col0 + 8 j + {0, 1}.
     const int col0 = (n_hi - 1 - i) * kDqKeys + 2 * t4;
 #pragma unroll
     for (int j = 0; j < kDqKeys / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        float x = exp2_approx(fmaf(sc[4 * j + e], p.scale_log2e, -l2[e / 2]));
+        float x, f = 1.f;
+        if constexpr (kCap)
+          x = exp2_approx(capped_score(sc[4 * j + e], p, f) -
+                          l2[e / 2]);
+        else
+          x = exp2_approx(fmaf(sc[4 * j + e], p.scale_log2e, -l2[e / 2]));
         if constexpr (decltype(masked)::value) {
           const int col = col0 + 8 * j + e % 2;
           if (col < lo[e / 2] || col > hi[e / 2]) x = 0.f;
         }
-        sc[4 * j + e] = x;
+        sc[4 * j + e] = kCap ? x * f : x;
       }
     wgmma_wait<0>();
     fence_operands(dp);
-    // dS = P (dP - D), packed as the A of dQ += dS K.
+    // dS = P (dP - D) (times 1 - t^2 with the cap), packed as the A of
+    // dQ += dS K.
 #pragma unroll
     for (int e = 0; e < kDqKeys / 2; ++e)
       dp[e] = sc[e] * (dp[e] - dt[e % 4 / 2]);
@@ -386,12 +457,13 @@ flash_bwd_dq90_kernel(const __grid_constant__ CUtensorMap map_q,
 }
 
 // Grid (b * kv_heads, key tiles): every head's first key tile first.
-// kThreads threads, DkvSmem<D>::kBytes of dynamic shared memory.  The
-// maps are over [b * q_heads][q_len][D] (q, do) and [b * kv_heads][kv_len]
-// [D] (k, v, dk, dv), 16-bit elements, boxes of 64 columns by kDkvRows
-// rows (q, do), kDkvKeys rows (k, v) and 64 rows (dk, dv).
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, 1)
+// BwdTiles<D>::kDkvThreads threads, DkvSmem<D>::kBytes of dynamic shared
+// memory.  The maps are over [b * q_heads][q_len][D] (q, do) and
+// [b * kv_heads][kv_len][D] (k, v, dk, dv), 16-bit elements, boxes of 64
+// columns by kDkvRows rows (q, do), kDkvKeys rows (k, v) and 64 rows (dk,
+// dv).  kCap: soft-capped logits.
+template <typename T, int D, bool kCap>
+__global__ void __launch_bounds__(BwdTiles<D>::kDkvThreads, 1)
 flash_bwd_dkv90_kernel(const __grid_constant__ CUtensorMap map_q,
                        const __grid_constant__ CUtensorMap map_do,
                        const __grid_constant__ CUtensorMap map_k,
@@ -404,8 +476,12 @@ flash_bwd_dkv90_kernel(const __grid_constant__ CUtensorMap map_q,
   using Keys = typename L::Kept;
   using Rows = typename L::Stream;
   constexpr bool kFp16 = std::is_same<T, __half>::value;
-  constexpr int kS = kStages;
-  constexpr int kR = kDkvRows;
+  constexpr int kS = BwdTiles<D>::kStages;
+  constexpr int kR = BwdTiles<D>::kDkvRows;
+  constexpr int kDkvKeys = BwdTiles<D>::kDkvKeys;
+  constexpr bool kSplit = BwdTiles<D>::kDkvSplit;
+  constexpr int kCols = BwdTiles<D>::kDkvCols;
+  constexpr int kWarps = BwdTiles<D>::kDkvThreads / 32;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + (1024 - smem_u32(smem_raw) % 1024) % 1024;
   uint64_t* keys_full = reinterpret_cast<uint64_t*>(smem + L::kBar);
@@ -465,13 +541,15 @@ flash_bwd_dkv90_kernel(const __grid_constant__ CUtensorMap map_q,
     for (int i = 0; i < min(kS, n_steps); ++i) load_step(i);
   }
 
-  // Warpgroup wg takes keys 64 wg .. 64 wg + 63 of the block; this thread
-  // keys ka and ka + 8 of them (the rows of the accumulator layout).
-  // Each warpgroup issues its products also where its keys lie past
-  // kv_len (their rows are not stored).
+  // Warpgroup wg takes keys 64 wg .. 64 wg + 63 of the block (kSplit:
+  // all 64 keys, and columns wg kCols .. wg kCols + kCols - 1 of dK and
+  // dV); this thread keys ka and ka + 8 of them (the rows of the
+  // accumulator layout).  Each warpgroup issues its products also where
+  // its keys lie past kv_len (their rows are not stored).
   const int wg = __shfl_sync(0xffffffff, tid / 128, 0);
   const int warp = tid / 32 % 4, t4 = lane % 4;
-  const int ka = j0 + 64 * wg + 16 * warp + lane / 4;
+  const int k0 = kSplit ? j0 : j0 + 64 * wg;  // the warpgroup's first key
+  const int ka = k0 + 16 * warp + lane / 4;
   // The query rows that see each key, [lo, hi].
   int lo[2], hi[2];
 #pragma unroll
@@ -480,12 +558,15 @@ flash_bwd_dkv90_kernel(const __grid_constant__ CUtensorMap map_q,
     lo[h] = causal ? key - offset : 0;
     hi[h] = p.window > 0 ? key - offset + p.window - 1 : p.q_len - 1;
   }
-  const uint8_t* k_wg = smem + L::kA + wg * 64 * 128;
-  const uint8_t* v_wg = smem + L::kB + wg * 64 * 128;
+  const int key_row = kSplit ? 0 : wg * 64 * 128;  // in a panel
+  const uint8_t* k_wg = smem + L::kA + key_row;
+  const uint8_t* v_wg = smem + L::kB + key_row;
+  // The first of the warpgroup's columns in a streamed panel's offsets.
+  const int col_panel = kSplit ? wg * (kCols / 64) * Rows::kPanel : 0;
 
-  float dk[D / 2], dv[D / 2], st[kR / 2], dpt[kR / 2];
+  float dk[kCols / 2], dv[kCols / 2], st[kR / 2], dpt[kR / 2];
 #pragma unroll
-  for (int e = 0; e < D / 2; ++e) dk[e] = dv[e] = 0.f;
+  for (int e = 0; e < kCols / 2; ++e) dk[e] = dv[e] = 0.f;
 #pragma unroll
   for (int e = 0; e < kR / 2; ++e) st[e] = dpt[e] = 0.f;
   uint32_t pa[kR / 16][4], da[kR / 16][4];
@@ -536,30 +617,43 @@ flash_bwd_dkv90_kernel(const __grid_constant__ CUtensorMap map_q,
     wgmma_wait<1>();
     fence_operands(st);
     // P^T in place of S^T; this thread's columns are query rows
-    // t0 + 8 j + {0, 1}.
+    // t0 + 8 j + {0, 1}.  With the cap, P^T is packed as dV's operand
+    // here and P^T (1 - t^2) kept, which is all dS^T needs of it.
     const int t0 = m * kR + 2 * t4;
 #pragma unroll
     for (int j = 0; j < kR / 8; ++j) {
       const float2 l = scratch[tid / 32][0][4 * j + t4];
+      float x[4], f[4] = {1.f, 1.f, 1.f, 1.f};
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        float x = exp2_approx(
-            fmaf(st[4 * j + e], p.scale_log2e, e % 2 ? -l.y : -l.x));
+        if constexpr (kCap)
+          x[e] = exp2_approx(capped_score(st[4 * j + e], p, f[e]) -
+                             (e % 2 ? l.y : l.x));
+        else
+          x[e] = exp2_approx(
+              fmaf(st[4 * j + e], p.scale_log2e, e % 2 ? -l.y : -l.x));
         if constexpr (decltype(masked)::value) {
           const int t = t0 + 8 * j + e % 2;
-          if (t < lo[e / 2] || t > hi[e / 2]) x = 0.f;
+          if (t < lo[e / 2] || t > hi[e / 2]) x[e] = 0.f;
         }
-        st[4 * j + e] = x;
       }
+      if constexpr (kCap) {
+        // pack_rs's slots of entries 4 j .. 4 j + 3.
+        pa[j / 2][2 * (j % 2)] = pack2<T>(x[0], x[1]);
+        pa[j / 2][2 * (j % 2) + 1] = pack2<T>(x[2], x[3]);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[4 * j + e] = kCap ? x[e] * f[e] : x[e];
     }
-    pack_rs<T, kR>(pa, st);
+    if constexpr (!kCap) pack_rs<T, kR>(pa, st);
     fence_operands(dv);
     wgmma_fence();
-    rs_product<kR, D, kFp16>(dv, pa, d_o, Rows::kPanel);
+    rs_product<kR, kCols, kFp16>(dv, pa, d_o + col_panel, Rows::kPanel);
     wgmma_commit();
     wgmma_wait<1>();  // dP^T's product; dV's runs on
     fence_operands(dpt);
-    // dS^T = P^T (dP^T - D), packed as the A of dK += dS^T Q.
+    // dS^T = P^T (dP^T - D) (times 1 - t^2 with the cap), packed as the
+    // A of dK += dS^T Q.
 #pragma unroll
     for (int j = 0; j < kR / 8; ++j) {
       const float2 d = scratch[tid / 32][1][4 * j + t4];
@@ -571,7 +665,7 @@ flash_bwd_dkv90_kernel(const __grid_constant__ CUtensorMap map_q,
     pack_rs<T, kR>(da, dpt);
     fence_operands(dk);
     wgmma_fence();
-    rs_product<kR, D, kFp16>(dk, da, q, Rows::kPanel);
+    rs_product<kR, kCols, kFp16>(dk, da, q + col_panel, Rows::kPanel);
     wgmma_commit();
     wgmma_wait<0>();
     fence_operands(dv);
@@ -592,22 +686,24 @@ flash_bwd_dkv90_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 
   // Epilogue: dK = scale * dk and dV = dv, staged in this warpgroup's rows
-  // of K's and V's buffers (free after its last product), then
-  // TMA-stored.
-  if (j0 + 64 * wg < p.kv_len) {
-    uint8_t* sk = smem + L::kA + wg * 64 * 128;
-    uint8_t* sv = smem + L::kB + wg * 64 * 128;
-    stage_rows<T, D>(sk, Keys::kPanel, dk, p.scale, warp, lane);
-    stage_rows<T, D>(sv, Keys::kPanel, dv, 1.f, warp, lane);
+  // (kSplit: its columns) of K's and V's buffers, free after the last
+  // product that reads them (kSplit: both warpgroups'), then TMA-stored.
+  if constexpr (kSplit) __syncthreads();
+  if (k0 < p.kv_len) {
+    constexpr int kPanels = kCols / 64;
+    const int at = key_row + (kSplit ? wg * kPanels * Keys::kPanel : 0);
+    uint8_t* sk = smem + L::kA + at;
+    uint8_t* sv = smem + L::kB + at;
+    stage_rows<T, kCols>(sk, Keys::kPanel, dk, p.scale, warp, lane);
+    stage_rows<T, kCols>(sv, Keys::kPanel, dv, 1.f, warp, lane);
     fence_proxy_async();
     named_barrier_sync(1 + wg, 128);
     if (tid % 128 == 0) {
+      const int c0 = kSplit ? wg * kPanels : 0;
 #pragma unroll
-      for (int c = 0; c < D / 64; ++c) {
-        tma_store_3d(&map_dk, sk + c * Keys::kPanel, 64 * c, j0 + 64 * wg,
-                     bh);
-        tma_store_3d(&map_dv, sv + c * Keys::kPanel, 64 * c, j0 + 64 * wg,
-                     bh);
+      for (int c = 0; c < kPanels; ++c) {
+        tma_store_3d(&map_dk, sk + c * Keys::kPanel, 64 * (c0 + c), k0, bh);
+        tma_store_3d(&map_dv, sv + c * Keys::kPanel, 64 * (c0 + c), k0, bh);
       }
       tma_store_wait();
     }
@@ -633,10 +729,12 @@ struct Operands {
   void *dq, *dk, *dv;
 };
 
-template <typename T, int D>
+template <typename T, int D, bool kCap>
 int launch_dq(const Operands& x, const BwdParams& p, int batch,
               int kv_heads, cudaStream_t s) {
   using L = DqSmem<D>;
+  constexpr int kDqRows = BwdTiles<D>::kDqRows;
+  constexpr int kDqKeys = BwdTiles<D>::kDqKeys;
   const long long heads = (long long)batch * kv_heads;
   const int rows = p.group * p.q_len;
   CUtensorMap mq, mdo, mk, mv, mdq;
@@ -647,20 +745,23 @@ int launch_dq(const Operands& x, const BwdParams& p, int batch,
       operand_map<D>(&mv, x.v, x.q, p.kv_len, heads, kDqKeys) &&
       operand_map<D>(&mdq, x.dq, x.q, rows, heads, 64);
   if (!ok) return kErrTensorMap;
-  if (cudaFuncSetAttribute(flash_bwd_dq90_kernel<T, D>,
+  if (cudaFuncSetAttribute(flash_bwd_dq90_kernel<T, D, kCap>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            L::kBytes) != cudaSuccess)
     return (int)cudaGetLastError();
   const dim3 grid((rows + kDqRows - 1) / kDqRows, kv_heads, batch);
-  flash_bwd_dq90_kernel<T, D><<<grid, kThreads, L::kBytes, s>>>(
-      mq, mdo, mk, mv, mdq, p);
+  flash_bwd_dq90_kernel<T, D, kCap>
+      <<<grid, BwdTiles<D>::kDqThreads, L::kBytes, s>>>(mq, mdo, mk, mv,
+                                                        mdq, p);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kCap>
 int launch_dkv(const Operands& x, const BwdParams& p, int batch,
                int kv_heads, cudaStream_t s) {
   using L = DkvSmem<D>;
+  constexpr int kDkvRows = BwdTiles<D>::kDkvRows;
+  constexpr int kDkvKeys = BwdTiles<D>::kDkvKeys;
   const long long heads = (long long)batch * kv_heads;
   CUtensorMap mq, mdo, mk, mv, mdk, mdv;
   const bool ok =
@@ -672,33 +773,50 @@ int launch_dkv(const Operands& x, const BwdParams& p, int batch,
       operand_map<D>(&mdk, x.dk, x.k, p.kv_len, heads, 64) &&
       operand_map<D>(&mdv, x.dv, x.k, p.kv_len, heads, 64);
   if (!ok) return kErrTensorMap;
-  if (cudaFuncSetAttribute(flash_bwd_dkv90_kernel<T, D>,
+  if (cudaFuncSetAttribute(flash_bwd_dkv90_kernel<T, D, kCap>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            L::kBytes) != cudaSuccess)
     return (int)cudaGetLastError();
   const dim3 grid((unsigned)heads, (p.kv_len + kDkvKeys - 1) / kDkvKeys);
-  flash_bwd_dkv90_kernel<T, D><<<grid, kThreads, L::kBytes, s>>>(
-      mq, mdo, mk, mv, mdk, mdv, p);
+  flash_bwd_dkv90_kernel<T, D, kCap>
+      <<<grid, BwdTiles<D>::kDkvThreads, L::kBytes, s>>>(mq, mdo, mk, mv,
+                                                         mdk, mdv, p);
   return (int)cudaGetLastError();
 }
 
+template <typename T, int D, bool kCap>
+int launch_one(bool dkv, const Operands& x, const BwdParams& p, int batch,
+               int kv_heads, cudaStream_t s) {
+  return dkv ? launch_dkv<T, D, kCap>(x, p, batch, kv_heads, s)
+             : launch_dq<T, D, kCap>(x, p, batch, kv_heads, s);
+}
+
+// Head dim 64, 128 or 256, with or without the cap.
+template <typename T, int D>
+int launch_d(bool dkv, bool capped, const Operands& x, const BwdParams& p,
+             int batch, int kv_heads, cudaStream_t s) {
+  return capped ? launch_one<T, D, true>(dkv, x, p, batch, kv_heads, s)
+                : launch_one<T, D, false>(dkv, x, p, batch, kv_heads, s);
+}
+
 template <typename T>
-int launch(bool dkv, const Operands& x, const BwdParams& p, int batch,
-           int kv_heads, int head_dim, cudaStream_t s) {
+int launch(bool dkv, bool capped, const Operands& x, const BwdParams& p,
+           int batch, int kv_heads, int head_dim, cudaStream_t s) {
   if (head_dim == 64)
-    return dkv ? launch_dkv<T, 64>(x, p, batch, kv_heads, s)
-               : launch_dq<T, 64>(x, p, batch, kv_heads, s);
+    return launch_d<T, 64>(dkv, capped, x, p, batch, kv_heads, s);
   if (head_dim == 128)
-    return dkv ? launch_dkv<T, 128>(x, p, batch, kv_heads, s)
-               : launch_dq<T, 128>(x, p, batch, kv_heads, s);
+    return launch_d<T, 128>(dkv, capped, x, p, batch, kv_heads, s);
+  if (head_dim == 256)
+    return launch_d<T, 256>(dkv, capped, x, p, batch, kv_heads, s);
   return (int)cudaErrorInvalidValue;
 }
 
 int run(bool dkv, const Operands& x, const void* lse, const void* dterm,
         int batch, int q_heads, int kv_heads, int q_len, int kv_len,
-        int head_dim, float scale, int causal, int window, int is_fp16,
-        void* stream) {
-  if (kv_heads <= 0 || q_heads % kv_heads || q_len < 0 || kv_len < 0)
+        int head_dim, float scale, float softcap, int causal, int window,
+        int is_fp16, void* stream) {
+  if (kv_heads <= 0 || q_heads % kv_heads || q_len < 0 || kv_len < 0 ||
+      softcap < 0.f)
     return (int)cudaErrorInvalidValue;
   BwdParams p;
   p.lse = static_cast<const float*>(lse);
@@ -708,11 +826,15 @@ int run(bool dkv, const Operands& x, const void* lse, const void* dterm,
   p.kv_len = kv_len;
   p.scale = scale;
   p.scale_log2e = scale * kLog2e;
+  p.cap2 = softcap * kLog2e;
+  p.inv_cap2 = softcap > 0.f ? 1.f / p.cap2 : 0.f;
   p.causal = causal;
   p.window = window;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_fp16 ? launch<__half>(dkv, x, p, batch, kv_heads, head_dim, s)
-                 : launch<__nv_bfloat16>(dkv, x, p, batch, kv_heads,
+  const bool capped = softcap > 0.f;
+  return is_fp16 ? launch<__half>(dkv, capped, x, p, batch, kv_heads,
+                                  head_dim, s)
+                 : launch<__nv_bfloat16>(dkv, capped, x, p, batch, kv_heads,
                                          head_dim, s);
 }
 
@@ -722,17 +844,19 @@ extern "C" {
 
 // q, k, v, dout contiguous, 16-byte aligned; lse and dterm float32.
 // dq like q; is_fp16 selects fp16 (else bf16) for q, k, v, dout and dq.
-// window <= 0: none.  Returns kErrTensorMap when cuTensorMapEncodeTiled
-// refuses a TMA map.
+// head_dim 64, 128 or 256.  softcap > 0 soft-caps the scaled logits (the
+// forward's lse must be the capped logits'); 0: none.  window <= 0: none.
+// Returns kErrTensorMap when cuTensorMapEncodeTiled refuses a TMA map.
 int mfa_flash_bwd_dq(const void* q, const void* k, const void* v,
                      const void* dout, const void* lse, const void* dterm,
                      void* dq, int batch, int q_heads, int kv_heads,
                      int q_len, int kv_len, int head_dim, float scale,
-                     int causal, int window, int is_fp16, void* stream) {
+                     float softcap, int causal, int window, int is_fp16,
+                     void* stream) {
   if (batch == 0 || q_len == 0) return 0;
   const Operands x{q, k, v, dout, dq, nullptr, nullptr};
   return run(false, x, lse, dterm, batch, q_heads, kv_heads, q_len, kv_len,
-             head_dim, scale, causal, window, is_fp16, stream);
+             head_dim, scale, softcap, causal, window, is_fp16, stream);
 }
 
 // dk/dv like k, the GQA group summed in the kernel.
@@ -740,12 +864,12 @@ int mfa_flash_bwd_dkv(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* dterm,
                       void* dk, void* dv, int batch, int q_heads,
                       int kv_heads, int q_len, int kv_len, int head_dim,
-                      float scale, int causal, int window, int is_fp16,
-                      void* stream) {
+                      float scale, float softcap, int causal, int window,
+                      int is_fp16, void* stream) {
   if (batch == 0 || kv_len == 0) return 0;
   const Operands x{q, k, v, dout, nullptr, dk, dv};
   return run(true, x, lse, dterm, batch, q_heads, kv_heads, q_len, kv_len,
-             head_dim, scale, causal, window, is_fp16, stream);
+             head_dim, scale, softcap, causal, window, is_fp16, stream);
 }
 
 const char* mfa_cuda_error_string(int code) {

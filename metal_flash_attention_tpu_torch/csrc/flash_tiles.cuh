@@ -6,7 +6,7 @@
 // of the split-KV splits) and group limit, GEMMDescriptor.kernel_config
 // the GEMM's (each route's).
 // So the kernels and their wrappers share this one source.  The flash
-// kernels' blocks are two warpgroups of 64 rows (query rows, or keys for
+// kernels' blocks are warpgroups of 64 rows (query rows, or keys for
 // dK/dV); their tiles are the N of a wgmma (64, 128 or 256).
 
 #pragma once
@@ -20,11 +20,41 @@
 #define MFA_FWD90_D256_STAGES 2
 #define MFA_FWD90_STAGES 2      // flash_fwd: K/V stages of the ring
 #define MFA_FWD90_RAW_STAGES 2  // flash_fwd: stored quantized K/V stages
+#ifndef MFA_BWD90_DQ_BLOCK_Q
 #define MFA_BWD90_DQ_BLOCK_Q 128   // flash_bwd_dq: query rows per block
+#endif
+#ifndef MFA_BWD90_DQ_BLOCK_KV
 #define MFA_BWD90_DQ_BLOCK_KV 128  // flash_bwd_dq: keys per tile of the ring
+#endif
+#ifndef MFA_BWD90_DKV_BLOCK_Q
 #define MFA_BWD90_DKV_BLOCK_Q 64   // flash_bwd_dkv: query rows per step
+#endif
+#ifndef MFA_BWD90_DKV_BLOCK_KV
 #define MFA_BWD90_DKV_BLOCK_KV 128  // flash_bwd_dkv: keys per block
+#endif
+#ifndef MFA_BWD90_STAGES
 #define MFA_BWD90_STAGES 2         // both: stages of the ring
+#endif
+// The backward pair at head_dim 256 (Gemma-2 training).  dQ: one
+// warpgroup of 64 query rows and 64-key tiles (its 64 x 256 float32 dQ
+// is 128 registers a thread; Q and dO kept, 64 KB, and two stages of K
+// and V, 128 KB).  dK/dV: 64 keys a block, shared by two warpgroups that
+// each own half of dK's and dV's columns, over 64-row Q/dO stages.
+#ifndef MFA_BWD90_D256_DQ_BLOCK_Q
+#define MFA_BWD90_D256_DQ_BLOCK_Q 64
+#endif
+#ifndef MFA_BWD90_D256_DQ_BLOCK_KV
+#define MFA_BWD90_D256_DQ_BLOCK_KV 64
+#endif
+#ifndef MFA_BWD90_D256_DKV_BLOCK_Q
+#define MFA_BWD90_D256_DKV_BLOCK_Q 64
+#endif
+#ifndef MFA_BWD90_D256_DKV_BLOCK_KV
+#define MFA_BWD90_D256_DKV_BLOCK_KV 64
+#endif
+#ifndef MFA_BWD90_D256_STAGES
+#define MFA_BWD90_D256_STAGES 2
+#endif
 // The decode family (flash_decode and paged_decode share one kernel,
 // paged_prefill has its own on the same ring): keys per tile of the
 // cp.async ring, the ring's stages (flash_decode's; the paged kernels'),

@@ -39,26 +39,24 @@ class AttentionKernelType(enum.Enum):
     BACKWARD_KEY_VALUE = "backward_key_value"  # computes dK, dV; needs L, D
 
 
-_TILE_PREFIX = {AttentionKernelType.FORWARD: "FWD90",
-                AttentionKernelType.BACKWARD_QUERY: "BWD90_DQ",
-                AttentionKernelType.BACKWARD_KEY_VALUE: "BWD90_DKV"}
+# Each kernel's `csrc/flash_tiles.cuh` prefix: (head dims 64 and 128,
+# head dim 256).
+_TILE_PREFIX = {
+    AttentionKernelType.FORWARD: ("FWD90", "FWD90_D256"),
+    AttentionKernelType.BACKWARD_QUERY: ("BWD90_DQ", "BWD90_D256_DQ"),
+    AttentionKernelType.BACKWARD_KEY_VALUE: ("BWD90_DKV", "BWD90_D256_DKV")}
 
 
 @functools.cache
 def kernel_tiles(head_dim: int = 128
                  ) -> dict[AttentionKernelType, tuple[int, int]]:
     """(block_q, block_kv) of each CUDA kernel at ``head_dim``, as
-    `csrc/flash_tiles.cuh` defines them for the kernels (the forward has
-    its own at head_dim 256)."""
+    `csrc/flash_tiles.cuh` defines them for the kernels (each has its own
+    at head_dim 256)."""
     defines = tile_defines()
-
-    def prefix(kind):
-        p = _TILE_PREFIX[kind]
-        wide = kind is AttentionKernelType.FORWARD and head_dim > 128
-        return f"MFA_{p}_D256" if wide else f"MFA_{p}"
-    return {kind: (defines[f"{prefix(kind)}_BLOCK_Q"],
-                   defines[f"{prefix(kind)}_BLOCK_KV"])
-            for kind in _TILE_PREFIX}
+    return {kind: (defines[f"MFA_{p}_BLOCK_Q"], defines[f"MFA_{p}_BLOCK_KV"])
+            for kind, p in ((kind, prefixes[head_dim > 128])
+                            for kind, prefixes in _TILE_PREFIX.items())}
 
 
 @dataclass(frozen=True)

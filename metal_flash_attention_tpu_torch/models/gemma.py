@@ -14,13 +14,14 @@ and the one that runs the kernel options Llama does not:
   after both attention and the MLP, a GeGLU MLP (tanh GELU), the
   embedding scaled by sqrt(dim), and the embedding tied to the LM head.
 
-Attention goes through `dispatch.attention` (the fused forward, which
-takes the soft cap and head_dim 256), as in the JAX package.  Parameters
-are a plain dict of tensors with the JAX package's names and layouts
-(projections [in, out]; norm gains float32).  Large products stay
-`torch.matmul`.  Not ported yet: sharded attention (``mesh=``,
-`param_shardings`) and training (`loss_fn`, `train_step`: the backward
-kernels take neither the soft cap nor head_dim 256).
+Attention goes through `dispatch.attention` (the fused forward and its
+atomic-free backward, both of which take the soft cap and head_dim 256),
+as in the JAX package, so the model serves and trains (`loss_fn`: the
+fused chunked cross-entropy over the tied head with the final cap;
+`train_step`: plain SGD).  Parameters are a plain dict of tensors with
+the JAX package's names and layouts (projections [in, out]; norm gains
+float32).  Large products stay `torch.matmul`.  Not ported yet: sharded
+attention (``mesh=``, `param_shardings`).
 """
 
 from __future__ import annotations
@@ -38,10 +39,13 @@ from metal_flash_attention_tpu_torch.models.llama import (
     apply_rope,
     rope_frequencies,
 )
+from metal_flash_attention_tpu_torch.models.losses import fused_cross_entropy
+from metal_flash_attention_tpu_torch.models.optim import sgd_step
 from metal_flash_attention_tpu_torch.utils.device import resolve_device
 from metal_flash_attention_tpu_torch.utils.errors import not_ported
 
-TRAINING_ITEM = "Gemma training"
+# The fused cross-entropy's vocabulary chunk (the JAX package's).
+CE_CHUNK = 8192
 TP_ITEM = "tensor-parallel serving"
 
 
@@ -255,11 +259,30 @@ def forward(params: dict, tokens: torch.Tensor, cfg: GemmaConfig, **kw):
     return lm_head(params, x, cfg), new_caches
 
 
-def loss_fn(params: dict, tokens: torch.Tensor, cfg: GemmaConfig, **kw):
-    raise not_ported("the Gemma loss (its backward needs the soft cap and "
-                     "head_dim 256 in the backward kernels)", TRAINING_ITEM)
+def loss_fn(params: dict, tokens: torch.Tensor, cfg: GemmaConfig, *,
+            fused_ce: bool = True, **kw) -> torch.Tensor:
+    """Mean next-token cross-entropy of tokens [batch, seq].
+
+    ``fused_ce`` (the default) runs the tied head and the final-logit
+    cap inside the chunked cross-entropy (`models.losses`, CE_CHUNK
+    columns at a time), never holding the [batch * seq, vocab] logits;
+    ``fused_ce=False`` materialises them.  ``kw`` goes to
+    `forward_hidden` (``remat=True`` checkpoints each layer)."""
+    targets = tokens[:, 1:]
+    if fused_ce:
+        x, _ = forward_hidden(params, tokens[:, :-1], cfg, **kw)
+        nll = fused_cross_entropy(x.reshape(-1, x.shape[-1]),
+                                  params["embed"].T, targets.reshape(-1),
+                                  CE_CHUNK, cfg.final_logit_softcap)
+        return nll.mean()
+    logits, _ = forward(params, tokens[:, :-1], cfg, **kw)
+    logp = torch.log_softmax(logits, dim=-1)
+    return -logp.gather(-1, targets[..., None].long()).mean()
 
 
 def train_step(params: dict, tokens: torch.Tensor, cfg: GemmaConfig,
                lr: float = 1e-4, **kw):
-    raise not_ported("the Gemma training step", TRAINING_ITEM)
+    """One SGD step, out of place: returns (new_params, loss).  Each
+    update is taken in float32 and rounded to the parameter's dtype (norm
+    gains stay float32)."""
+    return sgd_step(lambda p: loss_fn(p, tokens, cfg, **kw), params, lr)

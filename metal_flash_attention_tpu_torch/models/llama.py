@@ -26,9 +26,9 @@ from torch.utils.checkpoint import checkpoint
 
 from metal_flash_attention_tpu_torch import dispatch
 from metal_flash_attention_tpu_torch.models.losses import fused_cross_entropy
+from metal_flash_attention_tpu_torch.models.optim import sgd_step
 from metal_flash_attention_tpu_torch.utils.device import resolve_device
 from metal_flash_attention_tpu_torch.utils.errors import not_ported
-from metal_flash_attention_tpu_torch.utils.tree import flatten
 
 
 @dataclass(frozen=True)
@@ -266,11 +266,4 @@ def train_step(params: dict, tokens: torch.Tensor, cfg: LlamaConfig,
                lr: float = 1e-4, **kw):
     """One SGD step, out of place: returns (new_params, loss).  Each
     update is taken in float32 and rounded to the parameter's dtype."""
-    leaves, rebuild = flatten(params)
-    work = [p.detach().requires_grad_(True) for p in leaves]
-    loss = loss_fn(rebuild(work), tokens, cfg, **kw)
-    grads = torch.autograd.grad(loss, work)
-    with torch.no_grad():
-        new = [(p.float() - lr * g.float()).to(p.dtype)
-               for p, g in zip(leaves, grads)]
-    return rebuild(new), loss.detach()
+    return sgd_step(lambda p: loss_fn(p, tokens, cfg, **kw), params, lr)

@@ -33,6 +33,20 @@ def adamw(tensors: list) -> torch.optim.Optimizer:
                              eps=1e-8, weight_decay=1e-4)
 
 
+def sgd_step(loss_fn: Callable[[object], torch.Tensor], params, lr: float):
+    """One plain SGD step, out of place: -> (new_params, loss).  Each
+    update is taken in float32 and rounded to the parameter's dtype (the
+    JAX package's `train_step`s)."""
+    leaves, rebuild = flatten(params)
+    work = [p.detach().requires_grad_(True) for p in leaves]
+    loss = loss_fn(rebuild(work))
+    grads = torch.autograd.grad(loss, work)
+    with torch.no_grad():
+        new = [(p.float() - lr * g.float()).to(p.dtype)
+               for p, g in zip(leaves, grads)]
+    return rebuild(new), loss.detach()
+
+
 def make_train_step(loss_fn: Callable[..., torch.Tensor],
                     optimizer: Optional[Callable[[list],
                                                  torch.optim.Optimizer]] = None,

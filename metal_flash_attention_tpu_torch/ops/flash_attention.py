@@ -14,11 +14,9 @@ c > r + offset - w (with or without causal).  ``logit_softcap`` c
 mask.  A row that sees no key gives o = 0 and lse = -inf.
 
 `flash_attention` is differentiable (the backward is
-`ops.flash_attention_bwd`, two more kernels); `flash_attention_forward`
-returns (o, lse) without a graph.  The backward does not take the soft
-cap or head dim 256 yet (Gemma training): `flash_attention` with either
-returns the forward when no input needs a gradient, and raises when one
-does.
+`ops.flash_attention_bwd`, two more kernels), with the soft cap and at
+every head dim the forward takes, 256 included (Gemma-2 training);
+`flash_attention_forward` returns (o, lse) without a graph.
 
 k and v may both be `QuantizedTensor`s of one precision (INT8,
 FP8-E4M3, FP8-E5M2, NF4; `ops.quantization`'s layout: payload [batch,
@@ -73,12 +71,10 @@ from metal_flash_attention_tpu_torch.ops.reference import (
 )
 from metal_flash_attention_tpu_torch.utils.errors import not_ported
 
-# Head dims of every attention kernel; the forward over K/V in q's type
-# also takes Gemma-2's 256.
+# Head dims of every attention kernel; the forward and the backward over
+# K/V in q's type also take Gemma-2's 256.
 KERNEL_HEAD_DIMS = (64, 128)
-FORWARD_HEAD_DIMS = (64, 128, 256)
-# What the backward does not take yet, on any device.
-FORWARD_ONLY_HEAD_DIM = 256
+UNQUANTIZED_HEAD_DIMS = (64, 128, 256)
 KERNEL_DTYPES = (torch.bfloat16, torch.float16)
 
 # One count per kernel, bumped only where its wrapper launches it.
@@ -88,7 +84,6 @@ LAUNCH_COUNTS = {"flash_fwd": 0, "flash_fwd_sm90": 0,
 
 OPTIONS_ITEM = "flash-attention options"
 KERNEL_ITEM = "flash-kernel coverage"
-TRAINING_ITEM = "Gemma training"
 
 
 def reset_launch_counts() -> None:
@@ -109,17 +104,6 @@ def check_options(k, *, mask=None, bias=None, mask2=None,
         raise not_ported("low_precision_intermediates", OPTIONS_ITEM)
     if window_size is not None and window_size <= 0:
         raise ValueError(f"window_size must be positive, got {window_size}")
-
-
-def check_differentiable(head_dim: int, logit_softcap) -> None:
-    """Refuse, on every device, what the backward does not compute yet:
-    the soft cap and head dim 256 (it would differentiate attention
-    without them)."""
-    if softcap_value(logit_softcap) is not None:
-        raise not_ported("logit_softcap in the backward", TRAINING_ITEM)
-    if head_dim == FORWARD_ONLY_HEAD_DIM:
-        raise not_ported(f"head_dim {head_dim} in the backward",
-                         TRAINING_ITEM)
 
 
 def check_shapes(q, k, v) -> None:
@@ -232,9 +216,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``return_residuals``.  Gradients reach q, k and v through the
     atomic-free backward (`ops.flash_attention_bwd`); lse carries
     none, as in the JAX package.  Over quantized K/V it is the forward,
-    with no graph; with the soft cap or at head dim 256 too, unless an
-    input needs a gradient, which raises (Gemma training).  See
-    `flash_attention_forward` for the arguments."""
+    with no graph.  See `flash_attention_forward` for the arguments."""
     from metal_flash_attention_tpu_torch.ops.flash_attention_bwd import (
         FlashAttentionFunction,
     )
@@ -247,19 +229,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   window_size=window_size)
     check_shapes(q, k, v)
     softcap = softcap_value(logit_softcap)
-    forward_only = (softcap is not None
-                    or q.shape[-1] == FORWARD_ONLY_HEAD_DIM)
-    if isinstance(k, QuantizedTensor) or forward_only:
-        if forward_only and torch.is_grad_enabled() and any(
-                isinstance(t, torch.Tensor) and t.requires_grad
-                for t in (q, k, v)):
-            check_differentiable(q.shape[-1], softcap)
+    if isinstance(k, QuantizedTensor):
         o, lse = _forward(q, k, v, causal=causal, window_size=window_size,
                           scale=scale, out_dtype=out_dtype, softcap=softcap)
         return (o, lse) if return_residuals else o
     o, lse = FlashAttentionFunction.apply(
         q.contiguous(), k.contiguous(), v.contiguous(), causal,
-        window_size, scale, out_dtype)
+        window_size, scale, out_dtype, softcap)
     return (o, lse) if return_residuals else o
 
 
@@ -330,7 +306,7 @@ def _forward_cuda(q, k, v, *, causal, window_size, scale, out_dtype,
                   softcap=None):
     """Launch the Hopper kernel; raise on anything it does not take."""
     precision, scales = None, (None, None)
-    head_dims = FORWARD_HEAD_DIMS
+    head_dims = UNQUANTIZED_HEAD_DIMS
     if isinstance(k, QuantizedTensor):
         if softcap is not None:
             raise not_ported("logit_softcap over quantized K/V in the "

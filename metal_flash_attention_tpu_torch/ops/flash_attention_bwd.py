@@ -20,16 +20,18 @@ kernels).  A row that saw no key carries L = -inf; the kernels read it as
 package's `_flash_attention_vjp` / `_flash_attention_vjp_o`: its forward
 saves q, k, v, o and lse, and its backward runs both kernels.
 
+Gemma-2's ``logit_softcap`` c is differentiated as the JAX kernels do
+it: P is the capped logits', and dS takes the chain factor
+1 - tanh(s / c)^2 before dQ and dK.  Head dims 64, 128 and 256.
+
 Dispatch: a CPU tensor takes the plain version (`_backward_plain`, the
 analytic gradients of `ops.reference.attention_reference_grads`); a CUDA
 tensor launches the Hopper kernels of `csrc/flash_attention_bwd.cu`
-(TMA-fed, wgmma, for sm_90a), or raises.  Neither path takes
-``logit_softcap`` or head dim 256 yet (ROADMAP, Gemma training): both
-raise on every device, as does `FlashAttentionFunction`, so no call
-differentiates attention without its cap.  Each launch adds one to
+(TMA-fed, wgmma, for sm_90a), or raises.  Each launch adds one to
 ``LAUNCH_COUNTS["flash_bwd_dq"]`` or ``["flash_bwd_dkv"]`` (the op) and
 to ``["flash_bwd_dq_sm90"]`` or ``["flash_bwd_dkv_sm90"]`` (the kernel
-that ran).
+that ran), with the soft cap to ``["<op>_softcap"]`` and at head_dim 256
+to ``["<op>_d256"]`` too.
 """
 
 from __future__ import annotations
@@ -42,8 +44,8 @@ from typing import Optional
 import torch
 
 from metal_flash_attention_tpu_torch.ops.flash_attention import (
+    UNQUANTIZED_HEAD_DIMS,
     _forward as _flash_forward,
-    check_differentiable,
     check_kernel_operands,
     check_options,
     check_shapes,
@@ -51,12 +53,13 @@ from metal_flash_attention_tpu_torch.ops.flash_attention import (
 )
 from metal_flash_attention_tpu_torch.ops.reference import (
     attention_reference_grads,
+    softcap_value,
 )
 
 # One count per op and per kernel, bumped only where the wrapper launches
 # it.
-LAUNCH_COUNTS = {"flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-                 "flash_bwd_dq_sm90": 0, "flash_bwd_dkv_sm90": 0}
+LAUNCH_COUNTS = {f"flash_bwd_{op}{suffix}": 0 for op in ("dq", "dkv")
+                 for suffix in ("", "_sm90", "_softcap", "_d256")}
 
 
 def reset_launch_counts() -> None:
@@ -91,7 +94,6 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
                   low_precision_intermediates=low_precision_intermediates,
                   window_size=window_size)
     check_shapes(q, k, v)
-    check_differentiable(q.shape[-1], logit_softcap)
     if do.shape != q.shape or o.shape != q.shape or \
             lse.shape != q.shape[:3]:
         raise ValueError(f"do/o must be shaped like q {tuple(q.shape)} and "
@@ -99,12 +101,15 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
                          f"{tuple(do.shape)}, {tuple(o.shape)}, "
                          f"{tuple(lse.shape)}")
     return _backward(q, k, v, do, o, lse, causal=causal,
-                     window_size=window_size, scale=scale)
+                     window_size=window_size, scale=scale,
+                     softcap=softcap_value(logit_softcap))
 
 
-def _backward(q, k, v, do, o, lse, *, causal, window_size, scale):
+def _backward(q, k, v, do, o, lse, *, causal, window_size, scale,
+              softcap=None):
     """The backward on checked operands: both kernels for a CUDA tensor,
-    the plain version for a CPU tensor."""
+    the plain version for a CPU tensor.  ``softcap``: the cap, or None;
+    lse must be that of the capped logits."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     with torch.no_grad():
@@ -113,7 +118,8 @@ def _backward(q, k, v, do, o, lse, *, causal, window_size, scale):
             do = do.to(q.dtype).contiguous()
             lse = lse.float().contiguous()
             d_term = (do.float() * o.float()).sum(dim=-1)
-            kw = dict(causal=causal, window_size=window_size, scale=scale)
+            kw = dict(causal=causal, window_size=window_size, scale=scale,
+                      softcap=softcap)
             dq = _dq_cuda(q, k, v, do, lse, d_term, **kw)
             dk, dv = _dkv_cuda(q, k, v, do, lse, d_term, **kw)
             return dq, dk, dv
@@ -121,23 +127,25 @@ def _backward(q, k, v, do, o, lse, *, causal, window_size, scale):
             raise ValueError(f"flash attention runs on cpu or cuda "
                              f"tensors, got {q.device}")
         return _backward_plain(q, k, v, do, causal=causal,
-                               window_size=window_size, scale=scale)
+                               window_size=window_size, scale=scale,
+                               softcap=softcap)
 
 
 class FlashAttentionFunction(torch.autograd.Function):
-    """(q, k, v, causal, window_size, scale, out_dtype) -> (o, lse); lse
-    is not differentiable (its cotangent is dropped, as in JAX).  Head dim
-    256 raises: the backward does not take it yet."""
+    """(q, k, v, causal, window_size, scale, out_dtype, softcap) -> (o,
+    lse); lse is not differentiable (its cotangent is dropped, as in
+    JAX).  ``softcap``: the cap (`ops.reference.softcap_value`), or
+    None."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window_size, scale, out_dtype):
-        check_differentiable(q.shape[-1], None)
+    def forward(ctx, q, k, v, causal, window_size, scale, out_dtype,
+                softcap=None):
         o, lse = _flash_forward(q, k, v, causal=causal,
                                 window_size=window_size, scale=scale,
-                                out_dtype=out_dtype)
+                                out_dtype=out_dtype, softcap=softcap)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.options = dict(causal=causal, window_size=window_size,
-                           scale=scale)
+                           scale=scale, softcap=softcap)
         ctx.mark_non_differentiable(lse)
         return o, lse
 
@@ -145,16 +153,18 @@ class FlashAttentionFunction(torch.autograd.Function):
     def backward(ctx, do, _dlse):
         q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = _backward(q, k, v, do, o, lse, **ctx.options)
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None
 
 
-def _backward_plain(q, k, v, do, *, causal, window_size, scale):
+def _backward_plain(q, k, v, do, *, causal, window_size, scale,
+                    softcap=None):
     """The plain PyTorch version: the analytic float32 gradients of
     `attention_reference_grads`, cast to the inputs' dtypes.  It is what
     a CPU tensor runs and what the kernels are held against on the
     card."""
     dq, dk, dv, *_ = attention_reference_grads(
-        q, k, v, do, causal=causal, window_size=window_size, scale=scale)
+        q, k, v, do, causal=causal, window_size=window_size, scale=scale,
+        logit_softcap=softcap)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -169,7 +179,7 @@ def _kernel_library() -> ctypes.CDLL:
 def bind_library(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C interface of a build of csrc/flash_attention_bwd.cu."""
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    shape = [i32] * 6 + [f32] + [i32] * 3 + [ptr]
+    shape = [i32] * 6 + [f32] * 2 + [i32] * 3 + [ptr]
     lib.mfa_flash_bwd_dq.argtypes = [ptr] * 7 + shape
     lib.mfa_flash_bwd_dq.restype = i32
     lib.mfa_flash_bwd_dkv.argtypes = [ptr] * 8 + shape
@@ -180,10 +190,11 @@ def bind_library(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 
 def _launch(name, outputs, q, k, v, do, lse, d_term, *, causal,
-            window_size, scale):
+            window_size, scale, softcap=None):
     """Check the operands and launch one backward kernel."""
     check_kernel_operands(dict(q=q, k=k, v=v, do=do, lse=lse,
-                               d_term=d_term), q.dtype, q.device)
+                               d_term=d_term), q.dtype, q.device,
+                          UNQUANTIZED_HEAD_DIMS)
     if k.dtype != q.dtype or v.dtype != q.dtype or do.dtype != q.dtype:
         raise TypeError("q, k, v and do must share a dtype")
     if lse.dtype != torch.float32 or d_term.dtype != torch.float32:
@@ -197,11 +208,16 @@ def _launch(name, outputs, q, k, v, do, lse, d_term, *, causal,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), d_term.data_ptr(),
             *[t.data_ptr() for t in outputs], b, qh, kvh, n, m, d,
-            ctypes.c_float(scale), int(causal), window_size or 0,
-            int(q.dtype == torch.float16), stream)
+            ctypes.c_float(scale), ctypes.c_float(softcap or 0.0),
+            int(causal), window_size or 0, int(q.dtype == torch.float16),
+            stream)
     raise_on_launch_error(lib, rc, name)
     LAUNCH_COUNTS[name] += 1
     LAUNCH_COUNTS[f"{name}_sm90"] += 1
+    if softcap is not None:
+        LAUNCH_COUNTS[f"{name}_softcap"] += 1
+    if d == 256:
+        LAUNCH_COUNTS[f"{name}_d256"] += 1
 
 
 def _dq_cuda(q, k, v, do, lse, d_term, **kw):

@@ -17,7 +17,8 @@ Conventions shared with the kernels:
 - The returned lse is the natural-log row log-sum-exp of the scaled
   logits.  A row with every column masked gives o = 0 and lse = -inf.
 - `attention_reference_grads` is the analytic backward under the loss
-  Phi = sum(dO * O), the basis of the flash backward's plain version.
+  Phi = sum(dO * O) (with the soft cap too), the basis of the flash
+  backward's plain version.
 """
 
 from __future__ import annotations
@@ -93,7 +94,8 @@ def attention_reference_grads(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, do: torch.Tensor, *,
                               causal: bool = False,
                               window_size: Optional[int] = None,
-                              scale: Optional[float] = None):
+                              scale: Optional[float] = None,
+                              logit_softcap: Optional[float] = None):
     """Analytic gradients of Phi = sum(dO * O) w.r.t. Q, K, V, in float32
     (the JAX package's `attention_reference_grads`, batched and GQA):
 
@@ -101,8 +103,10 @@ def attention_reference_grads(q: torch.Tensor, k: torch.Tensor,
         dV = P^T dO,  dP = dO V^T,  dS = P * (dP - D) * scale
         dQ = dS K,    dK = dS^T Q
 
-    dK and dV are summed over each kv head's group of q heads.  Returns
-    (dq, dk, dv, o, lse, d_term)."""
+    With ``logit_softcap`` c, P is that of the capped logits and dS takes
+    the chain factor of c * tanh(s / c), 1 - tanh(s / c)^2 (the JAX
+    kernels' `ds * (1 - t * t)`).  dK and dV are summed over each kv
+    head's group of q heads.  Returns (dq, dk, dv, o, lse, d_term)."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     group = _group(q, k)
@@ -111,12 +115,16 @@ def attention_reference_grads(q: torch.Tensor, k: torch.Tensor,
         kr = k.repeat_interleave(group, dim=-3)
         vr = v.repeat_interleave(group, dim=-3)
     p, lse = _probabilities(q, kr, causal=causal, window_size=window_size,
-                            scale=scale)
+                            scale=scale, logit_softcap=logit_softcap)
     q32, k32, v32, do32 = q.float(), kr.float(), vr.float(), do.float()
     o = p @ v32
     d_term = (do32 * o).sum(dim=-1, keepdim=True)
     dv = p.transpose(-1, -2) @ do32
     ds = p * (do32 @ v32.transpose(-1, -2) - d_term) * scale
+    if logit_softcap is not None:
+        t = torch.tanh((q32 @ k32.transpose(-1, -2)) * scale
+                       / logit_softcap)
+        ds = ds * (1.0 - t * t)
     dq = ds @ k32
     dk = ds.transpose(-1, -2) @ q32
     if group > 1:

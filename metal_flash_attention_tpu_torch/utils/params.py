@@ -4,7 +4,7 @@ operands from the JAX package into the port.
 The tests hand both packages the same weights, caches and quantized
 operands: the JAX pytree is turned into numpy (bf16 as float32, which
 numpy can hold; bf16 -> f32 -> bf16 is exact) and this module builds the
-port's structures from it.
+port's structures from it (`params_to_numpy` carries parameters back).
 """
 
 from __future__ import annotations
@@ -36,6 +36,16 @@ def params_from_numpy(tree, device=None,
             return [walk(v, name) for v in node]
         return _to_tensor(name, node, device, dtype)
     return walk(tree, "")
+
+
+def params_to_numpy(params):
+    """The port's parameters (nested dicts / lists of tensors) -> the
+    same structure of float32 numpy arrays, on the host: the inverse of
+    `params_from_numpy`, so that a test can hold a trained step against
+    the JAX package's leaf by leaf."""
+    from metal_flash_attention_tpu_torch.utils.tree import tree_map
+
+    return tree_map(lambda t: t.detach().float().cpu().numpy(), params)
 
 
 def pools_from_numpy(pools, head_dim: int, device=None,

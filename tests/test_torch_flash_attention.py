@@ -183,6 +183,23 @@ def test_dispatch_matches_jax_and_caches():
     assert max_abs_err(tc, jc) <= FP32_TOL.o
 
 
+def test_dispatch_differentiates_the_cap_as_jax():
+    """`dispatch.attention`, the models' route, keeps the soft cap on the
+    differentiable path: its gradients with the cap and a window equal
+    jax.grad of the JAX dispatch's."""
+    q, k, v, do = _inputs(7, 1, 4, 2, 90, 90, 64, jnp.float32)
+    q = q * 4.0
+    kw = dict(causal=True, window_size=50, logit_softcap=2.0)
+    leaves = [torch.as_tensor(x).requires_grad_(True) for x in (q, k, v)]
+    (tdispatch.attention(*leaves, **kw) * torch.as_tensor(do)).sum() \
+        .backward()
+    jgrads = jax.grad(lambda *a: jnp.sum(jdispatch.attention(*a, **kw)
+                                         * jnp.asarray(do)),
+                      argnums=(0, 1, 2))(*(jnp.asarray(x) for x in (q, k, v)))
+    for leaf, j in zip(leaves, jgrads):
+        assert max_abs_err(leaf.grad, j) <= FP32_TOL.grads
+
+
 def test_descriptor_resolves_the_kernel_tiles():
     """kernel_config returns the tiles that csrc/flash_tiles.cuh defines
     for the kernels."""
@@ -227,23 +244,19 @@ class _Quantized:
     dict(bias=torch.zeros(1, 1, 8, 8)),
     dict(q_segment_ids=torch.zeros(1, 8, dtype=torch.int32),
          kv_segment_ids=torch.zeros(1, 8, dtype=torch.int32)),
-    dict(logit_softcap=30.0),
+    dict(mask2=torch.ones(1, 1, 8, 8, dtype=torch.bool)),
     dict(low_precision_intermediates=True),
 ])
 def test_unported_options_raise_on_every_device(option):
-    """What no path computes yet raises on every device.  The soft cap
-    (ported with Gemma-2) is computed by the forward, and raises in the
-    backward and wherever a gradient is asked for (Gemma training)."""
+    """What no path computes yet raises on every device, forward and
+    backward.  (The soft cap, once among these, is computed by both since
+    Gemma-2 training: see the softcap parity tests.)"""
     q = torch.zeros(1, 2, 8, 32, requires_grad=True)
     k = torch.zeros(1, 1, 8, 32)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tfa.flash_attention(q, k, k, **option)
-    if "logit_softcap" in option:
-        o, _ = tfa.flash_attention_forward(q, k, k, **option)
-        assert torch.isfinite(o).all()
-    else:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            tfa.flash_attention_forward(q, k, k, **option)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        tfa.flash_attention_forward(q, k, k, **option)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tfb.flash_attention_backward(q, k, k, q, q, q[..., 0], **option)
 
@@ -308,30 +321,61 @@ def test_softcap_dynamic_traversal_matches_jax(force_dynamic):
     assert max_abs_err(tlse, jlse) <= FP32_TOL.lse
 
 
-def test_backward_refuses_the_cap_and_head_dim_256():
-    """Gemma training is not ported: on every device the backward, the
-    autograd function and flash_attention with an input that needs a
-    gradient raise for the soft cap and head_dim 256."""
-    q256 = torch.zeros(1, 2, 8, 256)
-    k256 = torch.zeros(1, 1, 8, 256)
-    q, k = torch.zeros(1, 2, 8, 64), torch.zeros(1, 1, 8, 64)
-    with pytest.raises(NotImplementedError, match="Gemma training"):
-        tfb.flash_attention_backward(q256, k256, k256, q256, q256,
-                                     q256[..., 0])
-    with pytest.raises(NotImplementedError, match="Gemma training"):
-        tfb.flash_attention_backward(q, k, k, q, q, q[..., 0],
-                                     logit_softcap=50.0)
-    with pytest.raises(NotImplementedError, match="Gemma training"):
-        tfb.FlashAttentionFunction.apply(q256, k256, k256, True, None,
-                                         None, None)
-    for qq, kk, kw in ((q256, k256, {}), (q, k, dict(logit_softcap=50.0))):
-        with pytest.raises(NotImplementedError, match="Gemma training"):
-            tfa.flash_attention(qq.clone().requires_grad_(True), kk, kk,
-                                causal=True, **kw)
-        with torch.no_grad():
-            assert tfa.flash_attention(qq.clone().requires_grad_(True), kk,
-                                       kk, causal=True, **kw).shape == \
-                qq.shape
+# Gemma-2's backward: the soft cap at the model's 50 and at 2 over
+# queries scaled by 4 (the tanh saturates, so 1 - t^2 is far from 1),
+# causal, with a window and GQA group 2, at ragged lengths.
+BWD_SOFTCAP_CASES = [
+    # (b, qh, kvh, r, c, d, window, q_gain, cap)
+    (1, 2, 2, 128, 128, 64, None, 1.0, 50.0),
+    (1, 4, 2, 93, 160, 64, 40, 4.0, 2.0),
+    (1, 4, 2, 77, 77, 32, None, 4.0, 2.0),
+    (1, 2, 1, 100, 70, 64, 33, 1.0, 50.0),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", BWD_SOFTCAP_CASES)
+def test_softcap_grads_match_jax(dtype, case):
+    """o, lse, dq, dk and dv with the soft cap against jax.grad of the
+    JAX kernels (the capped backward, ops/flash_attention_bwd.py:156-159,
+    :194-196, :310-313, :359-360)."""
+    b, qh, kvh, r, c, d, window, gain, cap = case
+    q, k, v, do = _inputs(20, b, qh, kvh, r, c, d, DTYPES[dtype][0])
+    _compare(q * gain, k, v, do, dtype, causal=True, window_size=window,
+             logit_softcap=cap)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("r,c,window,cap", [(96, 96, None, None),
+                                            (80, 96, 40, 50.0)])
+def test_head_dim_256_grads_match_jax(dtype, r, c, window, cap):
+    """Gemma-2's head_dim 256 in the backward (the JAX kernels pad D to
+    128 lanes, :433), with and without its cap."""
+    q, k, v, do = _inputs(21, 1, 2, 1, r, c, 256, DTYPES[dtype][0])
+    _compare(q, k, v, do, dtype, causal=True, window_size=window,
+             logit_softcap=cap)
+
+
+def test_softcap_reference_grads_are_autograd_of_the_reference():
+    """The plain version's chain factor 1 - tanh^2: the analytic
+    gradients equal autograd through `attention_reference` with the cap,
+    saturating (cap 2, queries x4), GQA and a window."""
+    from metal_flash_attention_tpu_torch.ops.reference import (
+        attention_reference,
+        attention_reference_grads,
+    )
+
+    q, k, v, do = (torch.as_tensor(x) for x in
+                   _inputs(22, 1, 4, 2, 50, 60, 32, jnp.float32))
+    q = (q * 4.0).requires_grad_(True)
+    k.requires_grad_(True)
+    v.requires_grad_(True)
+    kw = dict(causal=True, window_size=20, logit_softcap=2.0)
+    o = attention_reference(q, k, v, **kw)
+    want = torch.autograd.grad((o * do).sum(), (q, k, v))
+    got = attention_reference_grads(q, k, v, do, **kw)[:3]
+    for g, w in zip(got, want):
+        assert max_abs_err(g, w) <= FP32_TOL.grads
 
 
 def test_quantized_kv_raises():

@@ -228,7 +228,12 @@ def test_constructors_put_tensors_where_the_default_resolves(monkeypatch):
                                 "MFA_BWD90_DQ_BLOCK_KV",
                                 "MFA_BWD90_DKV_BLOCK_Q",
                                 "MFA_BWD90_DKV_BLOCK_KV",
-                                "MFA_BWD90_STAGES")),
+                                "MFA_BWD90_STAGES",
+                                "MFA_BWD90_D256_DQ_BLOCK_Q",
+                                "MFA_BWD90_D256_DQ_BLOCK_KV",
+                                "MFA_BWD90_D256_DKV_BLOCK_Q",
+                                "MFA_BWD90_D256_DKV_BLOCK_KV",
+                                "MFA_BWD90_D256_STAGES")),
     ("paged_attention.cu", ("MFA_PAGED_BLOCK_Q", "MFA_PAGED_BLOCK_KV",
                             "MFA_PAGED_STAGES", "MFA_DECODE_BLOCK_KV",
                             "MFA_DECODE_STAGES")),

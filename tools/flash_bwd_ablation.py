@@ -1,30 +1,31 @@
 #!/usr/bin/env python3
 """Variants of the flash-attention backward kernels (dQ and dK/dV) on one
-NVIDIA GPU: where their time goes at the training path's shape, with
-SDPA's backward and, optionally, an earlier checkout's kernels beside
-them.
+NVIDIA GPU: where their time goes at the two training paths' shapes
+(Llama-3-8B's head_dim 128, uncapped; Gemma-2's head_dim 256 with the
+soft cap), with SDPA's backward and, optionally, an earlier checkout's
+kernels beside them.
 
 Run from the root of a checkout, on a machine with a CUDA card and the
 CUDA toolkit:
 
     python3 tools/flash_bwd_ablation.py [--parent DIR]
 
-Each variant is `csrc/flash_attention_bwd.cu` with text patches, built
+Each variant is `csrc/flash_attention_bwd.cu` with `-D` tile defines
+(`csrc/flash_tiles.cuh`) and text patches, built with every
+instantiation (head dims 64, 128 and 256, with and without the cap)
 into `metal_flash_attention_tpu_torch/build/ablation_bwd/<variant>/` (one
 nvcc each, all started together), and timed through the port's own
-wrappers with the variant's library in place of the real one:
+wrappers with the variant's library in place of the real one, at both
+shapes:
 
-- `sm90`: the kernels as they are (256 threads: two consumer warpgroups,
-  thread 0 issuing the TMA loads);
-- `producer`: the other register structure, a third warpgroup that
-  issues the ring's loads (setmaxnreg 24) beside two consumer
-  warpgroups (setmaxnreg 240): 384 threads, as the forward;
-  `producer_dq_bkv64` the same with dQ at 64 keys a tile;
-- `dq_bkv64`: dQ at 64 keys a tile instead of MFA_BWD90_DQ_BLOCK_KV
-  (dK/dV as `sm90`);
+- `sm90`: the kernels as they are (D 64 / 128: two consumer warpgroups
+  of 64 rows, thread 0 issuing the TMA loads; D 256: dQ one warpgroup,
+  dK/dV two over 64 keys splitting D);
+- `dq_bkv64`: dQ at 64 keys a tile at D 64 / 128 instead of
+  MFA_BWD90_DQ_BLOCK_KV (D 256 takes 64 already);
 - `stages3_dq_bkv64`: three stages in the ring instead of
   MFA_BWD90_STAGES, dQ at 64 keys a tile (three stages of 128 keys do
-  not fit its shared memory);
+  not fit its shared memory; D 256 keeps its two);
 - `dkv_no_lse_reads`: dK/dV taking each column's L and D as 0 instead
   of reading them from the warp's scratch (which the compiler then drops
   with the loads that fill it): the cost of handing L and D to the
@@ -35,13 +36,15 @@ wrappers with the variant's library in place of the real one:
 
 Every variant but the last two computes the backward (each is held
 against `sm90` by the worst 64-row tile); those two are for their
-times.  With
---parent DIR, the backward of the checkout at DIR (for example the parent
-commit, unpacked with `git archive`) runs in a process of its own before
-and after the variants.  A time is `chip_smoke.timed_spread`'s: the
-median, min and max device ms a call over 5 profiled loops.  Prints the
-card's name and power limit, then one JSON line a variant with ptxas's
-registers, spills and wgmma notes (C75xx) for each kernel.
+times.  (A third, producer warpgroup issuing the ring's loads was
+slower and spilled at D 128, PERF.md §6; it has no variant here.)  With
+--parent DIR, the backward of the checkout at DIR
+(for example the parent commit, unpacked with `git archive`) runs at
+the Llama shape in a process of its own before and after the variants.
+A time is `chip_smoke.timed_spread`'s: the median, min and max device ms
+a call over 5 profiled loops.  Prints the card's name and power limit,
+then one JSON line a variant and shape with ptxas's registers, spills
+and wgmma notes (C75xx) for each kernel.
 """
 
 from __future__ import annotations
@@ -57,51 +60,26 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 SEED = 0
-# The training path's attention: batch, q heads, kv heads, tokens; causal,
-# head_dim 128, bf16; calls a loop.
-SHAPE = (1, 32, 8, 8192)
+# The training paths' attention: batch, q heads, kv heads, tokens,
+# head_dim, soft cap; causal, bf16.  Llama-3-8B's (the parent's kernels
+# are timed there too) and Gemma-2's (gemma2_2b, a global layer).
+SHAPES = {"llama_d128": (1, 32, 8, 8192, 128, None),
+          "gemma_d256_cap50": (1, 8, 4, 8192, 256, 50.0)}
 ITERS = 10
-# The producer warpgroup: the third warpgroup's thread 256 refills the
-# ring (steps kS on; thread 0 still loads the kept operands and the first
-# kS steps), and the consumers stop refilling it themselves.
-PRODUCER_BRANCH = """\
-  if (__shfl_sync(0xffffffff, tid / 128, 0) == 2) {
-    setmaxnreg_dec<24>();
-    if (tid == 256)
-      for (int i = kS; i < n_steps; ++i) {
-        mbar_wait(&empty[i % kS], (i / kS - 1) & 1);
-        load_step(i);
-      }
-    return;
-  }
-  setmaxnreg_inc<240>();
-"""
-WG = "  const int wg = __shfl_sync(0xffffffff, tid / 128, 0);\n"
-PRODUCER = [
-    ("constexpr int kThreads = 256;  // two consumer warpgroups",
-     "constexpr int kThreads = 384;"),
-    ("constexpr int kWarps = kThreads / 32;", "constexpr int kWarps = 8;"),
-    ("    if (tid == 0 && i >= 1 && i - 1 + kS < n_steps) {",
-     "    if (false) {"),
-    (WG, PRODUCER_BRANCH + WG)]
-DQ_BKV64 = [("constexpr int kDqKeys = MFA_BWD90_DQ_BLOCK_KV;",
-             "constexpr int kDqKeys = 64;")]
+DQ_BKV64 = ["-DMFA_BWD90_DQ_BLOCK_KV=64"]
+# Each variant: (-D defines, text patches).
 VARIANTS = {
-    "sm90": [],
-    "producer": PRODUCER,
-    "producer_dq_bkv64": PRODUCER + DQ_BKV64,
-    "dq_bkv64": DQ_BKV64,
-    "stages3_dq_bkv64": DQ_BKV64 + [(
-        "constexpr int kStages = MFA_BWD90_STAGES;",
-        "constexpr int kStages = 3;")],
-    "dkv_no_lse_reads": [
+    "sm90": ([], []),
+    "dq_bkv64": (DQ_BKV64, []),
+    "stages3_dq_bkv64": (DQ_BKV64 + ["-DMFA_BWD90_STAGES=3"], []),
+    "dkv_no_lse_reads": ([], [
         ("scratch[tid / 32][0][4 * j + t4];", "make_float2(0.f, 0.f);"),
-        ("scratch[tid / 32][1][4 * j + t4];", "make_float2(0.f, 0.f);")],
-    "one_tile": [
+        ("scratch[tid / 32][1][4 * j + t4];", "make_float2(0.f, 0.f);")]),
+    "one_tile": ([], [
         ("  const int n_lo = col_lo / kDqKeys;",
          "  const int n_lo = max(col_lo / kDqKeys, col_hi / kDqKeys);"),
         ("  const int m_hi = t_hi >= t_lo ? t_hi / kR + 1 : m_lo;",
-         "  const int m_hi = t_hi >= t_lo ? m_lo + 1 : m_lo;")],
+         "  const int m_hi = t_hi >= t_lo ? m_lo + 1 : m_lo;")]),
 }
 
 
@@ -141,9 +119,10 @@ print(json.dumps({
 
 
 def kernel_label(mangled: str) -> str:
+    d = next(f" D{d}" for d in (64, 128, 256) if f"Li{d}E" in mangled)
     return (("dkv " if "dkv90" in mangled else "dq ")
-            + ("fp16" if "6__half" in mangled else "bf16")
-            + (" D128" if "Li128E" in mangled else " D64"))
+            + ("fp16" if "6__half" in mangled else "bf16") + d
+            + (" cap" if "Lb1E" in mangled else ""))
 
 
 def ptxas_summary(log: str) -> dict:
@@ -176,14 +155,14 @@ def build_variants() -> tuple[dict, dict]:
     with open(os.path.join(nb.SRC_DIR, "flash_attention_bwd.cu")) as f:
         source = f.read()
     procs = {}
-    for name, patches in VARIANTS.items():
+    for name, (defines, patches) in VARIANTS.items():
         out_dir = os.path.join(nb.BUILD_DIR, "ablation_bwd", name)
         os.makedirs(out_dir, exist_ok=True)
         src = os.path.join(out_dir, "flash_attention_bwd.cu")
         with open(src, "w") as f:
             f.write(apply(source, patches, name))
         procs[name] = subprocess.Popen(
-            [nb._nvcc(), *nb.NVCC_FLAGS, "-I", nb.SRC_DIR, "-o",
+            [nb._nvcc(), *nb.NVCC_FLAGS, *defines, "-I", nb.SRC_DIR, "-o",
              os.path.join(out_dir, "libflash_attention_bwd.so"), src],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs, ptxas = {}, {}
@@ -201,8 +180,9 @@ def time_tree(path: str) -> dict:
     """The backward pair of the checkout at `path`, in a process of its
     own."""
     run = subprocess.run(
-        [sys.executable, "-c", TIME_TREE, json.dumps(SHAPE), str(SEED),
-         str(ITERS)], cwd=path, capture_output=True, text=True, timeout=900)
+        [sys.executable, "-c", TIME_TREE,
+         json.dumps(SHAPES["llama_d128"][:4]), str(SEED), str(ITERS)],
+        cwd=path, capture_output=True, text=True, timeout=900)
     if run.returncode != 0:
         raise RuntimeError(f"the backward of {path} failed:\n{run.stderr}")
     return json.loads(run.stdout.strip().splitlines()[-1])
@@ -228,38 +208,47 @@ def main() -> int:
         print(json.dumps({"variant": "parent (first)",
                           "ms": time_tree(args.parent)}), flush=True)
     libs, ptxas = build_variants()
-    b, qh, kvh, n = SHAPE
     g = torch.Generator(device="cuda").manual_seed(SEED)
-    q, k, v, do = (torch.randn((b, h, n, 128), generator=g, device="cuda")
-                   .to(torch.bfloat16) for h in (qh, kvh, kvh, qh))
-    o, lse = fa.flash_attention_forward(q, k, v, causal=True)
-    d_term = (do.float() * o.float()).sum(dim=-1)
-    kw = dict(causal=True, window_size=None, scale=128 ** -0.5)
-    ref = None
-    for name, lib in libs.items():
-        fb._kernel_library = lambda lib=lib: lib
-        row = {"dq": chip_smoke.timed_spread(
-                   lambda: fb._dq_cuda(q, k, v, do, lse, d_term, **kw),
-                   ITERS),
-               "dkv": chip_smoke.timed_spread(
-                   lambda: fb._dkv_cuda(q, k, v, do, lse, d_term, **kw),
-                   ITERS)}
-        err = {}
-        if name not in ("dkv_no_lse_reads", "one_tile"):
-            grads = (fb._dq_cuda(q, k, v, do, lse, d_term, **kw),
-                     *fb._dkv_cuda(q, k, v, do, lse, d_term, **kw))
-            ref = ref or grads
-            err = {key: chip_smoke.closeness(got, want)["tile_rel_rms"]
-                   for key, got, want in zip(("dq", "dk", "dv"), grads, ref)}
-        print(json.dumps({"variant": name, "ms": row,
-                          "tile_rel_rms_vs_sm90": err,
-                          "ptxas": ptxas[name]}), flush=True)
-    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
-    sdpa_o = F.scaled_dot_product_attention(*leaves, is_causal=True,
-                                            enable_gqa=True)
-    print(json.dumps({"variant": "sdpa backward", "ms": {
-        "dq_dk_dv": chip_smoke.timed_spread(lambda: torch.autograd.grad(
-            sdpa_o, leaves, do, retain_graph=True), ITERS)}}), flush=True)
+    for shape, (b, qh, kvh, n, d, cap) in SHAPES.items():
+        q, k, v, do = (torch.randn((b, h, n, d), generator=g, device="cuda")
+                       .to(torch.bfloat16) for h in (qh, kvh, kvh, qh))
+        o, lse = fa.flash_attention_forward(q, k, v, causal=True,
+                                            logit_softcap=cap)
+        d_term = (do.float() * o.float()).sum(dim=-1)
+        kw = dict(causal=True, window_size=None, scale=d ** -0.5,
+                  softcap=cap)
+        ref = None
+        for name, lib in libs.items():
+            fb._kernel_library = lambda lib=lib: lib
+            row = {"dq": chip_smoke.timed_spread(
+                       lambda: fb._dq_cuda(q, k, v, do, lse, d_term, **kw),
+                       ITERS),
+                   "dkv": chip_smoke.timed_spread(
+                       lambda: fb._dkv_cuda(q, k, v, do, lse, d_term, **kw),
+                       ITERS)}
+            err = {}
+            if name not in ("dkv_no_lse_reads", "one_tile"):
+                grads = (fb._dq_cuda(q, k, v, do, lse, d_term, **kw),
+                         *fb._dkv_cuda(q, k, v, do, lse, d_term, **kw))
+                ref = ref or grads
+                err = {key: chip_smoke.closeness(got, want)["tile_rel_rms"]
+                       for key, got, want in zip(("dq", "dk", "dv"), grads,
+                                                 ref)}
+            print(json.dumps({"variant": name, "shape": shape, "ms": row,
+                              "tile_rel_rms_vs_sm90": err,
+                              "ptxas": ptxas[name]}), flush=True)
+        if cap is None:
+            leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            sdpa_o = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                                    enable_gqa=True)
+            print(json.dumps({"variant": "sdpa backward", "shape": shape,
+                              "ms": {"dq_dk_dv": chip_smoke.timed_spread(
+                                  lambda: torch.autograd.grad(
+                                      sdpa_o, leaves, do, retain_graph=True),
+                                  ITERS)}}), flush=True)
+            del leaves, sdpa_o
+        del q, k, v, do, o, lse, d_term, ref
+        torch.cuda.empty_cache()
     if args.parent:
         print(json.dumps({"variant": "parent (last)",
                           "ms": time_tree(args.parent)}), flush=True)
