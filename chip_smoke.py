@@ -2,9 +2,11 @@
 """Drive the PyTorch port's paged serving (bf16 and quantized KV, by
 step and by burst, greedy and sampled, with and without the prefix
 cache), dense serving and training paths, the fused forward over
-quantized K/V, its standalone ops (quantized GEMM, softmax), and Gemma-2
+quantized K/V, its standalone ops (quantized GEMM, softmax), Gemma-2
 serving (paged and dense) and training (the soft cap and head_dim 256 in
-the kernels, forward and backward), on one NVIDIA GPU.
+the kernels, forward and backward), and the flash-attention options
+(masks, bias with its gradient, segment ids, `compat`), on one NVIDIA
+GPU.
 
 Run from the root of a checkout, on a machine with one CUDA card and
 the CUDA toolkit:
@@ -264,7 +266,29 @@ Phases (any failure exits non-zero and prints no result):
    64-row tile (KERNEL_TILE_REL_RMS), with a planted fault each (the
    same two); then each kernel's time on both layers beside its bound,
    its plain version's and `flex_attention`'s backward (tanh score_mod,
-   block mask, compiled; a yardstick the port never calls).
+   block mask, compiled; a yardstick the port never calls);
+14. the flash-attention options at Llama-3-8B's attention widths (32 q
+   heads, 8 kv heads, head_dim 128), bf16, seeded numpy inputs:
+   options_attention: through the entry points a user calls, each
+   forward and backward under autograd with every launch count set to 0
+   just before and read just after and held exact (one `flash_fwd`,
+   `flash_bwd_dq` and `flash_bwd_dkv`, each also on `_sm90` and `_aux`):
+   `flash_attention` over OPT_DOCS packed by segment ids, causal;
+   `compat.dot_product_attention` over a padded batch (BTNH, is_causal,
+   OPT_PAD_LENS); `flash_attention` with an ALiBi bias over batch
+   OPT_BIAS_BATCH and its gradient; `compat.dot_product_attention`
+   rectangular causal cross-attention beside a user mask (the mask and
+   mask2 path); the first again with ``low_precision_intermediates``;
+   options_checks: the three `_aux` kernels at those shapes (and a mask
+   repeated over the batch) against their plain versions by the worst
+   64-row tile (KERNEL_TILE_REL_RMS): o, lse, dq, dk, dv and dbias, with
+   three planted faults the limit must see (the repeated mask read at
+   b // R, dK/dV without the segments, dQ's P without the bias); each
+   kernel timed (median, min-max of 5 loops) at the packed, ALiBi and
+   cross cases beside its bound (the options' bytes and the live pairs
+   only), the same kernel without the options, its plain version and
+   `flex_attention` with a document mask_mod (packed) or SDPA with the
+   same attn_mask (ALiBi, cross), yardsticks the port never calls.
 
 Every kernel's `bound_ms` is the least time the card could take for the
 same work: the larger of the bytes it must move (each input read once,
@@ -280,7 +304,8 @@ Output: `serve`, `reference`, `quant_serve`, `burst_serve`,
 `train_profile`, `train_reference`, `flash_checks`, `softmax_checks`,
 `gemma_params`, `gemma_serve`, `gemma_dense`, `gemma_reference`,
 `gemma_checks`, `gemma_train`, `gemma_train_profile`,
-`gemma_train_reference` and `gemma_bwd_checks` lines, a `phases` line
+`gemma_train_reference`, `gemma_bwd_checks`, `options_attention` and
+`options_checks` lines, a `phases` line
 (each phase's seconds), the card's name and power limit as nvidia-smi
 gives them, a `kernels` JSON line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -2426,12 +2451,13 @@ def train(dev, card):
     launches = {**fa.LAUNCH_COUNTS, **fb.LAUNCH_COUNTS}
     peak = torch.cuda.max_memory_allocated(dev)
 
-    # The forward's quantized, capped and D 256 variants, and the
-    # backward's capped and D 256 ones, take no part in Llama training.
+    # The forward's quantized, capped, D 256 and option variants, and the
+    # backward's capped, D 256 and option ones, take no part in Llama
+    # training.
     unused = {f"flash_fwd_{p}" for p in (*QUANT_PRECISIONS, "softcap",
-                                          "d256")} | {
+                                          "d256", "aux")} | {
         f"flash_bwd_{op}_{p}" for op in ("dq", "dkv")
-        for p in ("softcap", "d256")}
+        for p in ("softcap", "d256", "aux")}
     for name, n in launches.items():
         per_step = 0 if name in unused else TRAIN_LAYERS
         if n != per_step * TRAIN_STEPS:
@@ -3848,10 +3874,11 @@ def dq_without_cap_factor(dq):
     from metal_flash_attention_tpu_torch.ops.reference import _probabilities
 
     def run(q, k, v, do, lse, d_term, *, causal, window_size, scale,
-            softcap=None):
+            softcap=None, **kw):
         if softcap is None:
             return dq(q, k, v, do, lse, d_term, causal=causal,
-                      window_size=window_size, scale=scale, softcap=None)
+                      window_size=window_size, scale=scale, softcap=None,
+                      **kw)
         out = torch.empty_like(q)
         group = q.shape[1] // k.shape[1]
         for j in range(k.shape[1]):
@@ -4137,6 +4164,558 @@ def gemma_bwd_checks(cfg, dev, card, train_launches) -> list[dict]:
     return results
 
 
+# The flash-attention options (slice 14) at Llama-3-8B's attention widths
+# (32 q heads, 8 kv heads, head_dim 128, bf16): packed training documents
+# by segment ids (OPT_DOCS, causal, one sequence), a padded batch through
+# `compat.dot_product_attention` (OPT_PAD_LENS, causal), an ALiBi bias
+# [1, 32, OPT_BIAS_N, OPT_BIAS_N] over batch OPT_BIAS_BATCH (causal, with
+# dbias), and rectangular causal cross-attention (OPT_CROSS_T queries
+# against OPT_CROSS_S keys, batch OPT_CROSS_BATCH) beside a user mask,
+# through `compat` (the mask and mask2 path).  A repeated mask [2, 1, T, S]
+# over that batch holds the b % R reading.
+OPT_DOCS = (3072, 2048, 2048, 1024)
+OPT_PAD_LENS = (4096, 3000, 2048, 517)
+OPT_BIAS_N = 4096
+OPT_BIAS_BATCH = 2
+OPT_CROSS_T, OPT_CROSS_S, OPT_CROSS_BATCH = 1024, 4096, 4
+OPT_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def option_counts() -> dict:
+    from metal_flash_attention_tpu_torch.ops import flash_attention as fa
+    from metal_flash_attention_tpu_torch.ops import flash_attention_bwd as fb
+    return {**fa.LAUNCH_COUNTS, **fb.LAUNCH_COUNTS}
+
+
+def reset_option_counts() -> None:
+    from metal_flash_attention_tpu_torch.ops import flash_attention as fa
+    from metal_flash_attention_tpu_torch.ops import flash_attention_bwd as fb
+    fa.reset_launch_counts()
+    fb.reset_launch_counts()
+
+
+def alibi_slopes(heads: int) -> np.ndarray:
+    """ALiBi's head slopes, 2^(-8 (h + 1) / heads)."""
+    return 2.0 ** (-8.0 * np.arange(1, heads + 1) / heads)
+
+
+def option_cases(dev) -> dict:
+    """The options' cases at Llama-3-8B's attention widths, seeded numpy
+    inputs, each as the kernels take it: {name: dict(q, k, v, do,
+    options (`check_options`'s), causal, and what `options_attention`
+    calls)}."""
+    import torch
+    from metal_flash_attention_tpu_torch.ops import flash_attention as fa
+
+    rng = np.random.default_rng(SEED + 40)
+    d = HEAD_DIM
+
+    def t(*shape):
+        return torch.as_tensor(rng.standard_normal(shape).astype(
+            np.float32), device=dev).to(torch.bfloat16)
+
+    def qkv(b, n, m):
+        return (t(b, Q_HEADS, n, d), t(b, KV_HEADS, m, d),
+                t(b, KV_HEADS, m, d), t(b, Q_HEADS, n, d))
+
+    cases = {}
+    n = sum(OPT_DOCS)
+    ids = np.repeat(np.arange(len(OPT_DOCS)), OPT_DOCS)[None].astype(
+        np.int32)
+    seg = torch.as_tensor(ids, device=dev)
+    q, k, v, do = qkv(1, n, n)
+    cases["packed"] = dict(q=q, k=k, v=v, do=do, causal=True, kw=dict(
+        q_segment_ids=seg, kv_segment_ids=seg))
+
+    b, n = len(OPT_PAD_LENS), max(OPT_PAD_LENS)
+    lens = torch.as_tensor(OPT_PAD_LENS, dtype=torch.int32, device=dev)
+    pos = torch.arange(n, device=dev)[None]
+    pad = (pos >= lens[:, None]).to(torch.int32)
+    q, k, v, do = qkv(b, n, n)
+    cases["padded"] = dict(q=q, k=k, v=v, do=do, causal=True, lens=lens,
+                           kw=dict(q_segment_ids=pad, kv_segment_ids=pad))
+
+    n = OPT_BIAS_N
+    i = torch.arange(n, device=dev, dtype=torch.float32)
+    slopes = torch.as_tensor(alibi_slopes(Q_HEADS), dtype=torch.float32,
+                             device=dev)
+    bias = (-slopes[:, None, None] * (i[:, None] - i[None, :]).abs())[
+        None].to(torch.bfloat16)
+    q, k, v, do = qkv(OPT_BIAS_BATCH, n, n)
+    cases["alibi"] = dict(q=q, k=k, v=v, do=do, causal=True,
+                          kw=dict(bias=bias))
+
+    tt, ss = OPT_CROSS_T, OPT_CROSS_S
+    user = torch.as_tensor(rng.random((OPT_CROSS_BATCH, 1, tt, ss)) < 0.9,
+                           device=dev)
+    rows = torch.arange(tt, device=dev)[:, None]
+    cols = torch.arange(ss, device=dev)[None, :]
+    top_left = (cols <= rows)[None, None]
+    q, k, v, do = qkv(OPT_CROSS_BATCH, tt, ss)
+    cases["cross"] = dict(q=q, k=k, v=v, do=do, causal=False, user=user,
+                          kw=dict(mask=user, mask2=top_left))
+    # Two different masks repeated over the batch: b reads b % 2.
+    rep = torch.as_tensor(rng.random((2, 1, tt, ss)) < 0.5, device=dev)
+    cases["mask_repeat"] = dict(q=q, k=k, v=v, do=do, causal=False,
+                                kw=dict(mask=rep))
+    for case in cases.values():
+        case["options"] = fa.check_options(case["q"], case["k"],
+                                           **case["kw"])
+    return cases
+
+
+def options_attention(cases, dev, card) -> dict:
+    """The options through the entry points a user calls, forward and
+    backward under autograd, each call's launch counts set to 0 just
+    before and read just after and held exact: one `flash_fwd`,
+    `flash_bwd_dq` and `flash_bwd_dkv`, each also on `_sm90` and `_aux`,
+    and nothing else.  (1) `flash_attention` over OPT_DOCS packed by
+    segment ids, causal; (2) `compat.dot_product_attention` over a padded
+    batch (BTNH, is_causal, lengths); (3) `flash_attention` with an ALiBi
+    bias and its gradient; (4) `compat.dot_product_attention`, T against
+    S, is_causal beside a user mask (the top-left mask in mask2); (5) (1)
+    with ``low_precision_intermediates``.  Every output and gradient
+    finite, of its shape.  Returns each call's launches."""
+    import torch
+    from metal_flash_attention_tpu_torch import compat
+    from metal_flash_attention_tpu_torch.ops import flash_attention as fa
+
+    def grads_of(out, leaves, do):
+        out.backward(do)
+        return [x.grad for x in leaves]
+
+    def packed(lpi=False):
+        c = cases["packed"]
+        leaves = [c[x].detach().requires_grad_(True) for x in "qkv"]
+        o, lse = fa.flash_attention(*leaves, **c["kw"], causal=True,
+                                    return_residuals=True,
+                                    low_precision_intermediates=lpi)
+        if lse.dtype != (torch.bfloat16 if lpi else torch.float32):
+            fail(f"lse came back {lse.dtype}")
+        return o, grads_of(o, leaves, c["do"])
+
+    def padded():
+        c = cases["padded"]
+        leaves = [c[x].detach().transpose(1, 2).requires_grad_(True)
+                  for x in "qkv"]
+        o = compat.dot_product_attention(
+            *leaves, is_causal=True, query_seq_lengths=c["lens"],
+            key_value_seq_lengths=c["lens"])
+        return o, grads_of(o, leaves, c["do"].transpose(1, 2))
+
+    def alibi():
+        c = cases["alibi"]
+        leaves = [c[x].detach().requires_grad_(True) for x in "qkv"]
+        bias = c["kw"]["bias"].detach().requires_grad_(True)
+        o = fa.flash_attention(*leaves, bias=bias, causal=True)
+        return o, grads_of(o, leaves + [bias], c["do"])
+
+    def cross():
+        c = cases["cross"]
+        leaves = [c[x].detach().transpose(1, 2).requires_grad_(True)
+                  for x in "qkv"]
+        o = compat.dot_product_attention(*leaves, mask=c["user"],
+                                         is_causal=True)
+        return o, grads_of(o, leaves, c["do"].transpose(1, 2))
+
+    calls = {"packed_segments": packed, "padded_compat": padded,
+             "alibi_bias": alibi, "cross_compat": cross,
+             "packed_low_precision": lambda: packed(True)}
+    expected = {f"{k}{s}": 1 for k in OPT_KERNELS
+                for s in ("", "_sm90", "_aux")}
+    report, launches = {}, {}
+    for name, call in calls.items():
+        torch.cuda.synchronize(dev)
+        reset_option_counts()
+        t0 = time.perf_counter()
+        o, grads = call()
+        torch.cuda.synchronize(dev)
+        secs = time.perf_counter() - t0
+        launches[name] = option_counts()
+        wrong = launch_errors(launches[name], expected)
+        if wrong:
+            fail(f"options_attention {name} launched (count, expected) "
+                 f"{wrong}")
+        if not torch.isfinite(o).all() or not all(
+                g is not None and torch.isfinite(g).all() for g in grads):
+            fail(f"options_attention {name}: a non-finite output or "
+                 "gradient")
+        report[name] = {"out_shape": list(o.shape),
+                        "grad_shapes": [list(g.shape) for g in grads],
+                        "seconds_fwd_bwd": secs,
+                        "launches": {k: n for k, n in
+                                     launches[name].items() if n}}
+        del o, grads
+        torch.cuda.empty_cache()
+    print("options_attention: " + json.dumps({
+        "config": "Llama-3-8B attention widths (32 q heads, 8 kv heads, "
+                  "head_dim 128), bf16, seeded numpy inputs",
+        "docs": OPT_DOCS, "padded_lengths": OPT_PAD_LENS,
+        "alibi": f"bias [1, {Q_HEADS}, {OPT_BIAS_N}, {OPT_BIAS_N}] bf16 "
+                 f"over batch {OPT_BIAS_BATCH}",
+        "cross": f"T {OPT_CROSS_T} against S {OPT_CROSS_S}, batch "
+                 f"{OPT_CROSS_BATCH}, user mask [{OPT_CROSS_BATCH}, 1, "
+                 f"{OPT_CROSS_T}, {OPT_CROSS_S}]",
+        "calls": report, "card": card}), flush=True)
+    return launches
+
+
+def option_heads(options, g, heads):
+    """`options` for the q heads of slice g (mask and bias head dims
+    tiled to `heads` first, as the kernels read them)."""
+    from metal_flash_attention_tpu_torch.ops.reference import tile_heads
+
+    def part(t):
+        if t is None or t.shape[1] == 1:
+            return t
+        return tile_heads(t, t.shape[0], heads)[:, g]
+    return dataclasses.replace(options, mask=part(options.mask),
+                               mask2=part(options.mask2),
+                               bias=part(options.bias))
+
+
+def live_pairs(case) -> int:
+    """The (batch, q head, query, key) pairs the case's masks, segment
+    ids and causal rule leave: the work its data needs."""
+    import torch
+    from metal_flash_attention_tpu_torch.ops.reference import tile_heads
+
+    q, k, opts = case["q"], case["k"], case["options"]
+    b, heads, n = q.shape[:3]
+    m = k.shape[2]
+    rows = torch.arange(n, device=q.device)[:, None]
+    cols = torch.arange(m, device=q.device)[None, :]
+    total = 0
+    for bi in range(b):
+        live = torch.ones((1, 1, n, m), dtype=torch.bool, device=q.device)
+        if case["causal"]:
+            live = live & (cols <= rows + (m - n))
+        if opts.q_segment_ids is not None:
+            live = live & (opts.q_segment_ids[bi][:, None]
+                           == opts.kv_segment_ids[bi][None, :])
+        for mk in (opts.mask, opts.mask2):
+            if mk is not None:
+                live = live & (tile_heads(mk, b, heads)[bi:bi + 1] != 0)
+        total += int(live.expand(1, heads, n, m).sum())
+    return total
+
+
+def options_checks(cases, dev, card, launches) -> list[dict]:
+    """Each `_aux` kernel at the options' shapes against its plain
+    version (one kv head at a time) by the worst TILE_ROWS-row tile
+    (KERNEL_TILE_REL_RMS): o, lse (MIXED_TOL), dq, dk, dv and dbias; with
+    three planted faults, one an operand family, that the limit must
+    see: the repeated mask indexed by b // R instead of b % R, the
+    segments dropped from dK/dV, the bias dropped from dQ's recomputed P.
+    Then each kernel's time (median, min-max of GEMM_REPEATS profiled
+    loops) at the packed, ALiBi and cross cases beside its bound (the
+    options' bytes, the live pairs), the same kernel without the options,
+    the plain version and one PyTorch call: `flex_attention` with a
+    document mask_mod (packed), SDPA with the float (ALiBi) or bool
+    (cross) attn_mask, each a yardstick that the port never calls."""
+    import torch
+    import torch.nn.functional as F
+    from metal_flash_attention_tpu_torch.ops import flash_attention as fa
+    from metal_flash_attention_tpu_torch.ops import flash_attention_bwd as fb
+    from metal_flash_attention_tpu_torch.utils.tolerances import (
+        MIXED_TOL,
+        max_abs_err,
+    )
+
+    scale = HEAD_DIM ** -0.5
+    group = Q_HEADS // KV_HEADS
+    readings, faults, problems, lse_errs = {}, {}, [], {}
+
+    def plain(case, options=None):
+        """o, lse, dq, dk, dv and the full dbias (None without a bias)
+        of the plain versions, one kv head at a time."""
+        q, k, v, do = (case[x] for x in ("q", "k", "v", "do"))
+        options = options or case["options"]
+        out = [torch.empty(t.shape, dtype=torch.float32, device=dev)
+               for t in (q, q[..., 0], q, k, v)]
+        dbias = None
+        if options.bias is not None:
+            dbias = torch.empty((*q.shape[:3], k.shape[2]),
+                                dtype=torch.float32, device=dev)
+        kw = dict(causal=case["causal"], window_size=None, scale=scale,
+                  softcap=None)
+        for j in range(KV_HEADS):
+            g, one = slice(j * group, (j + 1) * group), slice(j, j + 1)
+            sub = option_heads(options, g, Q_HEADS)
+            out[0][:, g], out[1][:, g] = fa._forward_plain(
+                q[:, g], k[:, one], v[:, one], out_dtype=torch.float32,
+                options=sub, **kw)
+            dq, dk, dv, db = fb._backward_plain(
+                q[:, g], k[:, one], v[:, one], do[:, g], options=sub,
+                compute_dbias=True, **kw)
+            out[2][:, g], out[3][:, one], out[4][:, one] = dq, dk, dv
+            if dbias is not None:
+                dbias[:, g] = db
+        return (*out, dbias)
+
+    def kernels(case, options=None, dbias=True):
+        q, k, v, do = (case[x] for x in ("q", "k", "v", "do"))
+        options = options or case["options"]
+        kw = dict(causal=case["causal"], window_size=None, scale=scale,
+                  options=options)
+        o, lse = fa._forward_cuda(q, k, v, out_dtype=q.dtype, **kw)
+        d_term = (do.float() * o.float()).sum(dim=-1)
+        db = None
+        if dbias and options.bias is not None:
+            db = torch.zeros((*q.shape[:3], k.shape[2]),
+                             dtype=torch.float32, device=dev)
+        dq = fb._dq_cuda(q, k, v, do, lse, d_term, dbias=db, **kw)
+        dk, dv = fb._dkv_cuda(q, k, v, do, lse, d_term, **kw)
+        return o, lse, dq, dk, dv, db
+
+    def read(name, got, ref):
+        r = {key: closeness(a, b) for key, a, b in
+             zip(("o", "dq", "dk", "dv", "dbias"),
+                 (got[0], *got[2:]), (ref[0], *ref[2:]))
+             if a is not None}
+        readings[name] = r
+        lse_errs[name] = max_abs_err(got[1], ref[1])
+        for key, x in r.items():
+            if not within_limits(x):
+                problems.append(f"{name}.{key} disagrees with its plain "
+                                "version")
+        if lse_errs[name] > MIXED_TOL.lse or not torch.equal(
+                torch.isinf(got[1]), torch.isinf(ref[1])):
+            problems.append(f"{name}.lse disagrees: {lse_errs[name]}")
+
+    for name in ("packed", "padded", "alibi", "cross", "mask_repeat"):
+        case = cases[name]
+        ref = plain(case)
+        got = kernels(case)
+        read(name, got, ref)
+        if name == "mask_repeat":
+            # Fault: the repeated mask read at b // R.
+            blocked = case["options"].mask.repeat_interleave(
+                case["q"].shape[0] // 2, dim=0)
+            fo = fa._forward_cuda(
+                case["q"], case["k"], case["v"], causal=False,
+                window_size=None, scale=scale, out_dtype=torch.bfloat16,
+                options=dataclasses.replace(case["options"], mask=blocked))
+            faults["mask_b_div_r"] = {"o": closeness(fo[0], ref[0])}
+        if name == "packed":
+            # Fault: dK/dV without the segments.
+            q, k, v, do = (case[x] for x in ("q", "k", "v", "do"))
+            d_term = (do.float() * got[0].float()).sum(dim=-1)
+            no_seg = dataclasses.replace(case["options"], q_segment_ids=None,
+                                         kv_segment_ids=None)
+            fk, fv = fb._dkv_cuda(q, k, v, do, got[1], d_term, causal=True,
+                                  window_size=None, scale=scale,
+                                  options=no_seg)
+            faults["dkv_without_segments"] = {
+                "dk": closeness(fk, ref[3]), "dv": closeness(fv, ref[4])}
+        if name == "alibi":
+            # Fault: dQ's recomputed P without the bias (the forward's lse
+            # kept), and its dbias.
+            q, k, v, do = (case[x] for x in ("q", "k", "v", "do"))
+            d_term = (do.float() * got[0].float()).sum(dim=-1)
+            fq = fb._dq_cuda(q, k, v, do, got[1], d_term, causal=True,
+                             window_size=None, scale=scale, options=None)
+            faults["dq_without_bias"] = {"dq": closeness(fq, ref[2])}
+        del ref, got
+        torch.cuda.empty_cache()
+    for name, r in faults.items():
+        if all(within_limits(x) for x in r.values()):
+            problems.append(f"unseen fault: {name}")
+    print("options_checks: " + json.dumps({
+        "readings": readings, "lse_max_abs_err": lse_errs,
+        "planted_faults": faults,
+        "limits": {"tile_rel_rms": KERNEL_TILE_REL_RMS,
+                   "lse_abs": MIXED_TOL.lse}}), flush=True)
+    if problems:
+        fail("options checks: " + "; ".join(problems))
+
+    def flex_documents(case):
+        """`flex_attention` (compiled) with a causal document mask_mod:
+        (forward fn, backward fn) or (None, None, the reason)."""
+        try:
+            from torch.nn.attention.flex_attention import (
+                create_block_mask,
+                flex_attention,
+            )
+            ids = case["options"].q_segment_ids[0]
+            n = ids.shape[0]
+
+            def mask_mod(b, h, qi, ki):
+                return (ki <= qi) & (ids[qi] == ids[ki])
+            block = create_block_mask(mask_mod, None, None, n, n,
+                                      device=dev)
+            flex = torch.compile(flex_attention, dynamic=False)
+            q, k, v, do = (case[x] for x in ("q", "k", "v", "do"))
+            fwd = lambda: flex(q, k, v, block_mask=block,  # noqa: E731
+                               scale=scale, enable_gqa=True)
+            leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            out = flex(*leaves, block_mask=block, scale=scale,
+                       enable_gqa=True)
+            bwd = lambda: torch.autograd.grad(  # noqa: E731
+                out, leaves, do, retain_graph=True)
+            fwd()
+            bwd()
+            torch.cuda.synchronize()
+            return fwd, bwd, None
+        except Exception as e:  # a yardstick only: its failure is reported
+            return None, None, (f"flex_attention did not run here: "
+                                f"{type(e).__name__}: {str(e)[:300]}")
+
+    def sdpa(case):
+        """SDPA with the case's attn_mask (ALiBi + causal as one float
+        mask; the cross case's user AND top-left bool mask): (forward,
+        backward of dq, dk, dv, note)."""
+        q, k, v, do = (case[x] for x in ("q", "k", "v", "do"))
+        opts = case["options"]
+        if opts.bias is not None:
+            n = q.shape[2]
+            causal = torch.ones((n, n), dtype=torch.bool,
+                                device=dev).tril()
+            mask = opts.bias.masked_fill(~causal, float("-inf"))
+            note = ("F.scaled_dot_product_attention with the ALiBi bias and "
+                    "the causal mask as one float attn_mask [1, 32, N, N]")
+        else:
+            mask = (opts.mask != 0) & (opts.mask2 != 0)
+            note = ("F.scaled_dot_product_attention with the user mask AND "
+                    "the top-left causal mask as one bool attn_mask")
+        fwd = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q, k, v, attn_mask=mask, scale=scale, enable_gqa=True)
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        out = F.scaled_dot_product_attention(*leaves, attn_mask=mask,
+                                             scale=scale, enable_gqa=True)
+        bwd = lambda: torch.autograd.grad(  # noqa: E731
+            out, leaves, do, retain_graph=True)
+        return fwd, bwd, note
+
+    timings = {}
+    for name in ("packed", "alibi", "cross"):
+        case = cases[name]
+        q, k, v, do = (case[x] for x in ("q", "k", "v", "do"))
+        opts = case["options"]
+        kw = dict(causal=case["causal"], window_size=None, scale=scale)
+        o, lse = fa._forward_cuda(q, k, v, out_dtype=q.dtype, options=opts,
+                                  **kw)
+        d_term = (do.float() * o.float()).sum(dim=-1)
+        db = None
+        if opts.bias is not None:
+            db = torch.zeros((*q.shape[:3], k.shape[2]),
+                             dtype=torch.float32, device=dev)
+        row = {
+            "fwd": timed_spread(lambda: fa._forward_cuda(
+                q, k, v, out_dtype=q.dtype, options=opts, **kw), 10),
+            "dq": timed_spread(lambda: fb._dq_cuda(
+                q, k, v, do, lse, d_term, dbias=db, options=opts, **kw), 10),
+            "dkv": timed_spread(lambda: fb._dkv_cuda(
+                q, k, v, do, lse, d_term, options=opts, **kw), 10),
+            # The same kernels without the options: causal, or (cross)
+            # the full rectangle.
+            "fwd_no_options": timed_spread(lambda: fa._forward_cuda(
+                q, k, v, out_dtype=q.dtype, **kw), 10),
+            "dq_no_options": timed_spread(lambda: fb._dq_cuda(
+                q, k, v, do, lse, d_term, **kw), 10),
+            "dkv_no_options": timed_spread(lambda: fb._dkv_cuda(
+                q, k, v, do, lse, d_term, **kw), 10),
+            "plain_ms": timed(lambda: plain(case), 1)[0]}
+        if name == "packed":
+            lib_fwd, lib_bwd, note = flex_documents(case)
+            note = note or ("flex_attention with a causal document "
+                            "mask_mod (block mask), compiled")
+        else:
+            try:
+                lib_fwd, lib_bwd, note = sdpa(case)
+            except Exception as e:  # a yardstick only: reported
+                lib_fwd = lib_bwd = None
+                note = (f"SDPA did not run here: {type(e).__name__}: "
+                        f"{str(e)[:300]}")
+        row["library_fwd_ms"] = (timed_spread(lib_fwd, 10)["ms"]
+                                 if lib_fwd else None)
+        row["library_bwd_ms"] = (timed_spread(lib_bwd, 10)["ms"]
+                                 if lib_bwd else None)
+        row["library"] = note
+        pairs = live_pairs(case)
+        aux_in = nbytes(*(t for t in (opts.mask, opts.mask2, opts.bias,
+                                      opts.q_segment_ids,
+                                      opts.kv_segment_ids)
+                          if t is not None))
+        io = nbytes(q, k, v, do, lse, d_term)
+        row["live_pairs"] = pairs
+        row["fwd_bound"] = bound(4 * HEAD_DIM * pairs,
+                                 nbytes(q, k, v, o, lse) + aux_in)
+        row["dq_bound"] = bound(2 * HEAD_DIM * 3 * pairs,
+                                io + nbytes(q) + aux_in
+                                + (nbytes(db) if db is not None else 0))
+        row["dkv_bound"] = bound(2 * HEAD_DIM * 4 * pairs,
+                                 io + nbytes(k, v) + aux_in)
+        timings[name] = row
+        del o, lse, d_term, db
+        torch.cuda.empty_cache()
+
+    src = "metal_flash_attention_tpu_torch/csrc/"
+    jax_src = "metal_flash_attention_tpu/ops/"
+    replaces = {
+        "flash_fwd": jax_src + "flash_attention.py:223 (mask, mask2, bias "
+                   ":274-278, :341-360, :447; segments :371-420; b % B "
+                   "broadcast :1166-1215; the dynamic kernel's segments "
+                   ":552, :619-620, :695-700)",
+        "flash_bwd_dq": jax_src + "flash_attention_bwd.py:73 (options "
+                      ":86-95, :125-135, :160-196; dbias :191-193, "
+                      ":210-213, :562-611)",
+        "flash_bwd_dkv": jax_src + "flash_attention_bwd.py:226 (options "
+                       ":239-246, :282-290, :310-330)"}
+    key_of = {"flash_fwd": "fwd", "flash_bwd_dq": "dq",
+              "flash_bwd_dkv": "dkv"}
+    results = []
+    for kernel in OPT_KERNELS:
+        key = key_of[kernel]
+        head = timings["packed"]
+        bound_ms, bound_by = head[f"{key}_bound"]
+        lib_key = "library_fwd_ms" if key == "fwd" else "library_bwd_ms"
+        outs = [r for case in readings.values() for out, r in case.items()
+                if (out == "o") == (key == "fwd")
+                and (key != "dq" or out in ("dq", "dbias"))
+                and (key != "dkv" or out in ("dk", "dv"))]
+        results.append({
+            "name": f"{kernel}_aux", "route": "cuda",
+            "source": src + ("flash_attention.cu" if key == "fwd"
+                             else "flash_attention_bwd.cu"),
+            "replaces": replaces[kernel],
+            "launches": sum(c[f"{kernel}_aux"] for c in launches.values()),
+            "launches_by_call": {name: c[f"{kernel}_aux"]
+                                 for name, c in launches.items()},
+            "max_abs_err": max(r["max_abs_err"] for r in outs),
+            "worst_tile_rel_rms": max(r["tile_rel_rms"] for r in outs),
+            "limits": {"tile_rel_rms": KERNEL_TILE_REL_RMS},
+            "ms": head[key]["ms"], "spread": head[key],
+            "no_options_ms": head[f"{key}_no_options"]["ms"],
+            "plain_ms": head["plain_ms"],
+            "plain_computes": "o, lse, dq, dk, dv (and dbias) together, "
+                              "one kv head at a time",
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "share_of_bound": bound_ms / head[key]["ms"],
+            "library_ms": head[lib_key],
+            "library": head["library"] + (
+                "" if key == "fwd" else ": its backward, dq, dk, dv"),
+            "cases": {name: {
+                "ms": row[key]["ms"], "spread": row[key],
+                "no_options_ms": row[f"{key}_no_options"]["ms"],
+                "bound_ms": row[f"{key}_bound"][0],
+                "bound_by": row[f"{key}_bound"][1],
+                "live_pairs": row["live_pairs"],
+                "plain_ms": row["plain_ms"], "library_ms": row[lib_key],
+                "library": row["library"]}
+                for name, row in timings.items()},
+            "shape": f"packed: q/k/v [1, 32 | 8, {sum(OPT_DOCS)}, 128] "
+                     f"causal, documents {OPT_DOCS} (timed); alibi: "
+                     f"[{OPT_BIAS_BATCH}, .., {OPT_BIAS_N}, 128] causal, "
+                     f"bias [1, 32, {OPT_BIAS_N}, {OPT_BIAS_N}] bf16; "
+                     f"cross: q [{OPT_CROSS_BATCH}, 32, {OPT_CROSS_T}, "
+                     f"128], k/v [.., {OPT_CROSS_S}, 128], mask and mask2",
+            "card": card})
+        print(f"options_checks: {kernel}_aux: " + json.dumps(results[-1]),
+              flush=True)
+    return results
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4335,6 +4914,14 @@ def main() -> int:
     gemma_kernels += phase("gemma_bwd_checks", gemma_bwd_checks, gtcfg, dev,
                            card, gemma_train_launches)
     torch.cuda.empty_cache()
+    # The flash-attention options at Llama-3-8B's attention widths.
+    cases = option_cases(dev)
+    option_launches = phase("options_attention", options_attention, cases,
+                            dev, card)
+    option_kernels = phase("options_checks", options_checks, cases, dev,
+                           card, option_launches)
+    del cases
+    torch.cuda.empty_cache()
 
     kernels.append(decode_kernel)
     kernels.append(gemm_kernel)
@@ -4342,6 +4929,7 @@ def main() -> int:
     kernels += quant_kernels
     kernels += quant_fwd
     kernels += gemma_kernels
+    kernels += option_kernels
 
     print("phases: " + json.dumps(phases))
     print(card)

@@ -56,6 +56,14 @@ Ported so far:
   ``decode_step`` hooks; the logit soft cap and head_dim 256 in the
   paged, decode and forward kernels, and the paged kernel's
   ``kv_starts``;
+- slice 13, Gemma-2 training: the soft cap and head_dim 256 in the
+  backward pair, `models.gemma`'s `loss_fn` and `train_step`;
+- slice 14, the flash-attention options: ``mask``, ``mask2``, an
+  additive ``bias`` with its gradient, segment ids and
+  ``low_precision_intermediates`` in `ops.flash_attention` and
+  `ops.flash_attention_bwd` (the `kAux` kernels), `compat`
+  (`dot_product_attention`, the counterpart of `jax.nn`'s) and `entry`
+  (the counterpart of the JAX package's `__graft_entry__.entry`);
 - shared: `ops.reference`, `native.build`, `utils`.
 
 Constructors (`init_params`, `params_from_numpy`, `init_cache`,

@@ -150,6 +150,214 @@ __device__ __forceinline__ float from_float<float>(float x) {
   return x;
 }
 
+// The flash kernels' optional operands (the TPU kernels' mask, mask2,
+// bias and segment-id refs; the kAux kernels), each null when absent.
+// mask and mask2 are int8 [mask_b, mask_h, q_len, ld] (nonzero attends,
+// the two ANDed), bias [bias_b, bias_h, q_len, ld] in the inputs' 16-bit
+// type or float32 (bias_f32), natural units, where ld, the planes' row
+// stride, is kv_len rounded up to a multiple of 16 (the wrapper pads), so
+// that the two keys a thread holds side by side load as one and dK/dV
+// copies whole 16-byte pieces of a row; (b, h) reads
+// plane (b % *_b) * *_h + h % *_h, so a size-1 dim broadcasts and a
+// divisor repeats.  q_seg [b, q_len] and kv_seg [b, kv_len] int32: a pair
+// attends only where the ids are equal.  dbias (dQ only): float32 [b,
+// q_heads, q_len, kv_len], dS in natural units before the cap's factor.
+// The host passes this struct by pointer (ops/flash_attention.py's
+// `AuxOperands` mirrors it); the kernels take it by value.
+struct AuxOperands {
+  const int8_t* mask;
+  const int8_t* mask2;
+  const void* bias;
+  const int* q_seg;
+  const int* kv_seg;
+  float* dbias;
+  int mask_b, mask_h, mask2_b, mask2_h, bias_b, bias_h;
+  int bias_f32;
+  int ld;
+};
+
+// What an absent mask or bias reads instead: every key attends, no bias.
+__device__ __align__(16) const uint32_t kAuxAttend[2] = {0x01010101u,
+                                                         0x01010101u};
+__device__ __align__(16) const float kAuxNoBias[2] = {0.f, 0.f};
+
+// How a launch reads mask, mask2 and bias, the same for every thread and
+// chosen once a tile, outside the loops over its keys: kAuxNone (none of
+// them: segments at most), kAuxPlanes16 (a 16-bit bias or none, with or
+// without masks), kAuxPlanes32 (a float32 bias).  A null test or a
+// branch on the operands inside a tile's unrolled loop splits it at each
+// load and costs more than the loads (PERF.md, rows 2o-5o).
+enum AuxMode { kAuxNone = 0, kAuxPlanes16 = 1, kAuxPlanes32 = 2 };
+
+__device__ __forceinline__ int aux_mode(const AuxOperands& a) {
+  if (!a.mask && !a.mask2 && !a.bias) return kAuxNone;
+  return a.bias && a.bias_f32 ? kAuxPlanes32 : kAuxPlanes16;
+}
+
+// One (batch, q head, query) row's view of the planes.  An absent
+// plane's view is the dummy above, which aux_index keeps at element 0.
+// At query 0 it is the (batch, q head)'s planes, from which dK/dV copies
+// a step's rows (t * ld + key).
+struct AuxRow {
+  const uint8_t* mask;
+  const uint8_t* mask2;
+  const void* bias;
+};
+
+__device__ __forceinline__ AuxRow aux_row(const AuxOperands& a, int b,
+                                          int qh, int t, int q_len) {
+  auto row = [&](int pb, int ph) {
+    return ((size_t)((b % pb) * ph + qh % ph) * q_len + t) * a.ld;
+  };
+  const uint8_t* attend = reinterpret_cast<const uint8_t*>(kAuxAttend);
+  AuxRow r;
+  r.mask = a.mask ? reinterpret_cast<const uint8_t*>(a.mask) +
+                        row(a.mask_b, a.mask_h)
+                  : attend;
+  r.mask2 = a.mask2 ? reinterpret_cast<const uint8_t*>(a.mask2) +
+                          row(a.mask2_b, a.mask2_h)
+                    : attend;
+  r.bias = kAuxNoBias;
+  if (a.bias) {
+    const size_t at = row(a.bias_b, a.bias_h);
+    r.bias = a.bias_f32
+                 ? (const void*)(static_cast<const float*>(a.bias) + at)
+                 : (const void*)(static_cast<const uint16_t*>(a.bias) + at);
+  }
+  return r;
+}
+
+// Query t's segment id in batch b (0 without segments).
+__device__ __forceinline__ int aux_q_seg(const AuxOperands& a, int b,
+                                         int t, int q_len) {
+  return a.q_seg ? __ldg(a.q_seg + (size_t)b * q_len + t) : 0;
+}
+
+// Element i of a plane, or 0 of an absent one's dummy: no branch.
+__device__ __forceinline__ size_t aux_index(const void* present, size_t i) {
+  return present ? i : 0;
+}
+
+// A 16-bit value of type T widened.
+template <typename T>
+__device__ __forceinline__ float aux_widen(uint32_t x);
+
+template <>
+__device__ __forceinline__ float aux_widen<__nv_bfloat16>(uint32_t x) {
+  return __uint_as_float(x << 16);
+}
+
+template <>
+__device__ __forceinline__ float aux_widen<__half>(uint32_t x) {
+  return __half2float(__ushort_as_half((unsigned short)x));
+}
+
+// What mask, mask2 and bias add to the logits (exp2 domain) of keys c
+// and c + 1 of row r (c even, c + 1 < ld) in mode kMode (not kAuxNone):
+// the bias times log2(e), or -inf where a mask gates the key off.  One
+// load an operand for the two side-by-side keys, every load made, none
+// behind a branch.  A gated logit is -inf where the TPU kernels take 1e30
+// off it and multiply its p by the gate: both give p = 0, and a row left
+// with no key keeps l = 0 (o = 0, lse = -inf).
+template <typename T, int kMode>
+__device__ __forceinline__ float2 aux_pair(const AuxRow& r,
+                                           const AuxOperands& a, int c) {
+  float2 add;
+  if constexpr (kMode == kAuxPlanes32) {
+    add = __ldg(reinterpret_cast<const float2*>(
+        static_cast<const float*>(r.bias) + aux_index(a.bias, c)));
+  } else {
+    const uint32_t v = __ldg(reinterpret_cast<const unsigned int*>(
+        static_cast<const uint16_t*>(r.bias) + aux_index(a.bias, c)));
+    add = make_float2(aux_widen<T>(v & 0xffffu), aux_widen<T>(v >> 16));
+  }
+  const unsigned m = __ldg(reinterpret_cast<const unsigned short*>(
+      r.mask + aux_index(a.mask, c)));
+  const unsigned m2 = __ldg(reinterpret_cast<const unsigned short*>(
+      r.mask2 + aux_index(a.mask2, c)));
+  return make_float2((m & 0xffu) && (m2 & 0xffu) ? add.x * kLog2e : -INFINITY,
+                     (m >> 8) && (m2 >> 8) ? add.y * kLog2e : -INFINITY);
+}
+
+// Segment ids over a tile of kKeys keys from c0, for the warp whose rows
+// share it (the forward's and dQ's): each lane loads kKeys / 32 ids
+// (kv_seg: the batch's; keys past kv_len read the last key's) before the
+// tile's products are waited for, then `publish` writes them to the
+// warp's scratch of kKeys ids and takes their range, so that a row whose
+// id is the tile's only one tests no key, a row whose id lies outside the
+// range drops every key, and only a tile with a segment boundary reads
+// the scratch key by key.  No tile is skipped: the ids need not be
+// sorted.
+template <int kKeys>
+struct SegTile {
+  static constexpr int kPer = kKeys / 32;
+  int ids[kPer];
+  int lo, hi;
+
+  __device__ __forceinline__ void load(const int* kv_seg, int c0, int kv_len,
+                                       int lane) {
+#pragma unroll
+    for (int u = 0; u < kPer; ++u)
+      ids[u] = __ldg(kv_seg + min(c0 + kPer * lane + u, kv_len - 1));
+  }
+
+  __device__ __forceinline__ void publish(int* scratch, int lane) {
+    __syncwarp();  // the warp's reads of the last tile are done
+    lo = hi = ids[0];
+#pragma unroll
+    for (int u = 0; u < kPer; ++u) {
+      scratch[kPer * lane + u] = ids[u];
+      lo = min(lo, ids[u]);
+      hi = max(hi, ids[u]);
+    }
+    lo = __reduce_min_sync(kFull, lo);
+    hi = __reduce_max_sync(kFull, hi);
+    __syncwarp();
+  }
+
+  // 0: every key shares q_seg; 1: none does; 2: test each key.
+  __device__ __forceinline__ int state(int q_seg) const {
+    if (q_seg == lo && q_seg == hi) return 0;
+    return q_seg < lo || q_seg > hi ? 1 : 2;
+  }
+};
+
+// The options on x, a forward or dQ thread's logits of columns c and c + 1
+// (c even; group j of its columns) of both its rows (x[2 h + {0, 1}] row
+// h, whose view is ar[h]): in mode kMode, mask, mask2 and bias (keys past
+// c_last, the planes' last even key, read c_last's); then the segments,
+// by each row's SegTile::state st[h] and segment id q_seg[h] (seg: the
+// warp's scratch of the tile's ids, offset to the thread's first column;
+// read also where the launch has no segments, when st is 0 and the value
+// unused).
+template <typename T, int kMode>
+__device__ __forceinline__ void aux_tile_pair(const AuxRow (&ar)[2],
+                                              const AuxOperands& a,
+                                              const int* seg,
+                                              const int (&st)[2],
+                                              const int (&q_seg)[2],
+                                              int c_last, float (&x)[4],
+                                              int c, int j) {
+  if constexpr (kMode != kAuxNone) {
+    const int cc = min(c, c_last);
+    float2 add[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) add[h] = aux_pair<T, kMode>(ar[h], a, cc);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      x[2 * h] += add[h].x;
+      x[2 * h + 1] += add[h].y;
+    }
+  }
+  const int2 k = *reinterpret_cast<const int2*>(seg + 8 * j);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const bool mixed = st[h] == 2, none = st[h] == 1;
+    if (none || (mixed && k.x != q_seg[h])) x[2 * h] = -INFINITY;
+    if (none || (mixed && k.y != q_seg[h])) x[2 * h + 1] = -INFINITY;
+  }
+}
+
 // The second launch of a split-KV kernel: merge each row's `splits`
 // normalized float32 partials by their base-2 lse.  part_o is [batch,
 // kv_heads, splits, rows, D] and part_lse [batch, kv_heads, splits, rows];

@@ -85,6 +85,27 @@
 //   m64n256k16; Q (32 KB) and two stages of K and V (128 KB) fit the
 //   block's shared memory.  Quantized K/V stay at D 64 and 128.
 //
+// - The options (the TPU kernel's mask, mask2 and bias refs, :274-278,
+//   added after the cap at :341-360 and gating p at :447; its segment
+//   compare, :371-420 and :619-620, :671, :695-700 of the dynamic one; the
+//   broadcast and repeat of mask and bias by b % B, h % H, :1166-1215).
+//   A template flag (kAux) beside kCap, so the kernels without it are the
+//   same code; inside it, null pointers in AuxOperands say which operands
+//   are present.  D 64 and 128, bf16 and fp16, capped or not.  Each
+//   consumer thread reads its fragment's mask and bias values straight
+//   from global memory, its two side-by-side keys in one load, every load
+//   unconditional so that a tile's loads issue together (attention_common
+//   .cuh `aux_pair`), and adds them after the structural masks (a masked
+//   key stays -inf): the bias joins the logit, a gated pair becomes -inf,
+//   so a row with no live key keeps l = 0 (o = 0, lse = -inf) and a gated
+//   logit never holds a row's running max.  A tile's segment ids load, 4 a
+//   lane, while its QK^T runs; a warp shares them and their range through
+//   shared memory (`SegTile`), so only a tile with a segment boundary in
+//   it tests key by key.  No tile is
+//   skipped for its segments: the ids need not be sorted.  The low
+//   precision L residual is a cast of lse after the kernel
+//   (ops/flash_attention.py).
+//
 // Every function returns cudaGetLastError() after its launch.
 
 #include <type_traits>
@@ -218,29 +239,46 @@ __device__ __forceinline__ void issue_pv(
 // after the cap; this thread's columns are col0 + 8 j + {0, 1}), the
 // running max m, the factor alpha by which the sums so far shrink, and P =
 // exp2(s - m) in place of sc, summed into l.  A row that has seen no key
-// keeps m = -inf and P = 0.
-template <bool kMask, bool kCap, int kBKV>
+// keeps m = -inf and P = 0.  kAux: the options (`aux_tile_pair`'s
+// arguments) in mode kMode, added after the structural masks (a masked
+// key stays -inf).
+template <bool kMask, bool kCap, int kBKV, bool kAux = false,
+          typename T = __nv_bfloat16, int kMode = kAuxNone>
 __device__ __forceinline__ void softmax_tile(float (&sc)[kBKV / 2],
                                              float (&m)[2], float (&l)[2],
                                              float (&alpha)[2],
                                              float scale_log2e, float cap2,
                                              float inv_cap2, int col0,
                                              const int (&lo)[2],
-                                             const int (&hi)[2]) {
+                                             const int (&hi)[2],
+                                             const AuxRow (&ar)[2],
+                                             const AuxOperands& aux,
+                                             const int* seg,
+                                             const int (&st)[2],
+                                             const int (&q_seg)[2],
+                                             int c_last) {
   float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-  for (int j = 0; j < kBKV / 8; ++j)
+  for (int j = 0; j < kBKV / 8; ++j) {
+    float x[4];
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      float x = sc[4 * j + e] * scale_log2e;
-      if constexpr (kCap) x = softcap(x, cap2, inv_cap2);
+      x[e] = sc[4 * j + e] * scale_log2e;
+      if constexpr (kCap) x[e] = softcap(x[e], cap2, inv_cap2);
       if constexpr (kMask) {
         const int col = col0 + 8 * j + e % 2;
-        if (col < lo[e / 2] || col > hi[e / 2]) x = -INFINITY;
+        if (col < lo[e / 2] || col > hi[e / 2]) x[e] = -INFINITY;
       }
-      sc[4 * j + e] = x;
-      mx[e / 2] = fmaxf(mx[e / 2], x);
     }
+    if constexpr (kAux)
+      aux_tile_pair<T, kMode>(ar, aux, seg, st, q_seg, c_last, x,
+                              col0 + 8 * j, j);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      sc[4 * j + e] = x[e];
+      mx[e / 2] = fmaxf(mx[e / 2], x[e]);
+    }
+  }
   float base[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -300,13 +338,15 @@ __device__ __forceinline__ void decode_tile(const uint8_t* raw, uint8_t* tile,
 // 16-bit elements, boxes of 64 columns by kBQ rows (q), kBKV rows (k, v)
 // and 64 rows (o); for quantized K/V (P a Precision, T bf16) k and v are
 // bytes, [b * kv_heads][kv_len][L::kRawRow] in boxes of whole keys by
-// kBKV.  kCap: soft-cap the logits (p.cap2).
-template <typename T, int D, int P = kUnquantized, bool kCap = false>
+// kBKV.  kCap: soft-cap the logits (p.cap2).  kAux: the options in aux.
+template <typename T, int D, int P = kUnquantized, bool kCap = false,
+          bool kAux = false>
 __global__ void __launch_bounds__(FwdTiles<D>::kThreads, 1)
 flash_fwd90_kernel(const __grid_constant__ CUtensorMap map_q,
                    const __grid_constant__ CUtensorMap map_k,
                    const __grid_constant__ CUtensorMap map_v,
-                   const __grid_constant__ CUtensorMap map_o, FwdParams p) {
+                   const __grid_constant__ CUtensorMap map_o, FwdParams p,
+                   const AuxOperands aux) {
   using namespace sm90;
   using L = Smem<D, P>;
   constexpr int kBQ = L::kBQ, kBKV = L::kBKV;
@@ -315,6 +355,8 @@ flash_fwd90_kernel(const __grid_constant__ CUtensorMap map_q,
   constexpr bool kQuant = L::kQuant;
   static_assert(!kQuant || !kFp16, "quantized K/V under bf16 queries");
   static_assert(!kQuant || D <= 128, "quantized K/V at D 64 and 128");
+  static_assert(!kAux || (!kQuant && D <= 128),
+                "the options over K/V in q's type at D 64 and 128");
   constexpr int kS = L::kStages;
   constexpr int kR = L::kRawStages;
   // Registers a thread after setmaxnreg: a block of three warpgroups holds
@@ -328,6 +370,9 @@ flash_fwd90_kernel(const __grid_constant__ CUtensorMap map_q,
   static_assert(kProducerRegs + 2 * kConsumerRegs <= 3 * 168,
                 "setmaxnreg within the block's registers");
   extern __shared__ uint8_t smem_raw[];
+  // kAux: each consumer warp's scratch of a key tile's segment ids.
+  __shared__ __align__(16) int seg_scratch[kAux ? kConsumers / 32 : 1]
+                                          [kAux ? kBKV : 1];
   uint8_t* smem = smem_raw + (1024 - smem_u32(smem_raw) % 1024) % 1024;
   uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::kBar);
   uint64_t* k_full = q_full + 1;
@@ -476,6 +521,24 @@ flash_fwd90_kernel(const __grid_constant__ CUtensorMap map_q,
       hi[h] = causal ? min(qpos, p.kv_len - 1) : p.kv_len - 1;
       lo[h] = p.window > 0 ? qpos - p.window + 1 : 0;
     }
+    // kAux: each row's view of the planes and segment id (a row past the
+    // head reads the last row's, and its outputs are not stored), and the
+    // warp's scratch of a tile's segment ids.
+    AuxRow ar[2] = {};
+    int q_seg[2] = {0, 0};
+    int* seg_warp = nullptr;
+    if constexpr (kAux) {
+      const int group = p.rows / p.q_len;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = min(row[h], p.rows - 1);
+        ar[h] = aux_row(aux, blockIdx.z, blockIdx.y * group + r / p.q_len,
+                        r % p.q_len, p.q_len);
+        q_seg[h] = aux_q_seg(aux, blockIdx.z, r % p.q_len, p.q_len);
+      }
+      seg_warp = seg_scratch[tid / 32 - 4];
+    }
+    const int mode = kAux ? aux_mode(aux) : kAuxNone;
     const uint8_t* q_wg = smem + wg * 64 * 128;
     // Quantized K/V: the block's K scale joins the softmax scale, its V
     // scale the normalisation of O.
@@ -509,12 +572,38 @@ flash_fwd90_kernel(const __grid_constant__ CUtensorMap map_q,
       const uint32_t phase = (i / kS) & 1;
       mbar_wait(&k_full[s], phase);
       issue_qk<D, kFp16>(sc, q_wg, smem + L::kK + s * L::kTile);
+      // kAux: the tile's segment ids load while QK^T runs.
+      SegTile<kBKV> seg;
+      if constexpr (kAux)
+        if (aux.kv_seg)
+          seg.load(aux.kv_seg + (size_t)blockIdx.z * p.kv_len,
+                   (n_hi - 1 - i) * kBKV, p.kv_len, lane);
       wgmma_wait<0>();
       fence_operands(sc);
       release(k_empty, i);
-      softmax_tile<decltype(masked)::value, kCap, kBKV>(
-          sc, m, l, alpha, scale_log2e, p.cap2, p.inv_cap2,
-          (n_hi - 1 - i) * kBKV + 2 * t4, lo, hi);
+      int st[2] = {0, 0};
+      if constexpr (kAux)
+        if (aux.kv_seg) {
+          seg.publish(seg_warp, lane);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) st[h] = seg.state(q_seg[h]);
+        }
+      // The options' mode is chosen here, once a tile (a branch on the
+      // operands inside the unrolled loop over keys costs more than their
+      // loads).
+      auto softmax = [&](auto mode_c) {
+        softmax_tile<decltype(masked)::value, kCap, kBKV, kAux, T,
+                     decltype(mode_c)::value>(
+            sc, m, l, alpha, scale_log2e, p.cap2, p.inv_cap2,
+            (n_hi - 1 - i) * kBKV + 2 * t4, lo, hi, ar, aux,
+            seg_warp + 2 * t4, st, q_seg, (p.kv_len - 1) & ~1);
+      };
+      if (!kAux || mode == kAuxNone)
+        softmax(std::integral_constant<int, kAuxNone>());
+      else if (mode == kAuxPlanes16)
+        softmax(std::integral_constant<int, kAuxPlanes16>());
+      else
+        softmax(std::integral_constant<int, kAuxPlanes32>());
 #pragma unroll
       for (int e = 0; e < D / 2; ++e) o[e] *= alpha[e % 4 / 2];
       pack_rs<T, kBKV>(pa, sc);
@@ -579,9 +668,10 @@ flash_fwd90_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
-template <typename T, int D, int P, bool kCap>
+template <typename T, int D, int P, bool kCap, bool kAux = false>
 int launch(const void* q, const void* k, const void* v, void* o,
-           const FwdParams& p, int batch, int kv_heads, cudaStream_t s) {
+           const FwdParams& p, const AuxOperands& aux, int batch,
+           int kv_heads, cudaStream_t s) {
   using L = Smem<D, P>;
   constexpr int kBQ = L::kBQ, kBKV = L::kBKV;
   const long long heads = (long long)batch * kv_heads;
@@ -610,44 +700,64 @@ int launch(const void* q, const void* k, const void* v, void* o,
                                 sw);
   }
   if (!ok) return kErrTensorMap;
-  if (cudaFuncSetAttribute(flash_fwd90_kernel<T, D, P, kCap>,
+  if (cudaFuncSetAttribute(flash_fwd90_kernel<T, D, P, kCap, kAux>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            L::kBytes) != cudaSuccess)
     return (int)cudaGetLastError();
   const dim3 grid((p.rows + kBQ - 1) / kBQ, kv_heads, batch);
-  flash_fwd90_kernel<T, D, P, kCap>
-      <<<grid, FwdTiles<D>::kThreads, L::kBytes, s>>>(mq, mk, mv, mo, p);
+  flash_fwd90_kernel<T, D, P, kCap, kAux>
+      <<<grid, FwdTiles<D>::kThreads, L::kBytes, s>>>(mq, mk, mv, mo, p,
+                                                      aux);
   return (int)cudaGetLastError();
 }
 
 // Quantized K/V: D 64 and 128, no cap.  K/V in q's type: D 64, 128 and
-// 256, with or without the cap.
+// 256, with or without the cap; with the options (aux non-null), D 64
+// and 128.
 template <typename T, int P = kUnquantized>
 int launch_d(const void* q, const void* k, const void* v, void* o,
-             const FwdParams& p, int batch, int kv_heads, int head_dim,
-             bool capped, cudaStream_t s) {
+             const FwdParams& p, const AuxOperands* aux, int batch,
+             int kv_heads, int head_dim, bool capped, cudaStream_t s) {
+  const AuxOperands none{};
+  const AuxOperands& a = aux ? *aux : none;
   if constexpr (P != kUnquantized) {
-    if (capped) return (int)cudaErrorInvalidValue;
+    if (capped || aux) return (int)cudaErrorInvalidValue;
     if (head_dim == 64)
-      return launch<T, 64, P, false>(q, k, v, o, p, batch, kv_heads, s);
+      return launch<T, 64, P, false>(q, k, v, o, p, a, batch, kv_heads, s);
     if (head_dim == 128)
-      return launch<T, 128, P, false>(q, k, v, o, p, batch, kv_heads, s);
+      return launch<T, 128, P, false>(q, k, v, o, p, a, batch, kv_heads, s);
   } else {
+    if (aux) {
+      if (head_dim == 64)
+        return capped ? launch<T, 64, P, true, true>(q, k, v, o, p, a, batch,
+                                                     kv_heads, s)
+                      : launch<T, 64, P, false, true>(q, k, v, o, p, a,
+                                                      batch, kv_heads, s);
+      if (head_dim == 128)
+        return capped ? launch<T, 128, P, true, true>(q, k, v, o, p, a,
+                                                      batch, kv_heads, s)
+                      : launch<T, 128, P, false, true>(q, k, v, o, p, a,
+                                                       batch, kv_heads, s);
+      return (int)cudaErrorInvalidValue;
+    }
     if (head_dim == 64)
       return capped
-                 ? launch<T, 64, P, true>(q, k, v, o, p, batch, kv_heads, s)
-                 : launch<T, 64, P, false>(q, k, v, o, p, batch, kv_heads,
+                 ? launch<T, 64, P, true>(q, k, v, o, p, a, batch, kv_heads,
+                                          s)
+                 : launch<T, 64, P, false>(q, k, v, o, p, a, batch, kv_heads,
                                            s);
     if (head_dim == 128)
       return capped
-                 ? launch<T, 128, P, true>(q, k, v, o, p, batch, kv_heads, s)
-                 : launch<T, 128, P, false>(q, k, v, o, p, batch, kv_heads,
-                                            s);
+                 ? launch<T, 128, P, true>(q, k, v, o, p, a, batch, kv_heads,
+                                           s)
+                 : launch<T, 128, P, false>(q, k, v, o, p, a, batch,
+                                            kv_heads, s);
     if (head_dim == 256)
       return capped
-                 ? launch<T, 256, P, true>(q, k, v, o, p, batch, kv_heads, s)
-                 : launch<T, 256, P, false>(q, k, v, o, p, batch, kv_heads,
-                                            s);
+                 ? launch<T, 256, P, true>(q, k, v, o, p, a, batch, kv_heads,
+                                           s)
+                 : launch<T, 256, P, false>(q, k, v, o, p, a, batch,
+                                            kv_heads, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -663,14 +773,16 @@ extern "C" {
 // window <= 0: none.  kv_precision 0: k and v in q's type; else a
 // Precision of quant_common.cuh (INT8, FP8-E4M3, FP8-E5M2, NF4) with bf16
 // queries: k, v [b, kv_heads, kv_len, D] bytes (NF4 [.., D / 2]) and
-// k_scales, v_scales float32 [b, kv_heads].  Returns kErrTensorMap when
+// k_scales, v_scales float32 [b, kv_heads].  aux: the options
+// (attention_common.cuh `AuxOperands`; dbias unused), or null for none;
+// with K/V in q's type at head_dim 64 or 128.  Returns kErrTensorMap when
 // cuTensorMapEncodeTiled refuses a TMA map.
 int mfa_flash_fwd(const void* q, const void* k, const void* v,
                   const void* k_scales, const void* v_scales, void* o,
                   void* lse, int batch, int q_heads, int kv_heads, int q_len,
                   int kv_len, int head_dim, float scale, float softcap,
                   int causal, int window, int is_fp16, int o_f32,
-                  int kv_precision, void* stream) {
+                  int kv_precision, const AuxOperands* aux, void* stream) {
   if (batch == 0 || q_len == 0) return 0;
   if (kv_heads <= 0 || q_heads % kv_heads || kv_len < 0 || softcap < 0.f)
     return (int)cudaErrorInvalidValue;
@@ -695,21 +807,22 @@ int mfa_flash_fwd(const void* q, const void* k, const void* v,
   const bool cap = softcap > 0.f;
   switch (kv_precision) {
     case 0:
-      return is_fp16
-                 ? launch_d<__half>(q, k, v, o, p, batch, kv_heads, hd, cap, s)
-                 : launch_d<bf16>(q, k, v, o, p, batch, kv_heads, hd, cap, s);
-    case kPrecInt8:
-      return launch_d<bf16, kPrecInt8>(q, k, v, o, p, batch, kv_heads, hd,
-                                       cap, s);
-    case kPrecE4M3:
-      return launch_d<bf16, kPrecE4M3>(q, k, v, o, p, batch, kv_heads, hd,
-                                       cap, s);
-    case kPrecE5M2:
-      return launch_d<bf16, kPrecE5M2>(q, k, v, o, p, batch, kv_heads, hd,
-                                       cap, s);
-    case kPrecNf4:
-      return launch_d<bf16, kPrecNf4>(q, k, v, o, p, batch, kv_heads, hd,
+      return is_fp16 ? launch_d<__half>(q, k, v, o, p, aux, batch, kv_heads,
+                                        hd, cap, s)
+                     : launch_d<bf16>(q, k, v, o, p, aux, batch, kv_heads, hd,
                                       cap, s);
+    case kPrecInt8:
+      return launch_d<bf16, kPrecInt8>(q, k, v, o, p, aux, batch, kv_heads,
+                                       hd, cap, s);
+    case kPrecE4M3:
+      return launch_d<bf16, kPrecE4M3>(q, k, v, o, p, aux, batch, kv_heads,
+                                       hd, cap, s);
+    case kPrecE5M2:
+      return launch_d<bf16, kPrecE5M2>(q, k, v, o, p, aux, batch, kv_heads,
+                                       hd, cap, s);
+    case kPrecNf4:
+      return launch_d<bf16, kPrecNf4>(q, k, v, o, p, aux, batch, kv_heads,
+                                       hd, cap, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -80,6 +80,28 @@
 //   of Q and dO take 192 KB.  A barrier of both warpgroups precedes the
 //   epilogue, which stages each warpgroup's columns in K's and V's
 //   buffers.
+// - The options (the TPU kernels' mask, mask2, bias and segment refs: dQ
+//   :86-95, :125-135, :160-196; dK/dV :239-246, :282-290, :310-330).  A
+//   template flag, kAux, beside kCap (D 64 and 128, bf16 and fp16): the
+//   kernels without it are the same code.  The recomputed logit takes the
+//   bias and the -inf of a gated or other-segment pair after the
+//   structural masks (attention_common.cuh `aux_pair`, `SegTile`, as the
+//   forward reads them), so P is the forward's.  dQ waits for both score
+//   products before its elementwise pass (kAux only) and emits dbias = P
+//   (dP - D), natural units, before the cap's factor (the TPU kernel's
+//   :191-193), from its fragments into a float32 [b, q_heads, q_len,
+//   kv_len] buffer that the wrapper zeroes where a causal or window loop
+//   skips tiles (:210-213); the reduction over a broadcast bias's dims is
+//   a torch.sum afterwards (:562-611).  dK/dV computes S^T, so a thread's
+//   fragment rows are keys and its columns queries, and a column of a
+//   plane runs down its rows, ld apart.  So each warp stages its 16 keys
+//   by the step's rows of mask, mask2 and bias in shared memory by
+//   cp.async, 16-byte pieces of the rows issued before the step's
+//   products and waited for after them (`AuxStage`), and reads them down
+//   the columns there; read from global memory at t * ld + key, the
+//   options took 2.8 ms beside the step's 1.1 (ALiBi, H100).  Its keys'
+//   segment ids sit in registers and the step's query ids reach the
+//   threads through the warp's scratch, as L and D do.
 //
 // Every function returns cudaGetLastError() after its launch.
 
@@ -133,7 +155,7 @@ struct BwdTiles {
 struct BwdParams {
   const float* lse;    // [b, q_heads, q_len], natural log
   const float* dterm;  // [b, q_heads, q_len], rowsum(dO * O)
-  int group, q_len, kv_len;
+  int group, q_len, kv_len, kv_heads;
   float scale, scale_log2e;
   float cap2, inv_cap2;  // the soft cap in the exp2 domain (kCap kernels)
   int causal, window;
@@ -258,15 +280,16 @@ __device__ __forceinline__ int dq_row_tile(const BwdParams& p, int x,
 // DqSmem<D>::kBytes of dynamic shared memory.  The maps are over
 // [b * kv_heads][rows][D] (q, do, dq) and [b * kv_heads][kv_len][D] (k,
 // v), 16-bit elements, boxes of 64 columns by kDqRows rows (q, do),
-// kDqKeys rows (k, v) and 64 rows (dq).  kCap: soft-capped logits.
-template <typename T, int D, bool kCap>
+// kDqKeys rows (k, v) and 64 rows (dq).  kCap: soft-capped logits.  kAux:
+// the options in aux, and dbias when aux.dbias is not null.
+template <typename T, int D, bool kCap, bool kAux = false>
 __global__ void __launch_bounds__(BwdTiles<D>::kDqThreads, 1)
 flash_bwd_dq90_kernel(const __grid_constant__ CUtensorMap map_q,
                       const __grid_constant__ CUtensorMap map_do,
                       const __grid_constant__ CUtensorMap map_k,
                       const __grid_constant__ CUtensorMap map_v,
                       const __grid_constant__ CUtensorMap map_dq,
-                      BwdParams p) {
+                      BwdParams p, const AuxOperands aux) {
   using namespace sm90;
   using L = DqSmem<D>;
   using Rows = typename L::Kept;
@@ -276,7 +299,11 @@ flash_bwd_dq90_kernel(const __grid_constant__ CUtensorMap map_q,
   constexpr int kDqRows = BwdTiles<D>::kDqRows;
   constexpr int kDqKeys = BwdTiles<D>::kDqKeys;
   constexpr int kWarps = BwdTiles<D>::kDqThreads / 32;
+  static_assert(!kAux || D <= 128, "the options at D 64 and 128");
   extern __shared__ uint8_t smem_raw[];
+  // kAux: each warp's scratch of a key tile's segment ids.
+  __shared__ __align__(16) int seg_scratch[kAux ? kWarps : 1]
+                                          [kAux ? kDqKeys : 1];
   uint8_t* smem = smem_raw + (1024 - smem_u32(smem_raw) % 1024) % 1024;
   uint64_t* rows_full = reinterpret_cast<uint64_t*>(smem + L::kBar);
   uint64_t* full = rows_full + 1;
@@ -365,6 +392,28 @@ flash_bwd_dq90_kernel(const __grid_constant__ CUtensorMap map_q,
     l2[h] = row < rows ? lse_base2(__ldg(p.lse + at)) : 0.f;
     dt[h] = row < rows ? __ldg(p.dterm + at) : 0.f;
   }
+  // kAux: each row's view of the planes, segment id and row of dbias (a
+  // row past the head reads the last row's and writes nothing), and the
+  // warp's scratch of a tile's segment ids.
+  AuxRow ar[2] = {};
+  int q_seg[2] = {0, 0};
+  float* db[2] = {nullptr, nullptr};
+  int* seg_warp = nullptr;
+  if constexpr (kAux) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = min(ra + 8 * h, rows - 1);
+      const int qh = blockIdx.y * p.group + row / p.q_len;
+      ar[h] = aux_row(aux, blockIdx.z, qh, row % p.q_len, p.q_len);
+      q_seg[h] = aux_q_seg(aux, blockIdx.z, row % p.q_len, p.q_len);
+      if (aux.dbias && ra + 8 * h < rows)
+        db[h] = aux.dbias +
+                (((size_t)blockIdx.z * gridDim.y * p.group + qh) * p.q_len +
+                 row % p.q_len) * p.kv_len;
+    }
+    seg_warp = seg_scratch[tid / 32];
+  }
+  const int mode = kAux ? aux_mode(aux) : kAuxNone;
   const uint8_t* q_wg = smem + L::kA + wg * 64 * 128;
   const uint8_t* do_wg = smem + L::kB + wg * 64 * 128;
 
@@ -392,34 +441,102 @@ flash_bwd_dq90_kernel(const __grid_constant__ CUtensorMap map_q,
     wgmma_commit();
     ss_product<kDqKeys, D, kFp16>(dp, do_wg, Rows::kPanel, v, Keys::kPanel);
     wgmma_commit();
-    wgmma_wait<1>();
-    fence_operands(sc);
-    // P in place of S (with the cap, P (1 - t^2), all dS needs of P);
     // this thread's columns are col0 + 8 j + {0, 1}.
     const int col0 = (n_hi - 1 - i) * kDqKeys + 2 * t4;
+    if constexpr (kAux) {
+      // The tile's segment ids load while the products run; then one
+      // pass: P (the options after the structural masks), dS = P (dP -
+      // D), dbias = dS before the cap's factor, and dS times the factor in
+      // place of dP.
+      SegTile<kDqKeys> seg;
+      if (aux.kv_seg)
+        seg.load(aux.kv_seg + (size_t)blockIdx.z * p.kv_len,
+                 (n_hi - 1 - i) * kDqKeys, p.kv_len, lane);
+      wgmma_wait<0>();
+      fence_operands(sc);
+      fence_operands(dp);
+      int st[2] = {0, 0};
+      if (aux.kv_seg) {
+        seg.publish(seg_warp, lane);
 #pragma unroll
-    for (int j = 0; j < kDqKeys / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x, f = 1.f;
-        if constexpr (kCap)
-          x = exp2_approx(capped_score(sc[4 * j + e], p, f) -
-                          l2[e / 2]);
-        else
-          x = exp2_approx(fmaf(sc[4 * j + e], p.scale_log2e, -l2[e / 2]));
-        if constexpr (decltype(masked)::value) {
-          const int col = col0 + 8 * j + e % 2;
-          if (col < lo[e / 2] || col > hi[e / 2]) x = 0.f;
-        }
-        sc[4 * j + e] = kCap ? x * f : x;
+        for (int h = 0; h < 2; ++h) st[h] = seg.state(q_seg[h]);
       }
-    wgmma_wait<0>();
-    fence_operands(dp);
-    // dS = P (dP - D) (times 1 - t^2 with the cap), packed as the A of
-    // dQ += dS K.
+      const bool kv_even = (p.kv_len & 1) == 0;
+      // The options' mode, chosen once a tile (as the forward's).
+      auto pass = [&](auto mode_c) {
+        constexpr int kMode = decltype(mode_c)::value;
 #pragma unroll
-    for (int e = 0; e < kDqKeys / 2; ++e)
-      dp[e] = sc[e] * (dp[e] - dt[e % 4 / 2]);
+        for (int j = 0; j < kDqKeys / 8; ++j) {
+          const int c = col0 + 8 * j;
+          float x[4], f[4] = {1.f, 1.f, 1.f, 1.f};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if constexpr (kCap)
+              x[e] = capped_score(sc[4 * j + e], p, f[e]);
+            else
+              x[e] = sc[4 * j + e] * p.scale_log2e;
+            if constexpr (decltype(masked)::value) {
+              const int col = c + e % 2;
+              if (col < lo[e / 2] || col > hi[e / 2]) x[e] = -INFINITY;
+            }
+          }
+          aux_tile_pair<T, kMode>(ar, aux, seg_warp + 2 * t4, st, q_seg,
+                                  (p.kv_len - 1) & ~1, x, c, j);
+          float d_s[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            d_s[e] = exp2_approx(x[e] - l2[e / 2]) *
+                     (dp[4 * j + e] - dt[e / 2]);
+            dp[4 * j + e] = d_s[e] * f[e];
+          }
+          // dbias, beside a bias only (a mode other than kAuxNone).
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            if (kMode == kAuxNone || !db[h] || c >= p.kv_len) continue;
+            if (kv_even) {
+              *reinterpret_cast<float2*>(db[h] + c) =
+                  make_float2(d_s[2 * h], d_s[2 * h + 1]);
+            } else {
+              db[h][c] = d_s[2 * h];
+              if (c + 1 < p.kv_len) db[h][c + 1] = d_s[2 * h + 1];
+            }
+          }
+        }
+      };
+      if (mode == kAuxNone)
+        pass(std::integral_constant<int, kAuxNone>());
+      else if (mode == kAuxPlanes16)
+        pass(std::integral_constant<int, kAuxPlanes16>());
+      else
+        pass(std::integral_constant<int, kAuxPlanes32>());
+    } else {
+      wgmma_wait<1>();
+      fence_operands(sc);
+      // P in place of S (with the cap, P (1 - t^2), all dS needs of P).
+#pragma unroll
+      for (int j = 0; j < kDqKeys / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x, f = 1.f;
+          if constexpr (kCap)
+            x = exp2_approx(capped_score(sc[4 * j + e], p, f) -
+                            l2[e / 2]);
+          else
+            x = exp2_approx(fmaf(sc[4 * j + e], p.scale_log2e, -l2[e / 2]));
+          if constexpr (decltype(masked)::value) {
+            const int col = col0 + 8 * j + e % 2;
+            if (col < lo[e / 2] || col > hi[e / 2]) x = 0.f;
+          }
+          sc[4 * j + e] = kCap ? x * f : x;
+        }
+      wgmma_wait<0>();
+      fence_operands(dp);
+      // dS = P (dP - D) (times 1 - t^2 with the cap), packed as the A of
+      // dQ += dS K.
+#pragma unroll
+      for (int e = 0; e < kDqKeys / 2; ++e)
+        dp[e] = sc[e] * (dp[e] - dt[e % 4 / 2]);
+    }
     pack_rs<T, kDqKeys>(ds, dp);
     fence_operands(acc);
     wgmma_fence();
@@ -456,13 +573,62 @@ flash_bwd_dq90_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
+// dK/dV's stage of the options (kAux, mask, mask2 or bias present): each
+// warp's 16 keys by a step's kDkvRows query rows, copied by cp.async from
+// the step's (batch, q head) planes, which run along the keys, and read
+// down the columns from shared memory.  Rows of 16 keys: mask, mask2 (a
+// byte each), then the bias (2 or 4 bytes).
+// Where dK/dV's stages start in its shared memory: past `used` bytes,
+// 128-aligned.
+__host__ __device__ constexpr int aux_stage_offset(int used) {
+  return (used + 127) / 128 * 128;
+}
+
+template <int kRows>
+struct AuxStage {
+  static constexpr int kKeys = 16;
+  static constexpr int kMask2 = kRows * kKeys;
+  static constexpr int kBias = 2 * kRows * kKeys;
+  static constexpr int kBytes = kBias + kRows * kKeys * 4;
+};
+
+// One 16-byte copy into shared memory; src_bytes 0 fills zeros.
+__device__ __forceinline__ void aux_cp16(void* dst, const void* src,
+                                         bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   sm90::smem_u32(dst)),
+               "l"(src), "r"(in ? 16 : 0)
+               : "memory");
+}
+
+// What the staged options add to the logit of local query row tl and key
+// kl of a warp's stage: the bias times log2(e), or -inf where a mask
+// gates the pair off; an absent operand's slot is unread garbage that
+// the selects drop.
+template <typename T, int kMode, int kRows>
+__device__ __forceinline__ float aux_staged(const uint8_t* ws,
+                                            const AuxOperands& a, int tl,
+                                            int kl) {
+  using S = AuxStage<kRows>;
+  const int i = tl * S::kKeys + kl;
+  float add;
+  if constexpr (kMode == kAuxPlanes32)
+    add = reinterpret_cast<const float*>(ws + S::kBias)[i];
+  else
+    add = aux_widen<T>(reinterpret_cast<const uint16_t*>(ws + S::kBias)[i]);
+  add = a.bias ? add * kLog2e : 0.f;
+  const bool live = (ws[i] != 0 || !a.mask) & (ws[S::kMask2 + i] != 0 ||
+                                              !a.mask2);
+  return live ? add : -INFINITY;
+}
+
 // Grid (b * kv_heads, key tiles): every head's first key tile first.
 // BwdTiles<D>::kDkvThreads threads, DkvSmem<D>::kBytes of dynamic shared
 // memory.  The maps are over [b * q_heads][q_len][D] (q, do) and
 // [b * kv_heads][kv_len][D] (k, v, dk, dv), 16-bit elements, boxes of 64
 // columns by kDkvRows rows (q, do), kDkvKeys rows (k, v) and 64 rows (dk,
-// dv).  kCap: soft-capped logits.
-template <typename T, int D, bool kCap>
+// dv).  kCap: soft-capped logits.  kAux: the options in aux.
+template <typename T, int D, bool kCap, bool kAux = false>
 __global__ void __launch_bounds__(BwdTiles<D>::kDkvThreads, 1)
 flash_bwd_dkv90_kernel(const __grid_constant__ CUtensorMap map_q,
                        const __grid_constant__ CUtensorMap map_do,
@@ -470,7 +636,7 @@ flash_bwd_dkv90_kernel(const __grid_constant__ CUtensorMap map_q,
                        const __grid_constant__ CUtensorMap map_v,
                        const __grid_constant__ CUtensorMap map_dk,
                        const __grid_constant__ CUtensorMap map_dv,
-                       BwdParams p) {
+                       BwdParams p, const AuxOperands aux) {
   using namespace sm90;
   using L = DkvSmem<D>;
   using Keys = typename L::Kept;
@@ -482,6 +648,7 @@ flash_bwd_dkv90_kernel(const __grid_constant__ CUtensorMap map_q,
   constexpr bool kSplit = BwdTiles<D>::kDkvSplit;
   constexpr int kCols = BwdTiles<D>::kDkvCols;
   constexpr int kWarps = BwdTiles<D>::kDkvThreads / 32;
+  static_assert(!kAux || D <= 128, "the options at D 64 and 128");
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + (1024 - smem_u32(smem_raw) % 1024) % 1024;
   uint64_t* keys_full = reinterpret_cast<uint64_t*>(smem + L::kBar);
@@ -552,12 +719,26 @@ flash_bwd_dkv90_kernel(const __grid_constant__ CUtensorMap map_q,
   const int ka = k0 + 16 * warp + lane / 4;
   // The query rows that see each key, [lo, hi].
   int lo[2], hi[2];
+  // kAux: the keys whose options a thread reads (clamped) and their
+  // segment ids.
+  int key[2], kv_id[2] = {0, 0};
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int key = ka + 8 * h;
-    lo[h] = causal ? key - offset : 0;
-    hi[h] = p.window > 0 ? key - offset + p.window - 1 : p.q_len - 1;
+    key[h] = ka + 8 * h;
+    lo[h] = causal ? key[h] - offset : 0;
+    hi[h] = p.window > 0 ? key[h] - offset + p.window - 1 : p.q_len - 1;
+    key[h] = min(key[h], p.kv_len - 1);
   }
+  // kAux: the batch, where its query segment ids start, and the options'
+  // mode.
+  const int batch = kAux ? bh / p.kv_heads : 0;
+  const int mode = kAux ? aux_mode(aux) : kAuxNone;
+  const size_t b_q = (size_t)batch * p.q_len;
+  if constexpr (kAux)
+    if (aux.kv_seg)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        kv_id[h] = __ldg(aux.kv_seg + (size_t)batch * p.kv_len + key[h]);
   const int key_row = kSplit ? 0 : wg * 64 * 128;  // in a panel
   const uint8_t* k_wg = smem + L::kA + key_row;
   const uint8_t* v_wg = smem + L::kB + key_row;
@@ -574,6 +755,13 @@ flash_bwd_dkv90_kernel(const __grid_constant__ CUtensorMap map_q,
   // of columns: the thread that needs column 8 j + 2 t4 + {0, 1} reads
   // pair 4 j + t4, which the lane that loaded it wrote.
   __shared__ float2 scratch[kWarps][2][kR / 2];
+  // kAux: the step's query segment ids, handed out the same way.
+  __shared__ int2 seg_scratch[kAux ? kWarps : 1][kAux ? kR / 2 : 1];
+  // kAux: this warp's stage of a step's mask, mask2 and bias (dynamic
+  // shared memory past the barriers; see launch_dkv).
+  using Stage = AuxStage<kR>;
+  uint8_t* ws = smem + aux_stage_offset(L::kBar + (1 + 2 * kS) * 8) +
+                (tid / 32) * Stage::kBytes;
 
   // One query tile (loop step i: tile m of a q head), with or without the
   // test on pairs.
@@ -587,6 +775,46 @@ flash_bwd_dkv90_kernel(const __grid_constant__ CUtensorMap map_q,
     // here and written to the warp's scratch once the products are issued.
     float2 lv[kR / 64], dv_[kR / 64];
     const size_t base = ((size_t)bh * p.group + i / per) * p.q_len;
+    // kAux: the planes of the step's (batch, q head), and the rows'
+    // segment ids (rows past q_len read the last row's).
+    AuxRow ap{};
+    int2 qs[kR / 64];
+    if constexpr (kAux) {
+      ap = aux_row(aux, batch, (bh % p.kv_heads) * p.group + i / per, 0,
+                   p.q_len);
+      if (mode != kAuxNone) {
+        // The warp's 16 keys by the step's rows into its stage, two rows
+        // a lane; a row past q_len or keys past kv_len fill zeros.
+        __syncwarp();  // the warp's reads of the last step's stage
+        const int kw0 = ka - lane / 4;  // the warp's first key
+        const int kc = min(kw0, aux.ld - Stage::kKeys);
+#pragma unroll
+        for (int r = lane; r < kR; r += 32) {
+          const int t = m * kR + r;
+          const bool in = kw0 < p.kv_len && t < p.q_len;
+          const size_t at = (size_t)min(t, p.q_len - 1) * aux.ld + kc;
+          if (aux.mask) aux_cp16(ws + r * 16, ap.mask + at, in);
+          if (aux.mask2)
+            aux_cp16(ws + Stage::kMask2 + r * 16, ap.mask2 + at, in);
+          if (aux.bias) {
+            if (aux.bias_f32) {
+#pragma unroll
+              for (int c = 0; c < 4; ++c)
+                aux_cp16(ws + Stage::kBias + r * 64 + 16 * c,
+                         static_cast<const float*>(ap.bias) + at + 4 * c,
+                         in);
+            } else {
+#pragma unroll
+              for (int c = 0; c < 2; ++c)
+                aux_cp16(ws + Stage::kBias + r * 32 + 16 * c,
+                         static_cast<const uint16_t*>(ap.bias) + at + 8 * c,
+                         in);
+            }
+          }
+        }
+        asm volatile("cp.async.commit_group;\n" ::: "memory");
+      }
+    }
 #pragma unroll
     for (int u = 0; u < kR / 64; ++u) {
       const int t = m * kR + 64 * u + 2 * lane;
@@ -595,6 +823,13 @@ flash_bwd_dkv90_kernel(const __grid_constant__ CUtensorMap map_q,
                                 : 0.f;
       dv_[u].x = t < p.q_len ? __ldg(p.dterm + base + t) : 0.f;
       dv_[u].y = t + 1 < p.q_len ? __ldg(p.dterm + base + t + 1) : 0.f;
+      if constexpr (kAux) {
+        qs[u] = make_int2(0, 0);  // no segments: every id 0, as kv_id
+        if (aux.q_seg) {
+          qs[u].x = __ldg(aux.q_seg + b_q + min(t, p.q_len - 1));
+          qs[u].y = __ldg(aux.q_seg + b_q + min(t + 1, p.q_len - 1));
+        }
+      }
     }
     mbar_wait(&full[s], (i / kS) & 1);
     const uint8_t* q = smem + L::kRing + s * L::kStage;
@@ -612,39 +847,74 @@ flash_bwd_dkv90_kernel(const __grid_constant__ CUtensorMap map_q,
     for (int u = 0; u < kR / 64; ++u) {
       scratch[tid / 32][0][32 * u + lane] = lv[u];
       scratch[tid / 32][1][32 * u + lane] = dv_[u];
+      if constexpr (kAux) seg_scratch[tid / 32][32 * u + lane] = qs[u];
     }
     __syncwarp();
     wgmma_wait<1>();
     fence_operands(st);
+    if constexpr (kAux)
+      if (mode != kAuxNone) {
+        asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+        __syncwarp();
+      }
     // P^T in place of S^T; this thread's columns are query rows
     // t0 + 8 j + {0, 1}.  With the cap, P^T is packed as dV's operand
     // here and P^T (1 - t^2) kept, which is all dS^T needs of it.
     const int t0 = m * kR + 2 * t4;
+    // kAux: the options' mode, chosen once a step (as the forward's).
+    auto pass = [&](auto mode_c) {
 #pragma unroll
-    for (int j = 0; j < kR / 8; ++j) {
-      const float2 l = scratch[tid / 32][0][4 * j + t4];
-      float x[4], f[4] = {1.f, 1.f, 1.f, 1.f};
+      for (int j = 0; j < kR / 8; ++j) {
+        const float2 l = scratch[tid / 32][0][4 * j + t4];
+        int2 q_id = make_int2(0, 0);
+        if constexpr (kAux) q_id = seg_scratch[tid / 32][4 * j + t4];
+        float x[4], f[4] = {1.f, 1.f, 1.f, 1.f};
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        if constexpr (kCap)
-          x[e] = exp2_approx(capped_score(st[4 * j + e], p, f[e]) -
-                             (e % 2 ? l.y : l.x));
-        else
-          x[e] = exp2_approx(
-              fmaf(st[4 * j + e], p.scale_log2e, e % 2 ? -l.y : -l.x));
-        if constexpr (decltype(masked)::value) {
-          const int t = t0 + 8 * j + e % 2;
-          if (t < lo[e / 2] || t > hi[e / 2]) x[e] = 0.f;
+        for (int e = 0; e < 4; ++e) {
+          if constexpr (kAux) {
+            // The options after the structural masks, at query t of the
+            // step's q head and key ka + 8 (e / 2), for the pairs that exist.
+            const int t = t0 + 8 * j + e % 2;
+            float s2 = kCap ? capped_score(st[4 * j + e], p, f[e])
+                            : st[4 * j + e] * p.scale_log2e;
+            bool live = true;
+            if constexpr (decltype(masked)::value)
+              live = t >= lo[e / 2] && t <= hi[e / 2];
+            // Pairs past q_len or kv_len read the stage's zeros; their P
+            // meets zero rows of dO or is not stored.
+            if constexpr (decltype(mode_c)::value != kAuxNone)
+              s2 += aux_staged<T, decltype(mode_c)::value, kR>(
+                  ws, aux, t - m * kR, lane / 4 + 8 * (e / 2));
+            if ((e % 2 ? q_id.y : q_id.x) != kv_id[e / 2]) live = false;
+            x[e] = live ? exp2_approx(s2 - (e % 2 ? l.y : l.x)) : 0.f;
+          } else {
+            if constexpr (kCap)
+              x[e] = exp2_approx(capped_score(st[4 * j + e], p, f[e]) -
+                                 (e % 2 ? l.y : l.x));
+            else
+              x[e] = exp2_approx(
+                  fmaf(st[4 * j + e], p.scale_log2e, e % 2 ? -l.y : -l.x));
+            if constexpr (decltype(masked)::value) {
+              const int t = t0 + 8 * j + e % 2;
+              if (t < lo[e / 2] || t > hi[e / 2]) x[e] = 0.f;
+            }
+          }
         }
-      }
-      if constexpr (kCap) {
-        // pack_rs's slots of entries 4 j .. 4 j + 3.
-        pa[j / 2][2 * (j % 2)] = pack2<T>(x[0], x[1]);
-        pa[j / 2][2 * (j % 2) + 1] = pack2<T>(x[2], x[3]);
-      }
+        if constexpr (kCap) {
+          // pack_rs's slots of entries 4 j .. 4 j + 3.
+          pa[j / 2][2 * (j % 2)] = pack2<T>(x[0], x[1]);
+          pa[j / 2][2 * (j % 2) + 1] = pack2<T>(x[2], x[3]);
+        }
 #pragma unroll
-      for (int e = 0; e < 4; ++e) st[4 * j + e] = kCap ? x[e] * f[e] : x[e];
-    }
+        for (int e = 0; e < 4; ++e) st[4 * j + e] = kCap ? x[e] * f[e] : x[e];
+      }
+    };
+    if (!kAux || mode == kAuxNone)
+      pass(std::integral_constant<int, kAuxNone>());
+    else if (mode == kAuxPlanes16)
+      pass(std::integral_constant<int, kAuxPlanes16>());
+    else
+      pass(std::integral_constant<int, kAuxPlanes32>());
     if constexpr (!kCap) pack_rs<T, kR>(pa, st);
     fence_operands(dv);
     wgmma_fence();
@@ -729,9 +999,9 @@ struct Operands {
   void *dq, *dk, *dv;
 };
 
-template <typename T, int D, bool kCap>
-int launch_dq(const Operands& x, const BwdParams& p, int batch,
-              int kv_heads, cudaStream_t s) {
+template <typename T, int D, bool kCap, bool kAux>
+int launch_dq(const Operands& x, const BwdParams& p, const AuxOperands& aux,
+              int batch, int kv_heads, cudaStream_t s) {
   using L = DqSmem<D>;
   constexpr int kDqRows = BwdTiles<D>::kDqRows;
   constexpr int kDqKeys = BwdTiles<D>::kDqKeys;
@@ -745,20 +1015,20 @@ int launch_dq(const Operands& x, const BwdParams& p, int batch,
       operand_map<D>(&mv, x.v, x.q, p.kv_len, heads, kDqKeys) &&
       operand_map<D>(&mdq, x.dq, x.q, rows, heads, 64);
   if (!ok) return kErrTensorMap;
-  if (cudaFuncSetAttribute(flash_bwd_dq90_kernel<T, D, kCap>,
+  if (cudaFuncSetAttribute(flash_bwd_dq90_kernel<T, D, kCap, kAux>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            L::kBytes) != cudaSuccess)
     return (int)cudaGetLastError();
   const dim3 grid((rows + kDqRows - 1) / kDqRows, kv_heads, batch);
-  flash_bwd_dq90_kernel<T, D, kCap>
+  flash_bwd_dq90_kernel<T, D, kCap, kAux>
       <<<grid, BwdTiles<D>::kDqThreads, L::kBytes, s>>>(mq, mdo, mk, mv,
-                                                        mdq, p);
+                                                        mdq, p, aux);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D, bool kCap>
-int launch_dkv(const Operands& x, const BwdParams& p, int batch,
-               int kv_heads, cudaStream_t s) {
+template <typename T, int D, bool kCap, bool kAux>
+int launch_dkv(const Operands& x, const BwdParams& p, const AuxOperands& aux,
+               int batch, int kv_heads, cudaStream_t s) {
   using L = DkvSmem<D>;
   constexpr int kDkvRows = BwdTiles<D>::kDkvRows;
   constexpr int kDkvKeys = BwdTiles<D>::kDkvKeys;
@@ -773,48 +1043,71 @@ int launch_dkv(const Operands& x, const BwdParams& p, int batch,
       operand_map<D>(&mdk, x.dk, x.k, p.kv_len, heads, 64) &&
       operand_map<D>(&mdv, x.dv, x.k, p.kv_len, heads, 64);
   if (!ok) return kErrTensorMap;
-  if (cudaFuncSetAttribute(flash_bwd_dkv90_kernel<T, D, kCap>,
+  // kAux: each warp's stage of the options, past the barriers.
+  constexpr int kBytes =
+      kAux ? aux_stage_offset(L::kBar + (1 + 2 * BwdTiles<D>::kStages) * 8) +
+                 1024 +
+                 BwdTiles<D>::kDkvThreads / 32 *
+                     AuxStage<BwdTiles<D>::kDkvRows>::kBytes
+           : L::kBytes;
+  static_assert(kBytes <= 232448, "an H100 block's shared memory");
+  if (cudaFuncSetAttribute(flash_bwd_dkv90_kernel<T, D, kCap, kAux>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           L::kBytes) != cudaSuccess)
+                           kBytes) != cudaSuccess)
     return (int)cudaGetLastError();
   const dim3 grid((unsigned)heads, (p.kv_len + kDkvKeys - 1) / kDkvKeys);
-  flash_bwd_dkv90_kernel<T, D, kCap>
-      <<<grid, BwdTiles<D>::kDkvThreads, L::kBytes, s>>>(mq, mdo, mk, mv,
-                                                         mdk, mdv, p);
+  flash_bwd_dkv90_kernel<T, D, kCap, kAux>
+      <<<grid, BwdTiles<D>::kDkvThreads, kBytes, s>>>(mq, mdo, mk, mv, mdk,
+                                                      mdv, p, aux);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D, bool kCap>
-int launch_one(bool dkv, const Operands& x, const BwdParams& p, int batch,
-               int kv_heads, cudaStream_t s) {
-  return dkv ? launch_dkv<T, D, kCap>(x, p, batch, kv_heads, s)
-             : launch_dq<T, D, kCap>(x, p, batch, kv_heads, s);
+template <typename T, int D, bool kCap, bool kAux = false>
+int launch_one(bool dkv, const Operands& x, const BwdParams& p,
+               const AuxOperands& aux, int batch, int kv_heads,
+               cudaStream_t s) {
+  return dkv ? launch_dkv<T, D, kCap, kAux>(x, p, aux, batch, kv_heads, s)
+             : launch_dq<T, D, kCap, kAux>(x, p, aux, batch, kv_heads, s);
 }
 
-// Head dim 64, 128 or 256, with or without the cap.
+// Head dim 64, 128 or 256, with or without the cap; with the options (aux
+// non-null), 64 or 128.
 template <typename T, int D>
 int launch_d(bool dkv, bool capped, const Operands& x, const BwdParams& p,
-             int batch, int kv_heads, cudaStream_t s) {
-  return capped ? launch_one<T, D, true>(dkv, x, p, batch, kv_heads, s)
-                : launch_one<T, D, false>(dkv, x, p, batch, kv_heads, s);
+             const AuxOperands* aux, int batch, int kv_heads,
+             cudaStream_t s) {
+  if constexpr (D <= 128) {
+    if (aux)
+      return capped ? launch_one<T, D, true, true>(dkv, x, p, *aux, batch,
+                                                   kv_heads, s)
+                    : launch_one<T, D, false, true>(dkv, x, p, *aux, batch,
+                                                    kv_heads, s);
+  } else {
+    if (aux) return (int)cudaErrorInvalidValue;
+  }
+  const AuxOperands none{};
+  return capped ? launch_one<T, D, true>(dkv, x, p, none, batch, kv_heads, s)
+                : launch_one<T, D, false>(dkv, x, p, none, batch, kv_heads,
+                                          s);
 }
 
 template <typename T>
 int launch(bool dkv, bool capped, const Operands& x, const BwdParams& p,
-           int batch, int kv_heads, int head_dim, cudaStream_t s) {
+           const AuxOperands* aux, int batch, int kv_heads, int head_dim,
+           cudaStream_t s) {
   if (head_dim == 64)
-    return launch_d<T, 64>(dkv, capped, x, p, batch, kv_heads, s);
+    return launch_d<T, 64>(dkv, capped, x, p, aux, batch, kv_heads, s);
   if (head_dim == 128)
-    return launch_d<T, 128>(dkv, capped, x, p, batch, kv_heads, s);
+    return launch_d<T, 128>(dkv, capped, x, p, aux, batch, kv_heads, s);
   if (head_dim == 256)
-    return launch_d<T, 256>(dkv, capped, x, p, batch, kv_heads, s);
+    return launch_d<T, 256>(dkv, capped, x, p, aux, batch, kv_heads, s);
   return (int)cudaErrorInvalidValue;
 }
 
 int run(bool dkv, const Operands& x, const void* lse, const void* dterm,
-        int batch, int q_heads, int kv_heads, int q_len, int kv_len,
-        int head_dim, float scale, float softcap, int causal, int window,
-        int is_fp16, void* stream) {
+        const AuxOperands* aux, int batch, int q_heads, int kv_heads,
+        int q_len, int kv_len, int head_dim, float scale, float softcap,
+        int causal, int window, int is_fp16, void* stream) {
   if (kv_heads <= 0 || q_heads % kv_heads || q_len < 0 || kv_len < 0 ||
       softcap < 0.f)
     return (int)cudaErrorInvalidValue;
@@ -824,6 +1117,7 @@ int run(bool dkv, const Operands& x, const void* lse, const void* dterm,
   p.group = q_heads / kv_heads;
   p.q_len = q_len;
   p.kv_len = kv_len;
+  p.kv_heads = kv_heads;
   p.scale = scale;
   p.scale_log2e = scale * kLog2e;
   p.cap2 = softcap * kLog2e;
@@ -832,10 +1126,10 @@ int run(bool dkv, const Operands& x, const void* lse, const void* dterm,
   p.window = window;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool capped = softcap > 0.f;
-  return is_fp16 ? launch<__half>(dkv, capped, x, p, batch, kv_heads,
+  return is_fp16 ? launch<__half>(dkv, capped, x, p, aux, batch, kv_heads,
                                   head_dim, s)
-                 : launch<__nv_bfloat16>(dkv, capped, x, p, batch, kv_heads,
-                                         head_dim, s);
+                 : launch<__nv_bfloat16>(dkv, capped, x, p, aux, batch,
+                                         kv_heads, head_dim, s);
 }
 
 }  // namespace
@@ -846,17 +1140,20 @@ extern "C" {
 // dq like q; is_fp16 selects fp16 (else bf16) for q, k, v, dout and dq.
 // head_dim 64, 128 or 256.  softcap > 0 soft-caps the scaled logits (the
 // forward's lse must be the capped logits'); 0: none.  window <= 0: none.
+// aux: the options (attention_common.cuh `AuxOperands`; dQ writes dbias
+// where aux->dbias is not null), or null for none; at head_dim 64 or 128.
 // Returns kErrTensorMap when cuTensorMapEncodeTiled refuses a TMA map.
 int mfa_flash_bwd_dq(const void* q, const void* k, const void* v,
                      const void* dout, const void* lse, const void* dterm,
                      void* dq, int batch, int q_heads, int kv_heads,
                      int q_len, int kv_len, int head_dim, float scale,
                      float softcap, int causal, int window, int is_fp16,
-                     void* stream) {
+                     const AuxOperands* aux, void* stream) {
   if (batch == 0 || q_len == 0) return 0;
   const Operands x{q, k, v, dout, dq, nullptr, nullptr};
-  return run(false, x, lse, dterm, batch, q_heads, kv_heads, q_len, kv_len,
-             head_dim, scale, softcap, causal, window, is_fp16, stream);
+  return run(false, x, lse, dterm, aux, batch, q_heads, kv_heads, q_len,
+             kv_len, head_dim, scale, softcap, causal, window, is_fp16,
+             stream);
 }
 
 // dk/dv like k, the GQA group summed in the kernel.
@@ -865,11 +1162,12 @@ int mfa_flash_bwd_dkv(const void* q, const void* k, const void* v,
                       void* dk, void* dv, int batch, int q_heads,
                       int kv_heads, int q_len, int kv_len, int head_dim,
                       float scale, float softcap, int causal, int window,
-                      int is_fp16, void* stream) {
+                      int is_fp16, const AuxOperands* aux, void* stream) {
   if (batch == 0 || kv_len == 0) return 0;
   const Operands x{q, k, v, dout, nullptr, dk, dv};
-  return run(true, x, lse, dterm, batch, q_heads, kv_heads, q_len, kv_len,
-             head_dim, scale, softcap, causal, window, is_fp16, stream);
+  return run(true, x, lse, dterm, aux, batch, q_heads, kv_heads, q_len,
+             kv_len, head_dim, scale, softcap, causal, window, is_fp16,
+             stream);
 }
 
 const char* mfa_cuda_error_string(int code) {

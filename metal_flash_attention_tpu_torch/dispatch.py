@@ -9,7 +9,9 @@ decode loop whose kv_len grows each step reuses one entry.  The JAX
 package's second cache level, `jax.jit`'s executables, has no
 counterpart: PyTorch runs eagerly and the kernels are built once per
 process (`native/build.py`).  `ops.flash_attention` checks the operands
-and refuses what the port does not compute yet.  K and V may be
+(the options among them) and refuses what the port does not compute
+yet; each set of options (the descriptor's ``has_*`` flags) is an entry
+of its own.  K and V may be
 `QuantizedTensor`s (a quantized cache): the descriptor then carries
 their ``kv_precision``, and the call is the forward, with no graph.
 """

@@ -43,10 +43,23 @@ quantized K/V to ``LAUNCH_COUNTS["flash_fwd_<precision>"]``, with the
 soft cap to ``["flash_fwd_softcap"]`` and at head_dim 256 to
 ``["flash_fwd_d256"]`` too.
 
-Not ported yet, and refused on every device: mask / bias / mask2,
-segment ids and low_precision_intermediates.  The TPU
-block sizes (``block_q``, ``block_kv``) have no meaning
-here: the kernels' tiles are fixed (`descriptors.attention_descriptor`).
+The options of the JAX kernels, on every device: ``mask`` (nonzero
+attends; cast to int8 first, as the JAX wrapper does, so 0.5 gates off)
+and ``mask2`` (ANDed with it; only beside a mask), an additive ``bias``
+(natural units, added after the soft cap), all [B_m, H_m, q_len, kv_len]
+with B_m and H_m 1 (broadcast) or any divisor of batch and q_heads
+(repeated: batch b reads b % B_m, as the JAX index maps); packed-sequence
+``q_segment_ids`` [batch, q_len] / ``kv_segment_ids`` [batch, kv_len] (a
+pair attends only within equal ids); and ``low_precision_intermediates``,
+which returns lse in bf16 (a cast after the kernel, the value JAX's bf16
+store holds; the backward then reads D in bf16 too).  A row whose keys
+are all masked or gated gives o = 0 and lse = -inf.  On the card the
+options run on the `kAux` kernels (bf16 / fp16, head_dim 64 and 128,
+with or without the cap), counted also as ``["flash_fwd_aux"]``; with
+head_dim 256, quantized K/V or float32 they raise there (the plain
+versions take them).  The TPU block sizes (``block_q``, ``block_kv``)
+have no meaning here: the kernels' tiles are fixed
+(`descriptors.attention_descriptor`).
 """
 
 from __future__ import annotations
@@ -66,6 +79,7 @@ from metal_flash_attention_tpu_torch.ops.quantization import (
     logical_shape,
 )
 from metal_flash_attention_tpu_torch.ops.reference import (
+    AttentionOptions,
     attention_reference,
     softcap_value,
 )
@@ -80,10 +94,22 @@ KERNEL_DTYPES = (torch.bfloat16, torch.float16)
 # One count per kernel, bumped only where its wrapper launches it.
 LAUNCH_COUNTS = {"flash_fwd": 0, "flash_fwd_sm90": 0,
                  **{f"flash_fwd_{p.value}": 0 for p in KV_PRECISIONS},
-                 "flash_fwd_softcap": 0, "flash_fwd_d256": 0}
+                 "flash_fwd_softcap": 0, "flash_fwd_d256": 0,
+                 "flash_fwd_aux": 0}
 
-OPTIONS_ITEM = "flash-attention options"
 KERNEL_ITEM = "flash-kernel coverage"
+
+
+class AuxOperands(ctypes.Structure):
+    """The kernels' options as `csrc/attention_common.cuh` declares them
+    (`AuxOperands`), passed by pointer."""
+
+    _fields_ = [("mask", ctypes.c_void_p), ("mask2", ctypes.c_void_p),
+                ("bias", ctypes.c_void_p), ("q_seg", ctypes.c_void_p),
+                ("kv_seg", ctypes.c_void_p), ("dbias", ctypes.c_void_p),
+                *[(name, ctypes.c_int) for name in (
+                    "mask_b", "mask_h", "mask2_b", "mask2_h", "bias_b",
+                    "bias_h", "bias_f32", "ld")]]
 
 
 def reset_launch_counts() -> None:
@@ -91,19 +117,58 @@ def reset_launch_counts() -> None:
         LAUNCH_COUNTS[name] = 0
 
 
-def check_options(k, *, mask=None, bias=None, mask2=None,
+def check_options(q, k, *, mask=None, bias=None, mask2=None,
                   q_segment_ids=None, kv_segment_ids=None,
-                  logit_softcap=None, low_precision_intermediates=False,
-                  window_size=None) -> None:
-    """Refuse, on every device, what the port does not compute yet."""
-    if mask is not None or bias is not None or mask2 is not None:
-        raise not_ported("mask, bias and mask2 operands", OPTIONS_ITEM)
-    if q_segment_ids is not None or kv_segment_ids is not None:
-        raise not_ported("segment ids", OPTIONS_ITEM)
-    if low_precision_intermediates:
-        raise not_ported("low_precision_intermediates", OPTIONS_ITEM)
+                  window_size=None) -> Optional[AttentionOptions]:
+    """The options as every path takes them (None without any), or raise
+    on what the JAX wrapper asserts (`ops/flash_attention.py:983-988`,
+    `:1166-1170`): mask2 needs mask, segment ids come in pairs, mask and
+    bias dims divide batch and q_heads.  Masks become int8, as JAX casts
+    them; segment ids int32."""
     if window_size is not None and window_size <= 0:
         raise ValueError(f"window_size must be positive, got {window_size}")
+    if mask2 is not None and mask is None:
+        raise ValueError("mask2 requires mask")
+    if (q_segment_ids is None) != (kv_segment_ids is None):
+        raise ValueError("q_segment_ids and kv_segment_ids must come "
+                         "together")
+    if mask is None and bias is None and q_segment_ids is None:
+        return None
+    batch, heads, r = q.shape[0], q.shape[1], q.shape[2]
+    c = logical_shape(k)[2]
+    for name, t in (("mask", mask), ("mask2", mask2), ("bias", bias)):
+        if t is None:
+            continue
+        if t.dim() != 4 or tuple(t.shape[2:]) != (r, c) or \
+                batch % t.shape[0] or heads % t.shape[1]:
+            raise ValueError(f"{name} must be [B, H, {r}, {c}] with B "
+                             f"dividing {batch} and H dividing {heads}; "
+                             f"got {tuple(t.shape)}")
+    for name, t, n in (("q_segment_ids", q_segment_ids, r),
+                       ("kv_segment_ids", kv_segment_ids, c)):
+        if t is not None and tuple(t.shape) != (batch, n):
+            raise ValueError(f"{name} must be [{batch}, {n}], got "
+                             f"{tuple(t.shape)}")
+    if bias is not None and not bias.is_floating_point():
+        raise TypeError(f"bias must be a float tensor, got {bias.dtype}")
+
+    def as_int8(m):
+        if m is None:
+            return None
+        return m.view(torch.int8) if m.dtype == torch.bool else \
+            m.to(torch.int8)
+
+    def as_int32(ids):
+        return None if ids is None else ids.to(torch.int32)
+    options = AttentionOptions(
+        mask=as_int8(mask), mask2=as_int8(mask2), bias=bias,
+        q_segment_ids=as_int32(q_segment_ids),
+        kv_segment_ids=as_int32(kv_segment_ids))
+    for name, t in vars(options).items():
+        if t is not None and t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, expected "
+                             f"{q.device}")
+    return options
 
 
 def check_shapes(q, k, v) -> None:
@@ -165,42 +230,46 @@ def flash_attention_forward(q: torch.Tensor, k: torch.Tensor,
     """Fused forward attention -> (o, lse).
 
     o is [batch, q_heads, q_len, head_dim] in ``out_dtype`` (default
-    q's dtype); lse is the float32 natural-log row logsumexp
-    [batch, q_heads, q_len].  No autograd graph: see `flash_attention`.
+    q's dtype); lse is the natural-log row logsumexp [batch, q_heads,
+    q_len], float32 (bf16 with ``low_precision_intermediates``).  No
+    autograd graph: see `flash_attention`.
     """
-    check_options(k, mask=mask, bias=bias, mask2=mask2,
-                  q_segment_ids=q_segment_ids,
-                  kv_segment_ids=kv_segment_ids,
-                  logit_softcap=logit_softcap,
-                  low_precision_intermediates=low_precision_intermediates,
-                  window_size=window_size)
     check_shapes(q, k, v)
+    options = check_options(q, k, mask=mask, bias=bias, mask2=mask2,
+                            q_segment_ids=q_segment_ids,
+                            kv_segment_ids=kv_segment_ids,
+                            window_size=window_size)
     return _forward(q, k, v, causal=causal, window_size=window_size,
                     scale=scale, out_dtype=out_dtype,
-                    softcap=softcap_value(logit_softcap))
+                    softcap=softcap_value(logit_softcap), options=options,
+                    low_precision=low_precision_intermediates)
 
 
 def _forward(q, k, v, *, causal, window_size, scale, out_dtype,
-             softcap=None):
+             softcap=None, options=None, low_precision=False):
     """The forward on checked operands: the kernel for a CUDA tensor,
-    the plain version for a CPU tensor.  ``softcap``: the cap, or None."""
+    the plain version for a CPU tensor.  ``softcap``: the cap, or None;
+    ``options``: `check_options`'s; ``low_precision``: lse in bf16."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     out_dtype = out_dtype or q.dtype
     quantized = isinstance(k, QuantizedTensor)
+    kw = dict(causal=causal, window_size=window_size, scale=scale,
+              out_dtype=out_dtype, softcap=softcap, options=options)
     with torch.no_grad():
         if q.is_cuda:
             if not quantized:
                 k, v = k.contiguous(), v.contiguous()
-            return _forward_cuda(q.contiguous(), k, v, causal=causal,
-                                 window_size=window_size, scale=scale,
-                                 out_dtype=out_dtype, softcap=softcap)
-        if q.device.type != "cpu":
+            o, lse = _forward_cuda(q.contiguous(), k, v, **kw)
+        elif q.device.type != "cpu":
             raise ValueError(f"flash attention runs on cpu or cuda "
                              f"tensors, got {q.device}")
-        plain = _forward_plain_quantized if quantized else _forward_plain
-        return plain(q, k, v, causal=causal, window_size=window_size,
-                     scale=scale, out_dtype=out_dtype, softcap=softcap)
+        else:
+            plain = _forward_plain_quantized if quantized else _forward_plain
+            o, lse = plain(q, k, v, **kw)
+    # The JAX kernel's bf16 store of L (lowPrecisionIntermediates): the
+    # same rounding of the same float32 value.
+    return o, (lse.to(torch.bfloat16) if low_precision else lse)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -221,45 +290,47 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         FlashAttentionFunction,
     )
 
-    check_options(k, mask=mask, bias=bias, mask2=mask2,
-                  q_segment_ids=q_segment_ids,
-                  kv_segment_ids=kv_segment_ids,
-                  logit_softcap=logit_softcap,
-                  low_precision_intermediates=low_precision_intermediates,
-                  window_size=window_size)
     check_shapes(q, k, v)
+    options = check_options(q, k, mask=mask, bias=bias, mask2=mask2,
+                            q_segment_ids=q_segment_ids,
+                            kv_segment_ids=kv_segment_ids,
+                            window_size=window_size)
     softcap = softcap_value(logit_softcap)
     if isinstance(k, QuantizedTensor):
         o, lse = _forward(q, k, v, causal=causal, window_size=window_size,
-                          scale=scale, out_dtype=out_dtype, softcap=softcap)
+                          scale=scale, out_dtype=out_dtype, softcap=softcap,
+                          options=options,
+                          low_precision=low_precision_intermediates)
         return (o, lse) if return_residuals else o
     o, lse = FlashAttentionFunction.apply(
-        q.contiguous(), k.contiguous(), v.contiguous(), causal,
-        window_size, scale, out_dtype, softcap)
+        q.contiguous(), k.contiguous(), v.contiguous(), bias, options,
+        causal, window_size, scale, out_dtype, softcap,
+        low_precision_intermediates)
     return (o, lse) if return_residuals else o
 
 
 def _forward_plain(q, k, v, *, causal, window_size, scale, out_dtype,
-                   softcap=None):
+                   softcap=None, options=None):
     """The plain PyTorch version: materialised float32 scores and
-    softmax (`ops.reference`).  It is what a CPU tensor runs and what the
-    kernel is held against on the card."""
+    softmax (`ops.reference`), with the options.  It is what a CPU tensor
+    runs and what the kernel is held against on the card."""
     o, lse = attention_reference(q, k, v, causal=causal,
                                  window_size=window_size, scale=scale,
                                  logit_softcap=softcap,
-                                 return_residuals=True)
+                                 return_residuals=True, options=options)
     return o.to(out_dtype), lse
 
 
 def _forward_plain_quantized(q, k, v, *, causal, window_size, scale,
-                             out_dtype, softcap=None):
+                             out_dtype, softcap=None, options=None):
     """The plain version over quantized K/V: each dequantized in float32
     (NF4's codebook rounded to q's type, as the kernel rounds it), then
     `_forward_plain`.  What a CPU tensor runs, and what the kernel is
     held against on the card."""
     return _forward_plain(q, dequantize(k, q.dtype), dequantize(v, q.dtype),
                           causal=causal, window_size=window_size,
-                          scale=scale, out_dtype=out_dtype, softcap=softcap)
+                          scale=scale, out_dtype=out_dtype, softcap=softcap,
+                          options=options)
 
 
 @functools.cache
@@ -274,7 +345,8 @@ def bind_library(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C interface of a build of csrc/flash_attention.cu."""
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.mfa_flash_fwd.argtypes = ([ptr] * 7 + [i32] * 6
-                                  + [ctypes.c_float] * 2 + [i32] * 5 + [ptr])
+                                  + [ctypes.c_float] * 2 + [i32] * 5
+                                  + [ctypes.POINTER(AuxOperands), ptr])
     lib.mfa_flash_fwd.restype = i32
     lib.mfa_cuda_error_string.argtypes = [i32]
     lib.mfa_cuda_error_string.restype = ctypes.c_char_p
@@ -302,12 +374,66 @@ def _quantized_operands(q, k, v):
             k.scales.contiguous(), v.scales.contiguous(), precision)
 
 
+def aux_operands(options, q, dbias=None):
+    """`options` (`check_options`'s, on q's card) as the kernels take
+    them, or None without options: a 16-bit bias in q's type or float32
+    (any other float type widened), every operand contiguous and 16-byte
+    aligned, the planes of mask, mask2 and bias padded to rows of a
+    multiple of 16 keys (whole 16-byte copies for dK/dV's stage; a
+    thread of the forward and dQ loads its two side-by-side keys at once);
+    ``dbias``: the dQ kernel's float32 output.  Returns (struct, the
+    tensors it points into, to be kept alive over the launch)."""
+    if options is None or all(t is None for t in vars(options).values()):
+        return None, ()
+    if q.dtype == torch.float32:
+        raise not_ported("the flash-attention options with float32 on "
+                         "CUDA", KERNEL_ITEM)
+    if q.shape[-1] not in KERNEL_HEAD_DIMS:
+        raise not_ported(f"the flash-attention options at head_dim "
+                         f"{q.shape[-1]} on CUDA (they take "
+                         f"{KERNEL_HEAD_DIMS})", KERNEL_ITEM)
+    bias = options.bias
+    if bias is not None and bias.dtype not in (q.dtype, torch.float32):
+        bias = bias.float()
+    planes = dict(mask=options.mask, mask2=options.mask2, bias=bias)
+    kv_len = next(t.shape[-1] for t in (*planes.values(),
+                                         options.kv_segment_ids)
+                  if t is not None)
+    ld = -(-kv_len // 16) * 16
+
+    def laid_out(t, pad=False):
+        if t is None:
+            return None
+        if pad and t.shape[-1] != ld:
+            t = torch.nn.functional.pad(t, (0, ld - t.shape[-1]))
+        t = t.contiguous()
+        return t if t.data_ptr() % 16 == 0 else t.clone()
+    tensors = {n: laid_out(t, pad=True) for n, t in planes.items()}
+    tensors["q_seg"] = laid_out(options.q_segment_ids)
+    tensors["kv_seg"] = laid_out(options.kv_segment_ids)
+    if dbias is not None:
+        tensors["dbias"] = dbias
+    aux = AuxOperands(**{n: None if t is None else t.data_ptr()
+                         for n, t in tensors.items()})
+    for name in ("mask", "mask2", "bias"):
+        t = tensors[name]
+        if t is not None:
+            setattr(aux, f"{name}_b", t.shape[0])
+            setattr(aux, f"{name}_h", t.shape[1])
+    aux.bias_f32 = int(bias is not None and bias.dtype == torch.float32)
+    aux.ld = ld
+    return aux, tuple(t for t in tensors.values() if t is not None)
+
+
 def _forward_cuda(q, k, v, *, causal, window_size, scale, out_dtype,
-                  softcap=None):
+                  softcap=None, options=None):
     """Launch the Hopper kernel; raise on anything it does not take."""
     precision, scales = None, (None, None)
     head_dims = UNQUANTIZED_HEAD_DIMS
     if isinstance(k, QuantizedTensor):
+        if options is not None:
+            raise not_ported("the flash-attention options over quantized "
+                             "K/V in the forward kernel", KERNEL_ITEM)
         if softcap is not None:
             raise not_ported("logit_softcap over quantized K/V in the "
                              "forward kernel", KERNEL_ITEM)
@@ -321,6 +447,7 @@ def _forward_cuda(q, k, v, *, causal, window_size, scale, out_dtype,
     if out_dtype not in (q.dtype, torch.float32):
         raise TypeError(f"out_dtype must be q's dtype or float32, got "
                         f"{out_dtype}")
+    aux, keep = aux_operands(options, q)
     b, qh, n, d = q.shape
     kvh, m = k.shape[1], k.shape[2]
     lib = _kernel_library()
@@ -335,7 +462,9 @@ def _forward_cuda(q, k, v, *, causal, window_size, scale, out_dtype,
             ctypes.c_float(scale), ctypes.c_float(softcap or 0.0),
             int(causal), window_size or 0,
             int(q.dtype == torch.float16), int(out_dtype == torch.float32),
-            0 if precision is None else PRECISION_CODE[precision], stream)
+            0 if precision is None else PRECISION_CODE[precision],
+            None if aux is None else ctypes.byref(aux), stream)
+    del keep
     raise_on_launch_error(lib, rc, "flash_fwd")
     LAUNCH_COUNTS["flash_fwd"] += 1
     LAUNCH_COUNTS["flash_fwd_sm90"] += 1
@@ -345,4 +474,6 @@ def _forward_cuda(q, k, v, *, causal, window_size, scale, out_dtype,
         LAUNCH_COUNTS["flash_fwd_softcap"] += 1
     if d == 256:
         LAUNCH_COUNTS["flash_fwd_d256"] += 1
+    if aux is not None:
+        LAUNCH_COUNTS["flash_fwd_aux"] += 1
     return o, lse

@@ -239,28 +239,6 @@ class _Quantized:
     precision = OperandPrecision.INT8
 
 
-@pytest.mark.parametrize("option", [
-    dict(mask=torch.ones(1, 1, 8, 8, dtype=torch.bool)),
-    dict(bias=torch.zeros(1, 1, 8, 8)),
-    dict(q_segment_ids=torch.zeros(1, 8, dtype=torch.int32),
-         kv_segment_ids=torch.zeros(1, 8, dtype=torch.int32)),
-    dict(mask2=torch.ones(1, 1, 8, 8, dtype=torch.bool)),
-    dict(low_precision_intermediates=True),
-])
-def test_unported_options_raise_on_every_device(option):
-    """What no path computes yet raises on every device, forward and
-    backward.  (The soft cap, once among these, is computed by both since
-    Gemma-2 training: see the softcap parity tests.)"""
-    q = torch.zeros(1, 2, 8, 32, requires_grad=True)
-    k = torch.zeros(1, 1, 8, 32)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tfa.flash_attention(q, k, k, **option)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tfa.flash_attention_forward(q, k, k, **option)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tfb.flash_attention_backward(q, k, k, q, q, q[..., 0], **option)
-
-
 # Gemma-2's forward options: the soft cap (the model's 50; 2 over queries
 # scaled by 4, where the tanh saturates) at head dims 64 and 256, causal,
 # with and without its local layers' window.

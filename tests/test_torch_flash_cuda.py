@@ -151,7 +151,7 @@ def test_backward_kernels_match_plain(cuda, dtype, b, qh, kvh, n, m, d,
                                              window_size=window)
     torch.cuda.synchronize()
     assert fb.LAUNCH_COUNTS == {
-        name: c + (not name.endswith(("_softcap", "_d256")))
+        name: c + (not name.endswith(("_softcap", "_d256", "_aux")))
         for name, c in before.items()}
     assert (dq.dtype, dk.dtype, dv.dtype) == (dtype,) * 3
     ref = fb._backward_plain(q.float(), k.float(), v.float(), do.float(),
@@ -508,9 +508,9 @@ def test_remat_runs_the_forward_kernel_twice(cuda):
     bwd = {"flash_bwd_dq": n, "flash_bwd_dkv": n, "flash_bwd_dq_sm90": n,
            "flash_bwd_dkv_sm90": n,
            **{f"flash_bwd_{op}_{v}": 0 for op in ("dq", "dkv")
-              for v in ("softcap", "d256")},
+              for v in ("softcap", "d256", "aux")},
            **{f"flash_fwd_{p.value}": 0 for p in fa.KV_PRECISIONS},
-           "flash_fwd_softcap": 0, "flash_fwd_d256": 0}
+           "flash_fwd_softcap": 0, "flash_fwd_d256": 0, "flash_fwd_aux": 0}
     assert counts[0] == {"flash_fwd": n, "flash_fwd_sm90": n, **bwd}
     assert counts[1] == {"flash_fwd": 2 * n, "flash_fwd_sm90": 2 * n, **bwd}
     (l0, g0), (l1, g1) = results
@@ -534,3 +534,167 @@ def test_train_loss_and_gradients_on_the_card_match_the_cpu(cuda):
         assert torch.isfinite(g).all()
         rel = (g - r).pow(2).mean().sqrt() / r.pow(2).mean().sqrt()
         assert float(rel) <= 5e-2
+
+
+# The flash-attention options on the `kAux` kernels: (b, qh, kvh, n, m, d,
+# causal, window, cap, options), each option set built by `_options`.
+AUX_CASES = [
+    (4, 4, 2, 200, 200, 64, True, None, None, "mask"),
+    (4, 4, 2, 130, 300, 128, False, None, None, "mask_repeat"),
+    (2, 8, 2, 256, 256, 128, True, 90, None, "mask_head_and_mask2"),
+    (2, 4, 2, 200, 200, 64, True, None, None, "bias"),
+    (2, 4, 4, 93, 160, 128, False, 70, 5.0, "bias_full_f32"),
+    (2, 8, 2, 300, 300, 128, True, None, None, "segments"),
+    (1, 4, 1, 250, 250, 64, False, None, None, "segments_no_keys"),
+    (2, 8, 2, 256, 256, 128, True, 100, 20.0, "everything"),
+]
+
+
+def _options(kind, b, qh, n, m, dtype, device, seed=20):
+    """Seeded options of one kind: masks with rows gated whole, biases
+    [1 or b, qh, n, m], packed segments (3 documents), a q segment with no
+    kv token."""
+    rng = np.random.default_rng(seed)
+
+    def mask(bm, hm, keep=0.7):
+        x = rng.random((bm, hm, n, m)) < keep
+        x[..., 3, :] = False
+        return torch.as_tensor(x, device=device)
+
+    def bias(bb, dt):
+        return torch.as_tensor(rng.standard_normal((bb, qh, n, m)).astype(
+            np.float32), device=device).to(dt)
+
+    def segments(no_keys=False):
+        cuts = sorted(rng.choice(np.arange(1, min(n, m)), 2, replace=False))
+        q_ids = np.zeros((b, n), np.int32)
+        kv_ids = np.zeros((b, m), np.int32)
+        for i, c in enumerate(cuts):
+            q_ids[:, c:] = i + 1
+            kv_ids[:, c * m // n:] = i + 1
+        if no_keys:
+            q_ids[:, n // 2:n // 2 + 20] = 7
+        return dict(q_segment_ids=torch.as_tensor(q_ids, device=device),
+                    kv_segment_ids=torch.as_tensor(kv_ids, device=device))
+    if kind == "mask":
+        return dict(mask=mask(1, 1))
+    if kind == "mask_repeat":
+        return dict(mask=mask(2, 1, keep=0.5))
+    if kind == "mask_head_and_mask2":
+        return dict(mask=mask(1, qh), mask2=mask(b, 1, keep=0.9))
+    if kind == "bias":
+        return dict(bias=bias(1, dtype))
+    if kind == "bias_full_f32":
+        return dict(bias=bias(b, torch.float32))
+    if kind == "segments":
+        return segments()
+    if kind == "segments_no_keys":
+        return segments(no_keys=True)
+    return dict(mask=mask(1, qh, keep=0.9), mask2=mask(2, 1, keep=0.9),
+                bias=bias(1, dtype), **segments())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("b,qh,kvh,n,m,d,causal,window,cap,kind", AUX_CASES)
+def test_option_kernels_match_plain(cuda, dtype, b, qh, kvh, n, m, d, causal,
+                                    window, cap, kind):
+    """The forward, dQ (with dbias) and dK/dV `_aux` kernels under
+    autograd against the plain versions: o and lse at MIXED_TOL, the
+    gradients (dbias reduced over the bias's size-1 dims) at MIXED_TOL
+    relative to their size; each launch counted on the op, `_sm90` and
+    `_aux`."""
+    q, k, v, do = _qkv(30, b, qh, kvh, n, m, d, dtype, cuda)
+    opts = _options(kind, b, qh, n, m, dtype, cuda)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    if "bias" in opts:
+        opts["bias"] = opts["bias"].clone().requires_grad_(True)
+        leaves.append(opts["bias"])
+    fa.reset_launch_counts()
+    fb.reset_launch_counts()
+    o, lse = fa.flash_attention(*leaves[:3], **opts, causal=causal,
+                                window_size=window, logit_softcap=cap,
+                                return_residuals=True)
+    (o.float() * do.float()).sum().backward()
+    torch.cuda.synchronize()
+    for name in ("flash_fwd", "flash_fwd_sm90", "flash_fwd_aux"):
+        assert fa.LAUNCH_COUNTS[name] == 1, name
+    for op in ("dq", "dkv"):
+        for suffix in ("", "_sm90", "_aux"):
+            assert fb.LAUNCH_COUNTS[f"flash_bwd_{op}{suffix}"] == 1
+    options = fa.check_options(q, k, **{n_: t.detach() for n_, t in
+                                        opts.items()})
+    kw = dict(causal=causal, window_size=window, scale=d ** -0.5,
+              softcap=cap, options=options)
+    po, plse = fa._forward_plain(q, k, v, out_dtype=torch.float32, **kw)
+    assert max_abs_err(o, po) <= MIXED_TOL.o
+    assert max_abs_err(lse, plse) <= MIXED_TOL.lse
+    assert torch.equal(torch.isinf(lse), torch.isinf(plse))
+    *ref, dbias = fb._backward_plain(q.float(), k.float(), v.float(),
+                                     do.float(), compute_dbias=True, **kw)
+    if dbias is not None:
+        ref.append(fb.reduce_dbias(dbias, opts["bias"]))
+    for name, leaf, want in zip(("dq", "dk", "dv", "dbias"), leaves, ref):
+        assert leaf.grad.dtype == leaf.dtype, name
+        assert torch.isfinite(leaf.grad).all(), name
+        ok, err = _grad_ok(leaf.grad, want, MIXED_TOL.grads)
+        assert ok, (name, err)
+
+
+def test_option_rows_without_keys_and_low_precision(cuda):
+    """Rows whose keys are all gated or of another segment give o = 0 and
+    lse = -inf; ``low_precision_intermediates`` returns lse in bf16 (the
+    float32 lse rounded) and the gradients stay within MIXED_TOL."""
+    q, k, v, do = _qkv(31, 1, 4, 1, 250, 250, 64, torch.bfloat16, cuda)
+    opts = _options("segments_no_keys", 1, 4, 250, 250, torch.bfloat16,
+                    cuda)
+    opts["mask"] = _options("mask", 1, 4, 250, 250, torch.bfloat16,
+                            cuda)["mask"]
+    o, lse = fa.flash_attention_forward(q, k, v, **opts)
+    blind = list(range(125, 145)) + [3]
+    assert torch.all(o[:, :, blind] == 0)
+    assert torch.all(torch.isneginf(lse[:, :, blind]))
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    o2, lse2 = fa.flash_attention(*leaves, **opts, return_residuals=True,
+                                  low_precision_intermediates=True)
+    assert lse2.dtype == torch.bfloat16
+    assert torch.equal(lse2, lse.to(torch.bfloat16))
+    (o2.float() * do.float()).sum().backward()
+    ref = fb._backward_plain(q.float(), k.float(), v.float(), do.float(),
+                             causal=False, window_size=None,
+                             scale=64 ** -0.5,
+                             options=fa.check_options(q, k, **opts))
+    for leaf, want in zip(leaves, ref):
+        ok, err = _grad_ok(leaf.grad, want, MIXED_TOL.grads)
+        assert ok, err
+
+
+def test_options_refused_where_the_kernels_do_not_take_them(cuda):
+    """Options at head_dim 256, over quantized K/V and in float32 raise
+    on the card (the plain versions take them)."""
+    mask = torch.ones(1, 1, 64, 64, dtype=torch.bool, device=cuda)
+    q, k, v, _ = _qkv(32, 1, 4, 2, 64, 64, 256, torch.bfloat16, cuda)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        fa.flash_attention_forward(q, k, v, mask=mask)
+    q, k, v, _ = _qkv(32, 1, 4, 2, 64, 64, 64, torch.bfloat16, cuda)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        fa.flash_attention_forward(q.float(), k.float(), v.float(),
+                                   mask=mask)
+    kq, vq = _quantized_kv(9, 1, 2, 64, 64, "int8", cuda)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        fa.flash_attention_forward(q, kq, vq, mask=mask)
+
+
+def test_options_never_take_a_plain_version_on_the_card(cuda, monkeypatch):
+    """A CUDA tensor with options runs the kernels or raises: the plain
+    versions, replaced by a fault, are never reached."""
+    def refuse(*a, **kw):
+        raise AssertionError("a plain version ran on a CUDA tensor")
+    monkeypatch.setattr(fa, "_forward_plain", refuse)
+    monkeypatch.setattr(fb, "_backward_plain", refuse)
+    q, k, v, do = _qkv(33, 2, 4, 2, 128, 128, 64, torch.bfloat16, cuda)
+    opts = _options("everything", 2, 4, 128, 128, torch.bfloat16, cuda)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    o = fa.flash_attention(*leaves, **opts, causal=True)
+    (o.float() * do.float()).sum().backward()
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(x.grad).all() for x in leaves)

@@ -8,7 +8,7 @@ kernels beside them.
 Run from the root of a checkout, on a machine with a CUDA card and the
 CUDA toolkit:
 
-    python3 tools/flash_bwd_ablation.py [--parent DIR]
+    python3 tools/flash_bwd_ablation.py [--parent DIR] [--variants A,B]
 
 Each variant is `csrc/flash_attention_bwd.cu` with `-D` tile defines
 (`csrc/flash_tiles.cuh`) and text patches, built with every
@@ -37,10 +37,11 @@ shapes:
 Every variant but the last two computes the backward (each is held
 against `sm90` by the worst 64-row tile); those two are for their
 times.  (A third, producer warpgroup issuing the ring's loads was
-slower and spilled at D 128, PERF.md §6; it has no variant here.)  With
---parent DIR, the backward of the checkout at DIR
-(for example the parent commit, unpacked with `git archive`) runs at
-the Llama shape in a process of its own before and after the variants.
+slower and spilled at D 128, PERF.md §6; it has no variant here.)
+--variants builds and times only the named ones.  With --parent DIR,
+the backward of the checkout at DIR (for example the parent commit,
+unpacked with `git archive`) runs at both shapes in a process of its
+own before and after the variants.
 A time is `chip_smoke.timed_spread`'s: the median, min and max device ms
 a call over 5 profiled loops.  Prints the card's name and power limit,
 then one JSON line a variant and shape with ptxas's registers, spills
@@ -53,6 +54,7 @@ import argparse
 import ctypes
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -102,27 +104,32 @@ sys.path.insert(0, ".")
 import chip_smoke
 from metal_flash_attention_tpu_torch.ops import flash_attention as fa
 from metal_flash_attention_tpu_torch.ops import flash_attention_bwd as fb
-b, qh, kvh, n = json.loads(sys.argv[1])
-g = torch.Generator(device="cuda").manual_seed(int(sys.argv[2]))
-q, k, v, do = (torch.randn((b, h, n, 128), generator=g, device="cuda")
-               .to(torch.bfloat16) for h in (qh, kvh, kvh, qh))
-o, lse = fa.flash_attention_forward(q, k, v, causal=True)
-d_term = (do.float() * o.float()).sum(dim=-1)
-kw = dict(causal=True, window_size=None, scale=128 ** -0.5)
-iters = int(sys.argv[3])
-print(json.dumps({
-    "dq": chip_smoke.timed_spread(
-        lambda: fb._dq_cuda(q, k, v, do, lse, d_term, **kw), iters),
-    "dkv": chip_smoke.timed_spread(
-        lambda: fb._dkv_cuda(q, k, v, do, lse, d_term, **kw), iters)}))
+out = {}
+for name, (b, qh, kvh, n, d, cap) in json.loads(sys.argv[1]).items():
+    g = torch.Generator(device="cuda").manual_seed(int(sys.argv[2]))
+    q, k, v, do = (torch.randn((b, h, n, d), generator=g, device="cuda")
+                   .to(torch.bfloat16) for h in (qh, kvh, kvh, qh))
+    o, lse = fa.flash_attention_forward(q, k, v, causal=True,
+                                        logit_softcap=cap)
+    d_term = (do.float() * o.float()).sum(dim=-1)
+    kw = dict(causal=True, window_size=None, scale=d ** -0.5, softcap=cap)
+    iters = int(sys.argv[3])
+    out[name] = {
+        "dq": chip_smoke.timed_spread(
+            lambda: fb._dq_cuda(q, k, v, do, lse, d_term, **kw), iters),
+        "dkv": chip_smoke.timed_spread(
+            lambda: fb._dkv_cuda(q, k, v, do, lse, d_term, **kw), iters)}
+print(json.dumps(out))
 """
 
 
 def kernel_label(mangled: str) -> str:
     d = next(f" D{d}" for d in (64, 128, 256) if f"Li{d}E" in mangled)
+    # The last template arguments, kCap and kAux, mangle as Lb1E / Lb0E.
+    cap, aux = re.search(r"Lb([01])ELb([01])EEEv", mangled).groups()
     return (("dkv " if "dkv90" in mangled else "dq ")
             + ("fp16" if "6__half" in mangled else "bf16") + d
-            + (" cap" if "Lb1E" in mangled else ""))
+            + (" cap" if cap == "1" else "") + (" aux" if aux == "1" else ""))
 
 
 def ptxas_summary(log: str) -> dict:
@@ -144,9 +151,9 @@ def ptxas_summary(log: str) -> dict:
     return rows
 
 
-def build_variants() -> tuple[dict, dict]:
-    """({variant: bound library}, {variant: ptxas summary}), one nvcc
-    each, all started together."""
+def build_variants(names) -> tuple[dict, dict]:
+    """({variant: bound library}, {variant: ptxas summary}) of the named
+    variants, one nvcc each, all started together."""
     from metal_flash_attention_tpu_torch.native import build as nb
     from metal_flash_attention_tpu_torch.ops.flash_attention_bwd import (
         bind_library,
@@ -155,7 +162,8 @@ def build_variants() -> tuple[dict, dict]:
     with open(os.path.join(nb.SRC_DIR, "flash_attention_bwd.cu")) as f:
         source = f.read()
     procs = {}
-    for name, (defines, patches) in VARIANTS.items():
+    for name in names:
+        defines, patches = VARIANTS[name]
         out_dir = os.path.join(nb.BUILD_DIR, "ablation_bwd", name)
         os.makedirs(out_dir, exist_ok=True)
         src = os.path.join(out_dir, "flash_attention_bwd.cu")
@@ -180,8 +188,8 @@ def time_tree(path: str) -> dict:
     """The backward pair of the checkout at `path`, in a process of its
     own."""
     run = subprocess.run(
-        [sys.executable, "-c", TIME_TREE,
-         json.dumps(SHAPES["llama_d128"][:4]), str(SEED), str(ITERS)],
+        [sys.executable, "-c", TIME_TREE, json.dumps(SHAPES), str(SEED),
+         str(ITERS)],
         cwd=path, capture_output=True, text=True, timeout=900)
     if run.returncode != 0:
         raise RuntimeError(f"the backward of {path} failed:\n{run.stderr}")
@@ -195,7 +203,13 @@ def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--parent", help="a checkout whose backward to time "
                         "before and after the variants")
+    parser.add_argument("--variants", default=",".join(VARIANTS),
+                        help="the variants to build and time, by name")
     args = parser.parse_args()
+    names = args.variants.split(",")
+    unknown = set(names) - set(VARIANTS)
+    if unknown:
+        parser.error(f"no variants {sorted(unknown)}")
     if not torch.cuda.is_available():
         print("flash_bwd_ablation: no CUDA device", file=sys.stderr)
         return 1
@@ -207,7 +221,7 @@ def main() -> int:
     if args.parent:
         print(json.dumps({"variant": "parent (first)",
                           "ms": time_tree(args.parent)}), flush=True)
-    libs, ptxas = build_variants()
+    libs, ptxas = build_variants(names)
     g = torch.Generator(device="cuda").manual_seed(SEED)
     for shape, (b, qh, kvh, n, d, cap) in SHAPES.items():
         q, k, v, do = (torch.randn((b, h, n, d), generator=g, device="cuda")

@@ -6,7 +6,7 @@ SDPA and, optionally, an earlier checkout's kernel beside it.
 Run from the root of a checkout, on a machine with a CUDA card and the
 CUDA toolkit:
 
-    python3 tools/flash_fwd_ablation.py [--parent DIR]
+    python3 tools/flash_fwd_ablation.py [--parent DIR] [--variants A,B]
 
 Each variant is `csrc/flash_attention.cu` with text patches, built into
 `metal_flash_attention_tpu_torch/build/ablation_fwd/<variant>/` (one nvcc
@@ -25,10 +25,11 @@ with the variant's library in place of the real one:
   cost (Q's load, the first tile, the epilogue).
 
 Every variant but `one_tile` computes the forward (each is held against
-`sm90` by the worst 64-row tile); `one_tile` is for its time.  With
---parent DIR, the forward of the checkout at DIR (for example the parent
-commit, unpacked with `git archive`) runs in a process of its own before
-and after the variants.  A time is
+`sm90` by the worst 64-row tile); `one_tile` is for its time.
+--variants builds and times only the named ones.  With --parent DIR,
+the forward of the checkout at DIR (for example the parent commit,
+unpacked with `git archive`) runs in a process of its own before and
+after the variants, at every shape.  A time is
 `chip_smoke.timed_spread`'s: the median, min and max device ms a call
 over 5 profiled loops.  Prints the card's name and power limit, then one
 JSON line a variant.
@@ -40,6 +41,7 @@ import argparse
 import ctypes
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -47,9 +49,13 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 SEED = 0
-# name: (batch, q heads, kv heads, tokens, loop length): the training
-# path's forward and the dense prefill's, both causal, head_dim 128, bf16.
-SHAPES = {"train": (1, 32, 8, 8192, 20), "prefill": (8, 32, 8, 8160, 5)}
+# name: (batch, q heads, kv heads, tokens, head_dim, soft cap, loop
+# length): the training path's forward and the dense prefill's (head_dim
+# 128), and Gemma-2's dense prefill (gemma2_2b: head_dim 256, cap 50),
+# all causal, bf16.
+SHAPES = {"train": (1, 32, 8, 8192, 128, None, 20),
+          "prefill": (8, 32, 8, 8160, 128, None, 5),
+          "gemma_d256_cap50": (4, 8, 4, 5000, 256, 50.0, 10)}
 # FlashAttention-3's consumer loop, in place of the kernel's: step i
 # issues tile i's QK^T, rescales O while it runs, then issues tile i - 1's
 # PV and runs tile i's softmax while the tensor cores finish that PV
@@ -64,6 +70,9 @@ FA3_LOOP = """\
     // Warpgroup 0 goes first; warpgroup 1 does not open after its last
     // turn, which nobody waits for.
     auto turn_wait = [&]() { named_barrier_sync(3 + wg, kConsumers); };
+    // No options' views or segment states: the variants time no options.
+    const AuxRow ar0[2] = {};
+    const int st0[2] = {0, 0};
     auto turn_pass = [&](int i) {
       if (wg == 0 || i + 1 < n_tiles)
         named_barrier_arrive(4 - wg, kConsumers);
@@ -85,13 +94,15 @@ FA3_LOOP = """\
       fence_operands(sc);
       release(k_empty, 0);
       if (open_begin > 0 || open_end <= 0)
-        softmax_tile<true, kCap, kBKV>(sc, m, l, alpha, p.scale_log2e,
-                                       p.cap2, p.inv_cap2,
-                                       (n_hi - 1) * kBKV + 2 * t4, lo, hi);
+        softmax_tile<true, kCap, kBKV, kAux, T>(
+            sc, m, l, alpha, p.scale_log2e, p.cap2, p.inv_cap2,
+            (n_hi - 1) * kBKV + 2 * t4, lo, hi, ar0, aux, seg_warp, st0,
+            st0, (p.kv_len - 1) & ~1);
       else
-        softmax_tile<false, kCap, kBKV>(sc, m, l, alpha, p.scale_log2e,
-                                        p.cap2, p.inv_cap2,
-                                        (n_hi - 1) * kBKV + 2 * t4, lo, hi);
+        softmax_tile<false, kCap, kBKV, kAux, T>(
+            sc, m, l, alpha, p.scale_log2e, p.cap2, p.inv_cap2,
+            (n_hi - 1) * kBKV + 2 * t4, lo, hi, ar0, aux, seg_warp, st0,
+            st0, (p.kv_len - 1) & ~1);
       pack_rs<T, kBKV>(pa, sc);
       for (int i = 1; i < n_tiles; ++i) {
         const int s = i % kS, sp = (i - 1) % kS;
@@ -107,13 +118,15 @@ FA3_LOOP = """\
         fence_operands(sc);
         release(k_empty, i);
         if (i < open_begin || i >= open_end)
-          softmax_tile<true, kCap, kBKV>(
+          softmax_tile<true, kCap, kBKV, kAux, T>(
               sc, m, l, alpha, p.scale_log2e, p.cap2, p.inv_cap2,
-              (n_hi - 1 - i) * kBKV + 2 * t4, lo, hi);
+              (n_hi - 1 - i) * kBKV + 2 * t4, lo, hi, ar0, aux, seg_warp, st0,
+              st0, (p.kv_len - 1) & ~1);
         else
-          softmax_tile<false, kCap, kBKV>(
+          softmax_tile<false, kCap, kBKV, kAux, T>(
               sc, m, l, alpha, p.scale_log2e, p.cap2, p.inv_cap2,
-              (n_hi - 1 - i) * kBKV + 2 * t4, lo, hi);
+              (n_hi - 1 - i) * kBKV + 2 * t4, lo, hi, ar0, aux, seg_warp, st0,
+              st0, (p.kv_len - 1) & ~1);
         wgmma_wait<0>();
         fence_operands(o);
         release(v_empty, i - 1);
@@ -182,12 +195,14 @@ sys.path.insert(0, ".")
 import chip_smoke
 from metal_flash_attention_tpu_torch.ops import flash_attention as fa
 out = {}
-for name, (b, qh, kvh, n, iters) in json.loads(sys.argv[1]).items():
+for name, (b, qh, kvh, n, d, cap, iters) in json.loads(
+        sys.argv[1]).items():
     g = torch.Generator(device="cuda").manual_seed(int(sys.argv[2]))
-    q, k, v = (torch.randn((b, h, n, 128), generator=g, device="cuda")
+    q, k, v = (torch.randn((b, h, n, d), generator=g, device="cuda")
                .to(torch.bfloat16) for h in (qh, kvh, kvh))
     out[name] = chip_smoke.timed_spread(
-        lambda: fa.flash_attention_forward(q, k, v, causal=True), iters)
+        lambda: fa.flash_attention_forward(q, k, v, causal=True,
+                                           logit_softcap=cap), iters)
 print(json.dumps(out))
 """
 
@@ -198,9 +213,12 @@ PTXAS: dict = {}
 def kernel_label(mangled: str) -> str:
     dims = {"Li64E": " D64", "Li128E": " D128", "Li256E": " D256"}
     d = next(v for k, v in dims.items() if k in mangled)
-    # The kernel's last template argument, kCap, mangles as Lb1E / Lb0E.
+    # The kernel's last template arguments, kCap and kAux, mangle as
+    # Lb1E / Lb0E each.
+    cap, aux = re.search(r"Lb([01])ELb([01])EEEv", mangled).groups()
     return (("fp16" if "6__half" in mangled else "bf16") + d
-            + (" softcap" if "Lb1EEEv" in mangled else ""))
+            + (" softcap" if cap == "1" else "")
+            + (" aux" if aux == "1" else ""))
 
 
 def ptxas_summary(log: str) -> dict:
@@ -222,8 +240,9 @@ def ptxas_summary(log: str) -> dict:
     return rows
 
 
-def build_variants() -> dict:
-    """{variant: ctypes library}, one nvcc each, all started together."""
+def build_variants(names) -> dict:
+    """{variant: ctypes library} of the named variants, one nvcc each,
+    all started together."""
     from metal_flash_attention_tpu_torch.native import build as nb
     from metal_flash_attention_tpu_torch.ops.flash_attention import (
         bind_library,
@@ -232,7 +251,8 @@ def build_variants() -> dict:
     with open(os.path.join(nb.SRC_DIR, "flash_attention.cu")) as f:
         source = f.read()
     procs = {}
-    for name, patches in VARIANTS.items():
+    for name in names:
+        patches = VARIANTS[name]
         out_dir = os.path.join(nb.BUILD_DIR, "ablation_fwd", name)
         os.makedirs(out_dir, exist_ok=True)
         text = apply(source, patches, name)
@@ -271,7 +291,13 @@ def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--parent", help="a checkout whose forward to time "
                         "before and after the variants")
+    parser.add_argument("--variants", default=",".join(VARIANTS),
+                        help="the variants to build and time, by name")
     args = parser.parse_args()
+    names = args.variants.split(",")
+    unknown = set(names) - set(VARIANTS)
+    if unknown:
+        parser.error(f"no variants {sorted(unknown)}")
     if not torch.cuda.is_available():
         print("flash_fwd_ablation: no CUDA device", file=sys.stderr)
         return 1
@@ -282,20 +308,21 @@ def main() -> int:
     if args.parent:
         print(json.dumps({"variant": "parent (first)",
                           "ms": time_tree(args.parent)}), flush=True)
-    libs = build_variants()
+    libs = build_variants(names)
     inputs = {}
-    for name, (b, qh, kvh, n, iters) in SHAPES.items():
+    for name, (b, qh, kvh, n, d, cap, iters) in SHAPES.items():
         g = torch.Generator(device="cuda").manual_seed(SEED)
         inputs[name] = tuple(
-            torch.randn((b, h, n, 128), generator=g, device="cuda")
-            .to(torch.bfloat16) for h in (qh, kvh, kvh)) + (iters,)
+            torch.randn((b, h, n, d), generator=g, device="cuda")
+            .to(torch.bfloat16) for h in (qh, kvh, kvh)) + (cap, iters)
     ref = {}
     for name, lib in libs.items():
         fa._kernel_library = lambda lib=lib: lib
         row, err = {}, {}
-        for shape, (q, k, v, iters) in inputs.items():
+        for shape, (q, k, v, cap, iters) in inputs.items():
             row[shape] = chip_smoke.timed_spread(
-                lambda: fa.flash_attention_forward(q, k, v, causal=True),
+                lambda: fa.flash_attention_forward(q, k, v, causal=True,
+                                                   logit_softcap=cap),
                 iters)
             if shape == "train" and name != "one_tile":
                 o, _ = fa.flash_attention_forward(q, k, v, causal=True)
@@ -308,7 +335,7 @@ def main() -> int:
     row = {shape: chip_smoke.timed_spread(
         lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True, enable_gqa=True), iters)
-        for shape, (q, k, v, iters) in inputs.items()}
+        for shape, (q, k, v, cap, iters) in inputs.items() if cap is None}
     print(json.dumps({"variant": "sdpa", "ms": row}), flush=True)
     if args.parent:
         print(json.dumps({"variant": "parent (last)",
