@@ -5,8 +5,9 @@ cache), dense serving and training paths, the fused forward over
 quantized K/V, its standalone ops (quantized GEMM, softmax), Gemma-2
 serving (paged and dense) and training (the soft cap and head_dim 256 in
 the kernels, forward and backward), and the flash-attention options
-(masks, bias with its gradient, segment ids, `compat`), on one NVIDIA
-GPU.
+(masks, bias with its gradient, segment ids, `compat`), and the runtime
+(tile sweeps over variant libraries, dispatch by the config cache, the
+autotune CLI), on one NVIDIA GPU.
 
 Run from the root of a checkout, on a machine with one CUDA card and
 the CUDA toolkit:
@@ -16,7 +17,8 @@ the CUDA toolkit:
 Phases (any failure exits non-zero and prints no result):
 
 1. build every kernel of `metal_flash_attention_tpu_torch/csrc/` with
-   nvcc for sm_90a (one nvcc per source, started together);
+   nvcc for sm_90a, and the runtime phase's tile variants (one nvcc per
+   library, all started together);
 2. serve: make Llama-3-8B parameters at full width and depth (dim 4096,
    32 heads, 8 KV heads, head_dim 128, hidden 14336, vocab 32000, 32
    layers) in bf16 on the card, from a torch.Generator seeded with 0,
@@ -289,12 +291,37 @@ Phases (any failure exits non-zero and prints no result):
    only), the same kernel without the options, its plain version and
    `flex_attention` with a document mask_mod (packed) or SDPA with the
    same attn_mask (ALiBi, cross), yardsticks the port never calls.
+15. runtime: `DeviceContext`'s readings (`runtime_context:`); the
+   whole run reads and writes one private config cache, in a temporary
+   directory made at the start (no winner in ~/.cache or of an earlier
+   run changes what a run launches); `autotune_attention` over the
+   forward, the causal forward (RT_FWD_TILES) and the backward pair (dQ
+   RT_DQ_TILES beside dK/dV's one legal tile) at q/k/v [1, 32, 8192,
+   128] bf16, `autotune_gemm` on layer 0's w_gate product (T = 8,192)
+   and `autotune_gemm_descriptor` with an INT8 weight (RT_GEMM_TILES),
+   every candidate a tile variant built in phase 1 and held to its plain
+   version by `closeness` before its time counts, each sweep's
+   candidates printed in ms beside `bound()` (`runtime_sweep` lines);
+   three planted faults (the forward's and dQ's last 64 rows of one head
+   dropped, one GEMM output tile lost) that a sweep's check must fail
+   (`runtime_faults:`); `autotune_decode` and `autotune_paged` over
+   bf16 and INT8 caches at the JAX package's defaults (chunk caps, no
+   rebuild); then dispatch, each shown by the launch counters' tiles
+   (`runtime_dispatch:`): a forward winner inserted in the cache at the
+   dense prefill's shape (one sequence), an explicit block_q / block_kv,
+   a GEMM block_m / block_n, and illegal requests clamped, each within
+   the limit of its plain version; last, `python -m
+   metal_flash_attention_tpu_torch.runtime autotune --kernel forward
+   --head-dims 128 --seq 4096` as a subprocess on a cache of its own,
+   which must exit 0 and store its winner (`runtime_cli:`).  Each tile
+   variant launched gets an entry in the `kernels` line.
 
 Every kernel's `bound_ms` is the least time the card could take for the
 same work: the larger of the bytes it must move (each input read once,
 each output written once; a quantized weight's payload and scales) over
-3.35 TB/s and the operations this run's data needs (visible query-key
-pairs only) over 989 TFLOP/s in bf16.
+the card's memory rate and the operations this run's data needs
+(visible query-key pairs only) over its peak bf16 rate, both from
+`runtime.DeviceContext` (3.35 TB/s and 989 TFLOP/s on an H100 SXM).
 
 Output: `serve`, `reference`, `quant_serve`, `burst_serve`,
 `prefix_serve`, `quant_reference`,
@@ -304,8 +331,10 @@ Output: `serve`, `reference`, `quant_serve`, `burst_serve`,
 `train_profile`, `train_reference`, `flash_checks`, `softmax_checks`,
 `gemma_params`, `gemma_serve`, `gemma_dense`, `gemma_reference`,
 `gemma_checks`, `gemma_train`, `gemma_train_profile`,
-`gemma_train_reference`, `gemma_bwd_checks`, `options_attention` and
-`options_checks` lines, a `phases` line
+`gemma_train_reference`, `gemma_bwd_checks`, `options_attention`,
+`options_checks`, `runtime_context`, `runtime_sweep`, `runtime_faults`,
+`runtime_launches`, `runtime_dispatch`, `runtime_cli` and `runtime`
+lines, a `phases` line
 (each phase's seconds), the card's name and power limit as nvidia-smi
 gives them, a `kernels` JSON line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -313,13 +342,17 @@ gives them, a `kernels` JSON line, and as the last line
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import importlib
 import itertools
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -469,9 +502,6 @@ PREFIX_SHARED = 1536
 PREFIX_SUFFIXES = (300, 200, 600, 417, 350, 512)
 PREFIX_FOLLOWERS = 5
 
-# NVIDIA H100 SXM data sheet, dense: bf16 tensor cores and HBM3.
-PEAK_BF16_FLOPS = 989e12
-PEAK_HBM_BYTES_PER_S = 3.35e12
 # Gemma-2 (gemma2_2b, the JAX package's `GemmaConfig()`: 26 layers, dim
 # 2304, 8 heads, 4 KV heads, head_dim 256, hidden 9216, vocab 256128,
 # window 4096 on even layers, attention softcap 50, final softcap 30):
@@ -769,9 +799,12 @@ def nbytes(*ts) -> int:
 
 
 def bound(flops: float, n_bytes: float) -> tuple[float, str]:
-    """(bound_ms, bound_by): the larger of the two least times."""
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
-    t_bytes = n_bytes / PEAK_HBM_BYTES_PER_S * 1e3
+    """(bound_ms, bound_by): the larger of the two least times, at the
+    card's peak bf16 rate and memory rate (`DeviceContext`)."""
+    from metal_flash_attention_tpu_torch.runtime.context import DeviceContext
+    info = DeviceContext.get().info
+    t_ops = flops / info.peak_bf16_flops * 1e3
+    t_bytes = n_bytes / info.hbm_bandwidth * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -4716,17 +4749,497 @@ def options_checks(cases, dev, card, launches) -> list[dict]:
     return results
 
 
+# The runtime (slice 15): sweeps of tile variants at Llama-3-8B's attention
+# width (32 heads of 128, 8,192 tokens, bf16; q, k and v all 32 heads, as
+# the JAX package's sweep makes them) and at layer 0's w_gate product
+# (T = 8,192), the decode and paged chunk caps at the JAX package's
+# defaults, and dispatch by the config cache.  Each sweep tries at most
+# four candidates; every candidate's output is held to its plain version
+# by `closeness` (KERNEL_TILE_REL_RMS; lse at MIXED_TOL) before its time
+# counts, and a planted fault per family must fail that check.  Every
+# variant library builds in the build phase, with the plain ones.
+RT_HEADS, RT_TOKENS = 32, 8192
+RT_FWD_TILES = ((128, 128), (64, 128), (128, 64), (64, 64))
+RT_DQ_TILES = ((128, 128), (64, 128), (128, 64), (64, 64))
+RT_DKV_TILE = (64, 128)
+RT_GEMM = (8192, 14336, 4096)
+RT_GEMM_TILES = {"bf16": ((128, 256), (256, 128), (128, 128)),
+                 "int8": ((256, 128), (128, 256), (128, 128))}
+RT_DECODE_CAPS = (512, 1024, 2048, 4096)
+RT_PAGED_PAGES = (4, 8, 16, 32)
+RT_ITERS = 10
+# The tile a cached winner, an explicit request and an illegal request
+# put on the card: a forward winner inserted at the dense prefill's
+# shape (one sequence), then block_q / block_kv, then a GEMM tile, then
+# requests the clamp moves.
+RT_CACHED_TILE = (64, 128)
+RT_REQUESTED_TILE = (64, 64)
+RT_GEMM_REQUEST = (256, 128)
+RT_ILLEGAL = {"flash_fwd": ((96, 300), (64, 128)),
+              "gemm": ((512, 512), (128, 256))}
+
+
+def runtime_variants() -> list:
+    """(source, -D pairs) of every tile variant the runtime phase
+    launches, built with the plain libraries."""
+    from metal_flash_attention_tpu_torch.descriptors import parameters as P
+    from metal_flash_attention_tpu_torch.descriptors.gemm_descriptor import (
+        GEMMDescriptor,
+    )
+    from metal_flash_attention_tpu_torch.descriptors.precision import (
+        OperandPrecision,
+    )
+
+    out = [("flash_attention", P.tile_library("forward", *t, HEAD_DIM))
+           for t in RT_FWD_TILES]
+    out += [("flash_attention_bwd",
+             P.tile_library("backward_query", *t, HEAD_DIM))
+            for t in RT_DQ_TILES]
+    m, n, k = RT_GEMM
+    for prec, tiles in RT_GEMM_TILES.items():
+        desc = GEMMDescriptor(m=m, n=n, k=k,
+                              precision_a=OperandPrecision.BF16,
+                              precision_b=OperandPrecision(prec))
+        out += [("gemm", desc.library("sm90", *t)) for t in tiles]
+    return [v for v in dict.fromkeys(out) if v[1]]
+
+
+def smoke_check(tile_cols=None):
+    """The sweeps' check: `closeness` of every output (tile_rel_rms within
+    KERNEL_TILE_REL_RMS; ``tile_cols`` columns a tile, None whole rows),
+    lse by its max abs error within MIXED_TOL; the readings are kept."""
+    from metal_flash_attention_tpu_torch.utils.tolerances import (
+        MIXED_TOL,
+        max_abs_err,
+    )
+    readings = []
+
+    def check(got, ref):
+        row = {}
+        for name, t in got.items():
+            if name == "lse":
+                row[name] = {"max_abs_err": max_abs_err(t, ref[name])}
+                ok = row[name]["max_abs_err"] <= MIXED_TOL.lse
+            else:
+                row[name] = closeness(t, ref[name], tile_cols=tile_cols)
+                ok = within_limits(row[name])
+            if not ok:
+                readings.append(row)
+                raise AssertionError(f"{name}: {row[name]}")
+        readings.append(row)
+        return row
+    return check, readings
+
+
+def dropped_rows(fn, pick):
+    """``fn`` with the last TILE_ROWS rows of one head of the output that
+    ``pick`` selects zeroed: a planted one-tile fault."""
+    def run(*args, **kw):
+        out = fn(*args, **kw)
+        t = pick(out)
+        t[..., -1, -TILE_ROWS:, :] = 0
+        return out
+    return run
+
+
+def planted_sweep(label, sweep) -> dict:
+    """Run ``sweep`` (a fault planted in it) and require its check to fail
+    it; returns the reading."""
+    try:
+        sweep()
+    except RuntimeError as e:
+        if "failed its check" not in str(e):
+            raise
+        return {"fault": label, "seen": True,
+                "message": str(e)[-300:]}
+    fail(f"runtime: the sweep's check did not see the planted fault "
+         f"({label})")
+
+
+def runtime_phase(dev, card, cache_dir, build_seconds) -> list[dict]:
+    """DeviceContext; the attention, GEMM, decode and paged sweeps with
+    their planted faults; dispatch by a cached winner, an explicit tile
+    and a clamped request, each shown by the launch counters' tiles; the
+    CLI as a subprocess on a cache of its own.  Returns the kernels line's
+    entries of the tile variants launched."""
+    import torch
+    import torch.nn.functional as F
+    from metal_flash_attention_tpu_torch.descriptors import parameters as P
+    from metal_flash_attention_tpu_torch.descriptors.gemm_descriptor import (
+        GEMMDescriptor,
+    )
+    from metal_flash_attention_tpu_torch.descriptors.precision import (
+        OperandPrecision,
+    )
+    from metal_flash_attention_tpu_torch.ops import flash_attention as fa
+    from metal_flash_attention_tpu_torch.ops import flash_attention_bwd as fb
+    from metal_flash_attention_tpu_torch.ops.quantization import (
+        quantize_matrix,
+    )
+    from metal_flash_attention_tpu_torch.runtime import autotune as at
+    from metal_flash_attention_tpu_torch.runtime.cache import (
+        KernelConfigCache,
+    )
+    from metal_flash_attention_tpu_torch.runtime.context import DeviceContext
+
+    gm = gemm_module()
+    t_phase = time.perf_counter()
+    ctx = DeviceContext.get()
+    info = ctx.info
+    print("runtime_context: " + json.dumps({
+        "kind": ctx.device_kind, "generation": ctx.generation,
+        "sm_count": info.sm_count, "smem_per_block": info.smem_per_block,
+        "l2_bytes": info.l2_bytes, "peak_bf16_flops": info.peak_bf16_flops,
+        "hbm_bandwidth": info.hbm_bandwidth, "card": card}), flush=True)
+    cache = KernelConfigCache.get()
+    if os.path.dirname(cache.store_path) != cache_dir or \
+            cache._native is not None:
+        fail(f"runtime: the config cache is {cache.store_path}, not the "
+             "run's private one")
+    n, d, heads = RT_TOKENS, HEAD_DIM, RT_HEADS
+    pairs = {causal: visible_pairs(n, n, causal, None) * heads
+             for causal in (False, True)}
+    io = 4 * heads * n * d * 2 + heads * n * 4
+    src = "metal_flash_attention_tpu_torch/csrc/"
+    jax_src = "metal_flash_attention_tpu/ops/"
+    sweeps, entries, faults = {}, [], []
+    # Launches by (kernel, tile) over the phase's sweeps and dispatches;
+    # the planted sweeps' launches are dropped.
+    modules = {"flash_fwd": fa, "flash_bwd_dq": fb, "flash_bwd_dkv": fb,
+               "gemm": gm}
+    counted = collections.Counter()
+
+    def take(keep=True):
+        for name, module in modules.items():
+            if keep:
+                for tile, count in module.LAUNCH_TILES[name].items():
+                    counted[name, tuple(tile)] += count
+        for module in set(modules.values()):
+            module.reset_launch_counts()
+    take(keep=False)
+
+    # Attention: forward, forward causal, the backward pair.
+    for label, kind, causal, cands in (
+            ("forward", "forward", False, RT_FWD_TILES),
+            ("forward_causal", "forward", True, RT_FWD_TILES),
+            ("backward_query", "backward_query", False,
+             tuple((t, RT_DKV_TILE) for t in RT_DQ_TILES))):
+        check, readings = smoke_check()
+        winner, results = at.autotune_attention(
+            kernel_type=kind, n=n, head_dim=d, heads=heads,
+            dtype=torch.bfloat16, causal=causal, candidates=cands,
+            iters=RT_ITERS, repeats=3, check=check)
+        p = pairs[causal]
+        if kind == "forward":
+            bound_ms, bound_by = bound(4 * d * p, io)
+        else:
+            # dQ's three products and dK/dV's four; q, k, v, dO, L and D
+            # read once, dq, dk and dv written once.
+            bound_ms, bound_by = bound(2 * d * 7 * p, io + heads * n * 4
+                                       + 3 * heads * n * d * 2)
+        rows = []
+        for (c, secs), reading in zip(results.items(), readings):
+            ms = secs * 1e3
+            rows.append({"tile": c, "ms": ms, "share_of_bound":
+                         bound_ms / ms, "reading": reading})
+        sweeps[label] = {"winner": winner, "candidates": rows,
+                         "default_ms": rows[0]["ms"], "bound_ms": bound_ms,
+                         "bound_by": bound_by}
+        print(f"runtime_sweep {label}: " + json.dumps(sweeps[label]),
+              flush=True)
+
+    take()
+    # The planted faults the sweeps' checks must see.
+    check, _ = smoke_check()
+    with planted(fa, "_forward_cuda",
+                 lambda f: dropped_rows(f, lambda out: out[0])):
+        faults.append(planted_sweep("forward: last 64 rows of one head "
+                                    "dropped", lambda: at.autotune_attention(
+            kernel_type="forward", n=n, head_dim=d, heads=heads,
+            candidates=(RT_FWD_TILES[1],), iters=1, repeats=1, check=check,
+            cache=KernelConfigCache(os.path.join(cache_dir, "f.json")))))
+    check, _ = smoke_check()
+    with planted(fb, "_dq_cuda", lambda f: dropped_rows(f, lambda out: out)):
+        faults.append(planted_sweep("backward: dQ's last 64 rows of one "
+                                    "head dropped",
+                                    lambda: at.autotune_attention(
+            kernel_type="backward_query", n=n, head_dim=d, heads=heads,
+            candidates=((RT_DQ_TILES[1], RT_DKV_TILE),), iters=1,
+            repeats=1, check=check,
+            cache=KernelConfigCache(os.path.join(cache_dir, "f.json")))))
+    take(keep=False)
+
+    # GEMM: layer 0's w_gate product, bf16 and an INT8 weight.
+    m, gn, k = RT_GEMM
+    gemm_flops = 2 * m * gn * k
+    for prec, tiles in RT_GEMM_TILES.items():
+        check, readings = smoke_check(tile_cols=GEMM_TILE[1])
+        desc = GEMMDescriptor(m=m, n=gn, k=k,
+                              precision_a=OperandPrecision.BF16,
+                              precision_b=OperandPrecision(prec))
+        if prec == "bf16":
+            winner, results = at.autotune_gemm(
+                m=m, n=gn, k=k, candidates=tiles, iters=RT_ITERS,
+                repeats=3, check=check)
+        else:
+            winner, results = at.autotune_gemm_descriptor(
+                desc, tiles, iters=RT_ITERS, repeats=3, check=check)
+        b_bytes = k * gn * (2 if prec == "bf16" else 1) + 4 * gn
+        bound_ms, bound_by = bound(gemm_flops, m * k * 2 + b_bytes
+                                   + m * gn * 2)
+        rows = [{"tile": c, "ms": s * 1e3, "share_of_bound":
+                 bound_ms / (s * 1e3), "reading": r}
+                for (c, s), r in zip(results.items(), readings)]
+        sweeps[f"gemm_{prec}"] = {
+            "winner": winner, "candidates": rows, "default_ms": rows[0]["ms"],
+            "bound_ms": bound_ms, "bound_by": bound_by, "key":
+            desc.cache_key()}
+        print(f"runtime_sweep gemm_{prec}: "
+              + json.dumps(sweeps[f"gemm_{prec}"]), flush=True)
+    take()
+    check, _ = smoke_check(tile_cols=GEMM_TILE[1])
+
+    def lost_tile(f):
+        def run(*args, **kw):
+            out = f(*args, **kw)
+            out[:, :TILE_ROWS, :GEMM_TILE[1]] = 0
+            return out
+        return run
+    with planted(gm, "_gemm_cuda", lost_tile):
+        faults.append(planted_sweep("gemm: one 64 x 128 output tile lost",
+                                    lambda: at.autotune_gemm(
+            m=m, n=gn, k=k, candidates=(RT_GEMM_TILES["bf16"][1],), iters=1,
+            repeats=1, check=check,
+            cache=KernelConfigCache(os.path.join(cache_dir, "f.json")))))
+    take(keep=False)
+    print("runtime_faults: " + json.dumps(faults), flush=True)
+
+    # Decode and paged chunk caps (no rebuild), bf16 and INT8 caches.
+    for prec in (None, OperandPrecision.INT8):
+        tag = "bf16" if prec is None else prec.value
+        for label, fn, cands in (("decode", at.autotune_decode,
+                                  RT_DECODE_CAPS),
+                                 ("paged", at.autotune_paged,
+                                  RT_PAGED_PAGES)):
+            check, readings = smoke_check()
+            winner, results = fn(precision=prec, candidates=cands,
+                                 iters=50, repeats=3, check=check)
+            kv_bytes = 2 * 8 * 8 * 8192 * 128 * (2 if prec is None else 1)
+            bound_ms, bound_by = bound(4 * 128 * 8192 * 8 * 32, kv_bytes)
+            rows = [{"cap": c, "ms": s * 1e3, "share_of_bound":
+                     bound_ms / (s * 1e3), "reading": r}
+                    for (c, s), r in zip(results.items(), readings)]
+            sweeps[f"{label}_{tag}"] = {"winner": winner, "candidates": rows,
+                                        "bound_ms": bound_ms,
+                                        "bound_by": bound_by}
+            print(f"runtime_sweep {label}_{tag}: "
+                  + json.dumps(sweeps[f"{label}_{tag}"]), flush=True)
+
+    # Dispatch: a cached winner, an explicit tile, a GEMM tile, clamps.
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+    q, k_, v = (torch.randn((1, h, DENSE_PROMPT, d), generator=gen,
+                            device=dev).to(torch.bfloat16)
+                for h in (Q_HEADS, KV_HEADS, KV_HEADS))
+    ref_o, ref_lse = fa._forward_plain(q, k_, v, causal=True,
+                                       window_size=None, scale=d ** -0.5,
+                                       out_dtype=torch.bfloat16)
+    cache.insert(cache.attention_key(
+        "forward_causal", d, torch.bfloat16,
+        q_len_bucket=1 << (DENSE_PROMPT - 1).bit_length()), RT_CACHED_TILE)
+    dispatch = {}
+
+    def launched(label, module, name, want, run):
+        take()
+        out = run()
+        got = dict(module.LAUNCH_TILES[name])
+        if got != {want: 1}:
+            fail(f"runtime dispatch {label}: {name} launched {got}, not "
+                 f"{want}")
+        take()
+        return out
+    for label, kw, want in (
+            ("cached winner", {}, RT_CACHED_TILE),
+            ("block_q/block_kv", dict(zip(("block_q", "block_kv"),
+                                          RT_REQUESTED_TILE)),
+             RT_REQUESTED_TILE),
+            ("illegal request", dict(zip(("block_q", "block_kv"),
+                                         RT_ILLEGAL["flash_fwd"][0])),
+             RT_ILLEGAL["flash_fwd"][1])):
+        o, lse = launched(label, fa, "flash_fwd", want,
+                          lambda kw=kw: fa.flash_attention(
+                              q, k_, v, causal=True, return_residuals=True,
+                              **kw))
+        reading = closeness(o, ref_o)
+        reading["lse_max_abs_err"] = float((lse - ref_lse).abs().max())
+        dispatch[label] = {"tile": want, **reading}
+        if not within_limits(reading):
+            fail(f"runtime dispatch {label}: {reading}")
+    del q, k_, v, ref_o, ref_lse
+    a = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+    b = torch.randn((k, gn), generator=gen, device=dev).to(torch.bfloat16)
+    ref = gm._gemm_plain(a, b)
+    for label, req, want in (
+            ("block_m/block_n", RT_GEMM_REQUEST, RT_GEMM_REQUEST),
+            ("gemm illegal request", RT_ILLEGAL["gemm"][0],
+             RT_ILLEGAL["gemm"][1])):
+        out = launched(label, gm, "gemm", (*want, 64),
+                       lambda req=req: gm.gemm(a, b, block_m=req[0],
+                                               block_n=req[1]))
+        reading = closeness(out, ref, tile_cols=GEMM_TILE[1])
+        dispatch[label] = {"tile": want, **reading}
+        if not within_limits(reading):
+            fail(f"runtime dispatch {label}: {reading}")
+    del a, b, ref
+    print("runtime_dispatch: " + json.dumps(dispatch), flush=True)
+
+    # The CLI, on a cache of its own.
+    cli_dir = os.path.join(cache_dir, "cli")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "metal_flash_attention_tpu_torch.runtime",
+         "autotune", "--kernel", "forward", "--head-dims", "128", "--seq",
+         "4096"], capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, MFA_TORCH_CACHE_DIR=cli_dir))
+    if proc.returncode != 0:
+        fail(f"runtime CLI exited {proc.returncode}:\n{proc.stderr[-2000:]}")
+    with open(os.path.join(cli_dir, "autotune.json")) as f:
+        stored = json.load(f)
+    key = KernelConfigCache.attention_key("forward", d, torch.bfloat16,
+                                          q_len_bucket=4096)
+    if key not in stored:
+        fail(f"runtime CLI stored {sorted(stored)}, not {key}")
+    print("runtime_cli: " + json.dumps({
+        "seconds": time.perf_counter() - t0, "stored": stored,
+        "winner_line": [x for x in proc.stdout.splitlines()
+                        if "winner" in x]}), flush=True)
+
+    # The kernels line: each tile variant the phase launched, with the
+    # plain versions' times (one call between CUDA events).
+    def event_ms(fn):
+        fn()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end)
+    x = torch.randn((1, heads, n, d), device=dev).to(torch.bfloat16)
+    plain = {
+        "forward": event_ms(lambda: at._plain_attention(
+            "forward", x, x, x, None, False)),
+        "backward_query": event_ms(lambda: at._plain_attention(
+            "backward", x, x, x, x, False)),
+        "library_forward": timed_spread(
+            lambda: F.scaled_dot_product_attention(x, x, x),
+            RT_ITERS)["ms"]}
+    leaves = [x.clone().requires_grad_(True) for _ in range(3)]
+    sdpa_o = F.scaled_dot_product_attention(*leaves)
+    plain["library_backward_query"] = timed_spread(
+        lambda: torch.autograd.grad(sdpa_o, leaves, x, retain_graph=True),
+        RT_ITERS)["ms"]
+    del x, leaves, sdpa_o
+    a = torch.randn((m, k), device=dev).to(torch.bfloat16)
+    b = torch.randn((k, gn), device=dev)
+    bq = quantize_matrix(b, OperandPrecision.INT8, contract_axis=0,
+                         per_channel=True)
+    b = b.to(torch.bfloat16)
+    plain["gemm_bf16"] = event_ms(lambda: gm._gemm_plain(a, b))
+    plain["gemm_int8"] = event_ms(lambda: gm._gemm_plain(a, bq))
+    plain["library_gemm"] = timed_spread(lambda: a @ b, RT_ITERS)["ms"]
+    del a, b, bq
+    for label, name, kind, source, replaces in (
+            ("forward", "flash_fwd", "forward", "flash_attention.cu",
+             "flash_attention.py:223"),
+            ("backward_query", "flash_bwd_dq", "backward_query",
+             "flash_attention_bwd.cu", "flash_attention_bwd.py:73")):
+        for row in sweeps[label]["candidates"][1:]:
+            tile = tuple(row["tile"][0] if kind != "forward"
+                         else row["tile"])
+            entries.append({
+                "name": f"{name}_tile_{tile[0]}x{tile[1]}", "route": "cuda",
+                "source": src + source, "replaces": jax_src + replaces,
+                "variant": P.tile_library(kind, *tile, d),
+                "launches": counted[name, tile],
+                "max_abs_err": max(r["max_abs_err"]
+                                   for r in row["reading"].values()),
+                "ms": row["ms"], "plain_ms": plain[kind],
+                "bound_ms": sweeps[label]["bound_ms"],
+                "bound_by": sweeps[label]["bound_by"],
+                "library_ms": plain[f"library_{kind}"],
+                "default_tile_ms": sweeps[label]["default_ms"],
+                "shape": f"q/k/v [1, {heads}, {n}, {d}] bf16, not causal"
+                         + ("" if kind == "forward" else
+                            f"; the pair with dK/dV at {RT_DKV_TILE}, "
+                            "beside SDPA's backward")})
+    for prec in RT_GEMM_TILES:
+        for row in sweeps[f"gemm_{prec}"]["candidates"][1:]:
+            tile = tuple(row["tile"])
+            entries.append({
+                "name": f"gemm_{prec}_tile_{tile[0]}x{tile[1]}",
+                "route": "cuda", "source": src + "gemm.cu",
+                "replaces": jax_src + "gemm.py:112",
+                "variant": GEMMDescriptor(
+                    m=m, n=gn, k=k, precision_a=OperandPrecision.BF16,
+                    precision_b=OperandPrecision(prec)).library("sm90",
+                                                                *tile),
+                "launches": counted["gemm", (*tile, GEMM_K_STEP)],
+                "max_abs_err": max(r["max_abs_err"]
+                                   for r in row["reading"].values()),
+                "ms": row["ms"],
+                "plain_ms": plain[f"gemm_{prec}"],
+                "bound_ms": sweeps[f"gemm_{prec}"]["bound_ms"],
+                "bound_by": sweeps[f"gemm_{prec}"]["bound_by"],
+                "library_ms": plain["library_gemm"]
+                if prec == "bf16" else None,
+                "default_tile_ms": sweeps[f"gemm_{prec}"]["default_ms"],
+                "shape": f"[{m}, {k}] x [{k}, {gn}], B {prec}"})
+    for entry in entries:
+        if entry["launches"] == 0:
+            fail(f"runtime: {entry['name']} was never launched")
+    print("runtime_launches: " + json.dumps(
+        {f"{name} {tile}": c for (name, tile), c in counted.items()}),
+        flush=True)
+    print("runtime: " + json.dumps({
+        "seconds": time.perf_counter() - t_phase,
+        "build_seconds": build_seconds,
+        "variants": len(runtime_variants()), "card": card}), flush=True)
+    return entries
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs an NVIDIA "
               "GPU", file=sys.stderr)
         return 1
+    dev = torch.device("cuda", 0)
+    # A private config cache for the whole run: no tuned winner of an
+    # earlier run (in ~/.cache or anywhere) changes what this run
+    # launches, and this run's winners go nowhere else.
+    from metal_flash_attention_tpu_torch.runtime.cache import (
+        KernelConfigCache,
+    )
+    cache_dir = tempfile.mkdtemp(prefix="mfa_smoke_cache_")
+    os.environ["MFA_TORCH_CACHE_DIR"] = cache_dir
+    KernelConfigCache._instance = KernelConfigCache(
+        os.path.join(cache_dir, "autotune.json"))
+    try:
+        return run(dev, cache_dir)
+    finally:
+        shutil.rmtree(cache_dir, ignore_errors=True)
+
+
+def run(dev, cache_dir) -> int:
+    """Every phase on ``dev``, with the run's private config cache."""
+    import torch
     from metal_flash_attention_tpu_torch.models import llama
-    from metal_flash_attention_tpu_torch.native.build import build_all
+    from metal_flash_attention_tpu_torch.native.build import (
+        build_variants,
+        sources,
+    )
     from metal_flash_attention_tpu_torch.ops import paged_attention as pa
 
-    dev = torch.device("cuda", 0)
     phases = {}
 
     def phase(name, fn, *args):
@@ -4736,10 +5249,15 @@ def main() -> int:
         phases[name] = time.perf_counter() - t0
         return out
 
+    # The plain libraries and the runtime phase's tile variants, one nvcc
+    # each, all started together.
     t0 = time.perf_counter()
-    libs = phase("build", build_all)
-    print(f"build: {sorted(libs)} in {time.perf_counter() - t0:.2f} s",
-          flush=True)
+    variants = runtime_variants()
+    libs = phase("build", build_variants,
+                 [(name, None) for name in sources()] + variants)
+    build_seconds = time.perf_counter() - t0
+    print(f"build: {sorted(sources())} and {len(libs) - len(sources())} "
+          f"tile variants in {build_seconds:.2f} s", flush=True)
 
     cfg = llama.LlamaConfig.llama3_8b()
     t0 = time.perf_counter()
@@ -4923,6 +5441,11 @@ def main() -> int:
     del cases
     torch.cuda.empty_cache()
 
+    # The runtime: tile sweeps, dispatch by the config cache, the CLI.
+    runtime_kernels = phase("runtime", runtime_phase, dev, card, cache_dir,
+                            build_seconds)
+    torch.cuda.empty_cache()
+
     kernels.append(decode_kernel)
     kernels.append(gemm_kernel)
     kernels += softmax_kernels
@@ -4930,6 +5453,7 @@ def main() -> int:
     kernels += quant_fwd
     kernels += gemma_kernels
     kernels += option_kernels
+    kernels += runtime_kernels
 
     print("phases: " + json.dumps(phases))
     print(card)

@@ -8,18 +8,37 @@
 // So the kernels and their wrappers share this one source.  The flash
 // kernels' blocks are warpgroups of 64 rows (query rows, or keys for
 // dK/dV); their tiles are the N of a wgmma (64, 128 or 256).
+// Every value may be set with -D: a library built so is a tile variant
+// (`native.build.load_library(name, defines)`, under build/variants/),
+// whose launchers size their grids and shared memory from these macros.
+// The values here are the default tiles, the H100 table's rows
+// (`descriptors.parameters`).
 
 #pragma once
 
+#ifndef MFA_FWD90_BLOCK_Q
 #define MFA_FWD90_BLOCK_Q 128   // flash_fwd: query rows per block (2 x 64)
+#endif
+#ifndef MFA_FWD90_BLOCK_KV
 #define MFA_FWD90_BLOCK_KV 128  // flash_fwd: keys per tile of the ring
+#endif
 // flash_fwd at head_dim 256 (Gemma-2): one consumer warpgroup, so that its
 // 128 floats of O a thread fit the registers, and 64-key tiles.
+#ifndef MFA_FWD90_D256_BLOCK_Q
 #define MFA_FWD90_D256_BLOCK_Q 64
+#endif
+#ifndef MFA_FWD90_D256_BLOCK_KV
 #define MFA_FWD90_D256_BLOCK_KV 64
+#endif
+#ifndef MFA_FWD90_D256_STAGES
 #define MFA_FWD90_D256_STAGES 2
+#endif
+#ifndef MFA_FWD90_STAGES
 #define MFA_FWD90_STAGES 2      // flash_fwd: K/V stages of the ring
+#endif
+#ifndef MFA_FWD90_RAW_STAGES
 #define MFA_FWD90_RAW_STAGES 2  // flash_fwd: stored quantized K/V stages
+#endif
 #ifndef MFA_BWD90_DQ_BLOCK_Q
 #define MFA_BWD90_DQ_BLOCK_Q 128   // flash_bwd_dq: query rows per block
 #endif
@@ -88,19 +107,41 @@
 // gemm: the output tile (rows x columns) one block computes and the K
 // step it stages; the K step divides the NF4 half-group of 256, so a step
 // never straddles two nibble planes.
+#ifndef MFA_GEMM_BLOCK_M
 #define MFA_GEMM_BLOCK_M 128
+#endif
+#ifndef MFA_GEMM_BLOCK_N
 #define MFA_GEMM_BLOCK_N 128
+#endif
+#ifndef MFA_GEMM_BLOCK_K
 #define MFA_GEMM_BLOCK_K 32
+#endif
 // gemm's sm90 route (TMA ring, wgmma): the output tile for a bf16 B, the
 // taller one for a quantized B (each decoded element feeds 256 rows), the
 // narrow one at a decode batch (M <= MFA_GEMM90_DECODE_M), the K step (one
 // 128-byte swizzled bf16 row of A) and the most stages of the shared-
 // memory ring (each tile takes as many as shared memory holds, up to it).
+#ifndef MFA_GEMM90_BLOCK_M
 #define MFA_GEMM90_BLOCK_M 128
+#endif
+#ifndef MFA_GEMM90_BLOCK_N
 #define MFA_GEMM90_BLOCK_N 256
+#endif
+#ifndef MFA_GEMM90_QUANT_BLOCK_M
 #define MFA_GEMM90_QUANT_BLOCK_M 256
+#endif
+#ifndef MFA_GEMM90_QUANT_BLOCK_N
 #define MFA_GEMM90_QUANT_BLOCK_N 128
+#endif
+#ifndef MFA_GEMM90_BLOCK_N_DECODE
 #define MFA_GEMM90_BLOCK_N_DECODE 128
+#endif
+#ifndef MFA_GEMM90_DECODE_M
 #define MFA_GEMM90_DECODE_M 64
+#endif
+#ifndef MFA_GEMM90_BLOCK_K
 #define MFA_GEMM90_BLOCK_K 64
+#endif
+#ifndef MFA_GEMM90_STAGES
 #define MFA_GEMM90_STAGES 6
+#endif

@@ -27,6 +27,9 @@ from torch.utils.checkpoint import checkpoint
 from metal_flash_attention_tpu_torch import dispatch
 from metal_flash_attention_tpu_torch.models.losses import fused_cross_entropy
 from metal_flash_attention_tpu_torch.models.optim import sgd_step
+from metal_flash_attention_tpu_torch.ops.flash_attention import (
+    flash_attention,
+)
 from metal_flash_attention_tpu_torch.utils.device import resolve_device
 from metal_flash_attention_tpu_torch.utils.errors import not_ported
 
@@ -178,12 +181,17 @@ def attention_qkv(layer: dict, x: torch.Tensor, cfg: LlamaConfig, cos, sin):
 
 
 def attention_block(layer: dict, x: torch.Tensor, cfg: LlamaConfig, cos,
-                    sin, kv_cache: Optional[tuple] = None, mesh=None,
+                    sin, kv_cache: Optional[tuple] = None,
+                    block_q: Optional[int] = None,
+                    block_kv: Optional[int] = None, mesh=None,
                     lora_layer: Optional[dict] = None, lora_ids=None):
     """x: [batch, seq, dim] -> (x + attention, (k, v)).
 
     With ``kv_cache = (k_prefix, v_prefix)`` the new K/V are appended to
-    the prefix and attention spans all of it (causal, bottom-right)."""
+    the prefix and attention spans all of it (causal, bottom-right).
+    Without ``block_q`` / ``block_kv`` attention resolves through
+    `dispatch.attention`; with either it calls `flash_attention` with
+    that tile, as the JAX package does."""
     if mesh is not None:
         raise not_ported("sharded attention (mesh=)",
                          "tensor-parallel serving")
@@ -194,15 +202,22 @@ def attention_block(layer: dict, x: torch.Tensor, cfg: LlamaConfig, cos,
     if kv_cache is not None:
         k = torch.cat([kv_cache[0], k], dim=2)
         v = torch.cat([kv_cache[1], v], dim=2)
-    o = dispatch.attention(q, k, v, causal=True,
-                           window_size=cfg.sliding_window)
+    if block_q is None and block_kv is None:
+        o = dispatch.attention(q, k, v, causal=True,
+                               window_size=cfg.sliding_window)
+    else:
+        o = flash_attention(q, k, v, causal=True,
+                            window_size=cfg.sliding_window, block_q=block_q,
+                            block_kv=block_kv)
     y = o.transpose(1, 2).reshape(b, s, -1) @ layer["wo"]
     return x + y.to(x.dtype), (k, v)
 
 
 def forward_hidden(params: dict, tokens: torch.Tensor, cfg: LlamaConfig, *,
                    positions: Optional[torch.Tensor] = None,
-                   kv_caches: Optional[list] = None, mesh=None,
+                   kv_caches: Optional[list] = None,
+                   block_q: Optional[int] = None,
+                   block_kv: Optional[int] = None, mesh=None,
                    lora: Optional[dict] = None, lora_ids=None,
                    remat: bool = False):
     """tokens [batch, seq] -> (final-norm hidden states [batch, seq,
@@ -211,7 +226,9 @@ def forward_hidden(params: dict, tokens: torch.Tensor, cfg: LlamaConfig, *,
 
     ``remat=True`` checkpoints each layer (`torch.utils.checkpoint`,
     non-reentrant): the backward recomputes the layer's activations, so
-    attention's forward kernel runs twice per layer and step."""
+    attention's forward kernel runs twice per layer and step.
+    ``block_q`` / ``block_kv``: every layer's attention tile
+    (`attention_block`)."""
     if lora is not None:
         raise not_ported("LoRA deltas (lora=)", "LoRA")
     b, s = tokens.shape
@@ -222,6 +239,7 @@ def forward_hidden(params: dict, tokens: torch.Tensor, cfg: LlamaConfig, *,
 
     def one_layer(layer, x, cache):
         x, kv = attention_block(layer, x, cfg, cos, sin, kv_cache=cache,
+                                block_q=block_q, block_kv=block_kv,
                                 mesh=mesh)
         return mlp_block(layer, x, cfg), kv
 

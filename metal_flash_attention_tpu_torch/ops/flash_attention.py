@@ -57,13 +57,24 @@ are all masked or gated gives o = 0 and lse = -inf.  On the card the
 options run on the `kAux` kernels (bf16 / fp16, head_dim 64 and 128,
 with or without the cap), counted also as ``["flash_fwd_aux"]``; with
 head_dim 256, quantized K/V or float32 they raise there (the plain
-versions take them).  The TPU block sizes (``block_q``, ``block_kv``)
-have no meaning here: the kernels' tiles are fixed
-(`descriptors.attention_descriptor`).
+versions take them).
+
+The tile: a CUDA launch takes the one `descriptors.attention_descriptor`
+resolves (`resolve_kernel_config`): the caller's ``block_q`` /
+``block_kv``, clamped to the nearest tile the card builds
+(`descriptors.parameters.clamp_to_card`), else a tuned winner of the
+runtime's config cache, else the H100 table's row (the kernel's default
+tile in `csrc/flash_tiles.cuh`), and loads the library variant that
+holds it (`native.build`; a tile that fails to build or launch raises,
+nothing falls back).  Each launch also counts its tile in
+``LAUNCH_TILES["flash_fwd"]``.  A CPU tensor resolves no tile (its plain
+version has none); ``interpret`` (the TPU kernel's) is taken and
+ignored.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import math
@@ -71,6 +82,10 @@ from typing import Optional
 
 import torch
 
+from metal_flash_attention_tpu_torch.descriptors.attention_descriptor import (
+    AttentionKernelType,
+    resolve_kernel_config,
+)
 from metal_flash_attention_tpu_torch.ops.quantization import (
     KV_PRECISIONS,
     PRECISION_CODE,
@@ -96,6 +111,8 @@ LAUNCH_COUNTS = {"flash_fwd": 0, "flash_fwd_sm90": 0,
                  **{f"flash_fwd_{p.value}": 0 for p in KV_PRECISIONS},
                  "flash_fwd_softcap": 0, "flash_fwd_d256": 0,
                  "flash_fwd_aux": 0}
+# The tiles each kernel launched with: {(block_q, block_kv): launches}.
+LAUNCH_TILES = {"flash_fwd": collections.Counter()}
 
 KERNEL_ITEM = "flash-kernel coverage"
 
@@ -115,6 +132,8 @@ class AuxOperands(ctypes.Structure):
 def reset_launch_counts() -> None:
     for name in LAUNCH_COUNTS:
         LAUNCH_COUNTS[name] = 0
+    for tiles in LAUNCH_TILES.values():
+        tiles.clear()
 
 
 def check_options(q, k, *, mask=None, bias=None, mask2=None,
@@ -225,31 +244,49 @@ def flash_attention_forward(q: torch.Tensor, k: torch.Tensor,
                             q_segment_ids=None, kv_segment_ids=None,
                             scale: Optional[float] = None,
                             logit_softcap: Optional[float] = None,
+                            block_q: Optional[int] = None,
+                            block_kv: Optional[int] = None,
+                            interpret: Optional[bool] = None,
                             low_precision_intermediates: bool = False,
-                            out_dtype: Optional[torch.dtype] = None):
-    """Fused forward attention -> (o, lse).
+                            out_dtype: Optional[torch.dtype] = None,
+                            emit_lse: bool = True):
+    """Fused forward attention -> (o, lse), or (o, None) without
+    ``emit_lse``, as in the JAX package.
 
     o is [batch, q_heads, q_len, head_dim] in ``out_dtype`` (default
     q's dtype); lse is the natural-log row logsumexp [batch, q_heads,
-    q_len], float32 (bf16 with ``low_precision_intermediates``).  No
+    q_len], float32 (bf16 with ``low_precision_intermediates``).
+    ``block_q`` / ``block_kv``: the kernel's tile (module docstring).  No
     autograd graph: see `flash_attention`.
     """
+    del interpret
     check_shapes(q, k, v)
     options = check_options(q, k, mask=mask, bias=bias, mask2=mask2,
                             q_segment_ids=q_segment_ids,
                             kv_segment_ids=kv_segment_ids,
                             window_size=window_size)
-    return _forward(q, k, v, causal=causal, window_size=window_size,
-                    scale=scale, out_dtype=out_dtype,
-                    softcap=softcap_value(logit_softcap), options=options,
-                    low_precision=low_precision_intermediates)
+    o, lse = _forward(q, k, v, causal=causal, window_size=window_size,
+                      scale=scale, out_dtype=out_dtype,
+                      softcap=softcap_value(logit_softcap), options=options,
+                      low_precision=low_precision_intermediates,
+                      tiles=requested_tiles(block_q, block_kv))
+    return o, (lse if emit_lse else None)
+
+
+def requested_tiles(block_q, block_kv):
+    """A caller's tile request, (block_q, block_kv), or None without
+    one."""
+    if block_q is None and block_kv is None:
+        return None
+    return (block_q, block_kv)
 
 
 def _forward(q, k, v, *, causal, window_size, scale, out_dtype,
-             softcap=None, options=None, low_precision=False):
+             softcap=None, options=None, low_precision=False, tiles=None):
     """The forward on checked operands: the kernel for a CUDA tensor,
     the plain version for a CPU tensor.  ``softcap``: the cap, or None;
-    ``options``: `check_options`'s; ``low_precision``: lse in bf16."""
+    ``options``: `check_options`'s; ``low_precision``: lse in bf16;
+    ``tiles``: the caller's (block_q, block_kv), or None."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     out_dtype = out_dtype or q.dtype
@@ -260,7 +297,7 @@ def _forward(q, k, v, *, causal, window_size, scale, out_dtype,
         if q.is_cuda:
             if not quantized:
                 k, v = k.contiguous(), v.contiguous()
-            o, lse = _forward_cuda(q.contiguous(), k, v, **kw)
+            o, lse = _forward_cuda(q.contiguous(), k, v, tiles=tiles, **kw)
         elif q.device.type != "cpu":
             raise ValueError(f"flash attention runs on cpu or cuda "
                              f"tensors, got {q.device}")
@@ -278,6 +315,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     window_size: Optional[int] = None,
                     scale: Optional[float] = None,
                     logit_softcap: Optional[float] = None,
+                    block_q: Optional[int] = None,
+                    block_kv: Optional[int] = None,
+                    interpret: Optional[bool] = None,
                     return_residuals: bool = False,
                     low_precision_intermediates: bool = False,
                     out_dtype: Optional[torch.dtype] = None):
@@ -285,7 +325,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``return_residuals``.  Gradients reach q, k and v through the
     atomic-free backward (`ops.flash_attention_bwd`); lse carries
     none, as in the JAX package.  Over quantized K/V it is the forward,
-    with no graph.  See `flash_attention_forward` for the arguments."""
+    with no graph.  ``block_q`` / ``block_kv`` set the tile of all three
+    kernels, each clamped to its own rules.  See
+    `flash_attention_forward` for the arguments."""
     from metal_flash_attention_tpu_torch.ops.flash_attention_bwd import (
         FlashAttentionFunction,
     )
@@ -295,17 +337,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             q_segment_ids=q_segment_ids,
                             kv_segment_ids=kv_segment_ids,
                             window_size=window_size)
+    del interpret
     softcap = softcap_value(logit_softcap)
+    tiles = requested_tiles(block_q, block_kv)
     if isinstance(k, QuantizedTensor):
         o, lse = _forward(q, k, v, causal=causal, window_size=window_size,
                           scale=scale, out_dtype=out_dtype, softcap=softcap,
                           options=options,
-                          low_precision=low_precision_intermediates)
+                          low_precision=low_precision_intermediates,
+                          tiles=tiles)
         return (o, lse) if return_residuals else o
     o, lse = FlashAttentionFunction.apply(
         q.contiguous(), k.contiguous(), v.contiguous(), bias, options,
         causal, window_size, scale, out_dtype, softcap,
-        low_precision_intermediates)
+        low_precision_intermediates, tiles)
     return (o, lse) if return_residuals else o
 
 
@@ -334,11 +379,26 @@ def _forward_plain_quantized(q, k, v, *, causal, window_size, scale,
 
 
 @functools.cache
-def _kernel_library() -> ctypes.CDLL:
-    """Build (if stale) and bind csrc/flash_attention.cu."""
+def _kernel_library(library: tuple = ()) -> ctypes.CDLL:
+    """Build (if stale) and bind csrc/flash_attention.cu, or its tile
+    variant ``library`` (-D pairs)."""
     from metal_flash_attention_tpu_torch.native.build import load_library
 
-    return bind_library(load_library("flash_attention"))
+    return bind_library(load_library("flash_attention", library))
+
+
+def kernel_config(kind, q, *, causal, window_size, tiles):
+    """The resolved `KernelConfig` of one launch of ``kind``
+    (`AttentionKernelType`) on q's card: the caller's ``tiles`` (a
+    (block_q, block_kv) request, or a {kernel type: request} dict), a
+    tuned winner or the table's."""
+    if isinstance(tiles, dict):
+        tiles = tiles.get(kind.value)
+    block_q, block_kv = tiles or (None, None)
+    return resolve_kernel_config(
+        kind, q.shape[-1], q.dtype, q_len=q.shape[2],
+        causal=causal or window_size is not None, block_q=block_q,
+        block_kv=block_kv, device=q.device)
 
 
 def bind_library(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -426,8 +486,9 @@ def aux_operands(options, q, dbias=None):
 
 
 def _forward_cuda(q, k, v, *, causal, window_size, scale, out_dtype,
-                  softcap=None, options=None):
-    """Launch the Hopper kernel; raise on anything it does not take."""
+                  softcap=None, options=None, tiles=None):
+    """Launch the Hopper kernel with the resolved tile's library; raise
+    on anything it does not take."""
     precision, scales = None, (None, None)
     head_dims = UNQUANTIZED_HEAD_DIMS
     if isinstance(k, QuantizedTensor):
@@ -450,7 +511,9 @@ def _forward_cuda(q, k, v, *, causal, window_size, scale, out_dtype,
     aux, keep = aux_operands(options, q)
     b, qh, n, d = q.shape
     kvh, m = k.shape[1], k.shape[2]
-    lib = _kernel_library()
+    cfg = kernel_config(AttentionKernelType.FORWARD, q, causal=causal,
+                        window_size=window_size, tiles=tiles)
+    lib = _kernel_library(cfg.library)
     o = torch.empty((b, qh, n, d), dtype=out_dtype, device=q.device)
     lse = torch.empty((b, qh, n), dtype=torch.float32, device=q.device)
     stream = ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream)
@@ -468,6 +531,7 @@ def _forward_cuda(q, k, v, *, causal, window_size, scale, out_dtype,
     raise_on_launch_error(lib, rc, "flash_fwd")
     LAUNCH_COUNTS["flash_fwd"] += 1
     LAUNCH_COUNTS["flash_fwd_sm90"] += 1
+    LAUNCH_TILES["flash_fwd"][(cfg.block_q, cfg.block_kv)] += 1
     if precision is not None:
         LAUNCH_COUNTS[f"flash_fwd_{precision.value}"] += 1
     if softcap is not None:

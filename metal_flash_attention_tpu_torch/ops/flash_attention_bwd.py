@@ -43,11 +43,17 @@ tensor launches the Hopper kernels of `csrc/flash_attention_bwd.cu`
 ``LAUNCH_COUNTS["flash_bwd_dq"]`` or ``["flash_bwd_dkv"]`` (the op) and
 to ``["flash_bwd_dq_sm90"]`` or ``["flash_bwd_dkv_sm90"]`` (the kernel
 that ran), with the soft cap to ``["<op>_softcap"]`` and at head_dim 256
-to ``["<op>_d256"]`` too.
+to ``["<op>_d256"]`` too.  Each kernel launches the tile
+`ops.flash_attention.kernel_config` resolves for it (the caller's
+``block_q`` / ``block_kv`` clamped to that kernel's rules, a tuned
+winner under ``backward_query`` / ``backward_key_value``, "_causal" for
+causal or windowed calls, or the table's) from the library variant that
+holds it, and counts it in ``LAUNCH_TILES["<op>"]``.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import math
@@ -55,6 +61,9 @@ from typing import Optional
 
 import torch
 
+from metal_flash_attention_tpu_torch.descriptors.attention_descriptor import (
+    AttentionKernelType,
+)
 from metal_flash_attention_tpu_torch.ops.flash_attention import (
     UNQUANTIZED_HEAD_DIMS,
     AuxOperands,
@@ -63,7 +72,9 @@ from metal_flash_attention_tpu_torch.ops.flash_attention import (
     check_kernel_operands,
     check_options,
     check_shapes,
+    kernel_config,
     raise_on_launch_error,
+    requested_tiles,
 )
 from metal_flash_attention_tpu_torch.ops.reference import (
     attention_reference_grads,
@@ -74,11 +85,18 @@ from metal_flash_attention_tpu_torch.ops.reference import (
 # it.
 LAUNCH_COUNTS = {f"flash_bwd_{op}{suffix}": 0 for op in ("dq", "dkv")
                  for suffix in ("", "_sm90", "_softcap", "_d256", "_aux")}
+# The tiles each kernel launched with: {(block_q, block_kv): launches}.
+LAUNCH_TILES = {"flash_bwd_dq": collections.Counter(),
+                "flash_bwd_dkv": collections.Counter()}
+_KINDS = {"flash_bwd_dq": AttentionKernelType.BACKWARD_QUERY,
+          "flash_bwd_dkv": AttentionKernelType.BACKWARD_KEY_VALUE}
 
 
 def reset_launch_counts() -> None:
     for name in LAUNCH_COUNTS:
         LAUNCH_COUNTS[name] = 0
+    for tiles in LAUNCH_TILES.values():
+        tiles.clear()
 
 
 def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
@@ -90,6 +108,9 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
                              q_segment_ids=None, kv_segment_ids=None,
                              scale: Optional[float] = None,
                              logit_softcap: Optional[float] = None,
+                             block_q: Optional[int] = None,
+                             block_kv: Optional[int] = None,
+                             interpret: Optional[bool] = None,
                              low_precision_intermediates: bool = False,
                              compute_dbias: bool = False):
     """Both backward kernels -> (dq, dk, dv), each in its input's dtype,
@@ -100,7 +121,9 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
     natural-log logsumexp [batch, q_heads, q_len].  dk and dv are
     [batch, kv_heads, kv_len, head_dim], summed over each kv head's
     group.  Quantized K/V is not differentiated (a TypeError), as in
-    the JAX package."""
+    the JAX package.  ``block_q`` / ``block_kv``: both kernels' tile,
+    each clamped to its rules; ``interpret`` is ignored."""
+    del interpret
     if not isinstance(k, torch.Tensor) or not isinstance(v, torch.Tensor):
         raise TypeError("the backward takes k and v as tensors: quantized "
                         "K/V is not differentiated")
@@ -121,7 +144,7 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
         q, k, v, do, o, lse, causal=causal, window_size=window_size,
         scale=scale, softcap=softcap_value(logit_softcap), options=options,
         low_precision=low_precision_intermediates,
-        compute_dbias=compute_dbias)
+        compute_dbias=compute_dbias, tiles=requested_tiles(block_q, block_kv))
     if not compute_dbias:
         return dq, dk, dv
     return dq, dk, dv, reduce_dbias(dbias, bias)
@@ -139,10 +162,12 @@ def reduce_dbias(dbias: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
 
 def _backward(q, k, v, do, o, lse, *, causal, window_size, scale,
               softcap=None, options=None, low_precision=False,
-              compute_dbias=False):
+              compute_dbias=False, tiles=None):
     """The backward on checked operands: both kernels for a CUDA tensor,
     the plain version for a CPU tensor.  ``softcap``: the cap, or None;
-    lse must be that of the capped logits.  Returns (dq, dk, dv, dbias),
+    lse must be that of the capped logits; ``tiles``: a (block_q,
+    block_kv) request for both kernels, or {"backward_query": ...,
+    "backward_key_value": ...}, or None.  Returns (dq, dk, dv, dbias),
     dbias the full float32 one with ``compute_dbias``, else None."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
@@ -157,7 +182,7 @@ def _backward(q, k, v, do, o, lse, *, causal, window_size, scale,
             do = do.to(q.dtype).contiguous()
             lse, d_term = lse.contiguous(), d_term.contiguous()
             kw = dict(causal=causal, window_size=window_size, scale=scale,
-                      softcap=softcap, options=options)
+                      softcap=softcap, options=options, tiles=tiles)
             dbias = None
             if compute_dbias:
                 # Tiles the dQ kernel skips (causal, window) stay zero.
@@ -183,23 +208,25 @@ def _backward(q, k, v, do, o, lse, *, causal, window_size, scale,
 
 class FlashAttentionFunction(torch.autograd.Function):
     """(q, k, v, bias, options, causal, window_size, scale, out_dtype,
-    softcap, low_precision) -> (o, lse); ``bias`` is ``options.bias``,
-    passed apart so that autograd sees it (None without one); lse is not
-    differentiable (its cotangent is dropped, as in JAX).  ``softcap``:
-    the cap (`ops.reference.softcap_value`), or None."""
+    softcap, low_precision, tiles) -> (o, lse); ``bias`` is
+    ``options.bias``, passed apart so that autograd sees it (None without
+    one); lse is not differentiable (its cotangent is dropped, as in
+    JAX).  ``softcap``: the cap (`ops.reference.softcap_value`), or None;
+    ``tiles``: the caller's (block_q, block_kv) for all three kernels, or
+    None."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, options, causal, window_size, scale,
-                out_dtype, softcap=None, low_precision=False):
+                out_dtype, softcap=None, low_precision=False, tiles=None):
         o, lse = _flash_forward(q, k, v, causal=causal,
                                 window_size=window_size, scale=scale,
                                 out_dtype=out_dtype, softcap=softcap,
                                 options=options,
-                                low_precision=low_precision)
+                                low_precision=low_precision, tiles=tiles)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.options = dict(causal=causal, window_size=window_size,
                            scale=scale, softcap=softcap, options=options,
-                           low_precision=low_precision)
+                           low_precision=low_precision, tiles=tiles)
         ctx.mark_non_differentiable(lse)
         return o, lse
 
@@ -221,7 +248,8 @@ class FlashAttentionFunction(torch.autograd.Function):
                                       **ctx.options)
         if need_dbias:
             dbias = reduce_dbias(dbias, bias)
-        return dq, dk, dv, dbias, None, None, None, None, None, None, None
+        return (dq, dk, dv, dbias, None, None, None, None, None, None, None,
+                None)
 
 
 def _backward_plain(q, k, v, do, *, causal, window_size, scale,
@@ -241,11 +269,12 @@ def _backward_plain(q, k, v, do, *, causal, window_size, scale,
 
 
 @functools.cache
-def _kernel_library() -> ctypes.CDLL:
-    """Build (if stale) and bind csrc/flash_attention_bwd.cu."""
+def _kernel_library(library: tuple = ()) -> ctypes.CDLL:
+    """Build (if stale) and bind csrc/flash_attention_bwd.cu, or its tile
+    variant ``library`` (-D pairs)."""
     from metal_flash_attention_tpu_torch.native.build import load_library
 
-    return bind_library(load_library("flash_attention_bwd"))
+    return bind_library(load_library("flash_attention_bwd", library))
 
 
 def bind_library(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -263,9 +292,11 @@ def bind_library(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 
 def _launch(name, outputs, q, k, v, do, lse, d_term, *, causal,
-            window_size, scale, softcap=None, options=None, dbias=None):
-    """Check the operands and launch one backward kernel (``dbias``: the
-    dQ kernel's float32 output, or None)."""
+            window_size, scale, softcap=None, options=None, dbias=None,
+            tiles=None):
+    """Check the operands and launch one backward kernel with its
+    resolved tile's library (``dbias``: the dQ kernel's float32 output, or
+    None; ``tiles``: as `_backward`'s)."""
     check_kernel_operands(dict(q=q, k=k, v=v, do=do, lse=lse,
                                d_term=d_term), q.dtype, q.device,
                           UNQUANTIZED_HEAD_DIMS)
@@ -282,7 +313,9 @@ def _launch(name, outputs, q, k, v, do, lse, d_term, *, causal,
         raise ValueError(f"dbias must be a contiguous float32 [{b}, {qh}, "
                          f"{n}, {m}] beside a bias")
     aux, keep = aux_operands(options, q, dbias)
-    lib = _kernel_library()
+    cfg = kernel_config(_KINDS[name], q, causal=causal,
+                        window_size=window_size, tiles=tiles)
+    lib = _kernel_library(cfg.library)
     stream = ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream)
     with torch.cuda.device(q.device):
         rc = getattr(lib, f"mfa_{name}")(
@@ -296,6 +329,7 @@ def _launch(name, outputs, q, k, v, do, lse, d_term, *, causal,
     raise_on_launch_error(lib, rc, name)
     LAUNCH_COUNTS[name] += 1
     LAUNCH_COUNTS[f"{name}_sm90"] += 1
+    LAUNCH_TILES[name][(cfg.block_q, cfg.block_kv)] += 1
     if softcap is not None:
         LAUNCH_COUNTS[f"{name}_softcap"] += 1
     if d == 256:

@@ -45,11 +45,20 @@ inputs) split over the keys in fixed chunks
 ``LAUNCH_COUNTS["flash_decode_sm90"]``, over a quantized cache to
 ``LAUNCH_COUNTS["flash_decode_<precision>"]``, with the soft cap to
 ``["flash_decode_softcap"]`` and at head_dim 256 to
-``["flash_decode_d256"]`` too.
+``["flash_decode_d256"]`` too; ``LAUNCH_TILES["flash_decode"]`` counts
+the chunk (keys a split block) of each launch.
+
+``block_kv`` (the JAX kernel's key block) is the cap on that chunk, in
+whole MFA_DECODE_BLOCK_KV tiles (`paged_attention.chunk_cap`); without
+it a tuned ``decode_<precision>`` winner of the runtime's config cache
+(`runtime.autotune.autotune_decode`) caps it, else MFA_DECODE_CHUNK.
+`decode_splits` sizes the chunk up to the cap, so none needs a rebuild.
+``interpret`` (the TPU kernel's) is taken and ignored.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import math
@@ -60,9 +69,11 @@ import torch
 from metal_flash_attention_tpu_torch.native.build import tile_defines
 from metal_flash_attention_tpu_torch.ops.paged_attention import (
     _sm_count,
+    chunk_cap,
     data_ptr,
     decode_splits,
     split_scratch,
+    tuned_chunk,
 )
 from metal_flash_attention_tpu_torch.ops.quantization import (
     KV_PRECISIONS,
@@ -87,6 +98,8 @@ KERNEL_DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 LAUNCH_COUNTS = {"flash_decode": 0, "flash_decode_sm90": 0,
                  **{f"flash_decode_{p.value}": 0 for p in KV_PRECISIONS},
                  "flash_decode_softcap": 0, "flash_decode_d256": 0}
+# The chunks the kernel launched with: {keys a split block: launches}.
+LAUNCH_TILES = {"flash_decode": collections.Counter()}
 
 KERNEL_ITEM = "flash-kernel coverage"
 
@@ -94,6 +107,8 @@ KERNEL_ITEM = "flash-kernel coverage"
 def reset_launch_counts() -> None:
     for name in LAUNCH_COUNTS:
         LAUNCH_COUNTS[name] = 0
+    for tiles in LAUNCH_TILES.values():
+        tiles.clear()
 
 
 def flash_decode(q: torch.Tensor, k, v, *,
@@ -103,6 +118,7 @@ def flash_decode(q: torch.Tensor, k, v, *,
                  scale: Optional[float] = None,
                  logit_softcap: Optional[float] = None,
                  block_kv: Optional[int] = None,
+                 interpret: Optional[bool] = None,
                  return_residuals: bool = False):
     """Decode-step attention for one new token per sequence.
 
@@ -113,14 +129,16 @@ def flash_decode(q: torch.Tensor, k, v, *,
     ``kv_lens``, ``kv_starts``: int [batch].  The query token itself must
     already be in the cache (at position kv_lens - 1).  ``scale``
     defaults to 1/sqrt(head_dim); ``logit_softcap`` c soft-caps each
-    scaled logit to c * tanh(s / c).  ``block_kv`` is the TPU kernel's
-    key-block size: accepted and ignored on both devices (the CUDA
-    kernel's tile is fixed).
+    scaled logit to c * tanh(s / c).  ``block_kv``: the cap on a split
+    block's keys on the card (module docstring); the plain version has
+    none.
 
     Returns o [batch, q_heads, head_dim] in q's dtype, and with
     ``return_residuals`` also lse [batch, q_heads] (float32, natural
     log)."""
-    del block_kv
+    del interpret
+    if block_kv is not None and block_kv <= 0:
+        raise ValueError(f"block_kv must be positive, got {block_kv}")
     quantized = isinstance(k, QuantizedTensor)
     kinds = (QuantizedTensor if quantized else torch.Tensor,)
     if not (isinstance(k, kinds) and isinstance(v, kinds)) or (
@@ -152,7 +170,7 @@ def flash_decode(q: torch.Tensor, k, v, *,
     kw = dict(kv_lens=kv_lens, kv_starts=kv_starts, max_span=max_span,
               scale=scale, softcap=softcap)
     if q.is_cuda:
-        o, lse = _flash_decode_cuda(q, k, v, **kw)
+        o, lse = _flash_decode_cuda(q, k, v, block_kv=block_kv, **kw)
     elif q.device.type == "cpu":
         o, lse = _flash_decode_plain(q, k, v, **kw)
     else:
@@ -213,14 +231,19 @@ def write_rows(cache: torch.Tensor, new: torch.Tensor,
 def decode_step(q_token: torch.Tensor, k_cache: torch.Tensor,
                 v_cache: torch.Tensor, new_k: torch.Tensor,
                 new_v: torch.Tensor, kv_lens: torch.Tensor, *,
-                scale: Optional[float] = None, block_kv: int = 2048):
+                scale: Optional[float] = None,
+                block_kv: Optional[int] = None,
+                interpret: Optional[bool] = None):
     """One full decode step: write (new_k, new_v) [batch, kv_heads, d] at
     each sequence's live position, then attend.  The caches are updated
     IN PLACE (the JAX package donates them instead).  kv_lens: int
     [batch], the lengths before this step.
 
-    Returns (o [batch, q_heads, head_dim], k_cache, v_cache,
-    kv_lens + 1)."""
+    ``block_kv``: `flash_decode`'s chunk cap (None: a tuned winner or
+    the default, where the JAX package defaults to its TPU block of
+    2048); ``interpret`` is ignored.  Returns (o [batch, q_heads,
+    head_dim], k_cache, v_cache, kv_lens + 1)."""
+    del interpret
     write_rows(k_cache, new_k, kv_lens)
     write_rows(v_cache, new_v, kv_lens)
     new_lens = kv_lens + 1
@@ -248,8 +271,20 @@ def bind_library(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
+def decode_chunk_cap(block_kv, precision, head_dim: int, dtype,
+                     n: int) -> int:
+    """The most keys one split block of `flash_decode` takes: the caller's
+    ``block_kv``, else a tuned ``decode_<precision>`` winner, else
+    MFA_DECODE_CHUNK; in whole key tiles."""
+    tiles = tile_defines()
+    if block_kv is None:
+        block_kv = tuned_chunk("decode", precision, head_dim, dtype, n)
+    return chunk_cap(block_kv, tiles["MFA_DECODE_BLOCK_KV"],
+                     tiles["MFA_DECODE_CHUNK"])
+
+
 def _flash_decode_cuda(q, k, v, *, kv_lens, kv_starts, max_span, scale,
-                       softcap):
+                       softcap, block_kv=None):
     """Launch the Hopper kernel; raise on anything it does not take.  q
     is made contiguous (a [batch, q_heads, d] copy at most); K and V are
     read in place through their strides."""
@@ -320,9 +355,9 @@ def _flash_decode_cuda(q, k, v, *, kv_lens, kv_starts, max_span, scale,
     lib = _kernel_library()
     # A span that starts mid-tile touches one tile more than it fills.
     max_tokens = n if max_span is None else min(n, max_span + tile)
-    chunk, splits = decode_splits(b * kvh, max_tokens,
-                                  _sm_count(q.device.index or 0), tile,
-                                  tiles["MFA_DECODE_CHUNK"])
+    chunk, splits = decode_splits(
+        b * kvh, max_tokens, _sm_count(q.device.index or 0), tile,
+        decode_chunk_cap(block_kv, precision, d, q.dtype, n))
     o = torch.empty_like(q)
     lse = torch.empty((b, qh), dtype=torch.float32, device=q.device)
     part_o, part_lse = split_scratch(b, kvh, splits, qh // kvh, d, q.device)
@@ -343,6 +378,7 @@ def _flash_decode_cuda(q, k, v, *, kv_lens, kv_starts, max_span, scale,
                            f"{rc} ({lib.mfa_cuda_error_string(rc).decode()})")
     LAUNCH_COUNTS["flash_decode"] += 1
     LAUNCH_COUNTS["flash_decode_sm90"] += 1
+    LAUNCH_TILES["flash_decode"][chunk] += 1
     if precision is not None:
         LAUNCH_COUNTS[f"flash_decode_{precision.value}"] += 1
     if softcap is not None:

@@ -17,7 +17,14 @@ Routing, as in the JAX package:
   plain PyTorch version (`_plain_product`) on a CPU tensor; nothing falls
   back from one to the other.  Each kernel launch adds one to
   ``LAUNCH_COUNTS["gemm"]``, and a launch of the sm90 route also to
-  ``LAUNCH_COUNTS["gemm_sm90"]``.
+  ``LAUNCH_COUNTS["gemm_sm90"]``; ``LAUNCH_TILES["gemm"]`` counts the
+  (block_m, block_n, block_k) each launch took.
+
+The tile is `GEMMDescriptor.kernel_config`'s for the route: ``block_m``
+/ ``block_n`` / ``block_k`` clamped to the nearest tile the route builds,
+else a tuned winner of the runtime's config cache, else the route's
+table tile; a tile outside the plain library launches from its variant
+(`native.build`), and one that fails to build or launch raises.
 
 The kernel's two routes (`_route`, decided from types and layouts before
 the launch; a dispatch, not a fallback: a CUDA call sent to a route
@@ -54,6 +61,7 @@ accumulator.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 from typing import Optional, Union
@@ -77,6 +85,8 @@ from metal_flash_attention_tpu_torch.utils.shapes import cdiv, round_up
 
 # One count per kernel, bumped only where its wrapper launches it.
 LAUNCH_COUNTS = {"gemm": 0, "gemm_sm90": 0}
+# The tiles the kernel launched with: {(block_m, block_n, block_k): n}.
+LAUNCH_TILES = {"gemm": collections.Counter()}
 
 _OUT_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _C_NONE, _C_SEED, _C_AFTER_SCALE = 0, 1, 2
@@ -87,6 +97,8 @@ MIN_STEPS_PER_SPLIT = 8
 def reset_launch_counts() -> None:
     for name in LAUNCH_COUNTS:
         LAUNCH_COUNTS[name] = 0
+    for tiles in LAUNCH_TILES.values():
+        tiles.clear()
 
 
 Operand = Union[torch.Tensor, QuantizedMatrix]
@@ -131,9 +143,8 @@ def gemm(a: Operand, b: Operand, c: Optional[torch.Tensor] = None, *,
     ``backend``: "auto" takes `torch.matmul` for dense operands without
     explicit blocks; explicit blocks, quantized operands or "pallas"
     select the hand kernel; "xla" forces `torch.matmul` for dense
-    operands.  ``block_m/n/k`` and ``interpret`` are the TPU kernel's:
-    accepted, and a block selects the kernel, but on the card the tile
-    is the CUDA kernel's own (`GEMMDescriptor.kernel_config`).
+    operands.  ``block_m/n/k`` select the kernel and set its tile on the
+    card (module docstring); ``interpret`` is the TPU kernel's, ignored.
     """
     return _gemm(a, b, c, batched=False, transpose_a=transpose_a,
                  transpose_b=transpose_b, out_dtype=out_dtype,
@@ -235,7 +246,8 @@ def _gemm(a, b, c, *, batched, transpose_a=False, transpose_b=False,
     if plain or device.type == "cpu":
         out = _plain_product(ops, c, register_dtype, out_dtype)
     elif device.type == "cuda":
-        out = _gemm_cuda(ops, c, register_dtype, out_dtype, any_quant)
+        out = _gemm_cuda(ops, c, register_dtype, out_dtype, any_quant,
+                         (block_m, block_n, block_k))
     else:
         raise ValueError(f"gemm runs on cpu or cuda tensors, got {device}")
     return out if batched else out[0]
@@ -342,11 +354,12 @@ def k_splits(m: int, n: int, k: int, batch: int, sm_count: int,
 
 
 @functools.cache
-def _kernel_library() -> ctypes.CDLL:
-    """Build (if stale) and bind csrc/gemm.cu."""
+def _kernel_library(library: tuple = ()) -> ctypes.CDLL:
+    """Build (if stale) and bind csrc/gemm.cu, or its tile variant
+    ``library`` (-D pairs)."""
     from metal_flash_attention_tpu_torch.native.build import load_library
 
-    lib = load_library("gemm")
+    lib = load_library("gemm", library)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.mfa_gemm.argtypes = [ptr] * 8 + [i32] * 13 + [ptr]
     lib.mfa_gemm.restype = i32
@@ -401,10 +414,13 @@ def _route(ops: _Operands, register_dtype) -> str:
     return "sm90" if tma else "mma"
 
 
-def _gemm_cuda(ops: _Operands, c, register_dtype, out_dtype, any_quant):
-    """Launch the route's Hopper kernel; raise on anything it does not
-    take.  The payloads are read in place through their strides; scales
-    and C are made float32 and contiguous (C: [batch or 1, M, N])."""
+def _gemm_cuda(ops: _Operands, c, register_dtype, out_dtype, any_quant,
+               blocks=(None, None, None)):
+    """Launch the route's Hopper kernel with the resolved tile; raise on
+    anything it does not take.  The payloads are read in place through
+    their strides; scales and C are made float32 and contiguous (C:
+    [batch or 1, M, N]).  ``blocks``: the caller's (block_m, block_n,
+    block_k)."""
     if out_dtype not in _OUT_CODE:
         raise TypeError(f"the gemm kernel writes fp32, bf16 or fp16, got "
                         f"{out_dtype}")
@@ -421,7 +437,9 @@ def _gemm_cuda(ops: _Operands, c, register_dtype, out_dtype, any_quant):
     cfg = GEMMDescriptor(
         m=ops.m, n=ops.n, k=ops.k, precision_a=prec_a, precision_b=prec_b,
         transpose_a=ops.transpose_a, transpose_b=ops.transpose_b,
-        batch=ops.batch, load_previous_c=c is not None).kernel_config(route)
+        batch=ops.batch, load_previous_c=c is not None).kernel_config(
+            route, block_m=blocks[0], block_n=blocks[1], block_k=blocks[2],
+            device=device)
     out = torch.empty((ops.batch, ops.m, ops.n), dtype=out_dtype,
                       device=device)
     if out.numel() == 0:
@@ -453,7 +471,7 @@ def _gemm_cuda(ops: _Operands, c, register_dtype, out_dtype, any_quant):
         a_sb, a_sm, a_sk, b_sb, b_sk, b_sn,
         0 if c is None or c.shape[0] == 1 else ops.m * ops.n,
         *scale_strides(sa), *scale_strides(sb))
-    lib = _kernel_library()
+    lib = _kernel_library(cfg.library)
     stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
     def ptr(t):
@@ -479,6 +497,7 @@ def _gemm_cuda(ops: _Operands, c, register_dtype, out_dtype, any_quant):
                            f"error {rc} "
                            f"({lib.mfa_cuda_error_string(rc).decode()})")
     LAUNCH_COUNTS["gemm"] += 1
+    LAUNCH_TILES["gemm"][(cfg.block_m, cfg.block_n, cfg.block_k)] += 1
     if route == "sm90":
         LAUNCH_COUNTS["gemm_sm90"] += 1
     return out

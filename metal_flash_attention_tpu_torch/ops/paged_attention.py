@@ -50,11 +50,21 @@ launch adds one to its `LAUNCH_COUNTS` entry (`paged_decode`,
 `paged_decode_wide`, `paged_prefill`), to the entry of its Hopper kernel
 (`<name>_sm90`), over quantized pools to `<name>_<precision>`
 (`paged_decode_int8`, ...), with the soft cap to `<name>_softcap` and at
-head_dim 256 to `<name>_d256`.
+head_dim 256 to `<name>_d256`, and `LAUNCH_TILES[<name>]` counts the
+chunk (keys a split block) it launched with.
+
+The chunk's cap (`chunk_cap`): ``pages_per_chunk`` pages (the JAX
+kernel's gather width), in whole key tiles; else, for a decode, a tuned
+``paged_<precision>`` winner of the runtime's config cache
+(`runtime.autotune.autotune_paged`); else the default
+(MFA_DECODE_CHUNK, MFA_PAGED_PREFILL_CHUNK).  `decode_splits` sizes each
+call's chunk up to it, so no cap needs a rebuild.  ``heads_per_chunk``
+and ``interpret`` (the TPU kernel's) are taken and ignored.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import math
@@ -89,6 +99,8 @@ MODES = ("paged_decode", "paged_decode_wide", "paged_prefill")
 LAUNCH_COUNTS = {f"{mode}{suffix}": 0 for mode in MODES for suffix in
                  ("", "_sm90", *(f"_{p.value}" for p in KV_PRECISIONS),
                   "_softcap", "_d256")}
+# The chunks each mode launched with: {keys a split block: launches}.
+LAUNCH_TILES = {mode: collections.Counter() for mode in MODES}
 
 KERNEL_ITEM = "flash-kernel coverage"
 
@@ -108,6 +120,8 @@ def as_kv_precision(value) -> OperandPrecision:
 def reset_launch_counts() -> None:
     for name in LAUNCH_COUNTS:
         LAUNCH_COUNTS[name] = 0
+    for tiles in LAUNCH_TILES.values():
+        tiles.clear()
 
 
 class PagedKVCache(NamedTuple):
@@ -249,7 +263,10 @@ def paged_decode(q: torch.Tensor, cache: PagedKVCache, *,
                  scale: Optional[float] = None,
                  logit_softcap: Optional[float] = None,
                  window_size: Optional[int] = None,
-                 return_residuals: bool = False):
+                 interpret: Optional[bool] = None,
+                 return_residuals: bool = False,
+                 pages_per_chunk: Optional[int] = None,
+                 heads_per_chunk: Optional[int] = None):
     """Decode one token per sequence against a paged pool.
 
     q: [batch, q_heads, head_dim]; returns o of q's shape and, with
@@ -259,10 +276,13 @@ def paged_decode(q: torch.Tensor, cache: PagedKVCache, *,
     sequence's start; ``logit_softcap`` c soft-caps the logits.
     ``cache`` is a `PagedKVCache` or a `QuantizedPagedKVCache`.  On a
     CUDA tensor this launches the split-KV decode kernel (the prefill
-    kernel for groups above MFA_DECODE_MAX_GROUP)."""
+    kernel for groups above MFA_DECODE_MAX_GROUP), its chunk capped at
+    ``pages_per_chunk`` pages (module docstring)."""
+    del interpret, heads_per_chunk
     o, lse = _paged_attention(
         q[:, :, None, :], cache, kv_starts=kv_starts, scale=scale,
-        logit_softcap=logit_softcap, window_size=window_size, decode=True)
+        logit_softcap=logit_softcap, window_size=window_size, decode=True,
+        pages_per_chunk=pages_per_chunk)
     o = o[:, :, 0]
     return (o, lse[:, :, 0]) if return_residuals else o
 
@@ -272,7 +292,9 @@ def paged_prefill(q: torch.Tensor, cache: PagedKVCache, *,
                   scale: Optional[float] = None,
                   logit_softcap: Optional[float] = None,
                   window_size: Optional[int] = None,
-                  return_residuals: bool = False):
+                  interpret: Optional[bool] = None,
+                  return_residuals: bool = False,
+                  pages_per_chunk: Optional[int] = None):
     """Multi-token attention against a paged pool (chunked prefill).
 
     q: [batch, q_heads, q_chunk, head_dim], the last q_chunk tokens of
@@ -280,17 +302,23 @@ def paged_prefill(q: torch.Tensor, cache: PagedKVCache, *,
     position lengths - q_chunk + t and attends causally (within
     ``window_size`` when given, and from ``kv_starts`` when given).
     Returns o of q's shape and, with ``return_residuals``, lse [batch,
-    q_heads, q_chunk]."""
+    q_heads, q_chunk].  ``pages_per_chunk``: the cap on a split block's
+    keys, in pages."""
+    del interpret
     o, lse = _paged_attention(
         q, cache, kv_starts=kv_starts, scale=scale,
-        logit_softcap=logit_softcap, window_size=window_size, decode=False)
+        logit_softcap=logit_softcap, window_size=window_size, decode=False,
+        pages_per_chunk=pages_per_chunk)
     return (o, lse) if return_residuals else o
 
 
 def _paged_attention(q, cache, *, kv_starts, scale, logit_softcap,
-                     window_size, decode):
+                     window_size, decode, pages_per_chunk=None):
     """Shared driver: q [batch, q_heads, q_tokens, head_dim] ->
     (o like q, lse [batch, q_heads, q_tokens] float32)."""
+    if pages_per_chunk is not None and pages_per_chunk <= 0:
+        raise ValueError(f"pages_per_chunk must be positive, got "
+                         f"{pages_per_chunk}")
     precision = getattr(cache, "precision", None)
     if precision is None and cache.k_pages.dtype not in (
             torch.bfloat16, torch.float16, torch.float32):
@@ -308,7 +336,8 @@ def _paged_attention(q, cache, *, kv_starts, scale, logit_softcap,
     kw = dict(kv_starts=kv_starts, scale=scale,
               softcap=softcap_value(logit_softcap), window_size=window_size)
     if q.is_cuda:
-        return _paged_attention_cuda(q, cache, decode=decode, **kw)
+        return _paged_attention_cuda(q, cache, decode=decode,
+                                     pages_per_chunk=pages_per_chunk, **kw)
     if q.device.type != "cpu":
         raise ValueError(f"paged attention runs on cpu or cuda tensors, "
                          f"got {q.device}")
@@ -423,6 +452,44 @@ def decode_splits(pairs: int, max_tokens: int, sm_count: int, tile: int,
     return chunk_tiles * tile, max(1, cdiv(tiles, chunk_tiles))
 
 
+def chunk_cap(requested: Optional[int], tile: int, default: int) -> int:
+    """The most keys one split-KV block takes: ``requested`` keys in
+    whole tiles of ``tile`` (at least one), or ``default`` without a
+    request."""
+    if requested is None:
+        return default
+    if requested <= 0:
+        raise ValueError(f"a chunk cap must be positive, got {requested}")
+    return max(tile, requested // tile * tile)
+
+
+# Tuned caps by problem, kept while the config cache is unchanged.
+_TUNED_CAPS: dict = {}
+
+
+def tuned_chunk(kind: str, precision, head_dim: int, dtype,
+                n: int) -> Optional[int]:
+    """A measured winner of ``kind`` ("decode" or "paged") for this
+    KV precision, head dim and key length (`runtime.autotune`'s
+    ``<kind>_<precision>`` entries: keys for "decode", pages for "paged"),
+    or None."""
+    from metal_flash_attention_tpu_torch.runtime.autotune import (
+        lookup_tuned_blocks,
+    )
+    from metal_flash_attention_tpu_torch.runtime.cache import (
+        KernelConfigCache,
+    )
+
+    cache = KernelConfigCache.get()
+    tag = precision.value if precision is not None else "bf16"
+    bucket = 1 << (max(n, 1) - 1).bit_length()
+    key = (id(cache), cache.version, kind, tag, head_dim, dtype, bucket)
+    if key not in _TUNED_CAPS:
+        tuned = lookup_tuned_blocks(f"{kind}_{tag}", head_dim, dtype, n)
+        _TUNED_CAPS[key] = None if tuned is None else tuned[1]
+    return _TUNED_CAPS[key]
+
+
 def split_scratch(batch: int, kv_heads: int, splits: int, rows: int,
                   d: int, device):
     """The float32 partials of a split-KV launch: part_o [batch,
@@ -443,8 +510,11 @@ def data_ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 
 
 def _paged_attention_cuda(q, cache, *, scale, window_size, decode,
-                          kv_starts=None, softcap=None):
-    """Launch the Hopper kernel; raise on anything it does not take."""
+                          kv_starts=None, softcap=None,
+                          pages_per_chunk=None):
+    """Launch the Hopper kernel; raise on anything it does not take.
+    The chunk cap: ``pages_per_chunk`` pages, a tuned winner (decode), or
+    the default."""
     precision = getattr(cache, "precision", None)
     k_pages, v_pages, table, lengths = (cache.k_pages, cache.v_pages,
                                         cache.page_table, cache.lengths)
@@ -512,15 +582,23 @@ def _paged_attention_cuda(q, cache, *, scale, window_size, decode,
                      if precision is OperandPrecision.NF4
                      else window_size + tile)
             max_tokens = min(max_tokens, reach)
+        pages = pages_per_chunk
+        if pages is None:
+            pages = tuned_chunk("paged", precision, d, q.dtype,
+                                max_pages * ps)
+        cap = chunk_cap(None if pages is None else pages * ps, tile,
+                        tiles["MFA_DECODE_CHUNK"])
         chunk, splits = decode_splits(b * kvh, max_tokens, sm_count, tile,
-                                      tiles["MFA_DECODE_CHUNK"])
+                                      cap)
         rows, name, entry = group, "paged_decode", lib.mfa_paged_decode
     else:
         row_tiles = cdiv(group * qc, tiles["MFA_PAGED_BLOCK_Q"])
+        tile = tiles["MFA_PAGED_BLOCK_KV"]
+        cap = chunk_cap(None if pages_per_chunk is None
+                        else pages_per_chunk * ps, tile,
+                        tiles["MFA_PAGED_PREFILL_CHUNK"])
         chunk, splits = decode_splits(row_tiles * kvh * b, max_tokens,
-                                      sm_count, tiles["MFA_PAGED_BLOCK_KV"],
-                                      tiles["MFA_PAGED_PREFILL_CHUNK"],
-                                      at_most=True)
+                                      sm_count, tile, cap, at_most=True)
         rows, entry = group * qc, lib.mfa_paged_prefill
         name = "paged_decode_wide" if decode else "paged_prefill"
     o = torch.empty_like(q)
@@ -543,6 +621,7 @@ def _paged_attention_cuda(q, cache, *, scale, window_size, decode,
                            f"({lib.mfa_cuda_error_string(rc).decode()})")
     LAUNCH_COUNTS[name] += 1
     LAUNCH_COUNTS[f"{name}_sm90"] += 1
+    LAUNCH_TILES[name][chunk] += 1
     if precision is not None:
         LAUNCH_COUNTS[f"{name}_{precision.value}"] += 1
     if softcap is not None:

@@ -21,6 +21,9 @@ Conventions shared with the kernels:
   pair only where the query's id equals the key's, as the structural
   masks do.  mask and bias are [B_m, H_m, R, C], each of B_m and H_m 1
   or a divisor of the batch and heads: (b, h) reads (b % B_m, h % H_m).
+- The JAX reference's own ``mask`` (nonzero attends) and ``bias`` (added
+  after the cap), broadcast against the logits [..., R, C] by torch's
+  rules: a masked pair is dropped as the structural masks drop it.
 - The returned lse is the natural-log row log-sum-exp of the scaled
   logits.  A row with every column masked or gated gives o = 0 and
   lse = -inf.
@@ -78,11 +81,12 @@ def softcap_value(logit_softcap) -> Optional[float]:
 
 
 def _logits(q, k, *, causal, window_size, scale, logit_softcap=None,
-            options=None):
+            options=None, mask=None, bias=None):
     """The float32 logits of q [..., R, D] against k [..., C, D] (k
     already repeated to q's heads), scaled, soft-capped and biased, with
-    -inf where the structural masks (causal, window, segments) drop a
-    pair, and the gate (None without a mask)."""
+    -inf where the structural masks (causal, window, segments, the JAX
+    reference's ``mask``) drop a pair, and the gate (None without an
+    options mask)."""
     r, c = q.shape[-2], k.shape[-2]
     s = (q.float() @ k.float().transpose(-1, -2)) * scale
     if logit_softcap is not None:
@@ -103,6 +107,10 @@ def _logits(q, k, *, causal, window_size, scale, logit_softcap=None,
             same = options.q_segment_ids[:, None, :, None] == \
                 options.kv_segment_ids[:, None, None, :]
             s = s.masked_fill(~same, float("-inf"))
+    if bias is not None:
+        s = s + bias.float()
+    if mask is not None:
+        s = s.masked_fill(mask == 0, float("-inf"))
     if causal or window_size is not None:
         rows = torch.arange(r, device=q.device)[:, None]
         cols = torch.arange(c, device=q.device)[None, :]
@@ -117,7 +125,7 @@ def _logits(q, k, *, causal, window_size, scale, logit_softcap=None,
 
 
 def _probabilities(q, k, *, causal, window_size, scale, logit_softcap=None,
-                   options=None, lse=None):
+                   options=None, lse=None, mask=None, bias=None):
     """Float32 softmax of the masked, scaled (and soft-capped, biased and
     gated) logits of q [..., R, D] against k [..., C, D] (k already
     repeated to q's heads).  Returns (p, lse); a row that sees no key, or
@@ -126,7 +134,7 @@ def _probabilities(q, k, *, causal, window_size, scale, logit_softcap=None,
     the gate, a row of lse -inf reading as 0."""
     s, gate = _logits(q, k, causal=causal, window_size=window_size,
                       scale=scale, logit_softcap=logit_softcap,
-                      options=options)
+                      options=options, mask=mask, bias=bias)
     if lse is not None:
         lse = lse.float()
         base = torch.where(torch.isinf(lse), torch.zeros_like(lse), lse)
@@ -157,10 +165,13 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         scale: Optional[float] = None,
                         logit_softcap: Optional[float] = None,
                         return_residuals: bool = False,
-                        options: Optional[AttentionOptions] = None):
+                        options: Optional[AttentionOptions] = None,
+                        mask: Optional[torch.Tensor] = None,
+                        bias: Optional[torch.Tensor] = None):
     """softmax(Q K^T * scale) V in float32 (the conventions above);
     with ``return_residuals`` also the natural-log lse.  ``options``
-    takes q and k/v 4-D, [batch, heads, R or C, D]."""
+    takes q and k/v 4-D, [batch, heads, R or C, D]; ``mask`` and
+    ``bias`` are the JAX reference's."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     group = _group(q, k)
@@ -169,7 +180,7 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         v = v.repeat_interleave(group, dim=-3)
     p, lse = _probabilities(q, k, causal=causal, window_size=window_size,
                             scale=scale, logit_softcap=logit_softcap,
-                            options=options)
+                            options=options, mask=mask, bias=bias)
     o = p @ v.float()
     return (o, lse) if return_residuals else o
 
@@ -182,7 +193,9 @@ def attention_reference_grads(q: torch.Tensor, k: torch.Tensor,
                               logit_softcap: Optional[float] = None,
                               options: Optional[AttentionOptions] = None,
                               lse: Optional[torch.Tensor] = None,
-                              d_term: Optional[torch.Tensor] = None):
+                              d_term: Optional[torch.Tensor] = None,
+                              mask: Optional[torch.Tensor] = None,
+                              bias: Optional[torch.Tensor] = None):
     """Analytic gradients of Phi = sum(dO * O) w.r.t. Q, K, V, in float32
     (the JAX package's `attention_reference_grads`, batched and GQA):
 
@@ -198,8 +211,9 @@ def attention_reference_grads(q: torch.Tensor, k: torch.Tensor,
     and before the cap's factor (the JAX dQ kernel's), [batch, heads, R,
     C], not reduced over a broadcast bias's dims.  ``lse`` and ``d_term``
     given (the forward's, as stored): P and D are read from them, as the
-    kernels read theirs.  Returns (dq, dk, dv, o, lse, d_term, dbias),
-    dbias None without a bias."""
+    kernels read theirs.  ``mask`` and ``bias``: the JAX reference's
+    (no dbias for them, as there).  Returns (dq, dk, dv, o, lse, d_term,
+    dbias), dbias None without an options bias."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     group = _group(q, k)
@@ -209,7 +223,7 @@ def attention_reference_grads(q: torch.Tensor, k: torch.Tensor,
         vr = v.repeat_interleave(group, dim=-3)
     p, lse = _probabilities(q, kr, causal=causal, window_size=window_size,
                             scale=scale, logit_softcap=logit_softcap,
-                            options=options, lse=lse)
+                            options=options, lse=lse, mask=mask, bias=bias)
     q32, k32, v32, do32 = q.float(), kr.float(), vr.float(), do.float()
     o = p @ v32
     if d_term is None:

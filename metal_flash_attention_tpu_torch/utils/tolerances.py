@@ -2,7 +2,10 @@
 
 The same numbers as the JAX package's `utils/tolerances.py`: FP32 2e-5
 everywhere; mixed precision 5e-2 for O and the gradients, 7e-3 for the
-log-sum-exp L, 1e-1 for D.
+log-sum-exp L, 1e-1 for D.  On the card a kernel is held against its
+plain version on the same inputs by the worst relative rms error of any
+64-row tile (`worst_tile_rel_rms`, KERNEL_TILE_REL_RMS), so that a fault
+confined to one tile cannot hide among the rest.
 """
 
 from __future__ import annotations
@@ -23,6 +26,28 @@ class Tolerances:
 
 FP32_TOL = Tolerances(o=2e-5, grads=2e-5, lse=2e-5, d_term=2e-5)
 MIXED_TOL = Tolerances(o=5e-2, grads=5e-2, lse=7e-3, d_term=1e-1)
+
+
+# A kernel's output against its plain version: the worst 64-row tile's
+# relative rms error.
+KERNEL_TILE_ROWS = 64
+KERNEL_TILE_REL_RMS = 1.5e-2
+
+
+def worst_tile_rel_rms(got: torch.Tensor, ref: torch.Tensor,
+                       tile_rows: int = KERNEL_TILE_ROWS) -> float:
+    """max over tiles of ``tile_rows`` rows (the second axis from the end)
+    by whole rows of ||got - ref|| / ||ref||, in float32."""
+    ref = ref.float()
+    err = (got.float() - ref).pow(2)
+
+    def per_tile(x):
+        x = torch.nn.functional.pad(x.sum(dim=-1),
+                                    (0, -x.shape[-2] % tile_rows))
+        return x.unflatten(-1, (-1, tile_rows)).sum(dim=-1)
+    e2, r2 = per_tile(err), per_tile(ref.pow(2))
+    floor = 1e-12 * float(r2.mean()) + 1e-30
+    return float((e2 / r2.clamp_min(floor)).sqrt().max())
 
 
 def tolerances_for(dtype: torch.dtype) -> Tolerances:

@@ -23,6 +23,7 @@ MODULES = [
     "metal_flash_attention_tpu_torch",
     "metal_flash_attention_tpu_torch.descriptors.attention_descriptor",
     "metal_flash_attention_tpu_torch.descriptors.gemm_descriptor",
+    "metal_flash_attention_tpu_torch.descriptors.parameters",
     "metal_flash_attention_tpu_torch.descriptors.precision",
     "metal_flash_attention_tpu_torch.dispatch",
     "metal_flash_attention_tpu_torch.models.engine",
@@ -32,6 +33,7 @@ MODULES = [
     "metal_flash_attention_tpu_torch.models.prefix_cache",
     "metal_flash_attention_tpu_torch.models.serving",
     "metal_flash_attention_tpu_torch.native.build",
+    "metal_flash_attention_tpu_torch.native.config_store",
     "metal_flash_attention_tpu_torch.native.page_allocator",
     "metal_flash_attention_tpu_torch.ops.flash_attention",
     "metal_flash_attention_tpu_torch.ops.flash_attention_bwd",
@@ -41,6 +43,11 @@ MODULES = [
     "metal_flash_attention_tpu_torch.ops.quantization",
     "metal_flash_attention_tpu_torch.ops.reference",
     "metal_flash_attention_tpu_torch.ops.softmax",
+    "metal_flash_attention_tpu_torch.runtime",
+    "metal_flash_attention_tpu_torch.runtime.__main__",
+    "metal_flash_attention_tpu_torch.runtime.autotune",
+    "metal_flash_attention_tpu_torch.runtime.cache",
+    "metal_flash_attention_tpu_torch.runtime.context",
     "metal_flash_attention_tpu_torch.utils.device",
     "metal_flash_attention_tpu_torch.utils.errors",
     "metal_flash_attention_tpu_torch.utils.params",
@@ -103,7 +110,8 @@ def test_page_allocator_library_is_the_ports_own():
     assert build.NATIVE_SRC_DIR == os.path.join(
         REPO, "metal_flash_attention_tpu_torch", "native", "src")
     assert sorted(os.listdir(build.NATIVE_SRC_DIR)) == [
-        "mfa_error.hpp", "mfa_hash.hpp", "page_allocator.cpp"]
+        "config_store.cpp", "mfa_error.hpp", "mfa_hash.hpp",
+        "page_allocator.cpp"]
 
 
 def test_build_without_nvcc_raises():

@@ -161,7 +161,7 @@ def build_variants(names) -> tuple[dict, dict]:
 
     with open(os.path.join(nb.SRC_DIR, "flash_attention_bwd.cu")) as f:
         source = f.read()
-    procs = {}
+    jobs = {}
     for name in names:
         defines, patches = VARIANTS[name]
         out_dir = os.path.join(nb.BUILD_DIR, "ablation_bwd", name)
@@ -169,18 +169,13 @@ def build_variants(names) -> tuple[dict, dict]:
         src = os.path.join(out_dir, "flash_attention_bwd.cu")
         with open(src, "w") as f:
             f.write(apply(source, patches, name))
-        procs[name] = subprocess.Popen(
-            [nb._nvcc(), *nb.NVCC_FLAGS, *defines, "-I", nb.SRC_DIR, "-o",
-             os.path.join(out_dir, "libflash_attention_bwd.so"), src],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs[name] = (src, os.path.join(out_dir, "libflash_attention_bwd.so"),
+                      defines)
+    logs = nb.compile_sources(jobs)
     libs, ptxas = {}, {}
-    for name, proc in procs.items():
-        log, _ = proc.communicate(timeout=nb.NVCC_TIMEOUT_S)
-        if proc.returncode != 0:
-            raise RuntimeError(f"variant {name} did not build:\n{log}")
-        ptxas[name] = ptxas_summary(log)
-        libs[name] = bind_library(ctypes.CDLL(os.path.join(
-            nb.BUILD_DIR, "ablation_bwd", name, "libflash_attention_bwd.so")))
+    for name, (_, lib, _) in jobs.items():
+        ptxas[name] = ptxas_summary(logs[name])
+        libs[name] = bind_library(ctypes.CDLL(lib))
     return libs, ptxas
 
 
@@ -233,7 +228,7 @@ def main() -> int:
                   softcap=cap)
         ref = None
         for name, lib in libs.items():
-            fb._kernel_library = lambda lib=lib: lib
+            fb._kernel_library = lambda *_, lib=lib: lib
             row = {"dq": chip_smoke.timed_spread(
                        lambda: fb._dq_cuda(q, k, v, do, lse, d_term, **kw),
                        ITERS),

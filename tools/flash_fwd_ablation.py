@@ -250,27 +250,19 @@ def build_variants(names) -> dict:
 
     with open(os.path.join(nb.SRC_DIR, "flash_attention.cu")) as f:
         source = f.read()
-    procs = {}
+    jobs = {}
     for name in names:
-        patches = VARIANTS[name]
         out_dir = os.path.join(nb.BUILD_DIR, "ablation_fwd", name)
         os.makedirs(out_dir, exist_ok=True)
-        text = apply(source, patches, name)
         src = os.path.join(out_dir, "flash_attention.cu")
         with open(src, "w") as f:
-            f.write(text)
-        procs[name] = subprocess.Popen(
-            [nb._nvcc(), *nb.NVCC_FLAGS, "-I", nb.SRC_DIR, "-o",
-             os.path.join(out_dir, "libflash_attention.so"), src],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            f.write(apply(source, VARIANTS[name], name))
+        jobs[name] = (src, os.path.join(out_dir, "libflash_attention.so"), [])
+    logs = nb.compile_sources(jobs)
     libs = {}
-    for name, proc in procs.items():
-        log, _ = proc.communicate(timeout=nb.NVCC_TIMEOUT_S)
-        if proc.returncode != 0:
-            raise RuntimeError(f"variant {name} did not build:\n{log}")
-        PTXAS[name] = ptxas_summary(log)
-        libs[name] = bind_library(ctypes.CDLL(os.path.join(
-            nb.BUILD_DIR, "ablation_fwd", name, "libflash_attention.so")))
+    for name, (_, lib, _) in jobs.items():
+        PTXAS[name] = ptxas_summary(logs[name])
+        libs[name] = bind_library(ctypes.CDLL(lib))
     return libs
 
 
@@ -317,7 +309,7 @@ def main() -> int:
             .to(torch.bfloat16) for h in (qh, kvh, kvh)) + (cap, iters)
     ref = {}
     for name, lib in libs.items():
-        fa._kernel_library = lambda lib=lib: lib
+        fa._kernel_library = lambda *_, lib=lib: lib
         row, err = {}, {}
         for shape, (q, k, v, cap, iters) in inputs.items():
             row[shape] = chip_smoke.timed_spread(

@@ -32,8 +32,6 @@ import ctypes
 import importlib
 import json
 import os
-import shutil
-import subprocess
 import sys
 
 import numpy as np
@@ -77,33 +75,24 @@ def build_variants() -> dict:
         if line not in source:
             raise RuntimeError(f"gemm.cu no longer holds {line!r}")
         source = source.replace(line, "(void)0;")
-    procs = {}
+    jobs = {}
     for name, patches in VARIANTS.items():
         out_dir = os.path.join(nb.BUILD_DIR, "ablation", name)
         os.makedirs(out_dir, exist_ok=True)
-        for f in os.listdir(nb.SRC_DIR):
-            if f.endswith(".cuh"):
-                shutil.copy(os.path.join(nb.SRC_DIR, f), out_dir)
         text = source
         for old, new in patches:
             if old not in text:
                 raise RuntimeError(f"variant {name}: gemm.cu no longer "
                                    f"holds {old!r}")
             text = text.replace(old, new)
-        with open(os.path.join(out_dir, "gemm.cu"), "w") as f:
+        src = os.path.join(out_dir, "gemm.cu")
+        with open(src, "w") as f:
             f.write(text)
-        procs[name] = subprocess.Popen(
-            [nb._nvcc(), *nb.NVCC_FLAGS, "-o",
-             os.path.join(out_dir, "libgemm.so"),
-             os.path.join(out_dir, "gemm.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs[name] = (src, os.path.join(out_dir, "libgemm.so"), [])
+    nb.compile_sources(jobs)
     libs = {}
-    for name, proc in procs.items():
-        log, _ = proc.communicate(timeout=nb.NVCC_TIMEOUT_S)
-        if proc.returncode != 0:
-            raise RuntimeError(f"variant {name} did not build:\n{log}")
-        lib = ctypes.CDLL(os.path.join(nb.BUILD_DIR, "ablation", name,
-                                       "libgemm.so"))
+    for name, (_, path, _) in jobs.items():
+        lib = ctypes.CDLL(path)
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.mfa_gemm_sm90.argtypes = [ptr] * 8 + [i32] * 12 + [ptr]
         lib.mfa_gemm_sm90.restype = i32
@@ -143,7 +132,7 @@ def main() -> int:
             cases.append((f"T{t}_K{k}_N{n}_{prec}", x, b))
     print(chip_smoke.card_line(), flush=True)
     for name, lib in libs.items():
-        tg._kernel_library = lambda lib=lib: lib
+        tg._kernel_library = lambda *_, lib=lib: lib
         row = {}
         for label, x, b in cases:
             kw = {"backend": "pallas"} if isinstance(b, torch.Tensor) else {}
