@@ -5,9 +5,11 @@ cache), dense serving and training paths, the fused forward over
 quantized K/V, its standalone ops (quantized GEMM, softmax), Gemma-2
 serving (paged and dense) and training (the soft cap and head_dim 256 in
 the kernels, forward and backward), and the flash-attention options
-(masks, bias with its gradient, segment ids, `compat`), and the runtime
+(masks, bias with its gradient, segment ids, `compat`), the runtime
 (tile sweeps over variant libraries, dispatch by the config cache, the
-autotune CLI), on one NVIDIA GPU.
+autotune CLI), and weights in and out with LoRA (HF conversion, token
+shards, checkpoint and resume, multi-adapter fine-tuning on a frozen
+base and serving), on one NVIDIA GPU.
 
 Run from the root of a checkout, on a machine with one CUDA card and
 the CUDA toolkit:
@@ -129,6 +131,44 @@ Phases (any failure exits non-zero and prints no result):
    output tile (KERNEL_TILE_REL_RMS), each with a planted fault (one
    tile without one GEMM_K_STEP-deep K step) that the limit must see;
    then free the weights;
+6b. weights in and out, and LoRA, on the same full-depth weights:
+   convert: the weights written out as an HF checkpoint (HF's names,
+   projections [out, in], bf16, in host memory as a loaded checkpoint
+   is) with a plain config object carrying HF's field names and
+   Llama-3.1's rope_scaling, converted onto the card by
+   `models.convert.params_from_hf_llama` and held to the source bit for
+   bit (seconds and peak device memory printed), with a planted fault
+   (one layer's wk and wv swapped) that must show as exactly those two
+   leaves; gemma2_2b the same way in phase 12 (`convert:` lines);
+   lora_train: LORA_ADAPTERS adapters of rank LORA_RANK on wq/wk/wv/wo
+   (`models.lora`, b_scale 0) trained on the frozen 32-layer base by
+   `make_lora_train_step` (AdamW, LORA_LR) on rows of adapters
+   LORA_IDS, LORA_BATCH x LORA_SEQ tokens a step from a `TokenLoader`
+   over two shards (`write_shard`: a repeated 512-token random phrase,
+   uint16 and int32), LORA_STEPS steps: the forward, dQ and dK/dV
+   kernels launched exactly once a layer a step (all `_sm90`), no
+   gradient on a base tensor, Adam's first moment exactly zero in the
+   rows of adapters 0 and 3 and not in 1 and 2, the loss finite and
+   falling; `utils.checkpoint.save` after step LORA_SAVE_AFTER
+   (adapters, optimizer state, the loader's position), then fresh
+   adapters and optimizer restored from `latest(...)` and the loader
+   resumed by `from_state` run the remaining steps again, which must
+   be bit-identical (losses and adapters); one more step under
+   torch.profiler (`lora_train_profile:`, the forward deltas in
+   `lora_delta` ranges) and the delta products timed alone;
+   lora_train_reference: on a 2-layer cut, the LoRA loss and every
+   adapter gradient against the plain-attention path (`plain_hidden`),
+   TRAIN_LOSS_ABS and TRAIN_GRAD_REL_RMS, with two planted faults (the
+   wo delta dropped; each row given its neighbour's adapter) that must
+   read above them; lora_serve: the engine with ``lora=`` the trained
+   stack (adapter 3 drawn at LORA_B_SCALE), 6 requests, lora ids
+   LORA_SERVE_IDS, the paged launch counts exact (all `_sm90`), each
+   request's logits at every step against its own single-request run
+   (teacher-forced on the batched run's tokens) within REF_REL_RMS,
+   adapter-0 rows against the engine without LoRA the same way, a
+   planted fault (the adapter-3 slot given its neighbour's adapter)
+   that must read above it, the share of equal greedy tokens, and new
+   tokens/s beside the same serve without LoRA;
 7. decode_checks: the decode kernel against its plain version at the
    generate shape (q [8, 32, 128], k/v [8, 8, 8192, 128], ragged
    lengths DECODE_LENS), each (sequence, head) row a tile of its own
@@ -326,7 +366,9 @@ the card's memory rate and the operations this run's data needs
 Output: `serve`, `reference`, `quant_serve`, `burst_serve`,
 `prefix_serve`, `quant_reference`,
 `dense_serve`, `dense_profile`, `decode_reference`, `quant_gemm`,
-`gemm_checks`, `decode_checks`, `quant_kernel_checks`,
+`gemm_checks`, `convert`, `lora_train`, `lora_train_profile`,
+`lora_train_reference`, `lora_serve`, `decode_checks`,
+`quant_kernel_checks`,
 `quant_fwd_checks`, `train`,
 `train_profile`, `train_reference`, `flash_checks`, `softmax_checks`,
 `gemma_params`, `gemma_serve`, `gemma_dense`, `gemma_reference`,
@@ -880,10 +922,12 @@ def reference_check(params, cfg, dev) -> tuple[float, float]:
             float(err.abs().max()))
 
 
-def plain_hidden(params, tokens, cfg):
+def plain_hidden(params, tokens, cfg, lora=None, lora_ids=None):
     """A dense forward built from the port's blocks with the plain
     attention (`attention_reference`, float32 softmax, differentiable):
-    final-norm hidden states [batch, seq, dim]."""
+    final-norm hidden states [batch, seq, dim].  ``lora`` / ``lora_ids``:
+    adapters on the attention projections, as `llama.forward_hidden`
+    takes them."""
     import torch
     from metal_flash_attention_tpu_torch.models import llama
     from metal_flash_attention_tpu_torch.ops.reference import (
@@ -894,11 +938,12 @@ def plain_hidden(params, tokens, cfg):
     pos = torch.arange(s, device=tokens.device)[None].expand(b, s)
     cos, sin = llama.rope_frequencies(cfg, pos)
     x = params["embed"][tokens].to(cfg.dtype)
-    for layer in params["layers"]:
-        q, k, v = llama.attention_qkv(layer, x, cfg, cos, sin)
+    for i, layer in enumerate(params["layers"]):
+        ll = None if lora is None else lora["layers"][i]
+        q, k, v = llama.attention_qkv(layer, x, cfg, cos, sin, ll, lora_ids)
         o = attention_reference(q, k, v, causal=True).to(cfg.dtype)
-        x = x + (o.transpose(1, 2).reshape(b, s, -1)
-                 @ layer["wo"]).to(x.dtype)
+        x = x + llama.wo_proj(o.transpose(1, 2).reshape(b, s, -1), layer,
+                              ll, lora_ids).to(x.dtype)
         x = llama.mlp_block(layer, x, cfg)
     return llama.rms_norm(x, params["final_norm"], cfg.norm_eps)
 
@@ -5207,6 +5252,626 @@ def runtime_phase(dev, card, cache_dir, build_seconds) -> list[dict]:
     return entries
 
 
+# ---------------------------------------------------------------------------
+# Weights in and out, and LoRA: HF conversion, token shards, checkpoints,
+# multi-adapter fine-tuning and serving
+# ---------------------------------------------------------------------------
+
+# Llama-3.1's rope scaling, as its HF config gives it.
+LLAMA31_ROPE = {"rope_type": "llama3", "factor": 8.0,
+                "low_freq_factor": 1.0, "high_freq_factor": 4.0,
+                "original_max_position_embeddings": 8192}
+CONVERT_FAULT_LAYER = 17
+HF_PROJECTIONS = {"wq": "self_attn.q_proj", "wk": "self_attn.k_proj",
+                  "wv": "self_attn.v_proj", "wo": "self_attn.o_proj",
+                  "w_gate": "mlp.gate_proj", "w_up": "mlp.up_proj",
+                  "w_down": "mlp.down_proj"}
+HF_NORMS = {"attn_norm": "input_layernorm",
+            "mlp_norm": "post_attention_layernorm",
+            "pre_attn_norm": "input_layernorm",
+            "post_attn_norm": "post_attention_layernorm",
+            "pre_mlp_norm": "pre_feedforward_layernorm",
+            "post_mlp_norm": "post_feedforward_layernorm"}
+# LoRA fine-tuning on the frozen full-depth base: 4 adapters of rank 16
+# on wq/wk/wv/wo, rows of adapters 1 and 2, 2 x 2,048 tokens a step from
+# two shards of a repeated 512-token random phrase (learnable by
+# copying), AdamW; a checkpoint after step 2 and a resume from it.
+LORA_ADAPTERS = 4
+LORA_RANK = 16
+LORA_BATCH = 2
+LORA_SEQ = 2048
+LORA_STEPS = 4
+LORA_SAVE_AFTER = 2
+LORA_IDS = (1, 2)
+# At 1e-2 the loss fell once and then rose (10.88, 10.14, 10.87, 11.12 on
+# the H100): the first Adam step moves every entry of B by the rate.
+LORA_LR = 1e-3
+LORA_PHRASE = 512
+LORA_SHARDS = ((40, np.uint16), (25, np.int32))   # repeats, token dtype
+LORA_REF_LAYERS = 2
+# Serving: the trained stack with adapter 3 drawn at LORA_B_SCALE (B of
+# the untrained adapter 3 is still 0), one adapter a request.
+LORA_B_SCALE = 0.05
+LORA_SERVE_IDS = (0, 1, 2, 3, 1, 0)
+
+
+def hf_state_dict(params) -> dict:
+    """The port's parameters as an HF checkpoint holds them: HF's names,
+    projections [out, in], bf16 (norm gains too), on the host, as
+    `torch.load` of a checkpoint gives them."""
+    import torch
+
+    def host(t):
+        return t.to(torch.bfloat16).cpu()
+    sd = {"model.embed_tokens.weight": host(params["embed"]),
+          "model.norm.weight": host(params["final_norm"])}
+    for i, layer in enumerate(params["layers"]):
+        for key, t in layer.items():
+            if key in HF_PROJECTIONS:
+                sd[f"model.layers.{i}.{HF_PROJECTIONS[key]}.weight"] = host(
+                    t.t().contiguous())
+            else:
+                sd[f"model.layers.{i}.{HF_NORMS[key]}.weight"] = host(t)
+    if "lm_head" in params:
+        sd["lm_head.weight"] = host(params["lm_head"].t().contiguous())
+    return sd
+
+
+def hf_config(cfg, family):
+    """A plain object with HF's config field names for ``cfg``."""
+    from types import SimpleNamespace
+
+    common = dict(vocab_size=cfg.vocab_size, hidden_size=cfg.dim,
+                  num_hidden_layers=cfg.n_layers,
+                  num_attention_heads=cfg.n_heads,
+                  num_key_value_heads=cfg.n_kv_heads,
+                  intermediate_size=cfg.hidden_dim,
+                  rope_theta=cfg.rope_theta, rms_norm_eps=cfg.norm_eps)
+    if family == "llama":
+        return SimpleNamespace(**common, rope_scaling=LLAMA31_ROPE,
+                               sliding_window=None)
+    return SimpleNamespace(
+        **common, head_dim=cfg.head_dim, sliding_window=cfg.sliding_window,
+        attn_logit_softcapping=cfg.attn_logit_softcap,
+        final_logit_softcapping=cfg.final_logit_softcap,
+        query_pre_attn_scalar=cfg.head_dim)
+
+
+def bit_mismatches(got, want) -> list:
+    """The paths of the leaves of ``got`` that are not ``want``'s bit for
+    bit (shape, dtype and every byte)."""
+    import torch
+    from metal_flash_attention_tpu_torch.utils.tree import flatten, leaf_paths
+
+    ref = dict(zip(leaf_paths(want), flatten(want)[0]))
+    bad = []
+    for key, a in zip(leaf_paths(got), flatten(got)[0]):
+        b = ref.pop(key, None)
+        if (b is None or a.shape != b.shape or a.dtype != b.dtype
+                or not torch.equal(a.contiguous().view(torch.uint8),
+                                   b.contiguous().view(torch.uint8))):
+            bad.append(key)
+    return bad + sorted(ref)
+
+
+def convert_check(params, cfg, family, dev, card) -> dict:
+    """`models.convert` at full width and depth: the port's weights
+    written out as an HF checkpoint in host memory, converted back onto
+    the card, and held bit for bit to the source; a planted fault (one
+    layer's wk and wv swapped in the checkpoint) must show."""
+    import torch
+    from metal_flash_attention_tpu_torch.models import convert
+
+    t0 = time.perf_counter()
+    sd = hf_state_dict(params)
+    export_s = time.perf_counter() - t0
+    checkpoint_bytes = nbytes(*sd.values())
+    hcfg = hf_config(cfg, family)
+    if family == "llama":
+        ccfg = convert.config_from_hf_llama(hcfg)
+        to_params = convert.params_from_hf_llama
+        same_cfg = (dataclasses.replace(
+            ccfg, rope_scaling_factor=None) == cfg
+            and ccfg.rope_scaling_factor == LLAMA31_ROPE["factor"]
+            and ccfg.rope_original_max_position == 8192)
+    else:
+        ccfg = convert.config_from_hf_gemma2(hcfg)
+        to_params = convert.params_from_hf_gemma2
+        same_cfg = (dataclasses.replace(ccfg, query_pre_attn_scalar=None)
+                    == cfg and ccfg.attn_scale == cfg.attn_scale)
+    if not same_cfg:
+        fail(f"convert: the {family} config came back as {ccfg}")
+
+    def run(state_dict):
+        torch.cuda.synchronize(dev)
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        out = to_params(state_dict, ccfg, device=dev)
+        torch.cuda.synchronize(dev)
+        return (out, time.perf_counter() - t0,
+                torch.cuda.max_memory_allocated(dev) - base,
+                torch.cuda.memory_allocated(dev) - base)
+
+    converted, seconds, peak, held = run(sd)
+    bad = bit_mismatches(converted, params)
+    del converted
+    torch.cuda.empty_cache()
+    faulty = dict(sd)
+    pre = f"model.layers.{CONVERT_FAULT_LAYER}.self_attn."
+    faulty[pre + "k_proj.weight"], faulty[pre + "v_proj.weight"] = (
+        sd[pre + "v_proj.weight"], sd[pre + "k_proj.weight"])
+    converted, *_ = run(faulty)
+    fault_bad = bit_mismatches(converted, params)
+    del converted, faulty, sd
+    torch.cuda.empty_cache()
+    out = {"family": family, "layers": cfg.n_layers,
+           "checkpoint": "HF names, [out, in], bf16, host memory",
+           "checkpoint_bytes": checkpoint_bytes,
+           "export_seconds": export_s, "seconds": seconds,
+           "peak_device_bytes_above_base": peak,
+           "converted_bytes": held, "mismatched_leaves": bad,
+           "planted_fault": {"swapped": f"layers/{CONVERT_FAULT_LAYER}/wk "
+                                        "with wv",
+                             "mismatched_leaves": fault_bad},
+           "card": card}
+    print("convert: " + json.dumps(out), flush=True)
+    if bad:
+        fail(f"convert: {family} leaves not bit-equal: {bad[:8]}")
+    want = {f"layers/{CONVERT_FAULT_LAYER}/wk",
+            f"layers/{CONVERT_FAULT_LAYER}/wv"}
+    if set(fault_bad) != want:
+        fail(f"convert: the planted fault read {fault_bad}, not {want}")
+    return out
+
+
+def lora_shards(directory, vocab) -> list:
+    """Two token shards of one repeated random phrase, of different sizes
+    and dtypes, written by `utils.data.write_shard`."""
+    from metal_flash_attention_tpu_torch.utils import data
+
+    phrase = np.random.default_rng(SEED + 20).integers(0, vocab,
+                                                       LORA_PHRASE)
+    paths = []
+    for i, (repeats, dtype) in enumerate(LORA_SHARDS):
+        path = os.path.join(directory, f"shard{i}.bin")
+        data.write_shard(path, np.tile(phrase, repeats).astype(dtype))
+        paths.append(path)
+    return paths
+
+
+def fresh_adapters(cfg, dev, b_scale=0.0, seed=SEED + 21):
+    import torch
+    from metal_flash_attention_tpu_torch.models import lora
+
+    return lora.init_lora_adapters(
+        cfg, LORA_ADAPTERS, LORA_RANK, b_scale=b_scale, device=dev,
+        generator=torch.Generator(device=dev).manual_seed(seed))
+
+
+def lora_optimizer(tensors):
+    import torch
+    return torch.optim.AdamW(tensors, lr=LORA_LR, betas=(0.9, 0.999),
+                             eps=1e-8, weight_decay=1e-4)
+
+
+ATTENTION_COUNTS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def lora_train(params, cfg, dev, card, workdir):
+    """LoRA fine-tuning at full depth on the frozen base, fed by the
+    TokenLoader, checkpointed after LORA_SAVE_AFTER steps and resumed;
+    returns the trained adapters, the loader's shards and the launch
+    counts of one step."""
+    import torch
+    from metal_flash_attention_tpu_torch.models import lora
+    from metal_flash_attention_tpu_torch.ops import flash_attention as fa
+    from metal_flash_attention_tpu_torch.ops import flash_attention_bwd as fb
+    from metal_flash_attention_tpu_torch.utils import checkpoint, data
+    from metal_flash_attention_tpu_torch.utils.tree import flatten
+
+    paths = lora_shards(workdir, cfg.vocab_size)
+    ckpt_dir = os.path.join(workdir, "lora_ckpt")
+    ids = torch.tensor(LORA_IDS, dtype=torch.int32, device=dev)
+    init_fn, step_fn = lora.make_lora_train_step(cfg, lora_optimizer)
+    adapters = fresh_adapters(cfg, dev)
+    state = init_fn(adapters)
+    loader = data.TokenLoader(paths, LORA_BATCH, LORA_SEQ, seed=SEED,
+                              device=dev)
+    batches = iter(loader)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    unused = {k for k in (*fa.LAUNCH_COUNTS, *fb.LAUNCH_COUNTS)
+              if not any(k in (n, n + "_sm90") for n in ATTENTION_COUNTS)}
+    losses, seconds, launches = [], [], []
+    with CardSampler() as sampler:
+        for step in range(1, LORA_STEPS + 1):
+            tokens = next(batches)
+            fa.reset_launch_counts()
+            fb.reset_launch_counts()
+            t0 = time.perf_counter()
+            adapters, state, loss = step_fn(adapters, state, params, tokens,
+                                            ids)
+            losses.append(float(loss))
+            torch.cuda.synchronize(dev)
+            seconds.append(time.perf_counter() - t0)
+            launches.append({k: n for k, n in {**fa.LAUNCH_COUNTS,
+                                               **fb.LAUNCH_COUNTS}.items()
+                             if n})
+            if step == LORA_SAVE_AFTER:
+                t0 = time.perf_counter()
+                checkpoint.save(ckpt_dir, {"adapters": adapters,
+                                           "state": state,
+                                           "loader": loader.state()},
+                                step=step)
+                save_s = time.perf_counter() - t0
+        clocks = sampler.stop()
+    peak = torch.cuda.max_memory_allocated(dev)
+    for step, counts in enumerate(launches, start=1):
+        want = {f"{n}{s}": cfg.n_layers for n in ATTENTION_COUNTS
+                for s in ("", "_sm90")}
+        if counts != want or any(counts.get(k) for k in unused):
+            fail(f"lora_train step {step} launched {counts}, expected "
+                 f"{want}")
+    base_grads = [p for p in flatten(params)[0]
+                  if p.grad is not None or p.requires_grad]
+    if base_grads:
+        fail(f"lora_train: {len(base_grads)} base tensors carry a gradient")
+    # Rows of adapters 0 and 3 took no part: Adam's first moment of every
+    # adapter tensor is exactly zero there, and not in rows 1 and 2.
+    opt = state["opt"]
+    rows = {"unused_rows_zero": True, "used_rows_nonzero": 0}
+    for p in state["shadow"]:
+        m = opt.state[p]["exp_avg"]
+        rows["unused_rows_zero"] &= bool(not m[0].any() and not m[3].any())
+        rows["used_rows_nonzero"] += int(bool(m[1].any() and m[2].any()))
+    if not rows["unused_rows_zero"] or rows["used_rows_nonzero"] != len(
+            state["shadow"]):
+        fail(f"lora_train: adapter gradients by row {rows}")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        fail(f"lora_train: losses not finite and falling: {losses}")
+
+    # Resume: fresh adapters and optimizer, restored from the file of
+    # step LORA_SAVE_AFTER, then the remaining steps again.
+    final = [t.clone() for t in flatten(adapters)[0]
+             if isinstance(t, torch.Tensor)]
+    del state
+    torch.cuda.empty_cache()
+    again = fresh_adapters(cfg, dev)
+    state2 = init_fn(again)
+    t0 = time.perf_counter()
+    out = checkpoint.restore(checkpoint.latest(ckpt_dir),
+                             {"adapters": again, "state": state2,
+                              "loader": (0, 0)})
+    restore_s = time.perf_counter() - t0
+    again, state2 = out["adapters"], out["state"]
+    batches2 = iter(data.TokenLoader.from_state(
+        paths, LORA_BATCH, LORA_SEQ, out["loader"], device=dev))
+    resumed = []
+    for _ in range(LORA_SAVE_AFTER, LORA_STEPS):
+        again, state2, loss = step_fn(again, state2, params, next(batches2),
+                                      ids)
+        resumed.append(float(loss))
+    got = [t for t in flatten(again)[0] if isinstance(t, torch.Tensor)]
+    gap = max(float((a.float() - b.float()).abs().max())
+              for a, b in zip(got, final))
+    identical = (resumed == losses[LORA_SAVE_AFTER:]
+                 and all(torch.equal(a, b) for a, b in zip(got, final)))
+    profile = lora_train_profile(step_fn, again, state2, params,
+                                 next(batches2), ids, dev)
+    del again, state2, final, got
+    torch.cuda.empty_cache()
+    steady = seconds[1:]
+    reading = {
+        "config": f"llama3_8b, {cfg.n_layers} layers (full depth), frozen "
+                  "bf16 base",
+        "adapters": LORA_ADAPTERS, "rank": LORA_RANK,
+        "projections": ["wq", "wk", "wv", "wo"],
+        "lora_ids": list(LORA_IDS), "batch": [LORA_BATCH, LORA_SEQ],
+        "optimizer": f"AdamW lr {LORA_LR}, master weights",
+        "data": f"TokenLoader over {len(paths)} shards "
+                f"({[r for r, _ in LORA_SHARDS]} repeats of a "
+                f"{LORA_PHRASE}-token phrase, uint16 and int32)",
+        "losses": losses, "seconds_per_step": seconds,
+        "tokens_per_s": LORA_BATCH * LORA_SEQ * len(steady) / sum(steady),
+        "max_memory_allocated": peak, "launches_per_step": launches[0],
+        "rows": rows, "checkpoint_seconds": save_s,
+        "restore_seconds": restore_s, "resumed_losses": resumed,
+        "resumed_bit_identical": identical, "resumed_max_abs_gap": gap,
+        "card": card, "card_during_steps": clocks,
+        "profile": profile}
+    print("lora_train: " + json.dumps(reading), flush=True)
+    if not identical:
+        fail(f"lora_train: the resumed run is not bit-identical (losses "
+             f"{resumed} against {losses[LORA_SAVE_AFTER:]}, adapters "
+             f"{gap} apart)")
+    return adapters, launches[0], paths
+
+
+def lora_train_profile(step_fn, adapters, state, params, tokens, ids,
+                       dev) -> dict:
+    """Where a LoRA step's device time goes: one more step under
+    torch.profiler (attention kernels, the forward deltas' products in
+    `lora_delta` ranges, cuBLAS, the rest), and the delta products of
+    every layer, forward and backward, timed alone."""
+    import torch
+    from metal_flash_attention_tpu_torch.models import lora
+
+    def annotated(apply):
+        def run(*args):
+            with torch.profiler.record_function("lora_delta"):
+                return apply(*args)
+        return run
+    with planted(lora, "apply_lora", annotated):
+        reading = profile_step(
+            "lora_train_profile",
+            lambda: step_fn(adapters, state, params, tokens, ids),
+            {"flash_fwd": "flash_fwd90_kernel",
+             "flash_bwd_dq": "flash_bwd_dq90_kernel",
+             "flash_bwd_dkv": "flash_bwd_dkv90_kernel",
+             "optimizer": "multi_tensor"}, dev, spans=("lora_delta",))
+    b, s = tokens.shape[0], tokens.shape[1] - 1
+    layer = adapters["layers"][0]
+    g = torch.Generator(device=dev).manual_seed(SEED + 22)
+    inputs = {name: torch.randn((b, s, a.shape[1]), generator=g, device=dev,
+                                dtype=a.dtype).requires_grad_(True)
+              for name, (a, _) in layer.items()}
+
+    def products():
+        for name, (a, bb) in layer.items():
+            a_ = a.detach().requires_grad_(True)
+            b_ = bb.detach().requires_grad_(True)
+            y = lora.apply_lora(inputs[name], (a_, b_), ids)
+            torch.autograd.grad(y, (inputs[name], a_, b_),
+                                torch.ones_like(y))
+    device_ms, _ = timed(products, 5)
+    n_layers = len(adapters["layers"])
+    return {"step_device_ms": reading["device_ms"],
+            "busy_share": reading["busy_share"],
+            "by_family_ms": reading["device_ms_by_family"],
+            "lora_products_fwd_bwd_ms_alone": device_ms * n_layers,
+            "lora_products_note": "the 4 deltas of one layer, forward and "
+                                  "backward (with the ones cotangent), "
+                                  f"timed alone x {n_layers} layers"}
+
+
+def plain_lora_loss(params, tokens, cfg, lora_tree, ids):
+    """Mean next-token cross-entropy through `plain_hidden` (the plain
+    attention) with the LoRA deltas."""
+    import torch
+
+    x = plain_hidden(params, tokens[:, :-1], cfg, lora_tree, ids)
+    logp = torch.log_softmax((x @ params["lm_head"]).float(), dim=-1)
+    return -logp.gather(-1, tokens[:, 1:, None].long()).mean()
+
+
+def lora_train_reference(params, cfg, adapters, tokens, dev) -> dict:
+    """The LoRA loss and every adapter gradient of the kernel path against
+    the plain-attention path on a 2-layer cut, with the trained adapters;
+    two planted faults (the wo delta dropped; each row given its
+    neighbour's adapter) must read above the limits."""
+    import torch
+    from metal_flash_attention_tpu_torch.models import llama
+    from metal_flash_attention_tpu_torch.utils.tree import flatten
+
+    cut = dict(params, layers=params["layers"][:LORA_REF_LAYERS])
+    ccfg = dataclasses.replace(cfg, n_layers=LORA_REF_LAYERS)
+    layers = adapters["layers"][:LORA_REF_LAYERS]
+    rank = adapters["rank"]
+    ids = torch.tensor(LORA_IDS, dtype=torch.int32, device=dev)
+
+    def value_and_grads(loss_fn):
+        leaves, rebuild = flatten(layers)
+        work = [t.detach().requires_grad_(True) for t in leaves]
+        value = loss_fn({"rank": rank, "layers": rebuild(work)})
+        # A fault may cut a leaf out of the graph: its gradient is zero.
+        grads = torch.autograd.grad(value, work, allow_unused=True)
+        return float(value.detach()), [
+            torch.zeros_like(w) if g is None else g
+            for w, g in zip(work, grads)]
+
+    ref_loss, ref_grads = value_and_grads(
+        lambda tree: plain_lora_loss(cut, tokens, ccfg, tree, ids))
+
+    def reading(row_ids) -> dict:
+        loss, grads = value_and_grads(lambda tree: llama.loss_fn(
+            cut, tokens, ccfg, lora=tree, lora_ids=row_ids))
+        rel = []
+        for g, r in zip(grads, ref_grads):
+            if not torch.isfinite(g).all():
+                fail("lora_train_reference: a non-finite gradient")
+            g, r = g.float(), r.float()
+            rel.append(float((g - r).pow(2).mean().sqrt()
+                             / r.pow(2).mean().sqrt().clamp_min(1e-30)))
+        return {"loss": loss, "loss_abs_err": abs(loss - ref_loss),
+                "grad_rel_rms_max": max(rel),
+                "grad_rel_rms_median": float(np.median(rel))}
+
+    def seen(r: dict) -> bool:
+        return (r["loss_abs_err"] > TRAIN_LOSS_ABS
+                or r["grad_rel_rms_max"] > TRAIN_GRAD_REL_RMS)
+
+    def no_wo_delta(wo_proj):
+        def run(o, layer, lora_layer=None, lora_ids=None):
+            return wo_proj(o, layer)
+        return run
+
+    out = {"layers": LORA_REF_LAYERS, "tokens": list(tokens.shape),
+           "plain_loss": ref_loss, **reading(ids),
+           "tol": {"loss_abs": TRAIN_LOSS_ABS,
+                   "grad_rel_rms": TRAIN_GRAD_REL_RMS}}
+    with planted(llama, "wo_proj", no_wo_delta):
+        faults = {"wo_delta_dropped": reading(ids)}
+    faults["neighbour_adapter"] = reading(ids.flip(0))
+    out["planted_faults"] = faults
+    print("lora_train_reference: " + json.dumps(out), flush=True)
+    if seen(out):
+        fail("lora_train_reference: the LoRA loss or gradients disagree "
+             "with the plain-attention path")
+    for name, r in faults.items():
+        if not seen(r):
+            fail(f"lora_train_reference: the limits do not see the planted "
+                 f"fault {name}")
+    return out
+
+
+def serving_stack(adapters, cfg, dev) -> dict:
+    """The trained stack with adapter 3 (untrained: B = 0) replaced by a
+    random one drawn at LORA_B_SCALE."""
+    drawn = fresh_adapters(cfg, dev, b_scale=LORA_B_SCALE, seed=SEED + 23)
+    layers = []
+    for trained, rand in zip(adapters["layers"], drawn["layers"]):
+        layer = {}
+        for name, (a, b) in trained.items():
+            a, b = a.clone(), b.clone()
+            a[3], b[3] = rand[name][0][3], rand[name][1][3]
+            layer[name] = (a, b)
+        layers.append(layer)
+    return {"rank": adapters["rank"], "layers": layers}
+
+
+def lora_engine_run(params, cfg, prompts, lora_ids, dev, lora=None,
+                    forced=None, fault=False, max_seq=None):
+    """The engine (max_batch MAX_BATCH, page PAGE, ``max_seq`` or the
+    prompts' longest span) over ``prompts`` with one adapter each; every
+    step's logits kept by (request, token index).
+    ``forced``: {(request, index): token} replaces the engine's choice
+    (teacher forcing); ``fault``: the slot of adapter 3 handed its
+    neighbour slot's adapter in every decode step.  Returns streams,
+    logits, seconds and the step calls."""
+    import torch
+    from metal_flash_attention_tpu_torch import ServingEngine
+    from metal_flash_attention_tpu_torch.models import serving
+
+    max_seq = max_seq or max(map(len, prompts)) + MAX_NEW + 1
+    eng = ServingEngine(params, cfg, max_batch=MAX_BATCH,
+                        num_pages=MAX_BATCH * -(-max_seq // PAGE) + 1,
+                        page_size=PAGE, max_seq=max_seq, lora=lora)
+    logits_by = {}
+    pick = eng._pick
+
+    def kept(logits, bias, reqs, idxs):
+        toks, lps = pick(logits, bias, reqs, idxs)
+        for j, (r, i) in enumerate(zip(reqs, idxs)):
+            if r is not None:
+                logits_by[(r.rid, i)] = logits[j].float().clone()
+                if forced is not None and (r.rid, i) in forced:
+                    toks[j] = forced[(r.rid, i)]
+        return toks, lps
+    eng._pick = kept
+    if fault:
+        ids_of = eng._lora_ids
+
+        def neighbours():
+            ids = ids_of()
+            out = ids.copy()
+            for i in np.flatnonzero(ids == 3):
+                out[i] = ids[(i + 1) % len(ids)]
+            return out
+        eng._lora_ids = neighbours
+    rids = [eng.submit(p, MAX_NEW, lora_id=int(i))
+            for p, i in zip(prompts, lora_ids)]
+    calls = {}
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    with counted_calls(serving, SERVE_STEPS[:2], calls):
+        steps = 0
+        while not eng.idle:
+            eng.step()
+            steps += 1
+            if steps > 10_000:
+                fail("engine did not drain")
+    torch.cuda.synchronize(dev)
+    seconds = time.perf_counter() - t0
+    streams = [eng.result(r)[len(p):].tolist() for r, p in zip(rids,
+                                                               prompts)]
+    if eng.alloc.free_pages != eng.alloc.num_pages - 1:
+        fail("lora_serve: pages leaked")
+    return streams, logits_by, seconds, calls
+
+
+def rel_rms(got, want) -> float:
+    return float((got - want).pow(2).mean().sqrt()
+                 / want.pow(2).mean().sqrt().clamp_min(1e-30))
+
+
+def lora_serve(params, cfg, adapters, prompts, dev, card) -> dict:
+    """The engine at full depth serving the trained adapters and a random
+    one side by side (LORA_SERVE_IDS), against each request's own
+    single-request run (teacher-forced on the batched run's tokens) and,
+    for adapter-0 rows, against the engine without LoRA; a planted fault
+    (the adapter-3 slot given its neighbour's adapter) must fail; new
+    tokens/s beside the same serve without LoRA."""
+    import torch
+    from metal_flash_attention_tpu_torch.ops import paged_attention as pa
+
+    stack = serving_stack(adapters, cfg, dev)
+    ids = LORA_SERVE_IDS
+    # Warm-up of the LoRA path (not counted).
+    lora_engine_run(params, cfg, [prompts[1][:64]], [1], dev, lora=stack)
+    base_streams, base_logits, base_s, _ = lora_engine_run(
+        params, cfg, prompts, [0] * len(prompts), dev)
+    pa.reset_launch_counts()
+    streams, logits, seconds, calls = lora_engine_run(
+        params, cfg, prompts, ids, dev, lora=stack)
+    launches = {k: n for k, n in pa.LAUNCH_COUNTS.items() if n}
+    expected = expected_serve_launches(cfg, calls, None)
+    if launches != expected:
+        fail(f"lora_serve launch counts {launches}, expected {expected}")
+
+    def worst(run_logits, refs) -> tuple[float, list]:
+        per = []
+        for r in range(len(prompts)):
+            per.append(max(rel_rms(run_logits[(r, i)], refs[r][i])
+                           for i in range(MAX_NEW)))
+        return max(per), per
+
+    # Each request alone on an engine of the same configuration: its
+    # max_seq sets the page table's width, and with it the paged decode's
+    # key chunks (`decode_splits`), so a narrower table would add the
+    # rounding of another split (1.7-1.8% at 32 layers on the H100).
+    max_seq = max(map(len, prompts)) + MAX_NEW + 1
+    singles, same = [], 0
+    for r, (p, lid) in enumerate(zip(prompts, ids)):
+        forced = {(0, i): t for i, t in enumerate(streams[r])}
+        _, ref, _, _ = lora_engine_run(params, cfg, [p], [lid], dev,
+                                       lora=stack, forced=forced,
+                                       max_seq=max_seq)
+        singles.append([ref[(0, i)] for i in range(MAX_NEW)])
+        same += sum(int(ref[(0, i)].argmax()) == streams[r][i]
+                    for i in range(MAX_NEW))
+    sound, per_request = worst(logits, singles)
+    base0 = max(rel_rms(logits[(r, i)], base_logits[(r, i)])
+                for r, lid in enumerate(ids) if lid == 0
+                for i in range(MAX_NEW))
+    _, fault_logits, _, _ = lora_engine_run(params, cfg, prompts, ids, dev,
+                                            lora=stack, fault=True)
+    faulted, _ = worst(fault_logits, singles)
+    tokens = MAX_NEW * len(prompts)
+    out = {"requests": len(prompts), "lora_ids": list(ids),
+           "adapters": f"{LORA_ADAPTERS} (1, 2 trained; 3 drawn at b_scale "
+                       f"{LORA_B_SCALE}), rank {LORA_RANK}",
+           "new_tokens": tokens, "seconds": seconds,
+           "new_tokens_per_s": tokens / seconds,
+           "base_new_tokens_per_s": tokens / base_s,
+           "launches": launches,
+           "logits_rel_rms_worst": sound,
+           "logits_rel_rms_by_request": per_request,
+           "adapter0_vs_base_engine_rel_rms": base0,
+           "adapter0_streams_equal_base": all(
+               streams[r] == base_streams[r] for r, lid in enumerate(ids)
+               if lid == 0),
+           "greedy_tokens_equal_share": same / tokens,
+           "planted_fault_rel_rms": faulted,
+           "tol": REF_REL_RMS, "card": card}
+    print("lora_serve: " + json.dumps(out), flush=True)
+    if sound > REF_REL_RMS or base0 > REF_REL_RMS:
+        fail("lora_serve: a request's logits disagree with its own run")
+    if not faulted > REF_REL_RMS:
+        fail("lora_serve: the limit does not see the planted fault")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5339,6 +6004,25 @@ def run(dev, cache_dir) -> int:
     gemm_kernel = phase("gemm_checks", gemm_kernel_checks, dev, qweights,
                         mlp_inputs, gemm_launches, gemm_cases)
     del qweights, mlp_inputs
+    torch.cuda.empty_cache()
+    # Weights in and out and LoRA on the same full-depth weights: HF
+    # conversion, then fine-tuning adapters on the frozen base from token
+    # shards with a checkpoint and resume, then serving them.
+    phase("convert", convert_check, params, cfg, "llama", dev, card)
+    workdir = os.path.join(cache_dir, "lora")
+    os.makedirs(workdir)
+    adapters, lora_train_launches, shards = phase(
+        "lora_train", lora_train, params, cfg, dev, card, workdir)
+    from metal_flash_attention_tpu_torch.utils.data import TokenLoader
+    first = next(iter(TokenLoader(shards, LORA_BATCH, LORA_SEQ, seed=SEED,
+                                  device=dev)))
+    phase("lora_train_reference", lora_train_reference, params, cfg,
+          adapters, first, dev)
+    torch.cuda.empty_cache()
+    lora_serve_launches = phase("lora_serve", lora_serve, params, cfg,
+                                adapters, prompts, dev, card)
+    del adapters, first
+    torch.cuda.empty_cache()
     # Free the 14.5 GB of weights before training (generate's 8.6 GB
     # cache went with its call).
     del params
@@ -5382,7 +6066,12 @@ def run(dev, cache_dir) -> int:
             entry["launches_by_path"] = {
                 "serve": entry["launches"],
                 "burst_serve": burst_launches["bf16"][entry["name"]],
-                "prefix_serve": prefix_launches["bf16"][entry["name"]]}
+                "prefix_serve": prefix_launches["bf16"][entry["name"]],
+                "lora_serve": lora_serve_launches[entry["name"]]}
+        if entry["name"] in ATTENTION_COUNTS:
+            entry.setdefault("launches_by_path", {"train": entry[
+                "launches"]})["lora_train_step"] = lora_train_launches[
+                    entry["name"]]
     decode_kernel["launches_by_path"] = {
         "dense_serve": dense_launches["flash_decode"],
         "quant_serve": quant_launches["flash_decode"],
@@ -5409,6 +6098,8 @@ def run(dev, cache_dir) -> int:
     print(f"gemma_params: gemma2_2b, {gcfg.n_layers} layers (full depth), "
           f"bf16, {torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
+    phase("convert_gemma", convert_check, gparams, gcfg, "gemma", dev, card)
+    torch.cuda.empty_cache()
     gemma_serve_launches = phase("gemma_serve", gemma_serve, gparams, gcfg,
                                  dev, card)
     torch.cuda.empty_cache()

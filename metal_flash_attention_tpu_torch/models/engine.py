@@ -53,8 +53,15 @@ and a page is quantized when its tail fills.  The host mirrors each
 slot's full and tail lengths, so no length is read back, and knows from
 them which rows may fill a page at each step (`serving.flush_schedule`).
 
+``lora``: multi-adapter LoRA (`models.lora`): stacked adapters resident
+at once, each request picking one at ``submit(lora_id=)``; every chunk,
+decode and burst step passes each slot's id, so rows of different
+adapters share every step (adapter 0 is the base model).  The prefix
+cache keys a prompt's pages by its adapter too, since the adapter's
+delta is in the K/V; the JAX engine keys them by the tokens alone.
+
 The pools live on the parameters' device and are updated in place.  The
-LoRA, speculative and tensor-parallel features of the JAX engine raise
+speculative and tensor-parallel features of the JAX engine raise
 NotImplementedError (ROADMAP.md).
 """
 
@@ -68,6 +75,7 @@ import numpy as np
 import torch
 
 from metal_flash_attention_tpu_torch.models import llama, serving
+from metal_flash_attention_tpu_torch.models.lora import n_adapters
 from metal_flash_attention_tpu_torch.models.prefix_cache import PrefixCache
 from metal_flash_attention_tpu_torch.native.page_allocator import (
     PagerError,
@@ -123,6 +131,7 @@ class _Request:
     prefill_pos: int = 0                 # tokens prefilled so far
     logit_bias: Optional[np.ndarray] = None   # [vocab] float32
     priority: int = 0                    # higher admits sooner
+    lora_id: int = 0                     # adapter row (0 = base)
     submitted_step: int = -1             # engine step counters
     admitted_step: int = -1
     first_token_step: int = -1
@@ -165,8 +174,7 @@ class ServingEngine:
                 (kv_sharding, "tensor-parallel pools (kv_sharding)",
                  "tensor-parallel serving"),
                 (draft_fn, "speculative decoding (draft_fn)",
-                 "speculative decoding"),
-                (lora, "multi-adapter LoRA", "LoRA")):
+                 "speculative decoding")):
             if value:
                 raise not_ported(what, item)
         if admissions_per_step < 1:
@@ -174,6 +182,7 @@ class ServingEngine:
                              f"{admissions_per_step}")
         self.params = params
         self.cfg = cfg
+        self._lora = lora
         # Family hooks (None: the Llama steps, looked up at each call).
         self._chunk_step = chunk_step
         self._decode_step = decode_step
@@ -247,9 +256,17 @@ class ServingEngine:
         every generated token (:meth:`result_logprobs`).  ``logit_bias``:
         a {token: bias} dict or a [vocab] array added to the logits
         before choosing.  ``priority``: higher admits sooner, FIFO
-        within a priority."""
-        if lora_id:
-            raise not_ported("multi-adapter LoRA", "LoRA")
+        within a priority.  ``lora_id``: the request's adapter in the
+        engine's ``lora`` stack (0, the base model, by default)."""
+        if lora_id != 0 and self._lora is None:
+            raise ValueError("engine built without lora adapters")
+        if self._lora is not None:
+            count = n_adapters(self._lora)
+            if not 0 <= lora_id < count:
+                # An index past the stack would read another tenant's
+                # adapter, or fault.
+                raise ValueError(f"lora_id {lora_id} out of range "
+                                 f"[0, {count})")
         bias_vec = None
         if logit_bias is not None:
             bias_vec = np.zeros((self.cfg.vocab_size,), np.float32)
@@ -266,7 +283,8 @@ class ServingEngine:
             top_p=float(top_p),
             stop=frozenset(int(t) for t in stop_tokens),
             want_logprobs=bool(logprobs), logit_bias=bias_vec,
-            priority=int(priority), submitted_step=self.n_steps))
+            priority=int(priority), lora_id=int(lora_id),
+            submitted_step=self.n_steps))
         return rid
 
     @property
@@ -393,6 +411,7 @@ class ServingEngine:
         rids, idx0, temp, top_k, top_p = _sampling_rows(
             self._slots, [0 if r is None else len(r.out)
                           for r in self._slots])
+        ids = self._lora_ids()
         # No row can emit past its budget, which the host knows: steps
         # beyond the largest one would only run frozen rows.
         k = min(int(k), int(remaining.max()))
@@ -406,9 +425,9 @@ class ServingEngine:
             lengths = (self._lengths,)
             rows = np.zeros((0,), np.int32)
         (tok_t, table_t, *len_t, active_t, rem_t, stops_t, rids_t, idx0_t,
-         temp_t, top_k_t, top_p_t, rows_t) = self._upload(
+         temp_t, top_k_t, top_p_t, rows_t, ids_t) = self._upload(
             tokens, self._table, *lengths, active, remaining, stops, rids,
-            idx0, temp, top_k, top_p, rows)
+            idx0, temp, top_k, top_p, rows, ids)
         common = dict(
             n_steps=k, active=active_t, remaining=rem_t,
             stop_ids=stops_t, seed=self.seed, rids=rids_t, idx0=idx0_t,
@@ -436,7 +455,7 @@ class ServingEngine:
                 lengths=len_t[0])
             toks, valid, lps, _, _ = serving.paged_decode_burst(
                 self.params, tok_t, self.cfg, cache,
-                step_fn=self._decode_step, **common)
+                step_fn=self._decode_step, **common, **self._lora_kw(ids_t))
         # ONE device-to-host read for all three outputs.
         out = torch.stack([toks, valid.to(torch.int32),
                            lps.view(torch.int32)]).cpu().numpy()
@@ -511,7 +530,8 @@ class ServingEngine:
         borrowed: list[int] = []
         hit = 0
         if self.prefix_cache is not None:
-            borrowed, hit = self.prefix_cache.lookup(req.prompt)
+            borrowed, hit = self.prefix_cache.lookup(req.prompt,
+                                                     self._prefix_root(req))
         try:
             pages = self.alloc.reserve(seq=free, num_tokens=budget - hit)
         except PagerError:
@@ -577,6 +597,23 @@ class ServingEngine:
             out.append(t)
         return out
 
+    def _prefix_root(self, req) -> bytes:
+        """The prefix cache's chain root: the request's adapter, whose
+        delta is in the K/V (the JAX engine keys by tokens alone)."""
+        return b"" if self._lora is None else b"lora:%d" % req.lora_id
+
+    def _lora_ids(self) -> np.ndarray:
+        """Each slot's adapter (0 for a free slot)."""
+        return np.asarray([0 if r is None else r.lora_id
+                           for r in self._slots], np.int32)
+
+    def _lora_kw(self, ids) -> dict:
+        """The LoRA keywords of a step: none without adapters."""
+        if self._lora is None:
+            return {}
+        return {"lora": self._lora,
+                "lora_ids": torch.as_tensor(ids, device=self.device)}
+
     def _rows(self, rows: np.ndarray) -> torch.Tensor:
         """Row indices as int64 on the device (no copy when there are
         none)."""
@@ -640,7 +677,8 @@ class ServingEngine:
                 logits, _ = (self._chunk_step or serving.paged_chunk_step)(
                     self.params, chunk, self.cfg,
                     self._cache(req.pages[None, :],
-                                np.full((1,), pos, np.int32)))
+                                np.full((1,), pos, np.int32)),
+                    **self._lora_kw(np.full((1,), req.lora_id, np.int32)))
             else:
                 # A 1-row view: the shared pools and this slot's tail.
                 # Chunks start page-aligned, so the tail enters empty and
@@ -686,7 +724,8 @@ class ServingEngine:
         if self._kv_precision is None:
             logits, _ = (self._decode_step or serving.paged_decode_step)(
                 self.params, token_t, self.cfg,
-                self._cache(self._table, self._lengths))
+                self._cache(self._table, self._lengths),
+                **self._lora_kw(self._lora_ids()))
         else:
             rows = serving.flush_schedule(self._tlen, active,
                                           self.page_size, 1)[0]
@@ -725,7 +764,8 @@ class ServingEngine:
                 if self.prefix_cache is not None:
                     # Pin the prompt's complete pages for later requests
                     # before the request's refs drop.
-                    self.prefix_cache.register(r.prompt, r.pages)
+                    self.prefix_cache.register(r.prompt, r.pages,
+                                               self._prefix_root(r))
                 self._free_slot(i)
 
     def _free_slot(self, i: int) -> None:

@@ -10,8 +10,10 @@ Parameters are a plain dict of tensors with the JAX package's names and
 layouts (projections stored [in, out], so a layer is ``x @ w``).
 
 Large products stay `torch.matmul`, as the JAX package leaves them to
-XLA; only attention is a hand-written kernel on the card.  Not ported
-yet: sharded attention (``mesh=``) and LoRA deltas (``lora=``).
+XLA; only attention is a hand-written kernel on the card.  ``lora=`` /
+``lora_ids=`` add per-row multi-adapter LoRA deltas to the attention
+projections (`models.lora`), differentiable, so the same path
+fine-tunes.  Not ported yet: sharded attention (``mesh=``).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from metal_flash_attention_tpu_torch import dispatch
+from metal_flash_attention_tpu_torch.models.lora import lora_delta
 from metal_flash_attention_tpu_torch.models.losses import fused_cross_entropy
 from metal_flash_attention_tpu_torch.models.optim import sgd_step
 from metal_flash_attention_tpu_torch.ops.flash_attention import (
@@ -162,22 +165,33 @@ def mlp_block(layer: dict, x: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
     return x + ((gate * up).to(x.dtype) @ layer["w_down"]).to(x.dtype)
 
 
-def attention_qkv(layer: dict, x: torch.Tensor, cfg: LlamaConfig, cos, sin):
-    """norm -> QKV projections (+ Qwen2-style bias) -> rope.  Returns
-    q [b, q_heads, s, d] and k/v [b, kv_heads, s, d]."""
+def attention_qkv(layer: dict, x: torch.Tensor, cfg: LlamaConfig, cos, sin,
+                  lora_layer: Optional[dict] = None, lora_ids=None):
+    """norm -> QKV projections (+ Qwen2-style bias, + each row's LoRA
+    delta) -> rope.  Returns q [b, q_heads, s, d] and k/v [b, kv_heads,
+    s, d]."""
     b, s, _ = x.shape
     h = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
 
     def proj(name):
         y = h @ layer[name]
         bias = layer.get("b" + name[1:])
-        return y if bias is None else y + bias.to(y.dtype)
+        if bias is not None:
+            y = y + bias.to(y.dtype)
+        return lora_delta(y, h, lora_layer, name, lora_ids)
     q = proj("wq").reshape(b, s, cfg.n_heads, cfg.head_dim)
     k = proj("wk").reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
     v = proj("wv").reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
     q = apply_rope(q.transpose(1, 2), cos, sin)
     k = apply_rope(k.transpose(1, 2), cos, sin)
     return q, k, v.transpose(1, 2)
+
+
+def wo_proj(o: torch.Tensor, layer: dict, lora_layer: Optional[dict] = None,
+            lora_ids=None) -> torch.Tensor:
+    """The output projection of o [b, s, q_heads * d], with each row's
+    LoRA delta."""
+    return lora_delta(o @ layer["wo"], o, lora_layer, "wo", lora_ids)
 
 
 def attention_block(layer: dict, x: torch.Tensor, cfg: LlamaConfig, cos,
@@ -191,14 +205,13 @@ def attention_block(layer: dict, x: torch.Tensor, cfg: LlamaConfig, cos,
     the prefix and attention spans all of it (causal, bottom-right).
     Without ``block_q`` / ``block_kv`` attention resolves through
     `dispatch.attention`; with either it calls `flash_attention` with
-    that tile, as the JAX package does."""
+    that tile, as the JAX package does.  ``lora_layer`` / ``lora_ids``:
+    this layer's adapter pairs and each row's adapter (None: adapter 0)."""
     if mesh is not None:
         raise not_ported("sharded attention (mesh=)",
                          "tensor-parallel serving")
-    if lora_layer is not None:
-        raise not_ported("LoRA deltas (lora=)", "LoRA")
     b, s, _ = x.shape
-    q, k, v = attention_qkv(layer, x, cfg, cos, sin)
+    q, k, v = attention_qkv(layer, x, cfg, cos, sin, lora_layer, lora_ids)
     if kv_cache is not None:
         k = torch.cat([kv_cache[0], k], dim=2)
         v = torch.cat([kv_cache[1], v], dim=2)
@@ -209,7 +222,8 @@ def attention_block(layer: dict, x: torch.Tensor, cfg: LlamaConfig, cos,
         o = flash_attention(q, k, v, causal=True,
                             window_size=cfg.sliding_window, block_q=block_q,
                             block_kv=block_kv)
-    y = o.transpose(1, 2).reshape(b, s, -1) @ layer["wo"]
+    y = wo_proj(o.transpose(1, 2).reshape(b, s, -1), layer, lora_layer,
+                lora_ids)
     return x + y.to(x.dtype), (k, v)
 
 
@@ -228,29 +242,30 @@ def forward_hidden(params: dict, tokens: torch.Tensor, cfg: LlamaConfig, *,
     non-reentrant): the backward recomputes the layer's activations, so
     attention's forward kernel runs twice per layer and step.
     ``block_q`` / ``block_kv``: every layer's attention tile
-    (`attention_block`)."""
-    if lora is not None:
-        raise not_ported("LoRA deltas (lora=)", "LoRA")
+    (`attention_block`).  ``lora`` / ``lora_ids``: stacked adapters
+    (`models.lora`) and each row's adapter."""
     b, s = tokens.shape
     if positions is None:
         positions = torch.arange(s, device=tokens.device).expand(b, s)
     cos, sin = rope_frequencies(cfg, positions)
     x = params["embed"][tokens.long()].to(cfg.dtype)
 
-    def one_layer(layer, x, cache):
+    def one_layer(layer, x, cache, lora_layer):
         x, kv = attention_block(layer, x, cfg, cos, sin, kv_cache=cache,
                                 block_q=block_q, block_kv=block_kv,
-                                mesh=mesh)
+                                mesh=mesh, lora_layer=lora_layer,
+                                lora_ids=lora_ids)
         return mlp_block(layer, x, cfg), kv
 
     new_caches = []
     for i, layer in enumerate(params["layers"]):
         cache = kv_caches[i] if kv_caches is not None else None
+        lora_layer = None if lora is None else lora["layers"][i]
         if remat:
-            x, kv = checkpoint(one_layer, layer, x, cache,
+            x, kv = checkpoint(one_layer, layer, x, cache, lora_layer,
                                use_reentrant=False)
         else:
-            x, kv = one_layer(layer, x, cache)
+            x, kv = one_layer(layer, x, cache, lora_layer)
         new_caches.append(kv)
     return rms_norm(x, params["final_norm"], cfg.norm_eps), new_caches
 

@@ -10,7 +10,10 @@ prefills only the unshared suffix.
   ``blake2b(parent_digest || page_tokens)`` to a KV page id, so a page's
   key depends on its whole prefix and a lookup is a walk: page k hits
   only if pages 0..k-1 hit.  Entries keep the page's tokens and compare
-  them exactly, so a digest collision never serves wrong KV.
+  them exactly, so a digest collision never serves wrong KV.  A chain
+  starts from a ``root`` (empty by default); the engine with LoRA
+  adapters roots each request's chain at its adapter, whose delta is in
+  the K/V, so one adapter's pages never serve another's request.
 - **Refcounted pages.** A cached page holds one reference in the page
   allocator (`native.page_allocator`, C++ where it builds); a borrowing
   request holds one more for its lifetime.  A page returns to the pool
@@ -56,7 +59,8 @@ class PrefixCache:
     def __len__(self) -> int:
         return len(self._entries)
 
-    def lookup(self, prompt: np.ndarray) -> tuple[list[int], int]:
+    def lookup(self, prompt: np.ndarray,
+               root: bytes = b"") -> tuple[list[int], int]:
         """The longest cached page chain covering at most
         ``len(prompt) - 1`` tokens (the last prompt token is always
         recomputed, so the caller gets its logits); the hit pages are
@@ -67,7 +71,7 @@ class PrefixCache:
         prompt = np.asarray(prompt, np.int32)
         ps = self.page_size
         pages: list[int] = []
-        parent = b""
+        parent = root
         for k in range(max(len(prompt) - 1, 0) // ps):
             tb = prompt[k * ps:(k + 1) * ps].tobytes()
             d = _digest(parent, tb)
@@ -82,7 +86,7 @@ class PrefixCache:
             self._alloc.retain(pages)
         return pages, len(pages) * ps
 
-    def register(self, prompt: np.ndarray, pages) -> int:
+    def register(self, prompt: np.ndarray, pages, root: bytes = b"") -> int:
         """Cache every complete page of ``prompt`` (its KV in
         ``pages[k]``), pinning each newly cached page with one allocator
         ref.  A page already cached under the same chain key is kept (the
@@ -90,7 +94,7 @@ class PrefixCache:
         of new entries."""
         prompt = np.asarray(prompt, np.int32)
         ps = self.page_size
-        parent = b""
+        parent = root
         added = 0
         for k in range(len(prompt) // ps):
             tb = prompt[k * ps:(k + 1) * ps].tobytes()

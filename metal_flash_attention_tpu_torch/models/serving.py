@@ -165,7 +165,7 @@ def decode_step(params: dict, token: torch.Tensor, cfg: llama.LlamaConfig,
         write_rows(cache.v[li], v[:, :, 0], cache.lengths)
         o = flash_decode(q[:, :, 0].to(cfg.dtype), cache.k[li], cache.v[li],
                          kv_lens=lens, kv_starts=starts)
-        x = x + _wo_proj(o.reshape(b, 1, -1), layer).to(x.dtype)
+        x = x + llama.wo_proj(o.reshape(b, 1, -1), layer).to(x.dtype)
         x = _ffn_block(layer, x, cfg)
     x = llama.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = (x[:, 0] @ params["lm_head"]).float()
@@ -401,7 +401,8 @@ def decode_step_quantized(params: dict, token: torch.Tensor,
                                         return_residuals=True)
         o = _merge_partials(o_pre.float(), lse_pre, o_tail.float(),
                             lse_tail)
-        x = x + _wo_proj(o.to(x.dtype).reshape(b, 1, -1), layer).to(x.dtype)
+        x = x + llama.wo_proj(o.to(x.dtype).reshape(b, 1, -1),
+                              layer).to(x.dtype)
         x = _ffn_block(layer, x, cfg)
     x = llama.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = (x[:, 0] @ params["lm_head"]).float()
@@ -474,10 +475,6 @@ def init_paged_model_cache(cfg: llama.LlamaConfig, batch: int,
                                                device=device))
 
 
-def _wo_proj(o: torch.Tensor, layer: dict) -> torch.Tensor:
-    return o @ layer["wo"]
-
-
 def _ffn_block(layer: dict, x: torch.Tensor, cfg) -> torch.Tensor:
     """Dense SwiGLU MLP.  Mixture-of-experts layers are not ported."""
     if "moe" in layer:
@@ -485,12 +482,10 @@ def _ffn_block(layer: dict, x: torch.Tensor, cfg) -> torch.Tensor:
     return llama.mlp_block(layer, x, cfg)
 
 
-def _check_unported(mesh, lora) -> None:
+def _check_unported(mesh) -> None:
     if mesh is not None:
         raise not_ported("tensor-parallel serving (mesh=)",
                          "tensor-parallel serving")
-    if lora is not None:
-        raise not_ported("multi-adapter LoRA", "LoRA")
 
 
 def paged_chunk_step(params: dict, tokens: torch.Tensor,
@@ -501,22 +496,25 @@ def paged_chunk_step(params: dict, tokens: torch.Tensor,
     lengths .. lengths + k - 1: write their K/V into the pools (in
     place) and return float32 logits [batch, k, vocab] with the advanced
     cache.  Attention is `paged_prefill` (causal at each query's
-    position, ragged lengths per sequence)."""
-    _check_unported(mesh, lora)
+    position, ragged lengths per sequence).  ``lora`` / ``lora_ids``:
+    stacked adapters (`models.lora`) and each row's adapter, on the
+    attention projections."""
+    _check_unported(mesh)
     b, kc = tokens.shape
     positions = cache.lengths.long()[:, None] + torch.arange(
         kc, device=tokens.device)[None, :]
     cos, sin = llama.rope_frequencies(cfg, positions)
     x = params["embed"][tokens.long()].to(cfg.dtype)
     for li, layer in enumerate(params["layers"]):
-        q, k, v = llama.attention_qkv(layer, x, cfg, cos, sin)
+        ll = None if lora is None else lora["layers"][li]
+        q, k, v = llama.attention_qkv(layer, x, cfg, cos, sin, ll, lora_ids)
         layer_cache = paged_append_chunk(
             PagedKVCache(cache.k[li], cache.v[li], cache.page_table,
                          cache.lengths), k, v)
         o = paged_prefill(q.to(cfg.dtype), layer_cache,
                           window_size=cfg.sliding_window)
         o = o.transpose(1, 2).reshape(b, kc, -1)
-        x = x + _wo_proj(o, layer).to(x.dtype)
+        x = x + llama.wo_proj(o, layer, ll, lora_ids).to(x.dtype)
         x = _ffn_block(layer, x, cfg)
     x = llama.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = (x @ params["lm_head"]).float()
@@ -529,21 +527,23 @@ def paged_decode_step(params: dict, token: torch.Tensor,
                       ) -> tuple[torch.Tensor, PagedModelCache]:
     """One decode step: token [batch] -> its K/V appended at lengths
     (in place), float32 logits [batch, vocab] via `paged_decode`, and
-    the cache with lengths + 1."""
-    _check_unported(mesh, lora)
+    the cache with lengths + 1.  ``lora`` / ``lora_ids`` as in
+    `paged_chunk_step`."""
+    _check_unported(mesh)
     b = token.shape[0]
     positions = cache.lengths.long()[:, None]
     cos, sin = llama.rope_frequencies(cfg, positions)
     x = params["embed"][token.long()][:, None, :].to(cfg.dtype)
     for li, layer in enumerate(params["layers"]):
-        q, k, v = llama.attention_qkv(layer, x, cfg, cos, sin)
+        ll = None if lora is None else lora["layers"][li]
+        q, k, v = llama.attention_qkv(layer, x, cfg, cos, sin, ll, lora_ids)
         layer_cache = paged_append_chunk(
             PagedKVCache(cache.k[li], cache.v[li], cache.page_table,
                          cache.lengths), k, v)
         o = paged_decode(q[:, :, 0].to(cfg.dtype), layer_cache,
                          window_size=cfg.sliding_window)
         o = o.reshape(b, 1, -1)
-        x = x + _wo_proj(o, layer).to(x.dtype)
+        x = x + llama.wo_proj(o, layer, ll, lora_ids).to(x.dtype)
         x = _ffn_block(layer, x, cfg)
     x = llama.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = (x[:, 0] @ params["lm_head"]).float()
@@ -654,7 +654,7 @@ def gemma_paged_chunk_step(params: dict, tokens: torch.Tensor, cfg,
     sliding window.  The engine's ``chunk_step`` for the Gemma family."""
     from metal_flash_attention_tpu_torch.models import gemma
 
-    _check_unported(mesh, None)
+    _check_unported(mesh)
     b, kc = tokens.shape
     positions = cache.lengths.long()[:, None] + torch.arange(
         kc, device=tokens.device)[None, :]
@@ -686,7 +686,7 @@ def gemma_paged_decode_step(params: dict, token: torch.Tensor, cfg,
     engine's ``decode_step`` for the Gemma family."""
     from metal_flash_attention_tpu_torch.models import gemma
 
-    _check_unported(mesh, None)
+    _check_unported(mesh)
     b = token.shape[0]
     positions = cache.lengths.long()[:, None]
     cos, sin = llama.rope_frequencies(cfg, positions)
@@ -890,7 +890,7 @@ def paged_chunk_step_q(params: dict, tokens: torch.Tensor,
                             lse_pre.reshape(b, heads, kc), o_ch.float(),
                             lse_ch)
         o = o.to(x.dtype).transpose(1, 2).reshape(b, kc, -1)
-        x = x + _wo_proj(o, layer).to(x.dtype)
+        x = x + llama.wo_proj(o, layer).to(x.dtype)
         x = _ffn_block(layer, x, cfg)
     x = llama.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = (x @ params["lm_head"]).float()
@@ -930,7 +930,8 @@ def paged_decode_step_q(params: dict, token: torch.Tensor,
                                         return_residuals=True)
         o = _merge_partials(o_pre.float(), lse_pre, o_tail.float(),
                             lse_tail)
-        x = x + _wo_proj(o.to(x.dtype).reshape(b, 1, -1), layer).to(x.dtype)
+        x = x + llama.wo_proj(o.to(x.dtype).reshape(b, 1, -1),
+                              layer).to(x.dtype)
         x = _ffn_block(layer, x, cfg)
     x = llama.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = (x[:, 0] @ params["lm_head"]).float()

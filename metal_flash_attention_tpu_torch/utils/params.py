@@ -27,13 +27,22 @@ def params_from_numpy(tree, device=None,
                       dtype: torch.dtype = torch.bfloat16):
     """Nested dicts / lists of numpy arrays (the JAX params pytree under
     `jax.tree.map(np.asarray, ...)`) -> the same structure of tensors,
-    on the card unless ``device`` says otherwise."""
+    on the card unless ``device`` says otherwise.  A JAX LoRA adapter
+    tree carries across too: its (A, B) tuples stay tuples and its
+    ``rank`` a Python int."""
     device = resolve_device(device)
+
     def walk(node, name):
         if isinstance(node, dict):
             return {k: walk(v, k) for k, v in node.items()}
-        if isinstance(node, (list, tuple)):
+        if isinstance(node, tuple):
+            return tuple(walk(v, name) for v in node)
+        if isinstance(node, list):
             return [walk(v, name) for v in node]
+        if isinstance(node, (int, np.integer)) or (
+                isinstance(node, np.ndarray) and node.ndim == 0
+                and node.dtype.kind in "iu"):
+            return int(node)      # a LoRA tree's rank
         return _to_tensor(name, node, device, dtype)
     return walk(tree, "")
 

@@ -1,5 +1,6 @@
 """Nested dicts, lists and tuples of tensors (the port's parameter and
-batch "pytrees"): flatten to a list of leaves and rebuild."""
+batch "pytrees"): flatten to a list of leaves and rebuild, and name each
+leaf by its path."""
 
 from __future__ import annotations
 
@@ -30,3 +31,24 @@ def flatten(tree) -> tuple[list, Callable[[list], object]]:
 def tree_map(fn, tree):
     leaves, rebuild = flatten(tree)
     return rebuild([fn(x) for x in leaves])
+
+
+def leaf_paths(tree) -> list[str]:
+    """Each leaf's key, in `flatten`'s order: the ``/``-joined dict keys
+    and list / tuple indices on the way to it, as the JAX package's
+    `utils/checkpoint.py` names a leaf of `tree_flatten_with_path`
+    ("layers/0/wq", "layers/3/wo/1" for the B of a LoRA pair)."""
+    paths: list[str] = []
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k in node:
+                walk(node[k], path + (str(k),))
+        elif isinstance(node, (list, tuple)):
+            for i, x in enumerate(node):
+                walk(x, path + (str(i),))
+        else:
+            paths.append("/".join(path))
+
+    walk(tree, ())
+    return paths

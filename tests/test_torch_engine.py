@@ -184,8 +184,8 @@ def test_abort_frees_slot_and_pages(models):
 
 def test_unported_engine_features_raise(models):
     """What the port does not have raises, naming its ROADMAP item; the
-    JAX engine's keywords are all accepted, and its ValueError
-    combinations stay ValueErrors.  (Sampling, logprobs, logit_bias and
+    JAX engine's keywords are all accepted, and its ValueErrors (the
+    combinations, an adapter id without adapters) stay ValueErrors.  (Sampling, logprobs, logit_bias and
     step_burst are held in tests/test_torch_engine_burst.py, the prefix
     cache in tests/test_torch_prefix_cache.py, the family hooks
     (chunk_step / decode_step, taken since Gemma-2) in
@@ -197,13 +197,15 @@ def test_unported_engine_features_raise(models):
     assert eng.stats["prefix_hit_tokens"] == 0
     for kw, item in ((dict(draft_fn=lambda *a: None, draft_len=2),
                       "speculative decoding"),
-                     (dict(lora={"layers": []}), "LoRA"),
                      (dict(kv_sharding=object()),
                       "tensor-parallel serving")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{item}"):
             TEngine(tparams, tcfg, max_batch=1, num_pages=8, **kw)
+    # LoRA (taken since slice 16, tests/test_torch_lora.py) is accepted
+    # as the JAX engine accepts it.
     for kw in (dict(chunk_step=lambda *a: None),
-               dict(decode_step=lambda *a: None)):
+               dict(decode_step=lambda *a: None),
+               dict(lora={"layers": []})):
         TEngine(tparams, tcfg, max_batch=1, num_pages=8, **kw)
     for kw in (dict(kv_precision="int8", decode_step=lambda *a: None),
                dict(lora={"layers": []}, chunk_step=lambda *a: None)):
@@ -211,7 +213,8 @@ def test_unported_engine_features_raise(models):
             TEngine(tparams, tcfg, max_batch=1, num_pages=8, **kw)
     eng = TEngine(tparams, tcfg, max_batch=1, num_pages=8, seed=0,
                   draft_len=0, draft_history=16)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*LoRA"):
+    # As in the JAX engine: an adapter id needs an engine with adapters.
+    with pytest.raises(ValueError, match="without lora adapters"):
         eng.submit(np.zeros(4, np.int32), 2, lora_id=1)
     with pytest.raises(ValueError):
         eng.step_burst(0)

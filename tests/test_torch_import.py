@@ -4,18 +4,25 @@ on a machine without a card instead of quietly running on the CPU.
 Each check runs in a fresh interpreter, so that JAX, imported by the
 other test files, is not already in `sys.modules`."""
 
+import dataclasses
 import os
 import shutil
 import subprocess
 import sys
+import tempfile
 
 import numpy as np
 import pytest
 import torch
 
-from metal_flash_attention_tpu_torch.models import llama, serving
+from metal_flash_attention_tpu_torch.models import (
+    convert,
+    llama,
+    lora,
+    serving,
+)
 from metal_flash_attention_tpu_torch.ops import paged_attention
-from metal_flash_attention_tpu_torch.utils import device, params
+from metal_flash_attention_tpu_torch.utils import data, device, params
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -26,8 +33,10 @@ MODULES = [
     "metal_flash_attention_tpu_torch.descriptors.parameters",
     "metal_flash_attention_tpu_torch.descriptors.precision",
     "metal_flash_attention_tpu_torch.dispatch",
+    "metal_flash_attention_tpu_torch.models.convert",
     "metal_flash_attention_tpu_torch.models.engine",
     "metal_flash_attention_tpu_torch.models.llama",
+    "metal_flash_attention_tpu_torch.models.lora",
     "metal_flash_attention_tpu_torch.models.losses",
     "metal_flash_attention_tpu_torch.models.optim",
     "metal_flash_attention_tpu_torch.models.prefix_cache",
@@ -48,6 +57,8 @@ MODULES = [
     "metal_flash_attention_tpu_torch.runtime.autotune",
     "metal_flash_attention_tpu_torch.runtime.cache",
     "metal_flash_attention_tpu_torch.runtime.context",
+    "metal_flash_attention_tpu_torch.utils.checkpoint",
+    "metal_flash_attention_tpu_torch.utils.data",
     "metal_flash_attention_tpu_torch.utils.device",
     "metal_flash_attention_tpu_torch.utils.errors",
     "metal_flash_attention_tpu_torch.utils.params",
@@ -69,7 +80,8 @@ def test_port_imports_no_jax():
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m.startswith('jaxlib') or "
             "m == 'metal_flash_attention_tpu' or "
-            "m.startswith('metal_flash_attention_tpu.'))\n"
+            "m.startswith('metal_flash_attention_tpu.') or "
+            "m == 'transformers' or m.startswith('transformers.'))\n"
             "assert not bad, bad\n"
             "from metal_flash_attention_tpu_torch.ops import "
             "paged_attention, flash_attention, flash_attention_bwd, "
@@ -80,7 +92,8 @@ def test_port_imports_no_jax():
             "flash_attention_bwd, flash_decode, gemm, softmax):\n"
             "    assert m._kernel_library.cache_info().currsize == 0\n"
             "import chip_smoke\n"
-            "assert 'jax' not in sys.modules\n")
+            "assert 'jax' not in sys.modules\n"
+            "assert 'transformers' not in sys.modules\n")
     proc = _run(code)
     assert proc.returncode == 0, proc.stderr
 
@@ -193,7 +206,21 @@ def _constructors():
             serving.KVCache(k=[np.zeros((1, 1, 4, 32), np.float32)],
                             v=[np.zeros((1, 1, 4, 32), np.float32)],
                             lengths=np.zeros((1,), np.int32))).k[0],
+        "init_lora_adapters": lambda: lora.init_lora_adapters(
+            cfg, 2, 4, generator=None)["layers"][0]["wq"][0],
+        "params_from_hf_llama": lambda: convert.params_from_hf_llama(
+            {"embed_tokens.weight": torch.zeros((3, 2)),
+             "norm.weight": torch.ones(2)},
+            dataclasses.replace(cfg, n_layers=0))["lm_head"],
+        "TokenLoader": lambda: next(iter(data.TokenLoader(
+            [_shard()], batch=1, seq_len=4))),
     }
+
+
+def _shard() -> str:
+    path = os.path.join(tempfile.mkdtemp(), "shard.bin")
+    data.write_shard(path, np.arange(8, dtype=np.int32))
+    return path
 
 
 def test_default_device_is_the_card(monkeypatch):
@@ -221,7 +248,8 @@ def test_constructors_put_tensors_where_the_default_resolves(monkeypatch):
     def spy(dev=None):
         seen.append(device.resolve_device(dev))
         return torch.device("meta")
-    for module in (llama, params, paged_attention, serving):
+    for module in (llama, params, paged_attention, serving, lora, convert,
+                   data):
         monkeypatch.setattr(module, "resolve_device", spy)
     for name, make in _constructors().items():
         seen.clear()

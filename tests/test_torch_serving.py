@@ -92,8 +92,19 @@ def test_unported_serving_options_raise():
     tok = torch.zeros((1,), dtype=torch.int32)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         ts.paged_decode_step(tparams, tok, tcfg, cache, mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ts.paged_decode_step(tparams, tok, tcfg, cache, lora={})
+    # LoRA (taken since slice 16): as in JAX, adapter 0 (B = 0) is the
+    # base model bit for bit, and another adapter moves the logits.
+    from metal_flash_attention_tpu_torch.models.lora import (
+        init_lora_adapters,
+    )
+    adapters = init_lora_adapters(tcfg, 2, 4, b_scale=0.3, device="cpu",
+                                  generator=torch.Generator().manual_seed(0))
+    base, _ = ts.paged_decode_step(tparams, tok, tcfg, cache)
+    outs = [ts.paged_decode_step(
+        tparams, tok, tcfg, cache, lora=adapters,
+        lora_ids=torch.tensor([i], dtype=torch.int32))[0] for i in (0, 1)]
+    assert torch.equal(outs[0], base)
+    assert not torch.allclose(outs[1], base, atol=1e-3)
     moe = dict(tparams, layers=[dict(tparams["layers"][0], moe={})])
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         ts.paged_decode_step(moe, tok, tcfg, cache)

@@ -293,7 +293,14 @@ def test_train_loop_matches_single_steps(model):
 def test_unported_model_options_raise(model):
     _, tcfg, _, tparams, tokens = model
     toks = torch.as_tensor(tokens)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tl.loss_fn(tparams, toks, tcfg, lora={"layers": []})
+    # LoRA (taken since slice 16): as in JAX, zero-B adapters are the
+    # identity, so the loss is the base loss.
+    from metal_flash_attention_tpu_torch.models.lora import (
+        init_lora_adapters,
+    )
+    adapters = init_lora_adapters(tcfg, 1, 8, device="cpu",
+                                  generator=torch.Generator().manual_seed(3))
+    assert torch.equal(tl.loss_fn(tparams, toks, tcfg, lora=adapters),
+                       tl.loss_fn(tparams, toks, tcfg))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tl.forward(tparams, toks, tcfg, mesh=object())
