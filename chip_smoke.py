@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paged serving (bf16 and quantized KV, by
 step and by burst, greedy and sampled, with and without the prefix
-cache), dense serving and training paths, the fused forward over
+cache, speculative), beam search, dense serving and training paths, the fused forward over
 quantized K/V, its standalone ops (quantized GEMM, softmax), Gemma-2
 serving (paged and dense) and training (the soft cap and head_dim 256 in
 the kernels, forward and backward), and the flash-attention options
@@ -169,6 +169,46 @@ Phases (any failure exits non-zero and prints no result):
    planted fault (the adapter-3 slot given its neighbour's adapter)
    that must read above it, the share of equal greedy tokens, and new
    tokens/s beside the same serve without LoRA;
+6c. speculative decoding and beam search, on the same full-depth weights
+   (each phase's launch counts set to 0 just before its run and read just
+   after, held exact, all on the `_sm90` kernels).  A speculative stream
+   is held to the plain greedy stream of its phase up to its first
+   difference, where both tokens' logits on the plain path (recomputed
+   for that row alone) must lie within SPEC_TIE of its top logit (the
+   tie gate); every phase prints how many rows diverged.
+   speculative_model: `speculative_generate_model` with the target as
+   its own drafter, SPEC_BATCH random SPEC_PROMPT-token prompts, SPEC_NEW
+   new tokens, draft_len SPEC_DRAFT, SPEC_ROUNDS rounds a dispatch, every
+   dispatch under `torch.cuda.set_sync_debug_mode("error")`
+   (`paged_prefill` 4 chunks x 2 models x 32 + rounds x 2 x 32,
+   `paged_decode` rounds x 3 x 32), beside `paged_generate` on the same
+   prompts: new tokens/s, seconds, rounds, tokens a live row a round,
+   peak memory; speculative_weak: the drafter the same weights cut to
+   their first SPEC_WEAK_LAYERS layers (the target's final norm and
+   head) through `make_model_draft_fn` and `speculative_generate`,
+   acceptance a round, whether it agrees with speculative_model token for
+   token, and a planted fault (`_accepted` counting one draft more than
+   matched) that the tie gate must fail; speculative_engine: the engine
+   with a prompt-lookup drafter (`prompt_lookup`, a SPEC_LOOKUP_NGRAM-gram
+   over the whole history, on the device) beside the plain engine, the 6
+   PROMPT_LENS requests, MAX_NEW new tokens each: each speculative step
+   one `paged_prefill` a layer and no decode kernel, every page back, new
+   tokens/s and steps of both; verify_checks: the paged prefill kernel at
+   the verify shape, q [4, 32, 5, 128] over the target's layer-0 pools
+   and a round's ragged lengths from speculative_model (rows live and
+   not), one chunk across the page boundary at VERIFY_CROSS, against its
+   plain version by the worst tile with a planted fault (the last query
+   row without its diagonal key), timed (median, min-max of 5 loops)
+   beside its bound, its plain version and the decode kernel over the
+   same rows as 5 single-token calls; beam: `beam_generate` (BEAM_BATCH x
+   BEAM_K beams, BEAM_PROMPT-token prompts, BEAM_NEW new tokens; one
+   `flash_fwd` and 31 `flash_decode` a layer), its steps under sync debug
+   mode "error", beside greedy `generate` over the same 8 rows (rows x
+   tokens/s of both), the cache gather's share of a step (CUDA events),
+   one beam against greedy by the tie gate, the beams distinct and best
+   first, and each score against a rescoring of its sequence by
+   `llama.forward` within BEAM_SCORE_ABS, which a planted fault (step
+   BEAM_FAULT_STEP's gather skipped) must exceed;
 7. decode_checks: the decode kernel against its plain version at the
    generate shape (q [8, 32, 128], k/v [8, 8, 8192, 128], ragged
    lengths DECODE_LENS), each (sequence, head) row a tile of its own
@@ -367,7 +407,9 @@ Output: `serve`, `reference`, `quant_serve`, `burst_serve`,
 `prefix_serve`, `quant_reference`,
 `dense_serve`, `dense_profile`, `decode_reference`, `quant_gemm`,
 `gemm_checks`, `convert`, `lora_train`, `lora_train_profile`,
-`lora_train_reference`, `lora_serve`, `decode_checks`,
+`lora_train_reference`, `lora_serve`, `speculative_model`,
+`speculative_weak`, `speculative_engine`, `verify_checks`, `beam`,
+`decode_checks`,
 `quant_kernel_checks`,
 `quant_fwd_checks`, `train`,
 `train_profile`, `train_reference`, `flash_checks`, `softmax_checks`,
@@ -377,7 +419,9 @@ Output: `serve`, `reference`, `quant_serve`, `burst_serve`,
 `options_checks`, `runtime_context`, `runtime_sweep`, `runtime_faults`,
 `runtime_launches`, `runtime_dispatch`, `runtime_cli` and `runtime`
 lines, a `phases` line
-(each phase's seconds), the card's name and power limit as nvidia-smi
+(each phase's seconds), a `profiler_lost` line (the timings that the
+profiler lost in every session and that CUDA events took instead; empty
+in a run where it lost none), the card's name and power limit as nvidia-smi
 gives them, a `kernels` JSON line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -484,9 +528,13 @@ LOOP_MARK, LOOP_MARK_CYCLES = "spin_kernel", 1000
 # events the profiler may lose (on the H100, as many as a loop and a half
 # of 5 quantized products at 8,192 tokens).
 LEAD_IN_LOOPS = 3
-# Profiler sessions `timed` runs before it gives up on one that recorded
-# no kernel (a session can lose its events).
+# Profiler sessions `timed` and `timed_spread` run before they give up
+# on the profiler (a session can lose its events, and once it has, the
+# next sessions of the process often lose theirs too).  They then read
+# the card's time from CUDA events around the same loops, and name the
+# caller in PROFILER_LOST, which the run prints.
 PROFILE_ATTEMPTS = 3
+PROFILER_LOST: list[str] = []
 DENSE_GEMM = 4096
 SOFTMAX_SCALE_DERIVATIVE = 0.5
 # The paged kernels are timed cold, as a serve finds them (each of its 32
@@ -594,7 +642,8 @@ def timed(fn, iters: int) -> tuple[float, float]:
     card's kernel durations under torch.profiler; wall time is CUDA
     events around back-to-back calls, launch gaps included.  A profiler
     session can lose all of its events: one that records no kernel is
-    run again, PROFILE_ATTEMPTS sessions at most."""
+    run again, PROFILE_ATTEMPTS sessions at most; where all of them lose
+    their events, the device time is the CUDA events' (`profiler_lost`)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -610,8 +659,18 @@ def timed(fn, iters: int) -> tuple[float, float]:
         if device_us > 0:
             break
     else:
-        fail(f"the profiler saw no device time in {PROFILE_ATTEMPTS} "
-             "sessions")
+        device_us = None
+    wall = event_ms(fn, iters)
+    if device_us is None:
+        profiler_lost("timed")
+        return wall, wall
+    return device_us / 1e3 / iters, wall
+
+
+def event_ms(fn, iters: int) -> float:
+    """Ms a call by CUDA events around `iters` back-to-back calls."""
+    import torch
+
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -619,7 +678,15 @@ def timed(fn, iters: int) -> tuple[float, float]:
         fn()
     end.record()
     torch.cuda.synchronize()
-    return device_us / 1e3 / iters, start.elapsed_time(end) / iters
+    return start.elapsed_time(end) / iters
+
+
+def profiler_lost(how: str) -> None:
+    """Note that `how`'s caller was timed by CUDA events: the profiler lost
+    the events of PROFILE_ATTEMPTS sessions."""
+    caller = sys._getframe(2)
+    PROFILER_LOST.append(f"{how} in {caller.f_code.co_name}:"
+                         f"{caller.f_lineno}")
 
 
 def timed_spread(fn, iters: int, repeats: int = GEMM_REPEATS) -> dict:
@@ -702,24 +769,22 @@ def timed_spread(fn, iters: int, repeats: int = GEMM_REPEATS) -> dict:
     for _ in range(PROFILE_ATTEMPTS):
         loops, marked, gaps = session()
         if loops is not None:
+            device = [sum(e.device_time_total for e in loop) / 1e3 / iters
+                      for loop in loops]
+            timed_by = "profiler"
             break
     else:
-        fail(f"the profiler's kernels fall into {marked} marked loops and "
-             f"{len(gaps)} loops by their gaps (of {gaps} kernels), not "
-             f"{repeats} (+ {LEAD_IN_LOOPS}) alike, in {PROFILE_ATTEMPTS} "
-             "sessions")
-    device = [sum(e.device_time_total for e in loop) / 1e3 / iters
-              for loop in loops]
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters * repeats):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
+        # No session's loops were found (the last one's kernels fell into
+        # `marked` loops by markers and `gaps` by idle gaps): each loop is
+        # timed by CUDA events instead.
+        profiler_lost(f"timed_spread ({marked} marked loops, {gaps} by "
+                      "gaps)")
+        device = [event_ms(fn, iters) for _ in range(repeats)]
+        timed_by = "cuda_events"
+    wall = event_ms(fn, iters * repeats)
     return {"ms": float(np.median(device)), "ms_min": min(device),
-            "ms_max": max(device), "repeats": repeats,
-            "wall_ms": start.elapsed_time(end) / (iters * repeats)}
+            "ms_max": max(device), "repeats": repeats, "wall_ms": wall,
+            "timed_by": timed_by}
 
 
 class CardSampler:
@@ -5872,6 +5937,690 @@ def lora_serve(params, cfg, adapters, prompts, dev, card) -> dict:
     return launches
 
 
+# Speculative decoding and beam search at Llama-3-8B width and depth.
+SPEC_BATCH = 4
+SPEC_PROMPT = 512
+SPEC_NEW = 64
+SPEC_DRAFT = 4
+SPEC_ROUNDS = 4
+SPEC_WEAK_LAYERS = 2
+SPEC_FAULT_NEW = 16
+SPEC_LOOKUP_NGRAM = 2
+# Where a speculative stream first differs from the plain one, both
+# tokens' logits on the plain path (recomputed for that row alone) must
+# lie within SPEC_TIE of its top logit: a near-tie of bf16 logits that the
+# verify chunk's and the decode's numerics break two ways.  4 bf16 steps
+# of a logit between 4 and 8.
+SPEC_TIE = 0.125
+# A verify chunk that straddles the page boundary at the prompt's end:
+# one row's chunk starts at VERIFY_CROSS (keys 510 .. 514 over pages 3
+# and 4).
+VERIFY_CROSS = SPEC_PROMPT - 2
+BEAM_BATCH = 2
+BEAM_K = 4
+BEAM_PROMPT = 512
+BEAM_NEW = 32
+# A beam's score (its log-probabilities summed over its tokens, over its
+# length) against a rescoring of its sequence by the full forward, both
+# bf16: the sound reading is the two paths' rounding (8.8e-3 at 32 layers
+# on the H100), a gather skipped at step BEAM_FAULT_STEP reads 4.1e-2
+# there.  Many steps' gathers move rows between beams whose caches differ
+# in a few recent positions only, and reading a wrong one of ~530 keys
+# stays inside the rounding.
+BEAM_SCORE_ABS = 2e-2
+BEAM_FAULT_STEP = 2
+
+
+def spec_prompt(cfg, dev, batch=None, length=None, seed=SEED + 31):
+    """Random prompts [batch, length] (SPEC_BATCH x SPEC_PROMPT unless
+    given), int32 on ``dev``."""
+    import torch
+    batch, length = batch or SPEC_BATCH, length or SPEC_PROMPT
+    rng = np.random.default_rng(seed)
+    return torch.as_tensor(rng.integers(0, cfg.vocab_size, (batch, length)),
+                           dtype=torch.int32, device=dev)
+
+
+def attention_counts() -> dict:
+    """The nonzero launch counts of the paged, decode and forward
+    kernels."""
+    return {k: n for k, n in gemma_launches().items() if n}
+
+
+def on_sm90(counts: dict) -> dict:
+    """``counts`` ({kernel: n}) with each kernel's `_sm90` entry beside
+    it: every launch on its Hopper kernel."""
+    return {**counts, **{f"{k}_sm90": n for k, n in counts.items()}}
+
+
+@contextlib.contextmanager
+def spec_watch(serving, rounds: list, dispatches=None):
+    """Inside the block, each `serving._speculative_round` appends to
+    ``rounds`` its row counts (n_em), live mask, entry lengths and the
+    target's layer-0 pools and table (references, read after the run);
+    with ``dispatches`` a list, each `_speculative_burst_rounds` call runs
+    under `torch.cuda.set_sync_debug_mode("error")` (any synchronising
+    call inside raises) and appends its rounds."""
+    import torch
+    real_round = serving._speculative_round
+    real_burst = serving._speculative_burst_rounds
+
+    def round_(params, cfg, cache, last, drafts, live, **kw):
+        out = real_round(params, cfg, cache, last, drafts, live, **kw)
+        rounds.append({"n_em": out[1], "live": live, "base": cache.lengths,
+                       "k": cache.k[0], "v": cache.v[0],
+                       "table": cache.page_table})
+        return out
+
+    def burst(*args, **kwargs):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = real_burst(*args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        dispatches.append(kwargs["rounds"])
+        return out
+    serving._speculative_round = round_
+    if dispatches is not None:
+        serving._speculative_burst_rounds = burst
+    try:
+        yield
+    finally:
+        serving._speculative_round = real_round
+        serving._speculative_burst_rounds = real_burst
+
+
+def round_stats(rounds) -> dict:
+    """Rounds and tokens a live row emitted a round (their mean, and
+    each round's mean over its live rows)."""
+    if not rounds:
+        return {"rounds": 0}
+    n_em = torch_stack_host([r["n_em"] for r in rounds])
+    live = n_em > 0
+    per = [float(row[m].mean()) for row, m in zip(n_em, live) if m.any()]
+    return {"rounds": len(rounds),
+            "tokens_per_live_row_round": float(n_em[live].mean()),
+            "accepted_per_live_row_round": float(n_em[live].mean() - 1),
+            "tokens_per_round_by_round": per}
+
+
+def torch_stack_host(tensors) -> np.ndarray:
+    import torch
+    return torch.stack(tensors).cpu().numpy()
+
+
+def paged_logits_at(params, cfg, prompt_row, prefix, dev, budget):
+    """float32 logits [vocab] of the plain paged path (chunks of PAGE,
+    then `paged_decode_step`) at the token after ``prompt_row`` and the
+    generated ``prefix``, one row, a table as wide as ``budget``'s."""
+    import torch
+    from metal_flash_attention_tpu_torch.models import serving
+    with torch.inference_mode():
+        cache = serving.init_paged_model_cache(cfg, 1, budget,
+                                               page_size=PAGE, device=dev)
+        p = torch.as_tensor(prompt_row, dtype=torch.int32, device=dev)[None]
+        for i in range(0, p.shape[1], PAGE):
+            logits, cache = serving.paged_chunk_step(params, p[:, i:i + PAGE],
+                                                     cfg, cache)
+        logits = logits[:, -1]
+        for t in prefix:
+            logits, cache = serving.paged_decode_step(
+                params, torch.tensor([int(t)], dtype=torch.int32,
+                                     device=dev), cfg, cache)
+        return logits[0].float()
+
+
+def dense_logits_at(params, cfg, prompt_row, prefix, dev, budget):
+    """float32 logits [vocab] of the plain dense path (`prefill`, then
+    `decode_step`) at the token after ``prompt_row`` and ``prefix``."""
+    import torch
+    from metal_flash_attention_tpu_torch.models import serving
+    with torch.inference_mode():
+        cache = serving.init_cache(cfg, 1, budget, device=dev)
+        p = torch.as_tensor(prompt_row, dtype=torch.int32, device=dev)[None]
+        logits, cache = serving.prefill(params, p, cfg, cache)
+        for t in prefix:
+            logits, cache = serving.decode_step(
+                params, torch.tensor([int(t)], dtype=torch.int32,
+                                     device=dev), cfg, cache)
+        return logits[0].float()
+
+
+def tie_gate(plain, other, prompts, logits_at) -> dict:
+    """Each row of ``other`` (generated tokens, [rows, n]) against the
+    plain stream ``plain`` up to its first divergence; there both tokens'
+    logits on the plain path (``logits_at(row, prefix)``, recomputed for
+    the row alone) must lie within SPEC_TIE of its top logit (for two
+    tokens: the top two, within SPEC_TIE of each other).  Returns the
+    readings and whether every row passes."""
+    rows, ok = [], True
+    for r, (a, b) in enumerate(zip(plain, other)):
+        diff = np.flatnonzero(np.asarray(a) != np.asarray(b))
+        if not len(diff):
+            continue
+        j = int(diff[0])
+        logits = logits_at(prompts[r], a[:j])
+        top = float(logits.max())
+        gaps = [top - float(logits[int(t)]) for t in (a[j], b[j])]
+        fine = max(gaps) <= SPEC_TIE
+        ok &= fine
+        rows.append({"row": r, "at": j, "plain": int(a[j]),
+                     "other": int(b[j]), "below_top": gaps,
+                     "top2": logits.topk(2).indices.tolist(), "ok": fine})
+    return {"rows": len(plain), "diverged": len(rows), "divergences": rows,
+            "tie_limit": SPEC_TIE, "ok": ok}
+
+
+def speculative_model(params, cfg, dev, card) -> dict:
+    """(a) `speculative_generate_model` with the target as its own drafter
+    (SPEC_BATCH random SPEC_PROMPT-token prompts, SPEC_NEW new tokens,
+    draft_len SPEC_DRAFT, SPEC_ROUNDS rounds a dispatch), each dispatch
+    under sync debug mode "error", launch counts exact; `paged_generate`
+    on the same prompts beside it; the streams by the tie gate."""
+    import torch
+    from metal_flash_attention_tpu_torch.models import serving
+
+    prompt = spec_prompt(cfg, dev)
+    kd, layers = SPEC_DRAFT, cfg.n_layers
+    kw = dict(draft_len=kd, page_size=PAGE)
+    # Warm-up at these shapes (cuBLAS handles); not counted.
+    serving.speculative_generate_model(
+        params, prompt, cfg, draft_params=params, draft_cfg=cfg,
+        max_new_tokens=kd + 2, rounds_per_dispatch=1, **kw)
+    serving.paged_generate(params, prompt, cfg, max_new_tokens=3,
+                           page_size=PAGE)
+    rounds, dispatches = [], []
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_attention_counts()
+    t0 = time.perf_counter()
+    with spec_watch(serving, rounds, dispatches):
+        out = serving.speculative_generate_model(
+            params, prompt, cfg, draft_params=params, draft_cfg=cfg,
+            max_new_tokens=SPEC_NEW, rounds_per_dispatch=SPEC_ROUNDS, **kw)
+        torch.cuda.synchronize(dev)
+    secs = time.perf_counter() - t0
+    launches = attention_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    chunks = -(-SPEC_PROMPT // PAGE)
+    n = len(rounds)
+    expected = on_sm90({
+        "paged_prefill": layers * (2 * chunks + 2 * n),
+        "paged_decode": layers * (kd - 1) * n})
+    if launch_errors(launches, expected):
+        fail(f"speculative_model launched (count, expected) "
+             f"{launch_errors(launches, expected)}")
+    if sum(dispatches) != n or set(dispatches) != {SPEC_ROUNDS}:
+        fail(f"speculative_model: {n} rounds in dispatches {dispatches}")
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_attention_counts()
+    t0 = time.perf_counter()
+    plain = serving.paged_generate(params, prompt, cfg,
+                                   max_new_tokens=SPEC_NEW, page_size=PAGE)
+    torch.cuda.synchronize(dev)
+    plain_secs = time.perf_counter() - t0
+    plain_launches = attention_counts()
+    plain_peak = torch.cuda.max_memory_allocated(dev)
+    expected = on_sm90({"paged_prefill": layers * chunks,
+                        "paged_decode": layers * (SPEC_NEW - 1)})
+    if launch_errors(plain_launches, expected):
+        fail(f"paged_generate launched (count, expected) "
+             f"{launch_errors(plain_launches, expected)}")
+    out_np, plain_np = out.cpu().numpy(), plain.cpu().numpy()
+    if not (out_np[:, :SPEC_PROMPT] == prompt.cpu().numpy()).all():
+        fail("speculative_generate_model changed the prompt")
+    budget = SPEC_PROMPT + SPEC_NEW + 1
+    prompts = prompt.cpu().numpy()
+
+    def logits_at(row, prefix):
+        return paged_logits_at(params, cfg, row, prefix, dev, budget)
+    gate = tie_gate(plain_np[:, SPEC_PROMPT:], out_np[:, SPEC_PROMPT:],
+                    prompts, logits_at)
+    tokens = SPEC_BATCH * SPEC_NEW
+    print("speculative_model: " + json.dumps({
+        "config": f"llama3_8b, {layers} layers (full depth), bf16, "
+                  "self-draft",
+        "batch": SPEC_BATCH, "prompt_tokens": SPEC_PROMPT,
+        "new_tokens_per_sequence": SPEC_NEW, "draft_len": kd,
+        "rounds_per_dispatch": SPEC_ROUNDS,
+        "speculative": {"seconds": secs, "new_tokens_per_s": tokens / secs,
+                        "dispatches": len(dispatches), **round_stats(rounds),
+                        "max_memory_allocated": peak,
+                        "launches": launches},
+        "paged_generate": {"seconds": plain_secs,
+                           "new_tokens_per_s": tokens / plain_secs,
+                           "max_memory_allocated": plain_peak,
+                           "launches": plain_launches},
+        "gate": gate, "card": card}), flush=True)
+    if not gate["ok"]:
+        fail("speculative_model: a stream left greedy away from a near-tie")
+    return {"prompt": prompt, "out": out_np, "plain": plain_np,
+            "rounds": rounds, "launches": launches,
+            "logits_at": logits_at}
+
+
+def over_accepting(real):
+    """`_accepted` counting one draft token more than matched (at most
+    draft_len): a verify that accepts a draft the target did not
+    predict."""
+    def run(drafts, preds):
+        return (real(drafts, preds) + 1).clamp_max(drafts.shape[1])
+    return run
+
+
+def speculative_weak(params, cfg, dev, card, model) -> dict:
+    """(b) the same weights cut to their first SPEC_WEAK_LAYERS layers
+    (full width, the target's final norm and head) as the drafter,
+    through `make_model_draft_fn` and `speculative_generate` on (a)'s
+    prompts: launch counts exact, acceptance a round, the tie gate
+    against (a)'s plain stream, whether (a) and (b) agree token for
+    token; then the gate must fail on a planted fault (a round accepting
+    one draft more than matched)."""
+    import torch
+    from metal_flash_attention_tpu_torch.models import serving
+
+    prompt, kd = model["prompt"], SPEC_DRAFT
+    weak = dict(params, layers=params["layers"][:SPEC_WEAK_LAYERS])
+    wcfg = dataclasses.replace(cfg, n_layers=SPEC_WEAK_LAYERS)
+
+    def run(max_new):
+        draft_fn = serving.make_model_draft_fn(
+            weak, wcfg, prompt=prompt, draft_len=kd, max_new_tokens=max_new,
+            page_size=PAGE)
+        return serving.speculative_generate(
+            params, prompt, cfg, draft_fn=draft_fn, draft_len=kd,
+            max_new_tokens=max_new, page_size=PAGE).cpu().numpy()
+    run(kd + 2)                         # warm-up, not counted
+    rounds = []
+    torch.cuda.synchronize(dev)
+    reset_attention_counts()
+    t0 = time.perf_counter()
+    with spec_watch(serving, rounds):
+        out = run(SPEC_NEW)
+    secs = time.perf_counter() - t0
+    launches = attention_counts()
+    chunks, n = -(-SPEC_PROMPT // PAGE), len(rounds)
+    expected = on_sm90({
+        "paged_prefill": (cfg.n_layers + SPEC_WEAK_LAYERS) * (chunks + n),
+        "paged_decode": SPEC_WEAK_LAYERS * (kd - 1) * n})
+    if launch_errors(launches, expected):
+        fail(f"speculative_weak launched (count, expected) "
+             f"{launch_errors(launches, expected)}")
+    prompts = prompt.cpu().numpy()
+    plain = model["plain"][:, SPEC_PROMPT:]
+    gate = tie_gate(plain, out[:, SPEC_PROMPT:], prompts, model["logits_at"])
+    with planted(serving, "_accepted", over_accepting):
+        faulted = run(SPEC_FAULT_NEW)
+    fault_gate = tie_gate(plain[:, :SPEC_FAULT_NEW],
+                          faulted[:, SPEC_PROMPT:], prompts,
+                          model["logits_at"])
+    tokens = SPEC_BATCH * SPEC_NEW
+    print("speculative_weak: " + json.dumps({
+        "config": f"llama3_8b target, {cfg.n_layers} layers; drafter its "
+                  f"first {SPEC_WEAK_LAYERS} layers with the target's "
+                  "final norm and head",
+        "seconds": secs, "new_tokens_per_s": tokens / secs,
+        **round_stats(rounds), "launches": launches, "gate": gate,
+        "agrees_with_speculative_model": bool(
+            (out == model["out"]).all()),
+        "rows_equal_to_speculative_model": int(
+            (out == model["out"]).all(axis=1).sum()),
+        "planted_fault_gate": fault_gate, "card": card}), flush=True)
+    if not gate["ok"]:
+        fail("speculative_weak: a stream left greedy away from a near-tie")
+    if fault_gate["ok"]:
+        fail("speculative_weak: the gate does not see a round that "
+             "accepts one draft more than matched")
+    return launches
+
+
+def prompt_lookup(draft_len: int, ngram: int = SPEC_LOOKUP_NGRAM):
+    """A prompt-lookup drafter over the engine's history (right-aligned,
+    -1 padded, its last entry the newest token), all on the device: the
+    most recent earlier occurrence of the history's last ``ngram`` tokens
+    and the ``draft_len`` tokens after it, else the newest token
+    repeated."""
+    import torch
+
+    def draft(last, history):
+        h = history.shape[1]
+        tail = history[:, -ngram:]
+        windows = history.unfold(1, ngram, 1)[:, :-1]        # [b, h - n, n]
+        match = (windows == tail[:, None]).all(-1) & (windows[..., 0] >= 0)
+        pos = torch.arange(h - ngram, device=history.device)
+        best = torch.where(match, pos, -1).amax(dim=1)
+        idx = (best[:, None] + ngram + torch.arange(
+            draft_len, device=history.device)).clamp(0, h - 1)
+        drafts = history.gather(1, idx)
+        return torch.where((best[:, None] >= 0) & (drafts >= 0), drafts,
+                           last[:, None])
+    return draft
+
+
+def speculative_engine(params, cfg, prompts, dev, card) -> dict:
+    """(c) the engine in speculative mode (a prompt-lookup drafter,
+    draft_len SPEC_DRAFT, the history over whole sequences) beside the
+    plain engine, the 6 PROMPT_LENS requests, MAX_NEW each, max_batch
+    MAX_BATCH, page PAGE: launch counts exact (each speculative step one
+    `paged_prefill` a layer, no decode kernel), every page back, new
+    tokens/s and steps of both, the tie gate on every request."""
+    import torch
+    from metal_flash_attention_tpu_torch import ServingEngine
+    from metal_flash_attention_tpu_torch.models import serving
+
+    kd = SPEC_DRAFT
+    max_seq = max(map(len, prompts)) + MAX_NEW + 2 * (kd + 1)
+    num_pages = MAX_BATCH * -(-max_seq // PAGE) + 1
+
+    def run(**kw):
+        eng = ServingEngine(params, cfg, max_batch=MAX_BATCH,
+                            num_pages=num_pages, page_size=PAGE,
+                            max_seq=max_seq, **kw)
+        rids = [eng.submit(p, MAX_NEW) for p in prompts]
+        calls, rounds = {}, []
+        torch.cuda.synchronize(dev)
+        reset_attention_counts()
+        t0 = time.perf_counter()
+        with counted_calls(serving, SERVE_STEPS[:2], calls), \
+                spec_watch(serving, rounds):
+            steps = 0
+            while not eng.idle:
+                eng.step()
+                steps += 1
+                if steps > 10_000:
+                    fail("engine did not drain")
+            torch.cuda.synchronize(dev)
+        secs = time.perf_counter() - t0
+        if eng.alloc.free_pages != num_pages - 1:
+            fail(f"speculative_engine leaked pages ({kw})")
+        streams = np.asarray([eng.result(r)[len(p):]
+                              for r, p in zip(rids, prompts)])
+        return streams, secs, steps, calls, rounds, attention_counts()
+
+    spec_kw = dict(draft_fn=prompt_lookup(kd), draft_len=kd,
+                   draft_history=max_seq)
+    run(**spec_kw)                          # warm-up, not counted
+    plain, plain_s, plain_steps, plain_calls, _, plain_l = run()
+    spec, spec_s, spec_steps, calls, rounds, launches = run(**spec_kw)
+    if launch_errors(plain_l, expected_serve_launches(cfg, plain_calls,
+                                                      None)):
+        fail("speculative_engine: the plain engine's launch counts")
+    expected = on_sm90({"paged_prefill": cfg.n_layers
+                        * len(calls["paged_chunk_step"])})
+    if launch_errors(launches, expected) or calls["paged_decode_step"]:
+        fail(f"speculative_engine launched (count, expected) "
+             f"{launch_errors(launches, expected)}")
+    prefill_chunks = sum(-(-len(p) // PAGE) for p in prompts)
+    if len(calls["paged_chunk_step"]) != prefill_chunks + len(rounds):
+        fail(f"speculative_engine: {len(calls['paged_chunk_step'])} chunk "
+             f"steps, not {prefill_chunks} prefill chunks and "
+             f"{len(rounds)} rounds")
+    budget = max(map(len, prompts)) + MAX_NEW + 1
+
+    def logits_at(row, prefix):
+        return paged_logits_at(params, cfg, row, prefix, dev, budget)
+    gate = tie_gate(plain, spec, prompts, logits_at)
+    tokens = MAX_NEW * len(prompts)
+    print("speculative_engine: " + json.dumps({
+        "config": f"llama3_8b, {cfg.n_layers} layers (full depth), bf16",
+        "requests": len(prompts), "new_tokens": tokens,
+        "drafter": f"prompt lookup ({SPEC_LOOKUP_NGRAM}-gram over the "
+                   f"history), draft_len {kd}",
+        "speculative": {"seconds": spec_s, "new_tokens_per_s": tokens
+                        / spec_s, "steps": spec_steps,
+                        "chunk_steps": len(calls["paged_chunk_step"]),
+                        **round_stats(rounds), "launches": launches},
+        "plain": {"seconds": plain_s, "new_tokens_per_s": tokens / plain_s,
+                  "steps": plain_steps, "launches": plain_l},
+        "gate": gate, "card": card}), flush=True)
+    if not gate["ok"]:
+        fail("speculative_engine: a stream left greedy away from a "
+             "near-tie")
+    return launches
+
+
+def verify_checks(dev, card, model) -> dict:
+    """(d) the paged prefill kernel at the verify shape, q [SPEC_BATCH, 32,
+    SPEC_DRAFT + 1, 128] (random, seeded) over the target's layer-0 pools
+    and the ragged lengths of a round of (a) (the last with rows live and
+    not live), one row's chunk moved across the page boundary at the prompt's
+    end unless one crosses already: against its plain version by the
+    worst 64-row tile (KERNEL_TILE_REL_RMS), lse at MIXED_TOL, with a
+    planted fault (the last query row without its diagonal key) that the
+    limit must see; its time (median, min-max of GEMM_REPEATS profiled
+    loops), bound and plain version's, beside the decode kernel's time
+    for the same rows as SPEC_DRAFT + 1 single-token calls."""
+    import torch
+    from metal_flash_attention_tpu_torch.ops import paged_attention as pa
+    from metal_flash_attention_tpu_torch.utils.tolerances import (
+        MIXED_TOL,
+        max_abs_err,
+    )
+
+    rounds, kc, d = model["rounds"], SPEC_DRAFT + 1, HEAD_DIM
+    live = torch_stack_host([r["live"] for r in rounds])
+    pick = max([i for i in range(len(rounds))
+                if live[i].any() and not live[i].all()],
+               default=len(rounds) - 1)
+    r = rounds[pick]
+    base = r["base"].clone()
+    moved = not bool(((base // PAGE) != (base + kc - 1) // PAGE).any())
+    if moved:
+        base[0] = VERIFY_CROSS
+    lengths = (base + kc).to(torch.int32)
+    cache = pa.PagedKVCache(r["k"], r["v"], r["table"], lengths)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 41)
+    q = torch.randn((SPEC_BATCH, Q_HEADS, kc, d), generator=gen,
+                    device=dev).to(torch.bfloat16)
+
+    def plain(q, cache):
+        return pa._paged_attention_plain(q, cache, scale=d ** -0.5,
+                                         window_size=None)
+    pa.reset_launch_counts()
+    o, lse = pa.paged_prefill(q, cache, return_residuals=True)
+    counts = {k: n for k, n in pa.LAUNCH_COUNTS.items() if n}
+    if counts != on_sm90({"paged_prefill": 1}):
+        fail(f"verify_checks launched {counts}")
+    po, plse = plain(q, cache)
+    reading = closeness(o, po)
+    lse_err = max_abs_err(lse, plse)
+    # The fault: each sequence's last query row attends keys 0 .. its
+    # position - 1 (a one-row chunk over lengths - 1).
+    short, _ = plain(q[:, :, -1:], cache._replace(lengths=lengths - 1))
+    fault = po.clone()
+    fault[:, :, -1] = short[:, :, 0]
+    reading["planted_fault"] = closeness(fault, po)
+    if not within_limits(reading) or lse_err > MIXED_TOL.lse:
+        fail(f"verify chunk: paged_prefill disagrees with its plain "
+             f"version: o {reading}, lse {lse_err}")
+    if within_limits(reading["planted_fault"]):
+        fail("verify chunk: the limit does not see a query row without "
+             "its diagonal key")
+    kernel = timed_spread(lambda: pa.paged_prefill(q, cache), 50)
+    plain_ms, _ = timed(lambda: plain(q, cache), 10)
+    steps = [cache._replace(lengths=(base + t + 1).to(torch.int32))
+             for t in range(kc)]
+    qd = [q[:, :, t].contiguous() for t in range(kc)]
+
+    def decode_rows():
+        for t in range(kc):
+            pa.paged_decode(qd[t], steps[t])
+    decode = timed_spread(decode_rows, 20)
+    lens = lengths.tolist()
+    pairs = sum(visible_pairs(kc, n, True, None) for n in lens)
+    n_bytes = sum(lens) * KV_HEADS * d * 2 * 2 + 2 * q.numel() * 2 \
+        + q[..., 0].numel() * 4
+    bound_ms, bound_by = bound(4 * d * Q_HEADS * pairs, n_bytes)
+    out = {"shape": f"q [{SPEC_BATCH}, {Q_HEADS}, {kc}, {d}], lengths "
+                    f"{lens}", "round": pick,
+           "live": live[pick].tolist(), "moved_across_page": moved,
+           "o": reading, "lse_max_abs_err": lse_err,
+           "limits": {"tile_rel_rms": KERNEL_TILE_REL_RMS,
+                      "lse_abs": MIXED_TOL.lse},
+           "ms": kernel["ms"], "spread": kernel, "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "share_of_bound": bound_ms / kernel["ms"],
+           "decode_as_single_tokens_ms": decode["ms"],
+           "decode_spread": decode, "card": card}
+    print("verify_checks: " + json.dumps(out), flush=True)
+    return out
+
+
+def skipped_gather(step: int):
+    """`_gather_rows` that returns the cache unchanged at its ``step``-th
+    call: a beam step whose beams keep their own K/V rows instead of
+    their parents'."""
+    def make(real):
+        calls = [0]
+
+        def run(cache, rows):
+            calls[0] += 1
+            return cache if calls[0] == step else real(cache, rows)
+        return run
+    return make
+
+
+@contextlib.contextmanager
+def synced_beam_steps(serving):
+    """Inside the block, `serving._beam_steps` (every step after the
+    prefill) runs under `torch.cuda.set_sync_debug_mode("error")`."""
+    import torch
+    real = serving._beam_steps
+
+    def run(*args, **kwargs):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return real(*args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    serving._beam_steps = run
+    try:
+        yield
+    finally:
+        serving._beam_steps = real
+
+
+def beam_phase(params, cfg, dev, card) -> dict:
+    """(e) `beam_generate`, BEAM_BATCH random BEAM_PROMPT-token prompts,
+    BEAM_K beams, BEAM_NEW new tokens, its steps after the prefill under
+    sync debug mode "error", launch counts exact (one `flash_fwd` a layer,
+    then `flash_decode` a layer a step), beside greedy `generate` over
+    the BEAM_BATCH x BEAM_K rows at the same max_seq (rows x tokens/s);
+    an instrumented run gives the cache gather's share of a step.
+    Checks: one beam against greedy `generate` by the tie gate; the beams
+    distinct and best first; each score against a rescoring of its
+    sequence by `llama.forward` within BEAM_SCORE_ABS, which a planted
+    fault (step BEAM_FAULT_STEP's gather skipped) must exceed."""
+    import torch
+    from metal_flash_attention_tpu_torch.models import llama, serving
+
+    prompt = spec_prompt(cfg, dev, BEAM_BATCH, BEAM_PROMPT, SEED + 37)
+    rows, layers = BEAM_BATCH * BEAM_K, cfg.n_layers
+    max_seq = BEAM_PROMPT + BEAM_NEW
+    wide = prompt.repeat_interleave(BEAM_K, dim=0)
+
+    def beams(k=BEAM_K):
+        return serving.beam_generate(params, prompt, cfg, num_beams=k,
+                                     max_new_tokens=BEAM_NEW)
+    # Warm-up at these shapes; not counted.
+    serving.beam_generate(params, prompt, cfg, num_beams=BEAM_K,
+                          max_new_tokens=3)
+    serving.generate(params, wide, cfg, max_new_tokens=3, max_seq=max_seq)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_attention_counts()
+    t0 = time.perf_counter()
+    with synced_beam_steps(serving):
+        seqs, scores = beams()
+    torch.cuda.synchronize(dev)
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    launches = attention_counts()
+    expected = on_sm90({"flash_fwd": layers,
+                        "flash_decode": layers * (BEAM_NEW - 1)})
+    if launch_errors(launches, expected):
+        fail(f"beam launched (count, expected) "
+             f"{launch_errors(launches, expected)}")
+    reset_attention_counts()
+    t0 = time.perf_counter()
+    plain = serving.generate(params, wide, cfg, max_new_tokens=BEAM_NEW,
+                             max_seq=max_seq)
+    torch.cuda.synchronize(dev)
+    plain_secs = time.perf_counter() - t0
+    if launch_errors(attention_counts(), expected):
+        fail("beam: plain generate's launch counts")
+    steps, gathers = [], []
+    with event_timed(serving, "_beam_step", steps), \
+            event_timed(serving, "_gather_rows", gathers):
+        again, _ = beams()
+    torch.cuda.synchronize(dev)
+    step_ms = [a.elapsed_time(b) for a, b, _ in steps]
+    gather_ms = [a.elapsed_time(b) for a, b, _ in gathers]
+
+    seqs_np, scores_np = seqs.cpu().numpy(), scores.cpu().numpy()
+    prompts = prompt.cpu().numpy()
+    one, _ = beams(1)
+    greedy = serving.generate(params, prompt, cfg, max_new_tokens=BEAM_NEW,
+                              max_seq=max_seq).cpu().numpy()
+
+    def logits_at(row, prefix):
+        return dense_logits_at(params, cfg, row, prefix, dev, max_seq)
+    gate = tie_gate(greedy[:, BEAM_PROMPT:],
+                    one[:, 0, BEAM_PROMPT:].cpu().numpy(), prompts,
+                    logits_at)
+    ordered = bool((np.diff(scores_np, axis=1) <= 0).all())
+    distinct = all(len({tuple(s) for s in seqs_np[b].tolist()}) == BEAM_K
+                   for b in range(BEAM_BATCH))
+
+    def rescored_err(seqs, scores):
+        """max |score - the sequence's summed log-probabilities over its
+        BEAM_NEW tokens by the full forward / BEAM_NEW|."""
+        with torch.inference_mode():
+            toks = seqs.reshape(rows, -1)
+            logits, _ = llama.forward(params, toks, cfg)
+            logp = torch.log_softmax(
+                logits[:, BEAM_PROMPT - 1:-1].float(), dim=-1)
+            got = logp.gather(-1, toks[:, BEAM_PROMPT:, None].long())
+            want = got.sum(dim=(1, 2)) / BEAM_NEW
+            return float((want.reshape(BEAM_BATCH, BEAM_K)
+                          - scores).abs().max())
+    score_err = rescored_err(seqs, scores)
+    with planted(serving, "_gather_rows", skipped_gather(BEAM_FAULT_STEP)):
+        fseqs, fscores = beams()
+    fault_err = rescored_err(fseqs, fscores)
+    out = {"config": f"llama3_8b, {layers} layers (full depth), bf16",
+           "batch": BEAM_BATCH, "beams": BEAM_K,
+           "prompt_tokens": BEAM_PROMPT, "new_tokens": BEAM_NEW,
+           "max_seq": max_seq,
+           "beam": {"seconds": secs,
+                    "rows_tokens_per_s": rows * BEAM_NEW / secs,
+                    "max_memory_allocated": peak, "launches": launches},
+           "plain_generate": {"rows": rows, "seconds": plain_secs,
+                              "rows_tokens_per_s": rows * BEAM_NEW
+                              / plain_secs},
+           "instrumented_run": {
+               "same_sequences": bool(torch.equal(again, seqs)),
+               "step_ms": stats(step_ms), "gather_ms": stats(gather_ms),
+               "gather_share_of_step": sum(gather_ms) / sum(step_ms),
+               "gather_bytes": 2 * 2 * layers * rows * cfg.n_kv_heads
+               * max_seq * cfg.head_dim},
+           "one_beam_gate": gate, "ordered": ordered, "distinct": distinct,
+           "score_vs_rescoring_max_abs": score_err,
+           "planted_fault_score_err": fault_err,
+           "tol": BEAM_SCORE_ABS, "card": card}
+    print("beam: " + json.dumps(out), flush=True)
+    if not gate["ok"]:
+        fail("beam: one beam left greedy away from a near-tie")
+    if not (ordered and distinct):
+        fail("beam: beams not distinct or not best first")
+    if score_err > BEAM_SCORE_ABS:
+        fail("beam: a score disagrees with its sequence's rescoring")
+    if not fault_err > BEAM_SCORE_ABS:
+        fail("beam: the limit does not see a skipped cache gather")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6023,6 +6772,22 @@ def run(dev, cache_dir) -> int:
                                 adapters, prompts, dev, card)
     del adapters, first
     torch.cuda.empty_cache()
+    # Speculative decoding and beam search on the same full-depth weights.
+    spec = phase("speculative_model", speculative_model, params, cfg, dev,
+                 card)
+    spec_launches = {
+        "speculative_model": spec["launches"],
+        "speculative_weak": phase("speculative_weak", speculative_weak,
+                                  params, cfg, dev, card, spec)}
+    torch.cuda.empty_cache()
+    spec_launches["speculative_engine"] = phase(
+        "speculative_engine", speculative_engine, params, cfg, prompts, dev,
+        card)
+    verify = phase("verify_checks", verify_checks, dev, card, spec)
+    del spec
+    torch.cuda.empty_cache()
+    beam_launches = phase("beam", beam_phase, params, cfg, dev, card)
+    torch.cuda.empty_cache()
     # Free the 14.5 GB of weights before training (generate's 8.6 GB
     # cache went with its call).
     del params
@@ -6072,7 +6837,19 @@ def run(dev, cache_dir) -> int:
             entry.setdefault("launches_by_path", {"train": entry[
                 "launches"]})["lora_train_step"] = lora_train_launches[
                     entry["name"]]
+    for entry in kernels:
+        if entry["name"] in ("paged_decode", "paged_prefill"):
+            for path, counts in spec_launches.items():
+                entry["launches_by_path"][path] = counts.get(entry["name"],
+                                                             0)
+        if entry["name"] == "paged_prefill":
+            entry["verify_chunk"] = verify
+        if entry["name"] == "flash_fwd":
+            entry["launches_by_path"]["beam"] = beam_launches["flash_fwd"]
+            entry["launches_sm90_by_path"]["beam"] = beam_launches[
+                "flash_fwd_sm90"]
     decode_kernel["launches_by_path"] = {
+        "beam": beam_launches["flash_decode"],
         "dense_serve": dense_launches["flash_decode"],
         "quant_serve": quant_launches["flash_decode"],
         "burst_serve": burst_launches[QUANT_SERVE_PRECISION]["flash_decode"],
@@ -6147,6 +6924,7 @@ def run(dev, cache_dir) -> int:
     kernels += runtime_kernels
 
     print("phases: " + json.dumps(phases))
+    print("profiler_lost: " + json.dumps(PROFILER_LOST))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -33,6 +33,16 @@ host loop a production deployment runs around the paged kernels:
   up in one copy, and its tokens, valid flags and logprobs come back in
   one read; it falls back to `step()` while a slot prefills, a queued
   request could be admitted, or nothing is active;
+- ``draft_fn`` / ``draft_len``: speculative continuous batching (greedy
+  only).  The batched decode of `step()` becomes one verify round
+  (`serving._speculative_round` over the shared pools, the chunk step's
+  kernel at q_chunk draft_len + 1): each active slot checks its own
+  draft and emits 1..draft_len + 1 tokens.  ``draft_fn(last [b],
+  history [b, draft_history])`` gets int32 tensors on the engine's
+  device (history right-aligned over prompt and output, -1 padded) and
+  returns [b, draft_len] proposals; a round's emissions, counts, next
+  tokens and lengths come back in one read.  `step_burst` stays the
+  plain greedy burst, as in the JAX engine;
 - slots without an emitted token (free, or still prefilling) ride
   along in the batched decode against the allocator's null page 0,
   which no request owns, so their writes can never land in live pages.
@@ -61,7 +71,7 @@ cache keys a prompt's pages by its adapter too, since the adapter's
 delta is in the K/V; the JAX engine keys them by the tokens alone.
 
 The pools live on the parameters' device and are updated in place.  The
-speculative and tensor-parallel features of the JAX engine raise
+tensor-parallel pools of the JAX engine (``kv_sharding``) raise
 NotImplementedError (ROADMAP.md).
 """
 
@@ -169,14 +179,13 @@ class ServingEngine:
                                          or custom):
             raise ValueError("kv_precision is incompatible with draft_fn / "
                              "kv_sharding / custom step overrides")
+        if kv_sharding is not None:
+            raise not_ported("tensor-parallel pools (kv_sharding)",
+                             "tensor-parallel serving")
         # draft_len and draft_history only matter with draft_fn.
-        for value, what, item in (
-                (kv_sharding, "tensor-parallel pools (kv_sharding)",
-                 "tensor-parallel serving"),
-                (draft_fn, "speculative decoding (draft_fn)",
-                 "speculative decoding")):
-            if value:
-                raise not_ported(what, item)
+        if draft_fn is not None and draft_len < 1:
+            raise ValueError(f"draft_fn needs draft_len >= 1, got "
+                             f"{draft_len}")
         if admissions_per_step < 1:
             raise ValueError(f"admissions_per_step must be >= 1, got "
                              f"{admissions_per_step}")
@@ -186,6 +195,9 @@ class ServingEngine:
         # Family hooks (None: the Llama steps, looked up at each call).
         self._chunk_step = chunk_step
         self._decode_step = decode_step
+        self._draft_fn = draft_fn
+        self.draft_len = int(draft_len)
+        self.draft_history = int(draft_history)
         self.page_size = page_size
         self.max_pages = -(-max_seq // page_size)
         self.admissions_per_step = admissions_per_step
@@ -275,6 +287,11 @@ class ServingEngine:
                     bias_vec[int(t)] = float(v)
             else:
                 bias_vec[:] = np.asarray(logit_bias, np.float32)
+        if self._draft_fn is not None and (temperature > 0 or logprobs):
+            raise ValueError(
+                "speculative engine mode is greedy-only (the verify "
+                "contract is argmax equality) and does not record "
+                "logprobs")
         rid = self._next_rid
         self._next_rid += 1
         self._queue.append(_Request(
@@ -501,7 +518,10 @@ class ServingEngine:
         self._prefill_step(emitted)
         if any(r is not None and r.next_token is not None
                for r in self._slots):
-            self._decode_active(emitted)
+            if self._draft_fn is not None:
+                self._speculative_active(emitted)
+            else:
+                self._decode_active(emitted)
         self._retire()
         self.n_emitted += len(emitted)
         return emitted
@@ -521,7 +541,11 @@ class ServingEngine:
         qi = max(range(len(self._queue)),
                  key=lambda j: (self._queue[j].priority, -j))
         req = self._queue[qi]
-        budget = len(req.prompt) + req.max_new_tokens + 1
+        # A verify round writes draft_len + 1 rows before the lengths roll
+        # back: the span covers that high-water mark.
+        margin = (2 * (self.draft_len + 1) if self._draft_fn is not None
+                  else 1)
+        budget = len(req.prompt) + req.max_new_tokens + margin
         if budget > self.max_pages * self.page_size:
             raise ValueError(f"request {req.rid} exceeds max_seq")
         # A hit is page-aligned, so every KV write of this request (its
@@ -756,6 +780,51 @@ class ServingEngine:
                 if r.want_logprobs:
                     r.logprobs.append(float(lps[i]))
                 emitted.append((r.rid, r.next_token))
+
+    def _speculative_active(self, emitted) -> None:
+        """One batched verify round for every slot (`serving.
+        _speculative_round` over the shared pools): each live row checks
+        its draft in the same chunk and emits 1 + its accepts.  Slots that
+        are free or mid-prefill ride along with live False on their
+        decode-visible table row (the null page), and their lengths roll
+        back to where they were, so nothing they write is readable."""
+        n = len(self._slots)
+        last = np.zeros((n,), np.int32)
+        live = np.zeros((n,), bool)
+        history = np.full((n, self.draft_history), -1, np.int32)
+        for i, r in enumerate(self._slots):
+            if r is None or r.next_token is None:
+                continue
+            last[i] = r.next_token
+            live[i] = not r.finished and len(r.out) < r.max_new_tokens
+            h = np.concatenate([r.prompt, np.asarray(r.out, np.int32)]
+                               )[-self.draft_history:]
+            history[i, self.draft_history - len(h):] = h
+        last_t, history_t, live_t, table_t, len_t = self._upload(
+            last, history, live, self._table, self._lengths)
+        drafts = serving._as_drafts(self._draft_fn(last_t, history_t), n,
+                                    self.draft_len, self.device)
+        cache = serving.PagedModelCache(k=tuple(self._k), v=tuple(self._v),
+                                        page_table=table_t, lengths=len_t)
+        em, n_em, next_last, cache = serving._speculative_round(
+            self.params, self.cfg, cache, last_t, drafts, live_t,
+            chunk_step=self._chunk_step)
+        # ONE device-to-host read for the four outputs.
+        out = torch.cat([em, n_em[:, None], next_last[:, None],
+                         cache.lengths[:, None]], dim=1).cpu().numpy()
+        kd1 = self.draft_len + 1
+        self._lengths = out[:, kd1 + 2].astype(np.int32)
+        for i, r in enumerate(self._slots):
+            if r is None or not live[i]:
+                continue
+            for j in range(int(out[i, kd1])):
+                if len(r.out) >= r.max_new_tokens or r.finished:
+                    break
+                tok = int(out[i, j])
+                r.out.append(tok)
+                r.finished = tok in r.stop
+                emitted.append((r.rid, tok))
+            r.next_token = int(out[i, kd1 + 1])
 
     def _retire(self) -> None:
         for i, r in enumerate(self._slots):

@@ -42,6 +42,27 @@ Paged (a page pool shared by the sequences):
   (`sample_token_per_row`), stop ids and budgets, and no host read or
   upload inside the k steps; ``step_fn=`` runs a family's decode step.
 
+Speculative decoding (greedy, over the paged cache):
+
+- `_speculative_round`: one verify round, the chunk [last, d_1..d_kd]
+  through a chunk step (`paged_chunk_step` by default: the paged
+  prefill kernel at q_chunk kd + 1), the longest draft prefix equal to
+  the argmaxes accepted, one more token (the correction, or the bonus)
+  emitted, and each row's length rolled back to what it consumed;
+- `speculative_generate`: the host loop around it with any
+  ``draft_fn(last, buf)``; `make_model_draft_fn` makes one from a
+  smaller model with its own paged cache;
+- `_speculative_burst_rounds` / `speculative_generate_model`: a draft
+  model's rounds, ``rounds_per_dispatch`` of them between two host
+  reads, every tensor of the carry on the device.
+
+Beam search (`_beam_step`, `_beam_steps`, `beam_generate`) over the
+dense cache: beams ride as batch rows (`decode_step`, so `flash_decode`),
+and each step gathers every layer's K/V rows by parent beam.  The JAX
+module's jit caches (`_spec_burst_jit`, `_chunk_step_jit`,
+`_prefill_jit`, `_beam_scan_jit`) have no eager counterpart: here the
+functions run as they are, and `_beam_steps` is the loop JAX scans.
+
 Gemma-2 (`models.gemma`): `gemma_prefill`, `gemma_decode_step` and
 `gemma_generate` over the dense cache, `gemma_paged_chunk_step` and
 `gemma_paged_decode_step` over the paged one (the engine's family hooks).
@@ -561,9 +582,7 @@ def paged_generate(params: dict, prompt: torch.Tensor,
     cache = init_paged_model_cache(cfg, b, s + max_new_tokens + 1,
                                    page_size=page_size,
                                    device=prompt.device)
-    for i in range(0, s, page_size):
-        logits, cache = paged_chunk_step(params, prompt[:, i:i + page_size],
-                                         cfg, cache)
+    logits, cache = _prefill_chunks(params, prompt, cfg, cache, page_size)
     tokens = [prompt.to(torch.int32)]
     token = _greedy(logits[:, -1])
     for i in range(max_new_tokens):
@@ -1099,3 +1118,395 @@ def paged_decode_burst_q(params: dict, token: torch.Tensor,
                   rids=rids, idx0=idx0, temp=temp, top_k=top_k, top_p=top_p,
                   stop_ids=stop_ids, logit_bias=logit_bias,
                   want_logprobs=want_logprobs, sampled=sampled)
+
+
+# ---------------------------------------------------------------------------
+# Speculative decoding
+# ---------------------------------------------------------------------------
+
+def _as_drafts(drafts, batch: int, draft_len: int,
+               device) -> torch.Tensor:
+    """A draft function's proposals (a tensor or a numpy array) as int32
+    [batch, draft_len] on ``device``; any other shape is a ValueError."""
+    drafts = torch.as_tensor(drafts)
+    if tuple(drafts.shape) != (batch, draft_len):
+        raise ValueError(f"draft_fn returned shape {tuple(drafts.shape)}, "
+                         f"expected {(batch, draft_len)}")
+    return drafts.to(device=device, dtype=torch.int32)
+
+
+def _accepted(drafts: torch.Tensor, preds: torch.Tensor) -> torch.Tensor:
+    """Each row's accepted draft count, int32 [b] in 0..kd: the length of
+    its longest draft prefix equal to the target's preds [b, kd + 1]
+    (the sum of the cumulative product of the matches)."""
+    eq = (drafts == preds[:, :drafts.shape[1]]).to(torch.int32)
+    return torch.cumprod(eq, dim=1, dtype=torch.int32).sum(dim=1,
+                                                            dtype=torch.int32)
+
+
+def _speculative_round(params, cfg, cache: PagedModelCache,
+                       last: torch.Tensor, drafts: torch.Tensor,
+                       live: torch.Tensor, chunk_step=None):
+    """One verify round: the chunk [last, d_1..d_kd] -> greedy preds
+    [b, kd + 1]; the longest draft prefix equal to the preds is
+    accepted, then one more target token is emitted (the correction on a
+    mismatch, the bonus on a full accept), 1..kd + 1 tokens a row, each
+    the plain greedy continuation.
+
+    The chunk writes K/V for all kd + 1 positions (in place); each row's
+    length rolls back to what it consumed (base + n_acc + 1), so the
+    rejected rows are dead until the next chunk overwrites them (no mask
+    reads past a length).  A row with ``live`` False keeps its length,
+    its ``last`` and emits 0, so a finished row's pages stop growing: a
+    sequence needs s + max_new + 2 (kd + 1) positions at most.
+
+    A draft outside the vocabulary is fed to the model clamped into it
+    (it never equals a pred, so it and every position after it are
+    rejected, whatever the model saw there).  Returns (emitted [b, kd +
+    1] int32, -1 after the last emitted; n_em [b]; next_last [b]; the
+    rolled-back cache).  No host read."""
+    kd = drafts.shape[1]
+    base = cache.lengths
+    chunk = torch.cat([last[:, None], drafts], dim=1)
+    logits, cache = (chunk_step or paged_chunk_step)(
+        params, chunk.clamp(0, params["embed"].shape[0] - 1), cfg, cache)
+    preds = _greedy(logits)                                  # [b, kd + 1]
+    n_acc = _accepted(drafts, preds)                         # [b] 0..kd
+    bonus = preds.gather(1, n_acc.long()[:, None])           # [b, 1]
+    slots = torch.arange(kd + 1, device=drafts.device)[None, :]
+    accepted = torch.cat([drafts, torch.zeros_like(drafts[:, :1])], dim=1)
+    emitted = torch.where(slots < n_acc[:, None], accepted,
+                          torch.where(slots == n_acc[:, None], bonus, -1))
+    next_last = torch.where(live, bonus[:, 0], last)
+    n_em = torch.where(live, n_acc + 1, 0).to(torch.int32)
+    return emitted.to(torch.int32), n_em, next_last, cache._replace(
+        lengths=torch.where(live, base + n_acc + 1, base))
+
+
+def _scatter_emissions(buf: torch.Tensor, count: torch.Tensor,
+                       emitted: torch.Tensor, n_em: torch.Tensor):
+    """Each row's n_em emitted tokens into ``buf`` at count ..; the slots
+    not emitted write -1 into the last column, the sacrificial one (so a
+    row's non -1 entries stay its emitted tokens).  Returns (buf, count +
+    n_em), on the device."""
+    width = buf.shape[1]
+    slots = torch.arange(emitted.shape[1], device=buf.device)[None, :]
+    valid = slots < n_em[:, None]
+    idx = torch.where(valid, (count[:, None] + slots).clamp_max(width - 1),
+                      width - 1)
+    buf = buf.scatter(1, idx.long(), torch.where(valid, emitted, -1))
+    return buf, count + n_em
+
+
+def _emission_buffer(last: torch.Tensor, max_new_tokens: int,
+                     draft_len: int):
+    """The emission buffer [b, max_new + 2 (kd + 1)] (-1, the first token
+    in column 0, the last column sacrificial) and its count (1 a row)."""
+    b = last.shape[0]
+    buf = torch.full((b, max_new_tokens + 2 * (draft_len + 1)), -1,
+                     dtype=torch.int32, device=last.device)
+    buf[:, 0] = last
+    return buf, torch.ones((b,), dtype=torch.int32, device=last.device)
+
+
+def _prefill_chunks(params, prompt, cfg, cache, page_size, chunk_step=None):
+    """The prompt through ``chunk_step`` (default `paged_chunk_step`) in
+    page-size chunks; returns the last chunk's logits and the cache."""
+    logits = None
+    for i in range(0, prompt.shape[1], page_size):
+        logits, cache = (chunk_step or paged_chunk_step)(
+            params, prompt[:, i:i + page_size], cfg, cache)
+    return logits, cache
+
+
+@torch.inference_mode()
+def speculative_generate(params: dict, prompt: torch.Tensor,
+                         cfg: llama.LlamaConfig, *, draft_fn,
+                         draft_len: int, max_new_tokens: int,
+                         page_size: int = 128,
+                         chunk_step=None) -> torch.Tensor:
+    """Greedy speculative decoding over a paged cache.
+
+    ``draft_fn(last [b], buf [b, T])`` (int32 tensors on the prompt's
+    device: the newest token, and the emitted tokens so far, -1 after
+    them) proposes [b, draft_len] continuations, as a tensor or a numpy
+    array.  The output equals the plain greedy sequence for any draft,
+    up to kernel numerics: the verify chunk runs on the paged prefill
+    kernel and a plain decode on the decode kernel, so a near-tie of two
+    logits can flip an argmax; two speculative runs agree exactly.  Only
+    the round count varies.  ``chunk_step``: a family's chunk step
+    (`gemma_paged_chunk_step`), for the prompt and every verify chunk.
+    The loop reads the host once a round (the smallest count); prompt:
+    [b, s] -> [b, s + max_new_tokens] int32."""
+    b, s = prompt.shape
+    cache = init_paged_model_cache(
+        cfg, b, s + max_new_tokens + 2 * (draft_len + 1),
+        page_size=page_size, device=prompt.device)
+    logits, cache = _prefill_chunks(params, prompt, cfg, cache, page_size,
+                                    chunk_step)
+    last = _greedy(logits[:, -1])
+    buf, count = _emission_buffer(last, max_new_tokens, draft_len)
+    while int(count.min()) < max_new_tokens:
+        drafts = _as_drafts(draft_fn(last, buf), b, draft_len, prompt.device)
+        emitted, n_em, last, cache = _speculative_round(
+            params, cfg, cache, last, drafts, count < max_new_tokens,
+            chunk_step=chunk_step)
+        buf, count = _scatter_emissions(buf, count, emitted, n_em)
+    return torch.cat([prompt.to(torch.int32), buf[:, :max_new_tokens]], dim=1)
+
+
+def _draft_round(draft_params, draft_cfg, cache: PagedModelCache,
+                 gained: torch.Tensor, n_gain: torch.Tensor, draft_len: int):
+    """The drafter's half of a round: ingest the verified tokens as one
+    chunk (``gained`` [b, kd + 1], the first ``n_gain`` of each row
+    real), roll the lengths back to the consumed count, then propose
+    ``draft_len`` greedy tokens (kd - 1 decode steps) and roll those back
+    too, so the drafter's cache only ever commits verified tokens.
+    Returns (drafts [b, kd] int32, the cache).  No host read."""
+    base = cache.lengths
+    logits, cache = paged_chunk_step(draft_params, gained, draft_cfg, cache)
+    synced = base + n_gain
+    cache = cache._replace(lengths=synced)
+    # The next-token logits sit at each row's last consumed position.
+    rows = torch.arange(gained.shape[0], device=gained.device)
+    row_logits = logits[rows, (n_gain - 1).clamp_min(0).long()]
+    drafts = []
+    for j in range(draft_len):
+        tok = _greedy(row_logits)
+        drafts.append(tok)
+        if j + 1 < draft_len:
+            row_logits, cache = paged_decode_step(draft_params, tok,
+                                                  draft_cfg, cache)
+    return torch.stack(drafts, dim=1), cache._replace(lengths=synced)
+
+
+def make_model_draft_fn(draft_params: dict, draft_cfg, *,
+                        prompt: torch.Tensor, draft_len: int,
+                        max_new_tokens: int, page_size: int = 128):
+    """Draft-model speculation for `speculative_generate`: a smaller
+    model proposes each round's continuation while keeping its own paged
+    cache (s + max_new + 4 (kd + 1) positions a row) in step with the
+    verified stream.  Each round it reads the tokens the target emitted
+    since its last call from ``buf`` on the host (a ragged 1..kd + 1 a
+    row, in numpy, as the JAX package's host API does), ingests them as
+    one chunk and drafts (`_draft_round`).
+
+    Returns a stateful ``draft_fn(last, buf)`` for ONE
+    `speculative_generate` call over ``prompt`` (the rows keep their
+    identity).  Acceptance depends on how well the drafter tracks the
+    target; the output never does."""
+    b, s = prompt.shape
+    kd = draft_len
+    with torch.inference_mode():
+        cache = init_paged_model_cache(
+            draft_cfg, b, s + max_new_tokens + 4 * (kd + 1),
+            page_size=page_size, device=prompt.device)
+        _, cache = _prefill_chunks(draft_params, prompt, draft_cfg, cache,
+                                   page_size)
+    state = {"cache": cache, "consumed": np.zeros((b,), np.int64)}
+
+    @torch.inference_mode()
+    def draft_fn(last, buf):
+        buf_np = torch.as_tensor(buf).cpu().numpy()
+        counts = (buf_np != -1).sum(axis=1)
+        gained = np.zeros((b, kd + 1), np.int32)
+        n_gain = np.zeros((b,), np.int32)
+        for r in range(b):
+            new = buf_np[r, state["consumed"][r]:counts[r]]
+            n_gain[r] = len(new)
+            gained[r, :len(new)] = new
+            gained[r, len(new):] = new[-1] if len(new) else 0
+        state["consumed"] = counts.copy()
+        drafts, state["cache"] = _draft_round(
+            draft_params, draft_cfg, state["cache"],
+            torch.as_tensor(gained, device=prompt.device),
+            torch.as_tensor(n_gain, device=prompt.device), kd)
+        return drafts
+
+    return draft_fn
+
+
+def _speculative_burst_rounds(params, cfg, draft_params, draft_cfg,
+                              t_cache, d_cache, gained, n_gain, last,
+                              buf, count, *, draft_len: int, rounds: int,
+                              max_new_tokens: int):
+    """``rounds`` full draft + verify rounds with nothing read back to
+    the host: the drafter ingests the previous round's verified tokens
+    (``gained`` [b, kd + 1], ``n_gain`` [b]) and drafts (`_draft_round`),
+    the target verifies (`_speculative_round`), and the emissions go
+    into ``buf`` on the device.  A row freezes once its ``count``
+    reaches ``max_new_tokens`` (its lengths stop advancing).  JAX's
+    `lax.scan` over the rounds is this Python loop.  Returns the carry
+    (gained, n_gain, last, t_cache, d_cache, buf, count)."""
+    for _ in range(rounds):
+        drafts, d_cache = _draft_round(draft_params, draft_cfg, d_cache,
+                                       gained, n_gain, draft_len)
+        emitted, n_gain, last, t_cache = _speculative_round(
+            params, cfg, t_cache, last, drafts, count < max_new_tokens)
+        buf, count = _scatter_emissions(buf, count, emitted, n_gain)
+        gained = emitted.clamp_min(0)
+    return gained, n_gain, last, t_cache, d_cache, buf, count
+
+
+@torch.inference_mode()
+def speculative_generate_model(params: dict, prompt: torch.Tensor,
+                               cfg: llama.LlamaConfig, *,
+                               draft_params: dict, draft_cfg,
+                               draft_len: int, max_new_tokens: int,
+                               page_size: int = 128,
+                               rounds_per_dispatch: int = 8
+                               ) -> torch.Tensor:
+    """Greedy speculative decoding with a draft MODEL, in bursts:
+    ``rounds_per_dispatch`` draft + verify rounds between two host reads
+    (`_speculative_burst_rounds`), so the host reads once per about
+    rounds x (accepts + 1) tokens.  The output equals the plain greedy
+    sequence for any drafter, with `speculative_generate`'s caveat on
+    near-ties.  Use `speculative_generate` with a ``draft_fn`` for a
+    drafter that is not a model.  prompt: [b, s] -> [b, s +
+    max_new_tokens] int32."""
+    b, s = prompt.shape
+    kd = draft_len
+    budget = s + max_new_tokens + 2 * (kd + 1)
+    t_cache = init_paged_model_cache(cfg, b, budget, page_size=page_size,
+                                     device=prompt.device)
+    # The drafter writes kd - 1 decode rows past its chunk.
+    d_cache = init_paged_model_cache(draft_cfg, b, budget + kd,
+                                     page_size=page_size,
+                                     device=prompt.device)
+    logits, t_cache = _prefill_chunks(params, prompt, cfg, t_cache,
+                                      page_size)
+    _, d_cache = _prefill_chunks(draft_params, prompt, draft_cfg, d_cache,
+                                 page_size)
+    last = _greedy(logits[:, -1])
+    buf, count = _emission_buffer(last, max_new_tokens, kd)
+    gained = torch.zeros((b, kd + 1), dtype=torch.int32,
+                         device=prompt.device)
+    gained[:, 0] = last
+    n_gain = torch.ones_like(count)
+    while int(count.min()) < max_new_tokens:
+        gained, n_gain, last, t_cache, d_cache, buf, count = \
+            _speculative_burst_rounds(
+                params, cfg, draft_params, draft_cfg, t_cache, d_cache,
+                gained, n_gain, last, buf, count, draft_len=kd,
+                rounds=rounds_per_dispatch, max_new_tokens=max_new_tokens)
+    return torch.cat([prompt.to(torch.int32), buf[:, :max_new_tokens]], dim=1)
+
+
+# ---------------------------------------------------------------------------
+# Beam search
+# ---------------------------------------------------------------------------
+
+def _top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The k largest of each row of x [rows, n], high to low, equal values
+    lowest index first (`lax.top_k`'s order; `torch.topk` promises none
+    for ties): a stable descending sort."""
+    values, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return values[:, :k], idx[:, :k]
+
+
+def _gather_rows(cache: KVCache, rows: torch.Tensor) -> KVCache:
+    """Every layer's K/V rows and the lengths in the order ``rows`` (a
+    beam's cache follows its parent)."""
+    return KVCache(k=[c.index_select(0, rows) for c in cache.k],
+                   v=[c.index_select(0, rows) for c in cache.v],
+                   lengths=cache.lengths.index_select(0, rows))
+
+
+def _beam_step(params, cfg, cache: KVCache, tokens, scores, finished,
+               num_beams: int, eos_token: int):
+    """One beam-search step over the flattened [batch * beams] cache:
+    decode, expand each live beam by the whole vocabulary, keep the top
+    num_beams (a finished beam survives as a single frozen candidate:
+    eos, its score unchanged), and gather the cache rows by parent beam.
+    Returns (cache, tokens [b * k] int32, scores [b, k], finished [b, k],
+    parent [b, k])."""
+    k = num_beams
+    b = tokens.shape[0] // k
+    logits, cache = decode_step(params, tokens, cfg, cache)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    vocab = logp.shape[-1]
+    logp = logp.reshape(b, k, vocab)
+    # A Python index written into a device tensor would synchronise.
+    frozen = torch.full((vocab,), -torch.inf, device=logp.device).masked_fill(
+        torch.arange(vocab, device=logp.device) == eos_token % vocab, 0.0)
+    cand = scores[:, :, None] + torch.where(finished[:, :, None], frozen, logp)
+    new_scores, idx = _top_k(cand.reshape(b, k * vocab), k)
+    parent = idx // vocab
+    tok = (idx % vocab).to(torch.int32)
+    rows = (torch.arange(b, device=idx.device)[:, None] * k
+            + parent).reshape(b * k)
+    new_finished = finished.gather(1, parent) | (tok == eos_token)
+    return (_gather_rows(cache, rows), tok.reshape(b * k), new_scores,
+            new_finished, parent)
+
+
+def _beam_steps(params, cfg, cache, tokens, scores, finished, seqs,
+                gen_len, *, num_beams: int, eos_token: int,
+                max_new_tokens: int):
+    """Steps 1 .. max_new_tokens - 1 of the search (the loop the JAX
+    package scans), the history ``seqs`` [b, k, max_new] and ``gen_len``
+    [b, k] gathered by parent on the device, eos written after a beam
+    finishes.  No host read."""
+    b, k = scores.shape
+    for t in range(1, max_new_tokens):
+        cache, tokens, scores, new_finished, parent = _beam_step(
+            params, cfg, cache, tokens, scores, finished,
+            num_beams=num_beams, eos_token=eos_token)
+        seqs = seqs.gather(1, parent[:, :, None].expand(-1, -1,
+                                                        seqs.shape[2]))
+        gen_len = gen_len.gather(1, parent)
+        was_finished = finished.gather(1, parent)
+        seqs[:, :, t] = torch.where(was_finished, eos_token,
+                                    tokens.reshape(b, k))
+        gen_len = torch.where(new_finished & ~was_finished, t + 1, gen_len)
+        finished = new_finished
+    return cache, tokens, scores, finished, seqs, gen_len
+
+
+@torch.inference_mode()
+def beam_generate(params: dict, prompt: torch.Tensor,
+                  cfg: llama.LlamaConfig, *, num_beams: int,
+                  max_new_tokens: int, eos_token: Optional[int] = None,
+                  length_penalty: float = 1.0,
+                  max_seq: Optional[int] = None):
+    """Beam search over the dense KV cache (HF ``num_beams`` semantics).
+
+    `prefill` runs once at batch b; its cache is repeated k-fold along
+    the batch and the beams ride as batch rows ([b * k] `decode_step`s,
+    cache rows gathered by parent beam each step).  A beam that emits
+    ``eos_token`` freezes: its score stops accumulating and it survives
+    as one candidate.  Every search runs exactly ``max_new_tokens``
+    steps (no early stop, no host read inside), and the hypotheses are
+    ranked at the end, on the host, by score / len(generated) **
+    length_penalty.  Returns (sequences [b, k, s + max_new] int32,
+    scores [b, k] float32) on the prompt's device, best beam first;
+    positions after a beam's eos hold ``eos_token``."""
+    b, s = prompt.shape
+    k = num_beams
+    eos = -1 if eos_token is None else int(eos_token)
+    dev = prompt.device
+    cache = init_cache(cfg, b, max_seq or (s + max_new_tokens), device=dev)
+    logits, cache = prefill(params, prompt, cfg, cache)
+    scores, tok0 = _top_k(torch.log_softmax(logits.float(), dim=-1), k)
+    tok0 = tok0.to(torch.int32)
+    cache = KVCache(k=[c.repeat_interleave(k, dim=0) for c in cache.k],
+                    v=[c.repeat_interleave(k, dim=0) for c in cache.v],
+                    lengths=cache.lengths.repeat_interleave(k, dim=0))
+    finished = tok0 == eos
+    seqs = torch.zeros((b, k, max_new_tokens), dtype=torch.int32, device=dev)
+    seqs[:, :, 0] = tok0
+    gen_len = torch.where(finished, 1, max_new_tokens).to(torch.int32)
+    _, _, scores, _, seqs, gen_len = _beam_steps(
+        params, cfg, cache, tok0.reshape(b * k), scores, finished, seqs,
+        gen_len, num_beams=k, eos_token=eos, max_new_tokens=max_new_tokens)
+    scores, gen_len, seqs = (x.cpu().numpy() for x in (scores, gen_len, seqs))
+    final = scores.astype(np.float32) / np.maximum(gen_len, 1).astype(
+        np.float32) ** length_penalty
+    order = np.argsort(-final, axis=1)
+    final = np.take_along_axis(final, order, axis=1)
+    seqs = np.take_along_axis(seqs, order[:, :, None], axis=1)
+    full = np.concatenate(
+        [np.broadcast_to(prompt.cpu().numpy().astype(np.int32)[:, None, :],
+                         (b, k, s)), seqs], axis=2)
+    return torch.as_tensor(full, device=dev), torch.as_tensor(final,
+                                                              device=dev)

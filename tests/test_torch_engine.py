@@ -195,17 +195,18 @@ def test_unported_engine_features_raise(models):
                   prefix_cache=True)
     assert eng.prefix_cache is not None and len(eng.prefix_cache) == 0
     assert eng.stats["prefix_hit_tokens"] == 0
-    for kw, item in ((dict(draft_fn=lambda *a: None, draft_len=2),
-                      "speculative decoding"),
-                     (dict(kv_sharding=object()),
-                      "tensor-parallel serving")):
+    for kw, item in ((dict(kv_sharding=object()),
+                      "tensor-parallel serving"),):
         with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{item}"):
             TEngine(tparams, tcfg, max_batch=1, num_pages=8, **kw)
-    # LoRA (taken since slice 16, tests/test_torch_lora.py) is accepted
-    # as the JAX engine accepts it.
+    # LoRA (taken since slice 16, tests/test_torch_lora.py) and
+    # speculative decoding (taken since slice 17,
+    # tests/test_torch_engine_speculative.py) are accepted as the JAX
+    # engine accepts them.
     for kw in (dict(chunk_step=lambda *a: None),
                dict(decode_step=lambda *a: None),
-               dict(lora={"layers": []})):
+               dict(lora={"layers": []}),
+               dict(draft_fn=lambda *a: None, draft_len=2)):
         TEngine(tparams, tcfg, max_batch=1, num_pages=8, **kw)
     for kw in (dict(kv_precision="int8", decode_step=lambda *a: None),
                dict(lora={"layers": []}, chunk_step=lambda *a: None)):
