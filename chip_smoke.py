@@ -7,9 +7,10 @@ serving (paged and dense) and training (the soft cap and head_dim 256 in
 the kernels, forward and backward), and the flash-attention options
 (masks, bias with its gradient, segment ids, `compat`), the runtime
 (tile sweeps over variant libraries, dispatch by the config cache, the
-autotune CLI), and weights in and out with LoRA (HF conversion, token
+autotune CLI), weights in and out with LoRA (HF conversion, token
 shards, checkpoint and resume, multi-adapter fine-tuning on a frozen
-base and serving), on one NVIDIA GPU.
+base and serving), and Mixtral-style MoE serving and training, on one
+NVIDIA GPU.
 
 Run from the root of a checkout, on a machine with one CUDA card and
 the CUDA toolkit:
@@ -60,7 +61,9 @@ Phases (any failure exits non-zero and prints no result):
    of a planted fault: each row's first page lost);
 4c. burst_serve: the same 6 requests drained by the engine's `step()` and
    by `step_burst(BURST_K)` (16 decode steps between two host reads),
-   over bf16 and then INT8 pools, at full width and depth, greedy; every
+   over bf16 and then INT8 pools, at full width on the first
+   ENGINE_PHASE_LAYERS layers (host-bound, its steps repeat a layer's
+   work, and the script must stay within its limit), greedy; every
    launch count set to 0 just before each run and read just after, and
    held exact (each burst step a decode step: per layer one
    `paged_decode`, or one quantized `paged_decode` and one tail
@@ -80,7 +83,8 @@ Phases (any failure exits non-zero and prints no result):
    ms to enqueue it;
 4d. prefix_serve: the engine with ``prefix_cache=True`` (its allocator
    the C++ one, `NativePageAllocator`) over bf16 and then INT8 pools, at
-   full width and depth, page 128: (a) the time to first token of a
+   full width on the first ENGINE_PHASE_LAYERS layers (as burst_serve),
+   page 128: (a) the time to first token of a
    2,048-token prompt cold (the cache flushed) and warm (15 of its 16
    pages borrowed), best of 2 each, after the JAX package's
    bench.py:283-330; (b) request 0 alone (a 1,536-token shared prefix, 12
@@ -396,6 +400,37 @@ Phases (any failure exits non-zero and prints no result):
    which must exit 0 and store its winner (`runtime_cli:`).  Each tile
    variant launched gets an entry in the `kernels` line.
 
+16. Mixtral-style MoE at Mixtral-8x7B widths (`MoEConfig`'s defaults:
+   dim 4096, 32 heads, 8 kv heads, head_dim 128, hidden 14336, 8
+   experts, top-2, capacity factor 1.25, vocab 32000), bf16 with the
+   router in float32, seeded random weights built on the card:
+   moe_params: MOE_LAYERS of the 32 layers (2.90 GB a layer: the full 93
+   GB do not fit in 80 GB), with the cut, the bytes and the peak memory;
+   moe_serve: the paged serve's requests through `ServingEngine` by
+   `step()` (new tokens/s) and by `step_burst(BURST_K)` under
+   `watched_serve`, streams equal, every paged launch count exact and on
+   the Hopper kernels, the share of routed choices that capacity dropped
+   in decode and in prefill, and one decode step and one chunk step under
+   torch.profiler with device ms by family (attention, the experts'
+   products and the rest of the routed FFN as `record_function` ranges,
+   elementwise; `moe_decode_profile:`, `moe_chunk_profile:`);
+   moe_reference: on a MOE_REF_LAYERS-layer cut, the paged path's logits
+   (4 prompts prefilled by chunks, then teacher-forced decode steps of
+   all rows together) against the same calls on the plain attention path
+   (`attention_reference`, REF_*), which takes the kernel path's expert
+   choices (a bf16 near-tie may route a token otherwise on each path);
+   the choices where the plain path's own routes differ, with their gate
+   margins, within MOE_TIE; two planted faults read in every run and seen
+   by the gates (one expert's output lost; the capacity one short);
+   moe_train: MOE_TRAIN_STEPS `moe.train_step`s (SGD at MOE_TRAIN_LR) of
+   MOE_TRAIN_LAYERS layers on MOE_TRAIN_TOKENS + 1 tokens, exact flash
+   counts, the loss falling, tokens/s, seconds a step, peak memory and a
+   profiled step (`moe_train_profile:`); moe_train_reference: a
+   MOE_REF_LAYERS-layer cut's loss and every gradient, the router's
+   included, against the plain attention path under autograd (TRAIN_*)
+   on the kernel path's choices, at MOE_TRAIN_REF_TOKENS and at
+   MOE_CAP_TOKENS tokens (where capacity binds), with the same faults.
+
 Every kernel's `bound_ms` is the least time the card could take for the
 same work: the larger of the bytes it must move (each input read once,
 each output written once; a quantized weight's payload and scales) over
@@ -416,9 +451,11 @@ Output: `serve`, `reference`, `quant_serve`, `burst_serve`,
 `gemma_params`, `gemma_serve`, `gemma_dense`, `gemma_reference`,
 `gemma_checks`, `gemma_train`, `gemma_train_profile`,
 `gemma_train_reference`, `gemma_bwd_checks`, `options_attention`,
-`options_checks`, `runtime_context`, `runtime_sweep`, `runtime_faults`,
-`runtime_launches`, `runtime_dispatch`, `runtime_cli` and `runtime`
-lines, a `phases` line
+`options_checks`, `moe_params`, `moe_decode_profile`,
+`moe_chunk_profile`, `moe_serve`, `moe_reference`, `moe_train`,
+`moe_train_profile`, `moe_train_reference`, `runtime_context`,
+`runtime_sweep`, `runtime_faults`, `runtime_launches`,
+`runtime_dispatch`, `runtime_cli` and `runtime` lines, a `phases` line
 (each phase's seconds), a `profiler_lost` line (the timings that the
 profiler lost in every session and that CUDA events took instead; empty
 in a run where it lost none), the card's name and power limit as nvidia-smi
@@ -566,6 +603,8 @@ QUANT_REF_LIMITS = {p: {"rel_rms": REF_REL_RMS, "max_abs": REF_MAX_ABS}
 # QUANT_SERVE_PRECISION pools, then sampled with SAMPLING (the engine
 # seeded with SAMPLE_SEED).
 BURST_K = 16
+# burst_serve and prefix_serve run on this many of the 32 layers.
+ENGINE_PHASE_LAYERS = 16
 SAMPLING = {"temperature": 0.8, "top_k": 50, "top_p": 0.95}
 SAMPLE_SEED = 0
 
@@ -578,7 +617,7 @@ QUANT_FWD_CHUNK = 1000
 QUANT_FWD_KEYS = 8192
 
 # Prefix caching (slice 11).  prefix_serve, over bf16 then
-# QUANT_SERVE_PRECISION pools, full width and depth, page PAGE: (a) the
+# QUANT_SERVE_PRECISION pools, full width, page PAGE: (a) the
 # time to first token of a PREFIX_TTFT_PROMPT-token prompt cold (the cache
 # flushed) and warm (all its complete pages but the last token's
 # borrowed), best of 2 each, after the JAX package's bench.py:283-330;
@@ -1389,7 +1428,7 @@ def burst_serve(params, cfg, prompts, dev, card) -> dict:
     """The engine's `step_burst`: the paged serve's requests drained by
     `step()` and by `step_burst(BURST_K)` in the order step, burst,
     burst, step (the host's speed drifts within a call), over bf16 and
-    then QUANT_SERVE_PRECISION pools, at full width and depth, greedy
+    then QUANT_SERVE_PRECISION pools, at the depth of ``cfg``, greedy
     streams required equal; every launch count set to 0 just before each
     run and read just after, held exact (`expected_serve_launches`: each
     burst step is a decode step), every burst at most BURST_K steps, all
@@ -1499,7 +1538,7 @@ def burst_serve(params, cfg, prompts, dev, card) -> dict:
     if not differ:
         fail("burst_serve: every sampled stream is the greedy one")
     print("burst_serve: " + json.dumps({
-        "config": f"llama3_8b, {cfg.n_layers} layers (full depth), bf16",
+        "config": f"llama3_8b widths, {cfg.n_layers} layers, bf16",
         "burst_k": BURST_K, "requests": len(prompts),
         "new_tokens": MAX_NEW * len(prompts), "sampling": SAMPLING,
         "seed": SAMPLE_SEED, "runs": runs,
@@ -1511,7 +1550,7 @@ def burst_serve(params, cfg, prompts, dev, card) -> dict:
 
 def prefix_serve(params, cfg, dev, card) -> dict:
     """The prefix-cache serving path, over bf16 then QUANT_SERVE_PRECISION
-    pools, at full width and depth: (a) the time to first token of a
+    pools, at the depth of ``cfg``: (a) the time to first token of a
     PREFIX_TTFT_PROMPT-token prompt cold (cache flushed) and warm (its
     pages borrowed), best of 2 each; (b) the shared-prefix serve (request
     0 alone, then PREFIX_FOLLOWERS more of the same prefix) on an engine
@@ -1667,7 +1706,7 @@ def prefix_serve(params, cfg, dev, card) -> dict:
                 for c, r in runs.items()},
             "streams_equal": True}
     print("prefix_serve: " + json.dumps({
-        "config": f"llama3_8b, {cfg.n_layers} layers (full depth), bf16, "
+        "config": f"llama3_8b widths, {cfg.n_layers} layers, bf16, "
                   f"page {PAGE}, max_batch {MAX_BATCH}",
         "requests": len(prompts), "shared_tokens": PREFIX_SHARED,
         "suffix_tokens": list(PREFIX_SUFFIXES), "new_tokens": MAX_NEW,
@@ -2659,9 +2698,10 @@ def profile_step(label, run, families, dev, spans=()) -> dict:
     by_family: dict[str, float] = {}
     by_name: dict[str, list] = {}
     for e in kernels:
-        family = next((name for name, lo, hi in ranges
-                       if lo <= e.time_range.start
-                       and e.time_range.end <= hi), None)
+        # The innermost range that holds the kernel names its family.
+        family = min(((hi - lo, name) for name, lo, hi in ranges
+                      if lo <= e.time_range.start
+                      and e.time_range.end <= hi), default=(0, None))[1]
         family = family or next((f for f, keys in families.items() if any(
             key in e.name for key in (
                 (keys,) if isinstance(keys, str) else keys))), None)
@@ -6621,6 +6661,635 @@ def beam_phase(params, cfg, dev, card) -> dict:
     return launches
 
 
+# Mixtral-8x7B's widths (`MoEConfig`'s defaults): 8 experts of hidden
+# 14,336, top-2, capacity factor 1.25.  A layer is 2.90 GB in bf16, so the
+# full 32 layers (93 GB) do not fit in 80 GB: the serve keeps 16.
+MOE_LAYERS = 16
+MOE_FULL_LAYERS = 32
+MOE_TRAIN_LAYERS = 4
+MOE_TRAIN_TOKENS = 8192
+MOE_TRAIN_STEPS = 4
+MOE_TRAIN_LR = 1.0
+MOE_REF_LAYERS = 2
+MOE_REF_PROMPTS = (300, 200, 130, 77)
+MOE_REF_STEPS = 6
+MOE_TRAIN_REF_TOKENS = 2048
+# A short sequence for the capacity fault in training: 32 tokens, a
+# capacity of 10 an expert, which random routes fill past it.
+MOE_CAP_TOKENS = 32
+MOE_LOST_EXPERT = 3
+# The largest gate margin (in probability) at which the kernel path and
+# the plain one may route a token differently: between the sound run's
+# near-ties and the planted faults' margins (on an H100: sound at most
+# 0.0037, the faults 0.039 to 0.45).
+MOE_TIE = 0.02
+MOE_FAULTS = ("expert_lost", "capacity_off_by_one")
+MOE_PROFILE_FAMILIES = {
+    "attention": ("flash_decode90_kernel", "paged_prefill90_kernel",
+                  "merge_splits", "flash_fwd90_kernel",
+                  "flash_bwd_dq90_kernel", "flash_bwd_dkv90_kernel"),
+    "elementwise": ("elementwise_kernel", "reduce_kernel")}
+MOE_SPANS = ("moe_experts", "moe_routing", "fused_ce")
+
+
+@contextlib.contextmanager
+def moe_fault(name: str):
+    """A fault planted in the MoE layer: one expert's output lost, or the
+    capacity one token short."""
+    from metal_flash_attention_tpu_torch.models import moe
+
+    if name == "expert_lost":
+        def make(experts):
+            def run(params, xe, cfg):
+                ye = experts(params, xe, cfg)
+                keep = ye.new_ones((ye.shape[0], 1, 1))
+                keep[MOE_LOST_EXPERT] = 0
+                return ye * keep
+            return run
+        with planted(moe, "_experts", make):
+            yield
+    else:
+        with planted(moe, "_capacity", lambda capacity: (
+                lambda cfg, n: capacity(cfg, n) - 1)):
+            yield
+
+
+@contextlib.contextmanager
+def moe_annotated():
+    """`moe.moe_ffn` inside a `record_function("moe_routing")` range and
+    `moe._experts` inside a "moe_experts" one, so that `profile_step`
+    counts the card's kernels of each as a family (the innermost range
+    wins).  Only the forward: the backward's kernels run outside."""
+    from torch.profiler import record_function
+    from metal_flash_attention_tpu_torch.models import moe
+
+    def annotated(name):
+        def make(fn):
+            def run(*args, **kwargs):
+                with record_function(name):
+                    return fn(*args, **kwargs)
+            return run
+        return make
+    with planted(moe, "moe_ffn", annotated("moe_routing")), \
+            planted(moe, "_experts", annotated("moe_experts")):
+        yield
+
+
+@contextlib.contextmanager
+def moe_routes(taken=None, record=None, margins=None):
+    """`moe._top_k` watched inside the block: each call's expert ids
+    appended to ``record``; with ``taken`` (an earlier run's record) each
+    call takes those ids instead of its own, weighted by its own gates,
+    and ``margins`` gets, for each choice where its own ids differ, the
+    margin of its own gate over the one taken."""
+    from metal_flash_attention_tpu_torch.models import moe
+
+    def make(top_k):
+        calls = iter(taken or ())
+
+        def run(gates, k):
+            topw, topi = top_k(gates, k)
+            if taken is not None:
+                own = topi
+                topi = next(calls).to(gates.device)
+                if margins is not None:
+                    diff = own != topi
+                    margins.append((gates.gather(1, own)
+                                    - gates.gather(1, topi))[diff].detach())
+                topw = gates.gather(1, topi)
+                topw = topw / topw.sum(dim=-1, keepdim=True).clamp_min(1e-9)
+            if record is not None:
+                record.append(topi)
+            return topw, topi
+        return run
+    with planted(moe, "_top_k", make):
+        yield
+
+
+@contextlib.contextmanager
+def moe_drops(counts: dict, mode: list):
+    """`moe._slots` watched inside the block: counts[mode[0]] gets each
+    call's kept choices (a tensor summed on the card, read after the
+    block) and its choices."""
+    from metal_flash_attention_tpu_torch.models import moe
+
+    def make(slots):
+        def run(topi, n_experts, capacity):
+            slot, kept = slots(topi, n_experts, capacity)
+            entry = counts.setdefault(mode[0], {"kept": 0, "choices": 0})
+            entry["kept"] = entry["kept"] + kept.sum()
+            entry["choices"] += kept.numel()
+            return slot, kept
+        return run
+    with planted(moe, "_slots", make):
+        yield
+
+
+def drop_shares(counts: dict) -> dict:
+    """{mode: share of routed choices that capacity dropped}."""
+    return {m: {"choices": c["choices"],
+                "dropped": c["choices"] - int(c["kept"]),
+                "dropped_share": 1.0 - int(c["kept"]) / c["choices"]}
+            for m, c in counts.items()}
+
+
+@contextlib.contextmanager
+def step_modes(serving, mode: list):
+    """Inside the block, mode[0] names the paged step running:
+    "prefill" in a chunk step, "decode" in a decode step."""
+    patched = {n: getattr(serving, n) for n in ("paged_chunk_step",
+                                                 "paged_decode_step")}
+
+    def wrap(name, fn):
+        def run(*args, **kwargs):
+            mode[0] = name
+            return fn(*args, **kwargs)
+        return run
+    serving.paged_chunk_step = wrap("prefill", patched["paged_chunk_step"])
+    serving.paged_decode_step = wrap("decode", patched["paged_decode_step"])
+    try:
+        yield
+    finally:
+        for n, fn in patched.items():
+            setattr(serving, n, fn)
+
+
+def moe_params(dev, card):
+    """moe_params: Mixtral-8x7B widths, MOE_LAYERS layers, bf16, seeded
+    random weights built on the card."""
+    import torch
+    from metal_flash_attention_tpu_torch.models import moe
+
+    cfg = moe.MoEConfig(n_layers=MOE_LAYERS)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = moe.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    torch.cuda.synchronize(dev)
+    secs = time.perf_counter() - t0
+    layer_bytes = sum(nbytes(t) for t in (
+        *(params["layers"][0][k] for k in ("wq", "wk", "wv", "wo")),
+        *params["layers"][0]["moe"].values()))
+    print("moe_params: " + json.dumps({
+        "config": "mixtral_8x7b widths (MoEConfig defaults: dim 4096, 32 "
+                  "heads, 8 kv heads, head_dim 128, hidden 14336, 8 "
+                  "experts, top-2, capacity factor 1.25, vocab 32000), "
+                  "bf16, router float32",
+        "layers": MOE_LAYERS, "cut": f"{MOE_LAYERS} of {MOE_FULL_LAYERS} "
+        "layers: the full depth does not fit in the card's memory",
+        "layer_bytes": layer_bytes,
+        "full_depth_bytes": layer_bytes * MOE_FULL_LAYERS,
+        "param_bytes": torch.cuda.memory_allocated(dev),
+        "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+        "seconds": secs, "card": card}), flush=True)
+    return params, cfg
+
+
+def moe_profile(params, cfg, prompts, dev) -> dict:
+    """One decode step of MAX_BATCH rows (at the serve's prompt lengths)
+    and one chunk step (PAGE tokens after a 512-token prefix) under
+    torch.profiler: device ms by family."""
+    import torch
+    from metal_flash_attention_tpu_torch.models import serving
+
+    lens = [len(p) for p in prompts[:MAX_BATCH]]
+    cache = serving.init_paged_model_cache(cfg, MAX_BATCH, max(lens) + 1,
+                                           page_size=PAGE, device=dev)
+    cache = cache._replace(lengths=torch.tensor(lens, dtype=torch.int32,
+                                                device=dev))
+    token = torch.zeros((MAX_BATCH,), dtype=torch.int32, device=dev)
+    row = serving.init_paged_model_cache(cfg, 1, 512 + PAGE, page_size=PAGE,
+                                         device=dev)
+    row = row._replace(lengths=torch.full((1,), 512, dtype=torch.int32,
+                                          device=dev))
+    chunk = torch.as_tensor(prompts[0][None, :PAGE], device=dev)
+    out = {}
+    with torch.inference_mode(), moe_annotated():
+        for label, run in (
+                ("decode", lambda: serving.paged_decode_step(
+                    params, token, cfg, cache)),
+                ("chunk", lambda: serving.paged_chunk_step(
+                    params, chunk, cfg, row))):
+            run()
+            out[label] = profile_step(f"moe_{label}_profile", run,
+                                      MOE_PROFILE_FAMILIES, dev,
+                                      spans=MOE_SPANS)
+    return out
+
+
+def moe_serve(params, cfg, prompts, dev, card) -> dict:
+    """moe_serve: the paged serve's requests through `ServingEngine` over
+    the MoE weights by `step()` (timed; every paged launch count set to 0
+    just before and read just after and held exact, all on the Hopper
+    kernels), then by `step_burst(BURST_K)` under `watched_serve` (each
+    burst's steps under sync debug mode "error"), streams equal, with the
+    share of routed choices that capacity dropped in decode and in
+    prefill; one decode and one chunk step profiled by family.  Returns
+    the step run's launch counts."""
+    import torch
+    from metal_flash_attention_tpu_torch.models import serving
+    from metal_flash_attention_tpu_torch.ops import paged_attention as pa
+
+    serve(params, cfg, [prompts[1][:64]], dev, burst=BURST_K)   # warm-up
+
+    def run(burst=0):
+        calls, bursts, steps, counts, mode = {}, [], [], {}, [None]
+        watch = (watched_serve(serving, calls, bursts, steps) if burst
+                 else contextlib.nullcontext())
+        with counted_calls(serving, SERVE_STEPS, calls), watch, \
+                step_modes(serving, mode), moe_drops(counts, mode):
+            pa.reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats(dev)
+            eng, rids, secs, n_calls, num_pages = serve(
+                params, cfg, prompts, dev, burst=burst)
+        launches = {k: n for k, n in pa.LAUNCH_COUNTS.items() if n}
+        wrong = launch_errors(launches, expected_serve_launches(
+            cfg, calls, None))
+        if wrong:
+            fail(f"moe_serve (burst {burst}) launched (count, expected) "
+                 f"{wrong}")
+        streams = [eng.result(r).tolist() for r in rids]
+        for out, p in zip(streams, prompts):
+            if len(out) != len(p) + MAX_NEW or not all(
+                    0 <= t < cfg.vocab_size for t in out):
+                fail("moe_serve: a request's stream is short or leaves the "
+                     "vocabulary")
+        if eng.alloc.free_pages != num_pages - 1:
+            fail("moe_serve: pages leaked")
+        tokens = MAX_NEW * len(prompts)
+        reading = {
+            "seconds": secs, "calls": n_calls,
+            "new_tokens_per_s": tokens / secs,
+            "chunk_steps": len(calls["paged_chunk_step"]),
+            "decode_steps": len(calls["paged_decode_step"]),
+            "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+            "capacity_drops": drop_shares(counts), "launches": launches}
+        if burst:
+            torch.cuda.synchronize(dev)
+            reading["bursts"] = len(bursts)
+            reading["burst_steps"] = [b["n_steps"] for b in bursts]
+            # Decode steps run inside bursts; the rest ran in `step()`
+            # fallbacks (an MoE engine bursts only with an empty queue).
+            reading["decode_steps_in_bursts"] = sum(
+                b["decode_calls"] for b in bursts)
+            reading["burst_card_ms"] = stats([
+                b["events"][0].elapsed_time(b["events"][1])
+                for b in bursts])
+            reading["burst_host_enqueue_ms"] = stats([
+                b["host_s"] * 1e3 for b in bursts])
+        del eng
+        torch.cuda.empty_cache()
+        return streams, reading
+
+    streams, by_step = run()
+    burst_streams, by_burst = run(BURST_K)
+    profile = moe_profile(params, cfg, prompts, dev)
+    print("moe_serve: " + json.dumps({
+        "config": f"mixtral_8x7b widths, {cfg.n_layers} layers, bf16",
+        "requests": len(prompts), "prompt_tokens": int(sum(map(len, prompts))),
+        "new_tokens": MAX_NEW * len(prompts), "max_batch": MAX_BATCH,
+        "page": PAGE, "step": by_step, f"step_burst_{BURST_K}": by_burst,
+        "burst_streams_equal": burst_streams == streams,
+        "device_ms_by_family": {k: v["device_ms_by_family"]
+                                for k, v in profile.items()},
+        "card": card}), flush=True)
+    if burst_streams != streams:
+        fail(f"moe_serve: step_burst({BURST_K})'s streams differ from "
+             "step()'s")
+    return by_step["launches"]
+
+
+def moe_plain_logits(params, cfg, prompts, feeds, dev) -> list:
+    """The paged reference run (`moe_paged_logits`) recomputed on the
+    plain attention path: dense K/V per row, `attention_reference`, and
+    the same MoE calls on the same token groups (each prompt's chunks of
+    PAGE alone, each decode step's rows together)."""
+    import torch
+    from metal_flash_attention_tpu_torch.models import llama, moe, serving
+    from metal_flash_attention_tpu_torch.ops.reference import (
+        attention_reference,
+    )
+
+    base = moe._base_cfg(cfg)
+    kv = [[None] * cfg.n_layers for _ in prompts]
+
+    def attend(x, pos, rows):
+        """x [len(rows), n, dim] at positions pos [len(rows), n]; each row
+        r of ``rows`` attends its own prefix and itself."""
+        cos, sin = llama.rope_frequencies(base, pos)
+        for li, layer in enumerate(params["layers"]):
+            q, k, v = llama.attention_qkv(layer, x, base, cos, sin)
+            outs = []
+            for i, r in enumerate(rows):
+                if kv[r][li] is None:
+                    kv[r][li] = (k[i:i + 1], v[i:i + 1])
+                else:
+                    kv[r][li] = tuple(torch.cat([c, n[i:i + 1]], dim=2)
+                                      for c, n in zip(kv[r][li], (k, v)))
+                outs.append(attention_reference(
+                    q[i:i + 1], *kv[r][li], causal=True).to(cfg.dtype))
+            o = torch.cat(outs).transpose(1, 2).reshape(*x.shape[:2], -1)
+            x = x + llama.wo_proj(o, layer).to(x.dtype)
+            x = serving._ffn_block(layer, x, cfg)
+        x = llama.rms_norm(x, params["final_norm"], cfg.norm_eps)
+        return (x @ params["lm_head"]).float()
+
+    logits = []
+    for r, p in enumerate(prompts):
+        for i in range(0, len(p), PAGE):
+            tok = torch.as_tensor(p[None, i:i + PAGE], device=dev)
+            pos = torch.arange(i, i + tok.shape[1], device=dev)[None]
+            x = params["embed"][tok.long()].to(cfg.dtype)
+            logits.append(attend(x, pos, [r])[0])
+    lens = [len(p) for p in prompts]
+    for step, tok in enumerate(feeds):
+        tok = torch.as_tensor(tok, device=dev)
+        pos = torch.tensor(lens, device=dev)[:, None] + step
+        x = params["embed"][tok.long()][:, None].to(cfg.dtype)
+        logits.append(attend(x, pos, range(len(prompts)))[:, 0])
+    return logits
+
+
+def moe_paged_logits(params, cfg, prompts, feeds, dev) -> list:
+    """The kernel path on the reference's cut: each prompt prefilled
+    alone by `paged_chunk_step` (PAGE-token chunks, as the engine does),
+    then one `paged_decode_step` of every row a feed, teacher-forced:
+    every chunk's logits, then every decode step's."""
+    import torch
+    from metal_flash_attention_tpu_torch.models import serving
+
+    lens = [len(p) for p in prompts]
+    cache = serving.init_paged_model_cache(
+        cfg, len(prompts), max(lens) + len(feeds), page_size=PAGE,
+        device=dev)
+    logits = []
+    with torch.inference_mode():
+        for r, p in enumerate(prompts):
+            # A row of its own (copies: the kernel wants 16-byte-aligned
+            # tensors), as the engine uploads a request's table row.
+            row = cache._replace(
+                page_table=cache.page_table[r:r + 1].clone(),
+                lengths=cache.lengths[r:r + 1].clone())
+            for i in range(0, len(p), PAGE):
+                out, row = serving.paged_chunk_step(
+                    params, torch.as_tensor(p[None, i:i + PAGE], device=dev),
+                    cfg, row)
+                logits.append(out[0])
+        cache = cache._replace(lengths=torch.tensor(
+            lens, dtype=torch.int32, device=dev))
+        for tok in feeds:
+            out, cache = serving.paged_decode_step(
+                params, torch.as_tensor(tok, device=dev), cfg, cache)
+            logits.append(out)
+    return logits
+
+
+def flip_reading(margins: list) -> dict:
+    """The choices on which a plain run's own routes left the kernel
+    run's, with their gate margins."""
+    import torch
+
+    m = torch.cat([x.float().flatten() for x in margins]) if margins \
+        else torch.zeros((0,))
+    return {"flips": int(m.numel()),
+            "max_margin": float(m.max()) if m.numel() else 0.0,
+            "margins": sorted(m.tolist(), reverse=True)[:8]}
+
+
+def moe_reference(params, cfg, dev) -> dict:
+    """moe_reference: on a MOE_REF_LAYERS-layer cut, the paged path's
+    logits (MOE_REF_PROMPTS prefilled by chunks, then MOE_REF_STEPS
+    teacher-forced decode steps of all rows together) against the same
+    model on the plain attention path (REF_*), the plain path taking the
+    kernel path's expert choices; the choices where the plain path's own
+    routes differ, with their gate margins (MOE_TIE); and both planted
+    faults (MOE_FAULTS), which the gates must see."""
+    import torch
+    from metal_flash_attention_tpu_torch.models import serving
+
+    cut = dict(params, layers=params["layers"][:MOE_REF_LAYERS])
+    ccfg = dataclasses.replace(cfg, n_layers=MOE_REF_LAYERS)
+    rng = np.random.default_rng(SEED + 41)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)).astype(np.int32)
+               for n in MOE_REF_PROMPTS]
+    feeds = rng.integers(0, cfg.vocab_size,
+                         (MOE_REF_STEPS, len(prompts))).astype(np.int32)
+
+    def reading(fault=None) -> dict:
+        record, margins, counts, mode = [], [], {}, [None]
+        with (moe_fault(fault) if fault else contextlib.nullcontext()), \
+                moe_routes(record=record), step_modes(serving, mode), \
+                moe_drops(counts, mode):
+            got = moe_paged_logits(cut, ccfg, prompts, feeds, dev)
+        with torch.no_grad(), moe_routes(taken=record, margins=margins):
+            want = moe_plain_logits(cut, ccfg, prompts, feeds, dev)
+        got = torch.cat([g.reshape(-1, g.shape[-1]) for g in got])
+        want = torch.cat([w.reshape(-1, w.shape[-1]) for w in want])
+        if not torch.isfinite(got).all():
+            fail("moe_reference: non-finite logits on the kernel path")
+        return {"rel_rms": rel_rms(got, want),
+                "max_abs_err": float((got - want).abs().max()),
+                **flip_reading(margins),
+                "capacity_drops": drop_shares(counts)}
+
+    def seen(r: dict) -> bool:
+        return (r["rel_rms"] > REF_REL_RMS or r["max_abs_err"] > REF_MAX_ABS
+                or r["max_margin"] > MOE_TIE)
+
+    out = {"layers": MOE_REF_LAYERS, "prompts": list(MOE_REF_PROMPTS),
+           "decode_steps": MOE_REF_STEPS, **reading(),
+           "tol": {"rel_rms": REF_REL_RMS, "max_abs": REF_MAX_ABS,
+                   "tie": MOE_TIE},
+           "planted_faults": {f: reading(f) for f in MOE_FAULTS}}
+    print("moe_reference: " + json.dumps(out), flush=True)
+    if seen(out):
+        fail("moe_reference: the paged MoE path disagrees with the plain "
+             "attention path, or routes a token otherwise above the tie "
+             "limit")
+    for name, r in out["planted_faults"].items():
+        if not seen(r):
+            fail(f"moe_reference: the gates do not see the planted fault "
+                 f"{name}")
+    return out
+
+
+def moe_train(dev, card):
+    """moe_train: MOE_TRAIN_STEPS `moe.train_step`s (SGD at MOE_TRAIN_LR
+    over `moe.loss_fn`: the fused cross-entropy plus the load-balancing
+    loss) at Mixtral-8x7B widths, MOE_TRAIN_LAYERS layers, bf16, seeded
+    weights of its own, one sequence of MOE_TRAIN_TOKENS + 1 tokens; the
+    flash launch counts set to 0 just before and read just after and held
+    exact (a layer's forward one `flash_fwd`, its backward one
+    `flash_bwd_dq` and one `flash_bwd_dkv`, all also `_sm90`); the loss
+    finite and falling; then one more step under torch.profiler.
+    Returns (the trained parameters, the config, the launch counts)."""
+    import torch
+    from metal_flash_attention_tpu_torch.models import moe
+    from metal_flash_attention_tpu_torch.ops import flash_attention as fa
+    from metal_flash_attention_tpu_torch.ops import flash_attention_bwd as fb
+
+    cfg = moe.MoEConfig(n_layers=MOE_TRAIN_LAYERS)
+    params = moe.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(SEED + 42), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 43)
+    tokens = torch.randint(0, cfg.vocab_size, (1, MOE_TRAIN_TOKENS + 1),
+                           generator=gen, device=dev)
+    torch.cuda.synchronize(dev)
+    param_bytes = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    fa.reset_launch_counts()
+    fb.reset_launch_counts()
+    losses, seconds, counts, mode = [], [], {}, ["train"]
+    with CardSampler() as sampler, moe_drops(counts, mode):
+        for _ in range(MOE_TRAIN_STEPS):
+            t0 = time.perf_counter()
+            params, loss = moe.train_step(params, tokens, cfg,
+                                          lr=MOE_TRAIN_LR)
+            losses.append(float(loss))
+            torch.cuda.synchronize(dev)
+            seconds.append(time.perf_counter() - t0)
+        clocks = sampler.stop()
+    launches = {**fa.LAUNCH_COUNTS, **fb.LAUNCH_COUNTS}
+    peak = torch.cuda.max_memory_allocated(dev)
+    expected = {f"{kernel}{s}": cfg.n_layers * MOE_TRAIN_STEPS
+                for kernel in GEMMA_TRAIN_FAMILIES for s in ("", "_sm90")}
+    wrong = launch_errors(launches, expected)
+    if wrong:
+        fail(f"moe_train launched (count, expected) {wrong}")
+    if not all(np.isfinite(losses)):
+        fail(f"non-finite MoE training loss: {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"the MoE training loss did not fall: {losses}")
+    steady = seconds[1:]
+    print("moe_train: " + json.dumps({
+        "config": f"mixtral_8x7b widths, {cfg.n_layers} layers, bf16, SGD "
+                  f"lr {MOE_TRAIN_LR}, no remat",
+        "tokens_per_step": MOE_TRAIN_TOKENS, "steps": MOE_TRAIN_STEPS,
+        "capacity": moe._capacity(cfg, MOE_TRAIN_TOKENS),
+        "losses": losses, "seconds_per_step": seconds,
+        "tokens_per_s": MOE_TRAIN_TOKENS * len(steady) / sum(steady),
+        "capacity_drops": drop_shares(counts),
+        "launches": {k: n for k, n in launches.items() if n},
+        "param_bytes": param_bytes, "max_memory_allocated": peak,
+        "card": card, "card_during_steps": clocks}), flush=True)
+    # The steps leave ~15 GB cached in blocks too small for the next
+    # step's largest tensors: hand them back before the profiled one.
+    torch.cuda.empty_cache()
+    with fused_ce_annotated(), moe_annotated():
+        profile_step("moe_train_profile", lambda: moe.train_step(
+            params, tokens, cfg, lr=MOE_TRAIN_LR),
+            {**MOE_PROFILE_FAMILIES, "optimizer": "multi_tensor"}, dev,
+            spans=MOE_SPANS)
+    return params, cfg, launches
+
+
+def moe_plain_loss(params, tokens, cfg):
+    """`moe.loss_fn(fused_ce=False)` with `attention_reference` in place
+    of the flash kernels (float32 softmax, differentiable)."""
+    import torch
+    from metal_flash_attention_tpu_torch.models import llama, moe
+    from metal_flash_attention_tpu_torch.ops.reference import (
+        attention_reference,
+    )
+
+    base = moe._base_cfg(cfg)
+    inp = tokens[:, :-1]
+    b, s = inp.shape
+    pos = torch.arange(s, device=tokens.device)[None].expand(b, s)
+    cos, sin = llama.rope_frequencies(base, pos)
+    x = params["embed"][inp.long()].to(cfg.dtype)
+    aux = 0.0
+    for layer in params["layers"]:
+        q, k, v = llama.attention_qkv(layer, x, base, cos, sin)
+        o = attention_reference(q, k, v, causal=True).to(cfg.dtype)
+        x = x + llama.wo_proj(o.transpose(1, 2).reshape(b, s, -1),
+                              layer).to(x.dtype)
+        h = llama.rms_norm(x, layer["mlp_norm"], cfg.norm_eps)
+        y, a = moe.moe_ffn(layer["moe"], h, cfg)
+        x, aux = x + y, aux + a
+    x = llama.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logp = torch.log_softmax((x @ params["lm_head"]).float(), dim=-1)
+    nll = -logp.gather(-1, tokens[:, 1:, None].long()).mean()
+    return nll + cfg.aux_loss_weight * aux / cfg.n_layers
+
+
+def moe_train_reference(params, cfg, dev) -> dict:
+    """moe_train_reference: on a MOE_REF_LAYERS-layer cut of the trained
+    weights, `moe.loss_fn` (the flash kernels, the fused cross-entropy)
+    and every gradient, the router's included, against `moe_plain_loss`
+    under autograd (TRAIN_LOSS_ABS, TRAIN_GRAD_REL_RMS), the plain path
+    on the kernel path's expert choices, at MOE_TRAIN_REF_TOKENS tokens
+    and at MOE_CAP_TOKENS (where capacity binds); the choices where the
+    plain path's own routes differ, with their gate margins (MOE_TIE);
+    both planted faults (MOE_FAULTS), which the gates must see."""
+    import torch
+    from metal_flash_attention_tpu_torch.models import moe
+    from metal_flash_attention_tpu_torch.utils.tree import flatten, leaf_paths
+
+    cut = dict(params, layers=params["layers"][:MOE_REF_LAYERS])
+    ccfg = dataclasses.replace(cfg, n_layers=MOE_REF_LAYERS)
+    rng = np.random.default_rng(SEED + 44)
+    batches = {n: torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                               (1, n + 1)), device=dev)
+               for n in (MOE_TRAIN_REF_TOKENS, MOE_CAP_TOKENS)}
+    paths = leaf_paths(cut)
+
+    def value_and_grads(loss_fn):
+        leaves, rebuild = flatten(cut)
+        work = [t.detach().requires_grad_(True) for t in leaves]
+        value = loss_fn(rebuild(work))
+        return float(value.detach()), torch.autograd.grad(value, work)
+
+    def reading(tokens, fault=None) -> dict:
+        record, margins, counts, mode = [], [], {}, ["train"]
+        with (moe_fault(fault) if fault else contextlib.nullcontext()), \
+                moe_routes(record=record), moe_drops(counts, mode):
+            loss, grads = value_and_grads(
+                lambda p: moe.loss_fn(p, tokens, ccfg))
+        with moe_routes(taken=record, margins=margins):
+            ref_loss, ref_grads = value_and_grads(
+                lambda p: moe_plain_loss(p, tokens, ccfg))
+        rel = {}
+        for path, g, r in zip(paths, grads, ref_grads):
+            if not torch.isfinite(g).all():
+                fail("moe_train_reference: a non-finite gradient on the "
+                     "kernel path")
+            rel[path] = rel_rms(g.float(), r.float())
+        worst = max(rel, key=rel.get)
+        return {"loss": loss, "plain_loss": ref_loss,
+                "loss_abs_err": abs(loss - ref_loss),
+                "grad_rel_rms_max": rel[worst], "worst_leaf": worst,
+                "grad_rel_rms_w_router": max(
+                    v for k, v in rel.items() if k.endswith("w_router")),
+                "grad_rel_rms_median": float(np.median(list(rel.values()))),
+                **flip_reading(margins),
+                "capacity_drops": drop_shares(counts)}
+
+    def seen(r: dict) -> bool:
+        return (r["loss_abs_err"] > TRAIN_LOSS_ABS
+                or r["grad_rel_rms_max"] > TRAIN_GRAD_REL_RMS
+                or r["max_margin"] > MOE_TIE)
+
+    out = {"layers": MOE_REF_LAYERS,
+           "tol": {"loss_abs": TRAIN_LOSS_ABS,
+                   "grad_rel_rms": TRAIN_GRAD_REL_RMS, "tie": MOE_TIE}}
+    for n, tokens in batches.items():
+        out[f"tokens_{n}"] = {"sound": reading(tokens), "planted_faults": {
+            f: reading(tokens, f) for f in MOE_FAULTS}}
+    print("moe_train_reference: " + json.dumps(out), flush=True)
+    for n in batches:
+        if seen(out[f"tokens_{n}"]["sound"]):
+            fail(f"moe_train_reference: at {n} tokens the kernel path's "
+                 "loss or gradients disagree with the plain-attention "
+                 "path, or a token routes otherwise above the tie limit")
+    for f in MOE_FAULTS:
+        if not any(seen(out[f"tokens_{n}"]["planted_faults"][f])
+                   for n in batches):
+            fail(f"moe_train_reference: the gates do not see the planted "
+                 f"fault {f}")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6738,11 +7407,16 @@ def run(dev, cache_dir) -> int:
     quant_launches = phase("quant_serve", quant_serve, params, cfg, prompts,
                            dev, card, bf16_serve)
     torch.cuda.empty_cache()
-    burst_launches = phase("burst_serve", burst_serve, params, cfg, prompts,
+    # The engine's bursts and prefix cache on a cut of the weights: their
+    # host-bound steps take half the time at half the depth.
+    ecut = dict(params, layers=params["layers"][:ENGINE_PHASE_LAYERS])
+    ecfg = dataclasses.replace(cfg, n_layers=ENGINE_PHASE_LAYERS)
+    burst_launches = phase("burst_serve", burst_serve, ecut, ecfg, prompts,
                            dev, card)
     torch.cuda.empty_cache()
-    prefix_launches = phase("prefix_serve", prefix_serve, params, cfg, dev,
+    prefix_launches = phase("prefix_serve", prefix_serve, ecut, ecfg, dev,
                             card)
+    del ecut
     torch.cuda.empty_cache()
     phase("quant_reference", quant_reference, params, cfg, dev)
     dense_launches = phase("dense_serve", dense_serve, params, cfg, dev,
@@ -6913,6 +7587,28 @@ def run(dev, cache_dir) -> int:
     runtime_kernels = phase("runtime", runtime_phase, dev, card, cache_dir,
                             build_seconds)
     torch.cuda.empty_cache()
+
+    # Mixtral-style MoE at Mixtral-8x7B widths, seeded random weights:
+    # MOE_LAYERS layers served, MOE_TRAIN_LAYERS trained.
+    mparams, mcfg = phase("moe_params", moe_params, dev, card)
+    moe_serve_launches = phase("moe_serve", moe_serve, mparams, mcfg,
+                               prompts, dev, card)
+    torch.cuda.empty_cache()
+    phase("moe_reference", moe_reference, mparams, mcfg, dev)
+    del mparams
+    torch.cuda.empty_cache()
+    mtparams, mtcfg, moe_train_launches = phase("moe_train", moe_train, dev,
+                                                card)
+    phase("moe_train_reference", moe_train_reference, mtparams, mtcfg, dev)
+    del mtparams
+    torch.cuda.empty_cache()
+    for entry in kernels:
+        if entry["name"] in ("paged_decode", "paged_prefill"):
+            entry["launches_by_path"]["moe_serve"] = moe_serve_launches.get(
+                entry["name"], 0)
+        if entry["name"] in ATTENTION_COUNTS:
+            entry["launches_by_path"]["moe_train_step"] = \
+                moe_train_launches[entry["name"]] // MOE_TRAIN_STEPS
 
     kernels.append(decode_kernel)
     kernels.append(gemm_kernel)

@@ -64,6 +64,10 @@ Ported so far:
   `ops.flash_attention_bwd` (the `kAux` kernels), `compat`
   (`dot_product_attention`, the counterpart of `jax.nn`'s) and `entry`
   (the counterpart of the JAX package's `__graft_entry__.entry`);
+- slice 18, Mixtral-style MoE: `models.moe` (`MoEConfig`, capacity
+  routing by index, `moe_ffn`, the forward, loss and SGD step), served by
+  the paged steps, their bursts, speculative decoding and the engine
+  (`serving._ffn_block`);
 - shared: `ops.reference`, `native.build`, `utils`.
 
 Constructors (`init_params`, `params_from_numpy`, `init_cache`,

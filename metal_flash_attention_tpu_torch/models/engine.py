@@ -23,6 +23,9 @@ host loop a production deployment runs around the paged kernels:
   retries once;
 - one `step()` = admissions + one prefill chunk per prefilling slot +
   one batched `serving.paged_decode_step` for every active slot;
+- Mixtral-style MoE (`models.moe`): the default steps route a layer
+  that carries an expert bank, capacity counting every row of a step
+  (idle slots too, on token 0) and every token of a prefill chunk;
 - family hooks: ``chunk_step=`` and ``decode_step=`` replace the Llama
   steps (`serving.gemma_paged_chunk_step` and
   `serving.gemma_paged_decode_step` serve Gemma-2); the decode hook is
@@ -32,7 +35,10 @@ host loop a production deployment runs around the paged kernels:
   fed back on the device (`serving.paged_decode_burst`): its inputs go
   up in one copy, and its tokens, valid flags and logprobs come back in
   one read; it falls back to `step()` while a slot prefills, a queued
-  request could be admitted, or nothing is active;
+  request could be admitted (for an MoE model, while any is queued), or
+  nothing is active, and a row that stops inside it rides along as an
+  idle slot, so that an MoE layer routes each step's rows as `step()`
+  does (the JAX engine's burst keeps a stopped row's token and pages);
 - ``draft_fn`` / ``draft_len``: speculative continuous batching (greedy
   only).  The batched decode of `step()` becomes one verify round
   (`serving._speculative_round` over the shared pools, the chunk step's
@@ -191,6 +197,8 @@ class ServingEngine:
                              f"{admissions_per_step}")
         self.params = params
         self.cfg = cfg
+        # Mixtral-style layers route every row of a step together.
+        self._routed = any("moe" in layer for layer in params["layers"])
         self._lora = lora
         # Family hooks (None: the Llama steps, looked up at each call).
         self._chunk_step = chunk_step
@@ -393,16 +401,21 @@ class ServingEngine:
         its tokens, valid flags and logprobs come back in one read; the
         host mirrors the lengths from the valid flags.  Falls back to a
         normal :meth:`step` whenever bursting cannot run: a slot is
-        mid-prefill, a queued request could be admitted, or nothing is
-        active.  Streams equal those of k successive :meth:`step`
-        calls."""
+        mid-prefill, a queued request could be admitted (for an MoE
+        model: any request is queued), or nothing is active.  A row that
+        stops inside the burst rides along as an idle slot does.  Streams equal those of k successive
+        :meth:`step` calls, an MoE model's too."""
         if k < 1:
             raise ValueError(f"step_burst needs k >= 1, got {k}")
+        # Rows of a routed MoE layer share its capacity, so a burst must
+        # not run while a request waits: `step()` would admit it into
+        # the first slot that frees, and the decode batches would part.
         can = (not any(r is not None and r.next_token is None
                        for r in self._slots)
                and any(r is not None for r in self._slots)
                and not (self._queue
-                        and any(r is None for r in self._slots)))
+                        and (self._routed
+                             or any(r is None for r in self._slots))))
         if not can:
             return self.step()
         self.n_steps += 1

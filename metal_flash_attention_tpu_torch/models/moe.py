@@ -1,0 +1,309 @@
+"""Mixture-of-Experts layer and the Mixtral-style model in PyTorch.
+
+The port of the JAX package's `models/moe.py`: a Llama backbone whose
+every FFN is a bank of SwiGLU experts behind a router.
+
+- **GShard-style capacity routing**: each token picks its top-k experts
+  from the float32 softmax gates (ties to the lower expert index, as
+  `jax.lax.top_k` breaks them), and the selected gates are renormalized
+  (the Mixtral convention).  Each expert takes at most
+  ``ceil(capacity_factor * tokens * top_k / n_experts)`` tokens: a
+  token's slot is its rank among that expert's tokens, round 0 first,
+  then round 1, each in token order, and a slot past the capacity is
+  dropped (that expert adds nothing to the token).
+- **Load-balancing auxiliary loss** (Switch/GShard form): E * sum_e
+  (share of tokens whose first choice is e * mean gate of e).
+
+The JAX package forms one-hot dispatch and combine tensors [tokens,
+experts, capacity] and contracts them in float32; at 8,192 training
+tokens each would be 671 MB a layer and each contraction 1.4 TFLOP.
+The port computes the same values by index: a kept (token, choice)
+copies the token's row into its expert's slot (`index_copy`), and the
+token gathers its experts' outputs back, weighted by their gates.  A
+product with a one-hot is exact, so both forms agree; `route` still
+returns JAX's (dispatch, combine, aux).  The expert products are
+`torch.bmm` in the model dtype with the SiLU and the gate product in
+float32, plain products that the JAX package leaves to XLA; attention
+is `llama.attention_block` (the fused flash-attention kernels on the
+card).  Not ported: expert parallelism over a mesh (``mesh=``,
+`param_shardings`).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from metal_flash_attention_tpu_torch.models import llama
+from metal_flash_attention_tpu_torch.models.losses import fused_cross_entropy
+from metal_flash_attention_tpu_torch.models.optim import sgd_step
+from metal_flash_attention_tpu_torch.utils.device import resolve_device
+from metal_flash_attention_tpu_torch.utils.errors import not_ported
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    """Mixtral-style: Llama backbone, MoE FFN every layer.  The defaults
+    are Mixtral-8x7B's widths."""
+    vocab_size: int = 32000
+    dim: int = 4096
+    n_layers: int = 32
+    n_heads: int = 32
+    n_kv_heads: int = 8
+    hidden_dim: int = 14336
+    n_experts: int = 8
+    top_k: int = 2
+    capacity_factor: float = 1.25
+    aux_loss_weight: float = 0.01
+    rope_theta: float = 500000.0
+    norm_eps: float = 1e-5
+    dtype: torch.dtype = torch.bfloat16
+
+    @property
+    def head_dim(self) -> int:
+        return self.dim // self.n_heads
+
+    @staticmethod
+    def tiny(**kw) -> "MoEConfig":
+        defaults = dict(vocab_size=256, dim=128, n_layers=2, n_heads=4,
+                        n_kv_heads=2, hidden_dim=256, n_experts=4,
+                        top_k=2)
+        defaults.update(kw)
+        return MoEConfig(**defaults)
+
+
+def _unported_mesh(mesh) -> None:
+    if mesh is not None:
+        raise not_ported("expert parallelism (mesh=)",
+                         "tensor-parallel serving")
+
+
+def _capacity(cfg: MoEConfig, n_tokens: int) -> int:
+    cap = int(math.ceil(
+        cfg.capacity_factor * n_tokens * cfg.top_k / cfg.n_experts))
+    return max(cap, cfg.top_k)
+
+
+def init_moe_ffn(cfg: MoEConfig, generator: torch.Generator,
+                 device=None) -> dict:
+    """One layer's router and expert bank: normal / sqrt(fan_in) in
+    float32, experts cast to ``cfg.dtype`` ([E, dim, hidden] and [E,
+    hidden, dim]); the router [dim, E] stays float32.  ``device=None``
+    means the card; ``generator`` must live on the same device."""
+    device = resolve_device(device)
+
+    def normal(shape):
+        w = torch.randn(shape, generator=generator, dtype=torch.float32,
+                        device=device)
+        return w.div_(math.sqrt(shape[-2]))
+
+    e, d, h = cfg.n_experts, cfg.dim, cfg.hidden_dim
+    return {
+        "w_router": normal((d, e)),
+        "w_gate": normal((e, d, h)).to(cfg.dtype),
+        "w_up": normal((e, d, h)).to(cfg.dtype),
+        "w_down": normal((e, h, d)).to(cfg.dtype),
+    }
+
+
+def _top_k(gates: torch.Tensor, k: int):
+    """-> (renormalized weights [T, k], expert ids [T, k]), best first,
+    equal gates in expert order (`jax.lax.top_k`'s tie rule, by a
+    stable sort)."""
+    topi = torch.sort(gates, dim=-1, descending=True,
+                      stable=True).indices[:, :k]
+    topw = gates.gather(1, topi)
+    return topw / topw.sum(dim=-1, keepdim=True).clamp_min(1e-9), topi
+
+
+def _slots(topi: torch.Tensor, n_experts: int, capacity: int):
+    """Each choice's slot in its expert's bucket -> (slot [T, k], kept
+    [T, k]): the rank among the expert's choices, round 0 first, then
+    round 1, each in token order; slots >= capacity are dropped."""
+    used = torch.zeros((n_experts,), dtype=torch.long, device=topi.device)
+    slots = []
+    for j in range(topi.shape[1]):
+        onehot = F.one_hot(topi[:, j], n_experts)
+        rank = onehot.cumsum(dim=0) - onehot + used
+        slots.append(rank.gather(1, topi[:, j:j + 1])[:, 0])
+        used = used + onehot.sum(dim=0)
+    slot = torch.stack(slots, dim=1)
+    return slot, slot < capacity
+
+
+def _aux_loss(gates: torch.Tensor, topi: torch.Tensor) -> torch.Tensor:
+    """E * sum_e(share of first choices on e * mean gate of e)."""
+    t, e = gates.shape
+    frac = F.one_hot(topi[:, 0], e).sum(dim=0).to(gates.dtype) / t
+    return e * (frac * gates.mean(dim=0)).sum()
+
+
+def route(gates: torch.Tensor, top_k: int, capacity: int):
+    """gates [T, E] softmax probabilities -> (dispatch [T, E, C] one-hot,
+    combine [T, E, C] gate-weighted, aux loss): the JAX package's
+    `route`, built from the index form that `moe_ffn` runs."""
+    t, e = gates.shape
+    topw, topi = _top_k(gates, top_k)
+    slot, kept = _slots(topi, e, capacity)
+    rows = torch.arange(t, device=gates.device)[:, None].expand_as(topi)
+    where = (rows[kept], topi[kept], slot[kept])
+    zeros = gates.new_zeros((t, e, capacity))
+    dispatch = zeros.index_put(where, torch.ones_like(topw[kept]))
+    combine = zeros.index_put(where, topw[kept])
+    return dispatch, combine, _aux_loss(gates, topi)
+
+
+def _dispatch(xt: torch.Tensor, topi, slot, kept, capacity: int,
+              n_experts: int):
+    """-> (expert inputs [E, C, dim], each choice's row in them [T, k]):
+    a kept choice copies its token into row e * C + c; the dropped ones
+    go to one spare row past the end, which is cut off."""
+    t, k = topi.shape
+    rows = n_experts * capacity
+    dest = torch.where(kept, topi * capacity + slot, rows)
+    src = xt[:, None].expand(t, k, xt.shape[1]).reshape(t * k, -1)
+    xe = xt.new_zeros((rows + 1, xt.shape[1])).index_copy(
+        0, dest.reshape(-1), src)
+    return xe[:-1].view(n_experts, capacity, -1), dest
+
+
+def _experts(params: dict, xe: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:
+    """Every expert's SwiGLU on its slots: [E, C, dim] -> [E, C, dim] in
+    ``cfg.dtype``; the SiLU and the gate product in float32."""
+    gate = F.silu(torch.bmm(xe, params["w_gate"]).float())
+    up = torch.bmm(xe, params["w_up"]).float()
+    return torch.bmm((gate * up).to(cfg.dtype), params["w_down"])
+
+
+def _combine(ye: torch.Tensor, dest, topw, kept) -> torch.Tensor:
+    """Each token's choices' outputs gathered back and summed, weighted
+    by their gates in float32 (a dropped choice weighs 0): -> [T, dim]
+    float32."""
+    t, k = dest.shape
+    flat = ye.reshape(-1, ye.shape[-1])
+    yk = flat.index_select(0, torch.where(kept, dest, 0).reshape(-1))
+    w = torch.where(kept, topw, 0.0)
+    return (yk.view(t, k, -1).float() * w[..., None]).sum(dim=1)
+
+
+def moe_ffn(params: dict, x: torch.Tensor, cfg: MoEConfig, mesh=None):
+    """x [batch, seq, dim] -> (y [batch, seq, dim] in x's dtype, aux
+    loss).  Capacity counts every token of the call."""
+    _unported_mesh(mesh)
+    b, s, d = x.shape
+    xt = x.reshape(b * s, d)
+    gates = torch.softmax(xt.float() @ params["w_router"].float(), dim=-1)
+    cap = _capacity(cfg, b * s)
+    topw, topi = _top_k(gates, cfg.top_k)
+    slot, kept = _slots(topi, cfg.n_experts, cap)
+    xe, dest = _dispatch(xt.to(cfg.dtype), topi, slot, kept, cap,
+                         cfg.n_experts)
+    y = _combine(_experts(params, xe, cfg), dest, topw, kept)
+    return y.reshape(b, s, d).to(x.dtype), _aux_loss(gates, topi)
+
+
+def _base_cfg(cfg: MoEConfig) -> llama.LlamaConfig:
+    """The Llama backbone config this MoE model wraps."""
+    return llama.LlamaConfig(
+        vocab_size=cfg.vocab_size, dim=cfg.dim, n_layers=cfg.n_layers,
+        n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+        hidden_dim=cfg.hidden_dim, rope_theta=cfg.rope_theta,
+        norm_eps=cfg.norm_eps, dtype=cfg.dtype)
+
+
+def init_params(cfg: MoEConfig, generator: torch.Generator,
+                device=None) -> dict:
+    """Llama backbone parameters with an MoE FFN (``layer["moe"]``) in
+    every layer.  The backbone is drawn with hidden_dim 0, so no dense
+    MLP is allocated (352 MB a layer at Mixtral's widths)."""
+    device = resolve_device(device)
+    params = llama.init_params(
+        dataclasses.replace(_base_cfg(cfg), hidden_dim=0), generator,
+        device=device)
+    for layer in params["layers"]:
+        for name in ("w_gate", "w_up", "w_down"):
+            del layer[name]
+        layer["moe"] = init_moe_ffn(cfg, generator, device=device)
+    return params
+
+
+def param_shardings(cfg: MoEConfig, mesh) -> dict:
+    raise not_ported("MoE parameter shardings (param_shardings)",
+                     "tensor-parallel serving")
+
+
+def forward_hidden(params: dict, tokens: torch.Tensor, cfg: MoEConfig, *,
+                   positions: Optional[torch.Tensor] = None,
+                   kv_caches: Optional[list] = None, mesh=None,
+                   remat: bool = False):
+    """tokens [batch, seq] -> (final-norm hidden states, per-layer (k,
+    v), aux loss averaged over the layers): everything before the lm
+    head.  ``remat=True`` checkpoints each layer
+    (`torch.utils.checkpoint`, non-reentrant), as `llama.forward_hidden`
+    does."""
+    _unported_mesh(mesh)
+    base = _base_cfg(cfg)
+    b, s = tokens.shape
+    if positions is None:
+        positions = torch.arange(s, device=tokens.device).expand(b, s)
+    cos, sin = llama.rope_frequencies(base, positions)
+    x = params["embed"][tokens.long()].to(cfg.dtype)
+
+    def one_layer(layer, x, cache):
+        x, kv = llama.attention_block(layer, x, base, cos, sin,
+                                      kv_cache=cache)
+        h = llama.rms_norm(x, layer["mlp_norm"], cfg.norm_eps)
+        y, aux = moe_ffn(layer["moe"], h, cfg)
+        return x + y, kv, aux
+
+    new_caches = []
+    aux_total = 0.0
+    for i, layer in enumerate(params["layers"]):
+        cache = kv_caches[i] if kv_caches is not None else None
+        if remat:
+            x, kv, aux = checkpoint(one_layer, layer, x, cache,
+                                    use_reentrant=False)
+        else:
+            x, kv, aux = one_layer(layer, x, cache)
+        new_caches.append(kv)
+        aux_total = aux_total + aux
+    x = llama.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return x, new_caches, aux_total / cfg.n_layers
+
+
+def forward(params: dict, tokens: torch.Tensor, cfg: MoEConfig, **kw):
+    """tokens [batch, seq] -> (float32 logits, per-layer (k, v), aux
+    loss)."""
+    x, new_caches, aux = forward_hidden(params, tokens, cfg, **kw)
+    return (x @ params["lm_head"]).float(), new_caches, aux
+
+
+def loss_fn(params: dict, tokens: torch.Tensor, cfg: MoEConfig, *,
+            fused_ce: bool = True, **kw) -> torch.Tensor:
+    """Next-token cross-entropy plus ``aux_loss_weight`` times the
+    load-balancing loss.  ``fused_ce`` (the default) runs the lm head
+    inside the chunked cross-entropy (`models.losses`);
+    ``fused_ce=False`` materialises the logits."""
+    targets = tokens[:, 1:]
+    if fused_ce:
+        x, _, aux = forward_hidden(params, tokens[:, :-1], cfg, **kw)
+        nll = fused_cross_entropy(x.reshape(-1, x.shape[-1]),
+                                  params["lm_head"], targets.reshape(-1))
+        return nll.mean() + cfg.aux_loss_weight * aux
+    logits, _, aux = forward(params, tokens[:, :-1], cfg, **kw)
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -logp.gather(-1, targets[..., None].long())
+    return nll.mean() + cfg.aux_loss_weight * aux
+
+
+def train_step(params: dict, tokens: torch.Tensor, cfg: MoEConfig,
+               lr: float = 1e-4, **kw):
+    """One SGD step, out of place: returns (new_params, loss), each
+    update taken in float32 and rounded to the parameter's dtype."""
+    return sgd_step(lambda p: loss_fn(p, tokens, cfg, **kw), params, lr)

@@ -40,10 +40,16 @@ def sgd_step(loss_fn: Callable[[object], torch.Tensor], params, lr: float):
     leaves, rebuild = flatten(params)
     work = [p.detach().requires_grad_(True) for p in leaves]
     loss = loss_fn(rebuild(work))
-    grads = torch.autograd.grad(loss, work)
+    grads = list(torch.autograd.grad(loss, work))
+    new = []
     with torch.no_grad():
-        new = [(p.float() - lr * g.float()).to(p.dtype)
-               for p, g in zip(leaves, grads)]
+        for i, p in enumerate(leaves):
+            # Each gradient goes once its update is taken, so that the
+            # old parameters, the gradients and the new ones are never
+            # all held at once.
+            g, grads[i] = grads[i], None
+            new.append((p.float() - lr * g.float()).to(p.dtype))
+            del g
     return rebuild(new), loss.detach()
 
 

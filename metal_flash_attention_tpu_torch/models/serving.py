@@ -63,6 +63,13 @@ module's jit caches (`_spec_burst_jit`, `_chunk_step_jit`,
 `_prefill_jit`, `_beam_scan_jit`) have no eager counterpart: here the
 functions run as they are, and `_beam_steps` is the loop JAX scans.
 
+Mixtral-style MoE (`models.moe`): the paged steps, and so their bursts,
+speculative decoding and the engine, are family-polymorphic: a layer
+that carries ``"moe"`` runs `moe.moe_ffn` (`_ffn_block`), with ``cfg`` a
+`MoEConfig`, and capacity counts every token of the step (a decode step
+routes every row, a chunk step every token of its chunks).  As in the
+JAX package, the dense and quantized steps take Llama layers only.
+
 Gemma-2 (`models.gemma`): `gemma_prefill`, `gemma_decode_step` and
 `gemma_generate` over the dense cache, `gemma_paged_chunk_step` and
 `gemma_paged_decode_step` over the paged one (the engine's family hooks).
@@ -103,7 +110,7 @@ from metal_flash_attention_tpu_torch import dispatch
 from metal_flash_attention_tpu_torch.descriptors.precision import (
     OperandPrecision,
 )
-from metal_flash_attention_tpu_torch.models import llama
+from metal_flash_attention_tpu_torch.models import llama, moe
 from metal_flash_attention_tpu_torch.utils.device import resolve_device
 from metal_flash_attention_tpu_torch.utils.errors import not_ported
 from metal_flash_attention_tpu_torch.ops.flash_decode import (
@@ -152,6 +159,7 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: llama.LlamaConfig,
     with lengths s.  Each layer's K/V are written into the cache (in
     place, at positions 0 .. s - 1) as the layer finishes, so no second
     copy of them is held."""
+    _llama_layers_only(params)
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device).expand(b, s)
     cos, sin = llama.rope_frequencies(cfg, positions)
@@ -161,7 +169,7 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: llama.LlamaConfig,
         cache.k[li][:, :, :s] = k
         cache.v[li][:, :, :s] = v
         del k, v
-        x = _ffn_block(layer, x, cfg)
+        x = llama.mlp_block(layer, x, cfg)
     x = llama.rms_norm(x[:, -1], params["final_norm"], cfg.norm_eps)
     logits = (x @ params["lm_head"]).float()
     return logits, cache._replace(lengths=torch.full_like(cache.lengths, s))
@@ -173,6 +181,7 @@ def decode_step(params: dict, token: torch.Tensor, cfg: llama.LlamaConfig,
     sequence's length (in place), float32 logits [batch, vocab] through
     `flash_decode`, and the cache with lengths + 1.  With
     ``cfg.sliding_window`` w each row attends its last w positions."""
+    _llama_layers_only(params)
     b = token.shape[0]
     positions = cache.lengths.long()[:, None]
     cos, sin = llama.rope_frequencies(cfg, positions)
@@ -187,7 +196,7 @@ def decode_step(params: dict, token: torch.Tensor, cfg: llama.LlamaConfig,
         o = flash_decode(q[:, :, 0].to(cfg.dtype), cache.k[li], cache.v[li],
                          kv_lens=lens, kv_starts=starts)
         x = x + llama.wo_proj(o.reshape(b, 1, -1), layer).to(x.dtype)
-        x = _ffn_block(layer, x, cfg)
+        x = llama.mlp_block(layer, x, cfg)
     x = llama.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = (x[:, 0] @ params["lm_head"]).float()
     return logits, cache._replace(lengths=lens)
@@ -404,6 +413,7 @@ def decode_step_quantized(params: dict, token: torch.Tensor,
     written into the tail at tail_len (in place), one `flash_decode`
     partial over each segment merged by lse; returns float32 logits
     [batch, vocab] and the cache with tail_len + 1."""
+    _llama_layers_only(params)
     b = token.shape[0]
     positions = (cache.prefix_len + cache.tail_len).long()[:, None]
     cos, sin = llama.rope_frequencies(cfg, positions)
@@ -424,7 +434,7 @@ def decode_step_quantized(params: dict, token: torch.Tensor,
                             lse_tail)
         x = x + llama.wo_proj(o.to(x.dtype).reshape(b, 1, -1),
                               layer).to(x.dtype)
-        x = _ffn_block(layer, x, cfg)
+        x = llama.mlp_block(layer, x, cfg)
     x = llama.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = (x[:, 0] @ params["lm_head"]).float()
     return logits, cache._replace(tail_len=cache.tail_len + 1)
@@ -497,10 +507,74 @@ def init_paged_model_cache(cfg: llama.LlamaConfig, batch: int,
 
 
 def _ffn_block(layer: dict, x: torch.Tensor, cfg) -> torch.Tensor:
-    """Dense SwiGLU MLP.  Mixture-of-experts layers are not ported."""
+    """Dense MLP or MoE FFN, keyed by the layer's parameters: the paged
+    steps are family-polymorphic (Llama layers carry w_gate / w_up /
+    w_down, Mixtral-style ones a routed expert bank, `models.moe`, with
+    ``cfg`` a `MoEConfig`).  The load-balancing loss is a training
+    quantity and is dropped."""
     if "moe" in layer:
-        raise not_ported("mixture-of-experts FFN layers", "MoE")
+        h = llama.rms_norm(x, layer["mlp_norm"], cfg.norm_eps)
+        y, _ = moe.moe_ffn(layer["moe"], h, cfg)
+        return x + y
     return llama.mlp_block(layer, x, cfg)
+
+
+def _last_writes(slots: torch.Tensor) -> torch.Tensor:
+    """slots [n]: each write's target -> [n], the index of the last write
+    to the same target (by a stable sort, on the device, no host read)."""
+    n = slots.numel()
+    order = torch.sort(slots, stable=True).indices
+    ranked = slots[order]
+    ends = torch.ones_like(ranked, dtype=torch.bool)
+    ends[:-1] = ranked[1:] != ranked[:-1]
+    at = torch.arange(n, device=slots.device)
+    # The first end of a run at or after each sorted position.
+    end = torch.where(ends, at, n).flip(0).cummin(0).values.flip(0)
+    last = torch.empty_like(order)
+    last[order] = order[end]
+    return last
+
+
+def _routed_write_order(params: dict, cache: PagedModelCache,
+                        kc: int) -> Optional[torch.Tensor]:
+    """For a model with a routed layer, the step's [b * kc] pool writes
+    (row-major) -> the index of the last write to the same (page, row),
+    else None.  Rows that share a slot (the engine's idle rows, all at
+    row 0 of the null page) differ under capacity, and on the card the
+    scatter's winner is unordered, so it would reach live rows through
+    the next layer's routes: `_take_writes` gives every such write the
+    last row's values, as a sequential scatter leaves them.  A dense
+    model's shared-slot rows reach no other row, so it skips this."""
+    b = cache.page_table.shape[0]
+    if b == 1 or not any("moe" in layer for layer in params["layers"]):
+        return None
+    ps = cache.k[0].shape[2]
+    pos = (cache.lengths.long()[:, None]
+           + torch.arange(kc, device=cache.lengths.device)[None, :])
+    page = torch.gather(cache.page_table.long(), 1, pos // ps)
+    return _last_writes((page * ps + pos % ps).flatten())
+
+
+def _take_writes(new: torch.Tensor, order: Optional[torch.Tensor]
+                 ) -> torch.Tensor:
+    """new [b, kv_heads, kc, d] with each (row, token) write replaced by
+    the one ``order`` names (`_routed_write_order`); None keeps it."""
+    if order is None:
+        return new
+    b, h, kc, d = new.shape
+    rows = new.transpose(1, 2).reshape(b * kc, h, d)[order]
+    return rows.view(b, kc, h, d).transpose(1, 2)
+
+
+def _llama_layers_only(params: dict) -> None:
+    """The dense and quantized steps run `llama.mlp_block`, as the JAX
+    package's do, so they serve no MoE layer: refuse one up front."""
+    if any("moe" in layer for layer in params["layers"]):
+        raise NotImplementedError(
+            "a mixture-of-experts layer runs on the paged bf16 steps only "
+            "(paged_chunk_step, paged_decode_step and what is built on "
+            "them); the dense and quantized steps take Llama layers, as "
+            "in the JAX package")
 
 
 def _check_unported(mesh) -> None:
@@ -526,14 +600,16 @@ def paged_chunk_step(params: dict, tokens: torch.Tensor,
         kc, device=tokens.device)[None, :]
     cos, sin = llama.rope_frequencies(cfg, positions)
     x = params["embed"][tokens.long()].to(cfg.dtype)
+    order = _routed_write_order(params, cache, kc)
     for li, layer in enumerate(params["layers"]):
         ll = None if lora is None else lora["layers"][li]
         q, k, v = llama.attention_qkv(layer, x, cfg, cos, sin, ll, lora_ids)
         layer_cache = paged_append_chunk(
             PagedKVCache(cache.k[li], cache.v[li], cache.page_table,
-                         cache.lengths), k, v)
+                         cache.lengths),
+            _take_writes(k, order), _take_writes(v, order))
         o = paged_prefill(q.to(cfg.dtype), layer_cache,
-                          window_size=cfg.sliding_window)
+                          window_size=getattr(cfg, "sliding_window", None))
         o = o.transpose(1, 2).reshape(b, kc, -1)
         x = x + llama.wo_proj(o, layer, ll, lora_ids).to(x.dtype)
         x = _ffn_block(layer, x, cfg)
@@ -555,14 +631,16 @@ def paged_decode_step(params: dict, token: torch.Tensor,
     positions = cache.lengths.long()[:, None]
     cos, sin = llama.rope_frequencies(cfg, positions)
     x = params["embed"][token.long()][:, None, :].to(cfg.dtype)
+    order = _routed_write_order(params, cache, 1)
     for li, layer in enumerate(params["layers"]):
         ll = None if lora is None else lora["layers"][li]
         q, k, v = llama.attention_qkv(layer, x, cfg, cos, sin, ll, lora_ids)
         layer_cache = paged_append_chunk(
             PagedKVCache(cache.k[li], cache.v[li], cache.page_table,
-                         cache.lengths), k, v)
+                         cache.lengths),
+            _take_writes(k, order), _take_writes(v, order))
         o = paged_decode(q[:, :, 0].to(cfg.dtype), layer_cache,
-                         window_size=cfg.sliding_window)
+                         window_size=getattr(cfg, "sliding_window", None))
         o = o.reshape(b, 1, -1)
         x = x + llama.wo_proj(o, layer, ll, lora_ids).to(x.dtype)
         x = _ffn_block(layer, x, cfg)
@@ -886,6 +964,7 @@ def paged_chunk_step_q(params: dict, tokens: torch.Tensor,
     A chunk that fills the page then flushes it (``flush_rows``: see
     `_flush_full_pages`).  Returns float32 logits [batch, k, vocab] and
     the advanced cache."""
+    _llama_layers_only(params)
     b, kc = tokens.shape
     positions = cache.lengths.long()[:, None] + torch.arange(
         kc, device=tokens.device)[None, :]
@@ -910,7 +989,7 @@ def paged_chunk_step_q(params: dict, tokens: torch.Tensor,
                             lse_ch)
         o = o.to(x.dtype).transpose(1, 2).reshape(b, kc, -1)
         x = x + llama.wo_proj(o, layer).to(x.dtype)
-        x = _ffn_block(layer, x, cfg)
+        x = llama.mlp_block(layer, x, cfg)
     x = llama.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = (x @ params["lm_head"]).float()
     return logits, _flush_full_pages(
@@ -932,6 +1011,7 @@ def paged_decode_step_q(params: dict, token: torch.Tensor,
     null page to absorb a write.  ``flush_rows``: see
     `_flush_full_pages`.  Returns float32 logits [batch, vocab] and the
     advanced cache."""
+    _llama_layers_only(params)
     b = token.shape[0]
     positions = cache.lengths.long()[:, None]
     cos, sin = llama.rope_frequencies(cfg, positions)
@@ -951,7 +1031,7 @@ def paged_decode_step_q(params: dict, token: torch.Tensor,
                             lse_tail)
         x = x + llama.wo_proj(o.to(x.dtype).reshape(b, 1, -1),
                               layer).to(x.dtype)
-        x = _ffn_block(layer, x, cfg)
+        x = llama.mlp_block(layer, x, cfg)
     x = llama.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = (x[:, 0] @ params["lm_head"]).float()
     added = (torch.ones_like(cache.tail_len) if active is None
@@ -1072,18 +1152,28 @@ def paged_decode_burst(params: dict, token: torch.Tensor,
       cache) -> (logits, cache) (`gemma_paged_decode_step`), in place of
       `paged_decode_step`; LoRA rides only on the default step.
 
-    A frozen row's length stops advancing; its write lands at its frozen
-    length, which nothing reads.  Returns (tokens [b, n_steps] int32, -1
-    where not emitted; valid [b, n_steps] bool; logprobs [b, n_steps]
-    float32; the cache; alive [b])."""
+    A row that is not alive rides along as an idle slot of the engine's
+    `step()` does: token 0 at length 0 on page 0, and its length stops
+    advancing.  So page 0 must be a reserved null page that no sequence
+    owns, as the engine's allocator keeps it.  A routed MoE layer counts
+    every row against its capacity, so the burst's steps then route as
+    `step()`'s (the JAX package's burst keeps a frozen row's token and
+    pages).  Returns
+    (tokens [b, n_steps] int32, -1 where not emitted; valid [b, n_steps]
+    bool; logprobs [b, n_steps] float32; the cache; alive [b])."""
     def step(tok, before, alive, i):
+        tok = torch.where(alive, tok, 0)
+        seen = before._replace(
+            page_table=torch.where(alive[:, None], before.page_table, 0),
+            lengths=torch.where(alive, before.lengths, 0))
         if step_fn is not None:
-            logits, after = step_fn(params, tok, cfg, before)
+            logits, after = step_fn(params, tok, cfg, seen)
         else:
-            logits, after = paged_decode_step(params, tok, cfg, before,
+            logits, after = paged_decode_step(params, tok, cfg, seen,
                                               lora=lora, lora_ids=lora_ids)
-        return logits, after._replace(lengths=torch.where(
-            alive, after.lengths, before.lengths))
+        return logits, after._replace(
+            page_table=before.page_table,
+            lengths=torch.where(alive, after.lengths, before.lengths))
 
     return _burst(step, cache, token, n_steps, active, remaining, seed=seed,
                   rids=rids, idx0=idx0, temp=temp, top_k=top_k, top_p=top_p,

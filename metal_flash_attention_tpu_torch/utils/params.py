@@ -16,9 +16,10 @@ from metal_flash_attention_tpu_torch.utils.device import resolve_device
 
 
 def _to_tensor(name: str, x, device, dtype: torch.dtype) -> torch.Tensor:
-    # Norm weights stay float32, as in the JAX package; every other
-    # array takes the model dtype.
-    keep = name.endswith("norm")
+    # Norm weights and the MoE router stay float32, as in the JAX
+    # package (a bf16 router would round the gates and move the routes);
+    # every other array takes the model dtype.
+    keep = name.endswith("norm") or name == "w_router"
     t = torch.from_numpy(np.array(x))
     return t.to(device=device, dtype=torch.float32 if keep else dtype)
 

@@ -11,21 +11,26 @@ def flatten(tree) -> tuple[list, Callable[[list], object]]:
     """-> (leaves in a fixed order, rebuild(new_leaves) -> same
     structure)."""
     leaves: list = []
-
-    def walk(node):
-        if isinstance(node, dict):
-            keys = list(node)
-            subs = [walk(node[k]) for k in keys]
-            return lambda it: {k: s(it) for k, s in zip(keys, subs)}
-        if isinstance(node, (list, tuple)):
-            subs = [walk(x) for x in node]
-            kind = type(node)
-            return lambda it: kind(s(it) for s in subs)
-        leaves.append(node)
-        return lambda it: next(it)
-
-    build = walk(tree)
+    build = _builder(tree, leaves)
     return leaves, lambda new: build(iter(new))
+
+
+def _builder(node, leaves: list):
+    """Append ``node``'s leaves to ``leaves``; -> build(it), the same
+    structure from an iterator of leaves.  A module function, not a
+    closure that calls itself: such a closure is a reference cycle, and
+    the leaves it holds (a training step's old parameters) would wait
+    for the garbage collector instead of going with the last reference."""
+    if isinstance(node, dict):
+        keys = list(node)
+        subs = [_builder(node[k], leaves) for k in keys]
+        return lambda it: {k: s(it) for k, s in zip(keys, subs)}
+    if isinstance(node, (list, tuple)):
+        subs = [_builder(x, leaves) for x in node]
+        kind = type(node)
+        return lambda it: kind(s(it) for s in subs)
+    leaves.append(node)
+    return lambda it: next(it)
 
 
 def tree_map(fn, tree):

@@ -126,7 +126,8 @@ def test_unported_dense_serving_raises():
     _, tcfg, _, tparams, _ = _setup("float32")
     cache = ts.init_cache(tcfg, 1, 16, device="cpu")
     moe = dict(tparams, layers=[dict(tparams["layers"][0], moe={})])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    # As in the JAX package, whose dense steps call `llama.mlp_block`.
+    with pytest.raises(NotImplementedError, match="paged bf16 steps only"):
         ts.decode_step(moe, torch.zeros(1, dtype=torch.int32), tcfg, cache)
 
 

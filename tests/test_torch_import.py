@@ -38,6 +38,7 @@ MODULES = [
     "metal_flash_attention_tpu_torch.models.llama",
     "metal_flash_attention_tpu_torch.models.lora",
     "metal_flash_attention_tpu_torch.models.losses",
+    "metal_flash_attention_tpu_torch.models.moe",
     "metal_flash_attention_tpu_torch.models.optim",
     "metal_flash_attention_tpu_torch.models.prefix_cache",
     "metal_flash_attention_tpu_torch.models.serving",

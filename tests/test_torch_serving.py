@@ -105,6 +105,17 @@ def test_unported_serving_options_raise():
         lora_ids=torch.tensor([i], dtype=torch.int32))[0] for i in (0, 1)]
     assert torch.equal(outs[0], base)
     assert not torch.allclose(outs[1], base, atol=1e-3)
-    moe = dict(tparams, layers=[dict(tparams["layers"][0], moe={})])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ts.paged_decode_step(moe, tok, tcfg, cache)
+    # Mixtral-style layers (taken since slice 18) run there: one token at
+    # position 0 gives `moe.forward`'s last logits.
+    from metal_flash_attention_tpu_torch.models import moe as tmoe
+    mcfg = tmoe.MoEConfig.tiny(n_layers=2, dtype=torch.float32)
+    gen = torch.Generator().manual_seed(1)
+    attn = ("wq", "wk", "wv", "wo", "attn_norm", "mlp_norm")
+    mparams = dict(tparams, layers=[
+        dict({k: layer[k] for k in attn},
+             moe=tmoe.init_moe_ffn(mcfg, gen, device="cpu"))
+        for layer in tparams["layers"]])
+    logits, _ = ts.paged_decode_step(mparams, tok, mcfg, cache)
+    want, _, _ = tmoe.forward(mparams, tok[None], mcfg)
+    assert torch.isfinite(logits).all()
+    assert float((logits - want[:, -1]).abs().max()) < 1e-4
