@@ -45,6 +45,17 @@ Phases (any failure exits non-zero and prints no result):
    add up to PAGED_COLD_L2_MULTIPLE times the 50 MB L2 (a serve's 32
    layers each have their own pools), and warm, on one pool; then free
    the engine;
+4a. tp_serve: tensor-parallel serving at world size 1 on this card: a
+   one-rank NCCL process group (over a `FileStore` in a temporary
+   directory) and `make_mesh(heads=1)`, the serve phase's weights cut to
+   the rank's blocks (`parallel.mesh.shard` under `llama.param_shardings`,
+   whole at tp 1), and the same 6 requests through `ServingEngine` with
+   ``kv_sharding`` and the steps partial on the mesh.  Every paged launch
+   count set to 0 just before and read just after: equal to the serve
+   phase's, all on the Hopper kernels; the streams must equal the serve
+   phase's token for token.  At world size 1 every all-reduce and
+   all-gather returns its input (the line counts them); the 4-card run is
+   `tools/tp_probe.py`;
 4b. quant_serve: the same 6 requests through the engine with INT8 pools
    (`kv_precision`, QUANT_SERVE_PRECISION) at full width and depth, every
    paged, decode and forward launch count set to 0 just before and read
@@ -438,7 +449,7 @@ the card's memory rate and the operations this run's data needs
 (visible query-key pairs only) over its peak bf16 rate, both from
 `runtime.DeviceContext` (3.35 TB/s and 989 TFLOP/s on an H100 SXM).
 
-Output: `serve`, `reference`, `quant_serve`, `burst_serve`,
+Output: `serve`, `tp_serve`, `reference`, `quant_serve`, `burst_serve`,
 `prefix_serve`, `quant_reference`,
 `dense_serve`, `dense_profile`, `decode_reference`, `quant_gemm`,
 `gemm_checks`, `convert`, `lora_train`, `lora_train_profile`,
@@ -993,6 +1004,125 @@ def serve(params, cfg, prompts, dev, kv_precision=None, burst=0,
             fail("engine did not drain")
     torch.cuda.synchronize(dev)
     return eng, rids, time.perf_counter() - t0, steps, num_pages
+
+
+@contextlib.contextmanager
+def counted_collectives(counts: dict):
+    """`torch.distributed.all_reduce` and `all_gather` wrapped, inside the
+    block, to count their calls into ``counts``."""
+    import torch.distributed as dist
+
+    originals = {n: getattr(dist, n) for n in ("all_reduce", "all_gather")}
+
+    def wrap(name, fn):
+        def run(*args, **kwargs):
+            counts[name] = counts.get(name, 0) + 1
+            return fn(*args, **kwargs)
+        return run
+    for n, fn in originals.items():
+        setattr(dist, n, wrap(n, fn))
+    try:
+        yield
+    finally:
+        for n, fn in originals.items():
+            setattr(dist, n, fn)
+
+
+def tp_serve(params, cfg, prompts, dev, card, streams, launches) -> dict:
+    """tp_serve: the serve phase's requests through the tensor-parallel
+    path at world size 1 (a one-rank NCCL group in this process, the mesh
+    steps, ``kv_sharding``); its streams must equal the serve phase's
+    (``streams``) and its paged launch counts ``launches``, all on the
+    Hopper kernels.  Returns its launch counts."""
+    import functools
+
+    import torch
+    import torch.distributed as dist
+    from metal_flash_attention_tpu_torch import ServingEngine
+    from metal_flash_attention_tpu_torch.models import llama, serving
+    from metal_flash_attention_tpu_torch.ops import paged_attention as pa
+    from metal_flash_attention_tpu_torch.parallel import (
+        HEAD_AXIS,
+        NamedSharding,
+        P,
+        make_mesh,
+        shard,
+    )
+
+    store = tempfile.mkdtemp(prefix="mfa_tp_store_")
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method="file://" + os.path.join(
+        store, "store"), rank=0, world_size=1)
+    try:
+        mesh = make_mesh(heads=1)
+        local = shard(params, llama.param_shardings(cfg, mesh), mesh)
+        if any(a is not b for a, b in zip(local["layers"][0].values(),
+                                          params["layers"][0].values())):
+            fail("tp_serve: a block at tp 1 is not the whole tensor")
+        max_seq = max(map(len, prompts)) + MAX_NEW + 1
+        num_pages = MAX_BATCH * -(-max_seq // PAGE) + 1
+
+        def engine():
+            return ServingEngine(
+                local, cfg, max_batch=MAX_BATCH, num_pages=num_pages,
+                page_size=PAGE, max_seq=max_seq,
+                chunk_step=functools.partial(serving.paged_chunk_step,
+                                             mesh=mesh),
+                decode_step=functools.partial(serving.paged_decode_step,
+                                              mesh=mesh),
+                kv_sharding=NamedSharding(mesh, P(None, HEAD_AXIS, None,
+                                                  None)))
+        warm = engine()                    # NCCL's communicator, not counted
+        warm.submit(prompts[1][:64], 2)
+        while not warm.idle:
+            warm.step()
+        del warm
+        eng = engine()
+        rids = [eng.submit(p, MAX_NEW) for p in prompts]
+        collectives = {}
+        pa.reset_launch_counts()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        steps = 0
+        with counted_collectives(collectives):
+            while not eng.idle:
+                eng.step()
+                steps += 1
+                if steps > 10_000:
+                    fail("tp_serve: engine did not drain")
+        torch.cuda.synchronize(dev)
+        secs = time.perf_counter() - t0
+        got = {k: n for k, n in pa.LAUNCH_COUNTS.items() if n}
+        tp_streams = [eng.result(r).tolist() for r in rids]
+        free = eng.alloc.free_pages
+        del eng, local
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    want = {k: n for k, n in launches.items() if n}
+    equal = tp_streams == streams
+    tokens = MAX_NEW * len(prompts)
+    print("tp_serve: " + json.dumps({
+        "world_size": 1, "mesh": {"data": 1, "heads": 1, "context": 1},
+        "requests": len(prompts), "new_tokens": tokens, "seconds": secs,
+        "steps": steps, "new_tokens_per_s": tokens / secs,
+        "streams_equal_serve": equal, "launches": got,
+        "launches_equal_serve": got == want, "collectives": collectives,
+        "note": "world size 1: every all_reduce and all_gather returned its "
+                "input, so the collectives carried nothing; tools/tp_probe.py "
+                "runs tp 4 on four cards",
+        "card": card}), flush=True)
+    if not equal:
+        fail("tp_serve: the tensor-parallel streams differ from the serve "
+             "phase's")
+    if got != want:
+        fail(f"tp_serve: launches {got}, the serve phase's {want}")
+    if not collectives.get("all_reduce") or not collectives.get("all_gather"):
+        fail("tp_serve: the mesh steps ran no collective")
+    if free != num_pages - 1:
+        fail("tp_serve: pages leaked")
+    return got
 
 
 def reference_check(params, cfg, dev) -> tuple[float, float]:
@@ -7390,6 +7520,10 @@ def run(dev, cache_dir) -> int:
             k: n for k, n in paged_launches.items() if n},
         "card": card}), flush=True)
 
+    serve_streams = [eng.result(r).tolist() for r in rids]
+    tp_launches = phase("tp_serve", tp_serve, params, cfg, prompts, dev,
+                        card, serve_streams, paged_launches)
+
     rel_rms, max_err = phase("reference", reference_check, params, cfg, dev)
     print(f"reference: {REFERENCE_LAYERS}-layer cut, {REFERENCE_PROMPT}-token "
           f"prompt, paged logits vs dense attention_reference: relative "
@@ -7506,7 +7640,8 @@ def run(dev, cache_dir) -> int:
                 "serve": entry["launches"],
                 "burst_serve": burst_launches["bf16"][entry["name"]],
                 "prefix_serve": prefix_launches["bf16"][entry["name"]],
-                "lora_serve": lora_serve_launches[entry["name"]]}
+                "lora_serve": lora_serve_launches[entry["name"]],
+                "tp_serve": tp_launches[entry["name"]]}
         if entry["name"] in ATTENTION_COUNTS:
             entry.setdefault("launches_by_path", {"train": entry[
                 "launches"]})["lora_train_step"] = lora_train_launches[

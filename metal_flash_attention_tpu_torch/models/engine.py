@@ -76,13 +76,27 @@ adapters share every step (adapter 0 is the base model).  The prefix
 cache keys a prompt's pages by its adapter too, since the adapter's
 delta is in the K/V; the JAX engine keys them by the tokens alone.
 
-The pools live on the parameters' device and are updated in place.  The
-tensor-parallel pools of the JAX engine (``kv_sharding``) raise
-NotImplementedError (ROADMAP.md).
+The pools live on the parameters' device and are updated in place.
+
+``kv_sharding``: tensor-parallel serving, a
+`parallel.mesh.NamedSharding` of the pools over the kv-heads axis,
+``NamedSharding(mesh, P(None, HEAD_AXIS, None, None))``, as the JAX
+engine takes it.  Every rank runs its own engine (SPMD) on its blocks of
+the parameters (`parallel.mesh.shard`) and pools of n_kv_heads / tp heads,
+with the steps built by ``functools.partial(serving.paged_*_step,
+mesh=mesh)``; without ``chunk_step`` / ``decode_step`` the engine takes
+the Llama steps on the sharding's mesh (the JAX engine's unsharded steps
+would run on the sharded pools through GSPMD).  The steps return the
+whole logits on every rank and the host loop is deterministic, so every
+rank makes the same decisions: the same admissions, pages and tokens.
+As in the JAX engine, ``kv_precision`` with ``kv_sharding`` raises
+ValueError, and so does ``lora`` (the JAX engine refuses it with the
+mesh steps).
 """
 
 from __future__ import annotations
 
+import functools
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Optional
@@ -100,7 +114,40 @@ from metal_flash_attention_tpu_torch.native.page_allocator import (
 from metal_flash_attention_tpu_torch.ops.paged_attention import (
     as_kv_precision,
 )
-from metal_flash_attention_tpu_torch.utils.errors import not_ported
+from metal_flash_attention_tpu_torch.parallel.mesh import (
+    HEAD_AXIS,
+    NamedSharding,
+    P,
+    axis_size,
+    check_mesh,
+)
+
+KV_SPEC = P(None, HEAD_AXIS, None, None)
+
+
+def _kv_heads_per_rank(kv_sharding, cfg) -> int:
+    """The pools' kv heads on this rank under ``kv_sharding`` (TypeError
+    for anything but a `NamedSharding` on a mesh, ValueError for another
+    spec or a heads axis that does not divide the kv heads)."""
+    if kv_sharding is None:
+        return cfg.n_kv_heads
+    if not isinstance(kv_sharding, NamedSharding):
+        raise TypeError(f"kv_sharding must be a parallel.mesh."
+                        f"NamedSharding, got {type(kv_sharding).__name__}")
+    tp = axis_size(check_mesh(kv_sharding.mesh), HEAD_AXIS)
+    if tuple(kv_sharding.spec) != KV_SPEC:
+        raise ValueError(f"kv_sharding splits the pools' kv-heads axis: "
+                         f"spec {KV_SPEC}, got {kv_sharding.spec}")
+    if cfg.n_kv_heads % tp:
+        raise ValueError(f"{cfg.n_kv_heads} kv heads do not split over {tp} "
+                         f"ranks of the heads axis")
+    return cfg.n_kv_heads // tp
+
+
+def _llama_step(name: str, mesh, *args, **kw):
+    """The Llama step ``name`` of `models.serving`, looked up at each call,
+    on ``mesh``."""
+    return getattr(serving, name)(*args, mesh=mesh, **kw)
 
 
 def _sample_rows(logits, seed, rids, idxs, temp, top_k, top_p):
@@ -185,9 +232,15 @@ class ServingEngine:
                                          or custom):
             raise ValueError("kv_precision is incompatible with draft_fn / "
                              "kv_sharding / custom step overrides")
-        if kv_sharding is not None:
-            raise not_ported("tensor-parallel pools (kv_sharding)",
-                             "tensor-parallel serving")
+        if lora is not None and kv_sharding is not None:
+            raise ValueError("lora rides on the unsharded paged steps only")
+        kv_heads = _kv_heads_per_rank(kv_sharding, cfg)
+        if kv_sharding is not None and not custom:
+            mesh = kv_sharding.mesh
+            chunk_step = functools.partial(_llama_step, "paged_chunk_step",
+                                           mesh)
+            decode_step = functools.partial(_llama_step, "paged_decode_step",
+                                            mesh)
         # draft_len and draft_history only matter with draft_fn.
         if draft_fn is not None and draft_len < 1:
             raise ValueError(f"draft_fn needs draft_len >= 1, got "
@@ -216,8 +269,7 @@ class ServingEngine:
         self._kv_precision = (None if kv_precision is None
                               else as_kv_precision(kv_precision))
         if self._kv_precision is None:
-            pool_shape = (num_pages, cfg.n_kv_heads, page_size,
-                          cfg.head_dim)
+            pool_shape = (num_pages, kv_heads, page_size, cfg.head_dim)
 
             def pools():
                 return [torch.zeros(pool_shape, dtype=cfg.dtype,

@@ -20,8 +20,12 @@ as in the JAX package, so the model serves and trains (`loss_fn`: the
 fused chunked cross-entropy over the tied head with the final cap;
 `train_step`: plain SGD).  Parameters are a plain dict of tensors with
 the JAX package's names and layouts (projections [in, out]; norm gains
-float32).  Large products stay `torch.matmul`.  Not ported yet: sharded
-attention (``mesh=``, `param_shardings`).
+float32).  Large products stay `torch.matmul`.  `param_shardings` and
+the blocks' ``mesh=`` serve over a tensor-parallel mesh (the paged steps
+in `models.serving`): each row-parallel partial is summed across the
+ranks BEFORE the post-attention / post-MLP norm, since a norm of a
+partial sum is not the norm of the sum.  Not ported yet: ``mesh=`` in
+`attention_block` and `forward_hidden` (sharded training).
 """
 
 from __future__ import annotations
@@ -41,12 +45,20 @@ from metal_flash_attention_tpu_torch.models.llama import (
 )
 from metal_flash_attention_tpu_torch.models.losses import fused_cross_entropy
 from metal_flash_attention_tpu_torch.models.optim import sgd_step
+from metal_flash_attention_tpu_torch.parallel.mesh import (
+    HEAD_AXIS,
+    P,
+    check_mesh,
+    row_parallel_sum,
+)
 from metal_flash_attention_tpu_torch.utils.device import resolve_device
-from metal_flash_attention_tpu_torch.utils.errors import not_ported
+from metal_flash_attention_tpu_torch.utils.errors import (
+    SHARDED_TRAINING,
+    not_ported,
+)
 
 # The fused cross-entropy's vocabulary chunk (the JAX package's).
 CE_CHUNK = 8192
-TP_ITEM = "tensor-parallel serving"
 
 
 @dataclass(frozen=True)
@@ -138,7 +150,23 @@ def init_params(cfg: GemmaConfig, generator: torch.Generator,
 
 
 def param_shardings(cfg: GemmaConfig, mesh) -> dict:
-    raise not_ported("Gemma parameter shardings (mesh=)", TP_ITEM)
+    """Tensor-parallel layout over the heads axis, a `PartitionSpec` per
+    leaf: wq / wk / wv / w_gate / w_up column-parallel, wo / w_down
+    row-parallel, the norms and the tied embedding replicated (so the
+    head needs no gather)."""
+    check_mesh(mesh)
+    col, row, rep = P(None, HEAD_AXIS), P(HEAD_AXIS, None), P()
+    layer = {
+        "wq": col, "wk": col, "wv": col, "wo": row,
+        "w_gate": col, "w_up": col, "w_down": row,
+        "pre_attn_norm": rep, "post_attn_norm": rep,
+        "pre_mlp_norm": rep, "post_mlp_norm": rep,
+    }
+    return {
+        "embed": rep,
+        "layers": [dict(layer) for _ in range(cfg.n_layers)],
+        "final_norm": rep,
+    }
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
@@ -172,22 +200,25 @@ def lm_head(params: dict, x: torch.Tensor, cfg: GemmaConfig) -> torch.Tensor:
 
 def attention_qkv(layer: dict, x: torch.Tensor, cfg: GemmaConfig, cos, sin):
     """pre_attn_norm -> QKV projections -> rope.  Returns q [b, q_heads,
-    s, d] and k/v [b, kv_heads, s, d]."""
+    s, d] and k/v [b, kv_heads, s, d]; with a rank's column blocks of the
+    projections, its own heads."""
     b, s, _ = x.shape
     h = rms_norm(x, layer["pre_attn_norm"], cfg.norm_eps)
-    q = (h @ layer["wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
-    k = (h @ layer["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-    v = (h @ layer["wv"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    q = (h @ layer["wq"]).reshape(b, s, -1, cfg.head_dim)
+    k = (h @ layer["wk"]).reshape(b, s, -1, cfg.head_dim)
+    v = (h @ layer["wv"]).reshape(b, s, -1, cfg.head_dim)
     q = apply_rope(q.transpose(1, 2), cos, sin)
     k = apply_rope(k.transpose(1, 2), cos, sin)
     return q, k, v.transpose(1, 2)
 
 
 def attention_out(layer: dict, o: torch.Tensor, x: torch.Tensor,
-                  cfg: GemmaConfig) -> torch.Tensor:
+                  cfg: GemmaConfig, mesh=None) -> torch.Tensor:
     """Attention's output o [b, s, q_heads * d] through wo and
-    post_attn_norm, added to the residual x."""
-    o = (o @ layer["wo"]).to(x.dtype)
+    post_attn_norm, added to the residual x.  With ``mesh``, o holds this
+    rank's heads and wo its row block: the partials are summed over the
+    heads axis before the norm."""
+    o = row_parallel_sum(o @ layer["wo"], mesh).to(x.dtype)
     return x + rms_norm(o, layer["post_attn_norm"], cfg.norm_eps)
 
 
@@ -198,7 +229,7 @@ def attention_block(layer: dict, x: torch.Tensor, cfg: GemmaConfig, cos,
     ``window`` when given, the logits soft-capped.  With ``kv_cache =
     (k_prefix, v_prefix)`` the new K/V are appended to the prefix."""
     if mesh is not None:
-        raise not_ported("sharded attention (mesh=)", TP_ITEM)
+        raise not_ported("sharded attention (mesh=)", SHARDED_TRAINING)
     b, s, _ = x.shape
     q, k, v = attention_qkv(layer, x, cfg, cos, sin)
     if kv_cache is not None:
@@ -211,13 +242,16 @@ def attention_block(layer: dict, x: torch.Tensor, cfg: GemmaConfig, cos,
                          cfg), (k, v)
 
 
-def mlp_block(layer: dict, x: torch.Tensor, cfg: GemmaConfig) -> torch.Tensor:
+def mlp_block(layer: dict, x: torch.Tensor, cfg: GemmaConfig,
+              mesh=None) -> torch.Tensor:
     """Residual GeGLU MLP: the tanh GELU and the gate product in float32,
-    the down projection in the model dtype, then post_mlp_norm."""
+    the down projection in the model dtype, then post_mlp_norm.  With
+    ``mesh``, the row-parallel partials are summed before the norm."""
     h = rms_norm(x, layer["pre_mlp_norm"], cfg.norm_eps)
     gate = F.gelu((h @ layer["w_gate"]).float(), approximate="tanh")
     up = (h @ layer["w_up"]).float()
-    o = ((gate * up).to(x.dtype) @ layer["w_down"]).to(x.dtype)
+    o = row_parallel_sum((gate * up).to(x.dtype) @ layer["w_down"],
+                         mesh).to(x.dtype)
     return x + rms_norm(o, layer["post_mlp_norm"], cfg.norm_eps)
 
 

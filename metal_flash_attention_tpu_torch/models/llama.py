@@ -13,7 +13,11 @@ Large products stay `torch.matmul`, as the JAX package leaves them to
 XLA; only attention is a hand-written kernel on the card.  ``lora=`` /
 ``lora_ids=`` add per-row multi-adapter LoRA deltas to the attention
 projections (`models.lora`), differentiable, so the same path
-fine-tunes.  Not ported yet: sharded attention (``mesh=``).
+fine-tunes.  `param_shardings` gives the tensor-parallel layout that
+`parallel.mesh.shard` cuts each rank's block by (the serving steps take
+``mesh=``, `models.serving`); `mlp_block` sums its row-parallel partial
+over the mesh when given one.  Not ported yet: ``mesh=`` in
+`attention_block` and `forward_hidden` (sharded training).
 """
 
 from __future__ import annotations
@@ -33,8 +37,17 @@ from metal_flash_attention_tpu_torch.models.optim import sgd_step
 from metal_flash_attention_tpu_torch.ops.flash_attention import (
     flash_attention,
 )
+from metal_flash_attention_tpu_torch.parallel.mesh import (
+    HEAD_AXIS,
+    P,
+    check_mesh,
+    row_parallel_sum,
+)
 from metal_flash_attention_tpu_torch.utils.device import resolve_device
-from metal_flash_attention_tpu_torch.utils.errors import not_ported
+from metal_flash_attention_tpu_torch.utils.errors import (
+    SHARDED_TRAINING,
+    not_ported,
+)
 
 
 @dataclass(frozen=True)
@@ -110,6 +123,31 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
     }
 
 
+def param_shardings(cfg: LlamaConfig, mesh, *, qkv_bias: bool = False
+                    ) -> dict:
+    """Tensor-parallel layout over the heads axis, a `PartitionSpec` per
+    leaf: wq / wk / wv / w_gate / w_up / lm_head column-parallel, wo /
+    w_down row-parallel, the rest replicated.  ``qkv_bias``: the tree has
+    Qwen2's bq / bk / bv, split with their weights' columns (the JAX
+    package's layout has no biases).  ``mesh`` is checked
+    (`parallel.mesh.check_mesh`)."""
+    check_mesh(mesh)
+    col, row, rep = P(None, HEAD_AXIS), P(HEAD_AXIS, None), P()
+    layer = {
+        "wq": col, "wk": col, "wv": col, "wo": row,
+        "w_gate": col, "w_up": col, "w_down": row,
+        "attn_norm": rep, "mlp_norm": rep,
+    }
+    if qkv_bias:
+        layer.update(bq=P(HEAD_AXIS), bk=P(HEAD_AXIS), bv=P(HEAD_AXIS))
+    return {
+        "embed": rep,
+        "layers": [dict(layer) for _ in range(cfg.n_layers)],
+        "final_norm": rep,
+        "lm_head": col,
+    }
+
+
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
              eps: float) -> torch.Tensor:
     """RMSNorm in float32, cast back to x's dtype."""
@@ -157,19 +195,24 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
                      dim=-1).to(x.dtype)
 
 
-def mlp_block(layer: dict, x: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
-    """Residual SwiGLU MLP; the SiLU and the gate product in float32."""
+def mlp_block(layer: dict, x: torch.Tensor, cfg: LlamaConfig,
+              mesh=None) -> torch.Tensor:
+    """Residual SwiGLU MLP; the SiLU and the gate product in float32.
+    With ``mesh`` the layer holds this rank's column block of w_gate /
+    w_up and row block of w_down, and the partial products are summed
+    over the heads axis (`parallel.mesh.row_parallel_sum`)."""
     h = rms_norm(x, layer["mlp_norm"], cfg.norm_eps)
     gate = F.silu((h @ layer["w_gate"]).float())
     up = (h @ layer["w_up"]).float()
-    return x + ((gate * up).to(x.dtype) @ layer["w_down"]).to(x.dtype)
+    down = (gate * up).to(x.dtype) @ layer["w_down"]
+    return x + row_parallel_sum(down, mesh).to(x.dtype)
 
 
 def attention_qkv(layer: dict, x: torch.Tensor, cfg: LlamaConfig, cos, sin,
                   lora_layer: Optional[dict] = None, lora_ids=None):
     """norm -> QKV projections (+ Qwen2-style bias, + each row's LoRA
     delta) -> rope.  Returns q [b, q_heads, s, d] and k/v [b, kv_heads,
-    s, d]."""
+    s, d]; with a rank's column blocks of the projections, its own heads."""
     b, s, _ = x.shape
     h = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
 
@@ -179,9 +222,9 @@ def attention_qkv(layer: dict, x: torch.Tensor, cfg: LlamaConfig, cos, sin,
         if bias is not None:
             y = y + bias.to(y.dtype)
         return lora_delta(y, h, lora_layer, name, lora_ids)
-    q = proj("wq").reshape(b, s, cfg.n_heads, cfg.head_dim)
-    k = proj("wk").reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-    v = proj("wv").reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    q = proj("wq").reshape(b, s, -1, cfg.head_dim)
+    k = proj("wk").reshape(b, s, -1, cfg.head_dim)
+    v = proj("wv").reshape(b, s, -1, cfg.head_dim)
     q = apply_rope(q.transpose(1, 2), cos, sin)
     k = apply_rope(k.transpose(1, 2), cos, sin)
     return q, k, v.transpose(1, 2)
@@ -208,8 +251,7 @@ def attention_block(layer: dict, x: torch.Tensor, cfg: LlamaConfig, cos,
     that tile, as the JAX package does.  ``lora_layer`` / ``lora_ids``:
     this layer's adapter pairs and each row's adapter (None: adapter 0)."""
     if mesh is not None:
-        raise not_ported("sharded attention (mesh=)",
-                         "tensor-parallel serving")
+        raise not_ported("sharded attention (mesh=)", SHARDED_TRAINING)
     b, s, _ = x.shape
     q, k, v = attention_qkv(layer, x, cfg, cos, sin, lora_layer, lora_ids)
     if kv_cache is not None:

@@ -25,8 +25,17 @@ returns JAX's (dispatch, combine, aux).  The expert products are
 `torch.bmm` in the model dtype with the SiLU and the gate product in
 float32, plain products that the JAX package leaves to XLA; attention
 is `llama.attention_block` (the fused flash-attention kernels on the
-card).  Not ported: expert parallelism over a mesh (``mesh=``,
-`param_shardings`).
+card).
+
+Expert parallelism (`param_shardings`, ``moe_ffn(..., mesh=)``): the
+experts split over the mesh's heads axis (E / tp a rank, as the JAX
+package shards them), attention tensor-parallel as in Llama.  Every rank
+routes every token (input and router are replicated, so the routes are
+the same on every rank), runs only its own experts over their capacity
+slots, and combines their gated outputs into a float32 partial that one
+all-reduce over the heads axis sums.  JAX lowers its sharded einsums to
+the same sum.  Not ported yet: ``mesh=`` in `forward_hidden`, `loss_fn`
+and `train_step` (sharded training).
 """
 
 from __future__ import annotations
@@ -37,14 +46,26 @@ from dataclasses import dataclass
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from metal_flash_attention_tpu_torch.models import llama
 from metal_flash_attention_tpu_torch.models.losses import fused_cross_entropy
 from metal_flash_attention_tpu_torch.models.optim import sgd_step
+from metal_flash_attention_tpu_torch.parallel.mesh import (
+    HEAD_AXIS,
+    P,
+    axis_group,
+    axis_index,
+    axis_size,
+    check_mesh,
+)
 from metal_flash_attention_tpu_torch.utils.device import resolve_device
-from metal_flash_attention_tpu_torch.utils.errors import not_ported
+from metal_flash_attention_tpu_torch.utils.errors import (
+    SHARDED_TRAINING,
+    not_ported,
+)
 
 
 @dataclass(frozen=True)
@@ -80,8 +101,21 @@ class MoEConfig:
 
 def _unported_mesh(mesh) -> None:
     if mesh is not None:
-        raise not_ported("expert parallelism (mesh=)",
-                         "tensor-parallel serving")
+        raise not_ported("expert parallelism in training (mesh=)",
+                         SHARDED_TRAINING)
+
+
+def _expert_block(cfg: MoEConfig, mesh) -> tuple[int, int]:
+    """(this rank's expert block index, experts a rank) over the heads
+    axis; (0, n_experts) without a mesh.  ValueError when the axis does
+    not divide the experts."""
+    if mesh is None:
+        return 0, cfg.n_experts
+    tp = axis_size(check_mesh(mesh), HEAD_AXIS)
+    if cfg.n_experts % tp:
+        raise ValueError(f"{cfg.n_experts} experts do not split over "
+                         f"{tp} ranks of the heads axis")
+    return axis_index(mesh, HEAD_AXIS), cfg.n_experts // tp
 
 
 def _capacity(cfg: MoEConfig, n_tokens: int) -> int:
@@ -194,17 +228,24 @@ def _combine(ye: torch.Tensor, dest, topw, kept) -> torch.Tensor:
 
 def moe_ffn(params: dict, x: torch.Tensor, cfg: MoEConfig, mesh=None):
     """x [batch, seq, dim] -> (y [batch, seq, dim] in x's dtype, aux
-    loss).  Capacity counts every token of the call."""
-    _unported_mesh(mesh)
+    loss).  Capacity counts every token of the call.  With ``mesh``,
+    ``params`` holds this rank's block of the experts (`param_shardings`)
+    and x is whole on every rank: the rank's experts' float32 partial is
+    summed over the heads axis."""
+    block, e_local = _expert_block(cfg, mesh)
     b, s, d = x.shape
     xt = x.reshape(b * s, d)
     gates = torch.softmax(xt.float() @ params["w_router"].float(), dim=-1)
     cap = _capacity(cfg, b * s)
     topw, topi = _top_k(gates, cfg.top_k)
     slot, kept = _slots(topi, cfg.n_experts, cap)
-    xe, dest = _dispatch(xt.to(cfg.dtype), topi, slot, kept, cap,
-                         cfg.n_experts)
-    y = _combine(_experts(params, xe, cfg), dest, topw, kept)
+    # This rank's choices, numbered among its own experts.
+    mine = kept & (topi // e_local == block)
+    xe, dest = _dispatch(xt.to(cfg.dtype), topi - block * e_local, slot,
+                         mine, cap, e_local)
+    y = _combine(_experts(params, xe, cfg), dest, topw, mine)
+    if mesh is not None:
+        dist.all_reduce(y, group=axis_group(mesh, HEAD_AXIS))
     return y.reshape(b, s, d).to(x.dtype), _aux_loss(gates, topi)
 
 
@@ -234,8 +275,17 @@ def init_params(cfg: MoEConfig, generator: torch.Generator,
 
 
 def param_shardings(cfg: MoEConfig, mesh) -> dict:
-    raise not_ported("MoE parameter shardings (param_shardings)",
-                     "tensor-parallel serving")
+    """The backbone's `llama.param_shardings` (attention tensor-parallel
+    over the heads axis), every expert weight split on its expert dim
+    over the same axis, the router replicated."""
+    specs = llama.param_shardings(_base_cfg(cfg), mesh)
+    ep = P(HEAD_AXIS, None, None)
+    for layer in specs["layers"]:
+        for name in ("w_gate", "w_up", "w_down"):
+            del layer[name]
+        layer["moe"] = {"w_router": P(), "w_gate": ep, "w_up": ep,
+                        "w_down": ep}
+    return specs
 
 
 def forward_hidden(params: dict, tokens: torch.Tensor, cfg: MoEConfig, *,

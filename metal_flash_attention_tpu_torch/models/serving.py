@@ -70,6 +70,16 @@ that carries ``"moe"`` runs `moe.moe_ffn` (`_ffn_block`), with ``cfg`` a
 routes every row, a chunk step every token of its chunks).  As in the
 JAX package, the dense and quantized steps take Llama layers only.
 
+Tensor-parallel serving (``mesh=`` in the four paged steps, so in their
+bursts, speculative rounds and the engine's ``kv_sharding``): SPMD over
+`torch.distributed`, each rank holding its blocks of the parameters
+(`parallel.mesh.shard` under a family's `param_shardings`) and pools of
+its kv heads.  The paged kernel runs on the rank's heads
+(`_paged_attn_tp`); the row-parallel products (wo, w_down, an MoE layer's
+experts) are summed over the heads axis in float32, before Gemma's
+post-norms; Llama's lm_head blocks are all-gathered, Gemma's tied head is
+replicated.  LoRA stays unsharded.
+
 Gemma-2 (`models.gemma`): `gemma_prefill`, `gemma_decode_step` and
 `gemma_generate` over the dense cache, `gemma_paged_chunk_step` and
 `gemma_paged_decode_step` over the paged one (the engine's family hooks).
@@ -111,8 +121,14 @@ from metal_flash_attention_tpu_torch.descriptors.precision import (
     OperandPrecision,
 )
 from metal_flash_attention_tpu_torch.models import llama, moe
+from metal_flash_attention_tpu_torch.parallel.mesh import (
+    HEAD_AXIS,
+    axis_size,
+    check_mesh,
+    gather_columns,
+    row_parallel_sum,
+)
 from metal_flash_attention_tpu_torch.utils.device import resolve_device
-from metal_flash_attention_tpu_torch.utils.errors import not_ported
 from metal_flash_attention_tpu_torch.ops.flash_decode import (
     flash_decode,
     write_rows,
@@ -506,17 +522,48 @@ def init_paged_model_cache(cfg: llama.LlamaConfig, batch: int,
                                                device=device))
 
 
-def _ffn_block(layer: dict, x: torch.Tensor, cfg) -> torch.Tensor:
+def _paged_attn_tp(fn, mesh, q: torch.Tensor, layer_cache: PagedKVCache,
+                   **kw) -> torch.Tensor:
+    """A paged kernel on this rank's heads (all of them without a mesh):
+    the JAX package runs it as a shard_map island over the heads axis.
+    Here q [b, q_heads / tp, ...] and the pools [P, kv_heads / tp, page,
+    d] already hold the rank's blocks, so the call is local: q-head
+    blocks are contiguous, so each GQA group stays whole on one rank, and
+    attention moves no data between ranks."""
+    if mesh is not None and q.shape[1] % layer_cache.k_pages.shape[1]:
+        raise ValueError(f"{q.shape[1]} local q heads over "
+                         f"{layer_cache.k_pages.shape[1]} local kv heads")
+    return fn(q, layer_cache, **kw)
+
+
+def _tp_mesh(mesh, cfg, lora=None):
+    """Check ``mesh`` for the tensor-parallel steps: a `make_mesh` mesh
+    whose heads axis divides the q and kv heads (ValueError otherwise);
+    LoRA stays on one card, as the JAX engine keeps it there."""
+    if mesh is None:
+        return None
+    tp = axis_size(check_mesh(mesh), HEAD_AXIS)
+    if cfg.n_heads % tp or cfg.n_kv_heads % tp:
+        raise ValueError(f"{cfg.n_heads} q heads and {cfg.n_kv_heads} kv "
+                         f"heads do not split over {tp} ranks of the heads "
+                         f"axis")
+    if lora is not None:
+        raise ValueError("lora rides on the unsharded paged steps only")
+    return mesh
+
+
+def _ffn_block(layer: dict, x: torch.Tensor, cfg, mesh=None) -> torch.Tensor:
     """Dense MLP or MoE FFN, keyed by the layer's parameters: the paged
     steps are family-polymorphic (Llama layers carry w_gate / w_up /
     w_down, Mixtral-style ones a routed expert bank, `models.moe`, with
     ``cfg`` a `MoEConfig`).  The load-balancing loss is a training
-    quantity and is dropped."""
+    quantity and is dropped.  ``mesh``: the layer holds the rank's
+    blocks, and their partials are summed over the heads axis."""
     if "moe" in layer:
         h = llama.rms_norm(x, layer["mlp_norm"], cfg.norm_eps)
-        y, _ = moe.moe_ffn(layer["moe"], h, cfg)
+        y, _ = moe.moe_ffn(layer["moe"], h, cfg, mesh=mesh)
         return x + y
-    return llama.mlp_block(layer, x, cfg)
+    return llama.mlp_block(layer, x, cfg, mesh=mesh)
 
 
 def _last_writes(slots: torch.Tensor) -> torch.Tensor:
@@ -577,12 +624,6 @@ def _llama_layers_only(params: dict) -> None:
             "in the JAX package")
 
 
-def _check_unported(mesh) -> None:
-    if mesh is not None:
-        raise not_ported("tensor-parallel serving (mesh=)",
-                         "tensor-parallel serving")
-
-
 def paged_chunk_step(params: dict, tokens: torch.Tensor,
                      cfg: llama.LlamaConfig, cache: PagedModelCache,
                      mesh=None, lora=None, lora_ids=None
@@ -593,8 +634,21 @@ def paged_chunk_step(params: dict, tokens: torch.Tensor,
     cache.  Attention is `paged_prefill` (causal at each query's
     position, ragged lengths per sequence).  ``lora`` / ``lora_ids``:
     stacked adapters (`models.lora`) and each row's adapter, on the
-    attention projections."""
-    _check_unported(mesh)
+    attention projections.
+
+    ``mesh``: tensor-parallel serving over the mesh's heads axis (SPMD:
+    every rank calls the step with the same tokens).  The rank holds its
+    blocks of the parameters (`parallel.mesh.shard` under
+    `llama.param_shardings` or `moe.param_shardings`) and pools of its
+    n_kv_heads / tp heads (the engine's ``kv_sharding``).  The paged
+    kernel runs on its n_heads / tp q heads (`_paged_attn_tp`); wo's and
+    w_down's row-parallel partials (and an MoE layer's experts') are
+    summed in float32 over the heads axis and cast back to the model
+    dtype (`parallel.mesh.row_parallel_sum`); lm_head's column blocks
+    are all-gathered, so every rank returns the whole float32 logits.
+    ValueError when tp does not divide the heads (or the experts); LoRA
+    is refused with a mesh."""
+    mesh = _tp_mesh(mesh, cfg, lora)
     b, kc = tokens.shape
     positions = cache.lengths.long()[:, None] + torch.arange(
         kc, device=tokens.device)[None, :]
@@ -608,13 +662,15 @@ def paged_chunk_step(params: dict, tokens: torch.Tensor,
             PagedKVCache(cache.k[li], cache.v[li], cache.page_table,
                          cache.lengths),
             _take_writes(k, order), _take_writes(v, order))
-        o = paged_prefill(q.to(cfg.dtype), layer_cache,
-                          window_size=getattr(cfg, "sliding_window", None))
+        o = _paged_attn_tp(paged_prefill, mesh, q.to(cfg.dtype),
+                           layer_cache,
+                           window_size=getattr(cfg, "sliding_window", None))
         o = o.transpose(1, 2).reshape(b, kc, -1)
-        x = x + llama.wo_proj(o, layer, ll, lora_ids).to(x.dtype)
-        x = _ffn_block(layer, x, cfg)
+        x = x + row_parallel_sum(llama.wo_proj(o, layer, ll, lora_ids),
+                                 mesh).to(x.dtype)
+        x = _ffn_block(layer, x, cfg, mesh=mesh)
     x = llama.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = (x @ params["lm_head"]).float()
+    logits = gather_columns((x @ params["lm_head"]).float(), mesh)
     return logits, cache._replace(lengths=cache.lengths + kc)
 
 
@@ -624,9 +680,9 @@ def paged_decode_step(params: dict, token: torch.Tensor,
                       ) -> tuple[torch.Tensor, PagedModelCache]:
     """One decode step: token [batch] -> its K/V appended at lengths
     (in place), float32 logits [batch, vocab] via `paged_decode`, and
-    the cache with lengths + 1.  ``lora`` / ``lora_ids`` as in
+    the cache with lengths + 1.  ``mesh``, ``lora`` / ``lora_ids`` as in
     `paged_chunk_step`."""
-    _check_unported(mesh)
+    mesh = _tp_mesh(mesh, cfg, lora)
     b = token.shape[0]
     positions = cache.lengths.long()[:, None]
     cos, sin = llama.rope_frequencies(cfg, positions)
@@ -639,13 +695,15 @@ def paged_decode_step(params: dict, token: torch.Tensor,
             PagedKVCache(cache.k[li], cache.v[li], cache.page_table,
                          cache.lengths),
             _take_writes(k, order), _take_writes(v, order))
-        o = paged_decode(q[:, :, 0].to(cfg.dtype), layer_cache,
-                         window_size=getattr(cfg, "sliding_window", None))
+        o = _paged_attn_tp(paged_decode, mesh, q[:, :, 0].to(cfg.dtype),
+                           layer_cache,
+                           window_size=getattr(cfg, "sliding_window", None))
         o = o.reshape(b, 1, -1)
-        x = x + llama.wo_proj(o, layer, ll, lora_ids).to(x.dtype)
-        x = _ffn_block(layer, x, cfg)
+        x = x + row_parallel_sum(llama.wo_proj(o, layer, ll, lora_ids),
+                                 mesh).to(x.dtype)
+        x = _ffn_block(layer, x, cfg, mesh=mesh)
     x = llama.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = (x[:, 0] @ params["lm_head"]).float()
+    logits = gather_columns((x[:, 0] @ params["lm_head"]).float(), mesh)
     return logits, cache._replace(lengths=cache.lengths + 1)
 
 
@@ -748,10 +806,13 @@ def gemma_paged_chunk_step(params: dict, tokens: torch.Tensor, cfg,
     positions lengths .. lengths + k - 1, their K/V appended (in place),
     soft-capped float32 logits [batch, k, vocab].  Attention is
     `paged_prefill` with the soft cap, each local layer within its
-    sliding window.  The engine's ``chunk_step`` for the Gemma family."""
+    sliding window.  The engine's ``chunk_step`` for the Gemma family.
+    ``mesh``: tensor-parallel serving, as in `paged_chunk_step` (shard
+    with `gemma.param_shardings`); the tied head is replicated, so the
+    logits need no gather."""
     from metal_flash_attention_tpu_torch.models import gemma
 
-    _check_unported(mesh)
+    mesh = _tp_mesh(mesh, cfg)
     b, kc = tokens.shape
     positions = cache.lengths.long()[:, None] + torch.arange(
         kc, device=tokens.device)[None, :]
@@ -762,12 +823,13 @@ def gemma_paged_chunk_step(params: dict, tokens: torch.Tensor, cfg,
         layer_cache = paged_append_chunk(
             PagedKVCache(cache.k[li], cache.v[li], cache.page_table,
                          cache.lengths), k, v)
-        o = paged_prefill(q.to(cfg.dtype), layer_cache, scale=cfg.attn_scale,
-                          logit_softcap=cfg.attn_logit_softcap,
-                          window_size=gemma.layer_window(cfg, li))
+        o = _paged_attn_tp(paged_prefill, mesh, q.to(cfg.dtype),
+                           layer_cache, scale=cfg.attn_scale,
+                           logit_softcap=cfg.attn_logit_softcap,
+                           window_size=gemma.layer_window(cfg, li))
         x = gemma.attention_out(layer, o.transpose(1, 2).reshape(b, kc, -1),
-                                x, cfg)
-        x = gemma.mlp_block(layer, x, cfg)
+                                x, cfg, mesh=mesh)
+        x = gemma.mlp_block(layer, x, cfg, mesh=mesh)
     x = gemma.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return gemma.lm_head(params, x, cfg), cache._replace(
         lengths=cache.lengths + kc)
@@ -780,10 +842,11 @@ def gemma_paged_decode_step(params: dict, token: torch.Tensor, cfg,
     K/V appended at lengths (in place), soft-capped float32 logits
     [batch, vocab] via `paged_decode` with the soft cap (each local layer
     within its sliding window), and the cache with lengths + 1.  The
-    engine's ``decode_step`` for the Gemma family."""
+    engine's ``decode_step`` for the Gemma family.  ``mesh`` as in
+    `gemma_paged_chunk_step`."""
     from metal_flash_attention_tpu_torch.models import gemma
 
-    _check_unported(mesh)
+    mesh = _tp_mesh(mesh, cfg)
     b = token.shape[0]
     positions = cache.lengths.long()[:, None]
     cos, sin = llama.rope_frequencies(cfg, positions)
@@ -793,12 +856,13 @@ def gemma_paged_decode_step(params: dict, token: torch.Tensor, cfg,
         layer_cache = paged_append_chunk(
             PagedKVCache(cache.k[li], cache.v[li], cache.page_table,
                          cache.lengths), k, v)
-        o = paged_decode(q[:, :, 0].to(cfg.dtype), layer_cache,
-                         scale=cfg.attn_scale,
-                         logit_softcap=cfg.attn_logit_softcap,
-                         window_size=gemma.layer_window(cfg, li))
-        x = gemma.attention_out(layer, o.reshape(b, 1, -1), x, cfg)
-        x = gemma.mlp_block(layer, x, cfg)
+        o = _paged_attn_tp(paged_decode, mesh, q[:, :, 0].to(cfg.dtype),
+                           layer_cache, scale=cfg.attn_scale,
+                           logit_softcap=cfg.attn_logit_softcap,
+                           window_size=gemma.layer_window(cfg, li))
+        x = gemma.attention_out(layer, o.reshape(b, 1, -1), x, cfg,
+                                mesh=mesh)
+        x = gemma.mlp_block(layer, x, cfg, mesh=mesh)
     x = gemma.rms_norm(x[:, 0], params["final_norm"], cfg.norm_eps)
     return gemma.lm_head(params, x, cfg), cache._replace(
         lengths=cache.lengths + 1)

@@ -1,0 +1,44 @@
+"""Distribution over `torch.distributed`: the device mesh and the
+head-, data- and context-parallel attention.
+
+The port of the JAX package's `parallel/` for serving.  Each rank is one
+process holding its own block of every sharded tensor (`parallel.mesh`).
+Not ported yet: `ring_attention`, the `zigzag_*` functions and `pipeline`
+(ROADMAP.md, port queue: sharded training).
+"""
+
+from metal_flash_attention_tpu_torch.parallel.mesh import (
+    CONTEXT_AXIS,
+    DATA_AXIS,
+    HEAD_AXIS,
+    NamedSharding,
+    P,
+    PartitionSpec,
+    make_mesh,
+    shard,
+    unshard,
+)
+from metal_flash_attention_tpu_torch.parallel.sharded_attention import (
+    context_parallel_attention,
+    context_parallel_decode,
+    context_parallel_paged_decode,
+    shard_paged_cache_pages,
+    sharded_flash_attention,
+)
+
+__all__ = [
+    "make_mesh",
+    "DATA_AXIS",
+    "HEAD_AXIS",
+    "CONTEXT_AXIS",
+    "PartitionSpec",
+    "P",
+    "NamedSharding",
+    "shard",
+    "unshard",
+    "sharded_flash_attention",
+    "context_parallel_attention",
+    "context_parallel_decode",
+    "shard_paged_cache_pages",
+    "context_parallel_paged_decode",
+]

@@ -31,7 +31,10 @@ import numpy as np
 import torch
 
 from metal_flash_attention_tpu_torch.utils.device import resolve_device
-from metal_flash_attention_tpu_torch.utils.errors import not_ported
+from metal_flash_attention_tpu_torch.utils.errors import (
+    SHARDED_TRAINING,
+    not_ported,
+)
 
 HEADER_BYTES = 64
 
@@ -71,7 +74,7 @@ class TokenLoader:
                  seed: int = 0, step: int = 0, device=None, sharding=None):
         if sharding is not None:
             raise not_ported("batches laid over a mesh (sharding=)",
-                             "tensor-parallel serving")
+                             SHARDED_TRAINING)
         if not shard_paths:
             raise ValueError("need at least one shard")
         self.paths = list(shard_paths)

@@ -2,6 +2,11 @@
 
 from __future__ import annotations
 
+# The port queue's item for what is refused on a mesh: ``mesh=`` in the
+# training paths, `TokenLoader`'s ``sharding=``, ring and zigzag
+# attention and the pipeline.
+SHARDED_TRAINING = "sharded training"
+
 
 def not_ported(what: str, item: str) -> NotImplementedError:
     """``item`` names the feature's entry in ROADMAP.md's port queue."""

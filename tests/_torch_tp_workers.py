@@ -1,0 +1,356 @@
+"""Rank bodies for the port's CPU tests of tensor- and context-parallel
+serving (`tests/test_torch_parallel.py`, `tests/test_torch_serving_tp.py`).
+
+`spawn` starts one process per rank with `torch.multiprocessing` (a gloo
+group over a `FileStore` in the test's own directory, so xdist workers
+never share a port), runs every case of a file in those ranks, and
+returns each rank's results as numpy.  Spawned processes import this
+module anew, so it imports no JAX; the inputs come from seeds
+(`attention_inputs`, `paged_inputs`) or from the parent's pickle.
+"""
+
+from __future__ import annotations
+
+import functools
+import os
+import pickle
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+# The sharded-attention cases: (mesh axis sizes, input shapes).
+FLASH_MESH = dict(data=2, heads=2, context=1)
+FLASH_SHAPE = dict(b=2, h=4, hkv=2, n=128, d=64)
+CP_MESH = dict(data=1, heads=2, context=2)
+CP_SHAPE = dict(b=1, h=2, hkv=2, n=128, d=64)
+DECODE_MESH = dict(data=1, heads=1, context=4)
+DECODE_SHAPE = dict(b=2, h=4, s=256, d=64)
+DECODE_LENS = (40, 200)           # row 0 lies on rank 0 alone
+PAGED_SHAPE = dict(b=2, h=4, hkv=2, page=16, pages=24, d=128)
+PAGED_LENS = (20, 150)            # row 0: two pages, so two ranks of 4
+DTYPES = ("float32", "bfloat16")
+ENGINE = dict(max_batch=2, num_pages=32, page_size=16, max_seq=128)
+
+
+def attention_inputs(seed: int, b, h, hkv, n, d):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, h, n, d)).astype(np.float32),
+            rng.standard_normal((b, hkv, n, d)).astype(np.float32),
+            rng.standard_normal((b, hkv, n, d)).astype(np.float32))
+
+
+def decode_inputs(seed: int, b, h, s, d):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, h, d)).astype(np.float32),
+            rng.standard_normal((b, h, s, d)).astype(np.float32),
+            rng.standard_normal((b, h, s, d)).astype(np.float32),
+            np.asarray(DECODE_LENS, np.int32))
+
+
+class PagedCache:
+    """A global paged cache in numpy (the fields `shard_paged_cache_pages`
+    reads)."""
+
+    def __init__(self, k_pages, v_pages, page_table, lengths):
+        self.k_pages, self.v_pages = k_pages, v_pages
+        self.page_table, self.lengths = page_table, lengths
+
+
+def paged_inputs(seed: int, b, h, hkv, page, pages, d):
+    """q [b, h, d] and a cache whose table rows are a shuffle of the pages
+    (page 0 unused)."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, h, d)).astype(np.float32)
+    kp = rng.standard_normal((pages, hkv, page, d)).astype(np.float32)
+    vp = rng.standard_normal((pages, hkv, page, d)).astype(np.float32)
+    max_pages = (pages - 1) // b
+    table = rng.permutation(np.arange(1, pages))[:b * max_pages].reshape(
+        b, max_pages).astype(np.int32)
+    return q, PagedCache(kp, vp, table, np.asarray(PAGED_LENS, np.int32))
+
+
+def as_torch(x: np.ndarray, dtype: str) -> torch.Tensor:
+    return torch.as_tensor(x).to(getattr(torch, dtype))
+
+
+def as_numpy(x: torch.Tensor) -> np.ndarray:
+    return x.detach().float().numpy()
+
+
+def spawn(body, world: int, workdir: str, payload=None) -> list:
+    """Run ``body(rank, world, payload)`` on ``world`` gloo ranks; returns
+    each rank's result.  A rank that raises fails the call."""
+    path = os.path.join(workdir, "payload.pkl")
+    with open(path, "wb") as f:
+        pickle.dump(payload, f)
+    mp.spawn(_rank_main, args=(body, world, workdir), nprocs=world,
+             join=True)
+    out = []
+    for rank in range(world):
+        with open(os.path.join(workdir, f"rank{rank}.pkl"), "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+def _rank_main(rank: int, body, world: int, workdir: str) -> None:
+    torch.set_num_threads(1)
+    dist.init_process_group(
+        "gloo", init_method="file://" + os.path.join(workdir, "store"),
+        rank=rank, world_size=world)
+    try:
+        with open(os.path.join(workdir, "payload.pkl"), "rb") as f:
+            payload = pickle.load(f)
+        result = body(rank, world, payload)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(workdir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(result, f)
+
+
+def _raises(fn) -> str:
+    """The name of the exception ``fn()`` raises ('' if none)."""
+    try:
+        fn()
+    except Exception as e:           # the test compares the type's name
+        return type(e).__name__
+    return ""
+
+
+def _spec_trees(mesh) -> dict:
+    from metal_flash_attention_tpu_torch.models import gemma, llama, moe
+
+    return {
+        "llama": llama.param_shardings(llama.LlamaConfig.tiny(), mesh),
+        "llama_bias": llama.param_shardings(llama.LlamaConfig.tiny(), mesh,
+                                            qkv_bias=True),
+        "gemma": gemma.param_shardings(gemma.GemmaConfig.tiny(), mesh),
+        "moe": moe.param_shardings(moe.MoEConfig.tiny(), mesh)}
+
+
+def parallel_body(rank: int, world: int, payload) -> dict:
+    """Every case of tests/test_torch_parallel.py on 4 ranks."""
+    from metal_flash_attention_tpu_torch.parallel import (
+        CONTEXT_AXIS,
+        DATA_AXIS,
+        HEAD_AXIS,
+        P,
+        context_parallel_attention,
+        context_parallel_decode,
+        context_parallel_paged_decode,
+        make_mesh,
+        shard,
+        shard_paged_cache_pages,
+        sharded_flash_attention,
+        unshard,
+    )
+
+    out = {"raises": {
+        "wrong_world": _raises(lambda: make_mesh(heads=2, devices="cpu")),
+        "no_card": _raises(lambda: make_mesh(heads=4)),
+        "bad_device": _raises(lambda: make_mesh(heads=4, devices="tpu")),
+        "not_a_mesh": _raises(lambda: shard({}, {}, object()))}}
+    flash_mesh = make_mesh(**FLASH_MESH, devices="cpu")
+    cp_mesh = make_mesh(**CP_MESH, devices="cpu")
+    ctx_mesh = make_mesh(**DECODE_MESH, devices="cpu")
+    out["specs"] = {k: _plain_tree(v)
+                    for k, v in _spec_trees(flash_mesh).items()}
+
+    # shard / unshard round trips over a (2, 2, 1) mesh.
+    rng = np.random.default_rng(0)
+    tree = {"col": torch.as_tensor(rng.standard_normal((6, 8))),
+            "row": torch.as_tensor(rng.standard_normal((8, 6))),
+            "both": torch.as_tensor(rng.standard_normal((4, 8, 3))),
+            "rep": [torch.as_tensor(rng.standard_normal((5,)))]}
+    specs = {"col": P(None, HEAD_AXIS), "row": P(HEAD_AXIS, None),
+             "both": P(DATA_AXIS, HEAD_AXIS), "rep": [P()]}
+    blocks = shard(tree, specs, flash_mesh)
+    out["blocks"] = {k: as_numpy(v) for k, v in blocks.items()
+                     if k != "rep"}
+    out["rep_is_whole"] = blocks["rep"][0] is tree["rep"][0]
+    out["round_trip"] = {k: as_numpy(unshard(blocks[k], specs[k],
+                                             flash_mesh))
+                         for k in ("col", "row", "both")}
+    out["bad_split"] = _raises(lambda: shard(
+        {"w": torch.zeros((3, 3))}, {"w": P(HEAD_AXIS)}, flash_mesh))
+    out["bad_tree"] = _raises(lambda: shard(
+        {"w": torch.zeros((4,))}, {"v": P()}, flash_mesh))
+
+    d_idx = flash_mesh.get_local_rank(DATA_AXIS)
+    h_idx = flash_mesh.get_local_rank(HEAD_AXIS)
+    c_idx = cp_mesh.get_local_rank(CONTEXT_AXIS)
+    ch_idx = cp_mesh.get_local_rank(HEAD_AXIS)
+    for dtype in DTYPES:
+        q, k, v = (as_torch(x, dtype)
+                   for x in attention_inputs(1, **FLASH_SHAPE))
+        spec = P(DATA_AXIS, HEAD_AXIS)
+        q, k, v = (shard(x, spec, flash_mesh) for x in (q, k, v))
+        o = sharded_flash_attention(flash_mesh, causal=True)(q, k, v)
+        out[f"flash_{dtype}"] = (d_idx, h_idx, as_numpy(o))
+
+        q, k, v = (as_torch(x, dtype) for x in attention_inputs(2, **CP_SHAPE))
+        q = shard(q, P(DATA_AXIS, HEAD_AXIS), cp_mesh)
+        k, v = (shard(x, P(DATA_AXIS, HEAD_AXIS, CONTEXT_AXIS), cp_mesh)
+                for x in (k, v))
+        o = context_parallel_attention(cp_mesh)(q, k, v)
+        out[f"cp_{dtype}"] = (ch_idx, c_idx, as_numpy(o))
+
+        q, k, v, lens = decode_inputs(3, **DECODE_SHAPE)
+        k, v = (shard(as_torch(x, dtype), P(None, None, CONTEXT_AXIS),
+                      ctx_mesh) for x in (k, v))
+        o = context_parallel_decode(ctx_mesh)(
+            as_torch(q, dtype), k, v, torch.as_tensor(lens))
+        out[f"decode_{dtype}"] = as_numpy(o)
+
+        q, cache = paged_inputs(4, **PAGED_SHAPE)
+        kst, vst, tbl, ln = shard_paged_cache_pages(cache, 4)
+        cp = P(CONTEXT_AXIS)
+        blocks = [shard(as_torch(kst, dtype), cp, ctx_mesh),
+                  shard(as_torch(vst, dtype), cp, ctx_mesh),
+                  shard(torch.as_tensor(tbl), cp, ctx_mesh),
+                  shard(torch.as_tensor(ln), cp, ctx_mesh)]
+        fn = context_parallel_paged_decode(ctx_mesh)
+        out[f"paged_{dtype}"] = as_numpy(fn(as_torch(q, dtype), *blocks))
+        out[f"paged_local_len_{dtype}"] = blocks[3].numpy()
+    return out
+
+
+def _plain_tree(tree):
+    """Specs as plain tuples (picklable without the port)."""
+    if isinstance(tree, dict):
+        return {k: _plain_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_plain_tree(v) for v in tree]
+    return tuple(tree)
+
+
+def _engine_streams(params, cfg, prompts, family, mesh, kv_sharding,
+                    burst: int, max_new: int, rounds: int = 1) -> list:
+    from metal_flash_attention_tpu_torch.models import serving
+    from metal_flash_attention_tpu_torch.models.engine import ServingEngine
+
+    kw = {}
+    if family == "gemma":
+        kw = dict(chunk_step=functools.partial(
+            serving.gemma_paged_chunk_step, mesh=mesh),
+                  decode_step=functools.partial(
+            serving.gemma_paged_decode_step, mesh=mesh))
+    eng = ServingEngine(params, cfg, kv_sharding=kv_sharding,
+                        prefix_cache=rounds > 1, **ENGINE, **kw)
+    rids, calls, emitted = [], 0, []
+    for _ in range(rounds):
+        rids += [eng.submit(p, max_new) for p in prompts]
+        while not eng.idle:
+            emitted.append(eng.step_burst(burst) if burst else eng.step())
+            calls += 1
+            if calls > 200:
+                raise RuntimeError("engine did not drain")
+    # Every rank must have emitted the same tokens at every call.
+    gathered = [None] * dist.get_world_size()
+    dist.all_gather_object(gathered, emitted)
+    if any(g != emitted for g in gathered):
+        raise RuntimeError("ranks emitted different tokens")
+    return [eng.result(r).tolist() for r in rids]
+
+
+def serving_body(rank: int, world: int, payload) -> dict:
+    """Every rank-side case of tests/test_torch_serving_tp.py on 2 ranks:
+    ``payload`` holds each family's float32 parameters (numpy, from the
+    JAX package), the step inputs and the engine prompts."""
+    from metal_flash_attention_tpu_torch.models import (
+        gemma,
+        llama,
+        moe,
+        serving,
+    )
+    from metal_flash_attention_tpu_torch.models.engine import ServingEngine
+    from metal_flash_attention_tpu_torch.parallel import (
+        HEAD_AXIS,
+        NamedSharding,
+        P,
+        make_mesh,
+        shard,
+    )
+    from metal_flash_attention_tpu_torch.utils.params import (
+        params_from_numpy,
+    )
+
+    mesh = make_mesh(heads=world, devices="cpu")
+    kv = NamedSharding(mesh, P(None, HEAD_AXIS, None, None))
+    f32 = torch.float32
+    cfgs = {"llama": llama.LlamaConfig.tiny(n_layers=2, dtype=f32),
+            "gemma": gemma.GemmaConfig.tiny(**payload["gemma_kw"], dtype=f32),
+            "moe": moe.MoEConfig.tiny(n_layers=2, dtype=f32)}
+    specs = {"llama": llama.param_shardings, "gemma": gemma.param_shardings,
+             "moe": moe.param_shardings}
+    out = {"steps": {}, "streams": {}}
+    for family, cfg in cfgs.items():
+        full = params_from_numpy(payload["params"][family], dtype=f32,
+                                 device="cpu")
+        local = shard(full, specs[family](cfg, mesh), mesh)
+        if family != "moe":
+            out["steps"][family] = _tp_steps(local, cfg, family, mesh,
+                                             payload["step_prompt"])
+        for burst in (0, 4):
+            out["streams"][family, burst] = _engine_streams(
+                local, cfg, payload["prompts"], family, mesh, kv, burst,
+                payload["max_new"])
+    # The prefix cache: the same prompts twice, the second time from the
+    # first's cached pages.
+    out["prefix"] = _engine_streams(
+        shard(params_from_numpy(payload["params"]["llama"], dtype=f32,
+                                device="cpu"),
+              llama.param_shardings(cfgs["llama"], mesh), mesh),
+        cfgs["llama"], payload["prompts"], "llama", mesh, kv, 0,
+        payload["max_new"], rounds=2)
+
+    # What a mesh does not divide, and what is not a mesh.
+    lcfg = cfgs["llama"]
+    odd = llama.LlamaConfig.tiny(n_layers=1, n_kv_heads=1, dtype=f32)
+    cache = serving.init_paged_model_cache(odd, 1, 16, page_size=16,
+                                           device="cpu")
+    tok = torch.zeros((1,), dtype=torch.int32)
+    moe3 = moe.MoEConfig.tiny(n_experts=3, dtype=f32)
+    full = params_from_numpy(payload["params"]["llama"], dtype=f32,
+                             device="cpu")
+    out["raises"] = {
+        "kv_heads": _raises(lambda: serving.paged_decode_step(
+            {"layers": []}, tok, odd, cache, mesh=mesh)),
+        "engine_kv_heads": _raises(lambda: ServingEngine(
+            full, odd, kv_sharding=kv, **ENGINE)),
+        "experts": _raises(lambda: moe.moe_ffn(
+            {"w_router": torch.zeros((moe3.dim, 3))},
+            torch.zeros((1, 2, moe3.dim)), moe3, mesh=mesh)),
+        "kv_spec": _raises(lambda: ServingEngine(
+            full, lcfg, kv_sharding=NamedSharding(mesh, P()), **ENGINE)),
+        "kv_object": _raises(lambda: ServingEngine(
+            full, lcfg, kv_sharding=object(), **ENGINE)),
+        "step_object": _raises(lambda: serving.paged_decode_step(
+            full, tok, lcfg, cache, mesh=object()))}
+    return out
+
+
+def _tp_steps(params, cfg, family, mesh, prompt) -> tuple:
+    """A chunk step over the prompt [b, 32] and one decode step of its
+    argmax tokens, both at tp: (chunk logits of the last position,
+    decode logits)."""
+    from metal_flash_attention_tpu_torch.models import serving
+
+    chunk, decode = ((serving.gemma_paged_chunk_step,
+                      serving.gemma_paged_decode_step) if family == "gemma"
+                     else (serving.paged_chunk_step,
+                           serving.paged_decode_step))
+    from metal_flash_attention_tpu_torch.parallel import HEAD_AXIS, P, shard
+
+    cache = serving.init_paged_model_cache(
+        cfg, prompt.shape[0], 64, page_size=16, device="cpu")
+    pools = [P(None, HEAD_AXIS)] * cfg.n_layers
+    cache = cache._replace(k=shard(cache.k, pools, mesh),
+                           v=shard(cache.v, pools, mesh))
+    logits, cache = chunk(params, torch.as_tensor(prompt), cfg, cache,
+                          mesh=mesh)
+    tok = logits[:, -1].argmax(-1).to(torch.int32)
+    logits2, _ = decode(params, tok, cfg, cache, mesh=mesh)
+    return as_numpy(logits[:, -1]), as_numpy(logits2)

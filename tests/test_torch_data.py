@@ -59,7 +59,8 @@ def test_from_state_resumes_the_stream(shards):
 
 
 def test_loader_refusals(shards, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md.*sharded training"):
         tdata.TokenLoader(shards, BATCH, SEQ, device="cpu",
                           sharding=object())
     with pytest.raises(ValueError, match="seq_len"):

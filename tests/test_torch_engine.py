@@ -195,10 +195,12 @@ def test_unported_engine_features_raise(models):
                   prefix_cache=True)
     assert eng.prefix_cache is not None and len(eng.prefix_cache) == 0
     assert eng.stats["prefix_hit_tokens"] == 0
-    for kw, item in ((dict(kv_sharding=object()),
-                      "tensor-parallel serving"),):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{item}"):
-            TEngine(tparams, tcfg, max_batch=1, num_pages=8, **kw)
+    # Tensor-parallel pools (taken since slice 19,
+    # tests/test_torch_serving_tp.py): a kv_sharding that is not a
+    # parallel.mesh.NamedSharding is a TypeError.
+    with pytest.raises(TypeError, match="NamedSharding"):
+        TEngine(tparams, tcfg, max_batch=1, num_pages=8,
+                kv_sharding=object())
     # LoRA (taken since slice 16, tests/test_torch_lora.py) and
     # speculative decoding (taken since slice 17,
     # tests/test_torch_engine_speculative.py) are accepted as the JAX

@@ -195,21 +195,23 @@ def test_paged_steps_match_jax(dtype):
 
 
 def test_unported_gemma_features_raise():
-    """Tensor-parallel serving is not ported: each entry raises, naming
-    its ROADMAP item.  (Training is ported: tests/test_torch_gemma_train.py
-    holds `loss_fn` and `train_step` against JAX.)"""
+    """Sharded training is not ported: ``forward(mesh=)`` raises, naming
+    its ROADMAP item.  Tensor-parallel serving is (slice 19,
+    tests/test_torch_serving_tp.py): `param_shardings` and the paged
+    steps take a mesh, and a mesh that is not one is a TypeError.
+    (Training is ported: tests/test_torch_gemma_train.py holds `loss_fn`
+    and `train_step` against JAX.)"""
     _, tcfg, _, tparams, _ = _setup("float32")
     toks = torch.as_tensor(_tokens(1, 8))
-    for fn, item in ((lambda: tg.param_shardings(tcfg, object()),
-                      "tensor-parallel serving"),
-                     (lambda: tg.forward(tparams, toks, tcfg, mesh=object()),
-                      "tensor-parallel serving")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{item}"):
-            fn()
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md.*sharded training"):
+        tg.forward(tparams, toks, tcfg, mesh=object())
     cache = ts.init_paged_model_cache(tcfg, 1, 32, page_size=PAGE,
                                       device="cpu")
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
-        ts.gemma_paged_chunk_step(tparams, toks, tcfg, cache, mesh=object())
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
-        ts.gemma_paged_decode_step(tparams, toks[:, 0], tcfg, cache,
-                                   mesh=object())
+    for fn in (lambda: tg.param_shardings(tcfg, object()),
+               lambda: ts.gemma_paged_chunk_step(tparams, toks, tcfg, cache,
+                                                 mesh=object()),
+               lambda: ts.gemma_paged_decode_step(tparams, toks[:, 0], tcfg,
+                                                  cache, mesh=object())):
+        with pytest.raises(TypeError, match="DeviceMesh"):
+            fn()

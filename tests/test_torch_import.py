@@ -53,6 +53,9 @@ MODULES = [
     "metal_flash_attention_tpu_torch.ops.quantization",
     "metal_flash_attention_tpu_torch.ops.reference",
     "metal_flash_attention_tpu_torch.ops.softmax",
+    "metal_flash_attention_tpu_torch.parallel",
+    "metal_flash_attention_tpu_torch.parallel.mesh",
+    "metal_flash_attention_tpu_torch.parallel.sharded_attention",
     "metal_flash_attention_tpu_torch.runtime",
     "metal_flash_attention_tpu_torch.runtime.__main__",
     "metal_flash_attention_tpu_torch.runtime.autotune",
@@ -93,6 +96,8 @@ def test_port_imports_no_jax():
             "flash_attention_bwd, flash_decode, gemm, softmax):\n"
             "    assert m._kernel_library.cache_info().currsize == 0\n"
             "import chip_smoke\n"
+            "sys.path.insert(0, 'tools')\n"
+            "import tp_probe\n"
             "assert 'jax' not in sys.modules\n"
             "assert 'transformers' not in sys.modules\n")
     proc = _run(code)

@@ -256,6 +256,7 @@ def test_paged_steps_refuse_a_mesh(models):
     cache = ts.init_paged_model_cache(tcfg, 1, 16, page_size=PAGE,
                                       device="cpu")
     tok = torch.zeros((1,), dtype=torch.int32)
-    with pytest.raises(NotImplementedError,
-                       match="tensor-parallel serving"):
+    # Tensor-parallel serving is ported (slice 19,
+    # tests/test_torch_serving_tp.py): a mesh that is not one is refused.
+    with pytest.raises(TypeError, match="DeviceMesh"):
         ts.paged_decode_step(tparams, tok, tcfg, cache, mesh=object())

@@ -90,7 +90,9 @@ def test_unported_serving_options_raise():
     cache = ts.init_paged_model_cache(tcfg, 1, 32, page_size=PAGE,
                                       device="cpu")
     tok = torch.zeros((1,), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    # mesh= is taken since slice 19 (tests/test_torch_serving_tp.py); a
+    # mesh that is not one is a TypeError.
+    with pytest.raises(TypeError, match="DeviceMesh"):
         ts.paged_decode_step(tparams, tok, tcfg, cache, mesh=object())
     # LoRA (taken since slice 16): as in JAX, adapter 0 (B = 0) is the
     # base model bit for bit, and another adapter moves the logits.

@@ -1,0 +1,843 @@
+#!/usr/bin/env python3
+"""Tensor- and context-parallel serving of the PyTorch port on 4 cards.
+
+Run from the root of a checkout, on one machine with four CUDA cards:
+
+    python3 tools/tp_probe.py
+
+It builds every kernel library once, then starts one NCCL rank per card
+(`torch.multiprocessing.spawn`, a `FileStore` in a temporary directory)
+and runs these phases, each printing its numbers with every card's name
+and power limit:
+
+1. tp_serve: Llama-3-8B at full width and depth (32 layers), tp 4 (8 q
+   heads and 2 kv heads a rank).  Every rank draws the whole model from
+   a torch.Generator seeded with SEED on its own card and keeps its
+   blocks (`parallel.mesh.shard` under `llama.param_shardings`); rank 0
+   first serves the 6 requests of chip_smoke.py's serve phase on its own
+   card without a mesh (the 1-card engine), then every rank serves them
+   through `ServingEngine` with ``kv_sharding`` and the mesh steps.
+   Checks: the streams equal the 1-card streams, or part only at a
+   near-tie (chip_smoke's tie gate, SPEC_TIE: where a row first departs,
+   both tokens' logits in the 1-card engine's own step lie within
+   SPEC_TIE of its top; the logits' relative rms error until then is
+   printed); every rank emitted the same tokens at every step; each rank's
+   paged launch counts exact and all on the Hopper kernels.  Printed:
+   new tokens/s of both, each rank's peak memory, and one decode step of
+   four live rows profiled on every rank (the NCCL kernels' share of the
+   card's time).
+2. gemma_tp_serve: gemma2_2b (26 layers), tp 4 (2 q heads and 1 kv head
+   a rank, head_dim 256, the soft cap); the same checks.
+3. moe_tp_serve: Mixtral-8x7B widths, experts 2 a rank, first at
+   MOE_CUT_LAYERS layers against the 1-card engine (the tie gate; where
+   it fails, the TP run again with the 1-card run's routes replayed, so
+   that capacity couples a step's rows as it did on one card:
+   chip_smoke's moe_routes; then the tie gate again, and each of its own
+   routes that differs from the replayed one within MOE_TIE in the first
+   chip_smoke.MOE_REF_LAYERS layers), then at all MOE_FULL_LAYERS layers,
+   which no single card holds (each layer drawn whole, cut to its blocks
+   and freed): new tokens/s, each rank's peak memory, and a decode step's
+   card ms by family (the experts' products inside "moe_experts").
+4. cp_checks: the four `parallel.sharded_attention` functions over 4
+   ranks against the single-card kernel on card 0 at Llama-3-8B's
+   attention widths (CP_* below), by the worst 64-row tile's relative
+   rms error (KERNEL_TILE_REL_RMS), lse at MIXED_TOL where the function
+   yields one; each call's ms (CUDA events, the slowest rank) beside the
+   1-card kernel's; a planted fault (rank 1's partial dropped from the
+   merge) that the limit must see; and on every rank the decode kernels'
+   rows of local length 0 (o = 0, lse = -inf).
+
+``--phases a,b`` runs a subset; ``--world N`` another rank count.
+``--rehearse`` runs the same code on the CPU (gloo ranks, the kernels'
+plain versions) at tiny sizes, to find faults before a chip run.
+
+Any failure exits non-zero.  The last line is {"ok": true, ...}.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import dataclasses
+import datetime
+import json
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+
+import chip_smoke as cs  # noqa: E402  (the repo's helpers; no JAX)
+
+SEED = cs.SEED
+PROMPT_LENS = cs.PROMPT_LENS
+MAX_NEW = cs.MAX_NEW
+MAX_BATCH = cs.MAX_BATCH
+PAGE = cs.PAGE
+MOE_CUT_LAYERS = 16
+MOE_FULL_LAYERS = 32
+# cp_checks, at Llama-3-8B's attention widths (32 q heads, 8 kv heads,
+# head_dim 128), bf16.
+CP_FLASH = (1, 32, 8192, 128)        # causal, heads over 4 ranks
+CP_ATTN = (1, 32, 2048, 128)         # queries, against CP_ATTN_KEYS keys
+CP_ATTN_KEYS = 32768
+CP_DECODE_KEYS = 32768
+CP_DECODE_LENS = (32768, 30000, 20000, 16385, 8192, 5000, 1000, 129)
+CP_KV_HEADS = 8
+CP_ITERS = 20
+PHASES = ("tp_serve", "gemma_tp_serve", "moe_tp_serve", "cp_checks")
+NCCL = {"nccl": ("nccl",)}
+# --rehearse: the same phases on the CPU at tiny sizes.
+REHEARSE = {"prompt_lens": (40, 12, 30, 21), "max_new": 5, "page": 16,
+            "cp_flash": (1, 8, 128, 64), "cp_attn": (1, 8, 64, 64),
+            "cp_attn_keys": 256, "cp_decode_keys": 256,
+            "cp_decode_lens": (256, 200, 60, 9), "cp_kv_heads": 4}
+
+
+class Run:
+    """What every phase of one rank needs: rank, world, device, the card
+    line, the sizes (full, or tiny under --rehearse)."""
+
+    def __init__(self, rank, world, dev, card, rehearse):
+        self.rank, self.world, self.dev, self.card = rank, world, dev, card
+        self.rehearse = rehearse
+        self.failures = []      # checks that failed; raised after all phases
+        sizes = REHEARSE if rehearse else {}
+        self.prompt_lens = sizes.get("prompt_lens", PROMPT_LENS)
+        self.max_new = sizes.get("max_new", MAX_NEW)
+        self.page = sizes.get("page", PAGE)
+        rng = np.random.default_rng(SEED)
+        self.prompts = [rng.integers(0, 256 if rehearse else 32000,
+                                     (n,)).astype(np.int32)
+                        for n in self.prompt_lens]
+        self.cp = {k: sizes.get(k, globals()[k.upper()]) for k in (
+            "cp_flash", "cp_attn", "cp_attn_keys", "cp_decode_keys",
+            "cp_decode_lens", "cp_kv_heads")}
+
+    def sync(self):
+        import torch
+        if self.dev.type == "cuda":
+            torch.cuda.synchronize(self.dev)
+
+    def gather(self, obj) -> list:
+        import torch.distributed as dist
+        out = [None] * self.world
+        dist.all_gather_object(out, obj)
+        return out
+
+    def say(self, label: str, reading: dict) -> None:
+        if self.rank == 0:
+            print(f"{label}: " + json.dumps(dict(reading, card=self.card)),
+                  flush=True)
+
+    def peak(self) -> int:
+        import torch
+        return (torch.cuda.max_memory_allocated(self.dev)
+                if self.dev.type == "cuda" else 0)
+
+    def reset_peak(self) -> None:
+        import torch
+        if self.dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(self.dev)
+
+
+def fail(msg: str) -> None:
+    raise RuntimeError(f"tp_probe: {msg}")
+
+
+def family_steps(family: str):
+    from metal_flash_attention_tpu_torch.models import serving
+    if family == "gemma":
+        return (serving.gemma_paged_chunk_step,
+                serving.gemma_paged_decode_step)
+    return serving.paged_chunk_step, serving.paged_decode_step
+
+
+def expected_launches(cfg, calls: dict) -> dict:
+    """Exact paged launch counts of a serve: per layer one `paged_prefill`
+    a chunk step and one `paged_decode` a decode step, each on its Hopper
+    kernel, with the soft cap and head_dim 256 counted where the family
+    has them."""
+    suffixes = ["", "_sm90"]
+    if getattr(cfg, "attn_logit_softcap", None):
+        suffixes.append("_softcap")
+    if cfg.head_dim == 256:
+        suffixes.append("_d256")
+    return {f"{kernel}{s}": cfg.n_layers * calls[step]
+            for kernel, step in (("paged_prefill", "chunk"),
+                                 ("paged_decode", "decode"))
+            for s in suffixes if calls[step]}
+
+
+def engine(run: Run, params, cfg, family, mesh, calls=None):
+    """A `ServingEngine` for the family's steps (partial on ``mesh`` with
+    ``kv_sharding`` when given), counting the step calls into
+    ``calls``."""
+    from metal_flash_attention_tpu_torch import ServingEngine
+    from metal_flash_attention_tpu_torch.parallel import (
+        HEAD_AXIS,
+        NamedSharding,
+        P,
+    )
+
+    def counted(fn, key):
+        def step(*args, **kwargs):
+            if calls is not None:
+                calls[key] += 1
+            if mesh is not None:
+                kwargs["mesh"] = mesh
+            return fn(*args, **kwargs)
+        return step
+    chunk, decode = family_steps(family)
+    max_seq = max(run.prompt_lens) + run.max_new + 1
+    kv = (None if mesh is None
+          else NamedSharding(mesh, P(None, HEAD_AXIS, None, None)))
+    return ServingEngine(
+        params, cfg, max_batch=MAX_BATCH,
+        num_pages=MAX_BATCH * -(-max_seq // run.page) + 1,
+        page_size=run.page, max_seq=max_seq, kv_sharding=kv,
+        chunk_step=counted(chunk, "chunk"),
+        decode_step=counted(decode, "decode"))
+
+
+def serve(run: Run, params, cfg, family, mesh, routes=None,
+          picks=None) -> dict:
+    """The requests through the engine (after a one-request warm-up):
+    streams, per-call emitted tokens, seconds, launch counts held exact,
+    peak memory.  ``routes``: `chip_smoke.moe_routes` keywords (then also
+    the number of routing calls after each engine call, "route_calls").
+    ``picks``: a dict that gets the float32 logits row [vocab] from which
+    each token was chosen, keyed (request id, token index), on the host
+    (a copy a step, inside the timed loop)."""
+    from metal_flash_attention_tpu_torch.ops import paged_attention as pa
+
+    warm = engine(run, params, cfg, family, mesh)
+    warm.submit(run.prompts[1][:2 * run.page], 2)
+    while not warm.idle:
+        warm.step()
+    del warm
+    calls = {"chunk": 0, "decode": 0}
+    eng = engine(run, params, cfg, family, mesh, calls)
+    num_pages = eng.alloc.free_pages + 1
+    rids = [eng.submit(p, run.max_new) for p in run.prompts]
+    watch = (cs.moe_routes(**routes) if routes is not None
+             else contextlib.nullcontext())
+    if picks is not None:
+        eng._pick = recorded(eng._pick, picks)
+    emitted, route_calls = [], []
+    pa.reset_launch_counts()
+    run.reset_peak()
+    run.sync()
+    t0 = time.perf_counter()
+    with watch:
+        while not eng.idle:
+            emitted.append(eng.step())
+            if routes is not None:
+                route_calls.append(len(routes.get("record",
+                                                  routes.get("margins"))))
+            if len(emitted) > 10_000:
+                fail("engine did not drain")
+    run.sync()
+    secs = time.perf_counter() - t0
+    launches = {k: n for k, n in pa.LAUNCH_COUNTS.items() if n}
+    if run.dev.type == "cuda":
+        wrong = cs.launch_errors(launches, expected_launches(cfg, calls))
+        if wrong:
+            fail(f"{family} launched (count, expected) {wrong}")
+    streams = [eng.result(r).tolist() for r in rids]
+    if eng.alloc.free_pages != num_pages - 1:
+        fail(f"{family}: pages leaked")
+    # The recorder refers back to the engine: drop it, so that the engine,
+    # its pools and its parameters go when the call returns.
+    eng.__dict__.pop("_pick", None)
+    tokens = run.max_new * len(run.prompts)
+    return {"streams": streams, "emitted": emitted, "seconds": secs,
+            "new_tokens_per_s": tokens / secs, "calls": calls,
+            "launches": launches, "max_memory_allocated": run.peak(),
+            "route_calls": route_calls}
+
+
+def recorded(pick, picks: dict):
+    """The engine's `_pick` keeping each chosen row's logits in
+    ``picks``."""
+    def run(logits, bias, reqs, idxs):
+        rows = logits.float().cpu()
+        for j, r in enumerate(reqs):
+            if r is not None:
+                picks[r.rid, int(idxs[j])] = rows[j]
+        return pick(logits, bias, reqs, idxs)
+    return run
+
+
+def stream_check(run: Run, ref: dict, got: dict, ref_picks: dict,
+                 got_picks: dict) -> dict:
+    """``got``'s streams against the 1-card run's, on rank 0: the tie
+    gate on the 1-card engine's own logits (where a row first departs,
+    both tokens within SPEC_TIE of that row's top in the same batched
+    step, so the rows a step couples, as MoE capacity does, are taken as
+    they were), and the relative rms error of each row's logits against
+    the 1-card ones up to that point (a reading)."""
+    plain = generated(ref["streams"], run.prompts)
+    other = generated(got["streams"], run.prompts)
+    gate = cs.tie_gate(plain, other, list(range(len(plain))),
+                       lambda r, prefix: ref_picks[r, len(prefix)])
+    worst = 0.0
+    for r, (a, b) in enumerate(zip(plain, other)):
+        diff = [j for j, (x, y) in enumerate(zip(a, b)) if x != y]
+        for j in range(diff[0] + 1 if diff else len(a)):
+            worst = max(worst, cs.rel_rms(got_picks[r, j], ref_picks[r, j]))
+    gate["logits_rel_rms_until_departure"] = worst
+    return gate
+
+
+def decode_profile(run: Run, label, params, cfg, family, mesh,
+                   spans=()) -> dict:
+    """One engine decode step of MAX_BATCH live rows under the profiler,
+    on every rank: the card's ms by family (NCCL kernels apart)."""
+    import torch.distributed
+    eng = engine(run, params, cfg, family, mesh)
+    for p in run.prompts[:MAX_BATCH]:
+        eng.submit(p, run.max_new)
+    while eng._queue or any(r is not None and r.next_token is None
+                            for r in eng._slots):
+        eng.step()
+    families = dict(NCCL, attention=("paged_", "merge_splits"))
+    if run.dev.type != "cuda":
+        eng.step()
+        return {}
+    # Start the ranks together: an NCCL kernel also holds the card while
+    # it waits for the other ranks to reach the collective.
+    run.sync()
+    torch.distributed.barrier()
+    with cs.moe_annotated() if spans else contextlib.nullcontext():
+        reading = cs.profile_step(f"{label}_rank{run.rank}", eng.step,
+                                  families, run.dev, spans=spans)
+    by = reading["device_ms_by_family"]
+    reading["nccl_share"] = by.get("nccl", 0.0) / max(
+        reading["device_ms"], 1e-9)
+    return reading
+
+
+def generated(streams, prompts):
+    return [s[len(p):] for s, p in zip(streams, prompts)]
+
+
+def check_ranks_agree(run: Run, what: str, value) -> None:
+    """Every rank holds the same ``value`` (emitted tokens, a weight
+    checksum), else the run fails on every rank."""
+    if any(v != value for v in run.gather(value)):
+        fail(f"ranks differ in {what}")
+
+
+def weight_checksum(params) -> float:
+    return float(sum(params["layers"][0][k].double().sum().item()
+                     for k in ("wq", "wo")) + params["embed"][:64]
+                 .double().sum().item())
+
+
+def tp_family(run: Run, label, family, cfg, init, specs, spans=(),
+              routes=False) -> dict:
+    """Draw the model whole on every rank, serve it on rank 0 alone (the
+    1-card engine), cut every rank's blocks and serve at tp; hold the
+    streams by the tie gate (and, for routed models, the route replay)."""
+    import torch
+    import torch.distributed as dist
+    from metal_flash_attention_tpu_torch.parallel import make_mesh, shard
+
+    full = init(cfg, torch.Generator(device=run.dev).manual_seed(SEED),
+                device=run.dev)
+    check_ranks_agree(run, f"{label} weights", weight_checksum(full))
+    ref, record, ref_picks, tp_picks = None, [], {}, {}
+    if run.rank == 0:
+        ref = serve(run, full, cfg, family, None,
+                    routes={"record": record} if routes else None,
+                    picks=ref_picks)
+    dist.barrier()
+    mesh = make_mesh(heads=run.world, devices=run.dev.type)
+    local = shard(full, specs(cfg, mesh), mesh)
+    if run.rank != 0:
+        del full
+    tp = serve(run, local, cfg, family, mesh,
+               picks=tp_picks if run.rank == 0 else None)
+    check_ranks_agree(run, f"{label} emitted tokens", tp["emitted"])
+    prof = decode_profile(run, f"{label}_decode_profile", local, cfg,
+                          family, mesh, spans)
+    per_rank = run.gather({k: tp[k] for k in (
+        "launches", "max_memory_allocated", "seconds", "calls")}
+        | {"nccl_share": prof.get("nccl_share"),
+           "decode_device_ms": prof.get("device_ms")})
+    gate = replay = None
+    if run.rank == 0:
+        gate = stream_check(run, ref, tp, ref_picks, tp_picks)
+    ok = run.gather(None if gate is None else gate["ok"])[0]
+    if routes and not ok:
+        replay = route_replay(run, local, cfg, family, mesh, record, ref,
+                              ref_picks)
+        ok = replay["ok"]
+    reading = {
+        "world_size": run.world, "mesh": {"data": 1, "heads": run.world,
+                                          "context": 1},
+        "config": cfg_line(cfg), "requests": len(run.prompts),
+        "new_tokens": run.max_new * len(run.prompts),
+        "tp": {k: tp[k] for k in ("seconds", "new_tokens_per_s")},
+        "one_card": None if ref is None else {
+            k: ref[k] for k in ("seconds", "new_tokens_per_s",
+                                "max_memory_allocated")},
+        "streams_equal": None if ref is None else ref["streams"]
+        == tp["streams"],
+        "tie_gate": gate, "route_replay": replay, "per_rank": per_rank,
+        "ok": ok}
+    run.say(label, reading)
+    if not ok:
+        run.failures.append(f"{label}: the tp streams leave the 1-card ones "
+                            f"past the tie gate")
+    del local
+    if run.rank == 0:
+        del full
+    run.reset_peak()
+    return reading
+
+
+def route_replay(run: Run, local, cfg, family, mesh, record, ref,
+                 ref_picks) -> dict:
+    """The tp serve again with the 1-card run's routes taken (from rank
+    0, on every rank), so that capacity couples the rows of a step as it
+    did there: the streams must pass the tie gate, and each route of the
+    tp run's own that differs from the one taken must lie within MOE_TIE
+    of it in gate probability, in the first chip_smoke.MOE_REF_LAYERS
+    layers (the depth at which MOE_TIE was read; rounding noise grows
+    with depth, so deeper layers' worst margins are only printed) and in
+    the engine calls before the first one that emitted another token
+    (from that call on, a row decodes a token of its own)."""
+    taken = [t.cpu() for t in record] if run.rank == 0 else None
+    taken = run.gather(taken)[0]
+    margins, picks = [], {}
+    tp = serve(run, local, cfg, family, mesh,
+               routes={"taken": [t.to(run.dev) for t in taken],
+                       "margins": margins},
+               picks=picks if run.rank == 0 else None)
+    gate = worst = None
+    if run.rank == 0:
+        gate = stream_check(run, ref, tp, ref_picks, picks)
+        # The routing calls of the engine calls before the first one that
+        # emitted another token: within that call a row whose prefill
+        # ended already decodes its own first token.
+        same = [a == b for a, b in zip(ref["emitted"], tp["emitted"])]
+        first = same.index(False) if False in same else len(same)
+        until = tp["route_calls"][first - 1] if first else 0
+        by_layer = [0.0] * cfg.n_layers
+        for i, m in enumerate(margins[:until]):
+            if m.numel():
+                by_layer[i % cfg.n_layers] = max(by_layer[i % cfg.n_layers],
+                                                 float(m.max()))
+        worst = {"by_layer": by_layer, "calls": until,
+                 "gated_layers": cs.MOE_REF_LAYERS,
+                 "gated": max(by_layer[:cs.MOE_REF_LAYERS])}
+    gate, worst = run.gather((gate, worst))[0]
+    return {"worst_route_margin": worst, "moe_tie": cs.MOE_TIE,
+            "tie_gate": gate,
+            "ok": gate["ok"] and worst["gated"] <= cs.MOE_TIE}
+
+
+def cfg_line(cfg) -> dict:
+    return {k: getattr(cfg, k) for k in (
+        "dim", "n_layers", "n_heads", "n_kv_heads", "head_dim",
+        "hidden_dim", "vocab_size") if hasattr(cfg, k)} | (
+        {"n_experts": cfg.n_experts, "top_k": cfg.top_k}
+        if hasattr(cfg, "n_experts") else {})
+
+
+def tp_serve(run: Run) -> None:
+    from metal_flash_attention_tpu_torch.models import llama
+    cfg = (llama.LlamaConfig.tiny(n_heads=8, n_kv_heads=4)
+           if run.rehearse else llama.LlamaConfig.llama3_8b())
+    tp_family(run, "tp_serve", "llama", cfg, llama.init_params,
+              llama.param_shardings)
+
+
+def gemma_tp_serve(run: Run) -> None:
+    from metal_flash_attention_tpu_torch.models import gemma
+    cfg = (gemma.GemmaConfig.tiny(n_heads=8, n_kv_heads=4, sliding_window=24)
+           if run.rehearse else gemma.GemmaConfig.gemma2_2b())
+    tp_family(run, "gemma_tp_serve", "gemma", cfg, gemma.init_params,
+              gemma.param_shardings)
+
+
+def moe_tp_serve(run: Run) -> None:
+    """16 layers against the 1-card engine, then all 32 at tp only."""
+    import torch
+    from metal_flash_attention_tpu_torch.models import moe
+    from metal_flash_attention_tpu_torch.parallel import make_mesh, shard
+
+    base = (moe.MoEConfig.tiny(n_heads=8, n_kv_heads=4, n_experts=8)
+            if run.rehearse else moe.MoEConfig())
+    spans = ("moe_experts",)
+    cut = dataclasses.replace(base, n_layers=2 if run.rehearse
+                              else MOE_CUT_LAYERS)
+    tp_family(run, "moe_tp_serve", "llama", cut, moe.init_params,
+              moe.param_shardings, spans=spans, routes=True)
+
+    cfg = dataclasses.replace(base, n_layers=4 if run.rehearse
+                              else MOE_FULL_LAYERS)
+    if run.world == 1 and not run.rehearse:
+        run.say("moe_full_tp_serve", {"skipped": "the full depth needs more "
+                                      "than one card"})
+        return
+    mesh = make_mesh(heads=run.world, devices=run.dev.type)
+    gen = torch.Generator(device=run.dev).manual_seed(SEED)
+    run.reset_peak()
+    t0 = time.perf_counter()
+    # One layer drawn whole at a time, cut to this rank's block and freed:
+    # the whole model (93 GB) fits on no card.
+    one = dataclasses.replace(cfg, n_layers=1)
+    layers, head = [], None
+    for _ in range(cfg.n_layers):
+        whole = moe.init_params(one, gen, device=run.dev)
+        part = shard(whole, moe.param_shardings(one, mesh), mesh)
+        layers += part["layers"]
+        head = part
+        del whole
+    params = dict(head, layers=layers)
+    run.sync()
+    build_s = time.perf_counter() - t0
+    weights = run.peak()
+    tp = serve(run, params, cfg, "llama", mesh)
+    check_ranks_agree(run, "moe_full emitted tokens", tp["emitted"])
+    for s, p in zip(tp["streams"], run.prompts):
+        if len(s) != len(p) + run.max_new or not all(
+                0 <= t < cfg.vocab_size for t in s):
+            fail("moe_full: a stream is short or leaves the vocabulary")
+    prof = decode_profile(run, "moe_full_decode_profile", params, cfg,
+                          "llama", mesh, spans)
+    per_rank = run.gather({
+        "params_bytes_peak": weights,
+        "max_memory_allocated": tp["max_memory_allocated"],
+        "launches": tp["launches"],
+        "decode_device_ms": prof.get("device_ms"),
+        "device_ms_by_family": prof.get("device_ms_by_family"),
+        "nccl_share": prof.get("nccl_share")})
+    run.say("moe_full_tp_serve", {
+        "world_size": run.world, "config": cfg_line(cfg),
+        "note": "full depth; the layers were drawn one at a time (the "
+                "1-card run at this depth does not fit a card), so their "
+                "weights are not the 16-layer run's",
+        "weights_built_s": build_s, "seconds": tp["seconds"],
+        "new_tokens_per_s": tp["new_tokens_per_s"],
+        "new_tokens": run.max_new * len(run.prompts),
+        "per_rank": per_rank})
+    del params, layers, head
+    run.reset_peak()
+
+
+def cp_checks(run: Run) -> None:
+    """The four sharded-attention functions over the ranks against the
+    single-card kernel on rank 0's card, each with its ms."""
+    import torch
+    from metal_flash_attention_tpu_torch.ops import paged_attention as pa
+    from metal_flash_attention_tpu_torch.ops.flash_attention import (
+        flash_attention_forward,
+    )
+    from metal_flash_attention_tpu_torch.ops.flash_decode import flash_decode
+    from metal_flash_attention_tpu_torch.parallel import (
+        CONTEXT_AXIS,
+        HEAD_AXIS,
+        P,
+        context_parallel_attention,
+        context_parallel_decode,
+        context_parallel_paged_decode,
+        make_mesh,
+        shard,
+        shard_paged_cache_pages,
+        sharded_flash_attention,
+    )
+    from metal_flash_attention_tpu_torch.parallel import (
+        sharded_attention as sa,
+    )
+    from metal_flash_attention_tpu_torch.utils.tolerances import MIXED_TOL
+
+    dev, cp = run.dev, run.cp
+    bf16 = torch.bfloat16
+    heads = make_mesh(heads=run.world, devices=dev.type)
+    ctx = make_mesh(context=run.world, devices=dev.type)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf16)
+
+    def ms(fn):
+        if dev.type != "cuda":
+            fn()
+            return None
+        fn()
+        return max(run.gather(cs.event_ms(fn, CP_ITERS)))
+
+    def one_card(fn):
+        """The single-card kernel's output and ms, on rank 0."""
+        if run.rank != 0:
+            return None, None
+        out = fn()
+        return out, (cs.event_ms(fn, CP_ITERS) if dev.type == "cuda"
+                     else None)
+
+    readings, faults = {}, {}
+
+    def host(x, rows=False):
+        """x on the host (None stays None); ``rows``: [b, h, d] as [b, h,
+        1, d], so that each (row, head) is a tile of its own."""
+        if x is None:
+            return None
+        return x.cpu()[:, :, None] if rows else x.cpu()
+
+    def judge(name, got, ref, ref_ms, tp_ms, lse=None, fault=None):
+        r = None
+        if run.rank == 0:
+            r = cs.closeness(got, ref)
+            if lse is not None:
+                r["lse_max_abs_err"] = max(lse)
+                r["lse_ok"] = max(lse) <= MIXED_TOL.lse
+            r["ok"] = cs.within_limits(r) and r.get("lse_ok", True)
+            r.update(ms=tp_ms, one_card_ms=ref_ms)
+            if fault is not None:
+                faults[name] = cs.closeness(fault, ref)
+                r["fault_seen"] = not cs.within_limits(faults[name])
+        readings[name] = r
+
+    # 1. Head-parallel causal forward: each rank's 8 q heads, 2 kv heads.
+    b, h, n, d = cp["cp_flash"]
+    kvh = cp["cp_kv_heads"]
+    q, k, v = randn(b, h, n, d), randn(b, kvh, n, d), randn(b, kvh, n, d)
+    spec = P(None, HEAD_AXIS)
+    ql, kl, vl = (shard(x, spec, heads) for x in (q, k, v))
+    fn = sharded_flash_attention(heads, causal=True)
+    o_l = fn(ql, kl, vl)
+    _, lse_l = flash_attention_forward(ql, kl, vl, causal=True)
+    tp_ms = ms(lambda: fn(ql, kl, vl))
+    o_g = torch.cat(run.gather(o_l.cpu()), dim=1)
+    lse_g = torch.cat(run.gather(lse_l.cpu()), dim=1)
+    ref, ref_ms = one_card(lambda: flash_attention_forward(
+        q, k, v, causal=True))
+    lse_err = None
+    if run.rank == 0:
+        lse_err = [float((lse_g - ref[1].cpu()).abs().max())]
+        ref = ref[0].cpu()
+    judge("sharded_flash_attention", o_g, ref, ref_ms, tp_ms, lse=lse_err)
+    del q, k, v, ql, kl, vl, o_l
+
+    # 2. Context-parallel attention: queries whole, keys in 4 slices.
+    b, h, n, d = cp["cp_attn"]
+    keys = cp["cp_attn_keys"]
+    q, k, v = randn(b, h, n, d), randn(b, kvh, keys, d), randn(b, kvh,
+                                                              keys, d)
+    kl, vl = (shard(x, P(None, None, CONTEXT_AXIS), ctx) for x in (k, v))
+    fn = context_parallel_attention(ctx)
+    o = fn(q, kl, vl)
+    tp_ms = ms(lambda: fn(q, kl, vl))
+    fault = dropped_rank(sa, lambda: fn(q, kl, vl))
+    ref, ref_ms = one_card(lambda: flash_attention_forward(q, k, v)[0])
+    judge("context_parallel_attention", host(o), host(ref), ref_ms, tp_ms,
+          fault=host(fault))
+    del q, k, v, kl, vl
+
+    # 3. Context-parallel dense decode over ragged lengths.
+    lens = torch.tensor(cp["cp_decode_lens"], dtype=torch.int32, device=dev)
+    bsz, s_all = len(cp["cp_decode_lens"]), cp["cp_decode_keys"]
+    h, d = cp["cp_attn"][1], cp["cp_attn"][3]
+    q = randn(bsz, h, d)
+    k, v = randn(bsz, kvh, s_all, d), randn(bsz, kvh, s_all, d)
+    kl, vl = (shard(x, P(None, None, CONTEXT_AXIS), ctx) for x in (k, v))
+    fn = context_parallel_decode(ctx)
+    o = fn(q, kl, vl, lens)
+    tp_ms = ms(lambda: fn(q, kl, vl, lens))
+    fault = dropped_rank(sa, lambda: fn(q, kl, vl, lens))
+    s_local = kl.shape[2]
+    local_lens = (lens - run.rank * s_local).clamp(0, s_local).to(torch.int32)
+    o_i, lse_i = flash_decode(q, kl, vl, kv_lens=local_lens,
+                              return_residuals=True)
+    empty = {"decode": empty_rows(o_i, lse_i, local_lens)}
+    ref, ref_ms = one_card(lambda: flash_decode(q, k, v, kv_lens=lens))
+    judge("context_parallel_decode", host(o, True), host(ref, True), ref_ms,
+          tp_ms, fault=host(fault, True))
+    del kl, vl
+
+    # 4. Context-parallel paged decode: the same K/V in pages, row i's
+    # page j at 1 + i * per_row + j (page 0 the null page).
+    page = run.page
+    per_row = s_all // page
+
+    def pages(x):
+        out = x.new_zeros((bsz * per_row + 1, kvh, page, d))
+        out[1:] = x.view(bsz, kvh, per_row, page, d).transpose(1, 2).reshape(
+            -1, kvh, page, d)
+        return out
+    table = (1 + torch.arange(bsz * per_row, device=dev)).view(
+        bsz, per_row).to(torch.int32)
+    cache = pa.PagedKVCache(pages(k), pages(v), table, lens)
+    del k, v
+    kst, vst, tbl, ln = shard_paged_cache_pages(cache, run.world)
+    cp_spec = P(CONTEXT_AXIS)
+    blocks = [shard(kst, cp_spec, ctx).to(dev), shard(vst, cp_spec, ctx)
+              .to(dev), shard(torch.as_tensor(tbl), cp_spec, ctx).to(dev),
+              shard(torch.as_tensor(ln), cp_spec, ctx).to(dev)]
+    del kst, vst
+    fn = context_parallel_paged_decode(ctx)
+    o = fn(q, *blocks)
+    tp_ms = ms(lambda: fn(q, *blocks))
+    fault = dropped_rank(sa, lambda: fn(q, *blocks))
+    o_i, lse_i = pa.paged_decode(q, pa.PagedKVCache(
+        blocks[0][0], blocks[1][0], blocks[2][0], blocks[3][0]),
+        return_residuals=True)
+    empty["paged_decode"] = empty_rows(o_i, lse_i, blocks[3][0])
+    ref, ref_ms = one_card(lambda: pa.paged_decode(q, cache))
+    judge("context_parallel_paged_decode", host(o, True), host(ref, True),
+          ref_ms, tp_ms, fault=host(fault, True))
+    del cache, blocks
+
+    empty_all = run.gather(empty)
+    ok = (run.rank != 0 or all(r["ok"] and r.get("fault_seen", True)
+                               for r in readings.values()))
+    zero_rows = sum(e[k]["rows"] for e in empty_all for k in e)
+    empty_ok = all(e[k]["ok"] for e in empty_all for k in e) and (
+        zero_rows or run.world == 1)
+    run.say("cp_checks", {
+        "world_size": run.world, "limits": {
+            "tile_rel_rms": cs.KERNEL_TILE_REL_RMS, "lse_abs": MIXED_TOL.lse},
+        "shapes": {"sharded_flash_attention": f"q {list(cp['cp_flash'])} "
+                   f"causal, k/v {kvh} heads, heads over {run.world} ranks",
+                   "context_parallel_attention": f"q {list(cp['cp_attn'])}"
+                   f" against {cp['cp_attn_keys']} keys ({kvh} heads), "
+                   f"keys over {run.world} ranks",
+                   "context_parallel_decode": f"q [{bsz}, {h}, {d}] over "
+                   f"{s_all} positions, lengths {list(cp['cp_decode_lens'])}",
+                   "context_parallel_paged_decode": f"the same in "
+                   f"{page}-token pages, pages dealt over {run.world} ranks"},
+        "readings": readings, "faults": faults,
+        "empty_rows_by_rank": empty_all, "ok": bool(ok and empty_ok)})
+    if not run.gather(bool(ok and empty_ok))[0]:
+        run.failures.append(
+            "cp_checks: a sharded-attention function disagrees with the "
+            "single-card kernel, a fault went unseen, or a row of local "
+            "length 0 is not (o 0, lse -inf)")
+
+
+def dropped_rank(sa, call):
+    """``call()`` with rank 1's partial dropped from `_merge_partials`: a
+    fault the limits must see (None with one rank)."""
+    import torch.distributed as dist
+
+    if dist.get_world_size() == 1:
+        return None
+
+    def make(merge):
+        def run(o, lse, mesh, axis=sa.CONTEXT_AXIS):
+            if dist.get_rank() == 1:
+                lse = lse.new_full(lse.shape, float("-inf"))
+                o = o.new_zeros(o.shape)
+            return merge(o, lse, mesh, axis)
+        return run
+    with cs.planted(sa, "_merge_partials", make):
+        return call()
+
+
+def empty_rows(o, lse, local_lens) -> dict:
+    """The rows of local length 0 must give o = 0 and lse = -inf."""
+    import torch
+    rows = (local_lens == 0).nonzero().flatten().tolist()
+    good = all(bool((o[r] == 0).all()) and bool(torch.isneginf(lse[r]).all())
+               for r in rows)
+    return {"rows": len(rows), "ok": good}
+
+
+def rank_main(rank, world, store, phases, card, rehearse) -> None:
+    import torch
+    import torch.distributed as dist
+
+    if rehearse:
+        torch.set_num_threads(1)
+        dev = torch.device("cpu")
+    else:
+        dev = torch.device("cuda", rank)
+        torch.cuda.set_device(dev)
+    dist.init_process_group(
+        "gloo" if rehearse else "nccl",
+        init_method="file://" + os.path.join(store, "pg"), rank=rank,
+        world_size=world, timeout=datetime.timedelta(minutes=10))
+    try:
+        run = Run(rank, world, dev, card, rehearse)
+        for name in phases:
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                globals()[name](run)
+            dist.barrier()
+            if rank == 0:
+                print(f"phase {name}: {time.perf_counter() - t0:.2f} s",
+                      flush=True)
+        failed = sum(run.gather(run.failures), [])
+        if failed:
+            fail("; ".join(failed))
+    finally:
+        dist.destroy_process_group()
+
+
+def cards() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return "; ".join(out.stdout.strip().splitlines())
+
+
+def main() -> int:
+    import torch
+    import torch.multiprocessing as mp
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--world", type=int, default=4)
+    ap.add_argument("--phases", default=",".join(PHASES))
+    ap.add_argument("--rehearse", action="store_true")
+    args = ap.parse_args()
+    phases = [p for p in args.phases.split(",") if p]
+    if any(p not in PHASES for p in phases):
+        print(f"tp_probe: phases are {PHASES}", file=sys.stderr)
+        return 2
+    if args.rehearse:
+        card = "cpu rehearsal (no card)"
+    else:
+        if not torch.cuda.is_available() or \
+                torch.cuda.device_count() < args.world:
+            print(f"tp_probe: needs {args.world} CUDA cards", file=sys.stderr)
+            return 1
+        from metal_flash_attention_tpu_torch.native.build import (
+            build_all,
+            build_native,
+        )
+        t0 = time.perf_counter()
+        build_all()
+        build_native()
+        print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
+        card = cards()
+    print(f"cards: {card}", flush=True)
+    store = tempfile.mkdtemp(prefix="mfa_tp_probe_")
+    cache = tempfile.mkdtemp(prefix="mfa_tp_cache_")
+    os.environ["MFA_TORCH_CACHE_DIR"] = cache
+    t0 = time.perf_counter()
+    try:
+        mp.spawn(rank_main, args=(args.world, store, phases, card,
+                                  args.rehearse),
+                 nprocs=args.world, join=True)
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+        shutil.rmtree(cache, ignore_errors=True)
+    print(json.dumps({"ok": True, "phases": phases, "world": args.world,
+                      "seconds": time.perf_counter() - t0, "cards": card}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
