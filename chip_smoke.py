@@ -53,8 +53,10 @@ Phases (any failure exits non-zero and prints no result):
    ``kv_sharding`` and the steps partial on the mesh.  Every paged launch
    count set to 0 just before and read just after: equal to the serve
    phase's, all on the Hopper kernels; the streams must equal the serve
-   phase's token for token.  At world size 1 every all-reduce and
-   all-gather returns its input (the line counts them); the 4-card run is
+   phase's token for token.  At world size 1 every collective is over an
+   axis of one rank and skips its all-reduce or all-gather; the line
+   counts, by axis, the collective points the mesh steps reached, and
+   the phase fails if they reached none; the 4-card run is
    `tools/tp_probe.py`;
 4b. quant_serve: the same 6 requests through the engine with INT8 pools
    (`kv_precision`, QUANT_SERVE_PRECISION) at full width and depth, every
@@ -294,6 +296,25 @@ Phases (any failure exits non-zero and prints no result):
    shapes, the backward pair and SDPA's backward at the training shape,
    as the median and min-max of GEMM_REPEATS profiled loops, with
    nvidia-smi's clock and power samples around the kernels' loops;
+10a. entry: the port's `entry()` on its default device, the card
+   (`LlamaConfig.tiny(n_layers=2)`, head_dim 32) on its tokens [2, 256]
+   and on random ones: launch counts set to 0 just before and read just
+   after (one D 32 forward a layer and call, `flash_fwd_d32`, and nothing
+   else), the logits against the same weights' plain path within REF_*; tp_train: `llama.train_step(mesh=)`
+   at world size 1 (a one-rank NCCL group, mesh data 1 x heads 1), SGD at
+   TP_TRAIN_LR, against the plain `train_step` of the same weights and
+   rows, at Llama-3-8B widths on TRAIN_LAYERS layers and 8,193 tokens and
+   at the JAX dry run's `LlamaConfig.tiny(n_layers=2, n_heads=4,
+   n_kv_heads=1)` (head_dim 32) on [2, 129]: equal, or within the
+   training gates (TRAIN_LOSS_ABS, the update's relative rms
+   TRAIN_GRAD_REL_RMS), flash counts exact and all on the sm90 kernels
+   (at D 32 on `_d32` too), the collective points of both axes
+   reached; d32_checks: the forward, dQ and dK/dV
+   kernels at head_dim 32 (q D32_SHAPE causal) against their plain
+   versions by the worst 64-row tile and lse, each with a planted
+   one-tile fault, timed beside their bounds, the plain versions and
+   SDPA (forward and backward), as `flash_fwd_d32`, `flash_bwd_dq_d32`
+   and `flash_bwd_dkv_d32` in the kernels line;
 11. softmax_checks: `scaled_softmax` (default scale) and
    `derivative_softmax` (scale 0.5, on P from it and a random dP) on
    scores [1, 32, 8192, 8192] bf16 (Llama-3-8B's heads at the training
@@ -458,7 +479,8 @@ Output: `serve`, `tp_serve`, `reference`, `quant_serve`, `burst_serve`,
 `decode_checks`,
 `quant_kernel_checks`,
 `quant_fwd_checks`, `train`,
-`train_profile`, `train_reference`, `flash_checks`, `softmax_checks`,
+`train_profile`, `train_reference`, `flash_checks`, `entry`,
+`tp_train`, `d32_checks`, `softmax_checks`,
 `gemma_params`, `gemma_serve`, `gemma_dense`, `gemma_reference`,
 `gemma_checks`, `gemma_train`, `gemma_train_profile`,
 `gemma_train_reference`, `gemma_bwd_checks`, `options_attention`,
@@ -1008,24 +1030,40 @@ def serve(params, cfg, prompts, dev, kv_precision=None, burst=0,
 
 @contextlib.contextmanager
 def counted_collectives(counts: dict):
-    """`torch.distributed.all_reduce` and `all_gather` wrapped, inside the
-    block, to count their calls into ``counts``."""
+    """Inside the block, count into ``counts`` the calls of
+    `torch.distributed.all_reduce` and `all_gather`, and by axis
+    ("points_heads", "points_data") the collective points the mesh path
+    reached: every collective of `parallel.mesh` first asks `_whole`
+    whether its axis has one rank, and then skips its call, so at world
+    size 1 only the points count."""
     import torch.distributed as dist
+    from metal_flash_attention_tpu_torch.parallel import mesh as pm
+
+    def count(key):
+        counts[key] = counts.get(key, 0) + 1
 
     originals = {n: getattr(dist, n) for n in ("all_reduce", "all_gather")}
+    whole = pm._whole
 
     def wrap(name, fn):
         def run(*args, **kwargs):
-            counts[name] = counts.get(name, 0) + 1
+            count(name)
             return fn(*args, **kwargs)
         return run
+
+    def point(mesh, axis):
+        if mesh is not None:
+            count(f"points_{axis}")
+        return whole(mesh, axis)
     for n, fn in originals.items():
         setattr(dist, n, wrap(n, fn))
+    pm._whole = point
     try:
         yield
     finally:
         for n, fn in originals.items():
             setattr(dist, n, fn)
+        pm._whole = whole
 
 
 def tp_serve(params, cfg, prompts, dev, card, streams, launches) -> dict:
@@ -1109,8 +1147,9 @@ def tp_serve(params, cfg, prompts, dev, card, streams, launches) -> dict:
         "steps": steps, "new_tokens_per_s": tokens / secs,
         "streams_equal_serve": equal, "launches": got,
         "launches_equal_serve": got == want, "collectives": collectives,
-        "note": "world size 1: every all_reduce and all_gather returned its "
-                "input, so the collectives carried nothing; tools/tp_probe.py "
+        "note": "world size 1: every collective is over an axis of one "
+                "rank and skips its call (points_*: the collective points "
+                "reached); tools/tp_probe.py "
                 "runs tp 4 on four cards",
         "card": card}), flush=True)
     if not equal:
@@ -1118,8 +1157,8 @@ def tp_serve(params, cfg, prompts, dev, card, streams, launches) -> dict:
              "phase's")
     if got != want:
         fail(f"tp_serve: launches {got}, the serve phase's {want}")
-    if not collectives.get("all_reduce") or not collectives.get("all_gather"):
-        fail("tp_serve: the mesh steps ran no collective")
+    if not collectives.get(f"points_{HEAD_AXIS}"):
+        fail("tp_serve: the mesh steps reached no collective")
     if free != num_pages - 1:
         fail("tp_serve: pages leaked")
     return got
@@ -2767,9 +2806,9 @@ def train(dev, card):
     # backward's capped, D 256 and option ones, take no part in Llama
     # training.
     unused = {f"flash_fwd_{p}" for p in (*QUANT_PRECISIONS, "softcap",
-                                          "d256", "aux")} | {
+                                          "d256", "d32", "aux")} | {
         f"flash_bwd_{op}_{p}" for op in ("dq", "dkv")
-        for p in ("softcap", "d256", "aux")}
+        for p in ("softcap", "d256", "d32", "aux")}
     for name, n in launches.items():
         per_step = 0 if name in unused else TRAIN_LAYERS
         if n != per_step * TRAIN_STEPS:
@@ -3211,6 +3250,361 @@ def flash_kernel_checks(dev, launches) -> list[dict]:
         bound_ms=bound_ms, bound_by=bound_by,
         share_of_bound=bound_ms / dkv_t["ms"]))
     return results
+
+
+# Head dim 32 (slice 20): entry() on the card, the three kernels at D 32,
+# and the training mesh at world size 1.
+D32_SHAPE = (2, 4, 2, 4096, 32)      # b, q heads, kv heads, n, d: causal
+# A power of two so large that rounding a new bf16 parameter costs 2^-9 of
+# its update: the update reads the gradient (tests/test_torch_flash_cuda
+# .py's TRAIN_LR).
+TP_TRAIN_LR = 1024.0
+
+
+def entry_check(dev, card) -> dict:
+    """entry: the port's `entry()` on its default device (the card,
+    `LlamaConfig.tiny(n_layers=2)`, head_dim 32): its logits against the
+    same weights' plain path (`plain_hidden`, the 2-layer cut's logits
+    gate) on entry()'s tokens and on random ones, with the D 32 forward
+    launched once a layer and call and nothing else.  Returns the launch
+    counts."""
+    import torch
+    from metal_flash_attention_tpu_torch.entry import entry
+    from metal_flash_attention_tpu_torch.models import llama
+    from metal_flash_attention_tpu_torch.ops import flash_attention as fa
+    from metal_flash_attention_tpu_torch.ops import flash_attention_bwd as fb
+
+    fn, (params, tokens) = entry()
+    if params["embed"].device != dev or tokens.device != dev:
+        fail(f"entry() built on {params['embed'].device}, not the card")
+    cfg = llama.LlamaConfig.tiny(n_layers=2)
+    # entry()'s own tokens (all 0: V is the same at every position, so
+    # any attention gives it back) and random ones of the same shape.
+    inputs = {"entry_tokens": tokens, "random_tokens": torch.as_tensor(
+        np.random.default_rng(SEED + 91).integers(
+            0, cfg.vocab_size, tuple(tokens.shape)), device=dev)}
+    fa.reset_launch_counts()
+    fb.reset_launch_counts()
+    logits = {k: fn(params, t) for k, t in inputs.items()}
+    torch.cuda.synchronize(dev)
+    launches = {k: n for k, n in {**fa.LAUNCH_COUNTS,
+                                  **fb.LAUNCH_COUNTS}.items() if n}
+    calls = len(inputs) * cfg.n_layers
+    want = {"flash_fwd": calls, "flash_fwd_sm90": calls,
+            "flash_fwd_d32": calls}
+    readings = {}
+    for k, t in inputs.items():
+        with torch.no_grad():
+            ref = (plain_hidden(params, t, cfg) @ params["lm_head"]).float()
+        err = logits[k].float() - ref
+        readings[k] = {
+            "rel_rms_err": float(err.pow(2).mean().sqrt()
+                                 / ref.pow(2).mean().sqrt()),
+            "max_abs_err": float(err.abs().max()),
+            "finite": bool(torch.isfinite(logits[k]).all()),
+            "shape": list(logits[k].shape)}
+    ms, _ = timed(lambda: fn(params, tokens), 10)
+    print("entry: " + json.dumps({
+        "config": "LlamaConfig.tiny(n_layers=2), head_dim 32, bf16, tokens "
+                  "[2, 256], on the default device",
+        "device": str(params["embed"].device), "readings": readings,
+        "tol": {"rel_rms": REF_REL_RMS, "max_abs": REF_MAX_ABS},
+        "launches": launches, "ms": ms, "card": card}), flush=True)
+    if launches != want:
+        fail(f"entry launched {launches}, expected {want}")
+    for k, r in readings.items():
+        if not r["finite"] or r["shape"] != [2, 256, cfg.vocab_size]:
+            fail(f"entry's logits ({k}) are not finite [2, 256, vocab]")
+        if not (r["rel_rms_err"] <= REF_REL_RMS
+                and r["max_abs_err"] <= REF_MAX_ABS):
+            fail(f"entry's logits ({k}) disagree with the plain path")
+    return launches
+
+
+def d32_checks(dev, card, launches_by_path) -> list[dict]:
+    """d32_checks: the forward, dQ and dK/dV kernels at head dim 32 (the
+    D 64 kernels over 32-column rows) against their plain versions at
+    q D32_SHAPE causal, by the worst 64-row tile (KERNEL_TILE_REL_RMS)
+    and lse (MIXED_TOL.lse), each with a planted one-tile fault the limit
+    must see; their times beside the bound, the plain versions' and
+    SDPA's (the library yardstick, never called by the port).
+    ``launches_by_path``: {path: launch counts} of the main paths that ran
+    them (entry, tp_train)."""
+    import torch
+    import torch.nn.functional as F
+    from metal_flash_attention_tpu_torch.ops import flash_attention as fa
+    from metal_flash_attention_tpu_torch.ops import flash_attention_bwd as fb
+    from metal_flash_attention_tpu_torch.ops.reference import (
+        attention_reference,
+        attention_reference_grads,
+    )
+    from metal_flash_attention_tpu_torch.utils.tolerances import (
+        MIXED_TOL,
+        max_abs_err,
+    )
+
+    b, qh, kvh, n, d = D32_SHAPE
+    group, scale = qh // kvh, d ** -0.5
+    gen = torch.Generator(device=dev).manual_seed(SEED + 61)
+
+    def t(heads):
+        return torch.randn((b, heads, n, d), generator=gen,
+                           device=dev).to(torch.bfloat16)
+    q, k, v, do = t(qh), t(kvh), t(kvh), t(qh)
+    last = slice(n - TILE_ROWS, n)
+    h, kh = qh - 1, kvh - 1
+    grp = slice(kh * group, (kh + 1) * group)
+    mid = slice(n // 2, n // 2 + TILE_ROWS)
+    readings, problems = {}, []
+
+    def check(name, got, ref, fault):
+        r = closeness(got, ref)
+        r["planted_fault"] = closeness(fault, ref)
+        readings[name] = r
+        if not within_limits(r):
+            problems.append(f"{name} disagrees with its plain version")
+        if within_limits(r["planted_fault"]):
+            problems.append(f"the {name} check does not see a one-tile "
+                            "fault")
+
+    fa.reset_launch_counts()
+    fb.reset_launch_counts()
+    o, lse = fa.flash_attention_forward(q, k, v, causal=True)
+    dq, dk, dv = fb.flash_attention_backward(q, k, v, do, o, lse,
+                                             causal=True)
+    torch.cuda.synchronize(dev)
+    counted = {**fa.LAUNCH_COUNTS, **fb.LAUNCH_COUNTS}
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        for s in ("", "_sm90", "_d32"):
+            if counted[name + s] != 1:
+                problems.append(f"{name}{s} launched {counted[name + s]} "
+                                "times for one call")
+    po, plse = fa._forward_plain(q, k, v, causal=True, window_size=None,
+                                 scale=scale, out_dtype=torch.float32)
+    # Faults: the last query tile of the last head without its diagonal
+    # key tile; dK/dV of the last kv head's middle key tile without the
+    # group's last query tile.
+    fo = o.clone()
+    fo[:, h:h + 1, last] = attention_reference(
+        q[:, h:h + 1, last], k[:, kh:kh + 1, :n - TILE_ROWS],
+        v[:, kh:kh + 1, :n - TILE_ROWS], scale=scale).to(o.dtype)
+    check("flash_fwd_d32.o", o, po, fo)
+    lse_err = max_abs_err(lse, plse)
+    if lse_err > MIXED_TOL.lse:
+        problems.append(f"flash_fwd_d32's lse is {lse_err} off")
+    rdq, rdk, rdv = attention_reference_grads(q, k, v, do, causal=True,
+                                              scale=scale)[:3]
+    fdq = dq.clone()
+    fdq[:, h:h + 1, last] = attention_reference_grads(
+        q[:, h:h + 1, last], k[:, kh:kh + 1, :n - TILE_ROWS],
+        v[:, kh:kh + 1, :n - TILE_ROWS], do[:, h:h + 1, last],
+        scale=scale)[0].to(dq.dtype)
+    _, cdk, cdv, *_ = attention_reference_grads(
+        q[:, grp, last], k[:, kh:kh + 1], v[:, kh:kh + 1], do[:, grp, last],
+        causal=True, scale=scale)
+    fdk, fdv = dk.clone(), dv.clone()
+    fdk[:, kh, mid] -= cdk[:, 0, mid].to(dk.dtype)
+    fdv[:, kh, mid] -= cdv[:, 0, mid].to(dv.dtype)
+    check("flash_bwd_dq_d32.dq", dq, rdq, fdq)
+    check("flash_bwd_dkv_d32.dk", dk, rdk, fdk)
+    check("flash_bwd_dkv_d32.dv", dv, rdv, fdv)
+    del po, plse, fo, rdq, rdk, rdv, fdq, fdk, fdv, cdk, cdv
+    print("d32_checks: " + json.dumps({
+        "shape": f"q [{b}, {qh}, {n}, {d}], k/v [{b}, {kvh}, {n}, {d}] "
+                 "causal, bf16",
+        "readings": readings, "lse_max_abs_err": lse_err,
+        "limits": {"tile_rel_rms": KERNEL_TILE_REL_RMS,
+                   "lse_abs": MIXED_TOL.lse}}), flush=True)
+    if problems:
+        fail("; ".join(problems))
+
+    lse_c = lse.contiguous()
+    d_term = (do.float() * o.float()).sum(dim=-1)
+    kw = dict(causal=True, window_size=None, scale=scale)
+    fwd = timed_spread(lambda: fa.flash_attention_forward(
+        q, k, v, causal=True), 20)
+    dq_t = timed_spread(lambda: fb._dq_cuda(q, k, v, do, lse_c, d_term,
+                                            **kw), 20)
+    dkv_t = timed_spread(lambda: fb._dkv_cuda(q, k, v, do, lse_c, d_term,
+                                              **kw), 20)
+    plain_fwd, _ = timed(lambda: fa._forward_plain(
+        q, k, v, out_dtype=torch.bfloat16, **kw), 3)
+    plain_bwd, _ = timed(lambda: fb._backward_plain(q, k, v, do, **kw), 3)
+    lib_fwd = timed_spread(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), 20)
+    leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    sdpa_o = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                            enable_gqa=True)
+    lib_bwd = timed_spread(lambda: torch.autograd.grad(
+        sdpa_o, leaves, do, retain_graph=True), 20)
+    pairs = visible_pairs(n, n, True, None) * b * qh
+    io = nbytes(q, k, v, do, lse_c, d_term)
+    bounds = {"flash_fwd_d32": bound(4 * d * pairs, nbytes(q, k, v, o, lse)),
+              "flash_bwd_dq_d32": bound(2 * d * 3 * pairs, io + nbytes(dq)),
+              "flash_bwd_dkv_d32": bound(2 * d * 4 * pairs,
+                                         io + nbytes(dk, dv))}
+    src = "metal_flash_attention_tpu_torch/csrc/"
+    jax_src = "metal_flash_attention_tpu/ops/"
+    shape = f"q [{b}, {qh}, {n}, {d}], k/v [{b}, {kvh}, {n}, {d}] causal"
+    note = ("the D 64 kernel over 32-column rows (TMA zero-fills the "
+            "boxes' other 32 columns and clips the stores)")
+    out = []
+    for name, op, t_, plain_ms, lib, err_keys, replaces, library in (
+            ("flash_fwd_d32", "flash_fwd", fwd, plain_fwd, lib_fwd,
+             ("flash_fwd_d32.o",), "flash_attention.py:223 (and :552)",
+             "F.scaled_dot_product_attention(is_causal=True, "
+             "enable_gqa=True)"),
+            ("flash_bwd_dq_d32", "flash_bwd_dq", dq_t, plain_bwd, lib_bwd,
+             ("flash_bwd_dq_d32.dq",), "flash_attention_bwd.py:73",
+             "backward of SDPA: dq, dk, dv"),
+            ("flash_bwd_dkv_d32", "flash_bwd_dkv", dkv_t, plain_bwd,
+             lib_bwd, ("flash_bwd_dkv_d32.dk", "flash_bwd_dkv_d32.dv"),
+             "flash_attention_bwd.py:226", "backward of SDPA: dq, dk, dv")):
+        by_path = {p: c.get(f"{op}_d32", 0)
+                   for p, c in launches_by_path.items()}
+        bound_ms, bound_by = bounds[name]
+        out.append({
+            "name": name, "route": "cuda",
+            "source": src + ("flash_attention.cu" if op == "flash_fwd"
+                             else "flash_attention_bwd.cu"),
+            "replaces": jax_src + replaces,
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            "max_abs_err": max(readings[k]["max_abs_err"]
+                               for k in err_keys),
+            **{k.split(".")[1]: readings[k] for k in err_keys},
+            "ms": t_["ms"], "spread": t_, "plain_ms": plain_ms,
+            "plain_computes": ("o and lse" if op == "flash_fwd" else
+                               "dq, dk and dv together"),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "share_of_bound": bound_ms / t_["ms"],
+            "library_ms": lib["ms"], "library_spread": lib,
+            "library": library, "shape": shape, "kernel": note,
+            "limits": {"tile_rel_rms": KERNEL_TILE_REL_RMS,
+                       "lse_abs": MIXED_TOL.lse}, "card": card})
+    return out
+
+
+def step_reading(new, old, ref_new, loss, ref_loss) -> dict:
+    """A training step's parameters and loss against a reference step's
+    from the same ``old``: the update's (new - old) relative rms error
+    against the reference's update, worst over the leaves, and how many
+    leaves came out bit for bit equal."""
+    from metal_flash_attention_tpu_torch.utils.tree import flatten
+
+    rel, equal = [], 0
+    for a, r, p in zip(flatten(new)[0], flatten(ref_new)[0],
+                       flatten(old)[0]):
+        equal += bool((a == r).all())
+        du, dr = a.float() - p.float(), r.float() - p.float()
+        rel.append(float((du - dr).pow(2).mean().sqrt()
+                         / dr.pow(2).mean().sqrt().clamp_min(1e-30)))
+    return {"loss": float(loss), "ref_loss": float(ref_loss),
+            "loss_abs_err": abs(float(loss) - float(ref_loss)),
+            "update_rel_rms_max": max(rel), "leaves": len(rel),
+            "leaves_bit_equal": equal}
+
+
+def tp_train(dev, card) -> dict:
+    """tp_train: `llama.train_step(mesh=)` at world size 1 (a one-rank
+    NCCL group in this process, mesh data 1 x heads 1), SGD at
+    TP_TRAIN_LR, held against the plain `train_step` of the same weights
+    and rows: (a) Llama-3-8B widths on the train phase's TRAIN_LAYERS-layer
+    cut at TRAIN_TOKENS + 1 tokens; (b) the JAX dry run's dp x tp config
+    at tp 1 (`LlamaConfig.tiny(n_layers=2, n_heads=4, n_kv_heads=1)`,
+    head_dim 32) on tokens [2, 129].  Equal, or within the training gates
+    (TRAIN_LOSS_ABS; the update's relative rms TRAIN_GRAD_REL_RMS).  The
+    flash counts of the mesh steps are exact and all on the sm90 kernels
+    (the dry-run config's at D 32).  Returns the dry-run step's launch
+    counts."""
+    import torch
+    import torch.distributed as dist
+    from metal_flash_attention_tpu_torch.models import llama
+    from metal_flash_attention_tpu_torch.ops import flash_attention as fa
+    from metal_flash_attention_tpu_torch.ops import flash_attention_bwd as fb
+    from metal_flash_attention_tpu_torch.parallel import (
+        DATA_AXIS,
+        HEAD_AXIS,
+        make_mesh,
+        shard,
+    )
+
+    store = tempfile.mkdtemp(prefix="mfa_tp_train_store_")
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method="file://" + os.path.join(
+        store, "store"), rank=0, world_size=1)
+    readings, problems, dry_launches = {}, [], None
+    try:
+        mesh = make_mesh(data=1, heads=1)
+        cases = (
+            ("llama3_8b_cut", llama.LlamaConfig.llama3_8b(
+                n_layers=TRAIN_LAYERS), (1, TRAIN_TOKENS + 1)),
+            ("dryrun_tiny", llama.LlamaConfig.tiny(
+                n_layers=2, n_heads=4, n_kv_heads=1), (2, 129)))
+        for label, cfg, shape in cases:
+            params = llama.init_params(
+                cfg, torch.Generator(device=dev).manual_seed(SEED + 71),
+                device=dev)
+            tokens = torch.as_tensor(np.random.default_rng(SEED + 72)
+                                     .integers(0, cfg.vocab_size, shape),
+                                     device=dev)
+            ref_new, ref_loss = llama.train_step(params, tokens, cfg,
+                                                 lr=TP_TRAIN_LR)
+            local = shard(params, llama.param_shardings(cfg, mesh), mesh)
+            llama.train_step(local, tokens, cfg, lr=TP_TRAIN_LR,
+                             mesh=mesh)          # NCCL's communicator
+            collectives = {}
+            fa.reset_launch_counts()
+            fb.reset_launch_counts()
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            with counted_collectives(collectives):
+                new, loss = llama.train_step(local, tokens, cfg,
+                                             lr=TP_TRAIN_LR, mesh=mesh)
+            torch.cuda.synchronize(dev)
+            secs = time.perf_counter() - t0
+            launches = {k: n for k, n in {**fa.LAUNCH_COUNTS,
+                                          **fb.LAUNCH_COUNTS}.items() if n}
+            suffixes = ("", "_sm90") + (("_d32",) if cfg.head_dim == 32
+                                        else ())
+            want = {f"{op}{s}": cfg.n_layers for op in (
+                "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+                for s in suffixes}
+            r = step_reading(new, params, ref_new, loss, ref_loss)
+            r.update(layers=cfg.n_layers, head_dim=cfg.head_dim,
+                     tokens=list(shape), seconds=secs, launches=launches,
+                     collectives=collectives)
+            readings[label] = r
+            if launches != want:
+                problems.append(f"{label} launched {launches}, expected "
+                                f"{want}")
+            if not all(collectives.get(f"points_{a}")
+                       for a in (DATA_AXIS, HEAD_AXIS)):
+                problems.append(f"{label}: the mesh step reached no "
+                                f"collective of an axis: {collectives}")
+            if r["loss_abs_err"] > TRAIN_LOSS_ABS or \
+                    r["update_rel_rms_max"] > TRAIN_GRAD_REL_RMS:
+                problems.append(f"{label}: the mesh step leaves the plain "
+                                "one past the training gates")
+            if cfg.head_dim == 32:
+                dry_launches = launches
+            del params, local, new, ref_new
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    print("tp_train: " + json.dumps({
+        "world_size": 1, "mesh": {"data": 1, "heads": 1, "context": 1},
+        "lr": TP_TRAIN_LR, "readings": readings,
+        "gates": {"loss_abs": TRAIN_LOSS_ABS,
+                  "update_rel_rms": TRAIN_GRAD_REL_RMS},
+        "note": "world size 1: every collective skipped its call "
+                "(points_*: the collective points reached); "
+                "tools/tp_probe.py trains at dp 2 x tp 2 on four cards",
+        "card": card}), flush=True)
+    if problems:
+        fail("; ".join(problems))
+    return dry_launches
 
 
 def gemm_module():
@@ -7615,6 +8009,13 @@ def run(dev, cache_dir) -> int:
     torch.cuda.empty_cache()
     kernels += phase("flash_checks", flash_kernel_checks, dev,
                      flash_launches)
+    torch.cuda.empty_cache()
+    # Head dim 32: entry() on the card and the training mesh at world
+    # size 1 (its dry-run config at D 32), then the D 32 kernels' checks.
+    d32_paths = {"entry": phase("entry", entry_check, dev, card)}
+    d32_paths["tp_train"] = phase("tp_train", tp_train, dev, card)
+    torch.cuda.empty_cache()
+    kernels += phase("d32_checks", d32_checks, dev, card, d32_paths)
     torch.cuda.empty_cache()
     softmax_kernels = phase("softmax_checks", softmax_kernel_checks, dev,
                             card)

@@ -12,7 +12,7 @@
 //
 // O = softmax(Q K^T * scale) V and the natural-log row logsumexp, for
 // q [b, q_heads, q_len, D] and k/v [b, kv_heads, kv_len, D] (GQA: q head
-// h reads kv head h / group), D = 64, 128 or 256, bf16 or fp16.  Causal
+// h reads kv head h / group), D = 32, 64, 128 or 256, bf16 or fp16.  Causal
 // masking is aligned bottom-right (offset = kv_len - q_len); a window w
 // keeps keys > qpos - w.  A row that sees no key gives o = 0 and lse =
 // -inf.
@@ -106,6 +106,20 @@
 //   precision L residual is a cast of lse after the kernel
 //   (ops/flash_attention.py).
 //
+// - Head dim 32 (the tiny configs': `entry()` and the small training
+//   meshes; the TPU kernels take any head dim, :944-948 of the JAX file).
+//   A 32-column bf16 row is 64 bytes, half a 128-byte swizzled panel, and
+//   the SS / RS wgmma wrappers and every panel loop assume whole 64-column
+//   panels.  So a D 32 call runs the D 64 kernel over TMA maps whose rows
+//   are 32 columns: each load's 64-column box reaches 32 columns past the
+//   row, which TMA fills with zeros (and counts in the barrier's bytes), so
+//   Q and K carry zeros in columns 32..63, S = Q K^T is unchanged, and O's
+//   columns 32..63 come out as P times V's zeros; each store's box is
+//   clipped to the tensor, so only the 32 real columns are written (a
+//   float32 O, stored from the fragments, skips them by `o_cols`).  Nothing
+//   is padded on the host.  The cost is D 64's products and shared memory
+//   at D 32's HBM bytes: simple first.
+//
 // Every function returns cudaGetLastError() after its launch.
 
 #include <type_traits>
@@ -145,6 +159,7 @@ struct FwdTiles {
 
 struct FwdParams {
   float* o32;   // O when it is float32 (stored from the fragments)
+  int o_cols;   // the columns of a stored row: D, or 32 run at D 64
   float* lse;   // [b, q_heads, q_len], natural log
   const float* k_scales;  // [b * kv_heads] (quantized K/V only)
   const float* v_scales;
@@ -631,16 +646,17 @@ flash_fwd90_kernel(const __grid_constant__ CUtensorMap map_q,
             l[h] > 0.f ? (m[h] + log2f(l[h])) * kLn2 : -INFINITY;
     }
     if (p.o32) {
-      float* out = p.o32 + (size_t)bh * p.rows * D;
+      float* out = p.o32 + (size_t)bh * p.rows * p.o_cols;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         if (row[h] >= p.rows) continue;
 #pragma unroll
         for (int j = 0; j < D / 8; ++j)
-          *reinterpret_cast<float2*>(out + (size_t)row[h] * D + 8 * j +
-                                     2 * t4) =
-              make_float2(o[4 * j + 2 * h] * inv[h],
-                          o[4 * j + 2 * h + 1] * inv[h]);
+          if (8 * j < p.o_cols)
+            *reinterpret_cast<float2*>(out + (size_t)row[h] * p.o_cols +
+                                       8 * j + 2 * t4) =
+                make_float2(o[4 * j + 2 * h] * inv[h],
+                            o[4 * j + 2 * h + 1] * inv[h]);
       }
     } else if (r0 + 64 * wg < p.rows) {
       // This warpgroup's rows of Q's buffer are free after its last QK^T:
@@ -682,11 +698,15 @@ int launch(const void* q, const void* k, const void* v, void* o,
   const int kv_rows = p.kv_len > 0 ? p.kv_len : 1;
   const void* kb = p.kv_len > 0 ? k : q;
   const void* vb = p.kv_len > 0 ? v : q;
+  // A row of the tensors holds c columns: D, or 32 for the D 32 launch
+  // of the D 64 kernel (TMA zero-fills the box past them, and clips the
+  // stores).
+  const int c = p.o_cols;
   CUtensorMap mq, mk, mv, mo;
-  bool ok = sm90::tensor_map(&mq, q, u16, 2, D, p.rows, heads, D,
-                             (long long)p.rows * D, 64, kBQ, sw) &&
-            sm90::tensor_map(&mo, p.o32 ? q : o, u16, 2, D, p.rows, heads, D,
-                             (long long)p.rows * D, 64, 64, sw);
+  bool ok = sm90::tensor_map(&mq, q, u16, 2, c, p.rows, heads, c,
+                             (long long)p.rows * c, 64, kBQ, sw) &&
+            sm90::tensor_map(&mo, p.o32 ? q : o, u16, 2, c, p.rows, heads, c,
+                             (long long)p.rows * c, 64, 64, sw);
   for (int kv = 0; kv < 2 && ok; ++kv) {
     const void* base = kv ? vb : kb;
     ok = L::kQuant
@@ -695,8 +715,8 @@ int launch(const void* q, const void* k, const void* v, void* o,
                                 kv_rows, heads, L::kRawRow,
                                 (long long)kv_rows * L::kRawRow, L::kRawRow,
                                 kBKV, CU_TENSOR_MAP_SWIZZLE_NONE)
-             : sm90::tensor_map(kv ? &mv : &mk, base, u16, 2, D, kv_rows,
-                                heads, D, (long long)kv_rows * D, 64, kBKV,
+             : sm90::tensor_map(kv ? &mv : &mk, base, u16, 2, c, kv_rows,
+                                heads, c, (long long)kv_rows * c, 64, kBKV,
                                 sw);
   }
   if (!ok) return kErrTensorMap;
@@ -711,9 +731,9 @@ int launch(const void* q, const void* k, const void* v, void* o,
   return (int)cudaGetLastError();
 }
 
-// Quantized K/V: D 64 and 128, no cap.  K/V in q's type: D 64, 128 and
-// 256, with or without the cap; with the options (aux non-null), D 64
-// and 128.
+// Quantized K/V: D 64 and 128, no cap.  K/V in q's type: D 32 (the D 64
+// kernel over 32-column rows), 64, 128 and 256, with or without the cap;
+// with the options (aux non-null), D 64 and 128.
 template <typename T, int P = kUnquantized>
 int launch_d(const void* q, const void* k, const void* v, void* o,
              const FwdParams& p, const AuxOperands* aux, int batch,
@@ -740,7 +760,7 @@ int launch_d(const void* q, const void* k, const void* v, void* o,
                                                        batch, kv_heads, s);
       return (int)cudaErrorInvalidValue;
     }
-    if (head_dim == 64)
+    if (head_dim == 32 || head_dim == 64)
       return capped
                  ? launch<T, 64, P, true>(q, k, v, o, p, a, batch, kv_heads,
                                           s)
@@ -768,7 +788,8 @@ extern "C" {
 
 // q, k, v contiguous, 16-byte aligned.  o: q's dtype, or float32 when
 // o_f32; lse: float32.  is_fp16 selects fp16 inputs (else bf16).
-// head_dim 64, 128 or 256 (256 with K/V in q's type).  softcap > 0
+// head_dim 32, 64, 128 or 256 (32 and 256 with K/V in q's type, 32
+// without aux).  softcap > 0
 // soft-caps the scaled logits (K/V in q's type); 0: none.
 // window <= 0: none.  kv_precision 0: k and v in q's type; else a
 // Precision of quant_common.cuh (INT8, FP8-E4M3, FP8-E5M2, NF4) with bf16
@@ -788,8 +809,11 @@ int mfa_flash_fwd(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   if (kv_precision && (is_fp16 || !k_scales || !v_scales))
     return (int)cudaErrorInvalidValue;
+  if (head_dim == 32 && (kv_precision || aux))
+    return (int)cudaErrorInvalidValue;
   FwdParams p;
   p.o32 = o_f32 ? static_cast<float*>(o) : nullptr;
+  p.o_cols = head_dim;
   p.lse = static_cast<float*>(lse);
   p.k_scales = static_cast<const float*>(k_scales);
   p.v_scales = static_cast<const float*>(v_scales);

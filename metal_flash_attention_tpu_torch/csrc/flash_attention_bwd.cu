@@ -103,6 +103,13 @@
 //   segment ids sit in registers and the step's query ids reach the
 //   threads through the warp's scratch, as L and D do.
 //
+// Head dim 32 (the tiny configs') runs the D 64 kernels over TMA maps
+// whose rows are 32 columns, as the forward does (csrc/flash_attention.cu):
+// the loads' 64-column boxes come in with zeros in columns 32..63, so the
+// scores and dP are unchanged and dQ's, dK's and dV's extra columns are
+// products with those zeros; the stores' boxes are clipped to the 32 real
+// columns.  No option (aux) at D 32.
+//
 // Every function returns cudaGetLastError() after its launch.
 
 #include <type_traits>
@@ -980,23 +987,24 @@ flash_bwd_dkv90_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
-// A TMA map over a [heads][rows][D] 16-bit operand, boxes of 64 columns by
+// A TMA map over a [heads][rows][cols] 16-bit operand (cols the kernel's
+// D, or 32 for the D 64 kernel at head dim 32), boxes of 64 columns by
 // box_rows rows, 128-byte swizzled.  A tensor with no rows is mapped as
 // one row of `fallback` (nothing is then loaded), so that
 // cuTensorMapEncodeTiled accepts it.
-template <int D>
 bool operand_map(CUtensorMap* map, const void* base, const void* fallback,
-                 int rows, long long heads, int box_rows) {
+                 int rows, long long heads, int cols, int box_rows) {
   if (rows == 0) base = fallback;
   const long long r = rows > 0 ? rows : 1;
-  return sm90::tensor_map(map, base, CU_TENSOR_MAP_DATA_TYPE_UINT16, 2, D, r,
-                          heads, D, r * D, 64, box_rows,
+  return sm90::tensor_map(map, base, CU_TENSOR_MAP_DATA_TYPE_UINT16, 2, cols,
+                          r, heads, cols, r * cols, 64, box_rows,
                           CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 struct Operands {
   const void *q, *k, *v, *dout;
   void *dq, *dk, *dv;
+  int cols;  // a row's columns: the head dim
 };
 
 template <typename T, int D, bool kCap, bool kAux>
@@ -1007,13 +1015,14 @@ int launch_dq(const Operands& x, const BwdParams& p, const AuxOperands& aux,
   constexpr int kDqKeys = BwdTiles<D>::kDqKeys;
   const long long heads = (long long)batch * kv_heads;
   const int rows = p.group * p.q_len;
+  const int c = x.cols;
   CUtensorMap mq, mdo, mk, mv, mdq;
   const bool ok =
-      operand_map<D>(&mq, x.q, x.q, rows, heads, kDqRows) &&
-      operand_map<D>(&mdo, x.dout, x.q, rows, heads, kDqRows) &&
-      operand_map<D>(&mk, x.k, x.q, p.kv_len, heads, kDqKeys) &&
-      operand_map<D>(&mv, x.v, x.q, p.kv_len, heads, kDqKeys) &&
-      operand_map<D>(&mdq, x.dq, x.q, rows, heads, 64);
+      operand_map(&mq, x.q, x.q, rows, heads, c, kDqRows) &&
+      operand_map(&mdo, x.dout, x.q, rows, heads, c, kDqRows) &&
+      operand_map(&mk, x.k, x.q, p.kv_len, heads, c, kDqKeys) &&
+      operand_map(&mv, x.v, x.q, p.kv_len, heads, c, kDqKeys) &&
+      operand_map(&mdq, x.dq, x.q, rows, heads, c, 64);
   if (!ok) return kErrTensorMap;
   if (cudaFuncSetAttribute(flash_bwd_dq90_kernel<T, D, kCap, kAux>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1033,15 +1042,16 @@ int launch_dkv(const Operands& x, const BwdParams& p, const AuxOperands& aux,
   constexpr int kDkvRows = BwdTiles<D>::kDkvRows;
   constexpr int kDkvKeys = BwdTiles<D>::kDkvKeys;
   const long long heads = (long long)batch * kv_heads;
+  const int c = x.cols;
   CUtensorMap mq, mdo, mk, mv, mdk, mdv;
   const bool ok =
-      operand_map<D>(&mq, x.q, x.k, p.q_len, heads * p.group, kDkvRows) &&
-      operand_map<D>(&mdo, x.dout, x.k, p.q_len, heads * p.group,
-                     kDkvRows) &&
-      operand_map<D>(&mk, x.k, x.k, p.kv_len, heads, kDkvKeys) &&
-      operand_map<D>(&mv, x.v, x.k, p.kv_len, heads, kDkvKeys) &&
-      operand_map<D>(&mdk, x.dk, x.k, p.kv_len, heads, 64) &&
-      operand_map<D>(&mdv, x.dv, x.k, p.kv_len, heads, 64);
+      operand_map(&mq, x.q, x.k, p.q_len, heads * p.group, c, kDkvRows) &&
+      operand_map(&mdo, x.dout, x.k, p.q_len, heads * p.group, c,
+                  kDkvRows) &&
+      operand_map(&mk, x.k, x.k, p.kv_len, heads, c, kDkvKeys) &&
+      operand_map(&mv, x.v, x.k, p.kv_len, heads, c, kDkvKeys) &&
+      operand_map(&mdk, x.dk, x.k, p.kv_len, heads, c, 64) &&
+      operand_map(&mdv, x.dv, x.k, p.kv_len, heads, c, 64);
   if (!ok) return kErrTensorMap;
   // kAux: each warp's stage of the options, past the barriers.
   constexpr int kBytes =
@@ -1095,6 +1105,8 @@ template <typename T>
 int launch(bool dkv, bool capped, const Operands& x, const BwdParams& p,
            const AuxOperands* aux, int batch, int kv_heads, int head_dim,
            cudaStream_t s) {
+  if (head_dim == 32 && !aux)  // the D 64 kernels over 32-column rows
+    return launch_d<T, 64>(dkv, capped, x, p, aux, batch, kv_heads, s);
   if (head_dim == 64)
     return launch_d<T, 64>(dkv, capped, x, p, aux, batch, kv_heads, s);
   if (head_dim == 128)
@@ -1138,8 +1150,9 @@ extern "C" {
 
 // q, k, v, dout contiguous, 16-byte aligned; lse and dterm float32.
 // dq like q; is_fp16 selects fp16 (else bf16) for q, k, v, dout and dq.
-// head_dim 64, 128 or 256.  softcap > 0 soft-caps the scaled logits (the
-// forward's lse must be the capped logits'); 0: none.  window <= 0: none.
+// head_dim 32 (no aux), 64, 128 or 256.  softcap > 0 soft-caps the
+// scaled logits (the forward's lse must be the capped logits'); 0: none.
+// window <= 0: none.
 // aux: the options (attention_common.cuh `AuxOperands`; dQ writes dbias
 // where aux->dbias is not null), or null for none; at head_dim 64 or 128.
 // Returns kErrTensorMap when cuTensorMapEncodeTiled refuses a TMA map.
@@ -1150,7 +1163,7 @@ int mfa_flash_bwd_dq(const void* q, const void* k, const void* v,
                      float softcap, int causal, int window, int is_fp16,
                      const AuxOperands* aux, void* stream) {
   if (batch == 0 || q_len == 0) return 0;
-  const Operands x{q, k, v, dout, dq, nullptr, nullptr};
+  const Operands x{q, k, v, dout, dq, nullptr, nullptr, head_dim};
   return run(false, x, lse, dterm, aux, batch, q_heads, kv_heads, q_len,
              kv_len, head_dim, scale, softcap, causal, window, is_fp16,
              stream);
@@ -1164,7 +1177,7 @@ int mfa_flash_bwd_dkv(const void* q, const void* k, const void* v,
                       float scale, float softcap, int causal, int window,
                       int is_fp16, const AuxOperands* aux, void* stream) {
   if (batch == 0 || kv_len == 0) return 0;
-  const Operands x{q, k, v, dout, nullptr, dk, dv};
+  const Operands x{q, k, v, dout, nullptr, dk, dv, head_dim};
   return run(true, x, lse, dterm, aux, batch, q_heads, kv_heads, q_len,
              kv_len, head_dim, scale, softcap, causal, window, is_fp16,
              stream);

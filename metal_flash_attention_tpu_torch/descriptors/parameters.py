@@ -79,8 +79,9 @@ def autotune_on_miss_enabled(device=None) -> bool:
 _MISS_SWEEP_ACTIVE: set = set()
 
 # Head dims the table was measured at on TUNED_GENERATION: its rows are
-# the kernels' tiles, which run at these head dims.
-MEASURED_HEAD_DIMS = (64, 128, 256)
+# the kernels' tiles, which run at these head dims (32 runs the D 64
+# kernels, over 32-column rows, with D 64's tiles).
+MEASURED_HEAD_DIMS = (32, 64, 128, 256)
 # The card the table's rows were measured on.
 TUNED_GENERATION = "h100"
 # The longest sequence a miss's sweep runs at (its winner also serves

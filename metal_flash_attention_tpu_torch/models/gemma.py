@@ -24,8 +24,15 @@ float32).  Large products stay `torch.matmul`.  `param_shardings` and
 the blocks' ``mesh=`` serve over a tensor-parallel mesh (the paged steps
 in `models.serving`): each row-parallel partial is summed across the
 ranks BEFORE the post-attention / post-MLP norm, since a norm of a
-partial sum is not the norm of the sum.  Not ported yet: ``mesh=`` in
-`attention_block` and `forward_hidden` (sharded training).
+partial sum is not the norm of the sum.  Data- and head-parallel
+training takes ``mesh=`` in `attention_block`, `forward_hidden`,
+`loss_fn` and `train_step` as `models.llama` does (the JAX package's
+``shard_map`` over P(data, heads) at its `attention_block`): the normed
+inputs of the column blocks through `parallel.mesh.column_parallel_input`,
+the partials summed before the post-norms, every parameter through
+`data_replicated` and the loss through `data_mean`.  The tied head reads
+the replicated embedding, so the loss needs no gather.  A mesh whose
+context axis has more than one rank raises.
 """
 
 from __future__ import annotations
@@ -49,13 +56,13 @@ from metal_flash_attention_tpu_torch.parallel.mesh import (
     HEAD_AXIS,
     P,
     check_mesh,
+    check_training_mesh,
+    column_parallel_input,
+    data_mean,
+    data_replicated,
     row_parallel_sum,
 )
 from metal_flash_attention_tpu_torch.utils.device import resolve_device
-from metal_flash_attention_tpu_torch.utils.errors import (
-    SHARDED_TRAINING,
-    not_ported,
-)
 
 # The fused cross-entropy's vocabulary chunk (the JAX package's).
 CE_CHUNK = 8192
@@ -198,12 +205,15 @@ def lm_head(params: dict, x: torch.Tensor, cfg: GemmaConfig) -> torch.Tensor:
     return final_softcap((x @ params["embed"].T).float(), cfg)
 
 
-def attention_qkv(layer: dict, x: torch.Tensor, cfg: GemmaConfig, cos, sin):
+def attention_qkv(layer: dict, x: torch.Tensor, cfg: GemmaConfig, cos, sin,
+                  mesh=None):
     """pre_attn_norm -> QKV projections -> rope.  Returns q [b, q_heads,
     s, d] and k/v [b, kv_heads, s, d]; with a rank's column blocks of the
-    projections, its own heads."""
+    projections, its own heads (with ``mesh``, the normed input enters
+    them through `column_parallel_input`)."""
     b, s, _ = x.shape
-    h = rms_norm(x, layer["pre_attn_norm"], cfg.norm_eps)
+    h = column_parallel_input(
+        rms_norm(x, layer["pre_attn_norm"], cfg.norm_eps), mesh)
     q = (h @ layer["wq"]).reshape(b, s, -1, cfg.head_dim)
     k = (h @ layer["wk"]).reshape(b, s, -1, cfg.head_dim)
     v = (h @ layer["wv"]).reshape(b, s, -1, cfg.head_dim)
@@ -227,11 +237,13 @@ def attention_block(layer: dict, x: torch.Tensor, cfg: GemmaConfig, cos,
                     kv_cache: Optional[tuple] = None, mesh=None):
     """x [batch, seq, dim] -> (x + attention, (k, v)); causal, within
     ``window`` when given, the logits soft-capped.  With ``kv_cache =
-    (k_prefix, v_prefix)`` the new K/V are appended to the prefix."""
+    (k_prefix, v_prefix)`` the new K/V are appended to the prefix.  With
+    ``mesh`` the layer holds this rank's blocks and x its data-axis rows
+    (module docstring)."""
     if mesh is not None:
-        raise not_ported("sharded attention (mesh=)", SHARDED_TRAINING)
+        check_training_mesh(mesh)
     b, s, _ = x.shape
-    q, k, v = attention_qkv(layer, x, cfg, cos, sin)
+    q, k, v = attention_qkv(layer, x, cfg, cos, sin, mesh)
     if kv_cache is not None:
         k = torch.cat([kv_cache[0], k], dim=2)
         v = torch.cat([kv_cache[1], v], dim=2)
@@ -239,7 +251,7 @@ def attention_block(layer: dict, x: torch.Tensor, cfg: GemmaConfig, cos,
                            scale=cfg.attn_scale,
                            logit_softcap=cfg.attn_logit_softcap)
     return attention_out(layer, o.transpose(1, 2).reshape(b, s, -1), x,
-                         cfg), (k, v)
+                         cfg, mesh), (k, v)
 
 
 def mlp_block(layer: dict, x: torch.Tensor, cfg: GemmaConfig,
@@ -247,7 +259,8 @@ def mlp_block(layer: dict, x: torch.Tensor, cfg: GemmaConfig,
     """Residual GeGLU MLP: the tanh GELU and the gate product in float32,
     the down projection in the model dtype, then post_mlp_norm.  With
     ``mesh``, the row-parallel partials are summed before the norm."""
-    h = rms_norm(x, layer["pre_mlp_norm"], cfg.norm_eps)
+    h = column_parallel_input(
+        rms_norm(x, layer["pre_mlp_norm"], cfg.norm_eps), mesh)
     gate = F.gelu((h @ layer["w_gate"]).float(), approximate="tanh")
     up = (h @ layer["w_up"]).float()
     o = row_parallel_sum((gate * up).to(x.dtype) @ layer["w_down"],
@@ -271,7 +284,7 @@ def forward_hidden(params: dict, tokens: torch.Tensor, cfg: GemmaConfig, *,
     def one_layer(layer, x, cache, window):
         x, kv = attention_block(layer, x, cfg, cos, sin, window=window,
                                 kv_cache=cache, mesh=mesh)
-        return mlp_block(layer, x, cfg), kv
+        return mlp_block(layer, x, cfg, mesh), kv
 
     new_caches = []
     for i, layer in enumerate(params["layers"]):
@@ -301,22 +314,30 @@ def loss_fn(params: dict, tokens: torch.Tensor, cfg: GemmaConfig, *,
     cap inside the chunked cross-entropy (`models.losses`, CE_CHUNK
     columns at a time), never holding the [batch * seq, vocab] logits;
     ``fused_ce=False`` materialises them.  ``kw`` goes to
-    `forward_hidden` (``remat=True`` checkpoints each layer)."""
+    `forward_hidden` (``remat=True`` checkpoints each layer).  With
+    ``mesh``, ``params`` are this rank's blocks and ``tokens`` its
+    data-axis rows; the loss is the global batch's mean on every rank."""
+    mesh = kw.get("mesh")
+    if mesh is not None:
+        check_training_mesh(mesh)
+        params = data_replicated(params, mesh)
     targets = tokens[:, 1:]
     if fused_ce:
         x, _ = forward_hidden(params, tokens[:, :-1], cfg, **kw)
         nll = fused_cross_entropy(x.reshape(-1, x.shape[-1]),
                                   params["embed"].T, targets.reshape(-1),
                                   CE_CHUNK, cfg.final_logit_softcap)
-        return nll.mean()
+        return data_mean(nll.mean(), mesh)
     logits, _ = forward(params, tokens[:, :-1], cfg, **kw)
     logp = torch.log_softmax(logits, dim=-1)
-    return -logp.gather(-1, targets[..., None].long()).mean()
+    return data_mean(-logp.gather(-1, targets[..., None].long()).mean(),
+                     mesh)
 
 
 def train_step(params: dict, tokens: torch.Tensor, cfg: GemmaConfig,
                lr: float = 1e-4, **kw):
     """One SGD step, out of place: returns (new_params, loss).  Each
     update is taken in float32 and rounded to the parameter's dtype (norm
-    gains stay float32)."""
+    gains stay float32).  With ``mesh``: this rank's updated blocks and
+    the global loss."""
     return sgd_step(lambda p: loss_fn(p, tokens, cfg, **kw), params, lr)

@@ -15,9 +15,25 @@ XLA; only attention is a hand-written kernel on the card.  ``lora=`` /
 projections (`models.lora`), differentiable, so the same path
 fine-tunes.  `param_shardings` gives the tensor-parallel layout that
 `parallel.mesh.shard` cuts each rank's block by (the serving steps take
-``mesh=``, `models.serving`); `mlp_block` sums its row-parallel partial
-over the mesh when given one.  Not ported yet: ``mesh=`` in
-`attention_block` and `forward_hidden` (sharded training).
+``mesh=``, `models.serving`).
+
+Data- and head-parallel training (``mesh=`` in `attention_block`,
+`forward_hidden`, `forward`, `loss_fn` and `train_step`; the JAX
+package's ``shard_map`` over P(data, heads) at its `attention_block`,
+and GSPMD's collectives around the sharded products under `jax.jit`)
+runs SPMD: each rank holds its block of every parameter
+(`param_shardings`) and its data-axis rows of the tokens.  Attention
+runs the rank's (rows, heads) through the same fused kernels and their
+backward as without a mesh; the inputs of the column-parallel products
+(wq / wk / wv, w_gate / w_up) go through
+`parallel.mesh.column_parallel_input`, and wo's and w_down's partials
+through `row_parallel_sum`.  The loss gathers lm_head's column blocks
+(`gather_columns`, each rank computing the whole vocabulary's
+cross-entropy on its rows), takes every parameter through
+`data_replicated` and returns `data_mean` of the rank's loss, so the
+loss is the global batch's mean on every rank and every gradient that
+mean's.  The context axis (ring attention) is not ported: a mesh whose
+context axis has more than one rank raises.
 """
 
 from __future__ import annotations
@@ -41,13 +57,14 @@ from metal_flash_attention_tpu_torch.parallel.mesh import (
     HEAD_AXIS,
     P,
     check_mesh,
+    check_training_mesh,
+    column_parallel_input,
+    data_mean,
+    data_replicated,
+    gather_columns,
     row_parallel_sum,
 )
 from metal_flash_attention_tpu_torch.utils.device import resolve_device
-from metal_flash_attention_tpu_torch.utils.errors import (
-    SHARDED_TRAINING,
-    not_ported,
-)
 
 
 @dataclass(frozen=True)
@@ -200,8 +217,10 @@ def mlp_block(layer: dict, x: torch.Tensor, cfg: LlamaConfig,
     """Residual SwiGLU MLP; the SiLU and the gate product in float32.
     With ``mesh`` the layer holds this rank's column block of w_gate /
     w_up and row block of w_down, and the partial products are summed
-    over the heads axis (`parallel.mesh.row_parallel_sum`)."""
-    h = rms_norm(x, layer["mlp_norm"], cfg.norm_eps)
+    over the heads axis (`parallel.mesh.row_parallel_sum`; the normed
+    input enters the column blocks through `column_parallel_input`)."""
+    h = column_parallel_input(rms_norm(x, layer["mlp_norm"], cfg.norm_eps),
+                              mesh)
     gate = F.silu((h @ layer["w_gate"]).float())
     up = (h @ layer["w_up"]).float()
     down = (gate * up).to(x.dtype) @ layer["w_down"]
@@ -209,12 +228,16 @@ def mlp_block(layer: dict, x: torch.Tensor, cfg: LlamaConfig,
 
 
 def attention_qkv(layer: dict, x: torch.Tensor, cfg: LlamaConfig, cos, sin,
-                  lora_layer: Optional[dict] = None, lora_ids=None):
+                  lora_layer: Optional[dict] = None, lora_ids=None,
+                  mesh=None):
     """norm -> QKV projections (+ Qwen2-style bias, + each row's LoRA
     delta) -> rope.  Returns q [b, q_heads, s, d] and k/v [b, kv_heads,
-    s, d]; with a rank's column blocks of the projections, its own heads."""
+    s, d]; with a rank's column blocks of the projections, its own heads
+    (with ``mesh``, the normed input enters them through
+    `column_parallel_input`)."""
     b, s, _ = x.shape
-    h = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
+    h = column_parallel_input(rms_norm(x, layer["attn_norm"], cfg.norm_eps),
+                              mesh)
 
     def proj(name):
         y = h @ layer[name]
@@ -249,11 +272,19 @@ def attention_block(layer: dict, x: torch.Tensor, cfg: LlamaConfig, cos,
     Without ``block_q`` / ``block_kv`` attention resolves through
     `dispatch.attention`; with either it calls `flash_attention` with
     that tile, as the JAX package does.  ``lora_layer`` / ``lora_ids``:
-    this layer's adapter pairs and each row's adapter (None: adapter 0)."""
+    this layer's adapter pairs and each row's adapter (None: adapter 0).
+
+    With ``mesh`` (data and heads axes; module docstring) the layer holds
+    this rank's blocks and x its data-axis rows: the rank attends its own
+    heads, and wo's partials are summed over the heads axis."""
     if mesh is not None:
-        raise not_ported("sharded attention (mesh=)", SHARDED_TRAINING)
+        check_training_mesh(mesh)
+        if lora_layer is not None:
+            raise ValueError("LoRA adapters with mesh=: the adapters are "
+                             "not sharded")
     b, s, _ = x.shape
-    q, k, v = attention_qkv(layer, x, cfg, cos, sin, lora_layer, lora_ids)
+    q, k, v = attention_qkv(layer, x, cfg, cos, sin, lora_layer, lora_ids,
+                            mesh)
     if kv_cache is not None:
         k = torch.cat([kv_cache[0], k], dim=2)
         v = torch.cat([kv_cache[1], v], dim=2)
@@ -266,7 +297,7 @@ def attention_block(layer: dict, x: torch.Tensor, cfg: LlamaConfig, cos,
                             block_kv=block_kv)
     y = wo_proj(o.transpose(1, 2).reshape(b, s, -1), layer, lora_layer,
                 lora_ids)
-    return x + y.to(x.dtype), (k, v)
+    return x + row_parallel_sum(y, mesh).to(x.dtype), (k, v)
 
 
 def forward_hidden(params: dict, tokens: torch.Tensor, cfg: LlamaConfig, *,
@@ -285,7 +316,8 @@ def forward_hidden(params: dict, tokens: torch.Tensor, cfg: LlamaConfig, *,
     attention's forward kernel runs twice per layer and step.
     ``block_q`` / ``block_kv``: every layer's attention tile
     (`attention_block`).  ``lora`` / ``lora_ids``: stacked adapters
-    (`models.lora`) and each row's adapter."""
+    (`models.lora`) and each row's adapter.  ``mesh``: this rank's
+    blocks and rows (module docstring)."""
     b, s = tokens.shape
     if positions is None:
         positions = torch.arange(s, device=tokens.device).expand(b, s)
@@ -297,7 +329,7 @@ def forward_hidden(params: dict, tokens: torch.Tensor, cfg: LlamaConfig, *,
                                 block_q=block_q, block_kv=block_kv,
                                 mesh=mesh, lora_layer=lora_layer,
                                 lora_ids=lora_ids)
-        return mlp_block(layer, x, cfg), kv
+        return mlp_block(layer, x, cfg, mesh), kv
 
     new_caches = []
     for i, layer in enumerate(params["layers"]):
@@ -314,9 +346,11 @@ def forward_hidden(params: dict, tokens: torch.Tensor, cfg: LlamaConfig, *,
 
 def forward(params: dict, tokens: torch.Tensor, cfg: LlamaConfig, **kw):
     """tokens [batch, seq] -> (float32 logits [batch, seq, vocab],
-    per-layer (k, v))."""
+    per-layer (k, v)); with ``mesh``, the rank's rows' logits over the
+    whole vocabulary (lm_head's column blocks gathered)."""
     x, new_caches = forward_hidden(params, tokens, cfg, **kw)
-    return (x @ params["lm_head"]).float(), new_caches
+    head = gather_columns(params["lm_head"], kw.get("mesh"))
+    return (x @ head).float(), new_caches
 
 
 def loss_fn(params: dict, tokens: torch.Tensor, cfg: LlamaConfig, *,
@@ -325,20 +359,30 @@ def loss_fn(params: dict, tokens: torch.Tensor, cfg: LlamaConfig, *,
 
     ``fused_ce`` (the default) runs the lm head inside the chunked
     cross-entropy (`models.losses`), never holding the [batch * seq,
-    vocab] logits; ``fused_ce=False`` materialises them."""
+    vocab] logits; ``fused_ce=False`` materialises them.  With ``mesh``,
+    ``params`` are this rank's blocks and ``tokens`` its data-axis rows;
+    the loss is the global batch's mean on every rank (module
+    docstring)."""
+    mesh = kw.get("mesh")
+    if mesh is not None:
+        check_training_mesh(mesh)
+        params = data_replicated(params, mesh)
     targets = tokens[:, 1:]
     if fused_ce:
         x, _ = forward_hidden(params, tokens[:, :-1], cfg, **kw)
         nll = fused_cross_entropy(x.reshape(-1, x.shape[-1]),
-                                  params["lm_head"], targets.reshape(-1))
-        return nll.mean()
+                                  gather_columns(params["lm_head"], mesh),
+                                  targets.reshape(-1))
+        return data_mean(nll.mean(), mesh)
     logits, _ = forward(params, tokens[:, :-1], cfg, **kw)
     logp = torch.log_softmax(logits, dim=-1)
-    return -logp.gather(-1, targets[..., None].long()).mean()
+    return data_mean(-logp.gather(-1, targets[..., None].long()).mean(),
+                     mesh)
 
 
 def train_step(params: dict, tokens: torch.Tensor, cfg: LlamaConfig,
                lr: float = 1e-4, **kw):
     """One SGD step, out of place: returns (new_params, loss).  Each
-    update is taken in float32 and rounded to the parameter's dtype."""
+    update is taken in float32 and rounded to the parameter's dtype.
+    With ``mesh``: this rank's updated blocks and the global loss."""
     return sgd_step(lambda p: loss_fn(p, tokens, cfg, **kw), params, lr)

@@ -27,15 +27,30 @@ float32, plain products that the JAX package leaves to XLA; attention
 is `llama.attention_block` (the fused flash-attention kernels on the
 card).
 
-Expert parallelism (`param_shardings`, ``moe_ffn(..., mesh=)``): the
-experts split over the mesh's heads axis (E / tp a rank, as the JAX
-package shards them), attention tensor-parallel as in Llama.  Every rank
-routes every token (input and router are replicated, so the routes are
-the same on every rank), runs only its own experts over their capacity
-slots, and combines their gated outputs into a float32 partial that one
-all-reduce over the heads axis sums.  JAX lowers its sharded einsums to
-the same sum.  Not ported yet: ``mesh=`` in `forward_hidden`, `loss_fn`
-and `train_step` (sharded training).
+Expert parallelism (`param_shardings`, ``mesh=`` in `moe_ffn`,
+`forward_hidden`, `forward`, `loss_fn` and `train_step`): the experts
+split over the mesh's heads axis (E / tp a rank, as the JAX package
+shards them), attention tensor-parallel as in Llama, the batch's rows
+over the data axis.  Every rank of a heads group routes the group's
+tokens (input and router are replicated there, so the routes are the
+same on each), runs only its own experts over their capacity slots, and
+combines their gated outputs into a float32 partial that
+`parallel.mesh.row_parallel_sum` adds over the heads axis; the token
+rows and the gate weights enter the experts through
+`column_parallel_input`, so their gradients are summed there too (the
+router's gradient through the aux loss is whole on every rank already).
+JAX lowers its sharded einsums to the same sums.
+
+Over a data axis of more than one rank, capacity is the JAX package's:
+it counts the global batch, and each choice's slot is its rank among the
+expert's choices over every data rank's tokens in order.  Each rank
+gathers the data axis's choices (`gather_rows`, integers) and takes its
+own rows' slots; an expert's output for a token depends on that token
+alone, so each data rank runs its experts on its own tokens, in slots
+numbered globally (the rest of the buffer stays zero, as JAX's sharding
+constraint replicates the capacity buffer over the data axis).  The aux
+loss's token shares and mean gates are the global batch's
+(`sum_over` the data axis, with its gradient summed back).
 """
 
 from __future__ import annotations
@@ -46,7 +61,6 @@ from dataclasses import dataclass
 from typing import Optional
 
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
@@ -54,18 +68,22 @@ from metal_flash_attention_tpu_torch.models import llama
 from metal_flash_attention_tpu_torch.models.losses import fused_cross_entropy
 from metal_flash_attention_tpu_torch.models.optim import sgd_step
 from metal_flash_attention_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
     HEAD_AXIS,
     P,
-    axis_group,
     axis_index,
     axis_size,
     check_mesh,
+    check_training_mesh,
+    column_parallel_input,
+    data_mean,
+    data_replicated,
+    gather_columns,
+    gather_rows,
+    row_parallel_sum,
+    sum_over,
 )
 from metal_flash_attention_tpu_torch.utils.device import resolve_device
-from metal_flash_attention_tpu_torch.utils.errors import (
-    SHARDED_TRAINING,
-    not_ported,
-)
 
 
 @dataclass(frozen=True)
@@ -97,12 +115,6 @@ class MoEConfig:
                         top_k=2)
         defaults.update(kw)
         return MoEConfig(**defaults)
-
-
-def _unported_mesh(mesh) -> None:
-    if mesh is not None:
-        raise not_ported("expert parallelism in training (mesh=)",
-                         SHARDED_TRAINING)
 
 
 def _expert_block(cfg: MoEConfig, mesh) -> tuple[int, int]:
@@ -171,11 +183,23 @@ def _slots(topi: torch.Tensor, n_experts: int, capacity: int):
     return slot, slot < capacity
 
 
-def _aux_loss(gates: torch.Tensor, topi: torch.Tensor) -> torch.Tensor:
-    """E * sum_e(share of first choices on e * mean gate of e)."""
+def _aux_loss(gates: torch.Tensor, topi: torch.Tensor,
+              mesh=None) -> torch.Tensor:
+    """E * sum_e(share of first choices on e * mean gate of e), over the
+    global batch: with ``mesh``, the counts and gate sums of every data
+    rank's tokens (`sum_over`)."""
     t, e = gates.shape
-    frac = F.one_hot(topi[:, 0], e).sum(dim=0).to(gates.dtype) / t
-    return e * (frac * gates.mean(dim=0)).sum()
+    counts = F.one_hot(topi[:, 0], e).sum(dim=0).to(gates.dtype)
+    if _data_ranks(mesh) == 1:
+        return e * (counts / t * gates.mean(dim=0)).sum()
+    n = t * _data_ranks(mesh)
+    counts = sum_over(counts, mesh, DATA_AXIS)
+    sums = sum_over(gates.sum(dim=0), mesh, DATA_AXIS)
+    return e * (counts / n * (sums / n)).sum()
+
+
+def _data_ranks(mesh) -> int:
+    return 1 if mesh is None else axis_size(mesh, DATA_AXIS)
 
 
 def route(gates: torch.Tensor, top_k: int, capacity: int):
@@ -230,23 +254,30 @@ def moe_ffn(params: dict, x: torch.Tensor, cfg: MoEConfig, mesh=None):
     """x [batch, seq, dim] -> (y [batch, seq, dim] in x's dtype, aux
     loss).  Capacity counts every token of the call.  With ``mesh``,
     ``params`` holds this rank's block of the experts (`param_shardings`)
-    and x is whole on every rank: the rank's experts' float32 partial is
-    summed over the heads axis."""
+    and x is this rank's data-axis rows, whole over the heads axis: the
+    rank's experts' float32 partial is summed over the heads axis, and
+    capacity and the aux loss count every data rank's tokens (module
+    docstring)."""
     block, e_local = _expert_block(cfg, mesh)
     b, s, d = x.shape
-    xt = x.reshape(b * s, d)
+    t = b * s
+    xt = x.reshape(t, d)
     gates = torch.softmax(xt.float() @ params["w_router"].float(), dim=-1)
-    cap = _capacity(cfg, b * s)
     topw, topi = _top_k(gates, cfg.top_k)
-    slot, kept = _slots(topi, cfg.n_experts, cap)
+    # Slots over the global token set, then this rank's rows of them.
+    cap = _capacity(cfg, t * _data_ranks(mesh))
+    slot, kept = _slots(gather_rows(topi, mesh), cfg.n_experts, cap)
+    if _data_ranks(mesh) > 1:
+        lo = axis_index(mesh, DATA_AXIS) * t
+        slot, kept = slot[lo:lo + t], kept[lo:lo + t]
     # This rank's choices, numbered among its own experts.
     mine = kept & (topi // e_local == block)
-    xe, dest = _dispatch(xt.to(cfg.dtype), topi - block * e_local, slot,
-                         mine, cap, e_local)
-    y = _combine(_experts(params, xe, cfg), dest, topw, mine)
-    if mesh is not None:
-        dist.all_reduce(y, group=axis_group(mesh, HEAD_AXIS))
-    return y.reshape(b, s, d).to(x.dtype), _aux_loss(gates, topi)
+    xe, dest = _dispatch(column_parallel_input(xt, mesh).to(cfg.dtype),
+                         topi - block * e_local, slot, mine, cap, e_local)
+    y = _combine(_experts(params, xe, cfg), dest,
+                 column_parallel_input(topw, mesh), mine)
+    y = row_parallel_sum(y, mesh)
+    return y.reshape(b, s, d).to(x.dtype), _aux_loss(gates, topi, mesh)
 
 
 def _base_cfg(cfg: MoEConfig) -> llama.LlamaConfig:
@@ -296,8 +327,8 @@ def forward_hidden(params: dict, tokens: torch.Tensor, cfg: MoEConfig, *,
     v), aux loss averaged over the layers): everything before the lm
     head.  ``remat=True`` checkpoints each layer
     (`torch.utils.checkpoint`, non-reentrant), as `llama.forward_hidden`
-    does."""
-    _unported_mesh(mesh)
+    does.  ``mesh``: this rank's blocks and data-axis rows (module
+    docstring)."""
     base = _base_cfg(cfg)
     b, s = tokens.shape
     if positions is None:
@@ -307,9 +338,9 @@ def forward_hidden(params: dict, tokens: torch.Tensor, cfg: MoEConfig, *,
 
     def one_layer(layer, x, cache):
         x, kv = llama.attention_block(layer, x, base, cos, sin,
-                                      kv_cache=cache)
+                                      kv_cache=cache, mesh=mesh)
         h = llama.rms_norm(x, layer["mlp_norm"], cfg.norm_eps)
-        y, aux = moe_ffn(layer["moe"], h, cfg)
+        y, aux = moe_ffn(layer["moe"], h, cfg, mesh=mesh)
         return x + y, kv, aux
 
     new_caches = []
@@ -329,9 +360,11 @@ def forward_hidden(params: dict, tokens: torch.Tensor, cfg: MoEConfig, *,
 
 def forward(params: dict, tokens: torch.Tensor, cfg: MoEConfig, **kw):
     """tokens [batch, seq] -> (float32 logits, per-layer (k, v), aux
-    loss)."""
+    loss); with ``mesh``, over the whole vocabulary (lm_head's column
+    blocks gathered)."""
     x, new_caches, aux = forward_hidden(params, tokens, cfg, **kw)
-    return (x @ params["lm_head"]).float(), new_caches, aux
+    head = gather_columns(params["lm_head"], kw.get("mesh"))
+    return (x @ head).float(), new_caches, aux
 
 
 def loss_fn(params: dict, tokens: torch.Tensor, cfg: MoEConfig, *,
@@ -339,21 +372,30 @@ def loss_fn(params: dict, tokens: torch.Tensor, cfg: MoEConfig, *,
     """Next-token cross-entropy plus ``aux_loss_weight`` times the
     load-balancing loss.  ``fused_ce`` (the default) runs the lm head
     inside the chunked cross-entropy (`models.losses`);
-    ``fused_ce=False`` materialises the logits."""
+    ``fused_ce=False`` materialises the logits.  With ``mesh``, this
+    rank's blocks and data-axis rows; the loss is the global batch's on
+    every rank (`llama.loss_fn`'s scheme; the aux loss is global
+    already)."""
+    mesh = kw.get("mesh")
+    if mesh is not None:
+        check_training_mesh(mesh)
+        params = data_replicated(params, mesh)
     targets = tokens[:, 1:]
     if fused_ce:
         x, _, aux = forward_hidden(params, tokens[:, :-1], cfg, **kw)
         nll = fused_cross_entropy(x.reshape(-1, x.shape[-1]),
-                                  params["lm_head"], targets.reshape(-1))
-        return nll.mean() + cfg.aux_loss_weight * aux
+                                  gather_columns(params["lm_head"], mesh),
+                                  targets.reshape(-1))
+        return data_mean(nll.mean() + cfg.aux_loss_weight * aux, mesh)
     logits, _, aux = forward(params, tokens[:, :-1], cfg, **kw)
     logp = torch.log_softmax(logits, dim=-1)
     nll = -logp.gather(-1, targets[..., None].long())
-    return nll.mean() + cfg.aux_loss_weight * aux
+    return data_mean(nll.mean() + cfg.aux_loss_weight * aux, mesh)
 
 
 def train_step(params: dict, tokens: torch.Tensor, cfg: MoEConfig,
                lr: float = 1e-4, **kw):
     """One SGD step, out of place: returns (new_params, loss), each
-    update taken in float32 and rounded to the parameter's dtype."""
+    update taken in float32 and rounded to the parameter's dtype.  With
+    ``mesh``: this rank's updated blocks and the global loss."""
     return sgd_step(lambda p: loss_fn(p, tokens, cfg, **kw), params, lr)

@@ -101,16 +101,18 @@ from metal_flash_attention_tpu_torch.ops.reference import (
 from metal_flash_attention_tpu_torch.utils.errors import not_ported
 
 # Head dims of every attention kernel; the forward and the backward over
-# K/V in q's type also take Gemma-2's 256.
+# K/V in q's type also take Gemma-2's 256 and the tiny configs' 32 (the
+# D 64 kernels over 32-column rows, csrc/flash_attention.cu), without the
+# options.
 KERNEL_HEAD_DIMS = (64, 128)
-UNQUANTIZED_HEAD_DIMS = (64, 128, 256)
+UNQUANTIZED_HEAD_DIMS = (32, 64, 128, 256)
 KERNEL_DTYPES = (torch.bfloat16, torch.float16)
 
 # One count per kernel, bumped only where its wrapper launches it.
 LAUNCH_COUNTS = {"flash_fwd": 0, "flash_fwd_sm90": 0,
                  **{f"flash_fwd_{p.value}": 0 for p in KV_PRECISIONS},
                  "flash_fwd_softcap": 0, "flash_fwd_d256": 0,
-                 "flash_fwd_aux": 0}
+                 "flash_fwd_d32": 0, "flash_fwd_aux": 0}
 # The tiles each kernel launched with: {(block_q, block_kv): launches}.
 LAUNCH_TILES = {"flash_fwd": collections.Counter()}
 
@@ -536,8 +538,8 @@ def _forward_cuda(q, k, v, *, causal, window_size, scale, out_dtype,
         LAUNCH_COUNTS[f"flash_fwd_{precision.value}"] += 1
     if softcap is not None:
         LAUNCH_COUNTS["flash_fwd_softcap"] += 1
-    if d == 256:
-        LAUNCH_COUNTS["flash_fwd_d256"] += 1
+    if d in (32, 256):
+        LAUNCH_COUNTS[f"flash_fwd_d{d}"] += 1
     if aux is not None:
         LAUNCH_COUNTS["flash_fwd_aux"] += 1
     return o, lse

@@ -22,7 +22,8 @@ saves q, k, v, o and lse, and its backward runs both kernels.
 
 Gemma-2's ``logit_softcap`` c is differentiated as the JAX kernels do
 it: P is the capped logits', and dS takes the chain factor
-1 - tanh(s / c)^2 before dQ and dK.  Head dims 64, 128 and 256.
+1 - tanh(s / c)^2 before dQ and dK.  Head dims 32, 64, 128 and 256 (32
+on the D 64 kernels over 32-column rows, without the options).
 
 The options (`ops.flash_attention`): P is the biased, gated and
 segmented logits', as the forward's; mask, mask2 and the segment ids
@@ -43,7 +44,7 @@ tensor launches the Hopper kernels of `csrc/flash_attention_bwd.cu`
 ``LAUNCH_COUNTS["flash_bwd_dq"]`` or ``["flash_bwd_dkv"]`` (the op) and
 to ``["flash_bwd_dq_sm90"]`` or ``["flash_bwd_dkv_sm90"]`` (the kernel
 that ran), with the soft cap to ``["<op>_softcap"]`` and at head_dim 256
-to ``["<op>_d256"]`` too.  Each kernel launches the tile
+or 32 to ``["<op>_d256"]`` or ``["<op>_d32"]`` too.  Each kernel launches the tile
 `ops.flash_attention.kernel_config` resolves for it (the caller's
 ``block_q`` / ``block_kv`` clamped to that kernel's rules, a tuned
 winner under ``backward_query`` / ``backward_key_value``, "_causal" for
@@ -84,7 +85,8 @@ from metal_flash_attention_tpu_torch.ops.reference import (
 # One count per op and per kernel, bumped only where the wrapper launches
 # it.
 LAUNCH_COUNTS = {f"flash_bwd_{op}{suffix}": 0 for op in ("dq", "dkv")
-                 for suffix in ("", "_sm90", "_softcap", "_d256", "_aux")}
+                 for suffix in ("", "_sm90", "_softcap", "_d256", "_d32",
+                               "_aux")}
 # The tiles each kernel launched with: {(block_q, block_kv): launches}.
 LAUNCH_TILES = {"flash_bwd_dq": collections.Counter(),
                 "flash_bwd_dkv": collections.Counter()}
@@ -332,8 +334,8 @@ def _launch(name, outputs, q, k, v, do, lse, d_term, *, causal,
     LAUNCH_TILES[name][(cfg.block_q, cfg.block_kv)] += 1
     if softcap is not None:
         LAUNCH_COUNTS[f"{name}_softcap"] += 1
-    if d == 256:
-        LAUNCH_COUNTS[f"{name}_d256"] += 1
+    if d in (32, 256):
+        LAUNCH_COUNTS[f"{name}_d{d}"] += 1
     if aux is not None:
         LAUNCH_COUNTS[f"{name}_aux"] += 1
 

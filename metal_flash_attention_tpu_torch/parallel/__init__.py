@@ -1,10 +1,14 @@
-"""Distribution over `torch.distributed`: the device mesh and the
-head-, data- and context-parallel attention.
+"""Distribution over `torch.distributed`: the device mesh, the
+collectives of data-, head- and expert-parallel training and serving,
+and the head-, data- and context-parallel attention.
 
-The port of the JAX package's `parallel/` for serving.  Each rank is one
-process holding its own block of every sharded tensor (`parallel.mesh`).
-Not ported yet: `ring_attention`, the `zigzag_*` functions and `pipeline`
-(ROADMAP.md, port queue: sharded training).
+The port of the JAX package's `parallel/` for serving and for training
+over the data and heads axes.  Each rank is one process holding its own
+block of every sharded tensor (`parallel.mesh`); the collectives that
+carry a gradient are `torch.autograd.Function`s there.  Not ported yet:
+`ring_attention`, the `zigzag_*` functions and `pipeline`, so a training
+mesh with a context axis of more than one rank raises (ROADMAP.md, port
+queue: sharded training).
 """
 
 from metal_flash_attention_tpu_torch.parallel.mesh import (

@@ -17,9 +17,30 @@ tensor.  The names stay JAX's so that each counterpart is easy to find:
   shardings)`: each leaf sliced to this rank's block;
 - `unshard(x, spec, mesh)`: a block all-gathered back to the global
   tensor (for checks and tests);
-- `row_parallel_sum` and `gather_columns`, the two collectives of
-  tensor-parallel serving (the psum and the gather that GSPMD inserts
-  around a row- and a column-parallel product in the JAX package).
+- the collectives GSPMD inserts around the sharded products of the JAX
+  package, each a `torch.autograd.Function`, so that training
+  differentiates through them as `jax.grad` does through XLA's:
+  - `column_parallel_input`: the input of a column-parallel product,
+    identity forward, its gradient summed over the heads axis backward;
+  - `row_parallel_sum`: a row-parallel product's partials summed over
+    the heads axis forward, the gradient passed through backward;
+  - `gather_columns`: a column-parallel block gathered whole forward,
+    this rank's columns of the gradient backward;
+  - `data_replicated` and `data_mean`: a parameter at its use in a
+    data-parallel loss (identity forward, its gradient averaged over the
+    data axis backward) and the loss itself (the mean over the data axis
+    forward, this rank's own gradient backward), so that every
+    gradient of a data group comes out as the global batch's mean;
+  - `sum_over` (a sum whose gradient is summed too) and `gather_rows`
+    (an integer tensor's rows gathered), for MoE routing over the data
+    axis.
+
+Gradients follow one rule: on a rank, a tensor whole over an axis carries
+the gradient of the whole loss, and a block carries its own block's.
+
+Every sum runs in float32 and is cast back once, so the only extra
+rounding against one card is that of each partial (JAX's GSPMD psum adds
+bf16 partials in bf16).
 """
 
 from __future__ import annotations
@@ -28,6 +49,11 @@ from typing import NamedTuple, Optional
 
 import torch
 import torch.distributed as dist
+
+from metal_flash_attention_tpu_torch.utils.errors import (
+    SHARDED_TRAINING,
+    not_ported,
+)
 
 DATA_AXIS = "data"
 HEAD_AXIS = "heads"
@@ -126,25 +152,36 @@ def axis_group(mesh, axis: str):
     return mesh.get_group(axis)
 
 
-def _block(x: torch.Tensor, spec, mesh) -> torch.Tensor:
+def block_slices(shape, spec, mesh) -> tuple:
+    """This rank's block of a tensor of ``shape`` under ``spec``: one
+    slice per dimension (ValueError where an axis does not divide its
+    dimension)."""
     spec = tuple(spec)
-    if len(spec) > x.dim():
+    if len(spec) > len(shape):
         raise ValueError(f"spec {spec} has more entries than the tensor's "
-                         f"{x.dim()} dims")
-    out = x
+                         f"{len(shape)} dims")
+    out = [slice(None)] * len(shape)
     for dim, axis in enumerate(spec):
         if axis is None:
             continue
         n = axis_size(mesh, axis)
         if n == 1:
             continue
-        if out.shape[dim] % n:
-            raise ValueError(f"dim {dim} of size {out.shape[dim]} does not "
+        if shape[dim] % n:
+            raise ValueError(f"dim {dim} of size {shape[dim]} does not "
                              f"split over {n} ranks of {axis!r}")
-        size = out.shape[dim] // n
-        out = out.narrow(dim, axis_index(mesh, axis) * size, size)
+        size = shape[dim] // n
+        start = axis_index(mesh, axis) * size
+        out[dim] = slice(start, start + size)
+    return tuple(out)
+
+
+def _block(x: torch.Tensor, spec, mesh) -> torch.Tensor:
+    where = block_slices(x.shape, spec, mesh)
+    if all(s == slice(None) for s in where):
+        return x
     # A block owns its memory, so the global tensor can be freed.
-    return x if out is x else out.clone(memory_format=torch.contiguous_format)
+    return x[where].clone(memory_format=torch.contiguous_format)
 
 
 def shard(tree, specs, mesh):
@@ -191,6 +228,102 @@ def unshard(x: torch.Tensor, spec, mesh) -> torch.Tensor:
     return x
 
 
+def check_training_mesh(mesh):
+    """``mesh`` (`check_mesh`) for a training path, which takes the data
+    and heads axes; a context axis of more than one rank raises (ring and
+    zigzag attention with their backward are not ported)."""
+    check_mesh(mesh)
+    if axis_size(mesh, CONTEXT_AXIS) > 1:
+        raise not_ported("the context axis in training (ring and zigzag "
+                         "attention, mesh context="
+                         f"{axis_size(mesh, CONTEXT_AXIS)})",
+                         SHARDED_TRAINING)
+    return mesh
+
+
+def _whole(mesh, axis: str) -> bool:
+    """No mesh, or one rank on ``axis``: every collective over it is the
+    identity and is skipped."""
+    return mesh is None or axis_size(mesh, axis) == 1
+
+
+def _sum(t: torch.Tensor, mesh, axis: str, mean: bool = False
+         ) -> torch.Tensor:
+    """``t`` summed (``mean``: averaged) over ``axis`` in float32 (or t's
+    wider type), cast back to t's dtype; t itself is left as it was."""
+    total = t.to(torch.promote_types(t.dtype, torch.float32), copy=True)
+    dist.all_reduce(total, group=axis_group(mesh, axis))
+    if mean:
+        total /= axis_size(mesh, axis)
+    return total.to(t.dtype)
+
+
+class _Replicated(torch.autograd.Function):
+    """Identity forward; the gradient summed (``mean``: averaged) over
+    ``axis`` backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, mean):
+        ctx.mesh, ctx.axis, ctx.mean = mesh, axis, mean
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum(g, ctx.mesh, ctx.axis, ctx.mean), None, None, None
+
+
+class _Reduced(torch.autograd.Function):
+    """Summed (``mean``: averaged) over ``axis`` forward; the gradient
+    passed through backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, mean):
+        return _sum(x, mesh, axis, mean)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None, None
+
+
+class _SumOver(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return _sum(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum(g, ctx.mesh, ctx.axis), None, None
+
+
+class _GatherColumns(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, block, mesh, axis):
+        ctx.index, ctx.width = axis_index(mesh, axis), block.shape[-1]
+        parts = [torch.empty_like(block)
+                 for _ in range(axis_size(mesh, axis))]
+        dist.all_gather(parts, block.contiguous(),
+                        group=axis_group(mesh, axis))
+        return torch.cat(parts, dim=-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        lo = ctx.index * ctx.width
+        return g[..., lo:lo + ctx.width].contiguous(), None, None
+
+
+def column_parallel_input(x: torch.Tensor, mesh,
+                          axis: str = HEAD_AXIS) -> torch.Tensor:
+    """``x``, whole on every rank of ``axis``, as the input of this rank's
+    column block of a product: the same values, and in the backward the
+    ranks' partial gradients summed over ``axis`` (each rank's block
+    sees only its own columns' share).  Without a mesh, or with one rank
+    on ``axis``, x itself."""
+    if _whole(mesh, axis):
+        return x
+    return _Replicated.apply(x, mesh, axis, False)
+
+
 def row_parallel_sum(partial: torch.Tensor, mesh,
                      axis: str = HEAD_AXIS) -> torch.Tensor:
     """Sum a row-parallel product's per-rank partials over ``axis``.
@@ -198,21 +331,69 @@ def row_parallel_sum(partial: torch.Tensor, mesh,
     Each rank's partial (in the model dtype, as its product left it) is
     summed in float32 and the sum cast back to the partial's dtype, so
     the only extra rounding against one card is that of each partial.
-    Without a mesh the partial is the whole product and comes back as it
-    is."""
-    if mesh is None:
+    The gradient passes through unchanged: the sum is whole on every
+    rank, and so is its gradient.  Without a mesh the partial is the
+    whole product and comes back as it is, as it does with one rank on
+    ``axis``."""
+    if _whole(mesh, axis):
         return partial
-    total = partial.float()
-    dist.all_reduce(total, group=axis_group(mesh, axis))
-    return total.to(partial.dtype)
+    return _Reduced.apply(partial, mesh, axis, False)
 
 
 def gather_columns(block: torch.Tensor, mesh,
                    axis: str = HEAD_AXIS) -> torch.Tensor:
     """A column-parallel product's blocks [..., n / size] -> the whole
-    [..., n] on every rank (the last dim all-gathered over ``axis``)."""
-    if mesh is None:
+    [..., n] on every rank (the last dim all-gathered over ``axis``); the
+    gradient of the whole, the same on every rank, goes back as this
+    rank's columns."""
+    if _whole(mesh, axis):
         return block
-    parts = [torch.empty_like(block) for _ in range(axis_size(mesh, axis))]
-    dist.all_gather(parts, block.contiguous(), group=axis_group(mesh, axis))
-    return torch.cat(parts, dim=-1)
+    return _GatherColumns.apply(block, mesh, axis)
+
+
+def sum_over(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """Each rank's ``x`` summed over ``axis`` (float32), with the
+    gradient summed over ``axis`` too: for a sum whose ranks each take a
+    share of the same loss (MoE's load-balancing means over the data
+    axis)."""
+    if _whole(mesh, axis):
+        return x
+    return _SumOver.apply(x, mesh, axis)
+
+
+def gather_rows(x: torch.Tensor, mesh, axis: str = DATA_AXIS
+                ) -> torch.Tensor:
+    """The ranks' ``x`` (no gradient) concatenated along dim 0 in rank
+    order: a tensor split on its rows over ``axis`` made whole."""
+    if _whole(mesh, axis):
+        return x
+    parts = [torch.empty_like(x) for _ in range(axis_size(mesh, axis))]
+    dist.all_gather(parts, x.contiguous(), group=axis_group(mesh, axis))
+    return torch.cat(parts, dim=0)
+
+
+def data_replicated(tree, mesh):
+    """Every tensor of ``tree`` (a parameter tree) as its use in a
+    data-parallel loss sees it: the same values, and in the backward
+    its gradient averaged over the data axis.  Every rank of a data
+    group then holds the gradient of the mean over the global batch (the
+    JAX package's loss), so an optimizer step keeps the group's copies
+    equal.  Without a mesh, or with one data rank, ``tree`` itself."""
+    if _whole(mesh, DATA_AXIS):
+        return tree
+    from metal_flash_attention_tpu_torch.utils.tree import tree_map
+
+    return tree_map(lambda t: _Replicated.apply(t, mesh, DATA_AXIS, True),
+                    tree)
+
+
+def data_mean(loss: torch.Tensor, mesh) -> torch.Tensor:
+    """A data rank's loss over its rows -> the mean over the data axis
+    (every rank holds the same rows' count, so it is the global batch's
+    mean), whose gradient is this rank's own loss's: with
+    `data_replicated` parameters, the averaging happens once, on the
+    gradients.  Without a mesh, or with one data rank, ``loss``
+    itself."""
+    if _whole(mesh, DATA_AXIS):
+        return loss
+    return _Reduced.apply(loss, mesh, DATA_AXIS, True)

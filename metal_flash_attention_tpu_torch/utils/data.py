@@ -19,8 +19,12 @@ The port of the JAX package's `utils/data.py`:
   package's ``jax.device_put`` of the next batch.
 
 Batches are ``torch.int32 [batch, seq_len + 1]`` on ``device``, the card
-unless the caller passes ``device="cpu"``.  JAX's ``sharding=`` (a batch
-laid over a mesh) is not ported.
+unless the caller passes ``device="cpu"``.  With ``sharding=``
+(`parallel.mesh.NamedSharding`, such as P(DATA_AXIS, None) over the
+training mesh) every rank draws the same batch, which stays a pure
+function of (seed, step), and keeps its own block of it: JAX's
+``jax.device_put(batch, sharding)`` cut to this rank's addressable
+shard.
 """
 
 from __future__ import annotations
@@ -30,11 +34,12 @@ from typing import Iterator, Optional
 import numpy as np
 import torch
 
-from metal_flash_attention_tpu_torch.utils.device import resolve_device
-from metal_flash_attention_tpu_torch.utils.errors import (
-    SHARDED_TRAINING,
-    not_ported,
+from metal_flash_attention_tpu_torch.parallel.mesh import (
+    NamedSharding,
+    block_slices,
+    check_mesh,
 )
+from metal_flash_attention_tpu_torch.utils.device import resolve_device
 
 HEADER_BYTES = 64
 
@@ -68,13 +73,20 @@ class TokenLoader:
     ...     params, state, loss = step_fn(params, state, tokens)
 
     ``state()`` -> (seed, step), the position of the next batch;
-    `from_state` resumes there."""
+    `from_state` resumes there.  ``sharding``: a `NamedSharding` of the
+    [batch, seq_len + 1] batch; each yielded tensor is this rank's
+    block."""
 
     def __init__(self, shard_paths, batch: int, seq_len: int, *,
                  seed: int = 0, step: int = 0, device=None, sharding=None):
+        self.block = (slice(None), slice(None))
         if sharding is not None:
-            raise not_ported("batches laid over a mesh (sharding=)",
-                             SHARDED_TRAINING)
+            if not isinstance(sharding, NamedSharding):
+                raise TypeError(f"sharding must be a NamedSharding, got "
+                                f"{type(sharding).__name__}")
+            check_mesh(sharding.mesh)
+            self.block = block_slices((batch, seq_len + 1), sharding.spec,
+                                      sharding.mesh)
         if not shard_paths:
             raise ValueError("need at least one shard")
         self.paths = list(shard_paths)
@@ -85,6 +97,8 @@ class TokenLoader:
                              "tokens")
         self.batch = batch
         self.seq_len = seq_len
+        self.block_shape = tuple(len(range(n)[b]) for b, n in zip(
+            self.block, (batch, seq_len + 1)))
         self.seed = seed
         self.step = step
         self.device = resolve_device(device)
@@ -106,28 +120,33 @@ class TokenLoader:
 
     def _host_batch(self, step: int, out: Optional[np.ndarray] = None
                     ) -> np.ndarray:
-        """Batch ``step`` on the host: a pure function of (seed, step),
-        the JAX package's draw for draw."""
+        """This rank's block of batch ``step`` on the host (the whole batch
+        without ``sharding``), written into ``out`` when given: a pure
+        function of (seed, step), the JAX package's draw for draw.  Every
+        row is drawn, so each rank's stream of draws is the same."""
         rng = np.random.default_rng(np.random.SeedSequence([self.seed, step]))
         span = self.seq_len + 1
         probs = self.sizes / self.sizes.sum()
+        rows, cols = self.block
+        kept = range(self.batch)[rows]
         if out is None:
-            out = np.empty((self.batch, span), np.int32)
+            out = np.empty(self.block_shape, np.int32)
         for i in range(self.batch):
             s = rng.choice(len(self.shards), p=probs)
             start = rng.integers(0, self.sizes[s] - span + 1)
-            out[i] = self.shards[s][start:start + span]
+            if i in kept:
+                out[kept.index(i)] = self.shards[s][start:start + span][cols]
         return out
 
     def _put(self, step: int):
-        """Start batch ``step`` on its way to the device: -> (tensor, the
-        copy's event or None)."""
+        """Start this rank's block of batch ``step`` on its way to the
+        device: -> (tensor, the copy's event or None)."""
         if self.device.type != "cuda":
             return torch.from_numpy(self._host_batch(step)).to(
                 self.device), None
         if self._stream is None:
             self._stream = torch.cuda.Stream(self.device)
-            self._pinned = [[torch.empty((self.batch, self.seq_len + 1),
+            self._pinned = [[torch.empty(self.block_shape,
                                          dtype=torch.int32).pin_memory(),
                              None] for _ in range(2)]
         slot = self._pinned[step % 2]

@@ -2,9 +2,9 @@
 
 from __future__ import annotations
 
-# The port queue's item for what is refused on a mesh: ``mesh=`` in the
-# training paths, `TokenLoader`'s ``sharding=``, ring and zigzag
-# attention and the pipeline.
+# The port queue's item for what is refused on a mesh: a context axis of
+# more than one rank in the training paths (ring and zigzag attention with
+# their backward) and the pipeline.
 SHARDED_TRAINING = "sharded training"
 
 

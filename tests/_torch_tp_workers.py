@@ -354,3 +354,199 @@ def _tp_steps(params, cfg, family, mesh, prompt) -> tuple:
     tok = logits[:, -1].argmax(-1).to(torch.int32)
     logits2, _ = decode(params, tok, cfg, cache, mesh=mesh)
     return as_numpy(logits[:, -1]), as_numpy(logits2)
+
+
+# Data- and head-parallel training (tests/test_torch_train_tp.py): the
+# dry runs' mesh and configurations (JAX `__graft_entry__.py`: the
+# dp x tp leg's Llama and the EP leg's MoE, Gemma-2 at the same mesh).
+TRAIN_MESH = dict(data=2, heads=2, context=1)
+# A power of two large enough that the step's update, lr x the gradient,
+# outweighs the parameter: new - old then reads the gradient in bf16 too
+# (a smaller update vanishes under the parameter's last bit).
+TRAIN_LR = 1024.0
+TRAIN_CASES = {f"{family}_{dtype}": (family, dtype)
+               for family in ("llama", "gemma", "moe")
+               for dtype in DTYPES}
+# Slots under 0.5 x the mean load, so that experts overflow on the
+# global token set (the JAX package's capacity).
+MOE_OVERFLOW_FACTOR = 0.5
+LOADER = dict(batch=4, seq_len=20, seed=3, steps=3)
+COLLECTIVE_SEED = 7
+
+
+def collective_inputs():
+    """(a [2, 4], c [2, 4], w [3, 8], u [3, 4], x [3, 4]) float64: each
+    heads rank's column factor a_h and row factor c_h, the loss weights
+    of the gathered columns and of the sum, and x."""
+    rng = np.random.default_rng(COLLECTIVE_SEED)
+    return tuple(rng.standard_normal(s) for s in
+                 ((2, 4), (2, 4), (3, 8), (3, 4), (3, 4)))
+
+
+def train_configs(family: str, dtype: str):
+    """The port's config of a training case (the JAX test builds the same
+    from the JAX package)."""
+    from metal_flash_attention_tpu_torch.models import gemma, llama, moe
+
+    dt = getattr(torch, dtype)
+    if family == "llama":
+        return llama.LlamaConfig.tiny(n_layers=2, n_heads=4, n_kv_heads=2,
+                                      dtype=dt)
+    if family == "gemma":
+        return gemma.GemmaConfig.tiny(dtype=dt)
+    factor = MOE_OVERFLOW_FACTOR if dtype == "float32" else 1.25
+    return moe.MoEConfig.tiny(n_heads=4, n_kv_heads=2, n_experts=4,
+                              capacity_factor=factor, dtype=dt)
+
+
+def _replayed_top_k(choices, lo: int, margins: list):
+    """A `moe._top_k` that takes the next layer's JAX choices (rows lo..
+    of the global tokens, this rank's) with the port's own gates at
+    them, and notes in ``margins`` how far each of the port's own
+    differing choices lies above the one taken."""
+    from metal_flash_attention_tpu_torch.models import moe
+
+    layers = iter(choices)
+    real = moe._top_k
+
+    def top_k(gates, k):
+        own = real(gates, k)[1]
+        topi = torch.as_tensor(next(layers))[lo:lo + gates.shape[0]].long()
+        diff = own != topi
+        margins.extend((gates.gather(1, own) - gates.gather(1, topi))[
+            diff].tolist())
+        topw = gates.gather(1, topi)
+        return topw / topw.sum(dim=-1, keepdim=True).clamp_min(1e-9), topi
+    return top_k
+
+
+def train_tp_body(rank: int, world: int, payload) -> dict:
+    """Every rank-side case of tests/test_torch_train_tp.py on 4 ranks
+    (dp 2 x tp 2): ``payload`` holds each case's float32 parameters and
+    tokens (numpy, from the JAX package) and, for the bf16 MoE case,
+    JAX's expert choices a layer."""
+    from unittest import mock
+
+    from metal_flash_attention_tpu_torch.models import (
+        gemma,
+        llama,
+        moe,
+        optim,
+    )
+    from metal_flash_attention_tpu_torch.parallel import (
+        DATA_AXIS,
+        HEAD_AXIS,
+        NamedSharding,
+        P,
+        make_mesh,
+        shard,
+    )
+    from metal_flash_attention_tpu_torch.parallel.mesh import (
+        column_parallel_input,
+        gather_columns,
+        row_parallel_sum,
+    )
+    from metal_flash_attention_tpu_torch.utils.data import TokenLoader
+    from metal_flash_attention_tpu_torch.utils.params import (
+        params_from_numpy,
+        params_to_numpy,
+    )
+    from metal_flash_attention_tpu_torch.utils.tree import flatten
+
+    mesh = make_mesh(**TRAIN_MESH, devices="cpu")
+    d_idx = mesh.get_local_rank(DATA_AXIS)
+    h_idx = mesh.get_local_rank(HEAD_AXIS)
+    modules = {"llama": llama, "gemma": gemma, "moe": moe}
+    out = {"index": (d_idx, h_idx), "cases": {}}
+
+    def local_inputs(case, cfg, dtype):
+        module = modules[TRAIN_CASES[case][0]]
+        full = params_from_numpy(payload["params"][case],
+                                 dtype=getattr(torch, dtype), device="cpu")
+        specs = module.param_shardings(cfg, mesh)
+        tokens = shard(torch.as_tensor(payload["tokens"][case]),
+                       P(DATA_AXIS, None), mesh)
+        return module, shard(full, specs, mesh), specs, tokens
+
+    for case, (family, dtype) in TRAIN_CASES.items():
+        cfg = train_configs(family, dtype)
+        module, local, specs, tokens = local_inputs(case, cfg, dtype)
+        margins = []
+        top_k = moe._top_k
+        if case in payload["choices"]:
+            top_k = _replayed_top_k(payload["choices"][case],
+                                    d_idx * tokens.shape[0]
+                                    * (tokens.shape[1] - 1), margins)
+        old, rebuild = flatten(local)
+        with mock.patch.object(moe, "_top_k", top_k):
+            new, loss = module.train_step(local, tokens, cfg, lr=TRAIN_LR,
+                                          mesh=mesh)
+        update = rebuild([(n.float() - o.float()).numpy()
+                          for n, o in zip(flatten(new)[0], old)])
+        out["cases"][case] = {"loss": float(loss), "update": update,
+                              "specs": _plain_tree(specs),
+                              "margins": margins}
+
+    # make_train_step (AdamW with float32 shadows) over the mesh loss.
+    cfg = train_configs("llama", "float32")
+    _, local, _, tokens = local_inputs("llama_float32", cfg, "float32")
+    init_fn, step_fn = optim.make_train_step(
+        lambda p, b: llama.loss_fn(p, b, cfg, mesh=mesh))
+    state = init_fn(local)
+    new, state, loss = step_fn(local, state, tokens)
+    out["adamw"] = {"loss": float(loss), "blocks": params_to_numpy(new)}
+
+    # The collectives' gradients (COLLECTIVE_SEED): x whole on the heads
+    # axis enters this rank's column block a_h x, gathered whole, and its
+    # row-parallel partial c_h x, summed over the ranks.
+    a, c, w, u, x = collective_inputs()
+    x = torch.as_tensor(x).requires_grad_(True)
+    z = column_parallel_input(x, mesh)
+    whole = gather_columns(z * torch.as_tensor(a[h_idx]), mesh)
+    total = row_parallel_sum(z * torch.as_tensor(c[h_idx]), mesh)
+    ((whole * torch.as_tensor(w)).sum()
+     + (total * torch.as_tensor(u)).sum()).backward()
+    out["collective_grad"] = x.grad.numpy()
+
+    # TokenLoader(sharding=): this rank's block of every batch, and a
+    # resume from the state after one batch.
+    sharding = NamedSharding(mesh, P(DATA_AXIS, None))
+    shards = payload["loader_shards"]
+    kw = dict(device="cpu", sharding=sharding)
+    loader = TokenLoader(shards, LOADER["batch"], LOADER["seq_len"],
+                         seed=LOADER["seed"], **kw)
+    blocks = [t.numpy() for t in loader.take(1)]
+    resumed = TokenLoader.from_state(shards, LOADER["batch"],
+                                     LOADER["seq_len"], loader.state(), **kw)
+    blocks += [t.numpy() for t in resumed.take(LOADER["steps"] - 1)]
+    out["loader"] = blocks
+
+    # The context axis in training, and shardings that are not ones.
+    cp_mesh = make_mesh(data=1, heads=2, context=2, devices="cpu")
+    cp_local = shard(params_from_numpy(payload["params"]["llama_float32"],
+                                       dtype=torch.float32, device="cpu"),
+                     llama.param_shardings(cfg, cp_mesh), cp_mesh)
+    full_tokens = torch.as_tensor(payload["tokens"]["llama_float32"])
+    out["raises"] = {
+        "context": _raises_message(lambda: llama.loss_fn(
+            cp_local, full_tokens, cfg, mesh=cp_mesh)),
+        "gemma_context": _raises_message(lambda: gemma.attention_block(
+            {}, torch.zeros((1, 4, 8)), gemma.GemmaConfig.tiny(), None,
+            None, window=None, mesh=cp_mesh)),
+        "loader_object": _raises(lambda: TokenLoader(
+            shards, LOADER["batch"], LOADER["seq_len"], device="cpu",
+            sharding=object())),
+        "loader_split": _raises(lambda: TokenLoader(
+            shards, 3, LOADER["seq_len"], device="cpu", sharding=sharding)),
+        "mesh_object": _raises(lambda: llama.loss_fn(
+            cp_local, full_tokens, cfg, mesh=object()))}
+    return out
+
+
+def _raises_message(fn) -> tuple:
+    """(the exception's type name, its message), ('', '') if none."""
+    try:
+        fn()
+    except Exception as e:           # the test compares name and message
+        return type(e).__name__, str(e)
+    return "", ""

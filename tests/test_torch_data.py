@@ -59,8 +59,9 @@ def test_from_state_resumes_the_stream(shards):
 
 
 def test_loader_refusals(shards, tmp_path):
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md.*sharded training"):
+    # sharding= is taken since slice 20 (tests/test_torch_train_tp.py):
+    # one that is not a NamedSharding is a TypeError.
+    with pytest.raises(TypeError, match="NamedSharding"):
         tdata.TokenLoader(shards, BATCH, SEQ, device="cpu",
                           sharding=object())
     with pytest.raises(ValueError, match="seq_len"):

@@ -92,6 +92,21 @@ BWD_EDGE_CASES = EDGE_CASES + [
     (2, 8, 2, 130, 260, 128, False, 100),   # window, ragged query tiles
 ]
 
+# Head dim 32 (the tiny configs': `entry()`, the training meshes): the D
+# 64 kernels over 32-column rows, TMA filling the boxes' other 32 columns
+# with zeros and clipping the stores.  Causal, windows, GQA, ragged tiles,
+# rows that see no key, and the tiny configs' training shape.
+D32_CASES = [
+    (2, 4, 2, 128, 128, 32, True, None),    # LlamaConfig.tiny's heads
+    (2, 4, 2, 256, 256, 32, True, None),    # entry()'s shape
+    (1, 8, 2, 93, 77, 32, True, None),      # ragged, q_len > kv_len
+    (1, 4, 1, 250, 123, 32, True, None),    # rows that see no key
+    (1, 4, 2, 100, 300, 32, False, None),   # q_len < kv_len
+    (2, 8, 2, 300, 300, 32, True, 77),      # window
+    (1, 4, 4, 40, 40, 32, True, None),      # under one tile
+    (2, 4, 2, 4096, 4096, 32, True, None),  # the smoke's d32_checks shape
+]
+
 
 def _forward_checked(q, k, v, d, causal, window, out_dtype=None,
                      cap=None):
@@ -110,6 +125,8 @@ def _forward_checked(q, k, v, d, causal, window, out_dtype=None,
         before["flash_fwd_softcap"] + (cap is not None)
     assert fa.LAUNCH_COUNTS["flash_fwd_d256"] == \
         before["flash_fwd_d256"] + (d == 256)
+    assert fa.LAUNCH_COUNTS["flash_fwd_d32"] == \
+        before["flash_fwd_d32"] + (d == 32)
     po, plse = fa._forward_plain(q, k, v, causal=causal, window_size=window,
                                  scale=d ** -0.5, out_dtype=torch.float32,
                                  softcap=cap)
@@ -121,7 +138,7 @@ def _forward_checked(q, k, v, d, causal, window, out_dtype=None,
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("b,qh,kvh,n,m,d,causal,window",
-                         CASES + EDGE_CASES)
+                         CASES + EDGE_CASES + D32_CASES)
 def test_forward_kernel_matches_plain(cuda, dtype, b, qh, kvh, n, m, d,
                                       causal, window):
     q, k, v, _ = _qkv(0, b, qh, kvh, n, m, d, dtype, cuda)
@@ -129,7 +146,7 @@ def test_forward_kernel_matches_plain(cuda, dtype, b, qh, kvh, n, m, d,
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [32, 64, 128])
 def test_forward_kernel_float32_out(cuda, dtype, d):
     """out_dtype=float32: O stored from the fragments, rows past the head
     (q_len 93, group 4: the last tile's second warpgroup) not written."""
@@ -139,7 +156,7 @@ def test_forward_kernel_float32_out(cuda, dtype, d):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("b,qh,kvh,n,m,d,causal,window",
-                         CASES + BWD_EDGE_CASES)
+                         CASES + BWD_EDGE_CASES + D32_CASES)
 def test_backward_kernels_match_plain(cuda, dtype, b, qh, kvh, n, m, d,
                                       causal, window):
     q, k, v, do = _qkv(1, b, qh, kvh, n, m, d, dtype, cuda)
@@ -151,7 +168,8 @@ def test_backward_kernels_match_plain(cuda, dtype, b, qh, kvh, n, m, d,
                                              window_size=window)
     torch.cuda.synchronize()
     assert fb.LAUNCH_COUNTS == {
-        name: c + (not name.endswith(("_softcap", "_d256", "_aux")))
+        name: c + (not name.endswith(("_softcap", "_d256", "_d32", "_aux"))
+                   or (d == 32 and name.endswith("_d32")))
         for name, c in before.items()}
     assert (dq.dtype, dk.dtype, dv.dtype) == (dtype,) * 3
     ref = fb._backward_plain(q.float(), k.float(), v.float(), do.float(),
@@ -207,6 +225,38 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
     kq, vq = _quantized_kv(9, 1, 2, 64, 64, "int8", cuda)
     with pytest.raises(NotImplementedError):       # a cap over INT8 K/V
         fa.flash_attention_forward(q, kq, vq, logit_softcap=30.0)
+    # At head dim 32: no options and no quantized K/V.
+    q32, k32, v32, _ = _qkv(4, 1, 4, 2, 64, 64, 32, torch.bfloat16, cuda)
+    mask = torch.ones((1, 1, 64, 64), dtype=torch.bool, device=cuda)
+    with pytest.raises(NotImplementedError, match="flash-kernel coverage"):
+        fa.flash_attention_forward(q32, k32, v32, mask=mask)
+    kq32, vq32 = _quantized_kv(9, 1, 2, 64, 32, "int8", cuda)
+    with pytest.raises(NotImplementedError, match="flash-kernel coverage"):
+        fa.flash_attention_forward(q32, kq32, vq32)
+
+
+def test_entry_runs_on_the_card(cuda):
+    """`entry()` builds on the card by default (head dim 32) and its
+    forward runs the D 32 forward kernel once a layer; its logits agree
+    with the same weights' plain path on the CPU by chip_smoke.py's
+    logits gate (relative rms 2e-2, max abs 1e-1)."""
+    from metal_flash_attention_tpu_torch.entry import entry
+
+    fn, (params, tokens) = entry()
+    assert tokens.is_cuda and params["embed"].is_cuda
+    before = dict(fa.LAUNCH_COUNTS)
+    logits = fn(params, tokens)
+    torch.cuda.synchronize()
+    layers = len(params["layers"])
+    for name in ("flash_fwd", "flash_fwd_sm90", "flash_fwd_d32"):
+        assert fa.LAUNCH_COUNTS[name] == before[name] + layers, name
+    cpu = {k: ([{n: w.cpu() for n, w in layer.items()} for layer in v]
+               if k == "layers" else v.cpu()) for k, v in params.items()}
+    ref = fn(cpu, tokens.cpu())
+    got = logits.float().cpu()
+    rel = float((got - ref).pow(2).mean().sqrt() / ref.pow(2).mean().sqrt())
+    assert torch.isfinite(got).all()
+    assert rel <= 2e-2 and max_abs_err(got, ref) <= 1e-1, rel
 
 
 # Gemma-2's forward: head_dim 256 (one consumer warpgroup of 64 rows,
@@ -222,6 +272,7 @@ GEMMA_CASES = [
     (1, 4, 4, 40, 40, 256, True, None, 1.0, None),     # under one tile
     (1, 2, 2, 300, 700, 256, False, 130, 4.0, 2.0),
     (1, 32, 8, 1000, 1536, 128, True, 512, 4.0, 2.0),
+    (1, 8, 2, 300, 300, 32, True, 77, 4.0, 2.0),       # D 32, the cap
 ]
 
 TILE_REL_RMS = 1.5e-2
@@ -290,6 +341,7 @@ BWD_GEMMA_CASES = [
     (1, 8, 4, 77, 77, 256, True, None, 1.0, None),       # D 256, no cap
     (1, 32, 8, 1000, 1536, 128, True, 512, 4.0, 2.0),
     (1, 4, 2, 300, 300, 64, True, 77, 1.0, 50.0),
+    (1, 4, 2, 300, 300, 32, True, 77, 4.0, 2.0),         # D 32, the cap
 ]
 
 
@@ -315,7 +367,7 @@ def test_backward_kernels_gemma_match_plain(cuda, dtype, b, qh, kvh, n, m,
     for op in ("dq", "dkv"):
         for suffix, bumped in (("", True), ("_sm90", True),
                                ("_softcap", cap is not None),
-                               ("_d256", d == 256)):
+                               ("_d256", d == 256), ("_d32", d == 32)):
             name = f"flash_bwd_{op}{suffix}"
             assert fb.LAUNCH_COUNTS[name] == before[name] + bumped, name
     ref = fb._backward_plain(q.float(), k.float(), v.float(), do.float(),
@@ -508,9 +560,10 @@ def test_remat_runs_the_forward_kernel_twice(cuda):
     bwd = {"flash_bwd_dq": n, "flash_bwd_dkv": n, "flash_bwd_dq_sm90": n,
            "flash_bwd_dkv_sm90": n,
            **{f"flash_bwd_{op}_{v}": 0 for op in ("dq", "dkv")
-              for v in ("softcap", "d256", "aux")},
+              for v in ("softcap", "d256", "d32", "aux")},
            **{f"flash_fwd_{p.value}": 0 for p in fa.KV_PRECISIONS},
-           "flash_fwd_softcap": 0, "flash_fwd_d256": 0, "flash_fwd_aux": 0}
+           "flash_fwd_softcap": 0, "flash_fwd_d256": 0, "flash_fwd_d32": 0,
+           "flash_fwd_aux": 0}
     assert counts[0] == {"flash_fwd": n, "flash_fwd_sm90": n, **bwd}
     assert counts[1] == {"flash_fwd": 2 * n, "flash_fwd_sm90": 2 * n, **bwd}
     (l0, g0), (l1, g1) = results

@@ -195,16 +195,15 @@ def test_paged_steps_match_jax(dtype):
 
 
 def test_unported_gemma_features_raise():
-    """Sharded training is not ported: ``forward(mesh=)`` raises, naming
-    its ROADMAP item.  Tensor-parallel serving is (slice 19,
-    tests/test_torch_serving_tp.py): `param_shardings` and the paged
-    steps take a mesh, and a mesh that is not one is a TypeError.
-    (Training is ported: tests/test_torch_gemma_train.py holds `loss_fn`
-    and `train_step` against JAX.)"""
+    """Data- and head-parallel training (slice 20,
+    tests/test_torch_train_tp.py) and tensor-parallel serving (slice 19,
+    tests/test_torch_serving_tp.py) take a mesh: ``forward``,
+    `param_shardings` and the paged steps given a mesh that is not one
+    raise TypeError.  (Training is ported: tests/test_torch_gemma_train.py
+    holds `loss_fn` and `train_step` against JAX.)"""
     _, tcfg, _, tparams, _ = _setup("float32")
     toks = torch.as_tensor(_tokens(1, 8))
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md.*sharded training"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tg.forward(tparams, toks, tcfg, mesh=object())
     cache = ts.init_paged_model_cache(tcfg, 1, 32, page_size=PAGE,
                                       device="cpu")

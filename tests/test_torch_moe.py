@@ -276,15 +276,13 @@ def test_unported_mesh_and_shardings_raise(models):
     _, tcfg, _, tparams, tokens, _ = models["float32"]
     tok = torch.as_tensor(tokens)
     x = torch.zeros((1, 4, tcfg.dim))
-    # Sharded training stays refused, naming its ROADMAP item.
+    # Expert parallelism in serving (slice 19,
+    # tests/test_torch_serving_tp.py) and in training (slice 20,
+    # tests/test_torch_train_tp.py) is ported: a mesh that is not one is
+    # a TypeError.
     for call in (lambda: tm.forward(tparams, tok, tcfg, mesh=object()),
-                 lambda: tm.loss_fn(tparams, tok, tcfg, mesh=object())):
-        with pytest.raises(NotImplementedError, match="sharded training"):
-            call()
-    # Expert parallelism in serving is ported (slice 19,
-    # tests/test_torch_serving_tp.py): a mesh that is not one is a
-    # TypeError.
-    for call in (lambda: tm.moe_ffn(tparams["layers"][0]["moe"], x, tcfg,
+                 lambda: tm.loss_fn(tparams, tok, tcfg, mesh=object()),
+                 lambda: tm.moe_ffn(tparams["layers"][0]["moe"], x, tcfg,
                                     mesh=object()),
                  lambda: tm.param_shardings(tcfg, object())):
         with pytest.raises(TypeError, match="DeviceMesh"):

@@ -1,6 +1,7 @@
 """Tensor- and context-parallel serving on two cards: the port's tp 2
 paged steps and the four `parallel.sharded_attention` functions against
-the single-card kernels.
+the single-card kernels; and data-, head- and expert-parallel training on
+four cards against one card's step.
 
 Each case needs two or more CUDA cards with sm_90a and nvcc; elsewhere
 it skips with its reason.  The file imports neither JAX nor the JAX
@@ -16,6 +17,16 @@ row-parallel sums round each rank's partial to bf16 once more than one
 card does); attention outputs by the worst 64-row tile's relative rms,
 KERNEL_TILE_REL_RMS; every paged launch on its Hopper kernel, counted
 exactly on each rank.
+
+The training cases run in a second spawn, of four NCCL ranks (cards 0 to
+3): one SGD step (lr TRAIN_LR: the update reads the gradient) of the JAX
+dry runs' tiny configs at head
+dim 32 in bf16 (Llama and Gemma-2 at data 2 x heads 2; MoE at heads 4,
+2 experts a rank, on rank 0's one-card routes), each rank's loss and
+its updated blocks gathered against rank 0's one-card `train_step` on
+the same weights and global rows, by chip_smoke.py's training gates
+(loss TRAIN_LOSS_ABS; the update's relative rms TRAIN_UPDATE_REL_RMS),
+the flash counts exact and on the D 32 kernels.
 """
 
 import os
@@ -225,3 +236,166 @@ def test_decode_shards_of_length_zero(ranks):
     for r in ranks:
         assert r["attention"]["paged_launches"] == {
             "paged_decode": 1, "paged_decode_sm90": 1}
+
+
+# Training on four cards (the training cases' spawn).  TRAIN_LR, a power
+# of two, makes each update so much larger than its parameter that
+# rounding the new parameter to bf16 costs 2^-9 of the update, so the
+# update reads the gradient (tests/test_torch_flash_cuda.py's rule).
+TRAIN_WORLD = 4
+TRAIN_LR = 1024.0
+TRAIN_LOSS_ABS = 2e-3
+TRAIN_UPDATE_REL_RMS = 4e-2
+
+
+def _train_cases():
+    from metal_flash_attention_tpu_torch.models import gemma, llama, moe
+    return {
+        "llama": (llama, llama.LlamaConfig.tiny(n_layers=2, n_heads=4,
+                                                n_kv_heads=2),
+                  dict(data=2, heads=2), (2, 129)),
+        "gemma": (gemma, gemma.GemmaConfig.tiny(), dict(data=2, heads=2),
+                  (2, 129)),
+        "moe": (moe, moe.MoEConfig.tiny(dim=256, n_heads=8, n_kv_heads=4,
+                                        n_experts=8),
+                dict(data=1, heads=4), (1, 129))}
+
+
+def _routes(taken=None, record=None):
+    """`moe._top_k` recording its choices, or taking ``taken``'s."""
+    import contextlib
+
+    from metal_flash_attention_tpu_torch.models import moe
+
+    real = moe._top_k
+
+    @contextlib.contextmanager
+    def patched():
+        calls = iter(taken or ())
+
+        def top_k(gates, k):
+            topw, topi = real(gates, k)
+            if taken is not None:
+                topi = next(calls).to(gates.device)
+                topw = gates.gather(1, topi)
+                topw = topw / topw.sum(dim=-1, keepdim=True)
+            if record is not None:
+                record.append(topi.cpu())
+            return topw, topi
+        moe._top_k = top_k
+        try:
+            yield
+        finally:
+            moe._top_k = real
+    return patched()
+
+
+def _spec_leaves(tree, specs) -> list:
+    """The leaves of ``specs`` in `flatten`'s order of ``tree``."""
+    if isinstance(tree, dict):
+        return [x for k in tree for x in _spec_leaves(tree[k], specs[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for t, s in zip(tree, specs) for x in _spec_leaves(t, s)]
+    return [specs]
+
+
+def _train_rank(rank: int, workdir: str) -> None:
+    import torch.distributed as dist
+    from metal_flash_attention_tpu_torch.ops import flash_attention as fa
+    from metal_flash_attention_tpu_torch.ops import flash_attention_bwd as fb
+    from metal_flash_attention_tpu_torch.parallel import (
+        DATA_AXIS,
+        P,
+        make_mesh,
+        shard,
+        unshard,
+    )
+    from metal_flash_attention_tpu_torch.utils.tree import flatten
+
+    dev = torch.device("cuda", rank)
+    torch.cuda.set_device(dev)
+    dist.init_process_group(
+        "nccl", init_method="file://" + os.path.join(workdir, "store"),
+        rank=rank, world_size=TRAIN_WORLD)
+    result = {}
+    try:
+        for name, (module, cfg, shape, rows) in _train_cases().items():
+            full = module.init_params(
+                cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+            tokens = torch.randint(0, cfg.vocab_size, rows, device=dev,
+                                   generator=torch.Generator(
+                                       device=dev).manual_seed(1))
+            record, ref = [], None
+            if rank == 0:
+                with _routes(record=record):
+                    ref = module.train_step(full, tokens, cfg, lr=TRAIN_LR)
+            taken = [record] if rank == 0 else [None]
+            dist.broadcast_object_list(taken, src=0)
+            mesh = make_mesh(**shape)
+            specs = module.param_shardings(cfg, mesh)
+            local = shard(full, specs, mesh)
+            fa.reset_launch_counts()
+            fb.reset_launch_counts()
+            with _routes(taken=taken[0] if name == "moe" else None):
+                new, loss = module.train_step(
+                    local, shard(tokens, P(DATA_AXIS, None), mesh), cfg,
+                    lr=TRAIN_LR, mesh=mesh)
+            torch.cuda.synchronize(dev)
+            launches = {k: n for k, n in {**fa.LAUNCH_COUNTS,
+                                          **fb.LAUNCH_COUNTS}.items() if n}
+            whole = [unshard(x, s, mesh) for x, s in zip(
+                flatten(new)[0], _spec_leaves(new, specs))]
+            out = {"loss": float(loss), "launches": launches}
+            if rank == 0:
+                rel = []
+                for got, want, old in zip(whole, flatten(ref[0])[0],
+                                          flatten(full)[0]):
+                    du = got.float() - old.float()
+                    dr = want.float() - old.float()
+                    rel.append(float((du - dr).norm() / dr.norm()))
+                out.update(ref_loss=float(ref[1]), update_rel_rms=max(rel))
+            result[name] = out
+            del full, local, new, whole, ref
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(workdir, f"train_rank{rank}.pkl"), "wb") as f:
+        pickle.dump(result, f)
+
+
+@pytest.fixture(scope="module")
+def train_ranks(tmp_path_factory):
+    if torch.cuda.device_count() < TRAIN_WORLD:
+        pytest.skip(f"needs {TRAIN_WORLD} CUDA cards: the training mesh "
+                    "runs one rank a card")
+    import torch.multiprocessing as mp
+    from metal_flash_attention_tpu_torch.native.build import build_all
+    build_all(["flash_attention", "flash_attention_bwd"])
+    workdir = str(tmp_path_factory.mktemp("train_cuda"))
+    mp.spawn(_train_rank, args=(workdir,), nprocs=TRAIN_WORLD, join=True)
+    out = []
+    for rank in range(TRAIN_WORLD):
+        with open(os.path.join(workdir, f"train_rank{rank}.pkl"), "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+@pytest.mark.parametrize("name", ["llama", "gemma", "moe"])
+def test_mesh_train_step_matches_one_card(train_ranks, name):
+    """Every rank's global loss is the same and within TRAIN_LOSS_ABS of
+    one card's; the gathered updates within TRAIN_UPDATE_REL_RMS of one
+    card's; the flash counts of the step exact, at D 32 (and with
+    Gemma-2's cap)."""
+    layers = 2
+    suffixes = ("", "_sm90", "_d32") + (("_softcap",) if name == "gemma"
+                                        else ())
+    want = {f"{op}{s}": layers for op in ("flash_fwd", "flash_bwd_dq",
+                                          "flash_bwd_dkv")
+            for s in suffixes}
+    losses = {r[name]["loss"] for r in train_ranks}
+    assert len(losses) == 1, losses
+    ref = train_ranks[0][name]
+    assert abs(ref["loss"] - ref["ref_loss"]) <= TRAIN_LOSS_ABS
+    assert ref["update_rel_rms"] <= TRAIN_UPDATE_REL_RMS
+    for r in train_ranks:
+        assert r[name]["launches"] == want

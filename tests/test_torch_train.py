@@ -302,5 +302,7 @@ def test_unported_model_options_raise(model):
                                   generator=torch.Generator().manual_seed(3))
     assert torch.equal(tl.loss_fn(tparams, toks, tcfg, lora=adapters),
                        tl.loss_fn(tparams, toks, tcfg))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    # mesh= is taken since slice 20 (tests/test_torch_train_tp.py): a
+    # mesh that is not one is a TypeError.
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tl.forward(tparams, toks, tcfg, mesh=object())

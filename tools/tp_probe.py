@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Tensor- and context-parallel serving of the PyTorch port on 4 cards.
+"""Tensor- and context-parallel serving, and data-, head- and
+expert-parallel training, of the PyTorch port on 4 cards.
 
 Run from the root of a checkout, on one machine with four CUDA cards:
 
@@ -47,6 +48,25 @@ and power limit:
    merge) that the limit must see; and on every rank the decode kernels'
    rows of local length 0 (o = 0, lse = -inf).
 
+5. tp_train: Llama-3-8B at full depth (32 layers), data 2 x heads 2, one
+   8,193-token row a data rank, SGD at TRAIN_LR (no remat).  Every rank
+   draws the model whole from SEED and keeps its blocks; rank 0 keeps
+   the whole 2-layer cut.  Checks: the mesh's 2-layer loss and gathered
+   gradients (`unshard`) against rank 0's one-card `loss_fn` on the same
+   weights and global rows, by chip_smoke's training gates
+   (TRAIN_LOSS_ABS, TRAIN_GRAD_REL_RMS), and the same readings with
+   TRAIN_FAULTS planted in the collectives' backward, which the gates must
+   see; then TRAIN_STEPS `train_step(mesh=)`s: losses (the same on every
+   rank, falling), seconds a step, tokens/s, each rank's blocks and peak
+   memory, exact flash counts, and one more step profiled on every rank
+   (NCCL's share of the card's time).
+6. gemma_tp_train: `gemma2_2b` (26 layers), data 2 x heads 2; the same.
+7. moe_tp_train: Mixtral-8x7B widths at MOE_TRAIN_LAYERS layers, heads 4
+   (experts 2 a rank), one 8,193-token row; the layers drawn whole one
+   at a time and cut; the mesh's reference run replays rank 0's one-card
+   expert choices (no data average to drop at data 1).
+
+The training phases need 4 ranks and run outside inference mode.
 ``--phases a,b`` runs a subset; ``--world N`` another rank count.
 ``--rehearse`` runs the same code on the CPU (gloo ranks, the kernels'
 plain versions) at tiny sizes, to find faults before a chip run.
@@ -91,7 +111,9 @@ CP_DECODE_KEYS = 32768
 CP_DECODE_LENS = (32768, 30000, 20000, 16385, 8192, 5000, 1000, 129)
 CP_KV_HEADS = 8
 CP_ITERS = 20
-PHASES = ("tp_serve", "gemma_tp_serve", "moe_tp_serve", "cp_checks")
+PHASES = ("tp_serve", "gemma_tp_serve", "moe_tp_serve", "cp_checks",
+          "tp_train", "gemma_tp_train", "moe_tp_train")
+TRAINING = ("tp_train", "gemma_tp_train", "moe_tp_train")
 NCCL = {"nccl": ("nccl",)}
 # --rehearse: the same phases on the CPU at tiny sizes.
 REHEARSE = {"prompt_lens": (40, 12, 30, 21), "max_new": 5, "page": 16,
@@ -726,6 +748,349 @@ def cp_checks(run: Run) -> None:
             "length 0 is not (o 0, lse -inf)")
 
 
+# Data-, head- and expert-parallel training (slice 20).
+TRAIN_MESH = {"data": 2, "heads": 2}
+TRAIN_TOKENS = 8192          # a data rank's row: 8,193 tokens
+TRAIN_STEPS = 4
+TRAIN_LR = 1.0               # chip_smoke's SGD rate: smaller vanish in bf16
+TRAIN_REF_LAYERS = 2
+MOE_TRAIN_LAYERS = 24        # Mixtral widths, experts 2 a rank (tp 4)
+TRAIN_FAULTS = ("data_average_dropped", "heads_input_sum_dropped")
+
+
+@contextlib.contextmanager
+def planted_fault(name: str):
+    """A fault in the training mesh's collectives, planted on every rank
+    inside the block: the data axis's gradient average dropped (each rank
+    keeps its own rows' gradient), or the column-parallel inputs'
+    gradient sum over the heads axis dropped (each rank keeps its own
+    heads' share)."""
+    from metal_flash_attention_tpu_torch.parallel import mesh as pm
+
+    axis = {"data_average_dropped": pm.DATA_AXIS,
+            "heads_input_sum_dropped": pm.HEAD_AXIS}[name]
+    real = pm._Replicated.__dict__["backward"]
+
+    def backward(ctx, g):
+        if ctx.axis == axis:
+            return g, None, None, None
+        return real.__func__(ctx, g)
+    pm._Replicated.backward = staticmethod(backward)
+    try:
+        yield
+    finally:
+        pm._Replicated.backward = real
+
+
+def value_and_grads(loss_fn, params):
+    """(loss, gradients in `flatten` order) of ``loss_fn(params)``."""
+    import torch
+    from metal_flash_attention_tpu_torch.utils.tree import flatten
+
+    leaves, rebuild = flatten(params)
+    work = [p.detach().requires_grad_(True) for p in leaves]
+    loss = loss_fn(rebuild(work))
+    return float(loss.detach()), list(torch.autograd.grad(loss, work))
+
+
+def spec_leaves(tree, specs) -> list:
+    """The leaves of ``specs`` in `flatten`'s order of ``tree`` (its
+    keys' order, which `shard` keeps)."""
+    if isinstance(tree, dict):
+        return [x for k in tree for x in spec_leaves(tree[k], specs[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for t, s in zip(tree, specs) for x in spec_leaves(t, s)]
+    return [specs]
+
+
+def gathered(grads, params, specs, mesh) -> list:
+    """Each rank's gradient blocks (in `flatten` order of ``params``) made
+    whole by `unshard` under their specs."""
+    from metal_flash_attention_tpu_torch.parallel import unshard
+
+    return [unshard(g, s, mesh)
+            for g, s in zip(grads, spec_leaves(params, specs))]
+
+
+def gate_reading(loss, grads, ref_loss, ref_grads) -> dict:
+    """The mesh's loss and whole gradients against one card's: the
+    training gates' readings (chip_smoke's TRAIN_LOSS_ABS and
+    TRAIN_GRAD_REL_RMS)."""
+    rel = [cs.rel_rms(g, r) for g, r in zip(grads, ref_grads)]
+    reading = {"loss": loss, "ref_loss": ref_loss,
+               "loss_abs_err": abs(loss - ref_loss),
+               "grad_rel_rms_max": max(rel),
+               "grad_rel_rms_median": float(np.median(rel))}
+    reading["within_gates"] = (reading["loss_abs_err"] <= cs.TRAIN_LOSS_ABS
+                               and max(rel) <= cs.TRAIN_GRAD_REL_RMS)
+    return reading
+
+
+def train_tokens(run: Run, cfg, rows: int, seq: int):
+    """Global tokens [rows, seq + 1] from SEED + 81 (the same on every
+    rank), on the rank's device."""
+    import torch
+    rng = np.random.default_rng(SEED + 81)
+    return torch.as_tensor(rng.integers(0, cfg.vocab_size, (rows, seq + 1)),
+                           device=run.dev)
+
+
+def train_family(run: Run, label, module, cfg, mesh_shape, seq, draw,
+                 kernel_suffixes=("", "_sm90"), replay_routes=False) -> None:
+    """One family's training at ``mesh_shape`` (data x heads): the
+    2-layer cut's loss and gradients on the mesh (gathered) against one
+    card's (rank 0, the same weights and the global rows), the same with
+    each TRAIN_FAULTS fault planted (the gates must see them), then
+    TRAIN_STEPS SGD steps of the whole cut: losses, seconds a step,
+    tokens/s, each rank's peak memory and exact flash counts, and one
+    more step under the profiler, behind a barrier that lines the ranks
+    up (NCCL's share of the card's time in the step).
+    ``draw(mesh) -> (this rank's blocks, rank 0's whole 2-layer cut or
+    None)``; ``replay_routes``: the mesh's reference run takes rank 0's
+    one-card expert choices (MoE capacity couples the rows)."""
+    import torch
+    import torch.distributed as dist
+    from metal_flash_attention_tpu_torch.ops import flash_attention as fa
+    from metal_flash_attention_tpu_torch.ops import flash_attention_bwd as fb
+    from metal_flash_attention_tpu_torch.parallel import (
+        DATA_AXIS,
+        P,
+        make_mesh,
+        shard,
+    )
+    from metal_flash_attention_tpu_torch.utils.tree import flatten
+
+    mesh = make_mesh(**mesh_shape, devices=run.dev.type)
+    data = mesh_shape["data"]
+    run.reset_peak()
+    t0 = time.perf_counter()
+    local, whole_cut = draw(mesh)
+    run.sync()
+    draw_s = time.perf_counter() - t0
+    draw_peak = run.peak()
+    blocks = sum(t.numel() * t.element_size() for t in flatten(local)[0])
+    tokens = train_tokens(run, cfg, data, seq)
+    rows = shard(tokens, P(DATA_AXIS, None), mesh)
+    cut_cfg = dataclasses.replace(cfg, n_layers=TRAIN_REF_LAYERS)
+    specs = module.param_shardings(cut_cfg, mesh)
+
+    # The 2-layer cut: one card (rank 0) against the mesh, then faults.
+    record = []
+    ref = None
+    if run.rank == 0:
+        with (cs.moe_routes(record=record) if replay_routes
+              else contextlib.nullcontext()):
+            ref = value_and_grads(
+                lambda p: module.loss_fn(p, tokens, cut_cfg), whole_cut)
+        ref = (ref[0], [g.float() for g in ref[1]])
+    del whole_cut
+    taken = run.gather([r.cpu() for r in record] if run.rank == 0
+                       else None)[0] if replay_routes else None
+    cut = dict(local, layers=local["layers"][:TRAIN_REF_LAYERS])
+
+    def mesh_reading(fault=None):
+        margins = []
+        routes = (cs.moe_routes(taken=[t.to(run.dev) for t in taken],
+                                margins=margins) if replay_routes
+                  else contextlib.nullcontext())
+        with routes, (planted_fault(fault) if fault
+                      else contextlib.nullcontext()):
+            loss, grads = value_and_grads(
+                lambda p: module.loss_fn(p, rows, cut_cfg, mesh=mesh), cut)
+        whole = gathered(grads, cut, specs, mesh)
+        del grads
+        out = None
+        if run.rank == 0:
+            out = gate_reading(loss, [g.float() for g in whole], *ref)
+            if replay_routes:
+                out["route_margin_max"] = max(
+                    (float(m.max()) for m in margins if m.numel()),
+                    default=0.0)
+        return out
+    reading = mesh_reading()
+    # A data axis of one rank has no average to drop.
+    faults = {f: mesh_reading(f) for f in TRAIN_FAULTS
+              if data > 1 or f != "data_average_dropped"}
+    del cut, ref
+    run.reset_peak()
+
+    # TRAIN_STEPS steps of the whole cut.
+    dist.barrier()
+    losses, seconds = [], []
+    fa.reset_launch_counts()
+    fb.reset_launch_counts()
+    for _ in range(TRAIN_STEPS):
+        run.sync()
+        dist.barrier()
+        t0 = time.perf_counter()
+        local, loss = module.train_step(local, rows, cfg, lr=TRAIN_LR,
+                                        mesh=mesh)
+        losses.append(float(loss))
+        run.sync()
+        seconds.append(time.perf_counter() - t0)
+    launches = {k: n for k, n in {**fa.LAUNCH_COUNTS,
+                                  **fb.LAUNCH_COUNTS}.items() if n}
+    want = {f"{op}{s}": cfg.n_layers * TRAIN_STEPS
+            for op in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+            for s in kernel_suffixes}
+    peak = run.peak()
+    prof = {}
+    if run.dev.type == "cuda":
+        run.sync()
+        dist.barrier()
+        step_wall = []
+
+        def aligned_step():
+            # Each rank leaves the profiler's start at its own time, and
+            # an NCCL kernel holds its card while it waits for the late
+            # ranks: a barrier inside the profile lines the ranks up, and
+            # its kernel stays out of the step's (the "align" span).
+            with torch.profiler.record_function("align"):
+                dist.barrier()
+            t0 = time.perf_counter()
+            module.train_step(local, rows, cfg, lr=TRAIN_LR, mesh=mesh)
+            run.sync()
+            step_wall.append(time.perf_counter() - t0)
+        prof = cs.profile_step(
+            f"{label}_profile_rank{run.rank}", aligned_step,
+            dict(NCCL, flash_fwd="flash_fwd90_kernel",
+                 flash_bwd_dq="flash_bwd_dq90_kernel",
+                 flash_bwd_dkv="flash_bwd_dkv90_kernel"), run.dev,
+            spans=("align",))
+        by = prof["device_ms_by_family"]
+        prof["device_ms"] -= by.get("align", 0.0)
+        prof["wall_ms"] = step_wall[0] * 1e3
+        prof["nccl_share"] = by.get("nccl", 0.0) / max(prof["device_ms"],
+                                                       1e-9)
+    per_rank = run.gather({
+        "losses": losses, "seconds_per_step": seconds,
+        "blocks_bytes": blocks, "draw_peak_bytes": draw_peak,
+        "max_memory_allocated": peak,
+        "launches": launches, "launches_exact": run.dev.type != "cuda"
+        or launches == want, "nccl_share": prof.get("nccl_share"),
+        "step_device_ms": prof.get("device_ms"),
+        "step_wall_ms": prof.get("wall_ms")})
+    steady = [max(r["seconds_per_step"][i] for r in per_rank)
+              for i in range(1, TRAIN_STEPS)]
+    global_tokens = data * seq
+    ok = (reading is None or reading["within_gates"]) and all(
+        r is None or not r["within_gates"] for r in faults.values())
+    ok = run.gather(ok)[0]
+    same_losses = all(r["losses"] == per_rank[0]["losses"] for r in per_rank)
+    good = np.isfinite(losses).all() and losses[-1] < losses[0]
+    run.say(label, {
+        "world_size": run.world, "mesh": dict(mesh_shape, context=1),
+        "config": cfg_line(cfg), "tokens_per_step": global_tokens,
+        "rows": [data, seq + 1], "lr": TRAIN_LR, "steps": TRAIN_STEPS,
+        "weights_drawn_s": draw_s, "losses": losses,
+        "tokens_per_s": global_tokens * len(steady) / sum(steady),
+        "seconds_per_step": [max(r["seconds_per_step"][i] for r in per_rank)
+                             for i in range(TRAIN_STEPS)],
+        "reference": {"layers": TRAIN_REF_LAYERS, **(reading or {})},
+        "planted_faults": faults,
+        "gates": {"loss_abs": cs.TRAIN_LOSS_ABS,
+                  "grad_rel_rms": cs.TRAIN_GRAD_REL_RMS},
+        "per_rank": per_rank, "ok": ok})
+    if not ok:
+        run.failures.append(f"{label}: the mesh's 2-layer loss or gradients "
+                            "leave one card's, or a planted fault passes")
+    if not same_losses:
+        run.failures.append(f"{label}: the ranks' losses differ")
+    if not good:
+        run.failures.append(f"{label}: the loss is not finite or did not "
+                            f"fall: {losses}")
+    if not all(r["launches_exact"] for r in per_rank):
+        run.failures.append(f"{label}: flash launches {launches}, expected "
+                            f"{want}")
+    del local
+    run.reset_peak()
+
+
+def whole_then_cut(run: Run, module, cfg):
+    """draw(mesh) for a model that fits a card whole: every rank draws it
+    from SEED on its card, keeps its blocks, and rank 0 keeps the whole
+    2-layer cut for the one-card reference."""
+    import torch
+    from metal_flash_attention_tpu_torch.parallel import shard
+
+    def draw(mesh):
+        full = module.init_params(
+            cfg, torch.Generator(device=run.dev).manual_seed(SEED),
+            device=run.dev)
+        check_ranks_agree(run, "training weights", weight_checksum(full))
+        local = shard(full, module.param_shardings(cfg, mesh), mesh)
+        cut = (dict(full, layers=full["layers"][:TRAIN_REF_LAYERS])
+               if run.rank == 0 else None)
+        del full
+        return local, cut
+    return draw
+
+
+def tp_train(run: Run) -> None:
+    """Llama-3-8B at full depth (32 layers), data 2 x heads 2, one
+    8,193-token row a data rank."""
+    from metal_flash_attention_tpu_torch.models import llama
+    cfg = (llama.LlamaConfig.tiny(n_heads=8, n_kv_heads=4, n_layers=3)
+           if run.rehearse else llama.LlamaConfig.llama3_8b())
+    seq = 64 if run.rehearse else TRAIN_TOKENS
+    train_family(run, "tp_train", llama, cfg, TRAIN_MESH, seq,
+                 whole_then_cut(run, llama, cfg))
+
+
+def gemma_tp_train(run: Run) -> None:
+    """gemma2_2b (26 layers), data 2 x heads 2 (4 q heads and 2 kv heads
+    a rank, head_dim 256, both soft caps)."""
+    from metal_flash_attention_tpu_torch.models import gemma
+    cfg = (gemma.GemmaConfig.tiny(n_heads=8, n_kv_heads=4, n_layers=3,
+                                  sliding_window=24)
+           if run.rehearse else gemma.GemmaConfig.gemma2_2b())
+    seq = 64 if run.rehearse else TRAIN_TOKENS
+    suffixes = ("", "_sm90", "_softcap") + (
+        () if run.rehearse else ("_d256",))
+    train_family(run, "gemma_tp_train", gemma, cfg, TRAIN_MESH, seq,
+                 whole_then_cut(run, gemma, cfg), kernel_suffixes=suffixes)
+
+
+def moe_tp_train(run: Run) -> None:
+    """Mixtral-8x7B widths at MOE_TRAIN_LAYERS layers, heads 4 (experts 2
+    a rank), one 8,193-token row.  The layers are drawn whole one at a
+    time, cut to this rank's blocks and freed; rank 0 keeps the first
+    two whole for the one-card reference, which replays its routes into
+    the mesh's reference run."""
+    import torch
+    from metal_flash_attention_tpu_torch.models import moe
+    from metal_flash_attention_tpu_torch.parallel import shard
+
+    base = (moe.MoEConfig.tiny(n_heads=8, n_kv_heads=4, n_experts=8)
+            if run.rehearse else moe.MoEConfig())
+    cfg = dataclasses.replace(base, n_layers=3 if run.rehearse
+                              else MOE_TRAIN_LAYERS)
+    seq = 64 if run.rehearse else TRAIN_TOKENS
+
+    def draw(mesh):
+        gen = torch.Generator(device=run.dev).manual_seed(SEED)
+        one = dataclasses.replace(cfg, n_layers=1)
+        layers, whole_layers, head = [], [], None
+        for i in range(cfg.n_layers):
+            whole = moe.init_params(one, gen, device=run.dev)
+            if i == 0:
+                check_ranks_agree(run, "moe training weights",
+                                  weight_checksum(whole))
+            part = shard(whole, moe.param_shardings(one, mesh), mesh)
+            layers += part["layers"]
+            if i < TRAIN_REF_LAYERS and run.rank == 0:
+                whole_layers += whole["layers"]
+            if i == 0:
+                head, first = part, whole
+            del whole
+        cut = (dict(first, layers=whole_layers) if run.rank == 0
+               else None)
+        return dict(head, layers=layers), cut
+    train_family(run, "moe_tp_train", moe, cfg,
+                 {"data": 1, "heads": run.world}, seq, draw,
+                 replay_routes=True)
+
+
 def dropped_rank(sa, call):
     """``call()`` with rank 1's partial dropped from `_merge_partials`: a
     fault the limits must see (None with one rank)."""
@@ -772,7 +1137,8 @@ def rank_main(rank, world, store, phases, card, rehearse) -> None:
         run = Run(rank, world, dev, card, rehearse)
         for name in phases:
             t0 = time.perf_counter()
-            with torch.inference_mode():
+            with (contextlib.nullcontext() if name in TRAINING
+                  else torch.inference_mode()):
                 globals()[name](run)
             dist.barrier()
             if rank == 0:
