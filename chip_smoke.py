@@ -9,8 +9,8 @@ the kernels, forward and backward), and the flash-attention options
 (tile sweeps over variant libraries, dispatch by the config cache, the
 autotune CLI), weights in and out with LoRA (HF conversion, token
 shards, checkpoint and resume, multi-adapter fine-tuning on a frozen
-base and serving), and Mixtral-style MoE serving and training, on one
-NVIDIA GPU.
+base and serving), Mixtral-style MoE serving and training, and ring and
+zigzag attention with the GPipe pipeline, on one NVIDIA GPU.
 
 Run from the root of a checkout, on a machine with one CUDA card and
 the CUDA toolkit:
@@ -315,6 +315,27 @@ Phases (any failure exits non-zero and prints no result):
    one-tile fault, timed beside their bounds, the plain versions and
    SDPA (forward and backward), as `flash_fwd_d32`, `flash_bwd_dq_d32`
    and `flash_bwd_dkv_d32` in the kernels line;
+10b. ring_checks: the per-rank bodies of ring attention and zigzag
+   (`parallel.ring_attention`, `parallel.zigzag`), forward then
+   backward, on RING_RANKS threads of this card that take turns and hand
+   each other K/V and the dK/dV sums (`ThreadRing`; autograd's one
+   device thread would deadlock ranks that wait on each other inside a
+   backward, so the bodies run directly), at Llama-3-8B's attention
+   widths (32 q heads, 8 kv heads, D 128, 4 ranks of 4,096 tokens) and
+   at the tiny configs' (D 32): the gathered o, lse, dq, dk and dv
+   against the one-card flash forward and backward over the whole
+   sequence (the worst 64-row tile, KERNEL_TILE_REL_RMS; lse at
+   MIXED_TOL), exact launch counts on the sm90 kernels (the causal ring
+   1 + 2 + 3 + 4 calls of each kernel, zigzag 6 a rank), a planted fault
+   (the closing dK/dV hop skipped), the ring's call shapes (a full chunk
+   pair, zigzag's two chunks against one and one against two, the
+   backward with the whole sequence's residuals) against the kernels'
+   plain versions, and each rank's kernel ms (its calls replayed under
+   the profiler: the load balance zigzag is for); pp_check:
+   `parallel.pipeline` at world size 1 (a one-rank NCCL group) over
+   PP_MICRO microbatches, the stage PP_LAYERS Llama-3-8B layers in bf16:
+   loss and gradients against the sequential chain by the training
+   gates, exact flash counts;
 11. softmax_checks: `scaled_softmax` (default scale) and
    `derivative_softmax` (scale 0.5, on P from it and a random dP) on
    scores [1, 32, 8192, 8192] bf16 (Llama-3-8B's heads at the training
@@ -480,7 +501,7 @@ Output: `serve`, `tp_serve`, `reference`, `quant_serve`, `burst_serve`,
 `quant_kernel_checks`,
 `quant_fwd_checks`, `train`,
 `train_profile`, `train_reference`, `flash_checks`, `entry`,
-`tp_train`, `d32_checks`, `softmax_checks`,
+`tp_train`, `ring_checks`, `pp_check`, `d32_checks`, `softmax_checks`,
 `gemma_params`, `gemma_serve`, `gemma_dense`, `gemma_reference`,
 `gemma_checks`, `gemma_train`, `gemma_train_profile`,
 `gemma_train_reference`, `gemma_bwd_checks`, `options_attention`,
@@ -509,6 +530,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -3605,6 +3627,393 @@ def tp_train(dev, card) -> dict:
     if problems:
         fail("; ".join(problems))
     return dry_launches
+
+
+# Ring and zigzag attention and the pipeline (slice 21): the ring's
+# per-rank bodies as threads on this card, and `pipeline` at world size 1.
+RING_RANKS = 4
+RING_CASES = {"d128": dict(batch=1, heads=(32, 8), head_dim=128,
+                           chunk=4096),      # Llama-3-8B's attention
+              "d32": dict(batch=2, heads=(4, 2), head_dim=32,
+                          chunk=1024)}       # the tiny configs' heads
+RING_WAIT_S = 300.0
+PP_LAYERS = 2
+PP_MICRO = 4
+PP_TOKENS = 2048                             # a microbatch: 1 x 2,048
+
+
+def held_rotate(rotate, hold_from: int):
+    """``rotate`` whose calls from the ``hold_from``-th on keep their own
+    tensors (a planted fault: a backward's closing dK/dV hop skipped);
+    every rank skips the same hop, so none waits."""
+    calls = itertools.count()
+
+    def run(tensors):
+        if next(calls) >= hold_from:
+            tensors = [t.contiguous() for t in tensors]
+            return lambda: tensors
+        return rotate(tensors)
+    return run
+
+
+class ThreadRing:
+    """RING_RANKS ranks of a ring as threads on one card.
+    ``rotate_for(rank, tag)`` is a body's ``rotate``: a call's tensors go
+    to the next rank, and its ``wait()`` returns the previous rank's
+    tensors of the same call.  The threads take turns: each holds the
+    ring's lock but while it waits, so the wrappers' launch counts stay
+    exact and the launches reach the card's stream in turn."""
+
+    def __init__(self, n: int):
+        self.n = n
+        self.cond = threading.Condition()
+        self.slots, self.failed = {}, False
+        self.local = threading.local()
+
+    def rotate_for(self, rank: int, tag: str):
+        calls = itertools.count()
+
+        def rotate(tensors):
+            i, tensors = next(calls), list(tensors)
+            self.slots[(tag, rank, i)] = tensors
+            self.cond.notify_all()
+
+            def wait():
+                key = (tag, (rank - 1) % self.n, i)
+                if not self.cond.wait_for(
+                        lambda: key in self.slots or self.failed,
+                        timeout=RING_WAIT_S) or self.failed:
+                    raise RuntimeError(f"ring rank {rank}: no tensors from "
+                                       f"rank {key[1]} at call {i}")
+                return self.slots.pop(key)
+            return wait
+        return rotate
+
+    def run(self, body) -> list:
+        """``body(rank, ring)`` on every rank's thread -> their results."""
+        out, errors = [None] * self.n, []
+
+        def main(rank):
+            self.local.rank = rank
+            with self.cond:
+                try:
+                    out[rank] = body(rank, self)
+                except BaseException as e:    # re-raised below
+                    errors.append(e)
+                    self.failed = True
+                finally:
+                    self.cond.notify_all()
+        threads = [threading.Thread(target=main, args=(r,))
+                   for r in range(self.n)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errors:
+            raise errors[0]
+        return out
+
+
+def ring_modules() -> tuple:
+    """The modules `parallel.ring_attention` and `parallel.zigzag` (the
+    package exports a function of the first name)."""
+    return tuple(importlib.import_module(
+        f"metal_flash_attention_tpu_torch.parallel.{m}")
+        for m in ("ring_attention", "zigzag"))
+
+
+@contextlib.contextmanager
+def recorded_rank_calls(ring, calls: dict):
+    """Each ring call to the flash forward and backward kept, with its
+    arguments, under the calling thread's rank (`rank_kernel_ms` replays
+    them)."""
+    def make(fn):
+        def run(*args, **kw):
+            calls.setdefault(ring.local.rank, []).append((fn, args, kw))
+            return fn(*args, **kw)
+        return run
+    with contextlib.ExitStack() as stack:
+        for module in ring_modules():
+            for name in ("flash_attention_forward",
+                         "flash_attention_backward"):
+                stack.enter_context(planted(module, name, make))
+        yield
+
+
+def rank_kernel_ms(calls: dict) -> list:
+    """Each rank's kernel ms: the device time of its ring's attention
+    calls replayed back to back (`timed`: the card's kernel durations
+    under torch.profiler).  The threads' turns leave the card waiting on
+    the host between calls, so the run itself times the host."""
+    return [timed(lambda: [fn(*a, **kw) for fn, a, kw in calls[r]], 3)[0]
+            for r in range(len(calls))]
+
+
+def ring_run(kind, blocks, hold_from=None, calls=None) -> list:
+    """The causal ring's or zigzag's forward then backward bodies on
+    RING_RANKS threads over ``blocks`` (each rank's q, k, v, dO) ->
+    each rank's (o, lse, dq, dk, dv); ``hold_from``: the backward's
+    rotate `held_rotate`; ``calls``: each rank's attention calls are kept
+    there (`recorded_rank_calls`)."""
+    ra, zz = ring_modules()
+    fwd, bwd = ((ra.ring_attention_local, ra.ring_attention_bwd_local)
+                if kind == "ring" else
+                (zz.zigzag_fwd_local, zz.zigzag_bwd_local))
+    extra = {"causal": True} if kind == "ring" else {}
+    ring = ThreadRing(RING_RANKS)
+
+    def body(rank, ring):
+        q, k, v, do = blocks[rank]
+        kw = dict(index=rank, n=RING_RANKS, **extra)
+        o, lse = fwd(q, k, v, rotate=ring.rotate_for(rank, "fwd"), **kw)
+        rotate = ring.rotate_for(rank, "bwd")
+        if hold_from is not None:
+            rotate = held_rotate(rotate, hold_from)
+        return (o, lse, *bwd(q, k, v, do, o, lse, rotate=rotate, **kw))
+    with (recorded_rank_calls(ring, calls) if calls is not None
+          else contextlib.nullcontext()):
+        return ring.run(body)
+
+
+def ring_case(label, case, dev) -> tuple[dict, dict]:
+    """One head shape's ring_checks: (its reading, its launch counts by
+    run)."""
+    import torch
+    from metal_flash_attention_tpu_torch.ops import flash_attention as fa
+    from metal_flash_attention_tpu_torch.ops import flash_attention_bwd as fb
+    from metal_flash_attention_tpu_torch.parallel import (
+        zigzag_shard,
+        zigzag_unshard,
+    )
+    from metal_flash_attention_tpu_torch.utils.tolerances import MIXED_TOL
+
+    n, chunk, d = RING_RANKS, case["chunk"], case["head_dim"]
+    (hq, hkv), b = case["heads"], case["batch"]
+    scale, seq = d ** -0.5, RING_RANKS * chunk
+    gen = torch.Generator(device=dev).manual_seed(SEED + 101 + d)
+
+    def randn(heads):
+        return torch.randn((b, heads, seq, d), generator=gen,
+                           device=dev).to(torch.bfloat16)
+    q, k, v, do = randn(hq), randn(hkv), randn(hkv), randn(hq)
+    ref_o, ref_lse = fa.flash_attention_forward(q, k, v, causal=True)
+    refs = (ref_o, ref_lse, *fb.flash_attention_backward(
+        q, k, v, do, ref_o, ref_lse, causal=True))
+    names = ("o", "lse", "dq", "dk", "dv")
+    problems, readings, launches, rank_ms = [], {}, {}, {}
+    ops = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    suffixes = ("", "_sm90") + (("_d32",) if d == 32 else ())
+    calls = {"ring": RING_RANKS * (RING_RANKS + 1) // 2,
+             "zigzag": RING_RANKS * (RING_RANKS + 2)}
+
+    def judge(name, got, ref, fault=None):
+        if name.endswith(".lse"):
+            r = {"max_abs_err": float((got - ref).abs().max())}
+            r["ok"] = r["max_abs_err"] <= MIXED_TOL.lse
+        else:
+            r = closeness(got, ref)
+            r["ok"] = within_limits(r)
+        if fault is not None:
+            r["planted_fault"] = closeness(fault, ref)
+            if within_limits(r["planted_fault"]):
+                problems.append(f"{label} {name}: the check does not see "
+                                "the planted fault")
+        readings[name] = r
+        if not r["ok"]:
+            problems.append(f"{label} {name} disagrees with one card")
+
+    for kind in ("ring", "zigzag"):
+        order, undo = ((lambda x: x, lambda x: x) if kind == "ring" else
+                       (lambda x: zigzag_shard(x, n),
+                        lambda x: zigzag_unshard(x, n)))
+        laid = [order(x) for x in (q, k, v, do)]
+        blocks = [[x[:, :, r * chunk:(r + 1) * chunk].contiguous()
+                   for x in laid] for r in range(n)]
+        fa.reset_launch_counts()
+        fb.reset_launch_counts()
+        rank_calls = {}
+        ranks = ring_run(kind, blocks, calls=rank_calls)
+        torch.cuda.synchronize(dev)
+        counted = {k_: c for k_, c in {**fa.LAUNCH_COUNTS,
+                                       **fb.LAUNCH_COUNTS}.items() if c}
+        launches[kind] = counted
+        want = {f"{op}{s}": calls[kind] for op in ops for s in suffixes}
+        if counted != want:
+            problems.append(f"{label} {kind} launched {counted}, expected "
+                            f"{want}")
+        rank_ms[kind] = rank_kernel_ms(rank_calls)
+        del rank_calls
+        got = [undo(torch.cat([r_[i] for r_ in ranks], dim=2))
+               for i in range(len(names))]
+        fault = None
+        if kind == "ring":
+            # The closing hop skipped: each rank keeps the dK/dV sums of
+            # the next rank's chunk.
+            faulty = ring_run(kind, blocks, hold_from=2 * (n - 1))
+            fault = torch.cat([r_[3] for r_ in faulty], dim=2)
+            del faulty
+        for i, name in enumerate(names):
+            judge(f"{kind}.{name}", got[i], refs[i],
+                  fault if name == "dk" else None)
+        del ranks, got, blocks, laid
+
+    # The ring's call shapes, each kernel against its plain version: a
+    # full chunk pair (the last chunk's queries, the first chunk's keys),
+    # zigzag's two (a rank's two chunks against one; one against two),
+    # and the backward of the first with the whole sequence's residuals.
+    def rows(x, lo, hi):
+        return x[:, :, lo:hi].contiguous()
+    half = chunk // 2
+    last, first = (seq - chunk, seq), (0, chunk)
+    shapes = {"full_pair": (rows(q, *last), rows(k, *first),
+                            rows(v, *first)),
+              "zigzag_low": (rows(q, 0, chunk), rows(k, 0, half),
+                             rows(v, 0, half)),
+              "zigzag_high": (rows(q, 0, half), rows(k, 0, chunk),
+                              rows(v, 0, chunk))}
+    for name, (qs, ks, vs) in shapes.items():
+        o, lse = fa.flash_attention_forward(qs, ks, vs)
+        po, plse = fa._forward_plain(qs, ks, vs, causal=False,
+                                     window_size=None, scale=scale,
+                                     out_dtype=torch.float32)
+        judge(f"{name}.o", o, po)
+        judge(f"{name}.lse", lse, plse)
+    qs, ks, vs = shapes["full_pair"]
+    dos, os_, lses = rows(do, *last), rows(ref_o, *last), \
+        ref_lse[:, :, last[0]:last[1]].contiguous()
+    grads = fb.flash_attention_backward(qs, ks, vs, dos, os_, lses)
+    d_term = (dos.float() * os_.float()).sum(dim=-1)
+    plain = fb._backward_plain(qs, ks, vs, dos, causal=False,
+                               window_size=None, scale=scale, lse=lses,
+                               d_term=d_term)
+    for name, g, p in zip(("dq", "dk", "dv"), grads, plain):
+        judge(f"global_residuals.{name}", g, p)
+    if problems:
+        fail("; ".join(problems))
+    return {"shape": f"q [{b}, {hq}, {seq}, {d}], k/v [{b}, {hkv}, {seq}, "
+                     f"{d}] causal, bf16, {n} ranks of {chunk} tokens",
+            "readings": readings, "launches": launches,
+            "rank_kernel_ms": rank_ms}, launches
+
+
+def ring_checks(dev, card) -> dict:
+    """ring_checks: the causal ring's and zigzag's forward and backward
+    bodies (`parallel.ring_attention`, `parallel.zigzag`) on RING_RANKS
+    threads of this card at each RING_CASES head shape, gathered and held
+    against the one-card flash forward and backward over the whole
+    sequence (the worst 64-row tile, KERNEL_TILE_REL_RMS; lse at
+    MIXED_TOL), with exact launch counts (the ring 1 + 2 + 3 + 4 calls,
+    zigzag 6 a rank) on the sm90 kernels (and `_d32`), a planted fault
+    (the closing dK/dV hop skipped), and each of the ring's call shapes
+    against the kernels' plain versions.  Printed: each rank's kernel ms
+    (`rank_kernel_ms`).  Returns {case: {run: launch counts}}."""
+    out, launches = {}, {}
+    for label, case in RING_CASES.items():
+        out[label], launches[label] = ring_case(label, case, dev)
+    print("ring_checks: " + json.dumps({
+        "ranks": RING_RANKS, "cases": out,
+        "limits": {"tile_rel_rms": KERNEL_TILE_REL_RMS},
+        "note": "the ranks are threads taking turns on one card: each "
+                "rank's kernel ms is the device time of its attention "
+                "calls replayed back to back (its share of the work), not "
+                "a time on a card of its own (tools/tp_probe.py "
+                "ring_train_checks runs the ring on 4 cards)",
+        "card": card}), flush=True)
+    return launches
+
+
+def pp_check(dev, card) -> dict:
+    """pp_check: `parallel.pipeline` at world size 1 (a one-rank NCCL
+    group, `make_pipeline_mesh(1)`), the stage PP_LAYERS Llama-3-8B
+    layers (attention and MLP) in bf16, over PP_MICRO microbatches of
+    PP_TOKENS tokens: the loss mean(out^2) and every parameter gradient
+    against the sequential chain of the same layers, by the training
+    gates (TRAIN_LOSS_ABS, TRAIN_GRAD_REL_RMS), with exact flash launch
+    counts on the sm90 kernels.  Returns the pipeline's counts."""
+    import torch
+    import torch.distributed as dist
+    from metal_flash_attention_tpu_torch.models import llama
+    from metal_flash_attention_tpu_torch.ops import flash_attention as fa
+    from metal_flash_attention_tpu_torch.ops import flash_attention_bwd as fb
+    from metal_flash_attention_tpu_torch.parallel import (
+        make_pipeline_mesh,
+        pipeline,
+        shard,
+        stack_stage_params,
+        stage_param_sharding,
+    )
+
+    store = tempfile.mkdtemp(prefix="mfa_pp_check_store_")
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method="file://" + os.path.join(
+        store, "store"), rank=0, world_size=1)
+    try:
+        cfg = llama.LlamaConfig.llama3_8b(n_layers=PP_LAYERS)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 111)
+        layers = llama.init_params(cfg, gen, device=dev)["layers"]
+        mesh = make_pipeline_mesh(1)
+        stacked = stack_stage_params([stack_stage_params(layers)])
+        local = shard(stacked, stage_param_sharding(stacked, mesh), mesh)
+        x = torch.randn((PP_MICRO, 1, PP_TOKENS, cfg.dim), generator=gen,
+                        device=dev).to(cfg.dtype)
+        pos = torch.arange(PP_TOKENS, device=dev)[None]
+        cos, sin = llama.rope_frequencies(cfg, pos)
+
+        def stage_fn(p, h):
+            for i in range(PP_LAYERS):
+                layer = {k: t[i] for k, t in p.items()}
+                h, _ = llama.attention_block(layer, h, cfg, cos, sin)
+                h = llama.mlp_block(layer, h, cfg)
+            return h
+
+        def loss_and_grads(run):
+            leaves = {k: t.detach().requires_grad_(True)
+                      for k, t in local.items()}
+            loss = run(leaves).float().pow(2).mean()
+            return float(loss), torch.autograd.grad(
+                loss, list(leaves.values()))
+        seq = loss_and_grads(lambda p: torch.stack([
+            stage_fn({k: t[0] for k, t in p.items()}, x[i])
+            for i in range(PP_MICRO)]))
+        loss_and_grads(lambda p: pipeline(stage_fn, p, x, mesh=mesh))
+        fa.reset_launch_counts()
+        fb.reset_launch_counts()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        loss, grads = loss_and_grads(
+            lambda p: pipeline(stage_fn, p, x, mesh=mesh))
+        torch.cuda.synchronize(dev)
+        secs = time.perf_counter() - t0
+        launches = {k: c for k, c in {**fa.LAUNCH_COUNTS,
+                                      **fb.LAUNCH_COUNTS}.items() if c}
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    rel = [rel_rms(g, r) for g, r in zip(grads, seq[1])]
+    steps = PP_MICRO          # M + S - 1 pipeline steps, S = 1 stage
+    want = {f"{op}{s}": steps * PP_LAYERS for op in (
+        "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv") for s in ("", "_sm90")}
+    reading = {"loss": loss, "ref_loss": seq[0],
+               "loss_abs_err": abs(loss - seq[0]),
+               "grad_rel_rms_max": max(rel), "seconds": secs,
+               "launches": launches}
+    print("pp_check: " + json.dumps({
+        "world_size": 1, "stages": 1, "microbatches": PP_MICRO,
+        "stage": f"{PP_LAYERS} Llama-3-8B layers (attention and MLP), "
+                 f"bf16, microbatches [1, {PP_TOKENS}, {cfg.dim}]",
+        "reading": reading,
+        "gates": {"loss_abs": TRAIN_LOSS_ABS,
+                  "grad_rel_rms": TRAIN_GRAD_REL_RMS},
+        "note": "one stage: the pipeline's schedule, hops and output sum "
+                "are the identity; tools/tp_probe.py pp_train runs 4 "
+                "stages on 4 cards", "card": card}), flush=True)
+    if launches != want:
+        fail(f"pp_check launched {launches}, expected {want}")
+    if reading["loss_abs_err"] > TRAIN_LOSS_ABS or \
+            reading["grad_rel_rms_max"] > TRAIN_GRAD_REL_RMS:
+        fail("pp_check: the pipeline leaves the sequential chain past the "
+             "training gates")
+    return launches
 
 
 def gemm_module():
@@ -8015,6 +8424,15 @@ def run(dev, cache_dir) -> int:
     d32_paths = {"entry": phase("entry", entry_check, dev, card)}
     d32_paths["tp_train"] = phase("tp_train", tp_train, dev, card)
     torch.cuda.empty_cache()
+    # Ring and zigzag attention as threads on this card, and the pipeline
+    # at world size 1.
+    ring_launches = phase("ring_checks", ring_checks, dev, card)
+    torch.cuda.empty_cache()
+    pp_launches = phase("pp_check", pp_check, dev, card)
+    torch.cuda.empty_cache()
+    d32_paths["ring_checks"] = collections.Counter()
+    for counts in ring_launches["d32"].values():
+        d32_paths["ring_checks"].update(counts)
     kernels += phase("d32_checks", d32_checks, dev, card, d32_paths)
     torch.cuda.empty_cache()
     softmax_kernels = phase("softmax_checks", softmax_kernel_checks, dev,
@@ -8058,6 +8476,12 @@ def run(dev, cache_dir) -> int:
             entry["launches_by_path"]["beam"] = beam_launches["flash_fwd"]
             entry["launches_sm90_by_path"]["beam"] = beam_launches[
                 "flash_fwd_sm90"]
+        if entry["name"] in ATTENTION_COUNTS:
+            entry["launches_by_path"]["ring_checks"] = sum(
+                c.get(entry["name"], 0)
+                for c in ring_launches["d128"].values())
+            entry["launches_by_path"]["pp_check"] = pp_launches[
+                entry["name"]]
     decode_kernel["launches_by_path"] = {
         "beam": beam_launches["flash_decode"],
         "dense_serve": dense_launches["flash_decode"],

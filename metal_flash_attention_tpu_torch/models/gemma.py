@@ -31,8 +31,9 @@ training takes ``mesh=`` in `attention_block`, `forward_hidden`,
 inputs of the column blocks through `parallel.mesh.column_parallel_input`,
 the partials summed before the post-norms, every parameter through
 `data_replicated` and the loss through `data_mean`.  The tied head reads
-the replicated embedding, so the loss needs no gather.  A mesh whose
-context axis has more than one rank raises.
+the replicated embedding, so the loss needs no gather.  A context axis
+leaves the sequence whole, as the JAX package's specs do (its Gemma has
+no ring path): every context rank computes the same loss and gradients.
 """
 
 from __future__ import annotations
@@ -56,7 +57,6 @@ from metal_flash_attention_tpu_torch.parallel.mesh import (
     HEAD_AXIS,
     P,
     check_mesh,
-    check_training_mesh,
     column_parallel_input,
     data_mean,
     data_replicated,
@@ -241,7 +241,7 @@ def attention_block(layer: dict, x: torch.Tensor, cfg: GemmaConfig, cos,
     ``mesh`` the layer holds this rank's blocks and x its data-axis rows
     (module docstring)."""
     if mesh is not None:
-        check_training_mesh(mesh)
+        check_mesh(mesh)
     b, s, _ = x.shape
     q, k, v = attention_qkv(layer, x, cfg, cos, sin, mesh)
     if kv_cache is not None:
@@ -319,7 +319,7 @@ def loss_fn(params: dict, tokens: torch.Tensor, cfg: GemmaConfig, *,
     data-axis rows; the loss is the global batch's mean on every rank."""
     mesh = kw.get("mesh")
     if mesh is not None:
-        check_training_mesh(mesh)
+        check_mesh(mesh)
         params = data_replicated(params, mesh)
     targets = tokens[:, 1:]
     if fused_ce:

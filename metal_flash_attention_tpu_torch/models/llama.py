@@ -32,8 +32,19 @@ through `row_parallel_sum`.  The loss gathers lm_head's column blocks
 cross-entropy on its rows), takes every parameter through
 `data_replicated` and returns `data_mean` of the rank's loss, so the
 loss is the global batch's mean on every rank and every gradient that
-mean's.  The context axis (ring attention) is not ported: a mesh whose
-context axis has more than one rank raises.
+mean's.
+
+The context axis (the JAX package's long-context tier: its
+`attention_block` runs the differentiable ring there): with a context
+axis of more than one rank, x holds the rank's rows AND its context
+shard of the sequence.  Attention is the causal ring over that axis
+(`parallel.ring_attention`, the GQA K/V heads rotating as they are,
+since the kernels sum a group's dK/dV); norms, projections and the MLP
+stay per token.  `forward_hidden` gives the shard its global positions,
+`loss_fn` takes the rank's rows whole and cuts inputs and targets to its
+context columns, and the data average runs over the data and context
+ranks together.  A sliding window with a context axis raises ValueError
+(the JAX ring drops the window).
 """
 
 from __future__ import annotations
@@ -54,15 +65,20 @@ from metal_flash_attention_tpu_torch.ops.flash_attention import (
     flash_attention,
 )
 from metal_flash_attention_tpu_torch.parallel.mesh import (
+    CONTEXT_AXIS,
     HEAD_AXIS,
     P,
+    axis_index,
+    axis_size,
     check_mesh,
-    check_training_mesh,
     column_parallel_input,
     data_mean,
     data_replicated,
     gather_columns,
     row_parallel_sum,
+)
+from metal_flash_attention_tpu_torch.parallel.ring_attention import (
+    ring_attention,
 )
 from metal_flash_attention_tpu_torch.utils.device import resolve_device
 
@@ -260,11 +276,30 @@ def wo_proj(o: torch.Tensor, layer: dict, lora_layer: Optional[dict] = None,
     return lora_delta(o @ layer["wo"], o, lora_layer, "wo", lora_ids)
 
 
+def _context_parallel(mesh) -> bool:
+    return mesh is not None and axis_size(mesh, CONTEXT_AXIS) > 1
+
+
+def _context_columns(t: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's context shard of the sequence dim (dim 1) of ``t``
+    [rows, seq]: the whole of it without a context axis; ValueError where
+    the context size does not divide seq."""
+    if not _context_parallel(mesh):
+        return t
+    n, s = axis_size(mesh, CONTEXT_AXIS), t.shape[1]
+    if s % n:
+        raise ValueError(f"sequence {s} does not split over {n} context "
+                         "ranks")
+    lo = axis_index(mesh, CONTEXT_AXIS) * (s // n)
+    return t[:, lo:lo + s // n]
+
+
 def attention_block(layer: dict, x: torch.Tensor, cfg: LlamaConfig, cos,
                     sin, kv_cache: Optional[tuple] = None,
                     block_q: Optional[int] = None,
                     block_kv: Optional[int] = None, mesh=None,
-                    lora_layer: Optional[dict] = None, lora_ids=None):
+                    lora_layer: Optional[dict] = None, lora_ids=None,
+                    seq_sharded: bool = True):
     """x: [batch, seq, dim] -> (x + attention, (k, v)).
 
     With ``kv_cache = (k_prefix, v_prefix)`` the new K/V are appended to
@@ -274,21 +309,33 @@ def attention_block(layer: dict, x: torch.Tensor, cfg: LlamaConfig, cos,
     that tile, as the JAX package does.  ``lora_layer`` / ``lora_ids``:
     this layer's adapter pairs and each row's adapter (None: adapter 0).
 
-    With ``mesh`` (data and heads axes; module docstring) the layer holds
-    this rank's blocks and x its data-axis rows: the rank attends its own
-    heads, and wo's partials are summed over the heads axis."""
+    With ``mesh`` (module docstring) the layer holds this rank's blocks
+    and x its data-axis rows: the rank attends its own heads, and wo's
+    partials are summed over the heads axis.  With a context axis of more
+    than one rank, x holds the rank's context shard of the sequence and
+    attention is the causal ring over it; ``seq_sharded=False`` (MoE's
+    path, whose JAX attention leaves the sequence whole) takes x whole on
+    every context rank and attends it as without the axis."""
     if mesh is not None:
-        check_training_mesh(mesh)
+        check_mesh(mesh)
         if lora_layer is not None:
             raise ValueError("LoRA adapters with mesh=: the adapters are "
                              "not sharded")
+    ring = seq_sharded and _context_parallel(mesh)
+    if ring and (cfg.sliding_window is not None or kv_cache is not None):
+        raise ValueError("the context axis takes no sliding window and no "
+                         "KV cache: ring attention is causal over the "
+                         "whole sequence")
     b, s, _ = x.shape
     q, k, v = attention_qkv(layer, x, cfg, cos, sin, lora_layer, lora_ids,
                             mesh)
     if kv_cache is not None:
         k = torch.cat([kv_cache[0], k], dim=2)
         v = torch.cat([kv_cache[1], v], dim=2)
-    if block_q is None and block_kv is None:
+    if ring:
+        o = ring_attention(mesh, causal=True, block_q=block_q,
+                           block_kv=block_kv)(q, k, v)
+    elif block_q is None and block_kv is None:
         o = dispatch.attention(q, k, v, causal=True,
                                window_size=cfg.sliding_window)
     else:
@@ -317,10 +364,17 @@ def forward_hidden(params: dict, tokens: torch.Tensor, cfg: LlamaConfig, *,
     ``block_q`` / ``block_kv``: every layer's attention tile
     (`attention_block`).  ``lora`` / ``lora_ids``: stacked adapters
     (`models.lora`) and each row's adapter.  ``mesh``: this rank's
-    blocks and rows (module docstring)."""
+    blocks and rows, and with a context axis its context shard of the
+    sequence, whose positions start at context index x shard length
+    (module docstring)."""
+    if mesh is not None:
+        check_mesh(mesh)
     b, s = tokens.shape
     if positions is None:
-        positions = torch.arange(s, device=tokens.device).expand(b, s)
+        start = axis_index(mesh, CONTEXT_AXIS) * s \
+            if _context_parallel(mesh) else 0
+        positions = torch.arange(start, start + s,
+                                 device=tokens.device).expand(b, s)
     cos, sin = rope_frequencies(cfg, positions)
     x = params["embed"][tokens.long()].to(cfg.dtype)
 
@@ -360,24 +414,28 @@ def loss_fn(params: dict, tokens: torch.Tensor, cfg: LlamaConfig, *,
     ``fused_ce`` (the default) runs the lm head inside the chunked
     cross-entropy (`models.losses`), never holding the [batch * seq,
     vocab] logits; ``fused_ce=False`` materialises them.  With ``mesh``,
-    ``params`` are this rank's blocks and ``tokens`` its data-axis rows;
-    the loss is the global batch's mean on every rank (module
+    ``params`` are this rank's blocks and ``tokens`` its data-axis rows,
+    whole [rows, seq]: with a context axis the shifted inputs and targets
+    are cut to the rank's context columns (seq - 1 must divide over it).
+    The loss is the global batch's mean on every rank (module
     docstring)."""
     mesh = kw.get("mesh")
+    inputs, targets = tokens[:, :-1], tokens[:, 1:]
     if mesh is not None:
-        check_training_mesh(mesh)
-        params = data_replicated(params, mesh)
-    targets = tokens[:, 1:]
+        check_mesh(mesh)
+        params = data_replicated(params, mesh, context=True)
+        inputs = _context_columns(inputs, mesh)
+        targets = _context_columns(targets, mesh)
     if fused_ce:
-        x, _ = forward_hidden(params, tokens[:, :-1], cfg, **kw)
+        x, _ = forward_hidden(params, inputs, cfg, **kw)
         nll = fused_cross_entropy(x.reshape(-1, x.shape[-1]),
                                   gather_columns(params["lm_head"], mesh),
                                   targets.reshape(-1))
-        return data_mean(nll.mean(), mesh)
-    logits, _ = forward(params, tokens[:, :-1], cfg, **kw)
+        return data_mean(nll.mean(), mesh, context=True)
+    logits, _ = forward(params, inputs, cfg, **kw)
     logp = torch.log_softmax(logits, dim=-1)
     return data_mean(-logp.gather(-1, targets[..., None].long()).mean(),
-                     mesh)
+                     mesh, context=True)
 
 
 def train_step(params: dict, tokens: torch.Tensor, cfg: LlamaConfig,

@@ -50,7 +50,10 @@ alone, so each data rank runs its experts on its own tokens, in slots
 numbered globally (the rest of the buffer stays zero, as JAX's sharding
 constraint replicates the capacity buffer over the data axis).  The aux
 loss's token shares and mean gates are the global batch's
-(`sum_over` the data axis, with its gradient summed back).
+(`sum_over` the data axis, with its gradient summed back).  A context
+axis leaves the sequence whole on every context rank (attention with
+``seq_sharded=False``), as the JAX package's specs do: every context
+rank computes the same loss and gradients.
 """
 
 from __future__ import annotations
@@ -74,7 +77,6 @@ from metal_flash_attention_tpu_torch.parallel.mesh import (
     axis_index,
     axis_size,
     check_mesh,
-    check_training_mesh,
     column_parallel_input,
     data_mean,
     data_replicated,
@@ -338,7 +340,8 @@ def forward_hidden(params: dict, tokens: torch.Tensor, cfg: MoEConfig, *,
 
     def one_layer(layer, x, cache):
         x, kv = llama.attention_block(layer, x, base, cos, sin,
-                                      kv_cache=cache, mesh=mesh)
+                                      kv_cache=cache, mesh=mesh,
+                                      seq_sharded=False)
         h = llama.rms_norm(x, layer["mlp_norm"], cfg.norm_eps)
         y, aux = moe_ffn(layer["moe"], h, cfg, mesh=mesh)
         return x + y, kv, aux
@@ -378,7 +381,7 @@ def loss_fn(params: dict, tokens: torch.Tensor, cfg: MoEConfig, *,
     already)."""
     mesh = kw.get("mesh")
     if mesh is not None:
-        check_training_mesh(mesh)
+        check_mesh(mesh)
         params = data_replicated(params, mesh)
     targets = tokens[:, 1:]
     if fused_ce:

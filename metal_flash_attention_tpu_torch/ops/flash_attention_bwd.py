@@ -38,7 +38,11 @@ bf16 from the forward).  On the card the options run on the `kAux`
 kernels, also counted as ``["<op>_aux"]``.
 
 Dispatch: a CPU tensor takes the plain version (`_backward_plain`, the
-analytic gradients of `ops.reference.attention_reference_grads`); a CUDA
+analytic gradients of `ops.reference.attention_reference_grads`, P read
+from the given lse and D from the given o as the kernels read them, so
+that residuals of a longer key set, a ring step's, give that function's
+gradients; `FlashAttentionFunction`, whose residuals are the block's
+own, recomputes both from the block, the same values); a CUDA
 tensor launches the Hopper kernels of `csrc/flash_attention_bwd.cu`
 (TMA-fed, wgmma, for sm_90a), or raises.  Each launch adds one to
 ``LAUNCH_COUNTS["flash_bwd_dq"]`` or ``["flash_bwd_dkv"]`` (the op) and
@@ -164,13 +168,15 @@ def reduce_dbias(dbias: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
 
 def _backward(q, k, v, do, o, lse, *, causal, window_size, scale,
               softcap=None, options=None, low_precision=False,
-              compute_dbias=False, tiles=None):
+              compute_dbias=False, tiles=None, own_residuals=False):
     """The backward on checked operands: both kernels for a CUDA tensor,
     the plain version for a CPU tensor.  ``softcap``: the cap, or None;
     lse must be that of the capped logits; ``tiles``: a (block_q,
     block_kv) request for both kernels, or {"backward_query": ...,
-    "backward_key_value": ...}, or None.  Returns (dq, dk, dv, dbias),
-    dbias the full float32 one with ``compute_dbias``, else None."""
+    "backward_key_value": ...}, or None.  ``own_residuals``: o and lse
+    are this block's own forward's (`FlashAttentionFunction`).  Returns
+    (dq, dk, dv, dbias), dbias the full float32 one with
+    ``compute_dbias``, else None."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     with torch.no_grad():
@@ -198,9 +204,14 @@ def _backward(q, k, v, do, o, lse, *, causal, window_size, scale,
         if q.device.type != "cpu":
             raise ValueError(f"flash attention runs on cpu or cuda "
                              f"tensors, got {q.device}")
-        # The stored L and D in bf16 reach P and dS as the kernels read
-        # them; else the plain version recomputes both in float32.
-        stored = dict(lse=lse, d_term=d_term) if low_precision else {}
+        # P from the given L and D from the given O, as the kernels read
+        # them (and as the JAX backward does): a ring step's residuals
+        # are the whole sequence's, not this block's own.  The block's own
+        # residuals (the autograd path) give the same P and D recomputed
+        # from the block, as they always have there, to the last bit;
+        # bf16-stored ones (``low_precision``) are read as stored.
+        stored = {} if own_residuals and not low_precision else dict(
+            lse=lse, d_term=d_term)
         *grads, dbias = _backward_plain(
             q, k, v, do, causal=causal, window_size=window_size,
             scale=scale, softcap=softcap, options=options,
@@ -247,7 +258,7 @@ class FlashAttentionFunction(torch.autograd.Function):
                 "whose custom_vjp refuses the shape")
         dq, dk, dv, dbias = _backward(q, k, v, do, o, lse,
                                       compute_dbias=need_dbias,
-                                      **ctx.options)
+                                      own_residuals=True, **ctx.options)
         if need_dbias:
             dbias = reduce_dbias(dbias, bias)
         return (dq, dk, dv, dbias, None, None, None, None, None, None, None,

@@ -11,10 +11,12 @@ tensor.  The names stay JAX's so that each counterpart is easy to find:
 - `PartitionSpec` (`P`): one entry per dimension of a tensor, an axis
   name (that dimension is split over the axis, rank i holding block i)
   or None (whole on every rank); ``P()`` replicates.  It is a tuple, so
-  it compares entry by entry with JAX's `PartitionSpec`;
+  it compares entry by entry with JAX's `PartitionSpec`.  Its names are
+  the three axes and the pipeline's `STAGE_AXIS`;
 - `NamedSharding(mesh, spec)`, as the engine's ``kv_sharding`` takes it;
 - `shard(tree, specs, mesh)`, the counterpart of `jax.device_put(tree,
-  shardings)`: each leaf sliced to this rank's block;
+  shardings)`: each leaf sliced to this rank's block (on a `make_mesh`
+  mesh or a pipeline's, `parallel.pipeline.make_pipeline_mesh`);
 - `unshard(x, spec, mesh)`: a block all-gathered back to the global
   tensor (for checks and tests);
 - the collectives GSPMD inserts around the sharded products of the JAX
@@ -30,10 +32,21 @@ tensor.  The names stay JAX's so that each counterpart is easy to find:
     data-parallel loss (identity forward, its gradient averaged over the
     data axis backward) and the loss itself (the mean over the data axis
     forward, this rank's own gradient backward), so that every
-    gradient of a data group comes out as the global batch's mean;
+    gradient of a data group comes out as the global batch's mean; with
+    ``context=True`` the average runs over the data and context axes
+    together (a context rank holds an equal share of the tokens);
   - `sum_over` (a sum whose gradient is summed too) and `gather_rows`
     (an integer tensor's rows gathered), for MoE routing over the data
-    axis.
+    axis;
+  - `ring_shift`: a tensor sent to the next rank of an axis and the
+    previous rank's received (JAX's `ppermute` with the perm
+    ``(i, (i + 1) % n)``), the gradient sent back the other way: the
+    pipeline's stage-to-stage hop.
+- `ring_permute` / `start_ring_permute`: the same hop for a list of
+  tensors without a gradient (ring attention's K/V and dK/dV), by
+  `torch.distributed.batch_isend_irecv` over the axis's group; the
+  second returns at once, with a ``wait()`` that gives the received
+  tensors, so a caller overlaps the hop with its kernels.
 
 Gradients follow one rule: on a rank, a tensor whole over an axis carries
 the gradient of the whole loss, and a block carries its own block's.
@@ -45,20 +58,19 @@ bf16 partials in bf16).
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional
 
 import torch
 import torch.distributed as dist
 
-from metal_flash_attention_tpu_torch.utils.errors import (
-    SHARDED_TRAINING,
-    not_ported,
-)
-
 DATA_AXIS = "data"
 HEAD_AXIS = "heads"
 CONTEXT_AXIS = "context"
 AXES = (DATA_AXIS, HEAD_AXIS, CONTEXT_AXIS)
+# The pipeline mesh's one axis (`parallel.pipeline`).
+STAGE_AXIS = "stage"
+SPEC_AXES = AXES + (STAGE_AXIS,)
 
 
 class PartitionSpec(tuple):
@@ -67,9 +79,9 @@ class PartitionSpec(tuple):
 
     def __new__(cls, *axes):
         for a in axes:
-            if a is not None and a not in AXES:
+            if a is not None and a not in SPEC_AXES:
                 raise ValueError(f"not a mesh axis: {a!r} (the axes are "
-                                 f"{AXES})")
+                                 f"{SPEC_AXES})")
         return super().__new__(cls, axes)
 
     def __repr__(self) -> str:
@@ -125,18 +137,23 @@ def make_mesh(*, data: int = 1, heads: int = 1, context: int = 1,
     return init_device_mesh(device_type, sizes, mesh_dim_names=AXES)
 
 
-def check_mesh(mesh):
-    """``mesh`` if it is a `make_mesh` mesh; TypeError for anything that
-    is not a DeviceMesh, ValueError for one without the three axes."""
+def check_mesh(mesh, dims=(AXES,)):
+    """``mesh`` if it is a `make_mesh` mesh (or one whose dim names are
+    another tuple of ``dims``); TypeError for anything that is not a
+    DeviceMesh, ValueError for one with other dims."""
     from torch.distributed.device_mesh import DeviceMesh
 
     if not isinstance(mesh, DeviceMesh):
         raise TypeError(f"mesh must be a DeviceMesh from make_mesh, got "
                         f"{type(mesh).__name__}")
-    if tuple(mesh.mesh_dim_names or ()) != AXES:
-        raise ValueError(f"mesh dims must be {AXES}, got "
+    if tuple(mesh.mesh_dim_names or ()) not in dims:
+        raise ValueError(f"mesh dims must be one of {dims}, got "
                          f"{mesh.mesh_dim_names}")
     return mesh
+
+
+# The meshes `shard` and `unshard` take: make_mesh's and a pipeline's.
+_SHARD_DIMS = (AXES, (STAGE_AXIS,))
 
 
 def axis_size(mesh, axis: str) -> int:
@@ -191,7 +208,7 @@ def shard(tree, specs, mesh):
     Replicated leaves come back as they are; a split leaf comes back as a
     contiguous copy of its block.  The counterpart of `jax.device_put(
     tree, shardings)`."""
-    check_mesh(mesh)
+    check_mesh(mesh, _SHARD_DIMS)
 
     def walk(t, s, path):
         if isinstance(s, PartitionSpec):
@@ -217,7 +234,7 @@ def unshard(x: torch.Tensor, spec, mesh) -> torch.Tensor:
     """The global tensor from each rank's block ``x`` under ``spec``:
     an all-gather along every split dimension (a collective: every rank
     of the mesh calls it)."""
-    check_mesh(mesh)
+    check_mesh(mesh, _SHARD_DIMS)
     for dim, axis in enumerate(tuple(spec)):
         if axis is None:
             continue
@@ -228,33 +245,23 @@ def unshard(x: torch.Tensor, spec, mesh) -> torch.Tensor:
     return x
 
 
-def check_training_mesh(mesh):
-    """``mesh`` (`check_mesh`) for a training path, which takes the data
-    and heads axes; a context axis of more than one rank raises (ring and
-    zigzag attention with their backward are not ported)."""
-    check_mesh(mesh)
-    if axis_size(mesh, CONTEXT_AXIS) > 1:
-        raise not_ported("the context axis in training (ring and zigzag "
-                         "attention, mesh context="
-                         f"{axis_size(mesh, CONTEXT_AXIS)})",
-                         SHARDED_TRAINING)
-    return mesh
-
-
 def _whole(mesh, axis: str) -> bool:
     """No mesh, or one rank on ``axis``: every collective over it is the
     identity and is skipped."""
     return mesh is None or axis_size(mesh, axis) == 1
 
 
-def _sum(t: torch.Tensor, mesh, axis: str, mean: bool = False
+def _sum(t: torch.Tensor, mesh, axis, mean: bool = False
          ) -> torch.Tensor:
-    """``t`` summed (``mean``: averaged) over ``axis`` in float32 (or t's
-    wider type), cast back to t's dtype; t itself is left as it was."""
+    """``t`` summed (``mean``: averaged) over ``axis`` (a name, or a
+    tuple of names: one all-reduce an axis) in float32 (or t's wider
+    type), cast back to t's dtype; t itself is left as it was."""
+    axes = (axis,) if isinstance(axis, str) else axis
     total = t.to(torch.promote_types(t.dtype, torch.float32), copy=True)
-    dist.all_reduce(total, group=axis_group(mesh, axis))
+    for a in axes:
+        dist.all_reduce(total, group=axis_group(mesh, a))
     if mean:
-        total /= axis_size(mesh, axis)
+        total /= math.prod(axis_size(mesh, a) for a in axes)
     return total.to(t.dtype)
 
 
@@ -372,28 +379,98 @@ def gather_rows(x: torch.Tensor, mesh, axis: str = DATA_AXIS
     return torch.cat(parts, dim=0)
 
 
-def data_replicated(tree, mesh):
+def _batch_axes(mesh, context: bool) -> tuple:
+    """The axes of more than one rank whose ranks hold shares of the
+    batch's tokens: data, and with ``context`` the context axis."""
+    axes = (DATA_AXIS, CONTEXT_AXIS) if context else (DATA_AXIS,)
+    return tuple(a for a in axes if not _whole(mesh, a))
+
+
+def data_replicated(tree, mesh, *, context: bool = False):
     """Every tensor of ``tree`` (a parameter tree) as its use in a
     data-parallel loss sees it: the same values, and in the backward
-    its gradient averaged over the data axis.  Every rank of a data
-    group then holds the gradient of the mean over the global batch (the
-    JAX package's loss), so an optimizer step keeps the group's copies
-    equal.  Without a mesh, or with one data rank, ``tree`` itself."""
-    if _whole(mesh, DATA_AXIS):
+    its gradient averaged over the data axis (with ``context``, over the
+    data and context ranks together: one float32 all-reduce an axis of
+    more than one rank, then one division).  Every rank of a data group
+    then holds the gradient of the mean over the global batch (the JAX
+    package's loss), so an optimizer step keeps the group's copies
+    equal.  Without a mesh, or with one rank on those axes, ``tree``
+    itself."""
+    axes = _batch_axes(mesh, context)
+    if not axes:
         return tree
     from metal_flash_attention_tpu_torch.utils.tree import tree_map
 
-    return tree_map(lambda t: _Replicated.apply(t, mesh, DATA_AXIS, True),
-                    tree)
+    return tree_map(lambda t: _Replicated.apply(t, mesh, axes, True), tree)
 
 
-def data_mean(loss: torch.Tensor, mesh) -> torch.Tensor:
+def data_mean(loss: torch.Tensor, mesh, *, context: bool = False
+              ) -> torch.Tensor:
     """A data rank's loss over its rows -> the mean over the data axis
-    (every rank holds the same rows' count, so it is the global batch's
-    mean), whose gradient is this rank's own loss's: with
-    `data_replicated` parameters, the averaging happens once, on the
-    gradients.  Without a mesh, or with one data rank, ``loss``
-    itself."""
-    if _whole(mesh, DATA_AXIS):
+    (with ``context``, over the data and context ranks: each holds an
+    equal share of the tokens, so it is the global batch's mean), whose
+    gradient is this rank's own loss's: with `data_replicated`
+    parameters, the averaging happens once, on the gradients.  Without a
+    mesh, or with one rank on those axes, ``loss`` itself."""
+    axes = _batch_axes(mesh, context)
+    if not axes:
         return loss
-    return _Reduced.apply(loss, mesh, DATA_AXIS, True)
+    return _Reduced.apply(loss, mesh, axes, True)
+
+
+def start_ring_permute(tensors, mesh, axis: str, shift: int = 1):
+    """Send each tensor of ``tensors`` to the rank ``shift`` places on
+    along ``axis`` (cyclically) and receive the same number from the rank
+    ``shift`` places back, by one `torch.distributed.batch_isend_irecv`
+    over the axis's group (peers named by their global ranks).  Returns
+    at once with ``wait()``, which blocks (on the card: makes the current
+    stream wait) and gives the received tensors, each shaped and typed as
+    the one sent.  The sent tensors must not change until then.  With
+    one rank on ``axis``, ``wait()`` gives the tensors themselves."""
+    tensors = [t.contiguous() for t in tensors]
+    if _whole(mesh, axis):
+        return lambda: tensors
+    n = axis_size(mesh, axis)
+    group = axis_group(mesh, axis)
+    me = axis_index(mesh, axis)
+    dst = dist.get_global_rank(group, (me + shift) % n)
+    src = dist.get_global_rank(group, (me - shift) % n)
+    received = [torch.empty_like(t) for t in tensors]
+    ops = [dist.P2POp(dist.isend, t, dst, group) for t in tensors]
+    ops += [dist.P2POp(dist.irecv, r, src, group) for r in received]
+    requests = dist.batch_isend_irecv(ops)
+
+    def wait():
+        for r in requests:
+            r.wait()
+        return received
+    return wait
+
+
+def ring_permute(tensors, mesh, axis: str, shift: int = 1) -> list:
+    """The counterpart of JAX's `ppermute` with the perm ``(i, (i + shift)
+    % n)``: each tensor sent to the next rank of ``axis``, the previous
+    rank's returned (`start_ring_permute`, waited for).  No gradient."""
+    return start_ring_permute(tensors, mesh, axis, shift)()
+
+
+class _RingShift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return ring_permute([x], mesh, axis)[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        return ring_permute([g], ctx.mesh, ctx.axis, shift=-1)[0], None, None
+
+
+def ring_shift(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """``x`` sent to the next rank of ``axis``, the previous rank's
+    returned, differentiably: the gradient goes back to the rank that
+    sent it (a hop the other way).  Every rank of the axis calls it, in
+    the forward and, through autograd, in the backward.  With one rank on
+    ``axis``, x itself."""
+    if _whole(mesh, axis):
+        return x
+    return _RingShift.apply(x, mesh, axis)

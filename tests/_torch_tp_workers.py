@@ -521,18 +521,31 @@ def train_tp_body(rank: int, world: int, payload) -> dict:
     blocks += [t.numpy() for t in resumed.take(LOADER["steps"] - 1)]
     out["loader"] = blocks
 
-    # The context axis in training, and shardings that are not ones.
+    # The context axis in training (Llama's ring, Gemma's whole
+    # sequence) against the loss without a mesh, a windowed Llama on it,
+    # and shardings that are not ones.
     cp_mesh = make_mesh(data=1, heads=2, context=2, devices="cpu")
+    out["context_loss"] = {}
+    for family, module, gcfg in (
+            ("llama", llama, cfg),
+            ("gemma", gemma, train_configs("gemma", "float32"))):
+        full = params_from_numpy(payload["params"][f"{family}_float32"],
+                                 dtype=torch.float32, device="cpu")
+        toks = torch.as_tensor(payload["tokens"][f"{family}_float32"])
+        cp_local = shard(full, module.param_shardings(gcfg, cp_mesh),
+                         cp_mesh)
+        out["context_loss"][family] = (
+            module.loss_fn(cp_local, toks, gcfg, mesh=cp_mesh).item(),
+            module.loss_fn(full, toks, gcfg).item())
+    windowed = llama.LlamaConfig.tiny(n_layers=2, n_heads=4, n_kv_heads=2,
+                                      sliding_window=32, dtype=torch.float32)
+    full_tokens = torch.as_tensor(payload["tokens"]["llama_float32"])
     cp_local = shard(params_from_numpy(payload["params"]["llama_float32"],
                                        dtype=torch.float32, device="cpu"),
-                     llama.param_shardings(cfg, cp_mesh), cp_mesh)
-    full_tokens = torch.as_tensor(payload["tokens"]["llama_float32"])
+                     llama.param_shardings(windowed, cp_mesh), cp_mesh)
     out["raises"] = {
-        "context": _raises_message(lambda: llama.loss_fn(
-            cp_local, full_tokens, cfg, mesh=cp_mesh)),
-        "gemma_context": _raises_message(lambda: gemma.attention_block(
-            {}, torch.zeros((1, 4, 8)), gemma.GemmaConfig.tiny(), None,
-            None, window=None, mesh=cp_mesh)),
+        "context_window": _raises_message(lambda: llama.loss_fn(
+            cp_local, full_tokens, windowed, mesh=cp_mesh)),
         "loader_object": _raises(lambda: TokenLoader(
             shards, LOADER["batch"], LOADER["seq_len"], device="cpu",
             sharding=object())),
@@ -550,3 +563,200 @@ def _raises_message(fn) -> tuple:
     except Exception as e:           # the test compares name and message
         return type(e).__name__, str(e)
     return "", ""
+
+
+# Ring and zigzag attention, the context axis in training and the
+# pipeline (tests/test_torch_ring_attention.py), on 4 ranks.
+RING_SHAPE = dict(b=1, h=2, hkv=2, n=128, d=32)
+RING_CASES = {"causal": (True, 2), "full": (False, 2), "gqa": (True, 1)}
+CP_TRAIN_MESH = dict(data=1, heads=2, context=2)
+CP_TOKENS = (2, 257)
+CONTEXT_FAMILIES = ("gemma", "moe")
+PIPE_MLP = {"s4_m8": dict(stages=4, micro=8, d=16, h=32, mb=4),
+            "s2_m3": dict(stages=2, micro=3, d=16, h=32, mb=4),
+            "grads": dict(stages=4, micro=4, d=8, h=16, mb=2)}
+PIPE_LLAMA = dict(stages=4, micro=4, b=2, s=64)
+
+
+def ring_inputs(name: str):
+    """q, k, v and dO (float32) of a ring case."""
+    causal, hkv = RING_CASES[name]
+    q, k, v = attention_inputs(20 + hkv, **dict(RING_SHAPE, hkv=hkv))
+    do = np.random.default_rng(30 + hkv).standard_normal(q.shape).astype(
+        np.float32)
+    return q, k, v, do
+
+
+def mlp_stage(params, x):
+    """tests/test_pipeline.py's stage (the JAX test's `mlp_stage`)."""
+    h = torch.tanh(x @ params["w1"] + params["b1"])
+    return h @ params["w2"] + params["b2"]
+
+
+def mlp_stages(case: str):
+    """The stacked stage parameters and the microbatches of a pipeline
+    case, float32 numpy (the JAX test's `make_stages` draws)."""
+    c = PIPE_MLP[case]
+    rng = np.random.default_rng(40 + c["stages"] + c["micro"])
+    stages = []
+    for _ in range(c["stages"]):
+        stages.append({
+            "w1": rng.standard_normal((c["d"], c["h"])) * 0.3,
+            "b1": rng.standard_normal((c["h"],)) * 0.1,
+            "w2": rng.standard_normal((c["h"], c["d"])) * 0.3,
+            "b2": rng.standard_normal((c["d"],)) * 0.1})
+    stacked = {k: np.stack([s[k] for s in stages]).astype(np.float32)
+               for k in stages[0]}
+    x = rng.standard_normal((c["micro"], c["mb"], c["d"])).astype(
+        np.float32)
+    return stacked, x
+
+
+def _ring_results(fn, inputs, spec, mesh, order=None) -> dict:
+    """A ring callable's (o, lse) and the gradients of sum(o * dO) on
+    this rank's blocks of ``inputs`` (in ``order``: zigzag_shard first)."""
+    from metal_flash_attention_tpu_torch.parallel import shard
+
+    q, k, v, do = (torch.as_tensor(order(x) if order else x)
+                   for x in inputs)
+    leaves = [shard(x, spec, mesh).requires_grad_(True) for x in (q, k, v)]
+    o, lse = fn(*leaves)
+    (o * shard(do, spec, mesh)).sum().backward()
+    return {"o": as_numpy(o), "lse": as_numpy(lse),
+            **{n: as_numpy(x.grad) for n, x in zip(("dq", "dk", "dv"),
+                                                   leaves)}}
+
+
+def _update(new, old) -> object:
+    from metal_flash_attention_tpu_torch.utils.tree import flatten
+
+    _, rebuild = flatten(old)
+    return rebuild([(n.float() - o.float()).numpy()
+                    for n, o in zip(flatten(new)[0], flatten(old)[0])])
+
+
+def ring_body(rank: int, world: int, payload) -> dict:
+    """Every rank-side case of tests/test_torch_ring_attention.py on 4
+    ranks: ``payload`` holds the training cases' float32 parameters and
+    tokens (numpy, from the JAX package)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from metal_flash_attention_tpu_torch.models import gemma, llama, moe
+    from metal_flash_attention_tpu_torch.parallel import (
+        CONTEXT_AXIS,
+        HEAD_AXIS,
+        P,
+        make_mesh,
+        make_pipeline_mesh,
+        pipeline,
+        ring_attention,
+        shard,
+        stack_stage_params,
+        stage_param_sharding,
+        zigzag_ring_attention,
+        zigzag_shard,
+        zigzag_unshard,
+    )
+    from metal_flash_attention_tpu_torch.utils.params import (
+        params_from_numpy,
+    )
+
+    ring = make_mesh(context=world, devices="cpu")
+    out = {"context_index": ring.get_local_rank(CONTEXT_AXIS), "ring": {}}
+    spec = P(None, None, CONTEXT_AXIS)
+    for name, (causal, _) in RING_CASES.items():
+        fn = ring_attention(ring, causal=causal, return_residuals=True)
+        out["ring"][name] = _ring_results(fn, ring_inputs(name), spec, ring)
+    out["zigzag"] = _ring_results(
+        zigzag_ring_attention(ring, return_residuals=True),
+        ring_inputs("causal"), spec, ring,
+        order=lambda x: zigzag_shard(torch.as_tensor(x), world))
+    seq = torch.arange(2 * 3 * 64 * 5, dtype=torch.float32).reshape(
+        2, 3, 64, 5)
+    out["zigzag_order"] = (zigzag_shard(seq, world).numpy(),
+                           bool(torch.equal(zigzag_unshard(
+                               zigzag_shard(seq, world), world), seq)))
+
+    # The dry run's dp x tp x cp leg, one SGD step a dtype.
+    mesh = make_mesh(**CP_TRAIN_MESH, devices="cpu")
+    out["cp_index"] = (mesh.get_local_rank(HEAD_AXIS),
+                       mesh.get_local_rank(CONTEXT_AXIS))
+    out["cp_train"] = {}
+    tokens = torch.as_tensor(payload["tokens"]["llama"])
+    for dtype in DTYPES:
+        cfg = llama.LlamaConfig.tiny(n_layers=2, n_heads=4, n_kv_heads=2,
+                                     dtype=getattr(torch, dtype))
+        full = params_from_numpy(payload["params"]["llama"],
+                                 dtype=getattr(torch, dtype), device="cpu")
+        local = shard(full, llama.param_shardings(cfg, mesh), mesh)
+        new, loss = llama.train_step(local, tokens, cfg, lr=TRAIN_LR,
+                                     mesh=mesh)
+        out["cp_train"][dtype] = {"loss": float(loss),
+                                  "update": _update(new, local)}
+    out["cp_specs"] = _plain_tree(llama.param_shardings(cfg, mesh))
+
+    # Gemma and MoE leave the sequence whole over the context axis: one
+    # step on the mesh against the same step without one.
+    out["families"] = {}
+    for family in CONTEXT_FAMILIES:
+        module = {"gemma": gemma, "moe": moe}[family]
+        cfg = train_configs(family, "float32")
+        full = params_from_numpy(payload["params"][family],
+                                 dtype=torch.float32, device="cpu")
+        t = torch.as_tensor(payload["tokens"][family])
+        local = shard(full, module.param_shardings(cfg, mesh), mesh)
+        new, loss = module.train_step(local, t, cfg, lr=TRAIN_LR, mesh=mesh)
+        ref_new, ref_loss = module.train_step(full, t, cfg, lr=TRAIN_LR)
+        out["families"][family] = {
+            "loss": float(loss), "ref_loss": float(ref_loss),
+            "update": _update(new, local),
+            "ref_update": _update(shard(ref_new, module.param_shardings(
+                cfg, mesh), mesh), local)}
+    windowed = llama.LlamaConfig.tiny(n_layers=2, n_heads=4, n_kv_heads=2,
+                                      sliding_window=16, dtype=torch.float32)
+    out["window_raises"] = _raises_message(lambda: llama.loss_fn(
+        shard(params_from_numpy(payload["params"]["llama"],
+                                dtype=torch.float32, device="cpu"),
+              llama.param_shardings(windowed, mesh), mesh),
+        tokens, windowed, mesh=mesh))
+
+    # The pipeline: the MLP stages, their gradients, and the dry run's PP
+    # leg (Llama layers, one a stage).
+    pmesh = make_pipeline_mesh(world, devices="cpu")
+    pairs = init_device_mesh("cpu", (2, 2),
+                             mesh_dim_names=("replica", "stage"))
+    out["stage"] = pmesh.get_local_rank("stage")
+    out["pipe"] = {}
+    for case, c in PIPE_MLP.items():
+        stacked, x = mlp_stages(case)
+        stacked = {k: torch.as_tensor(v) for k, v in stacked.items()}
+        m = pmesh if c["stages"] == world else pairs
+        stage = m.get_local_rank("stage")
+        local = {k: v[stage:stage + 1].clone().requires_grad_(True)
+                 for k, v in stacked.items()}
+        y = pipeline(mlp_stage, local, torch.as_tensor(x), mesh=m)
+        res = {"out": as_numpy(y)}
+        if case == "grads":
+            (y ** 2).sum().backward()
+            res["grads"] = {k: as_numpy(v.grad) for k, v in local.items()}
+        out["pipe"][case] = res
+    cfg = llama.LlamaConfig.tiny(n_layers=world, dtype=torch.float32)
+    layers = params_from_numpy(payload["params"]["pp"],
+                               dtype=torch.float32, device="cpu")
+    stacked = stack_stage_params(layers)
+    local = shard(stacked, stage_param_sharding(stacked, pmesh), pmesh)
+    local = {k: v.requires_grad_(True) for k, v in local.items()}
+    b, s = PIPE_LLAMA["b"], PIPE_LLAMA["s"]
+    cos, sin = llama.rope_frequencies(cfg, torch.arange(s).expand(b, s))
+
+    def stage_fn(layer, h):
+        h, _ = llama.attention_block(layer, h, cfg, cos, sin)
+        return llama.mlp_block(layer, h, cfg)
+    y = pipeline(stage_fn, local, torch.as_tensor(payload["pp_x"]),
+                 mesh=pmesh)
+    loss = (y ** 2).mean()
+    loss.backward()
+    out["pp"] = {"loss": loss.item(),
+                 "grads": {k: as_numpy(v.grad) for k, v in local.items()}}
+    return out
+

@@ -40,6 +40,8 @@ from metal_flash_attention_tpu_torch.utils.tolerances import (
 
 # The module itself: the package re-exports a function of the same name.
 jfa = importlib.import_module("metal_flash_attention_tpu.ops.flash_attention")
+jfb = importlib.import_module(
+    "metal_flash_attention_tpu.ops.flash_attention_bwd")
 
 DTYPES = {"float32": (jnp.float32, torch.float32, FP32_TOL),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, MIXED_TOL)}
@@ -133,6 +135,27 @@ def test_rows_that_see_no_key():
     assert torch.all(tg[0][:, :, :blind] == 0)
     for g in tg:
         assert torch.isfinite(g).all()
+
+
+def test_backward_reads_the_residuals_it_is_given():
+    """`flash_attention_backward` with the o and lse of q against a
+    longer key set (the block's 64 keys and 64 more: a ring step's
+    global residuals) recomputes P from that lse and D from that o, as
+    the JAX backward and the port's kernels do, and not from the block's
+    own forward."""
+    q, k, v, do = _inputs(5, 1, 2, 2, 64, 64, 64, jnp.float32)
+    _, more_k, more_v, _ = _inputs(6, 1, 2, 2, 64, 64, 64, jnp.float32)
+    kk = np.concatenate([k, more_k], axis=2)
+    vv = np.concatenate([v, more_v], axis=2)
+    o, lse = jfa.flash_attention_forward(jnp.asarray(q), jnp.asarray(kk),
+                                         jnp.asarray(vv))
+    o, lse = np.array(o), np.array(lse)
+    jgrads = jfb.flash_attention_backward(*(jnp.asarray(x) for x in (
+        q, k, v, do, o, lse)))
+    tgrads = tfb.flash_attention_backward(*(torch.as_tensor(x) for x in (
+        q, k, v, do, o, lse)))
+    for name, t, j in zip(("dq", "dk", "dv"), tgrads, jgrads):
+        assert max_abs_err(t, j) <= FP32_TOL.grads, name
 
 
 @pytest.fixture

@@ -55,7 +55,10 @@ MODULES = [
     "metal_flash_attention_tpu_torch.ops.softmax",
     "metal_flash_attention_tpu_torch.parallel",
     "metal_flash_attention_tpu_torch.parallel.mesh",
+    "metal_flash_attention_tpu_torch.parallel.pipeline",
+    "metal_flash_attention_tpu_torch.parallel.ring_attention",
     "metal_flash_attention_tpu_torch.parallel.sharded_attention",
+    "metal_flash_attention_tpu_torch.parallel.zigzag",
     "metal_flash_attention_tpu_torch.runtime",
     "metal_flash_attention_tpu_torch.runtime.__main__",
     "metal_flash_attention_tpu_torch.runtime.autotune",

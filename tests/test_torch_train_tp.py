@@ -28,8 +28,10 @@ All port-side cases run in ONE module-scoped spawn
 - `make_train_step` (AdamW, float32 shadows) over the mesh loss against
   JAX's, one step.
 - The collectives' gradients against their closed form, `TokenLoader
-  (sharding=)` blocks and resume against JAX's sharded batches, and the
-  refusals (a context axis in training names "sharded training").
+  (sharding=)` blocks and resume against JAX's sharded batches, a
+  context axis in training (Llama's ring and Gemma's whole sequence give
+  the loss without a mesh) and the refusals (a windowed Llama on a
+  context axis).
 """
 
 import concurrent.futures
@@ -268,13 +270,17 @@ def test_token_loader_sharding_matches_jax(runs):
 
 
 def test_training_mesh_refusals(runs):
+    """A context axis trains: Llama's loss over the ring (data 1 x heads 2
+    x context 2) and Gemma's, whose sequence stays whole, equal the loss
+    without a mesh; a windowed Llama with a context axis raises
+    ValueError (the JAX ring drops the window); shardings that are not
+    ones raise."""
     _, ranks = runs
     for r in ranks:
-        kind, msg = r["raises"]["context"]
-        assert kind == "NotImplementedError" and "sharded training" in msg
-        assert "ROADMAP.md" in msg
-        kind, msg = r["raises"]["gemma_context"]
-        assert kind == "NotImplementedError" and "sharded training" in msg
+        for family, (got, want) in r["context_loss"].items():
+            assert abs(got - want) < FP32_TOL.o, family
+        kind, msg = r["raises"]["context_window"]
+        assert kind == "ValueError" and "sliding window" in msg
         assert r["raises"]["loader_object"] == "TypeError"
         assert r["raises"]["loader_split"] == "ValueError"
         assert r["raises"]["mesh_object"] == "TypeError"

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Tensor- and context-parallel serving, and data-, head- and
-expert-parallel training, of the PyTorch port on 4 cards.
+"""Tensor- and context-parallel serving, and data-, head-, context- and
+expert-parallel and pipelined training, of the PyTorch port on 4 cards.
 
 Run from the root of a checkout, on one machine with four CUDA cards:
 
@@ -66,6 +66,32 @@ and power limit:
    at a time and cut; the mesh's reference run replays rank 0's one-card
    expert choices (no data average to drop at data 1).
 
+8. ring_train_checks: `ring_attention` (causal) and
+   `zigzag_ring_attention` over a context axis of every rank at
+   Llama-3-8B's attention widths on a 131,072-token sequence (RING_TRAIN,
+   bf16), through the entry points under autograd: the gathered o, lse
+   and gradients against the one-card kernels on rank 0's card (the worst
+   64-row tile, KERNEL_TILE_REL_RMS; lse at MIXED_TOL), exact launch
+   counts on every rank (the ring c + 1 calls on context rank c, zigzag
+   n + 2 on each), a planted fault (the causal ring's closing dK/dV hop
+   skipped); each body's forward and backward ms (CUDA events, the
+   slowest rank) beside the one-card kernels'.
+9. cp_train: Llama-3-8B at full depth, data 1 x heads 2 x context 2 (the
+   JAX dry run's dp x tp x cp leg at 4 cards: ring attention over the
+   context axis); `tp_train`'s 2-layer gate at CP_REF_TOKENS tokens with
+   the heads-input sum dropped and the ring's closing hop skipped as the
+   planted faults, then TRAIN_STEPS steps on one CP_TRAIN_TOKENS-token row
+   with remat (each layer checkpointed: the saved activations of 32
+   layers at 65,536 tokens a rank would not fit).
+10. pp_train: Llama-3-8B's 32 layers over 4 stages of 8 (`pipeline`),
+   bf16, PP_TRAIN["micro"] microbatches of [1, PP_TRAIN["tokens"]] hidden
+   states, one loss mean(out^2) of the last stage's output (the JAX dry
+   run's PP leg), SGD: a 4-layer cut (one layer a stage) against rank
+   0's sequential chain by the training gates, then TRAIN_STEPS steps:
+   seconds a step, each rank's peak memory, exact flash counts, and one
+   profiled step a rank (busy share beside the bubble (S - 1) / (M + S -
+   1)).
+
 The training phases need 4 ranks and run outside inference mode.
 ``--phases a,b`` runs a subset; ``--world N`` another rank count.
 ``--rehearse`` runs the same code on the CPU (gloo ranks, the kernels'
@@ -112,8 +138,10 @@ CP_DECODE_LENS = (32768, 30000, 20000, 16385, 8192, 5000, 1000, 129)
 CP_KV_HEADS = 8
 CP_ITERS = 20
 PHASES = ("tp_serve", "gemma_tp_serve", "moe_tp_serve", "cp_checks",
-          "tp_train", "gemma_tp_train", "moe_tp_train")
-TRAINING = ("tp_train", "gemma_tp_train", "moe_tp_train")
+          "tp_train", "gemma_tp_train", "moe_tp_train", "ring_train_checks",
+          "cp_train", "pp_train")
+TRAINING = ("tp_train", "gemma_tp_train", "moe_tp_train",
+            "ring_train_checks", "cp_train", "pp_train")
 NCCL = {"nccl": ("nccl",)}
 # --rehearse: the same phases on the CPU at tiny sizes.
 REHEARSE = {"prompt_lens": (40, 12, 30, 21), "max_new": 5, "page": 16,
@@ -762,17 +790,34 @@ TRAIN_FAULTS = ("data_average_dropped", "heads_input_sum_dropped")
 def planted_fault(name: str):
     """A fault in the training mesh's collectives, planted on every rank
     inside the block: the data axis's gradient average dropped (each rank
-    keeps its own rows' gradient), or the column-parallel inputs'
-    gradient sum over the heads axis dropped (each rank keeps its own
-    heads' share)."""
+    keeps its own rows' gradient), the column-parallel inputs' gradient
+    sum over the heads axis dropped (each rank keeps its own heads'
+    share), or the ring's closing dK/dV hop skipped (each rank keeps the
+    next chunk's sums: `chip_smoke.held_rotate`)."""
     from metal_flash_attention_tpu_torch.parallel import mesh as pm
 
+    if name == "ring_closing_hop_skipped":
+        ra = cs.ring_modules()[0]
+        real_rotate = ra.ring_rotate
+
+        def rotate(mesh):
+            # A layer's callable rotates n - 1 times forward, then K/V and
+            # the sums each step backward: the closing hop is call 3(n-1).
+            n = pm.axis_size(mesh, pm.CONTEXT_AXIS)
+            return cs.held_rotate(real_rotate(mesh), 3 * (n - 1))
+        ra.ring_rotate = rotate
+        try:
+            yield
+        finally:
+            ra.ring_rotate = real_rotate
+        return
     axis = {"data_average_dropped": pm.DATA_AXIS,
             "heads_input_sum_dropped": pm.HEAD_AXIS}[name]
     real = pm._Replicated.__dict__["backward"]
 
     def backward(ctx, g):
-        if ctx.axis == axis:
+        # A gradient average runs over one axis (a name) or several.
+        if axis in ((ctx.axis,) if isinstance(ctx.axis, str) else ctx.axis):
             return g, None, None, None
         return real.__func__(ctx, g)
     pm._Replicated.backward = staticmethod(backward)
@@ -836,28 +881,33 @@ def train_tokens(run: Run, cfg, rows: int, seq: int):
 
 
 def train_family(run: Run, label, module, cfg, mesh_shape, seq, draw,
-                 kernel_suffixes=("", "_sm90"), replay_routes=False) -> None:
-    """One family's training at ``mesh_shape`` (data x heads): the
-    2-layer cut's loss and gradients on the mesh (gathered) against one
-    card's (rank 0, the same weights and the global rows), the same with
-    each TRAIN_FAULTS fault planted (the gates must see them), then
-    TRAIN_STEPS SGD steps of the whole cut: losses, seconds a step,
-    tokens/s, each rank's peak memory and exact flash counts, and one
-    more step under the profiler, behind a barrier that lines the ranks
-    up (NCCL's share of the card's time in the step).
-    ``draw(mesh) -> (this rank's blocks, rank 0's whole 2-layer cut or
-    None)``; ``replay_routes``: the mesh's reference run takes rank 0's
-    one-card expert choices (MoE capacity couples the rows)."""
+                 kernel_suffixes=("", "_sm90"), replay_routes=False,
+                 faults=TRAIN_FAULTS, ref_seq=None, remat=False) -> None:
+    """One family's training at ``mesh_shape`` (data x heads, and
+    context): the 2-layer cut's loss and gradients on the mesh (gathered)
+    against one card's (rank 0, the same weights and the global rows, at
+    ``ref_seq`` tokens a row, default ``seq``), the same with each of
+    ``faults`` planted (the gates must see them), then TRAIN_STEPS SGD
+    steps of the whole cut on rows of ``seq`` tokens (``remat``: each
+    layer checkpointed): losses, seconds a step, tokens/s, each rank's
+    peak memory and exact flash counts, and one more step under the
+    profiler, behind a barrier that lines the ranks up (NCCL's share of
+    the card's time in the step).  ``draw(mesh) -> (this rank's blocks,
+    rank 0's whole 2-layer cut or None)``; ``replay_routes``: the mesh's
+    reference run takes rank 0's one-card expert choices (MoE capacity
+    couples the rows)."""
     import torch
     import torch.distributed as dist
     from metal_flash_attention_tpu_torch.ops import flash_attention as fa
     from metal_flash_attention_tpu_torch.ops import flash_attention_bwd as fb
     from metal_flash_attention_tpu_torch.parallel import (
+        CONTEXT_AXIS,
         DATA_AXIS,
         P,
         make_mesh,
         shard,
     )
+    from metal_flash_attention_tpu_torch.parallel.mesh import axis_index
     from metal_flash_attention_tpu_torch.utils.tree import flatten
 
     mesh = make_mesh(**mesh_shape, devices=run.dev.type)
@@ -869,7 +919,7 @@ def train_family(run: Run, label, module, cfg, mesh_shape, seq, draw,
     draw_s = time.perf_counter() - t0
     draw_peak = run.peak()
     blocks = sum(t.numel() * t.element_size() for t in flatten(local)[0])
-    tokens = train_tokens(run, cfg, data, seq)
+    tokens = train_tokens(run, cfg, data, ref_seq or seq)
     rows = shard(tokens, P(DATA_AXIS, None), mesh)
     cut_cfg = dataclasses.replace(cfg, n_layers=TRAIN_REF_LAYERS)
     specs = module.param_shardings(cut_cfg, mesh)
@@ -909,9 +959,13 @@ def train_family(run: Run, label, module, cfg, mesh_shape, seq, draw,
         return out
     reading = mesh_reading()
     # A data axis of one rank has no average to drop.
-    faults = {f: mesh_reading(f) for f in TRAIN_FAULTS
+    faults = {f: mesh_reading(f) for f in faults
               if data > 1 or f != "data_average_dropped"}
     del cut, ref
+    if ref_seq is not None:
+        tokens = train_tokens(run, cfg, data, seq)
+        rows = shard(tokens, P(DATA_AXIS, None), mesh)
+    step_kw = {"remat": True} if remat else {}
     run.reset_peak()
 
     # TRAIN_STEPS steps of the whole cut.
@@ -924,13 +978,18 @@ def train_family(run: Run, label, module, cfg, mesh_shape, seq, draw,
         dist.barrier()
         t0 = time.perf_counter()
         local, loss = module.train_step(local, rows, cfg, lr=TRAIN_LR,
-                                        mesh=mesh)
+                                        mesh=mesh, **step_kw)
         losses.append(float(loss))
         run.sync()
         seconds.append(time.perf_counter() - t0)
     launches = {k: n for k, n in {**fa.LAUNCH_COUNTS,
                                   **fb.LAUNCH_COUNTS}.items() if n}
-    want = {f"{op}{s}": cfg.n_layers * TRAIN_STEPS
+    # A context axis of n ranks: rank c runs c + 1 forward calls and
+    # backward pairs a layer (the causal ring); remat runs the forward
+    # twice.
+    ctx_calls = axis_index(mesh, CONTEXT_AXIS) + 1
+    want = {f"{op}{s}": cfg.n_layers * TRAIN_STEPS * ctx_calls
+            * (2 if remat and op == "flash_fwd" else 1)
             for op in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
             for s in kernel_suffixes}
     peak = run.peak()
@@ -948,7 +1007,8 @@ def train_family(run: Run, label, module, cfg, mesh_shape, seq, draw,
             with torch.profiler.record_function("align"):
                 dist.barrier()
             t0 = time.perf_counter()
-            module.train_step(local, rows, cfg, lr=TRAIN_LR, mesh=mesh)
+            module.train_step(local, rows, cfg, lr=TRAIN_LR, mesh=mesh,
+                              **step_kw)
             run.sync()
             step_wall.append(time.perf_counter() - t0)
         prof = cs.profile_step(
@@ -973,15 +1033,18 @@ def train_family(run: Run, label, module, cfg, mesh_shape, seq, draw,
     steady = [max(r["seconds_per_step"][i] for r in per_rank)
               for i in range(1, TRAIN_STEPS)]
     global_tokens = data * seq
+    context = mesh_shape.get("context", 1)
     ok = (reading is None or reading["within_gates"]) and all(
         r is None or not r["within_gates"] for r in faults.values())
     ok = run.gather(ok)[0]
     same_losses = all(r["losses"] == per_rank[0]["losses"] for r in per_rank)
     good = np.isfinite(losses).all() and losses[-1] < losses[0]
     run.say(label, {
-        "world_size": run.world, "mesh": dict(mesh_shape, context=1),
+        "world_size": run.world, "mesh": dict(mesh_shape, context=context),
         "config": cfg_line(cfg), "tokens_per_step": global_tokens,
-        "rows": [data, seq + 1], "lr": TRAIN_LR, "steps": TRAIN_STEPS,
+        "rows": [data, seq + 1], "reference_rows": [data, (ref_seq or seq)
+                                                    + 1],
+        "remat": remat, "lr": TRAIN_LR, "steps": TRAIN_STEPS,
         "weights_drawn_s": draw_s, "losses": losses,
         "tokens_per_s": global_tokens * len(steady) / sum(steady),
         "seconds_per_step": [max(r["seconds_per_step"][i] for r in per_rank)
@@ -1089,6 +1152,346 @@ def moe_tp_train(run: Run) -> None:
     train_family(run, "moe_tp_train", moe, cfg,
                  {"data": 1, "heads": run.world}, seq, draw,
                  replay_routes=True)
+
+
+# Ring and zigzag attention, the context axis in training and the
+# pipeline (slice 21).
+RING_TRAIN = dict(batch=1, heads=(32, 8), head_dim=128, seq=131072)
+RING_ITERS = 5
+CP_TRAIN_MESH = {"data": 1, "heads": 2, "context": 2}
+CP_TRAIN_TOKENS = 131072     # the row of the steps: the 128K tier, remat
+CP_REF_TOKENS = 8192         # the 2-layer gate's row
+PP_TRAIN = dict(layers=32, micro=8, tokens=2048, ref_layers=4)
+PP_TRAIN_LR = 1e-2           # mean(out^2) grows its hidden states at 1.0
+REHEARSE_RING = dict(batch=1, heads=(8, 4), head_dim=64, seq=512)
+
+
+def ring_train_checks(run: Run) -> None:
+    """`ring_attention` (causal) and `zigzag_ring_attention` over a
+    context axis of every rank at Llama-3-8B's attention widths on a
+    RING_TRAIN["seq"]-token sequence: the gathered o, lse and gradients
+    of sum(o * dO) against the one-card kernels on rank 0's card (the
+    worst 64-row tile, KERNEL_TILE_REL_RMS; lse at MIXED_TOL), a planted
+    fault (the causal ring's closing dK/dV hop skipped), and each call's
+    ms (CUDA events, the slowest rank) beside one card's."""
+    import torch
+    from metal_flash_attention_tpu_torch.ops import flash_attention as fa
+    from metal_flash_attention_tpu_torch.ops import flash_attention_bwd as fb
+    from metal_flash_attention_tpu_torch.parallel import (
+        CONTEXT_AXIS,
+        P,
+        make_mesh,
+        shard,
+        unshard,
+        zigzag_shard,
+        zigzag_unshard,
+    )
+    from metal_flash_attention_tpu_torch.utils.tolerances import MIXED_TOL
+
+    ra, zz = cs.ring_modules()
+    shape = REHEARSE_RING if run.rehearse else RING_TRAIN
+    b, (hq, hkv), d, seq = (shape["batch"], shape["heads"],
+                            shape["head_dim"], shape["seq"])
+    dev, n = run.dev, run.world
+    dt = torch.float32 if run.rehearse else torch.bfloat16
+    ctx = make_mesh(context=n, devices=dev.type)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 121)
+
+    def randn(heads):
+        return torch.randn((b, heads, seq, d), generator=gen,
+                           device=dev).to(dt)
+    q, k, v, do = randn(hq), randn(hkv), randn(hkv), randn(hq)
+    spec = P(None, None, CONTEXT_AXIS)
+    lse_spec = P(None, None, CONTEXT_AXIS)
+
+    def ms(fn):
+        if dev.type != "cuda":
+            fn()
+            return None
+        fn()
+        return max(run.gather(cs.event_ms(fn, RING_ITERS)))
+
+    ref, ref_ms = None, {}
+    if run.rank == 0:
+        o, lse = fa.flash_attention_forward(q, k, v, causal=True)
+        ref = (o, lse, *fb.flash_attention_backward(q, k, v, do, o, lse,
+                                                    causal=True))
+        if dev.type == "cuda":
+            ref_ms = {"forward": cs.event_ms(
+                lambda: fa.flash_attention_forward(q, k, v, causal=True),
+                RING_ITERS), "backward": cs.event_ms(
+                lambda: fb.flash_attention_backward(q, k, v, do, o, lse,
+                                                    causal=True),
+                RING_ITERS)}
+        del o, lse
+    readings, timings, faults, launches = {}, {}, {}, {}
+    for kind in ("ring", "zigzag"):
+        order, undo = ((lambda x: x, lambda x: x) if kind == "ring" else
+                       (lambda x: zigzag_shard(x, n),
+                        lambda x: zigzag_unshard(x, n)))
+        ql, kl, vl, dol = (shard(order(x), spec, ctx) for x in (q, k, v, do))
+        fwd, bwd, extra = ((ra.ring_attention_local,
+                            ra.ring_attention_bwd_local, {"causal": True})
+                           if kind == "ring" else
+                           (zz.zigzag_fwd_local, zz.zigzag_bwd_local, {}))
+        kw = dict(index=ctx.get_local_rank(CONTEXT_AXIS), n=n,
+                  rotate=ra.ring_rotate(ctx), **extra)
+        # Through the entry point, under autograd.
+        fn = (ra.ring_attention(ctx, causal=True, return_residuals=True)
+              if kind == "ring" else
+              zz.zigzag_ring_attention(ctx, return_residuals=True))
+        leaves = [x.detach().requires_grad_(True) for x in (ql, kl, vl)]
+        fa.reset_launch_counts()
+        fb.reset_launch_counts()
+        o, lse = fn(*leaves)
+        grads = torch.autograd.grad(o, leaves, dol)
+        run.sync()
+        launches[kind] = run.gather({c: x for c, x in {
+            **fa.LAUNCH_COUNTS, **fb.LAUNCH_COUNTS}.items() if x})
+        o, lse = o.detach(), lse.detach()
+        got = [undo(unshard(x, spec, ctx)) for x in (o, *grads)]
+        got.insert(1, undo(unshard(lse, lse_spec, ctx)))
+        # The bodies alone, each call timed.
+        timings[kind] = {
+            "forward": ms(lambda: fwd(ql, kl, vl, **kw)),
+            "backward": ms(lambda: bwd(ql, kl, vl, dol, o, lse, **kw))}
+        fault = None
+        if kind == "ring":
+            held = dict(kw, rotate=cs.held_rotate(kw["rotate"],
+                                                  2 * (n - 1)))
+            fault = undo(unshard(bwd(ql, kl, vl, dol, o, lse, **held)[1],
+                                 spec, ctx))
+        if run.rank == 0:
+            for i, name in enumerate(("o", "lse", "dq", "dk", "dv")):
+                if name == "lse":
+                    err = float((got[i] - ref[i]).abs().max())
+                    r = {"max_abs_err": err, "ok": err <= MIXED_TOL.lse}
+                else:
+                    r = cs.closeness(got[i], ref[i])
+                    r["ok"] = cs.within_limits(r)
+                readings[f"{kind}.{name}"] = r
+            if fault is not None:
+                faults[f"{kind}.dk"] = cs.closeness(fault, ref[3])
+        del ql, kl, vl, dol, leaves, o, lse, grads, got, fault
+        run.reset_peak()
+    calls = {"ring": [c + 1 for c in range(n)], "zigzag": [n + 2] * n}
+    exact = dev.type != "cuda" or all(
+        launches[kind][r].get(f"{op}{s}", 0) == calls[kind][r]
+        for kind in launches for r in range(n)
+        for op in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+        for s in ("", "_sm90"))
+    ok = run.rank != 0 or (all(r["ok"] for r in readings.values()) and all(
+        not cs.within_limits(f) for f in faults.values()))
+    ok = run.gather(bool(ok))[0] and exact
+    run.say("ring_train_checks", {
+        "world_size": n, "shape": f"q [{b}, {hq}, {seq}, {d}], k/v [{b}, "
+        f"{hkv}, {seq}, {d}] causal, {dt}, context {n}",
+        "readings": readings, "planted_faults": faults,
+        "ms_slowest_rank": timings, "one_card_ms": ref_ms,
+        "launches_by_rank": launches, "launches_exact": exact,
+        "limits": {"tile_rel_rms": cs.KERNEL_TILE_REL_RMS,
+                   "lse_abs": MIXED_TOL.lse}, "ok": ok})
+    if not ok:
+        run.failures.append("ring_train_checks: the ring or zigzag disagrees "
+                            "with one card, a fault went unseen, or a "
+                            "launch count is off")
+
+
+def cp_train(run: Run) -> None:
+    """Llama-3-8B at full depth, data 1 x heads 2 x context 2 (the dry
+    run's dp x tp x cp leg at 4 cards): the 2-layer gate at CP_REF_TOKENS
+    with the ring's closing hop skipped as the planted fault, then steps
+    on a CP_TRAIN_TOKENS-token row with remat."""
+    from metal_flash_attention_tpu_torch.models import llama
+    cfg = (llama.LlamaConfig.tiny(n_heads=8, n_kv_heads=4, n_layers=3)
+           if run.rehearse else llama.LlamaConfig.llama3_8b())
+    seq, ref_seq = (128, 64) if run.rehearse else (CP_TRAIN_TOKENS,
+                                                   CP_REF_TOKENS)
+    train_family(run, "cp_train", llama, cfg, CP_TRAIN_MESH, seq,
+                 whole_then_cut(run, llama, cfg),
+                 faults=("heads_input_sum_dropped",
+                         "ring_closing_hop_skipped"),
+                 ref_seq=ref_seq, remat=True)
+
+
+def pp_train(run: Run) -> None:
+    """Llama-3-8B's 32 layers over `world` stages (8 a stage at 4), bf16,
+    PP_TRAIN["micro"] microbatches of one PP_TRAIN["tokens"]-token row of
+    hidden states, one loss mean(out^2) of the last stage's output (as
+    the JAX dry run's PP leg), SGD at PP_TRAIN_LR: first the same on a
+    PP_TRAIN["ref_layers"]-layer cut (one layer a stage) against rank 0's
+    sequential chain on one card, by the training gates; then the steps:
+    seconds a step, each rank's peak memory and flash counts, and one
+    step profiled on every rank (busy share beside the GPipe bubble (S -
+    1) / (M + S - 1))."""
+    import torch
+    import torch.distributed as dist
+    from metal_flash_attention_tpu_torch.models import llama
+    from metal_flash_attention_tpu_torch.ops import flash_attention as fa
+    from metal_flash_attention_tpu_torch.ops import flash_attention_bwd as fb
+    from metal_flash_attention_tpu_torch.parallel import (
+        make_pipeline_mesh,
+        pipeline,
+        shard,
+        stack_stage_params,
+        stage_param_sharding,
+        unshard,
+    )
+    from metal_flash_attention_tpu_torch.utils.tree import flatten
+
+    dev, n = run.dev, run.world
+    cfg = (llama.LlamaConfig.tiny(n_layers=2 * n, dtype=torch.float32)
+           if run.rehearse else llama.LlamaConfig.llama3_8b())
+    tokens = 64 if run.rehearse else PP_TRAIN["tokens"]
+    micro, ref_layers = PP_TRAIN["micro"], n
+    mesh = make_pipeline_mesh(n, devices=dev.type)
+    run.reset_peak()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 131)
+    drawn = llama.init_params(cfg, gen, device=dev)
+    check_ranks_agree(run, "pipeline weights", weight_checksum(drawn))
+    full = drawn.pop("layers")
+    del drawn
+    x = torch.randn((micro, 1, tokens, cfg.dim), generator=gen,
+                    device=dev).to(cfg.dtype)
+    pos = torch.arange(tokens, device=dev)[None]
+    cos, sin = llama.rope_frequencies(cfg, pos)
+
+    def stage_fn(p, h):
+        for layer in p:               # the stage's layers, a dict each
+            h, _ = llama.attention_block(layer, h, cfg, cos, sin)
+            h = llama.mlp_block(layer, h, cfg)
+        return h
+
+    def stage_block(layers, per_stage):
+        """This rank's stage of ``layers``: its ``per_stage`` layers, each
+        leaf with the leading stage dim.  A list of layers, not layers
+        stacked: indexing a stacked leaf at every pipeline step would
+        make its backward fill a whole stacked gradient each time."""
+        stacked = stack_stage_params([layers[s * per_stage:
+                                             (s + 1) * per_stage]
+                                      for s in range(n)])
+        return shard(stacked, stage_param_sharding(stacked, mesh), mesh)
+
+    def loss_and_grads(tree, run_fn):
+        leaves, rebuild = flatten(tree)
+        work = [t.detach().requires_grad_(True) for t in leaves]
+        loss = run_fn(rebuild(work)).float().pow(2).mean()
+        return loss, list(torch.autograd.grad(loss, work))
+
+    def piped(p):
+        return pipeline(stage_fn, p, x, mesh=mesh)
+
+    # The cut, one layer a stage, against one card's chain (rank 0).
+    cut = stage_block(full[:ref_layers], 1)
+    loss, grads = loss_and_grads(cut, piped)
+    specs = spec_leaves(cut, stage_param_sharding(cut, mesh))
+    # Each leaf [n, ...] over the stages: layer l's in row l.
+    whole = [unshard(g, sp, mesh) for g, sp in zip(grads, specs)]
+    reading = None
+    if run.rank == 0:
+        ref_loss, ref_grads = loss_and_grads(
+            full[:ref_layers], lambda p: torch.stack([
+                stage_fn(p, x[i]) for i in range(micro)]))
+        got = [w[layer].float() for layer in range(ref_layers)
+               for w in whole]
+        reading = gate_reading(loss.item(), got, ref_loss.item(),
+                               [g.float() for g in ref_grads])
+        del ref_grads, got
+    del cut, grads, whole
+    local = stage_block(full, cfg.n_layers // n)
+    del full
+    blocks = sum(t.numel() * t.element_size() for t in flatten(local)[0])
+    run.reset_peak()
+
+    def step():
+        nonlocal local
+        loss, grads = loss_and_grads(local, piped)
+        leaves, rebuild = flatten(local)
+        with torch.no_grad():
+            local = rebuild([(t.float() - PP_TRAIN_LR * g.float()).to(
+                t.dtype) for t, g in zip(leaves, grads)])
+        return loss.item()
+    n_steps = micro + n - 1
+    losses, seconds = [], []
+    fa.reset_launch_counts()
+    fb.reset_launch_counts()
+    for _ in range(TRAIN_STEPS):
+        run.sync()
+        dist.barrier()
+        t0 = time.perf_counter()
+        losses.append(step())
+        run.sync()
+        seconds.append(time.perf_counter() - t0)
+    launches = {k: c for k, c in {**fa.LAUNCH_COUNTS,
+                                  **fb.LAUNCH_COUNTS}.items() if c}
+    per_stage = cfg.n_layers // n
+    want = {f"{op}{s}": n_steps * per_stage * TRAIN_STEPS
+            for op in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+            for s in ("", "_sm90")}
+    peak = run.peak()
+    prof = {}
+    if dev.type == "cuda":
+        run.sync()
+        dist.barrier()
+        step_wall = []
+
+        def aligned_step():
+            with torch.profiler.record_function("align"):
+                dist.barrier()
+            t0 = time.perf_counter()
+            step()
+            run.sync()
+            step_wall.append(time.perf_counter() - t0)
+        prof = cs.profile_step(
+            f"pp_train_profile_rank{run.rank}", aligned_step,
+            dict(NCCL, flash_fwd="flash_fwd90_kernel",
+                 flash_bwd_dq="flash_bwd_dq90_kernel",
+                 flash_bwd_dkv="flash_bwd_dkv90_kernel"), dev,
+            spans=("align",))
+        by = prof["device_ms_by_family"]
+        prof["device_ms"] -= by.get("align", 0.0)
+        prof["wall_ms"] = step_wall[0] * 1e3
+        prof["busy_share"] = prof["device_ms"] / max(prof["wall_ms"], 1e-9)
+        prof["nccl_share"] = by.get("nccl", 0.0) / max(prof["device_ms"],
+                                                       1e-9)
+    per_rank = run.gather({
+        "stage": run.rank, "losses": losses, "seconds_per_step": seconds,
+        "blocks_bytes": blocks, "max_memory_allocated": peak,
+        "launches": launches,
+        "launches_exact": dev.type != "cuda" or launches == want,
+        "step_device_ms": prof.get("device_ms"),
+        "step_wall_ms": prof.get("wall_ms"),
+        "busy_share": prof.get("busy_share"),
+        "nccl_share": prof.get("nccl_share")})
+    ok = run.gather(reading is None or reading["within_gates"])[0]
+    # mean(out^2) of hidden states is no training objective: the steps
+    # time the schedule, and their losses need only be finite.
+    good = bool(np.isfinite(losses).all())
+    run.say("pp_train", {
+        "world_size": n, "stages": n, "layers_per_stage": per_stage,
+        "config": cfg_line(cfg), "microbatches": micro,
+        "microbatch": [1, tokens, cfg.dim], "lr": PP_TRAIN_LR,
+        "pipeline_steps": n_steps, "bubble": (n - 1) / n_steps,
+        "losses": losses,
+        "seconds_per_step": [max(r["seconds_per_step"][i] for r in per_rank)
+                             for i in range(TRAIN_STEPS)],
+        "reference": {"layers": ref_layers, **(reading or {})},
+        "gates": {"loss_abs": cs.TRAIN_LOSS_ABS,
+                  "grad_rel_rms": cs.TRAIN_GRAD_REL_RMS},
+        "note": "every stage computes in the bubble steps too (on zeros or "
+                "a repeated microbatch, as the JAX pipeline does), so the "
+                "bubble shows as wasted work, not as idle time",
+        "per_rank": per_rank, "ok": ok})
+    if not ok:
+        run.failures.append("pp_train: the pipeline's cut leaves the "
+                            "sequential chain past the training gates")
+    if not good:
+        run.failures.append(f"pp_train: a loss is not finite: {losses}")
+    if not all(r["launches_exact"] for r in per_rank):
+        run.failures.append(f"pp_train: flash launches {launches}, expected "
+                            f"{want}")
+    del local
+    run.reset_peak()
 
 
 def dropped_rank(sa, call):
