@@ -9,8 +9,9 @@ the kernels, forward and backward), and the flash-attention options
 (tile sweeps over variant libraries, dispatch by the config cache, the
 autotune CLI), weights in and out with LoRA (HF conversion, token
 shards, checkpoint and resume, multi-adapter fine-tuning on a frozen
-base and serving), Mixtral-style MoE serving and training, and ring and
-zigzag attention with the GPipe pipeline, on one NVIDIA GPU.
+base and serving), Mixtral-style MoE serving and training, ring and
+zigzag attention with the GPipe pipeline, float32 training and the
+multi-chip dry run at world size 1, on one NVIDIA GPU.
 
 Run from the root of a checkout, on a machine with one CUDA card and
 the CUDA toolkit:
@@ -346,6 +347,21 @@ Phases (any failure exits non-zero and prints no result):
    in the sums as in the output); then their times, bounds, the plain
    versions' (one head at a time) and the library calls'
    (`torch.softmax`, `torch._softmax_backward_data`, at scale 1.0);
+11a. float32 on the true-fp32 kernels (`csrc/flash_attention_f32.cu`):
+   fp32_train: Llama-3-8B widths in float32 on TRAIN_LAYERS layers,
+   TRAIN_TOKENS + 1 tokens, F32_TRAIN_STEPS AdamW steps, every attention
+   launch counted on `_f32` (exact), seconds a step, tokens/s, peak
+   memory, device ms by family; fp32_train_reference: a 2-layer cut's
+   loss and every gradient against plain attention (F32_TRAIN_*), with
+   two planted faults; dryrun: the port's `dryrun_multichip(1)` in a
+   one-rank NCCL group (JAX's three lines, exact counts); fp32_checks:
+   the three kernels at each of F32_CASES (Llama-3-8B's training shape, a
+   ragged chunk, Gemma-2's global and local layers, the tiny heads)
+   against their plain versions with TF32 off, by F32_TILE_REL_RMS and
+   FP32_TOL.lse, with a dropped key tile and TF32-rounded inputs as
+   planted faults; times beside bounds at F32_PEAK_FLOPS, the plain
+   versions and SDPA's float32 call, and `utils.profiling`'s roofline
+   report;
 12. Gemma-2 at `gemma2_2b` width and depth (26 layers, dim 2304, 8 heads,
    4 KV heads, head_dim 256, hidden 9216, vocab 256128; a 4,096-token
    window on the even layers; attention softcap 50, final softcap 30),
@@ -995,6 +1011,17 @@ def unrooted_scale(fwd):
     return run
 
 
+def tf32_operands(kernel):
+    """A float32 attention kernel reading its q, k, v (and dO) rounded
+    to TF32: what a kernel that multiplied in TF32 would compute."""
+    def run(q, k, v, *rest, **kw):
+        q, k, v = (tf32_rounded(x) for x in (q, k, v))
+        if rest:
+            rest = (tf32_rounded(rest[0]), *rest[1:])
+        return kernel(q, k, v, *rest, **kw)
+    return run
+
+
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
@@ -1018,6 +1045,28 @@ def visible_pairs(q_len: int, kv_len: int, causal: bool,
         qpos, kv_len - 1)
     lo = np.maximum(0, qpos - window + 1) if window else np.zeros_like(qpos)
     return int(np.maximum(0, hi - lo + 1).sum())
+
+
+def per_kv_head(fn, q, k, v, *rest):
+    """fn over one kv head and its group of q heads at a time (its float32
+    [group, n, m] intermediates stay near 1 GB), each of its outputs put
+    back in place by its heads (a group's for q-like ones, one for
+    k-like)."""
+    import torch
+    kvh_n = k.shape[1]
+    group = q.shape[1] // kvh_n
+    outs = None
+    for j in range(kvh_n):
+        g = slice(j * group, (j + 1) * group)
+        parts = fn(q[:, g], k[:, j:j + 1], v[:, j:j + 1],
+                   *(t[:, g] for t in rest))
+        if outs is None:
+            outs = [torch.empty((p.shape[0], p.shape[1] * kvh_n,
+                                 *p.shape[2:]), dtype=p.dtype,
+                                device=p.device) for p in parts]
+        for o_, p in zip(outs, parts):
+            o_[:, j * p.shape[1]:(j + 1) * p.shape[1]] = p
+    return outs
 
 
 def serve(params, cfg, prompts, dev, kv_precision=None, burst=0,
@@ -2828,9 +2877,9 @@ def train(dev, card):
     # backward's capped, D 256 and option ones, take no part in Llama
     # training.
     unused = {f"flash_fwd_{p}" for p in (*QUANT_PRECISIONS, "softcap",
-                                          "d256", "d32", "aux")} | {
+                                          "d256", "d32", "aux", "f32")} | {
         f"flash_bwd_{op}_{p}" for op in ("dq", "dkv")
-        for p in ("softcap", "d256", "d32", "aux")}
+        for p in ("softcap", "d256", "d32", "aux", "f32")}
     for name, n in launches.items():
         per_step = 0 if name in unused else TRAIN_LAYERS
         if n != per_step * TRAIN_STEPS:
@@ -3042,20 +3091,6 @@ def flash_kernel_checks(dev, launches) -> list[dict]:
             problems.append(f"the {name} check does not see a one-tile "
                             "fault")
 
-    def by_kv_head(fn, q, k, v, do):
-        """fn (a plain backward) over one kv head and its group of q
-        heads at a time, which keeps its float32 [group, n, n]
-        intermediates near 1 GB each."""
-        out = [torch.empty(t.shape, dtype=torch.float32, device=dev)
-               for t in (q, k, v)]
-        for j in range(KV_HEADS):
-            g = slice(j * group, (j + 1) * group)
-            one = slice(j, j + 1)
-            for o_, part in zip(out, fn(q[:, g], k[:, one], v[:, one],
-                                        do[:, g])):
-                o_[:, g if o_.shape[1] == Q_HEADS else one] = part
-        return out
-
     src = "metal_flash_attention_tpu_torch/csrc/"
     jax_src = "metal_flash_attention_tpu/ops/"
     results = []
@@ -3144,7 +3179,7 @@ def flash_kernel_checks(dev, launches) -> list[dict]:
     for name, t in (("dq", dq), ("dk", dk), ("dv", dv)):
         if not torch.isfinite(t).all():
             problems.append(f"non-finite {name} from the backward kernels")
-    rdq, rdk, rdv = by_kv_head(
+    rdq, rdk, rdv = per_kv_head(
         lambda *a: attention_reference_grads(*a, causal=True,
                                              scale=scale)[:3], q, k, v, do)
     fdq = dq.clone()
@@ -3222,7 +3257,7 @@ def flash_kernel_checks(dev, launches) -> list[dict]:
         dkv_t = timed_spread(lambda: fb._dkv_cuda(
             q, k, v, do, lse_c, d_term, **kw), 10)
         bwd_card = sampler.stop()
-    plain_bwd_ms, _ = timed(lambda: by_kv_head(
+    plain_bwd_ms, _ = timed(lambda: per_kv_head(
         lambda *a: fb._backward_plain(*a, **kw), q, k, v, do), 2)
     leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
     sdpa_o = F.scaled_dot_product_attention(*leaves, is_causal=True,
@@ -3505,6 +3540,588 @@ def d32_checks(dev, card, launches_by_path) -> list[dict]:
             "limits": {"tile_rel_rms": KERNEL_TILE_REL_RMS,
                        "lse_abs": MIXED_TOL.lse}, "card": card})
     return out
+
+
+# True-fp32 attention (slice 22): the three float32 kernels at the main
+# paths' shapes, float32 training at Llama-3-8B widths, and the dry run.
+# The float32 peak of an H100 SXM outside the tensor cores (data sheet),
+# the bound of the true-fp32 kernels (FFMA, never TF32).
+F32_PEAK_FLOPS = 67e12
+# A float32 kernel against its float32 plain version by the worst 64-row
+# tile: on an H100 the sound readings were 1.4e-6 to 4.3e-6, the same
+# kernels on inputs rounded to TF32's 10-bit mantissa 3.9e-4 to 7.2e-4, a
+# dropped key tile 5.4e-2 and above; the limit sits about 10x from each
+# of the nearest two.
+F32_TILE_REL_RMS = 4e-5
+F32_CASES = {
+    # name: b, q heads, kv heads, q_len, kv_len, head_dim, causal, window,
+    # cap.  Llama-3-8B's training shape; a ragged chunk (row 3's
+    # per-row key bounds); Gemma-2's global and local layers; the tiny
+    # configs' heads.
+    "llama_train": (1, 32, 8, 8192, 8192, 128, True, None, None),
+    "ragged_chunk": (1, 32, 8, 1000, 8192, 128, True, None, None),
+    "gemma_global": (1, 8, 4, 8192, 8192, 256, True, None, 50.0),
+    "gemma_local": (1, 8, 4, 8192, 8192, 256, True, 4096, 50.0),
+    "tiny_d32": (2, 4, 2, 4096, 4096, 32, True, None, None),
+}
+F32_ITERS = 2
+F32_TRAIN_STEPS = 4
+# The 2-layer cut of float32 training against plain attention: the loss
+# and every gradient (relative rms).  On an H100 the sound reading was a
+# loss 0 off and gradients 6.8e-6; the planted faults' 0.039 (the loss)
+# and 0.56 to 3.6 (gradients); the kernels reading operands rounded to
+# TF32 (the third) 9.9e-4 on the worst gradient and 9.5e-6 on the loss.
+# The gradient limit sits about 10x from the sound and the TF32 readings,
+# so attention that multiplied in TF32 fails it.
+F32_TRAIN_LOSS_ABS = 1e-5
+F32_TRAIN_GRAD_REL_RMS = 1e-4
+F32_FAMILIES = {"flash_fwd_f32": "flash_fwd_f32_kernel",
+                "flash_bwd_dq_f32": "flash_bwd_dq_f32_kernel",
+                "flash_bwd_dkv_f32": "flash_bwd_dkv_f32_kernel",
+                "optimizer": "multi_tensor"}
+
+
+def f32_bound(flops: float, n_bytes: float) -> tuple[float, str]:
+    """(bound_ms, bound_by) of a float32 kernel: the larger of the
+    operations at F32_PEAK_FLOPS and the bytes at the card's memory
+    rate."""
+    from metal_flash_attention_tpu_torch.runtime.context import DeviceContext
+    t_ops = flops / F32_PEAK_FLOPS * 1e3
+    t_bytes = n_bytes / DeviceContext.get().info.hbm_bandwidth * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def flex_precision() -> str:
+    """The float32 precision inductor's flex_attention template compiles
+    its dots at ("ieee" or "tf32"), under the current TF32 settings."""
+    for path in ("torch._inductor.kernel.flex.flex_attention",
+                 "torch._inductor.kernel.flex_attention"):
+        try:
+            mod = importlib.import_module(path)
+            return mod.get_float32_precision().strip("'")
+        except (ImportError, AttributeError):
+            continue
+    return "not read: no get_float32_precision in this torch"
+
+
+def tf32_rounded(x):
+    """x rounded to TF32's 10-bit mantissa (to nearest, ties to even), in
+    float32: what a kernel that multiplies in TF32 would read."""
+    import torch
+    i = x.contiguous().view(torch.int32)
+    i = (i + 0x0FFF + ((i >> 13) & 1)) & ~0x1FFF
+    return i.view(torch.float32)
+
+
+def visible_mask(n, m, causal, window, device, drop_from=None):
+    """[n, m] bool: key c visible to query t (the kernels' rule, bottom-
+    right causal); keys >= ``drop_from`` hidden too."""
+    import torch
+    pos = torch.arange(n, device=device)[:, None] + (m - n)
+    cols = torch.arange(m, device=device)[None]
+    seen = cols <= pos if causal else torch.ones((n, m), dtype=torch.bool,
+                                                 device=device)
+    if window:
+        seen = seen & (cols > pos - window)
+    if drop_from is not None:
+        seen = seen & (cols < drop_from)
+    return seen
+
+
+def masked_attention(q, k, v, mask, scale, cap):
+    """float32 attention of q [..., r, d] over k/v [..., c, d] under a
+    [r, c] mask, differentiable: the faults' stand-in for a kernel."""
+    import torch
+    s = (q.float() @ k.float().transpose(-1, -2)) * scale
+    if cap:
+        s = cap * torch.tanh(s / cap)
+    p = torch.softmax(s.masked_fill(~mask, float("-inf")), dim=-1)
+    return p @ v.float()
+
+
+def fp32_checks(dev, card, launches_by_path) -> list[dict]:
+    """fp32_checks: the true-fp32 forward, dQ and dK/dV kernels against
+    their plain versions (TF32 off, set and printed) at each of
+    F32_CASES, by the worst 64-row tile (F32_TILE_REL_RMS) and lse
+    (FP32_TOL.lse), with two planted faults each output's limit must see
+    (the last query tile of the last head without the key tile of its last
+    visible key (dK/dV: a middle key tile of the last kv head without the
+    group's last query tile); the kernel run on inputs rounded to TF32);
+    each kernel's ms (median, min-max) beside its bound at F32_PEAK_FLOPS,
+    the plain version's ms and the library call's float32 forward and
+    forward plus backward (SDPA; with the cap, `flex_attention` with a
+    tanh score_mod; never called by the port), and
+    `profiling.attention_roofline`'s report of the forward.  ``launches_by_path``: {path: launch counts} of the
+    main paths that ran the kernels (fp32_train, dryrun).  Returns the
+    kernels line's three entries."""
+    import torch
+    import torch.nn.functional as F
+    from metal_flash_attention_tpu_torch.ops import flash_attention as fa
+    from metal_flash_attention_tpu_torch.ops import flash_attention_bwd as fb
+    from metal_flash_attention_tpu_torch.utils import profiling
+    from metal_flash_attention_tpu_torch.utils.tolerances import (
+        FP32_TOL,
+        max_abs_err,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tf32 = {"cuda.matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+            "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32}
+    print("fp32_checks_tf32: " + json.dumps(tf32), flush=True)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 71)
+    cases, problems = {}, []
+
+    def check(readings, name, got, ref, faults):
+        r = closeness(got, ref)
+        r["planted_faults"] = {f: closeness(x, ref)
+                               for f, x in faults.items()}
+        readings[name] = r
+        if r["tile_rel_rms"] > F32_TILE_REL_RMS:
+            problems.append(f"{name} disagrees with its plain version")
+        for f, x in r["planted_faults"].items():
+            if x["tile_rel_rms"] <= F32_TILE_REL_RMS:
+                problems.append(f"the {name} check does not see the "
+                                f"planted fault {f}")
+
+    for label, (b, qh, kvh, n, m, d, causal, window, cap) in \
+            F32_CASES.items():
+        scale = d ** -0.5
+        group = qh // kvh
+
+        def t(heads, length):
+            return torch.randn((b, heads, length, d), generator=gen,
+                               device=dev)
+        q, k, v, do = t(qh, n), t(kvh, m), t(kvh, m), t(qh, n)
+        kw = dict(causal=causal, window_size=window, scale=scale,
+                  softcap=cap)
+        fa.reset_launch_counts()
+        fb.reset_launch_counts()
+        o, lse = fa.flash_attention_forward(q, k, v, causal=causal,
+                                            window_size=window,
+                                            logit_softcap=cap)
+        dq, dk, dv = fb.flash_attention_backward(
+            q, k, v, do, o, lse, causal=causal, window_size=window,
+            logit_softcap=cap)
+        torch.cuda.synchronize(dev)
+        counted = {k_: c for k_, c in {**fa.LAUNCH_COUNTS,
+                                        **fb.LAUNCH_COUNTS}.items() if c}
+        want = {f"{op}{s}": 1 for op in ("flash_fwd", "flash_bwd_dq",
+                                         "flash_bwd_dkv")
+                for s in ("", "_f32", *(("_softcap",) if cap else ()),
+                          *((f"_d{d}",) if d in (32, 256) else ()))}
+        if counted != want:
+            problems.append(f"{label}: launched {counted}, expected {want}")
+
+        def plain_fwd(q_, k_, v_):
+            return fa._forward_plain(q_, k_, v_, out_dtype=torch.float32,
+                                     **kw)
+        po, plse = per_kv_head(plain_fwd, q, k, v)
+        rdq, rdk, rdv = per_kv_head(
+            lambda *a: fb._backward_plain(*a, **kw), q, k, v, do)
+        # Fault 1: the last query tile of the last q head without the key
+        # tile that holds its rows' last visible key.
+        h, kh = qh - 1, kvh - 1
+        last = slice(n - TILE_ROWS, n)
+        top = min(m - 1, (n - 1) + (m - n)) if causal else m - 1
+        drop = visible_mask(n, m, causal, window, dev,
+                            drop_from=top // TILE_ROWS * TILE_ROWS)[last]
+        qt = q[:, h, last].detach().requires_grad_(True)
+        ot = masked_attention(qt, k[:, kh], v[:, kh], drop, scale, cap)
+        dqt, = torch.autograd.grad(ot, qt, do[:, h, last])
+        fo, fdq = o.clone(), dq.clone()
+        fo[:, h, last] = ot.detach()
+        fdq[:, h, last] = dqt
+        # dK/dV: the middle key tile without the group's last query tile.
+        grp = slice(kh * group, (kh + 1) * group)
+        mid = slice(m // 2, m // 2 + TILE_ROWS)
+        kk = k[:, kh:kh + 1].detach().requires_grad_(True)
+        vv = v[:, kh:kh + 1].detach().requires_grad_(True)
+        full = visible_mask(n, m, causal, window, dev)[last]
+        og = masked_attention(q[:, grp, last], kk, vv, full, scale, cap)
+        cdk, cdv = torch.autograd.grad(og, (kk, vv), do[:, grp, last])
+        fdk, fdv = dk.clone(), dv.clone()
+        fdk[:, kh, mid] -= cdk[:, 0, mid]
+        fdv[:, kh, mid] -= cdv[:, 0, mid]
+        # Fault 2: the kernels on inputs rounded to TF32.
+        rq, rk, rv, rdo = (tf32_rounded(x) for x in (q, k, v, do))
+        to, tlse = fa.flash_attention_forward(rq, rk, rv, causal=causal,
+                                              window_size=window,
+                                              logit_softcap=cap)
+        tdq, tdk, tdv = fb.flash_attention_backward(
+            rq, rk, rv, rdo, to, tlse, causal=causal, window_size=window,
+            logit_softcap=cap)
+        readings = {}
+        for name, got, ref, dropped, rounded in (
+                ("flash_fwd_f32.o", o, po, fo, to),
+                ("flash_bwd_dq_f32.dq", dq, rdq, fdq, tdq),
+                ("flash_bwd_dkv_f32.dk", dk, rdk, fdk, tdk),
+                ("flash_bwd_dkv_f32.dv", dv, rdv, fdv, tdv)):
+            check(readings, name, got, ref, {"dropped_key_tile": dropped,
+                                             "tf32_inputs": rounded})
+        lse_err = max_abs_err(lse, plse)
+        readings["lse_max_abs_err"] = lse_err
+        readings["lse_tf32_inputs_max_abs_err"] = max_abs_err(tlse, plse)
+        if lse_err > FP32_TOL.lse:
+            problems.append(f"{label}: flash_fwd_f32's lse is {lse_err} off")
+        del po, plse, rdq, rdk, rdv, fo, fdq, fdk, fdv, to, tlse, tdq, tdk
+        del tdv, rq, rk, rv, rdo
+        torch.cuda.empty_cache()
+
+        # Times: the kernels, the plain versions, the library call (SDPA;
+        # flex_attention for the cap), and the roofline report.
+        lse_c = lse.contiguous()
+        d_term = (do * o).sum(dim=-1)
+        fwd_t = timed_spread(lambda: fa.flash_attention_forward(
+            q, k, v, causal=causal, window_size=window, logit_softcap=cap),
+            F32_ITERS)
+        dq_t = timed_spread(lambda: fb._dq_cuda(q, k, v, do, lse_c, d_term,
+                                                **kw), F32_ITERS)
+        dkv_t = timed_spread(lambda: fb._dkv_cuda(q, k, v, do, lse_c,
+                                                  d_term, **kw), F32_ITERS)
+        plain_fwd_ms = event_ms(lambda: per_kv_head(plain_fwd, q, k, v), 1)
+        plain_bwd_ms = event_ms(lambda: per_kv_head(
+            lambda *a: fb._backward_plain(*a, **kw), q, k, v, do), 1)
+        lib = {"library": None, "library_ms": None,
+               "library_fwd_bwd_ms": None}
+        if cap is None:
+            sdpa_kw = dict(is_causal=True) if causal and n == m and \
+                not window else dict(attn_mask=visible_mask(
+                    n, m, causal, window, dev))
+            lib_fwd = timed_spread(lambda: F.scaled_dot_product_attention(
+                q, k, v, enable_gqa=True, **sdpa_kw), F32_ITERS)
+            leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+
+            def sdpa_fwd_bwd():
+                out = F.scaled_dot_product_attention(*leaves, enable_gqa=True,
+                                                     **sdpa_kw)
+                torch.autograd.grad(out, leaves, do)
+            sdpa_fwd_bwd()
+            lib = {"library": "F.scaled_dot_product_attention(enable_gqa="
+                              "True, " + ("is_causal=True" if "is_causal"
+                                          in sdpa_kw else "a bool mask")
+                              + ") on the float32 tensors",
+                   "library_ms": lib_fwd["ms"],
+                   "library_spread": lib_fwd,
+                   "library_fwd_bwd_ms": event_ms(sdpa_fwd_bwd, 2)}
+            del leaves
+        else:
+            # The cap: flex_attention with a tanh score_mod, compiled with
+            # TF32 off (IEEE float32 dots; its reading against the
+            # kernel's o shows it), forward plus its backward.
+            flex, note = flex_yardstick(q, k, v, window=window, cap=cap,
+                                        scale=scale)
+            flex_bwd, bwd_note = (None, None) if flex is None else \
+                flex_yardstick(q, k, v, window=window, cap=cap,
+                               scale=scale, do=do)
+            lib["library"] = note or (
+                "flex_attention (tanh score_mod, causal"
+                + (" and window" if window else "") + " block mask), "
+                "compiled, on the float32 tensors; fwd_bwd: its forward "
+                "plus its backward, timed apart"
+                + (f"; backward: {bwd_note}" if bwd_note else ""))
+            if flex is not None:
+                lib_fwd = timed_spread(flex, F32_ITERS)
+                lib.update(library_ms=lib_fwd["ms"], library_spread=lib_fwd,
+                           library_precision=flex_precision(),
+                           library_against_kernel=closeness(flex(), o))
+            if flex_bwd is not None:
+                lib["library_fwd_bwd_ms"] = (
+                    lib_fwd["ms"] + timed_spread(flex_bwd, F32_ITERS)["ms"])
+            del flex, flex_bwd
+            # These compiles count against dynamo's recompile limit for
+            # flex_attention; past it, a later phase's yardstick would run
+            # flex unfused.  Later phases start from no compile, as they
+            # did before this one.
+            import torch._dynamo
+            torch._dynamo.reset()
+        roofline = None
+        if n == m:
+            roofline = str(profiling.attention_roofline(
+                lambda q_, k_, v_: fa.flash_attention_forward(
+                    q_, k_, v_, causal=causal, window_size=window,
+                    logit_softcap=cap)[0],
+                (q, k, v), n=n, d=d, heads=qh, batch=b, causal=causal,
+                iters=F32_ITERS, dispatch_floor=0.0))
+        pairs = visible_pairs(n, m, causal, window) * b * qh
+        io = nbytes(q, k, v, do, lse_c, d_term)
+        cases[label] = {
+            "shape": f"q [{b}, {qh}, {n}, {d}], k/v [{b}, {kvh}, {m}, {d}]"
+                     f"{' causal' if causal else ''}"
+                     f"{f', window {window}' if window else ''}"
+                     f"{f', cap {cap}' if cap else ''}, float32",
+            "readings": readings, "pairs": pairs,
+            "flash_fwd_f32": {"ms": fwd_t["ms"], "spread": fwd_t,
+                              "bound": f32_bound(4 * d * pairs,
+                                                 nbytes(q, k, v, o, lse)),
+                              "plain_ms": plain_fwd_ms,
+                              "roofline": roofline},
+            "flash_bwd_dq_f32": {"ms": dq_t["ms"], "spread": dq_t,
+                                 "bound": f32_bound(6 * d * pairs,
+                                                    io + nbytes(dq)),
+                                 "plain_ms": plain_bwd_ms},
+            "flash_bwd_dkv_f32": {"ms": dkv_t["ms"], "spread": dkv_t,
+                                  "bound": f32_bound(8 * d * pairs,
+                                                     io + nbytes(dk, dv)),
+                                  "plain_ms": plain_bwd_ms},
+            **lib, "card": card}
+        print(f"fp32_checks[{label}]: " + json.dumps(cases[label]),
+              flush=True)
+        del q, k, v, do, o, lse, dq, dk, dv, lse_c, d_term
+        torch.cuda.empty_cache()
+    if problems:
+        fail("; ".join(problems))
+
+    src = "metal_flash_attention_tpu_torch/csrc/flash_attention_f32.cu"
+    jax_src = "metal_flash_attention_tpu/ops/"
+    main = cases["llama_train"]
+    out = []
+    for name, op, replaces, err_keys in (
+            ("flash_fwd_f32", "flash_fwd",
+             "flash_attention.py:223 (and :552), float32",
+             ("flash_fwd_f32.o",)),
+            ("flash_bwd_dq_f32", "flash_bwd_dq",
+             "flash_attention_bwd.py:73, float32", ("flash_bwd_dq_f32.dq",)),
+            ("flash_bwd_dkv_f32", "flash_bwd_dkv",
+             "flash_attention_bwd.py:226, float32",
+             ("flash_bwd_dkv_f32.dk", "flash_bwd_dkv_f32.dv"))):
+        by_path = {p: c.get(f"{op}_f32", 0)
+                   for p, c in launches_by_path.items()}
+        bound_ms, bound_by = main[name]["bound"]
+        out.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": jax_src + replaces,
+            "launches": by_path.get("fp32_train", 0),
+            "launches_by_path": by_path,
+            "max_abs_err": max(c["readings"][k]["max_abs_err"]
+                               for c in cases.values() for k in err_keys),
+            "ms": main[name]["ms"], "spread": main[name]["spread"],
+            "plain_ms": main[name]["plain_ms"],
+            "plain_computes": ("o and lse, one kv head at a time"
+                               if op == "flash_fwd" else
+                               "dq, dk and dv together, one kv head at a "
+                               "time"),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_peak": "67 TFLOP/s float32 (H100 SXM, CUDA cores)",
+            "share_of_bound": bound_ms / main[name]["ms"],
+            "library_ms": (main["library_ms"] if op == "flash_fwd"
+                           else main["library_fwd_bwd_ms"]),
+            "library": main["library"] + (
+                "" if op == "flash_fwd" else ", forward and backward"),
+            "shape": main["shape"],
+            "by_case": {label: {"ms": c[name]["ms"],
+                                "bound_ms": c[name]["bound"][0],
+                                "plain_ms": c[name]["plain_ms"],
+                                "library_ms": c["library_ms"],
+                                "library_fwd_bwd_ms":
+                                    c["library_fwd_bwd_ms"]}
+                        for label, c in cases.items()},
+            "limits": {"tile_rel_rms": F32_TILE_REL_RMS,
+                       "lse_abs": FP32_TOL.lse},
+            "card": card})
+    return out
+
+
+def fp32_train(dev, card):
+    """fp32_train: Llama-3-8B widths in float32 on TRAIN_LAYERS layers,
+    TRAIN_TOKENS + 1 tokens, F32_TRAIN_STEPS AdamW steps, every attention
+    launch on the true-fp32 kernels (counts exact); seconds a step,
+    tokens/s, peak memory and device ms by family (one more step under the
+    profiler).  Returns the parameters, the config and the launch
+    counts."""
+    import torch
+    from metal_flash_attention_tpu_torch.models import llama, optim
+    from metal_flash_attention_tpu_torch.ops import flash_attention as fa
+    from metal_flash_attention_tpu_torch.ops import flash_attention_bwd as fb
+
+    cfg = llama.LlamaConfig.llama3_8b(n_layers=TRAIN_LAYERS,
+                                      dtype=torch.float32)
+    params = llama.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(SEED + 72), device=dev)
+    rng = np.random.default_rng(SEED + 73)
+    tokens = torch.as_tensor(
+        rng.integers(0, cfg.vocab_size, (1, TRAIN_TOKENS + 1)), device=dev)
+    # The weights are float32 already: no float32 shadows.
+    init_fn, step_fn = optim.make_train_step(
+        lambda p, batch: llama.loss_fn(p, batch, cfg), master_weights=False)
+    state = init_fn(params)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    fa.reset_launch_counts()
+    fb.reset_launch_counts()
+    losses, seconds = [], []
+    with CardSampler() as sampler:
+        for _ in range(F32_TRAIN_STEPS):
+            t0 = time.perf_counter()
+            params, state, loss = step_fn(params, state, tokens)
+            losses.append(float(loss))
+            torch.cuda.synchronize(dev)
+            seconds.append(time.perf_counter() - t0)
+        clocks = sampler.stop()
+    launches = {**fa.LAUNCH_COUNTS, **fb.LAUNCH_COUNTS}
+    peak = torch.cuda.max_memory_allocated(dev)
+    expected = {f"{op}{s}": TRAIN_LAYERS * F32_TRAIN_STEPS
+                for op in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+                for s in ("", "_f32")}
+    wrong = launch_errors(launches, expected)
+    if wrong:
+        fail(f"fp32_train launched (count, expected) {wrong}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"fp32_train's loss did not fall: {losses}")
+    steady = seconds[1:]
+    print("fp32_train: " + json.dumps({
+        "config": f"llama3_8b widths, {TRAIN_LAYERS} layers, float32, "
+                  "AdamW", "tokens_per_step": TRAIN_TOKENS,
+        "steps": F32_TRAIN_STEPS, "losses": losses,
+        "seconds_per_step": seconds,
+        "tokens_per_s": TRAIN_TOKENS * len(steady) / sum(steady),
+        "launches": {k: n for k, n in launches.items() if n},
+        "max_memory_allocated": peak, "card": card,
+        "card_during_steps": clocks}), flush=True)
+    profile_step("fp32_train_profile",
+                 lambda: step_fn(params, state, tokens), F32_FAMILIES, dev)
+    del state
+    return params, cfg, launches
+
+
+def fp32_train_reference(params, cfg, dev, card) -> dict:
+    """fp32_train_reference: a 2-layer cut of the float32 weights at
+    TRAIN_REF_TOKENS tokens, the loss and every gradient on the
+    true-fp32 kernels against the plain-attention path on the card (TF32
+    off), with train_reference's two planted faults and a third: the
+    kernels reading their q, k, v and dO rounded to TF32."""
+    import torch
+    from metal_flash_attention_tpu_torch.models import llama
+    from metal_flash_attention_tpu_torch.ops import flash_attention as fa
+    from metal_flash_attention_tpu_torch.ops import flash_attention_bwd as fb
+    from metal_flash_attention_tpu_torch.utils.tree import flatten
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cut = dict(params, layers=params["layers"][:TRAIN_REF_LAYERS])
+    ccfg = dataclasses.replace(cfg, n_layers=TRAIN_REF_LAYERS)
+    rng = np.random.default_rng(SEED + 74)
+    tokens = torch.as_tensor(
+        rng.integers(0, cfg.vocab_size, (1, TRAIN_REF_TOKENS + 1)),
+        device=dev)
+
+    def plain_loss(p):
+        x = plain_hidden(p, tokens[:, :-1], ccfg)
+        logp = torch.log_softmax((x @ p["lm_head"]).float(), dim=-1)
+        return -logp.gather(-1, tokens[:, 1:, None]).mean()
+
+    def value_and_grads(loss_fn):
+        leaves, rebuild = flatten(cut)
+        work = [t.detach().requires_grad_(True) for t in leaves]
+        value = loss_fn(rebuild(work))
+        return float(value.detach()), torch.autograd.grad(value, work)
+
+    ref_loss, ref_grads = value_and_grads(plain_loss)
+
+    def reading(loss_fn) -> dict:
+        loss, grads = value_and_grads(loss_fn)
+        rel = [float((g - r).pow(2).mean().sqrt()
+                     / r.pow(2).mean().sqrt().clamp_min(1e-30))
+               for g, r in zip(grads, ref_grads)]
+        if not all(np.isfinite(rel)):
+            fail("non-finite gradient on the float32 kernel path")
+        return {"loss": loss, "loss_abs_err": abs(loss - ref_loss),
+                "grad_rel_rms_max": max(rel),
+                "grad_rel_rms_median": float(np.median(rel))}
+
+    def seen(r: dict) -> bool:
+        return (r["loss_abs_err"] > F32_TRAIN_LOSS_ABS
+                or r["grad_rel_rms_max"] > F32_TRAIN_GRAD_REL_RMS)
+
+    def kernel_loss(p):
+        return llama.loss_fn(p, tokens, ccfg)
+
+    fa.reset_launch_counts()
+    fb.reset_launch_counts()
+    out = {"layers": TRAIN_REF_LAYERS, "tokens": TRAIN_REF_TOKENS,
+           "plain_loss": ref_loss, **reading(kernel_loss),
+           "tol": {"loss_abs": F32_TRAIN_LOSS_ABS,
+                   "grad_rel_rms": F32_TRAIN_GRAD_REL_RMS}, "card": card}
+    if fa.LAUNCH_COUNTS["flash_fwd_f32"] != TRAIN_REF_LAYERS or \
+            fb.LAUNCH_COUNTS["flash_bwd_dkv_f32"] != TRAIN_REF_LAYERS:
+        fail("fp32_train_reference did not run the float32 kernels once a "
+             "layer")
+    faults = {"dkv_lost_group_head": [(fb, "_dkv_cuda", lost_group_head)],
+              "fwd_scale_1_over_d": [(fa, "_forward_cuda", unrooted_scale)],
+              "tf32_operands": [(fa, "_forward_cuda", tf32_operands),
+                                (fb, "_dq_cuda", tf32_operands),
+                                (fb, "_dkv_cuda", tf32_operands)]}
+    out["planted_faults"] = {}
+    for name, sites in faults.items():
+        with contextlib.ExitStack() as stack:
+            for module, attr, make in sites:
+                stack.enter_context(planted(module, attr, make))
+            out["planted_faults"][name] = reading(kernel_loss)
+    print("fp32_train_reference: " + json.dumps(out), flush=True)
+    if seen(out):
+        fail("the float32 kernel path's loss or gradients disagree with "
+             "the plain-attention reference")
+    for name, r in out["planted_faults"].items():
+        if not seen(r):
+            fail(f"the fp32_train_reference limits do not see the planted "
+                 f"fault {name}")
+    return out
+
+
+# The dry run at n = 1: its legs' launches (`entry.py`): the dp x tp x cp
+# leg's tiny Llama (bf16, head_dim 32) and the EP leg's MoE (bf16, head_dim
+# 64), 2 layers each, one forward and backward a layer; the PP leg's one
+# float32 stage (head_dim 32) over PP_MICRO microbatches, then its chain.
+def dryrun_expected() -> dict:
+    from metal_flash_attention_tpu_torch import entry
+    f32 = 2 * entry.PP_MICRO
+    out = {}
+    for op in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        out.update({op: 2 + 2 + f32, f"{op}_sm90": 2 + 2, f"{op}_f32": f32,
+                    f"{op}_d32": 2 + f32})
+    return out
+
+
+def dryrun_phase(dev, card) -> dict:
+    """dryrun: the port's `dryrun_multichip(1)` on this card (a one-rank
+    NCCL group it starts in this process): JAX's three lines, the launch
+    counts exact (`dryrun_expected`), the pipeline leg on the true-fp32
+    kernels at head_dim 32 and equal to its chain."""
+    import contextlib
+    import io
+
+    import torch
+    from metal_flash_attention_tpu_torch.entry import dryrun_multichip
+    from metal_flash_attention_tpu_torch.ops import flash_attention as fa
+    from metal_flash_attention_tpu_torch.ops import flash_attention_bwd as fb
+
+    torch.cuda.set_device(dev)
+    fa.reset_launch_counts()
+    fb.reset_launch_counts()
+    text = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(text):
+        dryrun_multichip(1)
+    torch.cuda.synchronize(dev)
+    seconds = time.perf_counter() - t0
+    lines = text.getvalue().splitlines()
+    for line in lines:
+        print(line, flush=True)
+    launches = {k: n for k, n in {**fa.LAUNCH_COUNTS,
+                                  **fb.LAUNCH_COUNTS}.items() if n}
+    wrong = launch_errors(launches, dryrun_expected())
+    heads = ("dryrun_multichip(1): mesh dp=1 tp=1 cp=1, loss=",
+             "  ep dryrun: mesh dp=1 ep=1, loss=",
+             "  pp dryrun: 1 stages fwd+bwd, loss=")
+    print("dryrun: " + json.dumps({"lines": lines, "seconds": seconds,
+                                   "launches": launches, "card": card}),
+          flush=True)
+    if len(lines) != 3 or not all(line.startswith(head)
+                                  for line, head in zip(lines, heads)):
+        fail(f"dryrun printed {lines}")
+    if wrong:
+        fail(f"dryrun launched (count, expected) {wrong}")
+    return launches
 
 
 def step_reading(new, old, ref_new, loss, ref_loss) -> dict:
@@ -8438,6 +9055,19 @@ def run(dev, cache_dir) -> int:
     softmax_kernels = phase("softmax_checks", softmax_kernel_checks, dev,
                             card)
     torch.cuda.empty_cache()
+    # float32 (slice 22): training at Llama-3-8B widths on the true-fp32
+    # kernels, the dry run on this card, then the three kernels' checks.
+    f32_params, f32_cfg, f32_launches = phase("fp32_train", fp32_train, dev,
+                                              card)
+    phase("fp32_train_reference", fp32_train_reference, f32_params, f32_cfg,
+          dev, card)
+    del f32_params
+    torch.cuda.empty_cache()
+    dry_launches = phase("dryrun", dryrun_phase, dev, card)
+    torch.cuda.empty_cache()
+    f32_kernels = phase("fp32_checks", fp32_checks, dev, card,
+                        {"fp32_train": f32_launches, "dryrun": dry_launches})
+    torch.cuda.empty_cache()
     for entry in kernels:
         if entry["name"] == "flash_fwd":
             burst = burst_launches[QUANT_SERVE_PRECISION]
@@ -8482,6 +9112,8 @@ def run(dev, cache_dir) -> int:
                 for c in ring_launches["d128"].values())
             entry["launches_by_path"]["pp_check"] = pp_launches[
                 entry["name"]]
+            entry["launches_by_path"]["dryrun"] = dry_launches.get(
+                f"{entry['name']}_sm90", 0)
     decode_kernel["launches_by_path"] = {
         "beam": beam_launches["flash_decode"],
         "dense_serve": dense_launches["flash_decode"],
@@ -8573,6 +9205,7 @@ def run(dev, cache_dir) -> int:
     kernels.append(decode_kernel)
     kernels.append(gemm_kernel)
     kernels += softmax_kernels
+    kernels += f32_kernels
     kernels += quant_kernels
     kernels += quant_fwd
     kernels += gemma_kernels

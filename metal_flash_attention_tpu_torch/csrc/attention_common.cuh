@@ -358,6 +358,68 @@ __device__ __forceinline__ void aux_tile_pair(const AuxRow (&ar)[2],
   }
 }
 
+// The visible-key rule of every flash kernel (forward, dQ, dK/dV; bf16,
+// fp16 and float32): causal masking aligned bottom-right (offset = kv_len
+// - q_len, query t at position t + offset sees keys c <= t + offset), a
+// window w keeping keys c > t + offset - w, with or without causal.
+//
+// A row at position qpos sees keys [lo, hi] (empty when lo > hi).
+__device__ __forceinline__ void row_keys(int qpos, int kv_len, bool causal,
+                                         int window, int& lo, int& hi) {
+  hi = causal ? min(qpos, kv_len - 1) : kv_len - 1;
+  lo = window > 0 ? qpos - window + 1 : 0;
+}
+
+// The query positions [t_min, t_max] of group-major rows [r0, r_last] of
+// a kv head (row g * q_len + t is query t of the group's q head g): the
+// rows' own when they lie in one q head, else every position.
+__device__ __forceinline__ void row_positions(int r0, int r_last, int q_len,
+                                              int& t_min, int& t_max) {
+  t_min = 0;
+  t_max = q_len - 1;
+  if (r0 / q_len == r_last / q_len) {
+    t_min = r0 % q_len;
+    t_max = r_last % q_len;
+  }
+}
+
+// The key tiles of `tile` keys that query positions [t_min, t_max] can
+// see, [n_lo, n_hi) (n_lo == n_hi: none), so that a key loop visits the
+// visible tiles and no others.
+__device__ __forceinline__ void visible_key_tiles(int t_min, int t_max,
+                                                  int q_len, int kv_len,
+                                                  bool causal, int window,
+                                                  int tile, int& n_lo,
+                                                  int& n_hi) {
+  const int offset = kv_len - q_len;
+  const int col_hi = causal ? min(kv_len - 1, offset + t_max) : kv_len - 1;
+  const int col_lo = window > 0 ? max(0, offset + t_min - window + 1) : 0;
+  n_lo = col_lo / tile;
+  n_hi = col_hi >= col_lo ? col_hi / tile + 1 : n_lo;
+}
+
+// The query tiles of `tile` rows of one q head whose positions see a key
+// of [j0, j_last], [m_lo, m_hi) (m_lo == m_hi: none).
+__device__ __forceinline__ void visible_query_tiles(int j0, int j_last,
+                                                    int q_len, int kv_len,
+                                                    bool causal, int window,
+                                                    int tile, int& m_lo,
+                                                    int& m_hi) {
+  const int offset = kv_len - q_len;
+  const int t_lo = causal ? max(0, j0 - offset) : 0;
+  const int t_hi = window > 0 ? min(q_len - 1, j_last - offset + window - 1)
+                              : q_len - 1;
+  m_lo = t_lo / tile;
+  m_hi = t_hi >= t_lo ? t_hi / tile + 1 : m_lo;
+}
+
+// A forward lse (natural log) in base 2 for the backward's recomputed P;
+// a row that saw no key (lse = -inf) reads 0, so that its P, masked
+// everywhere, is exactly 0 and never NaN.
+__device__ __forceinline__ float lse_base2(float lse) {
+  return lse == -INFINITY ? 0.f : lse * kLog2e;
+}
+
 // The second launch of a split-KV kernel: merge each row's `splits`
 // normalized float32 partials by their base-2 lse.  part_o is [batch,
 // kv_heads, splits, rows, D] and part_lse [batch, kv_heads, splits, rows];

@@ -407,16 +407,10 @@ flash_fwd90_kernel(const __grid_constant__ CUtensorMap map_q,
   // Loop step i takes tile n_hi - 1 - i: steps [0, open_begin) and
   // [open_end, n_tiles) test each key, the rest do not.
   const int r_last = min(r0 + kBQ, p.rows) - 1;
-  int t_min = 0, t_max = p.q_len - 1;
-  if (r0 / p.q_len == r_last / p.q_len) {
-    t_min = r0 % p.q_len;
-    t_max = r_last % p.q_len;
-  }
-  const int col_hi =
-      causal ? min(p.kv_len - 1, offset + t_max) : p.kv_len - 1;
-  const int col_lo = p.window > 0 ? max(0, offset + t_min - p.window + 1) : 0;
-  const int n_lo = col_lo / kBKV;
-  const int n_hi = col_hi >= col_lo ? col_hi / kBKV + 1 : n_lo;
+  int t_min, t_max, n_lo, n_hi;
+  row_positions(r0, r_last, p.q_len, t_min, t_max);
+  visible_key_tiles(t_min, t_max, p.q_len, p.kv_len, causal, p.window, kBKV,
+                    n_lo, n_hi);
   const int n_tiles = n_hi - n_lo;
   int u_hi = p.kv_len / kBKV;
   if (causal) u_hi = min(u_hi, max(0, offset + t_min + 1) / kBKV);
@@ -531,11 +525,9 @@ flash_fwd90_kernel(const __grid_constant__ CUtensorMap map_q,
     // Each row's visible keys [lo, hi].
     int lo[2], hi[2];
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int qpos = row[h] % p.q_len + offset;
-      hi[h] = causal ? min(qpos, p.kv_len - 1) : p.kv_len - 1;
-      lo[h] = p.window > 0 ? qpos - p.window + 1 : 0;
-    }
+    for (int h = 0; h < 2; ++h)
+      row_keys(row[h] % p.q_len + offset, p.kv_len, causal, p.window, lo[h],
+               hi[h]);
     // kAux: each row's view of the planes and segment id (a row past the
     // head reads the last row's, and its outputs are not stored), and the
     // warp's scratch of a tile's segment ids.

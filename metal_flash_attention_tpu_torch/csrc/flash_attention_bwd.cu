@@ -168,10 +168,6 @@ struct BwdParams {
   int causal, window;
 };
 
-__device__ __forceinline__ float lse_base2(float lse) {
-  return lse == -INFINITY ? 0.f : lse * kLog2e;
-}
-
 // A [rows][D] 16-bit operand in shared memory: D / 64 panels of kRows
 // 128-byte rows (one TMA box of 64 columns each), 128-byte swizzled.
 template <int D, int kRows>
@@ -328,16 +324,10 @@ flash_bwd_dq90_kernel(const __grid_constant__ CUtensorMap map_q,
   // Loop step i takes tile n_hi - 1 - i: steps [0, open_begin) and
   // [open_end, n_steps) test each key, the rest do not.
   const int r_last = min(r0 + kDqRows, rows) - 1;
-  int t_min = 0, t_max = p.q_len - 1;
-  if (r0 / p.q_len == r_last / p.q_len) {
-    t_min = r0 % p.q_len;
-    t_max = r_last % p.q_len;
-  }
-  const int col_hi =
-      causal ? min(p.kv_len - 1, offset + t_max) : p.kv_len - 1;
-  const int col_lo = p.window > 0 ? max(0, offset + t_min - p.window + 1) : 0;
-  const int n_lo = col_lo / kDqKeys;
-  const int n_hi = col_hi >= col_lo ? col_hi / kDqKeys + 1 : n_lo;
+  int t_min, t_max, n_lo, n_hi;
+  row_positions(r0, r_last, p.q_len, t_min, t_max);
+  visible_key_tiles(t_min, t_max, p.q_len, p.kv_len, causal, p.window,
+                    kDqKeys, n_lo, n_hi);
   const int n_steps = n_hi - n_lo;
   int u_hi = p.kv_len / kDqKeys;
   if (causal) u_hi = min(u_hi, max(0, offset + t_min + 1) / kDqKeys);
@@ -392,9 +382,8 @@ flash_bwd_dq90_kernel(const __grid_constant__ CUtensorMap map_q,
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int row = ra + 8 * h;
-    const int qpos = row % p.q_len + offset;
-    hi[h] = causal ? min(qpos, p.kv_len - 1) : p.kv_len - 1;
-    lo[h] = p.window > 0 ? qpos - p.window + 1 : 0;
+    row_keys(row % p.q_len + offset, p.kv_len, causal, p.window, lo[h],
+             hi[h]);
     const size_t at = (size_t)bh * rows + row;
     l2[h] = row < rows ? lse_base2(__ldg(p.lse + at)) : 0.f;
     dt[h] = row < rows ? __ldg(p.dterm + at) : 0.f;
@@ -671,12 +660,9 @@ flash_bwd_dkv90_kernel(const __grid_constant__ CUtensorMap map_q,
   // Query rows t of each q head that see a key of [j0, j_last], as query
   // tiles [m_lo, m_hi); of those, tiles [w_lo, w_hi) see every key whole.
   const int j_last = min(j0 + kDkvKeys, p.kv_len) - 1;
-  const int t_lo = causal ? max(0, j0 - offset) : 0;
-  const int t_hi = p.window > 0
-                       ? min(p.q_len - 1, j_last - offset + p.window - 1)
-                       : p.q_len - 1;
-  const int m_lo = t_lo / kR;
-  const int m_hi = t_hi >= t_lo ? t_hi / kR + 1 : m_lo;
+  int m_lo, m_hi;
+  visible_query_tiles(j0, j_last, p.q_len, p.kv_len, causal, p.window, kR,
+                      m_lo, m_hi);
   const int per = m_hi - m_lo;
   const int n_steps = p.group * per;
   int w_lo = causal ? (max(0, j_last - offset) + kR - 1) / kR : m_lo;

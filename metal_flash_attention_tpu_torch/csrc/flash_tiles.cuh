@@ -74,6 +74,36 @@
 #ifndef MFA_BWD90_D256_STAGES
 #define MFA_BWD90_D256_STAGES 2
 #endif
+// The true-fp32 kernels (flash_attention_f32.cu, CUDA cores, 256 threads
+// a block): the forward and dQ take MFA_F32_BLOCK_Q query rows a block
+// over key tiles of MFA_F32_BLOCK_KV keys; dK/dV MFA_F32_DKV_BLOCK_KV keys
+// a block over steps of MFA_F32_DKV_BLOCK_Q query rows; MFA_F32_STAGES
+// cp.async stages.  At head_dim 256 the key tiles shrink so that a
+// block's float32 operands fit its shared memory.
+#ifndef MFA_F32_BLOCK_Q
+#define MFA_F32_BLOCK_Q 64
+#endif
+#ifndef MFA_F32_BLOCK_KV
+#define MFA_F32_BLOCK_KV 64
+#endif
+#ifndef MFA_F32_D256_FWD_BLOCK_KV
+#define MFA_F32_D256_FWD_BLOCK_KV 32
+#endif
+#ifndef MFA_F32_D256_DQ_BLOCK_KV
+#define MFA_F32_D256_DQ_BLOCK_KV 16
+#endif
+#ifndef MFA_F32_DKV_BLOCK_KV
+#define MFA_F32_DKV_BLOCK_KV 64
+#endif
+#ifndef MFA_F32_D256_DKV_BLOCK_KV
+#define MFA_F32_D256_DKV_BLOCK_KV 32
+#endif
+#ifndef MFA_F32_DKV_BLOCK_Q
+#define MFA_F32_DKV_BLOCK_Q 32
+#endif
+#ifndef MFA_F32_STAGES
+#define MFA_F32_STAGES 2
+#endif
 // The decode family (flash_decode and paged_decode share one kernel,
 // paged_prefill has its own on the same ring): keys per tile of the
 // cp.async ring, the ring's stages (flash_decode's; the paged kernels'),

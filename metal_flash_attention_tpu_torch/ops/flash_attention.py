@@ -26,15 +26,22 @@ call is not differentiated: `flash_attention` returns the forward, as in
 the JAX package.
 
 Dispatch: a CPU tensor takes the plain PyTorch version
-(`_forward_plain`: materialised float32 scores); a CUDA tensor takes the
-hand-written kernel in `csrc/flash_attention.cu` (TMA-fed, wgmma, for
-sm_90a), or raises.  The kernel takes bf16 and fp16 (computed natively
-on fp16 tensor cores, where the JAX package computes fp16 in bf16) at
-head dims 64, 128 and 256, with or without causal masking, a window and
-the soft cap, any q_len and kv_len, and a bf16/fp16 or float32 O; over
-quantized K/V (head dims 64 and 128, no cap) it decodes each tile in
-shared memory and takes bf16 queries (fp16 ones raise
-NotImplementedError on the card; the plain version takes them).
+(`_forward_plain`: materialised float32 scores); a CUDA tensor takes a
+hand-written kernel, or raises.  bf16 and fp16 run on the kernel in
+`csrc/flash_attention.cu` (TMA-fed, wgmma, for sm_90a; fp16 computed
+natively on fp16 tensor cores, where the JAX package computes fp16 in
+bf16) at head dims 32, 64, 128 and 256, with or without causal masking,
+a window and the soft cap, any q_len and kv_len, and a bf16/fp16 or
+float32 O; over quantized K/V (head dims 64 and 128, no cap) it decodes
+each tile in shared memory and takes bf16 queries (fp16 or float32 ones
+raise NotImplementedError on the card; the plain version takes them).
+float32 runs on the true-fp32 kernel of `csrc/flash_attention_f32.cu`
+(FFMA on CUDA cores, never TF32: the JAX kernels' Precision.HIGHEST) at
+the same head dims, masks, window and cap, with a float32 O, counted as
+``LAUNCH_COUNTS["flash_fwd_f32"]`` in place of ``["flash_fwd_sm90"]``;
+it has one tile a head dim (`csrc/flash_tiles.cuh`'s ``MFA_F32_*``), so
+``block_q`` / ``block_kv`` do not change it and ``LAUNCH_TILES`` does not
+count it.
 The plain version dequantizes in float32 first, NF4's codebook rounded
 to the queries' type as the kernel rounds it.  Each launch adds one to
 ``LAUNCH_COUNTS["flash_fwd"]`` (the op) and to
@@ -59,8 +66,9 @@ with or without the cap), counted also as ``["flash_fwd_aux"]``; with
 head_dim 256, quantized K/V or float32 they raise there (the plain
 versions take them).
 
-The tile: a CUDA launch takes the one `descriptors.attention_descriptor`
-resolves (`resolve_kernel_config`): the caller's ``block_q`` /
+The tile: a 16-bit CUDA launch takes the one
+`descriptors.attention_descriptor` resolves (`resolve_kernel_config`):
+the caller's ``block_q`` /
 ``block_kv``, clamped to the nearest tile the card builds
 (`descriptors.parameters.clamp_to_card`), else a tuned winner of the
 runtime's config cache, else the H100 table's row (the kernel's default
@@ -106,13 +114,16 @@ from metal_flash_attention_tpu_torch.utils.errors import not_ported
 # options.
 KERNEL_HEAD_DIMS = (64, 128)
 UNQUANTIZED_HEAD_DIMS = (32, 64, 128, 256)
-KERNEL_DTYPES = (torch.bfloat16, torch.float16)
+# What the kernels take: bf16 and fp16 on the wgmma kernels, float32 on
+# the true-fp32 ones (csrc/flash_attention_f32.cu), without the options
+# or quantized K/V.
+KERNEL_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
 
 # One count per kernel, bumped only where its wrapper launches it.
 LAUNCH_COUNTS = {"flash_fwd": 0, "flash_fwd_sm90": 0,
                  **{f"flash_fwd_{p.value}": 0 for p in KV_PRECISIONS},
                  "flash_fwd_softcap": 0, "flash_fwd_d256": 0,
-                 "flash_fwd_d32": 0, "flash_fwd_aux": 0}
+                 "flash_fwd_d32": 0, "flash_fwd_aux": 0, "flash_fwd_f32": 0}
 # The tiles each kernel launched with: {(block_q, block_kv): launches}.
 LAUNCH_TILES = {"flash_fwd": collections.Counter()}
 
@@ -213,14 +224,11 @@ def check_kernel_operands(tensors: dict, dtype: torch.dtype,
                           device: torch.device,
                           head_dims=KERNEL_HEAD_DIMS) -> None:
     """What every attention kernel of the port takes: tensors on one card,
-    contiguous and 16-byte aligned, 16-bit inputs at one of the kernel's
-    ``head_dims``."""
-    if dtype == torch.float32:
-        raise not_ported("float32 attention on CUDA (true fp32, no TF32)",
-                         KERNEL_ITEM)
+    contiguous and 16-byte aligned, bf16, fp16 or float32 inputs at one of
+    the kernel's ``head_dims``."""
     if dtype not in KERNEL_DTYPES:
-        raise TypeError(f"the attention kernels take bf16 or fp16, got "
-                        f"{dtype}")
+        raise TypeError(f"the attention kernels take bf16, fp16 or "
+                        f"float32, got {dtype}")
     for name, t in tensors.items():
         if t.device != device:
             raise ValueError(f"{name} is on {t.device}, expected {device}")
@@ -511,6 +519,10 @@ def _forward_cuda(q, k, v, *, causal, window_size, scale, out_dtype,
         raise TypeError(f"out_dtype must be q's dtype or float32, got "
                         f"{out_dtype}")
     aux, keep = aux_operands(options, q)
+    if q.dtype == torch.float32:
+        return _forward_cuda_f32(q, k, v, causal=causal,
+                                 window_size=window_size, scale=scale,
+                                 softcap=softcap)
     b, qh, n, d = q.shape
     kvh, m = k.shape[1], k.shape[2]
     cfg = kernel_config(AttentionKernelType.FORWARD, q, causal=causal,
@@ -542,4 +554,55 @@ def _forward_cuda(q, k, v, *, causal, window_size, scale, out_dtype,
         LAUNCH_COUNTS[f"flash_fwd_d{d}"] += 1
     if aux is not None:
         LAUNCH_COUNTS["flash_fwd_aux"] += 1
+    return o, lse
+
+
+@functools.cache
+def f32_library() -> ctypes.CDLL:
+    """Build (if stale) and bind csrc/flash_attention_f32.cu: the
+    true-fp32 forward, dQ and dK/dV."""
+    from metal_flash_attention_tpu_torch.native.build import load_library
+
+    lib = load_library("flash_attention_f32")
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    shape = [i32] * 6 + [f32] * 2 + [i32] * 2 + [ptr]
+    lib.mfa_flash_fwd_f32.argtypes = [ptr] * 5 + shape
+    lib.mfa_flash_bwd_dq_f32.argtypes = [ptr] * 7 + shape
+    lib.mfa_flash_bwd_dkv_f32.argtypes = [ptr] * 8 + shape
+    for fn in (lib.mfa_flash_fwd_f32, lib.mfa_flash_bwd_dq_f32,
+               lib.mfa_flash_bwd_dkv_f32):
+        fn.restype = i32
+    lib.mfa_cuda_error_string.argtypes = [i32]
+    lib.mfa_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def count_f32_launch(counts: dict, name: str, d: int, softcap) -> None:
+    """One launch of the true-fp32 kernel ``name`` counted: the op,
+    ``<name>_f32``, the cap and the head dim."""
+    counts[name] += 1
+    counts[f"{name}_f32"] += 1
+    if softcap is not None:
+        counts[f"{name}_softcap"] += 1
+    if d in (32, 256):
+        counts[f"{name}_d{d}"] += 1
+
+
+def _forward_cuda_f32(q, k, v, *, causal, window_size, scale, softcap):
+    """Launch the true-fp32 forward (operands checked by `_forward_cuda`):
+    a float32 O and lse."""
+    b, qh, n, d = q.shape
+    kvh, m = k.shape[1], k.shape[2]
+    lib = f32_library()
+    o = torch.empty((b, qh, n, d), dtype=torch.float32, device=q.device)
+    lse = torch.empty((b, qh, n), dtype=torch.float32, device=q.device)
+    stream = ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream)
+    with torch.cuda.device(q.device):
+        rc = lib.mfa_flash_fwd_f32(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), b, qh, kvh, n, m, d, ctypes.c_float(scale),
+            ctypes.c_float(softcap or 0.0), int(causal), window_size or 0,
+            stream)
+    raise_on_launch_error(lib, rc, "flash_fwd_f32")
+    count_f32_launch(LAUNCH_COUNTS, "flash_fwd", d, softcap)
     return o, lse

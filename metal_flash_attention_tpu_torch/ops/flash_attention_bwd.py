@@ -44,16 +44,21 @@ that residuals of a longer key set, a ring step's, give that function's
 gradients; `FlashAttentionFunction`, whose residuals are the block's
 own, recomputes both from the block, the same values); a CUDA
 tensor launches the Hopper kernels of `csrc/flash_attention_bwd.cu`
-(TMA-fed, wgmma, for sm_90a), or raises.  Each launch adds one to
+(TMA-fed, wgmma, for sm_90a) in bf16 and fp16, or the true-fp32 ones of
+`csrc/flash_attention_f32.cu` (FFMA on CUDA cores, never TF32; without
+the options), or raises.  Each launch adds one to
 ``LAUNCH_COUNTS["flash_bwd_dq"]`` or ``["flash_bwd_dkv"]`` (the op) and
 to ``["flash_bwd_dq_sm90"]`` or ``["flash_bwd_dkv_sm90"]`` (the kernel
 that ran), with the soft cap to ``["<op>_softcap"]`` and at head_dim 256
-or 32 to ``["<op>_d256"]`` or ``["<op>_d32"]`` too.  Each kernel launches the tile
-`ops.flash_attention.kernel_config` resolves for it (the caller's
-``block_q`` / ``block_kv`` clamped to that kernel's rules, a tuned
-winner under ``backward_query`` / ``backward_key_value``, "_causal" for
-causal or windowed calls, or the table's) from the library variant that
-holds it, and counts it in ``LAUNCH_TILES["<op>"]``.
+or 32 to ``["<op>_d256"]`` or ``["<op>_d32"]`` too; a float32 launch
+counts ``["<op>_f32"]`` in place of ``["<op>_sm90"]`` and runs its one
+tile a head dim (`csrc/flash_tiles.cuh`'s ``MFA_F32_*``), outside
+``LAUNCH_TILES``.  Each 16-bit kernel
+launches the tile `ops.flash_attention.kernel_config` resolves for it
+(the caller's ``block_q`` / ``block_kv`` clamped to that kernel's rules,
+a tuned winner under ``backward_query`` / ``backward_key_value``,
+"_causal" for causal or windowed calls, or the table's) from the library
+variant that holds it, and counts it in ``LAUNCH_TILES["<op>"]``.
 """
 
 from __future__ import annotations
@@ -77,6 +82,8 @@ from metal_flash_attention_tpu_torch.ops.flash_attention import (
     check_kernel_operands,
     check_options,
     check_shapes,
+    count_f32_launch,
+    f32_library,
     kernel_config,
     raise_on_launch_error,
     requested_tiles,
@@ -90,7 +97,7 @@ from metal_flash_attention_tpu_torch.ops.reference import (
 # it.
 LAUNCH_COUNTS = {f"flash_bwd_{op}{suffix}": 0 for op in ("dq", "dkv")
                  for suffix in ("", "_sm90", "_softcap", "_d256", "_d32",
-                               "_aux")}
+                               "_aux", "_f32")}
 # The tiles each kernel launched with: {(block_q, block_kv): launches}.
 LAUNCH_TILES = {"flash_bwd_dq": collections.Counter(),
                 "flash_bwd_dkv": collections.Counter()}
@@ -326,6 +333,20 @@ def _launch(name, outputs, q, k, v, do, lse, d_term, *, causal,
         raise ValueError(f"dbias must be a contiguous float32 [{b}, {qh}, "
                          f"{n}, {m}] beside a bias")
     aux, keep = aux_operands(options, q, dbias)
+    if q.dtype == torch.float32:
+        lib = f32_library()
+        stream = ctypes.c_void_p(
+            torch.cuda.current_stream(q.device).cuda_stream)
+        with torch.cuda.device(q.device):
+            rc = getattr(lib, f"mfa_{name}_f32")(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), d_term.data_ptr(),
+                *[t.data_ptr() for t in outputs], b, qh, kvh, n, m, d,
+                ctypes.c_float(scale), ctypes.c_float(softcap or 0.0),
+                int(causal), window_size or 0, stream)
+        raise_on_launch_error(lib, rc, f"{name}_f32")
+        count_f32_launch(LAUNCH_COUNTS, name, d, softcap)
+        return
     cfg = kernel_config(_KINDS[name], q, causal=causal,
                         window_size=window_size, tiles=tiles)
     lib = _kernel_library(cfg.library)

@@ -760,3 +760,27 @@ def ring_body(rank: int, world: int, payload) -> dict:
                  "grads": {k: as_numpy(v.grad) for k, v in local.items()}}
     return out
 
+
+
+def dryrun_body(rank: int, world: int, payload) -> dict:
+    """The port's dry run (`entry._dryrun_rank`, the three legs) on
+    ``world`` ranks, fed the JAX dry run's weights and PP input from
+    ``payload`` (numpy): each rank's printed text and losses."""
+    import contextlib
+    import io
+
+    from metal_flash_attention_tpu_torch import entry
+    from metal_flash_attention_tpu_torch.utils.params import (
+        params_from_numpy,
+    )
+
+    weights = {
+        "mesh": params_from_numpy(payload["mesh"], device="cpu"),
+        "ep": params_from_numpy(payload["ep"], device="cpu"),
+        "pp": (params_from_numpy(payload["pp"], device="cpu",
+                                 dtype=torch.float32),
+               torch.as_tensor(payload["pp_x"]))}
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        losses = entry._dryrun_rank(world, "cpu", weights)
+    return {"stdout": text.getvalue(), "losses": losses}

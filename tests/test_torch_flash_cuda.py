@@ -9,7 +9,11 @@ package, so it also runs on a machine that has only PyTorch:
 
 Tolerance: the bf16 tier, MIXED_TOL (o 5e-2, lse 7e-3, grads 5e-2).  The
 kernels round P and dS to the input type before the products that
-consume them; the plain versions stay in float32.  Gradients are held
+consume them; the plain versions stay in float32.  float32 runs on the
+true-fp32 kernels (csrc/flash_attention_f32.cu) and is held at FP32_TOL
+(2e-5), and by the worst tile at F32_TILE_REL_RMS where the 16-bit
+cases use TILE_REL_RMS; the plain versions run with TF32 off, PyTorch's
+default for a float32 matrix product.  Gradients are held
 relative to their own size where it exceeds 1: err <= tol * max(1,
 max |ref|).  Gemma-2's cases (head_dim 256, the soft cap; the forward,
 and the backward pair) are held by the worst 64-row tile's relative rms
@@ -27,7 +31,15 @@ from metal_flash_attention_tpu_torch.ops import flash_attention_bwd as fb
 from metal_flash_attention_tpu_torch.utils.tolerances import (
     MIXED_TOL,
     max_abs_err,
+    tolerances_for,
 )
+
+DTYPES = [torch.bfloat16, torch.float16, torch.float32]
+
+
+def _kernel(dtype) -> str:
+    """The counter suffix of the kernel that runs ``dtype``."""
+    return "_f32" if dtype == torch.float32 else "_sm90"
 
 
 @pytest.fixture
@@ -111,7 +123,8 @@ D32_CASES = [
 def _forward_checked(q, k, v, d, causal, window, out_dtype=None,
                      cap=None):
     """One forward through the kernel, held against the plain version;
-    the launch counted on the op and on the sm90 kernel."""
+    the launch counted on the op and on the kernel that ran (sm90, or
+    f32 for float32), at the dtype's tolerance."""
     before = dict(fa.LAUNCH_COUNTS)
     o, lse = fa.flash_attention_forward(q, k, v, causal=causal,
                                         window_size=window,
@@ -119,8 +132,10 @@ def _forward_checked(q, k, v, d, causal, window, out_dtype=None,
                                         logit_softcap=cap)
     torch.cuda.synchronize()
     assert fa.LAUNCH_COUNTS["flash_fwd"] == before["flash_fwd"] + 1
-    assert fa.LAUNCH_COUNTS["flash_fwd_sm90"] == \
-        before["flash_fwd_sm90"] + 1
+    kernel = _kernel(q.dtype)
+    for suffix in ("_sm90", "_f32"):
+        name = f"flash_fwd{suffix}"
+        assert fa.LAUNCH_COUNTS[name] == before[name] + (suffix == kernel)
     assert fa.LAUNCH_COUNTS["flash_fwd_softcap"] == \
         before["flash_fwd_softcap"] + (cap is not None)
     assert fa.LAUNCH_COUNTS["flash_fwd_d256"] == \
@@ -130,13 +145,14 @@ def _forward_checked(q, k, v, d, causal, window, out_dtype=None,
     po, plse = fa._forward_plain(q, k, v, causal=causal, window_size=window,
                                  scale=d ** -0.5, out_dtype=torch.float32,
                                  softcap=cap)
+    tol = tolerances_for(q.dtype)
     assert o.dtype == (out_dtype or q.dtype) and lse.dtype == torch.float32
-    assert max_abs_err(o, po) <= MIXED_TOL.o
-    assert max_abs_err(lse, plse) <= MIXED_TOL.lse
+    assert max_abs_err(o, po) <= tol.o
+    assert max_abs_err(lse, plse) <= tol.lse
     assert torch.equal(torch.isinf(lse), torch.isinf(plse))
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("b,qh,kvh,n,m,d,causal,window",
                          CASES + EDGE_CASES + D32_CASES)
 def test_forward_kernel_matches_plain(cuda, dtype, b, qh, kvh, n, m, d,
@@ -154,7 +170,18 @@ def test_forward_kernel_float32_out(cuda, dtype, d):
     _forward_checked(q, k, v, d, True, None, out_dtype=torch.float32)
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def _expected_bwd_counts(before, dtype, d, cap=None) -> dict:
+    """The backward's counts after one call: each op, the kernel that ran,
+    the cap and the head dim."""
+    bumped = ("", _kernel(dtype)) + (("_softcap",) if cap is not None
+                                     else ()) + (
+        (f"_d{d}",) if d in (32, 256) else ())
+    return {name: c + any(name == f"flash_bwd_{op}{s}"
+                          for op in ("dq", "dkv") for s in bumped)
+            for name, c in before.items()}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("b,qh,kvh,n,m,d,causal,window",
                          CASES + BWD_EDGE_CASES + D32_CASES)
 def test_backward_kernels_match_plain(cuda, dtype, b, qh, kvh, n, m, d,
@@ -167,17 +194,14 @@ def test_backward_kernels_match_plain(cuda, dtype, b, qh, kvh, n, m, d,
                                              causal=causal,
                                              window_size=window)
     torch.cuda.synchronize()
-    assert fb.LAUNCH_COUNTS == {
-        name: c + (not name.endswith(("_softcap", "_d256", "_d32", "_aux"))
-                   or (d == 32 and name.endswith("_d32")))
-        for name, c in before.items()}
+    assert fb.LAUNCH_COUNTS == _expected_bwd_counts(before, dtype, d)
     assert (dq.dtype, dk.dtype, dv.dtype) == (dtype,) * 3
     ref = fb._backward_plain(q.float(), k.float(), v.float(), do.float(),
                              causal=causal, window_size=window,
                              scale=d ** -0.5)
     for name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
         assert torch.isfinite(got).all(), name
-        ok, err = _grad_ok(got, want, MIXED_TOL.grads)
+        ok, err = _grad_ok(got, want, tolerances_for(dtype).grads)
         assert ok, (name, err)
 
 
@@ -215,8 +239,11 @@ def test_autograd_matches_plain_and_out_dtype(cuda):
 
 def test_kernels_refuse_what_they_do_not_take(cuda):
     q, k, v, do = _qkv(4, 1, 4, 2, 64, 64, 64, torch.bfloat16, cuda)
-    with pytest.raises(NotImplementedError):
-        fa.flash_attention_forward(q.float(), k.float(), v.float())
+    # float32 runs on the true-fp32 kernels, but not with the options.
+    mask64 = torch.ones((1, 1, 64, 64), dtype=torch.bool, device=cuda)
+    with pytest.raises(NotImplementedError, match="flash-kernel coverage"):
+        fa.flash_attention_forward(q.float(), k.float(), v.float(),
+                                   mask=mask64)
     q96, k96, v96, _ = _qkv(4, 1, 4, 2, 64, 64, 96, torch.bfloat16, cuda)
     with pytest.raises(NotImplementedError):
         fa.flash_attention_forward(q96, k96, v96)
@@ -276,6 +303,15 @@ GEMMA_CASES = [
 ]
 
 TILE_REL_RMS = 1.5e-2
+# float32 against its float32 plain version: chip_smoke.py's sound
+# readings on an H100 were 1.4e-6 to 4.3e-6, inputs rounded to TF32's
+# 10-bit mantissa 3.9e-4 to 7.2e-4 (its own limit, 4e-5, sits between
+# them; these cases, saturating caps among them, keep more room).
+F32_TILE_REL_RMS = 1e-4
+
+
+def tile_limit(dtype) -> float:
+    return F32_TILE_REL_RMS if dtype == torch.float32 else TILE_REL_RMS
 
 
 def worst_tile_rel_rms(got, ref, rows=64):
@@ -291,7 +327,7 @@ def worst_tile_rel_rms(got, ref, rows=64):
     return worst
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("b,qh,kvh,n,m,d,causal,window,gain,cap",
                          GEMMA_CASES)
 def test_forward_kernel_gemma_matches_plain(cuda, dtype, b, qh, kvh, n, m,
@@ -345,14 +381,15 @@ BWD_GEMMA_CASES = [
 ]
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("b,qh,kvh,n,m,d,causal,window,gain,cap",
                          BWD_GEMMA_CASES)
 def test_backward_kernels_gemma_match_plain(cuda, dtype, b, qh, kvh, n, m,
                                             d, causal, window, gain, cap):
     """dq, dk and dv against `_backward_plain` by the worst 64-row tile
-    (TILE_REL_RMS), each launch counted on the op, `_sm90`, `_softcap`
-    (with the cap) and `_d256` (at head_dim 256)."""
+    (`tile_limit`), each launch counted on the op, the kernel that ran
+    (`_sm90`, or `_f32` for float32), `_softcap` (with the cap) and
+    `_d256` (at head_dim 256)."""
     q, k, v, do = _qkv(12, b, qh, kvh, n, m, d, dtype, cuda)
     q = (q.float() * gain).to(dtype)
     o, lse = fa.flash_attention_forward(q, k, v, causal=causal,
@@ -364,18 +401,13 @@ def test_backward_kernels_gemma_match_plain(cuda, dtype, b, qh, kvh, n, m,
                                              window_size=window,
                                              logit_softcap=cap)
     torch.cuda.synchronize()
-    for op in ("dq", "dkv"):
-        for suffix, bumped in (("", True), ("_sm90", True),
-                               ("_softcap", cap is not None),
-                               ("_d256", d == 256), ("_d32", d == 32)):
-            name = f"flash_bwd_{op}{suffix}"
-            assert fb.LAUNCH_COUNTS[name] == before[name] + bumped, name
+    assert fb.LAUNCH_COUNTS == _expected_bwd_counts(before, dtype, d, cap)
     ref = fb._backward_plain(q.float(), k.float(), v.float(), do.float(),
                              causal=causal, window_size=window,
                              scale=d ** -0.5, softcap=cap)
     for name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
         assert got.dtype == dtype and torch.isfinite(got).all(), name
-        assert worst_tile_rel_rms(got, want) <= TILE_REL_RMS, name
+        assert worst_tile_rel_rms(got, want) <= tile_limit(dtype), name
 
 
 def test_backward_kernel_without_its_cap_factor_is_seen(cuda):
@@ -560,10 +592,10 @@ def test_remat_runs_the_forward_kernel_twice(cuda):
     bwd = {"flash_bwd_dq": n, "flash_bwd_dkv": n, "flash_bwd_dq_sm90": n,
            "flash_bwd_dkv_sm90": n,
            **{f"flash_bwd_{op}_{v}": 0 for op in ("dq", "dkv")
-              for v in ("softcap", "d256", "d32", "aux")},
+              for v in ("softcap", "d256", "d32", "aux", "f32")},
            **{f"flash_fwd_{p.value}": 0 for p in fa.KV_PRECISIONS},
            "flash_fwd_softcap": 0, "flash_fwd_d256": 0, "flash_fwd_d32": 0,
-           "flash_fwd_aux": 0}
+           "flash_fwd_aux": 0, "flash_fwd_f32": 0}
     assert counts[0] == {"flash_fwd": n, "flash_fwd_sm90": n, **bwd}
     assert counts[1] == {"flash_fwd": 2 * n, "flash_fwd_sm90": 2 * n, **bwd}
     (l0, g0), (l1, g1) = results
@@ -751,3 +783,48 @@ def test_options_never_take_a_plain_version_on_the_card(cuda, monkeypatch):
     (o.float() * do.float()).sum().backward()
     torch.cuda.synchronize()
     assert all(torch.isfinite(x.grad).all() for x in leaves)
+
+
+def test_float32_never_takes_a_plain_version_on_the_card(cuda, monkeypatch):
+    """A float32 CUDA tensor runs the true-fp32 kernels (causal, a window
+    and the cap at D 32, 128 and 256): the plain versions, replaced by a
+    fault, are never reached, and every launch counts on `_f32`."""
+    def refuse(*a, **kw):
+        raise AssertionError("a plain version ran on a CUDA tensor")
+    monkeypatch.setattr(fa, "_forward_plain", refuse)
+    monkeypatch.setattr(fb, "_backward_plain", refuse)
+    for d, window, cap in ((32, None, None), (128, 77, None),
+                           (256, None, 50.0)):
+        q, k, v, do = _qkv(34, 1, 4, 2, 200, 200, d, torch.float32, cuda)
+        before = {**fa.LAUNCH_COUNTS, **fb.LAUNCH_COUNTS}
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        o = fa.flash_attention(*leaves, causal=True, window_size=window,
+                               logit_softcap=cap)
+        (o * do).sum().backward()
+        torch.cuda.synchronize()
+        assert o.dtype == torch.float32
+        assert all(torch.isfinite(x.grad).all() for x in leaves)
+        after = {**fa.LAUNCH_COUNTS, **fb.LAUNCH_COUNTS}
+        for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            assert after[f"{name}_f32"] == before[f"{name}_f32"] + 1, name
+            assert after[f"{name}_sm90"] == before[f"{name}_sm90"], name
+
+
+def test_dryrun_multichip_on_one_card(cuda, capsys):
+    """`dryrun_multichip(1)` on the card in a one-rank NCCL group it starts
+    itself: JAX's three lines (mesh dp=1 tp=1 cp=1, ep 1, one pipeline
+    stage equal to its chain), the pipeline leg on the true-fp32
+    kernels at head_dim 32."""
+    from metal_flash_attention_tpu_torch.entry import dryrun_multichip
+
+    before = {**fa.LAUNCH_COUNTS, **fb.LAUNCH_COUNTS}
+    dryrun_multichip(1)
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0].startswith("dryrun_multichip(1): mesh dp=1 tp=1 cp=1, "
+                               "loss=")
+    assert lines[1].startswith("  ep dryrun: mesh dp=1 ep=1, loss=")
+    assert lines[2].startswith("  pp dryrun: 1 stages fwd+bwd, loss=")
+    after = {**fa.LAUNCH_COUNTS, **fb.LAUNCH_COUNTS}
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        assert after[f"{name}_f32"] > before[f"{name}_f32"], name
+        assert after[f"{name}_d32"] > before[f"{name}_d32"], name

@@ -33,6 +33,7 @@ MODULES = [
     "metal_flash_attention_tpu_torch.descriptors.parameters",
     "metal_flash_attention_tpu_torch.descriptors.precision",
     "metal_flash_attention_tpu_torch.dispatch",
+    "metal_flash_attention_tpu_torch.entry",
     "metal_flash_attention_tpu_torch.models.convert",
     "metal_flash_attention_tpu_torch.models.engine",
     "metal_flash_attention_tpu_torch.models.llama",
@@ -69,6 +70,7 @@ MODULES = [
     "metal_flash_attention_tpu_torch.utils.device",
     "metal_flash_attention_tpu_torch.utils.errors",
     "metal_flash_attention_tpu_torch.utils.params",
+    "metal_flash_attention_tpu_torch.utils.profiling",
     "metal_flash_attention_tpu_torch.utils.shapes",
     "metal_flash_attention_tpu_torch.utils.tolerances",
     "metal_flash_attention_tpu_torch.utils.tree",
@@ -284,6 +286,12 @@ def test_constructors_put_tensors_where_the_default_resolves(monkeypatch):
                             "MFA_DECODE_STAGES")),
     ("flash_decode.cu", ("MFA_DECODE_BLOCK_KV", "MFA_DECODE_MAX_GROUP",
                          "MFA_DECODE_STAGES", "MFA_DECODE_MMA")),
+    ("flash_attention_f32.cu", ("MFA_F32_BLOCK_Q", "MFA_F32_BLOCK_KV",
+                                "MFA_F32_D256_FWD_BLOCK_KV",
+                                "MFA_F32_D256_DQ_BLOCK_KV",
+                                "MFA_F32_DKV_BLOCK_KV",
+                                "MFA_F32_D256_DKV_BLOCK_KV",
+                                "MFA_F32_DKV_BLOCK_Q", "MFA_F32_STAGES")),
     ("gemm.cu", ("MFA_GEMM_BLOCK_M", "MFA_GEMM_BLOCK_N", "MFA_GEMM_BLOCK_K")),
     ("gemm.cu", ("MFA_GEMM90_BLOCK_M", "MFA_GEMM90_BLOCK_N",
                  "MFA_GEMM90_QUANT_BLOCK_M", "MFA_GEMM90_QUANT_BLOCK_N",

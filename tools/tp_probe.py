@@ -91,6 +91,12 @@ and power limit:
    seconds a step, each rank's peak memory, exact flash counts, and one
    profiled step a rank (busy share beside the bubble (S - 1) / (M + S -
    1)).
+11. dryrun: the port's `entry.dryrun_multichip(world)` on this group
+   (every rank calls it, rank 0 prints the JAX dry run's three lines): at
+   4 ranks mesh data 1 x heads 2 x context 2 (ring attention), the MoE at
+   ep 2, and 4 pipeline stages of float32 tiny Llama layers whose loss
+   and gradients the leg holds to its chain (it raises otherwise); each
+   rank's launch counts, the true-fp32 kernels' exact (`dryrun_f32`).
 
 The training phases need 4 ranks and run outside inference mode.
 ``--phases a,b`` runs a subset; ``--world N`` another rank count.
@@ -139,9 +145,9 @@ CP_KV_HEADS = 8
 CP_ITERS = 20
 PHASES = ("tp_serve", "gemma_tp_serve", "moe_tp_serve", "cp_checks",
           "tp_train", "gemma_tp_train", "moe_tp_train", "ring_train_checks",
-          "cp_train", "pp_train")
+          "cp_train", "pp_train", "dryrun")
 TRAINING = ("tp_train", "gemma_tp_train", "moe_tp_train",
-            "ring_train_checks", "cp_train", "pp_train")
+            "ring_train_checks", "cp_train", "pp_train", "dryrun")
 NCCL = {"nccl": ("nccl",)}
 # --rehearse: the same phases on the CPU at tiny sizes.
 REHEARSE = {"prompt_lens": (40, 12, 30, 21), "max_new": 5, "page": 16,
@@ -1492,6 +1498,47 @@ def pp_train(run: Run) -> None:
                             f"{want}")
     del local
     run.reset_peak()
+
+
+def dryrun_f32(world: int, rank: int) -> int:
+    """Each true-fp32 kernel's launches on a rank of the dry run's
+    pipeline leg: every stage runs each of M + S - 1 steps, then the
+    chain runs M microbatches through S stages (M = entry.PP_MICRO, S =
+    min(4, world)); ranks from S on sit the leg out."""
+    from metal_flash_attention_tpu_torch import entry
+
+    m, s = entry.PP_MICRO, min(4, world)
+    return m + s - 1 + m * s if rank < s else 0
+
+
+def dryrun(run: Run) -> None:
+    from metal_flash_attention_tpu_torch import entry
+    from metal_flash_attention_tpu_torch.ops import flash_attention as fa
+    from metal_flash_attention_tpu_torch.ops import flash_attention_bwd as fb
+
+    fa.reset_launch_counts()
+    fb.reset_launch_counts()
+    t0 = time.perf_counter()
+    entry.dryrun_multichip(run.world,
+                           device="cpu" if run.rehearse else None)
+    run.sync()
+    seconds = time.perf_counter() - t0
+    launches = {k: c for k, c in {**fa.LAUNCH_COUNTS,
+                                  **fb.LAUNCH_COUNTS}.items() if c}
+    want = {f"{op}_f32": dryrun_f32(run.world, run.rank)
+            for op in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    # The plain versions run on the CPU: only the card counts launches.
+    exact = run.rehearse or all(launches.get(k, 0) == n
+                                for k, n in want.items())
+    per_rank = run.gather({"launches": launches, "seconds": seconds,
+                           "f32_expected": want, "f32_exact": exact})
+    run.say("dryrun", {"world": run.world,
+                       "mesh_dp_tp_cp": entry.mesh_split(run.world),
+                       "ranks": per_rank})
+    if not all(r["f32_exact"] for r in per_rank):
+        run.failures.append(f"dryrun: float32 launches by rank "
+                            f"{[r['launches'] for r in per_rank]}, "
+                            f"expected {[r['f32_expected'] for r in per_rank]}")
 
 
 def dropped_rank(sa, call):
