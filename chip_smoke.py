@@ -337,6 +337,26 @@ Phases (any failure exits non-zero and prints no result):
    PP_MICRO microbatches, the stage PP_LAYERS Llama-3-8B layers in bf16:
    loss and gradients against the sequential chain by the training
    gates, exact flash counts;
+10c. tiny_serve: `LlamaConfig.tiny()` and `GemmaConfig.tiny()` (head_dim
+   32, bf16, seeded weights) through the engine (Llama over bf16, INT8
+   and NF4 pools; both by `step()`, `step_burst(TINY_BURST)` and with the
+   prefix cache) and dense `generate`, each run's counts set to 0 just
+   before and read just after: every launch at D 32 (`_d32`), rows 1 and
+   6 launched, exact counts for Llama's `step()` runs, no plain attention
+   called (`plain_watch`), the burst and prefix streams equal `step()`'s
+   up to a near tie; then every path's teacher-forced logits, each step
+   on the same state, against the plain versions on the card
+   (`plain_on_card`) at REF_*; new tokens/s a run; docs_examples: the
+   docs' single-device examples (tests/test_docs_examples.py's cases but
+   the two that need 8 devices) through the port's public API, each
+   against itself under `plain_on_card` (attention by the worst 64-row
+   tile, the GEMM, the training guide's losses and master weights, the
+   decode loop's logits), the decode loop on `flash_decode_d32`; then
+   d32_checks, and d32_decode_checks: rows 1 (decode, prefill, the wide
+   decode) and 6 at D 32 over bf16 and each quantized pool or cache and
+   with Gemma's cap and window, each against its plain version by the
+   worst tile and lse with a planted one-tile fault, timed beside its
+   bound, its plain version and (row 6) SDPA with a length mask;
 11. softmax_checks: `scaled_softmax` (default scale) and
    `derivative_softmax` (scale 0.5, on P from it and a random dP) on
    scores [1, 32, 8192, 8192] bf16 (Llama-3-8B's heads at the training
@@ -517,7 +537,8 @@ Output: `serve`, `tp_serve`, `reference`, `quant_serve`, `burst_serve`,
 `quant_kernel_checks`,
 `quant_fwd_checks`, `train`,
 `train_profile`, `train_reference`, `flash_checks`, `entry`,
-`tp_train`, `ring_checks`, `pp_check`, `d32_checks`, `softmax_checks`,
+`tp_train`, `ring_checks`, `pp_check`, `tiny_serve`, `docs_examples`,
+`d32_checks`, `d32_decode_checks`, `softmax_checks`,
 `gemma_params`, `gemma_serve`, `gemma_dense`, `gemma_reference`,
 `gemma_checks`, `gemma_train`, `gemma_train_profile`,
 `gemma_train_reference`, `gemma_bwd_checks`, `options_attention`,
@@ -3386,7 +3407,8 @@ def d32_checks(dev, card, launches_by_path) -> list[dict]:
     must see; their times beside the bound, the plain versions' and
     SDPA's (the library yardstick, never called by the port).
     ``launches_by_path``: {path: launch counts} of the main paths that ran
-    them (entry, tp_train)."""
+    them (entry, tp_train, ring_checks, tiny_serve, docs_examples).  Then
+    rows 1 and 6 at D 32 (`d32_decode_checks`)."""
     import torch
     import torch.nn.functional as F
     from metal_flash_attention_tpu_torch.ops import flash_attention as fa
@@ -3539,6 +3561,957 @@ def d32_checks(dev, card, launches_by_path) -> list[dict]:
             "library": library, "shape": shape, "kernel": note,
             "limits": {"tile_rel_rms": KERNEL_TILE_REL_RMS,
                        "lse_abs": MIXED_TOL.lse}, "card": card})
+    return out + d32_decode_checks(dev, card, launches_by_path)
+
+
+# Head dim 32 in the paged and dense decode kernels (slice 23): the tiny
+# Llama and Gemma-2 configs served on the card, the docs' single-device
+# examples through the port, and rows 1 and 6 at D 32 against their plain
+# versions.
+TINY_SHARED = 32                       # tokens every prompt shares: 2 pages
+TINY_SUFFIXES = (9, 45, 98, 20)
+TINY_NEW = 24
+TINY_PAGE = 16
+TINY_BURST = 4
+TINY_DENSE = (4, 48)                   # dense batch, prompt tokens
+TINY_PRECISIONS = (None, "int8", "nf4")
+# Rows 1 and 6 at D 32: the tiny configs' heads (4 q, 2 kv) and pages,
+# at contexts long enough that a launch is not all overhead.
+D32_DECODE_LENS = (4096, 3000, 1777, 513, 2048, 64, 1, 4000)
+D32_PREFILL = (2, 64, (2048, 1100))    # batch, q_chunk, lengths
+D32_WIDE_CHUNK = 64                    # chunk positions folded into heads
+D32_CAP, D32_WINDOW = 50.0, 64         # GemmaConfig.tiny's cap and window
+D32_HEADS = (4, 2)
+# The training guide on the card: the share of float32 master weights
+# whose two-step update may differ from the plain path's by more than the
+# rate (AdamW moves a weight by about the rate whatever its gradient's
+# size, so one whose bf16 gradient is near 0 may step either way), and
+# the INT8 GEMM's largest error over the output's largest value.
+DOCS_ADAM_LR = 3e-4
+DOCS_ADAM_FLIP_SHARE = 1e-2
+DOCS_GEMM_REL = 1e-2
+
+
+def attention_modules() -> tuple:
+    """(flash_attention, flash_attention_bwd, flash_decode,
+    paged_attention, gemm) op modules of the port."""
+    from metal_flash_attention_tpu_torch.ops import flash_attention as fa
+    from metal_flash_attention_tpu_torch.ops import flash_attention_bwd as fb
+    from metal_flash_attention_tpu_torch.ops import flash_decode as fd
+    from metal_flash_attention_tpu_torch.ops import paged_attention as pa
+    return fa, fb, fd, pa, gemm_module()
+
+
+@contextlib.contextmanager
+def plain_on_card():
+    """Every kernel entry of the port's attention and GEMM ops replaced,
+    inside the block, by its plain version on the same (CUDA) tensors:
+    the reference a path's kernels are held against on the card.  No
+    kernel launches and no count moves inside it."""
+    from metal_flash_attention_tpu_torch.ops.quantization import (
+        QuantizedTensor,
+    )
+    fa, fb, fd, pa, tg = attention_modules()
+
+    def forward(q, k, v, *, tiles=None, **kw):
+        plain = (fa._forward_plain_quantized
+                 if isinstance(k, QuantizedTensor) else fa._forward_plain)
+        return plain(q, k, v, **kw)
+
+    def grads(q, k, v, do, lse, d_term, *, tiles=None, dbias=None, **kw):
+        return fb._backward_plain(q, k, v, do, lse=lse, d_term=d_term, **kw)
+    patches = [
+        (fa, "_forward_cuda", forward),
+        (fb, "_dq_cuda", lambda *a, **kw: grads(*a, **kw)[0]),
+        (fb, "_dkv_cuda", lambda *a, **kw: grads(*a, **kw)[1:]),
+        (pa, "_paged_attention_cuda",
+         lambda q, cache, *, decode, pages_per_chunk=None, **kw:
+         pa._paged_attention_plain(q, cache, **kw)),
+        (fd, "_flash_decode_cuda",
+         lambda q, k, v, *, block_kv=None, **kw:
+         fd._flash_decode_plain(q, k, v, **kw)),
+        (tg, "_gemm_cuda",
+         lambda ops, c, register_dtype, out_dtype, *_:
+         tg._plain_product(ops, c, register_dtype, out_dtype))]
+    with contextlib.ExitStack() as stack:
+        for m, n, fn in patches:
+            stack.enter_context(planted(m, n, lambda _, fn=fn: fn))
+        yield
+
+
+@contextlib.contextmanager
+def plain_watch(counts: dict):
+    """The plain attention versions wrapped, inside the block, to count
+    their calls into ``counts``: a path on the card that reaches one has
+    left its kernels."""
+    fa, _, fd, pa, _ = attention_modules()
+    owners = {"_forward_plain": fa, "_forward_plain_quantized": fa,
+              "_paged_attention_plain": pa, "_flash_decode_plain": fd}
+
+    def counted(name):
+        def wrap(fn):
+            def run(*args, **kwargs):
+                counts[name] = counts.get(name, 0) + 1
+                return fn(*args, **kwargs)
+            return run
+        return wrap
+    with contextlib.ExitStack() as stack:
+        for n, m in owners.items():
+            stack.enter_context(planted(m, n, counted(n)))
+        yield
+
+
+def d32_count_errors(counts: dict, needed) -> list:
+    """A D 32 path's launch problems: a kernel launched off its `_d32`
+    count (every launch of a tiny config is at head dim 32), or one of
+    ``needed`` never launched."""
+    bad = [f"{k} {n} but {k}_d32 {counts.get(k + '_d32', 0)}"
+           for k, n in counts.items()
+           if k in ("flash_fwd", "flash_decode", "paged_decode",
+                    "paged_decode_wide", "paged_prefill")
+           and counts.get(k + "_d32", 0) != n]
+    bad += [f"{k} never launched" for k in needed if not counts.get(k)]
+    return bad
+
+
+# A tiny config (head_dim 32, bf16), the module whose init_params makes
+# its weights, and the port's functions that serve it: the paged chunk and
+# decode steps, the dense prefill and decode step, and generate.
+TinyConfig = collections.namedtuple(
+    "TinyConfig", "cfg module chunk decode prefill dense_step generate")
+
+
+def tiny_configs() -> dict:
+    """{name: TinyConfig} of the two tiny configs."""
+    from metal_flash_attention_tpu_torch.models import gemma, llama, serving
+    return {
+        "llama_tiny": TinyConfig(
+            llama.LlamaConfig.tiny(), llama, serving.paged_chunk_step,
+            serving.paged_decode_step, serving.prefill, serving.decode_step,
+            serving.generate),
+        "gemma_tiny": TinyConfig(
+            gemma.GemmaConfig.tiny(), gemma, serving.gemma_paged_chunk_step,
+            serving.gemma_paged_decode_step, serving.gemma_prefill,
+            serving.gemma_decode_step, serving.gemma_generate)}
+
+
+def tiny_engine(params, cfg, name, kv_precision=None, prefix=False):
+    from metal_flash_attention_tpu_torch import ServingEngine
+    tiny = tiny_configs()[name]
+    hooks = ({} if name == "llama_tiny"
+             else {"chunk_step": tiny.chunk, "decode_step": tiny.decode})
+    max_seq = TINY_SHARED + max(TINY_SUFFIXES) + TINY_NEW + 1
+    return ServingEngine(
+        params, cfg, max_batch=len(TINY_SUFFIXES),
+        num_pages=len(TINY_SUFFIXES) * -(-max_seq // TINY_PAGE) + 1,
+        page_size=TINY_PAGE, max_seq=max_seq, kv_precision=kv_precision,
+        prefix_cache=prefix, seed=SAMPLE_SEED, **hooks)
+
+
+def tiny_drain(eng, prompts, dev, burst=0) -> dict:
+    """Request 0 alone, then the others (so a prefix cache hits): the
+    streams, seconds and engine calls."""
+    import torch
+    stages = [prompts[:1], prompts[1:]]
+    streams, secs, calls = [], 0.0, 0
+    for stage in stages:
+        rids = [eng.submit(p, TINY_NEW) for p in stage]
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        while not eng.idle:
+            eng.step_burst(burst) if burst else eng.step()
+            calls += 1
+            if calls > 10_000:
+                fail("a tiny engine did not drain")
+        torch.cuda.synchronize(dev)
+        secs += time.perf_counter() - t0
+        streams += [eng.result(r).tolist() for r in rids]
+    return {"streams": streams, "seconds": secs, "calls": calls}
+
+
+def cloned(tree):
+    """A copy of a cache (NamedTuples, lists, tuples and dicts of tensors)
+    whose tensors are new: a step run on it leaves the original as it
+    was."""
+    import torch
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(cloned(x) for x in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(cloned(x) for x in tree)
+    if isinstance(tree, dict):
+        return {k: cloned(x) for k, x in tree.items()}
+    return tree
+
+
+def tiny_replay(params, cfg, name, tokens, prompt, dev, precision=None,
+                dense=False) -> tuple[list, list]:
+    """Teacher-forced logits of ``tokens`` [batch, n] (every row fed the
+    same tokens, whatever the model would pick): the paged steps (chunks
+    of TINY_PAGE over the first ``prompt`` tokens, then a decode step a
+    token) over bf16 or ``precision`` pools, or with ``dense`` the dense
+    prefill and decode steps.  Each step runs twice on the same state:
+    first on a copy of the cache with the plain versions
+    (`plain_on_card`), then with the kernels, whose cache the next step
+    takes; so the two differ by that step's kernels alone, not by K/V
+    that earlier steps wrote apart (NF4's 16 levels would turn a bf16
+    difference upstream into a whole code step).  Returns (the kernels'
+    float32 logits, the plain versions') a step."""
+    import torch
+    from metal_flash_attention_tpu_torch.models import serving
+    tiny = tiny_configs()[name]
+    chunk, decode = tiny.chunk, tiny.decode
+    b, n = tokens.shape
+    got, want = [], []
+    with torch.inference_mode():
+        if dense:
+            cache = serving.init_cache(cfg, b, n, device=dev)
+            steps = [(tiny.prefill, tokens[:, :prompt])]
+            step = tiny.dense_step
+        else:
+            if precision is None:
+                cache = serving.init_paged_model_cache(
+                    cfg, b, n, page_size=TINY_PAGE, device=dev)
+            else:
+                cache = serving.init_quantized_paged_model_cache(
+                    cfg, b, n, precision=precision, page_size=TINY_PAGE,
+                    device=dev)
+                chunk, decode = serving.paged_chunk_step_q, \
+                    serving.paged_decode_step_q
+            steps = [(chunk, tokens[:, i:min(i + TINY_PAGE, prompt)])
+                     for i in range(0, prompt, TINY_PAGE)]
+            step = decode
+        steps += [(step, tokens[:, i]) for i in range(prompt, n)]
+        for fn, x in steps:
+            with plain_on_card():
+                ref, _ = fn(params, x, cfg, cloned(cache))
+            logits, cache = fn(params, x, cfg, cache)
+            got.append(logits.reshape(-1, logits.shape[-1]))
+            want.append(ref.reshape(-1, ref.shape[-1]))
+    return got, want
+
+
+def tiny_logits_at(params, cfg, name, dev):
+    """logits_at(prompt, prefix) for `tie_gate`: the float32 logits of
+    the paged kernel path (chunks of TINY_PAGE, then decode steps) at the
+    token after ``prompt`` and ``prefix``, one row."""
+    import torch
+    tiny = tiny_configs()[name]
+    from metal_flash_attention_tpu_torch.models import serving
+
+    def logits_at(prompt, prefix):
+        with torch.inference_mode():
+            n = len(prompt) + len(prefix) + 1
+            cache = serving.init_paged_model_cache(
+                cfg, 1, n, page_size=TINY_PAGE, device=dev)
+            p = torch.as_tensor(prompt, dtype=torch.int32,
+                                device=dev)[None]
+            for i in range(0, p.shape[1], TINY_PAGE):
+                logits, cache = tiny.chunk(params, p[:, i:i + TINY_PAGE],
+                                           cfg, cache)
+            logits = logits[:, -1]
+            for t in prefix:
+                logits, cache = tiny.decode(params, torch.tensor(
+                    [int(t)], dtype=torch.int32, device=dev), cfg, cache)
+            return logits[0].float()
+    return logits_at
+
+
+def logits_reading(got: list, want: list) -> dict:
+    import torch
+    g = torch.cat([x.float().reshape(-1) for x in got])
+    w = torch.cat([x.float().reshape(-1) for x in want])
+    err = g - w
+    return {"rel_rms": float(err.pow(2).mean().sqrt()
+                             / w.pow(2).mean().sqrt()),
+            "max_abs_err": float(err.abs().max()),
+            "finite": bool(torch.isfinite(g).all())}
+
+
+def logits_ok(r: dict) -> bool:
+    return (r["finite"] and r["rel_rms"] <= REF_REL_RMS
+            and r["max_abs_err"] <= REF_MAX_ABS)
+
+
+def tiny_serve(dev, card) -> dict:
+    """tiny_serve: `LlamaConfig.tiny()` and `GemmaConfig.tiny()` (head_dim
+    32, bf16, seeded weights) through the normal entry points on the
+    card: the engine (Llama over bf16, INT8 and NF4 pools; both by
+    `step()`, by `step_burst(TINY_BURST)` and with the prefix cache), and
+    dense `generate`.  Each run's launch counts are set to 0 just before
+    it and read just after: every attention launch at D 32, rows 1 and 6
+    launched, and no plain attention called; the burst and prefix-cache
+    streams equal step()'s up to a near tie (`tie_gate`).  Then each
+    path is held against the plain versions on the card by teacher-forced
+    logits (the engine's first stream's tokens for every row, so a near
+    tie cannot fork them; each step on the same state, `tiny_replay`) at
+    the logits gate (REF_REL_RMS, REF_MAX_ABS).  Returns {path: launch
+    counts}."""
+    import torch
+    from metal_flash_attention_tpu_torch.models import serving
+
+    rng = np.random.default_rng(SEED + 101)
+    paths, readings, problems, summary = {}, {}, [], {}
+    for name, tiny in tiny_configs().items():
+        cfg = tiny.cfg
+        params = tiny.module.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(SEED + 102),
+            device=dev)
+        shared = rng.integers(0, cfg.vocab_size, TINY_SHARED)
+        prompts = [np.concatenate([shared, rng.integers(
+            0, cfg.vocab_size, s)]).astype(np.int32) for s in TINY_SUFFIXES]
+        runs = [("engine", None, False, 0), ("burst", None, False,
+                                             TINY_BURST),
+                ("prefix", None, True, 0)]
+        if name == "llama_tiny":
+            runs += [(f"engine_{p}", p, False, 0)
+                     for p in TINY_PRECISIONS if p]
+        streams = {}
+        # A warm-up request (library loads, cuBLAS handles); not counted.
+        tiny_drain(tiny_engine(params, cfg, name), prompts[:2], dev)
+        for label, prec, prefix, burst in runs:
+            path = f"{name}.{label}"
+            plain_calls: dict = {}
+            calls: dict = {}
+            with plain_watch(plain_calls), counted_calls(
+                    serving, SERVE_STEPS, calls):
+                reset_attention_counts()
+                eng = tiny_engine(params, cfg, name, prec, prefix)
+                run = tiny_drain(eng, prompts, dev, burst)
+                counts = attention_counts()
+            paths[path] = counts
+            streams[label] = run["streams"]
+            needed = ["paged_decode", "paged_decode_d32"]
+            needed += (["paged_prefill_d32"] if prec is None else
+                       ["flash_decode_d32", "paged_decode_wide_d32",
+                        "flash_fwd_d32"])
+            bad = d32_count_errors(counts, needed)
+            if name == "llama_tiny" and not burst and not prefix:
+                exp = expected_serve_launches(cfg, calls, prec)
+                exp.update({f"{k}_d32": n for k, n in exp.items()
+                            if k in ("flash_fwd", "flash_decode",
+                                     "paged_decode", "paged_decode_wide",
+                                     "paged_prefill")})
+                bad += [f"{k} {n}, expected {e}" for k, (n, e) in
+                        launch_errors(counts, exp).items()]
+            if name == "gemma_tiny":
+                bad += [f"{k} {n} not capped" for k, n in counts.items()
+                        if k in ("paged_decode", "paged_prefill")
+                        and counts.get(k + "_softcap") != n]
+            if plain_calls:
+                bad.append(f"plain attention called {plain_calls}")
+            if prefix:
+                eng.prefix_cache.flush()
+                if not eng.prefix_cache.hit_tokens:
+                    bad.append("the prefix cache never hit")
+            if eng.alloc.free_pages != eng.alloc.num_pages - 1:
+                bad.append("pages leaked")
+            for s, p in zip(run["streams"], prompts):
+                out = np.asarray(s)
+                if len(out) != len(p) + TINY_NEW or not (
+                        (out >= 0) & (out < cfg.vocab_size)).all():
+                    bad.append("a stream of the wrong length or vocabulary")
+            problems += [f"{path}: {x}" for x in bad]
+            new = TINY_NEW * len(prompts)
+            summary[path] = {
+                "new_tokens_per_s": new / run["seconds"],
+                "seconds": run["seconds"], "engine_calls": run["calls"],
+                "d32_launches": {k: n for k, n in counts.items()
+                                 if k.endswith("_d32")},
+                "plain_calls": plain_calls}
+            if prefix:
+                summary[path]["hit_tokens"] = eng.prefix_cache.hit_tokens
+            del eng
+        # The burst and prefix-cache streams against step()'s: equal, or
+        # parting first at a near tie (SPEC_TIE) on the step path.
+        logits_at = tiny_logits_at(params, cfg, name, dev)
+        gen_tokens = {k: [s[len(p):] for s, p in zip(v, prompts)]
+                      for k, v in streams.items()}
+        for label in ("burst", "prefix"):
+            tie = tie_gate(gen_tokens["engine"], gen_tokens[label], prompts,
+                           logits_at)
+            summary[f"{name}.{label}"]["streams_vs_step"] = tie
+            if not tie["ok"]:
+                problems.append(f"{name}: the {label} streams part from "
+                                f"step()'s away from a tie: {tie}")
+        # Dense generate.
+        b, s = TINY_DENSE
+        prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (b, s)),
+                                 device=dev)
+        path = f"{name}.dense"
+        plain_calls = {}
+        with plain_watch(plain_calls):
+            reset_attention_counts()
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            out = tiny.generate(params, prompt, cfg, max_new_tokens=TINY_NEW)
+            torch.cuda.synchronize(dev)
+            secs = time.perf_counter() - t0
+            counts = attention_counts()
+        paths[path] = counts
+        want = {"flash_fwd": cfg.n_layers,
+                "flash_decode": cfg.n_layers * (TINY_NEW - 1)}
+        bad = d32_count_errors(counts, ["flash_fwd_d32",
+                                        "flash_decode_d32"])
+        bad += [f"{k} {counts.get(k)}, expected {n}"
+                for k, n in want.items() if counts.get(k) != n]
+        if plain_calls:
+            bad.append(f"plain attention called {plain_calls}")
+        if tuple(out.shape) != (b, s + TINY_NEW):
+            bad.append(f"generate returned {tuple(out.shape)}")
+        problems += [f"{path}: {x}" for x in bad]
+        summary[path] = {"new_tokens_per_s": b * TINY_NEW / secs,
+                         "seconds": secs,
+                         "d32_launches": {k: n for k, n in counts.items()
+                                          if k.endswith("_d32")},
+                         "plain_calls": plain_calls}
+        # Teacher-forced logits, kernels against the plain versions on the
+        # card: the engine's first stream (every row fed it) through the
+        # paged steps of each pool, then the dense steps.
+        first = streams["engine"][0]
+        tokens = torch.as_tensor(np.tile(first, (2, 1)), device=dev)
+        prompt_n = TINY_SHARED + TINY_SUFFIXES[0]
+        replays = [("paged", None, False), ("dense", None, True)]
+        if name == "llama_tiny":
+            replays += [(f"paged_{p}", p, False) for p in TINY_PRECISIONS
+                        if p]
+        for label, prec, dense in replays:
+            got, want = tiny_replay(params, cfg, name, tokens, prompt_n,
+                                    dev, prec, dense)
+            r = logits_reading(got, want)
+            readings[f"{name}.{label}"] = r
+            if not logits_ok(r):
+                problems.append(f"{name}.{label}: teacher-forced logits "
+                                f"disagree with the plain path: {r}")
+        del params
+        torch.cuda.empty_cache()
+    print("tiny_serve: " + json.dumps({
+        "configs": "LlamaConfig.tiny(), GemmaConfig.tiny() (dim 128, 4 q / "
+                   "2 kv heads, head_dim 32, 2 layers; Gemma: cap 50, "
+                   "window 64), bf16, seeded weights",
+        "requests": len(TINY_SUFFIXES), "shared_prefix": TINY_SHARED,
+        "prompt_tokens": [TINY_SHARED + s for s in TINY_SUFFIXES],
+        "new_tokens": TINY_NEW, "page": TINY_PAGE, "burst": TINY_BURST,
+        "dense": {"batch": TINY_DENSE[0], "prompt": TINY_DENSE[1]},
+        "runs": summary, "teacher_forced_logits": readings,
+        "limits": {"rel_rms": REF_REL_RMS, "max_abs": REF_MAX_ABS},
+        "card": card}), flush=True)
+    if problems:
+        fail("tiny_serve: " + "; ".join(problems))
+    return paths
+
+
+def docs_examples(dev, card) -> dict:
+    """docs_examples: the docs' single-device examples (the cases of
+    tests/test_docs_examples.py but the two eight-device ones, which need
+    8 cards) through the port on the card, with seeded inputs; each held
+    against the same example through the plain versions on the card
+    (`plain_on_card`): attention by the worst 64-row tile, the GEMM by
+    its largest error over the output's scale, the training guide's
+    losses and master weights, the decode loop's teacher-forced logits.
+    The decode loop (tiny Llama, head_dim 32) must launch
+    `flash_decode_d32`.  Returns {example: launch counts}."""
+    import torch
+    import metal_flash_attention_tpu_torch as mfa
+    from metal_flash_attention_tpu_torch.dispatch import build_attention
+    from metal_flash_attention_tpu_torch.models import llama, serving
+    from metal_flash_attention_tpu_torch.models.optim import make_train_step
+    from metal_flash_attention_tpu_torch.ops.paged_attention import (
+        init_paged_cache,
+        paged_append,
+        paged_decode,
+        quantize_paged,
+    )
+    from metal_flash_attention_tpu_torch.utils import checkpoint, data
+
+    OP = mfa.OperandPrecision
+    _, fb, _, _, tg = attention_modules()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 111)
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def quickstart():
+        q, k, v = randn(2, 8, 256, 64), randn(2, 2, 256, 64), \
+            randn(2, 2, 256, 64)
+        mask = torch.rand((2, 8, 256, 256), generator=gen, device=dev) < 0.8
+        bias = randn(2, 8, 256, 256, dtype=torch.float32)
+        ids = torch.sort(torch.randint(0, 3, (2, 256), generator=gen,
+                                       device=dev), dim=1).values.to(
+            torch.int32)
+        o32 = mfa.flash_attention(q, k, v, out_dtype=torch.float32)
+        if o32.dtype != torch.float32:
+            fail("docs_examples: out_dtype float32 not kept")
+        return {"causal": mfa.flash_attention(q, k, v, causal=True),
+                "mask_bias_window": mfa.flash_attention(
+                    q, k, v, mask=mask, bias=bias, window_size=128),
+                "segments": mfa.flash_attention(
+                    q, k, v, q_segment_ids=ids, kv_segment_ids=ids,
+                    causal=True),
+                "low_precision": mfa.flash_attention(
+                    q, k, v, low_precision_intermediates=True),
+                "out_fp32": o32}
+
+    def dispatch_facade():
+        fn = build_attention(mfa.AttentionDescriptor(
+            batch=2, q_heads=8, kv_heads=2, q_len=256, kv_len=256,
+            head_dim=64, causal=True))
+        return {"o": fn(randn(2, 8, 256, 64), randn(2, 2, 256, 64),
+                        randn(2, 2, 256, 64))}
+
+    def quantized_kv():
+        q, k, v = randn(1, 4, 128, 64), randn(1, 2, 128, 64), \
+            randn(1, 2, 128, 64)
+        return {"o": mfa.flash_attention(q, mfa.quantize(k, OP.FP8_E4M3),
+                                         mfa.quantize(v, OP.FP8_E4M3))}
+
+    def gemm_per_operand():
+        x, w = randn(96, 160), randn(160, 64, dtype=torch.float32)
+        a = randn(64, 128, dtype=torch.float32)
+        b = randn(128, 64, dtype=torch.float32)
+        qb = mfa.quantize_matrix(w, OP.INT8, contract_axis=0,
+                                 per_channel=True)
+        return {"y": mfa.gemm(x, qb),
+                "y16": mfa.gemm(a, b, register_precision="bf16")}
+
+    def dense_decode():
+        qt, k, v = randn(2, 8, 64), randn(2, 2, 256, 64), \
+            randn(2, 2, 256, 64)
+        lens = torch.tensor([256, 100], dtype=torch.int32, device=dev)
+        return {"o": mfa.flash_decode(qt, k, v, kv_lens=lens),
+                "o_int8": mfa.flash_decode(
+                    qt, mfa.quantize(k, OP.INT8), mfa.quantize(v, OP.INT8),
+                    kv_lens=lens)}
+
+    def paged_pool():
+        cache = init_paged_cache(num_pages=16, kv_heads=2, page_size=128,
+                                 head_dim=64, batch=2, max_pages=4,
+                                 device=dev)
+        table = torch.tensor([[0, 1, 2, 3], [4, 5, 6, 7]],
+                             dtype=torch.int32, device=dev)
+        cache = cache._replace(
+            k_pages=randn(*cache.k_pages.shape),
+            v_pages=randn(*cache.v_pages.shape), page_table=table,
+            lengths=torch.tensor([256, 129], dtype=torch.int32, device=dev))
+        q = randn(2, 8, 64)
+        out = {"o": paged_decode(q, cache),
+               "o_int8": paged_decode(q, quantize_paged(cache, OP.INT8))}
+        grown = paged_append(cache, q[:, :2, :], q[:, :2, :])
+        if int(grown.lengths[0]) != 257:
+            fail("docs_examples: paged_append did not grow the cache")
+        return out
+
+    def training_guide():
+        cfg = llama.LlamaConfig.tiny(n_layers=1)
+        params = llama.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(SEED + 112),
+            device=dev)
+        shard = os.path.join(tempfile.mkdtemp(prefix="mfa_docs_"), "s.bin")
+        data.write_shard(shard, np.random.default_rng(SEED).integers(
+            0, cfg.vocab_size, 4000).astype(np.uint16))
+        loader = data.TokenLoader([shard], batch=2, seq_len=16, seed=0,
+                                  device=dev)
+        init, step = make_train_step(
+            lambda p, b: llama.loss_fn(p, b, cfg),
+            lambda t: torch.optim.AdamW(t, lr=DOCS_ADAM_LR,
+                                        betas=(0.9, 0.999), eps=1e-8,
+                                        weight_decay=1e-4))
+        state = init(params)
+        start = [s.clone() for s in state["shadow"]]
+        losses = []
+        for batch in loader.take(2):
+            params, state, loss = step(params, state, batch)
+            losses.append(loss.float().reshape(1))
+        tree = {"params": params, "opt": state, "data": loader.state()}
+        ck = os.path.dirname(shard)
+        checkpoint.save(os.path.join(ck, "ck"), tree, step=2)
+        fresh = llama.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(SEED + 112),
+            device=dev)
+        like = {"params": fresh, "opt": init(fresh), "data": (0, 0)}
+        restored = checkpoint.restore(
+            checkpoint.latest(os.path.join(ck, "ck")), like=like)
+        same = restored["data"] == loader.state() and all(
+            torch.equal(a, b) for a, b in zip(restored["opt"]["shadow"],
+                                              state["shadow"]))
+        shutil.rmtree(ck, ignore_errors=True)
+        if not same:
+            fail("docs_examples: the checkpoint round trip is not exact")
+        moved = torch.cat([(s - s0).reshape(-1) for s, s0 in
+                           zip(state["shadow"], start)])
+        return {"loss": torch.cat(losses), "update": moved}
+
+    def decode_loop():
+        cfg = llama.LlamaConfig.tiny(n_layers=1)
+        params = llama.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(SEED + 113),
+            device=dev)
+        prompt = torch.as_tensor(np.random.default_rng(SEED).integers(
+            0, cfg.vocab_size, (2, 8)), device=dev)
+        cache = serving.init_cache(cfg, 2, 12, device=dev)
+        logits, cache = serving.prefill(params, prompt, cfg, cache)
+        tok = logits.argmax(-1).to(torch.int32)
+        toks, out = [tok], [logits]
+        for _ in range(3):
+            logits, cache = serving.decode_step(params, tok, cfg, cache)
+            tok = logits.argmax(-1).to(torch.int32)
+            toks.append(tok)
+            out.append(logits)
+        ref = serving.generate(params, prompt, cfg, max_new_tokens=4)
+        got = torch.stack(toks, dim=1)
+        if got.tolist() != ref[:, prompt.shape[1]:].tolist():
+            fail("docs_examples: the decode loop differs from generate")
+        # Teacher forcing: the plain path is fed these tokens.
+        return {"logits": torch.stack(out, 1), "tokens": got,
+                "prompt": prompt, "params": params, "cfg": cfg}
+
+    def decode_loop_plain(run):
+        params, cfg, prompt = run["params"], run["cfg"], run["prompt"]
+        cache = serving.init_cache(cfg, 2, 12, device=dev)
+        logits, cache = serving.prefill(params, prompt, cfg, cache)
+        out = [logits]
+        for i in range(3):
+            logits, cache = serving.decode_step(
+                params, run["tokens"][:, i], cfg, cache)
+            out.append(logits)
+        return torch.stack(out, 1)
+
+    examples = {"readme_quickstart": quickstart,
+                "dispatch_facade": dispatch_facade,
+                "quantized_kv": quantized_kv,
+                "gemm_per_operand": gemm_per_operand,
+                "dense_decode": dense_decode, "paged_pool": paged_pool,
+                "training_guide": training_guide,
+                "decode_loop": decode_loop}
+    paths, readings, problems = {}, {}, []
+    for name, example in examples.items():
+        seed = SEED + 120 + len(paths)
+        plain_calls: dict = {}
+        gen.manual_seed(seed)
+        with plain_watch(plain_calls):
+            for m in (fb, tg):
+                m.reset_launch_counts()
+            reset_attention_counts()
+            got = example()
+            torch.cuda.synchronize(dev)
+            counts = {**attention_counts(), **{
+                k: n for m in (fb, tg) for k, n in m.LAUNCH_COUNTS.items()
+                if n}}
+        paths[name] = counts
+        if plain_calls:
+            problems.append(f"{name} called plain attention {plain_calls}")
+        gen.manual_seed(seed)
+        with plain_on_card():
+            want = (decode_loop_plain(got) if name == "decode_loop"
+                    else example())
+            torch.cuda.synchronize(dev)
+        if not counts:
+            problems.append(f"{name} launched no kernel")
+        if name == "decode_loop":
+            r = {"logits": logits_reading([got["logits"]], [want])}
+            ok = logits_ok(r["logits"])
+            if not counts.get("flash_decode_d32"):
+                problems.append("the decode loop launched no "
+                                "flash_decode_d32")
+        elif name == "training_guide":
+            r = {"loss_abs_err": float((got["loss"] - want["loss"]).abs()
+                                       .max()),
+                 "update_off_share": float(
+                     ((got["update"] - want["update"]).abs() > DOCS_ADAM_LR)
+                     .float().mean())}
+            ok = (r["loss_abs_err"] <= TRAIN_LOSS_ABS
+                  and r["update_off_share"] <= DOCS_ADAM_FLIP_SHARE)
+        elif name == "gemm_per_operand":
+            r = {k: float((got[k].float() - want[k].float()).abs().max()
+                          / want[k].float().abs().max()) for k in got}
+            ok = all(x <= DOCS_GEMM_REL for x in r.values())
+        else:
+            r = {k: closeness(got[k] if got[k].dim() > 3 else
+                              got[k][:, :, None],
+                              want[k] if want[k].dim() > 3 else
+                              want[k][:, :, None]) for k in got}
+            ok = all(within_limits(x) for x in r.values())
+        readings[name] = r
+        if not ok:
+            problems.append(f"{name} disagrees with the plain path: {r}")
+    print("docs_examples: " + json.dumps({
+        "examples": list(examples), "readings": readings,
+        "launches": paths,
+        "not_on_one_card": ["parallelism_guide_mesh_and_ring",
+                            "parallelism_guide_pipeline (8 devices; "
+                            "tests/test_torch_docs_examples.py on the CPU)"],
+        "limits": {"tile_rel_rms": KERNEL_TILE_REL_RMS,
+                   "logits": {"rel_rms": REF_REL_RMS,
+                              "max_abs": REF_MAX_ABS},
+                   "train_loss_abs": TRAIN_LOSS_ABS,
+                   "update_off_share": DOCS_ADAM_FLIP_SHARE,
+                   "gemm_rel": DOCS_GEMM_REL},
+        "card": card}), flush=True)
+    if problems:
+        fail("docs_examples: " + "; ".join(problems))
+    return paths
+
+
+def variant_launches(counts: dict, kernel: str, prec, cap) -> int:
+    """A path's D 32 launches of ``kernel`` at precision ``prec`` (None:
+    bf16) with or without the cap: its `_d32` count where every one of
+    them was of that variant (each tiny run is one precision and one cap
+    throughout), else 0."""
+    n = counts.get(f"{kernel}_d32", 0)
+    quant = {p: counts.get(f"{kernel}_{p}", 0) for p in QUANT_PRECISIONS}
+    ok = quant[prec] == n if prec else not any(quant.values())
+    ok = ok and counts.get(f"{kernel}_softcap", 0) == (n if cap else 0)
+    return n if ok else 0
+
+
+def d32_decode_checks(dev, card, launches_by_path) -> list[dict]:
+    """Rows 1 and 6 at head dim 32 (the tiny configs' 4 q / 2 kv heads,
+    TINY_PAGE pages, contexts up to 4,096 keys): `paged_decode`,
+    `paged_prefill`, the wide decode (a D32_WIDE_CHUNK-position chunk
+    folded into the heads) and `flash_decode`, over bf16 and each
+    quantized precision, and with Gemma's cap and window (rows 1) or cap
+    (row 6, K/V in the queries' type), each against its plain version by
+    the worst 64-row tile (a decode's (sequence, head) rows are tiles of
+    their own) and lse, with a planted one-tile fault (a decode's last
+    head of sequence 0 a 64-key tile short; the prefill's last head of
+    sequence 0 reading a neighbour page for its last) the limit must
+    see; then each one's time (warm; median, min-max of GEMM_REPEATS
+    profiled loops), its bound, its plain version's and, for row 6 over
+    bf16 K/V, SDPA with a length mask, or with the cap `flex_attention`
+    with a tanh score_mod and the start-to-length block mask.
+    ``launches_by_path``: {path: launch counts} of the paths that ran
+    them (tiny_serve's, docs_examples')."""
+    import torch
+    import torch.nn.functional as F
+    from metal_flash_attention_tpu_torch.descriptors.precision import (
+        OperandPrecision,
+    )
+    from metal_flash_attention_tpu_torch.ops import flash_decode as fd
+    from metal_flash_attention_tpu_torch.ops import paged_attention as pa
+    from metal_flash_attention_tpu_torch.ops.quantization import (
+        QuantizedTensor,
+        quantize,
+    )
+    from metal_flash_attention_tpu_torch.utils.tolerances import (
+        MIXED_TOL,
+        max_abs_err,
+    )
+
+    qh, kvh = D32_HEADS
+    d, page = 32, TINY_PAGE
+    scale = d ** -0.5
+    gen = torch.Generator(device=dev).manual_seed(SEED + 131)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    def pools(lengths):
+        """bf16 pools with a shuffled table and one spare page (the
+        prefill fault's neighbour)."""
+        max_pages = -(-max(lengths) // page)
+        num_pages = len(lengths) * max_pages + 2
+        shape = (num_pages, kvh, page, d)
+        perm = torch.randperm(num_pages - 2, generator=gen,
+                              device=dev).to(torch.int32) + 2
+        return pa.PagedKVCache(
+            randn(*shape), randn(*shape),
+            perm.reshape(len(lengths), max_pages),
+            torch.tensor(lengths, dtype=torch.int32, device=dev))
+
+    def as_rows(o):
+        return o if o.dim() == 4 else o[:, :, None]
+
+    readings, problems, out = {}, [], []
+    lengths = list(D32_DECODE_LENS)
+    pb, pchunk, plens = D32_PREFILL
+    caches = {"decode": pools(lengths), "prefill": pools(list(plens))}
+    qs = {"paged_decode": randn(len(lengths), qh, d),
+          "paged_prefill": randn(pb, qh, pchunk, d),
+          "paged_decode_wide": randn(len(lengths), qh * D32_WIDE_CHUNK, d)}
+    k_dense, v_dense = randn(len(lengths), kvh, max(lengths), d), \
+        randn(len(lengths), kvh, max(lengths), d)
+    dlens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    q_dense = randn(len(lengths), qh, d)
+    src = "metal_flash_attention_tpu_torch/csrc/"
+    # bf16 and each quantized precision; Gemma-2's cap (and window) over
+    # bf16 K/V, as the tiny Gemma serves (the card tests hold the cap
+    # over quantized pools too).
+    variants = [(p, None, None) for p in (None, *QUANT_PRECISIONS)]
+    variants += [(None, D32_CAP, D32_WINDOW)]
+    for kernel in ("paged_decode", "paged_prefill", "paged_decode_wide",
+                   "flash_decode"):
+        for prec, cap, window in variants:
+            tag = (f"{kernel}_d32" + (f"_{prec}" if prec else "")
+                   + ("_softcap" if cap else ""))
+            before = dict(pa.LAUNCH_COUNTS, **fd.LAUNCH_COUNTS)
+            if kernel == "flash_decode":
+                k_, v_ = k_dense, v_dense
+                if prec:
+                    k_ = quantize(k_dense, OperandPrecision(prec))
+                    v_ = quantize(v_dense, OperandPrecision(prec))
+                starts = (None if window is None else
+                          (dlens - window).clamp_min(0))
+                kw = dict(kv_lens=dlens, kv_starts=starts,
+                          logit_softcap=cap)
+
+                def run(lens=dlens, k_=k_, v_=v_, kw=kw):
+                    return fd.flash_decode(q_dense, k_, v_,
+                                           return_residuals=True,
+                                           **dict(kw, kv_lens=lens))
+
+                def plain(k_=k_, v_=v_, starts=starts, cap=cap):
+                    return fd._flash_decode_plain(
+                        q_dense, k_, v_, kv_lens=dlens, kv_starts=starts,
+                        max_span=None, scale=scale, softcap=cap)
+                short = dlens.clone()
+                short[0] -= 64
+                fault_o = run(short)[0]
+                n_keys = [min(n, window or n) for n in lengths]
+                store = (k_.values if isinstance(k_, QuantizedTensor)
+                         else k_)
+                row_bytes = store.shape[-1] * store.element_size()
+                q_used = q_dense
+            else:
+                decode = kernel != "paged_prefill"
+                cache = caches["decode" if decode else "prefill"]
+                if prec:
+                    cache = pa.quantize_paged(cache, prec)
+                q = qs[kernel]
+                fn = pa.paged_decode if decode else pa.paged_prefill
+                kw = dict(window_size=window, logit_softcap=cap)
+
+                def run(cache=cache, q=q, fn=fn, kw=kw):
+                    return fn(q, cache, return_residuals=True, **kw)
+
+                def plain(cache=cache, q=q, window=window, cap=cap):
+                    po, plse = pa._paged_attention_plain(
+                        as_rows(q), cache, scale=scale, window_size=window,
+                        softcap=cap)
+                    return po.reshape(q.shape), plse.reshape(q.shape[:-1])
+                lens_now = cache.lengths.tolist()
+                if decode:
+                    bad = cache._replace(lengths=cache.lengths.clone())
+                    bad.lengths[0] -= 64
+                    n_keys = [min(n, window or n) for n in lens_now]
+                else:
+                    # Sequence 0's last page read from the spare one.
+                    table = cache.page_table.clone()
+                    table[0, (lens_now[0] - 1) // page] = 1
+                    bad = cache._replace(page_table=table)
+                    n_keys = [min(n, pchunk + window - 1 if window else n)
+                              for n in lens_now]
+                fault_o = run(bad)[0]
+                row_bytes = cache.k_pages.shape[-1] * \
+                    cache.k_pages.element_size()
+                if prec == "nf4":
+                    row_bytes //= 2        # two tokens a stored row
+                q_used = q
+            o, lse = run()
+            torch.cuda.synchronize(dev)
+            after = dict(pa.LAUNCH_COUNTS, **fd.LAUNCH_COUNTS)
+            moved = {k: after[k] - before[k] for k in after
+                     if after[k] != before[k]}
+            want_keys = {kernel, f"{kernel}_sm90", f"{kernel}_d32"}
+            if prec:
+                want_keys.add(f"{kernel}_{prec}")
+            if cap:
+                want_keys.add(f"{kernel}_softcap")
+            # run() above for the fault, then for the output: 2 each.
+            if moved != {k: 2 for k in want_keys}:
+                problems.append(f"{tag} launched {moved}")
+            po, plse = plain()
+            fault = o.clone()
+            fault[0, -1] = fault_o[0, -1]
+            r = closeness(as_rows(o), as_rows(po))
+            r["planted_fault"] = closeness(as_rows(fault), as_rows(po))
+            r["lse_max_abs_err"] = max_abs_err(lse, plse)
+            readings[tag] = r
+            if not within_limits(r) or r["lse_max_abs_err"] > MIXED_TOL.lse:
+                problems.append(f"{tag} disagrees with its plain version")
+            if within_limits(r["planted_fault"]):
+                problems.append(f"the {tag} check does not see a one-tile "
+                                "fault")
+            spread = timed_spread(lambda: run(), 20)
+            plain_ms, _ = timed(plain, 3)
+            rows_a_key = q_used.shape[1] // kvh
+            keys = sum(n_keys)
+            scale_bytes = 0 if not prec else 2 * 4 * kvh * sum(
+                -(-n // page) for n in n_keys)
+            io = 2 * nbytes(q_used) + 4 * q_used[..., 0].numel()
+            flops = 4 * d * kvh * rows_a_key * keys
+            if kernel == "paged_prefill":
+                flops = 4 * d * qh * sum(visible_pairs(
+                    pchunk, n, True, window) for n in lens_now)
+            bound_ms, bound_by = bound(
+                flops, 2 * kvh * keys * row_bytes + scale_bytes + io)
+            library_ms, library, library_spread = None, None, None
+            if kernel == "flash_decode" and not prec and not cap:
+                mask = (torch.arange(max(lengths), device=dev)[None, :]
+                        < dlens[:, None].long())[:, None, None, :]
+                library_spread = timed_spread(
+                    lambda: F.scaled_dot_product_attention(
+                        q_dense[:, :, None], k_dense, v_dense,
+                        attn_mask=mask, enable_gqa=True), 20)
+                library = ("F.scaled_dot_product_attention(q[:, :, None], "
+                           "k, v, attn_mask=<length mask>, enable_gqa=True)")
+            elif kernel == "flash_decode" and not prec:
+                # The cap: flex_attention with a tanh score_mod and each
+                # sequence's keys from its start to its length.
+                flex, library = flex_yardstick(
+                    q_dense[:, :, None], k_dense, v_dense, window=None,
+                    cap=cap, scale=scale, keys=(starts, dlens))
+                if flex is not None:
+                    library_spread = timed_spread(flex, 20)
+                    r["library_against_kernel"] = closeness(
+                        flex(), as_rows(o))
+                    library = ("flex_attention(q[:, :, None], k, v, "
+                               f"score_mod=<tanh cap {cap}>, block_mask="
+                               "<kv_starts <= key < kv_lens>, enable_gqa="
+                               "True), compiled")
+                del flex
+                # Later phases' flex compiles start from none, below
+                # dynamo's recompile limit (as after fp32_checks).
+                import torch._dynamo
+                torch._dynamo.reset()
+            if library_spread is not None:
+                library_ms = library_spread["ms"]
+            by_path = {p: n for p, c in launches_by_path.items()
+                       if (n := variant_launches(c, kernel, prec, cap))}
+            shape = f"q {list(q_used.shape)}, " + (
+                f"k/v {list(k_dense.shape)}, lengths {lengths}"
+                if kernel == "flash_decode" else
+                f"pages of {page}, lengths {lens_now}")
+            if cap:
+                shape += f", window {window}, cap {cap}"
+            out.append({
+                "name": tag, "route": "cuda",
+                "source": src + ("flash_decode.cu" if kernel ==
+                                 "flash_decode" else "paged_attention.cu"),
+                "core": src + "decode_common.cuh",
+                "replaces": ("metal_flash_attention_tpu/ops/flash_decode.py"
+                             ":82" if kernel == "flash_decode" else
+                             "metal_flash_attention_tpu/ops/"
+                             "paged_attention.py:183"),
+                "launches": sum(by_path.values()),
+                "launches_by_path": by_path,
+                "max_abs_err": r["max_abs_err"], "o": r,
+                "ms": spread["ms"], "spread": spread, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "share_of_bound": bound_ms / spread["ms"],
+                "library_ms": library_ms, "library": library,
+                "library_spread": library_spread, "shape": shape,
+                "timed": f"warm, median of {GEMM_REPEATS} loops of 20 calls",
+                "limits": {"tile_rel_rms": KERNEL_TILE_REL_RMS,
+                           "lse_abs": MIXED_TOL.lse}, "card": card})
+    print("d32_decode_checks: " + json.dumps({
+        "heads": f"{qh} q / {kvh} kv, head_dim {d}, page {page}",
+        "readings": readings,
+        "limits": {"tile_rel_rms": KERNEL_TILE_REL_RMS,
+                   "lse_abs": MIXED_TOL.lse}}), flush=True)
+    if problems:
+        fail("d32_decode_checks: " + "; ".join(problems))
     return out
 
 
@@ -5254,13 +6227,15 @@ def gemma_reference(params, cfg, dev) -> dict:
     return readings
 
 
-def flex_yardstick(q, k, v, *, window, cap, scale, do=None):
+def flex_yardstick(q, k, v, *, window, cap, scale, do=None, keys=None):
     """`flex_attention` with a tanh score_mod and a causal (and window)
     mask_mod, compiled: one PyTorch call computing the kernels' function,
-    timed as a yardstick and never called by the port; with ``do``, its
-    backward instead (`torch.autograd.grad` of one graph, kept, against
-    ``do``: dq, dk, dv; the forward outside the timed call).  Returns (fn,
-    None) or (None, the reason it is not timed)."""
+    timed as a yardstick and never called by the port; with ``keys``
+    ((starts, lengths), int tensors [batch]), each sequence's keys from
+    its start to its length instead, as a decode sees them; with ``do``,
+    its backward instead (`torch.autograd.grad` of one graph, kept,
+    against ``do``: dq, dk, dv; the forward outside the timed call).
+    Returns (fn, None) or (None, the reason it is not timed)."""
     import torch
 
     try:
@@ -5274,12 +6249,15 @@ def flex_yardstick(q, k, v, *, window, cap, scale, do=None):
             return cap * torch.tanh(s / cap)
 
         def mask_mod(b, h, qi, ki):
+            if keys is not None:
+                return (ki >= keys[0][b]) & (ki < keys[1][b])
             live = ki <= qi + offset
             if window is not None:
                 live = live & (ki > qi + offset - window)
             return live
-        mask = create_block_mask(mask_mod, None, None, q.shape[-2],
-                                 k.shape[-2], device=q.device)
+        mask = create_block_mask(
+            mask_mod, None if keys is None else q.shape[0], None,
+            q.shape[-2], k.shape[-2], device=q.device)
         flex = torch.compile(flex_attention, dynamic=False)
         if do is None:
             fn = lambda: flex(q, k, v, score_mod=score_mod,  # noqa: E731
@@ -9050,6 +10028,13 @@ def run(dev, cache_dir) -> int:
     d32_paths["ring_checks"] = collections.Counter()
     for counts in ring_launches["d32"].values():
         d32_paths["ring_checks"].update(counts)
+    # The tiny Llama and Gemma-2 served at head dim 32, and the docs'
+    # examples, on the card; then every D 32 kernel's checks.
+    d32_paths.update({f"tiny_serve:{p}": c for p, c in phase(
+        "tiny_serve", tiny_serve, dev, card).items()})
+    d32_paths.update({f"docs_examples:{p}": c for p, c in phase(
+        "docs_examples", docs_examples, dev, card).items()})
+    torch.cuda.empty_cache()
     kernels += phase("d32_checks", d32_checks, dev, card, d32_paths)
     torch.cuda.empty_cache()
     softmax_kernels = phase("softmax_checks", softmax_kernel_checks, dev,

@@ -68,6 +68,11 @@ Ported so far:
   routing by index, `moe_ffn`, the forward, loss and SGD step), served by
   the paged steps, their bursts, speculative decoding and the engine
   (`serving._ffn_block`);
+- slice 23, head dim 32 in the paged and dense decode kernels, so the
+  tiny Llama and Gemma-2 configs serve on the card, and the JAX
+  package's public names (`AttentionDescriptor`, `OperandPrecision`,
+  `dot_product_attention`) at the top level, so the docs' snippets run
+  against the port;
 - shared: `ops.reference`, `native.build`, `utils`.
 
 Constructors (`init_params`, `params_from_numpy`, `init_cache`,
@@ -77,6 +82,13 @@ Constructors (`init_params`, `params_from_numpy`, `init_cache`,
 
 __version__ = "0.1.0"
 
+from metal_flash_attention_tpu_torch.compat import dot_product_attention
+from metal_flash_attention_tpu_torch.descriptors.attention_descriptor import (
+    AttentionDescriptor,
+)
+from metal_flash_attention_tpu_torch.descriptors.precision import (
+    OperandPrecision,
+)
 from metal_flash_attention_tpu_torch.dispatch import attention
 from metal_flash_attention_tpu_torch.models.engine import ServingEngine
 from metal_flash_attention_tpu_torch.models.gemma import GemmaConfig
@@ -113,9 +125,11 @@ from metal_flash_attention_tpu_torch.ops.quantization import (
 from metal_flash_attention_tpu_torch.ops.reference import attention_reference
 
 __all__ = [
+    "AttentionDescriptor",
     "GemmaConfig",
     "LAUNCH_COUNTS",
     "LlamaConfig",
+    "OperandPrecision",
     "PagedKVCache",
     "QuantizedMatrix",
     "QuantizedTensor",
@@ -123,6 +137,7 @@ __all__ = [
     "attention",
     "attention_reference",
     "batched_gemm",
+    "dot_product_attention",
     "flash_attention",
     "flash_attention_backward",
     "flash_attention_forward",

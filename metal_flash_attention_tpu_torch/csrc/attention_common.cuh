@@ -441,9 +441,12 @@ __global__ void __launch_bounds__(32 * kMergeRows)
 merge_splits_kernel(const float* part_o, const float* part_lse, T* o,
                     float* lse, int rows, int splits) {
   constexpr int kCols = D / 32;  // a lane's columns
-  static_assert(kCols == 2 || kCols == 4 || kCols == 8, "D 64, 128 or 256");
-  using Vec = typename std::conditional<kCols == 2, float2, float4>::type;
-  constexpr int kVecs = kCols == 2 ? 1 : kCols / 4;  // 16-byte loads a lane
+  static_assert(kCols == 1 || kCols == 2 || kCols == 4 || kCols == 8,
+                "D 32, 64, 128 or 256");
+  using Vec = typename std::conditional<
+      kCols == 1, float,
+      typename std::conditional<kCols == 2, float2, float4>::type>::type;
+  constexpr int kVecs = kCols <= 2 ? 1 : kCols / 4;  // loads a lane
   const int lane = threadIdx.x % 32;
   const int r = blockIdx.x * kMergeRows + threadIdx.x / 32;
   if (r >= rows) return;

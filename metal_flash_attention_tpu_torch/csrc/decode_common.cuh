@@ -117,7 +117,7 @@ __device__ __forceinline__ uint32_t ld_u32(const void* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-// 16 bytes of T as floats, and two adjacent values as a float2.
+// 16 bytes of T as floats, two adjacent values as a float2, and one value.
 template <typename T>
 struct Elem;
 
@@ -136,6 +136,9 @@ struct Elem<__nv_bfloat16> {
   __device__ static float2 pair(const __nv_bfloat16* p) {
     return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
   }
+  __device__ static float one(const __nv_bfloat16* p) {
+    return __bfloat162float(*p);
+  }
 };
 
 template <>
@@ -153,6 +156,7 @@ struct Elem<__half> {
   __device__ static float2 pair(const __half* p) {
     return __half22float2(*reinterpret_cast<const __half2*>(p));
   }
+  __device__ static float one(const __half* p) { return __half2float(*p); }
 };
 
 template <>
@@ -166,6 +170,7 @@ struct Elem<float> {
   __device__ static float2 pair(const float* p) {
     return *reinterpret_cast<const float2*>(p);
   }
+  __device__ static float one(const float* p) { return *p; }
 };
 
 // --- the ring ------------------------------------------------------------
@@ -349,6 +354,16 @@ __device__ __forceinline__ void fill_nf4_table(uint32_t* table) {
   if constexpr (QR::kNf4) fill_nf4_pairs(table, threadIdx.x, blockDim.x);
 }
 
+// The passes of a block's threads over kPieces 16-byte pieces: whole
+// passes, or one guarded pass when a tile has fewer pieces than threads (an
+// NF4 tile at D 32: 64 rows of 16 bytes dense, 32 rows of 32 bytes paged).
+template <int kPieces, int kThreads>
+__host__ __device__ constexpr int passes() {
+  static_assert(kPieces % kThreads == 0 || kPieces < kThreads,
+                "whole passes, or one guarded pass");
+  return kPieces < kThreads ? 1 : kPieces / kThreads;
+}
+
 __device__ __forceinline__ void store32(__nv_bfloat16* dst,
                                         const uint4 (&x)[2]) {
   uint4* d = reinterpret_cast<uint4*>(dst);
@@ -364,10 +379,10 @@ __device__ __forceinline__ void dequant_tile(const unsigned char* raw,
   constexpr int kPerRow = QR::kRowBytes / 16;
   constexpr int kPieces = QR::kRows * kPerRow;
   constexpr int kStride = QR::kStride;
-  static_assert(kPieces % kThreads == 0, "whole pieces a thread");
 #pragma unroll
-  for (int i = 0; i < kPieces / kThreads; ++i) {
+  for (int i = 0; i < passes<kPieces, kThreads>(); ++i) {
     const int c = threadIdx.x + i * kThreads;
+    if (kPieces < kThreads && c >= kPieces) break;
     const int r = c / kPerRow, part = (c % kPerRow) * 16;
     const uint4 x =
         *reinterpret_cast<const uint4*>(raw + r * QR::kRowBytes + part);
@@ -396,10 +411,10 @@ __device__ __forceinline__ void load_qtile(unsigned char* stage,
                                            int hi) {
   constexpr int kPerRow = QR::kRowBytes / 16;
   constexpr int kPieces = QR::kRows * kPerRow;
-  static_assert(kPieces % kThreads == 0, "whole copies a thread");
 #pragma unroll
-  for (int i = 0; i < kPieces / kThreads; ++i) {
+  for (int i = 0; i < passes<kPieces, kThreads>(); ++i) {
     const int c = threadIdx.x + i * kThreads;
+    if (kPieces < kThreads && c >= kPieces) break;
     const int r = c / kPerRow, part = (c % kPerRow) * 16;
     const int pos = slot_pos<QR::kTile>(rows, t, r);
     const bool live = stored_live(rows, pos, lo, hi);
@@ -971,11 +986,15 @@ flash_decode90_kernel(DecodeIO<T> io, KV kv) {
           for (int j = 0; j < kWarpKeys; ++j) {
             float vf[kCols];
             const T* vr = vs + (key0 + j) * kStride + lane * kCols;
+            if constexpr (kCols == 1) {  // D 32: a column a lane
+              vf[0] = Elem<T>::one(vr);
+            } else {
 #pragma unroll
-            for (int c = 0; c < kCols; c += 2) {
-              const float2 x = Elem<T>::pair(vr + c);
-              vf[c] = x.x;
-              vf[c + 1] = x.y;
+              for (int c = 0; c < kCols; c += 2) {
+                const float2 x = Elem<T>::pair(vr + c);
+                vf[c] = x.x;
+                vf[c + 1] = x.y;
+              }
             }
 #pragma unroll
             for (int r = 0; r < kDecodeMaxGroup; ++r) {

@@ -29,13 +29,13 @@
 // type and is decoded in shared memory (decode_common.cuh); the K scale
 // folds into the softmax scale and the V scale into the output.  The TPU
 // package decodes NF4 at some head dims through its prefill kernel, a lane
-// rule of the TPU; here every precision runs in this kernel at D 64 and
-// 128.
+// rule of the TPU; here every precision runs in this kernel at D 32, 64
+// and 128.
 //
 // Gemma-2 (the TPU kernel's `logit_softcap` and head_dim 256): softcap > 0
 // soft-caps every scaled logit before the mask (`softcap` in
 // attention_common.cuh), in kernels instantiated with the cap (kCap), so
-// the uncapped ones are unchanged; bf16, fp16 and fp32 at D 64 and 128,
+// the uncapped ones are unchanged; bf16, fp16 and fp32 at D 32, 64 and 128,
 // bf16 and fp16 at D 256 (Q's fragments from shared memory there), K/V
 // in the queries' type.  A quantized cache takes no cap.
 //
@@ -43,6 +43,13 @@
 // (in elements of their storage: bytes for a quantized cache), so a slice
 // of a cache along the sequence axis needs no copy; only the last axis
 // must be contiguous.
+//
+// Head dim 32 (the tiny configs' heads) is a real D = 32 instantiation of
+// the core, for every type, the cap and every quantized precision: the
+// cache stays [.., max_seq, 32] in memory (padding it would double the
+// bytes this bytes-bound kernel reads).  fp32 at D 32 gives each lane one
+// column of PV; an NF4 tile's 64 pieces take one guarded pass of the
+// block's 128 threads.
 //
 // Every entry point returns cudaGetLastError() after its launches.
 
@@ -103,12 +110,17 @@ int dispatch(const Args& a, cudaStream_t stream) {
   const bool capped = a.softcap > 0.f;
   if constexpr (P != kUnquantized) {
     if (capped) return (int)cudaErrorInvalidValue;
+    if (a.head_dim == 32)
+      return launch_decode<T, 32, DenseKV<S>, P>(io, kv, a.batch, 0, stream);
     if (a.head_dim == 64)
       return launch_decode<T, 64, DenseKV<S>, P>(io, kv, a.batch, 0, stream);
     if (a.head_dim == 128)
       return launch_decode<T, 128, DenseKV<S>, P>(io, kv, a.batch, 0,
                                                   stream);
   } else {
+    if (a.head_dim == 32)
+      return launch_capped<T, 32, DenseKV<S>, P>(io, kv, a.batch, capped,
+                                                 stream);
     if (a.head_dim == 64)
       return launch_capped<T, 64, DenseKV<S>, P>(io, kv, a.batch, capped,
                                                  stream);
@@ -129,7 +141,7 @@ int dispatch(const Args& a, cudaStream_t stream) {
 extern "C" {
 
 // dtype: 0 bf16, 1 fp16, 2 fp32 (q and o; K and V too unless quantized).
-// head_dim: 64 or 128, and 256 for bf16 and fp16 over K/V in that type.
+// head_dim: 32, 64 or 128, and 256 for bf16 and fp16 over K/V in that type.
 // softcap > 0: soft-cap the scaled logits (not over a quantized cache);
 // 0: none.
 // kv_precision: 0 for K and V in q's dtype, else the Precision of their

@@ -53,6 +53,15 @@
 // 64 rows sit in shared memory and each 16-deep step reads its fragment
 // by ldmatrix (in registers it would take 64 more a thread and spill).
 //
+// Head dim 32 (the tiny Llama and Gemma-2 configs' heads) is a real D = 32
+// instantiation over every pool and both modes: 32-column rows padded to
+// 80 bytes in shared memory (eight rows an ldmatrix still fall in distinct
+// banks), two 16-deep steps for QK^T and four 8-column accumulators for PV.
+// The pools stay [.., page, 32] in memory: padding them to 64 columns
+// would double the bytes a decode reads.  An NF4 tile at D 32 has 64
+// 16-byte pieces, fewer than the block's 128 threads, so its copies and
+// its decode take one guarded pass (`passes` in decode_common.cuh).
+//
 // Every function returns cudaGetLastError() after its launches.
 
 #include <climits>
@@ -508,34 +517,39 @@ struct Decode {
   }
 };
 
-// One mode at the pools' precision, head dim and cap.  D 256 takes bf16
-// pools.
-template <template <int, typename, bool, int, bool> class Mode, bool kCap>
-int dispatch_cap(const Args& a, int precision, cudaStream_t s) {
-  if (a.head_dim == 256)
-    return precision == kPrecBf16
-               ? Mode<256, bf16, false, kUnquantized, kCap>::run(a, s)
-               : (int)cudaErrorInvalidValue;
-  if (a.head_dim != 64 && a.head_dim != 128)
-    return (int)cudaErrorInvalidValue;
-  const bool d64 = a.head_dim == 64;
+// One mode at the pools' precision, for head dim D and the cap.
+template <template <int, typename, bool, int, bool> class Mode, bool kCap,
+          int D>
+int dispatch_precision(const Args& a, int precision, cudaStream_t s) {
   switch (precision) {
     case kPrecBf16:
-      return d64 ? Mode<64, bf16, false, kUnquantized, kCap>::run(a, s)
-                 : Mode<128, bf16, false, kUnquantized, kCap>::run(a, s);
+      return Mode<D, bf16, false, kUnquantized, kCap>::run(a, s);
     case kPrecInt8:
-      return d64 ? Mode<64, uint8_t, false, kPrecInt8, kCap>::run(a, s)
-                 : Mode<128, uint8_t, false, kPrecInt8, kCap>::run(a, s);
+      return Mode<D, uint8_t, false, kPrecInt8, kCap>::run(a, s);
     case kPrecE4M3:
-      return d64 ? Mode<64, uint8_t, false, kPrecE4M3, kCap>::run(a, s)
-                 : Mode<128, uint8_t, false, kPrecE4M3, kCap>::run(a, s);
+      return Mode<D, uint8_t, false, kPrecE4M3, kCap>::run(a, s);
     case kPrecE5M2:
-      return d64 ? Mode<64, uint8_t, false, kPrecE5M2, kCap>::run(a, s)
-                 : Mode<128, uint8_t, false, kPrecE5M2, kCap>::run(a, s);
+      return Mode<D, uint8_t, false, kPrecE5M2, kCap>::run(a, s);
     case kPrecNf4:
       if (a.page_size % 2) return (int)cudaErrorInvalidValue;
-      return d64 ? Mode<64, uint8_t, true, kPrecNf4, kCap>::run(a, s)
-                 : Mode<128, uint8_t, true, kPrecNf4, kCap>::run(a, s);
+      return Mode<D, uint8_t, true, kPrecNf4, kCap>::run(a, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// One mode at the pools' head dim, precision and cap: D 32 (the tiny
+// configs' heads), 64 and 128 over every pool, D 256 over bf16 pools.
+template <template <int, typename, bool, int, bool> class Mode, bool kCap>
+int dispatch_cap(const Args& a, int precision, cudaStream_t s) {
+  switch (a.head_dim) {
+    case 32: return dispatch_precision<Mode, kCap, 32>(a, precision, s);
+    case 64: return dispatch_precision<Mode, kCap, 64>(a, precision, s);
+    case 128: return dispatch_precision<Mode, kCap, 128>(a, precision, s);
+    case 256:
+      return precision == kPrecBf16
+                 ? Mode<256, bf16, false, kUnquantized, kCap>::run(a, s)
+                 : (int)cudaErrorInvalidValue;
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -558,8 +572,8 @@ extern "C" {
 // (unused when splits is 1), which `merge_splits` merges.  precision: the
 // pools' Precision (quant_common.cuh): kPrecBf16, or kPrecInt8 / kPrecE4M3
 // / kPrecE5M2 / kPrecNf4 with k_scales and v_scales [pages, kv_heads]
-// float32 (null for bf16 pools); q and o are bf16 either way.  head_dim 64
-// or 128, and 256 over bf16 pools.  starts: int [b] each sequence's first
+// float32 (null for bf16 pools); q and o are bf16 either way.  head_dim 32,
+// 64 or 128, and 256 over bf16 pools.  starts: int [b] each sequence's first
 // attended position, or null; softcap > 0 soft-caps the logits, 0 none.
 int mfa_paged_prefill(const void* q, const void* k_pool, const void* v_pool,
                       const void* k_scales, const void* v_scales,

@@ -33,10 +33,10 @@ Dispatch: a CPU tensor takes the plain PyTorch version
 (`_flash_decode_plain`: float32 scores and softmax, a quantized cache
 dequantized in float32 first, NF4's codebook rounded to the queries'
 type as the kernels round it); a CUDA tensor takes the hand-written
-kernel in `csrc/flash_decode.cu` (bf16, fp16 and true fp32, head dims 64
-and 128, and bf16 and fp16 at 256; the soft cap over K/V in the queries'
-type; quantized K/V with bf16 queries at 64 and 128, uncapped), or
-raises.  There is no
+kernel in `csrc/flash_decode.cu` (bf16, fp16 and true fp32, head dims
+32, 64 and 128, and bf16 and fp16 at 256; the soft cap over K/V in the
+queries' type; quantized K/V with bf16 queries at 32, 64 and 128,
+uncapped), or raises.  There is no
 fallback from one to the other.  The kernel is the decode core of
 `csrc/decode_common.cuh` (a cp.async K/V ring, tensor cores for 16-bit
 inputs) split over the keys in fixed chunks
@@ -44,8 +44,9 @@ inputs) split over the keys in fixed chunks
 ``LAUNCH_COUNTS["flash_decode"]`` and to
 ``LAUNCH_COUNTS["flash_decode_sm90"]``, over a quantized cache to
 ``LAUNCH_COUNTS["flash_decode_<precision>"]``, with the soft cap to
-``["flash_decode_softcap"]`` and at head_dim 256 to
-``["flash_decode_d256"]`` too; ``LAUNCH_TILES["flash_decode"]`` counts
+``["flash_decode_softcap"]``, at head_dim 256 to
+``["flash_decode_d256"]`` and at head_dim 32 to ``["flash_decode_d32"]``
+too; ``LAUNCH_TILES["flash_decode"]`` counts
 the chunk (keys a split block) of each launch.
 
 ``block_kv`` (the JAX kernel's key block) is the cap on that chunk, in
@@ -85,19 +86,21 @@ from metal_flash_attention_tpu_torch.ops.quantization import (
 from metal_flash_attention_tpu_torch.ops.reference import softcap_value
 from metal_flash_attention_tpu_torch.utils.errors import not_ported
 
-KERNEL_HEAD_DIMS = (64, 128)
+# Head dims of every type and precision (32: the tiny configs').
+KERNEL_HEAD_DIMS = (32, 64, 128)
 # Head dims of 16-bit queries over K/V in their type (Gemma-2's 256).
-WIDE_HEAD_DIMS = (64, 128, 256)
+WIDE_HEAD_DIMS = (32, 64, 128, 256)
 KERNEL_DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 
 # One count per kernel, bumped only where its wrapper launches it; the
 # `_sm90` count names the Hopper kernel (`flash_decode90_kernel`) that every
 # launch now runs, and `flash_decode_<precision>` counts its launches over
-# a quantized cache (and `_softcap`, `_d256` its capped and head_dim 256
-# launches).
+# a quantized cache (and `_softcap`, `_d256`, `_d32` its capped, head_dim
+# 256 and head_dim 32 launches).
 LAUNCH_COUNTS = {"flash_decode": 0, "flash_decode_sm90": 0,
                  **{f"flash_decode_{p.value}": 0 for p in KV_PRECISIONS},
-                 "flash_decode_softcap": 0, "flash_decode_d256": 0}
+                 "flash_decode_softcap": 0, "flash_decode_d256": 0,
+                 "flash_decode_d32": 0}
 # The chunks the kernel launched with: {keys a split block: launches}.
 LAUNCH_TILES = {"flash_decode": collections.Counter()}
 
@@ -383,6 +386,6 @@ def _flash_decode_cuda(q, k, v, *, kv_lens, kv_starts, max_span, scale,
         LAUNCH_COUNTS[f"flash_decode_{precision.value}"] += 1
     if softcap is not None:
         LAUNCH_COUNTS["flash_decode_softcap"] += 1
-    if d == 256:
-        LAUNCH_COUNTS["flash_decode_d256"] += 1
+    if d in (32, 256):
+        LAUNCH_COUNTS[f"flash_decode_d{d}"] += 1
     return o, lse

@@ -37,7 +37,8 @@ Dispatch: a CPU tensor takes the plain PyTorch version
 (`_paged_attention_plain`, which dequantizes the gathered pages in
 float32); a CUDA tensor takes the hand-written kernels in
 `csrc/paged_attention.cu` (bf16 q; bf16 or quantized pools at head dims
-64 and 128, bf16 pools at 256; the soft cap and starts over every pool),
+32, 64 and 128, bf16 pools at 256; the soft cap and starts over every
+pool),
 or raises.  There is no fallback from one to the other.  Both
 modes gather their pages through the cp.async ring of
 `csrc/decode_common.cuh` and split the keys in fixed chunks
@@ -49,8 +50,9 @@ at position lengths - 1, and counts as `paged_decode_wide`.  Each kernel
 launch adds one to its `LAUNCH_COUNTS` entry (`paged_decode`,
 `paged_decode_wide`, `paged_prefill`), to the entry of its Hopper kernel
 (`<name>_sm90`), over quantized pools to `<name>_<precision>`
-(`paged_decode_int8`, ...), with the soft cap to `<name>_softcap` and at
-head_dim 256 to `<name>_d256`, and `LAUNCH_TILES[<name>]` counts the
+(`paged_decode_int8`, ...), with the soft cap to `<name>_softcap`, at
+head_dim 256 to `<name>_d256` and at head_dim 32 to `<name>_d32`, and
+`LAUNCH_TILES[<name>]` counts the
 chunk (keys a split block) it launched with.
 
 The chunk's cap (`chunk_cap`): ``pages_per_chunk`` pages (the JAX
@@ -88,17 +90,18 @@ from metal_flash_attention_tpu_torch.utils.device import resolve_device
 from metal_flash_attention_tpu_torch.utils.errors import not_ported
 from metal_flash_attention_tpu_torch.utils.shapes import cdiv
 
-KERNEL_HEAD_DIMS = (64, 128)
+# Head dims over every pool (32: the tiny Llama and Gemma-2 configs').
+KERNEL_HEAD_DIMS = (32, 64, 128)
 # Head dims over bf16 pools (Gemma-2's 256).
-BF16_HEAD_DIMS = (64, 128, 256)
+BF16_HEAD_DIMS = (32, 64, 128, 256)
 MODES = ("paged_decode", "paged_decode_wide", "paged_prefill")
 
 # One count per kernel, bumped only where its wrapper launches it: each
 # mode, its Hopper kernel, its launches over quantized pools by precision,
-# with the soft cap, and at head_dim 256.
+# with the soft cap, and at head_dim 256 and 32.
 LAUNCH_COUNTS = {f"{mode}{suffix}": 0 for mode in MODES for suffix in
                  ("", "_sm90", *(f"_{p.value}" for p in KV_PRECISIONS),
-                  "_softcap", "_d256")}
+                  "_softcap", "_d256", "_d32")}
 # The chunks each mode launched with: {keys a split block: launches}.
 LAUNCH_TILES = {mode: collections.Counter() for mode in MODES}
 
@@ -626,6 +629,6 @@ def _paged_attention_cuda(q, cache, *, scale, window_size, decode,
         LAUNCH_COUNTS[f"{name}_{precision.value}"] += 1
     if softcap is not None:
         LAUNCH_COUNTS[f"{name}_softcap"] += 1
-    if d == 256:
-        LAUNCH_COUNTS[f"{name}_d256"] += 1
+    if d in (32, 256):
+        LAUNCH_COUNTS[f"{name}_d{d}"] += 1
     return o, lse

@@ -784,3 +784,80 @@ def dryrun_body(rank: int, world: int, payload) -> dict:
     with contextlib.redirect_stdout(text):
         losses = entry._dryrun_rank(world, "cpu", weights)
     return {"stdout": text.getvalue(), "losses": losses}
+
+
+# The parallelism guide's examples (tests/test_torch_docs_examples.py):
+# mesh and ring attention, head-parallel attention, and the pipeline.
+DOCS_WORLD = 8
+DOCS_RING_SHAPE = (1, 2, 512, 64)
+DOCS_SHARDED_SHAPE = (2, 4, 256, 64)
+DOCS_STAGES = 4
+DOCS_PIPE = dict(width=16, micro=8, mb=2)
+
+
+def docs_inputs() -> dict:
+    """The examples' inputs, float32 numpy from one seed (the guide
+    draws them with jax.random; both packages take these instead)."""
+    rng = np.random.default_rng(0)
+    ring = [rng.standard_normal(DOCS_RING_SHAPE).astype(np.float32)
+            for _ in range(3)]
+    sharded = [rng.standard_normal(DOCS_SHARDED_SHAPE).astype(np.float32)
+               for _ in range(3)]
+    w = DOCS_PIPE["width"]
+    stages = [(rng.standard_normal((w, w)) * 0.1).astype(np.float32)
+              for _ in range(DOCS_STAGES)]
+    xs = rng.standard_normal((DOCS_PIPE["micro"], DOCS_PIPE["mb"],
+                              w)).astype(np.float32)
+    return {"ring": ring, "sharded": sharded, "stages": stages, "xs": xs}
+
+
+def docs_body(rank: int, world: int, payload) -> dict:
+    """The guide's two eight-device examples through the port on 8 ranks:
+    ring attention at data 1 x heads 2 x context 4 and head-parallel
+    attention at data 2 x heads 4 (bf16, each o gathered whole), and the
+    4-stage pipeline on a (replica 2, stage 4) mesh of the 8 ranks (the
+    port's `make_pipeline_mesh` takes a group of exactly its stages)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from metal_flash_attention_tpu_torch.parallel import (
+        CONTEXT_AXIS,
+        DATA_AXIS,
+        HEAD_AXIS,
+        STAGE_AXIS,
+        P,
+        make_mesh,
+        pipeline,
+        ring_attention,
+        shard,
+        sharded_flash_attention,
+        stack_stage_params,
+        unshard,
+    )
+
+    inputs = docs_inputs()
+    mesh = make_mesh(data=1, heads=2, context=4, devices="cpu")
+    spec = P(DATA_AXIS, HEAD_AXIS, CONTEXT_AXIS)
+    q, k, v = (shard(as_torch(x, "bfloat16"), spec, mesh)
+               for x in inputs["ring"])
+    o = ring_attention(mesh, causal=True)(q, k, v)
+    out = {"ring": as_numpy(unshard(o, spec, mesh))}
+
+    mesh2 = make_mesh(data=2, heads=4, devices="cpu")
+    spec2 = P(DATA_AXIS, HEAD_AXIS)
+    q2, k2, v2 = (shard(as_torch(x, "bfloat16"), spec2, mesh2)
+                  for x in inputs["sharded"])
+    o2 = sharded_flash_attention(mesh2, causal=True)(q2, k2, v2)
+    out["sharded"] = as_numpy(unshard(o2, spec2, mesh2))
+
+    pmesh = init_device_mesh("cpu", (world // DOCS_STAGES, DOCS_STAGES),
+                             mesh_dim_names=("replica", STAGE_AXIS))
+    stage = pmesh.get_local_rank(STAGE_AXIS)
+    params = stack_stage_params([{"w": torch.as_tensor(w)}
+                                 for w in inputs["stages"]])
+    local = {name: x[stage:stage + 1] for name, x in params.items()}
+
+    def stage_fn(p, x):
+        return torch.tanh(x @ p["w"])
+    y = pipeline(stage_fn, local, torch.as_tensor(inputs["xs"]), mesh=pmesh)
+    out["pipeline"] = as_numpy(y)
+    return out

@@ -105,6 +105,13 @@ CASES = [
     # A row whose live keys are the cache's last few, beside a full row
     # and a one-key row.
     (16, 4, 64, 4096, [4096, 4096, 1], [4090, 0, 0], None, None),
+    # Head dim 32 (the tiny configs'): an empty row, starts and spans, a
+    # group of 16, a strided slice, many chunks.
+    (4, 2, 32, 200, [13, 0, 200, 1], None, None, None),
+    (16, 4, 32, 300, [300, 129, 50], [100, 29, 0], 128, None),
+    (64, 4, 32, 256, [256, 255], None, None, None),
+    (8, 2, 32, 600, [600, 300], [88, 0], 512, 700),
+    (4, 2, 32, 8192, [8192, 6000, 7777], [1000, 4100, 7000], 3000, None),
 ]
 
 
@@ -123,6 +130,8 @@ def test_decode_kernel_matches_plain(cuda, dtype, qh, kvh, d, n, lens,
     torch.cuda.synchronize()
     for name in ("flash_decode", "flash_decode_sm90"):
         assert fd.LAUNCH_COUNTS[name] == before[name] + 1
+    assert fd.LAUNCH_COUNTS["flash_decode_d32"] == \
+        before["flash_decode_d32"] + (d == 32)
     po, plse = fd._flash_decode_plain(q.float(), k.float(), v.float(),
                                       kv_lens=lens_t, kv_starts=starts_t,
                                       max_span=span, scale=d ** -0.5)
@@ -145,6 +154,9 @@ def test_decode_kernel_matches_plain(cuda, dtype, qh, kvh, d, n, lens,
      None),
     (8, 2, 64, 300, [300, 0, 77], None, None),                # empty row
     (16, 4, 128, 600, [600, 300], [88, 0], 512),              # windows
+    # Head dim 32: an NF4 row is 16 bytes, a tile 64 pieces.
+    (8, 2, 32, 300, [300, 0, 77], None, None),
+    (16, 4, 32, 600, [600, 300], [88, 0], 512),
 ])
 def test_quantized_decode_kernel_matches_plain(cuda, precision, qh, kvh, d,
                                                n, lens, starts, span):
@@ -160,6 +172,8 @@ def test_quantized_decode_kernel_matches_plain(cuda, precision, qh, kvh, d,
     for name in ("flash_decode", "flash_decode_sm90",
                  f"flash_decode_{precision}"):
         assert fd.LAUNCH_COUNTS[name] == before[name] + 1
+    assert fd.LAUNCH_COUNTS["flash_decode_d32"] == \
+        before["flash_decode_d32"] + (d == 32)
     po, plse = fd._flash_decode_plain(q, kq, vq, kv_lens=lens_t,
                                       kv_starts=starts_t, max_span=span,
                                       scale=d ** -0.5)
@@ -239,6 +253,9 @@ GEMMA_CASES = [
     (8, 4, 256, 5000, [5000, 4097, 1], [904, 1, 0], 4.0, 2.0),
     (8, 4, 256, 700, [700, 13], None, 1.0, None),
     (32, 8, 128, 1100, [1100, 64], [100, 0], 4.0, 2.0),
+    # The tiny Gemma-2's heads (head dim 32), its window as starts.
+    (4, 2, 32, 700, [700, 13], [636, 0], 4.0, 2.0),
+    (4, 2, 32, 700, [700, 13], None, 1.0, 50.0),
 ]
 
 
@@ -260,6 +277,8 @@ def _gemma_decode(cuda, dtype, qh, kvh, d, n, lens, starts, gain, cap,
         before["flash_decode_softcap"] + (kernel_cap is not None)
     assert fd.LAUNCH_COUNTS["flash_decode_d256"] == \
         before["flash_decode_d256"] + (d == 256)
+    assert fd.LAUNCH_COUNTS["flash_decode_d32"] == \
+        before["flash_decode_d32"] + (d == 32)
     po, plse = fd._flash_decode_plain(q.float(), k.float(), v.float(),
                                       kv_lens=lens_t, kv_starts=starts_t,
                                       max_span=None, scale=d ** -0.5,
@@ -279,9 +298,10 @@ def test_decode_kernel_gemma_matches_plain(cuda, dtype, qh, kvh, d, n, lens,
     assert torch.equal(torch.isinf(lse), torch.isinf(plse))
 
 
-def test_decode_kernel_float32_takes_the_cap(cuda):
+@pytest.mark.parametrize("qh,kvh,d", [(32, 8, 128), (4, 2, 32)])
+def test_decode_kernel_float32_takes_the_cap(cuda, qh, kvh, d):
     """fp32 on CUDA cores, with the accurate tanh, at the fp32 tier."""
-    o, lse, po, plse = _gemma_decode(cuda, torch.float32, 32, 8, 128, 1100,
+    o, lse, po, plse = _gemma_decode(cuda, torch.float32, qh, kvh, d, 1100,
                                      [1100, 64], [100, 0], 4.0, 2.0, 2.0)
     assert max_abs_err(o, po) <= tolerances_for(torch.float32).o
     assert max_abs_err(lse, plse) <= tolerances_for(torch.float32).lse
@@ -299,8 +319,8 @@ def test_decode_kernel_without_its_cap_is_seen(cuda):
 def test_kernel_refuses_what_it_does_not_take(cuda):
     q, k, v = _qkv(2, batch=1, q_heads=4, kv_heads=2, d=64, max_seq=32,
                    dtype=torch.bfloat16, device=cuda)
-    with pytest.raises(NotImplementedError):       # head_dim 32
-        fd.flash_decode(q[..., :32], k[..., :32], v[..., :32])
+    with pytest.raises(NotImplementedError):       # head_dim 48
+        fd.flash_decode(q[..., :48], k[..., :48], v[..., :48])
     with pytest.raises(TypeError):
         fd.flash_decode(q, k.float(), v.float())
     with pytest.raises(TypeError):
@@ -319,15 +339,37 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
     fd.flash_decode(q, kq, vq)                     # INT8 K/V: taken
     with pytest.raises(NotImplementedError):       # fp16 queries
         fd.flash_decode(q.half(), kq, vq)
-    with pytest.raises(NotImplementedError):       # head_dim 32
-        fd.flash_decode(q[..., :32], quantize(k[..., :32], nf4),
-                        quantize(v[..., :32], nf4))
+    with pytest.raises(NotImplementedError):       # head_dim 48
+        fd.flash_decode(q[..., :48], quantize(k[..., :48], nf4),
+                        quantize(v[..., :48], nf4))
     with pytest.raises(NotImplementedError):       # a cap over INT8 K/V
         fd.flash_decode(q, kq, vq, logit_softcap=50.0)
     q256, k256, v256 = _qkv(2, batch=1, q_heads=4, kv_heads=2, d=256,
                             max_seq=32, dtype=torch.float32, device=cuda)
     with pytest.raises(NotImplementedError):       # fp32 at head_dim 256
         fd.flash_decode(q256, k256, v256)
+
+
+@pytest.mark.parametrize("precision", [None, "nf4"])
+def test_head_dim_32_of_a_wider_cache_matches_plain(cuda, precision):
+    """The first 32 columns of a head dim 64 cache, read in place through
+    their strides (or quantized), against the plain version."""
+    q, k, v = _qkv(2, batch=2, q_heads=4, kv_heads=2, d=64, max_seq=96,
+                   dtype=torch.bfloat16, device=cuda)
+    q, k, v = q[..., :32], k[..., :32], v[..., :32]
+    if precision is not None:
+        prec = OperandPrecision(precision)
+        k, v = quantize(k.contiguous(), prec), quantize(v.contiguous(), prec)
+    lens = _ints([96, 40], cuda)
+    before = dict(fd.LAUNCH_COUNTS)
+    o, lse = fd.flash_decode(q, k, v, kv_lens=lens, return_residuals=True)
+    torch.cuda.synchronize()
+    assert fd.LAUNCH_COUNTS["flash_decode_d32"] == \
+        before["flash_decode_d32"] + 1
+    po, plse = fd._flash_decode_plain(q, k, v, kv_lens=lens, kv_starts=None,
+                                      max_span=None, scale=32 ** -0.5)
+    assert worst_row_rel_rms(o, po) <= ROW_REL_RMS[torch.bfloat16]
+    assert max_abs_err(lse, plse) <= tolerances_for(torch.bfloat16).lse
 
 
 def test_a_cpu_tensor_never_builds_the_kernel(monkeypatch):

@@ -109,6 +109,28 @@ def test_port_imports_no_jax():
     assert proc.returncode == 0, proc.stderr
 
 
+def test_public_names_cover_the_jax_packages():
+    """Every name of the JAX package's ``__all__`` is in the port's and
+    resolves there (the docs write ``mfa.AttentionDescriptor``,
+    ``mfa.OperandPrecision``, ``mfa.dot_product_attention``), from the
+    port's own modules."""
+    import metal_flash_attention_tpu as jmfa
+
+    import metal_flash_attention_tpu_torch as mfa
+
+    missing = sorted(set(jmfa.__all__) - set(mfa.__all__))
+    assert not missing, missing
+    for name in mfa.__all__:
+        value = getattr(mfa, name)
+        module = getattr(value, "__module__", None)
+        assert module is None or not module.startswith(
+            "metal_flash_attention_tpu."), (name, module)
+    assert mfa.OperandPrecision("int8").value == "int8"
+    desc = mfa.AttentionDescriptor(batch=1, q_heads=2, kv_heads=1, q_len=8,
+                                   kv_len=8, head_dim=32)
+    assert desc.head_dim == 32
+
+
 def test_page_allocator_library_is_the_ports_own():
     """The C++ allocator builds from the port's own sources into the
     port's `build/`, under the port's library name, never at the JAX

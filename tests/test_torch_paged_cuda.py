@@ -90,6 +90,12 @@ def _plain(q, cache, window, decode, starts=None, cap=None):
     (16, 4, 128, 256, [300, 1100, 513], 300),
     # Many chunks of one long row beside short ones.
     (32, 8, 128, 64, [8192, 5, 700], None),
+    # Head dim 32 (the tiny configs'): a zero-length row, odd pages and a
+    # window across them, a full group of 16, many chunks.
+    (4, 2, 32, 16, [37, 0, 200], None),
+    (8, 2, 32, 13, [300, 1, 77], 40),
+    (32, 2, 32, 128, [1100, 129], None),
+    (4, 2, 32, 64, [8192, 5, 700], None),
 ])
 def test_decode_kernel_matches_plain(cuda, q_heads, kv_heads, d, page_size,
                                      lengths, window):
@@ -102,6 +108,8 @@ def test_decode_kernel_matches_plain(cuda, q_heads, kv_heads, d, page_size,
     torch.cuda.synchronize()
     for name in ("paged_decode", "paged_decode_sm90"):
         assert pa.LAUNCH_COUNTS[name] == before[name] + 1
+    assert pa.LAUNCH_COUNTS["paged_decode_d32"] == \
+        before["paged_decode_d32"] + (d == 32)
     ro, rlse = _plain(q, cache, window, decode=True)
     assert max_abs_err(o, ro) < MIXED_TOL.o
     assert max_abs_err(lse, rlse) < MIXED_TOL.lse
@@ -121,6 +129,10 @@ def test_decode_kernel_matches_plain(cuda, q_heads, kv_heads, d, page_size,
     (8, 2, 64, 256, 100, [100, 900], 200),
     # A short row beside a long one: its late splits see no key.
     (32, 8, 128, 16, 64, [64, 2000], None),
+    # Head dim 32: the tiny engine's chunks, odd pages with a window.
+    (4, 2, 32, 16, 16, [16, 40, 100], None),
+    (4, 2, 32, 13, 9, [9, 300], 50),
+    (4, 2, 32, 128, 128, [128, 1100], None),
 ])
 def test_prefill_kernel_matches_plain(cuda, q_heads, kv_heads, d, page_size,
                                       q_chunk, lengths, window):
@@ -133,6 +145,8 @@ def test_prefill_kernel_matches_plain(cuda, q_heads, kv_heads, d, page_size,
     torch.cuda.synchronize()
     for name in ("paged_prefill", "paged_prefill_sm90"):
         assert pa.LAUNCH_COUNTS[name] == before[name] + 1
+    assert pa.LAUNCH_COUNTS["paged_prefill_d32"] == \
+        before["paged_prefill_d32"] + (d == 32)
     ro, rlse = _plain(q, cache, window, decode=False)
     assert max_abs_err(o, ro) < MIXED_TOL.o
     assert max_abs_err(lse, rlse) < MIXED_TOL.lse
@@ -168,6 +182,8 @@ def _check(name, precision, before, o, lse, ro, rlse):
     torch.cuda.synchronize()
     for key in (name, f"{name}_sm90", f"{name}_{precision}"):
         assert pa.LAUNCH_COUNTS[key] == before[key] + 1, key
+    assert pa.LAUNCH_COUNTS[f"{name}_d32"] == \
+        before[f"{name}_d32"] + (o.shape[-1] == 32)
     assert worst_row_rel_rms(o, ro) <= ROW_REL_RMS
     assert max_abs_err(lse, rlse) < MIXED_TOL.lse
     assert torch.equal(torch.isinf(lse), torch.isinf(rlse))
@@ -180,6 +196,9 @@ def _check(name, precision, before, o, lse, ro, rlse):
     (32, 8, 128, 8, [1000, 0, 77, 2048], None),
     (16, 4, 64, 16, [500, 77, 3], 40),
     (8, 2, 128, 256, [300, 1100, 513], 300),
+    # Head dim 32: an NF4 tile has fewer 16-byte pieces than threads.
+    (4, 2, 32, 16, [500, 77, 3], 40),
+    (8, 2, 32, 8, [300, 0, 129, 2048], None),
 ])
 def test_quantized_decode_kernel_matches_plain(cuda, precision, q_heads,
                                                kv_heads, d, page_size,
@@ -202,6 +221,8 @@ def test_quantized_decode_kernel_matches_plain(cuda, precision, q_heads,
     (32, 8, 128, 128, 128, [1024, 1100], None),
     (32, 8, 128, 8, 40, [40, 1100], None),
     (8, 2, 64, 16, 33, [33, 500], 50),
+    (4, 2, 32, 16, 33, [33, 500], 50),
+    (4, 2, 32, 128, 128, [128, 1100], None),
 ])
 def test_quantized_prefill_kernel_matches_plain(cuda, precision, q_heads,
                                                 kv_heads, d, page_size,
@@ -217,17 +238,26 @@ def test_quantized_prefill_kernel_matches_plain(cuda, precision, q_heads,
     _check("paged_prefill", precision, before, o, lse, ro, rlse)
 
 
-@pytest.mark.parametrize("precision", [None, "int8"])
+@pytest.mark.parametrize("precision", [None, "int8", "nf4"])
 @pytest.mark.parametrize("lengths", [[1024], [0], [640, 0, 1280]])
+@pytest.mark.parametrize("q_heads,kv_heads,d,page_size", [
+    (32 * 128, 8, 128, 128),
+    # The tiny engine's chunk prefix: 64 positions x 4 q heads over 2 kv
+    # heads at head dim 32, pages of 16.
+    (4 * 64, 2, 32, 16),
+])
 def test_wide_group_decode_runs_on_the_prefill_kernel(cuda, precision,
-                                                      lengths):
-    """A serving chunk's 128 positions folded into the heads: q [b, 32 *
-    128, 128] against 8 kv heads, a GQA group of 512.  It runs once on
-    the prefill kernel, every row at position length - 1; a row without
-    keys (a first chunk's empty prefix) gives o = 0, lse = -inf."""
-    q, cache = _case(5, batch=len(lengths), q_heads=32 * 128, kv_heads=8,
-                     d=128, page_size=128, lengths=lengths, q_chunk=None,
-                     device=cuda)
+                                                      lengths, q_heads,
+                                                      kv_heads, d,
+                                                      page_size):
+    """A serving chunk's positions folded into the heads: q [b, 32 * 128,
+    128] against 8 kv heads, a GQA group of 512 (and the tiny engine's
+    group of 128 at D 32).  It runs once on the prefill kernel, every row
+    at position length - 1; a row without keys (a first chunk's empty
+    prefix) gives o = 0, lse = -inf."""
+    q, cache = _case(5, batch=len(lengths), q_heads=q_heads,
+                     kv_heads=kv_heads, d=d, page_size=page_size,
+                     lengths=lengths, q_chunk=None, device=cuda)
     if precision is not None:
         cache = pa.quantize_paged(cache, precision)
     before = dict(pa.LAUNCH_COUNTS)
@@ -236,6 +266,8 @@ def test_wide_group_decode_runs_on_the_prefill_kernel(cuda, precision,
     names = ["paged_decode_wide", "paged_decode_wide_sm90"]
     if precision is not None:
         names.append(f"paged_decode_wide_{precision}")
+    if d == 32:
+        names.append("paged_decode_wide_d32")
     for key, n in pa.LAUNCH_COUNTS.items():
         assert n == before[key] + (key in names), key
     ro, rlse = _plain(q, cache, None, decode=True)
@@ -304,8 +336,16 @@ def test_quantized_pools_refuse_what_the_kernel_does_not_take(cuda):
         pa.paged_decode(q.half(), qcache)
     q32, c32 = _case(7, batch=1, q_heads=4, kv_heads=2, d=32, page_size=16,
                      lengths=[20], q_chunk=None, device=cuda)
-    with pytest.raises(NotImplementedError):         # head_dim 32
-        pa.paged_decode(q32, pa.quantize_paged(c32, "nf4"))
+    n32 = pa.quantize_paged(c32, "nf4")               # head_dim 32: taken
+    o32, lse32 = pa.paged_decode(q32, n32, return_residuals=True)
+    ro32, rlse32 = _plain(q32, n32, None, decode=True)
+    assert worst_row_rel_rms(o32, ro32) <= ROW_REL_RMS
+    assert max_abs_err(lse32, rlse32) < MIXED_TOL.lse
+    q48, c48 = _case(7, batch=1, q_heads=4, kv_heads=2, d=48, page_size=16,
+                     lengths=[20], q_chunk=None, device=cuda)
+    for pool in (c48, pa.quantize_paged(c48, "nf4")):
+        with pytest.raises(NotImplementedError):     # head_dim 48
+            pa.paged_decode(q48, pool)
     with pytest.raises(ValueError):                  # scales' shape
         pa.paged_decode(q, qcache._replace(k_scales=qcache.k_scales[:1]))
     q256, c256 = _case(7, batch=1, q_heads=4, kv_heads=2, d=256,
@@ -325,6 +365,9 @@ GEMMA_CASES = [
     (8, 4, 256, 128, [1100, 200], None, [100, 0], 4.0, 2.0),
     (8, 4, 256, 16, [300, 45], None, None, 1.0, None),
     (32, 8, 128, 128, [1100, 200], 300, [700, 3], 4.0, 2.0),
+    # The tiny Gemma-2's heads: head dim 32, its window of 64, odd pages.
+    (4, 2, 32, 16, [300, 45], 64, [10, 0], 4.0, 2.0),
+    (4, 2, 32, 13, [300, 100], None, [30, 0], 1.0, 50.0),
 ]
 
 
@@ -352,8 +395,8 @@ def _gemma_paged(cuda, mode, q_heads, kv_heads, d, page, lengths, window,
         names.append(f"{mode}_{precision}")
     if kernel_cap is not None:
         names.append(f"{mode}_softcap")
-    if d == 256:
-        names.append(f"{mode}_d256")
+    if d in (32, 256):
+        names.append(f"{mode}_d{d}")
     for key, n in pa.LAUNCH_COUNTS.items():
         assert n == before[key] + (key in names), key
     ro, rlse = _plain(q, cache, window, decode, starts_t, cap)
@@ -376,9 +419,15 @@ def test_gemma_kernels_match_plain(cuda, mode, q_heads, kv_heads, d, page,
 
 @pytest.mark.parametrize("mode", ["paged_decode", "paged_prefill"])
 @pytest.mark.parametrize("precision", PRECISIONS)
-def test_quantized_kernels_take_the_cap(cuda, mode, precision):
-    o, lse, ro, rlse = _gemma_paged(cuda, mode, 32, 8, 128, 128,
-                                    [1100, 200], 300, [700, 3], 4.0, 2.0,
+@pytest.mark.parametrize("q_heads,kv_heads,d,page,lengths,window,starts", [
+    (32, 8, 128, 128, [1100, 200], 300, [700, 3]),
+    (4, 2, 32, 16, [300, 100], 64, [10, 0]),
+])
+def test_quantized_kernels_take_the_cap(cuda, mode, precision, q_heads,
+                                        kv_heads, d, page, lengths, window,
+                                        starts):
+    o, lse, ro, rlse = _gemma_paged(cuda, mode, q_heads, kv_heads, d, page,
+                                    lengths, window, starts, 4.0, 2.0,
                                     2.0, precision)
     assert worst_row_rel_rms(o, ro) <= ROW_REL_RMS
     assert max_abs_err(lse, rlse) < MIXED_TOL.lse
